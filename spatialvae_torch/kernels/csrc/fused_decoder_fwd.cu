@@ -29,11 +29,11 @@
 // takes 64 pixels and holds the layer's whole (64, 512) output in registers
 // (each of the 16 warps owns 32 columns: 4 x 4 m16n8 tiles), so the single
 // activation buffer is updated in place and H is capped at 512.  W_l, which
-// the caller pads to (Hp, Hp), streams through a 4-stage ring of 8-row
-// shared-memory slabs in 16-byte cp.async copies.  Row strides are padded so
-// every fragment load of a warp hits 32 distinct banks.  wgmma with TMA
-// multicast across a cluster, which would share one W read among several
-// blocks, is later work.
+// the caller pads to (Hp, Hp), streams through a 3-stage ring of 16-row
+// shared-memory slabs in 16-byte cp.async copies, one barrier per two
+// k8-steps.  Row strides are padded so every fragment load of a warp hits
+// 32 distinct banks.  wgmma with TMA multicast across a cluster, which would
+// share one W read among several blocks, is later work.
 //
 // Shapes: fold (B,4,H); coords (HW,2); whid (Lh,Hp,Hp) [in][out], zero
 // outside its leading (H,H), Hp = 32*ceil(H/32); bhid (Lh,H); wht (No,H);
@@ -54,8 +54,8 @@ constexpr int MAX_H = 512;             // the layer output fits in registers
 constexpr int WN = MAX_H / WARPS;      // columns per warp
 constexpr int MTILES = PT / 16;
 constexpr int NTILES = WN / 8;
-constexpr int BK = 8;                  // W rows per slab: one k-step
-constexpr int STAGES = 4;              // slabs in flight
+constexpr int BK = 16;                 // W rows per slab: two k8-steps
+constexpr int STAGES = 3;              // slabs in flight
 constexpr int BNS = MAX_H + 8;         // slab row stride: conflict-free B frags
 constexpr int AS = MAX_H + 4;          // activation row stride: same for A
 constexpr int MAX_NO = 8;
@@ -213,40 +213,43 @@ fused_decoder_fwd_kernel(const float* __restrict__ fold,
       __syncthreads();                  // ... for every thread; slab j-1 free
       fill(j + STAGES - 1);             // refills slab j-1's stage
       if (!busy) continue;
-      const float* bp =
-          ring + (j % STAGES) * BK * BNS + t * BNS + warp * WN + g;
-      uint32_t bhi[NTILES][2], blo[NTILES][2];
 #pragma unroll
-      for (int nt = 0; nt < NTILES; ++nt) {
-        const float v0 = bp[nt * 8], v1 = bp[4 * BNS + nt * 8];
-        if (SPLIT) {
-          split(v0, bhi[nt][0], blo[nt][0]);
-          split(v1, bhi[nt][1], blo[nt][1]);
-        } else {
-          bhi[nt][0] = __float_as_uint(v0);
-          bhi[nt][1] = __float_as_uint(v1);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < MTILES; ++mt) {
-        const float* ap = act + (mt * 16 + g) * AS + j * BK + t;
-        const float av[4] = {ap[0], ap[8 * AS], ap[4], ap[8 * AS + 4]};
-        uint32_t ahi[4], alo[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float x = loaded<BF16, RESID>(av[c]);
-          if (SPLIT)
-            split(x, ahi[c], alo[c]);
-          else
-            ahi[c] = __float_as_uint(x);
-        }
+      for (int kk = 0; kk < BK; kk += 8) {
+        const float* bp =
+            ring + (j % STAGES) * BK * BNS + (kk + t) * BNS + warp * WN + g;
+        uint32_t bhi[NTILES][2], blo[NTILES][2];
 #pragma unroll
         for (int nt = 0; nt < NTILES; ++nt) {
+          const float v0 = bp[nt * 8], v1 = bp[4 * BNS + nt * 8];
           if (SPLIT) {
-            mma_tf32(acc[mt][nt], alo, bhi[nt][0], bhi[nt][1]);
-            mma_tf32(acc[mt][nt], ahi, blo[nt][0], blo[nt][1]);
+            split(v0, bhi[nt][0], blo[nt][0]);
+            split(v1, bhi[nt][1], blo[nt][1]);
+          } else {
+            bhi[nt][0] = __float_as_uint(v0);
+            bhi[nt][1] = __float_as_uint(v1);
           }
-          mma_tf32(acc[mt][nt], ahi, bhi[nt][0], bhi[nt][1]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MTILES; ++mt) {
+          const float* ap = act + (mt * 16 + g) * AS + j * BK + kk + t;
+          const float av[4] = {ap[0], ap[8 * AS], ap[4], ap[8 * AS + 4]};
+          uint32_t ahi[4], alo[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float x = loaded<BF16, RESID>(av[c]);
+            if (SPLIT)
+              split(x, ahi[c], alo[c]);
+            else
+              ahi[c] = __float_as_uint(x);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NTILES; ++nt) {
+            if (SPLIT) {
+              mma_tf32(acc[mt][nt], alo, bhi[nt][0], bhi[nt][1]);
+              mma_tf32(acc[mt][nt], ahi, blo[nt][0], blo[nt][1]);
+            }
+            mma_tf32(acc[mt][nt], ahi, bhi[nt][0], bhi[nt][1]);
+          }
         }
       }
     }
