@@ -10,7 +10,9 @@ decoder 500 wide, 2 layers, 3 outputs, Bernoulli; float32; random weights
 from a seed) through ``spatialvae_torch.api.SpatialVae``: checkpoint write
 and load, encode, reconstruct, reconstruct_canonical, sample and a 437-image
 evaluation, with every output checked.  Each phase prints one line; the last
-two lines are the per-kernel JSON record and ``{"ok": true, ...}``.
+three lines are the per-kernel JSON record, the card's name and power limit,
+and ``{"ok": true, ...}``.  A last pass of the requests runs under
+``torch.profiler`` for the card's busy time and idle share in it.
 
 Needs a CUDA device and ``nvcc``; imports no JAX.  Exits non-zero, without
 the final line, when there is no CUDA device or any phase fails.
@@ -29,9 +31,15 @@ import tempfile
 import time
 
 SEED = 0
-F32_TOL = 1e-4      # order of a K=500 f32 sum and tanh ulps
-BF16_TOL = 2e-2     # bf16 operand rounding
+# Kernel vs plain version: limits on the largest and on the mean absolute
+# error, by weight dtype.  On the card (PERF.md, Findings) the sound kernel
+# read max <= 9.6e-7 and mean <= 1.9e-7 in f32, max <= 2.5e-4 and mean
+# <= 1.9e-6 with bf16 weights; copies of it with one TF32 pass or unsplit
+# activations read max >= 3.3e-5 and mean >= 6.4e-6, and copies without
+# the bf16 activation casts mean >= 2.5e-5.
+TOL = {"float32": (5e-6, 1e-6), "bfloat16": (5e-4, 1e-5)}
 N_TIMED = 10
+N_PASSES = 5        # timed passes of the slice's requests
 KERNEL_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_fwd.cu"
 KERNEL_REPLACES = "spatialvae_tpu/kernels/fused_decoder.py:105"
 
@@ -58,6 +66,17 @@ def cuda_ms(fn, torch) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end)
+
+
+def check_close(name, got, want, wdt) -> tuple:
+    """(max, mean) absolute error of got against want; raises past TOL."""
+    d = (got - want).abs()
+    err, mean_err = d.max().item(), d.mean().item()
+    tol = TOL[str(wdt).replace("torch.", "")]
+    if not (err <= tol[0] and mean_err <= tol[1]):
+        raise AssertionError(f"{name}: kernel vs plain max abs err {err}, "
+                             f"mean {mean_err}; limits {tol}")
+    return err, mean_err
 
 
 def phase_device(torch) -> tuple:
@@ -107,10 +126,14 @@ def _tail_inputs(torch, b, hw, h, lh, no, wdt, gen):
 
 
 def phase_kernels(torch) -> dict:
-    """Kernel vs plain version on the card at the main path's shapes."""
+    """Kernel vs plain version on the card at the main path's shapes.  The
+    kernel's time is its launch through ``run_decoder_tail`` with the
+    weights packed once, as the slice runs it."""
     from spatialvae_torch.kernels.fused_decoder import (
+        TailWeights,
         decoder_tail_reference,
         fused_decoder_tail,
+        run_decoder_tail,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -129,29 +152,31 @@ def phase_kernels(torch) -> dict:
             got = fused_decoder_tail(*args, resid)
             torch.cuda.synchronize()
             want = decoder_tail_reference(*args, resid)
-            err = (got - want).abs().max().item()
-            tol = BF16_TOL if wdt == torch.bfloat16 else F32_TOL
-            if not math.isfinite(err) or err > tol or \
-                    got.shape != (b, no, hw):
-                raise AssertionError(f"{name}: kernel vs plain max abs err "
-                                     f"{err} > {tol} or bad shape")
+            dtype = str(wdt).replace("torch.", "")
+            if got.shape != (b, no, hw):
+                raise AssertionError(f"{name}: shape {tuple(got.shape)}")
+            err, mean_err = check_close(name, got, want, wdt)
             # warm-up, then alternate the two versions
-            fused_decoder_tail(*args, resid)
+            fold, coords, *weights = args
+            packed = TailWeights(*weights)
+            run_decoder_tail(fold, coords, packed, resid)
             decoder_tail_reference(*args, resid)
             ks, ps = [], []
             for _ in range(N_TIMED):
-                ks.append(cuda_ms(lambda: fused_decoder_tail(*args, resid),
-                                  torch))
+                ks.append(cuda_ms(
+                    lambda: run_decoder_tail(fold, coords, packed, resid),
+                    torch))
                 ps.append(cuda_ms(
                     lambda: decoder_tail_reference(*args, resid), torch))
             results[name] = dict(err=err, ms=statistics.median(ks),
                                  plain_ms=statistics.median(ps))
             log("kernel", case=name, B=b, HW=hw, H=h, Lh=lh, No=no,
-                resid=resid, dtype=str(wdt).replace("torch.", ""),
-                max_abs_err=f"{err:.3e}", tol=tol,
+                resid=resid, dtype=dtype,
+                max_abs_err=f"{err:.3e}", mean_abs_err=f"{mean_err:.3e}",
+                max_tol=TOL[dtype][0], mean_tol=TOL[dtype][1],
                 kernel_ms=f"{results[name]['ms']:.4f}",
                 plain_ms=f"{results[name]['plain_ms']:.4f}")
-            del args, got, want
+            del args, fold, coords, weights, packed, got, want
     return results
 
 
@@ -166,7 +191,7 @@ def _check_images(name, t, shape, torch) -> None:
 
 def phase_slice(torch, tmpdir: str) -> int:
     """Serve the galaxy model through the API; returns the kernel launches
-    counted over the requests."""
+    counted over the timed passes of the requests."""
     from spatialvae_tpu.core.config import (
         InferenceConfig,
         SpatialGeneratorConfig,
@@ -218,14 +243,16 @@ def phase_slice(torch, tmpdir: str) -> int:
 
     requests()                                  # warm-up (cuBLAS, caches)
     fused_decoder_tail.launches = 0
-    t0 = time.perf_counter()
-    out = requests()
-    seconds = time.perf_counter() - t0
+    seconds = []
+    for _ in range(N_PASSES):
+        t0 = time.perf_counter()
+        out = requests()
+        seconds.append(time.perf_counter() - t0)
     launches = fused_decoder_tail.launches
     decodes = 3 + math.ceil(N_EVAL / BATCH)
-    if launches != decodes:
+    if launches != N_PASSES * decodes:
         raise AssertionError(f"kernel launched {launches} times for "
-                             f"{decodes} decodes")
+                             f"{N_PASSES} x {decodes} decodes")
 
     z_mu, z_logstd = out["encode"]
     for name, t in (("z_mu", z_mu), ("z_logstd", z_logstd)):
@@ -248,18 +275,55 @@ def phase_slice(torch, tmpdir: str) -> int:
         model.q_net, model.p_net,
         dataclasses.replace(model.serving_ecfg, fused=False), model.coords,
         y, noise=noise)
-    err = (got - want).abs().max().item()
-    if not err <= F32_TOL:
-        raise AssertionError(f"reconstruct kernel vs plain: {err}")
+    err, _ = check_close("reconstruct", got, want, torch.float32)
 
+    # a smoke reading over a few passes, not a serving benchmark
     n_req = len(out)
     n_img = 4 * BATCH + N_EVAL
-    log("slice", requests=n_req, images=n_img, seconds=f"{seconds:.4f}",
-        requests_per_s=f"{n_req / seconds:.3f}",
-        images_per_s=f"{n_img / seconds:.1f}", decodes=decodes,
+    med = statistics.median(seconds)
+    log("slice", passes=N_PASSES, requests_per_pass=n_req,
+        images_per_pass=n_img, pass_ms_median=f"{med * 1e3:.4f}",
+        pass_ms_min=f"{min(seconds) * 1e3:.4f}",
+        pass_ms_max=f"{max(seconds) * 1e3:.4f}",
+        requests_per_s=f"{n_req / med:.3f}",
+        images_per_s=f"{n_img / med:.1f}", decodes_per_pass=decodes,
         launches=launches, elbo=f"{elbo:.3f}", log_p=f"{log_p:.3f}",
         kl=f"{kl:.3f}", reconstruct_vs_plain=f"{err:.3e}")
+    phase_profile(torch, requests, tmpdir)
     return launches
+
+
+def phase_profile(torch, requests, tmpdir: str) -> None:
+    """One pass of the requests under torch.profiler.  The card is busy
+    where a kernel, memcpy or memset of the trace runs (the union of their
+    intervals); the idle share is the rest of the pass's host-clock time,
+    which the profiler itself lengthens."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        requests()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    path = os.path.join(tmpdir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        raise AssertionError("the profiler saw no device activity")
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    k1 = [e["dur"] for e in events if "fused_decoder_fwd" in e["name"]]
+    log("profile", wall_ms=f"{wall_us / 1e3:.3f}",
+        device_busy_ms=f"{busy / 1e3:.3f}",
+        idle_share=f"{1 - busy / wall_us:.4f}",
+        k1_ms=f"{sum(k1) / 1e3:.3f}", k1_launches=len(k1),
+        k1_share_of_busy=f"{sum(k1) / busy:.4f}",
+        device_events=len(events))
 
 
 def main() -> int:

@@ -10,7 +10,9 @@
 
 Every spatial decode goes through the ELBO's decode dispatch with the fused
 decoder selected, so on a CUDA device the foldable tanh configs (galaxy
-among them) run the hand-written kernel.  (The JAX API pins the XLA decoder
+among them) run the hand-written kernel; a foldable tanh decoder wider than
+the kernel takes (``MAX_HIDDEN``) is refused, as the kernel's wrapper
+refuses it on every device.  (The JAX API pins the XLA decoder
 because a pallas_call could not be partitioned under GSPMD; the port has no
 such limit, and kernel and plain decoder compute the same function.)
 Random draws come from an explicit ``torch.Generator``; ``noise=`` injects
@@ -39,7 +41,7 @@ from spatialvae_torch.objectives.elbo import (
     decode_spatial,
     elbo_minibatch,
 )
-from spatialvae_torch.precision import pin_fp32_precision
+from spatialvae_torch.precision import fp32_precision
 from spatialvae_torch.transforms.coords import coord_grid
 
 
@@ -80,7 +82,6 @@ class SpatialVae:
              ) -> "SpatialVae":
         """image_shape may be omitted when the checkpoint persisted it.
         Reference torch .sav files load too (pass image_shape)."""
-        pin_fp32_precision()
         p_params, p_cfg, kind, meta = load_model_meta(generator_path)
         if kind != "generator":
             raise ValueError(f"{generator_path} holds a {kind} network")
@@ -115,12 +116,14 @@ class SpatialVae:
 
     # ------------------------------------------------------------- inference
     @torch.no_grad()
+    @fp32_precision()
     def encode(self, y) -> Tuple[torch.Tensor, torch.Tensor]:
         """y: (B, HW[, C]) in [0,1] -> (z_mu, z_logstd) incl. pose slots."""
         y = self.as_tensor(y)
         return self.q_net(y.reshape(y.shape[0], -1))
 
     @torch.no_grad()
+    @fp32_precision()
     def decode(self, z) -> torch.Tensor:
         """z: (B, z_dim) content latents -> (B, HW, n_out), canonical pose."""
         return decode_spatial(self.p_net, self.serving_ecfg, self.coords,

@@ -33,7 +33,7 @@ from spatialvae_torch.models.spatial import (
     can_fold,
     spatial_generator_apply_folded,
 )
-from spatialvae_torch.precision import pin_fp32_precision
+from spatialvae_torch.precision import fp32_precision
 from spatialvae_torch.transforms.coords import rotate_coords, translate_coords
 
 
@@ -84,6 +84,7 @@ def decode_spatial(p_net: SpatialGenerator, ecfg: ElboConfig,
 
 
 @torch.no_grad()
+@fp32_precision()
 def elbo_minibatch(
     q_net: InferenceNetwork,
     p_net: SpatialGenerator,
@@ -118,7 +119,6 @@ def elbo_minibatch(
         raise _not_ported("pixel-axis sharding", "M10")
     if ecfg.vanilla:
         raise _not_ported("the vanilla generator", "M1")
-    pin_fp32_precision()
     b = y.shape[0]
 
     # ---- inference + reparameterised sample -------------------------------

@@ -22,6 +22,11 @@ from spatialvae_tpu.models import spatial_generator_init
 
 from spatialvae_torch.io.jax_params import generator_from_jax
 from spatialvae_torch.kernels import fused_decoder as fd
+from spatialvae_torch.models.spatial import (
+    SpatialGenerator,
+    spatial_generator_apply_folded,
+)
+from spatialvae_torch.objectives.elbo import ElboConfig, decode_spatial
 from spatialvae_torch.precision import fp32_precision_pinned
 from spatialvae_torch.transforms.coords import coord_grid
 
@@ -137,13 +142,10 @@ def test_can_fuse_decoder_matches_jax_for_tanh():
 
 def test_can_fuse_decoder_refuses_what_the_kernel_cannot_run():
     """The kernel computes tanh (the JAX gate never checked the activation,
-    ROADMAP Queue 3) and holds a layer's output for at most MAX_HIDDEN
-    hidden units in registers; the port's gate sends other configs to the
-    plain folded decoder."""
-    wide = SpatialGeneratorConfig(latent_dim=2, num_layers=2,
-                                  hidden_dim=fd.MAX_HIDDEN + 1)
-    assert jax_fd.can_fuse_decoder(wide, 4096)
-    assert not fd.can_fuse_decoder(wide, 4096)
+    ROADMAP Queue 3): the port's gate sends other activations to the plain
+    folded decoder.  It admits any width, as JAX's does, so a decoder wider
+    than MAX_HIDDEN reaches the wrapper, which raises instead of changing
+    path."""
     cfg = SpatialGeneratorConfig(latent_dim=2, num_layers=2, activation="relu")
     assert jax_fd.can_fuse_decoder(cfg, 4096)
     assert not fd.can_fuse_decoder(cfg, 4096)
@@ -152,6 +154,14 @@ def test_can_fuse_decoder_refuses_what_the_kernel_cannot_run():
     with pytest.raises(ValueError, match="not supported"):
         fd.fused_spatial_generator(gen, coord_grid(64, 64), None, None,
                                    torch.zeros((2, 2)))
+    wide = SpatialGeneratorConfig(latent_dim=2, num_layers=2,
+                                  hidden_dim=fd.MAX_HIDDEN + 1)
+    assert jax_fd.can_fuse_decoder(wide, 4096)
+    assert fd.can_fuse_decoder(wide, 4096)
+    gen = SpatialGenerator(wide, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad(), pytest.raises(ValueError, match="hidden_dim"):
+        decode_spatial(gen, ElboConfig(fused=True), coord_grid(16, 16),
+                       None, None, torch.zeros((2, 2)))
 
 
 def _bad_inputs(kind):
@@ -197,22 +207,62 @@ def test_wrapper_raises_on_unsupported(kind):
         fd.fused_decoder_tail(*args)
 
 
-def test_cpu_path_counts_no_launch_and_pins_precision():
+def test_cpu_path_counts_no_launch_and_pins_precision(monkeypatch):
+    """The plain version runs with full f32 pinned and gives the caller's
+    TF32 settings back."""
     args = _torch_args(_inputs(1, 3, 256, torch.float32), torch.float32)
     prev = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32,
             torch.get_float32_matmul_precision())
+    seen = []
+    tanh = torch.tanh
+
+    def spy(x):
+        seen.append(fp32_precision_pinned())
+        return tanh(x)
+
+    monkeypatch.setattr(torch, "tanh", spy)
     before = fd.fused_decoder_tail.launches
     try:
-        torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
         torch.set_float32_matmul_precision("medium")
         assert not fp32_precision_pinned()
         with torch.no_grad():
             fd.fused_decoder_tail(*args)
-        assert fp32_precision_pinned()
+        assert torch.get_float32_matmul_precision() == "medium"
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev[0]
-        torch.backends.cudnn.allow_tf32 = prev[1]
         torch.set_float32_matmul_precision(prev[2])
+        torch.backends.cudnn.allow_tf32 = prev[1]
+    assert torch.backends.cuda.matmul.allow_tf32 == prev[0]
+    assert seen and all(seen)
     assert fd.fused_decoder_tail.launches == before
+
+
+def test_generator_tail_weights_pack_once_per_weight_version():
+    """The stacked weights are cached on the generator and rebuilt when a
+    weight changes in place or is replaced."""
+    cfg = SpatialGeneratorConfig(latent_dim=3, hidden_dim=24, n_out=3,
+                                 num_layers=3)
+    gen = SpatialGenerator(cfg, generator=torch.Generator().manual_seed(0))
+    grid = coord_grid(16, 16)
+    z = torch.randn((2, 3), generator=torch.Generator().manual_seed(1))
+    tw = fd.generator_tail_weights(gen)
+    assert fd.generator_tail_weights(gen) is tw
+    with torch.no_grad():
+        y0 = fd.fused_spatial_generator(gen, grid, None, None, z)
+        gen.linears()[0].weight.mul_(0.5)              # in place
+        tw1 = fd.generator_tail_weights(gen)
+        assert tw1 is not tw
+        assert torch.equal(tw1.whid[0], gen.linears()[0].weight.T)
+        y1 = fd.fused_spatial_generator(gen, grid, None, None, z)
+        head = gen.linears()[-1]
+        head.bias = torch.nn.Parameter(head.bias + 1)  # replaced
+        tw2 = fd.generator_tail_weights(gen)
+        assert tw2 is not tw1
+        assert torch.equal(tw2.bht, head.bias)
+        y2 = fd.fused_spatial_generator(gen, grid, None, None, z)
+        want = spatial_generator_apply_folded(gen, grid, None, None, z)
+    assert not torch.equal(y0, y1) and not torch.equal(y1, y2)
+    torch.testing.assert_close(y2, want, rtol=0, atol=1e-6)

@@ -59,6 +59,12 @@ def _mask(n, m):
     return (dist < min(n, m) / 2).ravel().astype(np.float32)
 
 
+def _tf32_flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
 ELBO_CASES = {
     # name: (image (n, m, channels), fused, mask, theta_mean_penalty,
     #        z_scale, use_fold)
@@ -92,6 +98,10 @@ def test_elbo_matches_jax(name):
                         mask=None if mask is None else jnp.asarray(mask),
                         want_y_hat=True)
     q_net, p_net = from_jax_params(qp, pp, q_cfg, p_cfg)
+    pinned = []                     # f32 pinned inside, restored after
+    q_net.register_forward_hook(
+        lambda *_: pinned.append(fp32_precision_pinned()))
+    flags = _tf32_flags()
     before = fused_decoder_tail.launches
     got = elbo_minibatch(q_net, p_net, ElboConfig(**kw), coord_grid(n, m),
                          torch.from_numpy(y), noise=torch.from_numpy(noise),
@@ -102,7 +112,7 @@ def test_elbo_matches_jax(name):
         np.testing.assert_allclose(float(g), float(w), rtol=RTOL)
     np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]),
                                rtol=0, atol=1e-5)
-    assert fp32_precision_pinned()
+    assert pinned == [True] and _tf32_flags() == flags
 
 
 @pytest.mark.parametrize("what", [
