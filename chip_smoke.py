@@ -1,28 +1,40 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke run
+    python3 chip_smoke.py --limits   # the int8 kernels' limit readings
 
 Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
-holds each kernel against its plain PyTorch version on the card (the decoder
-forward with and without its activation output, and the backward with the
-residual and with recompute), then drives the galaxy model (64x64 RGB, z=20,
-encoder 12288->5000->5000->46, spatial decoder 500 wide, 2 layers, 3
-outputs, Bernoulli; float32; random weights from a seed) through its two
+holds each kernel against its plain PyTorch version on the card (the float
+decoder forward with and without its activation output and its backward
+with the residual and with recompute; the fused int8 loss and gradient;
+the int8 decoder forward and backward), then drives the galaxy model (64x64
+RGB, z=20, encoder 12288->5000->5000->46, spatial decoder 500 wide, 2
+layers, 3 outputs, Bernoulli; random weights from a seed) through its
 paths:
 
-- serving, through ``spatialvae_torch.api.SpatialVae``: checkpoint write and
-  load, encode, reconstruct, reconstruct_canonical, sample and a 437-image
-  evaluation, with every output checked, and one more pass of the requests
-  under ``torch.profiler`` for the card's busy time and idle share;
-- training, through ``spatialvae_torch.train.trainer.Trainer`` (Adam at lr
-  1e-4, batch 100) on 1,037 synthetic images made on the card from the seed:
-  an evaluation, two epochs (22 steps), another evaluation that must score
-  higher, the optimizer checkpoint's round trip, one step through the kernels
-  against the same step through the plain decoder, and one profiled step.
+- serving (float32), through ``spatialvae_torch.api.SpatialVae``:
+  checkpoint write and load, encode, reconstruct, reconstruct_canonical,
+  sample and a 437-image evaluation, with every output checked, and one
+  more pass of the requests under ``torch.profiler`` for the card's busy
+  time and idle share;
+- float training, through ``spatialvae_torch.train.trainer.Trainer`` (Adam
+  at lr 1e-4, batch 100) on 1,037 synthetic images made on the card from
+  the seed: an evaluation, two epochs (22 steps), another evaluation that
+  must score higher, the optimizer checkpoint's round trip, one step
+  through the kernels against the same step through the plain decoder, and
+  one profiled step;
+- int8 training with bf16 compute (``bench.py``'s default galaxy step): the
+  same two epochs, where the 20 full batches take the fused int8 loss
+  kernel and the two tails of 37 the int8 decoder and its backward, the
+  evaluations the int8 forward; a step of each kind against the plain
+  versions, profiled steps, and an epoch of 16 steps at B=4096.
 
 Each phase prints its lines; the last three lines are the per-kernel JSON
-record, the card's name and power limit, and ``{"ok": true, ...}``.
+record (launches on the main path, times, plain-version time, bound,
+library-call time), the card's name and power limit, and
+``{"ok": true, ...}``.  ``--limits`` prints the int8 kernels' readings for
+the sound build and for copies built with one step removed.
 
 Needs a CUDA device and ``nvcc``; imports no JAX.  Exits non-zero, without
 the final line, when there is no CUDA device or any phase fails.
@@ -350,7 +362,7 @@ def phase_backward(torch) -> dict:
 
 
 def galaxy_configs():
-    from spatialvae_tpu.core.config import (
+    from spatialvae_torch.config import (
         InferenceConfig,
         SpatialGeneratorConfig,
     )
@@ -415,7 +427,7 @@ def phase_train(torch, tmpdir: str) -> tuple:
                        image_shape=IMAGE, channels=CHANNELS)
     t0 = time.perf_counter()
     trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg,
-                      coord_grid(*IMAGE, device=DEVICE))
+                      coord_grid(*IMAGE, device=DEVICE), device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     data = blob_images(torch, N_TRAIN, gen)
     torch.cuda.synchronize()
@@ -681,6 +693,679 @@ def phase_profile(torch, requests, tmpdir: str) -> None:
         device_events=len(events))
 
 
+# ---------------------------------------------------------------------------
+# the int8 slice: K3 (fused loss and gradient), K4 (int8 forward), K5 (its
+# backward)
+# ---------------------------------------------------------------------------
+
+INT8_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_int8.cu"
+LOSS_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8.cu"
+K3_REPLACES = "spatialvae_tpu/kernels/fused_loss_int8.py:718"
+K4_REPLACES = "spatialvae_tpu/kernels/fused_decoder_int8.py:60"
+K5_REPLACES = "spatialvae_tpu/kernels/fused_decoder_int8.py:95"
+# Kernel vs plain version, every output by its error relative to its
+# largest value (max, mean), placed between the sound kernels' readings and
+# those of copies built with -DSVT_INT8_RTZ=1 (quantisation rounds toward
+# zero) or -DSVT_INT8_BLOCK_SCALE=1 (each gradient scale over a 64-pixel
+# block, not its group): the PERF.md limits table; `--limits` reprints the
+# readings.
+INT8_TOL = (1e-3, 2e-5)
+# K4's y and a1 by absolute error (max, mean)
+INT8_Y_TOL = (1e-5, 1e-6)
+INT8_A1_TOL = (1e-2, 1e-6)
+# one int8 training step through the kernels against the plain versions,
+# after the two training epochs, every gradient leaf relative to its largest
+# value (bf16 compute: a leaf is a bf16 tensor, so one element one bf16 ulp
+# away reads 3.9e-3); `--limits` reads it at the same state
+INT8_STEP_TOL = (5e-2, 1e-4)
+INT8_GRADS = ("dfold", "dw1", "db1", "dwht", "dbht")
+BENCH_BATCH = 4096      # bench.py's batch
+BENCH_STEPS = 16        # bench.py's steps per epoch
+# the card's peaks (NVIDIA's H100 SXM data sheet, dense) for the bounds
+PEAK_INT8 = 1979e12
+PEAK_TF32 = 495e12
+PEAK_FP32 = 67e12
+HBM_BYTES_PER_S = 3.35e12
+# K1 and K2 run each f32 product of their hidden GEMMs as three TF32
+# products (hi*hi + hi*lo + lo*hi) on the tensor cores, and their head on
+# the CUDA cores: the f32 rows are held to that method's rates
+TF32_PASSES = 3
+
+
+def bound(nbytes: float, *work) -> tuple:
+    """(ms, "operations" | "bytes"): the larger of the bytes moved over the
+    memory rate and the time of the operations, each (ops, peak) pair of
+    ``work`` at the peak for its type."""
+    t_ops = sum(ops / peak for ops, peak in work) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def f32_gemm(ops: float) -> tuple:
+    """The (ops, peak) of an f32 GEMM run as TF32_PASSES TF32 products."""
+    return TF32_PASSES * ops, PEAK_TF32
+
+
+def _int8_inputs(torch, b, dtype, gen, no=CHANNELS, h=P_HIDDEN):
+    """fold, coords and (w1, b1, wht, bht) at the galaxy shape."""
+    fold, coords, whid, bhid, wht, bht = _tail_inputs(
+        torch, b, IMAGE[0] * IMAGE[1], h, 1, no, getattr(torch, dtype), gen)
+    return fold, coords, (whid[0].contiguous(), bhid[0].contiguous(), wht,
+                          bht)
+
+
+def _timed(torch, kern, plain) -> tuple:
+    kern()
+    plain()
+    ks = [cuda_ms(kern, torch) for _ in range(N_TIMED)]
+    ps = [cuda_ms(plain, torch) for _ in range(3)]
+    return statistics.median(ks), statistics.median(ps)
+
+
+def loss_case(torch, b, dtype, seed, timed, i8=True, masked=False) -> dict:
+    """K3 against its plain version on one galaxy batch: each output's
+    errors, whether two runs agree bit for bit, and with ``timed`` the
+    kernel's and the plain version's ms."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    fold, coords, ws = _int8_inputs(torch, b, dtype, gen)
+    hw = IMAGE[0] * IMAGE[1]
+    k = torch.randint(0, 256, (b, CHANNELS, hw), generator=gen,
+                      device=DEVICE)
+    yt = (k - 128).to(torch.int8) if i8 else k.float() / 255.0
+    mask = ((torch.rand(hw, generator=gen, device=DEVICE) > 0.2).float()
+            if masked else None)
+    with torch.no_grad():
+        got = l8.run_loss_int8(fold, coords, *ws, yt, mask)
+        again = l8.run_loss_int8(fold, coords, *ws, yt, mask)
+        torch.cuda.synchronize()
+        want = l8.loss_int8_reference(fold, coords, *ws, yt, mask)
+        out = {"same": all(torch.equal(u, v) for u, v in zip(got, again)),
+               "loss": rel_errors(got[0][:, 3, 0], want[0][:, 3, 0])}
+        for name, u, v in zip(INT8_GRADS, got, want):
+            if u.shape != v.shape:
+                raise AssertionError(f"K3 {name}: shape {tuple(u.shape)}")
+            out[name] = rel_errors(u, v)
+        if timed:
+            out["ms"], out["plain_ms"] = _timed(
+                torch, lambda: l8.run_loss_int8(fold, coords, *ws, yt, mask),
+                lambda: l8.loss_int8_reference(fold, coords, *ws, yt, mask))
+    return out
+
+
+def int8_tail_case(torch, b, dtype, seed, timed) -> dict:
+    """K4 with and without a1 and K5 with the residual and with recompute
+    against their plain versions on one galaxy batch."""
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    fold, coords, ws = _int8_inputs(torch, b, dtype, gen)
+    g = torch.randn((b, CHANNELS, IMAGE[0] * IMAGE[1]), generator=gen,
+                    device=DEVICE)
+    w = d8.Int8Weights(*ws)
+    ref = (w.w1q, w.sw, w.b1, w.wht)
+    out = {}
+    with torch.no_grad():
+        y, a1 = d8.run_int8_tail(fold, coords, w, emit_a1=True)
+        y0 = d8.run_int8_tail(fold, coords, w)
+        torch.cuda.synchronize()
+        y_ref, a1_ref = d8.decoder_tail_int8_reference(
+            fold, coords, *ref, w.bht, return_a1=True)
+        out["y"] = rel_errors(y, y_ref)
+        out["y_no_a1"] = rel_errors(y0, y_ref)
+        out["a1"] = rel_errors(a1, a1_ref)
+        del y_ref, a1_ref, y0
+        for variant in ("residual", "recompute"):
+            a = a1 if variant == "residual" else None
+            got = d8.run_int8_tail_backward(fold, coords, w, a, y, g)
+            again = d8.run_int8_tail_backward(fold, coords, w, a, y, g)
+            torch.cuda.synchronize()
+            out[variant, "same"] = all(torch.equal(u, v)
+                                       for u, v in zip(got, again))
+            want = d8.decoder_tail_int8_backward_reference(
+                fold, coords, *ref, a, y, g)
+            for name, u, v in zip(INT8_GRADS, got, want):
+                out[variant, name] = rel_errors(u, v)
+            del got, again, want
+            if timed:
+                out[variant + "_ms"], out[variant + "_plain_ms"] = _timed(
+                    torch,
+                    lambda: d8.run_int8_tail_backward(fold, coords, w, a, y,
+                                                      g),
+                    lambda: d8.decoder_tail_int8_backward_reference(
+                        fold, coords, *ref, a, y, g))
+        if timed:
+            for name, emit in (("fwd", False), ("fwd_a1", True)):
+                out[name + "_ms"], out[name + "_plain_ms"] = _timed(
+                    torch, lambda: d8.run_int8_tail(fold, coords, w, emit),
+                    lambda: d8.decoder_tail_int8_reference(
+                        fold, coords, *ref, w.bht, return_a1=emit))
+    return out
+
+
+def _check_rel(what, errs, tol) -> str:
+    err, mean_err, rel, mean_rel = errs
+    if not (rel <= tol[0] and mean_rel <= tol[1]):
+        raise AssertionError(f"{what}: kernel vs plain error relative to "
+                             f"max|plain| {rel}, mean {mean_rel}; limits "
+                             f"{tol}")
+    return f"{err:.3e}/{mean_err:.3e}/{rel:.2e}/{mean_rel:.2e}"
+
+
+def _check_abs(what, errs, tol) -> None:
+    if not (errs[0] <= tol[0] and errs[1] <= tol[1]):
+        raise AssertionError(f"{what}: kernel vs plain max abs err "
+                             f"{errs[0]}, mean {errs[1]}; limits {tol}")
+
+
+LOSS_CASES = [
+    # B, weight dtype, int8 targets, mask
+    (BATCH, "bfloat16", True, False),
+    (BATCH, "float32", True, False),
+    (BATCH, "bfloat16", False, True),
+]
+INT8_TAIL_CASES = [(BATCH, "bfloat16"), (N_TRAIN % BATCH, "bfloat16"),
+                   (BATCH, "float32")]
+
+
+def phase_int8_kernels(torch) -> dict:
+    """K3, K4 and K5 against their plain versions at the galaxy shape."""
+    res = {}
+    for b, dtype, i8, masked in LOSS_CASES:
+        r = loss_case(torch, b, dtype, SEED, timed=True, i8=i8,
+                      masked=masked)
+        if not r["same"]:
+            raise AssertionError(f"K3 B={b} {dtype}: two runs differ")
+        fields = {n: _check_rel(f"K3 B={b} {dtype} {n}", r[n], INT8_TOL)
+                  for n in ("loss",) + INT8_GRADS}
+        log("kernel_loss_int8", B=b, HW=IMAGE[0] * IMAGE[1], H=P_HIDDEN, No=CHANNELS,
+            dtype=dtype, targets="int8" if i8 else "float",
+            mask=masked, errors="max_abs/mean_abs/max_rel/mean_rel",
+            **fields, max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+            kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}")
+        res["loss", b, dtype, i8, masked] = r
+        torch.cuda.empty_cache()
+    for b, dtype in INT8_TAIL_CASES:
+        r = int8_tail_case(torch, b, dtype, SEED, timed=True)
+        _check_abs(f"K4 B={b} {dtype} y", r["y"], INT8_Y_TOL)
+        _check_abs(f"K4 B={b} {dtype} y without a1", r["y_no_a1"],
+                   INT8_Y_TOL)
+        _check_abs(f"K4 B={b} {dtype} a1", r["a1"], INT8_A1_TOL)
+        log("kernel_int8_fwd", B=b, HW=IMAGE[0] * IMAGE[1], H=P_HIDDEN, No=CHANNELS,
+            dtype=dtype, y_max_abs_err=f"{r['y'][0]:.3e}",
+            y_mean_abs_err=f"{r['y'][1]:.3e}",
+            a1_max_abs_err=f"{r['a1'][0]:.3e}",
+            a1_mean_abs_err=f"{r['a1'][1]:.3e}", y_tol=INT8_Y_TOL,
+            a1_tol=INT8_A1_TOL, kernel_ms=f"{r['fwd_ms']:.4f}",
+            plain_ms=f"{r['fwd_plain_ms']:.4f}",
+            kernel_a1_ms=f"{r['fwd_a1_ms']:.4f}",
+            plain_a1_ms=f"{r['fwd_a1_plain_ms']:.4f}")
+        for variant in ("residual", "recompute"):
+            if not r[variant, "same"]:
+                raise AssertionError(f"K5 B={b} {variant}: two runs differ")
+            fields = {n: _check_rel(f"K5 B={b} {dtype} {variant} {n}",
+                                    r[variant, n], INT8_TOL)
+                      for n in INT8_GRADS}
+            log("kernel_int8_bwd", B=b, dtype=dtype, variant=variant,
+                errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
+                max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+                kernel_ms=f"{r[variant + '_ms']:.4f}",
+                plain_ms=f"{r[variant + '_plain_ms']:.4f}")
+        res["tail", b, dtype] = r
+        torch.cuda.empty_cache()
+    return res
+
+
+class plain_int8:
+    """Within the block the int8 wrappers run their plain versions on CUDA
+    tensors too: the reference step that the kernels' step is held to."""
+
+    def __enter__(self):
+        from spatialvae_torch.kernels import fused_decoder_int8 as d8
+        from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+        self.saved = (l8.run_loss_int8, d8.run_int8_tail,
+                      d8.run_int8_tail_backward)
+        l8.run_loss_int8 = (lambda fold, coords, w1, b1, wht, bht, y_t,
+                            mask=None: l8.loss_int8_reference(
+                                fold, coords, w1, b1, wht, bht, y_t, mask))
+        d8.run_int8_tail = (lambda fold, coords, w, emit_a1=False:
+                            d8.decoder_tail_int8_reference(
+                                fold, coords, w.w1q, w.sw, w.b1, w.wht,
+                                w.bht, emit_a1))
+        d8.run_int8_tail_backward = (
+            lambda fold, coords, w, a1, y, g: d8
+            .decoder_tail_int8_backward_reference(
+                fold, coords, w.w1q, w.sw, w.b1, w.wht, a1, y, g))
+        return self
+
+    def __exit__(self, *exc):
+        from spatialvae_torch.kernels import fused_decoder_int8 as d8
+        from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+        (l8.run_loss_int8, d8.run_int8_tail,
+         d8.run_int8_tail_backward) = self.saved
+        return False
+
+
+def int8_step_grads(torch, trainer, y, y_t, noise, plain: bool) -> dict:
+    from spatialvae_torch.objectives import loss_and_grad
+
+    def run():
+        loss_and_grad(trainer.q_net, trainer.p_net, trainer.ecfg,
+                      trainer.coords, y, noise=noise, y_t=y_t,
+                      compute_dtype=trainer.compute_dtype)
+    if plain:
+        with plain_int8():
+            run()
+    else:
+        run()
+    return {k: p.grad.clone() for k, p in trainer.named_params().items()}
+
+
+def _int8_launches() -> dict:
+    from spatialvae_torch.kernels import fused_decoder as fd
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    return {"k3": dict(l8.LAUNCHES), "k45": dict(d8.LAUNCHES),
+            "k12": sum(fd.LAUNCHES.values())}
+
+
+def _reset_all_launches() -> None:
+    from spatialvae_torch.kernels import fused_decoder as fd
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    for m in (fd, d8, l8):
+        m.reset_launches()
+
+
+def int8_galaxy_trainer(torch):
+    """The ``[train_int8]`` trainer (int8 mode, bf16 compute, seed SEED), its
+    1,037 blob images and the generator that made them."""
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+    from spatialvae_torch.transforms.coords import coord_grid
+
+    q_cfg, p_cfg, ecfg = galaxy_configs()
+    ecfg = dataclasses.replace(ecfg, int8=True)
+    tcfg = TrainConfig(minibatch_size=BATCH, learning_rate=1e-4,
+                       num_epochs=TRAIN_EPOCHS, seed=SEED,
+                       compute_dtype="bfloat16", image_shape=IMAGE,
+                       channels=CHANNELS)
+    trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg,
+                      coord_grid(*IMAGE, device=DEVICE), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    return trainer, blob_images(torch, N_TRAIN, gen), gen
+
+
+def int8_step_readings(torch, trainer, data, gen) -> dict:
+    """One K3 step (the first BATCH images) and one tail step (the first
+    N_TRAIN % BATCH) through the kernels against the same steps through the
+    plain versions, noise from ``gen``: kind -> (max rel, mean rel, the
+    leaf of the max), each the worst over the gradient leaves."""
+    data_t = trainer._dataset_yt(data)
+    worst = {}
+    for kind, n in (("k3", BATCH), ("k4k5", N_TRAIN % BATCH)):
+        idx = torch.arange(n, device=DEVICE)
+        y, y_t = data[idx], (data_t[idx] if kind == "k3" else None)
+        noise = torch.randn((n, Z_DIM + 3), generator=gen, device=DEVICE)
+        kern = int8_step_grads(torch, trainer, y, y_t, noise, plain=False)
+        plain = int8_step_grads(torch, trainer, y, y_t, noise, plain=True)
+        rel, mean_rel, leaf = 0.0, 0.0, ""
+        for k in kern:
+            _, _, r, m = rel_errors(kern[k], plain[k])
+            if r >= rel:
+                rel, leaf = r, k
+            mean_rel = max(mean_rel, m)
+        worst[kind] = (rel, mean_rel, leaf)
+        del kern, plain
+    return worst
+
+
+def phase_train_int8(torch, tmpdir: str) -> dict:
+    """The galaxy trainer in int8 mode, bf16 compute (bench.py's default
+    galaxy step): two epochs of 1,037 blob images (20 K3 steps, 2 tail
+    steps through K4 and K5), the evaluations before and after, one step of
+    each kind through the kernels against the plain versions, profiled
+    steps, and a smoke reading of an epoch of 16 steps at B=4096."""
+    trainer, data, gen = int8_galaxy_trainer(torch)
+    evals = math.ceil(N_TRAIN / BATCH)
+
+    def evaluate(epoch):
+        _reset_all_launches()
+        m = trainer.eval_epoch(data, epoch)
+        torch.cuda.synchronize()
+        got = _int8_launches()
+        want = {"fwd": evals}
+        if got["k45"] != {**dict.fromkeys(got["k45"], 0), **want} or \
+                any(got["k3"].values()) or got["k12"]:
+            raise AssertionError(f"evaluation launches {got}, expected "
+                                 f"K4 x {evals} only")
+        return m
+
+    before = evaluate(0)
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    rows = trainer.train_epochs(data, 0, TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _int8_launches()
+    full = TRAIN_EPOCHS * (N_TRAIN // BATCH)
+    tails = TRAIN_EPOCHS
+    want_k3 = {"fwd": full, "grad": full, "dw": full, "sum": 5 * full}
+    want_k45 = {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
+                "bwd_grad": tails, "dw": tails, "sum": 4 * tails}
+    if counts != {"k3": want_k3, "k45": want_k45, "k12": 0}:
+        raise AssertionError(f"launches over {full} + {tails} steps: "
+                             f"{counts}, expected K3 {want_k3}, K4/K5 "
+                             f"{want_k45}, no K1/K2")
+    after = evaluate(TRAIN_EPOCHS)
+    if not (np.isfinite(rows).all() and np.isfinite(before + after).all()):
+        raise AssertionError(f"non-finite metrics: {before} {rows} {after}")
+    if not after[0] > before[0]:
+        raise AssertionError(f"ELBO did not rise: {before[0]} -> {after[0]}")
+
+    # one step of each kind through the kernels against the plain versions,
+    # at the trained state that `--limits` reads too
+    worst = int8_step_readings(torch, trainer, data, gen)
+    for kind, (rel, mean_rel, leaf) in worst.items():
+        if not (rel <= INT8_STEP_TOL[0] and mean_rel <= INT8_STEP_TOL[1]):
+            raise AssertionError(f"int8 {kind} step gradients: kernel vs "
+                                 f"plain {rel} ({leaf}), mean {mean_rel}; "
+                                 f"limits {INT8_STEP_TOL}")
+    data_t = trainer._dataset_yt(data)
+    log("train_int8", epochs=TRAIN_EPOCHS, steps=full + tails,
+        images=N_TRAIN, compute="bfloat16", seconds=f"{seconds:.4f}",
+        steps_per_s=f"{(full + tails) / seconds:.3f}",
+        images_per_s=f"{TRAIN_EPOCHS * N_TRAIN / seconds:.1f}",
+        elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
+        epoch_elbo="/".join(f"{r[0]:.3f}" for r in rows),
+        launches=json.dumps(counts, separators=(",", ":")),
+        eval_k4_launches=evals,
+        step_k3_vs_plain_max_rel=f"{worst['k3'][0]:.3e}",
+        step_k3_vs_plain_mean_rel=f"{worst['k3'][1]:.3e}",
+        step_k3_worst_leaf=worst["k3"][2],
+        step_tail_vs_plain_max_rel=f"{worst['k4k5'][0]:.3e}",
+        step_tail_vs_plain_mean_rel=f"{worst['k4k5'][1]:.3e}",
+        step_tail_worst_leaf=worst["k4k5"][2])
+    prof = phase_profile_int8(torch, trainer, data, data_t, tmpdir)
+    cfgs = (trainer.q_cfg, trainer.p_cfg, trainer.ecfg, trainer.tcfg)
+    del trainer, data, data_t
+    torch.cuda.empty_cache()
+    prof["bench_images_per_s"] = phase_bench_int8(torch, *cfgs)
+    prof["counts"] = counts
+    prof["eval_k4"] = evals
+    return prof
+
+
+def phase_profile_int8(torch, trainer, data, data_t, tmpdir: str) -> dict:
+    """A K3 step (B=100) and a tail step (B=37) under torch.profiler: each
+    int8 kernel's device ms by name, and the K3 step's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {"loss_fwd": "loss_fwd_kernel", "loss_grad": "loss_grad_kernel",
+             "dw": "grouped_dw_kernel", "sum_rows": "sum_rows_kernel",
+             "fwd_a1": "int8_fwd_kernel", "bwd_scale": "int8_bwd_scale",
+             "bwd_grad": "int8_bwd_grad"}
+    out = {}
+    for kind, b in (("k3", BATCH), ("tail", N_TRAIN % BATCH)):
+        idx = torch.arange(b, device=DEVICE)
+        y_t = data_t[idx] if kind == "k3" else None
+        trainer.train_step(data[idx], y_t=y_t)     # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(data[idx], y_t=y_t)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = _trace_events(prof, tmpdir, f"train_int8_{kind}.json")
+        device = [e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        kernels = [e for e in device if e.get("cat") == "kernel"]
+        if not kernels:
+            raise AssertionError("the profiler saw no kernel")
+        busy = _busy_us(device)
+        fields = {}
+        for label, key in names.items():
+            ms = sum(e["dur"] for e in kernels if key in e["name"]) / 1e3
+            out[kind, label] = ms
+            fields[f"{label}_ms"] = f"{ms:.3f}"
+        gemm = sum(e["dur"] for e in kernels
+                   if "gemm" in e["name"].lower()
+                   or "xmma" in e["name"].lower()) / 1e3
+        out[kind, "idle_share"] = 1 - busy / wall_us
+        log("profile_int8_step", step=kind, B=b,
+            wall_ms=f"{wall_us / 1e3:.3f}", device_busy_ms=f"{busy / 1e3:.3f}",
+            idle_share=f"{1 - busy / wall_us:.4f}", **fields,
+            gemm_ms=f"{gemm:.3f}", kernels=len(kernels))
+    return out
+
+
+def phase_bench_int8(torch, q_cfg, p_cfg, ecfg, tcfg) -> float:
+    """bench.py's galaxy step shape: B=4096, 16 steps per epoch of /255-grid
+    images made on the card from the seed; one warm-up epoch, then one
+    timed epoch on the host clock around work that ends in a synchronize.
+    A smoke reading of images/s, not a benchmark."""
+    from spatialvae_torch.train.trainer import Trainer
+    from spatialvae_torch.transforms.coords import coord_grid
+
+    tcfg = dataclasses.replace(tcfg, minibatch_size=BENCH_BATCH)
+    trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg,
+                      coord_grid(*IMAGE, device=DEVICE), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    n = BENCH_BATCH * BENCH_STEPS
+    data = torch.randint(0, 256, (n, IMAGE[0] * IMAGE[1], CHANNELS),
+                         generator=gen, device=DEVICE,
+                         dtype=torch.uint8).float() / 255.0
+    t0 = time.perf_counter()
+    trainer.train_epoch(data, 0, progress=False)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    m = trainer.train_epoch(data, 1, progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _int8_launches()
+    if counts["k3"]["grad"] < BENCH_STEPS or counts["k45"]["fwd_acts"]:
+        raise AssertionError(f"B={BENCH_BATCH} epoch launches {counts}")
+    if not np.isfinite(m).all():
+        raise AssertionError(f"B={BENCH_BATCH} epoch metrics {m}")
+    log("train_int8_bench", batch=BENCH_BATCH, steps=BENCH_STEPS, images=n,
+        warmup_s=f"{warm:.3f}", seconds=f"{seconds:.4f}",
+        step_ms=f"{seconds / BENCH_STEPS * 1e3:.3f}",
+        images_per_s=f"{n / seconds:.1f}",
+        peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        launches=json.dumps(counts, separators=(",", ":")))
+    return n / seconds
+
+
+def torch_sum_ms(torch, shapes) -> float:
+    """The fixed-order reductions of a kernel's per-block partials as
+    torch.sum calls (one per reduction, over dim 1 of each (groups, rows,
+    m) array), timed together: the library yardstick of svt_sum_rows."""
+    xs = [torch.randn(s, device=DEVICE) for s in shapes]
+
+    def run():
+        for x in xs:
+            torch.sum(x, dim=1)
+    run()
+    return statistics.median(cuda_ms(run, torch) for _ in range(N_TIMED))
+
+
+def _wmax(a, b) -> tuple:
+    return tuple(max(x, y) for x, y in zip(a, b))
+
+
+def phase_limits(torch) -> None:
+    """``--limits``: the int8 kernels' readings against their plain versions
+    for the sound library and for the copies built with one step removed,
+    over three seeds, and one training step of each kind at the state
+    ``[train_int8]`` checks (two epochs trained with the sound kernels, the
+    same seed, images and noise), to place INT8_TOL, INT8_Y_TOL, INT8_A1_TOL
+    and INT8_STEP_TOL."""
+    from spatialvae_torch.kernels import _build
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    trainer, data, gen = int8_galaxy_trainer(torch)
+    trainer.train_epochs(data, 0, TRAIN_EPOCHS)
+    noise_state = gen.get_state()
+    for defines in ((), ("-DSVT_INT8_RTZ=1",), ("-DSVT_INT8_BLOCK_SCALE=1",)):
+        lib = _build.load_library(defines)
+        d8._lib = l8._lib = (lambda lib=lib: lib)
+        worst = {}
+        for seed in range(3):
+            for b, dtype, i8, masked in LOSS_CASES:
+                r = loss_case(torch, b, dtype, seed, False, i8, masked)
+                for n in ("loss",) + INT8_GRADS:
+                    k = ("K3", dtype)
+                    worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+            for b, dtype in INT8_TAIL_CASES:
+                r = int8_tail_case(torch, b, dtype, seed, False)
+                for k in ("y", "y_no_a1", "a1"):
+                    worst["K4", k] = _wmax(worst.get(("K4", k), (0, 0)),
+                                           r[k][:2])
+                for v in ("residual", "recompute"):
+                    for n in INT8_GRADS:
+                        worst["K5", v] = _wmax(worst.get(("K5", v), (0, 0)),
+                                               r[v, n][2:])
+            torch.cuda.empty_cache()
+        gen.set_state(noise_state)
+        for kind, (rel, mean_rel, _) in int8_step_readings(
+                torch, trainer, data, gen).items():
+            worst["step_" + kind, ""] = (rel, mean_rel)
+        log("limits", build=" ".join(defines) or "sound",
+            **{"/".join(k).strip("/"): f"{a:.3e}/{m:.3e}"
+               for k, (a, m) in sorted(worst.items())})
+
+
+def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8) -> list:
+    """The per-kernel JSON records: K1 and K2 at the float path's galaxy
+    f32 shapes (B=100), K3 at the int8 training step's (bf16 weights,
+    B=100), K4 without a1 at the evaluation's (B=100) and with a1, K5 at
+    the tail step's (B=37).  Bounds from the shapes (PEAK_* above; the f32
+    rows at TF32_PASSES TF32 products per f32 product)."""
+    b, hw, h, no = BATCH, IMAGE[0] * IMAGE[1], P_HIDDEN, CHANNELS
+    kp = -(-h // 64) * 64
+    g, k2 = res["galaxy_f32"], bwd["galaxy_f32"]
+    f4 = 4                                      # f32 bytes
+    w_bytes = (h * h + h + no * h + no) * f4
+    io = b * 4 * h * f4 + hw * 2 * f4 + w_bytes + b * no * hw * f4
+    gemm = 2.0 * b * hw * h * h
+    head = (2.0 * b * hw * h * no, PEAK_FP32)   # on the CUDA cores
+    acts = b * hw * h * f4
+    tiles = hw // 64
+    k2_parts = (b * tiles * (3 * h + (1 + no) * h + no)
+                + (b * hw // 4096) * h * h) * f4
+
+    def worst(variant, *grads):
+        return max(k2[variant, n][0] for n in grads)
+
+    rows = [
+        ("fused_decoder_fwd", FWD_SOURCE, FWD_REPLACES, launches, g["err"],
+         g["ms"], g["plain_ms"],
+         bound(io, f32_gemm(gemm), head), None),
+        ("fused_decoder_fwd_acts", FWD_SOURCE, FWD_REPLACES,
+         counts["fwd_acts"], k2["acts"][0], k2["fwd_acts_ms"],
+         k2["fwd_acts_plain_ms"],
+         bound(io + acts, f32_gemm(gemm), head), None),
+        ("fused_decoder_bwd_chain", BWD_SOURCE, BWD_REPLACES,
+         counts["bwd_chain"], worst("residual", "dfold", "dbhid", "dwht",
+                                    "dbht"),
+         step_ms["bwd_chain"], k2["residual_plain_ms"],
+         bound(io + 2 * acts + k2_parts, f32_gemm(gemm),
+               (2 * head[0], PEAK_FP32)), None),
+        ("fused_decoder_bwd_dw", BWD_SOURCE, BWD_REPLACES, counts["bwd_dw"],
+         worst("residual", "dwhid"), step_ms["bwd_dw"],
+         k2["residual_plain_ms"],
+         bound(2 * acts + (b * hw // 4096) * h * h * f4, f32_gemm(gemm)),
+         None),
+        ("fused_decoder_bwd_sum_rows", BWD_SOURCE, BWD_REPLACES,
+         counts["bwd_sum"], worst("residual", *GRADS), step_ms["sum_rows"],
+         k2["residual_plain_ms"], bound(k2_parts),
+         torch_sum_ms(torch, [(b, tiles, 3 * h), (1, b * hw // 4096, h * h),
+                              (1, b * tiles, (1 + no) * h + no)])),
+    ]
+    # the int8 path
+    lc = res["int8"]["loss", BATCH, "bfloat16", True, False]
+    tb = N_TRAIN % BATCH                        # the tail step's batch
+    tail = res["int8"]["tail", tb, "bfloat16"]
+    ev = res["int8"]["tail", BATCH, "bfloat16"]
+    c3, c45 = i8["counts"]["k3"], i8["counts"]["k45"]
+    i8_w = h * h + (h + no * h + no) * f4       # int8 W1 copy + f32 rest
+    fold_io = b * 4 * h * f4 + hw * 2 * f4
+    yt_b = b * no * hw                          # int8 targets
+    dz2_b = b * no * hw * f4
+    ws = 2.0 * b * kp * hw                      # the two int8 workspaces
+    blocks = b * hw // 64
+    mw = h + no * h + no
+    parts = blocks * (3 * h + mw + 2) * f4
+    splits = 16
+    k3_abs = lambda *ns: max(lc[n][0] for n in ns)
+    rows += [
+        ("int8_loss_fwd", LOSS_SOURCE, K3_REPLACES, c3["fwd"],
+         lc["loss"][0], i8["k3", "loss_fwd"], lc["plain_ms"],
+         bound(fold_io + i8_w + yt_b + dz2_b + 2 * blocks * f4,
+               (gemm, PEAK_INT8), head), None),
+        ("int8_loss_grad", LOSS_SOURCE, K3_REPLACES, c3["grad"],
+         k3_abs("dfold", "db1", "dwht", "dbht"), i8["k3", "loss_grad"],
+         lc["plain_ms"],
+         bound(fold_io + 2 * i8_w + dz2_b + ws + parts,
+               (2 * gemm, PEAK_INT8), (3 * head[0], PEAK_FP32)), None),
+        ("int8_grouped_dw_k3", INT8_SOURCE, K3_REPLACES, c3["dw"],
+         k3_abs("dw1"), i8["k3", "dw"], lc["plain_ms"],
+         bound(ws + splits * h * h * f4, (gemm, PEAK_INT8)), None),
+        ("int8_loss_sum_rows", BWD_SOURCE, K3_REPLACES, c3["sum"],
+         k3_abs(*INT8_GRADS), i8["k3", "sum_rows"], lc["plain_ms"],
+         bound(parts + splits * h * h * f4),
+         torch_sum_ms(torch, [(b, hw // 64, 3 * h), (b, hw // 64, 1),
+                              (1, splits, h * h), (1, blocks, mw)])),
+    ]
+    t_gemm = 2.0 * tb * hw * h * h
+    t_head = (2.0 * tb * hw * h * no, PEAK_FP32)
+    t_io = tb * 4 * h * f4 + hw * 2 * f4 + i8_w + tb * no * hw * f4
+    t_a1 = tb * hw * h * 2                       # bf16 residual
+    t_ws = 2.0 * tb * kp * hw
+    t_blocks = tb * hw // 64
+    t_parts = t_blocks * (3 * h + mw + 1) * f4
+    k5_abs = lambda *ns: max(tail["residual", n][0] for n in ns)
+    rows += [
+        ("int8_fwd", INT8_SOURCE, K4_REPLACES, i8["eval_k4"],
+         ev["y_no_a1"][0], ev["fwd_ms"], ev["fwd_plain_ms"],
+         bound(fold_io + i8_w + b * no * hw * f4, (gemm, PEAK_INT8), head),
+         None),
+        ("int8_fwd_a1", INT8_SOURCE, K4_REPLACES, c45["fwd_acts"],
+         max(tail["y"][0], tail["a1"][0]), i8["tail", "fwd_a1"],
+         tail["fwd_a1_plain_ms"],
+         bound(t_io + t_a1, (t_gemm, PEAK_INT8), t_head),
+         None),
+        ("int8_bwd_scale", INT8_SOURCE, K5_REPLACES, c45["bwd_scale"],
+         k5_abs("dw1", "dfold"), i8["tail", "bwd_scale"],
+         tail["residual_plain_ms"],
+         bound(t_io + t_a1 + tb * no * hw * f4 + t_blocks * f4, t_head),
+         None),
+        ("int8_bwd_grad", INT8_SOURCE, K5_REPLACES, c45["bwd_grad"],
+         k5_abs("dfold", "db1", "dwht", "dbht"), i8["tail", "bwd_grad"],
+         tail["residual_plain_ms"],
+         bound(t_io + i8_w + t_a1 + tb * no * hw * f4 + t_ws + t_parts,
+               (t_gemm, PEAK_INT8), (2 * t_head[0], PEAK_FP32)), None),
+        ("int8_grouped_dw_k5", INT8_SOURCE, K5_REPLACES, c45["dw"],
+         k5_abs("dw1"), i8["tail", "dw"], tail["residual_plain_ms"],
+         bound(t_ws + splits * h * h * f4, (t_gemm, PEAK_INT8)), None),
+        ("int8_bwd_sum_rows", BWD_SOURCE, K5_REPLACES, c45["sum"],
+         k5_abs(*INT8_GRADS), i8["tail", "sum_rows"],
+         tail["residual_plain_ms"],
+         bound(t_parts + splits * h * h * f4),
+         torch_sum_ms(torch, [(tb, hw // 64, 3 * h), (1, splits, h * h),
+                              (1, t_blocks, mw)])),
+    ]
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -693,37 +1378,27 @@ def main() -> int:
     pin_fp32_precision()
     kind, card = phase_device(torch)
     phase_build()
+    if sys.argv[1:] == ["--limits"]:
+        phase_limits(torch)
+        return 0
     res = phase_kernels(torch)
     bwd = phase_backward(torch)
+    res["int8"] = phase_int8_kernels(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         launches = phase_slice(torch, tmpdir)
         counts, step_ms = phase_train(torch, tmpdir)
+        i8 = phase_train_int8(torch, tmpdir)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    g, b = res["galaxy_f32"], bwd["galaxy_f32"]
-
-    def worst(*grads):
-        return max(b["residual", k][0] for k in grads)
-
-    plain_bwd = b["residual_plain_ms"]
-    kernels = [
-        ("fused_decoder_fwd", FWD_SOURCE, FWD_REPLACES, launches, g["err"],
-         g["ms"], g["plain_ms"]),
-        ("fused_decoder_fwd_acts", FWD_SOURCE, FWD_REPLACES,
-         counts["fwd_acts"], b["acts"][0], b["fwd_acts_ms"],
-         b["fwd_acts_plain_ms"]),
-        ("fused_decoder_bwd_chain", BWD_SOURCE, BWD_REPLACES,
-         counts["bwd_chain"], worst("dfold", "dbhid", "dwht", "dbht"),
-         step_ms["bwd_chain"], plain_bwd),
-        ("fused_decoder_bwd_dw", BWD_SOURCE, BWD_REPLACES, counts["bwd_dw"],
-         worst("dwhid"), step_ms["bwd_dw"], plain_bwd),
-        ("fused_decoder_bwd_sum_rows", BWD_SOURCE, BWD_REPLACES,
-         counts["bwd_sum"], worst(*GRADS), step_ms["sum_rows"], plain_bwd),
-    ]
+    rows = kernel_rows(torch, res, bwd, launches, counts, step_ms, i8)
+    for r in rows:
+        if r[3] < 1:
+            raise AssertionError(f"{r[0]} was not launched on its path")
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
-         "launches": nl, "max_abs_err": err, "ms": ms, "plain_ms": pms}
-        for n, src, rep, nl, err, ms, pms in kernels]}))
+         "launches": nl, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+         "bound_ms": bd[0], "bound_by": bd[1], "library_ms": lib}
+        for n, src, rep, nl, err, ms, pms, bd, lib in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,9 +7,11 @@ Plain tensor code is PyTorch; every Pallas TPU kernel on a ported path is a
 hand-written CUDA kernel for Hopper (``kernels/csrc``) with its plain
 PyTorch version beside it.
 
-The port imports no JAX.  From the old package it reuses only the two
-JAX-free modules ``spatialvae_tpu.core.config`` (frozen config dataclasses)
-and ``spatialvae_tpu.io.torch_import`` (reference ``.sav`` conversion).
+The port imports nothing of JAX and nothing of ``spatialvae_tpu``: it keeps
+its own copies of the config dataclasses (``config.py``) and of the
+reference ``.sav`` reader (``io/reference_sav.py``).  Its entry points
+(``api.SpatialVae.load``, ``train.trainer.Trainer``) run on the CUDA card
+unless the caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@
 ``spatialvae_tpu/api.py``.
 
     model = SpatialVae.load("run_generator_epoch100.sav",
-                            "run_inference_epoch100.sav", device="cuda")
+                            "run_inference_epoch100.sav")   # on the card
     z_mu, z_logstd = model.encode(images)
     recon = model.reconstruct(images, generator=g)          # posterior sample
     canon = model.reconstruct_canonical(images, generator=g)  # pose-stripped
@@ -16,7 +16,9 @@ refuses it on every device.  (The JAX API pins the XLA decoder
 because a pallas_call could not be partitioned under GSPMD; the port has no
 such limit, and kernel and plain decoder compute the same function.)
 Random draws come from an explicit ``torch.Generator``; ``noise=`` injects
-a given standard-normal draw instead.
+a given standard-normal draw instead.  ``load`` puts the model on the CUDA
+card unless it is given ``device="cpu"`` (or another device), and raises
+when there is no card and no device was named.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from spatialvae_tpu.core.config import InferenceConfig
+from spatialvae_torch.config import InferenceConfig
 from spatialvae_torch.checkpoint import load_model_meta
+from spatialvae_torch.device import resolve_device
 from spatialvae_torch.io.jax_params import (
     generator_from_jax,
     inference_from_jax,
@@ -78,10 +81,12 @@ class SpatialVae:
     @staticmethod
     def load(generator_path: str, inference_path: str,
              image_shape: Optional[Tuple[int, int]] = None, *,
-             device="cpu", dtype: torch.dtype = torch.float32
+             device=None, dtype: torch.dtype = torch.float32
              ) -> "SpatialVae":
         """image_shape may be omitted when the checkpoint persisted it.
-        Reference torch .sav files load too (pass image_shape)."""
+        Reference torch .sav files load too (pass image_shape).  ``device``
+        None means the CUDA card (``device.resolve_device``)."""
+        device = resolve_device(device)
         p_params, p_cfg, kind, meta = load_model_meta(generator_path)
         if kind != "generator":
             raise ValueError(f"{generator_path} holds a {kind} network")

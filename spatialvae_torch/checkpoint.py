@@ -15,17 +15,16 @@ or, for the Adam state,
 so a file written by either package loads in the other, and a run trained
 by the port resumes in either.  Reference torch
 ``.sav`` files (whole-module pickles) are detected and converted through
-``spatialvae_tpu.io.torch_import``, as the JAX loader does.  Unpickling runs
+``io/reference_sav.py``, as the JAX loader does.  Unpickling runs
 arbitrary code: load only checkpoints you trust.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import pickle
 
-from spatialvae_tpu.core import config as core_config
+from spatialvae_torch.config import config_from_dict, config_to_dict
 from spatialvae_torch.io.jax_params import (
     generator_to_jax,
     inference_to_jax,
@@ -33,18 +32,8 @@ from spatialvae_torch.io.jax_params import (
     named_to_jax,
 )
 from spatialvae_torch.models.inference import InferenceNetwork
-from spatialvae_torch.objectives.elbo import ElboConfig
 
 FORMAT = "spatialvae_tpu.checkpoint.v1"
-
-
-def config_from_dict(d: dict):
-    """Config dataclass from its persisted dict.  ElboConfig is built as the
-    port's own (the JAX one imports JAX); unknown fields are dropped."""
-    if d.get("__class__") == "ElboConfig":
-        known = {f.name for f in dataclasses.fields(ElboConfig)}
-        return ElboConfig(**{k: v for k, v in d.items() if k in known})
-    return core_config.config_from_dict(d)
 
 
 def save_model(path: str, kind: str, module, *, elbo=None,
@@ -58,11 +47,11 @@ def save_model(path: str, kind: str, module, *, elbo=None,
     payload = {
         "format": FORMAT,
         "kind": kind,
-        "config": core_config.config_to_dict(module.cfg),
+        "config": config_to_dict(module.cfg),
         "params": (inference_to_jax if is_inf else generator_to_jax)(module),
     }
     if elbo is not None:
-        payload["elbo"] = core_config.config_to_dict(elbo)
+        payload["elbo"] = config_to_dict(elbo)
     if image_shape is not None:
         payload["image_shape"] = tuple(int(v) for v in image_shape)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -71,7 +60,7 @@ def save_model(path: str, kind: str, module, *, elbo=None,
 
 
 def _load_reference_sav(path: str):
-    from spatialvae_tpu.io.torch_import import import_module, \
+    from spatialvae_torch.io.reference_sav import import_module, \
         load_torch_module
 
     params, cfg, kind = import_module(load_torch_module(path))

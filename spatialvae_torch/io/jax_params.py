@@ -26,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from spatialvae_tpu.core.config import (
+from spatialvae_torch.config import (
     InferenceConfig,
     SpatialGeneratorConfig,
     VanillaGeneratorConfig,

@@ -41,6 +41,13 @@ _SIGNATURES = {
                                  + [_P], _I),
     "svt_fused_decoder_bwd_kchunk": ([], _I),
     "svt_sum_rows": ([_P, _P, _I, _L, _I, _L, _P], _I),
+    "svt_int8_max_hidden": ([], _I),
+    "svt_int8_decoder_fwd": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "svt_int8_decoder_bwd_scale": ([_P] * 10 + [_I] * 5 + [_P], _I),
+    "svt_int8_decoder_bwd_grad": ([_P] * 16 + [_I] * 7 + [_P], _I),
+    "svt_int8_grouped_dw": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    "svt_loss_int8_fwd": ([_P] * 12 + [_I] * 6 + [_P], _I),
+    "svt_loss_int8_grad": ([_P] * 16 + [_I] * 7 + [_P], _I),
 }
 
 
@@ -87,8 +94,9 @@ def _run(procs) -> None:
 
 def build(defines: tuple = ()) -> Path:
     """Compile the sources unless the library for their hash exists.
-    ``defines`` are extra ``-D`` flags (a copy with a precision step
-    removed, see ``csrc/decoder_tile.cuh``)."""
+    ``defines`` are extra ``-D`` flags: a copy with a precision step
+    removed, for placing the kernels' error limits (``csrc/decoder_tile.cuh``
+    and ``csrc/int8_tile.cuh`` list them)."""
     out = library_path(defines)
     if out.exists():
         return out

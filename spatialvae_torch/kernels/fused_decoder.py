@@ -36,7 +36,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from spatialvae_tpu.core.config import SpatialGeneratorConfig
+from spatialvae_torch.config import SpatialGeneratorConfig
 from spatialvae_torch.models.spatial import (
     SpatialGenerator,
     fold_pose_into_first_layer,

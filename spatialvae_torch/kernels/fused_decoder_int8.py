@@ -1,0 +1,500 @@
+"""The int8 decoder tail: hand-written sm_90a CUDA kernels, forward (K4) and
+backward (K5), under one ``torch.autograd.Function``.
+
+Counterpart of ``spatialvae_tpu/kernels/fused_decoder_int8.py`` (the
+custom-VJP op ``fused_decoder_tail_int8``: Pallas ``_fwd_kernel`` and
+``_bwd_kernel``), for the default decoder shape only (2 layers, no resid).
+Per (image b, pixel p), with W1q, sw = ``quant_sym(w1)`` (per-tensor int8):
+
+    a0  = tanh(x0[p]*w0[b] + x1[p]*w1[b] + c[b])
+    a0q = round(127*a0)                                   (int8, no clip)
+    h1  = (a0q @ W1q) * (sw/127) + b1                     (int32 sums)
+    a1  = tanh(h1);  y = sigmoid(cast(a1) . wht^T + bht)  (f32 sums)
+
+and the backward, per quantisation group (one image x one ``pick_tile``
+pixel tile, 2048 pixels at the galaxy shape):
+
+    dz2 = g*y*(1-y);   dh1 = (cast(dz2)^T . wht) * (1 - a1^2)
+    sg  = max|dh1| over the group / 127 + 1e-30;  dh1q = clip(round(dh1/sg))
+    dW1 += (a0q^T . dh1q) * sg/127;   db1 += sum dh1
+    da0 = (dh1q . W1q^T) * sg*sw;     dh0 = da0 * (1 - a0^2)
+
+cast() rounds to the weight dtype; the residual a1 is stored in bf16, and
+without it the backward rebuilds a1 in f32 exactly as the forward did, so
+the two variants differ as the JAX ones do.
+
+``decoder_tail_int8_reference`` and ``decoder_tail_int8_backward_reference``
+are the plain PyTorch versions, with the integer products done exactly
+(integer-valued float32, every partial sum below 2**24).  The wrappers run
+them for CPU tensors; CUDA tensors launch the kernels
+(``csrc/fused_decoder_int8.cu``) or raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from spatialvae_torch.config import SpatialGeneratorConfig
+from spatialvae_torch.kernels.fused_decoder import (
+    _call,
+    _first_layer,
+    _lib,
+    _stream,
+    residual_budget,
+    save_residual,
+    workspace_budget,
+)
+from spatialvae_torch.models.spatial import (
+    SpatialGenerator,
+    fold_pose_into_first_layer,
+)
+from spatialvae_torch.precision import fp32_precision
+
+MAX_OUT = 8
+# = svt_int8_max_hidden() of the kernels
+MAX_HIDDEN = 512
+WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+BLOCK_PIXELS = 64       # pixels per CUDA block (a group spans several)
+
+# Kernel launches on CUDA tensors, by kernel: the forward without and with
+# the a1 output, the backward's scale pass (each block's max |dh1|), its
+# gradient pass (quantisation, da0, dfold and bias partials, workspaces),
+# the split-K dW1 kernel and the fixed-order reductions.  The recompute
+# variant rebuilds a1 inside the two backward passes.
+LAUNCHES = {"fwd": 0, "fwd_acts": 0, "bwd_scale": 0, "bwd_grad": 0,
+            "dw": 0, "sum": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def can_fuse_int8(cfg: SpatialGeneratorConfig, hw: int) -> bool:
+    """The JAX package's gate, unchanged."""
+    return (not cfg.expand_coords and not cfg.bilinear and not cfg.resid
+            and cfg.num_layers == 2 and cfg.n_out <= 8 and hw >= 256)
+
+
+def pick_tile(hw: int) -> int:
+    """Pixels per quantisation group (the JAX ``_pick_tile``): the largest
+    of 2048, 1024, 512, 256 that divides hw, else hw.  The group sets the
+    numbers, not only the speed."""
+    for t in (2048, 1024, 512, 256):
+        if hw % t == 0:
+            return t
+    return hw
+
+
+def quant_sym(w: torch.Tensor):
+    """Per-tensor symmetric int8 quantisation: (q int8, s f32 0-d) with
+    s = max|w|/127 + 1e-12 and q = clip(round(w/s), -127, 127)."""
+    s = w.abs().max().float() / 127.0 + 1e-12
+    q = torch.clamp(torch.round(w.float() / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _forward_chain(fold, coords, w1q, sw, b1):
+    """(a0, a0q, a1) in float32: a0q integer-valued, a1 = tanh(h1)."""
+    a0 = torch.tanh(_first_layer(fold, coords))              # (B, HW, H)
+    a0q = torch.round(a0 * 127.0)
+    acc = a0q @ w1q.float()                                   # exact ints
+    h1 = acc * (sw.float() * (1.0 / 127.0)) + b1.float()
+    return a0, a0q, torch.tanh(h1)
+
+
+@fp32_precision()
+def decoder_tail_int8_reference(fold, coords, w1q, sw, b1, wht, bht,
+                                return_a1: bool = False):
+    """Plain version of K4.  fold (B, 4, H) f32; coords (HW, 2) f32; w1q
+    (H, H) int8 [in][out]; sw 0-d f32; b1 (H,); wht (No, H); bht (No,) in
+    the weight dtype.  Returns y (B, No, HW) f32 and, with ``return_a1``,
+    a1 (B, HW, H) in bf16 (the residual)."""
+    wdt = wht.dtype
+    _, _, a1 = _forward_chain(fold, coords, w1q, sw, b1)
+    z = a1.to(wdt).float() @ wht.float().T + bht.float()     # (B, HW, No)
+    y = torch.sigmoid(z).transpose(1, 2)
+    return (y, a1.to(torch.bfloat16)) if return_a1 else y
+
+
+def grouped_int_product(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                        pt: int, chunk: int = 64) -> torch.Tensor:
+    """sum over groups g of (a_g^T . q_g) * scale_g, (H, H) f32: a, q
+    (B, HW, H) integer-valued, scale (B, HW // pt).  Each group's product is
+    computed exactly (float64; a 2048-pixel int8 group can pass 2**24) and
+    rounded to f32 as the kernels' int32 -> f32 conversion rounds it; the
+    scaled values are summed in f32, in chunks of groups that bound the
+    memory."""
+    h = a.shape[-1]
+    a = a.reshape(-1, pt, h)
+    q = q.reshape(-1, pt, q.shape[-1])
+    scale = scale.reshape(-1)
+    out = torch.zeros((h, q.shape[-1]), dtype=torch.float32, device=a.device)
+    for g0 in range(0, a.shape[0], chunk):
+        prod = torch.bmm(a[g0:g0 + chunk].double().transpose(1, 2),
+                         q[g0:g0 + chunk].double()).float()
+        out += (prod * scale[g0:g0 + chunk, None, None]).sum(0)
+    return out
+
+
+def _dfold(coords, dh0):
+    x0 = coords[:, 0].float()[None, :, None]
+    x1 = coords[:, 1].float()[None, :, None]
+    return torch.stack([(x0 * dh0).sum(1), (x1 * dh0).sum(1), dh0.sum(1),
+                        torch.zeros_like(dh0[:, 0])], dim=1)
+
+
+@fp32_precision()
+def decoder_tail_int8_backward_reference(fold, coords, w1q, sw, b1, wht,
+                                         a1: Optional[torch.Tensor], y, g):
+    """Plain version of K5: the JAX ``_bwd_pallas`` inputs and outputs.
+    a1: the bf16 residual, or None to rebuild a1 in f32; y: the forward's
+    (B, No, HW) output; g its cotangent.  Returns float32 (dfold (B, 4, H)
+    with row 3 zero, dW1 (H, H), db1 (H,), dWh^T (No, H), dbh (No,))."""
+    wdt = wht.dtype
+    cast = lambda t: t.to(wdt).float()
+    hw = coords.shape[0]
+    pt = pick_tile(hw)
+    a0, a0q, a1f = _forward_chain(fold, coords, w1q, sw, b1)
+    if a1 is not None:
+        a1f = a1.float()
+    s = y.float()
+    dz2 = g.float() * s * (1.0 - s)                           # (B, No, HW)
+    dz2c = cast(dz2)
+    a1c = cast(a1f)
+    dwht = torch.einsum("bop,bph->oh", dz2c, a1c)
+    dbht = dz2.sum(dim=(0, 2))
+    da1 = torch.einsum("bop,oh->bph", dz2c, wht.float())
+    dh1 = da1 * (1.0 - a1f * a1f)                             # (B, HW, H)
+    b, _, h = dh1.shape
+    gmax = dh1.abs().reshape(b, hw // pt, -1).amax(dim=2)    # (B, T)
+    sg = gmax * (1.0 / 127.0) + 1e-30
+    sgp = sg.repeat_interleave(pt, dim=1)[..., None]          # per pixel
+    dh1q = torch.clamp(torch.round(dh1 / sgp), -127, 127)
+    dw1 = grouped_int_product(a0q, dh1q, sg * (1.0 / 127.0), pt)
+    db1 = dh1.sum(dim=(0, 1))
+    da0 = (dh1q @ w1q.float().T) * (sgp * sw.float())
+    dh0 = da0 * (1.0 - a0 * a0)
+    return _dfold(coords, dh0), dw1, db1, dwht, dbht
+
+
+# ---------------------------------------------------------------------------
+# checks and packed weights
+# ---------------------------------------------------------------------------
+
+
+def _check_weights(w1, b1, wht, bht) -> None:
+    """Raise on weights the kernels do not take, on every device."""
+    args = dict(w1=w1, b1=b1, wht=wht, bht=bht)
+    if w1.dim() != 2 or w1.shape[0] != w1.shape[1]:
+        raise ValueError(f"w1 must be (H, H), got {tuple(w1.shape)}")
+    h = w1.shape[0]
+    no = wht.shape[0] if wht.dim() == 2 else -1
+    for name, shape in dict(b1=(h,), wht=(no, h), bht=(no,)).items():
+        if tuple(args[name].shape) != shape or min(shape) < 1:
+            raise ValueError(f"{name} has shape {tuple(args[name].shape)}, "
+                             f"expected {shape} (H={h})")
+    if no > MAX_OUT:
+        raise ValueError(f"n_out={no}; the kernels take at most {MAX_OUT}")
+    if not 1 <= h <= MAX_HIDDEN:
+        raise ValueError(f"hidden_dim={h}; the int8 kernels take up to "
+                         f"{MAX_HIDDEN} (ROADMAP Queue 2 K1: H > 512)")
+    if w1.dtype not in WEIGHT_DTYPES:
+        raise TypeError(f"weights must be float32 or bfloat16, got "
+                        f"{w1.dtype}")
+    for name in ("b1", "wht", "bht"):
+        if args[name].dtype != w1.dtype:
+            raise TypeError(f"{name} is {args[name].dtype}, w1 {w1.dtype}: "
+                            f"one weight dtype")
+    devices = {t.device for t in args.values()}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {devices}")
+    if w1.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {w1.device}")
+
+
+def padded_hidden(h: int) -> int:
+    """The kernels' K and N padding: a multiple of 64 (one int8 slab)."""
+    return -(-h // 64) * 64
+
+
+def pad_square(q: torch.Tensor) -> torch.Tensor:
+    """(H, H) int8 zero-padded to (Kp, Kp), contiguous."""
+    kp = padded_hidden(q.shape[0])
+    p = kp - q.shape[0]
+    return F.pad(q, (0, p, 0, p)).contiguous()
+
+
+class Int8Weights:
+    """The int8 decoder's weights, checked and quantised once: w1 (H, H)
+    [in][out], b1 (H,), wht (No, H), bht (No,), one float dtype, on one
+    device.  ``w1q``, ``sw`` = ``quant_sym(w1)``; ``kernel_args()`` builds
+    the launch copies on first use: W1q^T and W1q zero-padded to (Kp, Kp)
+    int8 (the forward reads rows of W1q^T, the backward rows of W1q), and
+    b1, wht, bht in f32 (widening bf16 is exact)."""
+
+    def __init__(self, w1, b1, wht, bht):
+        _check_weights(w1, b1, wht, bht)
+        self.w1, self.b1, self.wht, self.bht = (
+            t.detach() for t in (w1, b1, wht, bht))
+        self.w1q, self.sw = quant_sym(self.w1)
+        self._kernel_args = None
+
+    @property
+    def bf16(self) -> bool:
+        return self.w1.dtype == torch.bfloat16
+
+    def kernel_args(self) -> tuple:
+        """(w1qT, w1q, sw (1,), b1, wht, bht), contiguous on the device."""
+        if self._kernel_args is None:
+            self._kernel_args = (
+                pad_square(self.w1q.T), pad_square(self.w1q),
+                self.sw.reshape(1).contiguous(),
+                *(t.float().contiguous()
+                  for t in (self.b1, self.wht, self.bht)))
+        return self._kernel_args
+
+
+def _check_inputs(fold, coords, w: Int8Weights) -> None:
+    h = w.w1.shape[0]
+    if fold.dim() != 3 or fold.shape[1:] != (4, h) or fold.shape[0] < 1:
+        raise ValueError(f"fold must be (B, 4, H={h}), got "
+                         f"{tuple(fold.shape)}")
+    if coords.dim() != 2 or coords.shape[1] != 2 or coords.shape[0] < 1:
+        raise ValueError(f"coords must be (HW, 2), got "
+                         f"{tuple(coords.shape)}")
+    for name, t in (("fold", fold), ("coords", coords)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    devices = {fold.device, coords.device, w.w1.device}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {devices}")
+
+
+# ---------------------------------------------------------------------------
+# launches
+# ---------------------------------------------------------------------------
+
+
+def run_int8_tail(fold, coords, w: Int8Weights, emit_a1: bool = False):
+    """K4: y (B, No, HW) f32, and with ``emit_a1`` the bf16 residual a1
+    (B, HW, H).  CPU tensors take ``decoder_tail_int8_reference``; CUDA
+    tensors launch the kernel and count it in ``LAUNCHES["fwd"]`` or
+    ``["fwd_acts"]``."""
+    _check_inputs(fold, coords, w)
+    if fold.device.type == "cpu":
+        return decoder_tail_int8_reference(fold, coords, w.w1q, w.sw, w.b1,
+                                           w.wht, w.bht, emit_a1)
+    lib = _lib()
+    b, _, h = fold.shape
+    hw, no = coords.shape[0], w.wht.shape[0]
+    y = torch.empty((b, no, hw), dtype=torch.float32, device=fold.device)
+    a1 = (torch.empty((b, hw, h), dtype=torch.bfloat16, device=fold.device)
+          if emit_a1 else None)
+    w1qt, _, sw, b1, wht, bht = w.kernel_args()
+    with torch.cuda.device(fold.device):
+        _call(lib, "svt_int8_decoder_fwd", fold.data_ptr(),
+              coords.data_ptr(), w1qt.data_ptr(), sw.data_ptr(),
+              b1.data_ptr(), wht.data_ptr(), bht.data_ptr(), y.data_ptr(),
+              a1.data_ptr() if emit_a1 else None, b, hw, h, no, int(w.bf16),
+              _stream(fold))
+    LAUNCHES["fwd_acts" if emit_a1 else "fwd"] += 1
+    return (y, a1) if emit_a1 else y
+
+
+def image_chunks(b: int, per_image: int, budget: int) -> list:
+    """[(first image, count)] with count * per_image <= budget (at least
+    one image per chunk)."""
+    bc = max(1, min(b, budget // per_image))
+    return [(b0, min(bc, b - b0)) for b0 in range(0, b, bc)]
+
+
+def dw_splits(groups: int) -> int:
+    """Split-K partials of the dW1 kernel for ``groups`` quantisation
+    groups: enough (128, 128) tiles x splits to fill the card twice, at
+    most one split per group."""
+    return max(1, min(groups, 16))
+
+
+def run_grouped_dw(lib, aq_ws, q_ws, gscale, part_dw, nimg, hwp, h, pt_grp,
+                   groups_per_image, stream) -> int:
+    """dW1 partials of ``nimg`` images from the feature-major int8
+    workspaces (nimg, Kp, HWp): each group's exact int32 product, times its
+    scale, summed in f32 over the groups of a split; returns the number of
+    partials written.  The caller counts the launch."""
+    groups = nimg * groups_per_image
+    splits = dw_splits(groups)
+    _call(lib, "svt_int8_grouped_dw", aq_ws.data_ptr(), q_ws.data_ptr(),
+          gscale.data_ptr(), part_dw.data_ptr(), nimg, hwp, h, pt_grp,
+          groups_per_image, splits, stream)
+    return splits
+
+
+def run_int8_tail_backward(fold, coords, w: Int8Weights,
+                           a1: Optional[torch.Tensor], y, g,
+                           workspace_bytes: Optional[int] = None):
+    """K5, with the outputs of ``decoder_tail_int8_backward_reference``:
+    that function for CPU tensors, the kernels for CUDA tensors.  ``a1`` is
+    the forward's bf16 residual or None (the kernels rebuild a1 in f32).
+
+    On the card: a scale pass writes each 64-pixel block's max |dh1|; a
+    gradient pass takes each group's scale from its blocks' maxima,
+    quantises dh1, runs da0 on the int8 tensor cores, writes the per-block
+    partials of dfold, db1, dWh^T and dbh and the int8 a0q and dh1q to
+    feature-major workspaces; a split-K kernel computes dW1 group by group
+    from them; fixed-order reductions add the partials.  Images go through
+    the workspaces in chunks that fit ``workspace_bytes`` (default
+    ``workspace_budget``)."""
+    _check_inputs(fold, coords, w)
+    if fold.device.type == "cpu":
+        return decoder_tail_int8_backward_reference(
+            fold, coords, w.w1q, w.sw, w.b1, w.wht, a1, y, g)
+    lib = _lib()
+    dev = fold.device
+    b, _, h = fold.shape
+    hw, no = coords.shape[0], w.wht.shape[0]
+    pt = pick_tile(hw)
+    gpi = hw // pt                                # groups per image
+    blocks = -(-hw // BLOCK_PIXELS)               # blocks per image
+    hwp = blocks * BLOCK_PIXELS
+    kp = padded_hidden(h)
+    if a1 is not None and (a1.dtype != torch.bfloat16
+                           or a1.shape != (b, hw, h)
+                           or not a1.is_contiguous()):
+        raise ValueError("a1 must be the contiguous bf16 (B, HW, H) "
+                         "residual")
+    w1qt, w1q, sw, b1, wht, bht = w.kernel_args()
+    g = g.float().contiguous()
+    y = y.contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    mw = h + no * h + no                          # [db1 | dWh^T | dbh]
+    part_max = torch.empty((b * blocks,), **f32)
+    gscale = torch.empty((b * gpi,), **f32)
+    part_fold = torch.empty((b * blocks, 3, h), **f32)
+    part_w = torch.empty((b * blocks, mw), **f32)
+    budget = workspace_budget(dev) if workspace_bytes is None \
+        else workspace_bytes
+    chunks = image_chunks(b, 2 * kp * hwp, budget)
+    bc = chunks[0][1]
+    aq_ws = torch.empty((bc, kp, hwp), dtype=torch.int8, device=dev)
+    q_ws = torch.empty((bc, kp, hwp), dtype=torch.int8, device=dev)
+    part_dw = torch.empty((sum(dw_splits(n * gpi) for _, n in chunks), h, h),
+                          **f32)
+    a1p = a1.data_ptr() if a1 is not None else None
+    with torch.cuda.device(dev):
+        st = _stream(fold)
+        common = (fold.data_ptr(), coords.data_ptr(), w1qt.data_ptr(),
+                  sw.data_ptr(), b1.data_ptr(), wht.data_ptr(), a1p,
+                  y.data_ptr(), g.data_ptr())
+        _call(lib, "svt_int8_decoder_bwd_scale", *common,
+              part_max.data_ptr(), b, hw, h, no, int(w.bf16), st)
+        LAUNCHES["bwd_scale"] += 1
+        split0 = 0
+        for b0, n in chunks:
+            _call(lib, "svt_int8_decoder_bwd_grad", *common,
+                  w1q.data_ptr(), part_max.data_ptr(), gscale.data_ptr(),
+                  aq_ws.data_ptr(), q_ws.data_ptr(), part_fold.data_ptr(),
+                  part_w.data_ptr(), b0, n, hw, h, no, pt, int(w.bf16), st)
+            LAUNCHES["bwd_grad"] += 1
+            split0 += run_grouped_dw(lib, aq_ws, q_ws, gscale[b0 * gpi:],
+                                     part_dw[split0:], n, hwp, h, pt, gpi, st)
+            LAUNCHES["dw"] += 1
+        dfold = torch.zeros((b, 4, h), **f32)
+        dw1 = torch.empty((h, h), **f32)
+        sums = torch.empty((mw,), **f32)
+        stage = torch.empty((-(-b * blocks // 64), mw), **f32)
+        for src, dst, rows, total, m, stride in (
+                (part_fold, dfold, blocks, b * blocks, 3 * h, 4 * h),
+                (part_dw, dw1, split0, split0, h * h, 0),
+                (part_w, stage, 64, b * blocks, mw, mw),
+                (stage, sums, stage.shape[0], stage.shape[0], mw, 0)):
+            _call(lib, "svt_sum_rows", src.data_ptr(), dst.data_ptr(), rows,
+                  total, m, stride, st)
+            LAUNCHES["sum"] += 1
+    return (dfold, dw1, sums[:h], sums[h:h + no * h].view(no, h),
+            sums[h + no * h:])
+
+
+# ---------------------------------------------------------------------------
+# the differentiable op
+# ---------------------------------------------------------------------------
+
+
+class _Int8Tail(torch.autograd.Function):
+    """Counterpart of the JAX ``fused_decoder_tail_int8`` custom VJP: fold
+    and the float weights are differentiable inputs (W1q and sw are derived
+    from w1 on every call); coords is not."""
+
+    @staticmethod
+    def forward(ctx, fold, coords, w1, b1, wht, bht):
+        w = Int8Weights(w1, b1, wht, bht)
+        _check_inputs(fold, coords, w)
+        b, _, h = fold.shape
+        hw = coords.shape[0]
+        if save_residual(b, hw, h, 1, torch.bfloat16,
+                         residual_budget(fold.device)):
+            y, a1 = run_int8_tail(fold, coords, w, emit_a1=True)
+        else:
+            y, a1 = run_int8_tail(fold, coords, w), None
+        ctx.save_for_backward(fold, coords, y, a1)
+        ctx.weights = w
+        ctx.dtypes = (fold.dtype, w1.dtype, b1.dtype, wht.dtype, bht.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        fold, coords, y, a1 = ctx.saved_tensors
+        grads = run_int8_tail_backward(fold, coords, ctx.weights, a1, y, gy)
+        dfold, dw1, db1, dwht, dbht = (
+            t.to(dt) for t, dt in zip(grads, ctx.dtypes))
+        return dfold, None, dw1, db1, dwht, dbht
+
+
+def fused_decoder_tail_int8(fold: torch.Tensor, coords: torch.Tensor,
+                            w1: torch.Tensor, b1: torch.Tensor,
+                            wht: torch.Tensor, bht: torch.Tensor
+                            ) -> torch.Tensor:
+    """w1 (H, H) [in][out]; b1 (H,); wht (No, H); bht (No,), all f32 or all
+    bf16; fold (B, 4, H) f32; coords (HW, 2) f32.  Returns (B, No, HW) f32.
+    With grad enabled and an input that requires it, the differentiable op
+    (it saves the bf16 a1 when ``save_residual`` allows, else the backward
+    rebuilds it); otherwise K4 alone."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (fold, w1, b1, wht, bht)):
+        return _Int8Tail.apply(fold, coords, w1, b1, wht, bht)
+    return run_int8_tail(fold, coords, Int8Weights(w1, b1, wht, bht))
+
+
+def fused_spatial_generator_int8(gen: SpatialGenerator, coords: torch.Tensor,
+                                 theta: Optional[torch.Tensor],
+                                 dx: Optional[torch.Tensor],
+                                 z: Optional[torch.Tensor]) -> torch.Tensor:
+    """The JAX ``fused_spatial_generator_int8``: the pose fold in PyTorch,
+    coords zero-padded to a multiple of 256 pixels, the int8 tail, the
+    padding sliced off.  Returns (B, HW, n_out)."""
+    if not can_fuse_int8(gen.cfg, coords.shape[0]):
+        raise ValueError(f"config not supported by the int8 decoder: "
+                         f"{gen.cfg}")
+    w0, w1f, c = fold_pose_into_first_layer(gen, theta, dx, z)
+    fold = torch.stack([w0, w1f, c, torch.zeros_like(c)], dim=1)
+    fold = fold.float().contiguous()
+    hidden, head = gen.linears()
+    hw = coords.shape[0]
+    coords_p = F.pad(coords.float(), (0, 0, 0, (-hw) % 256)).contiguous()
+    yt = fused_decoder_tail_int8(fold, coords_p, hidden.weight.T.contiguous(),
+                                 hidden.bias, head.weight.contiguous(),
+                                 head.bias)
+    y = yt[..., :hw].transpose(1, 2)
+    if gen.cfg.softplus:
+        y = torch.cat([F.softplus(y[..., :1]), y[..., 1:]], dim=-1)
+    return y

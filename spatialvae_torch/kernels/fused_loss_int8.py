@@ -1,0 +1,434 @@
+"""The fused int8 loss-and-gradient kernel (K3): hand-written sm_90a CUDA
+kernels under one ``torch.autograd.Function``.
+
+Counterpart of ``spatialvae_tpu/kernels/fused_loss_int8.py`` (Pallas
+``_kernel`` through ``_lossgrad_pallas`` and the custom VJP
+``fused_decoder_bce_int8``), family (a): the Bernoulli likelihood over a
+tile-aligned pixel count, with or without a pixel mask, at the default
+numerics of ``kernels/config.py`` (grad_mode i4dw1, gscale bound, bf16
+epilogue, round to nearest even).  One call computes, for the foldable
+2-layer decoder, the summed BCE and every decoder gradient:
+
+    host, once per call:
+      W1f, sf = quant_sym4(w1^T)^T  (per-column 4-bit), h1s = sf/7
+      W1r, s4 = quant_sym4(w1)      (per-row 4-bit, for da0)
+      gb = max_j sum_i |wht[i, j]| + 1e-30
+    per group (one image x one pick_tile pixel tile, 1024 at galaxy):
+      a0 = tanh(x0*w0 + x1*w1 + c);  aq = clip(round(7*a0), -7, 7)
+      h1 = (aq @ W1f) * h1s + b1;    a1c = cast(tanh(h1))
+      s  = sigmoid(a1c . wht^T + bht); y = (yt + 128)/255 for int8 targets
+      bce = -sum m*(y*max(log s, -100) + (1-y)*max(log1p(-s), -100))
+      dz2 = m*(s - y), 0 where s*(1-s) == 0;  dWh^T += cast(dz2) a1c
+      mdz = max|dz2| + 1e-30;  sg = gb*mdz/7
+      q  = (cast(dz2)^T . wht) * (1 - a1c*a1c in the weight dtype) * 7/(gb*mdz)
+      db1 += sum q * sg;  qi = clip(round(q), -7, 7)
+      dW1 += (aq^T . qi) * sg/7;  da0 = qi . W1r^T
+      dh0 = bf16(da0) * (1 - a0d*a0d), a0d = bf16(aq)*bf16(1/7), in bf16
+      dfold[b] += (bf16(x3)^T . dh0) * sg*s4,  x3 = [x0, x1, 1, 0]
+    the group's bce is added at dfold[b, 3, 0]; the loss is their sum.
+
+``loss_int8_reference`` is the plain PyTorch version, with the integer
+products exact.  ``run_loss_int8`` takes it for CPU tensors and launches
+the kernels (``csrc/fused_loss_int8.cu``) for CUDA tensors, or raises.
+Configs the JAX package would send to its kernel but the port has not
+ported (the gaussian (b) and colored (d) families, padded pixel counts
+(c), other numerics (e), (f)) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from spatialvae_torch.config import SpatialGeneratorConfig
+from spatialvae_torch.kernels.config import check_knobs
+from spatialvae_torch.kernels.fused_decoder import (
+    _call,
+    _first_layer,
+    _lib,
+    _stream,
+    workspace_budget,
+)
+from spatialvae_torch.kernels.fused_decoder_int8 import (
+    BLOCK_PIXELS,
+    MAX_HIDDEN,
+    MAX_OUT,
+    WEIGHT_DTYPES,
+    dw_splits,
+    grouped_int_product,
+    image_chunks,
+    pad_square,
+    padded_hidden,
+    run_grouped_dw,
+)
+from spatialvae_torch.models.spatial import (
+    SpatialGenerator,
+    fold_pose_into_first_layer,
+)
+from spatialvae_torch.precision import fp32_precision
+
+# Kernel launches on CUDA tensors: the forward pass (BCE, dz2 and each
+# block's max |dz2|), the gradient pass (quantisation, da0, the per-block
+# partials, the int8 workspaces), the split-K dW1 kernel (shared with K5,
+# counted here for K3's calls) and the fixed-order reductions.
+LAUNCHES = {"fwd": 0, "grad": 0, "dw": 0, "sum": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def quant_sym4(w: torch.Tensor):
+    """Per-row symmetric 4-bit quantisation held in int8: s = max_j |w[i]|/7
+    + 1e-12 (f32, shape (H,)), q = clip(round(w/s), -7, 7)."""
+    wf = w.float()
+    s = wf.abs().amax(dim=1, keepdim=True) / 7.0 + 1e-12
+    q = torch.clamp(torch.round(wf / s), -7, 7).to(torch.int8)
+    return q, s.reshape(-1)
+
+
+def pick_tile(hw: int) -> int:
+    """Pixels per quantisation group (the JAX default ``_pick_tile``)."""
+    for t in (1024, 512, 256):
+        if hw % t == 0:
+            return t
+    return hw
+
+
+def hw_tiles_ok(hw: int) -> bool:
+    return hw >= 1024 and hw % pick_tile(hw) == 0
+
+
+def padded_hw(hw: int) -> int:
+    """Smallest tile-aligned pixel count >= hw and >= 1024."""
+    return max(1024, -(-hw // 256) * 256)
+
+
+def can_fuse_loss_int8(cfg: SpatialGeneratorConfig, hw: int,
+                       likelihood: str) -> bool:
+    """The JAX gate, unchanged: whether the JAX package sends this config
+    to its loss kernel.  ``check_ported`` says whether the port can."""
+    if likelihood == "gaussian":
+        if cfg.n_out != 1:
+            return False
+    elif likelihood == "colored":
+        if cfg.n_out != 2:
+            return False
+    elif likelihood != "bernoulli":
+        return False
+    if not (not cfg.expand_coords and not cfg.bilinear and not cfg.resid
+            and not cfg.softplus
+            and cfg.num_layers == 2 and cfg.n_out <= 8):
+        return False
+    if likelihood == "colored":
+        return hw % 256 == 0 and hw_tiles_ok(hw)
+    return hw >= 768 and hw_tiles_ok(padded_hw(hw))
+
+
+def check_ported(hw: int, likelihood: str) -> None:
+    """Raise ``NotImplementedError`` for a config the JAX loss kernel takes
+    and the port has not ported (ROADMAP Queue 2 K3 (b)-(d))."""
+    if likelihood == "gaussian":
+        raise NotImplementedError("the int8 loss kernel's gaussian family "
+                                  "is not ported yet (ROADMAP Queue 2 K3 (b))")
+    if likelihood == "colored":
+        raise NotImplementedError("the int8 loss kernel's colored family "
+                                  "is not ported yet (ROADMAP Queue 2 K3 (d))")
+    if padded_hw(hw) != hw:
+        raise NotImplementedError(
+            f"the int8 loss kernel over a padded pixel count ({hw} -> "
+            f"{padded_hw(hw)}) is not ported yet (ROADMAP Queue 2 K3 (c))")
+
+
+def loss_operands(w1: torch.Tensor, wht: torch.Tensor) -> tuple:
+    """The host-side operands of the JAX ``_lossgrad_pallas`` at the default
+    knobs: (W1f (H, H) int8 [in][out] with per-column scales, h1s (H,),
+    gb 0-d, W1r (H, H) int8 [in][out] with per-row scales, s4 (H,))."""
+    wf4t, sf4 = quant_sym4(w1.T)
+    h1s = sf4 * (1.0 / 7.0)
+    gb = wht.float().abs().sum(dim=0).max() + 1e-30
+    w1r, s4 = quant_sym4(w1)
+    return wf4t.T, h1s, gb, w1r, s4
+
+
+def targets_f32(y_t: torch.Tensor) -> torch.Tensor:
+    """(B, No, HW) targets as f32: int8 /255-grid targets are stored as
+    k-128 and decode to (k + 128) * (1/255)."""
+    if y_t.dtype == torch.int8:
+        return (y_t.float() + 128.0) * (1.0 / 255.0)
+    return y_t.float()
+
+
+_BF16 = torch.bfloat16
+
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    return t.to(_BF16)
+
+
+def tanh_prime(a1c: torch.Tensor, wdt: torch.dtype) -> torch.Tensor:
+    """1 - a1c*a1c in the weight dtype, as f32: with bf16 weights each of
+    the two ops rounds to bf16 (the JAX kernel's ``one - a1c * a1c``)."""
+    if wdt == _BF16:
+        a = _bf(a1c)
+        return (1.0 - a * a).float()
+    return 1.0 - a1c * a1c
+
+
+def dh0_bf16(da0: torch.Tensor, aq: torch.Tensor) -> torch.Tensor:
+    """The bf16 dh0 chain, as f32: bf16(da0) * (1 - a0d*a0d) with a0d =
+    bf16(aq) * bf16(1/7), every op rounding to bf16."""
+    a0d = _bf(aq) * torch.tensor(1.0 / 7.0, dtype=_BF16)
+    return (_bf(da0) * (1.0 - a0d * a0d)).float()
+
+
+@fp32_precision()
+def loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
+                        mask: Optional[torch.Tensor] = None) -> tuple:
+    """Plain version of K3.  fold (B, 4, H) f32 rows [w0, w1, c, 0]; coords
+    (HW, 2) f32, HW tile-aligned; w1 (H, H) [in][out]; b1 (H,); wht (No, H);
+    bht (No,), in one weight dtype; y_t (B, No, HW) int8 (k-128) or float;
+    mask (HW,) or None.  Returns float32 (dfold (B, 4, H) with the per-image
+    BCE at [:, 3, 0], dW1 (H, H), db1 (H,), dWh^T (No, H), dbh (No,))."""
+    wdt = wht.dtype
+    b, _, h = fold.shape
+    hw = coords.shape[0]
+    pt = pick_tile(hw)
+    t_ = hw // pt
+    w1f, h1s, gb, w1r, s4 = loss_operands(w1, wht)
+    a0 = torch.tanh(_first_layer(fold, coords))              # (B, HW, H)
+    aq = torch.clamp(torch.round(a0 * 7.0), -7, 7)
+    h1 = (aq @ w1f.float()) * h1s + b1.float()               # exact ints
+    a1c = torch.tanh(h1).to(wdt).float()
+    z2 = (a1c @ wht.float().T + bht.float()).transpose(1, 2)  # (B, No, HW)
+    s = torch.sigmoid(z2)
+    yt = targets_f32(y_t)
+    log_s = torch.clamp(torch.log(s), min=-100.0)
+    log_1ms = torch.clamp(torch.log1p(-s), min=-100.0)
+    per = yt * log_s + (1.0 - yt) * log_1ms
+    dz2 = torch.where(s * (1.0 - s) == 0.0, torch.zeros_like(s), s - yt)
+    if mask is not None:
+        m = mask.float().reshape(1, 1, hw)
+        per = per * m
+        dz2 = dz2 * m
+    no = dz2.shape[1]
+    bce = -per.reshape(b, no, t_, pt).sum(dim=(1, 3))         # (B, T)
+    dz2c = dz2.to(wdt).float()
+    dwht = torch.einsum("bop,bph->oh", dz2c, a1c)
+    dbht = dz2.sum(dim=(0, 2))
+    da1 = torch.einsum("bop,oh->bph", dz2c, wht.float())      # (B, HW, H)
+    mdz = dz2.abs().reshape(b, no, t_, pt).amax(dim=(1, 3)) + 1e-30
+    gm = gb * mdz                                             # (B, T)
+    qs = (7.0 / gm).repeat_interleave(pt, dim=1)[..., None]
+    sg = gm * (1.0 / 7.0)
+    q = (da1 * tanh_prime(a1c, wdt)) * qs
+    db1 = (q.reshape(b, t_, pt, h).sum(dim=2) * sg[..., None]).sum(dim=(0, 1))
+    qi = torch.clamp(torch.round(q), -7, 7)
+    dw1 = grouped_int_product(aq, qi, sg * (1.0 / 7.0), pt)
+    da0 = qi @ w1r.float().T                                  # exact ints
+    dh0 = dh0_bf16(da0, aq)
+    xb = _bf(coords).float()
+    x0 = xb[:, 0].reshape(1, t_, pt, 1)
+    x1 = xb[:, 1].reshape(1, t_, pt, 1)
+    dh0 = dh0.reshape(b, t_, pt, h)
+    rows = torch.stack([(x0 * dh0).sum(2), (x1 * dh0).sum(2), dh0.sum(2)],
+                       dim=2)                                 # (B, T, 3, H)
+    rows = (rows * (sg[..., None, None] * s4)).sum(dim=1)
+    dfold = torch.cat([rows, torch.zeros((b, 1, h), dtype=torch.float32,
+                                         device=rows.device)], dim=1)
+    dfold[:, 3, 0] = bce.sum(dim=1)
+    return dfold, dw1, db1, dwht, dbht
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+
+def _check(fold, coords, w1, b1, wht, bht, y_t, mask) -> None:
+    """Raise on inputs the kernels do not take, on every device."""
+    if w1.dim() != 2 or w1.shape[0] != w1.shape[1]:
+        raise ValueError(f"w1 must be (H, H), got {tuple(w1.shape)}")
+    h = w1.shape[0]
+    if wht.dim() != 2 or wht.shape[1] != h:
+        raise ValueError(f"wht must be (No, H={h}), got {tuple(wht.shape)}")
+    no = wht.shape[0]
+    if not 1 <= no <= MAX_OUT or not 1 <= h <= MAX_HIDDEN:
+        raise ValueError(f"n_out={no}, H={h}; the kernels take n_out <= "
+                         f"{MAX_OUT} and H <= {MAX_HIDDEN}")
+    if tuple(b1.shape) != (h,) or tuple(bht.shape) != (no,):
+        raise ValueError("b1 must be (H,) and bht (No,)")
+    if w1.dtype not in WEIGHT_DTYPES or any(
+            t.dtype != w1.dtype for t in (b1, wht, bht)):
+        raise TypeError("weights must be all float32 or all bfloat16")
+    if fold.dim() != 3 or fold.shape[1:] != (4, h) or fold.shape[0] < 1:
+        raise ValueError(f"fold must be (B, 4, H={h}), got "
+                         f"{tuple(fold.shape)}")
+    b, hw = fold.shape[0], coords.shape[0]
+    if b % 2:
+        raise ValueError(f"batch {b}: the loss kernel takes even batches "
+                         f"(as the JAX kernel's image pairs do)")
+    if coords.dim() != 2 or coords.shape[1] != 2:
+        raise ValueError(f"coords must be (HW, 2), got "
+                         f"{tuple(coords.shape)}")
+    if not hw_tiles_ok(hw):
+        raise ValueError(f"HW={hw} is not tile-aligned for the loss kernel")
+    if tuple(y_t.shape) != (b, no, hw):
+        raise ValueError(f"y_t must be (B, No, HW) = {(b, no, hw)}, got "
+                         f"{tuple(y_t.shape)}")
+    if mask is not None and tuple(mask.shape) != (hw,):
+        raise ValueError(f"mask must be (HW,) = ({hw},)")
+    for name, t in (("fold", fold), ("coords", coords)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous float32")
+    devices = {t.device for t in (fold, coords, w1, b1, wht, bht, y_t)
+               + ((mask,) if mask is not None else ())}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {devices}")
+    if fold.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {fold.device}")
+
+
+def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
+                  mask: Optional[torch.Tensor] = None,
+                  workspace_bytes: Optional[int] = None) -> tuple:
+    """K3's five outputs (see ``loss_int8_reference``).  CPU tensors take
+    the plain version; CUDA tensors launch the kernels, counting each in
+    ``LAUNCHES``, and raise if the build or a launch fails.
+
+    On the card: a forward pass over 64-pixel blocks writes dz2
+    (B, No, HW), each block's BCE and max |dz2|; a gradient pass takes each
+    group's scale from its blocks' maxima, rebuilds the forward (one more
+    int8 GEMM, cheaper than storing a1), runs da0 on the int8 tensor cores
+    and writes the per-block partials of dfold, db1, dWh^T, dbh and the int8
+    aq and qi to feature-major workspaces; a split-K kernel computes dW1
+    group by group; fixed-order reductions add the partials, so two runs
+    agree bit for bit.  Images go through the workspaces in chunks that fit
+    ``workspace_bytes`` (default ``workspace_budget``)."""
+    _check(fold, coords, w1, b1, wht, bht, y_t, mask)
+    check_knobs()
+    if fold.device.type == "cpu":
+        return loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
+                                   mask)
+    lib = _lib()
+    dev = fold.device
+    b, _, h = fold.shape
+    hw, no = coords.shape[0], wht.shape[0]
+    pt = pick_tile(hw)
+    gpi = hw // pt
+    blocks = hw // BLOCK_PIXELS
+    kp = padded_hidden(h)
+    w1f, h1s, gb, w1r, s4 = loss_operands(w1.detach(), wht.detach())
+    w1ft, w1r = pad_square(w1f.T), pad_square(w1r)
+    b1f, whtf, bhtf = (t.detach().float().contiguous() for t in (b1, wht, bht))
+    h1s, s4, gb = h1s.contiguous(), s4.contiguous(), gb.reshape(1)
+    yt_i8 = y_t.dtype == torch.int8
+    yt = y_t.contiguous() if yt_i8 else y_t.float().contiguous()
+    mk = None if mask is None else mask.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    mw = h + no * h + no                          # [db1 | dWh^T | dbh]
+    dz2 = torch.empty((b, no, hw), **f32)
+    part_max = torch.empty((b * blocks,), **f32)
+    part_bce = torch.empty((b * blocks,), **f32)
+    gscale = torch.empty((b * gpi,), **f32)
+    part_fold = torch.empty((b * blocks, 3, h), **f32)
+    part_w = torch.empty((b * blocks, mw), **f32)
+    budget = workspace_budget(dev) if workspace_bytes is None \
+        else workspace_bytes
+    chunks = image_chunks(b, 2 * kp * hw, budget)
+    bc = chunks[0][1]
+    aq_ws = torch.empty((bc, kp, hw), dtype=torch.int8, device=dev)
+    q_ws = torch.empty((bc, kp, hw), dtype=torch.int8, device=dev)
+    part_dw = torch.empty((sum(dw_splits(n * gpi) for _, n in chunks), h, h),
+                          **f32)
+    bf16 = int(w1.dtype == torch.bfloat16)
+    with torch.cuda.device(dev):
+        st = _stream(fold)
+        _call(lib, "svt_loss_int8_fwd", fold.data_ptr(), coords.data_ptr(),
+              w1ft.data_ptr(), h1s.data_ptr(), b1f.data_ptr(),
+              whtf.data_ptr(), bhtf.data_ptr(), yt.data_ptr(),
+              mk.data_ptr() if mk is not None else None, dz2.data_ptr(),
+              part_max.data_ptr(), part_bce.data_ptr(), b, hw, h, no,
+              int(yt_i8), bf16, st)
+        LAUNCHES["fwd"] += 1
+        split0 = 0
+        for b0, n in chunks:
+            _call(lib, "svt_loss_int8_grad", fold.data_ptr(),
+                  coords.data_ptr(), w1ft.data_ptr(), w1r.data_ptr(),
+                  h1s.data_ptr(), s4.data_ptr(), gb.data_ptr(),
+                  b1f.data_ptr(), whtf.data_ptr(), dz2.data_ptr(),
+                  part_max.data_ptr(), gscale.data_ptr(), aq_ws.data_ptr(),
+                  q_ws.data_ptr(), part_fold.data_ptr(), part_w.data_ptr(),
+                  b0, n, hw, h, no, pt, bf16, st)
+            LAUNCHES["grad"] += 1
+            split0 += run_grouped_dw(lib, aq_ws, q_ws, gscale[b0 * gpi:],
+                                     part_dw[split0:], n, hw, h, pt, gpi, st)
+            LAUNCHES["dw"] += 1
+        dfold = torch.zeros((b, 4, h), **f32)
+        dw1 = torch.empty((h, h), **f32)
+        sums = torch.empty((mw,), **f32)
+        stage = torch.empty((-(-b * blocks // 64), mw), **f32)
+        for src, dst, rows, total, m, stride in (
+                (part_fold, dfold, blocks, b * blocks, 3 * h, 4 * h),
+                (part_bce, dfold[:, 3], blocks, b * blocks, 1, 4 * h),
+                (part_dw, dw1, split0, split0, h * h, 0),
+                (part_w, stage, 64, b * blocks, mw, mw),
+                (stage, sums, stage.shape[0], stage.shape[0], mw, 0)):
+            _call(lib, "svt_sum_rows", src.data_ptr(), dst.data_ptr(), rows,
+                  total, m, stride, st)
+            LAUNCHES["sum"] += 1
+    return (dfold, dw1, sums[:h], sums[h:h + no * h].view(no, h),
+            sums[h + no * h:])
+
+
+class _LossInt8(torch.autograd.Function):
+    """Counterpart of the JAX ``fused_decoder_bce_int8`` custom VJP: the
+    forward returns the summed BCE and keeps the five gradients it computed;
+    the backward scales them by the scalar cotangent.  coords, y_t and mask
+    are data."""
+
+    @staticmethod
+    def forward(ctx, fold, coords, w1, b1, wht, bht, y_t, mask):
+        grads = run_loss_int8(fold, coords, w1, b1, wht, bht, y_t, mask)
+        ctx.save_for_backward(*grads)
+        ctx.dtypes = (fold.dtype, w1.dtype, b1.dtype, wht.dtype, bht.dtype)
+        return grads[0][:, 3, 0].sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = ctx.saved_tensors
+        dfold, dw1, db1, dwht, dbht = (
+            (g * t).to(dt) for t, dt in zip(grads, ctx.dtypes))
+        return dfold, None, dw1, db1, dwht, dbht, None, None
+
+
+def fused_decoder_bce_int8(fold, coords, w1, b1, wht, bht, y_t,
+                           mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The summed BCE of the int8 decoder against y_t (B, No, HW), with its
+    gradients computed in the same call (see ``_LossInt8``)."""
+    return _LossInt8.apply(fold, coords, w1, b1, wht, bht, y_t, mask)
+
+
+def fused_bce_spatial_int8(gen: SpatialGenerator, coords: torch.Tensor,
+                           theta, dx, z, y: torch.Tensor,
+                           y_t: Optional[torch.Tensor] = None,
+                           mask: Optional[torch.Tensor] = None,
+                           family: str = "bernoulli") -> torch.Tensor:
+    """The JAX ``fused_bce_spatial_int8``: the pose fold in PyTorch, then
+    the loss kernel.  y: (B, HW[, C]); ``y_t`` the targets already in the
+    kernel's (B, C, HW) layout (int8 k-128 or float), else built from y.
+    Returns the summed loss (0-d)."""
+    hw = coords.shape[0]
+    check_ported(hw, family)
+    w0, w1f, c = fold_pose_into_first_layer(gen, theta, dx, z)
+    fold = torch.stack([w0, w1f, c, torch.zeros_like(c)], dim=1)
+    fold = fold.float().contiguous()
+    hidden, head = gen.linears()
+    if y_t is None:
+        y_t = y.reshape(y.shape[0], hw, -1).transpose(1, 2)
+    return fused_decoder_bce_int8(
+        fold, coords.float().contiguous(), hidden.weight.T.contiguous(),
+        hidden.bias, head.weight.contiguous(), head.bias, y_t, mask)

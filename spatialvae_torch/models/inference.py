@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from spatialvae_tpu.core.config import InferenceConfig
+from spatialvae_torch.config import InferenceConfig
 from spatialvae_torch.nn.layers import mlp
 
 

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from spatialvae_tpu.core.config import SpatialGeneratorConfig
+from spatialvae_torch.config import SpatialGeneratorConfig
 from spatialvae_torch.nn.layers import (
     bilinear,
     hidden_layer,

@@ -2,9 +2,10 @@ from spatialvae_torch.objectives.elbo import (
     ElboConfig,
     decode_spatial,
     elbo_minibatch,
+    fused_loss_active,
     loss_and_grad,
     loss_terms,
 )
 
-__all__ = ["ElboConfig", "decode_spatial", "elbo_minibatch", "loss_and_grad",
-           "loss_terms"]
+__all__ = ["ElboConfig", "decode_spatial", "elbo_minibatch",
+           "fused_loss_active", "loss_and_grad", "loss_terms"]

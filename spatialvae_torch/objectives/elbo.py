@@ -6,14 +6,18 @@ The port covers the Bernoulli likelihood (mnist/galaxy BCE x size) with
 the optional pixel mask, the rotation KL with the optional mnist mean
 penalty, ``dx_scale``, ``z_scale`` and the unit-normal KL over translation
 and z.  The decode follows the JAX package's dispatch, decided from the
-config before anything launches: the pose fold, then ``can_fuse_decoder``
-and the fused kernel, otherwise the plain folded path or the generic path.
+config before anything launches: the pose fold, then with ``fused`` the
+int8 decoder (``int8``: K4, with K5 as its backward) or the float kernel
+(K1/K2), otherwise the plain folded path or the generic path.  In int8 mode
+a training step whose batch is even takes the fused int8 loss-and-gradient
+kernel (K3, ``fused_loss_active``) instead of decode + BCE, with the
+targets in the kernel's (B, C, HW) layout (``y_t``, int8 on the /255 grid).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item: the gaussian/colored likelihoods and CTF (M7), rotation-augment
-offsets (M8), the int8 data paths (M6) and the int8 decoder (Queue 2 K4;
-``int8`` only matters with ``fused``, as in the JAX package), the vanilla
-generator (M1) and pixel-axis sharding (M10).
+offsets (M8), the int8 encoder and its data copy (M6), the loss kernel's
+families other than (a) (Queue 2 K3), the vanilla generator (M1) and
+pixel-axis sharding (M10).
 
 ``elbo_minibatch`` is differentiable; its serving callers take
 ``torch.no_grad()`` themselves, so serving saves nothing for a backward and
@@ -35,6 +39,14 @@ from torch.func import functional_call
 from spatialvae_torch.kernels.fused_decoder import (
     can_fuse_decoder,
     fused_spatial_generator,
+)
+from spatialvae_torch.kernels.fused_decoder_int8 import (
+    can_fuse_int8,
+    fused_spatial_generator_int8,
+)
+from spatialvae_torch.kernels.fused_loss_int8 import (
+    can_fuse_loss_int8,
+    fused_bce_spatial_int8,
 )
 from spatialvae_torch.models.inference import InferenceNetwork
 from spatialvae_torch.models.spatial import (
@@ -71,6 +83,23 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+def fused_loss_active(ecfg: ElboConfig, p_cfg, hw: int, batch: int) -> bool:
+    """Whether ``elbo_minibatch`` takes the fused int8 loss kernel for this
+    config (training, no CTF): the JAX package's decision, unchanged.  It
+    says what the JAX package would run; the port raises for the families
+    it has not ported (``fused_loss_int8.check_ported``)."""
+    if ecfg.vanilla or not (ecfg.fused and ecfg.int8 and ecfg.fused_loss):
+        return False
+    if (ecfg.likelihood not in ("bernoulli", "gaussian", "colored")
+            or not ecfg.use_fold or batch % 2):
+        return False
+    if ecfg.likelihood == "colored" and not ecfg.fit_noise_interleaved:
+        return False
+    if not can_fold(p_cfg):
+        return False
+    return can_fuse_loss_int8(p_cfg, hw, ecfg.likelihood)
+
+
 def decode_spatial(p_net: SpatialGenerator, ecfg: ElboConfig,
                    coords: torch.Tensor, theta: Optional[torch.Tensor],
                    dx: Optional[torch.Tensor],
@@ -79,8 +108,9 @@ def decode_spatial(p_net: SpatialGenerator, ecfg: ElboConfig,
     coords: untransformed (HW, 2) grid; z: (B, Z), possibly (B, 0), sets
     the batch.  Returns (B, HW, n_out)."""
     if ecfg.use_fold and can_fold(p_net.cfg):
-        if ecfg.fused and ecfg.int8:
-            raise _not_ported("the int8 decoder", "Queue 2 K4, M6")
+        if ecfg.fused and ecfg.int8 and can_fuse_int8(p_net.cfg,
+                                                      coords.shape[0]):
+            return fused_spatial_generator_int8(p_net, coords, theta, dx, z)
         if ecfg.fused and can_fuse_decoder(p_net.cfg, coords.shape[0]):
             return fused_spatial_generator(p_net, coords, theta, dx, z)
         return spatial_generator_apply_folded(p_net, coords, theta, dx, z)
@@ -106,23 +136,25 @@ def elbo_minibatch(
     z_scale: float = 1.0,
     ctf: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,   # (HW,) float {0,1} pixel mask
-    y_t: Optional[torch.Tensor] = None,
+    want_y_hat: bool = False,             # display paths need the decode
+    y_t: Optional[torch.Tensor] = None,   # (B, C, HW) targets for K3
     q_quant=None,
     y_q8=None,
     pixel_axis: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (elbo, log_p_x_g_z, kl_div, y_hat): 0-d tensors and the
-    (B, HW, n_out) decode.  ``noise`` overrides drawing the reparameterised
-    sample from ``generator``.  The remaining keywords of the JAX signature
-    belong to paths not ported yet and raise."""
+    (B, HW, n_out) decode, which is None on the fused int8 loss path (pass
+    ``want_y_hat=True`` to force the decode).  ``noise`` overrides drawing
+    the reparameterised sample from ``generator``.  The remaining keywords
+    of the JAX signature belong to paths not ported yet and raise."""
     if ecfg.likelihood != "bernoulli":
         raise _not_ported(f"the {ecfg.likelihood} likelihood", "M7")
     if ctf is not None:
         raise _not_ported("CTF", "M7")
     if offsets is not None:
         raise _not_ported("rotation-augment offsets", "M8")
-    if y_t is not None or q_quant is not None or y_q8 is not None:
-        raise _not_ported("the int8 data paths and encoder", "M6")
+    if q_quant is not None or y_q8 is not None:
+        raise _not_ported("the int8 encoder and its data copy", "M6")
     if pixel_axis is not None:
         raise _not_ported("pixel-axis sharding", "M10")
     if ecfg.vanilla:
@@ -158,6 +190,17 @@ def elbo_minibatch(
         # z_mu/z_std/z_logstd keep the dx columns: the unit-normal KL
         # below covers translation and z
     z = z * z_scale
+
+    # ---- fused int8 loss-and-gradient path (K3) ---------------------------
+    if not want_y_hat and fused_loss_active(ecfg, p_net.cfg, coords.shape[0],
+                                            b):
+        loss = fused_bce_spatial_int8(p_net, coords, theta, dx, z, y,
+                                      y_t=y_t, mask=mask,
+                                      family=ecfg.likelihood)
+        log_p = -loss / b
+        z_kl = -z_logstd + 0.5 * z_std ** 2 + 0.5 * z_mu ** 2 - 0.5
+        kl_div = torch.mean(kl_div + torch.sum(z_kl, dim=1))
+        return log_p - kl_div, log_p, kl_div, None
 
     # ---- decode + Bernoulli log-likelihood --------------------------------
     y_hat = decode_spatial(p_net, ecfg, coords, theta, dx, z)
@@ -200,11 +243,13 @@ def loss_terms(q_net: InferenceNetwork, p_net: SpatialGenerator,
                noise: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
                z_scale: float = 1.0, mask: Optional[torch.Tensor] = None,
+               y_t: Optional[torch.Tensor] = None,
                compute_dtype: torch.dtype = torch.float32
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training loss, ``Trainer._loss`` of the JAX package: params, y and
     coords cast to ``compute_dtype`` (so a bf16 run decodes over the
-    bf16-rounded grid), then the ELBO.  Returns (loss = -elbo, aux =
+    bf16-rounded grid), then the ELBO.  ``y_t``, the batch's targets in the
+    loss kernel's layout, passes as it is.  Returns (loss = -elbo, aux =
     [elbo, -log_p, kl]), float32.  Differentiable; the evaluation runs it
     under no_grad."""
     y = y.to(compute_dtype)
@@ -217,7 +262,7 @@ def loss_terms(q_net: InferenceNetwork, p_net: SpatialGenerator,
                   pair.named_parameters()}
         fn = lambda *a, **kw: functional_call(pair, params, a, kw)
     elbo, log_p, kl, _ = fn(ecfg, coords, y, generator, noise=noise,
-                            z_scale=z_scale, mask=mask)
+                            z_scale=z_scale, mask=mask, y_t=y_t)
     aux = torch.stack([elbo.float(), -log_p.float(), kl.float()])
     return -elbo.float(), aux
 
@@ -227,6 +272,7 @@ def loss_and_grad(q_net: InferenceNetwork, p_net: SpatialGenerator,
                   *, noise: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None,
                   z_scale: float = 1.0, mask: Optional[torch.Tensor] = None,
+                  y_t: Optional[torch.Tensor] = None,
                   compute_dtype: torch.dtype = torch.float32
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``loss_terms`` and its gradient (``value_and_grad(Trainer._loss)``):
@@ -240,6 +286,7 @@ def loss_and_grad(q_net: InferenceNetwork, p_net: SpatialGenerator,
     with torch.enable_grad():
         loss, aux = loss_terms(q_net, p_net, ecfg, coords, y, noise=noise,
                                generator=generator, z_scale=z_scale,
-                               mask=mask, compute_dtype=compute_dtype)
+                               mask=mask, y_t=y_t,
+                               compute_dtype=compute_dtype)
         loss.backward()
     return loss.detach(), aux.detach()

@@ -5,9 +5,16 @@ One driver for the spatial-VAE workloads, configured by ``ElboConfig`` and
 shuffled minibatches (each batch's indices sorted, the tail batch trained as
 its own step), the z-delay curriculum, ``loss_and_grad`` then Adam per step,
 one device-to-host copy of an epoch's metrics, evaluation and the display
-decodes.  The training steps run the fused decoder's forward and backward
-kernels on a CUDA device; evaluation and display run the forward alone under
-no_grad.
+decodes.  It runs on the CUDA card unless it is given ``device="cpu"``.
+
+Float mode: the training steps run the fused decoder's forward and backward
+kernels (K1, K2).  int8 mode (``ElboConfig(fused=True, int8=True)``): every
+step whose batch is even runs the fused int8 loss-and-gradient kernel (K3)
+on targets gathered from a per-dataset copy in the kernel's layout
+(``_dataset_yt``: int8 k-128 when the data sits on the /255 grid); an odd
+tail runs the int8 decoder (K4 with its a1 output, K5 backward).
+Evaluation and display run the forward alone (K1, or K4 in int8 mode)
+under no_grad, without the loss kernel.
 
 Random draws come from ``torch.Generator``s seeded from (seed, stream), as
 the JAX trainer folds an epoch index into its key: the seed alone draws the
@@ -17,9 +24,11 @@ differ from JAX's; the parity tests inject the same batches and noise into
 both.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: host-resident streaming (M4), rotation augmentation (M8), CTF (M7), the
-int8 modes (M6) and meshes (M10).  ``train_epochs`` runs the epochs one by
-one; its single-dispatch form (CUDA graphs) is a later speed choice (M4).
+item: host-resident streaming (M4), rotation augmentation (M8), CTF (M7),
+the int8 encoder with its bf16 shadow (M6; the JAX package turns it on
+only with its Pallas Adam) and meshes (M10).  ``train_epochs`` runs the
+epochs one by one; its single-dispatch form (CUDA graphs) is a later speed
+choice (M4).
 """
 
 from __future__ import annotations
@@ -33,13 +42,17 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from spatialvae_tpu.core.config import InferenceConfig
+from spatialvae_torch.config import InferenceConfig
+from spatialvae_torch.device import resolve_device
+from spatialvae_torch.kernels.config import check_knobs
+from spatialvae_torch.kernels.fused_loss_int8 import check_ported
 from spatialvae_torch.models.inference import InferenceNetwork
 from spatialvae_torch.models.spatial import SpatialGenerator
 from spatialvae_torch.objectives.elbo import (
     ElboConfig,
     decode_spatial,
     elbo_minibatch,
+    fused_loss_active,
     loss_and_grad,
     loss_terms,
 )
@@ -94,6 +107,29 @@ def seeded_generator(seed: int, stream: Optional[int],
     return g
 
 
+@torch.no_grad()
+def probe_255_grid(a: torch.Tensor, rows: int = 4096) -> tuple:
+    """(max |255a - round(255a)|, min and max of round(255a)) over the
+    images of ``a``: whether the data sits exactly on the uint8/255 grid.
+    Computed in f32 over chunks of ``rows`` images, so the transient stays
+    a chunk's size."""
+    err, lo, hi = 0.0, float("inf"), float("-inf")
+    for i in range(0, a.shape[0], rows):
+        scaled = a[i:i + rows].float() * 255.0
+        q = torch.round(scaled)
+        err = max(err, (scaled - q).abs().max().item())
+        lo, hi = min(lo, q.min().item()), max(hi, q.max().item())
+    return err, lo, hi
+
+
+@torch.no_grad()
+def build_yt_i8(a: torch.Tensor, hw: int) -> torch.Tensor:
+    """(N, C, HW) int8 target copy of /255-grid data (N, HW[, C]), the value
+    k/255 stored as k - 128; the loss kernel decodes it exactly."""
+    q = (torch.round(a.float() * 255.0) - 128.0).to(torch.int8)
+    return q.reshape(a.shape[0], hw, -1).transpose(1, 2).contiguous()
+
+
 def index_batches(perm: torch.Tensor, b: int):
     """(full (num_full, b) with each row sorted, tail or None): shuffling
     needs only a random partition into batches, and sorted rows make the
@@ -114,8 +150,6 @@ class Trainer:
                  mesh=None):
         if mesh is not None:
             raise _not_ported("multi-device training", "M10")
-        if ecfg.int8:
-            raise _not_ported("the int8 decoder and data paths", "M6")
         if tcfg.augment_rotation:
             raise _not_ported("rotation augmentation", "M8")
         if ecfg.vanilla:
@@ -125,14 +159,21 @@ class Trainer:
         if tcfg.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {tcfg.compute_dtype!r}; "
                              f"expected one of {sorted(_DTYPES)}")
-        self.device = torch.device(device if device is not None
-                                   else coords.device)
+        self.device = resolve_device(device)
         self.q_cfg, self.p_cfg, self.ecfg, self.tcfg = q_cfg, p_cfg, ecfg, tcfg
         self.coords = coords.to(self.device, torch.float32)
         self.mask = None if mask is None else mask.to(self.device)
         self.compute_dtype = _DTYPES[tcfg.compute_dtype]
-        # evaluation and display keep the fused forward decoder
+        if ecfg.fused and ecfg.int8:
+            check_knobs()
+        # a step that the JAX package sends to its loss kernel and the port
+        # cannot take fails here, not in the middle of an epoch
+        if self._wants_yt():
+            check_ported(self.coords.shape[0], ecfg.likelihood)
+        # evaluation and display keep the fused forward decoder and drop
+        # the loss kernel (its forward computes all five gradients)
         self._nonstep_ecfg = dataclasses.replace(ecfg, fused_loss=False)
+        self._yt_cache = {}
         init = seeded_generator(tcfg.seed, None, self.device)
         self.q_net = InferenceNetwork(q_cfg, generator=init,
                                       device=self.device)
@@ -152,6 +193,42 @@ class Trainer:
     def _gen(self, stream: int) -> torch.Generator:
         return seeded_generator(self.tcfg.seed, stream, self.device)
 
+    # per-dataset target copies hold dataset-sized tensors: at most two
+    _DATASET_CACHE_MAX = 2
+
+    def _dataset_yt(self, dataset,
+                    data: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(N, C, HW) target copy of the dataset's images for the loss
+        kernel, built once per dataset and cached.  The key is the caller's
+        array (``dataset.y``, or the dataset itself), as in JAX, which the
+        entry keeps alive; the oldest of two entries is evicted.  ``data``
+        is its device copy when the caller has one.  On the /255 grid the
+        copy is int8 (k/255 stored as k - 128): half the gather bytes of
+        bf16 and exact; off the grid it keeps the compute dtype."""
+        src = getattr(dataset, "y", dataset)
+        hit = self._yt_cache.get(id(src))
+        if hit is not None and hit[0] is src:
+            return hit[1]
+        if data is None:
+            data = self._data(dataset)
+        hw = self.coords.shape[0]
+        err, qmin, qmax = probe_255_grid(data)
+        if err < 1e-3 and qmin >= 0.0 and qmax <= 255.0:
+            yt = build_yt_i8(data, hw)
+        else:
+            yt = (data.reshape(data.shape[0], hw, -1).transpose(1, 2)
+                  .to(self.compute_dtype).contiguous())
+        while len(self._yt_cache) >= self._DATASET_CACHE_MAX:
+            self._yt_cache.pop(next(iter(self._yt_cache)))
+        self._yt_cache[id(src)] = (src, yt)
+        return yt
+
+    def _wants_yt(self) -> bool:
+        """Whether the full-batch steps take the loss kernel, so that a
+        target copy in its layout pays off."""
+        return fused_loss_active(self.ecfg, self.p_cfg, self.coords.shape[0],
+                                 self.tcfg.minibatch_size)
+
     def _data(self, dataset) -> torch.Tensor:
         """The dataset's images on the device: a tensor, or an object with
         ``.y`` (and optionally ``.ctf``, ``.host_resident``)."""
@@ -166,18 +243,21 @@ class Trainer:
 
     # ---------------------------------------------------------------- steps
     def train_step(self, y: torch.Tensor, *,
+                   y_t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None,
                    z_scale: float = 1.0,
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
         """One step: ``loss_and_grad`` then Adam.  y: (B, HW[, C]) on the
-        device.  Returns aux = [elbo, -log_p, kl] (on the device)."""
+        device; ``y_t`` its targets in the loss kernel's layout, when the
+        step takes that kernel.  Returns aux = [elbo, -log_p, kl] (on the
+        device)."""
         # the two labels let a profiler trace attribute the step's kernels
         with torch.profiler.record_function("loss_and_grad"):
             _, aux = loss_and_grad(self.q_net, self.p_net, self.ecfg,
                                    self.coords, y, noise=noise,
                                    generator=generator, z_scale=z_scale,
-                                   mask=self.mask,
+                                   mask=self.mask, y_t=y_t,
                                    compute_dtype=self.compute_dtype)
         with torch.profiler.record_function("adam"):
             params = self.named_params()
@@ -190,17 +270,27 @@ class Trainer:
                     progress_stream=None) -> Tuple[float, float, float]:
         """One training epoch; returns the (elbo, gen_loss, kl) streaming
         means.  The permutation comes from stream 2*epoch, the steps' noise
-        from stream 2*epoch + 1."""
+        from stream 2*epoch + 1.  In int8 mode the full batches gather their
+        targets from ``_dataset_yt``; the tail builds its own, as in JAX."""
+        return self._run_epoch(dataset, self._data(dataset), epoch, progress,
+                               progress_stream)
+
+    def _run_epoch(self, dataset, data: torch.Tensor, epoch: int,
+                   progress: bool, progress_stream
+                   ) -> Tuple[float, float, float]:
+        """``train_epoch`` on ``data``, the device copy of ``dataset``."""
         t_start = time.perf_counter()
-        data = self._data(dataset)
         n, b = data.shape[0], self.tcfg.minibatch_size
         z_scale = 0.0 if epoch < self.tcfg.z_delay else 1.0
         perm = torch.randperm(n, generator=self._gen(2 * epoch),
                               device=self.device)
         full, tail = index_batches(perm, b)
         step_gen = self._gen(2 * epoch + 1)
-        rows = [self.train_step(data[idx], z_scale=z_scale,
-                                generator=step_gen) for idx in full]
+        data_t = (self._dataset_yt(dataset, data)
+                  if self._wants_yt() and len(full) else None)
+        rows = [self.train_step(
+            data[idx], y_t=None if data_t is None else data_t[idx],
+            z_scale=z_scale, generator=step_gen) for idx in full]
         tail_row = (self.train_step(data[tail], z_scale=z_scale,
                                     generator=step_gen)
                     if tail is not None else None)
@@ -229,7 +319,7 @@ class Trainer:
             return np.zeros((0, 3), np.float64)
         t_start = time.perf_counter()
         data = self._data(dataset)
-        rows = [self.train_epoch(data, e, progress=False)
+        rows = [self._run_epoch(dataset, data, e, False, None)
                 for e in range(first_epoch, first_epoch + num_epochs)]
         dt = time.perf_counter() - t_start
         self.last_images_per_sec = (num_epochs * data.shape[0] / dt
@@ -265,7 +355,8 @@ class Trainer:
         gen = generator if generator is not None else self._gen(7)
         _, _, _, y_hat = elbo_minibatch(
             self.q_net, self.p_net, self._nonstep_ecfg, self.coords,
-            y.to(self.device), gen, noise=noise, z_scale=z_scale)
+            y.to(self.device), gen, noise=noise, z_scale=z_scale,
+            want_y_hat=True)
         return y_hat
 
     @torch.no_grad()

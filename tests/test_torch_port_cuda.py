@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the decoder forward with and without its activation output, the backward
 with the residual and with recompute, the differentiable op and a training
-step.
+step; the int8 decoder forward and backward (K4, K5), the fused int8 loss
+and gradient (K3), and an int8 training step.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode): it is
 marked ``cuda`` and skips without one.  The file imports no JAX, so it runs
@@ -18,7 +19,7 @@ import math
 import pytest
 import torch
 
-from spatialvae_tpu.core.config import SpatialGeneratorConfig
+from spatialvae_torch.config import SpatialGeneratorConfig
 
 from spatialvae_torch.kernels import fused_decoder as fd
 from spatialvae_torch.models import SpatialGenerator
@@ -230,7 +231,7 @@ def test_autograd_op_runs_the_kernels(cuda_device):
 
 
 def test_training_step_on_the_card(cuda_device):
-    from spatialvae_tpu.core.config import InferenceConfig
+    from spatialvae_torch.config import InferenceConfig
 
     from spatialvae_torch.objectives import ElboConfig
     from spatialvae_torch.train.trainer import TrainConfig, Trainer
@@ -249,3 +250,124 @@ def test_training_step_on_the_card(cuda_device):
     assert torch.isfinite(aux).all()
     assert fd.LAUNCHES["fwd_acts"] == fd.LAUNCHES["bwd_chain"] == 1
     assert fd.LAUNCHES["fwd"] == 0 and tr.opt_state.count == 1
+
+
+# ---------------------------------------------------------------------------
+# the int8 kernels: K3, K4, K5 (limits as in chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+INT8_TOL = (1e-3, 2e-5)       # relative to max|plain|: max, mean
+INT8_Y_TOL = (1e-5, 1e-6)     # absolute
+INT8_A1_TOL = (1e-2, 1e-6)
+
+
+def _int8_inputs(b, hw, h, no, wdt, device, seed=0):
+    fold, coords, whid, bhid, wht, bht = _inputs(1, no, hw, wdt, device, b=b,
+                                                 h=h, seed=seed)
+    return fold, coords, (whid[0].contiguous(), bhid[0].contiguous(), wht,
+                          bht)
+
+
+# (B, HW, H, No, weight dtype): galaxy, a ragged HW and H, one output
+INT8_CASES = [(6, 4096, 500, 3, torch.bfloat16), (5, 4096, 500, 3,
+                                                  torch.float32),
+              (4, 1024, 96, 1, torch.bfloat16), (3, 784, 130, 8,
+                                                 torch.float32)]
+
+
+@pytest.mark.parametrize("case", INT8_CASES, ids=lambda c: "-".join(
+    map(str, c[:4])) + f"-{str(c[4])[6:]}")
+def test_int8_tail_matches_plain_version(case, cuda_device):
+    """K4 with and without a1, K5 with the residual and with recompute,
+    against the plain versions; two backward runs agree bit for bit."""
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    b, hw, h, no, wdt = case
+    fold, coords, ws = _int8_inputs(b, hw, h, no, wdt, cuda_device)
+    g = torch.randn((b, no, hw), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    w = d8.Int8Weights(*ws)
+    ref = (w.w1q, w.sw, w.b1, w.wht)
+    d8.reset_launches()
+    with torch.no_grad():
+        y, a1 = d8.run_int8_tail(fold, coords, w, emit_a1=True)
+        y0 = d8.run_int8_tail(fold, coords, w)
+        y_ref, a1_ref = d8.decoder_tail_int8_reference(
+            fold, coords, *ref, w.bht, return_a1=True)
+        for got, want, tol in ((y, y_ref, INT8_Y_TOL), (y0, y_ref, INT8_Y_TOL),
+                               (a1, a1_ref, INT8_A1_TOL)):
+            d = (got.float() - want.float()).abs()
+            assert d.max().item() <= tol[0] and d.mean().item() <= tol[1]
+        for a in (a1, None):
+            got = d8.run_int8_tail_backward(fold, coords, w, a, y, g)
+            again = d8.run_int8_tail_backward(fold, coords, w, a, y, g)
+            want = d8.decoder_tail_int8_backward_reference(
+                fold, coords, *ref, a, y, g)
+            for u, v, x in zip(got, again, want):
+                assert torch.equal(u, v)
+                _assert_rel(u, x, INT8_TOL)
+    assert d8.LAUNCHES["fwd"] == d8.LAUNCHES["fwd_acts"] == 1
+    assert d8.LAUNCHES["bwd_scale"] == d8.LAUNCHES["bwd_grad"] == 4
+
+
+@pytest.mark.parametrize("case", [(6, 4096, 500, 3, torch.bfloat16, True),
+                                  (4, 4096, 500, 3, torch.float32, False),
+                                  (2, 1024, 96, 1, torch.bfloat16, False),
+                                  (4, 1024, 130, 8, torch.float32, True)],
+                         ids=lambda c: f"B{c[0]}-HW{c[1]}-H{c[2]}-No{c[3]}"
+                         f"-{str(c[4])[6:]}-{'i8' if c[5] else 'f32t'}")
+def test_loss_kernel_matches_plain_version(case, cuda_device):
+    """K3 against its plain version, with int8 or float targets and a
+    mask; two runs agree bit for bit; image chunks give the same result."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    b, hw, h, no, wdt, i8 = case
+    fold, coords, ws = _int8_inputs(b, hw, h, no, wdt, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    k = torch.randint(0, 256, (b, no, hw), generator=gen, device=cuda_device)
+    yt = (k - 128).to(torch.int8) if i8 else k.float() / 255
+    mask = (torch.rand(hw, generator=gen, device=cuda_device) > 0.3).float()
+    l8.reset_launches()
+    with torch.no_grad():
+        got = l8.run_loss_int8(fold, coords, *ws, yt, mask)
+        again = l8.run_loss_int8(fold, coords, *ws, yt, mask)
+        chunked = l8.run_loss_int8(fold, coords, *ws, yt, mask,
+                                   workspace_bytes=2 * 64 * hw * 2)
+        want = l8.loss_int8_reference(fold, coords, *ws, yt, mask)
+    for u, v, c, x in zip(got, again, chunked, want):
+        assert torch.equal(u, v)
+        _assert_rel(c, u, (1e-6, 1e-7))
+        _assert_rel(u, x, INT8_TOL)
+    # the chunked call: one image per chunk
+    assert l8.LAUNCHES["fwd"] == 3 and l8.LAUNCHES["grad"] == 2 + b
+
+
+def test_int8_training_step_on_the_card(cuda_device):
+    """One even step through K3 and one odd step through K4/K5 in a galaxy
+    trainer with int8 targets."""
+    from spatialvae_torch.config import InferenceConfig
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.objectives import ElboConfig
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+
+    q_cfg = InferenceConfig(n=64 * 64 * 3, latent_dim=23, hidden_dim=256,
+                            num_layers=2)
+    p_cfg = SpatialGeneratorConfig(latent_dim=20, hidden_dim=500, n_out=3,
+                                   num_layers=2)
+    tr = Trainer(q_cfg, p_cfg, ElboConfig(fused=True, int8=True, channels=3),
+                 TrainConfig(minibatch_size=8, compute_dtype="bfloat16"),
+                 coord_grid(64, 64, device=cuda_device), device=cuda_device)
+    y = torch.randint(0, 256, (8, 4096, 3), device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(5)
+                      ).float() / 255
+    y_t = tr._dataset_yt(y)
+    assert y_t.dtype == torch.int8
+    l8.reset_launches()
+    d8.reset_launches()
+    assert torch.isfinite(tr.train_step(y, y_t=y_t)).all()
+    assert torch.isfinite(tr.train_step(y[:5])).all()
+    assert l8.LAUNCHES == {"fwd": 1, "grad": 1, "dw": 1, "sum": 5}
+    assert d8.LAUNCHES == {"fwd": 0, "fwd_acts": 1, "bwd_scale": 1,
+                           "bwd_grad": 1, "dw": 1, "sum": 4}
+    assert tr.opt_state.count == 2

@@ -29,6 +29,7 @@ from spatialvae_torch.models.spatial import (
 from spatialvae_torch.objectives.elbo import ElboConfig, decode_spatial
 from spatialvae_torch.precision import fp32_precision_pinned
 from spatialvae_torch.transforms.coords import coord_grid
+from tests.port_configs import to_port
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -119,7 +120,7 @@ def test_fused_spatial_generator_matches_jax(n, m, num_layers, resid,
         want = jax_fd.fused_spatial_generator(params, cfg,
                                               jnp.asarray(grid.numpy()),
                                               theta, dx, z)
-    gen = generator_from_jax(params, cfg)
+    gen = generator_from_jax(params, to_port(cfg))
     t = (lambda a: None if a is None else torch.from_numpy(a))
     with torch.no_grad():
         got = fd.fused_spatial_generator(gen, grid, t(theta), t(dx), t(z))
@@ -136,7 +137,7 @@ def test_can_fuse_decoder_matches_jax_for_tanh():
                dict(num_layers=2, bilinear=True)):
         cfg = SpatialGeneratorConfig(latent_dim=2, hidden_dim=500, **kw)
         for hw in (100, 255, 256, 784, 4096):
-            assert fd.can_fuse_decoder(cfg, hw) == \
+            assert fd.can_fuse_decoder(to_port(cfg), hw) == \
                 jax_fd.can_fuse_decoder(cfg, hw), (kw, hw)
 
 
@@ -148,17 +149,19 @@ def test_can_fuse_decoder_refuses_what_the_kernel_cannot_run():
     path."""
     cfg = SpatialGeneratorConfig(latent_dim=2, num_layers=2, activation="relu")
     assert jax_fd.can_fuse_decoder(cfg, 4096)
-    assert not fd.can_fuse_decoder(cfg, 4096)
+    assert not fd.can_fuse_decoder(to_port(cfg), 4096)
     gen = generator_from_jax(jax.tree_util.tree_map(
-        np.asarray, spatial_generator_init(jax.random.PRNGKey(0), cfg)), cfg)
+        np.asarray, spatial_generator_init(jax.random.PRNGKey(0), cfg)),
+        to_port(cfg))
     with pytest.raises(ValueError, match="not supported"):
         fd.fused_spatial_generator(gen, coord_grid(64, 64), None, None,
                                    torch.zeros((2, 2)))
     wide = SpatialGeneratorConfig(latent_dim=2, num_layers=2,
                                   hidden_dim=fd.MAX_HIDDEN + 1)
     assert jax_fd.can_fuse_decoder(wide, 4096)
-    assert fd.can_fuse_decoder(wide, 4096)
-    gen = SpatialGenerator(wide, generator=torch.Generator().manual_seed(0))
+    assert fd.can_fuse_decoder(to_port(wide), 4096)
+    gen = SpatialGenerator(to_port(wide),
+                           generator=torch.Generator().manual_seed(0))
     with torch.no_grad(), pytest.raises(ValueError, match="hidden_dim"):
         decode_spatial(gen, ElboConfig(fused=True), coord_grid(16, 16),
                        None, None, torch.zeros((2, 2)))
@@ -246,7 +249,8 @@ def test_generator_tail_weights_pack_once_per_weight_version():
     weight changes in place or is replaced."""
     cfg = SpatialGeneratorConfig(latent_dim=3, hidden_dim=24, n_out=3,
                                  num_layers=3)
-    gen = SpatialGenerator(cfg, generator=torch.Generator().manual_seed(0))
+    gen = SpatialGenerator(to_port(cfg),
+                           generator=torch.Generator().manual_seed(0))
     grid = coord_grid(16, 16)
     z = torch.randn((2, 3), generator=torch.Generator().manual_seed(1))
     tw = fd.generator_tail_weights(gen)

@@ -30,6 +30,7 @@ from spatialvae_tpu.models import spatial_generator_init
 from spatialvae_torch.io.jax_params import generator_from_jax
 from spatialvae_torch.kernels import fused_decoder as fd
 from spatialvae_torch.transforms.coords import coord_grid
+from tests.port_configs import to_port
 
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
@@ -147,7 +148,7 @@ def test_autograd_op_matches_jax_grad(n, num_layers, resid):
 
     with pltpu.force_tpu_interpret_mode():
         gp, *gpose = jax.grad(loss, argnums=(0, 1, 2, 3))(params, *pose)
-    gen = generator_from_jax(params, cfg)
+    gen = generator_from_jax(params, to_port(cfg))
     tpose = [torch.from_numpy(a).requires_grad_() for a in pose]
     y = fd.fused_spatial_generator(gen, grid, *tpose)
     torch.sin(3.0 * y).sum().backward()
@@ -241,7 +242,7 @@ def test_serving_under_no_grad_saves_nothing(monkeypatch):
     """A decode under no_grad takes the forward alone: no activations are
     computed for a backward and nothing is saved."""
     cfg, params, pose = _generator(2, False)
-    gen = generator_from_jax(params, cfg)
+    gen = generator_from_jax(params, to_port(cfg))
     calls = []
     ref = fd.decoder_tail_reference
 

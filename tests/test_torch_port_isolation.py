@@ -1,0 +1,135 @@
+"""The port stands alone and runs on the card unless asked for the CPU.
+
+- No module of ``spatialvae_torch`` and not ``chip_smoke.py`` imports
+  ``spatialvae_tpu`` or ``jax`` (an AST walk of every import statement).
+- With both packages made unimportable, a tiny CPU training run (float and
+  int8 steps) and a checkpoint round trip through the serving API work.
+- ``Trainer`` and ``SpatialVae.load`` without ``device=`` go to the CUDA
+  card, and raise where there is none; ``device="cpu"`` runs on the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from spatialvae_torch import checkpoint
+from spatialvae_torch.api import SpatialVae
+from spatialvae_torch.config import InferenceConfig, SpatialGeneratorConfig
+from spatialvae_torch.models import InferenceNetwork, SpatialGenerator
+from spatialvae_torch.objectives import ElboConfig
+from spatialvae_torch.train.trainer import TrainConfig, Trainer
+from spatialvae_torch.transforms.coords import coord_grid
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("spatialvae_tpu", "jax")
+
+
+def _port_sources():
+    return sorted((REPO / "spatialvae_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_port_module_imports_the_jax_package_or_jax():
+    sources = _port_sources()
+    assert len(sources) > 20
+    bad = []
+    for path in sources:
+        for name in _imported(ast.parse(path.read_text(), str(path))):
+            if name.split(".")[0] in FORBIDDEN:
+                bad.append(f"{path.relative_to(REPO)}: {name}")
+    assert not bad, bad
+
+
+RUN = r"""
+import sys
+sys.modules["spatialvae_tpu"] = None
+sys.modules["jax"] = None
+import os, tempfile
+import torch
+from spatialvae_torch import checkpoint
+from spatialvae_torch.api import SpatialVae
+from spatialvae_torch.config import InferenceConfig, SpatialGeneratorConfig
+from spatialvae_torch.objectives import ElboConfig
+from spatialvae_torch.train.trainer import TrainConfig, Trainer
+from spatialvae_torch.transforms.coords import coord_grid
+
+q_cfg = InferenceConfig(n=32 * 32 * 3, latent_dim=5, hidden_dim=16,
+                        num_layers=2)
+p_cfg = SpatialGeneratorConfig(latent_dim=2, hidden_dim=16, n_out=3,
+                               num_layers=2)
+g = torch.Generator().manual_seed(0)
+y = torch.randint(0, 256, (5, 32 * 32, 3), generator=g).float() / 255
+for int8 in (False, True):
+    ecfg = ElboConfig(fused=True, int8=int8, channels=3)
+    tr = Trainer(q_cfg, p_cfg, ecfg, TrainConfig(minibatch_size=2),
+                 coord_grid(32, 32), device="cpu")
+    m = tr.train_epoch(y, 0, progress=False)
+    assert all(v == v for v in m), m
+with tempfile.TemporaryDirectory() as d:
+    gp, ip = os.path.join(d, "g.sav"), os.path.join(d, "i.sav")
+    checkpoint.save_model(gp, "generator", tr.p_net, elbo=ecfg,
+                          image_shape=(32, 32))
+    checkpoint.save_model(ip, "inference", tr.q_net, elbo=ecfg,
+                          image_shape=(32, 32))
+    model = SpatialVae.load(gp, ip, device="cpu")
+    with torch.no_grad():
+        want = tr.q_net(y.reshape(5, -1))
+    got = model.encode(y)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+assert "jax" not in sys.modules or sys.modules["jax"] is None
+print("ok")
+"""
+
+
+def test_port_runs_with_jax_and_the_jax_package_unimportable():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", RUN], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", (
+        proc.stdout + proc.stderr)
+
+
+def _cfgs():
+    return (InferenceConfig(n=16 * 16, latent_dim=5, hidden_dim=8),
+            SpatialGeneratorConfig(latent_dim=2, hidden_dim=8, num_layers=2))
+
+
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    q_cfg, p_cfg = _cfgs()
+    gp, ip = str(tmp_path / "g.sav"), str(tmp_path / "i.sav")
+    checkpoint.save_model(gp, "generator", SpatialGenerator(p_cfg),
+                          image_shape=(16, 16))
+    checkpoint.save_model(ip, "inference", InferenceNetwork(q_cfg),
+                          image_shape=(16, 16))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(q_cfg, p_cfg, ElboConfig(), TrainConfig(), coord_grid(16, 16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpatialVae.load(gp, ip)
+    tr = Trainer(q_cfg, p_cfg, ElboConfig(), TrainConfig(),
+                 coord_grid(16, 16), device="cpu")
+    assert tr.device == torch.device("cpu")
+    assert SpatialVae.load(gp, ip, device="cpu").device == torch.device("cpu")
+
+
+def test_trainer_moves_coords_and_mask_to_its_device():
+    q_cfg, p_cfg = _cfgs()
+    tr = Trainer(q_cfg, p_cfg, ElboConfig(), TrainConfig(),
+                 coord_grid(16, 16).double(),
+                 mask=torch.ones(256, dtype=torch.float64), device="cpu")
+    assert tr.coords.device == tr.mask.device == torch.device("cpu")
+    assert tr.coords.dtype == torch.float32

@@ -45,6 +45,7 @@ from spatialvae_torch.models import (
 )
 from spatialvae_torch.nn.layers import resolve_activation
 from spatialvae_torch.transforms import coords as port_coords
+from tests.port_configs import to_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -101,7 +102,7 @@ def test_inference_network_matches_jax(num_layers, resid, act):
     params = _np_tree(inference_init(jax.random.PRNGKey(num_layers), cfg))
     y = np.random.default_rng(1).uniform(size=(6, 48)).astype(np.float32)
     mu, logstd = inference_apply(params, cfg, jnp.asarray(y))
-    net = inference_from_jax(params, cfg)
+    net = inference_from_jax(params, to_port(cfg))
     with torch.no_grad():
         pmu, plogstd = net(_t(y))
     np.testing.assert_allclose(pmu.numpy(), np.asarray(mu), **TOL)
@@ -134,7 +135,7 @@ def test_spatial_generator_generic_matches_jax(case):
     z = rng.normal(size=(4, cfg.latent_dim)).astype(np.float32)
     want = spatial_generator_apply(params, cfg, jnp.asarray(x),
                                    jnp.asarray(z))
-    gen = generator_from_jax(params, cfg)
+    gen = generator_from_jax(params, to_port(cfg))
     with torch.no_grad():
         got = gen(_t(x), _t(z))
     assert got.shape == (4, 64, cfg.n_out)
@@ -152,7 +153,7 @@ def test_spatial_generator_folded_matches_jax(case, pose):
         theta = dx = None
     grid = jax_coords.coord_grid(8, 8)
     want = jax_apply_folded(params, cfg, jnp.asarray(grid), theta, dx, z)
-    gen = generator_from_jax(params, cfg)
+    gen = generator_from_jax(params, to_port(cfg))
     with torch.no_grad():
         got = spatial_generator_apply_folded(
             gen, _t(grid), None if theta is None else _t(theta),
@@ -164,7 +165,7 @@ def test_fold_identity():
     """Folded decode == generic decode over the rotated+translated grid."""
     cfg, params = _gen("resid_softplus")
     theta, dx, z = _pose(np.random.default_rng(4), 5, cfg.latent_dim)
-    gen = generator_from_jax(params, cfg)
+    gen = generator_from_jax(params, to_port(cfg))
     grid = port_coords.coord_grid(12, 12)
     with torch.no_grad():
         folded = spatial_generator_apply_folded(gen, grid, _t(theta),
@@ -177,7 +178,7 @@ def test_fold_identity():
 
 def test_fold_needs_a_batch_carrier():
     cfg, params = _gen("no_latent")
-    gen = generator_from_jax(params, cfg)
+    gen = generator_from_jax(params, to_port(cfg))
     with pytest.raises(ValueError, match=r"\(B, 0\)"):
         fold_pose_into_first_layer(gen, None, None, None)
     w0, w1, c = fold_pose_into_first_layer(gen, None, None,
@@ -192,7 +193,7 @@ def test_weight_bridge_round_trip(case):
     q_cfg = InferenceConfig(n=30, latent_dim=6, hidden_dim=12, num_layers=2,
                             resid=True)
     q_params = _np_tree(inference_init(jax.random.PRNGKey(9), q_cfg))
-    q_net, p_net = from_jax_params(q_params, params, q_cfg, cfg,
+    q_net, p_net = from_jax_params(q_params, params, to_port(q_cfg), to_port(cfg),
                                    device="cpu", dtype=torch.float32)
     q_back, p_back = to_jax_params(q_net, p_net)
     for want, got in ((params, p_back), (q_params, q_back)):
@@ -208,15 +209,16 @@ def test_weight_bridge_raises_on_mismatch():
     bad = dict(params, coord={"w": params["coord"]["w"][:, :5],
                               "b": params["coord"]["b"]})
     with pytest.raises(ValueError, match="coord.w"):
-        generator_from_jax(bad, cfg)
+        generator_from_jax(bad, to_port(cfg))
     with pytest.raises(ValueError, match="layers"):
-        generator_from_jax(dict(params, layers=params["layers"][:1]), cfg)
+        generator_from_jax(dict(params, layers=params["layers"][:1]),
+                           to_port(cfg))
     q_cfg = InferenceConfig(n=30, latent_dim=6, hidden_dim=12, num_layers=2)
     q_params = _np_tree(inference_init(jax.random.PRNGKey(9), q_cfg))
     with pytest.raises(ValueError, match=r"layers\[0\].w"):
-        inference_from_jax(q_params,
-                           InferenceConfig(n=31, latent_dim=6, hidden_dim=12,
-                                           num_layers=2))
+        inference_from_jax(q_params, to_port(
+            InferenceConfig(n=31, latent_dim=6, hidden_dim=12,
+                            num_layers=2)))
 
 
 @pytest.mark.parametrize("case", ["plain", "resid_softplus", "bilinear"])
@@ -226,7 +228,7 @@ def test_modules_match_torch_import_layout(case):
     forward."""
     cfg, params = _gen(case)
     ref = build_generator_module(params, cfg)
-    gen = generator_from_jax(params, cfg)
+    gen = generator_from_jax(params, to_port(cfg))
     assert list(ref.state_dict()) == list(gen.state_dict())
     for k, v in ref.state_dict().items():
         torch.testing.assert_close(gen.state_dict()[k], v, rtol=0, atol=0)
@@ -236,7 +238,7 @@ def test_modules_match_torch_import_layout(case):
     q_cfg = InferenceConfig(n=30, latent_dim=6, hidden_dim=12, num_layers=3)
     q_params = _np_tree(inference_init(jax.random.PRNGKey(9), q_cfg))
     qref = build_inference_module(q_params, q_cfg)
-    qnet = inference_from_jax(q_params, q_cfg)
+    qnet = inference_from_jax(q_params, to_port(q_cfg))
     assert list(qref.state_dict()) == list(qnet.state_dict())
     y = _t(np.random.default_rng(5).uniform(size=(3, 30)))
     with torch.no_grad():
@@ -248,13 +250,16 @@ def test_modules_match_torch_import_layout(case):
 def test_seeded_init_is_torch_default_and_reproducible():
     cfg = SpatialGeneratorConfig(latent_dim=3, hidden_dim=40, n_out=3,
                                  num_layers=2)
-    a = SpatialGenerator(cfg, generator=torch.Generator().manual_seed(7))
-    b = SpatialGenerator(cfg, generator=torch.Generator().manual_seed(7))
+    a = SpatialGenerator(to_port(cfg),
+                         generator=torch.Generator().manual_seed(7))
+    b = SpatialGenerator(to_port(cfg),
+                         generator=torch.Generator().manual_seed(7))
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         torch.testing.assert_close(va, vb, rtol=0, atol=0)
     w = a.layers[1].weight
     assert float(w.abs().max()) <= 1 / np.sqrt(40)
-    q = InferenceNetwork(InferenceConfig(n=30, latent_dim=6, hidden_dim=12),
+    q = InferenceNetwork(to_port(InferenceConfig(n=30, latent_dim=6,
+                                                 hidden_dim=12)),
                          generator=torch.Generator().manual_seed(7))
     assert float(q.layers[0].weight.abs().max()) <= 1 / np.sqrt(30)
 
@@ -270,3 +275,30 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_configs_match_jax():
+    """The port's config dataclasses have the JAX package's fields and
+    defaults, and the dict form round-trips between the packages."""
+    import dataclasses
+
+    from spatialvae_tpu.core import config as jax_config
+
+    from spatialvae_torch import config as port_config
+
+    for name in ("InferenceConfig", "SpatialGeneratorConfig",
+                 "VanillaGeneratorConfig"):
+        fields = lambda cls: [(f.name, f.default)
+                              for f in dataclasses.fields(cls)]
+        assert fields(getattr(port_config, name)) == fields(
+            getattr(jax_config, name))
+    for cfg in (InferenceConfig(n=30, latent_dim=6, hidden_dim=12, resid=True),
+                SpatialGeneratorConfig(latent_dim=3, hidden_dim=20, n_out=3,
+                                       num_layers=2, softplus=True)):
+        port = to_port(cfg)
+        assert type(port).__module__ == "spatialvae_torch.config"
+        assert port_config.config_to_dict(port) == \
+            jax_config.config_to_dict(cfg)
+        assert jax_config.config_from_dict(
+            port_config.config_to_dict(port)) == cfg
+

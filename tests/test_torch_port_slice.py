@@ -31,6 +31,7 @@ from spatialvae_torch.kernels.fused_decoder import LAUNCHES
 from spatialvae_torch.objectives import ElboConfig, elbo_minibatch
 from spatialvae_torch.precision import fp32_precision_pinned
 from spatialvae_torch.transforms.coords import coord_grid
+from tests.port_configs import to_port
 
 RTOL = 1e-5
 
@@ -97,7 +98,7 @@ def test_elbo_matches_jax(name):
                         noise=jnp.asarray(noise), z_scale=z_scale,
                         mask=None if mask is None else jnp.asarray(mask),
                         want_y_hat=True)
-    q_net, p_net = from_jax_params(qp, pp, q_cfg, p_cfg)
+    q_net, p_net = from_jax_params(qp, pp, to_port(q_cfg), to_port(p_cfg))
     pinned = []                     # f32 pinned inside, restored after
     q_net.register_forward_hook(
         lambda *_: pinned.append(fp32_precision_pinned()))
@@ -118,24 +119,32 @@ def test_elbo_matches_jax(name):
 @pytest.mark.parametrize("what", [
     "gaussian", "colored", "ctf", "offsets", "y_t", "int8", "pixel_axis",
     "vanilla"])
-def test_elbo_refuses_what_is_not_ported(what):
-    q_cfg, p_cfg, qp, pp = _model()
-    q_net, p_net = from_jax_params(qp, pp, q_cfg, p_cfg)
-    y = torch.from_numpy(_images(2, 16, 16, 3))
-    ecfg = ElboConfig(channels=3)
+def test_elbo_refuses_what_is_not_ported(what, monkeypatch):
+    """Among them the int8 loss kernel's paths that JAX takes and the port
+    has not ported: targets for a padded pixel count (MNIST's 784, K3 (c))
+    and numerics off the default knobs (K3 (f))."""
+    n, m, ch = {"y_t": (28, 28, 1), "int8": (32, 32, 3)}.get(what,
+                                                            (16, 16, 3))
+    q_cfg, p_cfg, qp, pp = _model(n, m, ch)
+    q_net, p_net = from_jax_params(qp, pp, to_port(q_cfg), to_port(p_cfg))
+    y = torch.from_numpy(_images(2, n, m, ch))
+    ecfg = ElboConfig(channels=ch)
     kw = {}
     if what in ("gaussian", "colored"):
         ecfg = ElboConfig(likelihood=what)
-    elif what == "int8":
-        ecfg = ElboConfig(channels=3, fused=True, int8=True)
+    elif what in ("int8", "y_t"):
+        ecfg = ElboConfig(channels=ch, fused=True, int8=True)
+        if what == "int8":
+            monkeypatch.setenv("SPATIALVAE_INT4_GRADS", "i8")
+        else:
+            kw["y_t"] = torch.zeros((2, ch, n * m), dtype=torch.int8)
     elif what == "vanilla":
         ecfg = ElboConfig(vanilla=True)
     else:
         kw[what] = {"ctf": torch.zeros((2, 3, 3)), "offsets": torch.zeros(2),
-                    "y_t": torch.zeros((2, 3, 256)),
                     "pixel_axis": "model"}[what]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        elbo_minibatch(q_net, p_net, ecfg, coord_grid(16, 16), y,
+        elbo_minibatch(q_net, p_net, ecfg, coord_grid(n, m), y,
                        torch.Generator().manual_seed(0), **kw)
 
 
@@ -165,7 +174,7 @@ def test_api_matches_jax_api(tmp_path):
     n = m = 16
     gen, inf = _jax_checkpoints(tmp_path, n, m)
     jm = JaxVae.load(gen, inf)
-    pm = SpatialVae.load(gen, inf)
+    pm = SpatialVae.load(gen, inf, device="cpu")
     assert pm.image_shape == (n, m) and pm.pose_dims == jm.pose_dims == 3
     assert pm.ecfg.dx_scale == 0.2 and pm.serving_ecfg.fused
     y = _images(4, n, m, 3)
@@ -209,8 +218,8 @@ def test_api_pre_r2_checkpoint_and_reference_sav(tmp_path):
     io/torch_import."""
     gen, inf = _jax_checkpoints(tmp_path, elbo=False)
     with pytest.raises(ValueError, match="image_shape"):
-        SpatialVae.load(gen, inf)
-    pm = SpatialVae.load(gen, inf, image_shape=(16, 16))
+        SpatialVae.load(gen, inf, device="cpu")
+    pm = SpatialVae.load(gen, inf, image_shape=(16, 16), device="cpu")
     assert pm.ecfg is None and pm.pose_dims == 3
     assert pm.serving_ecfg == ElboConfig(rotate=True, translate=True,
                                          fused=True)
@@ -219,14 +228,15 @@ def test_api_pre_r2_checkpoint_and_reference_sav(tmp_path):
     export_generator(pp, p_cfg, str(tmp_path / "ref_gen.sav"))
     export_inference(qp, q_cfg, str(tmp_path / "ref_inf.sav"))
     ref = SpatialVae.load(str(tmp_path / "ref_gen.sav"),
-                          str(tmp_path / "ref_inf.sav"), image_shape=(16, 16))
+                          str(tmp_path / "ref_inf.sav"), image_shape=(16, 16),
+                          device="cpu")
     y = _images(3, 16, 16, 3)
     torch.testing.assert_close(ref.encode(y), pm.encode(y), rtol=0, atol=0)
 
 
 def test_port_checkpoint_reads_in_jax(tmp_path):
     q_cfg, p_cfg, qp, pp = _model()
-    q_net, p_net = from_jax_params(qp, pp, q_cfg, p_cfg)
+    q_net, p_net = from_jax_params(qp, pp, to_port(q_cfg), to_port(p_cfg))
     ecfg = ElboConfig(channels=3, dx_scale=0.3)
     path = str(tmp_path / "g.sav")
     checkpoint.save_model(path, "generator", p_net, elbo=ecfg,
@@ -249,7 +259,7 @@ def test_eval_batches_matches_jax_loop(tmp_path):
     JAX ELBO fed the same noise the port draws from its generator."""
     n = m = 16
     gen, inf = _jax_checkpoints(tmp_path, n, m)
-    pm = SpatialVae.load(gen, inf)
+    pm = SpatialVae.load(gen, inf, device="cpu")
     jm = JaxVae.load(gen, inf)
     images = _images(11, n, m, 3)
     got = eval_batches(pm, images, 4, torch.Generator().manual_seed(5))

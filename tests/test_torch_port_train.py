@@ -38,6 +38,7 @@ from spatialvae_torch.objectives import ElboConfig, loss_and_grad
 from spatialvae_torch.train.optimizer import fused_adam
 from spatialvae_torch.train.trainer import TrainConfig, Trainer
 from spatialvae_torch.transforms.coords import coord_grid
+from tests.port_configs import to_port
 
 N, M, C, Z, B = 16, 16, 3, 3, 4
 
@@ -120,7 +121,8 @@ def test_loss_and_grad_matches_jax(case):
                                      None, jnp.float32(z_scale),
                                      noise=jnp.asarray(noise))
     params = _np_tree(jt.state.params)
-    q_net, p_net = from_jax_params(params["q"], params["p"], *_cfgs())
+    q_net, p_net = from_jax_params(params["q"], params["p"],
+                                   *map(to_port, _cfgs()))
     got_loss, got_aux = loss_and_grad(
         q_net, p_net, ElboConfig(fused=fused, channels=C), coord_grid(N, M),
         torch.from_numpy(y), noise=torch.from_numpy(noise), z_scale=z_scale,
@@ -146,7 +148,8 @@ def test_saturated_sigmoid_gives_finite_gradients(fused):
     params = _np_tree(_jax_trainer(fused, None).state.params)
     params["p"]["layers"][-1]["b"] = np.array([60.0, -60.0, 60.0],
                                               np.float32)
-    q_net, p_net = from_jax_params(params["q"], params["p"], q_cfg, p_cfg)
+    q_net, p_net = from_jax_params(params["q"], params["p"], to_port(q_cfg),
+                                   to_port(p_cfg))
     y, noise = _batch(2)
     loss, aux = loss_and_grad(q_net, p_net,
                               ElboConfig(fused=fused, channels=C),
@@ -187,9 +190,10 @@ def test_fused_adam_matches_jax():
 
 
 def _port_trainer(jt=None, **tkw):
-    q_cfg, p_cfg = _cfgs()
+    q_cfg, p_cfg = map(to_port, _cfgs())
     tr = Trainer(q_cfg, p_cfg, ElboConfig(fused=True, channels=C),
-                 TrainConfig(minibatch_size=B, **tkw), coord_grid(N, M))
+                 TrainConfig(minibatch_size=B, **tkw), coord_grid(N, M),
+                 device="cpu")
     if jt is not None:
         params = _np_tree(jt.state.params)
         q, p = from_jax_params(params["q"], params["p"], q_cfg, p_cfg)
@@ -324,13 +328,17 @@ def test_train_config_matches_jax():
 @pytest.mark.parametrize("what", ["int8", "mesh", "augment", "host",
                                   "gaussian"])
 def test_trainer_refuses_what_is_not_ported(what):
-    q_cfg, p_cfg = _cfgs()
+    """int8: the loss kernel over a padded pixel count (MNIST's 28x28, K3
+    (c)), which the JAX trainer would take, is refused when the trainer is
+    built."""
+    q_cfg, p_cfg = map(to_port, _cfgs())
     ecfg = ElboConfig(fused=True, channels=C, int8=what == "int8",
                       likelihood="gaussian" if what == "gaussian"
                       else "bernoulli")
     tcfg = TrainConfig(minibatch_size=B, augment_rotation=what == "augment")
+    grid = coord_grid(28, 28) if what == "int8" else coord_grid(N, M)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr = Trainer(q_cfg, p_cfg, ecfg, tcfg, coord_grid(N, M),
+        tr = Trainer(q_cfg, p_cfg, ecfg, tcfg, grid, device="cpu",
                      mesh=object() if what == "mesh" else None)
         data = _Data(torch.zeros((B, N * M, C)))
         data.host_resident = True
