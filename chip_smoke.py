@@ -8,7 +8,9 @@ Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the float
 decoder forward with and without its activation output and its backward
 with the residual and with recompute; the fused int8 loss and gradient;
-the int8 decoder forward and backward), then drives the galaxy model (64x64
+the int8 decoder forward and backward; Adam, K6 on every galaxy leaf in
+the three training configurations and K7 with the emission helpers on the
+two big encoder weights, bit for bit), then drives the galaxy model (64x64
 RGB, z=20, encoder 12288->5000->5000->46, spatial decoder 500 wide, 2
 layers, 3 outputs, Bernoulli; random weights from a seed) through its
 paths:
@@ -24,11 +26,15 @@ paths:
   must score higher, the optimizer checkpoint's round trip, one step
   through the kernels against the same step through the plain decoder, and
   one profiled step;
-- int8 training with bf16 compute (``bench.py``'s default galaxy step): the
+- int8 training with bf16 compute (``bench.py``'s default galaxy step, the
+  TPU's whole stack: the bf16 shadow weights that Adam writes, the int8
+  encoder with the int8 copies Adam emits and the int8 data copy): the
   same two epochs, where the 20 full batches take the fused int8 loss
-  kernel and the two tails of 37 the int8 decoder and its backward, the
-  evaluations the int8 forward; a step of each kind against the plain
-  versions, profiled steps, and an epoch of 16 steps at B=4096.
+  kernel and the two tails of 37 the int8 decoder and its backward, every
+  step ends in K6 on each leaf, the evaluations take the int8 forward; a
+  step of each kind against the plain versions, profiled steps, an epoch of
+  16 steps at B=4096 with bf16 Adam moments, and an epoch under
+  ``SPATIALVAE_ADAM_EMIT=pallas``, where the big weights take K7.
 
 Each phase prints its lines; the last three lines are the per-kernel JSON
 record (launches on the main path, times, plain-version time, bound,
@@ -417,6 +423,7 @@ def phase_train(torch, tmpdir: str) -> tuple:
     the launch counts of the epochs' 22 steps and, from one profiled step,
     each backward kernel's device ms."""
     from spatialvae_torch import checkpoint
+    from spatialvae_torch.kernels import adam as ka
     from spatialvae_torch.kernels.fused_decoder import LAUNCHES, reset_launches
     from spatialvae_torch.train.trainer import TrainConfig, Trainer
     from spatialvae_torch.transforms.coords import coord_grid
@@ -434,17 +441,23 @@ def phase_train(torch, tmpdir: str) -> tuple:
     setup_s = time.perf_counter() - t0
     before = trainer.eval_epoch(data, 0)
     reset_launches()
+    ka.reset_launches()
     t0 = time.perf_counter()
     rows = trainer.train_epochs(data, 0, TRAIN_EPOCHS)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(LAUNCHES)
+    adam = dict(ka.LAUNCHES)
     steps = TRAIN_EPOCHS * math.ceil(N_TRAIN / BATCH)
     want = {"fwd": 0, "fwd_acts": steps, "fwd_recompute": 0,
             "bwd_chain": steps, "bwd_dw": steps, "bwd_sum": 4 * steps}
-    if counts != want:
+    leaves = len(trainer.named_params())
+    want_adam = {"adam": steps * leaves, "adam_emit": 0, "quant_scale": 0,
+                 "quantize": 0}
+    if counts != want or adam != want_adam:
         raise AssertionError(f"launches over {steps} steps: {counts}, "
-                             f"expected {want}")
+                             f"Adam {adam}; expected {want}, {want_adam}")
+    counts["adam"] = adam["adam"]
     after = trainer.eval_epoch(data, TRAIN_EPOCHS)
     if not (np.isfinite(rows).all() and np.isfinite(before + after).all()):
         raise AssertionError(f"non-finite metrics: {before} {rows} {after}")
@@ -483,7 +496,7 @@ def phase_train(torch, tmpdir: str) -> tuple:
         elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
         epoch_elbo="/".join(f"{r[0]:.3f}" for r in rows),
         launches=json.dumps(counts, separators=(",", ":")),
-        optimizer_roundtrip="bitwise",
+        adam_launches_per_step=leaves, optimizer_roundtrip="bitwise",
         step_vs_plain_max_rel=f"{worst[0]:.3e}",
         step_vs_plain_worst_leaf=worst[2])
     return counts, phase_profile_step(torch, trainer, y, tmpdir)
@@ -529,14 +542,7 @@ def phase_profile_step(torch, trainer, y, tmpdir: str) -> dict:
     if not kernels:
         raise AssertionError("the profiler saw no kernel")
     busy = _busy_us(device)
-    adam = [e for e in events if e.get("cat") == "user_annotation"
-            and e.get("name") == "adam"]
-    if len(adam) != 1:
-        raise AssertionError(f"{len(adam)} 'adam' labels in the trace")
-    a0, a1 = adam[0]["ts"], adam[0]["ts"] + adam[0]["dur"]
-    adam_ids = {e["args"].get("correlation") for e in events
-                if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                and a0 <= e["ts"] <= a1}
+    adam_ids = _label_ids(events, "adam")
 
     def share(pred) -> tuple:
         ks = [e for e in kernels if pred(e)]
@@ -949,37 +955,77 @@ class plain_int8:
         return False
 
 
-def int8_step_grads(torch, trainer, y, y_t, noise, plain: bool) -> dict:
+def int8_step_grads(torch, trainer, y, y_t, y_q8, noise, plain: bool
+                    ) -> dict:
+    """The trainer's step gradients (the bf16 shadow's, through the int8
+    encoder with the Adam-emitted copies and ``y_q8``) at its state."""
     from spatialvae_torch.objectives import loss_and_grad
+
+    target, qq = trainer.grad_target()
 
     def run():
         loss_and_grad(trainer.q_net, trainer.p_net, trainer.ecfg,
-                      trainer.coords, y, noise=noise, y_t=y_t,
+                      trainer.coords, y, params=target, noise=noise,
+                      y_t=y_t, q_quant=qq, y_q8=y_q8,
                       compute_dtype=trainer.compute_dtype)
     if plain:
         with plain_int8():
             run()
     else:
         run()
-    return {k: p.grad.clone() for k, p in trainer.named_params().items()}
+    return {k: t.grad.clone() for k, t in target.items()}
 
 
 def _int8_launches() -> dict:
+    from spatialvae_torch.kernels import adam as ka
     from spatialvae_torch.kernels import fused_decoder as fd
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
     return {"k3": dict(l8.LAUNCHES), "k45": dict(d8.LAUNCHES),
-            "k12": sum(fd.LAUNCHES.values())}
+            "k12": sum(fd.LAUNCHES.values()), "adam": dict(ka.LAUNCHES)}
 
 
 def _reset_all_launches() -> None:
+    from spatialvae_torch.kernels import adam as ka
     from spatialvae_torch.kernels import fused_decoder as fd
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
-    for m in (fd, d8, l8):
+    for m in (fd, d8, l8, ka):
         m.reset_launches()
+
+
+def _qenc_min() -> int:
+    """The int8 trainer's threshold for a leaf's int8 copy."""
+    from spatialvae_torch.train import trainer as tmod
+
+    return tmod._QENC_MIN_ELEMS
+
+
+def _big_leaves(trainer) -> int:
+    """The leaves that get int8 copies (the two encoder hidden weights at
+    galaxy size)."""
+    return sum(p.dim() == 2 and p.numel() >= _qenc_min()
+               for p in trainer.named_params().values())
+
+
+def int8_adam_launches(trainer, steps: int, *, seeded: bool,
+                       engine: str = "xla") -> dict:
+    """Adam's launches over ``steps`` int8 steps: K6 on every leaf, or K7
+    on the big ones under ``pallas``; the fresh-scale engine adds the two
+    helpers per big leaf; ``seeded``: the epoch also built the int8 data
+    copy (one scale, one quantize per 4,096-image chunk) and seeded the
+    qshadow (each big leaf quantised once)."""
+    leaves, big = len(trainer.named_params()), _big_leaves(trainer)
+    seed = 1 + big if seeded else 0
+    seed_q = -(-N_TRAIN // 4096) + big if seeded else 0
+    if engine == "pallas":
+        return {"adam": steps * (leaves - big), "adam_emit": steps * big,
+                "quant_scale": steps * big + seed, "quantize": seed_q}
+    return {"adam": steps * leaves, "adam_emit": 0,
+            "quant_scale": steps * big + seed,
+            "quantize": steps * big + seed_q}
 
 
 def int8_galaxy_trainer(torch):
@@ -1006,13 +1052,18 @@ def int8_step_readings(torch, trainer, data, gen) -> dict:
     plain versions, noise from ``gen``: kind -> (max rel, mean rel, the
     leaf of the max), each the worst over the gradient leaves."""
     data_t = trainer._dataset_yt(data)
+    xq, sx = trainer._dataset_yq8(data)
     worst = {}
     for kind, n in (("k3", BATCH), ("k4k5", N_TRAIN % BATCH)):
         idx = torch.arange(n, device=DEVICE)
-        y, y_t = data[idx], (data_t[idx] if kind == "k3" else None)
+        y = data[idx]
+        y_t, y_q8 = ((data_t[idx], (xq[idx], sx)) if kind == "k3"
+                     else (None, None))
         noise = torch.randn((n, Z_DIM + 3), generator=gen, device=DEVICE)
-        kern = int8_step_grads(torch, trainer, y, y_t, noise, plain=False)
-        plain = int8_step_grads(torch, trainer, y, y_t, noise, plain=True)
+        kern = int8_step_grads(torch, trainer, y, y_t, y_q8, noise,
+                               plain=False)
+        plain = int8_step_grads(torch, trainer, y, y_t, y_q8, noise,
+                                plain=True)
         rel, mean_rel, leaf = 0.0, 0.0, ""
         for k in kern:
             _, _, r, m = rel_errors(kern[k], plain[k])
@@ -1024,28 +1075,36 @@ def int8_step_readings(torch, trainer, data, gen) -> dict:
     return worst
 
 
+def _int8_evaluate(torch, trainer, data, epoch):
+    """``eval_epoch`` through K4 alone (the float32 masters, no int8
+    encoder, no Adam)."""
+    evals = math.ceil(data.shape[0] / BATCH)
+    _reset_all_launches()
+    m = trainer.eval_epoch(data, epoch)
+    torch.cuda.synchronize()
+    got = _int8_launches()
+    want = {"fwd": evals}
+    if got["k45"] != {**dict.fromkeys(got["k45"], 0), **want} or \
+            any(got["k3"].values()) or got["k12"] or \
+            any(got["adam"].values()):
+        raise AssertionError(f"evaluation launches {got}, expected "
+                             f"K4 x {evals} only")
+    return m
+
+
 def phase_train_int8(torch, tmpdir: str) -> dict:
     """The galaxy trainer in int8 mode, bf16 compute (bench.py's default
-    galaxy step): two epochs of 1,037 blob images (20 K3 steps, 2 tail
-    steps through K4 and K5), the evaluations before and after, one step of
-    each kind through the kernels against the plain versions, profiled
-    steps, and a smoke reading of an epoch of 16 steps at B=4096."""
+    galaxy step, the TPU's whole stack: the loss differentiates the bf16
+    shadow that Adam writes, the encoder's hidden GEMMs run on int8 with
+    the int8 copies Adam emits, layer 0 reading the int8 data copy): two
+    epochs of 1,037 blob images (20 K3 steps, 2 tail steps through K4 and
+    K5, K6 on every leaf of every step), the evaluations before and after,
+    one step of each kind through the kernels against the plain versions,
+    profiled steps, an epoch of 16 steps at B=4096 with bf16 moments, and
+    an epoch under SPATIALVAE_ADAM_EMIT=pallas (K7)."""
     trainer, data, gen = int8_galaxy_trainer(torch)
     evals = math.ceil(N_TRAIN / BATCH)
-
-    def evaluate(epoch):
-        _reset_all_launches()
-        m = trainer.eval_epoch(data, epoch)
-        torch.cuda.synchronize()
-        got = _int8_launches()
-        want = {"fwd": evals}
-        if got["k45"] != {**dict.fromkeys(got["k45"], 0), **want} or \
-                any(got["k3"].values()) or got["k12"]:
-            raise AssertionError(f"evaluation launches {got}, expected "
-                                 f"K4 x {evals} only")
-        return m
-
-    before = evaluate(0)
+    before = _int8_evaluate(torch, trainer, data, 0)
     _reset_all_launches()
     t0 = time.perf_counter()
     rows = trainer.train_epochs(data, 0, TRAIN_EPOCHS)
@@ -1057,11 +1116,17 @@ def phase_train_int8(torch, tmpdir: str) -> dict:
     want_k3 = {"fwd": full, "grad": full, "dw": full, "sum": 5 * full}
     want_k45 = {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
                 "bwd_grad": tails, "dw": tails, "sum": 4 * tails}
-    if counts != {"k3": want_k3, "k45": want_k45, "k12": 0}:
+    want_adam = int8_adam_launches(trainer, full + tails, seeded=True)
+    if counts != {"k3": want_k3, "k45": want_k45, "k12": 0,
+                  "adam": want_adam}:
         raise AssertionError(f"launches over {full} + {tails} steps: "
                              f"{counts}, expected K3 {want_k3}, K4/K5 "
-                             f"{want_k45}, no K1/K2")
-    after = evaluate(TRAIN_EPOCHS)
+                             f"{want_k45}, Adam {want_adam}, no K1/K2")
+    if _big_leaves(trainer) != 2 or not all(
+            t.dtype == torch.bfloat16 for t in trainer.shadow.values()):
+        raise AssertionError("the int8 step did not run the shadow and the "
+                             "two int8 encoder copies")
+    after = _int8_evaluate(torch, trainer, data, TRAIN_EPOCHS)
     if not (np.isfinite(rows).all() and np.isfinite(before + after).all()):
         raise AssertionError(f"non-finite metrics: {before} {rows} {after}")
     if not after[0] > before[0]:
@@ -1076,8 +1141,10 @@ def phase_train_int8(torch, tmpdir: str) -> dict:
                                  f"plain {rel} ({leaf}), mean {mean_rel}; "
                                  f"limits {INT8_STEP_TOL}")
     data_t = trainer._dataset_yt(data)
+    data_q8 = trainer._dataset_yq8(data)
     log("train_int8", epochs=TRAIN_EPOCHS, steps=full + tails,
-        images=N_TRAIN, compute="bfloat16", seconds=f"{seconds:.4f}",
+        images=N_TRAIN, compute="bfloat16", stack="shadow+qshadow+int8enc",
+        seconds=f"{seconds:.4f}",
         steps_per_s=f"{(full + tails) / seconds:.3f}",
         images_per_s=f"{TRAIN_EPOCHS * N_TRAIN / seconds:.1f}",
         elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
@@ -1090,38 +1157,146 @@ def phase_train_int8(torch, tmpdir: str) -> dict:
         step_tail_vs_plain_max_rel=f"{worst['k4k5'][0]:.3e}",
         step_tail_vs_plain_mean_rel=f"{worst['k4k5'][1]:.3e}",
         step_tail_worst_leaf=worst["k4k5"][2])
-    prof = phase_profile_int8(torch, trainer, data, data_t, tmpdir)
+    prof = phase_profile_int8(torch, trainer, data, data_t, data_q8, tmpdir)
     cfgs = (trainer.q_cfg, trainer.p_cfg, trainer.ecfg, trainer.tcfg)
-    del trainer, data, data_t
+    del trainer, data, data_t, data_q8
     torch.cuda.empty_cache()
-    prof["bench_images_per_s"] = phase_bench_int8(torch, *cfgs)
+    prof["bench_images_per_s"], prof["bench_adam"] = phase_bench_int8(
+        torch, *cfgs)
     prof["counts"] = counts
     prof["eval_k4"] = evals
+    prof["emit_adam"] = phase_train_int8_emit(torch, before, rows[0])
     return prof
 
 
-def phase_profile_int8(torch, trainer, data, data_t, tmpdir: str) -> dict:
-    """A K3 step (B=100) and a tail step (B=37) under torch.profiler: each
-    int8 kernel's device ms by name, and the K3 step's idle share."""
+class env_set:
+    """Within the block the environment holds ``values``; restored after."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def phase_train_int8_emit(torch, before, default_epoch) -> dict:
+    """One epoch of the ``[train_int8]`` trainer (same seed, images and
+    noise) under SPATIALVAE_ADAM_EMIT=pallas: the two big encoder weights
+    take K7 (their int8 copies quantised with the scale carried from the
+    previous step), the other leaves K6; then an evaluation that must
+    score above the untrained one.  Returns Adam's launches."""
+    with env_set(SPATIALVAE_ADAM_EMIT="pallas", SPATIALVAE_ALLOW_KNOBS="1"):
+        trainer, data, _ = int8_galaxy_trainer(torch)
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        m = trainer.train_epoch(data, 0, progress=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _int8_launches()
+        steps = math.ceil(N_TRAIN / BATCH)
+        want = int8_adam_launches(trainer, steps, seeded=True,
+                                  engine="pallas")
+        if counts["adam"] != want:
+            raise AssertionError(f"Adam launches under pallas {counts['adam']}"
+                                 f", expected {want}")
+        carried = [e for e in trainer.qshadow.values() if e["q"].numel()]
+        after = _int8_evaluate(torch, trainer, data, 1)
+    if not (np.isfinite(m).all() and math.isfinite(after[0])):
+        raise AssertionError(f"non-finite metrics under pallas: {m} {after}")
+    if not after[0] > before[0]:
+        raise AssertionError(f"ELBO did not rise under pallas: {before[0]} "
+                             f"-> {after[0]}")
+    log("train_int8_emit", engine="pallas", steps=steps, images=N_TRAIN,
+        seconds=f"{seconds:.4f}", images_per_s=f"{N_TRAIN / seconds:.1f}",
+        epoch_elbo=f"{m[0]:.3f}", default_engine_epoch_elbo=(
+            f"{default_epoch[0]:.3f}"),
+        elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
+        carried_scales=len(carried),
+        adam_launches=json.dumps(counts["adam"], separators=(",", ":")))
+    del trainer, data
+    torch.cuda.empty_cache()
+    return counts["adam"]
+
+
+def _label_ids(events, label: str) -> set:
+    """Correlation ids of the runtime calls made inside the one
+    ``record_function(label)`` span of a trace."""
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == label]
+    if len(spans) != 1:
+        raise AssertionError(f"{len(spans)} {label!r} labels in the trace")
+    a0, a1 = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    return {e["args"].get("correlation") for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and a0 <= e["ts"] <= a1}
+
+
+def _step_host_ms(torch, step, n: int) -> float:
+    """Mean host-clock ms of ``n`` unprofiled steps, ending in a
+    synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_profile_int8(torch, trainer, data, data_t, data_q8,
+                       tmpdir: str) -> dict:
+    """A K3 step (B=100, encoder input from the int8 data copy) and a tail
+    step (B=37) under torch.profiler: each int8 kernel's device ms by name,
+    Adam's kernels (inside the trainer's "adam" label), the step's device
+    busy time and its idle share against the profiled step's host clock
+    and against the mean of N_TIMED unprofiled steps.  The K3 step runs
+    once more with the shadow and the int8 encoder off ("casts": the
+    parameters cast to bf16 in every step and the encoder on bf16 GEMMs,
+    Adam still K6), to show what the two move."""
     from torch.profiler import ProfilerActivity, profile
 
     names = {"loss_fwd": "loss_fwd_kernel", "loss_grad": "loss_grad_kernel",
              "dw": "grouped_dw_kernel", "sum_rows": "sum_rows_kernel",
              "fwd_a1": "int8_fwd_kernel", "bwd_scale": "int8_bwd_scale",
-             "bwd_grad": "int8_bwd_grad"}
+             "bwd_grad": "int8_bwd_grad", "k6": "adam_kernel",
+             "quant_scale": "quant_scale_kernel",
+             "quantize": "quantize_kernel"}
     out = {}
-    for kind, b in (("k3", BATCH), ("tail", N_TRAIN % BATCH)):
+    for stack, kind, b in (("full", "k3", BATCH),
+                           ("full", "tail", N_TRAIN % BATCH),
+                           ("casts", "k3", BATCH)):
         idx = torch.arange(b, device=DEVICE)
-        y_t = data_t[idx] if kind == "k3" else None
-        trainer.train_step(data[idx], y_t=y_t)     # warm-up
-        torch.cuda.synchronize()
+        y_t, y_q8 = ((data_t[idx], (data_q8[0][idx], data_q8[1]))
+                     if kind == "k3" else (None, None))
+        if stack == "casts":
+            trainer._use_shadow = trainer._use_qenc = False
+            trainer.shadow = trainer.qshadow = None
+            y_q8 = None
+
+        def step():
+            trainer.train_step(data[idx], y_t=y_t, y_q8=y_q8)
+        step()                                           # warm-up
+        host_ms = _step_host_ms(torch, step, N_TIMED)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            trainer.train_step(data[idx], y_t=y_t)
+            step()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        events = _trace_events(prof, tmpdir, f"train_int8_{kind}.json")
+        if stack == "casts":             # back to the stack, reseeded
+            trainer._use_shadow = trainer._use_qenc = True
+            trainer.shadow = trainer.qshadow = None
+        events = _trace_events(prof, tmpdir,
+                               f"train_int8_{stack}_{kind}.json")
         device = [e for e in events
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
         kernels = [e for e in device if e.get("cat") == "kernel"]
@@ -1136,25 +1311,40 @@ def phase_profile_int8(torch, trainer, data, data_t, tmpdir: str) -> dict:
         gemm = sum(e["dur"] for e in kernels
                    if "gemm" in e["name"].lower()
                    or "xmma" in e["name"].lower()) / 1e3
-        out[kind, "idle_share"] = 1 - busy / wall_us
-        log("profile_int8_step", step=kind, B=b,
+        adam_ids = _label_ids(events, "adam")
+        adam = [e for e in kernels
+                if e["args"].get("correlation") in adam_ids]
+        if stack == "full":
+            out[kind, "idle_share"] = 1 - busy / wall_us
+            out[kind, "adam_launches"] = len(adam)
+        log("profile_int8_step", step=kind, B=b, stack=stack,
             wall_ms=f"{wall_us / 1e3:.3f}", device_busy_ms=f"{busy / 1e3:.3f}",
-            idle_share=f"{1 - busy / wall_us:.4f}", **fields,
-            gemm_ms=f"{gemm:.3f}", kernels=len(kernels))
+            idle_share=f"{1 - busy / wall_us:.4f}",
+            unprofiled_step_ms=f"{host_ms:.3f}",
+            unprofiled_idle_share=f"{1 - busy / 1e3 / host_ms:.4f}",
+            **fields, gemm_ms=f"{gemm:.3f}",
+            adam_ms=f"{sum(e['dur'] for e in adam) / 1e3:.3f}",
+            adam_launches=len(adam), kernels=len(kernels))
     return out
 
 
-def phase_bench_int8(torch, q_cfg, p_cfg, ecfg, tcfg) -> float:
-    """bench.py's galaxy step shape: B=4096, 16 steps per epoch of /255-grid
-    images made on the card from the seed; one warm-up epoch, then one
-    timed epoch on the host clock around work that ends in a synchronize.
-    A smoke reading of images/s, not a benchmark."""
+def phase_bench_int8(torch, q_cfg, p_cfg, ecfg, tcfg) -> tuple:
+    """bench.py's galaxy step: B=4096, 16 steps per epoch of /255-grid
+    images made on the card from the seed, Adam's moments in bf16
+    (``SPATIALVAE_ADAM_MOMENTS=bf16``, as bench.py sets it); one warm-up
+    epoch, then one timed epoch on the host clock around work that ends in
+    a synchronize.  A smoke reading of images/s, not a benchmark.  Returns
+    (images/s, Adam's launches in the timed epoch)."""
     from spatialvae_torch.train.trainer import Trainer
     from spatialvae_torch.transforms.coords import coord_grid
 
     tcfg = dataclasses.replace(tcfg, minibatch_size=BENCH_BATCH)
-    trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg,
-                      coord_grid(*IMAGE, device=DEVICE), device=DEVICE)
+    with env_set(SPATIALVAE_ADAM_MOMENTS="bf16"):
+        trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg,
+                          coord_grid(*IMAGE, device=DEVICE), device=DEVICE)
+    if not all(m.dtype == torch.bfloat16
+               for m in trainer.opt_state.mu.values()):
+        raise AssertionError("the bench trainer's moments are not bf16")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     n = BENCH_BATCH * BENCH_STEPS
     data = torch.randint(0, 256, (n, IMAGE[0] * IMAGE[1], CHANNELS),
@@ -1170,17 +1360,20 @@ def phase_bench_int8(torch, q_cfg, p_cfg, ecfg, tcfg) -> float:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _int8_launches()
-    if counts["k3"]["grad"] < BENCH_STEPS or counts["k45"]["fwd_acts"]:
-        raise AssertionError(f"B={BENCH_BATCH} epoch launches {counts}")
+    want_adam = int8_adam_launches(trainer, BENCH_STEPS, seeded=False)
+    if counts["k3"]["grad"] < BENCH_STEPS or counts["k45"]["fwd_acts"] or \
+            counts["adam"] != want_adam:
+        raise AssertionError(f"B={BENCH_BATCH} epoch launches {counts}, "
+                             f"Adam expected {want_adam}")
     if not np.isfinite(m).all():
         raise AssertionError(f"B={BENCH_BATCH} epoch metrics {m}")
     log("train_int8_bench", batch=BENCH_BATCH, steps=BENCH_STEPS, images=n,
-        warmup_s=f"{warm:.3f}", seconds=f"{seconds:.4f}",
+        moments="bfloat16", warmup_s=f"{warm:.3f}", seconds=f"{seconds:.4f}",
         step_ms=f"{seconds / BENCH_STEPS * 1e3:.3f}",
         images_per_s=f"{n / seconds:.1f}",
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
         launches=json.dumps(counts, separators=(",", ":")))
-    return n / seconds
+    return n / seconds, counts["adam"]
 
 
 def torch_sum_ms(torch, shapes) -> float:
@@ -1241,6 +1434,260 @@ def phase_limits(torch) -> None:
         log("limits", build=" ".join(defines) or "sound",
             **{"/".join(k).strip("/"): f"{a:.3e}/{m:.3e}"
                for k, (a, m) in sorted(worst.items())})
+
+
+# ---------------------------------------------------------------------------
+# Adam: K6 (update, optional shadow and abs-max), K7 (update + shadow + int8
+# copy with the carried scale) and the fresh-scale emission's two helpers
+# ---------------------------------------------------------------------------
+
+ADAM_SOURCE = "spatialvae_torch/kernels/csrc/adam.cu"
+K6_REPLACES = "spatialvae_tpu/train/optimizer_pallas.py:53"
+K7_REPLACES = "spatialvae_tpu/train/optimizer_pallas.py:129"
+# quantize_leaf, which XLA fuses on the TPU (no Pallas kernel)
+QUANT_REPLACES = "spatialvae_tpu/train/optimizer_pallas.py:104"
+ADAM_LR = 1e-4
+ADAM_COUNT = 7          # a step whose bias corrections are far from 1
+# K6 on every galaxy leaf: (name, gradient dtype, moment dtype, shadow), the
+# float step, the int8 step ([train_int8], f32 moments) and the bench step
+# ([train_int8_bench], SPATIALVAE_ADAM_MOMENTS=bf16)
+ADAM_CASES = [("f32", "float32", "float32", False),
+              ("bf16g_shadow", "bfloat16", "float32", True),
+              ("bf16_shadow", "bfloat16", "bfloat16", True)]
+# K7 on the two big encoder weights, f32 and bf16 moments
+EMIT_CASES = [("f32m", "float32"), ("bf16m", "bfloat16")]
+
+
+def galaxy_leaves(torch) -> dict:
+    """``q.<name>``/``p.<name>`` -> shape of every galaxy parameter leaf."""
+    from spatialvae_torch.models import InferenceNetwork, SpatialGenerator
+
+    q_cfg, p_cfg, _ = galaxy_configs()
+    nets = (("q", InferenceNetwork(q_cfg, device="meta")),
+            ("p", SpatialGenerator(p_cfg, device="meta")))
+    return {f"{k}.{n}": tuple(t.shape) for k, net in nets
+            for n, t in net.named_parameters()}
+
+
+def _adam_leaf_inputs(torch, shape, gdt, mdt, shadow, gen) -> list:
+    """[p, g, m, v, shadow or None] of one leaf, on the card."""
+    def r(scale):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+    return [r(0.02), r(1e-3).to(gdt), r(1e-4).to(mdt),
+            (torch.rand(shape, generator=gen, device=DEVICE) * 1e-6).to(mdt),
+            torch.empty(shape, dtype=torch.bfloat16, device=DEVICE)
+            if shadow else None]
+
+
+def _n_differ(got, want) -> int:
+    """How many elements of got differ from want, bit for bit (-0.0 and
+    0.0 differ; equal NaNs do not)."""
+    import torch
+
+    if got is None:
+        return 0
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[got.element_size()]
+    return int((got.reshape(-1).view(bits) !=
+                want.reshape(-1).view(bits)).sum().item())
+
+
+def _leaf_differ(leaves, refs) -> dict:
+    """Differing elements of p', m', v' and the shadow over the leaves."""
+    return {what: sum(_n_differ(x[i], r[i]) for x, r in zip(leaves, refs))
+            for what, i in (("p", 0), ("m", 2), ("v", 3), ("shadow", 4))}
+
+
+def _max_abs(pairs) -> float:
+    return max(((u.float() - v.float()).abs().max().item()
+                for u, v in pairs if u is not None and u.numel()),
+               default=0.0)
+
+
+def fused_adam_ms(torch, leaves) -> float:
+    """``torch._fused_adam_`` over float32 copies of the leaves' p, g, m,
+    v: the library's fused Adam (another op order, no shadow or int8
+    copy)."""
+    ps, gs, ms, vs = ([x[i].float().clone() for x in leaves]
+                      for i in range(4))
+    steps = [torch.full((), float(ADAM_COUNT), device=DEVICE)
+             for _ in leaves]
+
+    def run():
+        torch._fused_adam_(ps, gs, ms, vs, [], steps, lr=ADAM_LR, beta1=0.9,
+                           beta2=0.999, weight_decay=0.0, eps=1e-8,
+                           amsgrad=False, maximize=False)
+    run()
+    out = statistics.median(cuda_ms(run, torch) for _ in range(N_TIMED))
+    del ps, gs, ms, vs, steps
+    return out
+
+
+def phase_adam_kernels(torch) -> dict:
+    """K6 against its plain version on every galaxy leaf (86.9 M
+    parameters, one launch per leaf, as a step runs it) in the three
+    configurations of the training paths, bit for bit, with the abs-max on
+    the two leaves the int8 paths quantise; times of one step's Adam (CUDA
+    events, median of N_TIMED), its plain version and ``_fused_adam_``."""
+    from spatialvae_torch.kernels import adam as ka
+
+    shapes = galaxy_leaves(torch)
+    k = ka.AdamConsts.make(ADAM_LR, 0.9, 0.999, 1e-8, ADAM_COUNT)
+    n_params = sum(math.prod(s) for s in shapes.values())
+    out = {}
+    for name, gdt, mdt, shadow in ADAM_CASES:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        leaves = [_adam_leaf_inputs(torch, s, getattr(torch, gdt),
+                                    getattr(torch, mdt), shadow, gen)
+                  for s in shapes.values()]
+        amax_on = [shadow and len(s) == 2 and math.prod(s) >= _qenc_min()
+                   for s in shapes.values()]
+        refs = [[None if t is None else t.clone() for t in x]
+                for x in leaves]
+        got = [ka.adam_leaf(*x[:4], k, x[4], a)
+               for x, a in zip(leaves, amax_on)]
+        want = [ka.adam_leaf_reference(*x[:4], k, x[4], a)
+                for x, a in zip(refs, amax_on)]
+        torch.cuda.synchronize()
+        differ = _leaf_differ(leaves, refs)
+        differ["amax"] = sum(_n_differ(a, b) for a, b in zip(got, want))
+        err = _max_abs([(x[j], r[j]) for x, r in zip(leaves, refs)
+                        for j in (0, 2, 3, 4)] + list(zip(got, want)))
+        if any(differ.values()):
+            raise AssertionError(f"K6 {name}: elements that differ from the "
+                                 f"plain version {differ}")
+        ms = statistics.median(cuda_ms(
+            lambda: [ka.adam_leaf(*x[:4], k, x[4], a)
+                     for x, a in zip(leaves, amax_on)], torch)
+            for _ in range(N_TIMED))
+        plain_ms = statistics.median(cuda_ms(
+            lambda: [ka.adam_leaf_reference(*x[:4], k, x[4], a)
+                     for x, a in zip(refs, amax_on)], torch)
+            for _ in range(N_TIMED))
+        del refs, got, want
+        lib_ms = fused_adam_ms(torch, leaves)
+        g_b, m_b = getattr(torch, gdt).itemsize, getattr(torch, mdt).itemsize
+        per_param = g_b + 4 * m_b + 8 + (2 if shadow else 0)
+        bd = bound(n_params * per_param, (12.0 * n_params, PEAK_FP32))
+        out[name] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                         bound=bd)
+        log("kernel_adam", case=name, grads=gdt, moments=mdt, shadow=shadow,
+            leaves=len(leaves), params=n_params,
+            differ=json.dumps(differ, separators=(",", ":")),
+            max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", fused_adam_ms=f"{lib_ms:.4f}",
+            bytes_per_param=per_param, bound_ms=f"{bd[0]:.4f}",
+            bound_by=bd[1])
+        del leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_adam_emit_kernels(torch) -> dict:
+    """K7 against its plain version on the two big encoder weights (q L0
+    (5000, 12288), q L1 (5000, 5000)), bit for bit in p', m', v', the
+    shadow, q and max|p'| and the next scale ns; the two helpers of the
+    fresh-scale emission (``quant_scale``, ``quantize``) against theirs;
+    times of K7 over both leaves, of the fresh-scale engine's K6 + abs-max
+    + helpers on them, and of ``_fused_adam_``."""
+    from spatialvae_torch.kernels import adam as ka
+
+    shapes = [s for s in galaxy_leaves(torch).values()
+              if len(s) == 2 and math.prod(s) >= _qenc_min()]
+    k = ka.AdamConsts.make(ADAM_LR, 0.9, 0.999, 1e-8, ADAM_COUNT)
+    n = sum(math.prod(s) for s in shapes)
+    out = {}
+    for name, mdt in EMIT_CASES:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+        leaves = [_adam_leaf_inputs(torch, s, torch.bfloat16,
+                                    getattr(torch, mdt), True, gen)
+                  for s in shapes]
+        # the carried scale: the abs-max of the leaf before the step
+        s_in = [ka.quant_scale_reference(x[0].abs().max().reshape(1))
+                for x in leaves]
+        refs = [[t.clone() for t in x] for x in leaves]
+        got = [ka.adam_emit(*x[:4], k, x[4], s) for x, s in zip(leaves, s_in)]
+        want = [ka.adam_emit_reference(*x[:4], k, x[4], s)
+                for x, s in zip(refs, s_in)]
+        ns = [ka.quant_scale(a) for _, a in got]
+        ns_ref = [ka.quant_scale_reference(a) for _, a in want]
+        fresh_s = [ka.quant_scale(a) for _, a in want]
+        fresh_q = [ka.quantize(x[0], s) for x, s in zip(leaves, fresh_s)]
+        fresh_q_ref = [ka.quantize_reference(x[0], s)
+                       for x, s in zip(refs, fresh_s)]
+        torch.cuda.synchronize()
+        differ = {
+            **_leaf_differ(leaves, refs),
+            "q": sum(_n_differ(u[0], v[0]) for u, v in zip(got, want)),
+            "amax": sum(_n_differ(u[1], v[1]) for u, v in zip(got, want)),
+            "ns": sum(_n_differ(u, v) for u, v in zip(ns, ns_ref)),
+            "fresh_s": sum(_n_differ(u, ka.quant_scale_reference(a))
+                           for u, (_, a) in zip(fresh_s, want)),
+            "fresh_q": sum(_n_differ(u, v)
+                           for u, v in zip(fresh_q, fresh_q_ref))}
+        err = _max_abs([(x[j], r[j]) for x, r in zip(leaves, refs)
+                        for j in (0, 2, 3, 4)]
+                       + [(u[i], v[i]) for u, v in zip(got, want)
+                          for i in (0, 1)] + list(zip(ns, ns_ref)))
+        if any(differ.values()):
+            raise AssertionError(f"K7 {name}: elements that differ from the "
+                                 f"plain version {differ}")
+
+        def k7():
+            for x, s in zip(leaves, s_in):
+                ka.adam_emit(*x[:4], k, x[4], s)
+
+        def k7_plain():
+            for x, s in zip(refs, s_in):
+                ka.adam_emit_reference(*x[:4], k, x[4], s)
+
+        def fresh():
+            for x in leaves:
+                a = ka.adam_leaf(*x[:4], k, x[4], True)
+                ka.quantize(x[0], ka.quant_scale(a))
+
+        def quantize():
+            for x, s in zip(leaves, fresh_s):
+                ka.quantize(x[0], s)
+
+        def quantize_plain():
+            for x, s in zip(refs, fresh_s):
+                ka.quantize_reference(x[0], s)
+
+        def scale():
+            ka.quant_scale(want[0][1])
+
+        def scale_plain():
+            ka.quant_scale_reference(want[0][1])
+
+        times = {}
+        for label, fn in (("k7", k7), ("k7_plain", k7_plain),
+                          ("fresh_engine", fresh), ("quantize", quantize),
+                          ("quantize_plain", quantize_plain),
+                          ("quant_scale", scale),
+                          ("quant_scale_plain", scale_plain)):
+            fn()
+            times[label] = statistics.median(cuda_ms(fn, torch)
+                                             for _ in range(N_TIMED))
+        times["fused_adam"] = fused_adam_ms(torch, leaves)
+        m_b = getattr(torch, mdt).itemsize
+        per_param = 2 + 4 * m_b + 8 + 2 + 1
+        out[name] = dict(err=err, times=times,
+                         bound=bound(n * per_param, (14.0 * n, PEAK_FP32)),
+                         q_err=_max_abs([(u, v) for u, v in
+                                         zip(fresh_q, fresh_q_ref)]),
+                         quantize_bound=bound(5.0 * n),
+                         scale_bound=bound(12.0))
+        log("kernel_adam_emit", case=name, grads="bfloat16", moments=mdt,
+            leaves=len(shapes), params=n,
+            differ=json.dumps(differ, separators=(",", ":")),
+            max_abs_err=f"{err:.3e}",
+            **{f"{a}_ms": f"{b:.4f}" for a, b in times.items()},
+            bytes_per_param=per_param, bound_ms=f"{out[name]['bound'][0]:.4f}",
+            quantize_bound_ms=f"{out[name]['quantize_bound'][0]:.4f}")
+        del leaves, refs, got, want, fresh_q, fresh_q_ref
+        torch.cuda.empty_cache()
+    return out
 
 
 def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8) -> list:
@@ -1363,6 +1810,28 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8) -> list:
          torch_sum_ms(torch, [(tb, hw // 64, 3 * h), (1, splits, h * h),
                               (1, t_blocks, mw)])),
     ]
+    # Adam: K6 rows time one step's Adam over the 13 galaxy leaves (13
+    # launches), K7 and the helpers the two big encoder weights; library:
+    # torch._fused_adam_ on float32 copies of the same leaves
+    a, e = res["adam"], res["adam_emit"]["f32m"]
+    i8_adam = i8["counts"]["adam"]
+    for name, nl in (("f32", counts["adam"]),
+                     ("bf16g_shadow", i8_adam["adam"]),
+                     ("bf16_shadow", i8["bench_adam"]["adam"])):
+        r = a[name]
+        rows.append((f"adam_{name}", ADAM_SOURCE, K6_REPLACES, nl, r["err"],
+                     r["ms"], r["plain_ms"], r["bound"], r["lib_ms"]))
+    t = e["times"]
+    rows += [
+        ("adam_emit", ADAM_SOURCE, K7_REPLACES, i8["emit_adam"]["adam_emit"],
+         e["err"], t["k7"], t["k7_plain"], e["bound"], t["fused_adam"]),
+        ("quant_scale", ADAM_SOURCE, QUANT_REPLACES, i8_adam["quant_scale"],
+         e["err"], t["quant_scale"], t["quant_scale_plain"],
+         e["scale_bound"], None),
+        ("quantize", ADAM_SOURCE, QUANT_REPLACES, i8_adam["quantize"],
+         e["q_err"], t["quantize"], t["quantize_plain"], e["quantize_bound"],
+         None),
+    ]
     return rows
 
 
@@ -1384,6 +1853,8 @@ def main() -> int:
     res = phase_kernels(torch)
     bwd = phase_backward(torch)
     res["int8"] = phase_int8_kernels(torch)
+    res["adam"] = phase_adam_kernels(torch)
+    res["adam_emit"] = phase_adam_emit_kernels(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         launches = phase_slice(torch, tmpdir)
         counts, step_ms = phase_train(torch, tmpdir)

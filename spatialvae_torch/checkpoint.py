@@ -13,7 +13,10 @@ or, for the Adam state,
      "mu": {"q": tree, "p": tree}, "nu": {"q": tree, "p": tree}}
 
 so a file written by either package loads in the other, and a run trained
-by the port resumes in either.  Reference torch
+by the port resumes in either.  Adam states with bf16 moments
+(``SPATIALVAE_ADAM_MOMENTS=bf16``) are refused both ways: the JAX package
+pickles them as ``ml_dtypes`` arrays, which need a package the port does
+not use (ROADMAP M9).  Reference torch
 ``.sav`` files (whole-module pickles) are detected and converted through
 ``io/reference_sav.py``, as the JAX loader does.  Unpickling runs
 arbitrary code: load only checkpoints you trust.
@@ -23,6 +26,9 @@ from __future__ import annotations
 
 import os
 import pickle
+
+import numpy as np
+import torch
 
 from spatialvae_torch.config import config_from_dict, config_to_dict
 from spatialvae_torch.io.jax_params import (
@@ -34,6 +40,12 @@ from spatialvae_torch.io.jax_params import (
 from spatialvae_torch.models.inference import InferenceNetwork
 
 FORMAT = "spatialvae_tpu.checkpoint.v1"
+
+
+def _bf16_moments() -> NotImplementedError:
+    return NotImplementedError(
+        "an optimizer checkpoint with bf16 moments is not ported yet "
+        "(ROADMAP M9)")
 
 
 def save_model(path: str, kind: str, module, *, elbo=None,
@@ -102,6 +114,8 @@ def save_optimizer(path: str, state, epoch: int, q_net, p_net) -> None:
 
     if not isinstance(state, FusedAdamState):
         raise TypeError(f"not a FusedAdamState: {type(state).__name__}")
+    if any(t.dtype != torch.float32 for t in state.mu.values()):
+        raise _bf16_moments()
     payload = {
         "format": FORMAT,
         "kind": "optimizer",
@@ -120,10 +134,16 @@ def load_optimizer(path: str, q_net, p_net, device=None):
     from spatialvae_torch.train.optimizer import FusedAdamState
 
     with open(path, "rb") as f:
-        payload = pickle.load(f)
+        try:
+            payload = pickle.load(f)
+        except ModuleNotFoundError as e:       # ml_dtypes' bf16 arrays
+            raise _bf16_moments() from e
     if not isinstance(payload, dict) or payload.get("format") != FORMAT \
             or payload.get("kind") != "optimizer":
         raise ValueError(f"{path} is not a {FORMAT} optimizer checkpoint")
+    first = payload["mu"]["p"]["coord"]["w"]
+    if getattr(first, "dtype", None) != np.float32:
+        raise _bf16_moments()
     state = FusedAdamState(
         count=int(payload["count"]),
         mu=named_from_jax(payload["mu"], q_net, p_net, device),

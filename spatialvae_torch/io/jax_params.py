@@ -15,12 +15,14 @@ checked against the config; a mismatch raises ``ValueError``.
 Trees of other per-parameter tensors (Adam moments, gradients) map the same
 way: the port keeps them as dicts of ``q.<name>``/``p.<name>`` -> tensor in
 the module's layout (``named_to_jax``, ``named_from_jax``), the JAX package
-as a ``{"q": ..., "p": ...}`` tree in its own.
+as a ``{"q": ..., "p": ...}`` tree in its own.  ``state_from_jax`` carries a
+whole JAX ``TrainState`` across: the masters, the Adam state (float32 or
+bf16 moments), the bf16 shadow and the int8 qshadow.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -167,3 +169,104 @@ def named_from_jax(tree: Dict, q_net: InferenceNetwork,
     p = generator_from_jax(tree["p"], p_net.cfg, device=device)
     return {f"{key}.{n}": t.detach() for key, net in (("q", q), ("p", p))
             for n, t in net.named_parameters()}
+
+
+def leaf_paths(q_net: InferenceNetwork, p_net: SpatialGenerator
+               ) -> Dict[str, Tuple[tuple, Optional[tuple]]]:
+    """``q.<name>``/``p.<name>`` -> (its path in the JAX {"q", "p"} tree,
+    the permutation from the JAX array to the port tensor, or None)."""
+    out = {}
+
+    def add(key, net, param, path, perm):
+        names = {id(t): n for n, t in net.named_parameters()}
+        out[f"{key}.{names[id(param)]}"] = ((key,) + path, perm)
+
+    def linears(key, net, lins):
+        for i, lin in enumerate(lins):
+            add(key, net, lin.weight, ("layers", i, "w"), (1, 0))
+            if lin.bias is not None:
+                add(key, net, lin.bias, ("layers", i, "b"), None)
+
+    linears("q", q_net, stack_linears(q_net.layers))
+    add("p", p_net, p_net.coord_linear.weight, ("coord", "w"), (1, 0))
+    add("p", p_net, p_net.coord_linear.bias, ("coord", "b"), None)
+    if p_net.latent_dim > 0:
+        add("p", p_net, p_net.latent_linear.weight, ("latent", "w"), (1, 0))
+        if p_net.cfg.bilinear:
+            add("p", p_net, p_net.bilinear.weight, ("bilinear", "w"),
+                (2, 0, 1))
+    linears("p", p_net, p_net.linears())
+    return out
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tensor(a, perm, dtype, device) -> torch.Tensor:
+    """A JAX array (bf16 included, widened exactly) as a port tensor."""
+    src = np.asarray(a)
+    f = np.asarray(src, dtype=np.float32)
+    if perm is not None and f.size:
+        f = f.transpose(perm)
+    t = torch.from_numpy(np.ascontiguousarray(f))
+    return t.to(device=device if device is not None else "cpu", dtype=dtype)
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int8": torch.int8}
+
+
+def _port_dtype(a) -> torch.dtype:
+    name = str(np.asarray(a).dtype)
+    if name not in _DTYPES:
+        raise TypeError(f"no port dtype for a JAX {name} array")
+    return _DTYPES[name]
+
+
+def state_from_jax(state, q_net: InferenceNetwork, p_net: SpatialGenerator,
+                   device=None) -> Dict:
+    """A JAX ``TrainState`` as the port trainer's state: {"params": name ->
+    float32 master, "opt_state": ``FusedAdamState`` (moments in their JAX
+    dtype, float32 or bf16), "shadow": name -> bf16 leaf requiring grad, or
+    None, "qshadow": name -> {"q" int8 in the port's layout, "s", "ns"
+    (1, 1) float32}, or None}.  Load "params" into the modules with
+    ``load_named``; the rest are the trainer's ``opt_state``, ``shadow``
+    and ``qshadow``."""
+    from spatialvae_torch.train.optimizer import FusedAdamState
+
+    paths = leaf_paths(q_net, p_net)
+
+    def named(tree, dtype=None):
+        return {n: _tensor(_get(tree, path), perm,
+                           dtype or _port_dtype(_get(tree, path)), device)
+                for n, (path, perm) in paths.items()}
+
+    out = {"params": named(state.params, torch.float32),
+           "opt_state": FusedAdamState(int(state.opt_state.count),
+                                       named(state.opt_state.mu),
+                                       named(state.opt_state.nu)),
+           "shadow": None, "qshadow": None}
+    if getattr(state, "shadow", None) is not None:
+        out["shadow"] = {n: t.requires_grad_() for n, t in
+                         named(state.shadow).items()}
+    if getattr(state, "qshadow", None) is not None:
+        out["qshadow"] = {}
+        for n, (path, perm) in paths.items():
+            e = _get(state.qshadow, path)
+            out["qshadow"][n] = {
+                "q": _tensor(e["q"], perm, torch.int8, device),
+                "s": _tensor(e["s"], None, torch.float32, device),
+                "ns": _tensor(e["ns"], None, torch.float32, device)}
+    return out
+
+
+def load_named(q_net: InferenceNetwork, p_net: SpatialGenerator,
+               tensors: Dict[str, torch.Tensor]) -> None:
+    """Copy ``q.<name>``/``p.<name>`` tensors into the modules' parameters."""
+    with torch.no_grad():
+        for key, net in (("q", q_net), ("p", p_net)):
+            for n, p in net.named_parameters():
+                p.copy_(tensors[f"{key}.{n}"])

@@ -30,8 +30,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # name -> (argtypes, restype) of every C entry point the wrappers call
 _SIGNATURES = {
+    "svt_adam": ([_P] * 6 + [_L] + [_I] * 2 + [_F] * 8 + [_P], _I),
+    "svt_adam_emit": ([_P] * 8 + [_L] + [_I] * 2 + [_F] * 8 + [_P], _I),
+    "svt_quant_scale": ([_P] * 4, _I),
+    "svt_quantize": ([_P] * 3 + [_L, _P], _I),
     "svt_fused_decoder_fwd": ([_P] * 8 + [_I] * 8 + [_P], _I),
     "svt_fused_decoder_max_hidden": ([], _I),
     "svt_cuda_error_string": ([_I], ctypes.c_char_p),

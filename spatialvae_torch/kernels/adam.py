@@ -1,0 +1,272 @@
+"""Adam on the card: hand-written sm_90a CUDA kernels K6 and K7.
+
+Counterpart of the Pallas kernels of ``spatialvae_tpu/train/optimizer_pallas.py``:
+``_adam_kernel`` (K6, one leaf's m', v', p' and optional compute-dtype
+shadow) and ``_adam_emit_kernel`` (K7, the same pass plus the leaf's int8
+copy with the scale carried from the previous step and the abs-max for the
+next).  Per element, in ``adam_leaf``'s op order
+(``spatialvae_tpu/train/optimizer.py``), each operation rounded once to
+float32:
+
+    m' = b1*m + (1-b1)*g;   v' = b2*v + (1-b2)*(g*g)
+    p' = p + (-lr)*(m'/c1) / (sqrt(v'/c2) + eps),  c_i = 1 - b_i**count
+
+g is float32 or bf16, m and v float32 or bf16 (widened, updated in float32,
+rounded once on store), p the float32 master; everything updates in place.
+The shadow is bf16(p'); K7's copy is int8(clip(rint(p' * (1/s_in)), -127,
+127)).  Two helper kernels serve the emission: ``quant_scale`` (an abs-max
+to the scale max/127 + 1e-30) and ``quantize`` (the fresh-scale copy
+clip(rint(p'/s)), dividing as ``quantize_leaf`` does).
+
+``adam_leaf_reference``, ``adam_emit_reference``, ``quant_scale_reference``
+and ``quantize_reference`` are the plain PyTorch versions: every division
+there is by a tensor on the operand's device, never by a Python number,
+because PyTorch's CUDA division by a CPU scalar multiplies by its
+reciprocal and can miss the quotient by an ulp.  The wrappers run the plain
+versions for CPU tensors and launch the kernels (``csrc/adam.cu``) for CUDA
+tensors, or raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import astuple, dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from spatialvae_torch.kernels.fused_decoder import _call, _lib, _stream
+
+GRAD_DTYPES = (torch.float32, torch.bfloat16)
+MOMENT_DTYPES = (torch.float32, torch.bfloat16)
+SHADOW_DTYPE = torch.bfloat16
+
+# Kernel launches on CUDA tensors: K6, K7 and the emission's two helpers.
+LAUNCHES = {"adam": 0, "adam_emit": 0, "quant_scale": 0, "quantize": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+def bias_corrections(count: int, b1: float, b2: float) -> Tuple[float, float]:
+    """(c1, c2) as the JAX update computes them: float32 powers of the
+    float32 count."""
+    one = np.float32(1.0)
+    c1 = one - np.float32(b1) ** np.float32(count)
+    c2 = one - np.float32(b2) ** np.float32(count)
+    return float(c1), float(c2)
+
+
+@dataclass(frozen=True)
+class AdamConsts:
+    """One step's float32 scalars, each rounded from its Python value as
+    JAX rounds a weak-typed constant against a float32 array."""
+
+    b1: float
+    omb1: float          # 1 - b1
+    b2: float
+    omb2: float          # 1 - b2
+    neg_lr: float        # -lr
+    eps: float
+    c1: float
+    c2: float
+
+    @classmethod
+    def make(cls, learning_rate: float, b1: float, b2: float, eps: float,
+             count: int) -> "AdamConsts":
+        c1, c2 = bias_corrections(count, b1, b2)
+        return cls(_f32(b1), _f32(1.0 - b1), _f32(b2), _f32(1.0 - b2),
+                   _f32(-learning_rate), _f32(eps), c1, c2)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.full((), x, dtype=torch.float32, device=like.device)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt, as XLA's and the kernel's: the
+    float64 root rounded once (PyTorch's CPU float32 sqrt misses by an ulp
+    on about 0.6% of inputs)."""
+    return torch.sqrt(x.double()).float()
+
+
+@torch.no_grad()
+def adam_leaf_reference(p, g, m, v, k: AdamConsts, shadow=None,
+                        want_amax: bool = False) -> Optional[torch.Tensor]:
+    """Plain version of K6, in place on p, m, v and ``shadow``; returns
+    max|p'| as a float32 (1,) tensor with ``want_amax``."""
+    g = g.float()
+    m32 = m.float() * k.b1 + g * k.omb1
+    v32 = v.float() * k.b2 + (g * g) * k.omb2
+    update = (m32 / _scalar(k.c1, p)) * k.neg_lr
+    update = update / (_sqrt(v32 / _scalar(k.c2, p)) + k.eps)
+    p.add_(update)
+    m.copy_(m32)
+    v.copy_(v32)
+    if shadow is not None:
+        shadow.copy_(p)
+    return p.abs().max().reshape(1) if want_amax else None
+
+
+@torch.no_grad()
+def quant_scale_reference(amax: torch.Tensor) -> torch.Tensor:
+    """max/127 + 1e-30 as a float32 (1, 1) tensor."""
+    return (amax.float().reshape(1, 1) / _scalar(127.0, amax)) + 1e-30
+
+
+@torch.no_grad()
+def quantize_reference(p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """int8(clip(round(p/s), -127, 127)), s a float32 (1, 1) scale."""
+    return torch.clamp(torch.round(p.float() / s.reshape(())), -127,
+                       127).to(torch.int8)
+
+
+@torch.no_grad()
+def adam_emit_reference(p, g, m, v, k: AdamConsts, shadow, s_in
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7: K6 with the shadow, then (q, max|p'|), q the
+    int8 copy with the carried scale s_in (1, 1), multiplied by its
+    reciprocal as the TPU kernel does."""
+    amax = adam_leaf_reference(p, g, m, v, k, shadow, want_amax=True)
+    inv = torch.reciprocal(s_in.float().reshape(()))
+    q = torch.clamp(torch.round(p * inv), -127, 127).to(torch.int8)
+    return q, amax
+
+
+# ---------------------------------------------------------------------------
+# checks and launches
+# ---------------------------------------------------------------------------
+
+
+def _check_leaf(p, g, m, v, shadow) -> None:
+    """Raise on a leaf the kernels do not take, on every device."""
+    if p.dtype != torch.float32:
+        raise TypeError(f"the master must be float32, got {p.dtype}")
+    if g.dtype not in GRAD_DTYPES:
+        raise TypeError(f"gradients must be float32 or bfloat16, got "
+                        f"{g.dtype}")
+    if m.dtype not in MOMENT_DTYPES or v.dtype != m.dtype:
+        raise TypeError(f"moments must be both float32 or both bfloat16, "
+                        f"got {m.dtype} and {v.dtype}")
+    named = dict(g=g, m=m, v=v)
+    if shadow is not None:
+        if shadow.dtype != SHADOW_DTYPE:
+            raise TypeError(f"the shadow must be bfloat16, got "
+                            f"{shadow.dtype}")
+        named["shadow"] = shadow
+    for name, t in named.items():
+        if t.shape != p.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the "
+                             f"master {tuple(p.shape)}")
+    named["p"] = p
+    for name, t in named.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    devices = {t.device for t in named.values()}
+    if len(devices) != 1:
+        raise ValueError(f"the leaf lies on several devices: {devices}")
+    if p.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {p.device}")
+
+
+def _check_scale(s: torch.Tensor, p: torch.Tensor) -> None:
+    if (s.dtype != torch.float32 or s.numel() != 1 or s.device != p.device
+            or not s.is_contiguous()):
+        raise ValueError("a scale is one contiguous float32 element on the "
+                         "leaf's device")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def adam_leaf(p, g, m, v, k: AdamConsts, shadow=None,
+              want_amax: bool = False) -> Optional[torch.Tensor]:
+    """K6 on one leaf, in place on p (float32), m, v and the bf16
+    ``shadow`` (or None); with ``want_amax`` returns max|p'| as a float32
+    (1,) tensor.  CPU tensors take ``adam_leaf_reference``; CUDA tensors
+    launch the kernel and count it in ``LAUNCHES["adam"]``."""
+    _check_leaf(p, g, m, v, shadow)
+    if p.device.type == "cpu":
+        return adam_leaf_reference(p, g, m, v, k, shadow, want_amax)
+    if p.numel() == 0:
+        return torch.zeros(1, device=p.device) if want_amax else None
+    amax = torch.zeros(1, device=p.device) if want_amax else None
+    with torch.cuda.device(p.device):
+        _call(_lib(), "svt_adam", g.data_ptr(), m.data_ptr(), v.data_ptr(),
+              p.data_ptr(), _ptr(shadow), _ptr(amax), p.numel(),
+              int(g.dtype == torch.bfloat16), int(m.dtype == torch.bfloat16),
+              *astuple(k), _stream(p))
+    LAUNCHES["adam"] += 1
+    return amax
+
+
+def adam_emit(p, g, m, v, k: AdamConsts, shadow, s_in
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7 on one leaf: K6 in place with the bf16 ``shadow``, and returns
+    (q, amax): the int8 copy of p' with the carried scale ``s_in`` (one
+    float32) and max|p'| (float32 (1,)).  CPU tensors take
+    ``adam_emit_reference``; CUDA tensors launch the kernel and count it in
+    ``LAUNCHES["adam_emit"]``."""
+    if shadow is None:
+        raise ValueError("K7 writes the shadow: pass it")
+    _check_leaf(p, g, m, v, shadow)
+    _check_scale(s_in, p)
+    if p.device.type == "cpu":
+        return adam_emit_reference(p, g, m, v, k, shadow, s_in)
+    q = torch.empty(p.shape, dtype=torch.int8, device=p.device)
+    amax = torch.zeros(1, device=p.device)
+    if p.numel():
+        with torch.cuda.device(p.device):
+            _call(_lib(), "svt_adam_emit", g.data_ptr(), m.data_ptr(),
+                  v.data_ptr(), p.data_ptr(), shadow.data_ptr(), q.data_ptr(),
+                  s_in.data_ptr(), amax.data_ptr(), p.numel(),
+                  int(g.dtype == torch.bfloat16),
+                  int(m.dtype == torch.bfloat16), *astuple(k), _stream(p))
+        LAUNCHES["adam_emit"] += 1
+    return q, amax
+
+
+def quant_scale(amax: torch.Tensor, twin: bool = False):
+    """The scale max/127 + 1e-30 of a float32 abs-max, as a float32 (1, 1)
+    tensor; with ``twin`` also a second buffer holding the same value (the
+    entry's ``ns``).  CPU tensors take ``quant_scale_reference``."""
+    _check_scale(amax, amax)
+    if amax.device.type == "cpu":
+        s = quant_scale_reference(amax)
+        return (s, s.clone()) if twin else s
+    s = torch.empty((1, 1), device=amax.device)
+    ns = torch.empty((1, 1), device=amax.device) if twin else None
+    with torch.cuda.device(amax.device):
+        _call(_lib(), "svt_quant_scale", amax.data_ptr(), s.data_ptr(),
+              _ptr(ns), _stream(amax))
+    LAUNCHES["quant_scale"] += 1
+    return (s, ns) if twin else s
+
+
+def quantize(p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """int8(clip(rint(p/s), -127, 127)) of a contiguous float32 tensor with
+    the float32 scale ``s``.  CPU tensors take ``quantize_reference``."""
+    if p.dtype != torch.float32 or not p.is_contiguous():
+        raise ValueError("quantize takes a contiguous float32 tensor")
+    _check_scale(s, p)
+    if p.device.type == "cpu":
+        return quantize_reference(p, s)
+    q = torch.empty(p.shape, dtype=torch.int8, device=p.device)
+    if p.numel():
+        with torch.cuda.device(p.device):
+            _call(_lib(), "svt_quantize", p.data_ptr(), s.data_ptr(),
+                  q.data_ptr(), p.numel(), _stream(p))
+        LAUNCHES["quantize"] += 1
+    return q

@@ -13,11 +13,14 @@ a training step whose batch is even takes the fused int8 loss-and-gradient
 kernel (K3, ``fused_loss_active``) instead of decode + BCE, with the
 targets in the kernel's (B, C, HW) layout (``y_t``, int8 on the /255 grid).
 
+The encoder takes the int8 weight copies (``q_quant``) and the batch's
+int8 data copy (``y_q8``) as the JAX ELBO does; an explicit encoder view
+(``y_inf``) drops ``y_q8``.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item: the gaussian/colored likelihoods and CTF (M7), rotation-augment
-offsets (M8), the int8 encoder and its data copy (M6), the loss kernel's
-families other than (a) (Queue 2 K3), the vanilla generator (M1) and
-pixel-axis sharding (M10).
+offsets (M8), the loss kernel's families other than (a) (Queue 2 K3), the
+vanilla generator (M1) and pixel-axis sharding (M10).
 
 ``elbo_minibatch`` is differentiable; its serving callers take
 ``torch.no_grad()`` themselves, so serving saves nothing for a backward and
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -132,37 +135,42 @@ def elbo_minibatch(
     generator: Optional[torch.Generator] = None,
     *,
     noise: Optional[torch.Tensor] = None,  # (B, zdim) std-normal
+    y_inf: Optional[torch.Tensor] = None,  # encoder view (default y)
     offsets: Optional[torch.Tensor] = None,
     z_scale: float = 1.0,
     ctf: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,   # (HW,) float {0,1} pixel mask
     want_y_hat: bool = False,             # display paths need the decode
     y_t: Optional[torch.Tensor] = None,   # (B, C, HW) targets for K3
-    q_quant=None,
-    y_q8=None,
+    q_quant=None,                         # int8 encoder weight entries
+    y_q8=None,                            # (xq (B, n) int8, sx) data batch
     pixel_axis: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (elbo, log_p_x_g_z, kl_div, y_hat): 0-d tensors and the
     (B, HW, n_out) decode, which is None on the fused int8 loss path (pass
     ``want_y_hat=True`` to force the decode).  ``noise`` overrides drawing
-    the reparameterised sample from ``generator``.  The remaining keywords
-    of the JAX signature belong to paths not ported yet and raise."""
+    the reparameterised sample from ``generator``.  ``q_quant`` and
+    ``y_q8`` go to the encoder (``InferenceNetwork.forward``'s ``qw`` and
+    ``y_q8``).  The remaining keywords of the JAX signature belong to paths
+    not ported yet and raise."""
     if ecfg.likelihood != "bernoulli":
         raise _not_ported(f"the {ecfg.likelihood} likelihood", "M7")
     if ctf is not None:
         raise _not_ported("CTF", "M7")
     if offsets is not None:
         raise _not_ported("rotation-augment offsets", "M8")
-    if q_quant is not None or y_q8 is not None:
-        raise _not_ported("the int8 encoder and its data copy", "M6")
     if pixel_axis is not None:
         raise _not_ported("pixel-axis sharding", "M10")
     if ecfg.vanilla:
         raise _not_ported("the vanilla generator", "M1")
     b = y.shape[0]
+    if y_inf is None:
+        y_inf = y
+    else:
+        y_q8 = None      # another encoder view: the data copy does not apply
 
     # ---- inference + reparameterised sample -------------------------------
-    z_mu, z_logstd = q_net(y.reshape(b, -1))
+    z_mu, z_logstd = q_net(y_inf.reshape(b, -1), qw=q_quant, y_q8=y_q8)
     z_std = torch.exp(z_logstd)
     r = noise if noise is not None else torch.randn(
         z_mu.shape, generator=generator, dtype=z_mu.dtype,
@@ -240,53 +248,64 @@ class _Pair(torch.nn.Module):
 
 def loss_terms(q_net: InferenceNetwork, p_net: SpatialGenerator,
                ecfg: ElboConfig, coords: torch.Tensor, y: torch.Tensor, *,
+               params: Optional[Dict[str, torch.Tensor]] = None,
                noise: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
                z_scale: float = 1.0, mask: Optional[torch.Tensor] = None,
-               y_t: Optional[torch.Tensor] = None,
+               y_t: Optional[torch.Tensor] = None, q_quant=None, y_q8=None,
                compute_dtype: torch.dtype = torch.float32
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training loss, ``Trainer._loss`` of the JAX package: params, y and
-    coords cast to ``compute_dtype`` (so a bf16 run decodes over the
-    bf16-rounded grid), then the ELBO.  ``y_t``, the batch's targets in the
-    loss kernel's layout, passes as it is.  Returns (loss = -elbo, aux =
-    [elbo, -log_p, kl]), float32.  Differentiable; the evaluation runs it
-    under no_grad."""
+    coords in ``compute_dtype`` (so a bf16 run decodes over the bf16-rounded
+    grid), then the ELBO.  ``params``: a dict of ``q.<name>``/``p.<name>``
+    -> tensor that stands in for the modules' parameters (the trainer's
+    bf16 shadow, already in the compute dtype); without it the modules'
+    parameters are cast.  ``y_t`` (the batch's targets in the loss kernel's
+    layout), ``q_quant`` and ``y_q8`` pass as they are.  Returns (loss =
+    -elbo, aux = [elbo, -log_p, kl]), float32.  Differentiable; the
+    evaluation runs it under no_grad."""
     y = y.to(compute_dtype)
     coords = coords.to(compute_dtype)
     pair = _Pair(q_net, p_net)
-    if all(p.dtype == compute_dtype for p in pair.parameters()):
-        fn = pair
+    if params is None and any(p.dtype != compute_dtype
+                              for p in pair.parameters()):
+        params = dict(pair.named_parameters())
+    kw = dict(noise=noise, z_scale=z_scale, mask=mask, y_t=y_t,
+              q_quant=q_quant, y_q8=y_q8)
+    args = (ecfg, coords, y, generator)
+    if params is None:
+        elbo, log_p, kl, _ = pair(*args, **kw)
     else:
-        params = {k: v.to(compute_dtype) for k, v in
-                  pair.named_parameters()}
-        fn = lambda *a, **kw: functional_call(pair, params, a, kw)
-    elbo, log_p, kl, _ = fn(ecfg, coords, y, generator, noise=noise,
-                            z_scale=z_scale, mask=mask, y_t=y_t)
+        params = {k: v.to(compute_dtype) for k, v in params.items()}
+        elbo, log_p, kl, _ = functional_call(pair, params, args, kw)
     aux = torch.stack([elbo.float(), -log_p.float(), kl.float()])
     return -elbo.float(), aux
 
 
 def loss_and_grad(q_net: InferenceNetwork, p_net: SpatialGenerator,
                   ecfg: ElboConfig, coords: torch.Tensor, y: torch.Tensor,
-                  *, noise: Optional[torch.Tensor] = None,
+                  *, params: Optional[Dict[str, torch.Tensor]] = None,
+                  noise: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None,
                   z_scale: float = 1.0, mask: Optional[torch.Tensor] = None,
-                  y_t: Optional[torch.Tensor] = None,
-                  compute_dtype: torch.dtype = torch.float32
+                  y_t: Optional[torch.Tensor] = None, q_quant=None,
+                  y_q8=None, compute_dtype: torch.dtype = torch.float32
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``loss_terms`` and its gradient (``value_and_grad(Trainer._loss)``):
-    returns (loss, aux) detached and leaves d loss / d param on each
-    parameter's ``.grad`` (earlier gradients are dropped, not summed).
-    ``noise`` injects the reparameterisation draw; without it the draw
-    comes from ``generator``."""
-    for net in (q_net, p_net):
-        for p in net.parameters():
-            p.grad = None
+    returns (loss, aux) detached and leaves d loss / d param on the
+    ``.grad`` of each tensor of ``params`` (the shadow: bf16 gradients), or
+    of each module parameter without it (earlier gradients are dropped, not
+    summed).  ``noise`` injects the reparameterisation draw; without it the
+    draw comes from ``generator``."""
+    leaves = (params.values() if params is not None else
+              [p for net in (q_net, p_net) for p in net.parameters()])
+    for p in leaves:
+        p.grad = None
     with torch.enable_grad():
-        loss, aux = loss_terms(q_net, p_net, ecfg, coords, y, noise=noise,
-                               generator=generator, z_scale=z_scale,
-                               mask=mask, y_t=y_t,
+        loss, aux = loss_terms(q_net, p_net, ecfg, coords, y, params=params,
+                               noise=noise, generator=generator,
+                               z_scale=z_scale, mask=mask, y_t=y_t,
+                               q_quant=q_quant, y_q8=y_q8,
                                compute_dtype=compute_dtype)
         loss.backward()
     return loss.detach(), aux.detach()

@@ -1,5 +1,6 @@
 """Adam with the JAX package's numerics — counterpart of
-``spatialvae_tpu/train/optimizer.py`` (``fused_adam``, ``adam_leaf``).
+``spatialvae_tpu/train/optimizer.py`` (``fused_adam``, ``adam_leaf``,
+``moments_dtype``).
 
 The op order is the JAX one, op for op, so the port matches it to an ulp
 where ``torch.optim.Adam`` (which orders its ops differently) does not:
@@ -7,10 +8,12 @@ where ``torch.optim.Adam`` (which orders its ops differently) does not:
     m' = b1*m + (1-b1)*g;  v' = b2*v + (1-b2)*(g*g)
     p += -lr * (m'/c1) / (sqrt(v'/c2) + eps),  c_i = 1 - b_i**count (f32)
 
-Leaves are dicts of parameter name -> tensor; the update runs in place under
-no_grad as plain elementwise torch ops (the JAX package runs its default Adam
-outside any Pallas kernel too; its per-leaf kernel K6 is opt-in).  Moments are
-float32; bf16 moments and the bf16/int8 weight copies are ROADMAP M3 and M6.
+Leaves are dicts of parameter name -> tensor; each leaf's update is one
+launch of K6 (``kernels/adam.py``) in place on the card, and its plain
+version on the CPU.  The moments are float32, or bfloat16 under
+``SPATIALVAE_ADAM_MOMENTS=bf16`` (widened, updated in float32 and rounded
+once on store, as ``adam_leaf`` does).  ``train/optimizer_fused.py`` adds
+the shadow and int8 emission of the JAX package's ``fused_adam_pallas``.
 """
 
 from __future__ import annotations
@@ -18,8 +21,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict
 
-import numpy as np
 import torch
+
+from spatialvae_torch.kernels.adam import AdamConsts, adam_leaf
+from spatialvae_torch.kernels.config import moments_dtype
+
+__all__ = ["FusedAdam", "FusedAdamState", "fused_adam", "moments_dtype"]
 
 
 @dataclass
@@ -27,27 +34,6 @@ class FusedAdamState:
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
-
-
-def bias_corrections(count: int, b1: float, b2: float):
-    """(c1, c2) as the JAX update computes them: float32 powers of the
-    float32 count."""
-    one = np.float32(1.0)
-    c1 = one - np.float32(b1) ** np.float32(count)
-    c2 = one - np.float32(b2) ** np.float32(count)
-    return float(c1), float(c2)
-
-
-@torch.no_grad()
-def adam_leaf(p, g, m, v, c1, c2, learning_rate, b1, b2, eps) -> None:
-    """One leaf's update, in place on p, m and v (f32), in ``adam_leaf``'s
-    op order; g may be of a lower precision and is widened first."""
-    g = g.float()
-    m.mul_(b1).add_(g * (1.0 - b1))
-    v.mul_(b2).add_((g * g) * (1.0 - b2))
-    update = (m / c1).mul_(-learning_rate)
-    update.div_(torch.sqrt(v / c2).add_(eps))
-    p.add_(update)
 
 
 class FusedAdam:
@@ -61,21 +47,26 @@ class FusedAdam:
             learning_rate, b1, b2, eps)
 
     def init(self, params: Dict[str, torch.Tensor]) -> FusedAdamState:
-        zeros = {k: torch.zeros_like(p, dtype=torch.float32)
-                 for k, p in params.items()}
+        """Zero moments in ``moments_dtype()``."""
+        mdt = moments_dtype()
+        zeros = {k: torch.zeros_like(p, dtype=mdt) for k, p in params.items()}
         return FusedAdamState(0, zeros,
                               {k: z.clone() for k, z in zeros.items()})
+
+    def consts(self, count: int) -> AdamConsts:
+        return AdamConsts.make(self.learning_rate, self.b1, self.b2,
+                               self.eps, count)
 
     def update_apply(self, grads: Dict[str, torch.Tensor],
                      state: FusedAdamState,
                      params: Dict[str, torch.Tensor]) -> FusedAdamState:
-        """Updates params, state.mu and state.nu in place; returns the state
-        with the step count advanced."""
+        """Updates params, state.mu and state.nu in place (K6, one launch
+        per leaf); returns the state with the step count advanced."""
         count = state.count + 1
-        c1, c2 = bias_corrections(count, self.b1, self.b2)
-        for k, p in params.items():
-            adam_leaf(p, grads[k], state.mu[k], state.nu[k], c1, c2,
-                      self.learning_rate, self.b1, self.b2, self.eps)
+        k = self.consts(count)
+        for name, p in params.items():
+            adam_leaf(p.detach(), grads[name], state.mu[name],
+                      state.nu[name], k)
         return FusedAdamState(count, state.mu, state.nu)
 
 

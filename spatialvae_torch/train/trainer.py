@@ -7,6 +7,17 @@ its own step), the z-delay curriculum, ``loss_and_grad`` then Adam per step,
 one device-to-host copy of an epoch's metrics, evaluation and the display
 decodes.  It runs on the CUDA card unless it is given ``device="cpu"``.
 
+Every step ends in Adam, one launch of K6 per parameter leaf
+(``train/optimizer_fused.py``).  With bf16 compute the step runs the JAX
+package's TPU stack (``trainer.py:431-437`` there): the loss differentiates
+the bf16 **shadow** of the parameters, which Adam writes beside the float32
+masters (no per-step cast of the 86.9 M galaxy parameters), and in int8
+mode the encoder's hidden GEMMs run on int8 with the int8 **qshadow**
+copies that Adam emits for the 2-D leaves of at least ``_QENC_MIN_ELEMS``
+elements, the full batches reading layer 0's input from a per-dataset int8
+copy of the images (``_dataset_yq8``).  Evaluation and display read the
+float32 masters.
+
 Float mode: the training steps run the fused decoder's forward and backward
 kernels (K1, K2).  int8 mode (``ElboConfig(fused=True, int8=True)``): every
 step whose batch is even runs the fused int8 loss-and-gradient kernel (K3)
@@ -24,9 +35,8 @@ differ from JAX's; the parity tests inject the same batches and noise into
 both.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: host-resident streaming (M4), rotation augmentation (M8), CTF (M7),
-the int8 encoder with its bf16 shadow (M6; the JAX package turns it on
-only with its Pallas Adam) and meshes (M10).  ``train_epochs`` runs the
+item: host-resident streaming (M4), rotation augmentation (M8), CTF (M7)
+and meshes (M10).  ``train_epochs`` runs the
 epochs one by one; its single-dispatch form (CUDA graphs) is a later speed
 choice (M4).
 """
@@ -44,10 +54,11 @@ import torch
 
 from spatialvae_torch.config import InferenceConfig
 from spatialvae_torch.device import resolve_device
-from spatialvae_torch.kernels.config import check_knobs
+from spatialvae_torch.kernels.config import adam_emit, check_knobs
 from spatialvae_torch.kernels.fused_loss_int8 import check_ported
 from spatialvae_torch.models.inference import InferenceNetwork
 from spatialvae_torch.models.spatial import SpatialGenerator
+from spatialvae_torch.nn.layers import stack_linears
 from spatialvae_torch.objectives.elbo import (
     ElboConfig,
     decode_spatial,
@@ -57,9 +68,18 @@ from spatialvae_torch.objectives.elbo import (
     loss_terms,
 )
 from spatialvae_torch.train.metrics import StreamingMeans
-from spatialvae_torch.train.optimizer import fused_adam
+from spatialvae_torch.train.optimizer_fused import (
+    fused_adam_pallas,
+    quantize_dataset,
+    quantize_leaf,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# parameter leaves at least this large get int8 copies from the Adam pass
+# (at galaxy size the two big encoder hidden weights; the decoder and the
+# heads stay bf16).  Read at each use, so a test may patch it.
+_QENC_MIN_ELEMS = 8 << 20
 
 
 @dataclass(frozen=True)
@@ -179,8 +199,22 @@ class Trainer:
                                       device=self.device)
         self.p_net = SpatialGenerator(p_cfg, generator=init,
                                       device=self.device)
-        self.optimizer = fused_adam(tcfg.learning_rate)
+        self.optimizer = fused_adam_pallas(tcfg.learning_rate)
         self.opt_state = self.optimizer.init(self.named_params())
+        adam_emit()          # refuse an unknown or unapproved engine now
+        # one device: bf16 compute differentiates the shadow, and int8 mode
+        # adds the int8 encoder (the JAX trainer's _use_shadow/_use_qenc)
+        self._use_shadow = self.compute_dtype == torch.bfloat16
+        self._use_qenc = self._use_shadow and bool(ecfg.int8)
+        # the copies the Adam pass writes, seeded at the first step
+        # (_seeded_state): shadow, name -> bf16 leaf requiring grad;
+        # qshadow, name -> {"q", "s", "ns"} (empty "q" below the threshold)
+        self.shadow: Optional[dict] = None
+        self.qshadow: Optional[dict] = None
+        ids = {id(p): f"q.{n}" for n, p in self.q_net.named_parameters()}
+        self._qenc_names = [ids[id(lin.weight)] for lin in
+                            stack_linears(self.q_net.layers)[:-1]]
+        self._yq8_cache = {}
         self.last_images_per_sec = 0.0
 
     # ---------------------------------------------------------------- state
@@ -193,8 +227,54 @@ class Trainer:
     def _gen(self, stream: int) -> torch.Generator:
         return seeded_generator(self.tcfg.seed, stream, self.device)
 
-    # per-dataset target copies hold dataset-sized tensors: at most two
+    def _seeded_state(self) -> None:
+        """Seed the shadow (bf16 casts of the masters) and the qshadow
+        (``quantize_leaf`` of each leaf) when the step needs them and they
+        are missing; later steps carry them out of the Adam pass.  After
+        replacing the masters, set both to None to seed them anew."""
+        if self._use_shadow and self.shadow is None:
+            self.shadow = {k: p.detach().to(self.compute_dtype)
+                           .requires_grad_()
+                           for k, p in self.named_params().items()}
+        if self._use_qenc and self.qshadow is None:
+            self.qshadow = {k: quantize_leaf(p, p.dim() == 2 and p.numel()
+                                             >= _QENC_MIN_ELEMS)
+                            for k, p in self.named_params().items()}
+
+    def grad_target(self):
+        """(the dict the loss differentiates, or None for the masters;
+        the encoder's int8 entries, or None): the JAX ``grad_target``."""
+        if self.shadow is None:
+            return None, None
+        qq = None
+        if self.qshadow is not None:
+            qq = [self.qshadow[n] for n in self._qenc_names]
+        return self.shadow, qq
+
+    def apply_update(self, grads: dict) -> None:
+        """Adam, and the shadow and qshadow emission the state carries:
+        the JAX ``apply_update`` on one device."""
+        params = self.named_params()
+        if self.shadow is None:
+            self.opt_state = self.optimizer.update_apply(
+                grads, self.opt_state, params)
+        elif self.qshadow is None:
+            self.opt_state = self.optimizer.update_apply(
+                grads, self.opt_state, params, shadow=self.shadow)
+        else:
+            self.opt_state, self.qshadow = self.optimizer.update_apply(
+                grads, self.opt_state, params, shadow=self.shadow,
+                quant_min_elems=_QENC_MIN_ELEMS, prev_quant=self.qshadow)
+
+    # per-dataset copies hold dataset-sized tensors: at most two each
     _DATASET_CACHE_MAX = 2
+
+    def _cache_put(self, cache: dict, src, value) -> None:
+        """Keyed by the caller's array, which the entry keeps alive; the
+        oldest entry is evicted."""
+        while len(cache) >= self._DATASET_CACHE_MAX:
+            cache.pop(next(iter(cache)))
+        cache[id(src)] = (src, value)
 
     def _dataset_yt(self, dataset,
                     data: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -218,10 +298,23 @@ class Trainer:
         else:
             yt = (data.reshape(data.shape[0], hw, -1).transpose(1, 2)
                   .to(self.compute_dtype).contiguous())
-        while len(self._yt_cache) >= self._DATASET_CACHE_MAX:
-            self._yt_cache.pop(next(iter(self._yt_cache)))
-        self._yt_cache[id(src)] = (src, yt)
+        self._cache_put(self._yt_cache, src, yt)
         return yt
+
+    def _dataset_yq8(self, dataset,
+                     data: Optional[torch.Tensor] = None) -> tuple:
+        """(xq (N, n) int8, sx (1, 1)): the encoder's input copy of the
+        images, quantised once per dataset (``quantize_dataset``) and cached
+        like ``_dataset_yt``."""
+        src = getattr(dataset, "y", dataset)
+        hit = self._yq8_cache.get(id(src))
+        if hit is not None and hit[0] is src:
+            return hit[1]
+        if data is None:
+            data = self._data(dataset)
+        entry = quantize_dataset(data)
+        self._cache_put(self._yq8_cache, src, entry)
+        return entry
 
     def _wants_yt(self) -> bool:
         """Whether the full-batch steps take the loss kernel, so that a
@@ -244,26 +337,28 @@ class Trainer:
     # ---------------------------------------------------------------- steps
     def train_step(self, y: torch.Tensor, *,
                    y_t: Optional[torch.Tensor] = None,
+                   y_q8: Optional[tuple] = None,
                    noise: Optional[torch.Tensor] = None,
                    z_scale: float = 1.0,
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
         """One step: ``loss_and_grad`` then Adam.  y: (B, HW[, C]) on the
         device; ``y_t`` its targets in the loss kernel's layout, when the
-        step takes that kernel.  Returns aux = [elbo, -log_p, kl] (on the
-        device)."""
+        step takes that kernel; ``y_q8`` (xq (B, n) int8, sx) its rows of
+        the int8 data copy, read by the int8 encoder.  Returns aux = [elbo,
+        -log_p, kl] (on the device)."""
+        self._seeded_state()
+        target, qq = self.grad_target()
         # the two labels let a profiler trace attribute the step's kernels
         with torch.profiler.record_function("loss_and_grad"):
-            _, aux = loss_and_grad(self.q_net, self.p_net, self.ecfg,
-                                   self.coords, y, noise=noise,
-                                   generator=generator, z_scale=z_scale,
-                                   mask=self.mask, y_t=y_t,
-                                   compute_dtype=self.compute_dtype)
+            _, aux = loss_and_grad(
+                self.q_net, self.p_net, self.ecfg, self.coords, y,
+                params=target, noise=noise, generator=generator,
+                z_scale=z_scale, mask=self.mask, y_t=y_t, q_quant=qq,
+                y_q8=y_q8, compute_dtype=self.compute_dtype)
         with torch.profiler.record_function("adam"):
-            params = self.named_params()
-            grads = {k: p.grad for k, p in params.items()}
-            self.opt_state = self.optimizer.update_apply(
-                grads, self.opt_state, params)
+            leaves = target if target is not None else self.named_params()
+            self.apply_update({k: t.grad for k, t in leaves.items()})
         return aux
 
     def train_epoch(self, dataset, epoch: int, *, progress: bool = True,
@@ -271,7 +366,9 @@ class Trainer:
         """One training epoch; returns the (elbo, gen_loss, kl) streaming
         means.  The permutation comes from stream 2*epoch, the steps' noise
         from stream 2*epoch + 1.  In int8 mode the full batches gather their
-        targets from ``_dataset_yt``; the tail builds its own, as in JAX."""
+        targets from ``_dataset_yt`` and, with the int8 encoder, their
+        encoder input from ``_dataset_yq8``; the tail builds its own
+        targets and quantises its input per step, as in JAX."""
         return self._run_epoch(dataset, self._data(dataset), epoch, progress,
                                progress_stream)
 
@@ -288,8 +385,11 @@ class Trainer:
         step_gen = self._gen(2 * epoch + 1)
         data_t = (self._dataset_yt(dataset, data)
                   if self._wants_yt() and len(full) else None)
+        data_q8 = (self._dataset_yq8(dataset, data)
+                   if self._use_qenc and len(full) else None)
         rows = [self.train_step(
             data[idx], y_t=None if data_t is None else data_t[idx],
+            y_q8=None if data_q8 is None else (data_q8[0][idx], data_q8[1]),
             z_scale=z_scale, generator=step_gen) for idx in full]
         tail_row = (self.train_step(data[tail], z_scale=z_scale,
                                     generator=step_gen)

@@ -2,7 +2,8 @@
 the decoder forward with and without its activation output, the backward
 with the residual and with recompute, the differentiable op and a training
 step; the int8 decoder forward and backward (K4, K5), the fused int8 loss
-and gradient (K3), and an int8 training step.
+and gradient (K3), and an int8 training step; Adam (K6, K7 and the
+emission helpers), the int8 encoder's GEMM, and steps of the int8 stack.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode): it is
 marked ``cuda`` and skips without one.  The file imports no JAX, so it runs
@@ -371,3 +372,138 @@ def test_int8_training_step_on_the_card(cuda_device):
     assert d8.LAUNCHES == {"fwd": 0, "fwd_acts": 1, "bwd_scale": 1,
                            "bwd_grad": 1, "dw": 1, "sum": 4}
     assert tr.opt_state.count == 2
+
+
+# ---------------------------------------------------------------------------
+# Adam: K6, K7 and the emission helpers; the int8 encoder's products
+# ---------------------------------------------------------------------------
+
+
+def _adam_leaf(shape, gdt, mdt, device, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    p = torch.randn(shape, generator=g, device=device) * 0.02
+    grad = (torch.randn(shape, generator=g, device=device) * 1e-3).to(gdt)
+    m = (torch.randn(shape, generator=g, device=device) * 1e-4).to(mdt)
+    v = (torch.rand(shape, generator=g, device=device) * 1e-6).to(mdt)
+    return p, grad, m, v
+
+
+ADAM_CASES = [(torch.float32, torch.float32, False),
+              (torch.bfloat16, torch.float32, True),
+              (torch.bfloat16, torch.bfloat16, True)]
+
+
+@pytest.mark.parametrize("shape", [(500, 1228), (46, 500), (13, 16), (7,)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("gdt,mdt,shadow", ADAM_CASES,
+                         ids=["f32", "bf16g-shadow", "bf16-all"])
+def test_adam_kernels_match_plain_versions(shape, gdt, mdt, shadow,
+                                           cuda_device):
+    """K6 (with the abs-max), K7 and the two helpers bit for bit against
+    their plain versions, which divide by device tensors and round every
+    step as the kernels do."""
+    from spatialvae_torch.kernels import adam as ka
+
+    k = ka.AdamConsts.make(1e-4, 0.9, 0.999, 1e-8, 7)
+    p, g, m, v = _adam_leaf(shape, gdt, mdt, cuda_device)
+    sh = torch.empty(shape, dtype=torch.bfloat16, device=cuda_device) \
+        if shadow else None
+    ref = [t.clone() for t in (p, g, m, v)] + [
+        None if sh is None else sh.clone()]
+    ka.reset_launches()
+    amax = ka.adam_leaf(p, g, m, v, k, sh, want_amax=True)
+    want = ka.adam_leaf_reference(ref[0], ref[1], ref[2], ref[3], k, ref[4],
+                                  True)
+    for got, exp in ((p, ref[0]), (m, ref[2]), (v, ref[3]), (amax, want)):
+        assert torch.equal(got, exp)
+    if shadow:
+        assert torch.equal(sh, ref[4])
+    s, ns = ka.quant_scale(amax, twin=True)
+    assert torch.equal(s, ka.quant_scale_reference(want))
+    assert torch.equal(ns, s) and ns.data_ptr() != s.data_ptr()
+    assert torch.equal(ka.quantize(p, s), ka.quantize_reference(p, s))
+    p, g, m, v = _adam_leaf(shape, gdt, mdt, cuda_device, seed=1)
+    sh = torch.empty(shape, dtype=torch.bfloat16, device=cuda_device)
+    ref = [t.clone() for t in (p, g, m, v, sh)]
+    s_in = torch.full((1, 1), 0.08 / 127, device=cuda_device)
+    q, amax = ka.adam_emit(p, g, m, v, k, sh, s_in)
+    q_ref, amax_ref = ka.adam_emit_reference(*ref[:4], k, ref[4], s_in)
+    for got, exp in ((p, ref[0]), (m, ref[2]), (v, ref[3]), (sh, ref[4]),
+                     (q, q_ref), (amax, amax_ref)):
+        assert torch.equal(got, exp)
+    assert ka.LAUNCHES == {"adam": 1, "adam_emit": 1, "quant_scale": 1,
+                           "quantize": 1}
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 12288, 5000), (37, 5000, 5000),
+                                   (5000, 100, 12288), (5000, 37, 5000),
+                                   (3, 50, 36)])
+def test_int_mm_on_the_card_is_exact(m, k, n, cuda_device):
+    """The padded int8 GEMM at the galaxy encoder's forward and dW shapes
+    in every operand layout the encoder uses (row-major input, a
+    transposed weight copy, a transposed cotangent) against float64
+    products."""
+    from spatialvae_torch.nn.qlinear import int_mm
+
+    g = torch.Generator(cuda_device).manual_seed(3)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    want = a.double() @ b.double()
+    for aa, bb in ((a, b), (a, b.t().contiguous().t()),
+                   (a.t().contiguous().t(), b)):
+        got = int_mm(aa, bb)
+        assert got.dtype == torch.int32 and torch.equal(got.double(), want)
+
+
+def test_int8_stack_step_on_the_card(cuda_device, monkeypatch):
+    """Steps of the TPU's int8 stack in a galaxy-shaped trainer (encoder
+    narrowed to 256): the bf16 shadow, the int8 encoder reading the int8
+    data copy, Adam through K6 with the fresh-scale emission, then under
+    SPATIALVAE_ADAM_EMIT=pallas through K7."""
+    from spatialvae_torch.config import InferenceConfig
+    from spatialvae_torch.kernels import adam as ka
+    from spatialvae_torch.objectives import ElboConfig
+    from spatialvae_torch.train import trainer as port_trainer
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+
+    monkeypatch.setattr(port_trainer, "_QENC_MIN_ELEMS", 1 << 16)
+    q_cfg = InferenceConfig(n=64 * 64 * 3, latent_dim=23, hidden_dim=256,
+                            num_layers=2)
+    p_cfg = SpatialGeneratorConfig(latent_dim=20, hidden_dim=500, n_out=3,
+                                   num_layers=2)
+    tr = Trainer(q_cfg, p_cfg, ElboConfig(fused=True, int8=True, channels=3),
+                 TrainConfig(minibatch_size=8, compute_dtype="bfloat16"),
+                 coord_grid(64, 64, device=cuda_device), device=cuda_device)
+    y = torch.randint(0, 256, (8, 4096, 3), device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(5)
+                      ).float() / 255
+    y_t = tr._dataset_yt(y)
+    xq, sx = tr._dataset_yq8(y)
+    leaves = len(tr.named_params())
+    ka.reset_launches()
+    assert torch.isfinite(tr.train_step(y, y_t=y_t, y_q8=(xq, sx))).all()
+    assert torch.isfinite(tr.train_step(y[:5])).all()
+    # three 2-D leaves reach 64 Ki elements: the two encoder hidden weights
+    # and the decoder's hidden weight; each is quantised when the first
+    # step seeds the qshadow, then after each step
+    big = [k for k, e in tr.qshadow.items() if e["q"].numel()]
+    assert len(big) == 3
+    assert ka.LAUNCHES == {"adam": 2 * leaves, "adam_emit": 0,
+                           "quant_scale": 3 * 3, "quantize": 3 * 3}
+    monkeypatch.setenv("SPATIALVAE_ADAM_EMIT", "pallas")
+    monkeypatch.setenv("SPATIALVAE_ALLOW_KNOBS", "1")
+    ka.reset_launches()
+    prev = {k: tr.qshadow[k]["ns"] for k in big}
+    assert torch.isfinite(tr.train_step(y, y_t=y_t, y_q8=(xq, sx))).all()
+    # K7 takes the encoder weights; the decoder's (500, 500) has 500 rows
+    # in JAX's orientation, no block of 8, and keeps the fresh scale
+    carried = [k for k in big if k.startswith("q.")]
+    assert ka.LAUNCHES["adam_emit"] == len(carried) == 2
+    assert ka.LAUNCHES["adam"] == leaves - 2
+    assert all(tr.qshadow[k]["s"] is prev[k] for k in carried)
+    assert tr.qshadow["p.layers.1.weight"]["s"] is not \
+        prev["p.layers.1.weight"]
+    for k, p in tr.named_params().items():
+        assert torch.equal(tr.shadow[k], p.detach().to(torch.bfloat16))

@@ -29,7 +29,7 @@ from spatialvae_torch.models.spatial import (
 from spatialvae_torch.objectives.elbo import ElboConfig, decode_spatial
 from spatialvae_torch.precision import fp32_precision_pinned
 from spatialvae_torch.transforms.coords import coord_grid
-from tests.port_configs import to_port
+from tests.port_configs import one_torch_thread, to_port  # noqa: F401
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}

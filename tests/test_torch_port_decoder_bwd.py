@@ -30,7 +30,7 @@ from spatialvae_tpu.models import spatial_generator_init
 from spatialvae_torch.io.jax_params import generator_from_jax
 from spatialvae_torch.kernels import fused_decoder as fd
 from spatialvae_torch.transforms.coords import coord_grid
-from tests.port_configs import to_port
+from tests.port_configs import one_torch_thread, to_port  # noqa: F401
 
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 

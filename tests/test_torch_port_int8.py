@@ -51,7 +51,7 @@ from spatialvae_torch.kernels import fused_loss_int8 as l8
 from spatialvae_torch.objectives import ElboConfig, fused_loss_active
 from spatialvae_torch.train import trainer as port_trainer
 from spatialvae_torch.transforms.coords import coord_grid
-from tests.port_configs import to_port
+from tests.port_configs import one_torch_thread, to_port  # noqa: F401
 
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 

@@ -41,7 +41,7 @@ from spatialvae_torch.kernels import fused_loss_int8 as l8
 from spatialvae_torch.objectives import ElboConfig, loss_terms
 from spatialvae_torch.train.trainer import TrainConfig, Trainer
 from spatialvae_torch.transforms.coords import coord_grid
-from tests.port_configs import to_port
+from tests.port_configs import one_torch_thread, to_port  # noqa: F401
 
 N = M = 32
 C, Z, B, IMAGES = 3, 3, 4, 11

@@ -45,7 +45,7 @@ from spatialvae_torch.models import (
 )
 from spatialvae_torch.nn.layers import resolve_activation
 from spatialvae_torch.transforms import coords as port_coords
-from tests.port_configs import to_port
+from tests.port_configs import one_torch_thread, to_port  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-5, atol=1e-5)

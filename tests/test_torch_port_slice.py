@@ -31,7 +31,7 @@ from spatialvae_torch.kernels.fused_decoder import LAUNCHES
 from spatialvae_torch.objectives import ElboConfig, elbo_minibatch
 from spatialvae_torch.precision import fp32_precision_pinned
 from spatialvae_torch.transforms.coords import coord_grid
-from tests.port_configs import to_port
+from tests.port_configs import one_torch_thread, to_port  # noqa: F401
 
 RTOL = 1e-5
 

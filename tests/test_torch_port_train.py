@@ -38,7 +38,7 @@ from spatialvae_torch.objectives import ElboConfig, loss_and_grad
 from spatialvae_torch.train.optimizer import fused_adam
 from spatialvae_torch.train.trainer import TrainConfig, Trainer
 from spatialvae_torch.transforms.coords import coord_grid
-from tests.port_configs import to_port
+from tests.port_configs import one_torch_thread, to_port  # noqa: F401
 
 N, M, C, Z, B = 16, 16, 3, 3, 4
 
