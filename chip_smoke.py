@@ -7,10 +7,11 @@
 Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the float
 decoder forward with and without its activation output and its backward
-with the residual and with recompute; the fused int8 loss and gradient;
-the int8 decoder forward and backward; Adam, K6 on every galaxy leaf in
-the three training configurations and K7 with the emission helpers on the
-two big encoder weights, bit for bit), then drives the galaxy model (64x64
+with the residual and with recompute; the fused int8 loss and gradient in
+each of its families, Bernoulli, Gaussian, colored and over padded pixel
+counts; the int8 decoder forward and backward; Adam, K6 on every galaxy
+leaf in the three training configurations and K7 with the emission helpers
+on the two big encoder weights, bit for bit), then drives the galaxy model (64x64
 RGB, z=20, encoder 12288->5000->5000->46, spatial decoder 500 wide, 2
 layers, 3 outputs, Bernoulli; random weights from a seed) through its
 paths:
@@ -34,7 +35,20 @@ paths:
   step ends in K6 on each leaf, the evaluations take the int8 forward; a
   step of each kind against the plain versions, profiled steps, an epoch of
   16 steps at B=4096 with bf16 Adam moments, and an epoch under
-  ``SPATIALVAE_ADAM_EMIT=pallas``, where the big weights take K7.
+  ``SPATIALVAE_ADAM_EMIT=pallas``, where the big weights take K7;
+- int8 training with bf16 compute of the three other models ``bench.py``
+  builds, each at full width on 1,037 synthetic images: **particles**
+  (64x64 grayscale, z=20, encoder 4096->5000->5000->46, Gaussian
+  likelihood, unit-disc pixel mask, whitened images), **colored** (the same
+  with the fit-noise head, ``n_out=2``) and **mnist** (28x28 on the /255
+  grid, z=2, encoder 784->500->500->10, Bernoulli, theta prior pi/4 with
+  the mean penalty, 784 pixels padded to 1,024).  The 20 full batches take
+  the fused int8 loss kernel in the model's family (Gaussian, colored,
+  padded Bernoulli), the tails K4 and K5 at ``n_out`` 1 and 2 with the
+  likelihood in PyTorch; a K3 step and a tail step against the plain
+  versions, a profiled K3 step, for particles and colored one float step
+  through K1/K2 against the plain decoder, and for colored a checkpoint
+  round trip and a ``SpatialVae`` reconstruct of the predicted mean.
 
 Each phase prints its lines; the last three lines are the per-kernel JSON
 record (launches on the main path, times, plain-version time, bound,
@@ -384,10 +398,14 @@ def galaxy_configs():
     return q_cfg, p_cfg, ecfg
 
 
-def blob_images(torch, n: int, gen):
-    """(n, HW, C) structured images on the /255 grid: one Gaussian blob per
-    image with a random centre, orientation, size and colour."""
-    rows, cols = IMAGE
+def blob_images(torch, n: int, gen, image=None, channels=None,
+                on_grid: bool = True):
+    """(n, HW, C) structured images: one Gaussian blob per image with a
+    random centre, orientation, size and colour, on the /255 grid, or
+    (``on_grid=False``) with noise on top and whitened over the dataset, so
+    signed and off the grid, as cryo-EM particles are."""
+    rows, cols = image or IMAGE
+    channels = channels or CHANNELS
     yy, xx = torch.meshgrid(torch.linspace(1, -1, rows, device=DEVICE),
                             torch.linspace(-1, 1, cols, device=DEVICE),
                             indexing="ij")
@@ -402,19 +420,25 @@ def blob_images(torch, n: int, gen):
     r0 = torch.cos(th) * dx + torch.sin(th) * dy
     r1 = -torch.sin(th) * dx + torch.cos(th) * dy
     blob = torch.exp(-(r0 ** 2 / (2 * sa ** 2) + r1 ** 2 / (2 * sb ** 2)))
-    img = blob[..., None] * (0.3 + 0.7 * u(n, 1, 1, CHANNELS))
-    return (torch.round(img.clamp(0, 1) * 255) / 255).reshape(
-        n, rows * cols, CHANNELS)
+    img = blob[..., None] * (0.3 + 0.7 * u(n, 1, 1, channels))
+    if on_grid:
+        img = torch.round(img.clamp(0, 1) * 255) / 255
+    else:
+        img = img + 0.1 * torch.randn(img.shape, generator=gen,
+                                      device=DEVICE)
+        img = (img - img.mean()) / img.std()
+    return img.reshape(n, rows * cols, channels)
 
 
-def step_grads(torch, trainer, y, noise, fused: bool) -> dict:
-    """d loss / d param of one step at the trainer's weights, through the
-    kernels (fused) or the plain folded decoder under autograd."""
+def step_grads(torch, trainer, y, noise, fused: bool, ecfg=None) -> dict:
+    """d loss / d param of one float32 step at the trainer's weights,
+    through the kernels (fused) or the plain folded decoder under autograd;
+    ``ecfg`` stands in for the trainer's."""
     from spatialvae_torch.objectives import loss_and_grad
 
     loss_and_grad(trainer.q_net, trainer.p_net,
-                  dataclasses.replace(trainer.ecfg, fused=fused),
-                  trainer.coords, y, noise=noise)
+                  dataclasses.replace(ecfg or trainer.ecfg, fused=fused),
+                  trainer.coords, y, noise=noise, mask=trainer.mask)
     return {k: p.grad.clone() for k, p in trainer.named_params().items()}
 
 
@@ -722,8 +746,12 @@ INT8_A1_TOL = (1e-2, 1e-6)
 # one int8 training step through the kernels against the plain versions,
 # after the two training epochs, every gradient leaf relative to its largest
 # value (bf16 compute: a leaf is a bf16 tensor, so one element one bf16 ulp
-# away reads 3.9e-3); `--limits` reads it at the same state
-INT8_STEP_TOL = (5e-2, 1e-4)
+# away reads 3.9e-3); `--limits` reads it at the same state for the galaxy,
+# particles, colored and mnist trainers: sound at most 7.0e-3 / 1.6e-4 (the
+# particles K3 step: a last-bit difference in the encoder's cotangent flips
+# an int8 value of its quantised copy and moves a row of dW), the copies
+# with a step removed at least 1.1e-1 / 2.9e-2
+INT8_STEP_TOL = (5e-2, 1e-3)
 INT8_GRADS = ("dfold", "dw1", "db1", "dwht", "dbht")
 BENCH_BATCH = 4096      # bench.py's batch
 BENCH_STEPS = 16        # bench.py's steps per epoch
@@ -768,25 +796,17 @@ def _timed(torch, kern, plain) -> tuple:
     return statistics.median(ks), statistics.median(ps)
 
 
-def loss_case(torch, b, dtype, seed, timed, i8=True, masked=False) -> dict:
-    """K3 against its plain version on one galaxy batch: each output's
-    errors, whether two runs agree bit for bit, and with ``timed`` the
-    kernel's and the plain version's ms."""
+def _loss_readings(torch, args, mask, family, timed) -> dict:
+    """K3 on ``args`` (fold, coords, w1, b1, wht, bht, y_t) against its
+    plain version: each output's errors, whether two runs agree bit for
+    bit, and with ``timed`` the kernel's and the plain version's ms."""
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
-    gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    fold, coords, ws = _int8_inputs(torch, b, dtype, gen)
-    hw = IMAGE[0] * IMAGE[1]
-    k = torch.randint(0, 256, (b, CHANNELS, hw), generator=gen,
-                      device=DEVICE)
-    yt = (k - 128).to(torch.int8) if i8 else k.float() / 255.0
-    mask = ((torch.rand(hw, generator=gen, device=DEVICE) > 0.2).float()
-            if masked else None)
     with torch.no_grad():
-        got = l8.run_loss_int8(fold, coords, *ws, yt, mask)
-        again = l8.run_loss_int8(fold, coords, *ws, yt, mask)
+        got = l8.run_loss_int8(*args, mask, family)
+        again = l8.run_loss_int8(*args, mask, family)
         torch.cuda.synchronize()
-        want = l8.loss_int8_reference(fold, coords, *ws, yt, mask)
+        want = l8.loss_int8_reference(*args, mask, family)
         out = {"same": all(torch.equal(u, v) for u, v in zip(got, again)),
                "loss": rel_errors(got[0][:, 3, 0], want[0][:, 3, 0])}
         for name, u, v in zip(INT8_GRADS, got, want):
@@ -795,9 +815,24 @@ def loss_case(torch, b, dtype, seed, timed, i8=True, masked=False) -> dict:
             out[name] = rel_errors(u, v)
         if timed:
             out["ms"], out["plain_ms"] = _timed(
-                torch, lambda: l8.run_loss_int8(fold, coords, *ws, yt, mask),
-                lambda: l8.loss_int8_reference(fold, coords, *ws, yt, mask))
+                torch, lambda: l8.run_loss_int8(*args, mask, family),
+                lambda: l8.loss_int8_reference(*args, mask, family))
     return out
+
+
+def loss_case(torch, b, dtype, seed, timed, i8=True, masked=False) -> dict:
+    """K3's Bernoulli family against its plain version on one galaxy
+    batch."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    fold, coords, ws = _int8_inputs(torch, b, dtype, gen)
+    hw = IMAGE[0] * IMAGE[1]
+    k = torch.randint(0, 256, (b, CHANNELS, hw), generator=gen,
+                      device=DEVICE)
+    yt = (k - 128).to(torch.int8) if i8 else k.float() / 255.0
+    mask = ((torch.rand(hw, generator=gen, device=DEVICE) > 0.2).float()
+            if masked else None)
+    return _loss_readings(torch, (fold, coords, *ws, yt), mask, "bernoulli",
+                          timed)
 
 
 def int8_tail_case(torch, b, dtype, seed, timed) -> dict:
@@ -934,8 +969,9 @@ class plain_int8:
         self.saved = (l8.run_loss_int8, d8.run_int8_tail,
                       d8.run_int8_tail_backward)
         l8.run_loss_int8 = (lambda fold, coords, w1, b1, wht, bht, y_t,
-                            mask=None: l8.loss_int8_reference(
-                                fold, coords, w1, b1, wht, bht, y_t, mask))
+                            mask=None, family="bernoulli":
+                            l8.loss_int8_reference(fold, coords, w1, b1, wht,
+                                                   bht, y_t, mask, family))
         d8.run_int8_tail = (lambda fold, coords, w, emit_a1=False:
                             d8.decoder_tail_int8_reference(
                                 fold, coords, w.w1q, w.sw, w.b1, w.wht,
@@ -966,7 +1002,7 @@ def int8_step_grads(torch, trainer, y, y_t, y_q8, noise, plain: bool
     def run():
         loss_and_grad(trainer.q_net, trainer.p_net, trainer.ecfg,
                       trainer.coords, y, params=target, noise=noise,
-                      y_t=y_t, q_quant=qq, y_q8=y_q8,
+                      mask=trainer.mask, y_t=y_t, q_quant=qq, y_q8=y_q8,
                       compute_dtype=trainer.compute_dtype)
     if plain:
         with plain_int8():
@@ -1059,7 +1095,8 @@ def int8_step_readings(torch, trainer, data, gen) -> dict:
         y = data[idx]
         y_t, y_q8 = ((data_t[idx], (xq[idx], sx)) if kind == "k3"
                      else (None, None))
-        noise = torch.randn((n, Z_DIM + 3), generator=gen, device=DEVICE)
+        noise = torch.randn((n, trainer.q_cfg.latent_dim), generator=gen,
+                            device=DEVICE)
         kern = int8_step_grads(torch, trainer, y, y_t, y_q8, noise,
                                plain=False)
         plain = int8_step_grads(torch, trainer, y, y_t, y_q8, noise,
@@ -1252,8 +1289,8 @@ def _step_host_ms(torch, step, n: int) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def phase_profile_int8(torch, trainer, data, data_t, data_q8,
-                       tmpdir: str) -> dict:
+def phase_profile_int8(torch, trainer, data, data_t, data_q8, tmpdir: str,
+                       model: str = "galaxy", runs=None) -> dict:
     """A K3 step (B=100, encoder input from the int8 data copy) and a tail
     step (B=37) under torch.profiler: each int8 kernel's device ms by name,
     Adam's kernels (inside the trainer's "adam" label), the step's device
@@ -1261,7 +1298,9 @@ def phase_profile_int8(torch, trainer, data, data_t, data_q8,
     and against the mean of N_TIMED unprofiled steps.  The K3 step runs
     once more with the shadow and the int8 encoder off ("casts": the
     parameters cast to bf16 in every step and the encoder on bf16 GEMMs,
-    Adam still K6), to show what the two move."""
+    Adam still K6), to show what the two move.  ``runs`` picks among these
+    three (stack, step kind, batch); ``model`` names the trainer's model in
+    the lines."""
     from torch.profiler import ProfilerActivity, profile
 
     names = {"loss_fwd": "loss_fwd_kernel", "loss_grad": "loss_grad_kernel",
@@ -1271,9 +1310,9 @@ def phase_profile_int8(torch, trainer, data, data_t, data_q8,
              "quant_scale": "quant_scale_kernel",
              "quantize": "quantize_kernel"}
     out = {}
-    for stack, kind, b in (("full", "k3", BATCH),
-                           ("full", "tail", N_TRAIN % BATCH),
-                           ("casts", "k3", BATCH)):
+    for stack, kind, b in runs or (("full", "k3", BATCH),
+                                   ("full", "tail", N_TRAIN % BATCH),
+                                   ("casts", "k3", BATCH)):
         idx = torch.arange(b, device=DEVICE)
         y_t, y_q8 = ((data_t[idx], (data_q8[0][idx], data_q8[1]))
                      if kind == "k3" else (None, None))
@@ -1296,7 +1335,7 @@ def phase_profile_int8(torch, trainer, data, data_t, data_q8,
             trainer._use_shadow = trainer._use_qenc = True
             trainer.shadow = trainer.qshadow = None
         events = _trace_events(prof, tmpdir,
-                               f"train_int8_{stack}_{kind}.json")
+                               f"train_int8_{model}_{stack}_{kind}.json")
         device = [e for e in events
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
         kernels = [e for e in device if e.get("cat") == "kernel"]
@@ -1317,7 +1356,7 @@ def phase_profile_int8(torch, trainer, data, data_t, data_q8,
         if stack == "full":
             out[kind, "idle_share"] = 1 - busy / wall_us
             out[kind, "adam_launches"] = len(adam)
-        log("profile_int8_step", step=kind, B=b, stack=stack,
+        log("profile_int8_step", model=model, step=kind, B=b, stack=stack,
             wall_ms=f"{wall_us / 1e3:.3f}", device_busy_ms=f"{busy / 1e3:.3f}",
             idle_share=f"{1 - busy / wall_us:.4f}",
             unprofiled_step_ms=f"{host_ms:.3f}",
@@ -1395,19 +1434,46 @@ def _wmax(a, b) -> tuple:
 
 def phase_limits(torch) -> None:
     """``--limits``: the int8 kernels' readings against their plain versions
-    for the sound library and for the copies built with one step removed,
-    over three seeds, and one training step of each kind at the state
-    ``[train_int8]`` checks (two epochs trained with the sound kernels, the
-    same seed, images and noise), to place INT8_TOL, INT8_Y_TOL, INT8_A1_TOL
-    and INT8_STEP_TOL."""
+    for the sound library and for copies built with one step removed, over
+    three seeds, and one training step of each kind at the state the smoke
+    run checks (two epochs trained with the sound kernels, the same seed,
+    images and noise), for the galaxy trainer and the three FAMILY_MODELS,
+    to place INT8_TOL, INT8_Y_TOL, INT8_A1_TOL and INT8_STEP_TOL.  The
+    copies: quantisation rounding toward zero; a gradient scale per 64-pixel
+    block; the colored family pairing each 64-row mean tile with the tile
+    after it instead of the one half a group further; and, with the sound
+    kernels, a padded call whose pad the mask does not cover."""
     from spatialvae_torch.kernels import _build
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
-    trainer, data, gen = int8_galaxy_trainer(torch)
-    trainer.train_epochs(data, 0, TRAIN_EPOCHS)
-    noise_state = gen.get_state()
-    for defines in ((), ("-DSVT_INT8_RTZ=1",), ("-DSVT_INT8_BLOCK_SCALE=1",)):
+    trained = {"galaxy": int8_galaxy_trainer(torch)}
+    trained.update({n: family_trainer(torch, n) for n in FAMILY_MODELS})
+    for trainer, data, _ in trained.values():
+        trainer.train_epochs(data, 0, TRAIN_EPOCHS)
+    noise_state = {n: t[2].get_state() for n, t in trained.items()}
+    label = {"gaussian": "K3_gaussian", "colored": "K3_colored",
+             "bernoulli": "K3_padded"}
+
+    def family_worst(worst, **kw):
+        for seed in range(3):
+            for case in FAMILY_CASES:
+                if kw and l8.padded_hw(case[2] ** 2) == case[2] ** 2:
+                    continue                       # no pad to leave open
+                for dtype in ("bfloat16", "float32"):
+                    r = family_case(torch, case, dtype, seed, False, **kw)
+                    k = (label[case[1]], dtype)
+                    for n in ("loss",) + INT8_GRADS:
+                        worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+            torch.cuda.empty_cache()
+
+    def show(build, worst):
+        log("limits", build=build,
+            **{"/".join(k).strip("/"): f"{a:.3e}/{m:.3e}"
+               for k, (a, m) in sorted(worst.items())})
+
+    for defines in ((), ("-DSVT_INT8_RTZ=1",), ("-DSVT_INT8_BLOCK_SCALE=1",),
+                    ("-DSVT_COLORED_PAIR_ADJACENT=1",)):
         lib = _build.load_library(defines)
         d8._lib = l8._lib = (lambda lib=lib: lib)
         worst = {}
@@ -1427,13 +1493,329 @@ def phase_limits(torch) -> None:
                         worst["K5", v] = _wmax(worst.get(("K5", v), (0, 0)),
                                                r[v, n][2:])
             torch.cuda.empty_cache()
-        gen.set_state(noise_state)
-        for kind, (rel, mean_rel, _) in int8_step_readings(
-                torch, trainer, data, gen).items():
-            worst["step_" + kind, ""] = (rel, mean_rel)
-        log("limits", build=" ".join(defines) or "sound",
-            **{"/".join(k).strip("/"): f"{a:.3e}/{m:.3e}"
-               for k, (a, m) in sorted(worst.items())})
+        family_worst(worst)
+        for name, (trainer, data, gen) in trained.items():
+            gen.set_state(noise_state[name])
+            tag = "" if name == "galaxy" else name + "_"
+            for kind, (rel, mean_rel, _) in int8_step_readings(
+                    torch, trainer, data, gen).items():
+                worst[f"step_{tag}{kind}", ""] = (rel, mean_rel)
+        show(" ".join(defines) or "sound", worst)
+        if not defines:
+            worst = {}
+            family_worst(worst, forced_mask=False)
+            show("sound, pad left unmasked", worst)
+
+
+# ---------------------------------------------------------------------------
+# the families slice: K3's Gaussian, colored and padded families, and the
+# three models of bench.py that train through them
+# ---------------------------------------------------------------------------
+
+# bench.py's configurations besides galaxy (bench.py:44-84)
+FAMILY_MODELS = {
+    "particles": dict(image=(64, 64), z=20, q_hidden=5000, n_out=1,
+                      likelihood="gaussian", theta_prior=math.pi,
+                      penalty=False, mask=True, on_grid=False),
+    "colored": dict(image=(64, 64), z=20, q_hidden=5000, n_out=2,
+                    likelihood="colored", theta_prior=math.pi,
+                    penalty=False, mask=True, on_grid=False),
+    "mnist": dict(image=(28, 28), z=2, q_hidden=500, n_out=1,
+                  likelihood="bernoulli", theta_prior=math.pi / 4,
+                  penalty=True, mask=False, on_grid=True),
+}
+# K3 against its plain version, at B=100 with f32 and bf16 weights: name,
+# family, image side, unit-disc mask, int8 targets.  65x65 is the odd size a
+# CTF forces on cryo-EM data (4,225 -> 4,352 pixels, 17 groups of 256); no
+# model of the smoke run trains at it.
+FAMILY_CASES = [
+    ("gaussian_mask", "gaussian", 64, True, False),
+    ("gaussian_mask_pad65", "gaussian", 65, True, False),
+    ("bernoulli_pad28", "bernoulli", 28, False, True),
+    ("colored_mask", "colored", 64, True, False),
+    ("colored", "colored", 64, False, False),
+]
+# the case whose readings stand for a model's K3 call in the kernels record
+FAMILY_ROWS = {"particles": ("int8_loss_gaussian", "gaussian_mask"),
+               "colored": ("int8_loss_colored", "colored_mask"),
+               "mnist": ("int8_loss_padded", "bernoulli_pad28")}
+
+
+def disc_mask(torch, image):
+    """The particles' pixel mask: 1 inside the unit disc of the grid."""
+    from spatialvae_torch.transforms.coords import coord_grid
+
+    grid = coord_grid(*image, device=DEVICE)
+    return (grid.pow(2).sum(dim=1) <= 1.0).float()
+
+
+def family_case(torch, case, dtype, seed, timed, forced_mask=True) -> dict:
+    """One of FAMILY_CASES against the plain version, the operands laid out
+    as ``fused_bce_spatial_int8`` and the trainer's target copy lay them
+    out: colored over chunk-permuted coords with pre-paired targets, a pixel
+    count off the tiling zero-padded under a mask that is 0 on the pad.
+    Float targets arrive in bf16, the compute dtype of the training paths.
+    ``forced_mask=False`` leaves the pad unmasked in the kernel's call
+    alone: the faulty copy that places the padded family's limits.  With
+    ``timed`` also the call's bound, from the real (unpadded) pixels."""
+    import torch.nn.functional as F
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.train.trainer import build_yt_i8, yt_layout
+
+    name, family, side, masked, i8 = case
+    colored = family == "colored"
+    hw, no = side * side, 2 if colored else 1
+    wdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    fold, coords, whid, bhid, wht, bht = _tail_inputs(
+        torch, BATCH, hw, P_HIDDEN, 1, no, wdt, gen)
+    ws = (whid[0].contiguous(), bhid[0].contiguous(), wht, bht)
+    if i8:
+        y = torch.randint(0, 256, (BATCH, hw), generator=gen,
+                          device=DEVICE).float() / 255.0
+        yt = build_yt_i8(y, hw, colored)
+    else:
+        y = 0.5 + 0.4 * torch.randn((BATCH, hw), generator=gen,
+                                    device=DEVICE)
+        yt = yt_layout(y.to(torch.bfloat16), hw, colored)
+    mask = disc_mask(torch, (side, side)) if masked else None
+    pad = 0 if colored else l8.padded_hw(hw) - hw
+    if colored:
+        coords = l8.colored_coords(coords, l8.pick_tile(hw))
+    elif pad:
+        coords = F.pad(coords, (0, 0, 0, pad))
+        yt = F.pad(yt, (0, pad), value=-128 if i8 else 0)
+        base = torch.ones(hw, device=DEVICE) if mask is None else mask
+        mask = F.pad(base, (0, pad))
+    kernel_mask = mask if forced_mask or not pad else F.pad(
+        base, (0, pad), value=1.0)
+    args = (fold, coords.contiguous(), *ws, yt)
+    if kernel_mask is mask:
+        out = _loss_readings(torch, args, mask, family, timed)
+    else:
+        with torch.no_grad():
+            got = l8.run_loss_int8(*args, kernel_mask, family)
+            want = l8.loss_int8_reference(*args, mask, family)
+        out = {"loss": rel_errors(got[0][:, 3, 0], want[0][:, 3, 0])}
+        out.update({n: rel_errors(u, v)
+                    for n, u, v in zip(INT8_GRADS, got, want)})
+    if timed:
+        h = P_HIDDEN
+        w_bytes = (h * h + h + no * h + no) * wdt.itemsize
+        io = (BATCH * 4 * h * 4 + hw * 2 * 4 + w_bytes
+              + BATCH * hw * yt.element_size()
+              + (hw * 4 if masked else 0)
+              + BATCH * 4 * h * 4 + (h * h + h + no * h + no) * 4)
+        out["bound"] = bound(io, (3 * 2.0 * BATCH * hw * h * h, PEAK_INT8),
+                             (3 * 2.0 * BATCH * hw * h * no, PEAK_FP32))
+        out["pixels"] = (hw, hw + pad)
+    return out
+
+
+def phase_loss_families(torch) -> dict:
+    """K3's Gaussian, colored and padded families against the plain version
+    at the shapes the three models give them.  The bound counts the call's
+    own inputs and outputs once and its three int8 GEMMs (forward, da0,
+    dW1) plus the head's three products, over the real pixels."""
+    res = {}
+    for case in FAMILY_CASES:
+        name, family, side, masked, i8 = case
+        for dtype in ("bfloat16", "float32"):
+            r = family_case(torch, case, dtype, SEED, timed=True)
+            if not r["same"]:
+                raise AssertionError(f"K3 {name} {dtype}: two runs differ")
+            fields = {n: _check_rel(f"K3 {name} {dtype} {n}", r[n], INT8_TOL)
+                      for n in ("loss",) + INT8_GRADS}
+            log("kernel_loss_families", case=name, family=family, B=BATCH,
+                HW=r["pixels"][0], padded_HW=r["pixels"][1], H=P_HIDDEN,
+                No=2 if family == "colored" else 1, dtype=dtype,
+                targets="int8" if i8 else "bfloat16", mask=masked,
+                errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
+                max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+                kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+                bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+            res[name, dtype] = r
+            torch.cuda.empty_cache()
+    return res
+
+
+def family_trainer(torch, name: str):
+    """The int8 trainer of one of FAMILY_MODELS (bf16 compute, seed SEED),
+    its 1,037 images and the generator that made them."""
+    from spatialvae_torch.config import (
+        InferenceConfig,
+        SpatialGeneratorConfig,
+    )
+    from spatialvae_torch.objectives import ElboConfig
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+    from spatialvae_torch.transforms.coords import coord_grid
+
+    m = FAMILY_MODELS[name]
+    image = m["image"]
+    q_cfg = InferenceConfig(n=image[0] * image[1], latent_dim=m["z"] + 3,
+                            hidden_dim=m["q_hidden"], num_layers=2)
+    p_cfg = SpatialGeneratorConfig(latent_dim=m["z"], hidden_dim=P_HIDDEN,
+                                   n_out=m["n_out"], num_layers=2)
+    ecfg = ElboConfig(rotate=True, translate=True,
+                      theta_prior=m["theta_prior"],
+                      theta_mean_penalty=m["penalty"],
+                      likelihood=m["likelihood"], channels=1, fused=True,
+                      int8=True)
+    tcfg = TrainConfig(minibatch_size=BATCH, learning_rate=1e-4,
+                       num_epochs=TRAIN_EPOCHS, seed=SEED,
+                       compute_dtype="bfloat16", image_shape=image,
+                       channels=1)
+    trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg,
+                      coord_grid(*image, device=DEVICE),
+                      mask=disc_mask(torch, image) if m["mask"] else None,
+                      device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(
+        SEED + 10 + sorted(FAMILY_MODELS).index(name))
+    data = blob_images(torch, N_TRAIN, gen, image, 1, m["on_grid"])
+    return trainer, data, gen
+
+
+def float_family_step(torch, trainer, data, gen) -> tuple:
+    """One float32 step of the model (its likelihood over the float decoder
+    kernels K1 with activations and K2) against the same step over the
+    plain decoder, at the trainer's weights: the worst gradient leaf's
+    (max rel, mean rel, name)."""
+    from spatialvae_torch.kernels import fused_decoder as fd
+
+    ecfg = dataclasses.replace(trainer.ecfg, int8=False)
+    y = data[:BATCH]
+    noise = torch.randn((BATCH, trainer.q_cfg.latent_dim), generator=gen,
+                        device=DEVICE)
+    fd.reset_launches()
+    kern = step_grads(torch, trainer, y, noise, True, ecfg)
+    if fd.LAUNCHES["fwd_acts"] != 1 or fd.LAUNCHES["bwd_chain"] != 1:
+        raise AssertionError(f"the float step launched {dict(fd.LAUNCHES)}")
+    plain = step_grads(torch, trainer, y, noise, False, ecfg)
+    worst = (0.0, 0.0, "")
+    for k in kern:
+        _, _, rel, mean_rel = rel_errors(kern[k], plain[k])
+        if not (rel <= STEP_TOL[0] and mean_rel <= STEP_TOL[1]):
+            raise AssertionError(f"float step gradient {k}: kernel vs plain "
+                                 f"{rel}, mean {mean_rel}; limits "
+                                 f"{STEP_TOL}")
+        worst = max(worst, (rel, mean_rel, k))
+    return worst
+
+
+def colored_serving(torch, trainer, data, gen, tmpdir: str) -> float:
+    """The colored model's checkpoints written, loaded and served: one
+    ``SpatialVae.reconstruct`` must return the predicted mean (B, HW, 1)
+    and agree with the plain decoder on the same weights and noise."""
+    from spatialvae_torch import checkpoint
+    from spatialvae_torch.api import SpatialVae
+    from spatialvae_torch.objectives import elbo_minibatch
+
+    image = trainer.tcfg.image_shape
+    gpath = os.path.join(tmpdir, "colored_generator_epoch2.sav")
+    ipath = os.path.join(tmpdir, "colored_inference_epoch2.sav")
+    checkpoint.save_model(gpath, "generator", trainer.p_net,
+                          elbo=trainer.ecfg, image_shape=image)
+    checkpoint.save_model(ipath, "inference", trainer.q_net,
+                          elbo=trainer.ecfg, image_shape=image)
+    model = SpatialVae.load(gpath, ipath, device=DEVICE)
+    if model.ecfg != trainer.ecfg or model.p_cfg.n_out != 2 or not all(
+            torch.equal(a, b) for a, b in zip(model.p_net.parameters(),
+                                              trainer.p_net.parameters())):
+        raise AssertionError("the colored checkpoint did not round-trip")
+    y = data[:BATCH]
+    noise = torch.randn((BATCH, trainer.q_cfg.latent_dim), generator=gen,
+                        device=DEVICE)
+    got = model.reconstruct(y, noise=noise)
+    _check_images("colored reconstruct", got,
+                  (BATCH, image[0] * image[1], 1), torch)
+    _, _, _, want = elbo_minibatch(
+        model.q_net, model.p_net,
+        dataclasses.replace(model.serving_ecfg, fused=False), model.coords,
+        y, noise=noise)
+    return check_close("colored reconstruct", got, want, torch.float32)[0]
+
+
+def phase_train_family(torch, name: str, tmpdir: str) -> dict:
+    """One of FAMILY_MODELS through the trainer in int8 mode with bf16
+    compute: an evaluation (K4), two epochs of 1,037 images (20 K3 steps in
+    the model's family, 2 tails of 37 through K4 and K5, Adam's kernels on
+    every step), an evaluation that must score higher, the launch counts,
+    a K3 step and a tail step against the plain versions, a profiled K3
+    step; then the float step and the serving checks that the model has.
+    Returns the launch counts."""
+    from spatialvae_torch.kernels.fused_loss_int8 import padded_hw
+
+    trainer, data, gen = family_trainer(torch, name)
+    evals = math.ceil(N_TRAIN / BATCH)
+    before = _int8_evaluate(torch, trainer, data, 0)
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    rows = trainer.train_epochs(data, 0, TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _int8_launches()
+    full, tails = TRAIN_EPOCHS * (N_TRAIN // BATCH), TRAIN_EPOCHS
+    want = {"k3": {"fwd": full, "grad": full, "dw": full, "sum": 5 * full},
+            "k45": {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
+                    "bwd_grad": tails, "dw": tails, "sum": 4 * tails},
+            "k12": 0,
+            "adam": int8_adam_launches(trainer, full + tails, seeded=True)}
+    if counts != want:
+        raise AssertionError(f"{name}: launches over {full} + {tails} "
+                             f"steps {counts}, expected {want}")
+    data_t = trainer._dataset_yt(data)
+    hw = trainer.coords.shape[0]
+    colored = name == "colored"
+    yt_shape = (N_TRAIN, 2, hw // 2) if colored \
+        else (N_TRAIN, 1, padded_hw(hw))
+    yt_dtype = torch.int8 if FAMILY_MODELS[name]["on_grid"] \
+        else torch.bfloat16
+    if tuple(data_t.shape) != yt_shape or data_t.dtype != yt_dtype:
+        raise AssertionError(f"{name}: target copy {tuple(data_t.shape)} "
+                             f"{data_t.dtype}")
+    after = _int8_evaluate(torch, trainer, data, TRAIN_EPOCHS)
+    if not (np.isfinite(rows).all() and np.isfinite(before + after).all()):
+        raise AssertionError(f"{name}: non-finite metrics {before} {rows} "
+                             f"{after}")
+    if not after[0] > before[0]:
+        raise AssertionError(f"{name}: ELBO did not rise: {before[0]} -> "
+                             f"{after[0]}")
+    worst = int8_step_readings(torch, trainer, data, gen)
+    for kind, (rel, mean_rel, leaf) in worst.items():
+        if not (rel <= INT8_STEP_TOL[0] and mean_rel <= INT8_STEP_TOL[1]):
+            raise AssertionError(f"{name} {kind} step gradients: kernel vs "
+                                 f"plain {rel} ({leaf}), mean {mean_rel}; "
+                                 f"limits {INT8_STEP_TOL}")
+    extra = {}
+    if name != "mnist":
+        w = float_family_step(torch, trainer, data, gen)
+        extra.update(float_step_vs_plain_max_rel=f"{w[0]:.3e}",
+                     float_step_worst_leaf=w[2])
+    if colored:
+        err = colored_serving(torch, trainer, data, gen, tmpdir)
+        extra.update(checkpoint_roundtrip="bitwise",
+                     reconstruct_vs_plain=f"{err:.3e}")
+    log(f"train_{name}_int8", epochs=TRAIN_EPOCHS, steps=full + tails,
+        images=N_TRAIN, compute="bfloat16", family=trainer.ecfg.likelihood,
+        pixels=hw, targets=f"{tuple(data_t.shape)}:{data_t.dtype}",
+        int8_encoder_copies=_big_leaves(trainer), seconds=f"{seconds:.4f}",
+        steps_per_s=f"{(full + tails) / seconds:.3f}",
+        images_per_s=f"{TRAIN_EPOCHS * N_TRAIN / seconds:.1f}",
+        elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
+        epoch_elbo="/".join(f"{r[0]:.3f}" for r in rows),
+        launches=json.dumps(counts, separators=(",", ":")),
+        eval_k4_launches=evals,
+        step_k3_vs_plain_max_rel=f"{worst['k3'][0]:.3e}",
+        step_k3_vs_plain_mean_rel=f"{worst['k3'][1]:.3e}",
+        step_k3_worst_leaf=worst["k3"][2],
+        step_tail_vs_plain_max_rel=f"{worst['k4k5'][0]:.3e}",
+        step_tail_vs_plain_mean_rel=f"{worst['k4k5'][1]:.3e}", **extra)
+    phase_profile_int8(torch, trainer, data, data_t,
+                       trainer._dataset_yq8(data), tmpdir, model=name,
+                       runs=(("full", "k3", BATCH),))
+    del trainer, data, data_t
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1690,12 +2072,16 @@ def phase_adam_emit_kernels(torch) -> dict:
     return out
 
 
-def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8) -> list:
+def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
+                fam_counts) -> list:
     """The per-kernel JSON records: K1 and K2 at the float path's galaxy
     f32 shapes (B=100), K3 at the int8 training step's (bf16 weights,
     B=100), K4 without a1 at the evaluation's (B=100) and with a1, K5 at
-    the tail step's (B=37).  Bounds from the shapes (PEAK_* above; the f32
-    rows at TF32_PASSES TF32 products per f32 product)."""
+    the tail step's (B=37), and K3's whole call in the Gaussian, colored and
+    padded families at the particles, colored and mnist steps' (bf16
+    weights, B=100; launches: that model's K3 calls).  Bounds from the
+    shapes (PEAK_* above; the f32 rows at TF32_PASSES TF32 products per f32
+    product)."""
     b, hw, h, no = BATCH, IMAGE[0] * IMAGE[1], P_HIDDEN, CHANNELS
     kp = -(-h // 64) * 64
     g, k2 = res["galaxy_f32"], bwd["galaxy_f32"]
@@ -1772,6 +2158,12 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8) -> list:
          torch_sum_ms(torch, [(b, hw // 64, 3 * h), (b, hw // 64, 1),
                               (1, splits, h * h), (1, blocks, mw)])),
     ]
+    for model, (row, case) in FAMILY_ROWS.items():
+        r = res["families"][case, "bfloat16"]
+        rows.append((row, LOSS_SOURCE, K3_REPLACES,
+                     fam_counts[model]["k3"]["fwd"],
+                     max(r[n][0] for n in INT8_GRADS), r["ms"],
+                     r["plain_ms"], r["bound"], None))
     t_gemm = 2.0 * tb * hw * h * h
     t_head = (2.0 * tb * hw * h * no, PEAK_FP32)
     t_io = tb * 4 * h * f4 + hw * 2 * f4 + i8_w + tb * no * hw * f4
@@ -1853,15 +2245,19 @@ def main() -> int:
     res = phase_kernels(torch)
     bwd = phase_backward(torch)
     res["int8"] = phase_int8_kernels(torch)
+    res["families"] = phase_loss_families(torch)
     res["adam"] = phase_adam_kernels(torch)
     res["adam_emit"] = phase_adam_emit_kernels(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         launches = phase_slice(torch, tmpdir)
         counts, step_ms = phase_train(torch, tmpdir)
         i8 = phase_train_int8(torch, tmpdir)
+        fam_counts = {name: phase_train_family(torch, name, tmpdir)
+                      for name in FAMILY_MODELS}
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    rows = kernel_rows(torch, res, bwd, launches, counts, step_ms, i8)
+    rows = kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
+                       fam_counts)
     for r in rows:
         if r[3] < 1:
             raise AssertionError(f"{r[0]} was not launched on its path")

@@ -51,7 +51,7 @@ _SIGNATURES = {
     "svt_int8_decoder_bwd_scale": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "svt_int8_decoder_bwd_grad": ([_P] * 16 + [_I] * 7 + [_P], _I),
     "svt_int8_grouped_dw": ([_P] * 4 + [_I] * 6 + [_P], _I),
-    "svt_loss_int8_fwd": ([_P] * 12 + [_I] * 6 + [_P], _I),
+    "svt_loss_int8_fwd": ([_P] * 12 + [_I] * 8 + [_P], _I),
     "svt_loss_int8_grad": ([_P] * 16 + [_I] * 7 + [_P], _I),
 }
 

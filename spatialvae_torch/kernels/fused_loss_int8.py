@@ -3,11 +3,15 @@ kernels under one ``torch.autograd.Function``.
 
 Counterpart of ``spatialvae_tpu/kernels/fused_loss_int8.py`` (Pallas
 ``_kernel`` through ``_lossgrad_pallas`` and the custom VJP
-``fused_decoder_bce_int8``), family (a): the Bernoulli likelihood over a
-tile-aligned pixel count, with or without a pixel mask, at the default
-numerics of ``kernels/config.py`` (grad_mode i4dw1, gscale bound, bf16
-epilogue, round to nearest even).  One call computes, for the foldable
-2-layer decoder, the summed BCE and every decoder gradient:
+``fused_decoder_bce_int8``) in its three likelihood families, Bernoulli,
+Gaussian (``n_out`` 1) and colored (``n_out`` 2, the fit-noise mean and
+log-variance), each with or without a pixel mask, over a tile-aligned
+pixel count (Bernoulli and Gaussian also over a padded one: 784 -> 1024,
+4225 -> 4352), at the default numerics of ``kernels/config.py`` (grad_mode
+i4dw1, gscale bound, bf16 epilogue, round to nearest even).  One call
+computes, for the foldable 2-layer decoder, the summed loss and every
+decoder gradient (written for the Bernoulli family; the other two change
+the loss and dz2 lines alone):
 
     host, once per call:
       W1f, sf = quant_sym4(w1^T)^T  (per-column 4-bit), h1s = sf/7
@@ -26,13 +30,25 @@ epilogue, round to nearest even).  One call computes, for the foldable
       dh0 = bf16(da0) * (1 - a0d*a0d), a0d = bf16(aq)*bf16(1/7), in bf16
       dfold[b] += (bf16(x3)^T . dh0) * sg*s4,  x3 = [x0, x1, 1, 0]
     the group's bce is added at dfold[b, 3, 0]; the loss is their sum.
+    gaussian:  d = m*(s - y);  loss = 0.5 * sum m*(s - y)^2
+               dz2 = d * (s*(1 - s))
+    colored, over chunk-permuted coords (``colored_coords``): the group's
+    first Pt/2 rows are its pixels' mean rows, the last Pt/2 their
+    log-variance rows; targets and mask pre-paired as (2, Pt/2) tiles
+               mu = sigmoid(z2[:, :Pt/2]);  lv = sigmoid(z2[:, Pt/2:])
+               d = mu - y;  w = d * exp(-lv);  loss = 0.5 * sum m*(d*w + lv)
+               dz2 = [m * w * (mu*(1 - mu)) |
+                      m * 0.5*(1 - d*w) * (lv*(1 - lv))]
+    padded pixel counts (``padded_hw``): coords and targets zero-padded and
+    a mask forced whose pad entries are 0, so dz2 and the loss term vanish
+    on the pad and the result is the unpadded one.
 
 ``loss_int8_reference`` is the plain PyTorch version, with the integer
 products exact.  ``run_loss_int8`` takes it for CPU tensors and launches
 the kernels (``csrc/fused_loss_int8.cu``) for CUDA tensors, or raises.
-Configs the JAX package would send to its kernel but the port has not
-ported (the gaussian (b) and colored (d) families, padded pixel counts
-(c), other numerics (e), (f)) raise ``NotImplementedError``.
+Numerics off the default knobs (stochastic rounding (e), the other
+gradient modes, scales and epilogue (f)) are not ported and raise
+``NotImplementedError`` (``kernels/config.check_knobs``).
 """
 
 from __future__ import annotations
@@ -40,6 +56,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from spatialvae_torch.config import SpatialGeneratorConfig
 from spatialvae_torch.kernels.config import check_knobs
@@ -68,7 +85,9 @@ from spatialvae_torch.models.spatial import (
 )
 from spatialvae_torch.precision import fp32_precision
 
-# Kernel launches on CUDA tensors: the forward pass (BCE, dz2 and each
+FAMILIES = ("bernoulli", "gaussian", "colored")
+
+# Kernel launches on CUDA tensors: the forward pass (loss, dz2 and each
 # block's max |dz2|), the gradient pass (quantisation, da0, the per-block
 # partials, the int8 workspaces), the split-K dW1 kernel (shared with K5,
 # counted here for K3's calls) and the fixed-order reductions.
@@ -108,8 +127,8 @@ def padded_hw(hw: int) -> int:
 
 def can_fuse_loss_int8(cfg: SpatialGeneratorConfig, hw: int,
                        likelihood: str) -> bool:
-    """The JAX gate, unchanged: whether the JAX package sends this config
-    to its loss kernel.  ``check_ported`` says whether the port can."""
+    """The JAX gate, unchanged: whether this config goes to the loss
+    kernel."""
     if likelihood == "gaussian":
         if cfg.n_out != 1:
             return False
@@ -129,17 +148,35 @@ def can_fuse_loss_int8(cfg: SpatialGeneratorConfig, hw: int,
 
 def check_ported(hw: int, likelihood: str) -> None:
     """Raise ``NotImplementedError`` for a config the JAX loss kernel takes
-    and the port has not ported (ROADMAP Queue 2 K3 (b)-(d))."""
-    if likelihood == "gaussian":
-        raise NotImplementedError("the int8 loss kernel's gaussian family "
-                                  "is not ported yet (ROADMAP Queue 2 K3 (b))")
-    if likelihood == "colored":
-        raise NotImplementedError("the int8 loss kernel's colored family "
-                                  "is not ported yet (ROADMAP Queue 2 K3 (d))")
-    if padded_hw(hw) != hw:
-        raise NotImplementedError(
-            f"the int8 loss kernel over a padded pixel count ({hw} -> "
-            f"{padded_hw(hw)}) is not ported yet (ROADMAP Queue 2 K3 (c))")
+    and the port has not ported.  Every likelihood family and pixel count of
+    ``can_fuse_loss_int8`` is ported; what is left are the numerics off the
+    default knobs (ROADMAP Queue 2 K3 (e), (f))."""
+    check_knobs()
+
+
+def colored_coords(coords: torch.Tensor, pt: int) -> torch.Tensor:
+    """Chunk-permute (HW, 2) coords for the colored family, so that every
+    Pt-row group holds its pixels' mean rows (from the first half of the
+    grid) and then their log-variance rows (from the second half): image
+    pixels [s, s+Pt) need decoder rows [s/2, s/2+Pt/2) and [HW/2+s/2,
+    HW/2+s/2+Pt/2).  The JAX ``_colored_coords``."""
+    hw = coords.shape[0]
+    t, half = hw // pt, pt // 2
+    first = coords[:hw // 2].reshape(t, half, 2)
+    second = coords[hw // 2:].reshape(t, half, 2)
+    return torch.stack([first, second], dim=1).reshape(hw, 2)
+
+
+def colored_targets(y: torch.Tensor, hw: int) -> torch.Tensor:
+    """(B, HW[, 1]) targets -> the pre-paired (B, 2, HW/2) layout: out[b, c,
+    u] = y[b, 2u + c], the target of image pixel 2u+c at the place its head
+    outputs take.  The JAX ``_colored_targets``."""
+    return y.reshape(y.shape[0], hw // 2, 2).transpose(1, 2)
+
+
+def colored_mask(mask: torch.Tensor) -> torch.Tensor:
+    """The (HW,) pixel mask pre-paired like the targets: (2, HW/2) f32."""
+    return mask.float().reshape(-1, 2).T.contiguous()
 
 
 def loss_operands(w1: torch.Tensor, wht: torch.Tensor) -> tuple:
@@ -184,14 +221,59 @@ def dh0_bf16(da0: torch.Tensor, aq: torch.Tensor) -> torch.Tensor:
     return (_bf(da0) * (1.0 - a0d * a0d)).float()
 
 
+def loss_epilogue(z2: torch.Tensor, y_t: torch.Tensor,
+                  mask: Optional[torch.Tensor], family: str, pt: int
+                  ) -> tuple:
+    """The loss phase of one call: z2 (B, No, HW) head pre-activations, y_t
+    and mask as ``loss_int8_reference`` takes them -> (loss (B, T) per group
+    of ``pt`` pixels, dz2 (B, No, HW)), float32, op by op as the JAX kernel's
+    ``p3_bce``."""
+    b, no, hw = z2.shape
+    t_ = hw // pt
+    yt = targets_f32(y_t)
+    if family == "colored":
+        half = pt // 2
+        z4 = z2.reshape(b, no, t_, pt)
+        mu, lv = torch.sigmoid(z4[..., :half]), torch.sigmoid(z4[..., half:])
+        d = mu - yt.reshape(b, no, t_, half)
+        w = d * torch.exp(-lv)
+        per = d * w + lv
+        dmu = w * (mu * (1.0 - mu))
+        dlv = 0.5 * (1.0 - d * w) * (lv * (1.0 - lv))
+        if mask is not None:
+            mc = colored_mask(mask).reshape(1, no, t_, half)
+            per, dmu, dlv = per * mc, dmu * mc, dlv * mc
+        loss = 0.5 * per.sum(dim=(1, 3))
+        return loss, torch.cat([dmu, dlv], dim=3).reshape(b, no, hw)
+    s = torch.sigmoid(z2)
+    m = None if mask is None else mask.float().reshape(1, 1, hw)
+    if family == "gaussian":
+        d = s - yt
+        sq = d * d
+        if m is not None:
+            sq, d = sq * m, d * m
+        per, sign = sq, 0.5
+        dz2 = d * (s * (1.0 - s))
+    else:
+        log_s = torch.clamp(torch.log(s), min=-100.0)
+        log_1ms = torch.clamp(torch.log1p(-s), min=-100.0)
+        per, sign = yt * log_s + (1.0 - yt) * log_1ms, -1.0
+        dz2 = torch.where(s * (1.0 - s) == 0.0, torch.zeros_like(s), s - yt)
+        if m is not None:
+            per, dz2 = per * m, dz2 * m
+    return sign * per.reshape(b, no, t_, pt).sum(dim=(1, 3)), dz2
+
+
 @fp32_precision()
 def loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
-                        mask: Optional[torch.Tensor] = None) -> tuple:
+                        mask: Optional[torch.Tensor] = None,
+                        family: str = "bernoulli") -> tuple:
     """Plain version of K3.  fold (B, 4, H) f32 rows [w0, w1, c, 0]; coords
-    (HW, 2) f32, HW tile-aligned; w1 (H, H) [in][out]; b1 (H,); wht (No, H);
-    bht (No,), in one weight dtype; y_t (B, No, HW) int8 (k-128) or float;
-    mask (HW,) or None.  Returns float32 (dfold (B, 4, H) with the per-image
-    BCE at [:, 3, 0], dW1 (H, H), db1 (H,), dWh^T (No, H), dbh (No,))."""
+    (HW, 2) f32, HW tile-aligned (colored: chunk-permuted); w1 (H, H)
+    [in][out]; b1 (H,); wht (No, H); bht (No,), in one weight dtype; y_t (B,
+    No, HW) int8 (k-128) or float, colored (B, 2, HW/2); mask (HW,) or None.
+    Returns float32 (dfold (B, 4, H) with the per-image loss at [:, 3, 0],
+    dW1 (H, H), db1 (H,), dWh^T (No, H), dbh (No,))."""
     wdt = wht.dtype
     b, _, h = fold.shape
     hw = coords.shape[0]
@@ -203,18 +285,8 @@ def loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
     h1 = (aq @ w1f.float()) * h1s + b1.float()               # exact ints
     a1c = torch.tanh(h1).to(wdt).float()
     z2 = (a1c @ wht.float().T + bht.float()).transpose(1, 2)  # (B, No, HW)
-    s = torch.sigmoid(z2)
-    yt = targets_f32(y_t)
-    log_s = torch.clamp(torch.log(s), min=-100.0)
-    log_1ms = torch.clamp(torch.log1p(-s), min=-100.0)
-    per = yt * log_s + (1.0 - yt) * log_1ms
-    dz2 = torch.where(s * (1.0 - s) == 0.0, torch.zeros_like(s), s - yt)
-    if mask is not None:
-        m = mask.float().reshape(1, 1, hw)
-        per = per * m
-        dz2 = dz2 * m
+    bce, dz2 = loss_epilogue(z2, y_t, mask, family, pt)      # (B, T)
     no = dz2.shape[1]
-    bce = -per.reshape(b, no, t_, pt).sum(dim=(1, 3))         # (B, T)
     dz2c = dz2.to(wdt).float()
     dwht = torch.einsum("bop,bph->oh", dz2c, a1c)
     dbht = dz2.sum(dim=(0, 2))
@@ -247,8 +319,10 @@ def loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
 # ---------------------------------------------------------------------------
 
 
-def _check(fold, coords, w1, b1, wht, bht, y_t, mask) -> None:
+def _check(fold, coords, w1, b1, wht, bht, y_t, mask, family) -> None:
     """Raise on inputs the kernels do not take, on every device."""
+    if family not in FAMILIES:
+        raise ValueError(f"family {family!r}; expected one of {FAMILIES}")
     if w1.dim() != 2 or w1.shape[0] != w1.shape[1]:
         raise ValueError(f"w1 must be (H, H), got {tuple(w1.shape)}")
     h = w1.shape[0]
@@ -275,8 +349,14 @@ def _check(fold, coords, w1, b1, wht, bht, y_t, mask) -> None:
                          f"{tuple(coords.shape)}")
     if not hw_tiles_ok(hw):
         raise ValueError(f"HW={hw} is not tile-aligned for the loss kernel")
-    if tuple(y_t.shape) != (b, no, hw):
-        raise ValueError(f"y_t must be (B, No, HW) = {(b, no, hw)}, got "
+    want = (b, no, hw)
+    if family == "colored":
+        if no != 2 or hw % 256:
+            raise ValueError(f"the colored family takes n_out 2 and HW a "
+                             f"multiple of 256, got n_out={no}, HW={hw}")
+        want = (b, 2, hw // 2)
+    if tuple(y_t.shape) != want:
+        raise ValueError(f"y_t must be {want} for the {family} family, got "
                          f"{tuple(y_t.shape)}")
     if mask is not None and tuple(mask.shape) != (hw,):
         raise ValueError(f"mask must be (HW,) = ({hw},)")
@@ -293,25 +373,28 @@ def _check(fold, coords, w1, b1, wht, bht, y_t, mask) -> None:
 
 def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
                   mask: Optional[torch.Tensor] = None,
+                  family: str = "bernoulli",
                   workspace_bytes: Optional[int] = None) -> tuple:
     """K3's five outputs (see ``loss_int8_reference``).  CPU tensors take
     the plain version; CUDA tensors launch the kernels, counting each in
     ``LAUNCHES``, and raise if the build or a launch fails.
 
     On the card: a forward pass over 64-pixel blocks writes dz2
-    (B, No, HW), each block's BCE and max |dz2|; a gradient pass takes each
-    group's scale from its blocks' maxima, rebuilds the forward (one more
-    int8 GEMM, cheaper than storing a1), runs da0 on the int8 tensor cores
-    and writes the per-block partials of dfold, db1, dWh^T, dbh and the int8
-    aq and qi to feature-major workspaces; a split-K kernel computes dW1
-    group by group; fixed-order reductions add the partials, so two runs
-    agree bit for bit.  Images go through the workspaces in chunks that fit
-    ``workspace_bytes`` (default ``workspace_budget``)."""
-    _check(fold, coords, w1, b1, wht, bht, y_t, mask)
+    (B, No, HW), each block's loss and max |dz2| (colored: one block runs a
+    64-row mean tile and its log-variance partner half a group further, so
+    the pair's loss and both dz2 entries form in registers); a gradient pass
+    takes each group's scale from its blocks' maxima, rebuilds the forward
+    (one more int8 GEMM, cheaper than storing a1), runs da0 on the int8
+    tensor cores and writes the per-block partials of dfold, db1, dWh^T, dbh
+    and the int8 aq and qi to feature-major workspaces; a split-K kernel
+    computes dW1 group by group; fixed-order reductions add the partials, so
+    two runs agree bit for bit.  Images go through the workspaces in chunks
+    that fit ``workspace_bytes`` (default ``workspace_budget``)."""
+    _check(fold, coords, w1, b1, wht, bht, y_t, mask, family)
     check_knobs()
     if fold.device.type == "cpu":
         return loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
-                                   mask)
+                                   mask, family)
     lib = _lib()
     dev = fold.device
     b, _, h = fold.shape
@@ -326,7 +409,11 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
     h1s, s4, gb = h1s.contiguous(), s4.contiguous(), gb.reshape(1)
     yt_i8 = y_t.dtype == torch.int8
     yt = y_t.contiguous() if yt_i8 else y_t.float().contiguous()
-    mk = None if mask is None else mask.float().contiguous()
+    if mask is None:
+        mk = None
+    else:
+        mk = (colored_mask(mask) if family == "colored"
+              else mask.float().contiguous())
     f32 = dict(dtype=torch.float32, device=dev)
     mw = h + no * h + no                          # [db1 | dWh^T | dbh]
     dz2 = torch.empty((b, no, hw), **f32)
@@ -350,8 +437,8 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
               w1ft.data_ptr(), h1s.data_ptr(), b1f.data_ptr(),
               whtf.data_ptr(), bhtf.data_ptr(), yt.data_ptr(),
               mk.data_ptr() if mk is not None else None, dz2.data_ptr(),
-              part_max.data_ptr(), part_bce.data_ptr(), b, hw, h, no,
-              int(yt_i8), bf16, st)
+              part_max.data_ptr(), part_bce.data_ptr(), b, hw, h, no, pt,
+              int(yt_i8), FAMILIES.index(family), bf16, st)
         LAUNCHES["fwd"] += 1
         split0 = 0
         for b0, n in chunks:
@@ -385,13 +472,14 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
 
 class _LossInt8(torch.autograd.Function):
     """Counterpart of the JAX ``fused_decoder_bce_int8`` custom VJP: the
-    forward returns the summed BCE and keeps the five gradients it computed;
-    the backward scales them by the scalar cotangent.  coords, y_t and mask
-    are data."""
+    forward returns the summed loss and keeps the five gradients it
+    computed; the backward scales them by the scalar cotangent.  coords, y_t
+    and mask are data, ``family`` a name."""
 
     @staticmethod
-    def forward(ctx, fold, coords, w1, b1, wht, bht, y_t, mask):
-        grads = run_loss_int8(fold, coords, w1, b1, wht, bht, y_t, mask)
+    def forward(ctx, fold, coords, w1, b1, wht, bht, y_t, mask, family):
+        grads = run_loss_int8(fold, coords, w1, b1, wht, bht, y_t, mask,
+                              family)
         ctx.save_for_backward(*grads)
         ctx.dtypes = (fold.dtype, w1.dtype, b1.dtype, wht.dtype, bht.dtype)
         return grads[0][:, 3, 0].sum()
@@ -401,15 +489,18 @@ class _LossInt8(torch.autograd.Function):
         grads = ctx.saved_tensors
         dfold, dw1, db1, dwht, dbht = (
             (g * t).to(dt) for t, dt in zip(grads, ctx.dtypes))
-        return dfold, None, dw1, db1, dwht, dbht, None, None
+        return dfold, None, dw1, db1, dwht, dbht, None, None, None
 
 
 def fused_decoder_bce_int8(fold, coords, w1, b1, wht, bht, y_t,
-                           mask: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """The summed BCE of the int8 decoder against y_t (B, No, HW), with its
-    gradients computed in the same call (see ``_LossInt8``)."""
-    return _LossInt8.apply(fold, coords, w1, b1, wht, bht, y_t, mask)
+                           mask: Optional[torch.Tensor] = None,
+                           family: str = "bernoulli") -> torch.Tensor:
+    """The summed reconstruction loss of the int8 decoder against y_t, with
+    its gradients computed in the same call (see ``_LossInt8``): the clamped
+    BCE, 0.5 * sum(mask * (sigmoid(head) - y)^2) for ``gaussian``, 0.5 *
+    sum(mask * (d^2 / var + logvar)) for ``colored`` (coords chunk-permuted,
+    y_t pre-paired)."""
+    return _LossInt8.apply(fold, coords, w1, b1, wht, bht, y_t, mask, family)
 
 
 def fused_bce_spatial_int8(gen: SpatialGenerator, coords: torch.Tensor,
@@ -419,16 +510,33 @@ def fused_bce_spatial_int8(gen: SpatialGenerator, coords: torch.Tensor,
                            family: str = "bernoulli") -> torch.Tensor:
     """The JAX ``fused_bce_spatial_int8``: the pose fold in PyTorch, then
     the loss kernel.  y: (B, HW[, C]); ``y_t`` the targets already in the
-    kernel's (B, C, HW) layout (int8 k-128 or float), else built from y.
-    Returns the summed loss (0-d)."""
+    kernel's layout ((B, C, padded HW), colored (B, 2, HW/2); int8 k-128 or
+    float), else built from y.  The colored family runs over chunk-permuted
+    coords; a pixel count off the tiling is zero-padded to ``padded_hw``
+    with a forced mask whose pad entries are 0.  Returns the summed loss
+    (0-d)."""
     hw = coords.shape[0]
     check_ported(hw, family)
     w0, w1f, c = fold_pose_into_first_layer(gen, theta, dx, z)
     fold = torch.stack([w0, w1f, c, torch.zeros_like(c)], dim=1)
     fold = fold.float().contiguous()
     hidden, head = gen.linears()
+    coords = coords.float()
+    if family == "colored":
+        coords = colored_coords(coords, pick_tile(hw))
+    pad = 0 if family == "colored" else padded_hw(hw) - hw
+    if pad:
+        coords = F.pad(coords, (0, 0, 0, pad))
+        base = (torch.ones((hw,), dtype=torch.float32, device=coords.device)
+                if mask is None else mask.reshape(hw).float())
+        mask = F.pad(base, (0, pad))
     if y_t is None:
-        y_t = y.reshape(y.shape[0], hw, -1).transpose(1, 2)
+        if family == "colored":
+            y_t = colored_targets(y, hw)
+        else:
+            y_t = y.reshape(y.shape[0], hw, -1).transpose(1, 2)
+            if pad:
+                y_t = F.pad(y_t, (0, pad))
     return fused_decoder_bce_int8(
-        fold, coords.float().contiguous(), hidden.weight.T.contiguous(),
-        hidden.bias, head.weight.contiguous(), head.bias, y_t, mask)
+        fold, coords.contiguous(), hidden.weight.T.contiguous(), hidden.bias,
+        head.weight.contiguous(), head.bias, y_t, mask, family)

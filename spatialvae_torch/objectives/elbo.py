@@ -2,25 +2,30 @@
 ``spatialvae_tpu/objectives/elbo.py`` and of ``Trainer._loss`` with
 ``value_and_grad`` (``spatialvae_tpu/train/trainer.py``).
 
-The port covers the Bernoulli likelihood (mnist/galaxy BCE x size) with
-the optional pixel mask, the rotation KL with the optional mnist mean
-penalty, ``dx_scale``, ``z_scale`` and the unit-normal KL over translation
-and z.  The decode follows the JAX package's dispatch, decided from the
-config before anything launches: the pose fold, then with ``fused`` the
-int8 decoder (``int8``: K4, with K5 as its backward) or the float kernel
-(K1/K2), otherwise the plain folded path or the generic path.  In int8 mode
-a training step whose batch is even takes the fused int8 loss-and-gradient
-kernel (K3, ``fused_loss_active``) instead of decode + BCE, with the
-targets in the kernel's (B, C, HW) layout (``y_t``, int8 on the /255 grid).
+The port covers the three likelihoods (Bernoulli: mnist/galaxy BCE x size;
+Gaussian: the particles' half sum of squares; colored: the fit-noise
+``sq/var + logvar`` with the interleaved or the per-channel mean/logvar
+split), each with the optional pixel mask, the rotation KL with the
+optional mnist mean penalty, ``dx_scale``, ``z_scale`` and the unit-normal
+KL over translation and z.  The decode follows the JAX package's dispatch,
+decided from the config before anything launches: the pose fold, then with
+``fused`` the int8 decoder (``int8``: K4, with K5 as its backward) or the
+float kernel (K1/K2), otherwise the plain folded path or the generic path.
+In int8 mode a training step whose batch is even takes the fused int8
+loss-and-gradient kernel (K3, ``fused_loss_active``) instead of decode +
+likelihood, in every family the JAX package sends there (Bernoulli and
+Gaussian over an aligned or a padded pixel count, colored with the
+interleaved split), with the targets in the kernel's layout (``y_t``: (B,
+C, HW), int8 on the /255 grid; colored (B, 2, HW/2)).
 
 The encoder takes the int8 weight copies (``q_quant``) and the batch's
 int8 data copy (``y_q8``) as the JAX ELBO does; an explicit encoder view
 (``y_inf``) drops ``y_q8``.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: the gaussian/colored likelihoods and CTF (M7), rotation-augment
-offsets (M8), the loss kernel's families other than (a) (Queue 2 K3), the
-vanilla generator (M1) and pixel-axis sharding (M10).
+item: CTF (M7), rotation-augment offsets (M8), the loss kernel's numerics
+off the default knobs (Queue 2 K3 (e), (f)), the vanilla generator (M1) and
+pixel-axis sharding (M10).
 
 ``elbo_minibatch`` is differentiable; its serving callers take
 ``torch.no_grad()`` themselves, so serving saves nothing for a backward and
@@ -88,9 +93,7 @@ def _not_ported(what: str, item: str):
 
 def fused_loss_active(ecfg: ElboConfig, p_cfg, hw: int, batch: int) -> bool:
     """Whether ``elbo_minibatch`` takes the fused int8 loss kernel for this
-    config (training, no CTF): the JAX package's decision, unchanged.  It
-    says what the JAX package would run; the port raises for the families
-    it has not ported (``fused_loss_int8.check_ported``)."""
+    config (training, no CTF): the JAX package's decision, unchanged."""
     if ecfg.vanilla or not (ecfg.fused and ecfg.int8 and ecfg.fused_loss):
         return False
     if (ecfg.likelihood not in ("bernoulli", "gaussian", "colored")
@@ -125,6 +128,56 @@ def decode_spatial(p_net: SpatialGenerator, ecfg: ElboConfig,
     return p_net(x, z)
 
 
+def _channel_mask(mask: torch.Tensor, n: int) -> torch.Tensor:
+    """The (HW,) pixel mask over n = HW*C pixel-major elements."""
+    c = n // mask.shape[0]
+    return mask.repeat_interleave(c) if c > 1 else mask
+
+
+def _bernoulli_log_p(y_hat, y, mask) -> torch.Tensor:
+    """-BCE(mean over elements) * size == -(sum BCE)/B; torch's BCE clamps
+    each log term at -100, as the reference relies on.  Mixed dtypes promote
+    as in JAX (bf16 targets against the f32 output of the fused decoder)."""
+    b = y.shape[0]
+    dt = torch.promote_types(y_hat.dtype, y.dtype)
+    y_hat, target = y_hat.to(dt), y.reshape(b, -1).to(dt)
+    if mask is None:
+        return -F.binary_cross_entropy(y_hat.reshape(b, -1), target,
+                                       reduction="sum") / b
+    per = F.binary_cross_entropy(y_hat.reshape(b, -1), target,
+                                 reduction="none")
+    return -torch.sum(per * _channel_mask(mask, target.shape[1])[None, :]) / b
+
+
+def _gaussian_log_p(y_hat, y, mask, interleaved: bool) -> tuple:
+    """The Gaussian and colored log-likelihoods, (log_p, predicted mean
+    (B, HW*C, 1)).  A decode wider than the data is the fit-noise head
+    (n_out == 2): ``interleaved`` splits its flattened (B, 2*HW) output at
+    HW into mean and log-variance (the reference's split), otherwise channel
+    0 is the mean and channel 1 the log-variance.  log_p = -0.5 *
+    mean_b(sum(mask * (sq / var + logvar))), without the variance terms for
+    the plain Gaussian.  Mixed dtypes promote as in JAX."""
+    b = y.shape[0]
+    y_flat = y.reshape(b, -1)
+    hw = y_flat.shape[1]
+    yp = y_hat.reshape(b, -1)
+    y_logvar = None
+    if yp.shape[1] > hw:
+        if interleaved:
+            y_mu, y_logvar = yp[:, :hw], yp[:, hw:]
+        else:
+            y_mu, y_logvar = y_hat[..., 0], y_hat[..., 1]
+    else:
+        y_mu = yp
+    per = (y_mu - y_flat) ** 2
+    if y_logvar is not None:
+        per = per / torch.exp(y_logvar) + y_logvar
+    if mask is not None:
+        per = per * _channel_mask(mask, per.shape[1])[None, :]
+    log_p = -0.5 * torch.mean(torch.sum(per, dim=1))
+    return log_p, y_mu.reshape(b, -1)[..., None]
+
+
 @fp32_precision()
 def elbo_minibatch(
     q_net: InferenceNetwork,
@@ -147,14 +200,14 @@ def elbo_minibatch(
     pixel_axis: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (elbo, log_p_x_g_z, kl_div, y_hat): 0-d tensors and the
-    (B, HW, n_out) decode, which is None on the fused int8 loss path (pass
-    ``want_y_hat=True`` to force the decode).  ``noise`` overrides drawing
-    the reparameterised sample from ``generator``.  ``q_quant`` and
-    ``y_q8`` go to the encoder (``InferenceNetwork.forward``'s ``qw`` and
-    ``y_q8``).  The remaining keywords of the JAX signature belong to paths
-    not ported yet and raise."""
-    if ecfg.likelihood != "bernoulli":
-        raise _not_ported(f"the {ecfg.likelihood} likelihood", "M7")
+    (B, HW, n_out) decode (for the Gaussian and colored likelihoods the
+    predicted mean, (B, HW*C, 1)), which is None on the fused int8 loss
+    path (pass ``want_y_hat=True`` to force the decode).  ``noise``
+    overrides drawing the reparameterised sample from ``generator``.
+    ``q_quant`` and ``y_q8`` go to the encoder
+    (``InferenceNetwork.forward``'s ``qw`` and ``y_q8``).  The remaining
+    keywords of the JAX signature belong to paths not ported yet and
+    raise."""
     if ctf is not None:
         raise _not_ported("CTF", "M7")
     if offsets is not None:
@@ -210,23 +263,13 @@ def elbo_minibatch(
         kl_div = torch.mean(kl_div + torch.sum(z_kl, dim=1))
         return log_p - kl_div, log_p, kl_div, None
 
-    # ---- decode + Bernoulli log-likelihood --------------------------------
+    # ---- decode + reconstruction log-likelihood ---------------------------
     y_hat = decode_spatial(p_net, ecfg, coords, theta, dx, z)
-    # -BCE(mean over elements) * size == -(sum BCE)/B; torch's BCE clamps
-    # each log term at -100, as the reference relies on
-    # mixed dtypes promote as in JAX (bf16 targets against the f32 output
-    # of the fused decoder)
-    dt = torch.promote_types(y_hat.dtype, y.dtype)
-    y_hat, target = y_hat.to(dt), y.reshape(b, -1).to(dt)
-    if mask is not None:
-        c = target.shape[1] // mask.shape[0]
-        mflat = mask.repeat_interleave(c) if c > 1 else mask
-        per = F.binary_cross_entropy(y_hat.reshape(b, -1), target,
-                                     reduction="none")
-        log_p = -torch.sum(per * mflat[None, :]) / b
+    if ecfg.likelihood == "bernoulli":
+        log_p = _bernoulli_log_p(y_hat, y, mask)
     else:
-        log_p = -F.binary_cross_entropy(y_hat.reshape(b, -1), target,
-                                        reduction="sum") / b
+        log_p, y_hat = _gaussian_log_p(y_hat, y, mask,
+                                       ecfg.fit_noise_interleaved)
 
     # ---- unit normal KL over translation + z ------------------------------
     z_kl = -z_logstd + 0.5 * z_std ** 2 + 0.5 * z_mu ** 2 - 0.5

@@ -21,11 +21,14 @@ float32 masters.
 Float mode: the training steps run the fused decoder's forward and backward
 kernels (K1, K2).  int8 mode (``ElboConfig(fused=True, int8=True)``): every
 step whose batch is even runs the fused int8 loss-and-gradient kernel (K3)
-on targets gathered from a per-dataset copy in the kernel's layout
-(``_dataset_yt``: int8 k-128 when the data sits on the /255 grid); an odd
-tail runs the int8 decoder (K4 with its a1 output, K5 backward).
-Evaluation and display run the forward alone (K1, or K4 in int8 mode)
-under no_grad, without the loss kernel.
+in the likelihood's family (Bernoulli, Gaussian, colored), with the
+trainer's pixel mask, on targets gathered from a per-dataset copy in the
+kernel's layout (``_dataset_yt``: int8 k-128 when the data sits on the /255
+grid, else the compute dtype; (N, C, HW) padded once to the kernel's pixel
+count, 784 -> 1024, or the colored family's pre-paired (N, 2, HW/2)); an
+odd tail runs the int8 decoder (K4 with its a1 output, K5 backward) and the
+likelihood in PyTorch.  Evaluation and display run the forward alone (K1,
+or K4 in int8 mode) under no_grad, without the loss kernel.
 
 Random draws come from ``torch.Generator``s seeded from (seed, stream), as
 the JAX trainer folds an epoch index into its key: the seed alone draws the
@@ -35,8 +38,8 @@ differ from JAX's; the parity tests inject the same batches and noise into
 both.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: host-resident streaming (M4), rotation augmentation (M8), CTF (M7)
-and meshes (M10).  ``train_epochs`` runs the
+item: host-resident streaming (M4), rotation augmentation (M8), CTF (M7),
+the vanilla generator (M1) and meshes (M10).  ``train_epochs`` runs the
 epochs one by one; its single-dispatch form (CUDA graphs) is a later speed
 choice (M4).
 """
@@ -55,7 +58,10 @@ import torch
 from spatialvae_torch.config import InferenceConfig
 from spatialvae_torch.device import resolve_device
 from spatialvae_torch.kernels.config import adam_emit, check_knobs
-from spatialvae_torch.kernels.fused_loss_int8 import check_ported
+from spatialvae_torch.kernels.fused_loss_int8 import (
+    colored_targets,
+    padded_hw,
+)
 from spatialvae_torch.models.inference import InferenceNetwork
 from spatialvae_torch.models.spatial import SpatialGenerator
 from spatialvae_torch.nn.layers import stack_linears
@@ -143,11 +149,22 @@ def probe_255_grid(a: torch.Tensor, rows: int = 4096) -> tuple:
 
 
 @torch.no_grad()
-def build_yt_i8(a: torch.Tensor, hw: int) -> torch.Tensor:
+def build_yt_i8(a: torch.Tensor, hw: int,
+                colored: bool = False) -> torch.Tensor:
     """(N, C, HW) int8 target copy of /255-grid data (N, HW[, C]), the value
-    k/255 stored as k - 128; the loss kernel decodes it exactly."""
+    k/255 stored as k - 128; the loss kernel decodes it exactly.
+    ``colored``: the fit-noise family's pre-paired (N, 2, HW/2) layout,
+    out[n, c, u] = a[n, 2u + c]."""
     q = (torch.round(a.float() * 255.0) - 128.0).to(torch.int8)
-    return q.reshape(a.shape[0], hw, -1).transpose(1, 2).contiguous()
+    return yt_layout(q, hw, colored)
+
+
+def yt_layout(a: torch.Tensor, hw: int, colored: bool) -> torch.Tensor:
+    """(N, HW[, C]) images in the loss kernel's target layout: (N, C, HW),
+    or the colored family's pre-paired (N, 2, HW/2) (``colored_targets``)."""
+    t = (colored_targets(a, hw) if colored
+         else a.reshape(a.shape[0], hw, -1).transpose(1, 2))
+    return t.contiguous()
 
 
 def index_batches(perm: torch.Tensor, b: int):
@@ -174,22 +191,17 @@ class Trainer:
             raise _not_ported("rotation augmentation", "M8")
         if ecfg.vanilla:
             raise _not_ported("the vanilla generator", "M1")
-        if ecfg.likelihood != "bernoulli":
-            raise _not_ported(f"the {ecfg.likelihood} likelihood", "M7")
         if tcfg.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {tcfg.compute_dtype!r}; "
                              f"expected one of {sorted(_DTYPES)}")
         self.device = resolve_device(device)
         self.q_cfg, self.p_cfg, self.ecfg, self.tcfg = q_cfg, p_cfg, ecfg, tcfg
         self.coords = coords.to(self.device, torch.float32)
-        self.mask = None if mask is None else mask.to(self.device)
+        self.mask = (None if mask is None
+                     else torch.as_tensor(mask).to(self.device))
         self.compute_dtype = _DTYPES[tcfg.compute_dtype]
         if ecfg.fused and ecfg.int8:
             check_knobs()
-        # a step that the JAX package sends to its loss kernel and the port
-        # cannot take fails here, not in the middle of an epoch
-        if self._wants_yt():
-            check_ported(self.coords.shape[0], ecfg.likelihood)
         # evaluation and display keep the fused forward decoder and drop
         # the loss kernel (its forward computes all five gradients)
         self._nonstep_ecfg = dataclasses.replace(ecfg, fused_loss=False)
@@ -284,7 +296,11 @@ class Trainer:
         entry keeps alive; the oldest of two entries is evicted.  ``data``
         is its device copy when the caller has one.  On the /255 grid the
         copy is int8 (k/255 stored as k - 128): half the gather bytes of
-        bf16 and exact; off the grid it keeps the compute dtype."""
+        bf16 and exact; off the grid (whitened particles) it keeps the
+        compute dtype.  The colored family gets its pre-paired (N, 2, HW/2)
+        layout; the others are padded once to the kernel's pixel count
+        (``padded_hw``) with the grid's zero (-128) or 0.0, which the
+        kernel's forced mask drops either way."""
         src = getattr(dataset, "y", dataset)
         hit = self._yt_cache.get(id(src))
         if hit is not None and hit[0] is src:
@@ -293,11 +309,15 @@ class Trainer:
             data = self._data(dataset)
         hw = self.coords.shape[0]
         err, qmin, qmax = probe_255_grid(data)
+        colored = self.ecfg.likelihood == "colored"
         if err < 1e-3 and qmin >= 0.0 and qmax <= 255.0:
-            yt = build_yt_i8(data, hw)
+            yt = build_yt_i8(data, hw, colored)
         else:
-            yt = (data.reshape(data.shape[0], hw, -1).transpose(1, 2)
-                  .to(self.compute_dtype).contiguous())
+            yt = yt_layout(data.to(self.compute_dtype), hw, colored)
+        pad = 0 if colored else padded_hw(hw) - hw
+        if pad:
+            yt = torch.nn.functional.pad(
+                yt, (0, pad), value=-128 if yt.dtype == torch.int8 else 0)
         self._cache_put(self._yt_cache, src, yt)
         return yt
 

@@ -2,7 +2,9 @@
 the decoder forward with and without its activation output, the backward
 with the residual and with recompute, the differentiable op and a training
 step; the int8 decoder forward and backward (K4, K5), the fused int8 loss
-and gradient (K3), and an int8 training step; Adam (K6, K7 and the
+and gradient (K3) in its Bernoulli, Gaussian, colored and padded families,
+and int8 training steps of the galaxy, particles, fit-noise and mnist
+models; Adam (K6, K7 and the
 emission helpers), the int8 encoder's GEMM, and steps of the int8 stack.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode): it is
@@ -341,6 +343,115 @@ def test_loss_kernel_matches_plain_version(case, cuda_device):
         _assert_rel(u, x, INT8_TOL)
     # the chunked call: one image per chunk
     assert l8.LAUNCHES["fwd"] == 3 and l8.LAUNCHES["grad"] == 2 + b
+
+
+# (family, image side, H, weight dtype, int8 targets, mask): the Gaussian
+# family aligned and over the padded 65x65 and 33x33 grids (17 and 5 groups
+# of 256), the padded 28x28 Bernoulli, the colored family at one and at four
+# groups per image and at the narrowest tiling (48x48: 9 groups of 256)
+FAMILY_CASES = [
+    ("gaussian", 64, 500, torch.bfloat16, False, True),
+    ("gaussian", 65, 500, torch.float32, False, True),
+    ("gaussian", 33, 96, torch.bfloat16, True, False),
+    ("bernoulli", 28, 500, torch.bfloat16, True, False),
+    ("bernoulli", 28, 130, torch.float32, False, True),
+    ("colored", 64, 500, torch.bfloat16, False, True),
+    ("colored", 64, 500, torch.float32, True, False),
+    ("colored", 32, 96, torch.float32, False, True),
+    ("colored", 48, 130, torch.bfloat16, False, False),
+]
+
+
+@pytest.mark.parametrize("case", FAMILY_CASES, ids=lambda c: "-".join(
+    [c[0], f"{c[1]}px", f"H{c[2]}", str(c[3])[6:], "i8" if c[4] else "bf16t",
+     "mask" if c[5] else "nomask"]))
+def test_loss_kernel_families_match_plain_version(case, cuda_device):
+    """K3's Gaussian, colored and padded families against the plain version
+    through ``fused_bce_spatial_int8``'s layouts (chunk-permuted coords and
+    pre-paired targets; zero pad under a forced mask); two runs agree bit
+    for bit; image chunks give the same result."""
+    import torch.nn.functional as F
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.train.trainer import build_yt_i8, yt_layout
+
+    family, side, h, wdt, i8, masked = case
+    colored = family == "colored"
+    hw, no, b = side * side, 2 if colored else 1, 4
+    fold, coords, ws = _int8_inputs(b, hw, h, no, wdt, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    if i8:
+        y = torch.randint(0, 256, (b, hw), generator=gen,
+                          device=cuda_device).float() / 255
+        yt = build_yt_i8(y, hw, colored)
+    else:
+        y = 0.5 + 0.4 * torch.randn((b, hw), generator=gen,
+                                    device=cuda_device)
+        yt = yt_layout(y.to(torch.bfloat16), hw, colored)
+    mask = ((coords.pow(2).sum(dim=1) <= 1.0).float() if masked else None)
+    pad = 0 if colored else l8.padded_hw(hw) - hw
+    if colored:
+        coords = l8.colored_coords(coords, l8.pick_tile(hw)).contiguous()
+    elif pad:
+        coords = F.pad(coords, (0, 0, 0, pad))
+        yt = F.pad(yt, (0, pad), value=-128 if i8 else 0)
+        mask = F.pad(torch.ones(hw, device=cuda_device) if mask is None
+                     else mask, (0, pad))
+    args = (fold, coords, *ws, yt, mask, family)
+    l8.reset_launches()
+    with torch.no_grad():
+        got = l8.run_loss_int8(*args)
+        again = l8.run_loss_int8(*args)
+        chunked = l8.run_loss_int8(*args, workspace_bytes=1)
+        want = l8.loss_int8_reference(*args)
+    for u, v, c, x in zip(got, again, chunked, want):
+        assert torch.equal(u, v)
+        _assert_rel(c, u, (1e-6, 1e-7))
+        _assert_rel(u, x, INT8_TOL)
+    assert not got[0][:, 3, 1:].any()
+    assert l8.LAUNCHES["fwd"] == 3 and l8.LAUNCHES["grad"] == 2 + b
+
+
+@pytest.mark.parametrize("name", ["particles", "colored", "mnist"])
+def test_family_training_step_on_the_card(name, cuda_device):
+    """One even step through K3 in the model's family and one odd step
+    through K4/K5 at a narrow encoder: finite metrics, the launches."""
+    from spatialvae_torch.config import InferenceConfig
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.objectives import ElboConfig
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+
+    side, z, n_out, lik = {"particles": (64, 20, 1, "gaussian"),
+                           "colored": (64, 20, 2, "colored"),
+                           "mnist": (28, 2, 1, "bernoulli")}[name]
+    q_cfg = InferenceConfig(n=side * side, latent_dim=z + 3, hidden_dim=256,
+                            num_layers=2)
+    p_cfg = SpatialGeneratorConfig(latent_dim=z, hidden_dim=500, n_out=n_out,
+                                   num_layers=2)
+    grid = coord_grid(side, side, device=cuda_device)
+    tr = Trainer(q_cfg, p_cfg,
+                 ElboConfig(fused=True, int8=True, likelihood=lik),
+                 TrainConfig(minibatch_size=8, compute_dtype="bfloat16"),
+                 grid, mask=None if name == "mnist"
+                 else (grid.pow(2).sum(dim=1) <= 1.0).float(),
+                 device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    if name == "mnist":
+        y = torch.randint(0, 256, (8, side * side, 1), device=cuda_device,
+                          generator=gen).float() / 255
+    else:
+        y = torch.randn((8, side * side, 1), device=cuda_device,
+                        generator=gen)
+    y_t = tr._dataset_yt(y)
+    assert y_t.dtype == (torch.int8 if name == "mnist" else torch.bfloat16)
+    l8.reset_launches()
+    d8.reset_launches()
+    assert torch.isfinite(tr.train_step(y, y_t=y_t)).all()
+    assert torch.isfinite(tr.train_step(y[:5])).all()
+    assert l8.LAUNCHES == {"fwd": 1, "grad": 1, "dw": 1, "sum": 5}
+    assert d8.LAUNCHES == {"fwd": 0, "fwd_acts": 1, "bwd_scale": 1,
+                           "bwd_grad": 1, "dw": 1, "sum": 4}
+    assert tr.opt_state.count == 2
 
 
 def test_int8_training_step_on_the_card(cuda_device):

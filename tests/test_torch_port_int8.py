@@ -430,11 +430,13 @@ def test_gates_match_jax():
         assert l8.hw_tiles_ok(hw) == jl8.hw_tiles_ok(hw)
 
 
-def test_fused_loss_active_matches_jax_and_unported_configs_raise():
+def test_fused_loss_active_matches_jax_and_unported_configs_raise(
+        monkeypatch):
     """fused_loss_active decides as JAX's; every config it sends to the loss
-    kernel is either ported (Bernoulli over an aligned pixel count) or
-    refused with NotImplementedError naming its ROADMAP item."""
-    routed = {"ported": 0, "refused": 0}
+    kernel is ported at the default knobs (the three families, aligned and
+    padded pixel counts) and refused with NotImplementedError naming its
+    ROADMAP item off them."""
+    routed = set()
     for kw in GEN_KW[:8]:
         cfg = SpatialGeneratorConfig(latent_dim=2, hidden_dim=64, **kw)
         for lik in ("bernoulli", "gaussian", "colored"):
@@ -450,17 +452,16 @@ def test_fused_loss_active_matches_jax_and_unported_configs_raise():
                         want = jax_active(jecfg, cfg, hw, b)
                         assert fused_loss_active(ecfg, to_port(cfg), hw,
                                                  b) == want
-                        if not want:
-                            continue
-                        if lik == "bernoulli" and l8.padded_hw(hw) == hw:
+                        if want:
                             l8.check_ported(hw, lik)
-                            routed["ported"] += 1
-                        else:
-                            with pytest.raises(NotImplementedError,
-                                               match=r"K3 \([bcd]\)"):
-                                l8.check_ported(hw, lik)
-                            routed["refused"] += 1
-    assert routed["ported"] and routed["refused"]
+                            routed.add((lik, l8.padded_hw(hw) == hw))
+    assert routed == {("bernoulli", True), ("bernoulli", False),
+                      ("gaussian", True), ("gaussian", False),
+                      ("colored", True)}
+    monkeypatch.setenv("SPATIALVAE_SR", "1")
+    for lik, aligned in sorted(routed):
+        with pytest.raises(NotImplementedError, match=r"K3 \(e\)"):
+            l8.check_ported(4096 if aligned else 784, lik)
 
 
 @pytest.mark.parametrize("env,value,item", [

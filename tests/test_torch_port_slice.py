@@ -120,9 +120,10 @@ def test_elbo_matches_jax(name):
     "gaussian", "colored", "ctf", "offsets", "y_t", "int8", "pixel_axis",
     "vanilla"])
 def test_elbo_refuses_what_is_not_ported(what, monkeypatch):
-    """Among them the int8 loss kernel's paths that JAX takes and the port
-    has not ported: targets for a padded pixel count (MNIST's 784, K3 (c))
-    and numerics off the default knobs (K3 (f))."""
+    """Among them what is left of the Gaussian and colored likelihoods
+    (CTF, M7) and of the int8 loss kernel: its numerics off the default
+    knobs, over an aligned pixel count (K3 (f)) and over targets for a
+    padded one (MNIST's 784, under stochastic rounding, K3 (e))."""
     n, m, ch = {"y_t": (28, 28, 1), "int8": (32, 32, 3)}.get(what,
                                                             (16, 16, 3))
     q_cfg, p_cfg, qp, pp = _model(n, m, ch)
@@ -132,12 +133,14 @@ def test_elbo_refuses_what_is_not_ported(what, monkeypatch):
     kw = {}
     if what in ("gaussian", "colored"):
         ecfg = ElboConfig(likelihood=what)
+        kw["ctf"] = torch.zeros((2, 3, 3))
     elif what in ("int8", "y_t"):
         ecfg = ElboConfig(channels=ch, fused=True, int8=True)
         if what == "int8":
             monkeypatch.setenv("SPATIALVAE_INT4_GRADS", "i8")
         else:
-            kw["y_t"] = torch.zeros((2, ch, n * m), dtype=torch.int8)
+            monkeypatch.setenv("SPATIALVAE_SR", "1")
+            kw["y_t"] = torch.full((2, ch, 1024), -128, dtype=torch.int8)
     elif what == "vanilla":
         ecfg = ElboConfig(vanilla=True)
     else:

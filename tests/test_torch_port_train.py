@@ -327,19 +327,24 @@ def test_train_config_matches_jax():
 
 @pytest.mark.parametrize("what", ["int8", "mesh", "augment", "host",
                                   "gaussian"])
-def test_trainer_refuses_what_is_not_ported(what):
-    """int8: the loss kernel over a padded pixel count (MNIST's 28x28, K3
-    (c)), which the JAX trainer would take, is refused when the trainer is
-    built."""
+def test_trainer_refuses_what_is_not_ported(what, monkeypatch):
+    """int8: the loss kernel's numerics off the default knobs (K3 (f)) are
+    refused when the trainer is built, here over MNIST's padded 28x28;
+    gaussian: what is left of that likelihood, a CTF dataset (M7)."""
     q_cfg, p_cfg = map(to_port, _cfgs())
     ecfg = ElboConfig(fused=True, channels=C, int8=what == "int8",
                       likelihood="gaussian" if what == "gaussian"
                       else "bernoulli")
     tcfg = TrainConfig(minibatch_size=B, augment_rotation=what == "augment")
     grid = coord_grid(28, 28) if what == "int8" else coord_grid(N, M)
+    if what == "int8":
+        monkeypatch.setenv("SPATIALVAE_GSCALE", "tile")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tr = Trainer(q_cfg, p_cfg, ecfg, tcfg, grid, device="cpu",
                      mesh=object() if what == "mesh" else None)
         data = _Data(torch.zeros((B, N * M, C)))
-        data.host_resident = True
+        if what == "gaussian":
+            data.ctf = torch.zeros((B, 3, 3))
+        else:
+            data.host_resident = True
         tr.train_epoch(data, 0)
