@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --limits   # the int8 kernels' limit readings
+    python3 chip_smoke.py --limits numerics   # those of K3 (e), (f), K8
 
 Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the float
@@ -48,13 +49,28 @@ paths:
   likelihood in PyTorch; a K3 step and a tail step against the plain
   versions, a profiled K3 step, for particles and colored one float step
   through K1/K2 against the plain decoder, and for colored a checkpoint
-  round trip and a ``SpatialVae`` reconstruct of the predicted mean.
+  round trip and a ``SpatialVae`` reconstruct of the predicted mean;
+- the int8 galaxy trainer (bf16 compute, the same seed and images) under
+  the numerics knobs of the JAX package's measurement entry points, with
+  ``SPATIALVAE_ALLOW_KNOBS=1``: stochastic rounding (``SPATIALVAE_SR=1``,
+  ``[train_int8_sr]``), the int8 gradient tiles with the f32 epilogue
+  (``[train_int8_numerics]``), and the feature-major kernel K8
+  (``SPATIALVAE_LOSS_LAYOUT=t`` on images off the /255 grid,
+  ``[train_int8_t]``): two epochs each, launch counts, ELBO rise, a step
+  against its plain-version step.  Before the paths, K3's stochastic
+  rounding (``[kernel_loss_sr]``: the quantised tiles against the plain
+  version's, which draws the same Philox words), its other numerics
+  (``[kernel_loss_numerics]``) and K8 (``[kernel_loss_t]``, at the galaxy
+  shape and at mnist's 784 pixels) are held against their plain versions.
 
 Each phase prints its lines; the last three lines are the per-kernel JSON
 record (launches on the main path, times, plain-version time, bound,
 library-call time), the card's name and power limit, and
 ``{"ok": true, ...}``.  ``--limits`` prints the int8 kernels' readings for
-the sound build and for copies built with one step removed.
+the sound build and for copies built with one step removed;
+``--limits numerics`` only those of this slice's copies (SR drawing the
+gradient site's words from the forward site's stream, SR with u = 0, K8's
+db1 from the pre-round q).
 
 Needs a CUDA device and ``nvcc``; imports no JAX.  Exits non-zero, without
 the final line, when there is no CUDA device or any phase fails.
@@ -796,33 +812,48 @@ def _timed(torch, kern, plain) -> tuple:
     return statistics.median(ks), statistics.median(ps)
 
 
-def _loss_readings(torch, args, mask, family, timed) -> dict:
+def _loss_readings(torch, args, mask, family, timed, nm=None) -> dict:
     """K3 on ``args`` (fold, coords, w1, b1, wht, bht, y_t) against its
-    plain version: each output's errors, whether two runs agree bit for
-    bit, and with ``timed`` the kernel's and the plain version's ms."""
+    plain version, at numerics ``nm`` (default: the defaults): each output's
+    errors, whether two runs agree bit for bit, with ``nm`` the quantised
+    tiles' disagreements (the forward site's count, the gradient site's
+    share), and with ``timed`` the kernel's and the plain version's ms."""
     from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.config import Numerics
 
+    nm = nm or Numerics()
     with torch.no_grad():
-        got = l8.run_loss_int8(*args, mask, family)
-        again = l8.run_loss_int8(*args, mask, family)
+        got = l8.run_loss_int8(*args, mask, family, numerics=nm)
+        again = l8.run_loss_int8(*args, mask, family, numerics=nm)
         torch.cuda.synchronize()
-        want = l8.loss_int8_reference(*args, mask, family)
+        want = l8.loss_int8_reference(*args, mask, family, nm)
         out = {"same": all(torch.equal(u, v) for u, v in zip(got, again)),
                "loss": rel_errors(got[0][:, 3, 0], want[0][:, 3, 0])}
         for name, u, v in zip(INT8_GRADS, got, want):
             if u.shape != v.shape:
                 raise AssertionError(f"K3 {name}: shape {tuple(u.shape)}")
             out[name] = rel_errors(u, v)
+        del got, again, want
+        if nm != Numerics():
+            (_, (aq, qi)) = l8.run_loss_int8(*args, mask, family, numerics=nm,
+                                             ints=True)
+            _, (aq_p, qi_p) = l8.loss_int8_reference(*args, mask, family, nm,
+                                                     ints=True)
+            out["ints"] = (int((aq != aq_p).sum()),
+                           (qi != qi_p).float().mean().item())
+            del aq, qi, aq_p, qi_p
         if timed:
             out["ms"], out["plain_ms"] = _timed(
-                torch, lambda: l8.run_loss_int8(*args, mask, family),
-                lambda: l8.loss_int8_reference(*args, mask, family))
+                torch, lambda: l8.run_loss_int8(*args, mask, family,
+                                                numerics=nm),
+                lambda: l8.loss_int8_reference(*args, mask, family, nm))
     return out
 
 
-def loss_case(torch, b, dtype, seed, timed, i8=True, masked=False) -> dict:
+def loss_case(torch, b, dtype, seed, timed, i8=True, masked=False,
+              nm=None) -> dict:
     """K3's Bernoulli family against its plain version on one galaxy
-    batch."""
+    batch, at numerics ``nm`` (default: the defaults)."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     fold, coords, ws = _int8_inputs(torch, b, dtype, gen)
     hw = IMAGE[0] * IMAGE[1]
@@ -832,7 +863,7 @@ def loss_case(torch, b, dtype, seed, timed, i8=True, masked=False) -> dict:
     mask = ((torch.rand(hw, generator=gen, device=DEVICE) > 0.2).float()
             if masked else None)
     return _loss_readings(torch, (fold, coords, *ws, yt), mask, "bernoulli",
-                          timed)
+                          timed, nm)
 
 
 def int8_tail_case(torch, b, dtype, seed, timed) -> dict:
@@ -965,13 +996,20 @@ class plain_int8:
     def __enter__(self):
         from spatialvae_torch.kernels import fused_decoder_int8 as d8
         from spatialvae_torch.kernels import fused_loss_int8 as l8
+        from spatialvae_torch.kernels import fused_loss_int8_t as lt
+        from spatialvae_torch.kernels.config import numerics
 
         self.saved = (l8.run_loss_int8, d8.run_int8_tail,
-                      d8.run_int8_tail_backward)
+                      d8.run_int8_tail_backward, lt.run_loss_int8_t)
         l8.run_loss_int8 = (lambda fold, coords, w1, b1, wht, bht, y_t,
                             mask=None, family="bernoulli":
                             l8.loss_int8_reference(fold, coords, w1, b1, wht,
-                                                   bht, y_t, mask, family))
+                                                   bht, y_t, mask, family,
+                                                   numerics()))
+        lt.run_loss_int8_t = (lambda fold_t, coords, w1, b1, wht, bht, y_t:
+                              lt.loss_int8_t_reference(
+                                  fold_t, coords, w1, b1, wht, bht, y_t,
+                                  numerics().grad_mode_t))
         d8.run_int8_tail = (lambda fold, coords, w, emit_a1=False:
                             d8.decoder_tail_int8_reference(
                                 fold, coords, w.w1q, w.sw, w.b1, w.wht,
@@ -985,9 +1023,10 @@ class plain_int8:
     def __exit__(self, *exc):
         from spatialvae_torch.kernels import fused_decoder_int8 as d8
         from spatialvae_torch.kernels import fused_loss_int8 as l8
+        from spatialvae_torch.kernels import fused_loss_int8_t as lt
 
-        (l8.run_loss_int8, d8.run_int8_tail,
-         d8.run_int8_tail_backward) = self.saved
+        (l8.run_loss_int8, d8.run_int8_tail, d8.run_int8_tail_backward,
+         lt.run_loss_int8_t) = self.saved
         return False
 
 
@@ -1017,9 +1056,11 @@ def _int8_launches() -> dict:
     from spatialvae_torch.kernels import fused_decoder as fd
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels import fused_loss_int8_t as lt
 
-    return {"k3": dict(l8.LAUNCHES), "k45": dict(d8.LAUNCHES),
-            "k12": sum(fd.LAUNCHES.values()), "adam": dict(ka.LAUNCHES)}
+    return {"k3": dict(l8.LAUNCHES), "k8": dict(lt.LAUNCHES),
+            "k45": dict(d8.LAUNCHES), "k12": sum(fd.LAUNCHES.values()),
+            "adam": dict(ka.LAUNCHES)}
 
 
 def _reset_all_launches() -> None:
@@ -1027,8 +1068,9 @@ def _reset_all_launches() -> None:
     from spatialvae_torch.kernels import fused_decoder as fd
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels import fused_loss_int8_t as lt
 
-    for m in (fd, d8, l8, ka):
+    for m in (fd, d8, l8, lt, ka):
         m.reset_launches()
 
 
@@ -1122,7 +1164,8 @@ def _int8_evaluate(torch, trainer, data, epoch):
     got = _int8_launches()
     want = {"fwd": evals}
     if got["k45"] != {**dict.fromkeys(got["k45"], 0), **want} or \
-            any(got["k3"].values()) or got["k12"] or \
+            any(got["k3"].values()) or any(got["k8"].values()) or \
+            got["k12"] or \
             any(got["adam"].values()):
         raise AssertionError(f"evaluation launches {got}, expected "
                              f"K4 x {evals} only")
@@ -1154,8 +1197,8 @@ def phase_train_int8(torch, tmpdir: str) -> dict:
     want_k45 = {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
                 "bwd_grad": tails, "dw": tails, "sum": 4 * tails}
     want_adam = int8_adam_launches(trainer, full + tails, seeded=True)
-    if counts != {"k3": want_k3, "k45": want_k45, "k12": 0,
-                  "adam": want_adam}:
+    if counts != {"k3": want_k3, "k8": dict.fromkeys(want_k3, 0),
+                  "k45": want_k45, "k12": 0, "adam": want_adam}:
         raise AssertionError(f"launches over {full} + {tails} steps: "
                              f"{counts}, expected K3 {want_k3}, K4/K5 "
                              f"{want_k45}, Adam {want_adam}, no K1/K2")
@@ -1549,7 +1592,8 @@ def disc_mask(torch, image):
     return (grid.pow(2).sum(dim=1) <= 1.0).float()
 
 
-def family_case(torch, case, dtype, seed, timed, forced_mask=True) -> dict:
+def family_case(torch, case, dtype, seed, timed, forced_mask=True,
+                nm=None) -> dict:
     """One of FAMILY_CASES against the plain version, the operands laid out
     as ``fused_bce_spatial_int8`` and the trainer's target copy lay them
     out: colored over chunk-permuted coords with pre-paired targets, a pixel
@@ -1557,7 +1601,8 @@ def family_case(torch, case, dtype, seed, timed, forced_mask=True) -> dict:
     Float targets arrive in bf16, the compute dtype of the training paths.
     ``forced_mask=False`` leaves the pad unmasked in the kernel's call
     alone: the faulty copy that places the padded family's limits.  With
-    ``timed`` also the call's bound, from the real (unpadded) pixels."""
+    ``timed`` also the call's bound, from the real (unpadded) pixels; ``nm``
+    the numerics (default: the defaults)."""
     import torch.nn.functional as F
     from spatialvae_torch.kernels import fused_loss_int8 as l8
     from spatialvae_torch.train.trainer import build_yt_i8, yt_layout
@@ -1591,7 +1636,7 @@ def family_case(torch, case, dtype, seed, timed, forced_mask=True) -> dict:
         base, (0, pad), value=1.0)
     args = (fold, coords.contiguous(), *ws, yt)
     if kernel_mask is mask:
-        out = _loss_readings(torch, args, mask, family, timed)
+        out = _loss_readings(torch, args, mask, family, timed, nm)
     else:
         with torch.no_grad():
             got = l8.run_loss_int8(*args, kernel_mask, family)
@@ -1756,6 +1801,7 @@ def phase_train_family(torch, name: str, tmpdir: str) -> dict:
     counts = _int8_launches()
     full, tails = TRAIN_EPOCHS * (N_TRAIN // BATCH), TRAIN_EPOCHS
     want = {"k3": {"fwd": full, "grad": full, "dw": full, "sum": 5 * full},
+            "k8": {"fwd": 0, "grad": 0, "dw": 0, "sum": 0},
             "k45": {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
                     "bwd_grad": tails, "dw": tails, "sum": 4 * tails},
             "k12": 0,
@@ -1816,6 +1862,352 @@ def phase_train_family(torch, name: str, tmpdir: str) -> dict:
     del trainer, data, data_t
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the numerics slice: K3 (e), stochastic rounding; K3 (f), the other
+# gradient modes, scales and epilogue; K8, the feature-major kernel's modes
+# of K3's kernels
+# ---------------------------------------------------------------------------
+
+K8_REPLACES = "spatialvae_tpu/kernels/fused_loss_int8_t.py:184"
+# SR's quantised tiles against the plain version's, which draws the same
+# Philox words: the forward site's must agree exactly; at the gradient site
+# a head sum in another order moves q by an ulp across a rounding boundary
+# now and then, as it does for round-to-nearest, so at most this share may
+# differ (placed by `--limits numerics` between the sound kernel and copies
+# drawing the gradient site's words from the forward site's stream or
+# taking u = 0)
+SR_INT_SHARE = 1e-4
+# Philox4x32-10: about 100 integer operations per call (10 rounds of two
+# 32-bit multiplies, their high halves, four xors and the key's two adds)
+PHILOX_OPS = 100
+# the (f) modes at the galaxy shape: (name, environment); i4fwd is i4dw1's
+# alias, i8 and da0_i4 take the tile scale
+NUMERICS_MODES = [
+    ("i8", dict(grad_mode="i8")),
+    ("da0_i4", dict(grad_mode="da0_i4")),
+    ("i4fwd_tile", dict(grad_mode="i4fwd", gscale="tile")),
+    ("i4dw1_epi_f32", dict(epi="f32")),
+    ("i8_epi_f32", dict(grad_mode="i8", epi="f32")),
+]
+# K3 (f) in the other families: (FAMILY_CASES name, numerics)
+NUMERICS_FAMILY = [("bernoulli_pad28", dict(grad_mode="da0_i4", epi="f32")),
+                   ("colored_mask", dict(grad_mode="i8", sr=True))]
+# the trained paths: (tag, environment, targets on the /255 grid, kernel)
+KNOB_PATHS = [
+    ("train_int8_sr", {"SPATIALVAE_SR": "1"}, True, "k3"),
+    ("train_int8_numerics", {"SPATIALVAE_INT4_GRADS": "i8",
+                             "SPATIALVAE_EPI": "f32"}, True, "k3"),
+    ("train_int8_t", {"SPATIALVAE_LOSS_LAYOUT": "t"}, False, "k8"),
+]
+
+
+def _numerics(**kw):
+    from spatialvae_torch.kernels.config import Numerics
+
+    return Numerics(**kw)
+
+
+def k3_bound(b, hw, h, no, wdt_bytes, yt_bytes, masked, sr) -> tuple:
+    """K3's call: its own inputs and outputs once, its three int8 GEMMs
+    (forward, da0, dW1) and the head's three products, and with ``sr`` the
+    Philox calls of both sites (one per 4 columns of each (image, pixel),
+    counted at the CUDA cores' 32-bit rate)."""
+    w_bytes = (h * h + h + no * h + no) * wdt_bytes
+    io = (b * 4 * h * 4 + hw * 2 * 4 + w_bytes + b * no * hw * yt_bytes
+          + (hw * 4 if masked else 0) + b * 4 * h * 4
+          + (h * h + h + no * h + no) * 4)
+    work = [(3 * 2.0 * b * hw * h * h, PEAK_INT8),
+            (3 * 2.0 * b * hw * h * no, PEAK_FP32)]
+    if sr:
+        work.append((2 * b * hw * (h / 4) * PHILOX_OPS, PEAK_FP32))
+    return bound(io, *work)
+
+
+def _check_ints(what, r) -> str:
+    fwd, share = r["ints"]
+    if fwd or share > SR_INT_SHARE:
+        raise AssertionError(f"{what}: quantised tiles differ from the plain "
+                             f"version's: forward {fwd} elements, gradient "
+                             f"share {share}; limits 0, {SR_INT_SHARE}")
+    return f"{fwd}/{share:.2e}"
+
+
+def phase_loss_sr(torch) -> dict:
+    """K3 (e) at the galaxy shape (B=100), bf16 and f32 weights: SR's kernel
+    against its plain version, which draws the same Philox words (the
+    quantised tiles, the five outputs within INT8_TOL), two runs bit for
+    bit, and a call with b1 moved by one ulp (the next step's words) that
+    must round differently."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    res = {}
+    nm = _numerics(sr=True)
+    hw = IMAGE[0] * IMAGE[1]
+    for dtype in ("bfloat16", "float32"):
+        r = loss_case(torch, BATCH, dtype, SEED, True, nm=nm)
+        if not r["same"]:
+            raise AssertionError(f"K3 SR {dtype}: two runs differ")
+        fields = {n: _check_rel(f"K3 SR {dtype} {n}", r[n], INT8_TOL)
+                  for n in ("loss",) + INT8_GRADS}
+        ints = _check_ints(f"K3 SR {dtype}", r)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        fold, coords, ws = _int8_inputs(torch, BATCH, dtype, gen)
+        k = torch.randint(0, 256, (BATCH, CHANNELS, hw), generator=gen,
+                          device=DEVICE)
+        yt = (k - 128).to(torch.int8)
+        b1 = ws[1].clone()
+        b1[0] = torch.nextafter(b1[0], torch.ones_like(b1[0]))
+        with torch.no_grad():
+            _, (aq, _) = l8.run_loss_int8(fold, coords, *ws, yt, None,
+                                          numerics=nm, ints=True)
+            _, (aq2, _) = l8.run_loss_int8(fold, coords, ws[0], b1, *ws[2:],
+                                           yt, None, numerics=nm, ints=True)
+        moved = (aq != aq2).float().mean().item()
+        if not moved > 0.05:
+            raise AssertionError(f"K3 SR {dtype}: another b1 moved only "
+                                 f"{moved} of the forward tile")
+        r["bound"] = k3_bound(BATCH, hw, P_HIDDEN, CHANNELS,
+                              getattr(torch, dtype).itemsize, 1, False, True)
+        log("kernel_loss_sr", B=BATCH, HW=hw, H=P_HIDDEN, No=CHANNELS,
+            dtype=dtype, errors="max_abs/mean_abs/max_rel/mean_rel",
+            **fields, max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+            ints_fwd_differ_grad_share=ints, rerun="bitwise",
+            next_step_fwd_share_moved=f"{moved:.3f}",
+            kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+            bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+        res[dtype] = r
+        del fold, coords, ws, aq, aq2
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_loss_numerics(torch) -> dict:
+    """K3 (f) at the galaxy shape (B=100, bf16 weights) in each of
+    NUMERICS_MODES, and in the padded and colored families
+    (NUMERICS_FAMILY): kernel against plain version, the quantised tiles,
+    two runs bit for bit, ms and bound."""
+    res = {}
+    hw = IMAGE[0] * IMAGE[1]
+    for name, kw in NUMERICS_MODES:
+        nm = _numerics(**kw)
+        r = loss_case(torch, BATCH, "bfloat16", SEED, True, nm=nm)
+        r["bound"] = k3_bound(BATCH, hw, P_HIDDEN, CHANNELS, 2, 1, False,
+                              nm.sr)
+        res[name] = r
+        _log_numerics(name, "bernoulli", hw, CHANNELS, r)
+        torch.cuda.empty_cache()
+    for case_name, kw in NUMERICS_FAMILY:
+        case = next(c for c in FAMILY_CASES if c[0] == case_name)
+        nm = _numerics(**kw)
+        r = family_case(torch, case, "bfloat16", SEED, True, nm=nm)
+        name = f"{case_name}_{nm.grad_mode}_{nm.epi}" + ("_sr" if nm.sr
+                                                        else "")
+        res[name] = r
+        _log_numerics(name, case[1], r["pixels"][0],
+                      2 if case[1] == "colored" else 1, r)
+        torch.cuda.empty_cache()
+    return res
+
+
+def _log_numerics(name, family, hw, no, r) -> None:
+    if not r["same"]:
+        raise AssertionError(f"K3 {name}: two runs differ")
+    fields = {n: _check_rel(f"K3 {name} {n}", r[n], INT8_TOL)
+              for n in ("loss",) + INT8_GRADS}
+    log("kernel_loss_numerics", mode=name, family=family, B=BATCH, HW=hw,
+        H=P_HIDDEN, No=no, dtype="bfloat16",
+        errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
+        max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+        ints_fwd_differ_grad_share=_check_ints(f"K3 {name}", r),
+        kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+        bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+
+
+def k8_case(torch, mode, side, no, dtype, seed, timed) -> dict:
+    """K8 against its plain version on one batch of float targets: each
+    output's errors (db1 apart: the limit copy's target), two runs bit for
+    bit, with ``timed`` ms and the bound (K3 (a)'s three int8 GEMMs at the
+    same shapes, the head's products, its inputs and outputs once)."""
+    from spatialvae_torch.kernels import fused_loss_int8_t as lt
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    hw = side * side
+    fold, coords, whid, bhid, wht, bht = _tail_inputs(
+        torch, BATCH, hw, P_HIDDEN, 1, no, getattr(torch, dtype), gen)
+    ws = (whid[0].contiguous(), bhid[0].contiguous(), wht, bht)
+    yt = torch.rand((BATCH, no, hw), generator=gen, device=DEVICE)
+    fold_t = fold.transpose(1, 2).contiguous()
+    args = (fold_t, coords, *ws, yt)
+    out = {}
+    with torch.no_grad():
+        got = lt.run_loss_int8_t(*args, mode)
+        again = lt.run_loss_int8_t(*args, mode)
+        want = lt.loss_int8_t_reference(*args, mode)
+        out["same"] = all(torch.equal(u, v) for u, v in zip(got, again))
+        out["loss"] = rel_errors(got[0][:, 0, 3], want[0][:, 0, 3])
+        for name, u, v in zip(INT8_GRADS, got, want):
+            out[name] = rel_errors(u, v)
+        del got, again, want
+        if timed:
+            out["ms"], out["plain_ms"] = _timed(
+                torch, lambda: lt.run_loss_int8_t(*args, mode),
+                lambda: lt.loss_int8_t_reference(*args, mode))
+            out["bound"] = k3_bound(BATCH, hw, P_HIDDEN, no,
+                                    getattr(torch, dtype).itemsize, 4,
+                                    False, False)
+    return out
+
+
+# K8 at the galaxy shape and at mnist's 784 pixels (one group of 784)
+K8_CASES = [("i4", 64, CHANNELS), ("i8", 64, CHANNELS), ("i4", 28, 1),
+            ("i8", 28, 1)]
+
+
+def phase_loss_t(torch) -> dict:
+    """K8's two modes at the galaxy shape (B=100, 3 outputs) and at mnist's
+    28x28 (B=100, one output, 784 pixels in one group), bf16 weights."""
+    res = {}
+    for mode, side, no in K8_CASES:
+        r = k8_case(torch, mode, side, no, "bfloat16", SEED, True)
+        if not r["same"]:
+            raise AssertionError(f"K8 {mode} {side}: two runs differ")
+        fields = {n: _check_rel(f"K8 {mode} {side}px {n}", r[n], INT8_TOL)
+                  for n in ("loss",) + INT8_GRADS}
+        log("kernel_loss_t", mode=mode, B=BATCH, HW=side * side,
+            group=1024 if side == 64 else side * side, H=P_HIDDEN, No=no,
+            dtype="bfloat16", targets="float32",
+            errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
+            max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+            kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+            bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+        res[mode, side] = r
+        torch.cuda.empty_cache()
+    return res
+
+
+def off_grid(torch, data, gen):
+    """The images moved off the /255 grid inside [0, 1] (path C's targets
+    stay float, as the JAX trainer leaves off-grid data)."""
+    u = torch.rand(data.shape, generator=gen, device=DEVICE)
+    return (data + (0.2 + 0.2 * u) / 255.0).clamp(0.0, 1.0)
+
+
+def phase_train_knobs(torch, tag, env, on_grid, kernel) -> dict:
+    """The ``[train_int8]`` galaxy trainer (bf16 compute, the TPU's whole
+    stack; same seed and images, moved off the /255 grid for K8) under the
+    knobs ``env`` with SPATIALVAE_ALLOW_KNOBS=1: an evaluation, two epochs
+    whose 20 full batches take ``kernel`` (K3 at the knobs' numerics, or
+    K8) and none of the other, the two tails K4 and K5, an evaluation that
+    must score higher, and one full step and one tail step through the
+    kernels against the same steps through the plain versions.  Returns the
+    launch counts and the step readings."""
+    with env_set(SPATIALVAE_ALLOW_KNOBS="1", **env):
+        trainer, data, gen = int8_galaxy_trainer(torch)
+        if not on_grid:
+            data = off_grid(torch, data, gen)
+        before = _int8_evaluate(torch, trainer, data, 0)
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        rows = trainer.train_epochs(data, 0, TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _int8_launches()
+        full = TRAIN_EPOCHS * (N_TRAIN // BATCH)
+        tails = TRAIN_EPOCHS
+        run = {"fwd": full, "grad": full, "dw": full, "sum": 5 * full}
+        want = {"k3": run if kernel == "k3" else dict.fromkeys(run, 0),
+                "k8": run if kernel == "k8" else dict.fromkeys(run, 0),
+                "k45": {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
+                        "bwd_grad": tails, "dw": tails, "sum": 4 * tails},
+                "k12": 0,
+                "adam": int8_adam_launches(trainer, full + tails,
+                                           seeded=True)}
+        if counts != want:
+            raise AssertionError(f"{tag}: launches {counts}, expected "
+                                 f"{want}")
+        data_t = trainer._dataset_yt(data)
+        if (data_t.dtype == torch.int8) != on_grid:
+            raise AssertionError(f"{tag}: target copy {data_t.dtype}")
+        after = _int8_evaluate(torch, trainer, data, TRAIN_EPOCHS)
+        if not (np.isfinite(rows).all()
+                and np.isfinite(before + after).all()):
+            raise AssertionError(f"{tag}: non-finite metrics {before} {rows} "
+                                 f"{after}")
+        if not after[0] > before[0]:
+            raise AssertionError(f"{tag}: ELBO did not rise: {before[0]} -> "
+                                 f"{after[0]}")
+        worst = int8_step_readings(torch, trainer, data, gen)
+        for kind, (rel, mean_rel, leaf) in worst.items():
+            if not (rel <= INT8_STEP_TOL[0] and mean_rel <= INT8_STEP_TOL[1]):
+                raise AssertionError(f"{tag} {kind} step gradients: kernel "
+                                     f"vs plain {rel} ({leaf}), mean "
+                                     f"{mean_rel}; limits {INT8_STEP_TOL}")
+        log(tag, env=json.dumps(env, separators=(",", ":")),
+            epochs=TRAIN_EPOCHS, steps=full + tails, images=N_TRAIN,
+            compute="bfloat16", stack="shadow+qshadow+int8enc",
+            targets=f"{tuple(data_t.shape)}:{data_t.dtype}",
+            seconds=f"{seconds:.4f}",
+            steps_per_s=f"{(full + tails) / seconds:.3f}",
+            images_per_s=f"{TRAIN_EPOCHS * N_TRAIN / seconds:.1f}",
+            elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
+            epoch_elbo="/".join(f"{r[0]:.3f}" for r in rows),
+            launches=json.dumps(counts, separators=(",", ":")),
+            step_vs_plain_max_rel=f"{worst['k3'][0]:.3e}",
+            step_vs_plain_mean_rel=f"{worst['k3'][1]:.3e}",
+            step_worst_leaf=worst["k3"][2],
+            step_tail_vs_plain_max_rel=f"{worst['k4k5'][0]:.3e}",
+            step_tail_vs_plain_mean_rel=f"{worst['k4k5'][1]:.3e}")
+        del trainer, data, data_t
+    torch.cuda.empty_cache()
+    return {"counts": counts, "worst": worst}
+
+
+def phase_limits_numerics(torch) -> None:
+    """``--limits numerics``: this slice's readings for the sound library
+    and for copies built with one step broken, over three seeds: the
+    gradient site drawing the forward site's words (-DSVT_SR_SAME_SITE=1),
+    u = 0, i.e. rounding down (-DSVT_SR_FLOOR=1), and K8's db1 from the
+    pre-round q (-DSVT_T_DB1_PREROUND=1); they place INT8_TOL and
+    SR_INT_SHARE for K3 (e), (f) and K8."""
+    from spatialvae_torch.kernels import _build
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    for defines in ((), ("-DSVT_SR_SAME_SITE=1",), ("-DSVT_SR_FLOOR=1",),
+                    ("-DSVT_T_DB1_PREROUND=1",)):
+        lib = _build.load_library(defines)
+        d8._lib = l8._lib = (lambda lib=lib: lib)
+        worst = {}
+        for seed in range(3):
+            for dtype in ("bfloat16", "float32"):
+                r = loss_case(torch, BATCH, dtype, seed, False,
+                              nm=_numerics(sr=True))
+                for n in ("loss",) + INT8_GRADS:
+                    worst["K3_sr", dtype] = _wmax(
+                        worst.get(("K3_sr", dtype), (0, 0)), r[n][2:])
+                worst["K3_sr_ints", dtype] = _wmax(
+                    worst.get(("K3_sr_ints", dtype), (0, 0)), r["ints"])
+            for name, kw in NUMERICS_MODES:
+                r = loss_case(torch, BATCH, "bfloat16", seed, False,
+                              nm=_numerics(**kw))
+                for n in ("loss",) + INT8_GRADS:
+                    worst["K3_f", name] = _wmax(
+                        worst.get(("K3_f", name), (0, 0)), r[n][2:])
+                worst["K3_f_ints", name] = _wmax(
+                    worst.get(("K3_f_ints", name), (0, 0)), r["ints"])
+            for mode, side, no in K8_CASES:
+                r = k8_case(torch, mode, side, no, "bfloat16", seed, False)
+                k = ("K8", f"{mode}_{side}")
+                for n in ("loss",) + INT8_GRADS:
+                    worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+                worst[k + ("db1",)] = _wmax(worst.get(k + ("db1",), (0, 0)),
+                                            r["db1"][2:])
+            torch.cuda.empty_cache()
+        log("limits", build=" ".join(defines) or "sound",
+            **{"/".join(map(str, k)): f"{a:.3e}/{m:.3e}"
+               for k, (a, m) in sorted(worst.items())})
 
 
 # ---------------------------------------------------------------------------
@@ -2073,7 +2465,7 @@ def phase_adam_emit_kernels(torch) -> dict:
 
 
 def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
-                fam_counts) -> list:
+                fam_counts, knobs) -> list:
     """The per-kernel JSON records: K1 and K2 at the float path's galaxy
     f32 shapes (B=100), K3 at the int8 training step's (bf16 weights,
     B=100), K4 without a1 at the evaluation's (B=100) and with a1, K5 at
@@ -2202,6 +2594,19 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
          torch_sum_ms(torch, [(tb, hw // 64, 3 * h), (1, splits, h * h),
                               (1, t_blocks, mw)])),
     ]
+    # this slice: K3 (e) and (f) and K8, each whole call at the galaxy
+    # shape (bf16 weights, B=100; K3 (f) in the mode its epoch trains);
+    # launches: its trained path's calls
+    for row, rep_, r, nl in (
+            ("int8_loss_sr", K3_REPLACES, res["sr"]["bfloat16"],
+             knobs["train_int8_sr"]["counts"]["k3"]["fwd"]),
+            ("int8_loss_numerics", K3_REPLACES, res["numerics"]["i8_epi_f32"],
+             knobs["train_int8_numerics"]["counts"]["k3"]["fwd"]),
+            ("int8_loss_t", K8_REPLACES, res["t"]["i4", 64],
+             knobs["train_int8_t"]["counts"]["k8"]["fwd"])):
+        rows.append((row, LOSS_SOURCE, rep_, nl,
+                     max(r[n][0] for n in INT8_GRADS), r["ms"],
+                     r["plain_ms"], r["bound"], None))
     # Adam: K6 rows time one step's Adam over the 13 galaxy leaves (13
     # launches), K7 and the helpers the two big encoder weights; library:
     # torch._fused_adam_ on float32 copies of the same leaves
@@ -2241,11 +2646,18 @@ def main() -> int:
     phase_build()
     if sys.argv[1:] == ["--limits"]:
         phase_limits(torch)
+        phase_limits_numerics(torch)
+        return 0
+    if sys.argv[1:] == ["--limits", "numerics"]:
+        phase_limits_numerics(torch)
         return 0
     res = phase_kernels(torch)
     bwd = phase_backward(torch)
     res["int8"] = phase_int8_kernels(torch)
     res["families"] = phase_loss_families(torch)
+    res["sr"] = phase_loss_sr(torch)
+    res["numerics"] = phase_loss_numerics(torch)
+    res["t"] = phase_loss_t(torch)
     res["adam"] = phase_adam_kernels(torch)
     res["adam_emit"] = phase_adam_emit_kernels(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -2254,10 +2666,12 @@ def main() -> int:
         i8 = phase_train_int8(torch, tmpdir)
         fam_counts = {name: phase_train_family(torch, name, tmpdir)
                       for name in FAMILY_MODELS}
+        knobs = {tag: phase_train_knobs(torch, tag, env, on_grid, kernel)
+                 for tag, env, on_grid, kernel in KNOB_PATHS}
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     rows = kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
-                       fam_counts)
+                       fam_counts, knobs)
     for r in rows:
         if r[3] < 1:
             raise AssertionError(f"{r[0]} was not launched on its path")

@@ -51,8 +51,10 @@ _SIGNATURES = {
     "svt_int8_decoder_bwd_scale": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "svt_int8_decoder_bwd_grad": ([_P] * 16 + [_I] * 7 + [_P], _I),
     "svt_int8_grouped_dw": ([_P] * 4 + [_I] * 6 + [_P], _I),
-    "svt_loss_int8_fwd": ([_P] * 12 + [_I] * 8 + [_P], _I),
-    "svt_loss_int8_grad": ([_P] * 16 + [_I] * 7 + [_P], _I),
+    "svt_loss_int8_fwd": ([_P] * 12 + [_I] * 8 + [_F, _I, _P], _I),
+    "svt_loss_int8_grad": ([_P] * 16 + [_I] * 7 + [_F, _F, _I, _F, _P], _I),
+    "svt_philox4x32_10": ([_P, _P, _I, ctypes.c_uint, ctypes.c_uint, _P],
+                          _I),
 }
 
 

@@ -1,70 +1,176 @@
-"""The numerics knobs of the int8 kernels and of Adam.
+"""The numerics knobs of the int8 kernels and of Adam: one resolved config.
 
-The JAX package (``spatialvae_tpu/kernels/config.py``) reads four
-environment variables that change what its fused int8 loss kernel (K3)
-computes: ``SPATIALVAE_INT4_GRADS`` (gradient mode, default ``i4dw1``),
-``SPATIALVAE_GSCALE`` (gradient scale, default ``bound``),
-``SPATIALVAE_EPI`` (epilogue precision, default ``bf16``) and
-``SPATIALVAE_SR`` (stochastic rounding when ``1``, default off).  The port
-implements the defaults only: ``check_knobs`` refuses any other value, so
-no wrapper ever runs other numerics than asked for.  The JAX package's
+The JAX package (``spatialvae_tpu/kernels/config.py``) reads eleven
+environment variables that change what its kernels compute (its
+``NUMERICS_FIELDS``), each with a validated default, into one frozen
+``KernelConfig``; its trainer refuses any value off a default unless
+``SPATIALVAE_ALLOW_KNOBS=1``.  The port reads the same eleven variables
+into one frozen ``Numerics`` (``Numerics.from_env``), which every call site
+reads through ``numerics()``:
+
+- ``SPATIALVAE_INT4_GRADS`` (``grad_mode``: ``i4dw1`` by default, ``i4fwd``,
+  ``da0_i4``, ``i8``), ``SPATIALVAE_GSCALE`` (``bound`` or ``tile``; the
+  loss kernel takes ``tile`` for ``i8`` and ``da0_i4`` whatever it says),
+  ``SPATIALVAE_EPI`` (``bf16`` or ``f32``) and ``SPATIALVAE_SR`` (stochastic
+  rounding when ``1``): the fused int8 loss kernel K3, implemented at every
+  value (ROADMAP Queue 2 K3 (e), (f));
+- ``SPATIALVAE_LOSS_LAYOUT`` (``row`` or ``t``) and
+  ``SPATIALVAE_INT4_GRADS_T`` (``i4`` or ``i8``): ``t`` routes the Bernoulli
+  steps without a mask and with float targets to the feature-major loss
+  kernel K8 (``kernels/fused_loss_int8_t.py``), as in JAX;
+- ``SPATIALVAE_ADAM_EMIT`` (``xla`` or ``pallas``): how Adam emits the int8
+  copies of the big encoder weights (``pallas`` is K7);
+- ``SPATIALVAE_TANH`` (``exact`` or ``pade``), ``SPATIALVAE_A1Q``,
+  ``SPATIALVAE_DB1`` (``chain`` or ``qi``) and ``SPATIALVAE_PHASE_CUT``
+  (8): the JAX package's measurement levers, not ported (ROADMAP Queue 2
+  K3 (g)).
+
+``numerics()`` raises ``ValueError`` on a value JAX would reject,
+``RuntimeError`` on any value off its default unless
+``SPATIALVAE_ALLOW_KNOBS=1`` (JAX's ``check_numerics_default``), and
+``NotImplementedError`` naming K3 (g) on the four levers above even then.
+``Trainer`` checks at every construction, as the JAX trainer does, and the
+kernel wrappers resolve their numerics through it at every call, so no
+wrapper ever runs other numerics than asked for.  The JAX package's
 Mosaic/VMEM knobs shape the TPU schedule only and have no counterpart here.
 
-Two knobs select Adam's numerics, and the port implements both values of
-each:
-
-- ``SPATIALVAE_ADAM_EMIT`` (``xla`` by default, or ``pallas``): how the
-  int8 copies of the big encoder weights are emitted.  ``xla`` quantises
-  p' with a fresh scale after K6; ``pallas`` takes K7, which quantises with
-  the scale carried from the previous step.  As in the JAX package, a value
-  off the default needs ``SPATIALVAE_ALLOW_KNOBS=1`` (the JAX
-  ``check_numerics_default``).
-- ``SPATIALVAE_ADAM_MOMENTS`` (``f32`` by default, or ``bf16``): the
-  moments' storage dtype.  The JAX package reads any other value as
-  ``f32``; the port refuses it.
-
-``SPATIALVAE_PALLAS_ADAM`` only schedules the TPU's per-leaf kernel against
-XLA's fusion there (same numbers either way); the port runs K6 on the card
-whatever it says, and reads it nowhere.
+``SPATIALVAE_ADAM_MOMENTS`` (``f32`` by default, or ``bf16``) sets the Adam
+moments' storage dtype; the JAX package reads any other value as ``f32``,
+the port refuses it.  ``SPATIALVAE_PALLAS_ADAM`` only schedules the TPU's
+per-leaf kernel against XLA's fusion there (same numbers either way); the
+port runs K6 on the card whatever it says, and reads it nowhere.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass, fields
 
 import torch
 
-# variable -> (default, the ROADMAP Queue 2 item that would port the others)
-_KNOBS = {"SPATIALVAE_INT4_GRADS": ("i4dw1", "K3 (f)"),
-          "SPATIALVAE_GSCALE": ("bound", "K3 (f)"),
-          "SPATIALVAE_EPI": ("bf16", "K3 (f)"),
-          "SPATIALVAE_SR": ("0", "K3 (e)")}
-
+GRAD_MODES = ("i8", "da0_i4", "i4fwd", "i4dw1")
 ADAM_EMITS = ("xla", "pallas")
 _MOMENTS = {"f32": torch.float32, "bf16": torch.bfloat16}
+# the JAX package's measurement levers that the port has not ported
+UNPORTED = ("tanh", "a1q", "db1", "phase_cut")
+
+
+def _choice(name: str, default: str, choices) -> str:
+    v = os.environ.get(name, default)
+    if v not in choices:
+        raise ValueError(f"{name} must be one of {sorted(choices)}, got {v!r}")
+    return v
+
+
+def _flag(name: str) -> bool:
+    return os.environ.get(name, "0") == "1"
+
+
+def _int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        raise ValueError(f"{name} must be an integer, got {v!r}")
+
+
+@dataclass(frozen=True)
+class Numerics:
+    """The JAX ``KernelConfig``'s numerics fields; defaults are its."""
+
+    grad_mode: str = "i4dw1"
+    gscale: str = "bound"
+    epi: str = "bf16"
+    tanh: str = "exact"
+    sr: bool = False
+    a1q: bool = False
+    db1: str = "chain"
+    phase_cut: int = 8
+    layout: str = "row"
+    grad_mode_t: str = "i4"
+    adam_emit: str = "xla"
+
+    @classmethod
+    def from_env(cls) -> "Numerics":
+        """Every field from its variable, as the JAX ``from_env`` reads it;
+        ``ValueError`` on a value it would reject."""
+        return cls(
+            grad_mode=_choice("SPATIALVAE_INT4_GRADS", cls.grad_mode,
+                              GRAD_MODES),
+            gscale=_choice("SPATIALVAE_GSCALE", cls.gscale, ("tile", "bound")),
+            epi=_choice("SPATIALVAE_EPI", cls.epi, ("bf16", "f32")),
+            tanh=_choice("SPATIALVAE_TANH", cls.tanh, ("exact", "pade")),
+            sr=_flag("SPATIALVAE_SR"),
+            a1q=_flag("SPATIALVAE_A1Q"),
+            db1=_choice("SPATIALVAE_DB1", cls.db1, ("chain", "qi")),
+            phase_cut=_int("SPATIALVAE_PHASE_CUT", cls.phase_cut),
+            layout=_choice("SPATIALVAE_LOSS_LAYOUT", cls.layout, ("row", "t")),
+            grad_mode_t=_choice("SPATIALVAE_INT4_GRADS_T", cls.grad_mode_t,
+                                ("i8", "i4")),
+            adam_emit=_choice("SPATIALVAE_ADAM_EMIT", cls.adam_emit,
+                              ADAM_EMITS))
+
+    def drift(self) -> list:
+        """The fields off their defaults."""
+        return [f.name for f in fields(self)
+                if getattr(self, f.name) != f.default]
+
+    def check(self) -> "Numerics":
+        """Raise ``NotImplementedError`` for a field the port has not ported
+        (ROADMAP Queue 2 K3 (g)); returns self."""
+        off = [n for n in self.drift() if n in UNPORTED]
+        if off:
+            raise NotImplementedError(
+                f"kernel knob(s) {off} are not ported yet (ROADMAP Queue 2 "
+                f"K3 (g)); the port runs them at their defaults only")
+        return self
+
+    # ---- what K3 computes under these numerics (the JAX _lossgrad_pallas)
+    @property
+    def k3_gscale(self) -> str:
+        """The gradient scale K3 takes: ``bound`` needs the 4-bit forward,
+        so ``i8`` and ``da0_i4`` take ``tile``."""
+        return self.gscale if self.grad_mode in ("i4fwd", "i4dw1") else "tile"
+
+    @property
+    def fwd_level(self) -> int:
+        """a0's quantisation level: 7 (4-bit forward, per-column 4-bit W1)
+        or 127 (int8 forward, per-tensor int8 W1)."""
+        return 7 if self.grad_mode in ("i4fwd", "i4dw1") else 127
+
+    @property
+    def grad_level(self) -> int:
+        """The gradient tile's level: 127 for ``i8``, else 7."""
+        return 127 if self.grad_mode == "i8" else 7
+
+
+def numerics() -> Numerics:
+    """The environment's numerics, checked: ``ValueError`` on a value JAX
+    would reject, ``RuntimeError`` on a value off its default unless
+    ``SPATIALVAE_ALLOW_KNOBS=1``, ``NotImplementedError`` on a lever not
+    ported (K3 (g))."""
+    n = Numerics.from_env()
+    drift = n.drift()
+    if drift and os.environ.get("SPATIALVAE_ALLOW_KNOBS") != "1":
+        raise RuntimeError(
+            f"numerics-changing kernel knob(s) off their validated default: "
+            f"{drift}; unset them, or set SPATIALVAE_ALLOW_KNOBS=1 to accept "
+            f"off-default numerics")
+    return n.check()
 
 
 def check_knobs() -> None:
-    """Raise ``NotImplementedError`` when the environment sets a knob off its
-    default (``SPATIALVAE_SR`` counts as set only at ``1``, as in JAX)."""
-    for env, (default, item) in _KNOBS.items():
-        v = os.environ.get(env, default)
-        if env == "SPATIALVAE_SR":
-            v = "1" if v == "1" else "0"
-        if v != default:
-            raise NotImplementedError(
-                f"{env}={v!r} is not ported yet (ROADMAP Queue 2 {item}); "
-                f"the port runs the int8 kernels at the defaults only")
+    """``numerics()`` for its checks alone (``Trainer`` at construction)."""
+    numerics()
 
 
 def adam_emit() -> str:
     """``SPATIALVAE_ADAM_EMIT``: ``xla`` (default) or ``pallas``; raises
     ``ValueError`` on another value, and ``RuntimeError`` on ``pallas``
     unless ``SPATIALVAE_ALLOW_KNOBS=1``."""
-    v = os.environ.get("SPATIALVAE_ADAM_EMIT", ADAM_EMITS[0])
-    if v not in ADAM_EMITS:
-        raise ValueError(f"SPATIALVAE_ADAM_EMIT must be one of "
-                         f"{sorted(ADAM_EMITS)}, got {v!r}")
+    v = Numerics.from_env().adam_emit
     if v != ADAM_EMITS[0] and os.environ.get("SPATIALVAE_ALLOW_KNOBS") != "1":
         raise RuntimeError(
             f"SPATIALVAE_ADAM_EMIT={v!r} changes the training numerics (a "

@@ -14,6 +14,10 @@
 // Row strides are padded so that every fragment load of a warp hits 32
 // banks.
 //
+// The loss kernels' first layer (`first_layer_qx`) quantises four columns
+// per thread, at either level, rounding to nearest or stochastically with
+// Philox4x32-10 words (one call per four columns of a pixel).
+//
 // The quantisation rounds to nearest even (rintf), as jnp.round does.  Two
 // build-time switches exist only to place the kernels' error limits against
 // copies with one step removed: -DSVT_INT8_RTZ=1 rounds every quantisation
@@ -56,6 +60,42 @@ static_assert(WARPS * MAX_NO * PT * 4 <= RING_BYTES,
               "the head's cross-warp partials fit the ring");
 
 __host__ __device__ constexpr int padded_k(int h) { return (h + 63) / 64 * 64; }
+
+// ---- stochastic rounding: Philox4x32-10 (Salmon et al., SC'11), the same
+// generator as kernels/philox.py.  A draw of the loss kernel is keyed by (the
+// f32 bits of b1[0], the site) and counted by (image, decoder row, column/4,
+// 0): one call serves four columns, and a word does not depend on the block,
+// the chunk or the order of evaluation, so the forward site draws the same
+// words in both passes and the plain version draws them too.
+constexpr uint32_t SITE_FWD = 0x51A7E001u;
+constexpr uint32_t SITE_GRAD = 0x51A7E002u;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& w, int j) {
+  return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
+}
+
+// clip(floor(x + u), -lv, lv), u = f32((bits & 0x7FFFFF) | 0x3F800000) - 1,
+// x + u rounded once: the JAX _sr_int.  A zero stays zero.
+__device__ __forceinline__ float sr_round(float x, uint32_t bits, float lv) {
+  const float u = __fsub_rn(__uint_as_float((bits & 0x7FFFFFu) | 0x3F800000u),
+                            1.f);
+  return fminf(fmaxf(floorf(__fadd_rn(x, u)), -lv), lv);
+}
 
 // Round to bf16 and back: the cast of a product operand with bf16 weights,
 // and every step of a bf16 elementwise chain (the product or difference of
@@ -156,6 +196,57 @@ __device__ __forceinline__ void first_layer_q(const float* __restrict__ fold,
   }
 }
 
+// The loss kernels' quantised first layer of pixels p0 .. p0+63 of image b
+// into the (PT, AS) tile: q = clip(round(lf * a0), -lf, lf), a0 =
+// tanh(x0*w0 + x1*w1 + c), or with `sr` clip(floor(lf*a0 + u), -lf, lf) with
+// the forward site's words; `tile4` (if not null) gets clip(round(7 * a0),
+// -7, 7) beside it (the feature-major kernel's 4-bit dW1 operand).  Thread
+// i owns columns 4*(i % 128) .. +3 of pixels i/128, i/128 + 4, ...; columns
+// past H and pixels past HW are zero.  The caller syncs before another
+// thread reads the tiles.
+__device__ __forceinline__ void first_layer_qx(
+    const float* __restrict__ fold, const float* __restrict__ coords, int b,
+    int p0, int HW, int H, float lf, bool sr, uint32_t seed, int8_t* tile,
+    int8_t* tile4) {
+  const int quad = threadIdx.x % (MAX_H / 4), k0 = 4 * quad;
+  if (k0 >= padded_k(H)) return;
+  const float* f = fold + size_t(b) * 4 * H;
+  float w0[4], w1[4], c[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool on = k0 + j < H;
+    w0[j] = on ? f[k0 + j] : 0.f;
+    w1[j] = on ? f[H + k0 + j] : 0.f;
+    c[j] = on ? f[2 * H + k0 + j] : 0.f;
+  }
+  for (int p = threadIdx.x / (MAX_H / 4); p < PT; p += NT / (MAX_H / 4)) {
+    const int pix = p0 + p;
+    uint32_t packed = 0, packed4 = 0;
+    if (pix < HW) {
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (sr) w = philox4x32_10(make_uint4(b, pix, quad, 0u), seed, SITE_FWD);
+      const float x0 = coords[2 * pix], x1 = coords[2 * pix + 1];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k0 + j >= H) continue;
+        const float a0 = tanhf(first_h0(x0, x1, w0[j], w1[j], c[j]));
+        const float v = __fmul_rn(a0, lf);
+        const float q = sr ? sr_round(v, word_of(w, j), lf)
+                           : fminf(fmaxf(qround(v), -lf), lf);
+        packed |= uint32_t(uint8_t(int8_t(q))) << (8 * j);
+        if (tile4 != nullptr) {
+          const float q4 =
+              fminf(fmaxf(qround(__fmul_rn(a0, 7.f)), -7.f), 7.f);
+          packed4 |= uint32_t(uint8_t(int8_t(q4))) << (8 * j);
+        }
+      }
+    }
+    *reinterpret_cast<uint32_t*>(tile + p * AS + k0) = packed;
+    if (tile4 != nullptr)
+      *reinterpret_cast<uint32_t*>(tile4 + p * AS + k0) = packed4;
+  }
+}
+
 // acc = tile (PT, Kp) int8 @ W, W given as rows of its transpose: Wt[n][k]
 // (Kp, Kp) int8 in global memory.  Starts with a barrier (tile written,
 // ring free) and ends with one (every read of the tile and the ring done).
@@ -250,11 +341,13 @@ __device__ __forceinline__ void tile_to_feature_major(const int8_t* tile,
 }
 
 // z[o][p] = sum_n wht[o][n] * v[p][n] over the block's (PT, H) values held
-// in the accumulator layout (v zero for n >= H), for o < No: per-thread
+// in the accumulator layout (v zero for n >= H; RB: v rounded to bf16 at
+// use), for o < No: per-thread
 // partials, a shuffle over the t lanes, then the 16 warps' partials through
 // `red` (WARPS * MAX_NO * PT floats) summed in warp order by thread o*PT+p.
 // Returns z (without bias) for tid < No*PT; the caller syncs before reusing
 // `red`.
+template <bool RB = false>
 __device__ __forceinline__ float head_dot(
     const float (&v)[MTILES][NTILES][4], const float* __restrict__ wht,
     int H, int No, float* red) {
@@ -273,7 +366,8 @@ __device__ __forceinline__ float head_dot(
         const float w = n < H ? __ldg(wht + size_t(o) * H + n) : 0.f;
 #pragma unroll
         for (int mt = 0; mt < MTILES; ++mt)
-          part[mt][c >> 1] = fmaf(w, v[mt][nt][c], part[mt][c >> 1]);
+          part[mt][c >> 1] = fmaf(w, RB ? rb(v[mt][nt][c]) : v[mt][nt][c],
+                                  part[mt][c >> 1]);
       }
 #pragma unroll
     for (int mt = 0; mt < MTILES; ++mt)

@@ -74,9 +74,12 @@ def reset_launches() -> None:
 
 
 def can_fuse_int8(cfg: SpatialGeneratorConfig, hw: int) -> bool:
-    """The JAX package's gate, unchanged."""
+    """The JAX package's gate plus tanh, which the kernels hard-code and the
+    JAX gate never checked (ROADMAP Queue 3): a relu, leakyrelu or sigmoid
+    decoder takes the plain folded decoder."""
     return (not cfg.expand_coords and not cfg.bilinear and not cfg.resid
-            and cfg.num_layers == 2 and cfg.n_out <= 8 and hw >= 256)
+            and cfg.num_layers == 2 and cfg.n_out <= 8 and hw >= 256
+            and cfg.activation == "tanh")
 
 
 def pick_tile(hw: int) -> int:

@@ -7,11 +7,13 @@ Counterpart of ``spatialvae_tpu/kernels/fused_loss_int8.py`` (Pallas
 Gaussian (``n_out`` 1) and colored (``n_out`` 2, the fit-noise mean and
 log-variance), each with or without a pixel mask, over a tile-aligned
 pixel count (Bernoulli and Gaussian also over a padded one: 784 -> 1024,
-4225 -> 4352), at the default numerics of ``kernels/config.py`` (grad_mode
-i4dw1, gscale bound, bf16 epilogue, round to nearest even).  One call
+4225 -> 4352), at every numerics setting of ``kernels/config.py`` but the
+four measurement levers of ROADMAP Queue 2 K3 (g) (``TANH``, ``A1Q``,
+``DB1``, ``PHASE_CUT``), which raise ``NotImplementedError``.  One call
 computes, for the foldable 2-layer decoder, the summed loss and every
-decoder gradient (written for the Bernoulli family; the other two change
-the loss and dz2 lines alone):
+decoder gradient; at the default numerics (grad_mode i4dw1, gscale bound,
+bf16 epilogue, round to nearest even), for the Bernoulli family (the other
+two change the loss and dz2 lines alone):
 
     host, once per call:
       W1f, sf = quant_sym4(w1^T)^T  (per-column 4-bit), h1s = sf/7
@@ -43,12 +45,28 @@ the loss and dz2 lines alone):
     a mask forced whose pad entries are 0, so dz2 and the loss term vanish
     on the pad and the result is the unpadded one.
 
+The other numerics (the JAX ``_Phases`` p5-p7 and ``_lossgrad_pallas``
+:930-1034; ``Numerics``):
+
+    grad_mode i8, da0_i4: the int8 forward, aq = round(127*a0) on W1 with one
+      int8 scale sw (``quant_sym``), h1s = sw/127, dW1's step sg/127, tanh'
+      from aq/127; i8 also takes the gradient tile at 127 levels with da0 on
+      the int8 W1 (s4 = sw); both take the tile scale.  i4fwd is i4dw1.
+    gscale tile: maxv = max|dh1| over the group + 1e-30, dh1 = bf16(da1) *
+      tanh'(a1c) in the weight dtype; qs = bf16(lv/maxv), sg = 1/qs, q =
+      dh1*qs (rounded to bf16 with bf16 weights); db1 = sum dh1.
+    epi f32: a1 kept in f32 for the tanh' chain (tile: dh1 = da1*(1 - a1^2),
+      qs = lv/maxv, sg = maxv/lv), dh0 = bf16(da0 * (1 - a0d^2)) in f32.
+    sr: both quantisation sites round stochastically, clip(floor(x + u)),
+      with Philox4x32-10 words keyed by b1[0]'s bits (``kernels/philox.py``).
+      The JAX package cannot run SR off the TPU (its interpret mode rounds
+      to nearest); the port draws the same words on the CPU and the card.
+
 ``loss_int8_reference`` is the plain PyTorch version, with the integer
 products exact.  ``run_loss_int8`` takes it for CPU tensors and launches
-the kernels (``csrc/fused_loss_int8.cu``) for CUDA tensors, or raises.
-Numerics off the default knobs (stochastic rounding (e), the other
-gradient modes, scales and epilogue (f)) are not ported and raise
-``NotImplementedError`` (``kernels/config.check_knobs``).
+the kernels (``csrc/fused_loss_int8.cu``) for CUDA tensors, or raises; it
+never rounds to nearest where SR was asked for.  ``launch_loss`` also runs
+the feature-major kernel K8's modes (``fused_loss_int8_t``).
 """
 
 from __future__ import annotations
@@ -59,7 +77,7 @@ import torch
 import torch.nn.functional as F
 
 from spatialvae_torch.config import SpatialGeneratorConfig
-from spatialvae_torch.kernels.config import check_knobs
+from spatialvae_torch.kernels.config import Numerics, numerics
 from spatialvae_torch.kernels.fused_decoder import (
     _call,
     _first_layer,
@@ -77,14 +95,26 @@ from spatialvae_torch.kernels.fused_decoder_int8 import (
     image_chunks,
     pad_square,
     padded_hidden,
+    quant_sym,
     run_grouped_dw,
 )
 from spatialvae_torch.models.spatial import (
     SpatialGenerator,
     fold_pose_into_first_layer,
 )
+from spatialvae_torch.kernels.philox import (
+    SITE_FWD,
+    SITE_GRAD,
+    f32_bits,
+    site_words,
+    sr_round,
+)
 from spatialvae_torch.precision import fp32_precision
 
+DEFAULTS = Numerics()
+# the feature-major kernel's (K8) constant pad-row activation, quantised:
+# round(7 * tanh(atanh(1/7))) = 1, round(127 * tanh(atanh(1/7))) = 18
+PAD_K = {"i4": 1.0, "i8": 18.0}
 FAMILIES = ("bernoulli", "gaussian", "colored")
 
 # Kernel launches on CUDA tensors: the forward pass (loss, dz2 and each
@@ -127,8 +157,9 @@ def padded_hw(hw: int) -> int:
 
 def can_fuse_loss_int8(cfg: SpatialGeneratorConfig, hw: int,
                        likelihood: str) -> bool:
-    """The JAX gate, unchanged: whether this config goes to the loss
-    kernel."""
+    """The JAX gate plus tanh, which the kernels hard-code and the JAX gate
+    never checked (ROADMAP Queue 3): whether this config goes to the loss
+    kernel.  Another activation takes the plain decoder and likelihood."""
     if likelihood == "gaussian":
         if cfg.n_out != 1:
             return False
@@ -138,7 +169,7 @@ def can_fuse_loss_int8(cfg: SpatialGeneratorConfig, hw: int,
     elif likelihood != "bernoulli":
         return False
     if not (not cfg.expand_coords and not cfg.bilinear and not cfg.resid
-            and not cfg.softplus
+            and not cfg.softplus and cfg.activation == "tanh"
             and cfg.num_layers == 2 and cfg.n_out <= 8):
         return False
     if likelihood == "colored":
@@ -146,12 +177,13 @@ def can_fuse_loss_int8(cfg: SpatialGeneratorConfig, hw: int,
     return hw >= 768 and hw_tiles_ok(padded_hw(hw))
 
 
-def check_ported(hw: int, likelihood: str) -> None:
-    """Raise ``NotImplementedError`` for a config the JAX loss kernel takes
-    and the port has not ported.  Every likelihood family and pixel count of
-    ``can_fuse_loss_int8`` is ported; what is left are the numerics off the
-    default knobs (ROADMAP Queue 2 K3 (e), (f))."""
-    check_knobs()
+def check_ported(hw: int, likelihood: str) -> Numerics:
+    """The numerics a config that the JAX loss kernel takes runs at, or
+    raise for what the port has not ported.  Every likelihood family and
+    pixel count of ``can_fuse_loss_int8`` is ported, at every numerics
+    setting but the four levers of ROADMAP Queue 2 K3 (g)
+    (``kernels/config.numerics``)."""
+    return numerics()
 
 
 def colored_coords(coords: torch.Tensor, pt: int) -> torch.Tensor:
@@ -179,15 +211,29 @@ def colored_mask(mask: torch.Tensor) -> torch.Tensor:
     return mask.float().reshape(-1, 2).T.contiguous()
 
 
-def loss_operands(w1: torch.Tensor, wht: torch.Tensor) -> tuple:
-    """The host-side operands of the JAX ``_lossgrad_pallas`` at the default
-    knobs: (W1f (H, H) int8 [in][out] with per-column scales, h1s (H,),
-    gb 0-d, W1r (H, H) int8 [in][out] with per-row scales, s4 (H,))."""
-    wf4t, sf4 = quant_sym4(w1.T)
-    h1s = sf4 * (1.0 / 7.0)
+def loss_operands(w1: torch.Tensor, wht: torch.Tensor,
+                  nm: Numerics = DEFAULTS) -> tuple:
+    """The host-side operands of the JAX ``_lossgrad_pallas``: (W1f (H, H)
+    int8 [in][out], the forward's weights; h1s (H,), its dequant row; gb 0-d,
+    the analytic gradient bound; W1r (H, H) int8 [in][out], da0's weights;
+    s4 (H,), da0's per-row scales).  The 4-bit forward (``i4dw1``,
+    ``i4fwd``) takes W1 with per-column 4-bit scales, h1s = sf/7; the int8
+    forward (``i8``, ``da0_i4``) W1 with one int8 scale sw, h1s = sw/127.
+    da0 takes per-row 4-bit W1 (s4 its scales), or for ``i8`` the int8 W1
+    with s4 = sw throughout."""
+    h = w1.shape[0]
+    if nm.fwd_level == 7:
+        wf4t, sf4 = quant_sym4(w1.T)
+        w1f, h1s = wf4t.T, sf4 * (1.0 / 7.0)
+    else:
+        w1f, sw = quant_sym(w1)
+        h1s = (sw * (1.0 / 127.0)).expand(h)
     gb = wht.float().abs().sum(dim=0).max() + 1e-30
-    w1r, s4 = quant_sym4(w1)
-    return wf4t.T, h1s, gb, w1r, s4
+    if nm.grad_mode == "i8":
+        w1r, s4 = w1f, sw.expand(h)
+    else:
+        w1r, s4 = quant_sym4(w1)
+    return w1f, h1s, gb, w1r, s4
 
 
 def targets_f32(y_t: torch.Tensor) -> torch.Tensor:
@@ -205,6 +251,11 @@ def _bf(t: torch.Tensor) -> torch.Tensor:
     return t.to(_BF16)
 
 
+def _rb(t: torch.Tensor, wdt: torch.dtype) -> torch.Tensor:
+    """t rounded to the weight dtype, as f32."""
+    return t.to(wdt).float() if wdt == _BF16 else t
+
+
 def tanh_prime(a1c: torch.Tensor, wdt: torch.dtype) -> torch.Tensor:
     """1 - a1c*a1c in the weight dtype, as f32: with bf16 weights each of
     the two ops rounds to bf16 (the JAX kernel's ``one - a1c * a1c``)."""
@@ -214,11 +265,30 @@ def tanh_prime(a1c: torch.Tensor, wdt: torch.dtype) -> torch.Tensor:
     return 1.0 - a1c * a1c
 
 
-def dh0_bf16(da0: torch.Tensor, aq: torch.Tensor) -> torch.Tensor:
+def dh0_bf16(da0: torch.Tensor, aq: torch.Tensor,
+             inv: float = 1.0 / 7.0) -> torch.Tensor:
     """The bf16 dh0 chain, as f32: bf16(da0) * (1 - a0d*a0d) with a0d =
-    bf16(aq) * bf16(1/7), every op rounding to bf16."""
-    a0d = _bf(aq) * torch.tensor(1.0 / 7.0, dtype=_BF16)
+    bf16(aq) * bf16(inv), every op rounding to bf16; ``inv`` is a0's
+    dequant step (1/7, or 1/127 for the int8 forward)."""
+    a0d = _bf(aq) * torch.tensor(inv, dtype=_BF16)
     return (_bf(da0) * (1.0 - a0d * a0d)).float()
+
+
+def dh0_f32(da0: torch.Tensor, aq: torch.Tensor, inv: float) -> torch.Tensor:
+    """The f32-epilogue dh0, as f32: bf16(da0 * (1 - a0d*a0d)) with a0d =
+    aq * inv, the chain in f32."""
+    a0d = aq * inv
+    return _bf(da0 * (1.0 - a0d * a0d)).float()
+
+
+def head_transpose(dz2c: torch.Tensor, wht: torch.Tensor) -> torch.Tensor:
+    """da1 = dz2c^T . wht, (B, No, HW) x (No, H) -> (B, HW, H) f32, summed
+    over the outputs in order with each product and sum rounded (the
+    kernels' order), so that the gradient's pre-round q is the kernels'."""
+    da1 = dz2c[:, 0, :, None] * wht[0]
+    for o in range(1, wht.shape[0]):
+        da1 = da1 + dz2c[:, o, :, None] * wht[o]
+    return da1
 
 
 def loss_epilogue(z2: torch.Tensor, y_t: torch.Tensor,
@@ -264,43 +334,90 @@ def loss_epilogue(z2: torch.Tensor, y_t: torch.Tensor,
     return sign * per.reshape(b, no, t_, pt).sum(dim=(1, 3)), dz2
 
 
+def _group_max(t: torch.Tensor, b: int, pt: int) -> torch.Tensor:
+    """max |t| over each group of ``pt`` pixels: (B, HW, ...) -> (B, T)."""
+    return t.abs().reshape(b, -1, pt, *t.shape[2:]).flatten(2).amax(dim=2)
+
+
+def _per_group(v: torch.Tensor, pt: int) -> torch.Tensor:
+    """(B, T) -> (B, HW, 1): each group's value on its pixels."""
+    return v.repeat_interleave(pt, dim=1)[..., None]
+
+
 @fp32_precision()
-def loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
-                        mask: Optional[torch.Tensor] = None,
-                        family: str = "bernoulli") -> tuple:
-    """Plain version of K3.  fold (B, 4, H) f32 rows [w0, w1, c, 0]; coords
-    (HW, 2) f32, HW tile-aligned (colored: chunk-permuted); w1 (H, H)
-    [in][out]; b1 (H,); wht (No, H); bht (No,), in one weight dtype; y_t (B,
-    No, HW) int8 (k-128) or float, colored (B, 2, HW/2); mask (HW,) or None.
-    Returns float32 (dfold (B, 4, H) with the per-image loss at [:, 3, 0],
-    dW1 (H, H), db1 (H,), dWh^T (No, H), dbh (No,))."""
+def loss_reference(fold, coords, w1, b1, wht, bht, y_t,
+                   mask: Optional[torch.Tensor], family: str, nm: Numerics,
+                   pt: int, t_mode: Optional[str] = None,
+                   ints: bool = False) -> tuple:
+    """The plain version of K3 (``t_mode`` None) and of K8 (``t_mode``
+    ``"i4"`` or ``"i8"``, the feature-major kernel's numbers: see
+    ``fused_loss_int8_t``), over groups of ``pt`` pixels.  Returns the five
+    outputs of ``loss_int8_reference``, and with ``ints`` also the integer
+    tiles (the dW1 operand (B, HW, H), qi (B, HW, H)) as f32."""
     wdt = wht.dtype
     b, _, h = fold.shape
     hw = coords.shape[0]
-    pt = pick_tile(hw)
     t_ = hw // pt
-    w1f, h1s, gb, w1r, s4 = loss_operands(w1, wht)
+    dev = fold.device
+    lf, lv = nm.fwd_level, nm.grad_level
+    w1f, h1s, gb, w1r, s4 = loss_operands(w1, wht, nm)
+    seed = f32_bits(b1[0]) if nm.sr else None
     a0 = torch.tanh(_first_layer(fold, coords))              # (B, HW, H)
-    aq = torch.clamp(torch.round(a0 * 7.0), -7, 7)
+    if seed is not None:
+        aq = sr_round(a0 * float(lf),
+                      site_words(seed, SITE_FWD, b, hw, h, dev), -lf, lf)
+    else:
+        aq = torch.clamp(torch.round(a0 * float(lf)), -lf, lf)
     h1 = (aq @ w1f.float()) * h1s + b1.float()               # exact ints
-    a1c = torch.tanh(h1).to(wdt).float()
+    a1 = torch.tanh(h1)
+    a1c = a1.to(wdt).float()
     z2 = (a1c @ wht.float().T + bht.float()).transpose(1, 2)  # (B, No, HW)
     bce, dz2 = loss_epilogue(z2, y_t, mask, family, pt)      # (B, T)
-    no = dz2.shape[1]
     dz2c = dz2.to(wdt).float()
     dwht = torch.einsum("bop,bph->oh", dz2c, a1c)
     dbht = dz2.sum(dim=(0, 2))
-    da1 = torch.einsum("bop,oh->bph", dz2c, wht.float())      # (B, HW, H)
-    mdz = dz2.abs().reshape(b, no, t_, pt).amax(dim=(1, 3)) + 1e-30
-    gm = gb * mdz                                             # (B, T)
-    qs = (7.0 / gm).repeat_interleave(pt, dim=1)[..., None]
-    sg = gm * (1.0 / 7.0)
-    q = (da1 * tanh_prime(a1c, wdt)) * qs
-    db1 = (q.reshape(b, t_, pt, h).sum(dim=2) * sg[..., None]).sum(dim=(0, 1))
-    qi = torch.clamp(torch.round(q), -7, 7)
-    dw1 = grouped_int_product(aq, qi, sg * (1.0 / 7.0), pt)
+    da1 = head_transpose(dz2c, wht.float())                  # (B, HW, H)
+    f32epi = nm.epi == "f32"
+    if nm.k3_gscale == "bound":
+        mdz = _group_max(dz2.transpose(1, 2), b, pt) + 1e-30
+        gm = gb * mdz                                        # (B, T)
+        sg = gm * (1.0 / 7.0)
+        tf = 1.0 - a1 * a1 if f32epi else tanh_prime(a1c, wdt)
+        q = (da1 * tf) * _per_group(7.0 / gm, pt)
+        db1g = q.reshape(b, t_, pt, h).sum(dim=2) * sg[..., None]
+    else:
+        if f32epi:
+            dh1 = da1 * (1.0 - a1 * a1)
+            maxv = _group_max(dh1, b, pt) + 1e-30
+            sg = maxv * (1.0 / lv)
+            q = dh1 * _per_group(lv / maxv, pt)
+        else:
+            dh1 = _rb(_bf(da1).float() * tanh_prime(a1c, wdt), wdt)
+            maxv = _group_max(dh1, b, pt) + 1e-30
+            qs_b = _bf(lv / maxv).float()
+            sg = 1.0 / qs_b
+            q = _rb(dh1 * _per_group(qs_b, pt), wdt)
+        db1g = dh1.reshape(b, t_, pt, h).sum(dim=2)
+    if seed is not None:
+        qi = sr_round(q, site_words(seed, SITE_GRAD, b, hw, h, dev), -lv, lv)
+    else:
+        qi = torch.clamp(torch.round(q), -lv, lv)
+    if t_mode is None:
+        db1 = db1g.sum(dim=(0, 1))
+        a_dw, ldw = aq, lf
+    else:
+        # K8: db1 = sum qi * sg through the constant pad row K of the dW1
+        # product, undone by lv/K (the JAX _lossgrad_pallas_t :375-378)
+        k = PAD_K[t_mode]
+        rows = (k * qi.reshape(b, t_, pt, h).sum(dim=2)) * (sg * (1.0 / lv))[
+            ..., None]
+        db1 = rows.sum(dim=(0, 1)) * (lv / k)
+        ldw = 7 if t_mode == "i4" else 127
+        a_dw = aq if ldw == lf else torch.clamp(torch.round(a0 * 7.0), -7, 7)
+    dw1 = grouped_int_product(a_dw, qi, sg * (1.0 / ldw), pt)
     da0 = qi @ w1r.float().T                                  # exact ints
-    dh0 = dh0_bf16(da0, aq)
+    dh0 = (dh0_f32(da0, aq, 1.0 / lf) if f32epi
+           else dh0_bf16(da0, aq, 1.0 / lf))
     xb = _bf(coords).float()
     x0 = xb[:, 0].reshape(1, t_, pt, 1)
     x1 = xb[:, 1].reshape(1, t_, pt, 1)
@@ -311,7 +428,26 @@ def loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
     dfold = torch.cat([rows, torch.zeros((b, 1, h), dtype=torch.float32,
                                          device=rows.device)], dim=1)
     dfold[:, 3, 0] = bce.sum(dim=1)
-    return dfold, dw1, db1, dwht, dbht
+    out = (dfold, dw1, db1, dwht, dbht)
+    return (out, (a_dw, qi)) if ints else out
+
+
+def loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
+                        mask: Optional[torch.Tensor] = None,
+                        family: str = "bernoulli",
+                        numerics: Optional[Numerics] = None,
+                        ints: bool = False) -> tuple:
+    """Plain version of K3.  fold (B, 4, H) f32 rows [w0, w1, c, 0]; coords
+    (HW, 2) f32, HW tile-aligned (colored: chunk-permuted); w1 (H, H)
+    [in][out]; b1 (H,); wht (No, H); bht (No,), in one weight dtype; y_t (B,
+    No, HW) int8 (k-128) or float, colored (B, 2, HW/2); mask (HW,) or None;
+    ``numerics`` (default: the defaults).  Returns float32 (dfold (B, 4, H)
+    with the per-image loss at [:, 3, 0], dW1 (H, H), db1 (H,), dWh^T (No,
+    H), dbh (No,)); with ``ints`` also (aq, qi) (B, HW, H), the two
+    quantised tiles."""
+    nm = DEFAULTS if numerics is None else numerics.check()
+    return loss_reference(fold, coords, w1, b1, wht, bht, y_t, mask, family,
+                          nm, pick_tile(coords.shape[0]), ints=ints)
 
 
 # ---------------------------------------------------------------------------
@@ -371,39 +507,77 @@ def _check(fold, coords, w1, b1, wht, bht, y_t, mask, family) -> None:
         raise ValueError(f"unsupported device {fold.device}")
 
 
+def _resolve(nm: Optional[Numerics]) -> Numerics:
+    """The numerics a wrapper runs: the environment's, checked
+    (``kernels/config.numerics``), or the caller's, checked for the levers
+    not ported."""
+    return numerics() if nm is None else nm.check()
+
+
 def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
                   mask: Optional[torch.Tensor] = None,
                   family: str = "bernoulli",
-                  workspace_bytes: Optional[int] = None) -> tuple:
-    """K3's five outputs (see ``loss_int8_reference``).  CPU tensors take
-    the plain version; CUDA tensors launch the kernels, counting each in
-    ``LAUNCHES``, and raise if the build or a launch fails.
+                  workspace_bytes: Optional[int] = None,
+                  numerics: Optional[Numerics] = None,
+                  ints: bool = False) -> tuple:
+    """K3's five outputs (see ``loss_int8_reference``) at ``numerics``
+    (default: the environment's).  CPU tensors take the plain version; CUDA
+    tensors launch the kernels, counting each in ``LAUNCHES``, and raise if
+    the build or a launch fails.  ``ints`` also returns the two quantised
+    tiles, as the plain version does (on the card from the workspaces, so
+    the images must fit one chunk).
 
     On the card: a forward pass over 64-pixel blocks writes dz2
-    (B, No, HW), each block's loss and max |dz2| (colored: one block runs a
-    64-row mean tile and its log-variance partner half a group further, so
-    the pair's loss and both dz2 entries form in registers); a gradient pass
-    takes each group's scale from its blocks' maxima, rebuilds the forward
-    (one more int8 GEMM, cheaper than storing a1), runs da0 on the int8
-    tensor cores and writes the per-block partials of dfold, db1, dWh^T, dbh
-    and the int8 aq and qi to feature-major workspaces; a split-K kernel
-    computes dW1 group by group; fixed-order reductions add the partials, so
-    two runs agree bit for bit.  Images go through the workspaces in chunks
-    that fit ``workspace_bytes`` (default ``workspace_budget``)."""
+    (B, No, HW), each block's loss and the largest value of its scale's
+    source, max |dz2| for the bound and max |dh1| for the tile scale
+    (colored: one block runs a 64-row mean tile and its log-variance partner
+    half a group further, so the pair's loss and both dz2 entries form in
+    registers; with the tile scale it runs the mean tile's forward once more
+    for its |dh1|); a gradient pass takes each group's scale from its
+    blocks' maxima, rebuilds the forward (one more int8 GEMM, cheaper than
+    storing a1), runs da0 on the int8 tensor cores and writes the per-block
+    partials of dfold, db1, dWh^T and dbh and the int8 aq and qi to
+    feature-major workspaces; a split-K kernel computes dW1 group by group;
+    fixed-order reductions add the partials, so two runs agree bit for bit.
+    Images go through the workspaces in chunks that fit ``workspace_bytes``
+    (default ``workspace_budget``)."""
     _check(fold, coords, w1, b1, wht, bht, y_t, mask, family)
-    check_knobs()
+    nm = _resolve(numerics)
     if fold.device.type == "cpu":
         return loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
-                                   mask, family)
+                                   mask, family, numerics=nm, ints=ints)
+    return launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family, nm,
+                       pick_tile(coords.shape[0]), None, workspace_bytes,
+                       ints, LAUNCHES)
+
+
+# the kernels' Mode bits (csrc/fused_loss_int8.cu)
+_TILE, _EPI_F32, _SR, _AQ4_WS, _DB1_QI = 1, 2, 4, 8, 16
+
+
+def launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family,
+                nm: Numerics, pt: int, t_mode: Optional[str],
+                workspace_bytes: Optional[int], ints: bool,
+                launches: dict) -> tuple:
+    """The K3 kernels on CUDA tensors at ``nm`` over groups of ``pt``
+    pixels, or K8's modes of them (``t_mode`` "i4" or "i8": the tile scale,
+    db1 from the rounded tile, and for "i4" the 4-bit a0 as dW1's operand),
+    each launch counted in ``launches``.  Returns what ``loss_reference``
+    returns."""
     lib = _lib()
     dev = fold.device
     b, _, h = fold.shape
     hw, no = coords.shape[0], wht.shape[0]
-    pt = pick_tile(hw)
     gpi = hw // pt
     blocks = hw // BLOCK_PIXELS
     kp = padded_hidden(h)
-    w1f, h1s, gb, w1r, s4 = loss_operands(w1.detach(), wht.detach())
+    lf, lv = nm.fwd_level, nm.grad_level
+    mode = ((_TILE if nm.k3_gscale == "tile" else 0)
+            | (_EPI_F32 if nm.epi == "f32" else 0) | (_SR if nm.sr else 0))
+    if t_mode is not None:
+        mode |= _TILE | _DB1_QI | (_AQ4_WS if t_mode == "i4" else 0)
+    dbk = PAD_K[t_mode] if t_mode is not None else 0.0
+    w1f, h1s, gb, w1r, s4 = loss_operands(w1.detach(), wht.detach(), nm)
     w1ft, w1r = pad_square(w1f.T), pad_square(w1r)
     b1f, whtf, bhtf = (t.detach().float().contiguous() for t in (b1, wht, bht))
     h1s, s4, gb = h1s.contiguous(), s4.contiguous(), gb.reshape(1)
@@ -425,6 +599,8 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
     budget = workspace_budget(dev) if workspace_bytes is None \
         else workspace_bytes
     chunks = image_chunks(b, 2 * kp * hw, budget)
+    if ints and len(chunks) > 1:
+        raise ValueError("ints needs the images in one workspace chunk")
     bc = chunks[0][1]
     aq_ws = torch.empty((bc, kp, hw), dtype=torch.int8, device=dev)
     q_ws = torch.empty((bc, kp, hw), dtype=torch.int8, device=dev)
@@ -438,8 +614,8 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
               whtf.data_ptr(), bhtf.data_ptr(), yt.data_ptr(),
               mk.data_ptr() if mk is not None else None, dz2.data_ptr(),
               part_max.data_ptr(), part_bce.data_ptr(), b, hw, h, no, pt,
-              int(yt_i8), FAMILIES.index(family), bf16, st)
-        LAUNCHES["fwd"] += 1
+              int(yt_i8), FAMILIES.index(family), bf16, float(lf), mode, st)
+        launches["fwd"] += 1
         split0 = 0
         for b0, n in chunks:
             _call(lib, "svt_loss_int8_grad", fold.data_ptr(),
@@ -448,11 +624,12 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
                   b1f.data_ptr(), whtf.data_ptr(), dz2.data_ptr(),
                   part_max.data_ptr(), gscale.data_ptr(), aq_ws.data_ptr(),
                   q_ws.data_ptr(), part_fold.data_ptr(), part_w.data_ptr(),
-                  b0, n, hw, h, no, pt, bf16, st)
-            LAUNCHES["grad"] += 1
+                  b0, n, hw, h, no, pt, bf16, float(lf), float(lv), mode,
+                  dbk, st)
+            launches["grad"] += 1
             split0 += run_grouped_dw(lib, aq_ws, q_ws, gscale[b0 * gpi:],
                                      part_dw[split0:], n, hw, h, pt, gpi, st)
-            LAUNCHES["dw"] += 1
+            launches["dw"] += 1
         dfold = torch.zeros((b, 4, h), **f32)
         dw1 = torch.empty((h, h), **f32)
         sums = torch.empty((mw,), **f32)
@@ -465,9 +642,27 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
                 (stage, sums, stage.shape[0], stage.shape[0], mw, 0)):
             _call(lib, "svt_sum_rows", src.data_ptr(), dst.data_ptr(), rows,
                   total, m, stride, st)
-            LAUNCHES["sum"] += 1
-    return (dfold, dw1, sums[:h], sums[h:h + no * h].view(no, h),
-            sums[h + no * h:])
+            launches["sum"] += 1
+    db1 = sums[:h] if t_mode is None else sums[:h] * (lv / dbk)
+    out = (dfold, dw1, db1, sums[h:h + no * h].view(no, h),
+           sums[h + no * h:])
+    if not ints:
+        return out
+    return out, tuple(ws[:, :h].transpose(1, 2).float() for ws in (aq_ws,
+                                                                   q_ws))
+
+
+def philox_device(ctr: torch.Tensor, key: tuple) -> torch.Tensor:
+    """The kernels' Philox4x32-10 on the card: ctr (n, 4) int64 uint32
+    values on a CUDA device -> (n, 4) int64 words; held against
+    ``philox.philox4x32_10``."""
+    c32 = (((ctr & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(
+        torch.int32).contiguous()               # the same 32 bits
+    out = torch.empty_like(c32)
+    with torch.cuda.device(ctr.device):
+        _call(_lib(), "svt_philox4x32_10", c32.data_ptr(), out.data_ptr(),
+              c32.shape[0], key[0], key[1], _stream(ctr))
+    return out.to(torch.int64) & 0xFFFFFFFF
 
 
 class _LossInt8(torch.autograd.Function):

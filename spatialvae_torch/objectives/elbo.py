@@ -16,15 +16,18 @@ loss-and-gradient kernel (K3, ``fused_loss_active``) instead of decode +
 likelihood, in every family the JAX package sends there (Bernoulli and
 Gaussian over an aligned or a padded pixel count, colored with the
 interleaved split), with the targets in the kernel's layout (``y_t``: (B,
-C, HW), int8 on the /255 grid; colored (B, 2, HW/2)).
+C, HW), int8 on the /255 grid; colored (B, 2, HW/2)), at the numerics of
+``kernels/config.numerics``; under ``SPATIALVAE_LOSS_LAYOUT=t`` a
+Bernoulli step without a mask and with float targets takes the
+feature-major kernel K8 instead, as in JAX.
 
 The encoder takes the int8 weight copies (``q_quant``) and the batch's
 int8 data copy (``y_q8``) as the JAX ELBO does; an explicit encoder view
 (``y_inf``) drops ``y_q8``.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: CTF (M7), rotation-augment offsets (M8), the loss kernel's numerics
-off the default knobs (Queue 2 K3 (e), (f)), the vanilla generator (M1) and
+item: CTF (M7), rotation-augment offsets (M8), the loss kernel's four
+measurement levers (Queue 2 K3 (g)), the vanilla generator (M1) and
 pixel-axis sharding (M10).
 
 ``elbo_minibatch`` is differentiable; its serving callers take
@@ -52,9 +55,13 @@ from spatialvae_torch.kernels.fused_decoder_int8 import (
     can_fuse_int8,
     fused_spatial_generator_int8,
 )
+from spatialvae_torch.kernels.config import numerics
 from spatialvae_torch.kernels.fused_loss_int8 import (
     can_fuse_loss_int8,
     fused_bce_spatial_int8,
+)
+from spatialvae_torch.kernels.fused_loss_int8_t import (
+    fused_bce_spatial_int8_t,
 )
 from spatialvae_torch.models.inference import InferenceNetwork
 from spatialvae_torch.models.spatial import (
@@ -252,12 +259,20 @@ def elbo_minibatch(
         # below covers translation and z
     z = z * z_scale
 
-    # ---- fused int8 loss-and-gradient path (K3) ---------------------------
+    # ---- fused int8 loss-and-gradient path (K3, or K8) --------------------
     if not want_y_hat and fused_loss_active(ecfg, p_net.cfg, coords.shape[0],
                                             b):
-        loss = fused_bce_spatial_int8(p_net, coords, theta, dx, z, y,
-                                      y_t=y_t, mask=mask,
-                                      family=ecfg.likelihood)
+        if (numerics().layout == "t" and ecfg.likelihood == "bernoulli"
+                and mask is None
+                and (y_t is None or y_t.dtype != torch.int8)):
+            # the feature-major kernel, under the JAX package's conditions
+            # (it predates int8 targets and the masked families)
+            loss = fused_bce_spatial_int8_t(p_net, coords, theta, dx, z, y,
+                                            y_t=y_t)
+        else:
+            loss = fused_bce_spatial_int8(p_net, coords, theta, dx, z, y,
+                                          y_t=y_t, mask=mask,
+                                          family=ecfg.likelihood)
         log_p = -loss / b
         z_kl = -z_logstd + 0.5 * z_std ** 2 + 0.5 * z_mu ** 2 - 0.5
         kl_div = torch.mean(kl_div + torch.sum(z_kl, dim=1))

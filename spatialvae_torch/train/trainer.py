@@ -25,10 +25,16 @@ in the likelihood's family (Bernoulli, Gaussian, colored), with the
 trainer's pixel mask, on targets gathered from a per-dataset copy in the
 kernel's layout (``_dataset_yt``: int8 k-128 when the data sits on the /255
 grid, else the compute dtype; (N, C, HW) padded once to the kernel's pixel
-count, 784 -> 1024, or the colored family's pre-paired (N, 2, HW/2)); an
-odd tail runs the int8 decoder (K4 with its a1 output, K5 backward) and the
-likelihood in PyTorch.  Evaluation and display run the forward alone (K1,
-or K4 in int8 mode) under no_grad, without the loss kernel.
+count, 784 -> 1024, or the colored family's pre-paired (N, 2, HW/2)), at
+the numerics the environment selects (``kernels/config.numerics``: the
+trainer refuses any knob off its default at construction unless
+``SPATIALVAE_ALLOW_KNOBS=1``, as the JAX trainer does; under
+``SPATIALVAE_LOSS_LAYOUT=t`` the Bernoulli steps with float targets take the
+feature-major kernel K8); an odd tail runs the int8 decoder (K4 with its a1
+output, K5 backward) and the likelihood in PyTorch.  Evaluation runs the
+forward alone (K1, or K4 in int8 mode) under no_grad, without the loss
+kernel; the display decodes (``reconstruct_canonical``, ``sample_prior``)
+decode in float on the float32 masters (K1), as the JAX trainer's do.
 
 Random draws come from ``torch.Generator``s seeded from (seed, stream), as
 the JAX trainer folds an epoch index into its key: the seed alone draws the
@@ -57,7 +63,7 @@ import torch
 
 from spatialvae_torch.config import InferenceConfig
 from spatialvae_torch.device import resolve_device
-from spatialvae_torch.kernels.config import adam_emit, check_knobs
+from spatialvae_torch.kernels.config import check_knobs
 from spatialvae_torch.kernels.fused_loss_int8 import (
     colored_targets,
     padded_hw,
@@ -200,11 +206,15 @@ class Trainer:
         self.mask = (None if mask is None
                      else torch.as_tensor(mask).to(self.device))
         self.compute_dtype = _DTYPES[tcfg.compute_dtype]
-        if ecfg.fused and ecfg.int8:
-            check_knobs()
-        # evaluation and display keep the fused forward decoder and drop
-        # the loss kernel (its forward computes all five gradients)
+        # a stray SPATIALVAE_* variable must not silently alter training
+        # numerics: checked at every construction, as the JAX trainer does
+        check_knobs()
+        # evaluation keeps the fused forward decoder and drops the loss
+        # kernel (its forward computes all five gradients); the display
+        # decodes run in float on the float32 masters (K1 on the card), as
+        # the JAX trainer's plain spatial_generator_apply does
         self._nonstep_ecfg = dataclasses.replace(ecfg, fused_loss=False)
+        self._display_ecfg = dataclasses.replace(ecfg, int8=False)
         self._yt_cache = {}
         init = seeded_generator(tcfg.seed, None, self.device)
         self.q_net = InferenceNetwork(q_cfg, generator=init,
@@ -213,7 +223,6 @@ class Trainer:
                                       device=self.device)
         self.optimizer = fused_adam_pallas(tcfg.learning_rate)
         self.opt_state = self.optimizer.init(self.named_params())
-        adam_emit()          # refuse an unknown or unapproved engine now
         # one device: bf16 compute differentiates the shadow, and int8 mode
         # adds the int8 encoder (the JAX trainer's _use_shadow/_use_qenc)
         self._use_shadow = self.compute_dtype == torch.bfloat16
@@ -494,7 +503,7 @@ class Trainer:
                                 device=self.device)
         z = torch.exp(z_logstd) * noise + z_mu
         z = z[:, int(self.ecfg.rotate) + 2 * int(self.ecfg.translate):]
-        return decode_spatial(self.p_net, self._nonstep_ecfg, self.coords,
+        return decode_spatial(self.p_net, self._display_ecfg, self.coords,
                               None, None, z * z_scale)
 
     @torch.no_grad()
@@ -506,5 +515,5 @@ class Trainer:
             gen = generator if generator is not None else self._gen(9)
             noise = torch.randn((batch_size, z_dim), generator=gen,
                                 device=self.device)
-        return decode_spatial(self.p_net, self._nonstep_ecfg, self.coords,
+        return decode_spatial(self.p_net, self._display_ecfg, self.coords,
                               None, None, noise * z_scale)

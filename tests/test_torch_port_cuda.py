@@ -2,9 +2,11 @@
 the decoder forward with and without its activation output, the backward
 with the residual and with recompute, the differentiable op and a training
 step; the int8 decoder forward and backward (K4, K5), the fused int8 loss
-and gradient (K3) in its Bernoulli, Gaussian, colored and padded families,
-and int8 training steps of the galaxy, particles, fit-noise and mnist
-models; Adam (K6, K7 and the
+and gradient (K3) in its Bernoulli, Gaussian, colored and padded families
+and its numerics modes (stochastic rounding with the device Philox against
+the plain one, the other gradient modes, scales and epilogue), the
+feature-major kernel's modes (K8), and int8 training steps of the galaxy,
+particles, fit-noise and mnist models; Adam (K6, K7 and the
 emission helpers), the int8 encoder's GEMM, and steps of the int8 stack.
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode): it is
@@ -618,3 +620,99 @@ def test_int8_stack_step_on_the_card(cuda_device, monkeypatch):
         prev["p.layers.1.weight"]
     for k, p in tr.named_params().items():
         assert torch.equal(tr.shadow[k], p.detach().to(torch.bfloat16))
+
+
+# K3 at the numerics off the defaults (ROADMAP Queue 2 K3 (e), (f)): (B, HW,
+# H, No, weight dtype, grad_mode, gscale, epi, sr)
+NUMERICS_CASES = [
+    (4, 4096, 500, 3, torch.bfloat16, "i8", "tile", "bf16", False),
+    (4, 4096, 500, 3, torch.float32, "da0_i4", "tile", "f32", True),
+    (2, 1024, 96, 1, torch.bfloat16, "i4dw1", "tile", "bf16", True),
+    (4, 1024, 130, 8, torch.float32, "i4dw1", "bound", "f32", False),
+    (6, 4096, 500, 3, torch.bfloat16, "i4dw1", "bound", "bf16", True),
+    (2, 1024, 64, 3, torch.float32, "i8", "tile", "f32", True),
+]
+# the gradient site's integers may differ from the plain version's where a
+# head sum in another order moves q by an ulp across a rounding boundary:
+# at most this share of them (the forward site's agree exactly)
+INT_MISMATCH = 1e-5
+
+
+@pytest.mark.parametrize("case", NUMERICS_CASES, ids=lambda c: "-".join(
+    [f"B{c[0]}-HW{c[1]}-H{c[2]}-No{c[3]}", str(c[4])[6:], *c[5:8],
+     "sr" if c[8] else "rtn"]))
+def test_loss_kernel_numerics_match_plain_version(case, cuda_device):
+    """Each numerics mode of K3 against its plain version: the outputs within
+    the K3 limits, the quantised tiles (SR's drawn from the same words) equal
+    at the forward site and all but a few at the gradient site, two runs bit
+    for bit."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.config import Numerics
+
+    b, hw, h, no, wdt, gm, gs, epi, sr = case
+    nm = Numerics(grad_mode=gm, gscale=gs, epi=epi, sr=sr)
+    fold, coords, ws = _int8_inputs(b, hw, h, no, wdt, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    k = torch.randint(0, 256, (b, no, hw), generator=gen, device=cuda_device)
+    yt = (k - 128).to(torch.int8)
+    mask = (torch.rand(hw, generator=gen, device=cuda_device) > 0.3).float()
+    with torch.no_grad():
+        got, (aq, qi) = l8.run_loss_int8(fold, coords, *ws, yt, mask,
+                                         numerics=nm, ints=True)
+        again = l8.run_loss_int8(fold, coords, *ws, yt, mask, numerics=nm)
+        want, (aq_p, qi_p) = l8.loss_int8_reference(
+            fold, coords, *ws, yt, mask, numerics=nm, ints=True)
+    for u, v, x in zip(got, again, want):
+        assert torch.equal(u, v)
+        _assert_rel(u, x, INT8_TOL)
+    assert torch.equal(aq, aq_p)
+    assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
+
+
+def test_device_philox_is_the_plain_one(cuda_device):
+    """The kernels' Philox4x32-10 against the plain version on random
+    counters and both sites' keys, and the Random123 known answer."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels import philox as px
+
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    ctr = torch.randint(0, 2 ** 32, (10000, 4), generator=gen,
+                        device=cuda_device, dtype=torch.int64)
+    for key in ((0x3F800000, px.SITE_FWD), (0xBF123456, px.SITE_GRAD)):
+        got = l8.philox_device(ctr, key)
+        want = torch.stack(px.philox4x32_10(
+            tuple(ctr[:, i] for i in range(4)), key), dim=1)
+        assert torch.equal(got, want)
+    kat = torch.tensor([[0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344]],
+                       device=cuda_device)
+    assert l8.philox_device(kat, (0xA4093822, 0x299F31D0)).tolist() == [
+        [0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1]]
+
+
+@pytest.mark.parametrize("mode", ["i4", "i8"])
+@pytest.mark.parametrize("side", [64, 28])
+def test_k8_matches_plain_version(mode, side, cuda_device):
+    """K8 (K3's kernels in the feature-major kernel's modes) against its
+    plain version, at 64x64 (groups of 1024) and at 28x28 (one unpadded
+    group of 784, padded to 832 on the card with a zero mask); its launches
+    count in its own LAUNCHES and not in K3's."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels import fused_loss_int8_t as lt
+
+    b, h, no = 4, 500, 3
+    fold, coords, ws = _int8_inputs(b, side * side, h, no, torch.bfloat16,
+                                    cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    yt = torch.rand((b, no, side * side), generator=gen, device=cuda_device)
+    fold_t = fold.transpose(1, 2).contiguous()
+    l8.reset_launches()
+    lt.reset_launches()
+    with torch.no_grad():
+        got = lt.run_loss_int8_t(fold_t, coords, *ws, yt, mode)
+        again = lt.run_loss_int8_t(fold_t, coords, *ws, yt, mode)
+        want = lt.loss_int8_t_reference(fold_t, coords, *ws, yt, mode)
+    for u, v, x in zip(got, again, want):
+        assert torch.equal(u, v)
+        _assert_rel(u, x, INT8_TOL)
+    assert lt.LAUNCHES["fwd"] == lt.LAUNCHES["grad"] == 2
+    assert not any(l8.LAUNCHES.values())

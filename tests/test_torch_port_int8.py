@@ -28,6 +28,8 @@ Tolerances, each measured on these inputs with a margin of 2-5x:
   chains and holds every output to the JAX run at 1e-6 to 1.5e-5.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -287,11 +289,10 @@ def _xla_tanh_prime(a1c, wdt):
     return 1.0 - (a * a).float()
 
 
-def _xla_dh0(da0, aq):
+def _xla_dh0(da0, aq, inv=1.0 / 7.0):
     """XLA's CPU form of the bf16 dh0 chain: the factor 1 - a0d*a0d in bf16,
     da0 left in f32."""
-    a0d = aq.to(torch.bfloat16) * torch.tensor(1.0 / 7.0,
-                                               dtype=torch.bfloat16)
+    a0d = aq.to(torch.bfloat16) * torch.tensor(inv, dtype=torch.bfloat16)
     return da0 * (1.0 - a0d * a0d).float()
 
 
@@ -433,9 +434,10 @@ def test_gates_match_jax():
 def test_fused_loss_active_matches_jax_and_unported_configs_raise(
         monkeypatch):
     """fused_loss_active decides as JAX's; every config it sends to the loss
-    kernel is ported at the default knobs (the three families, aligned and
-    padded pixel counts) and refused with NotImplementedError naming its
-    ROADMAP item off them."""
+    kernel is ported (the three families, aligned and padded pixel counts)
+    at every numerics setting the JAX trainer accepts, and refused off them:
+    RuntimeError without SPATIALVAE_ALLOW_KNOBS=1, NotImplementedError
+    naming K3 (g) for the levers not ported."""
     routed = set()
     for kw in GEN_KW[:8]:
         cfg = SpatialGeneratorConfig(latent_dim=2, hidden_dim=64, **kw)
@@ -453,54 +455,76 @@ def test_fused_loss_active_matches_jax_and_unported_configs_raise(
                         assert fused_loss_active(ecfg, to_port(cfg), hw,
                                                  b) == want
                         if want:
-                            l8.check_ported(hw, lik)
+                            assert l8.check_ported(hw, lik) == l8.DEFAULTS
                             routed.add((lik, l8.padded_hw(hw) == hw))
     assert routed == {("bernoulli", True), ("bernoulli", False),
                       ("gaussian", True), ("gaussian", False),
                       ("colored", True)}
     monkeypatch.setenv("SPATIALVAE_SR", "1")
     for lik, aligned in sorted(routed):
-        with pytest.raises(NotImplementedError, match=r"K3 \(e\)"):
+        with pytest.raises(RuntimeError, match="ALLOW_KNOBS"):
+            l8.check_ported(4096 if aligned else 784, lik)
+    monkeypatch.setenv("SPATIALVAE_ALLOW_KNOBS", "1")
+    for lik, aligned in sorted(routed):
+        assert l8.check_ported(4096 if aligned else 784, lik).sr
+    monkeypatch.setenv("SPATIALVAE_TANH", "pade")
+    for lik, aligned in sorted(routed):
+        with pytest.raises(NotImplementedError, match=r"K3 \(g\)"):
             l8.check_ported(4096 if aligned else 784, lik)
 
 
-@pytest.mark.parametrize("env,value,item", [
-    ("SPATIALVAE_INT4_GRADS", "i8", "K3 (f)"),
-    ("SPATIALVAE_INT4_GRADS", "da0_i4", "K3 (f)"),
-    ("SPATIALVAE_GSCALE", "tile", "K3 (f)"),
-    ("SPATIALVAE_EPI", "f32", "K3 (f)"),
-    ("SPATIALVAE_SR", "1", "K3 (e)")])
-def test_knobs_off_default_raise(monkeypatch, env, value, item):
-    """The port reads the JAX knobs' variables with the same defaults and
-    refuses every value off them, in the wrapper and in the trainer."""
+@pytest.mark.parametrize("env,value,ported", [
+    ("SPATIALVAE_TANH", "pade", False),
+    ("SPATIALVAE_A1Q", "1", False),
+    ("SPATIALVAE_DB1", "qi", False),
+    ("SPATIALVAE_PHASE_CUT", "6", False),
+    ("SPATIALVAE_INT4_GRADS", "i8", True),
+    ("SPATIALVAE_SR", "1", True)])
+def test_knobs_off_default_raise(monkeypatch, env, value, ported):
+    """The port reads every numerics variable of the JAX KernelConfig with
+    the same defaults, and refuses in the wrapper and in the trainer (int8
+    and float) what is still refused: any value off a default without
+    SPATIALVAE_ALLOW_KNOBS=1 (RuntimeError, as the JAX trainer), and the
+    four levers not ported even with it (NotImplementedError naming
+    K3 (g))."""
     want = jax_kcfg.KernelConfig()
-    fields = {"SPATIALVAE_INT4_GRADS": want.grad_mode,
-              "SPATIALVAE_GSCALE": want.gscale, "SPATIALVAE_EPI": want.epi,
-              "SPATIALVAE_SR": "1" if want.sr else "0"}
-    assert {k: v[0] for k, v in kcfg._KNOBS.items()} == fields
-    # every variable set to its default, or SR to a value JAX reads as off
-    for name, default in fields.items():
-        monkeypatch.setenv(name, default)
-    kcfg.check_knobs()
+    names = {f: getattr(want, f) for f in jax_kcfg.NUMERICS_FIELDS}
+    assert {f.name: f.default for f in dataclasses.fields(kcfg.Numerics)} \
+        == names
+    # every variable unset, or SR at a value JAX reads as off
+    for f in jax_kcfg.NUMERICS_FIELDS:
+        monkeypatch.delenv(f"SPATIALVAE_{f.upper()}", raising=False)
     monkeypatch.setenv("SPATIALVAE_SR", "")
-    kcfg.check_knobs()
+    assert kcfg.numerics() == kcfg.Numerics()
     monkeypatch.setenv(env, value)
-    with pytest.raises(NotImplementedError, match=item.replace(
-            "(", r"\(").replace(")", r"\)")):
-        kcfg.check_knobs()
     fold, coords, ws, yt, _ = _loss_inputs(torch.float32, 1, True, False,
                                            b=2, h=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        l8.run_loss_int8(torch.from_numpy(fold), torch.from_numpy(coords),
-                         *map(torch.from_numpy, ws), torch.from_numpy(yt))
     q_cfg = InferenceConfig(n=1024, latent_dim=5, hidden_dim=8, num_layers=2)
     p_cfg = SpatialGeneratorConfig(latent_dim=2, hidden_dim=16, n_out=1,
                                    num_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_trainer.Trainer(to_port(q_cfg), to_port(p_cfg),
-                             ElboConfig(fused=True, int8=True),
-                             port_trainer.TrainConfig(minibatch_size=2),
-                             coord_grid(32, 32), device="cpu")
+    calls = (
+        kcfg.check_knobs,
+        lambda: l8.run_loss_int8(
+            torch.from_numpy(fold), torch.from_numpy(coords),
+            *map(torch.from_numpy, ws), torch.from_numpy(yt)),
+        lambda: port_trainer.Trainer(
+            to_port(q_cfg), to_port(p_cfg), ElboConfig(fused=True, int8=True),
+            port_trainer.TrainConfig(minibatch_size=2), coord_grid(32, 32),
+            device="cpu"),
+        lambda: port_trainer.Trainer(
+            to_port(q_cfg), to_port(p_cfg), ElboConfig(),
+            port_trainer.TrainConfig(minibatch_size=2), coord_grid(32, 32),
+            device="cpu"))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="ALLOW_KNOBS"):
+            call()
+    monkeypatch.setenv("SPATIALVAE_ALLOW_KNOBS", "1")
+    if ported:
+        assert kcfg.numerics() != kcfg.Numerics()
+        return
+    for call in calls:
+        with pytest.raises(NotImplementedError, match=r"K3 \(g\)"):
+            call()
 
 
 def test_target_copy_matches_jax():

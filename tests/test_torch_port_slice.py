@@ -121,9 +121,9 @@ def test_elbo_matches_jax(name):
     "vanilla"])
 def test_elbo_refuses_what_is_not_ported(what, monkeypatch):
     """Among them what is left of the Gaussian and colored likelihoods
-    (CTF, M7) and of the int8 loss kernel: its numerics off the default
-    knobs, over an aligned pixel count (K3 (f)) and over targets for a
-    padded one (MNIST's 784, under stochastic rounding, K3 (e))."""
+    (CTF, M7) and of the int8 loss kernel: its four measurement levers
+    (K3 (g)), accepted knobs and all, over an aligned pixel count and over
+    targets for a padded one (MNIST's 784)."""
     n, m, ch = {"y_t": (28, 28, 1), "int8": (32, 32, 3)}.get(what,
                                                             (16, 16, 3))
     q_cfg, p_cfg, qp, pp = _model(n, m, ch)
@@ -136,10 +136,11 @@ def test_elbo_refuses_what_is_not_ported(what, monkeypatch):
         kw["ctf"] = torch.zeros((2, 3, 3))
     elif what in ("int8", "y_t"):
         ecfg = ElboConfig(channels=ch, fused=True, int8=True)
+        monkeypatch.setenv("SPATIALVAE_ALLOW_KNOBS", "1")
         if what == "int8":
-            monkeypatch.setenv("SPATIALVAE_INT4_GRADS", "i8")
+            monkeypatch.setenv("SPATIALVAE_TANH", "pade")
         else:
-            monkeypatch.setenv("SPATIALVAE_SR", "1")
+            monkeypatch.setenv("SPATIALVAE_DB1", "qi")
             kw["y_t"] = torch.full((2, ch, 1024), -128, dtype=torch.int8)
     elif what == "vanilla":
         ecfg = ElboConfig(vanilla=True)

@@ -328,9 +328,10 @@ def test_train_config_matches_jax():
 @pytest.mark.parametrize("what", ["int8", "mesh", "augment", "host",
                                   "gaussian"])
 def test_trainer_refuses_what_is_not_ported(what, monkeypatch):
-    """int8: the loss kernel's numerics off the default knobs (K3 (f)) are
-    refused when the trainer is built, here over MNIST's padded 28x28;
-    gaussian: what is left of that likelihood, a CTF dataset (M7)."""
+    """int8: the loss kernel's measurement levers not ported (K3 (g)) are
+    refused when the trainer is built, knobs accepted and all, here over
+    MNIST's padded 28x28; gaussian: what is left of that likelihood, a CTF
+    dataset (M7)."""
     q_cfg, p_cfg = map(to_port, _cfgs())
     ecfg = ElboConfig(fused=True, channels=C, int8=what == "int8",
                       likelihood="gaussian" if what == "gaussian"
@@ -338,7 +339,8 @@ def test_trainer_refuses_what_is_not_ported(what, monkeypatch):
     tcfg = TrainConfig(minibatch_size=B, augment_rotation=what == "augment")
     grid = coord_grid(28, 28) if what == "int8" else coord_grid(N, M)
     if what == "int8":
-        monkeypatch.setenv("SPATIALVAE_GSCALE", "tile")
+        monkeypatch.setenv("SPATIALVAE_ALLOW_KNOBS", "1")
+        monkeypatch.setenv("SPATIALVAE_A1Q", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tr = Trainer(q_cfg, p_cfg, ecfg, tcfg, grid, device="cpu",
                      mesh=object() if what == "mesh" else None)
