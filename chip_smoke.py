@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --limits   # the int8 kernels' limit readings
-    python3 chip_smoke.py --limits numerics   # those of K3 (e), (f), K8
+    python3 chip_smoke.py --limits numerics   # those of K3 (e)-(g), K8
+    python3 chip_smoke.py --limits wide       # those of the wide path
+    python3 chip_smoke.py --default-width PARENT_DIR   # K1-K5 A/B
 
 Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the float
@@ -63,14 +65,31 @@ paths:
   (``[kernel_loss_numerics]``) and K8 (``[kernel_loss_t]``, at the galaxy
   shape and at mnist's 784 pixels) are held against their plain versions.
 
+- decoders of any width: every kernel at H = 512, 513, 768, 1,000, 1,024,
+  2,048 and 4,100 against its plain version (``[kernel_wide]``: K1 with
+  and without activations and K2 both variants in f32 and bf16, K3 in its
+  four families, K4, K5, K8; timed at H = 1,000, B = 100), the galaxy
+  model with a decoder 1,000 wide trained two float and two int8 epochs
+  (``[train_wide]``) and served from its checkpoints (``[slice_wide]``);
+- K3's measurement levers (``SPATIALVAE_DB1=qi``, ``SPATIALVAE_A1Q``,
+  ``SPATIALVAE_TANH=pade`` and a pair; ``[kernel_loss_levers]``), the
+  ``SPATIALVAE_PHASE_CUT`` ladder 3..8 (``[kernel_loss_ladder]``: the cut
+  phases launch nothing) and two epochs of the int8 galaxy trainer under
+  ``DB1=qi`` with ``A1Q=1`` (``[train_int8_levers]``); ``[default_width]``
+  sums up K1-K5 at H = 500.
+
 Each phase prints its lines; the last three lines are the per-kernel JSON
 record (launches on the main path, times, plain-version time, bound,
 library-call time), the card's name and power limit, and
-``{"ok": true, ...}``.  ``--limits`` prints the int8 kernels' readings for
-the sound build and for copies built with one step removed;
-``--limits numerics`` only those of this slice's copies (SR drawing the
-gradient site's words from the forward site's stream, SR with u = 0, K8's
-db1 from the pre-round q).
+``{"ok": true, ...}``.  ``--limits`` prints the kernels' readings for the
+sound build and for copies built with one step removed; ``--limits
+numerics`` only those of K3's modes, levers and K8 (SR drawing the gradient
+site's words from the forward site's stream, SR with u = 0, db1 from the
+pre-round q, the Pade lever on the exact tanh, A1Q at a per-block scale);
+``--limits wide`` those of the wide path (its ragged last chunk skipped,
+one TF32 pass).  ``python3 chip_smoke.py --default-width PARENT`` times
+K1-K5 at the default width in turns in this checkout and in the parent's
+(a directory holding it), each turn a process of its own tree.
 
 Needs a CUDA device and ``nvcc``; imports no JAX.  Exits non-zero, without
 the final line, when there is no CUDA device or any phase fails.
@@ -175,15 +194,18 @@ def phase_device(torch) -> tuple:
 
 def phase_build() -> None:
     from spatialvae_torch.kernels import _build
-    from spatialvae_torch.kernels.fused_decoder import MAX_HIDDEN
 
     t0 = time.perf_counter()
     path = _build.build()
     lib = _build.load_library()
     seconds = time.perf_counter() - t0
-    if lib.svt_fused_decoder_max_hidden() != MAX_HIDDEN:
-        raise RuntimeError("kernel and wrapper disagree on MAX_HIDDEN")
-    log("build", seconds=f"{seconds:.2f}", library=path.name)
+    # the wide kernels' workspaces: none up to 512, some past it
+    if lib.svt_fused_decoder_ws_block(512) or lib.svt_int8_ws_block(512) \
+            or not (lib.svt_fused_decoder_ws_block(513)
+                    and lib.svt_int8_ws_block(513)):
+        raise RuntimeError("the library's width threshold is not 512")
+    log("build", seconds=f"{seconds:.2f}", library=path.name,
+        sources=len(_build.sources()))
 
 
 def _tail_inputs(torch, b, hw, h, lh, no, wdt, gen):
@@ -280,11 +302,13 @@ BWD_CASES = [
 GRADS = ("dfold", "dwhid", "dbhid", "dwht", "dbht")
 
 
-def backward_case(torch, case, seed: int, timed: bool) -> dict:
+def backward_case(torch, case, seed: int, timed: bool,
+                  rerun: bool = True) -> dict:
     """The emitting forward and both backward variants of one case against
-    their plain versions on the same inputs and cotangent.  Returns
-    {"acts": errors, "y": errors, (variant, grad): errors, and with
-    ``timed`` the "*_ms" medians}."""
+    their plain versions on the same inputs and cotangent; with ``rerun``
+    (not for a faulty copy, which may leave memory unwritten) two runs must
+    agree bit for bit.  Returns {"acts": errors, "y": errors, (variant,
+    grad): errors, and with ``timed`` the "*_ms" medians}."""
     from spatialvae_torch.kernels import fused_decoder as fd
 
     name, b, hw, h, lh, no, resid, dtype = case
@@ -312,7 +336,8 @@ def backward_case(torch, case, seed: int, timed: bool) -> dict:
             again = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g,
                                                  resid)
             torch.cuda.synchronize()
-            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            if rerun and not all(torch.equal(u, v)
+                                 for u, v in zip(got, again)):
                 raise AssertionError(f"{name} {variant}: two runs differ")
             want = fd.decoder_tail_backward_reference(
                 fold, coords, ws[0], ws[1], ws[2], a, y, g, resid)
@@ -619,9 +644,11 @@ def _check_images(name, t, shape, torch) -> None:
         raise AssertionError(f"{name}: values outside [0, 1]")
 
 
-def phase_slice(torch, tmpdir: str) -> int:
-    """Serve the galaxy model through the API; returns the kernel launches
-    counted over the timed passes of the requests."""
+def phase_slice(torch, tmpdir: str, paths=None, tag="slice") -> int:
+    """Serve the galaxy model through the API (random weights, or the
+    checkpoints at ``paths``); returns the kernel launches counted over the
+    timed passes of the requests.  The default slice also profiles a
+    pass."""
     from spatialvae_torch import checkpoint
     from spatialvae_torch.api import SpatialVae
     from spatialvae_torch.evaluate import eval_batches
@@ -633,17 +660,23 @@ def phase_slice(torch, tmpdir: str) -> int:
     q_cfg, p_cfg, ecfg = galaxy_configs()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
-    q_net = InferenceNetwork(q_cfg, generator=gen, device=DEVICE)
-    p_net = SpatialGenerator(p_cfg, generator=gen, device=DEVICE)
-    gpath = os.path.join(tmpdir, "galaxy_generator_epoch1.sav")
-    ipath = os.path.join(tmpdir, "galaxy_inference_epoch1.sav")
-    checkpoint.save_model(gpath, "generator", p_net, elbo=ecfg,
-                          image_shape=IMAGE)
-    checkpoint.save_model(ipath, "inference", q_net, elbo=ecfg,
-                          image_shape=IMAGE)
-    del q_net, p_net
+    if paths is None:
+        q_net = InferenceNetwork(q_cfg, generator=gen, device=DEVICE)
+        p_net = SpatialGenerator(p_cfg, generator=gen, device=DEVICE)
+        paths = (os.path.join(tmpdir, "galaxy_generator_epoch1.sav"),
+                 os.path.join(tmpdir, "galaxy_inference_epoch1.sav"))
+        checkpoint.save_model(paths[0], "generator", p_net, elbo=ecfg,
+                              image_shape=IMAGE)
+        checkpoint.save_model(paths[1], "inference", q_net, elbo=ecfg,
+                              image_shape=IMAGE)
+        del q_net, p_net
+    gpath, ipath = paths
     model = SpatialVae.load(gpath, ipath, device=DEVICE)
-    log("checkpoint", seconds=f"{time.perf_counter() - t0:.2f}",
+    if model.p_net.cfg.hidden_dim != P_HIDDEN:
+        raise AssertionError(f"served a decoder "
+                             f"{model.p_net.cfg.hidden_dim} wide")
+    log("checkpoint", tag=tag, hidden=P_HIDDEN,
+        seconds=f"{time.perf_counter() - t0:.2f}",
         bytes=os.path.getsize(gpath) + os.path.getsize(ipath))
 
     images = torch.randint(0, 256, (N_EVAL, hw, CHANNELS), generator=gen,
@@ -701,7 +734,7 @@ def phase_slice(torch, tmpdir: str) -> int:
     n_req = len(out)
     n_img = 4 * BATCH + N_EVAL
     med = statistics.median(seconds)
-    log("slice", passes=N_PASSES, requests_per_pass=n_req,
+    log(tag, hidden=P_HIDDEN, passes=N_PASSES, requests_per_pass=n_req,
         images_per_pass=n_img, pass_ms_median=f"{med * 1e3:.4f}",
         pass_ms_min=f"{min(seconds) * 1e3:.4f}",
         pass_ms_max=f"{max(seconds) * 1e3:.4f}",
@@ -709,7 +742,8 @@ def phase_slice(torch, tmpdir: str) -> int:
         images_per_s=f"{n_img / med:.1f}", decodes_per_pass=decodes,
         launches=launches, elbo=f"{elbo:.3f}", log_p=f"{log_p:.3f}",
         kl=f"{kl:.3f}", reconstruct_vs_plain=f"{err:.3e}")
-    phase_profile(torch, requests, tmpdir)
+    if tag == "slice":
+        phase_profile(torch, requests, tmpdir)
     return launches
 
 
@@ -796,10 +830,12 @@ def f32_gemm(ops: float) -> tuple:
     return TF32_PASSES * ops, PEAK_TF32
 
 
-def _int8_inputs(torch, b, dtype, gen, no=CHANNELS, h=P_HIDDEN):
-    """fold, coords and (w1, b1, wht, bht) at the galaxy shape."""
+def _int8_inputs(torch, b, dtype, gen, no=CHANNELS, h=None):
+    """fold, coords and (w1, b1, wht, bht) at the galaxy shape (a decoder
+    P_HIDDEN wide unless ``h``)."""
     fold, coords, whid, bhid, wht, bht = _tail_inputs(
-        torch, b, IMAGE[0] * IMAGE[1], h, 1, no, getattr(torch, dtype), gen)
+        torch, b, IMAGE[0] * IMAGE[1], h or P_HIDDEN, 1, no,
+        getattr(torch, dtype), gen)
     return fold, coords, (whid[0].contiguous(), bhid[0].contiguous(), wht,
                           bht)
 
@@ -1900,6 +1936,8 @@ KNOB_PATHS = [
     ("train_int8_numerics", {"SPATIALVAE_INT4_GRADS": "i8",
                              "SPATIALVAE_EPI": "f32"}, True, "k3"),
     ("train_int8_t", {"SPATIALVAE_LOSS_LAYOUT": "t"}, False, "k8"),
+    ("train_int8_levers", {"SPATIALVAE_DB1": "qi", "SPATIALVAE_A1Q": "1"},
+     True, "k3"),
 ]
 
 
@@ -2165,18 +2203,21 @@ def phase_train_knobs(torch, tag, env, on_grid, kernel) -> dict:
 
 
 def phase_limits_numerics(torch) -> None:
-    """``--limits numerics``: this slice's readings for the sound library
-    and for copies built with one step broken, over three seeds: the
-    gradient site drawing the forward site's words (-DSVT_SR_SAME_SITE=1),
-    u = 0, i.e. rounding down (-DSVT_SR_FLOOR=1), and K8's db1 from the
-    pre-round q (-DSVT_T_DB1_PREROUND=1); they place INT8_TOL and
-    SR_INT_SHARE for K3 (e), (f) and K8."""
+    """``--limits numerics``: K3 (e), (f), (g) and K8's readings for the
+    sound library and for copies built with one step broken, over three
+    seeds: the gradient site drawing the forward site's words
+    (-DSVT_SR_SAME_SITE=1), u = 0, i.e. rounding down (-DSVT_SR_FLOOR=1),
+    db1 from the pre-round q (-DSVT_T_DB1_PREROUND=1: K8's db1 and
+    DB1=qi's), the Pade lever on the exact tanh (-DSVT_PADE_EXACT=1) and
+    A1Q's a1 at each block's own scale (-DSVT_A1Q_TILE_SCALE=1); they place
+    INT8_TOL and SR_INT_SHARE for K3's modes, its levers and K8."""
     from spatialvae_torch.kernels import _build
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
     for defines in ((), ("-DSVT_SR_SAME_SITE=1",), ("-DSVT_SR_FLOOR=1",),
-                    ("-DSVT_T_DB1_PREROUND=1",)):
+                    ("-DSVT_T_DB1_PREROUND=1",), ("-DSVT_PADE_EXACT=1",),
+                    ("-DSVT_A1Q_TILE_SCALE=1",)):
         lib = _build.load_library(defines)
         d8._lib = l8._lib = (lambda lib=lib: lib)
         worst = {}
@@ -2197,6 +2238,14 @@ def phase_limits_numerics(torch) -> None:
                         worst.get(("K3_f", name), (0, 0)), r[n][2:])
                 worst["K3_f_ints", name] = _wmax(
                     worst.get(("K3_f_ints", name), (0, 0)), r["ints"])
+            for name, kw in LEVER_MODES:
+                r = loss_case(torch, BATCH, "bfloat16", seed, False,
+                              nm=_numerics(**kw))
+                for n in ("loss",) + INT8_GRADS:
+                    worst["K3_g", name] = _wmax(
+                        worst.get(("K3_g", name), (0, 0)), r[n][2:])
+                worst["K3_g_ints", name] = _wmax(
+                    worst.get(("K3_g_ints", name), (0, 0)), r["ints"])
             for mode, side, no in K8_CASES:
                 r = k8_case(torch, mode, side, no, "bfloat16", seed, False)
                 k = ("K8", f"{mode}_{side}")
@@ -2464,6 +2513,536 @@ def phase_adam_emit_kernels(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# decoders of any width (K1-K5, K3's families, K8 past H = 512) and K3's
+# measurement levers (K3 (g))
+# ---------------------------------------------------------------------------
+
+WIDE_H = 1000           # the slice's full-width path: twice the default 500
+# both sides of the kernels' one design threshold (512: shared memory and
+# one register chunk; 513 and up: the per-block workspace and 512-column
+# chunks), whole and ragged chunks, and a ragged width above every chunk
+# count of the others (4100, at B=2 like every width but WIDE_H)
+WIDE_WIDTHS = [512, 513, 768, 1000, 1024, 2048, 4100]
+N_WIDE = 237            # [train_wide]'s images: 2 batches and a tail of 37
+LOSS_WIDE_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8_wide.cu"
+LEVERS_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8_levers.cu"
+# K1's f32 activations at H = 4100 read up to 5.15e-5 max and 6.95e-6 mean
+# against ACTS_TOL's 5e-5 / 5e-6, placed at H <= 512: a sound kernel's
+# longer sums.  Above 2048 they are held at ACTS_TOL_WIDE, below the copies
+# with a step removed (`--limits wide`: one TF32 pass >= 6.36e-4 / 1.63e-4,
+# the ragged last chunk skipped 7.6e-1 / 3.2e-4; the wide limits in PERF.md)
+ACTS_TOL_WIDE = {"float32": (2e-4, 3e-5), "bfloat16": (1e-2, 5e-5)}
+# bf16 y and activations above 2048 with two hidden layers: a sound
+# kernel's means read up to 1.43e-5 and 1.11e-5 at 4100 (a tanh ulp moves
+# more operands across a bf16 rounding boundary in the longer sums) against
+# TOL's and ACTS_TOL's 1e-5, so their means are held at 5e-5 there, below
+# the copy without bf16 operand casts (`--limits wide`: 5.92e-5, 3.65e-4)
+TOL_WIDE = {"float32": TOL["float32"], "bfloat16": (5e-4, 5e-5)}
+# K3's levers at the galaxy shape: (name, Numerics fields)
+LEVER_MODES = [("db1_qi", dict(db1="qi")), ("a1q", dict(a1q=True)),
+               ("pade", dict(tanh="pade")),
+               ("a1q_db1_qi", dict(a1q=True, db1="qi"))]
+CUT_LADDER = [3, 4, 5, 6, 7, 8]
+
+
+class sized:
+    """Within the block the galaxy helpers build a decoder ``h`` wide and
+    batches of ``b`` (the module's P_HIDDEN and BATCH)."""
+
+    def __init__(self, h: int, b: int = None):
+        self.h, self.b = h, b
+
+    def __enter__(self):
+        global P_HIDDEN, BATCH
+        self.saved = (P_HIDDEN, BATCH)
+        P_HIDDEN = self.h
+        BATCH = self.b or BATCH
+        return self
+
+    def __exit__(self, *exc):
+        global P_HIDDEN, BATCH
+        P_HIDDEN, BATCH = self.saved
+        return False
+
+
+def acts_tol(h: int, dtype: str) -> tuple:
+    return ACTS_TOL_WIDE[dtype] if h > 2048 else ACTS_TOL[dtype]
+
+
+def y_tol(h: int, dtype: str) -> tuple:
+    return TOL_WIDE[dtype] if h > 2048 else TOL[dtype]
+
+
+def fwd_case(torch, b, h, dtype, seed, timed) -> dict:
+    """K1 without its activation output (serving) at width ``h``: errors
+    (absolute), with ``timed`` the kernel's and the plain version's ms."""
+    from spatialvae_torch.kernels.fused_decoder import (
+        TailWeights,
+        decoder_tail_reference,
+        run_decoder_tail,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    fold, coords, *ws = _tail_inputs(torch, b, IMAGE[0] * IMAGE[1], h, 1,
+                                     CHANNELS, getattr(torch, dtype), gen)
+    tw = TailWeights(*ws)
+    out = {}
+    with torch.no_grad():
+        got = run_decoder_tail(fold, coords, tw)
+        torch.cuda.synchronize()
+        want = decoder_tail_reference(fold, coords, *ws)
+        out["y"] = check_close(f"K1 H={h} {dtype}", got, want,
+                               getattr(torch, dtype))
+        if timed:
+            out["ms"], out["plain_ms"] = _timed(
+                torch, lambda: run_decoder_tail(fold, coords, tw),
+                lambda: decoder_tail_reference(fold, coords, *ws))
+    return out
+
+
+def _check_k12(h, dtype, r) -> dict:
+    _check_abs(f"K1 H={h} {dtype} y", r["y"], y_tol(h, dtype))
+    _check_abs(f"K1 H={h} {dtype} acts", r["acts"], acts_tol(h, dtype))
+    fields = {"acts": f"{r['acts'][0]:.3e}/{r['acts'][1]:.3e}"}
+    for variant in ("residual", "recompute"):
+        worst = (0.0, 0.0)
+        for g in GRADS:
+            _check_rel(f"K2 H={h} {dtype} {variant} {g}", r[variant, g],
+                       BWD_TOL[dtype, variant])
+            worst = _wmax(worst, r[variant, g][2:])
+        fields[variant] = f"{worst[0]:.2e}/{worst[1]:.2e}"
+    return fields
+
+
+def _check_int8_all(what, r, names) -> str:
+    worst = (0.0, 0.0)
+    for n in names:
+        _check_rel(f"{what} {n}", r[n], INT8_TOL)
+        worst = _wmax(worst, r[n][2:])
+    return f"{worst[0]:.2e}/{worst[1]:.2e}"
+
+
+def phase_kernel_wide(torch) -> dict:
+    """Every kernel at every width of WIDE_WIDTHS against its plain version,
+    at B=2 (every kernel's whole calls timed at WIDE_H, B=100, the slice's
+    shapes): K1 without and with its activation output and K2 with the
+    residual and with recompute, f32 and bf16 weights; K3 in the Bernoulli,
+    Gaussian, colored and padded families, K4 with and without a1, K5 both
+    variants, K8, bf16 weights.  Limits: the default width's (K1's f32
+    activations above 2048 at ACTS_TOL_WIDE)."""
+    res = {}
+    families = [c for c in FAMILY_CASES if c[0] in (
+        "gaussian_mask", "colored_mask", "bernoulli_pad28")]
+    for h in WIDE_WIDTHS:
+        timed = h == WIDE_H
+        b = BATCH if timed else 2
+        with sized(h, b):
+            for dtype in ("float32", "bfloat16"):
+                case = (f"H{h}_{dtype}", b, IMAGE[0] * IMAGE[1], h, 1,
+                        CHANNELS, False, dtype)
+                r = backward_case(torch, case, SEED, timed)
+                fields = _check_k12(h, dtype, r)
+                r["fwd"] = fwd_case(torch, b, h, dtype, SEED, timed)
+                res["k12", h, dtype] = r
+                times = {}
+                if timed:
+                    times = dict(
+                        fwd_ms=f"{r['fwd']['ms']:.4f}",
+                        fwd_plain_ms=f"{r['fwd']['plain_ms']:.4f}",
+                        fwd_acts_ms=f"{r['fwd_acts_ms']:.4f}",
+                        fwd_acts_plain_ms=f"{r['fwd_acts_plain_ms']:.4f}",
+                        residual_ms=f"{r['residual_ms']:.4f}",
+                        residual_plain_ms=f"{r['residual_plain_ms']:.4f}",
+                        recompute_ms=f"{r['recompute_ms']:.4f}",
+                        recompute_plain_ms=f"{r['recompute_plain_ms']:.4f}")
+                log("kernel_wide", kernel="K1/K2", H=h, B=b, dtype=dtype,
+                    y_abs=f"{r['fwd']['y'][0]:.3e}/{r['fwd']['y'][1]:.3e}",
+                    errors="acts_abs,residual_rel,recompute_rel", **fields,
+                    acts_tol=acts_tol(h, dtype), **times)
+                del r
+                torch.cuda.empty_cache()
+            lc = loss_case(torch, b, "bfloat16", SEED, timed)
+            if not lc["same"]:
+                raise AssertionError(f"K3 H={h}: two runs differ")
+            fam = {"bernoulli": _check_int8_all(f"K3 H={h}", lc,
+                                                ("loss",) + INT8_GRADS)}
+            for case in families:
+                r = family_case(torch, case, "bfloat16", SEED, False)
+                fam[case[0]] = _check_int8_all(f"K3 H={h} {case[0]}", r,
+                                               ("loss",) + INT8_GRADS)
+            t = int8_tail_case(torch, b, "bfloat16", SEED, timed)
+            _check_abs(f"K4 H={h} y", t["y"], INT8_Y_TOL)
+            _check_abs(f"K4 H={h} y without a1", t["y_no_a1"], INT8_Y_TOL)
+            _check_abs(f"K4 H={h} a1", t["a1"], INT8_A1_TOL)
+            k5 = {v: _check_int8_all(f"K5 H={h} {v}",
+                                     {n: t[v, n] for n in INT8_GRADS},
+                                     INT8_GRADS)
+                  for v in ("residual", "recompute")}
+            k8 = k8_case(torch, "i4", IMAGE[0], CHANNELS, "bfloat16", SEED,
+                         timed)
+            k8e = _check_int8_all(f"K8 H={h}", k8, ("loss",) + INT8_GRADS)
+            times = {}
+            if timed:
+                hw = IMAGE[0] * IMAGE[1]
+                lc["bound"] = k3_bound(b, hw, h, CHANNELS, 2, 1, False,
+                                       False)
+                times = dict(k3_ms=f"{lc['ms']:.4f}",
+                             k3_plain_ms=f"{lc['plain_ms']:.4f}",
+                             k3_bound_ms=f"{lc['bound'][0]:.4f}",
+                             k4_ms=f"{t['fwd_ms']:.4f}",
+                             k4_plain_ms=f"{t['fwd_plain_ms']:.4f}",
+                             k4_a1_ms=f"{t['fwd_a1_ms']:.4f}",
+                             k5_ms=f"{t['residual_ms']:.4f}",
+                             k5_plain_ms=f"{t['residual_plain_ms']:.4f}",
+                             k5_recompute_ms=f"{t['recompute_ms']:.4f}",
+                             k8_ms=f"{k8['ms']:.4f}",
+                             k8_plain_ms=f"{k8['plain_ms']:.4f}")
+            log("kernel_wide", kernel="K3/K4/K5/K8", H=h, B=b,
+                dtype="bfloat16", errors="max_rel/mean_rel",
+                **{f"k3_{k}": v for k, v in fam.items()},
+                k4_y_abs=f"{t['y'][0]:.3e}", k4_a1_abs=f"{t['a1'][0]:.3e}",
+                k5_residual=k5["residual"], k5_recompute=k5["recompute"],
+                k8_i4=k8e, **times)
+            res["k3", h], res["k45", h], res["k8", h] = lc, t, k8
+            torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_wide(torch) -> dict:
+    """The galaxy model with a decoder WIDE_H wide (twice the default) at
+    B=100 on N_WIDE blob images: two float epochs (K1 with activations and
+    K2 in every step, K6 on every leaf) and two int8 epochs with bf16
+    compute (K3 in the full steps, K4/K5 in the tails, K4 in the
+    evaluations), each with its launch counts, an ELBO that rises, and one
+    step through the kernels against the plain versions."""
+    from spatialvae_torch.kernels import adam as ka
+    from spatialvae_torch.kernels import fused_decoder as fd
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+    from spatialvae_torch.transforms.coords import coord_grid
+
+    out = {}
+    steps = TRAIN_EPOCHS * math.ceil(N_WIDE / BATCH)
+    full, tails = TRAIN_EPOCHS * (N_WIDE // BATCH), TRAIN_EPOCHS
+    with sized(WIDE_H):
+        q_cfg, p_cfg, ecfg = galaxy_configs()
+        tcfg = TrainConfig(minibatch_size=BATCH, learning_rate=1e-4,
+                           num_epochs=TRAIN_EPOCHS, z_delay=1, seed=SEED,
+                           image_shape=IMAGE, channels=CHANNELS)
+        trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg,
+                          coord_grid(*IMAGE, device=DEVICE), device=DEVICE)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        data = blob_images(torch, N_WIDE, gen)
+        before = trainer.eval_epoch(data, 0)
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        rows = trainer.train_epochs(data, 0, TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts, adam = dict(fd.LAUNCHES), dict(ka.LAUNCHES)
+        want = {"fwd": 0, "fwd_acts": steps, "fwd_recompute": 0,
+                "bwd_chain": steps, "bwd_dw": steps, "bwd_sum": 4 * steps}
+        leaves = len(trainer.named_params())
+        if counts != want or adam["adam"] != steps * leaves:
+            raise AssertionError(f"train_wide float launches {counts}, Adam "
+                                 f"{adam}; expected {want}, "
+                                 f"{steps * leaves} Adam")
+        after = trainer.eval_epoch(data, TRAIN_EPOCHS)
+        if not (np.isfinite(rows).all() and after[0] > before[0]):
+            raise AssertionError(f"train_wide float: ELBO {before[0]} -> "
+                                 f"{after[0]}, epochs {rows}")
+        y = data[:BATCH]
+        noise = torch.randn((BATCH, Z_DIM + 3), generator=gen, device=DEVICE)
+        kern = step_grads(torch, trainer, y, noise, True)
+        plain = step_grads(torch, trainer, y, noise, False)
+        worst = (0.0, 0.0)
+        for k in kern:
+            _, _, rel, mean_rel = rel_errors(kern[k], plain[k])
+            if not (rel <= STEP_TOL[0] and mean_rel <= STEP_TOL[1]):
+                raise AssertionError(f"train_wide float step {k}: {rel}, "
+                                     f"mean {mean_rel}; limits {STEP_TOL}")
+            worst = _wmax(worst, (rel, mean_rel))
+        log("train_wide", path="float", H=WIDE_H, B=BATCH, epochs=TRAIN_EPOCHS,
+            steps=steps, images=N_WIDE, seconds=f"{seconds:.4f}",
+            images_per_s=f"{TRAIN_EPOCHS * N_WIDE / seconds:.1f}",
+            elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
+            launches=json.dumps(counts, separators=(",", ":")),
+            adam_launches=adam["adam"],
+            step_vs_plain=f"{worst[0]:.3e}/{worst[1]:.3e}")
+        out["float"] = counts
+        out["trained_p"] = {k: v.detach().clone() for k, v in
+                            trainer.p_net.state_dict().items()}
+        out["trained_q"] = {k: v.detach().clone() for k, v in
+                            trainer.q_net.state_dict().items()}
+        del trainer, kern, plain
+        torch.cuda.empty_cache()
+
+        trainer, _, gen = int8_galaxy_trainer(torch)
+        evals = math.ceil(N_WIDE / BATCH)
+        before = _int8_evaluate(torch, trainer, data, 0)
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        rows = trainer.train_epochs(data, 0, TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _int8_launches()
+        want = {"k3": {"fwd": full, "grad": full, "dw": full,
+                       "sum": 5 * full},
+                "k8": dict.fromkeys(("fwd", "grad", "dw", "sum"), 0),
+                "k45": {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
+                        "bwd_grad": tails, "dw": tails, "sum": 4 * tails},
+                "k12": 0,
+                "adam": int8_adam_launches(trainer, full + tails,
+                                           seeded=True)}
+        if counts != want:
+            raise AssertionError(f"train_wide int8 launches {counts}, "
+                                 f"expected {want}")
+        after = _int8_evaluate(torch, trainer, data, TRAIN_EPOCHS)
+        if not (np.isfinite(rows).all() and after[0] > before[0]):
+            raise AssertionError(f"train_wide int8: ELBO {before[0]} -> "
+                                 f"{after[0]}, epochs {rows}")
+        worst = int8_step_readings(torch, trainer, data, gen)
+        for kind, (rel, mean_rel, leaf) in worst.items():
+            if not (rel <= INT8_STEP_TOL[0] and
+                    mean_rel <= INT8_STEP_TOL[1]):
+                raise AssertionError(f"train_wide int8 {kind} step: {rel} "
+                                     f"({leaf}), mean {mean_rel}; limits "
+                                     f"{INT8_STEP_TOL}")
+        log("train_wide", path="int8", H=WIDE_H, B=BATCH, compute="bfloat16",
+            epochs=TRAIN_EPOCHS, steps=full + tails, images=N_WIDE,
+            seconds=f"{seconds:.4f}",
+            images_per_s=f"{TRAIN_EPOCHS * N_WIDE / seconds:.1f}",
+            elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
+            launches=json.dumps(counts, separators=(",", ":")),
+            eval_k4_launches=evals,
+            step_k3_vs_plain=f"{worst['k3'][0]:.3e}/{worst['k3'][1]:.3e}",
+            step_tail_vs_plain=(f"{worst['k4k5'][0]:.3e}/"
+                                f"{worst['k4k5'][1]:.3e}"))
+        out["int8"] = counts
+        out["eval_k4"] = evals
+        del trainer, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice_wide(torch, tmpdir: str, trained: dict) -> int:
+    """Serving at WIDE_H: ``[train_wide]``'s trained float weights written as
+    checkpoints and served through ``SpatialVae.load`` (the slice's
+    requests, timed passes, a reconstruct against the plain decoder)."""
+    from spatialvae_torch import checkpoint
+    from spatialvae_torch.models import InferenceNetwork, SpatialGenerator
+
+    with sized(WIDE_H):
+        q_cfg, p_cfg, ecfg = galaxy_configs()
+        q_net = InferenceNetwork(q_cfg, device=DEVICE)
+        p_net = SpatialGenerator(p_cfg, device=DEVICE)
+        q_net.load_state_dict(trained["trained_q"])
+        p_net.load_state_dict(trained["trained_p"])
+        paths = (os.path.join(tmpdir, "wide_generator_epoch2.sav"),
+                 os.path.join(tmpdir, "wide_inference_epoch2.sav"))
+        checkpoint.save_model(paths[0], "generator", p_net, elbo=ecfg,
+                              image_shape=IMAGE)
+        checkpoint.save_model(paths[1], "inference", q_net, elbo=ecfg,
+                              image_shape=IMAGE)
+        del q_net, p_net
+        launches = phase_slice(torch, tmpdir, paths=paths, tag="slice_wide")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_loss_levers(torch) -> dict:
+    """K3's measurement levers at the galaxy shape (B=100, bf16 weights):
+    each of LEVER_MODES against its plain version (the quantised tiles
+    too), two runs bit for bit, ms and bound; then the phase-cut ladder,
+    whose cut phases launch nothing: the whole call's ms at each cut."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    res = {}
+    hw = IMAGE[0] * IMAGE[1]
+    for name, kw in LEVER_MODES:
+        nm = _numerics(**kw)
+        r = loss_case(torch, BATCH, "bfloat16", SEED, True, nm=nm)
+        if not r["same"]:
+            raise AssertionError(f"K3 {name}: two runs differ")
+        fields = {n: _check_rel(f"K3 {name} {n}", r[n], INT8_TOL)
+                  for n in ("loss",) + INT8_GRADS}
+        r["bound"] = k3_bound(BATCH, hw, P_HIDDEN, CHANNELS, 2, 1, False,
+                              False)
+        log("kernel_loss_levers", lever=name, B=BATCH, HW=hw, H=P_HIDDEN,
+            No=CHANNELS, dtype="bfloat16",
+            errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
+            max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+            ints_fwd_differ_grad_share=_check_ints(f"K3 {name}", r),
+            kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+            bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+        res[name] = r
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    fold, coords, ws = _int8_inputs(torch, BATCH, "bfloat16", gen)
+    k = torch.randint(0, 256, (BATCH, CHANNELS, hw), generator=gen,
+                      device=DEVICE)
+    yt = (k - 128).to(torch.int8)
+    ladder = {}
+    with torch.no_grad():
+        for cut in CUT_LADDER:
+            nm = _numerics(phase_cut=cut)
+            l8.reset_launches()
+            got = l8.run_loss_int8(fold, coords, *ws, yt, numerics=nm)
+            torch.cuda.synchronize()
+            launched = dict(l8.LAUNCHES)
+            want = l8.loss_int8_reference(fold, coords, *ws, yt, numerics=nm)
+            r = {"loss": rel_errors(got[0][:, 3, 0], want[0][:, 3, 0])}
+            r.update({n: rel_errors(u, v)
+                      for n, u, v in zip(INT8_GRADS, got, want)})
+            err = _check_int8_all(f"K3 cut {cut}", r, ("loss",) + INT8_GRADS)
+            if (launched["grad"] != (cut >= 4) or launched["dw"] != (cut >= 6)
+                    or launched["fwd"] != 1):
+                raise AssertionError(f"K3 cut {cut}: launches {launched}")
+            run = lambda: l8.run_loss_int8(fold, coords, *ws, yt,
+                                           numerics=nm)
+            run()
+            ladder[cut] = statistics.median(
+                [cuda_ms(run, torch) for _ in range(N_TIMED)])
+            log("kernel_loss_cut", cut=cut, ms=f"{ladder[cut]:.4f}",
+                launches=json.dumps(launched, separators=(",", ":")),
+                errors=err)
+            del got, want
+    log("kernel_loss_ladder", B=BATCH, HW=hw, H=P_HIDDEN, dtype="bfloat16",
+        ms=" ".join(f"{c}:{ladder[c]:.4f}" for c in CUT_LADDER),
+        phase_ms=" ".join(f"{c}:{ladder[c] - ladder[p]:.4f}"
+                          for p, c in zip(CUT_LADDER, CUT_LADDER[1:])))
+    res["ladder"] = ladder
+    del fold, coords, ws, yt
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_limits_wide(torch) -> None:
+    """``--limits wide``: the wide path's readings at the ragged and whole
+    widths for the sound library and three copies with one step removed:
+    the last ragged 512-column chunk skipped (-DSVT_WIDE_DROP_LAST=1), one
+    TF32 pass for f32 weights (-DSVT_TF32_SPLIT=0) and no bf16 operand
+    casts (-DSVT_BF16_CASTS=0); they place the wide limits (ACTS_TOL_WIDE,
+    TOL_WIDE; the default width's elsewhere)."""
+    from spatialvae_torch.kernels import _build
+    from spatialvae_torch.kernels import fused_decoder as fd
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    for defines in ((), ("-DSVT_WIDE_DROP_LAST=1",),
+                    ("-DSVT_TF32_SPLIT=0",), ("-DSVT_BF16_CASTS=0",)):
+        lib = _build.load_library(defines)
+        fd._lib = d8._lib = l8._lib = (lambda lib=lib: lib)
+        readings = {}
+        for h in (768, 1000, 4100):
+            with sized(h, 2):
+                case = (f"H{h}", 2, IMAGE[0] * IMAGE[1], h, 1, CHANNELS,
+                        False, "float32")
+                r = backward_case(torch, case, SEED, False, rerun=False)
+                readings[f"K1_acts_f32_H{h}"] = r["acts"][:2]
+                readings[f"K1_y_f32_H{h}"] = r["y"][:2]
+                worst = (0.0, 0.0)
+                for g in GRADS:
+                    worst = _wmax(worst, r["residual", g][2:])
+                readings[f"K2_f32_H{h}"] = worst
+                for hw in (784, IMAGE[0] * IMAGE[1]):
+                    case = (f"H{h}", 2, hw, h, 2, CHANNELS, False,
+                            "bfloat16")
+                    r = backward_case(torch, case, SEED, False, rerun=False)
+                    readings[f"K1_y_bf16_{hw}px_H{h}"] = r["y"][:2]
+                    readings[f"K1_acts_bf16_{hw}px_H{h}"] = r["acts"][:2]
+                lc = loss_case(torch, 2, "bfloat16", SEED, False)
+                worst = (0.0, 0.0)
+                for n in ("loss",) + INT8_GRADS:
+                    worst = _wmax(worst, lc[n][2:])
+                readings[f"K3_H{h}"] = worst
+                t = int8_tail_case(torch, 2, "bfloat16", SEED, False)
+                readings[f"K4_y_H{h}"] = t["y"][:2]
+                worst = (0.0, 0.0)
+                for n in INT8_GRADS:
+                    worst = _wmax(worst, t["residual", n][2:])
+                readings[f"K5_H{h}"] = worst
+            torch.cuda.empty_cache()
+        log("limits_wide", build=" ".join(defines) or "sound",
+            **{k: f"{a:.3e}/{m:.3e}" for k, (a, m) in readings.items()})
+    fd._lib = d8._lib = l8._lib = (lambda: _build.load_library())
+
+
+def wide_rows(wide, tw, slice_launches, levers, lever_counts) -> list:
+    """The JSON records of this slice: K1 (without and with activations),
+    K2's whole backward, K3, K4 and K5's whole backward at WIDE_H (B=100;
+    launches: [train_wide] and [slice_wide]), and K3 under the levers (the
+    a1q_db1_qi call; launches: [train_int8_levers])."""
+    b, hw, h, no = BATCH, IMAGE[0] * IMAGE[1], WIDE_H, CHANNELS
+    kp = -(-h // 64) * 64
+    f4 = 4
+    k12 = wide["k12", h, "float32"]
+    w_bytes = (h * h + h + no * h + no) * f4
+    io = b * 4 * h * f4 + hw * 2 * f4 + w_bytes + b * no * hw * f4
+    gemm = 2.0 * b * hw * h * h
+    head = (2.0 * b * hw * h * no, PEAK_FP32)
+    acts = b * hw * h * f4
+    k2_parts = (b * (hw // 64) * (3 * h + (1 + no) * h + no)
+                + (b * hw // 4096) * h * h) * f4
+    lc, t = wide["k3", h], wide["k45", h]
+    i8_w = h * h + (h + no * h + no) * f4
+    fold_io = b * 4 * h * f4 + hw * 2 * f4
+    ws = 2.0 * b * kp * hw
+    parts = (b * hw // 64) * (3 * h + h + no * h + no) * f4
+    worst = lambda r, names: max(r[n][0] for n in names)
+    lv = levers["a1q_db1_qi"]
+    return [
+        ("fused_decoder_fwd_wide", FWD_SOURCE, FWD_REPLACES, slice_launches,
+         k12["fwd"]["y"][0], k12["fwd"]["ms"], k12["fwd"]["plain_ms"],
+         bound(io, f32_gemm(gemm), head), None),
+        ("fused_decoder_fwd_acts_wide", FWD_SOURCE, FWD_REPLACES,
+         tw["float"]["fwd_acts"], k12["acts"][0], k12["fwd_acts_ms"],
+         k12["fwd_acts_plain_ms"], bound(io + acts, f32_gemm(gemm), head),
+         None),
+        ("fused_decoder_bwd_wide", BWD_SOURCE, BWD_REPLACES,
+         tw["float"]["bwd_chain"],
+         max(k12["residual", n][0] for n in GRADS), k12["residual_ms"],
+         k12["residual_plain_ms"],
+         bound(io + 2 * acts + k2_parts, f32_gemm(2 * gemm),
+               (2 * head[0], PEAK_FP32)), None),
+        ("int8_loss_wide", LOSS_WIDE_SOURCE, K3_REPLACES,
+         tw["int8"]["k3"]["fwd"], worst(lc, ("loss",) + INT8_GRADS),
+         lc["ms"], lc["plain_ms"], lc["bound"], None),
+        ("int8_fwd_wide", INT8_SOURCE, K4_REPLACES, tw["eval_k4"],
+         t["y_no_a1"][0], t["fwd_ms"], t["fwd_plain_ms"],
+         bound(fold_io + i8_w + b * no * hw * f4, (gemm, PEAK_INT8), head),
+         None),
+        ("int8_bwd_wide", INT8_SOURCE, K5_REPLACES,
+         tw["int8"]["k45"]["bwd_grad"],
+         max(t["residual", n][0] for n in INT8_GRADS), t["residual_ms"],
+         t["residual_plain_ms"],
+         bound(fold_io + i8_w + b * hw * h * 2 + 2 * b * no * hw * f4 + ws
+               + parts, (2 * gemm, PEAK_INT8), (2 * head[0], PEAK_FP32)),
+         None),
+        ("int8_loss_levers", LEVERS_SOURCE, K3_REPLACES,
+         lever_counts["counts"]["k3"]["fwd"],
+         max(lv[n][0] for n in INT8_GRADS), lv["ms"], lv["plain_ms"],
+         lv["bound"], None),
+    ]
+
+
+def log_default_width(res, bwd) -> None:
+    """``[default_width]``: K1-K5's device times at the default width (H =
+    500) from this run's kernel phases, beside PERF.md's rows of the parent
+    (the A/B against a checkout of the parent in one call is
+    ``_default_width_ab``'s work, not this line's)."""
+    i8 = res["int8"]
+    log("default_width", H=P_HIDDEN, B=BATCH,
+        k1_f32_ms=f"{res['galaxy_f32']['ms']:.4f}",
+        k1_bf16_ms=f"{res['galaxy_bf16']['ms']:.4f}",
+        k1_acts_f32_ms=f"{bwd['galaxy_f32']['fwd_acts_ms']:.4f}",
+        k2_residual_f32_ms=f"{bwd['galaxy_f32']['residual_ms']:.4f}",
+        k3_bf16_ms=f"{i8['loss', BATCH, 'bfloat16', True, False]['ms']:.4f}",
+        k4_bf16_ms=f"{i8['tail', BATCH, 'bfloat16']['fwd_ms']:.4f}",
+        k5_bf16_b37_ms=(
+            f"{i8['tail', N_TRAIN % BATCH, 'bfloat16']['residual_ms']:.4f}"))
+
+
 def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
                 fam_counts, knobs) -> list:
     """The per-kernel JSON records: K1 and K2 at the float path's galaxy
@@ -2632,7 +3211,103 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
     return rows
 
 
+# K1-K5 at the default width, timed in turns in two checkouts (this one
+# and the parent's), each through its own build: (name, one call)
+AB_TURNS = ("parent", "this", "this", "parent", "parent", "this")
+
+
+def default_width_times() -> dict:
+    """K1-K5's device ms at the galaxy shape (H = 500, B = 100; K5 at the
+    tail's B = 37) through the wrappers of the checkout in the working
+    directory: the calls both the parent's and this tree's port take."""
+    import torch
+
+    from spatialvae_torch.kernels import fused_decoder as fd
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.precision import pin_fp32_precision
+
+    pin_fp32_precision()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    hw = IMAGE[0] * IMAGE[1]
+    out = {}
+    with torch.no_grad():
+        for dtype in ("float32", "bfloat16"):
+            fold, coords, *ws = _tail_inputs(torch, BATCH, hw, 500, 1,
+                                             CHANNELS, getattr(torch, dtype),
+                                             gen)
+            tw = fd.TailWeights(*ws)
+            g = torch.randn((BATCH, CHANNELS, hw), generator=gen,
+                            device=DEVICE)
+            y, acts = fd.run_decoder_tail_acts(fold, coords, tw)
+            calls = {
+                f"k1_{dtype}": lambda: fd.run_decoder_tail(fold, coords, tw),
+                f"k1_acts_{dtype}": lambda: fd.run_decoder_tail_acts(
+                    fold, coords, tw),
+                f"k2_{dtype}": lambda: fd.run_decoder_tail_backward(
+                    fold, coords, tw, acts, y, g)}
+            for name, fn in calls.items():
+                fn()
+                out[name] = statistics.median(
+                    [cuda_ms(fn, torch) for _ in range(N_TIMED)])
+        fold, coords, ws = _int8_inputs(torch, BATCH, "bfloat16", gen, h=500)
+        k = torch.randint(0, 256, (BATCH, CHANNELS, hw), generator=gen,
+                          device=DEVICE)
+        yt = (k - 128).to(torch.int8)
+        w = d8.Int8Weights(*ws)
+        tb = N_TRAIN % BATCH
+        y37, a1 = d8.run_int8_tail(fold[:tb], coords, w, emit_a1=True)
+        g37 = torch.randn((tb, CHANNELS, hw), generator=gen, device=DEVICE)
+        calls = {
+            "k3_bf16": lambda: l8.run_loss_int8(fold, coords, *ws, yt),
+            "k4_bf16": lambda: d8.run_int8_tail(fold, coords, w),
+            "k5_bf16_b37": lambda: d8.run_int8_tail_backward(
+                fold[:tb], coords, w, a1, y37, g37)}
+        for name, fn in calls.items():
+            fn()
+            out[name] = statistics.median(
+                [cuda_ms(fn, torch) for _ in range(N_TIMED)])
+    return out
+
+
+def phase_default_width_ab(args) -> int:
+    """``--default-width PARENT``: K1-K5 at the default width in this
+    checkout and in the parent's (a directory holding its files), in the
+    turns of AB_TURNS, each turn a fresh process that builds (or loads) its
+    own tree's kernels: every time of each turn, and the medians."""
+    if len(args) != 1 or not os.path.isdir(args[0]):
+        print("usage: chip_smoke.py --default-width PARENT_DIR",
+              file=sys.stderr)
+        return 2
+    trees = {"parent": os.path.abspath(args[0]),
+             "this": os.path.dirname(os.path.abspath(__file__))}
+    runs = {"parent": [], "this": []}
+    for turn in AB_TURNS:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__),
+             "--default-width-times"], cwd=trees[turn], text=True,
+            capture_output=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stderr, file=sys.stderr)
+            return proc.returncode
+        times = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs[turn].append(times)
+        log("default_width_turn", tree=turn,
+            **{k: f"{v:.4f}" for k, v in times.items()})
+    for turn, rs in runs.items():
+        log("default_width_ab", tree=turn, runs=len(rs),
+            **{k: f"{statistics.median(r[k] for r in rs):.4f}"
+               for k in rs[0]})
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--default-width-times"]:
+        # a turn of the A/B: the port of the checkout in the working
+        # directory, whichever tree this file lies in
+        sys.path.insert(0, os.getcwd())
+        print(json.dumps(default_width_times()))
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -2643,13 +3318,19 @@ def main() -> int:
 
     pin_fp32_precision()
     kind, card = phase_device(torch)
+    if sys.argv[1:2] == ["--default-width"]:
+        return phase_default_width_ab(sys.argv[2:])
     phase_build()
     if sys.argv[1:] == ["--limits"]:
         phase_limits(torch)
         phase_limits_numerics(torch)
+        phase_limits_wide(torch)
         return 0
     if sys.argv[1:] == ["--limits", "numerics"]:
         phase_limits_numerics(torch)
+        return 0
+    if sys.argv[1:] == ["--limits", "wide"]:
+        phase_limits_wide(torch)
         return 0
     res = phase_kernels(torch)
     bwd = phase_backward(torch)
@@ -2660,6 +3341,9 @@ def main() -> int:
     res["t"] = phase_loss_t(torch)
     res["adam"] = phase_adam_kernels(torch)
     res["adam_emit"] = phase_adam_emit_kernels(torch)
+    res["wide"] = phase_kernel_wide(torch)
+    res["levers"] = phase_loss_levers(torch)
+    log_default_width(res, bwd)
     with tempfile.TemporaryDirectory() as tmpdir:
         launches = phase_slice(torch, tmpdir)
         counts, step_ms = phase_train(torch, tmpdir)
@@ -2668,10 +3352,14 @@ def main() -> int:
                       for name in FAMILY_MODELS}
         knobs = {tag: phase_train_knobs(torch, tag, env, on_grid, kernel)
                  for tag, env, on_grid, kernel in KNOB_PATHS}
+        tw = phase_train_wide(torch)
+        wide_launches = phase_slice_wide(torch, tmpdir, tw)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     rows = kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
                        fam_counts, knobs)
+    rows += wide_rows(res["wide"], tw, wide_launches, res["levers"],
+                      knobs["train_int8_levers"])
     for r in rows:
         if r[3] < 1:
             raise AssertionError(f"{r[0]} was not launched on its path")

@@ -10,9 +10,8 @@
 
 Every spatial decode goes through the ELBO's decode dispatch with the fused
 decoder selected, so on a CUDA device the foldable tanh configs (galaxy
-among them) run the hand-written kernel; a foldable tanh decoder wider than
-the kernel takes (``MAX_HIDDEN``) is refused, as the kernel's wrapper
-refuses it on every device.  (The JAX API pins the XLA decoder
+among them) run the hand-written kernel at any hidden width.  (The JAX
+API pins the XLA decoder
 because a pallas_call could not be partitioned under GSPMD; the port has no
 such limit, and kernel and plain decoder compute the same function.)
 Random draws come from an explicit ``torch.Generator``; ``noise=`` injects

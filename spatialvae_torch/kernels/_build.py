@@ -37,22 +37,23 @@ _SIGNATURES = {
     "svt_adam_emit": ([_P] * 8 + [_L] + [_I] * 2 + [_F] * 8 + [_P], _I),
     "svt_quant_scale": ([_P] * 4, _I),
     "svt_quantize": ([_P] * 3 + [_L, _P], _I),
-    "svt_fused_decoder_fwd": ([_P] * 8 + [_I] * 8 + [_P], _I),
-    "svt_fused_decoder_max_hidden": ([], _I),
+    "svt_fused_decoder_fwd": ([_P] * 8 + [_L, _P] + [_I] * 8 + [_P], _I),
+    "svt_fused_decoder_ws_block": ([_I], _L),
     "svt_cuda_error_string": ([_I], ctypes.c_char_p),
     "svt_fused_decoder_bwd_chain": (
-        [_P] * 5 + [_L] + [_P] * 5 + [_I] * 8 + [_P], _I),
+        [_P] * 5 + [_L] + [_P] * 6 + [_I] * 8 + [_P], _I),
     "svt_fused_decoder_bwd_dw": ([_P] * 3 + [_L] + [_P] * 2 + [_I] * 6
                                  + [_P], _I),
     "svt_fused_decoder_bwd_kchunk": ([], _I),
     "svt_sum_rows": ([_P, _P, _I, _L, _I, _L, _P], _I),
-    "svt_int8_max_hidden": ([], _I),
-    "svt_int8_decoder_fwd": ([_P] * 9 + [_I] * 5 + [_P], _I),
-    "svt_int8_decoder_bwd_scale": ([_P] * 10 + [_I] * 5 + [_P], _I),
-    "svt_int8_decoder_bwd_grad": ([_P] * 16 + [_I] * 7 + [_P], _I),
+    "svt_int8_ws_block": ([_I], _L),
+    "svt_int8_decoder_fwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
+    "svt_int8_decoder_bwd_scale": ([_P] * 11 + [_I] * 5 + [_P], _I),
+    "svt_int8_decoder_bwd_grad": ([_P] * 17 + [_I] * 7 + [_P], _I),
     "svt_int8_grouped_dw": ([_P] * 4 + [_I] * 6 + [_P], _I),
-    "svt_loss_int8_fwd": ([_P] * 12 + [_I] * 8 + [_F, _I, _P], _I),
-    "svt_loss_int8_grad": ([_P] * 16 + [_I] * 7 + [_F, _F, _I, _F, _P], _I),
+    "svt_loss_int8_fwd": ([_P] * 13 + [_I] * 8 + [_F, _F, _I, _P], _I),
+    "svt_loss_int8_grad": ([_P] * 17 + [_I] * 7 + [_F, _F, _I, _F, _F, _I,
+                                                    _P], _I),
     "svt_philox4x32_10": ([_P, _P, _I, ctypes.c_uint, ctypes.c_uint, _P],
                           _I),
 }

@@ -22,13 +22,14 @@ reads through ``numerics()``:
   copies of the big encoder weights (``pallas`` is K7);
 - ``SPATIALVAE_TANH`` (``exact`` or ``pade``), ``SPATIALVAE_A1Q``,
   ``SPATIALVAE_DB1`` (``chain`` or ``qi``) and ``SPATIALVAE_PHASE_CUT``
-  (8): the JAX package's measurement levers, not ported (ROADMAP Queue 2
-  K3 (g)).
+  (8): the JAX package's measurement levers of K3 (its K3 (g)), run as
+  modes of K3's two passes (``k3_a1q`` and ``k3_db1_qi`` say where JAX's
+  kernel reads the last two; the feature-major kernel K8 reads none).
 
-``numerics()`` raises ``ValueError`` on a value JAX would reject,
-``RuntimeError`` on any value off its default unless
-``SPATIALVAE_ALLOW_KNOBS=1`` (JAX's ``check_numerics_default``), and
-``NotImplementedError`` naming K3 (g) on the four levers above even then.
+``numerics()`` raises ``ValueError`` on a value JAX would reject or on a
+phase cut below 3, where the JAX kernel fails at trace time (phase 3 sets
+the loss), and ``RuntimeError`` on any value off its default unless
+``SPATIALVAE_ALLOW_KNOBS=1`` (JAX's ``check_numerics_default``).
 ``Trainer`` checks at every construction, as the JAX trainer does, and the
 kernel wrappers resolve their numerics through it at every call, so no
 wrapper ever runs other numerics than asked for.  The JAX package's
@@ -51,8 +52,8 @@ import torch
 GRAD_MODES = ("i8", "da0_i4", "i4fwd", "i4dw1")
 ADAM_EMITS = ("xla", "pallas")
 _MOMENTS = {"f32": torch.float32, "bf16": torch.bfloat16}
-# the JAX package's measurement levers that the port has not ported
-UNPORTED = ("tanh", "a1q", "db1", "phase_cut")
+# phases of the JAX kernel (`_Phases` p1..p8); a cut keeps 1..phase_cut
+PHASES = 8
 
 
 def _choice(name: str, default: str, choices) -> str:
@@ -118,13 +119,14 @@ class Numerics:
                 if getattr(self, f.name) != f.default]
 
     def check(self) -> "Numerics":
-        """Raise ``NotImplementedError`` for a field the port has not ported
-        (ROADMAP Queue 2 K3 (g)); returns self."""
-        off = [n for n in self.drift() if n in UNPORTED]
-        if off:
-            raise NotImplementedError(
-                f"kernel knob(s) {off} are not ported yet (ROADMAP Queue 2 "
-                f"K3 (g)); the port runs them at their defaults only")
+        """Raise ``ValueError`` on a phase cut below 3: the JAX kernel fails
+        at trace time there (the loss is set by phase 3), so the port gives
+        no value either; returns self."""
+        if self.phase_cut < 3:
+            raise ValueError(
+                f"SPATIALVAE_PHASE_CUT={self.phase_cut}: the loss kernel "
+                f"needs phases 1..3 for its loss (the JAX kernel fails at "
+                f"trace time below 3)")
         return self
 
     # ---- what K3 computes under these numerics (the JAX _lossgrad_pallas)
@@ -145,12 +147,29 @@ class Numerics:
         """The gradient tile's level: 127 for ``i8``, else 7."""
         return 127 if self.grad_mode == "i8" else 7
 
+    @property
+    def k3_a1q(self) -> bool:
+        """Whether K3 runs the int8 a1 (``SPATIALVAE_A1Q``): JAX wires it for
+        the bound scale and the bf16 epilogue only, and turns it off
+        silently elsewhere."""
+        return self.a1q and self.k3_gscale == "bound" and self.epi != "f32"
+
+    @property
+    def k3_db1_qi(self) -> bool:
+        """Whether K3's db1 sums the rounded gradient tile
+        (``SPATIALVAE_DB1=qi``): read by the bound scale's chain alone."""
+        return self.db1 == "qi" and self.k3_gscale == "bound"
+
+    @property
+    def k3_cut(self) -> int:
+        """The last phase K3 runs (``SPATIALVAE_PHASE_CUT``, 3..8)."""
+        return min(self.phase_cut, PHASES)
+
 
 def numerics() -> Numerics:
     """The environment's numerics, checked: ``ValueError`` on a value JAX
-    would reject, ``RuntimeError`` on a value off its default unless
-    ``SPATIALVAE_ALLOW_KNOBS=1``, ``NotImplementedError`` on a lever not
-    ported (K3 (g))."""
+    would reject or a phase cut below 3, ``RuntimeError`` on a value off
+    its default unless ``SPATIALVAE_ALLOW_KNOBS=1``."""
     n = Numerics.from_env()
     drift = n.drift()
     if drift and os.environ.get("SPATIALVAE_ALLOW_KNOBS") != "1":

@@ -7,8 +7,14 @@
 // by an (Hp, Hp) f32 matrix streamed from global memory through a 3-stage
 // ring of 16-row slabs (16-byte cp.async copies, one barrier per two
 // k8-steps) on the tensor cores with mma.sync m16n8k8 TF32, and leaves the
-// (64, Hp) product in registers: warp w owns columns 32w .. 32w+31 as 4 x 4
-// m16n8 tiles, so H is capped at MAX_H = 512.
+// (64, 512) product in registers: warp w owns columns 32w .. 32w+31 as 4 x 4
+// m16n8 tiles.  Up to H = MAX_H = 512 the whole layer output is one such
+// chunk and the (PT, H) operand lives in shared memory.  A wider layer (the
+// `WIDE` instantiations) keeps its operand in a per-block workspace in
+// global memory (row stride `as`, read through L1) and is computed in
+// 512-column chunks: each chunk streams its slab columns n0 .. n0+511 of W
+// through the same ring, so the ring and the register tile keep their size
+// at every width.
 //   - f32 weights: each operand is split into a TF32 head and tail
 //     (x = hi + lo) and the product is hi*hi + hi*lo + lo*hi, three passes
 //     that keep about f32 accuracy;
@@ -19,8 +25,10 @@
 //
 // Two build-time switches exist only to place the kernels' error limits:
 // a copy built with -DSVT_TF32_SPLIT=0 runs one TF32 pass for f32 weights,
-// one built with -DSVT_BF16_CASTS=0 drops the bf16 operand casts.  The
-// library is always built with both at 1.
+// one built with -DSVT_BF16_CASTS=0 drops the bf16 operand casts, and one
+// built with -DSVT_WIDE_DROP_LAST=1 skips a wide layer's ragged last column
+// chunk.  The library is always built with the first two at 1 and the last
+// at 0.
 
 #pragma once
 
@@ -35,13 +43,16 @@
 #ifndef SVT_BF16_CASTS
 #define SVT_BF16_CASTS 1
 #endif
+#ifndef SVT_WIDE_DROP_LAST
+#define SVT_WIDE_DROP_LAST 0
+#endif
 
 namespace svt {
 
 constexpr int PT = 64;                 // pixels per block: four m16 tiles
 constexpr int NT = 512;                // threads per block: 16 warps
 constexpr int WARPS = NT / 32;
-constexpr int MAX_H = 512;             // the layer output fits in registers
+constexpr int MAX_H = 512;             // columns of one register chunk
 constexpr int WN = MAX_H / WARPS;      // columns per warp
 constexpr int MTILES = PT / 16;
 constexpr int NTILES = WN / 8;
@@ -57,9 +68,21 @@ static_assert(NT == MAX_H, "the first layer takes one column per thread");
 static_assert(MAX_NO * MAX_H + 2 * MAX_NO * PT <= STAGES * BK * BNS,
               "head weights and head cotangents fit the ring");
 static_assert(SMEM_BYTES <= 232448, "opt-in shared memory per block on sm_90");
+// The WIDE kernels keep only the ring (and K2's head cotangents) in shared
+// memory; each block's (PT, Hp) operands live in a workspace of
+// WIDE_BLOCK_FLOATS(Hp) floats: two buffers of row stride Hp.
+constexpr size_t RING_BYTES = size_t(STAGES) * BK * BNS * sizeof(float);
+__host__ __device__ constexpr size_t wide_block_floats(int hp) {
+  return 2 * size_t(PT) * hp;
+}
 
 __host__ __device__ constexpr int padded_hidden(int h) {
   return (h + 31) / 32 * 32;
+}
+
+// The end of a wide layer's 512-column chunks (n0 < wide_end(Hp)).
+__device__ __forceinline__ int wide_end(int hp) {
+  return SVT_WIDE_DROP_LAST ? hp / MAX_H * MAX_H : hp;
 }
 
 // The cast before each product (the TPU kernel's `x.astype(w.dtype)`):
@@ -146,29 +169,35 @@ __device__ __forceinline__ int frag_row(int g, int mt, int c) {
   return mt * 16 + g + (c >> 1) * 8;
 }
 
-// acc = loaded(act) (PT, Hp) @ W (Hp, Hp), W row-major [k][n] in global
-// memory, zero outside its leading (H, H).  Starts with a barrier (act
-// written, ring free) and ends with one (every read of act and the ring
-// done), so the caller may then update act in place.
-template <bool BF16, bool RESID>
+// acc = loaded(act) (PT, Hp) @ W[:, n0 : n0+512] (columns past Hp are not
+// computed), W (Hp, Hp) row-major [k][n] in global memory, zero outside its
+// leading (H, H); act has row stride AS (shared memory) or, WIDE, `as`.
+// Without WIDE n0 is 0 and Hp <= 512.  Starts with a barrier (act written,
+// ring free) and ends with one (every read of act and the ring done), so
+// the caller may then update act in place.
+template <bool BF16, bool RESID, bool WIDE = false>
 __device__ __forceinline__ void tile_gemm(const float* act, float* ring,
                                           const float* __restrict__ W, int Hp,
-                                          float (&acc)[MTILES][NTILES][4]) {
+                                          float (&acc)[MTILES][NTILES][4],
+                                          int as = AS, int n0 = 0) {
   constexpr bool SPLIT = !BF16 && SVT_TF32_SPLIT;
+  const int ast = WIDE ? as : AS;
+  const int c0 = WIDE ? n0 : 0;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int nslab = Hp / BK;
-  const bool busy = warp * WN < Hp;   // warps past Hp own only padding
+  const bool busy = c0 + warp * WN < Hp;   // warps past Hp own only padding
   auto fill = [&](int slab) {
     if (slab < nslab) {
       float* dst = ring + (slab % STAGES) * BK * BNS;
-      const float* src = W + size_t(slab) * BK * Hp;
+      const float* src = W + size_t(slab) * BK * Hp + c0;
 #pragma unroll
       for (int j = 0; j < BK * MAX_H / 4 / NT; ++j) {
         const int i = tid + j * NT;
         const int r = i / (MAX_H / 4), c = (i % (MAX_H / 4)) * 4;
-        if (c < Hp) cp_async16(dst + r * BNS + c, src + size_t(r) * Hp + c);
+        if (c0 + c < Hp)
+          cp_async16(dst + r * BNS + c, src + size_t(r) * Hp + c);
       }
     }
     cp_async_commit();  // empty groups keep the wait count uniform
@@ -206,8 +235,8 @@ __device__ __forceinline__ void tile_gemm(const float* act, float* ring,
       }
 #pragma unroll
       for (int mt = 0; mt < MTILES; ++mt) {
-        const float* ap = act + (mt * 16 + g) * AS + j * BK + kk + t;
-        const float av[4] = {ap[0], ap[8 * AS], ap[4], ap[8 * AS + 4]};
+        const float* ap = act + (mt * 16 + g) * ast + j * BK + kk + t;
+        const float av[4] = {ap[0], ap[8 * ast], ap[4], ap[8 * ast + 4]};
         uint32_t ahi[4], alo[4];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {

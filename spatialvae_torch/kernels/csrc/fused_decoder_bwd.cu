@@ -46,6 +46,14 @@
 //       over the chunks for dW).
 // The caller bounds the workspace by running (a) and (b) over chunks of
 // images.  Keeping dh on chip (a fused dW) and wgmma/TMA are later work.
+//
+// For H > 512, (a) is `bwd_chain_wide_kernel`: da no longer fits in
+// registers, so the block keeps two (64, Hp) f32 buffers in a per-block
+// workspace in global memory, A (a_L, then dh_L, the GEMM operand) and D
+// (da); the elementwise steps run one column per thread over all 64 pixels
+// (so a thread's reads and writes of its columns need no barrier), and the
+// GEMM runs in 512-column chunks on the forward's ring (decoder_tile.cuh).
+// (b) and (c) take any H as they are.
 
 #include "decoder_tile.cuh"
 
@@ -273,6 +281,149 @@ bwd_chain_kernel(const float* __restrict__ fold,
     }
 }
 
+// (a) for H > MAX_H (see the top of the file): the same inputs and outputs,
+// plus the block's workspace slice ws + blockIdx.x * wide_block_floats(Hp).
+template <bool BF16, bool RESID, bool ACT_BF16>
+__global__ void __launch_bounds__(NT, 1)
+bwd_chain_wide_kernel(const float* __restrict__ fold,
+                      const float* __restrict__ coords,
+                      const float* __restrict__ whidT,
+                      const float* __restrict__ wht,
+                      const void* __restrict__ acts, long long act_ls,
+                      const float* __restrict__ y,
+                      const float* __restrict__ gy, void* __restrict__ dh_ws,
+                      float* __restrict__ part_fold,
+                      float* __restrict__ part_w, float* __restrict__ ws,
+                      int Bc, int HW, int H, int Lh, int No, int tiles) {
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // STAGES x (BK, BNS)
+  float* dz = ring + STAGES * BK * BNS;           // (MAX_NO, PT) dz2
+  float* dzc = dz + MAX_NO * PT;                  // (MAX_NO, PT) cast(dz2)
+  const int Hp = padded_hidden(H);
+  const int as = Hp;
+  float* A = ws + size_t(blockIdx.x) * wide_block_floats(Hp);
+  float* D = A + size_t(PT) * as;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / tiles;
+  const int p0 = (blockIdx.x % tiles) * PT;
+  const int Mw = (Lh + No) * H + No;
+  float* pw = part_w + size_t(blockIdx.x) * Mw;
+  const size_t act_row = size_t(b) * HW;
+  const int np = min(PT, HW - p0);
+
+  // ---- head: dz2 = g*s*(1-s), zero on pixels past HW; dbh partial
+  for (int i = tid; i < No * PT; i += NT) {
+    const int o = i / PT, pix = p0 + i % PT;
+    float d = 0.f;
+    if (pix < HW) {
+      const size_t at = (size_t(b) * No + o) * HW + pix;
+      const float s = y[at];
+      d = gy[at] * s * (1.f - s);
+    }
+    dz[i] = d;
+    dzc[i] = operand<BF16>(d);
+  }
+  __syncthreads();
+  if (tid < No) {
+    float s = 0.f;
+    for (int p = 0; p < PT; ++p) s += dz[tid * PT + p];
+    pw[(Lh + No) * H + tid] = s;
+  }
+  // ---- da = cast(dz2)^T . wht (K = No) into D, one column per thread
+  for (int n = tid; n < Hp; n += NT)
+    for (int p = 0; p < PT; ++p) {
+      float s = 0.f;
+      if (n < H)
+        for (int o = 0; o < No; ++o)
+          s = fmaf(dzc[o * PT + p], __ldg(wht + size_t(o) * H + n), s);
+      D[p * as + n] = s;
+    }
+
+  for (int L = Lh; L >= 1; --L) {
+    const size_t abase = size_t(L - 1) * act_ls + (act_row + p0) * H;
+    // a_L into A; at the top layer the dWh^T partial from it; then dh =
+    // da * (1 - a_L^2) over A and db's partial, column by column
+    for (int n = tid; n < Hp; n += NT) {
+      for (int p = 0; p < PT; ++p)
+        A[p * as + n] = (n < H && p < np)
+            ? load_elem<ACT_BF16>(acts, abase + size_t(p) * H + n) : 0.f;
+      if (L == Lh && n < H) {
+        float acc[MAX_NO];
+#pragma unroll
+        for (int o = 0; o < MAX_NO; ++o) acc[o] = 0.f;
+        for (int p = 0; p < np; ++p) {
+          const float a = operand<BF16>(A[p * as + n]);
+#pragma unroll
+          for (int o = 0; o < MAX_NO; ++o)
+            if (o < No) acc[o] = fmaf(dzc[o * PT + p], a, acc[o]);
+        }
+#pragma unroll
+        for (int o = 0; o < MAX_NO; ++o)
+          if (o < No) pw[Lh * H + o * H + n] = acc[o];
+      }
+      float col = 0.f;
+      for (int p = 0; p < PT; ++p) {
+        const float a = A[p * as + n];
+        const float dh = (n < H && p < np) ? D[p * as + n] * (1.f - a * a)
+                                           : 0.f;
+        col += dh;
+        A[p * as + n] = stored<BF16, RESID>(dh);
+      }
+      if (n < H) pw[(L - 1) * H + n] = col;
+    }
+    // da = cast(dh) . W^T (+ dh) into D, in 512-column chunks; the GEMM's
+    // first barrier orders the column loops above before any read of A
+    for (int n0 = 0; n0 < wide_end(Hp); n0 += MAX_H) {
+      float acc[MTILES][NTILES][4];
+      tile_gemm<BF16, RESID, true>(A, ring, whidT + size_t(L - 1) * Hp * Hp,
+                                   Hp, acc, as, n0);
+      if (n0 + warp * WN >= Hp) continue;
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int n = n0 + frag_col(warp, t, nt, c);
+#pragma unroll
+          for (int mt = 0; mt < MTILES; ++mt) {
+            const int p = frag_row(g, mt, c);
+            float v = acc[mt][nt][c];
+            if (RESID) v += A[p * as + n];
+            D[p * as + n] = v;
+          }
+        }
+    }
+    // cast(dh) to the workspace, one column per thread
+    const size_t wbase = ((size_t(L - 1) * Bc + b) * HW + p0) * H;
+    for (int n = tid; n < H; n += NT)
+      for (int p = 0; p < np; ++p)
+        store_elem<BF16>(dh_ws, wbase + size_t(p) * H + n, A[p * as + n]);
+    __syncthreads();          // D and the reads of A done before next layer
+  }
+
+  // ---- dh0 = da * (1 - a0^2), a0 from the fold; dfold partial rows
+  const float* f = fold + size_t(b) * 4 * H;
+  float* pf = part_fold + size_t(blockIdx.x) * 3 * H;
+  for (int n = tid; n < H; n += NT) {
+    const float w0 = f[n], w1 = f[H + n], cb = f[2 * H + n];
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+    for (int p = 0; p < np; ++p) {
+      const int pix = p0 + p;
+      const float x0 = coords[2 * pix], x1 = coords[2 * pix + 1];
+      const float a0 = tanhf(x0 * w0 + x1 * w1 + cb);
+      const float dh0 = D[p * as + n] * (1.f - a0 * a0);
+      s0 += x0 * dh0;
+      s1 += x1 * dh0;
+      s2 += dh0;
+    }
+    pf[n] = s0;
+    pf[H + n] = s1;
+    pf[2 * H + n] = s2;
+  }
+}
+
 // (b) Split-K dW_l = cast(a_{l-1})^T . dh_l over the chunk's Bc*HW pixels.
 //   blockIdx.x: (128, 128) tile of dW_l; blockIdx.y: pixel chunk s;
 //   blockIdx.z: layer index l0 = l - 1.  a_0 is recomputed from the fold
@@ -467,8 +618,20 @@ cudaError_t launch_chain(const float* fold, const float* coords,
                          const float* whidT, const float* wht,
                          const void* acts, long long act_ls, const float* y,
                          const float* gy, void* dh_ws, float* part_fold,
-                         float* part_w, int Bc, int HW, int H, int Lh, int No,
-                         cudaStream_t stream) {
+                         float* part_w, float* ws, int Bc, int HW, int H,
+                         int Lh, int No, cudaStream_t stream) {
+  if (H > MAX_H) {
+    auto kernel = bwd_chain_wide_kernel<BF16, RESID, ACT_BF16>;
+    constexpr int smem = int(RING_BYTES) + 2 * MAX_NO * PT * int(sizeof(float));
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const int tiles = (HW + PT - 1) / PT;
+    kernel<<<unsigned(Bc) * unsigned(tiles), NT, smem, stream>>>(
+        fold, coords, whidT, wht, acts, act_ls, y, gy, dh_ws, part_fold,
+        part_w, ws, Bc, HW, H, Lh, No, tiles);
+    return cudaGetLastError();
+  }
   auto kernel = bwd_chain_kernel<BF16, RESID, ACT_BF16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
@@ -500,7 +663,7 @@ cudaError_t launch_dw(const float* fold, const float* coords,
 }
 
 bool bad_shape(int Bc, int HW, int H, int Lh) {
-  return Bc < 1 || HW < 1 || H < 1 || H > MAX_H || Lh < 1 || Lh > MAX_LH ||
+  return Bc < 1 || HW < 1 || H < 1 || Lh < 1 || Lh > MAX_LH ||
          double(Bc) * ((HW + PT - 1) / PT) > 2147483647.0 ||
          double(Bc) * HW > double(KCHUNK) * 65535.0;
 }
@@ -515,17 +678,20 @@ int svt_fused_decoder_bwd_kchunk() { return KCHUNK; }
 
 // (a) for a chunk of Bc images; pointers at the chunk's first image (see
 // bwd_chain_kernel).  whidT (Lh,Hp,Hp) f32; wht (No,H) f32; `bf16`: the
-// weights hold bf16 values; `act_bf16`: acts is bf16 (else f32).
+// weights hold bf16 values; `act_bf16`: acts is bf16 (else f32).  For
+// H > 512, `ws` holds Bc*ceil(HW/64) * svt_fused_decoder_ws_block(H) floats.
 int svt_fused_decoder_bwd_chain(const void* fold, const void* coords,
                                 const void* whidT, const void* wht,
                                 const void* acts, long long act_ls,
                                 const void* y, const void* gy, void* dh_ws,
-                                void* part_fold, void* part_w, int Bc, int HW,
-                                int H, int Lh, int No, int resid, int bf16,
-                                int act_bf16, void* stream) {
+                                void* part_fold, void* part_w, void* ws,
+                                int Bc, int HW, int H, int Lh, int No,
+                                int resid, int bf16, int act_bf16,
+                                void* stream) {
   if (bad_shape(Bc, HW, H, Lh) || No < 1 || No > MAX_NO ||
-      (act_bf16 && !bf16))
+      (act_bf16 && !bf16) || (H > MAX_H && ws == nullptr))
     return int(cudaErrorInvalidValue);
+  auto* wsf = static_cast<float*>(ws);
   const auto* f = static_cast<const float*>(fold);
   const auto* c = static_cast<const float*>(coords);
   const auto* w = static_cast<const float*>(whidT);
@@ -537,7 +703,7 @@ int svt_fused_decoder_bwd_chain(const void* fold, const void* coords,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SVT_CHAIN(B16, R, A16)                                               \
   launch_chain<B16, R, A16>(f, c, w, h, acts, act_ls, yy, gg, dh_ws, pf, pw, \
-                            Bc, HW, H, Lh, No, st)
+                            wsf, Bc, HW, H, Lh, No, st)
   cudaError_t err;
   if (!bf16)
     err = resid ? SVT_CHAIN(false, true, false) : SVT_CHAIN(false, false, false);

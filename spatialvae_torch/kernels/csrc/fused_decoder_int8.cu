@@ -45,7 +45,10 @@
 //     is a per-block partial reduced by svt_sum_rows in a fixed order: no
 //     atomics, bit-identical gradients from run to run.
 // The int8 products run on mma.sync m16n8k32 (int8_tile.cuh); wgmma, TMA
-// and keeping dh1q on chip are later work.
+// and keeping dh1q on chip are later work.  Above H = 512 the `WIDE`
+// instantiations keep the block's two int8 tiles in a workspace in global
+// memory and loop every GEMM and epilogue over 512-column chunks
+// (int8_tile.cuh); the groups, and so the numbers, are the same.
 
 #include "int8_tile.cuh"
 
@@ -53,25 +56,26 @@ namespace {
 
 using namespace svt8;
 
-// a1 of the block's (PT, H) in the accumulator layout, f32: with RECOMPUTE
-// tanh((tile @ W1q) * (sw/127) + b1) exactly as the forward built it
-// (tile must hold a0q), else the bf16 residual a1[(b*HW + pix)*H + n].
-// Zero for n >= H and pixels past HW.
-template <bool RECOMPUTE>
+// a1 of the block's (PT, 512) columns n0 .. n0+511 in the accumulator
+// layout, f32: with RECOMPUTE tanh((tile @ W1q) * (sw/127) + b1) exactly as
+// the forward built it (sm.tile must hold a0q), else the bf16 residual
+// a1[(b*HW + pix)*H + n].  Zero for n >= H and pixels past HW.
+template <bool RECOMPUTE, bool WIDE>
 __device__ __forceinline__ void int8_a1(
     const Smem& sm, const int8_t* __restrict__ w1qT, float sw,
     const float* __restrict__ b1, const __nv_bfloat16* __restrict__ a1_res,
-    int b, int p0, int HW, int H, float (&a1)[MTILES][NTILES][4]) {
+    int b, int p0, int HW, int H, int n0, float (&a1)[MTILES][NTILES][4]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   int acc[MTILES][NTILES][4];
-  if (RECOMPUTE) tile_gemm_s8(sm.tile, sm.ring, w1qT, padded_k(H), acc);
+  if (RECOMPUTE)
+    tile_gemm_s8<WIDE>(sm.tile, sm.ring, w1qT, padded_k(H), acc, sm.as, n0);
   const float scale = __fmul_rn(sw, 1.f / 127.f);
 #pragma unroll
   for (int nt = 0; nt < NTILES; ++nt)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int n = frag_col(warp, t, nt, c);
+      const int n = n0 + frag_col(warp, t, nt, c);
       const bool on = n < H;
       const float bn = on ? b1[n] : 0.f;
 #pragma unroll
@@ -122,41 +126,46 @@ __device__ __forceinline__ float dh1_at(const Smem& sm,
 }
 
 // ---- K4: forward, y and optionally the bf16 a1 residual
-template <bool BF16, bool EMIT>
+template <bool BF16, bool EMIT, bool WIDE>
 __global__ void __launch_bounds__(NT, 1)
 int8_fwd_kernel(const float* __restrict__ fold,
                 const float* __restrict__ coords,
                 const int8_t* __restrict__ w1qT, const float* __restrict__ sw,
                 const float* __restrict__ b1, const float* __restrict__ wht,
                 const float* __restrict__ bht, float* __restrict__ y,
-                __nv_bfloat16* __restrict__ a1_out, int HW, int H, int No,
-                int blocks) {
+                __nv_bfloat16* __restrict__ a1_out, int8_t* __restrict__ ws,
+                int HW, int H, int No, int blocks) {
   extern __shared__ float4 smem4[];
-  const Smem sm = carve(smem4);
+  const Smem sm = carve<WIDE>(smem4, ws, padded_k(H));
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.x / blocks;
   const int p0 = (blockIdx.x % blocks) * PT;
 
-  first_layer_q<127>(fold, coords, b, p0, HW, H, sm.tile);
-  float a1[MTILES][NTILES][4];
-  int8_a1<true>(sm, w1qT, *sw, b1, nullptr, b, p0, HW, H, a1);
+  first_layer_q<127, WIDE>(fold, coords, b, p0, HW, H, sm.tile, sm.as);
+  float z = 0.f;
+  for (int n0 = 0; n0 < chunk_end<WIDE>(H); n0 += MAX_H) {
+    float a1[MTILES][NTILES][4];
+    int8_a1<true, WIDE>(sm, w1qT, *sw, b1, nullptr, b, p0, HW, H, n0, a1);
 #pragma unroll
-  for (int nt = 0; nt < NTILES; ++nt)
+    for (int nt = 0; nt < NTILES; ++nt)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = frag_col(warp, t, nt, c);
+      for (int c = 0; c < 4; ++c) {
+        const int n = n0 + frag_col(warp, t, nt, c);
 #pragma unroll
-      for (int mt = 0; mt < MTILES; ++mt) {
-        const int pix = p0 + frag_row(g, mt, c);
-        if (EMIT && n < H && pix < HW)
-          a1_out[(size_t(b) * HW + pix) * H + n] =
-              __float2bfloat16_rn(a1[mt][nt][c]);
-        a1[mt][nt][c] = operand<BF16>(a1[mt][nt][c]);
+        for (int mt = 0; mt < MTILES; ++mt) {
+          const int pix = p0 + frag_row(g, mt, c);
+          if (EMIT && n < H && pix < HW)
+            a1_out[(size_t(b) * HW + pix) * H + n] =
+                __float2bfloat16_rn(a1[mt][nt][c]);
+          a1[mt][nt][c] = operand<BF16>(a1[mt][nt][c]);
+        }
       }
-    }
-  const float z = head_dot(a1, wht, H, No, reinterpret_cast<float*>(sm.ring));
+    const float zc =
+        head_dot(a1, wht, H, No, reinterpret_cast<float*>(sm.ring), n0);
+    z = WIDE ? z + zc : zc;
+  }
   if (tid < No * PT) {
     const int o = tid / PT, pix = p0 + tid % PT;
     if (pix < HW)
@@ -166,7 +175,7 @@ int8_fwd_kernel(const float* __restrict__ fold,
 }
 
 // ---- K5 (a): each block's max |dh1|
-template <bool BF16, bool RECOMPUTE>
+template <bool BF16, bool RECOMPUTE, bool WIDE>
 __global__ void __launch_bounds__(NT, 1)
 int8_bwd_scale_kernel(const float* __restrict__ fold,
                       const float* __restrict__ coords,
@@ -177,33 +186,36 @@ int8_bwd_scale_kernel(const float* __restrict__ fold,
                       const __nv_bfloat16* __restrict__ a1_res,
                       const float* __restrict__ y,
                       const float* __restrict__ gy,
-                      float* __restrict__ part_max, int HW, int H, int No,
-                      int blocks) {
+                      float* __restrict__ part_max, int8_t* __restrict__ ws,
+                      int HW, int H, int No, int blocks) {
   extern __shared__ float4 smem4[];
-  const Smem sm = carve(smem4);
+  const Smem sm = carve<WIDE>(smem4, ws, padded_k(H));
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.x / blocks;
   const int p0 = (blockIdx.x % blocks) * PT;
 
-  if (RECOMPUTE) first_layer_q<127>(fold, coords, b, p0, HW, H, sm.tile);
-  float a1[MTILES][NTILES][4];
-  int8_a1<RECOMPUTE>(sm, w1qT, *sw, b1, a1_res, b, p0, HW, H, a1);
-  stage_dz2<BF16>(sm, y, gy, b, p0, HW, No);
+  if (RECOMPUTE)
+    first_layer_q<127, WIDE>(fold, coords, b, p0, HW, H, sm.tile, sm.as);
   float mx = 0.f;
+  for (int n0 = 0; n0 < chunk_end<WIDE>(H); n0 += MAX_H) {
+    float a1[MTILES][NTILES][4];
+    int8_a1<RECOMPUTE, WIDE>(sm, w1qT, *sw, b1, a1_res, b, p0, HW, H, n0, a1);
+    if (n0 == 0) stage_dz2<BF16>(sm, y, gy, b, p0, HW, No);
 #pragma unroll
-  for (int nt = 0; nt < NTILES; ++nt)
+    for (int nt = 0; nt < NTILES; ++nt)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = frag_col(warp, t, nt, c);
-      if (n >= H) continue;
+      for (int c = 0; c < 4; ++c) {
+        const int n = n0 + frag_col(warp, t, nt, c);
+        if (n >= H) continue;
 #pragma unroll
-      for (int mt = 0; mt < MTILES; ++mt) {
-        const int p = frag_row(g, mt, c);
-        if (p0 + p < HW)
-          mx = fmaxf(mx, fabsf(dh1_at(sm, wht, H, No, p, n, a1[mt][nt][c])));
+        for (int mt = 0; mt < MTILES; ++mt) {
+          const int p = frag_row(g, mt, c);
+          if (p0 + p < HW)
+            mx = fmaxf(mx, fabsf(dh1_at(sm, wht, H, No, p, n, a1[mt][nt][c])));
+        }
       }
-    }
+  }
   const float m = block_max(mx, sm.scratch);
   if (threadIdx.x == 0) part_max[blockIdx.x] = m;
 }
@@ -213,7 +225,7 @@ int8_bwd_scale_kernel(const float* __restrict__ fold,
 // counts the chunk's blocks).  part_max, gscale, part_fold and part_w are
 // indexed by the global block / group; aq_ws and q_ws (Bc, Kp, HWp) by the
 // chunk's image.
-template <bool BF16, bool RECOMPUTE>
+template <bool BF16, bool RECOMPUTE, bool WIDE>
 __global__ void __launch_bounds__(NT, 1)
 int8_bwd_grad_kernel(const float* __restrict__ fold,
                      const float* __restrict__ coords,
@@ -228,10 +240,10 @@ int8_bwd_grad_kernel(const float* __restrict__ fold,
                      const float* __restrict__ part_max,
                      float* __restrict__ gscale, int8_t* __restrict__ aq_ws,
                      int8_t* __restrict__ q_ws, float* __restrict__ part_fold,
-                     float* __restrict__ part_w, int b0, int HW, int H,
-                     int No, int Pt, int blocks) {
+                     float* __restrict__ part_w, int8_t* __restrict__ ws,
+                     int b0, int HW, int H, int No, int Pt, int blocks) {
   extern __shared__ float4 smem4[];
-  const Smem sm = carve(smem4);
+  const Smem sm = carve<WIDE>(smem4, ws, padded_k(H));
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -244,122 +256,131 @@ int8_bwd_grad_kernel(const float* __restrict__ fold,
   const size_t gblk = size_t(b) * blocks + blk;
   const int Mw = H + No * H + No;
 
-  first_layer_q<127>(fold, coords, b, p0, HW, H, sm.tile);
-  tile_to_feature_major(sm.tile, aq_ws + size_t(bl) * Kp * HWp, p0, HWp, Kp);
-  float a1[MTILES][NTILES][4];
-  int8_a1<RECOMPUTE>(sm, w1qT, *sw, b1, a1_res, b, p0, HW, H, a1);
-  stage_dz2<BF16>(sm, y, gy, b, p0, HW, No);
-
-  const float sg = __fadd_rn(
-      __fmul_rn(group_max(part_max, b, p0, blocks, Pt), 1.f / 127.f), 1e-30f);
-  if (tid == 0 && p0 % Pt == 0)
-    gscale[size_t(b) * (HW / Pt) + p0 / Pt] = __fmul_rn(sg, 1.f / 127.f);
-
-  // dh1q into the second tile; db1 partials from the unquantised dh1
-  float col[NTILES][2];
-#pragma unroll
-  for (int nt = 0; nt < NTILES; ++nt) col[nt][0] = col[nt][1] = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < NTILES; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = frag_col(warp, t, nt, c);
-#pragma unroll
-      for (int mt = 0; mt < MTILES; ++mt) {
-        const int p = frag_row(g, mt, c);
-        float q = 0.f;
-        if (n < H && p0 + p < HW) {
-          const float dh1 = dh1_at(sm, wht, H, No, p, n, a1[mt][nt][c]);
-          col[nt][c & 1] += dh1;
-          q = fminf(fmaxf(qround(__fdiv_rn(dh1, sg)), -127.f), 127.f);
-        }
-        if (n < Kp) sm.q[p * AS + n] = static_cast<int8_t>(q);
-      }
+  first_layer_q<127, WIDE>(fold, coords, b, p0, HW, H, sm.tile, sm.as);
+  tile_to_feature_major<WIDE>(sm.tile, aq_ws + size_t(bl) * Kp * HWp, p0,
+                              HWp, Kp, sm.as);
+  float sg = 0.f;
+  for (int n0 = 0; n0 < chunk_end<WIDE>(H); n0 += MAX_H) {
+    float a1[MTILES][NTILES][4];
+    int8_a1<RECOMPUTE, WIDE>(sm, w1qT, *sw, b1, a1_res, b, p0, HW, H, n0, a1);
+    if (n0 == 0) {
+      stage_dz2<BF16>(sm, y, gy, b, p0, HW, No);
+      sg = __fadd_rn(
+          __fmul_rn(group_max(part_max, b, p0, blocks, Pt), 1.f / 127.f),
+          1e-30f);
+      if (tid == 0 && p0 % Pt == 0)
+        gscale[size_t(b) * (HW / Pt) + p0 / Pt] = __fmul_rn(sg, 1.f / 127.f);
     }
-  float* pw = part_w + gblk * Mw;
+
+    // dh1q into the second tile; db1 partials from the unquantised dh1
+    float col[NTILES][2];
 #pragma unroll
-  for (int nt = 0; nt < NTILES; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float s = sum_over_g(col[nt][j]);
-      const int n = frag_col(warp, t, nt, j);
-      if (g == 0 && n < H) pw[n] = s;
-    }
-  // dWh^T partials: sum_p cast(dz2[o][p]) * cast(a1[p][n]); dbh partials
-  for (int o = 0; o < No; ++o) {
-    float s[NTILES][2];
-#pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt) s[nt][0] = s[nt][1] = 0.f;
+    for (int nt = 0; nt < NTILES; ++nt) col[nt][0] = col[nt][1] = 0.f;
 #pragma unroll
     for (int nt = 0; nt < NTILES; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < 4; ++c) {
+        const int n = n0 + frag_col(warp, t, nt, c);
 #pragma unroll
-        for (int mt = 0; mt < MTILES; ++mt)
-          s[nt][c & 1] = fmaf(sm.dzc[o * PT + frag_row(g, mt, c)],
-                              operand<BF16>(a1[mt][nt][c]), s[nt][c & 1]);
+        for (int mt = 0; mt < MTILES; ++mt) {
+          const int p = frag_row(g, mt, c);
+          float q = 0.f;
+          if (n < H && p0 + p < HW) {
+            const float dh1 = dh1_at(sm, wht, H, No, p, n, a1[mt][nt][c]);
+            col[nt][c & 1] += dh1;
+            q = fminf(fmaxf(qround(__fdiv_rn(dh1, sg)), -127.f), 127.f);
+          }
+          if (n < Kp) sm.q[p * sm.as + n] = static_cast<int8_t>(q);
+        }
+      }
+    float* pw = part_w + gblk * Mw;
 #pragma unroll
     for (int nt = 0; nt < NTILES; ++nt)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const float v = sum_over_g(s[nt][j]);
-        const int n = frag_col(warp, t, nt, j);
-        if (g == 0 && n < H) pw[H + o * H + n] = v;
+        const float s = sum_over_g(col[nt][j]);
+        const int n = n0 + frag_col(warp, t, nt, j);
+        if (g == 0 && n < H) pw[n] = s;
       }
+    // dWh^T partials: sum_p cast(dz2[o][p]) * cast(a1[p][n])
+    for (int o = 0; o < No; ++o) {
+      float s[NTILES][2];
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt) s[nt][0] = s[nt][1] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int mt = 0; mt < MTILES; ++mt)
+            s[nt][c & 1] = fmaf(sm.dzc[o * PT + frag_row(g, mt, c)],
+                                operand<BF16>(a1[mt][nt][c]), s[nt][c & 1]);
+#pragma unroll
+      for (int nt = 0; nt < NTILES; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float v = sum_over_g(s[nt][j]);
+          const int n = n0 + frag_col(warp, t, nt, j);
+          if (g == 0 && n < H) pw[H + o * H + n] = v;
+        }
+    }
   }
-  if (tid < No) {
+  if (tid < No) {                        // dbh partials
     float s = 0.f;
     for (int p = 0; p < PT; ++p) s += sm.dz[tid * PT + p];
-    pw[H + No * H + tid] = s;
+    part_w[gblk * Mw + H + No * H + tid] = s;
   }
   __syncthreads();                       // the dh1q tile is complete
-  tile_to_feature_major(sm.q, q_ws + size_t(bl) * Kp * HWp, p0, HWp, Kp);
+  tile_to_feature_major<WIDE>(sm.q, q_ws + size_t(bl) * Kp * HWp, p0, HWp,
+                              Kp, sm.as);
 
   // da0 = dh1q . W1q^T on the tensor cores; dh0 with the exact a0
-  int acc[MTILES][NTILES][4];
-  tile_gemm_s8(sm.q, sm.ring, w1q, Kp, acc);
-  const float scale = __fmul_rn(sg, *sw);
-  const float* f = fold + size_t(b) * 4 * H;
-  float s0[NTILES][2], s1[NTILES][2], s2[NTILES][2];
+  for (int n0 = 0; n0 < chunk_end<WIDE>(H); n0 += MAX_H) {
+    int acc[MTILES][NTILES][4];
+    tile_gemm_s8<WIDE>(sm.q, sm.ring, w1q, Kp, acc, sm.as, n0);
+    const float scale = __fmul_rn(sg, *sw);
+    const float* f = fold + size_t(b) * 4 * H;
+    float s0[NTILES][2], s1[NTILES][2], s2[NTILES][2];
 #pragma unroll
-  for (int nt = 0; nt < NTILES; ++nt)
+    for (int nt = 0; nt < NTILES; ++nt)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) s0[nt][j] = s1[nt][j] = s2[nt][j] = 0.f;
+      for (int j = 0; j < 2; ++j) s0[nt][j] = s1[nt][j] = s2[nt][j] = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < NTILES; ++nt)
+    for (int nt = 0; nt < NTILES; ++nt)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = frag_col(warp, t, nt, c);
-      if (i >= H) continue;
-      const float w0 = f[i], w1 = f[H + i], cb = f[2 * H + i];
+      for (int c = 0; c < 4; ++c) {
+        const int i = n0 + frag_col(warp, t, nt, c);
+        if (i >= H) continue;
+        const float w0 = f[i], w1 = f[H + i], cb = f[2 * H + i];
 #pragma unroll
-      for (int mt = 0; mt < MTILES; ++mt) {
-        const int pix = p0 + frag_row(g, mt, c);
-        if (pix >= HW) continue;
-        const float x0 = coords[2 * pix], x1 = coords[2 * pix + 1];
-        const float a0 = tanhf(first_h0(x0, x1, w0, w1, cb));
-        const float da0 = __fmul_rn(float(acc[mt][nt][c]), scale);
-        const float dh0 = __fmul_rn(da0, __fsub_rn(1.f, __fmul_rn(a0, a0)));
-        s0[nt][c & 1] += x0 * dh0;
-        s1[nt][c & 1] += x1 * dh0;
-        s2[nt][c & 1] += dh0;
+        for (int mt = 0; mt < MTILES; ++mt) {
+          const int pix = p0 + frag_row(g, mt, c);
+          if (pix >= HW) continue;
+          const float x0 = coords[2 * pix], x1 = coords[2 * pix + 1];
+          const float a0 = tanhf(first_h0(x0, x1, w0, w1, cb));
+          const float da0 = __fmul_rn(float(acc[mt][nt][c]), scale);
+          const float dh0 = __fmul_rn(da0, __fsub_rn(1.f, __fmul_rn(a0, a0)));
+          s0[nt][c & 1] += x0 * dh0;
+          s1[nt][c & 1] += x1 * dh0;
+          s2[nt][c & 1] += dh0;
+        }
       }
-    }
-  float* pf = part_fold + gblk * 3 * H;
 #pragma unroll
-  for (int nt = 0; nt < NTILES; ++nt)
+    for (int nt = 0; nt < NTILES; ++nt)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float r0 = sum_over_g(s0[nt][j]);
-      const float r1 = sum_over_g(s1[nt][j]);
-      const float r2 = sum_over_g(s2[nt][j]);
-      const int i = frag_col(warp, t, nt, j);
-      if (g == 0 && i < H) {
-        pf[i] = r0;
-        pf[H + i] = r1;
-        pf[2 * H + i] = r2;
+      for (int j = 0; j < 2; ++j) {
+        const float r0 = sum_over_g(s0[nt][j]);
+        const float r1 = sum_over_g(s1[nt][j]);
+        const float r2 = sum_over_g(s2[nt][j]);
+        const int i = n0 + frag_col(warp, t, nt, j);
+        float* pf = part_fold + gblk * 3 * H;
+        if (g == 0 && i < H) {
+          pf[i] = r0;
+          pf[H + i] = r1;
+          pf[2 * H + i] = r2;
+        }
       }
-    }
+  }
 }
 
 // ---- split-K dW1 over quantisation groups, shared by K3 and K5.
@@ -486,7 +507,7 @@ grouped_dw_kernel(const int8_t* __restrict__ aq_ws,
 }
 
 bool bad_shape(int B, int HW, int H, int No) {
-  return B < 1 || HW < 1 || H < 1 || H > MAX_H || No < 1 || No > MAX_NO ||
+  return B < 1 || HW < 1 || H < 1 || No < 1 || No > MAX_NO ||
          double(B) * ((HW + PT - 1) / PT) > 2147483647.0;
 }
 
@@ -494,18 +515,23 @@ bool bad_shape(int B, int HW, int H, int No) {
 
 extern "C" {
 
-// Widest hidden layer the int8 kernels take.
-int svt_int8_max_hidden() { return MAX_H; }
+// Bytes of workspace each block of the wide int8 kernels (H > 512: K3, K4,
+// K5) takes; 0 at H <= 512 (the tiles lie in shared memory).
+long long svt_int8_ws_block(int H) {
+  return H > MAX_H ? (long long)wide_block_bytes(padded_k(H)) : 0;
+}
 
 // K4.  fold (B,4,H), coords (HW,2), b1 (H), wht (No,H), bht (No), sw (1),
 // y (B,No,HW): float32; w1qT (Kp,Kp) int8, rows of W1q^T zero-padded;
-// a1 (B,HW,H) bf16 or null.  `bf16`: the weights hold bf16 values.
+// a1 (B,HW,H) bf16 or null.  `bf16`: the weights hold bf16 values.  For
+// H > 512, ws holds B*ceil(HW/64) * svt_int8_ws_block(H) bytes.
 int svt_int8_decoder_fwd(const void* fold, const void* coords,
                          const void* w1qT, const void* sw, const void* b1,
                          const void* wht, const void* bht, void* y, void* a1,
-                         int B, int HW, int H, int No, int bf16,
+                         void* ws, int B, int HW, int H, int No, int bf16,
                          void* stream) {
-  if (bad_shape(B, HW, H, No)) return int(cudaErrorInvalidValue);
+  if (bad_shape(B, HW, H, No) || (H > MAX_H && ws == nullptr))
+    return int(cudaErrorInvalidValue);
   const int blocks = (HW + PT - 1) / PT;
   const auto* f = static_cast<const float*>(fold);
   const auto* c = static_cast<const float*>(coords);
@@ -516,53 +542,70 @@ int svt_int8_decoder_fwd(const void* fold, const void* coords,
   const auto* bt = static_cast<const float*>(bht);
   auto* out = static_cast<float*>(y);
   auto* act = static_cast<__nv_bfloat16*>(a1);
+  auto* wsb = static_cast<int8_t*>(ws);
+  const bool wide = H > MAX_H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SVT_FWD(B16, E)                                                    \
+#define SVT_FWD(B16, E, WD)                                                \
   do {                                                                     \
-    auto k = int8_fwd_kernel<B16, E>;                                      \
-    cudaError_t err = allow_smem(k, SMEM);                                    \
+    auto k = int8_fwd_kernel<B16, E, WD>;                                  \
+    const int smem = WD ? SMEM_WIDE : SMEM;                                \
+    cudaError_t err = allow_smem(k, smem);                                 \
     if (err != cudaSuccess) return int(err);                               \
-    k<<<unsigned(B) * unsigned(blocks), NT, SMEM, st>>>(                   \
-        f, c, w, s, bb, wt, bt, out, act, HW, H, No, blocks);              \
+    k<<<unsigned(B) * unsigned(blocks), NT, smem, st>>>(                   \
+        f, c, w, s, bb, wt, bt, out, act, wsb, HW, H, No, blocks);         \
+  } while (0)
+#define SVT_FWD_W(B16, E)                                                  \
+  do {                                                                     \
+    if (wide) SVT_FWD(B16, E, true); else SVT_FWD(B16, E, false);          \
   } while (0)
   if (bf16) {
-    if (a1) SVT_FWD(true, true); else SVT_FWD(true, false);
+    if (a1) SVT_FWD_W(true, true); else SVT_FWD_W(true, false);
   } else {
-    if (a1) SVT_FWD(false, true); else SVT_FWD(false, false);
+    if (a1) SVT_FWD_W(false, true); else SVT_FWD_W(false, false);
   }
+#undef SVT_FWD_W
 #undef SVT_FWD
   return int(cudaGetLastError());
 }
 
 // K5 (a): part_max (B * ceil(HW/64)).  a1: the bf16 residual or null
-// (recompute from fold, w1qT, sw, b1).  y, gy (B,No,HW) float32.
+// (recompute from fold, w1qT, sw, b1).  y, gy (B,No,HW) float32.  ws as
+// for K4.
 int svt_int8_decoder_bwd_scale(const void* fold, const void* coords,
                                const void* w1qT, const void* sw,
                                const void* b1, const void* wht,
                                const void* a1, const void* y, const void* gy,
-                               void* part_max, int B, int HW, int H, int No,
-                               int bf16, void* stream) {
-  if (bad_shape(B, HW, H, No)) return int(cudaErrorInvalidValue);
+                               void* part_max, void* ws, int B, int HW,
+                               int H, int No, int bf16, void* stream) {
+  if (bad_shape(B, HW, H, No) || (H > MAX_H && ws == nullptr))
+    return int(cudaErrorInvalidValue);
   const int blocks = (HW + PT - 1) / PT;
+  const bool wide = H > MAX_H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SVT_SCALE(B16, R)                                                  \
+#define SVT_SCALE(B16, R, WD)                                              \
   do {                                                                     \
-    auto k = int8_bwd_scale_kernel<B16, R>;                                \
-    cudaError_t err = allow_smem(k, SMEM);                                    \
+    auto k = int8_bwd_scale_kernel<B16, R, WD>;                            \
+    const int smem = WD ? SMEM_WIDE : SMEM;                                \
+    cudaError_t err = allow_smem(k, smem);                                 \
     if (err != cudaSuccess) return int(err);                               \
-    k<<<unsigned(B) * unsigned(blocks), NT, SMEM, st>>>(                   \
+    k<<<unsigned(B) * unsigned(blocks), NT, smem, st>>>(                   \
         static_cast<const float*>(fold), static_cast<const float*>(coords), \
         static_cast<const int8_t*>(w1qT), static_cast<const float*>(sw),   \
         static_cast<const float*>(b1), static_cast<const float*>(wht),     \
         static_cast<const __nv_bfloat16*>(a1), static_cast<const float*>(y), \
-        static_cast<const float*>(gy), static_cast<float*>(part_max), HW,  \
-        H, No, blocks);                                                    \
+        static_cast<const float*>(gy), static_cast<float*>(part_max),      \
+        static_cast<int8_t*>(ws), HW, H, No, blocks);                      \
+  } while (0)
+#define SVT_SCALE_W(B16, R)                                                \
+  do {                                                                     \
+    if (wide) SVT_SCALE(B16, R, true); else SVT_SCALE(B16, R, false);      \
   } while (0)
   if (bf16) {
-    if (a1) SVT_SCALE(true, false); else SVT_SCALE(true, true);
+    if (a1) SVT_SCALE_W(true, false); else SVT_SCALE_W(true, true);
   } else {
-    if (a1) SVT_SCALE(false, false); else SVT_SCALE(false, true);
+    if (a1) SVT_SCALE_W(false, false); else SVT_SCALE_W(false, true);
   }
+#undef SVT_SCALE_W
 #undef SVT_SCALE
   return int(cudaGetLastError());
 }
@@ -571,26 +614,29 @@ int svt_int8_decoder_bwd_scale(const void* fold, const void* coords,
 // scale sg/127; aq_ws, q_ws (Bc, Kp, HWp) int8; part_fold (B*blocks, 3, H)
 // and part_w (B*blocks, H + No*H + No) the per-block partials.  w1q
 // (Kp,Kp) int8: rows of W1q zero-padded.  Pt divides HW and is a multiple
-// of 64, or equals HW.
+// of 64, or equals HW.  For H > 512, ws holds Bc*ceil(HW/64) *
+// svt_int8_ws_block(H) bytes.
 int svt_int8_decoder_bwd_grad(const void* fold, const void* coords,
                               const void* w1qT, const void* sw,
                               const void* b1, const void* wht, const void* a1,
                               const void* y, const void* gy, const void* w1q,
                               const void* part_max, void* gscale,
                               void* aq_ws, void* q_ws, void* part_fold,
-                              void* part_w, int b0, int Bc, int HW, int H,
-                              int No, int Pt, int bf16, void* stream) {
+                              void* part_w, void* ws, int b0, int Bc, int HW,
+                              int H, int No, int Pt, int bf16, void* stream) {
   if (bad_shape(Bc, HW, H, No) || b0 < 0 || Pt < 1 || HW % Pt ||
-      (Pt % PT && Pt != HW))
+      (Pt % PT && Pt != HW) || (H > MAX_H && ws == nullptr))
     return int(cudaErrorInvalidValue);
   const int blocks = (HW + PT - 1) / PT;
+  const bool wide = H > MAX_H;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SVT_GRAD(B16, R)                                                   \
+#define SVT_GRAD(B16, R, WD)                                               \
   do {                                                                     \
-    auto k = int8_bwd_grad_kernel<B16, R>;                                 \
-    cudaError_t err = allow_smem(k, SMEM);                                    \
+    auto k = int8_bwd_grad_kernel<B16, R, WD>;                             \
+    const int smem = WD ? SMEM_WIDE : SMEM;                                \
+    cudaError_t err = allow_smem(k, smem);                                 \
     if (err != cudaSuccess) return int(err);                               \
-    k<<<unsigned(Bc) * unsigned(blocks), NT, SMEM, st>>>(                  \
+    k<<<unsigned(Bc) * unsigned(blocks), NT, smem, st>>>(                  \
         static_cast<const float*>(fold), static_cast<const float*>(coords), \
         static_cast<const int8_t*>(w1qT), static_cast<const float*>(sw),   \
         static_cast<const float*>(b1), static_cast<const float*>(wht),     \
@@ -598,14 +644,19 @@ int svt_int8_decoder_bwd_grad(const void* fold, const void* coords,
         static_cast<const float*>(gy), static_cast<const int8_t*>(w1q),    \
         static_cast<const float*>(part_max), static_cast<float*>(gscale),  \
         static_cast<int8_t*>(aq_ws), static_cast<int8_t*>(q_ws),           \
-        static_cast<float*>(part_fold), static_cast<float*>(part_w), b0,   \
-        HW, H, No, Pt, blocks);                                            \
+        static_cast<float*>(part_fold), static_cast<float*>(part_w),       \
+        static_cast<int8_t*>(ws), b0, HW, H, No, Pt, blocks);              \
+  } while (0)
+#define SVT_GRAD_W(B16, R)                                                 \
+  do {                                                                     \
+    if (wide) SVT_GRAD(B16, R, true); else SVT_GRAD(B16, R, false);        \
   } while (0)
   if (bf16) {
-    if (a1) SVT_GRAD(true, false); else SVT_GRAD(true, true);
+    if (a1) SVT_GRAD_W(true, false); else SVT_GRAD_W(true, true);
   } else {
-    if (a1) SVT_GRAD(false, false); else SVT_GRAD(false, true);
+    if (a1) SVT_GRAD_W(false, false); else SVT_GRAD_W(false, true);
   }
+#undef SVT_GRAD_W
 #undef SVT_GRAD
   return int(cudaGetLastError());
 }
@@ -615,7 +666,7 @@ int svt_int8_decoder_bwd_grad(const void* fold, const void* coords,
 int svt_int8_grouped_dw(const void* aq_ws, const void* q_ws,
                         const void* gscale, void* part, int nimg, int HWp,
                         int H, int Pt, int gpi, int splits, void* stream) {
-  if (nimg < 1 || H < 1 || H > MAX_H || HWp % PT || Pt < 1 || gpi < 1 ||
+  if (nimg < 1 || H < 1 || HWp % PT || Pt < 1 || gpi < 1 ||
       splits < 1 || splits > 65535 || double(Pt) * gpi > HWp)
     return int(cudaErrorInvalidValue);
   const int G = nimg * gpi;

@@ -9,7 +9,14 @@
 // memory, streamed through a 3-stage ring of 64-byte-deep slabs (16-byte
 // cp.async copies), on the tensor cores with mma.sync m16n8k32 s8 x s8 ->
 // s32, which is exact.  Warp w owns output columns 32w .. 32w+31 as 4 x 4
-// m16n8 tiles, so Kp <= MAX_H = 512.  Both the [-7, 7] values of K3 and the
+// m16n8 tiles: one 512-column chunk.  Up to H = MAX_H = 512 that chunk is
+// the whole layer and the tiles live in shared memory.  Wider layers (the
+// `WIDE` instantiations) keep the block's (PT, Kp) int8 tiles in a
+// per-block workspace in global memory (row stride `as` = Kp + 16, read
+// through L1) and run every GEMM and epilogue in 512-column chunks; a slab
+// of the ring carries only the current chunk's 512 rows of W^T, so the ring
+// (122,880 B) and the register tile keep their size at every width, and
+// the quantisation groups do not change.  Both the [-7, 7] values of K3 and the
 // [-127, 127] values of K4/K5 ride int8: Hopper's tensor cores take no s4.
 // Row strides are padded so that every fragment load of a warp hits 32
 // banks.
@@ -22,8 +29,13 @@
 // build-time switches exist only to place the kernels' error limits against
 // copies with one step removed: -DSVT_INT8_RTZ=1 rounds every quantisation
 // toward zero, -DSVT_INT8_BLOCK_SCALE=1 takes each gradient scale over the
-// block's own 64 pixels instead of its whole quantisation group.  The
-// library is always built with both at 0.
+// block's own 64 pixels instead of its whole quantisation group.  Three
+// more place the measurement levers' and the wide path's limits:
+// -DSVT_PADE_EXACT=1 evaluates the Pade lever with the exact tanh,
+// -DSVT_A1Q_TILE_SCALE=1 quantises A1Q's a1 at the block's own scale
+// 127/max|a1| instead of the static 127, and -DSVT_WIDE_DROP_LAST=1 skips a
+// wide layer's ragged last 512-column chunk.  The library is always built
+// with all five at 0.
 
 #pragma once
 
@@ -37,6 +49,15 @@
 #endif
 #ifndef SVT_INT8_BLOCK_SCALE
 #define SVT_INT8_BLOCK_SCALE 0
+#endif
+#ifndef SVT_PADE_EXACT
+#define SVT_PADE_EXACT 0
+#endif
+#ifndef SVT_A1Q_TILE_SCALE
+#define SVT_A1Q_TILE_SCALE 0
+#endif
+#ifndef SVT_WIDE_DROP_LAST
+#define SVT_WIDE_DROP_LAST 0
 #endif
 
 namespace svt8 {
@@ -56,10 +77,25 @@ constexpr int MAX_NO = 8;
 constexpr int RING_BYTES = STAGES * MAX_H * SLAB_S;
 constexpr int TILE_BYTES = PT * AS;
 static_assert(NT == MAX_H, "the first layer takes one column per thread");
+// The WIDE kernels' tiles: two (PT, as) int8 tiles per block in global
+// memory, as = Kp + 16 (16-byte rows).
+__host__ __device__ constexpr int wide_stride(int kp) { return kp + 16; }
+__host__ __device__ constexpr size_t wide_block_bytes(int kp) {
+  return 2 * size_t(PT) * wide_stride(kp);
+}
 static_assert(WARPS * MAX_NO * PT * 4 <= RING_BYTES,
               "the head's cross-warp partials fit the ring");
 
 __host__ __device__ constexpr int padded_k(int h) { return (h + 63) / 64 * 64; }
+
+// The end of the chunks of a kernel's layer: n0 = 0, 512, ... below Kp
+// (WIDE), or the one chunk n0 = 0.
+template <bool WIDE>
+__device__ __forceinline__ int chunk_end(int H) {
+  return WIDE ? (SVT_WIDE_DROP_LAST ? padded_k(H) / MAX_H * MAX_H
+                                    : padded_k(H))
+              : 1;
+}
 
 // ---- stochastic rounding: Philox4x32-10 (Salmon et al., SC'11), the same
 // generator as kernels/philox.py.  A draw of the loss kernel is keyed by (the
@@ -112,6 +148,21 @@ __device__ __forceinline__ float operand(float x) {
 // places the limits.
 __device__ __forceinline__ float qround(float x) {
   return SVT_INT8_RTZ ? truncf(x) : rintf(x);
+}
+
+// The loss kernel's Pade tanh (SPATIALVAE_TANH=pade; the JAX _tanh_pade):
+// x(945 + t(105 + t)) / (945 + t(420 + 15t)), t = x^2, clipped to [-1, 1],
+// every op rounded in the plain version's order.  The TPU multiplies by an
+// approximate reciprocal; here the division is exact (IEEE, __fdiv_rn), as
+// in the plain version.
+__device__ __forceinline__ float tanh_pade(float x) {
+  if (SVT_PADE_EXACT) return tanhf(x);
+  const float t = __fmul_rn(x, x);
+  const float num =
+      __fmul_rn(x, __fadd_rn(945.f, __fmul_rn(t, __fadd_rn(105.f, t))));
+  const float den =
+      __fadd_rn(945.f, __fmul_rn(t, __fadd_rn(420.f, __fmul_rn(15.f, t))));
+  return fminf(fmaxf(__fdiv_rn(num, den), -1.f), 1.f);
 }
 
 // First-layer pre-activation with the plain version's op order and no
@@ -170,46 +221,41 @@ __device__ __forceinline__ float sum_over_t(float v) {
 // thread k owning column k.  Columns k >= H and pixels past HW are zero,
 // so the padded K range of every GEMM adds nothing and the workspaces hold
 // zeros there.
-template <int LEVEL>
+// WIDE: thread k owns columns k, k + NT, ... of a tile of row stride `as`.
+template <int LEVEL, bool WIDE = false>
 __device__ __forceinline__ void first_layer_q(const float* __restrict__ fold,
                                               const float* __restrict__ coords,
                                               int b, int p0, int HW, int H,
-                                              int8_t* tile) {
-  const int k = threadIdx.x;
-  if (k >= padded_k(H)) return;
-  const bool on = k < H;
-  const float* f = fold + size_t(b) * 4 * H;
-  const float w0 = on ? f[k] : 0.f;
-  const float w1 = on ? f[H + k] : 0.f;
-  const float c = on ? f[2 * H + k] : 0.f;
+                                              int8_t* tile, int as = AS) {
+  const int ast = WIDE ? as : AS;
+  for (int k = threadIdx.x; k < padded_k(H); k += NT) {
+    const bool on = k < H;
+    const float* f = fold + size_t(b) * 4 * H;
+    const float w0 = on ? f[k] : 0.f;
+    const float w1 = on ? f[H + k] : 0.f;
+    const float c = on ? f[2 * H + k] : 0.f;
 #pragma unroll 4
-  for (int p = 0; p < PT; ++p) {
-    const int pix = p0 + p;
-    int8_t q = 0;
-    if (on && pix < HW) {
-      const float a0 = tanhf(first_h0(coords[2 * pix], coords[2 * pix + 1],
-                                      w0, w1, c));
-      const float v = qround(__fmul_rn(a0, float(LEVEL)));
-      q = static_cast<int8_t>(fminf(fmaxf(v, -float(LEVEL)), float(LEVEL)));
+    for (int p = 0; p < PT; ++p) {
+      const int pix = p0 + p;
+      int8_t q = 0;
+      if (on && pix < HW) {
+        const float a0 = tanhf(first_h0(coords[2 * pix], coords[2 * pix + 1],
+                                        w0, w1, c));
+        const float v = qround(__fmul_rn(a0, float(LEVEL)));
+        q = static_cast<int8_t>(fminf(fmaxf(v, -float(LEVEL)), float(LEVEL)));
+      }
+      tile[p * ast + k] = q;
     }
-    tile[p * AS + k] = q;
+    if (!WIDE) break;
   }
 }
 
-// The loss kernels' quantised first layer of pixels p0 .. p0+63 of image b
-// into the (PT, AS) tile: q = clip(round(lf * a0), -lf, lf), a0 =
-// tanh(x0*w0 + x1*w1 + c), or with `sr` clip(floor(lf*a0 + u), -lf, lf) with
-// the forward site's words; `tile4` (if not null) gets clip(round(7 * a0),
-// -7, 7) beside it (the feature-major kernel's 4-bit dW1 operand).  Thread
-// i owns columns 4*(i % 128) .. +3 of pixels i/128, i/128 + 4, ...; columns
-// past H and pixels past HW are zero.  The caller syncs before another
-// thread reads the tiles.
-__device__ __forceinline__ void first_layer_qx(
+// One quad (columns 4*quad .. +3) of first_layer_qx.
+__device__ __forceinline__ void first_layer_qx_quad(
     const float* __restrict__ fold, const float* __restrict__ coords, int b,
     int p0, int HW, int H, float lf, bool sr, uint32_t seed, int8_t* tile,
-    int8_t* tile4) {
-  const int quad = threadIdx.x % (MAX_H / 4), k0 = 4 * quad;
-  if (k0 >= padded_k(H)) return;
+    int8_t* tile4, int as, int quad, bool pade) {
+  const int k0 = 4 * quad;
   const float* f = fold + size_t(b) * 4 * H;
   float w0[4], w1[4], c[4];
 #pragma unroll
@@ -229,7 +275,8 @@ __device__ __forceinline__ void first_layer_qx(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (k0 + j >= H) continue;
-        const float a0 = tanhf(first_h0(x0, x1, w0[j], w1[j], c[j]));
+        const float h0 = first_h0(x0, x1, w0[j], w1[j], c[j]);
+        const float a0 = pade ? tanh_pade(h0) : tanhf(h0);
         const float v = __fmul_rn(a0, lf);
         const float q = sr ? sr_round(v, word_of(w, j), lf)
                            : fminf(fmaxf(qround(v), -lf), lf);
@@ -241,34 +288,63 @@ __device__ __forceinline__ void first_layer_qx(
         }
       }
     }
-    *reinterpret_cast<uint32_t*>(tile + p * AS + k0) = packed;
+    *reinterpret_cast<uint32_t*>(tile + p * as + k0) = packed;
     if (tile4 != nullptr)
-      *reinterpret_cast<uint32_t*>(tile4 + p * AS + k0) = packed4;
+      *reinterpret_cast<uint32_t*>(tile4 + p * as + k0) = packed4;
   }
 }
 
-// acc = tile (PT, Kp) int8 @ W, W given as rows of its transpose: Wt[n][k]
-// (Kp, Kp) int8 in global memory.  Starts with a barrier (tile written,
+// The loss kernels' quantised first layer of pixels p0 .. p0+63 of image b
+// into the (PT, AS) tile: q = clip(round(lf * a0), -lf, lf), a0 =
+// tanh(x0*w0 + x1*w1 + c), or with `sr` clip(floor(lf*a0 + u), -lf, lf) with
+// the forward site's words; `tile4` (if not null) gets clip(round(7 * a0),
+// -7, 7) beside it (the feature-major kernel's 4-bit dW1 operand).  Thread
+// i owns columns 4*(i % 128) .. +3 of pixels i/128, i/128 + 4, ... (WIDE:
+// and the same columns of every further 512-column chunk); columns past H
+// and pixels past HW are zero.  `pade`: a0 through the Pade tanh.  The
+// caller syncs before another thread reads the tiles.
+template <bool WIDE = false>
+__device__ __forceinline__ void first_layer_qx(
+    const float* __restrict__ fold, const float* __restrict__ coords, int b,
+    int p0, int HW, int H, float lf, bool sr, uint32_t seed, int8_t* tile,
+    int8_t* tile4, int as = AS, bool pade = false) {
+  for (int quad = threadIdx.x % (MAX_H / 4); 4 * quad < padded_k(H);
+       quad += MAX_H / 4) {
+    first_layer_qx_quad(fold, coords, b, p0, HW, H, lf, sr, seed, tile,
+                        tile4, WIDE ? as : AS, quad, pade);
+    if (!WIDE) break;
+  }
+}
+
+// acc = tile (PT, Kp) int8 @ W[:, n0 : n0+512] (columns past Kp are not
+// computed), W given as rows of its transpose: Wt[n][k] (Kp, Kp) int8 in
+// global memory; the tile has row stride AS (shared memory) or, WIDE, `as`.
+// Without WIDE n0 is 0 and Kp <= 512.  Starts with a barrier (tile written,
 // ring free) and ends with one (every read of the tile and the ring done).
+template <bool WIDE = false>
 __device__ __forceinline__ void tile_gemm_s8(const int8_t* tile,
                                              int8_t* ring,
                                              const int8_t* __restrict__ Wt,
                                              int Kp,
-                                             int (&acc)[MTILES][NTILES][4]) {
+                                             int (&acc)[MTILES][NTILES][4],
+                                             int as = AS, int n0 = 0) {
+  const int ast = WIDE ? as : AS;
+  const int r0 = WIDE ? n0 : 0;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int nslab = Kp / BK;
-  const bool busy = warp * WN < Kp;    // warps past Kp own only padding
+  const bool busy = r0 + warp * WN < Kp;   // warps past Kp own only padding
   auto fill = [&](int slab) {
     if (slab < nslab) {
       int8_t* dst = ring + (slab % STAGES) * MAX_H * SLAB_S;
-      const int8_t* src = Wt + size_t(slab) * BK;
+      const int8_t* src = Wt + size_t(r0) * Kp + size_t(slab) * BK;
 #pragma unroll
       for (int j = 0; j < MAX_H * (BK / 16) / NT; ++j) {
         const int i = tid + j * NT;
         const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-        if (r < Kp) cp_async16(dst + r * SLAB_S + c, src + size_t(r) * Kp + c);
+        if (r0 + r < Kp)
+          cp_async16(dst + r * SLAB_S + c, src + size_t(r) * Kp + c);
       }
     }
     cp_async_commit();                 // empty groups keep the count uniform
@@ -300,12 +376,12 @@ __device__ __forceinline__ void tile_gemm_s8(const int8_t* tile,
       }
 #pragma unroll
       for (int mt = 0; mt < MTILES; ++mt) {
-        const int8_t* ap = tile + (mt * 16 + g) * AS + j * BK + kk + 4 * t;
+        const int8_t* ap = tile + (mt * 16 + g) * ast + j * BK + kk + 4 * t;
         const uint32_t af[4] = {
             *reinterpret_cast<const uint32_t*>(ap),
-            *reinterpret_cast<const uint32_t*>(ap + 8 * AS),
+            *reinterpret_cast<const uint32_t*>(ap + 8 * ast),
             *reinterpret_cast<const uint32_t*>(ap + 16),
-            *reinterpret_cast<const uint32_t*>(ap + 8 * AS + 16)};
+            *reinterpret_cast<const uint32_t*>(ap + 8 * ast + 16)};
 #pragma unroll
         for (int nt = 0; nt < NTILES; ++nt)
           mma_s8(acc[mt][nt], af, bf[nt][0], bf[nt][1]);
@@ -317,32 +393,38 @@ __device__ __forceinline__ void tile_gemm_s8(const int8_t* tile,
 }
 
 // The (PT, Kp) int8 tile to a feature-major workspace: ws[(k * HWp) + p0 +
-// p] for k < Kp, p < PT, in 16-byte stores (thread k owns row k).
+// p] for k < Kp, p < PT, in 16-byte stores (thread k owns row k; WIDE: rows
+// k, k + NT, ... of a tile of row stride `as`).
+template <bool WIDE = false>
 __device__ __forceinline__ void tile_to_feature_major(const int8_t* tile,
                                                       int8_t* __restrict__ ws,
                                                       int p0, int HWp,
-                                                      int Kp) {
-  const int k = threadIdx.x;
-  if (k >= Kp) return;
-  int8_t* dst = ws + size_t(k) * HWp + p0;
+                                                      int Kp, int as = AS) {
+  const int ast = WIDE ? as : AS;
+  for (int k = threadIdx.x; k < Kp; k += NT) {
+    int8_t* dst = ws + size_t(k) * HWp + p0;
 #pragma unroll
-  for (int c = 0; c < PT / 16; ++c) {
-    uint32_t w[4];
+    for (int c = 0; c < PT / 16; ++c) {
+      uint32_t w[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      uint32_t v = 0;
+      for (int q = 0; q < 4; ++q) {
+        uint32_t v = 0;
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        v |= uint32_t(uint8_t(tile[(c * 16 + q * 4 + e) * AS + k])) << (8 * e);
-      w[q] = v;
+        for (int e = 0; e < 4; ++e)
+          v |= uint32_t(uint8_t(tile[(c * 16 + q * 4 + e) * ast + k]))
+               << (8 * e);
+        w[q] = v;
+      }
+      *reinterpret_cast<uint4*>(dst + c * 16) =
+          make_uint4(w[0], w[1], w[2], w[3]);
     }
-    *reinterpret_cast<uint4*>(dst + c * 16) = make_uint4(w[0], w[1], w[2], w[3]);
+    if (!WIDE) break;
   }
 }
 
-// z[o][p] = sum_n wht[o][n] * v[p][n] over the block's (PT, H) values held
-// in the accumulator layout (v zero for n >= H; RB: v rounded to bf16 at
-// use), for o < No: per-thread
+// z[o][p] = sum_n wht[o][n] * v[p][n] over the block's (PT, 512) values of
+// columns n0 .. n0+511 held in the accumulator layout (v zero for n >= H;
+// RB: v rounded to bf16 at use), for o < No: per-thread
 // partials, a shuffle over the t lanes, then the 16 warps' partials through
 // `red` (WARPS * MAX_NO * PT floats) summed in warp order by thread o*PT+p.
 // Returns z (without bias) for tid < No*PT; the caller syncs before reusing
@@ -350,7 +432,7 @@ __device__ __forceinline__ void tile_to_feature_major(const int8_t* tile,
 template <bool RB = false>
 __device__ __forceinline__ float head_dot(
     const float (&v)[MTILES][NTILES][4], const float* __restrict__ wht,
-    int H, int No, float* red) {
+    int H, int No, float* red, int n0 = 0) {
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -362,7 +444,7 @@ __device__ __forceinline__ float head_dot(
     for (int nt = 0; nt < NTILES; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int n = frag_col(warp, t, nt, c);
+        const int n = n0 + frag_col(warp, t, nt, c);
         const float w = n < H ? __ldg(wht + size_t(o) * H + n) : 0.f;
 #pragma unroll
         for (int mt = 0; mt < MTILES; ++mt)
@@ -388,7 +470,10 @@ __device__ __forceinline__ float head_dot(
 
 // Shared memory of every per-block kernel: the activation tile, a second
 // tile (K3's qi, K5's dh1q), the weight ring, dz2 and its cast, scratch.
+// The WIDE kernels keep the two tiles in the block's workspace slice and
+// the rest in shared memory.
 constexpr int SMEM = 2 * TILE_BYTES + RING_BYTES + 2 * MAX_NO * PT * 4 + 64;
+constexpr int SMEM_WIDE = RING_BYTES + 2 * MAX_NO * PT * 4 + 64;
 static_assert(SMEM <= 232448, "opt-in shared memory per block on sm_90");
 
 struct Smem {
@@ -398,13 +483,27 @@ struct Smem {
   float* dz;
   float* dzc;
   float* scratch;
+  int as;          // the tiles' row stride (AS, or wide_stride(Kp))
 };
 
-__device__ __forceinline__ Smem carve(void* base) {
+// WIDE: the tiles are the block's slice of `ws` (wide_block_bytes(Kp)
+// bytes at blockIdx.x); else both lie in shared memory.
+template <bool WIDE = false>
+__device__ __forceinline__ Smem carve(void* base, int8_t* ws = nullptr,
+                                      int Kp = 0) {
   Smem s;
-  s.tile = static_cast<int8_t*>(base);
-  s.q = s.tile + TILE_BYTES;
-  s.ring = s.q + TILE_BYTES;
+  int8_t* p = static_cast<int8_t*>(base);
+  if (WIDE) {
+    s.as = wide_stride(Kp);
+    s.tile = ws + size_t(blockIdx.x) * wide_block_bytes(Kp);
+    s.q = s.tile + size_t(PT) * s.as;
+  } else {
+    s.as = AS;
+    s.tile = p;
+    s.q = p + TILE_BYTES;
+    p += 2 * TILE_BYTES;
+  }
+  s.ring = p;
   s.dz = reinterpret_cast<float*>(s.ring + RING_BYTES);
   s.dzc = s.dz + MAX_NO * PT;
   s.scratch = s.dzc + MAX_NO * PT;

@@ -20,8 +20,11 @@ reductions of the per-block partials.
 ``decoder_tail_reference`` and ``decoder_tail_backward_reference`` are the
 two in eager PyTorch, with the kernels' casts.  The wrappers run them for CPU
 tensors only; for CUDA tensors they launch the kernels or raise.  They refuse,
-on every device, what the kernels cannot take, among it a hidden width above
-``MAX_HIDDEN``.  Under no_grad (serving, evaluation) nothing is saved and no
+on every device, what the kernels cannot take.  Any hidden width runs: above
+512 the kernels keep each block's activations in a workspace in global memory
+(``csrc/decoder_tile.cuh``), which the wrappers allocate, launching the images
+in chunks that keep it within ``workspace_budget``.  Under no_grad (serving,
+evaluation) nothing is saved and no
 activation is written; with grad the forward saves the (Lh, B, HW, H)
 activations when they fit ``residual_budget`` and the backward recomputes
 them otherwise, as the JAX VJP does with its own limit.
@@ -45,9 +48,6 @@ from spatialvae_torch.precision import fp32_precision
 
 MAX_HIDDEN_LAYERS = 4
 MAX_OUT = 8
-# = svt_fused_decoder_max_hidden() of the kernels: a block holds the (64, H)
-# output of a layer in registers
-MAX_HIDDEN = 512
 WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 
 # Kernel launches on CUDA tensors, by kernel: the forward without and with
@@ -67,8 +67,8 @@ def can_fuse_decoder(cfg: SpatialGeneratorConfig, hw: int) -> bool:
     """The JAX package's gate (foldable, 2..5 layers, n_out <= 8,
     hw >= 256) plus tanh, which the kernel hard-codes and the JAX gate
     never checked (ROADMAP, Queue 3).  Configs outside it take the plain
-    folded decoder.  Like the JAX gate it admits any hidden_dim; the
-    wrapper raises above MAX_HIDDEN (ROADMAP, Queue 2 K1)."""
+    folded decoder.  Like the JAX gate it admits any hidden_dim, and so do
+    the kernels."""
     return (not cfg.expand_coords and not cfg.bilinear
             and 2 <= cfg.num_layers <= 5 and cfg.n_out <= 8 and hw >= 256
             and cfg.activation == "tanh")
@@ -225,10 +225,6 @@ def _check_weights(whid, bhid, wht, bht) -> None:
                          f"1..{MAX_HIDDEN_LAYERS} (num_layers 2..5)")
     if no > MAX_OUT:
         raise ValueError(f"n_out={no}; the kernel takes at most {MAX_OUT}")
-    if not 1 <= h <= MAX_HIDDEN:
-        raise ValueError(f"hidden_dim={h}; the kernel holds a layer's "
-                         f"output in registers up to {MAX_HIDDEN} "
-                         f"(ROADMAP Queue 2 K1: H > {MAX_HIDDEN})")
     if whid.dtype not in WEIGHT_DTYPES:
         raise TypeError(f"weights must be float32 or bfloat16, got "
                         f"{whid.dtype}")
@@ -357,25 +353,49 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def wide_chunks(b: int, blocks: int, block_bytes: int, budget: int) -> list:
+    """[(first image, count)] of the launches of a wide kernel whose
+    ``blocks`` blocks per image take ``block_bytes`` of workspace each,
+    each launch's workspace within ``budget`` (at least one image per
+    launch)."""
+    bc = max(1, min(b, budget // (blocks * block_bytes)))
+    return [(b0, min(bc, b - b0)) for b0 in range(0, b, bc)]
+
+
 def _launch_fwd(fold, coords, w: TailWeights, resid: bool, emit: int,
-                y=None, acts=None) -> tuple:
-    """The forward kernel on CUDA tensors.  emit 0: y only; 1: also f32
-    activations; 2: activations rounded to bf16.  Returns (y, acts)."""
+                key: str, y=None, acts=None) -> tuple:
+    """The forward kernel on CUDA tensors, each launch counted in
+    ``LAUNCHES[key]``.  emit 0: y only; 1: also f32 activations; 2:
+    activations rounded to bf16.  Above H = 512 the images go in launches
+    whose workspace fits ``workspace_budget``.  Returns (y, acts)."""
     lib = _lib()
+    dev = fold.device
     b, _, h = fold.shape
     hw, lh, no = coords.shape[0], w.whid.shape[0], w.wht.shape[0]
     if y is None:
-        y = torch.empty((b, no, hw), dtype=torch.float32, device=fold.device)
+        y = torch.empty((b, no, hw), dtype=torch.float32, device=dev)
     if emit and acts is None:
-        acts = torch.empty((lh, b, hw, h), device=fold.device,
+        acts = torch.empty((lh, b, hw, h), device=dev,
                            dtype=torch.bfloat16 if emit == 2 else
                            torch.float32)
-    with torch.cuda.device(fold.device):
-        _call(lib, "svt_fused_decoder_fwd", fold.data_ptr(),
-              coords.data_ptr(), *(t.data_ptr() for t in w.kernel_args()),
-              y.data_ptr(), acts.data_ptr() if emit else None,
-              b, hw, h, lh, no, int(bool(resid)), int(w.bf16), emit,
-              _stream(fold))
+    tiles = -(-hw // 64)
+    block = lib.svt_fused_decoder_ws_block(h) * 4
+    chunks, ws = [(0, b)], None
+    if block:
+        chunks = wide_chunks(b, tiles, block, workspace_budget(dev))
+        ws = torch.empty((chunks[0][1] * tiles * block,), dtype=torch.uint8,
+                         device=dev)
+    esz = acts.element_size() if emit else 0
+    with torch.cuda.device(dev):
+        for b0, n in chunks:
+            _call(lib, "svt_fused_decoder_fwd",
+                  fold.data_ptr() + b0 * 4 * h * 4, coords.data_ptr(),
+                  *(t.data_ptr() for t in w.kernel_args()),
+                  y.data_ptr() + b0 * no * hw * 4,
+                  acts.data_ptr() + b0 * hw * h * esz if emit else None,
+                  b * hw * h, ws.data_ptr() if block else None, n, hw, h, lh,
+                  no, int(bool(resid)), int(w.bf16), emit, _stream(fold))
+            LAUNCHES[key] += 1
     return y, acts
 
 
@@ -393,8 +413,7 @@ def run_decoder_tail(fold: torch.Tensor, coords: torch.Tensor,
     if fold.device.type == "cpu":
         return decoder_tail_reference(fold, coords, w.whid, w.bhid, w.wht,
                                       w.bht, resid)
-    y, _ = _launch_fwd(fold, coords, w, resid, 0)
-    LAUNCHES["fwd"] += 1
+    y, _ = _launch_fwd(fold, coords, w, resid, 0, "fwd")
     return y
 
 
@@ -409,9 +428,8 @@ def run_decoder_tail_acts(fold: torch.Tensor, coords: torch.Tensor,
     if fold.device.type == "cpu":
         return decoder_tail_reference(fold, coords, w.whid, w.bhid, w.wht,
                                       w.bht, resid, return_acts=True)
-    out = _launch_fwd(fold, coords, w, resid, 2 if w.bf16 else 1)
-    LAUNCHES["fwd_acts"] += 1
-    return out
+    return _launch_fwd(fold, coords, w, resid, 2 if w.bf16 else 1,
+                       "fwd_acts")
 
 
 def run_decoder_tail_backward(fold, coords, w: TailWeights,
@@ -437,12 +455,13 @@ def run_decoder_tail_backward(fold, coords, w: TailWeights,
     wdt = w.whid.dtype
     recompute = acts is None
     act_bf16 = not recompute and acts.dtype == torch.bfloat16
+    tiles = -(-hw // 64)
+    block = lib.svt_fused_decoder_ws_block(h) * 4     # the wide chain's
     per_image = lh * hw * h * (torch.finfo(wdt).bits // 8
-                               + (4 if recompute else 0))
+                               + (4 if recompute else 0)) + tiles * block
     budget = workspace_budget(dev) if workspace_bytes is None \
         else workspace_bytes
     bc = max(1, min(b, budget // per_image))
-    tiles = -(-hw // 64)
     kchunk = lib.svt_fused_decoder_bwd_kchunk()
     mw = (lh + no) * h + no
     chunks = [(b0, min(bc, b - b0)) for b0 in range(0, b, bc)]
@@ -452,6 +471,8 @@ def run_decoder_tail_backward(fold, coords, w: TailWeights,
     part_w = torch.empty((b * tiles, mw), **f32)
     part_dw = torch.empty((sum(splits), lh, h, h), **f32)
     dh_ws = torch.empty((lh, bc, hw, h), dtype=wdt, device=dev)
+    ws = (torch.empty((bc * tiles * block,), dtype=torch.uint8, device=dev)
+          if block else None)
     if recompute:
         acts_ws = torch.empty((lh, bc, hw, h), **f32)
         y_ws = torch.empty((bc, no, hw), **f32)
@@ -466,8 +487,8 @@ def run_decoder_tail_backward(fold, coords, w: TailWeights,
         for (b0, n), ns in zip(chunks, splits):
             fold_c = fold[b0:b0 + n]
             if recompute:
-                _launch_fwd(fold_c, coords, w, resid, 1, y_ws[:n], acts_ws)
-                LAUNCHES["fwd_recompute"] += 1
+                _launch_fwd(fold_c, coords, w, resid, 1, "fwd_recompute",
+                            y_ws[:n], acts_ws)
                 act_ptr, act_ls = acts_ws.data_ptr(), n * hw * h
             else:
                 act_ptr = acts.data_ptr() + b0 * hw * h * esz
@@ -477,7 +498,8 @@ def run_decoder_tail_backward(fold, coords, w: TailWeights,
                   act_ptr, act_ls, y[b0:b0 + n].data_ptr(),
                   g[b0:b0 + n].data_ptr(), dh_ws.data_ptr(),
                   part_fold[b0 * tiles:].data_ptr(),
-                  part_w[b0 * tiles:].data_ptr(), n, hw, h, lh, no, *flags,
+                  part_w[b0 * tiles:].data_ptr(),
+                  ws.data_ptr() if block else None, n, hw, h, lh, no, *flags,
                   st)
             LAUNCHES["bwd_chain"] += 1
             _call(lib, "svt_fused_decoder_bwd_dw", fold_c.data_ptr(),

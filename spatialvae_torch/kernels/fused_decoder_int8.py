@@ -27,7 +27,10 @@ the two variants differ as the JAX ones do.
 are the plain PyTorch versions, with the integer products done exactly
 (integer-valued float32, every partial sum below 2**24).  The wrappers run
 them for CPU tensors; CUDA tensors launch the kernels
-(``csrc/fused_decoder_int8.cu``) or raise.
+(``csrc/fused_decoder_int8.cu``) or raise.  Any hidden width runs: above 512
+the kernels keep each block's int8 tiles in a workspace in global memory
+(``csrc/int8_tile.cuh``), which the wrappers allocate within
+``workspace_budget``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from spatialvae_torch.kernels.fused_decoder import (
     _stream,
     residual_budget,
     save_residual,
+    wide_chunks,
     workspace_budget,
 )
 from spatialvae_torch.models.spatial import (
@@ -54,8 +58,6 @@ from spatialvae_torch.models.spatial import (
 from spatialvae_torch.precision import fp32_precision
 
 MAX_OUT = 8
-# = svt_int8_max_hidden() of the kernels
-MAX_HIDDEN = 512
 WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_PIXELS = 64       # pixels per CUDA block (a group spans several)
 
@@ -207,9 +209,6 @@ def _check_weights(w1, b1, wht, bht) -> None:
                              f"expected {shape} (H={h})")
     if no > MAX_OUT:
         raise ValueError(f"n_out={no}; the kernels take at most {MAX_OUT}")
-    if not 1 <= h <= MAX_HIDDEN:
-        raise ValueError(f"hidden_dim={h}; the int8 kernels take up to "
-                         f"{MAX_HIDDEN} (ROADMAP Queue 2 K1: H > 512)")
     if w1.dtype not in WEIGHT_DTYPES:
         raise TypeError(f"weights must be float32 or bfloat16, got "
                         f"{w1.dtype}")
@@ -299,20 +298,44 @@ def run_int8_tail(fold, coords, w: Int8Weights, emit_a1: bool = False):
         return decoder_tail_int8_reference(fold, coords, w.w1q, w.sw, w.b1,
                                            w.wht, w.bht, emit_a1)
     lib = _lib()
+    dev = fold.device
     b, _, h = fold.shape
     hw, no = coords.shape[0], w.wht.shape[0]
-    y = torch.empty((b, no, hw), dtype=torch.float32, device=fold.device)
-    a1 = (torch.empty((b, hw, h), dtype=torch.bfloat16, device=fold.device)
+    y = torch.empty((b, no, hw), dtype=torch.float32, device=dev)
+    a1 = (torch.empty((b, hw, h), dtype=torch.bfloat16, device=dev)
           if emit_a1 else None)
     w1qt, _, sw, b1, wht, bht = w.kernel_args()
-    with torch.cuda.device(fold.device):
-        _call(lib, "svt_int8_decoder_fwd", fold.data_ptr(),
-              coords.data_ptr(), w1qt.data_ptr(), sw.data_ptr(),
-              b1.data_ptr(), wht.data_ptr(), bht.data_ptr(), y.data_ptr(),
-              a1.data_ptr() if emit_a1 else None, b, hw, h, no, int(w.bf16),
-              _stream(fold))
-    LAUNCHES["fwd_acts" if emit_a1 else "fwd"] += 1
+    blocks = -(-hw // BLOCK_PIXELS)
+    ws, chunks = wide_workspace(lib, b, blocks, h, dev)
+    with torch.cuda.device(dev):
+        for b0, n in chunks:
+            _call(lib, "svt_int8_decoder_fwd",
+                  fold.data_ptr() + b0 * 4 * h * 4, coords.data_ptr(),
+                  w1qt.data_ptr(), sw.data_ptr(), b1.data_ptr(),
+                  wht.data_ptr(), bht.data_ptr(),
+                  y.data_ptr() + b0 * no * hw * 4,
+                  a1.data_ptr() + b0 * hw * h * 2 if emit_a1 else None,
+                  ptr(ws), n, hw, h, no, int(w.bf16), _stream(fold))
+            LAUNCHES["fwd_acts" if emit_a1 else "fwd"] += 1
     return (y, a1) if emit_a1 else y
+
+
+def wide_workspace(lib, b: int, blocks: int, h: int, dev) -> tuple:
+    """(workspace or None, [(first image, count)]): the uint8 workspace of
+    the wide int8 kernels (H > 512) for launches of ``blocks`` blocks per
+    image over ``b`` images, within ``workspace_budget``; no workspace and
+    one launch at H <= 512."""
+    block = lib.svt_int8_ws_block(h)
+    if not block:
+        return None, [(0, b)]
+    chunks = wide_chunks(b, blocks, block, workspace_budget(dev))
+    return torch.empty((chunks[0][1] * blocks * block,), dtype=torch.uint8,
+                       device=dev), chunks
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """t's address, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def image_chunks(b: int, per_image: int, budget: int) -> list:
@@ -387,27 +410,39 @@ def run_int8_tail_backward(fold, coords, w: Int8Weights,
     part_w = torch.empty((b * blocks, mw), **f32)
     budget = workspace_budget(dev) if workspace_bytes is None \
         else workspace_bytes
-    chunks = image_chunks(b, 2 * kp * hwp, budget)
+    block = lib.svt_int8_ws_block(h)               # the wide tiles
+    chunks = image_chunks(b, 2 * kp * hwp + blocks * block, budget)
     bc = chunks[0][1]
     aq_ws = torch.empty((bc, kp, hwp), dtype=torch.int8, device=dev)
     q_ws = torch.empty((bc, kp, hwp), dtype=torch.int8, device=dev)
+    ws = (torch.empty((bc * blocks * block,), dtype=torch.uint8, device=dev)
+          if block else None)
     part_dw = torch.empty((sum(dw_splits(n * gpi) for _, n in chunks), h, h),
                           **f32)
-    a1p = a1.data_ptr() if a1 is not None else None
     with torch.cuda.device(dev):
         st = _stream(fold)
-        common = (fold.data_ptr(), coords.data_ptr(), w1qt.data_ptr(),
-                  sw.data_ptr(), b1.data_ptr(), wht.data_ptr(), a1p,
-                  y.data_ptr(), g.data_ptr())
-        _call(lib, "svt_int8_decoder_bwd_scale", *common,
-              part_max.data_ptr(), b, hw, h, no, int(w.bf16), st)
-        LAUNCHES["bwd_scale"] += 1
+
+        def common(b0):
+            return (fold.data_ptr() + b0 * 4 * h * 4, coords.data_ptr(),
+                    w1qt.data_ptr(), sw.data_ptr(), b1.data_ptr(),
+                    wht.data_ptr(),
+                    None if a1 is None else a1.data_ptr() + b0 * hw * h * 2,
+                    y.data_ptr() + b0 * no * hw * 4,
+                    g.data_ptr() + b0 * no * hw * 4)
+
+        # the scale pass takes no workspace at H <= 512: one launch
+        for b0, n in (chunks if block else [(0, b)]):
+            _call(lib, "svt_int8_decoder_bwd_scale", *common(b0),
+                  part_max[b0 * blocks:].data_ptr(), ptr(ws), n, hw, h, no,
+                  int(w.bf16), st)
+            LAUNCHES["bwd_scale"] += 1
         split0 = 0
         for b0, n in chunks:
-            _call(lib, "svt_int8_decoder_bwd_grad", *common,
+            _call(lib, "svt_int8_decoder_bwd_grad", *common(0),
                   w1q.data_ptr(), part_max.data_ptr(), gscale.data_ptr(),
                   aq_ws.data_ptr(), q_ws.data_ptr(), part_fold.data_ptr(),
-                  part_w.data_ptr(), b0, n, hw, h, no, pt, int(w.bf16), st)
+                  part_w.data_ptr(), ptr(ws), b0, n, hw, h, no, pt,
+                  int(w.bf16), st)
             LAUNCHES["bwd_grad"] += 1
             split0 += run_grouped_dw(lib, aq_ws, q_ws, gscale[b0 * gpi:],
                                      part_dw[split0:], n, hwp, h, pt, gpi, st)

@@ -43,7 +43,6 @@ import torch.nn.functional as F
 from spatialvae_torch.kernels.config import Numerics, numerics
 from spatialvae_torch.kernels.fused_decoder_int8 import (
     BLOCK_PIXELS,
-    MAX_HIDDEN,
     MAX_OUT,
     WEIGHT_DTYPES,
 )
@@ -93,9 +92,9 @@ def _check(fold_t, coords, w1, b1, wht, bht, y_t) -> None:
     if wht.dim() != 2 or wht.shape[1] != h:
         raise ValueError(f"wht must be (No, H={h}), got {tuple(wht.shape)}")
     no = wht.shape[0]
-    if not 1 <= no <= MAX_OUT or not 1 <= h <= MAX_HIDDEN:
-        raise ValueError(f"n_out={no}, H={h}; the kernels take n_out <= "
-                         f"{MAX_OUT} and H <= {MAX_HIDDEN}")
+    if not 1 <= no <= MAX_OUT or h < 1:
+        raise ValueError(f"n_out={no}, H={h}; the kernels take 1 <= n_out "
+                         f"<= {MAX_OUT} and H >= 1")
     if tuple(b1.shape) != (h,) or tuple(bht.shape) != (no,):
         raise ValueError("b1 must be (H,) and bht (No,)")
     if w1.dtype not in WEIGHT_DTYPES or any(

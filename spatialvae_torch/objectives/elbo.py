@@ -26,9 +26,8 @@ int8 data copy (``y_q8``) as the JAX ELBO does; an explicit encoder view
 (``y_inf``) drops ``y_q8``.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: CTF (M7), rotation-augment offsets (M8), the loss kernel's four
-measurement levers (Queue 2 K3 (g)), the vanilla generator (M1) and
-pixel-axis sharding (M10).
+item: CTF (M7), rotation-augment offsets (M8), the vanilla generator (M1)
+and pixel-axis sharding (M10).
 
 ``elbo_minibatch`` is differentiable; its serving callers take
 ``torch.no_grad()`` themselves, so serving saves nothing for a backward and

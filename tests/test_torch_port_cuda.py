@@ -38,6 +38,12 @@ pytestmark = pytest.mark.cuda
 # variant)
 TOL = {torch.float32: (5e-6, 1e-6), torch.bfloat16: (5e-4, 1e-5)}
 ACTS_TOL = {torch.float32: (5e-5, 5e-6), torch.bfloat16: (1e-2, 1e-5)}
+# the activations above H = 2048 (chip_smoke.ACTS_TOL_WIDE: a sound
+# kernel's longer sums read up to 5.15e-5 / 6.95e-6 at 4100 in f32, the
+# one-TF32-pass copy at least 6.36e-4 / 1.63e-4; bf16 means up to 1.11e-5)
+ACTS_TOL_WIDE = {torch.float32: (2e-4, 3e-5), torch.bfloat16: (1e-2, 5e-5)}
+# y above H = 2048 (chip_smoke.TOL_WIDE: bf16 means read up to 1.43e-5)
+TOL_WIDE = {torch.float32: (5e-6, 1e-6), torch.bfloat16: (5e-4, 5e-5)}
 BWD_TOL = {(torch.float32, "residual"): (2e-4, 1e-5),
            (torch.float32, "recompute"): (2e-4, 1e-5),
            (torch.bfloat16, "residual"): (1e-3, 8e-5),
@@ -111,16 +117,61 @@ def test_kernel_matches_plain_version(case, cuda_device):
     _assert_close(got, want, wdt)
 
 
-def test_kernel_at_max_hidden(cuda_device):
-    """The widest hidden layer the kernel's shared memory takes."""
-    from spatialvae_torch.kernels._build import load_library
+# hidden widths on both sides of the kernels' one design threshold (512:
+# shared memory and one 512-column chunk; 513 and up: the per-block
+# workspace in global memory and 512-column chunks), the galaxy wide
+# configuration (1000), whole and ragged chunks, and a ragged width above
+# every chunk count the other widths reach (4100, at a small batch)
+WIDTHS = [512, 513, 768, 1000, 1024, 2048, 4100]
 
-    assert load_library().svt_fused_decoder_max_hidden() == fd.MAX_HIDDEN
-    args = _inputs(2, 3, 784, torch.float32, cuda_device, h=fd.MAX_HIDDEN)
-    with torch.no_grad():
-        got = fd.fused_decoder_tail(*args, True)
-        want = fd.decoder_tail_reference(*args, True)
-    _assert_close(got, want, torch.float32)
+
+def _wide_b(h):
+    return 2 if h > 2048 else 3
+
+
+@pytest.mark.parametrize("h", WIDTHS)
+def test_kernel_at_max_hidden(h, cuda_device):
+    """K1 at and past the old 512 limit: with and without the activation
+    output, f32 and bf16, against the plain version; no width raises."""
+    for wdt, resid in ((torch.float32, True), (torch.bfloat16, False)):
+        fold, coords, *ws = _inputs(2, 3, 784, wdt, cuda_device,
+                                    b=_wide_b(h), h=h)
+        fd.reset_launches()
+        with torch.no_grad():
+            got = fd.fused_decoder_tail(fold, coords, *ws, resid)
+            y, acts = fd.run_decoder_tail_acts(fold, coords,
+                                               fd.TailWeights(*ws), resid)
+            torch.cuda.synchronize()
+            want, acts_ref = fd.decoder_tail_reference(
+                fold, coords, *ws, resid, return_acts=True)
+        assert fd.LAUNCHES["fwd"] == fd.LAUNCHES["fwd_acts"] == 1
+        wide = h > 2048
+        _assert_close(got, want, wdt, TOL_WIDE if wide else TOL)
+        _assert_close(y, want, wdt, TOL_WIDE if wide else TOL)
+        _assert_close(acts, acts_ref, wdt,
+                      ACTS_TOL_WIDE if wide else ACTS_TOL)
+
+
+@pytest.mark.parametrize("variant", ["residual", "recompute"])
+@pytest.mark.parametrize("h", WIDTHS)
+def test_backward_at_any_width(h, variant, cuda_device):
+    """K2 at every width of WIDTHS, both variants, f32 and bf16."""
+    for wdt, resid, lh in ((torch.float32, False, 2),
+                           (torch.bfloat16, True, 1)):
+        b = _wide_b(h)
+        fold, coords, *ws = _inputs(lh, 3, 784, wdt, cuda_device, b=b, h=h)
+        g = torch.randn((b, 3, 784), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(1))
+        tw = fd.TailWeights(*ws)
+        with torch.no_grad():
+            y, acts = fd.run_decoder_tail_acts(fold, coords, tw, resid)
+            a = acts if variant == "residual" else None
+            got = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g,
+                                               resid)
+            want = fd.decoder_tail_backward_reference(fold, coords, *ws[:3],
+                                                      a, y, g, resid)
+        for u, w in zip(got, want):
+            _assert_rel(u, w, BWD_TOL[wdt, variant])
 
 
 def test_fused_generator_runs_kernel(cuda_device):
@@ -716,3 +767,136 @@ def test_k8_matches_plain_version(mode, side, cuda_device):
         _assert_rel(u, x, INT8_TOL)
     assert lt.LAUNCHES["fwd"] == lt.LAUNCHES["grad"] == 2
     assert not any(l8.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("h", WIDTHS)
+def test_int8_kernels_at_any_width(h, cuda_device):
+    """K4, K5 (residual and recompute), K3 in its four families and K8 at
+    every width of WIDTHS against their plain versions, bf16 weights (f32
+    for K4/K5 at the odd widths); the quantisation groups are the default
+    width's."""
+    import torch.nn.functional as F
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels import fused_loss_int8_t as lt
+
+    b = _wide_b(h) if h <= 2048 else 2
+    b += b % 2                                    # K3 takes even batches
+    wdt = torch.float32 if h % 2 else torch.bfloat16
+    fold, coords, ws = _int8_inputs(b, 1024, h, 3, wdt, cuda_device)
+    g = torch.randn((b, 3, 1024), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    w = d8.Int8Weights(*ws)
+    ref = (w.w1q, w.sw, w.b1, w.wht)
+    with torch.no_grad():
+        y, a1 = d8.run_int8_tail(fold, coords, w, emit_a1=True)
+        y_ref, a1_ref = d8.decoder_tail_int8_reference(
+            fold, coords, *ref, w.bht, return_a1=True)
+        for got, want, tol in ((y, y_ref, INT8_Y_TOL),
+                               (a1, a1_ref, INT8_A1_TOL)):
+            d = (got.float() - want.float()).abs()
+            assert d.max().item() <= tol[0] and d.mean().item() <= tol[1]
+        for a in (a1, None):
+            got = d8.run_int8_tail_backward(fold, coords, w, a, y, g)
+            want = d8.decoder_tail_int8_backward_reference(
+                fold, coords, *ref, a, y, g)
+            for u, x in zip(got, want):
+                _assert_rel(u, x, INT8_TOL)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    for family in ("bernoulli", "gaussian", "colored", "padded"):
+        no = {"gaussian": 1, "colored": 2}.get(family, 3)
+        side = 28 if family == "padded" else 32
+        hw = side * side
+        fold, coords, ws = _int8_inputs(b, hw, h, no, torch.bfloat16,
+                                        cuda_device)
+        k = torch.randint(0, 256, (b, no, hw // no if no == 2 else hw),
+                          generator=gen, device=cuda_device)
+        yt = (k - 128).to(torch.int8)
+        mask = None
+        fam = "bernoulli" if family == "padded" else family
+        if family == "colored":
+            coords = l8.colored_coords(coords, l8.pick_tile(hw)).contiguous()
+        elif family == "padded":
+            pad = l8.padded_hw(hw) - hw
+            coords = F.pad(coords, (0, 0, 0, pad))
+            yt = F.pad(yt, (0, pad), value=-128)
+            mask = F.pad(torch.ones(hw, device=cuda_device), (0, pad))
+        with torch.no_grad():
+            got = l8.run_loss_int8(fold, coords, *ws, yt, mask, fam)
+            want = l8.loss_int8_reference(fold, coords, *ws, yt, mask, fam)
+        for u, x in zip(got, want):
+            _assert_rel(u, x, INT8_TOL)
+    fold, coords, ws = _int8_inputs(b, 1024, h, 3, torch.bfloat16,
+                                    cuda_device)
+    yt = torch.rand((b, 3, 1024), generator=gen, device=cuda_device)
+    fold_t = fold.transpose(1, 2).contiguous()
+    for mode in ("i4", "i8"):
+        with torch.no_grad():
+            got = lt.run_loss_int8_t(fold_t, coords, *ws, yt, mode)
+            want = lt.loss_int8_t_reference(fold_t, coords, *ws, yt, mode)
+        for u, x in zip(got, want):
+            _assert_rel(u, x, INT8_TOL)
+
+
+# K3's measurement levers (K3 (g)): (B, HW, H, No, weight dtype, Numerics
+# fields); the widths below and above 512, the galaxy shape, a colored case
+LEVER_CASES = [
+    (4, 4096, 500, 3, torch.bfloat16, dict(db1="qi")),
+    (4, 4096, 500, 3, torch.bfloat16, dict(a1q=True)),
+    (4, 4096, 500, 3, torch.float32, dict(tanh="pade")),
+    (4, 4096, 500, 3, torch.bfloat16, dict(a1q=True, db1="qi", sr=True)),
+    (2, 1024, 768, 3, torch.bfloat16, dict(a1q=True, tanh="pade")),
+    (2, 1024, 130, 1, torch.float32, dict(tanh="pade", gscale="tile",
+                                          grad_mode="i8")),
+]
+
+
+@pytest.mark.parametrize("case", LEVER_CASES, ids=lambda c: "-".join(
+    [f"B{c[0]}-HW{c[1]}-H{c[2]}-No{c[3]}", str(c[4])[6:],
+     *(f"{k}={v}" for k, v in c[5].items())]))
+def test_loss_kernel_levers_match_plain_version(case, cuda_device):
+    """Each measurement lever of K3 against its plain version within the K3
+    limits; two runs agree bit for bit."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.config import Numerics
+
+    b, hw, h, no, wdt, kw = case
+    nm = Numerics(**kw)
+    fold, coords, ws = _int8_inputs(b, hw, h, no, wdt, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    k = torch.randint(0, 256, (b, no, hw), generator=gen, device=cuda_device)
+    yt = (k - 128).to(torch.int8)
+    mask = (torch.rand(hw, generator=gen, device=cuda_device) > 0.3).float()
+    with torch.no_grad():
+        got = l8.run_loss_int8(fold, coords, *ws, yt, mask, numerics=nm)
+        again = l8.run_loss_int8(fold, coords, *ws, yt, mask, numerics=nm)
+        want = l8.loss_int8_reference(fold, coords, *ws, yt, mask,
+                                      numerics=nm)
+    for u, v, x in zip(got, again, want):
+        assert torch.equal(u, v)
+        _assert_rel(u, x, INT8_TOL)
+
+
+@pytest.mark.parametrize("cut", [3, 4, 5, 6, 7, 8])
+def test_loss_kernel_phase_cut(cut, cuda_device):
+    """``PHASE_CUT=k`` on the card: the cut phases' outputs are zero, the
+    rest match the plain version, and the cut removes launches (no gradient
+    pass below 4, no dW1 below 6)."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.config import Numerics
+
+    nm = Numerics(phase_cut=cut)
+    fold, coords, ws = _int8_inputs(4, 4096, 500, 3, torch.bfloat16,
+                                    cuda_device)
+    k = torch.randint(0, 256, (4, 3, 4096), device=cuda_device,
+                      generator=torch.Generator(cuda_device).manual_seed(2))
+    yt = (k - 128).to(torch.int8)
+    l8.reset_launches()
+    with torch.no_grad():
+        got = l8.run_loss_int8(fold, coords, *ws, yt, numerics=nm)
+        want = l8.loss_int8_reference(fold, coords, *ws, yt, numerics=nm)
+    for u, x in zip(got, want):
+        _assert_rel(u, x, INT8_TOL)
+    assert l8.LAUNCHES["grad"] == (cut >= 4)
+    assert l8.LAUNCHES["dw"] == (cut >= 6)
+    assert not got[0][:, :3].any() if cut < 8 else got[0][:, :3].any()

@@ -144,9 +144,9 @@ def test_can_fuse_decoder_matches_jax_for_tanh():
 def test_can_fuse_decoder_refuses_what_the_kernel_cannot_run():
     """The kernel computes tanh (the JAX gate never checked the activation,
     ROADMAP Queue 3): the port's gate sends other activations to the plain
-    folded decoder.  It admits any width, as JAX's does, so a decoder wider
-    than MAX_HIDDEN reaches the wrapper, which raises instead of changing
-    path."""
+    folded decoder.  It admits any width, as JAX's does, and so does the
+    kernel: a decoder one wider than the kernel's 512-column chunk decodes
+    through the fused path as JAX's fused decoder does (1e-5)."""
     cfg = SpatialGeneratorConfig(latent_dim=2, num_layers=2, activation="relu")
     assert jax_fd.can_fuse_decoder(cfg, 4096)
     assert not fd.can_fuse_decoder(to_port(cfg), 4096)
@@ -156,15 +156,23 @@ def test_can_fuse_decoder_refuses_what_the_kernel_cannot_run():
     with pytest.raises(ValueError, match="not supported"):
         fd.fused_spatial_generator(gen, coord_grid(64, 64), None, None,
                                    torch.zeros((2, 2)))
-    wide = SpatialGeneratorConfig(latent_dim=2, num_layers=2,
-                                  hidden_dim=fd.MAX_HIDDEN + 1)
+    wide = SpatialGeneratorConfig(latent_dim=2, num_layers=2, hidden_dim=513)
     assert jax_fd.can_fuse_decoder(wide, 4096)
     assert fd.can_fuse_decoder(to_port(wide), 4096)
-    gen = SpatialGenerator(to_port(wide),
-                           generator=torch.Generator().manual_seed(0))
-    with torch.no_grad(), pytest.raises(ValueError, match="hidden_dim"):
-        decode_spatial(gen, ElboConfig(fused=True), coord_grid(16, 16),
-                       None, None, torch.zeros((2, 2)))
+    params = jax.tree_util.tree_map(
+        np.asarray, spatial_generator_init(jax.random.PRNGKey(0), wide))
+    gen = generator_from_jax(params, to_port(wide))
+    z = np.random.default_rng(3).normal(size=(2, 2)).astype(np.float32)
+    grid = coord_grid(16, 16)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_fd.fused_spatial_generator(params, wide,
+                                              jnp.asarray(grid.numpy()),
+                                              None, None, z)
+    with torch.no_grad():
+        got = decode_spatial(gen, ElboConfig(fused=True), grid, None, None,
+                             torch.from_numpy(z))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
 
 
 def _bad_inputs(kind):
@@ -176,11 +184,8 @@ def _bad_inputs(kind):
         whid, bhid = whid.repeat(5, 1, 1), bhid.repeat(5, 1)
     elif kind == "nine_outputs":
         wht, bht = wht.repeat(3, 1), bht.repeat(3)
-    elif kind == "too_wide":
-        h = fd.MAX_HIDDEN + 1
-        fold = torch.zeros((3, 4, h))
-        whid, bhid = torch.zeros((1, h, h)), torch.zeros((1, h))
-        wht, bht = torch.zeros((3, h)), torch.zeros((3,))
+    elif kind == "empty_batch":
+        fold = fold[:0]
     elif kind == "float16_weights":
         whid, bhid, wht, bht = (t.half() for t in (whid, bhid, wht, bht))
     elif kind == "mixed_weight_dtypes":
@@ -199,7 +204,7 @@ def _bad_inputs(kind):
 
 
 @pytest.mark.parametrize("kind", [
-    "no_hidden_layer", "five_hidden_layers", "nine_outputs", "too_wide",
+    "no_hidden_layer", "five_hidden_layers", "nine_outputs", "empty_batch",
     "float16_weights", "mixed_weight_dtypes", "float64_fold",
     "non_contiguous", "shape_mismatch", "fold_rows",
     "bfloat16_fold_under_grad"])

@@ -435,9 +435,10 @@ def test_fused_loss_active_matches_jax_and_unported_configs_raise(
         monkeypatch):
     """fused_loss_active decides as JAX's; every config it sends to the loss
     kernel is ported (the three families, aligned and padded pixel counts)
-    at every numerics setting the JAX trainer accepts, and refused off them:
-    RuntimeError without SPATIALVAE_ALLOW_KNOBS=1, NotImplementedError
-    naming K3 (g) for the levers not ported."""
+    at every numerics setting the JAX trainer accepts, its four measurement
+    levers included, and refused off them: RuntimeError without
+    SPATIALVAE_ALLOW_KNOBS=1, ValueError on a phase cut below 3 (where the
+    JAX kernel fails at trace time)."""
     routed = set()
     for kw in GEN_KW[:8]:
         cfg = SpatialGeneratorConfig(latent_dim=2, hidden_dim=64, **kw)
@@ -469,24 +470,27 @@ def test_fused_loss_active_matches_jax_and_unported_configs_raise(
         assert l8.check_ported(4096 if aligned else 784, lik).sr
     monkeypatch.setenv("SPATIALVAE_TANH", "pade")
     for lik, aligned in sorted(routed):
-        with pytest.raises(NotImplementedError, match=r"K3 \(g\)"):
+        assert l8.check_ported(4096 if aligned else 784, lik).tanh == "pade"
+    monkeypatch.setenv("SPATIALVAE_PHASE_CUT", "2")
+    for lik, aligned in sorted(routed):
+        with pytest.raises(ValueError, match="PHASE_CUT"):
             l8.check_ported(4096 if aligned else 784, lik)
 
 
 @pytest.mark.parametrize("env,value,ported", [
-    ("SPATIALVAE_TANH", "pade", False),
-    ("SPATIALVAE_A1Q", "1", False),
-    ("SPATIALVAE_DB1", "qi", False),
-    ("SPATIALVAE_PHASE_CUT", "6", False),
+    ("SPATIALVAE_TANH", "pade", True),
+    ("SPATIALVAE_A1Q", "1", True),
+    ("SPATIALVAE_DB1", "qi", True),
+    ("SPATIALVAE_PHASE_CUT", "6", True),
     ("SPATIALVAE_INT4_GRADS", "i8", True),
     ("SPATIALVAE_SR", "1", True)])
 def test_knobs_off_default_raise(monkeypatch, env, value, ported):
     """The port reads every numerics variable of the JAX KernelConfig with
     the same defaults, and refuses in the wrapper and in the trainer (int8
-    and float) what is still refused: any value off a default without
-    SPATIALVAE_ALLOW_KNOBS=1 (RuntimeError, as the JAX trainer), and the
-    four levers not ported even with it (NotImplementedError naming
-    K3 (g))."""
+    and float) any value off a default without SPATIALVAE_ALLOW_KNOBS=1
+    (RuntimeError, as the JAX trainer).  With it every one runs, the four
+    measurement levers (K3 (g)) among them: the wrapper and both trainers
+    accept it."""
     want = jax_kcfg.KernelConfig()
     names = {f: getattr(want, f) for f in jax_kcfg.NUMERICS_FIELDS}
     assert {f.name: f.default for f in dataclasses.fields(kcfg.Numerics)} \
@@ -519,12 +523,10 @@ def test_knobs_off_default_raise(monkeypatch, env, value, ported):
         with pytest.raises(RuntimeError, match="ALLOW_KNOBS"):
             call()
     monkeypatch.setenv("SPATIALVAE_ALLOW_KNOBS", "1")
-    if ported:
-        assert kcfg.numerics() != kcfg.Numerics()
-        return
+    assert ported
+    assert kcfg.numerics() != kcfg.Numerics()
     for call in calls:
-        with pytest.raises(NotImplementedError, match=r"K3 \(g\)"):
-            call()
+        call()
 
 
 def test_target_copy_matches_jax():

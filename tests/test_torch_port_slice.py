@@ -121,9 +121,10 @@ def test_elbo_matches_jax(name):
     "vanilla"])
 def test_elbo_refuses_what_is_not_ported(what, monkeypatch):
     """Among them what is left of the Gaussian and colored likelihoods
-    (CTF, M7) and of the int8 loss kernel: its four measurement levers
-    (K3 (g)), accepted knobs and all, over an aligned pixel count and over
-    targets for a padded one (MNIST's 784)."""
+    (CTF, M7) and of the int8 loss kernel, whose four measurement levers
+    (K3 (g)) now run: CTF (M7) over an aligned pixel count and
+    rotation-augment offsets (M8) over targets for a padded one (MNIST's
+    784), a lever set in each."""
     n, m, ch = {"y_t": (28, 28, 1), "int8": (32, 32, 3)}.get(what,
                                                             (16, 16, 3))
     q_cfg, p_cfg, qp, pp = _model(n, m, ch)
@@ -139,9 +140,11 @@ def test_elbo_refuses_what_is_not_ported(what, monkeypatch):
         monkeypatch.setenv("SPATIALVAE_ALLOW_KNOBS", "1")
         if what == "int8":
             monkeypatch.setenv("SPATIALVAE_TANH", "pade")
+            kw["ctf"] = torch.zeros((2, 3, 3))
         else:
             monkeypatch.setenv("SPATIALVAE_DB1", "qi")
             kw["y_t"] = torch.full((2, ch, 1024), -128, dtype=torch.int8)
+            kw["offsets"] = torch.zeros(2)
     elif what == "vanilla":
         ecfg = ElboConfig(vanilla=True)
     else:

@@ -328,10 +328,10 @@ def test_train_config_matches_jax():
 @pytest.mark.parametrize("what", ["int8", "mesh", "augment", "host",
                                   "gaussian"])
 def test_trainer_refuses_what_is_not_ported(what, monkeypatch):
-    """int8: the loss kernel's measurement levers not ported (K3 (g)) are
-    refused when the trainer is built, knobs accepted and all, here over
-    MNIST's padded 28x28; gaussian: what is left of that likelihood, a CTF
-    dataset (M7)."""
+    """int8: the loss kernel's measurement levers (K3 (g)) are accepted
+    with the knobs, here over MNIST's padded 28x28, and what is still
+    refused there is a CTF dataset (M7); gaussian: what is left of that
+    likelihood, a CTF dataset (M7)."""
     q_cfg, p_cfg = map(to_port, _cfgs())
     ecfg = ElboConfig(fused=True, channels=C, int8=what == "int8",
                       likelihood="gaussian" if what == "gaussian"
@@ -345,7 +345,7 @@ def test_trainer_refuses_what_is_not_ported(what, monkeypatch):
         tr = Trainer(q_cfg, p_cfg, ecfg, tcfg, grid, device="cpu",
                      mesh=object() if what == "mesh" else None)
         data = _Data(torch.zeros((B, N * M, C)))
-        if what == "gaussian":
+        if what in ("gaussian", "int8"):
             data.ctf = torch.zeros((B, 3, 3))
         else:
             data.host_resident = True
