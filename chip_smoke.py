@@ -5,6 +5,7 @@
     python3 chip_smoke.py --limits   # the int8 kernels' limit readings
     python3 chip_smoke.py --limits numerics   # those of K3 (e)-(g), K8
     python3 chip_smoke.py --limits wide       # those of the wide path
+    python3 chip_smoke.py --limits probes     # those of the probe kernels
     python3 chip_smoke.py --default-width PARENT_DIR   # K1-K5 A/B
 
 Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
@@ -76,7 +77,16 @@ paths:
   ``SPATIALVAE_PHASE_CUT`` ladder 3..8 (``[kernel_loss_ladder]``: the cut
   phases launch nothing) and two epochs of the int8 galaxy trainer under
   ``DB1=qi`` with ``A1Q=1`` (``[train_int8_levers]``); ``[default_width]``
-  sums up K1-K5 at H = 500.
+  sums up K1-K5 at H = 500;
+- the port's probe tools at their defaults (``[probe_int4]``: the int4
+  GEMMs in every contraction layout, 2,048 x 4,096 / 2,048 steps of a
+  (2,048, 500) x (500, 500) product, through the s8 and the s4 arm, the
+  feature-major first layer and the transpose; ``[probe_i16acc]``: the
+  accumulator stored as int32, int16, bf16 or f32), each through
+  ``python -m spatialvae_torch.tools.<tool>``'s ``main`` (the launches),
+  then every run against its plain version (0 words may differ), with its
+  bound, the library call's time and each GEMM kernel's IMMA count in the
+  library's SASS.
 
 Each phase prints its lines; the last three lines are the per-kernel JSON
 record (launches on the main path, times, plain-version time, bound,
@@ -87,7 +97,9 @@ numerics`` only those of K3's modes, levers and K8 (SR drawing the gradient
 site's words from the forward site's stream, SR with u = 0, db1 from the
 pre-round q, the Pade lever on the exact tanh, A1Q at a per-block scale);
 ``--limits wide`` those of the wide path (its ragged last chunk skipped,
-one TF32 pass).  ``python3 chip_smoke.py --default-width PARENT`` times
+one TF32 pass); ``--limits probes`` those of the probe kernels (the
+last k slab dropped, the int16 store wrapping, a 4 x 4 byte transpose with
+two rows swapped).  ``python3 chip_smoke.py --default-width PARENT`` times
 K1-K5 at the default width in turns in this checkout and in the parent's
 (a directory holding it), each turn a process of its own tree.
 
@@ -3211,6 +3223,252 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
     return rows
 
 
+# ---- this slice: the int4 and narrow-accumulator probes (the port of the
+# TPU tools tools/probe_int4.py and tools/probe_i16acc.py), every run at the
+# tools' defaults
+PROBE_SOURCE = "spatialvae_torch/kernels/csrc/probes.cu"
+# the TPU kernel each run replaces (its pallas_call)
+PROBE_REPLACES = {
+    name: f"tools/probe_int4.py:{line}" for line, names in (
+        (101, ("gemm-int8", "gemm-int4", "gemm-i4w")),
+        (144, ("dw1T-i4(1,1)", "da0T-i4(1,0)", "fwdT-i8(1,0)",
+               "fwdT-i4(1,0)")),
+        (183, ("buildT-vpu",)), (205, ("gemm-i8xi4",)),
+        (242, ("tdw1-pre-i4", "tdw1-pre-i8", "tdw1-tr-i4", "tdw1-tr-i8")),
+        (271, ("tr-only-i8",))) for name in names}
+I16ACC_REPLACES = "tools/probe_i16acc.py:47"
+# the IMMA instructions each s8 GEMM kernel's tiles imply: per 64-byte k
+# slab (two m16n8k32 steps) a warp runs its (32 x 64) tile as 2 x 8 m16n8
+# tiles in the 128 x 128 block, its (32 x 32) tile as 2 x 4 in the 64 x 32
+# block; the k loop is not unrolled.  An s4 kernel must hold some: ptxas
+# compiles every s4 mma.sync site to a call of one routine with two s8
+# IMMAs
+PROBE_IMMA_S8 = {"big": 2 * 8 * 2, "small": 2 * 4 * 2}
+PROBE_TIMED = 5
+# the tools' timing repeats on the smoke's main path (sizes stay the tools'
+# defaults): the s4 arm's products take ~90 ms a call
+PROBE_MAIN_ARGV = ["iters=2"]
+
+
+def sass_imma(path) -> dict:
+    """{kernel: (IMMA count, sorted IMMA opcodes)} of the library's SASS
+    (``cuobjdump -sass``)."""
+    from spatialvae_torch.kernels._build import _nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], check=True,
+                          capture_output=True, text=True, timeout=600).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            found[fn] = []
+        elif fn is not None:
+            found[fn] += [w.rstrip(";") for w in line.split()
+                          if w.startswith("IMMA")]
+    return {f: (len(ops), sorted(set(ops))) for f, ops in found.items()}
+
+
+def graph_ms(torch, call, reps: int) -> float:
+    """Device ms of ``reps`` calls of ``call`` captured in one CUDA graph
+    (the library yardstick: back to back, without the host's launches)."""
+    call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            call()
+    g.replay()
+    torch.cuda.synchronize()
+    ms = statistics.median([cuda_ms(g.replay, torch) for _ in range(3)])
+    del g
+    return ms
+
+
+def _words_differ(got, want) -> tuple:
+    """(elements of out and sums that differ, max |out - plain out|)."""
+    (o, s), (po, ps) = got, want
+    n = int((o != po).sum().item()) + int((s != ps).sum().item())
+    return n, (o.double() - po.double()).abs().max().item()
+
+
+def probe_reading(torch, run, arrays, imma, timed=True) -> dict:
+    """One run's kernel against its plain version on the same arrays:
+    words that differ (out and every block's sum), the kernel's kernel
+    name and IMMA count (GEMM runs), and with ``timed`` its ms, the plain
+    version's ms, its bound and the library call's ms (``steps`` calls from
+    a CUDA graph)."""
+    from spatialvae_torch.kernels import probes
+
+    got = run.fn(arrays)
+    torch.cuda.synchronize()
+    want = [None]
+    plain_ms = cuda_ms(lambda: want.__setitem__(0, run.plain(arrays)), torch)
+    differ, err = _words_differ(got, want[0])
+    r = {"differ": differ, "err": err, "plain_ms": plain_ms,
+         "bound": bound(run.nbytes, (run.int8_ops, PEAK_INT8),
+                        (run.f32_ops, PEAK_FP32))}
+    if differ:
+        raise AssertionError(f"{run.name}: {differ} words differ from the "
+                             f"plain version")
+    if run.gemm is not None:
+        dims, elem, k, store = run.gemm
+        r["kernel"] = probes.gemm_kernel_name(dims, elem, k, store)
+        r["imma"], r["opcodes"] = imma[r["kernel"]]
+        want_imma = PROBE_IMMA_S8["small" if r["kernel"].endswith(
+            "_small") else "big"] if elem == "s8" else None
+        if r["imma"] == 0 or (want_imma and r["imma"] != want_imma):
+            raise AssertionError(f"{r['kernel']}: {r['imma']} IMMA, its "
+                                 f"tiles imply {want_imma or '> 0'}")
+    else:
+        r["kernel"] = ("probe_build_t" if run.name == "buildT-vpu"
+                       else "probe_transpose_sum")
+    if timed:
+        run.fn(arrays)
+        r["ms"] = statistics.median([cuda_ms(lambda: run.fn(arrays), torch)
+                                     for _ in range(PROBE_TIMED)])
+        r["lib_ms"] = (graph_ms(torch, run.library(arrays), run.steps)
+                       if run.library else None)
+    return r
+
+
+def phase_probes(torch) -> list:
+    """``[probe_int4]`` and ``[probe_i16acc]``: each tool's entry point at
+    its default sizes (the main path: launches counted from 0 around it),
+    then every run's kernel against its plain version on the tool's arrays
+    (0 words may differ), with its ms, bound, library ms and each GEMM
+    kernel's IMMA count
+    in the library's SASS; the int16 store once more on full-range int8
+    values, where it must saturate, and the s4 pack kernel.  Returns the
+    JSON records, one per run and one for the pack."""
+    from spatialvae_torch.kernels import _build, probes
+    from spatialvae_torch.tools import probe_i16acc, probe_int4
+
+    imma = sass_imma(_build.library_path())
+    rows = []
+    t0 = time.perf_counter()
+    for tag, tool, argv, arrays, runs, replaces in (
+            ("probe_int4", probe_int4, PROBE_MAIN_ARGV,
+             probe_int4.make_arrays(2048, DEVICE), probe_int4.runs(2048),
+             PROBE_REPLACES),
+            ("probe_i16acc", probe_i16acc, [], probe_i16acc.make_arrays(
+                DEVICE), probe_i16acc.runs(), None)):
+        probes.reset_launches()
+        rc = tool.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(probes.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"{tag}: exit {rc}")
+        for run in runs:
+            r = probe_reading(torch, run, arrays, imma)
+            nl = launches.get(r["kernel"], 0)
+            log(tag, run=run.name, kernel=r["kernel"], launches=nl,
+                words_differ=r["differ"],
+                imma=r.get("imma", "-"),
+                opcodes=",".join(r.get("opcodes", [])) or "-",
+                ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+                bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1],
+                library_ms=("-" if r["lib_ms"] is None
+                            else f"{r['lib_ms']:.4f}"))
+            rep = replaces[run.name.split(":")[0]] if replaces else \
+                I16ACC_REPLACES
+            rows.append((f"probe:{run.name}", PROBE_SOURCE, rep, nl, r["err"],
+                         r["ms"], r["plain_ms"], r["bound"], r["lib_ms"]))
+        if tag == "probe_int4":
+            x = arrays["a4in8"]
+            pk = lambda: probes.pack_s4(x, 1)
+            differ = int((pk() != probes.pack_s4_reference(x, 1)).sum())
+            if differ:
+                raise AssertionError(f"pack_s4: {differ} bytes differ")
+            pk()
+            ms = statistics.median([cuda_ms(pk, torch)
+                                    for _ in range(PROBE_TIMED)])
+            pms = cuda_ms(lambda: probes.pack_s4_reference(x, 1), torch)
+            bd = bound(1.5 * x.numel())
+            nl = launches.get("probe_pack_s4", 0)
+            log(tag, run="pack_s4", launches=nl, words_differ=differ,
+                ms=f"{ms:.4f}", plain_ms=f"{pms:.4f}",
+                bound_ms=f"{bd[0]:.4f}", bound_by=bd[1])
+            rows.append(("probe:pack_s4", PROBE_SOURCE,
+                         PROBE_REPLACES["gemm-int4"], nl, 0.0, ms, pms, bd,
+                         None))
+        else:
+            full = _full_range_i16acc(torch)
+            r = probe_reading(torch, full, probe_i16acc_full_arrays(torch),
+                              imma, timed=False)
+            log(tag, run=full.name, words_differ=r["differ"])
+        del arrays
+        torch.cuda.empty_cache()
+    log("probes", seconds=f"{time.perf_counter() - t0:.1f}")
+    return rows
+
+
+def probe_i16acc_full_arrays(torch) -> dict:
+    """T3's shapes with int8 values over [-127, 127]: sums up to 8.3e6,
+    beyond int16."""
+    from spatialvae_torch.tools import probe_i16acc
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    return {k: torch.randint(-127, 128, shape, generator=gen, device=DEVICE,
+                             dtype=torch.int8)
+            for k, shape in (("aq", (probe_i16acc.PT, probe_i16acc.H)),
+                             ("wq", (probe_i16acc.H, probe_i16acc.H)))}
+
+
+def _full_range_i16acc(torch):
+    from spatialvae_torch.tools import probe_i16acc
+
+    run = next(r for r in probe_i16acc.runs(s4=False)
+               if r.name == "acc=int16")
+    return dataclasses.replace(run, name="acc=int16 full-range")
+
+
+PROBE_FAULTS = (
+    ("sound", ()),
+    ("drops the last k slab", ("-DSVT_PROBE_DROP_LAST_K=1",)),
+    ("int16 store wraps", ("-DSVT_PROBE_I16_WRAP=1",)),
+    ("transpose swaps two rows", ("-DSVT_PROBE_TR_SWAP=1",)))
+
+
+def phase_limits_probes(torch) -> None:
+    """``--limits probes``: every probe run (both tools, both arms, the
+    int16 store on full-range values) through the sound library and three
+    faulty copies, built together: the last k slab of every product
+    dropped, the int16 store wrapping, two rows of every 4 x 4 byte
+    transpose swapped.  Prints each build's words that differ per run; the
+    sound build must read 0 and each copy must be refused by some run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spatialvae_torch.kernels import _build, probes
+    from spatialvae_torch.tools import probe_i16acc, probe_int4
+
+    with ThreadPoolExecutor(len(PROBE_FAULTS)) as ex:
+        list(ex.map(_build.build, [d for _, d in PROBE_FAULTS]))
+    cases = [(r, "t2") for r in probe_int4.runs(2048)] + [
+        (r, "t3") for r in probe_i16acc.runs()] + [
+        (_full_range_i16acc(torch), "full")]
+    arrays = {"t2": probe_int4.make_arrays(2048, DEVICE),
+              "t3": probe_i16acc.make_arrays(DEVICE),
+              "full": probe_i16acc_full_arrays(torch)}
+    want = {r.name: r.plain(arrays[a]) for r, a in cases}
+    for label, defines in PROBE_FAULTS:
+        lib = _build.load_library(defines)
+        probes._lib = (lambda lib=lib: lib)
+        readings = {}
+        for r, a in cases:
+            got = r.fn(arrays[a])
+            torch.cuda.synchronize()
+            readings[r.name] = _words_differ(got, want[r.name])[0]
+        refused = [n for n, v in readings.items() if v]
+        log("limits_probes", build=label, refused=len(refused),
+            of=len(readings), **{n: v for n, v in readings.items()})
+        if label == "sound" and refused:
+            raise AssertionError(f"the sound build differs: {readings}")
+        if label != "sound" and not refused:
+            raise AssertionError(f"the copy that {label} passes every run")
+    probes._lib = (lambda: _build.load_library())
+
+
 # K1-K5 at the default width, timed in turns in two checkouts (this one
 # and the parent's), each through its own build: (name, one call)
 AB_TURNS = ("parent", "this", "this", "parent", "parent", "this")
@@ -3332,6 +3590,9 @@ def main() -> int:
     if sys.argv[1:] == ["--limits", "wide"]:
         phase_limits_wide(torch)
         return 0
+    if sys.argv[1:] == ["--limits", "probes"]:
+        phase_limits_probes(torch)
+        return 0
     res = phase_kernels(torch)
     bwd = phase_backward(torch)
     res["int8"] = phase_int8_kernels(torch)
@@ -3343,6 +3604,7 @@ def main() -> int:
     res["adam_emit"] = phase_adam_emit_kernels(torch)
     res["wide"] = phase_kernel_wide(torch)
     res["levers"] = phase_loss_levers(torch)
+    res["probes"] = phase_probes(torch)
     log_default_width(res, bwd)
     with tempfile.TemporaryDirectory() as tmpdir:
         launches = phase_slice(torch, tmpdir)
@@ -3360,6 +3622,7 @@ def main() -> int:
                        fam_counts, knobs)
     rows += wide_rows(res["wide"], tw, wide_launches, res["levers"],
                       knobs["train_int8_levers"])
+    rows += res["probes"]
     for r in rows:
         if r[3] < 1:
             raise AssertionError(f"{r[0]} was not launched on its path")

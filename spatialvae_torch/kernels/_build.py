@@ -56,6 +56,11 @@ _SIGNATURES = {
                                                     _P], _I),
     "svt_philox4x32_10": ([_P, _P, _I, ctypes.c_uint, ctypes.c_uint, _P],
                           _I),
+    "svt_probe_gemm": ([_P] * 5 + [_I] * 10 + [_P], _I),
+    "svt_probe_gemm_name": ([_I] * 4, ctypes.c_char_p),
+    "svt_probe_pack_s4": ([_P, _P] + [_I] * 3 + [_P], _I),
+    "svt_probe_build_t": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    "svt_probe_transpose_sum": ([_P] * 3 + [_I] * 4 + [_P], _I),
 }
 
 
@@ -103,8 +108,8 @@ def _run(procs) -> None:
 def build(defines: tuple = ()) -> Path:
     """Compile the sources unless the library for their hash exists.
     ``defines`` are extra ``-D`` flags: a copy with a precision step
-    removed, for placing the kernels' error limits (``csrc/decoder_tile.cuh``
-    and ``csrc/int8_tile.cuh`` list them)."""
+    removed, for placing the kernels' error limits (``csrc/decoder_tile.cuh``,
+    ``csrc/int8_tile.cuh`` and ``csrc/probes.cu`` list them)."""
     out = library_path(defines)
     if out.exists():
         return out

@@ -77,8 +77,12 @@
 // rounding draws Philox4x32-10 words keyed by b1[0]'s bits (int8_tile.cuh):
 // the forward site's words in both passes, so the gradient pass rebuilds
 // the forward's aq exactly.
-// The [-7, 7] values ride int8 mma.sync m16n8k32 (Hopper has no s4 MMA);
-// wgmma, TMA and a fused dW are later work.  Above H = 512 the `WIDE`
+// The [-7, 7] values ride int8 mma.sync m16n8k32.  ptxas takes s4
+// mma.sync (m16n8k64) for sm_90a, but on an H100 it compiles each one to a
+// call of a routine that unpacks the nibbles and runs two s8 IMMAs, 15x
+// slower than the s8 instruction on the same values
+// (spatialvae_torch/tools/probe_int4.py, the ":s4" runs); wgmma, TMA and a
+// fused dW are later work.  Above H = 512 the `WIDE`
 // instantiations keep the block's int8 tiles in a workspace in global
 // memory and run both passes in 512-column chunks (int8_tile.cuh): the
 // groups, the blocks and so the numbers stay the same.

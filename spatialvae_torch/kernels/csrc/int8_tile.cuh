@@ -17,7 +17,8 @@
 // of the ring carries only the current chunk's 512 rows of W^T, so the ring
 // (122,880 B) and the register tile keep their size at every width, and
 // the quantisation groups do not change.  Both the [-7, 7] values of K3 and the
-// [-127, 127] values of K4/K5 ride int8: Hopper's tensor cores take no s4.
+// [-127, 127] values of K4/K5 ride int8: Hopper's tensor cores run no s4
+// instruction (ptxas emulates s4 mma.sync with s8 IMMAs; fused_loss_int8.cuh).
 // Row strides are padded so that every fragment load of a warp hits 32
 // banks.
 //

@@ -7,7 +7,10 @@ and its numerics modes (stochastic rounding with the device Philox against
 the plain one, the other gradient modes, scales and epilogue), the
 feature-major kernel's modes (K8), and int8 training steps of the galaxy,
 particles, fit-noise and mnist models; Adam (K6, K7 and the
-emission helpers), the int8 encoder's GEMM, and steps of the int8 stack.
+emission helpers), the int8 encoder's GEMM, and steps of the int8 stack;
+the probe kernels of the port's measurement tools (every GEMM layout, tile,
+arm and accumulator store, the feature-major first layer, the transpose,
+the s4 pack).
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode): it is
 marked ``cuda`` and skips without one.  The file imports no JAX, so it runs
@@ -900,3 +903,73 @@ def test_loss_kernel_phase_cut(cut, cuda_device):
     assert l8.LAUNCHES["grad"] == (cut >= 4)
     assert l8.LAUNCHES["dw"] == (cut >= 6)
     assert not got[0][:, :3].any() if cut < 8 else got[0][:, :3].any()
+
+
+# the probe kernels (kernels/probes.py): (dims, M, N, K) of each layout at
+# both block tiles, ragged against every tile and k slab
+PROBE_GEMMS = [
+    (((1,), (0,)), 200, 70, 500), (((1,), (1,)), 130, 40, 900),
+    (((0,), (0,)), 100, 96, 500), (((0,), (0,)), 64, 33, 1300),
+    (((1,), (0,)), 500, 300, 2048), (((1,), (1,)), 70, 200, 260)]
+
+
+@pytest.mark.parametrize("elem", ["s8", "s4"])
+@pytest.mark.parametrize("dims,m,n,k", PROBE_GEMMS)
+def test_probe_gemm_matches_plain_version(dims, m, n, k, elem, cuda_device):
+    """Every layout, tile and arm of the probe GEMM: the output rows and
+    every block's sum over its steps equal the plain version's, on full-range
+    int8 values (s8) and on values the 4-bit cast wraps (s4)."""
+    from spatialvae_torch.kernels import probes
+
+    g = torch.Generator(cuda_device).manual_seed(m + n + k)
+    lim = 128 if elem == "s8" else 9
+    code = probes.DIMS[dims]
+    a = torch.randint(-lim + 1, lim, (k, m) if code == 2 else (m, k),
+                      generator=g, device=cuda_device, dtype=torch.int8)
+    b = torch.randint(-lim + 1, lim, (n, k) if code == 1 else (k, n),
+                      generator=g, device=cuda_device, dtype=torch.int8)
+    for steps, rows in ((1, m), (37, 8)):
+        got = probes.gemm(a, b, dims, steps=steps, out_rows=rows, elem=elem)
+        want = probes.gemm_reference(a, b, dims, steps=steps, out_rows=rows,
+                                     elem=elem)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("store", ["int32", "int16", "bfloat16", "float32"])
+def test_probe_gemm_stores_match_plain_version(store, cuda_device):
+    """The accumulator stores on values in [-7, 7] and on full-range int8
+    values (int16 saturates there, bf16 rounds)."""
+    from spatialvae_torch.kernels import probes
+
+    g = torch.Generator(cuda_device).manual_seed(5)
+    for lim, elem in ((8, "s8"), (8, "s4"), (128, "s8")):
+        a = torch.randint(-lim + 1, lim, (300, 512), generator=g,
+                          device=cuda_device, dtype=torch.int8)
+        w = torch.randint(-lim + 1, lim, (512, 200), generator=g,
+                          device=cuda_device, dtype=torch.int8)
+        kw = dict(steps=5, out_rows=300, elem=elem, store=store)
+        got = probes.gemm(a, w, ((1,), (0,)), **kw)
+        want = probes.gemm_reference(a, w, ((1,), (0,)), **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_probe_build_t_transpose_sum_and_pack(cuda_device):
+    """probe_build_t, probe_transpose_sum and probe_pack_s4 equal to their
+    plain versions."""
+    from spatialvae_torch.kernels import probes
+
+    g = torch.Generator(cuda_device).manual_seed(6)
+    xT = torch.randn((4, 1024), generator=g, device=cuda_device)
+    foldT = torch.randn((3, 500, 4), generator=g, device=cuda_device)
+    got, want = probes.build_t(xT, foldT, 256), probes.build_t_reference(
+        xT, foldT, 256)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    a = torch.randint(-127, 128, (2048, 500), generator=g,
+                      device=cuda_device, dtype=torch.int8)
+    for steps in (1, 40):
+        got = probes.transpose_sum(a, steps)
+        want = probes.transpose_sum_reference(a, steps)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for kdim, x in ((1, a), (0, a)):
+        assert torch.equal(probes.pack_s4(x, kdim),
+                           probes.pack_s4_reference(x, kdim))
