@@ -6,6 +6,7 @@
     python3 chip_smoke.py --limits numerics   # those of K3 (e)-(g), K8
     python3 chip_smoke.py --limits wide       # those of the wide path
     python3 chip_smoke.py --limits probes     # those of the probe kernels
+    python3 chip_smoke.py --limits kernel_bench   # those of T1's kernels
     python3 chip_smoke.py --default-width PARENT_DIR   # K1-K5 A/B
 
 Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
@@ -86,7 +87,17 @@ paths:
   ``python -m spatialvae_torch.tools.<tool>``'s ``main`` (the launches),
   then every run against its plain version (0 words may differ), with its
   bound, the library call's time and each GEMM kernel's IMMA count in the
-  library's SASS.
+  library's SASS;
+- the port's int8 kernel microbenchmark (``[kernel_bench]``: the TPU tool
+  ``tools/kernel_bench.py``'s seventeen runs at its defaults, B=2,048,
+  HW=4,096, H=500, pt=2,048, through
+  ``python -m spatialvae_torch.tools.kernel_bench``'s ``main``: the GEMM
+  floors, the a0 chain alone and beside a GEMM, the forwards with and
+  without the a1 output, the loss and backward runs), then every run
+  against its plain version at 32 images, the grid in several step
+  groups (integer outputs and per-block sums in every word, float ones
+  within limits), its ms at the defaults, bound and library ms, and the
+  backward and loss runs' passes from one traced call each.
 
 Each phase prints its lines; the last three lines are the per-kernel JSON
 record (launches on the main path, times, plain-version time, bound,
@@ -99,9 +110,12 @@ pre-round q, the Pade lever on the exact tanh, A1Q at a per-block scale);
 ``--limits wide`` those of the wide path (its ragged last chunk skipped,
 one TF32 pass); ``--limits probes`` those of the probe kernels (the
 last k slab dropped, the int16 store wrapping, a 4 x 4 byte transpose with
-two rows swapped).  ``python3 chip_smoke.py --default-width PARENT`` times
-K1-K5 at the default width in turns in this checkout and in the parent's
-(a directory holding it), each turn a process of its own tree.
+two rows swapped); ``--limits kernel_bench`` those of T1's kernels (the
+a1 scale without /127, fused-plain's scale per 64-pixel block,
+bwd-fixscale's dh1 without (1 - a1^2)).  ``python3 chip_smoke.py
+--default-width PARENT`` times K1-K5 at the default width in turns in this
+checkout and in the parent's (a directory holding it), each turn a process
+of its own tree.
 
 Needs a CUDA device and ``nvcc``; imports no JAX.  Exits non-zero, without
 the final line, when there is no CUDA device or any phase fails.
@@ -3469,6 +3483,347 @@ def phase_limits_probes(torch) -> None:
     probes._lib = (lambda: _build.load_library())
 
 
+# ---- this slice: the int8 kernel microbenchmark (the port of the TPU tool
+# tools/kernel_bench.py), its seventeen runs at the tool's defaults
+KB_SOURCES = {
+    "gemm1": PROBE_SOURCE,
+    "gemm2": "spatialvae_torch/kernels/csrc/kernel_bench_gemm.cu",
+    "gemm3": "spatialvae_torch/kernels/csrc/kernel_bench_gemm.cu",
+    "fused-plain": "spatialvae_torch/kernels/csrc/kernel_bench_bwd.cu",
+    "bwd-fixscale": "spatialvae_torch/kernels/csrc/kernel_bench_bwd.cu",
+    "fwd-nores": INT8_SOURCE,
+}
+KB_CHAIN_SOURCE = "spatialvae_torch/kernels/csrc/kernel_bench.cu"
+# T1's rows of the kernels line: (row, run, the TPU kernel's pallas_call,
+# the LAUNCHES entry (module, key) counted on the main path)
+KB_ROWS = [
+    ("T1.1", "gemm1", 141, ("probes", "probe_gemm_s8_d10_big")),
+    ("T1.2", "gemm2", 166, ("kb", "gemm_multi:gemm2")),
+    ("T1.3", "gemm1+vpu", 197, ("kb", "chain:dep")),
+    ("T1.4", "vpu-only", 227, ("kb", "chain:rows")),
+    ("T1.5", "gemm1+ivpu", 260, ("kb", "chain:ind_rows")),
+    ("T1.6", "gemm1+ivpu2", 300, ("kb", "chain:ind_sums")),
+    ("T1.7", "vpu-full", 335, ("kb", "chain:sums")),
+    ("T1.8", "fwd-nores", 371, ("d8", "fwd")),
+    ("T1.9", "fwd-pipe2", 445, ("kb", "fwd_pipe2")),
+    ("T1.9", "fwd-pipe4", 445, ("kb", "fwd_pipe4")),
+    ("T1.10", "gemm3", 510, ("kb", "gemm_multi:gemm3")),
+    ("T1.11", "fused-plain", 619, ("kb", "plain_grad")),
+    ("T1.12", "bwd-fixscale", 766, ("kb", "fix_grad")),
+]
+# the four runs that reach the package's kernels (K4, K3, K8, K5): held
+# against their plain versions here, their rows are K3's, K4's, K5's, K8's
+KB_PACKAGE_RUNS = ("fwd", "fused-loss", "fused-t", "bwd")
+# images of the kernel-vs-plain comparisons (the same HW, H and pt as the
+# tool's defaults; the plain versions cannot hold B=2,048's (B, HW, H)
+# intermediates): even, as K3 and K8 take image pairs (odd counts are in
+# tests/test_torch_port_cuda.py), and 64 steps, so the chain, fwd-pipe and
+# GEMM kernels split the grid into 4 step groups (256, 256 and 4-16 at the
+# defaults) and each group's sums and rows are held
+KB_B = 32
+# the runs whose kernels take step groups; each must run in more than one
+KB_GROUPED = ("gemm1", "gemm2", "gemm1+vpu", "vpu-only", "gemm1+ivpu",
+              "gemm1+ivpu2", "vpu-full", "fwd-pipe2", "fwd-pipe4", "gemm3")
+# runs traced once at the defaults: each kernel's device ms (the backward's
+# and the loss kernel's passes apart)
+KB_PROFILED = ("fused-plain", "fused-loss", "bwd", "bwd-fixscale")
+KB_PASSES = {"scale": "int8_bwd_scale", "grad": "int8_bwd_grad",
+             "loss_fwd": "loss_fwd_kernel", "loss_grad": "loss_grad_kernel",
+             "fwd": "int8_fwd_kernel", "dw": "grouped_dw_kernel",
+             "sum_rows": "sum_rows_kernel"}
+KB_PT = 2048            # the tool's default pixels per step
+KB_TIMED = 5
+KB_MAIN_ARGV = ["iters=2"]
+# kernel vs plain limits of the float outputs (the integer ones, and the
+# per-block sums of integers, must agree in every word): gemm1+vpu's a1
+# rows by absolute error (max, mean) and its per-block f64 sums of a1 by
+# error relative to |plain|; the forwards' y and a1 as K4's (INT8_Y_TOL,
+# INT8_A1_TOL); the backward and loss runs as K3's and K5's (INT8_TOL).
+# `--limits kernel_bench` reads them for the sound build and for copies
+# with the a1 scale missing its /127, fused-plain's scale taken per
+# 64-pixel block, bwd-fixscale's dh1 without its (1 - a1^2) factor
+KB_A1_ROWS_TOL = (2e-6, 2e-7)
+KB_FSUM_TOL = 1e-6
+KB_CHECKS = {
+    "gemm1+vpu": ((("abs", KB_A1_ROWS_TOL),), ("int", ("f64", KB_FSUM_TOL))),
+    "fwd-nores": ((("abs", INT8_Y_TOL),), ()),
+    "fwd": ((("abs", INT8_Y_TOL),), ()),
+    "fwd-pipe2": ((("abs", INT8_Y_TOL), ("abs", INT8_A1_TOL)), ()),
+    "fwd-pipe4": ((("abs", INT8_Y_TOL), ("abs", INT8_A1_TOL)), ()),
+}
+# the runs whose outputs are sums over the grid (backward and loss): every
+# output by its error relative to max|plain|
+KB_SUM_RUNS = ("fused-plain", "bwd-fixscale", "fused-loss", "fused-t", "bwd")
+KB_FAULTS = (
+    ("sound", ()),
+    ("a1 scale without /127", ("-DSVT_KB_A1_NO_127=1",)),
+    ("fused-plain scale per 64-pixel block", ("-DSVT_INT8_BLOCK_SCALE=1",)),
+    ("bwd-fixscale without (1 - a1^2)", ("-DSVT_KB_FIX_NO_TANH_PRIME=1",)),
+)
+
+
+def kb_check(torch, name, got, want) -> dict:
+    """One T1 run's outputs and per-block sums, kernel against plain: the
+    integer ones by the words that differ, the float ones by their errors
+    (KB_CHECKS; the backward and loss runs' five or two outputs relative to
+    max|plain|).  Returns {"differ", "err" (the largest abs error of a
+    float output, 0 for integers), "fields"}; raises past a limit."""
+    outs, sums = got
+    pouts, psums = want
+    checks = KB_CHECKS.get(name)
+    if checks is None:
+        kind = ("rel", INT8_TOL) if name in KB_SUM_RUNS else "int"
+        checks = ((kind,) * len(outs), ("int",) * len(sums))
+    r = {"differ": 0, "err": 0.0, "fields": {}}
+    for what, kinds, gs, ws in (("out", checks[0], outs, pouts),
+                                ("sum", checks[1], sums, psums)):
+        for i, (kind, g, w) in enumerate(zip(kinds, gs, ws)):
+            key = f"{what}{i}"
+            if kind == "int":
+                n = int((g != w).sum().item())
+                r["differ"] += n
+                r["fields"][key] = n
+                continue
+            kind, tol = kind
+            d = (g.double() - w.double()).abs()
+            if kind == "f64":
+                e = (d / w.double().abs().clamp(min=1.0)).max().item()
+                r["fields"][key] = f"{e:.3e}"
+                if e > tol:
+                    raise AssertionError(f"{name} {key}: {e} > {tol}")
+                continue
+            r["err"] = max(r["err"], d.max().item())
+            if kind == "abs":
+                errs = (d.max().item(), d.mean().item())
+                r["fields"][key] = f"{errs[0]:.3e}/{errs[1]:.3e}"
+                _check_abs(f"{name} {key}", errs, tol)
+            else:
+                r["fields"][key] = _check_rel(f"{name} {key}",
+                                              rel_errors(g, w), tol)
+    if r["differ"]:
+        raise AssertionError(f"{name}: {r['differ']} words differ from the "
+                             f"plain version: {r['fields']}")
+    return r
+
+
+def _kb_modules():
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels import fused_loss_int8_t as lt
+    from spatialvae_torch.kernels import kernel_bench as kb
+    from spatialvae_torch.kernels import probes
+
+    return {"probes": probes, "kb": kb, "d8": d8, "l8": l8, "lt": lt}
+
+
+def _kb_reset() -> None:
+    for m in _kb_modules().values():
+        m.reset_launches()
+
+
+def _kb_launches() -> dict:
+    return {(name, k): v for name, m in _kb_modules().items()
+            for k, v in m.LAUNCHES.items()}
+
+
+def kb_readings(torch, b: int, timed: bool) -> dict:
+    """Every T1 run, kernel against plain version, on the tool's arrays at
+    ``b`` images (the tool's HW, H and pt), each run's prepared arrays
+    dropped after it: kb_check's readings, with ``timed`` the plain
+    version's ms."""
+    from spatialvae_torch.tools import kernel_bench as tool
+
+    from spatialvae_torch.kernels import kernel_bench as kb
+
+    arrays = tool.make_arrays(b, tool.HW, KB_PT, DEVICE)
+    steps = kb.grid_steps(b, tool.HW, KB_PT)
+    out = {}
+    for run in tool.runs(b, tool.HW, KB_PT):
+        extra = run.prepare(arrays) if run.prepare else {}
+        arrays.update(extra)
+        got = run.fn(arrays)
+        groups = 0
+        if run.name in KB_GROUPED:
+            groups = (got[1][0].shape[0] if got[1]
+                      else kb.step_groups(steps, 1))
+        if run.name in KB_GROUPED and groups < 2:
+            raise AssertionError(f"{run.name}: {groups} step group at "
+                                 f"b={b}")
+        run.plain(arrays)                  # warm-up: library handles
+        torch.cuda.synchronize()
+        want = [None]
+        pms = cuda_ms(lambda: want.__setitem__(0, run.plain(arrays)), torch)
+        r = kb_check(torch, run.name, got, want[0])
+        r["groups"] = groups
+        if timed:
+            r["plain_ms"] = pms
+        again = run.fn(arrays)
+        r["rerun_equal"] = all(torch.equal(x, y) for x, y in zip(
+            list(got[0]) + list(got[1]), list(again[0]) + list(again[1])))
+        out[run.name] = r
+        for k in extra:
+            del arrays[k]
+        del got, want, again
+        torch.cuda.empty_cache()
+    return out
+
+
+def kb_profile(torch, run, arrays, tries: int = 3) -> None:
+    """One call of ``run`` at the tool's defaults under torch.profiler: the
+    device ms and kernel count of each of KB_PASSES, and the busy ms.  A
+    trace with fewer kernels than kernel launches (the profiler has dropped
+    a session's first kernels) is taken again, up to ``tries`` times; the
+    line says whether the last one was complete."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmpdir:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run.fn(arrays)
+                torch.cuda.synchronize()
+            events = _trace_events(prof, tmpdir, "kernel_bench.json")
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        launched = sum(1 for e in events
+                       if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and e.get("name", "").startswith(
+                           ("cudaLaunchKernel", "cuLaunchKernel")))
+        if kernels and len(kernels) >= launched:
+            break
+    if not kernels:
+        raise AssertionError("the profiler saw no kernel")
+    fields = {}
+    for label, key in KB_PASSES.items():
+        ks = [e["dur"] for e in kernels if key in e["name"]]
+        if ks:
+            fields[f"{label}_ms"] = f"{sum(ks) / 1e3:.3f}"
+            fields[f"{label}_n"] = len(ks)
+    log("kernel_bench_profile", run=run.name,
+        busy_ms=f"{_busy_us(kernels) / 1e3:.3f}", kernels=len(kernels),
+        launches=launched, complete=len(kernels) >= launched, tries=attempt,
+        **fields)
+
+
+def phase_kernel_bench(torch) -> list:
+    """``[kernel_bench]``: the tool's entry point at its defaults (B=2,048,
+    HW=4,096, H=500, pt=2,048; the main path, launches counted from 0
+    around it), every run against its plain version at KB_B images (0 words
+    may differ in the integer outputs and sums; the float ones within
+    KB_CHECKS' limits; two calls bit for bit), then every run's kernel ms at
+    the defaults (median of KB_TIMED), bound and, for the GEMM runs, the
+    library's ms (``torch._int_mm`` per step from a CUDA graph); the
+    KB_PROFILED runs' passes from one traced call each.  The T1 rows'
+    plain ms are the plain versions' at KB_B images (the main path's
+    B=2,048 does not fit them).  Returns the kernels line's T1 rows."""
+    from spatialvae_torch.tools import kernel_bench as tool
+
+    t0 = time.perf_counter()
+    _kb_reset()
+    rc = tool.main(KB_MAIN_ARGV)
+    torch.cuda.synchronize()
+    launches = _kb_launches()
+    if rc != 0:
+        raise AssertionError(f"kernel_bench: exit {rc}")
+    t_main = time.perf_counter() - t0
+    readings = kb_readings(torch, KB_B, timed=True)
+    arrays = tool.make_arrays(tool.B, tool.HW, KB_PT, DEVICE)
+    rows, by_run = [], {}
+    for run in tool.runs(tool.B, tool.HW, KB_PT):
+        extra = run.prepare(arrays) if run.prepare else {}
+        arrays.update(extra)
+        run.fn(arrays)
+        ms = statistics.median([cuda_ms(lambda: run.fn(arrays), torch)
+                                for _ in range(KB_TIMED)])
+        lib = (graph_ms(torch, run.library(arrays), run.steps)
+               if run.library else None)
+        bd = bound(run.nbytes, (run.int8_ops, PEAK_INT8),
+                   (run.f32_ops, PEAK_FP32))
+        r = readings[run.name]
+        if not r["rerun_equal"]:
+            raise AssertionError(f"{run.name}: two calls differ")
+        by_run[run.name] = (ms, bd, lib, r)
+        if run.name in KB_PROFILED:
+            kb_profile(torch, run, arrays)
+        log("kernel_bench", run=run.name, ms=f"{ms:.4f}",
+            plain_ms=f"{r['plain_ms']:.4f}", plain_b=KB_B,
+            plain_groups=r["groups"],
+            bound_ms=f"{bd[0]:.4f}", bound_by=bd[1],
+            library_ms="-" if lib is None else f"{lib:.4f}",
+            words_differ=r["differ"], max_abs_err=f"{r['err']:.3e}",
+            **r["fields"])
+        for k in extra:
+            del arrays[k]
+        torch.cuda.empty_cache()
+    del arrays
+    torch.cuda.empty_cache()
+    for row, name, line, key in KB_ROWS:
+        ms, bd, lib, r = by_run[name]
+        nl = launches.get(key, 0)
+        log("kernel_bench_row", row=row, run=name, launches=nl)
+        src = KB_SOURCES.get(name, KB_CHAIN_SOURCE)
+        rows.append((f"kernel_bench:{row} {name}", src,
+                     f"tools/kernel_bench.py:{line}", nl, r["err"], ms,
+                     r["plain_ms"], bd, lib))
+    log("kernel_bench", package_runs=",".join(KB_PACKAGE_RUNS),
+        k4_launches=launches.get(("d8", "fwd"), 0),
+        k5_launches=launches.get(("d8", "bwd_grad"), 0),
+        k3_launches=launches.get(("l8", "grad"), 0),
+        k8_launches=launches.get(("lt", "grad"), 0),
+        main_seconds=f"{t_main:.1f}",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    for key in (("d8", "bwd_grad"), ("l8", "grad"), ("lt", "grad")):
+        if launches.get(key, 0) < 1:
+            raise AssertionError(f"kernel_bench: {key} not launched")
+    return rows
+
+
+def phase_limits_kernel_bench(torch) -> None:
+    """``--limits kernel_bench``: every T1 run at KB_B images through the
+    sound library and three faulty copies, built together: the a1 scale
+    without its /127 (gemm1+vpu, fwd-pipe), fused-plain's scale per 64-pixel
+    block instead of per step, bwd-fixscale's dh1 without (1 - a1^2).
+    Prints each build's readings per run (errors past a limit printed, not
+    raised); the sound build must pass every run and each copy must fail
+    one."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spatialvae_torch.kernels import _build
+    from spatialvae_torch.kernels import kernel_bench as kb
+
+    with ThreadPoolExecutor(len(KB_FAULTS)) as ex:
+        list(ex.map(_build.build, [d for _, d in KB_FAULTS]))
+    from spatialvae_torch.tools import kernel_bench as tool
+
+    arrays = tool.make_arrays(KB_B, tool.HW, KB_PT, DEVICE)
+    runs = tool.runs(KB_B, tool.HW, KB_PT)
+    for run in runs:
+        if run.prepare:
+            arrays.update(run.prepare(arrays))
+    want = {r.name: r.plain(arrays) for r in runs}
+    for label, defines in KB_FAULTS:
+        lib = _build.load_library(defines)
+        kb._lib = (lambda lib=lib: lib)
+        failed = []
+        for run in runs:
+            got = run.fn(arrays)
+            torch.cuda.synchronize()
+            try:
+                r = kb_check(torch, run.name, got, want[run.name])
+                fields = r["fields"]
+            except AssertionError as e:
+                failed.append(run.name)
+                fields = {"refused": str(e)[:300].replace(" ", "_")}
+            log("limits_kernel_bench", build=label, run=run.name, **fields)
+        log("limits_kernel_bench", build=label, refused=len(failed),
+            runs=",".join(failed) or "-")
+        if label == "sound" and failed:
+            raise AssertionError(f"the sound build fails {failed}")
+        if label != "sound" and not failed:
+            raise AssertionError(f"the copy with {label} passes every run")
+    kb._lib = (lambda: _build.load_library())
+
+
 # K1-K5 at the default width, timed in turns in two checkouts (this one
 # and the parent's), each through its own build: (name, one call)
 AB_TURNS = ("parent", "this", "this", "parent", "parent", "this")
@@ -3593,6 +3948,9 @@ def main() -> int:
     if sys.argv[1:] == ["--limits", "probes"]:
         phase_limits_probes(torch)
         return 0
+    if sys.argv[1:] == ["--limits", "kernel_bench"]:
+        phase_limits_kernel_bench(torch)
+        return 0
     res = phase_kernels(torch)
     bwd = phase_backward(torch)
     res["int8"] = phase_int8_kernels(torch)
@@ -3605,6 +3963,7 @@ def main() -> int:
     res["wide"] = phase_kernel_wide(torch)
     res["levers"] = phase_loss_levers(torch)
     res["probes"] = phase_probes(torch)
+    res["kernel_bench"] = phase_kernel_bench(torch)
     log_default_width(res, bwd)
     with tempfile.TemporaryDirectory() as tmpdir:
         launches = phase_slice(torch, tmpdir)
@@ -3623,6 +3982,7 @@ def main() -> int:
     rows += wide_rows(res["wide"], tw, wide_launches, res["levers"],
                       knobs["train_int8_levers"])
     rows += res["probes"]
+    rows += res["kernel_bench"]
     for r in rows:
         if r[3] < 1:
             raise AssertionError(f"{r[0]} was not launched on its path")

@@ -61,6 +61,13 @@ _SIGNATURES = {
     "svt_probe_pack_s4": ([_P, _P] + [_I] * 3 + [_P], _I),
     "svt_probe_build_t": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "svt_probe_transpose_sum": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    "svt_kb_chain": ([_I] + [_P] * 12 + [_I] * 5 + [_P], _I),
+    "svt_kb_fwd_pipe": ([_I] + [_P] * 10 + [_I] * 6 + [_P], _I),
+    "svt_kb_gemm_multi": ([_I] + [_P] * 8 + [_I, _P] + [_I] * 2 + [_P], _I),
+    "svt_kb_rows_sum": ([_P] * 2 + [_I] * 3 + [_P], _I),
+    "svt_kb_plain_scale": ([_P] * 10 + [_I] * 4 + [_P], _I),
+    "svt_kb_plain_grad": ([_P] * 16 + [_I] * 6 + [_P], _I),
+    "svt_kb_fix_grad": ([_P] * 13 + [_I] * 6 + [_P], _I),
 }
 
 

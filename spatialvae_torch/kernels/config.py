@@ -44,6 +44,7 @@ port runs K6 on the card whatever it says, and reads it nowhere.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass, fields
 
@@ -183,6 +184,23 @@ def numerics() -> Numerics:
 def check_knobs() -> None:
     """``numerics()`` for its checks alone (``Trainer`` at construction)."""
     numerics()
+
+
+@contextlib.contextmanager
+def knobs_allowed():
+    """Within the block off-default numerics knobs are allowed (the JAX
+    package's ``allow_knobs``, which sets it for the whole process): for
+    measurement entry points while they run; the caller's setting is
+    restored after."""
+    saved = os.environ.get("SPATIALVAE_ALLOW_KNOBS")
+    os.environ["SPATIALVAE_ALLOW_KNOBS"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["SPATIALVAE_ALLOW_KNOBS"]
+        else:
+            os.environ["SPATIALVAE_ALLOW_KNOBS"] = saved
 
 
 def adam_emit() -> str:

@@ -48,82 +48,15 @@
 // and keeping dh1q on chip are later work.  Above H = 512 the `WIDE`
 // instantiations keep the block's two int8 tiles in a workspace in global
 // memory and loop every GEMM and epilogue over 512-column chunks
-// (int8_tile.cuh); the groups, and so the numbers, are the same.
+// (int8_tile.cuh); the groups, and so the numbers, are the same.  K5's two
+// passes live in fused_decoder_int8.cuh, which kernel_bench_bwd.cu also
+// compiles in the microbenchmark's modes.
 
-#include "int8_tile.cuh"
+#include "fused_decoder_int8.cuh"
 
 namespace {
 
 using namespace svt8;
-
-// a1 of the block's (PT, 512) columns n0 .. n0+511 in the accumulator
-// layout, f32: with RECOMPUTE tanh((tile @ W1q) * (sw/127) + b1) exactly as
-// the forward built it (sm.tile must hold a0q), else the bf16 residual
-// a1[(b*HW + pix)*H + n].  Zero for n >= H and pixels past HW.
-template <bool RECOMPUTE, bool WIDE>
-__device__ __forceinline__ void int8_a1(
-    const Smem& sm, const int8_t* __restrict__ w1qT, float sw,
-    const float* __restrict__ b1, const __nv_bfloat16* __restrict__ a1_res,
-    int b, int p0, int HW, int H, int n0, float (&a1)[MTILES][NTILES][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  int acc[MTILES][NTILES][4];
-  if (RECOMPUTE)
-    tile_gemm_s8<WIDE>(sm.tile, sm.ring, w1qT, padded_k(H), acc, sm.as, n0);
-  const float scale = __fmul_rn(sw, 1.f / 127.f);
-#pragma unroll
-  for (int nt = 0; nt < NTILES; ++nt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + frag_col(warp, t, nt, c);
-      const bool on = n < H;
-      const float bn = on ? b1[n] : 0.f;
-#pragma unroll
-      for (int mt = 0; mt < MTILES; ++mt) {
-        const int pix = p0 + frag_row(g, mt, c);
-        float v = 0.f;
-        if (on && pix < HW) {
-          if (RECOMPUTE)
-            v = tanhf(__fadd_rn(__fmul_rn(float(acc[mt][nt][c]), scale), bn));
-          else
-            v = __bfloat162float(a1_res[(size_t(b) * HW + pix) * H + n]);
-        }
-        a1[mt][nt][c] = v;
-      }
-    }
-}
-
-// dz2 = g*y*(1-y) of the block's pixels into sm.dz (and cast into sm.dzc),
-// zero past HW; ends with a barrier.
-template <bool BF16>
-__device__ __forceinline__ void stage_dz2(const Smem& sm,
-                                          const float* __restrict__ y,
-                                          const float* __restrict__ gy, int b,
-                                          int p0, int HW, int No) {
-  const int tid = threadIdx.x;
-  if (tid < No * PT) {
-    const int o = tid / PT, pix = p0 + tid % PT;
-    float d = 0.f;
-    if (pix < HW) {
-      const size_t at = (size_t(b) * No + o) * HW + pix;
-      const float s = y[at];
-      d = __fmul_rn(__fmul_rn(gy[at], s), __fsub_rn(1.f, s));
-    }
-    sm.dz[tid] = d;
-    sm.dzc[tid] = operand<BF16>(d);
-  }
-  __syncthreads();
-}
-
-// dh1 = (dzc^T . wht)[p][n] * (1 - a1^2)
-__device__ __forceinline__ float dh1_at(const Smem& sm,
-                                        const float* __restrict__ wht, int H,
-                                        int No, int p, int n, float a1) {
-  float da1 = 0.f;
-  for (int o = 0; o < No; ++o)
-    da1 = fmaf(sm.dzc[o * PT + p], __ldg(wht + size_t(o) * H + n), da1);
-  return __fmul_rn(da1, __fsub_rn(1.f, __fmul_rn(a1, a1)));
-}
 
 // ---- K4: forward, y and optionally the bf16 a1 residual
 template <bool BF16, bool EMIT, bool WIDE>
@@ -171,215 +104,6 @@ int8_fwd_kernel(const float* __restrict__ fold,
     if (pix < HW)
       y[(size_t(b) * No + o) * HW + pix] =
           1.f / (1.f + expf(-__fadd_rn(z, bht[o])));
-  }
-}
-
-// ---- K5 (a): each block's max |dh1|
-template <bool BF16, bool RECOMPUTE, bool WIDE>
-__global__ void __launch_bounds__(NT, 1)
-int8_bwd_scale_kernel(const float* __restrict__ fold,
-                      const float* __restrict__ coords,
-                      const int8_t* __restrict__ w1qT,
-                      const float* __restrict__ sw,
-                      const float* __restrict__ b1,
-                      const float* __restrict__ wht,
-                      const __nv_bfloat16* __restrict__ a1_res,
-                      const float* __restrict__ y,
-                      const float* __restrict__ gy,
-                      float* __restrict__ part_max, int8_t* __restrict__ ws,
-                      int HW, int H, int No, int blocks) {
-  extern __shared__ float4 smem4[];
-  const Smem sm = carve<WIDE>(smem4, ws, padded_k(H));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / blocks;
-  const int p0 = (blockIdx.x % blocks) * PT;
-
-  if (RECOMPUTE)
-    first_layer_q<127, WIDE>(fold, coords, b, p0, HW, H, sm.tile, sm.as);
-  float mx = 0.f;
-  for (int n0 = 0; n0 < chunk_end<WIDE>(H); n0 += MAX_H) {
-    float a1[MTILES][NTILES][4];
-    int8_a1<RECOMPUTE, WIDE>(sm, w1qT, *sw, b1, a1_res, b, p0, HW, H, n0, a1);
-    if (n0 == 0) stage_dz2<BF16>(sm, y, gy, b, p0, HW, No);
-#pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int n = n0 + frag_col(warp, t, nt, c);
-        if (n >= H) continue;
-#pragma unroll
-        for (int mt = 0; mt < MTILES; ++mt) {
-          const int p = frag_row(g, mt, c);
-          if (p0 + p < HW)
-            mx = fmaxf(mx, fabsf(dh1_at(sm, wht, H, No, p, n, a1[mt][nt][c])));
-        }
-      }
-  }
-  const float m = block_max(mx, sm.scratch);
-  if (threadIdx.x == 0) part_max[blockIdx.x] = m;
-}
-
-// ---- K5 (b): quantisation with the group's scale, da0, the per-block
-// partials and the workspaces, for images b0 .. b0+Bc-1 (blockIdx.x
-// counts the chunk's blocks).  part_max, gscale, part_fold and part_w are
-// indexed by the global block / group; aq_ws and q_ws (Bc, Kp, HWp) by the
-// chunk's image.
-template <bool BF16, bool RECOMPUTE, bool WIDE>
-__global__ void __launch_bounds__(NT, 1)
-int8_bwd_grad_kernel(const float* __restrict__ fold,
-                     const float* __restrict__ coords,
-                     const int8_t* __restrict__ w1qT,
-                     const float* __restrict__ sw,
-                     const float* __restrict__ b1,
-                     const float* __restrict__ wht,
-                     const __nv_bfloat16* __restrict__ a1_res,
-                     const float* __restrict__ y,
-                     const float* __restrict__ gy,
-                     const int8_t* __restrict__ w1q,
-                     const float* __restrict__ part_max,
-                     float* __restrict__ gscale, int8_t* __restrict__ aq_ws,
-                     int8_t* __restrict__ q_ws, float* __restrict__ part_fold,
-                     float* __restrict__ part_w, int8_t* __restrict__ ws,
-                     int b0, int HW, int H, int No, int Pt, int blocks) {
-  extern __shared__ float4 smem4[];
-  const Smem sm = carve<WIDE>(smem4, ws, padded_k(H));
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int bl = blockIdx.x / blocks;
-  const int b = b0 + bl;
-  const int blk = blockIdx.x % blocks;
-  const int p0 = blk * PT;
-  const int Kp = padded_k(H);
-  const int HWp = blocks * PT;
-  const size_t gblk = size_t(b) * blocks + blk;
-  const int Mw = H + No * H + No;
-
-  first_layer_q<127, WIDE>(fold, coords, b, p0, HW, H, sm.tile, sm.as);
-  tile_to_feature_major<WIDE>(sm.tile, aq_ws + size_t(bl) * Kp * HWp, p0,
-                              HWp, Kp, sm.as);
-  float sg = 0.f;
-  for (int n0 = 0; n0 < chunk_end<WIDE>(H); n0 += MAX_H) {
-    float a1[MTILES][NTILES][4];
-    int8_a1<RECOMPUTE, WIDE>(sm, w1qT, *sw, b1, a1_res, b, p0, HW, H, n0, a1);
-    if (n0 == 0) {
-      stage_dz2<BF16>(sm, y, gy, b, p0, HW, No);
-      sg = __fadd_rn(
-          __fmul_rn(group_max(part_max, b, p0, blocks, Pt), 1.f / 127.f),
-          1e-30f);
-      if (tid == 0 && p0 % Pt == 0)
-        gscale[size_t(b) * (HW / Pt) + p0 / Pt] = __fmul_rn(sg, 1.f / 127.f);
-    }
-
-    // dh1q into the second tile; db1 partials from the unquantised dh1
-    float col[NTILES][2];
-#pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt) col[nt][0] = col[nt][1] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int n = n0 + frag_col(warp, t, nt, c);
-#pragma unroll
-        for (int mt = 0; mt < MTILES; ++mt) {
-          const int p = frag_row(g, mt, c);
-          float q = 0.f;
-          if (n < H && p0 + p < HW) {
-            const float dh1 = dh1_at(sm, wht, H, No, p, n, a1[mt][nt][c]);
-            col[nt][c & 1] += dh1;
-            q = fminf(fmaxf(qround(__fdiv_rn(dh1, sg)), -127.f), 127.f);
-          }
-          if (n < Kp) sm.q[p * sm.as + n] = static_cast<int8_t>(q);
-        }
-      }
-    float* pw = part_w + gblk * Mw;
-#pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float s = sum_over_g(col[nt][j]);
-        const int n = n0 + frag_col(warp, t, nt, j);
-        if (g == 0 && n < H) pw[n] = s;
-      }
-    // dWh^T partials: sum_p cast(dz2[o][p]) * cast(a1[p][n])
-    for (int o = 0; o < No; ++o) {
-      float s[NTILES][2];
-#pragma unroll
-      for (int nt = 0; nt < NTILES; ++nt) s[nt][0] = s[nt][1] = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NTILES; ++nt)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int mt = 0; mt < MTILES; ++mt)
-            s[nt][c & 1] = fmaf(sm.dzc[o * PT + frag_row(g, mt, c)],
-                                operand<BF16>(a1[mt][nt][c]), s[nt][c & 1]);
-#pragma unroll
-      for (int nt = 0; nt < NTILES; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float v = sum_over_g(s[nt][j]);
-          const int n = n0 + frag_col(warp, t, nt, j);
-          if (g == 0 && n < H) pw[H + o * H + n] = v;
-        }
-    }
-  }
-  if (tid < No) {                        // dbh partials
-    float s = 0.f;
-    for (int p = 0; p < PT; ++p) s += sm.dz[tid * PT + p];
-    part_w[gblk * Mw + H + No * H + tid] = s;
-  }
-  __syncthreads();                       // the dh1q tile is complete
-  tile_to_feature_major<WIDE>(sm.q, q_ws + size_t(bl) * Kp * HWp, p0, HWp,
-                              Kp, sm.as);
-
-  // da0 = dh1q . W1q^T on the tensor cores; dh0 with the exact a0
-  for (int n0 = 0; n0 < chunk_end<WIDE>(H); n0 += MAX_H) {
-    int acc[MTILES][NTILES][4];
-    tile_gemm_s8<WIDE>(sm.q, sm.ring, w1q, Kp, acc, sm.as, n0);
-    const float scale = __fmul_rn(sg, *sw);
-    const float* f = fold + size_t(b) * 4 * H;
-    float s0[NTILES][2], s1[NTILES][2], s2[NTILES][2];
-#pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) s0[nt][j] = s1[nt][j] = s2[nt][j] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = n0 + frag_col(warp, t, nt, c);
-        if (i >= H) continue;
-        const float w0 = f[i], w1 = f[H + i], cb = f[2 * H + i];
-#pragma unroll
-        for (int mt = 0; mt < MTILES; ++mt) {
-          const int pix = p0 + frag_row(g, mt, c);
-          if (pix >= HW) continue;
-          const float x0 = coords[2 * pix], x1 = coords[2 * pix + 1];
-          const float a0 = tanhf(first_h0(x0, x1, w0, w1, cb));
-          const float da0 = __fmul_rn(float(acc[mt][nt][c]), scale);
-          const float dh0 = __fmul_rn(da0, __fsub_rn(1.f, __fmul_rn(a0, a0)));
-          s0[nt][c & 1] += x0 * dh0;
-          s1[nt][c & 1] += x1 * dh0;
-          s2[nt][c & 1] += dh0;
-        }
-      }
-#pragma unroll
-    for (int nt = 0; nt < NTILES; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float r0 = sum_over_g(s0[nt][j]);
-        const float r1 = sum_over_g(s1[nt][j]);
-        const float r2 = sum_over_g(s2[nt][j]);
-        const int i = n0 + frag_col(warp, t, nt, j);
-        float* pf = part_fold + gblk * 3 * H;
-        if (g == 0 && i < H) {
-          pf[i] = r0;
-          pf[H + i] = r1;
-          pf[2 * H + i] = r2;
-        }
-      }
   }
 }
 
@@ -594,7 +318,7 @@ int svt_int8_decoder_bwd_scale(const void* fold, const void* coords,
         static_cast<const float*>(b1), static_cast<const float*>(wht),     \
         static_cast<const __nv_bfloat16*>(a1), static_cast<const float*>(y), \
         static_cast<const float*>(gy), static_cast<float*>(part_max),      \
-        static_cast<int8_t*>(ws), HW, H, No, blocks);                      \
+        static_cast<int8_t*>(ws), HW, H, No, blocks, nullptr);             \
   } while (0)
 #define SVT_SCALE_W(B16, R)                                                \
   do {                                                                     \
@@ -645,7 +369,7 @@ int svt_int8_decoder_bwd_grad(const void* fold, const void* coords,
         static_cast<const float*>(part_max), static_cast<float*>(gscale),  \
         static_cast<int8_t*>(aq_ws), static_cast<int8_t*>(q_ws),           \
         static_cast<float*>(part_fold), static_cast<float*>(part_w),       \
-        static_cast<int8_t*>(ws), b0, HW, H, No, Pt, blocks);              \
+        static_cast<int8_t*>(ws), b0, HW, H, No, Pt, blocks, nullptr);     \
   } while (0)
 #define SVT_GRAD_W(B16, R)                                                 \
   do {                                                                     \

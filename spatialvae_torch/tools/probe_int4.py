@@ -25,10 +25,15 @@ import sys
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from spatialvae_torch.kernels import probes
-from spatialvae_torch.tools.common import Run, backend, parse_argv, time_ms
+from spatialvae_torch.tools.common import (
+    Run,
+    backend,
+    int_mm_call,
+    parse_argv,
+    time_ms,
+)
 
 B, HW, H = 2048, 4096, 500
 USAGE = ("python -m spatialvae_torch.tools.probe_int4 [pt=2048] [iters=30] "
@@ -56,21 +61,6 @@ def make_arrays(pt: int, device, seed: int = 0) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
-def _int_mm_call(x, y, dims):
-    """One ``torch._int_mm`` of the run's product, on operands zero-padded
-    to multiples of 8 and laid out as cuBLASLt takes them (prepared here,
-    outside the timed call)."""
-    code = probes.DIMS[dims]
-    a = x.t() if code == 2 else x
-    bt = y if code == 1 else y.t()              # (N, K)
-    m, k = a.shape
-    n = bt.shape[0]
-    mp, kp, np_ = max(24, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
-    a = F.pad(a, (0, kp - k, 0, mp - m)).contiguous()
-    bt = F.pad(bt, (0, kp - k, 0, np_ - n)).contiguous()
-    return lambda: torch._int_mm(a, bt.t())
-
-
 def gemm_run(name, x, y, dims, elem, pt, shapes) -> Run:
     steps = B * HW // pt
     m, n, k = probes.gemm_shape(shapes[x], shapes[y], dims)
@@ -82,7 +72,7 @@ def gemm_run(name, x, y, dims, elem, pt, shapes) -> Run:
     lib = None
     if elem == "s8":
         def lib(arr):
-            return _int_mm_call(arr[x], arr[y], dims)
+            return int_mm_call(arr[x], arr[y], dims)
     nbytes = (np.prod(shapes[x]) + np.prod(shapes[y]) + 8 * n * 4)
     return Run(name, (x, y), call(probes.gemm), call(probes.gemm_reference),
                steps, float(nbytes), int8_ops=2.0 * m * n * k * steps,

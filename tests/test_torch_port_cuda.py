@@ -10,7 +10,10 @@ particles, fit-noise and mnist models; Adam (K6, K7 and the
 emission helpers), the int8 encoder's GEMM, and steps of the int8 stack;
 the probe kernels of the port's measurement tools (every GEMM layout, tile,
 arm and accumulator store, the feature-major first layer, the transpose,
-the s4 pack).
+the s4 pack); the int8 kernel microbenchmark's kernels (every run of
+``spatialvae_torch/tools/kernel_bench.py`` at H = 40, 500 and 513, odd and
+even batches, grids in one and in several step groups, and its
+multi-product GEMMs at k = 2,048).
 
 Every test here needs a CUDA device (a CUDA kernel has no CPU mode): it is
 marked ``cuda`` and skips without one.  The file imports no JAX, so it runs
@@ -973,3 +976,115 @@ def test_probe_build_t_transpose_sum_and_pack(cuda_device):
     for kdim, x in ((1, a), (0, a)):
         assert torch.equal(probes.pack_s4(x, kdim),
                            probes.pack_s4_reference(x, kdim))
+
+
+# the int8 kernel microbenchmark's kernels (kernels/kernel_bench.py), each
+# against its plain version at H = 40, 500 (one 512-column chunk) and 513
+# (the wide path), with odd and even image counts; chip_smoke.kb_check
+# holds the limits (integer outputs and per-block sums in every word)
+KB_CASES = [(b, h) for h in (40, 500, 513) for b in (3, 2)]
+
+
+def _kb_arrays(b, h, device, hw=1024, pt=256, monkeypatch=None):
+    from spatialvae_torch.tools import kernel_bench as tool
+
+    monkeypatch.setattr(tool, "H", h)
+    return tool, tool.make_arrays(b, hw, pt, device, seed=b + h), hw, pt
+
+
+@pytest.mark.parametrize("b,h", KB_CASES)
+def test_kernel_bench_runs_match_plain_versions(b, h, cuda_device,
+                                                monkeypatch):
+    """Every run of the port's tool (the T1 kernels and the K3, K4, K5, K8
+    runs) at HW = 1,024 (the loss kernels' least) and pt = 256 against its
+    plain version, twice bit for bit, and every T1 kernel's launch counter
+    moves."""
+    tool, arrays, hw, pt = _kb_arrays(b, h, cuda_device,
+                                      monkeypatch=monkeypatch)
+    _kb_runs_match(tool, arrays, b, hw, pt)
+
+
+def _kb_runs_match(tool, arrays, b, hw, pt) -> dict:
+    """Every run against its plain version and twice bit for bit, every
+    T1 kernel's counter moved; returns each run's number of step groups
+    (the first dimension of its per-block sums; 0 for a run without)."""
+    import chip_smoke
+    from spatialvae_torch.kernels import kernel_bench as kb
+
+    kb.reset_launches()
+    groups = {}
+    for run in tool.runs(b, hw, pt):
+        if b % 2 and run.name in ("fused-loss", "fused-t"):
+            continue                  # K3 and K8 take image pairs
+        if run.prepare:
+            arrays.update(run.prepare(arrays))
+        got = run.fn(arrays)
+        want = run.plain(arrays)
+        torch.cuda.synchronize()
+        chip_smoke.kb_check(torch, run.name, got, want)
+        again = run.fn(arrays)
+        for x, y in zip(list(got[0]) + list(got[1]),
+                        list(again[0]) + list(again[1])):
+            assert torch.equal(x, y), run.name
+        groups[run.name] = got[1][0].shape[0] if got[1] else 0
+    for key in ("gemm_multi:gemm2", "gemm_multi:gemm3", "rows_sum:gemm2",
+                "chain:dep", "chain:rows", "chain:ind_rows", "chain:ind_sums",
+                "chain:sums", "fwd_pipe2", "fwd_pipe4", "plain_scale",
+                "plain_grad", "plain_dw", "plain_sum", "fix_grad", "fix_dw",
+                "fix_sum"):
+        assert kb.LAUNCHES.get(key, 0) >= 2, (key, kb.LAUNCHES)
+    return groups
+
+
+# at least 32 steps, so the chain, fwd-pipe and GEMM kernels split the grid
+# into 2, 3 or 4 groups of consecutive steps (a group boundary inside an
+# image at b = 9)
+KB_GROUP_CASES = [(9, 40, 2), (12, 513, 3), (16, 500, 4)]
+
+
+@pytest.mark.parametrize("b,h,groups", KB_GROUP_CASES)
+def test_kernel_bench_step_groups_match_plain_versions(b, h, groups,
+                                                       cuda_device,
+                                                       monkeypatch):
+    """As above with the grid in several step groups: each group's sums,
+    the group that keeps the last step's rows and column sums."""
+    from spatialvae_torch.kernels import kernel_bench as kb
+
+    tool, arrays, hw, pt = _kb_arrays(b, h, cuda_device,
+                                      monkeypatch=monkeypatch)
+    assert kb.step_groups(kb.grid_steps(b, hw, pt), 1) == groups
+    got = _kb_runs_match(tool, arrays, b, hw, pt)
+    for name in ("gemm1", "gemm2", "gemm3", "gemm1+vpu", "vpu-only",
+                 "gemm1+ivpu", "gemm1+ivpu2", "vpu-full"):
+        assert got[name] > 1, (name, got[name])
+
+
+def test_kernel_bench_gemms_at_pt_2048(cuda_device):
+    """gemm2 and gemm3 with k = pt = 2,048 (dW on the 64 x 32 split-k
+    tiles, as at the tool's defaults), ragged H."""
+    from spatialvae_torch.kernels import kernel_bench as kb
+
+    g = torch.Generator(cuda_device).manual_seed(9)
+    a = torch.randint(-127, 128, (2048, 300), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (300, 300), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    for run in ("gemm2", "gemm3"):
+        for steps, groups in ((37, 1), (48, 3)):
+            got = kb.gemm_multi(run, a, a, w, steps)
+            want = kb.gemm_multi_reference(run, a, a, w, steps)
+            assert got[1].shape[0] == groups
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+
+
+def test_kernel_bench_wrappers_raise_on_the_card(cuda_device):
+    from spatialvae_torch.kernels import kernel_bench as kb
+
+    f = torch.zeros((2, 4, 40), device=cuda_device)
+    c = torch.zeros((256, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="several devices"):
+        kb.chain("sums", f, c.cpu(), 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        kb.chain("sums", f.transpose(0, 2).contiguous().transpose(0, 2), c,
+                 64)
