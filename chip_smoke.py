@@ -4,10 +4,12 @@
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --limits   # the int8 kernels' limit readings
     python3 chip_smoke.py --limits numerics   # those of K3 (e)-(g), K8
+    python3 chip_smoke.py --limits k3         # K3's, both designs
     python3 chip_smoke.py --limits wide       # those of the wide path
     python3 chip_smoke.py --limits probes     # those of the probe kernels
     python3 chip_smoke.py --limits kernel_bench   # those of T1's kernels
     python3 chip_smoke.py --default-width PARENT_DIR   # K1-K5 A/B
+    python3 chip_smoke.py --sass PARENT_DIR   # untouched kernels' SASS
 
 Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the float
@@ -99,6 +101,15 @@ paths:
   within limits), its ms at the defaults, bound and library ms, and the
   backward and loss runs' passes from one traced call each.
 
+K3's default-mode calls (the bench configuration and the Gaussian and padded
+families at the default numerics, H <= 512) run the cluster passes of
+``csrc/fused_loss_int8_sm90.cu``; ``[k3_sm90]`` holds their pieces alone
+(the a0 chain's thresholds at all 2^32 inputs, the product on the cluster
+ring word for word, the resident clusters), and ``[kernel_loss_int8]``,
+``[kernel_bench]`` (T1's fused-loss at B=2,048 and its traced passes) and
+``[train_int8_bench]`` (B=4,096) time them in turns with the block passes
+(``run_loss_int8(..., block_passes=True)``: block, cluster, cluster, block).
+
 Each phase prints its lines; the last three lines are the per-kernel JSON
 record (launches on the main path, times, plain-version time, bound,
 library-call time), the card's name and power limit, and
@@ -107,7 +118,9 @@ sound build and for copies built with one step removed; ``--limits
 numerics`` only those of K3's modes, levers and K8 (SR drawing the gradient
 site's words from the forward site's stream, SR with u = 0, db1 from the
 pre-round q, the Pade lever on the exact tanh, A1Q at a per-block scale);
-``--limits wide`` those of the wide path (its ragged last chunk skipped,
+``--limits k3`` only K3's readings on the cluster passes and on the block
+passes (rounding toward zero, a scale per 64-pixel block); ``--limits
+wide`` those of the wide path (its ragged last chunk skipped,
 one TF32 pass); ``--limits probes`` those of the probe kernels (the
 last k slab dropped, the int16 store wrapping, a 4 x 4 byte transpose with
 two rows swapped); ``--limits kernel_bench`` those of T1's kernels (the
@@ -115,7 +128,8 @@ a1 scale without /127, fused-plain's scale per 64-pixel block,
 bwd-fixscale's dh1 without (1 - a1^2)).  ``python3 chip_smoke.py
 --default-width PARENT`` times K1-K5 at the default width in turns in this
 checkout and in the parent's (a directory holding it), each turn a process
-of its own tree.
+of its own tree; ``--sass PARENT`` compares the SASS of the translation
+units this checkout left as they were (SASS_UNITS) with the parent's.
 
 Needs a CUDA device and ``nvcc``; imports no JAX.  Exits non-zero, without
 the final line, when there is no CUDA device or any phase fails.
@@ -124,6 +138,7 @@ the final line, when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -232,6 +247,51 @@ def phase_build() -> None:
         raise RuntimeError("the library's width threshold is not 512")
     log("build", seconds=f"{seconds:.2f}", library=path.name,
         sources=len(_build.sources()))
+
+
+def start_ptxas_report(source: str):
+    """``nvcc -Xptxas -v`` on ``source`` (the library's flags, the object
+    thrown away), started in the background: ptxas's registers, stack,
+    spills and shared memory per kernel, read by ``ptxas_report``."""
+    from spatialvae_torch.kernels import _build
+
+    out = os.path.join(tempfile.gettempdir(), f"ptxas_{os.getpid()}.o")
+    return out, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         out, source], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def ptxas_report(started) -> list:
+    """[(kernel, registers, stack bytes, spill stores, spill loads)] from
+    ``start_ptxas_report``'s compile; raises if it failed."""
+    import re
+
+    out, proc = started
+    text, _ = proc.communicate()
+    if os.path.exists(out):
+        os.remove(out)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{text[-3000:]}")
+    rows, name, spill = [], None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.sub(r".*(loss_fwd90|loss_grad90|grouped_dw90|"
+                          r"tile_product90|chain_check90)_kernel"
+                          r"(IL(b[01]))?.*",
+                          lambda k: k.group(1) + (
+                              "<bf16>" if k.group(3) == "b1" else "<f32>"
+                              if k.group(3) == "b0" else ""), m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            spill = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1))) + (spill or (0, 0, 0)))
+            name, spill = None, None
+    return rows
 
 
 def _tail_inputs(torch, b, hw, h, lh, no, wdt, gen):
@@ -806,6 +866,58 @@ def phase_profile(torch, requests, tmpdir: str) -> None:
 
 INT8_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_int8.cu"
 LOSS_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8.cu"
+LOSS90_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8_sm90.cu"
+# fused_loss_int8.LAUNCHES: the block passes', the cluster passes' ("_sm90")
+K3_KEYS = ("fwd", "grad", "dw", "sum", "fwd_sm90", "grad_sm90", "dw_sm90")
+# turns of an A/B of K3's two designs on one card
+AB_K3 = ("block", "sm90", "sm90", "block")
+
+
+def k3_launches(calls: int, route, chunks: int = 1) -> dict:
+    """fused_loss_int8.LAUNCHES after ``calls`` K3 calls on ``route``
+    ("sm90", "block", or None: no call), each over ``chunks`` workspace
+    chunks (the cluster route runs forward, gradient and dW1 per chunk; the
+    block route one forward at H <= 512)."""
+    out = dict.fromkeys(K3_KEYS, 0)
+    if route is None:
+        return out
+    sfx = "_sm90" if route == "sm90" else ""
+    out["fwd" + sfx] = calls * (chunks if route == "sm90" else 1)
+    out["grad" + sfx] = out["dw" + sfx] = calls * chunks
+    out["sum"] = 5 * calls
+    return out
+
+
+class on_block_passes:
+    """Within the block every K3 call of the port runs the block passes
+    (``run_loss_int8(..., block_passes=True)``): the yardstick of the cluster
+    passes, for the trainer's and the tools' calls alike."""
+
+    def __enter__(self):
+        from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+        self.saved = l8.run_loss_int8
+        l8.run_loss_int8 = functools.partial(self.saved, block_passes=True)
+        return self
+
+    def __exit__(self, *exc):
+        from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+        l8.run_loss_int8 = self.saved
+        return False
+
+
+def in_turns(torch, route_fns, reps: int) -> dict:
+    """route -> the median ms of ``route_fns[route]`` over its turns of
+    AB_K3, each turn the median of ``reps`` CUDA-event runs, and the turns'
+    list: one card, one call, in turns."""
+    turns = {}
+    for route in AB_K3:
+        fn = route_fns[route]
+        fn()
+        turns.setdefault(route, []).append(statistics.median(
+            cuda_ms(fn, torch) for _ in range(reps)))
+    return {r: (statistics.median(t), t) for r, t in turns.items()}
 K3_REPLACES = "spatialvae_tpu/kernels/fused_loss_int8.py:718"
 K4_REPLACES = "spatialvae_tpu/kernels/fused_decoder_int8.py:60"
 K5_REPLACES = "spatialvae_tpu/kernels/fused_decoder_int8.py:95"
@@ -874,19 +986,29 @@ def _timed(torch, kern, plain) -> tuple:
     return statistics.median(ks), statistics.median(ps)
 
 
-def _loss_readings(torch, args, mask, family, timed, nm=None) -> dict:
+def _loss_readings(torch, args, mask, family, timed, nm=None,
+                   block_passes=False) -> dict:
     """K3 on ``args`` (fold, coords, w1, b1, wht, bht, y_t) against its
-    plain version, at numerics ``nm`` (default: the defaults): each output's
-    errors, whether two runs agree bit for bit, with ``nm`` the quantised
-    tiles' disagreements (the forward site's count, the gradient site's
-    share), and with ``timed`` the kernel's and the plain version's ms."""
+    plain version, at numerics ``nm`` (default: the defaults), on the passes
+    its route takes (``block_passes``: the block passes whatever the
+    route): each output's errors, whether two runs agree bit for bit, the
+    quantised tiles' disagreements (the forward site's count, the gradient
+    site's share), and with ``timed`` the kernel's and the plain version's
+    ms.  A call that the cluster passes take is also held to the block
+    passes ("vs_block": each output's errors, the tiles' disagreements)
+    and, with ``timed``, timed in turns with them ("ms_block", "turns")."""
     from spatialvae_torch.kernels import fused_loss_int8 as l8
     from spatialvae_torch.kernels.config import Numerics
 
     nm = nm or Numerics()
+    hw, h = args[1].shape[0], args[2].shape[0]
+    route = l8.k3_route(hw, h, l8.pick_tile(hw), family, nm,
+                        block_passes=block_passes)
+    run = functools.partial(l8.run_loss_int8, *args, mask, family,
+                            numerics=nm, block_passes=block_passes)
     with torch.no_grad():
-        got = l8.run_loss_int8(*args, mask, family, numerics=nm)
-        again = l8.run_loss_int8(*args, mask, family, numerics=nm)
+        got = run()
+        again = run()
         torch.cuda.synchronize()
         want = l8.loss_int8_reference(*args, mask, family, nm)
         out = {"same": all(torch.equal(u, v) for u, v in zip(got, again)),
@@ -895,27 +1017,45 @@ def _loss_readings(torch, args, mask, family, timed, nm=None) -> dict:
             if u.shape != v.shape:
                 raise AssertionError(f"K3 {name}: shape {tuple(u.shape)}")
             out[name] = rel_errors(u, v)
-        del got, again, want
-        if nm != Numerics():
-            (_, (aq, qi)) = l8.run_loss_int8(*args, mask, family, numerics=nm,
-                                             ints=True)
-            _, (aq_p, qi_p) = l8.loss_int8_reference(*args, mask, family, nm,
-                                                     ints=True)
-            out["ints"] = (int((aq != aq_p).sum()),
-                           (qi != qi_p).float().mean().item())
-            del aq, qi, aq_p, qi_p
+        del again, want
+        (_, (aq, qi)) = run(ints=True)
+        _, (aq_p, qi_p) = l8.loss_int8_reference(*args, mask, family, nm,
+                                                 ints=True)
+        out["ints"] = (int((aq != aq_p).sum()),
+                       (qi != qi_p).float().mean().item())
+        del aq_p, qi_p
+        out["route"] = route
+        if route == "sm90":
+            old, (aq7, qi7) = l8.run_loss_int8(*args, mask, family,
+                                               numerics=nm, ints=True,
+                                               block_passes=True)
+            out["vs_block"] = {"ints": (int((aq != aq7).sum()),
+                                      (qi != qi7).float().mean().item())}
+            out["vs_block"].update({n: rel_errors(u, v) for n, u, v in zip(
+                ("loss",) + INT8_GRADS,
+                (got[0][:, 3, 0],) + tuple(got), (old[0][:, 3, 0],)
+                + tuple(old))})
+            del old, aq7, qi7
+        del got, aq, qi
         if timed:
             out["ms"], out["plain_ms"] = _timed(
-                torch, lambda: l8.run_loss_int8(*args, mask, family,
-                                                numerics=nm),
+                torch, run,
                 lambda: l8.loss_int8_reference(*args, mask, family, nm))
+            if route == "sm90":
+                ab = in_turns(torch, {"sm90": run, "block": functools.partial(
+                    run.func, *run.args,
+                    **{**run.keywords, "block_passes": True})},
+                    N_TIMED // 2)
+                out["ms"], out["turns"] = ab["sm90"][0], ab
+                out["ms_block"] = ab["block"][0]
     return out
 
 
 def loss_case(torch, b, dtype, seed, timed, i8=True, masked=False,
-              nm=None) -> dict:
+              nm=None, block_passes=False) -> dict:
     """K3's Bernoulli family against its plain version on one galaxy
-    batch, at numerics ``nm`` (default: the defaults)."""
+    batch, at numerics ``nm`` (default: the defaults; ``block_passes``: on the
+    block passes)."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     fold, coords, ws = _int8_inputs(torch, b, dtype, gen)
     hw = IMAGE[0] * IMAGE[1]
@@ -925,7 +1065,7 @@ def loss_case(torch, b, dtype, seed, timed, i8=True, masked=False,
     mask = ((torch.rand(hw, generator=gen, device=DEVICE) > 0.2).float()
             if masked else None)
     return _loss_readings(torch, (fold, coords, *ws, yt), mask, "bernoulli",
-                          timed, nm)
+                          timed, nm, block_passes)
 
 
 def int8_tail_case(torch, b, dtype, seed, timed) -> dict:
@@ -1003,21 +1143,45 @@ INT8_TAIL_CASES = [(BATCH, "bfloat16"), (N_TRAIN % BATCH, "bfloat16"),
                    (BATCH, "float32")]
 
 
+def _log_ab(r) -> dict:
+    """The A/B fields of a K3 reading on the cluster passes: the block
+    passes' ms, every turn's ms, the largest cluster-vs-block error relative to
+    max|block| and the tiles' disagreements (aq words, qi share)."""
+    if r["route"] != "sm90":
+        return {}
+    v = r["vs_block"]
+    _check_ints("K3 cluster vs block passes", v)
+    return {"block_ms": f"{r['ms_block']:.4f}" if "ms_block" in r else "-",
+            "turns": " ".join(f"{k}:{t:.4f}" for k in ("block", "sm90")
+                              for t in r["turns"][k][1]) if "turns" in r
+            else "-",
+            "vs_block_max_rel":
+                f"{max(v[n][2] for n in ('loss',) + INT8_GRADS):.3e}",
+            "vs_block_ints": f"{v['ints'][0]}/{v['ints'][1]:.2e}"}
+
+
 def phase_int8_kernels(torch) -> dict:
-    """K3, K4 and K5 against their plain versions at the galaxy shape."""
+    """K3, K4 and K5 against their plain versions at the galaxy shape; K3
+    on the cluster passes, held to the block passes and timed in turns with
+    them."""
     res = {}
     for b, dtype, i8, masked in LOSS_CASES:
         r = loss_case(torch, b, dtype, SEED, timed=True, i8=i8,
                       masked=masked)
         if not r["same"]:
             raise AssertionError(f"K3 B={b} {dtype}: two runs differ")
+        if r["route"] != "sm90":
+            raise AssertionError(f"K3 B={b} {dtype}: route {r['route']}")
         fields = {n: _check_rel(f"K3 B={b} {dtype} {n}", r[n], INT8_TOL)
                   for n in ("loss",) + INT8_GRADS}
         log("kernel_loss_int8", B=b, HW=IMAGE[0] * IMAGE[1], H=P_HIDDEN, No=CHANNELS,
             dtype=dtype, targets="int8" if i8 else "float",
-            mask=masked, errors="max_abs/mean_abs/max_rel/mean_rel",
+            mask=masked, route=r["route"],
+            errors="max_abs/mean_abs/max_rel/mean_rel",
             **fields, max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
-            kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}")
+            ints_vs_plain=_check_ints(f"K3 B={b} {dtype}", r),
+            kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+            **_log_ab(r))
         res["loss", b, dtype, i8, masked] = r
         torch.cuda.empty_cache()
     for b, dtype in INT8_TAIL_CASES:
@@ -1049,6 +1213,67 @@ def phase_int8_kernels(torch) -> dict:
         res["tail", b, dtype] = r
         torch.cuda.empty_cache()
     return res
+
+
+# the product alone on the cluster ring: tiles (K3's 64-pixel blocks) of
+# 128 images at 64x64; its ms includes writing the int32 output, four times
+# the input's bytes
+PRODUCT_TILES = 8192
+
+
+def phase_k3_sm90(torch, ptxas) -> dict:
+    """``[k3_sm90]``: the cluster passes' pieces alone.  ptxas's report of
+    each of their kernels (``ptxas``: ``start_ptxas_report``'s compile of
+    their source); the clusters of 4 the card holds at once for each
+    kernel; the a0 chain's thresholds
+    against clip(round(7 tanh(x)), -7, 7) at every one of the 2^32 float
+    inputs (0 may differ); the product on the cluster ring (the W1 slabs
+    multicast, int8 wgmma) against an exact product, word for word, at
+    K = 512 and K = 128, and its ms and TOP/s at PRODUCT_TILES tiles."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    for name, regs, stack, stores, loads in ptxas_report(ptxas):
+        log("k3_sm90_ptxas", kernel=name, registers=regs, stack_bytes=stack,
+            spill_store_bytes=stores, spill_load_bytes=loads)
+    clusters = l8.sm90_max_clusters()
+    if min(clusters.values()) < 1:
+        raise AssertionError(f"K3 cluster kernels resident: {clusters}")
+    t0 = time.perf_counter()
+    differ = l8.sm90_chain_check(DEVICE)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    if differ:
+        raise AssertionError(f"the a0 chain's thresholds differ from "
+                             f"round(7 tanh) at {differ} inputs")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = {"clusters": clusters}
+    for h, n in ((P_HIDDEN, PRODUCT_TILES), (96, 64)):
+        kp = -(-h // 64) * 64
+        a = torch.randint(-7, 8, (n, 64, 512), generator=gen, device=DEVICE,
+                          dtype=torch.int8)
+        a[..., kp:] = 0
+        w = torch.randint(-7, 8, (h, h), generator=gen, device=DEVICE,
+                          dtype=torch.int8)
+        got = l8.sm90_tile_product(a, w)
+        words = 0
+        for i in range(0, n, 1024):          # the exact product in pieces
+            words += int((got[i:i + 1024] != l8.sm90_tile_product_reference(
+                a[i:i + 1024], w)).sum())
+        if words:
+            raise AssertionError(f"the cluster product differs in {words} "
+                                 f"words at H={h}")
+        ms = statistics.median(
+            cuda_ms(lambda: l8.sm90_tile_product(a, w), torch)
+            for _ in range(5))
+        out["product", h] = ms
+        log("k3_sm90", H=h, Kp=kp, tiles=n, product_words_differ=words,
+            product_ms=f"{ms:.4f}",
+            product_top_s=f"{2.0 * n * 64 * 512 * kp / ms / 1e9:.1f}",
+            chain_inputs_differ=differ, chain_check_s=f"{chain_s:.2f}",
+            **{f"clusters_{k}": v for k, v in clusters.items()})
+        del a, got
+        torch.cuda.empty_cache()
+    return out
 
 
 class plain_int8:
@@ -1255,11 +1480,12 @@ def phase_train_int8(torch, tmpdir: str) -> dict:
     counts = _int8_launches()
     full = TRAIN_EPOCHS * (N_TRAIN // BATCH)
     tails = TRAIN_EPOCHS
-    want_k3 = {"fwd": full, "grad": full, "dw": full, "sum": 5 * full}
+    want_k3 = k3_launches(full, "sm90")
     want_k45 = {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
                 "bwd_grad": tails, "dw": tails, "sum": 4 * tails}
     want_adam = int8_adam_launches(trainer, full + tails, seeded=True)
-    if counts != {"k3": want_k3, "k8": dict.fromkeys(want_k3, 0),
+    if counts != {"k3": want_k3,
+                  "k8": dict.fromkeys(("fwd", "grad", "dw", "sum"), 0),
                   "k45": want_k45, "k12": 0, "adam": want_adam}:
         raise AssertionError(f"launches over {full} + {tails} steps: "
                              f"{counts}, expected K3 {want_k3}, K4/K5 "
@@ -1303,8 +1529,8 @@ def phase_train_int8(torch, tmpdir: str) -> dict:
     cfgs = (trainer.q_cfg, trainer.p_cfg, trainer.ecfg, trainer.tcfg)
     del trainer, data, data_t, data_q8
     torch.cuda.empty_cache()
-    prof["bench_images_per_s"], prof["bench_adam"] = phase_bench_int8(
-        torch, *cfgs)
+    (prof["bench_images_per_s"], prof["bench_adam"],
+     prof["bench_step_ms"]) = phase_bench_int8(torch, *cfgs)
     prof["counts"] = counts
     prof["eval_k4"] = evals
     prof["emit_adam"] = phase_train_int8_emit(torch, before, rows[0])
@@ -1409,7 +1635,9 @@ def phase_profile_int8(torch, trainer, data, data_t, data_q8, tmpdir: str,
     from torch.profiler import ProfilerActivity, profile
 
     names = {"loss_fwd": "loss_fwd_kernel", "loss_grad": "loss_grad_kernel",
-             "dw": "grouped_dw_kernel", "sum_rows": "sum_rows_kernel",
+             "dw": "grouped_dw_kernel", "loss_fwd90": "loss_fwd90_kernel",
+             "loss_grad90": "loss_grad90_kernel",
+             "dw90": "grouped_dw90_kernel", "sum_rows": "sum_rows_kernel",
              "fwd_a1": "int8_fwd_kernel", "bwd_scale": "int8_bwd_scale",
              "bwd_grad": "int8_bwd_grad", "k6": "adam_kernel",
              "quant_scale": "quant_scale_kernel",
@@ -1472,13 +1700,99 @@ def phase_profile_int8(torch, trainer, data, data_t, data_q8, tmpdir: str,
     return out
 
 
+def bench_k3_chunks(torch, route: str) -> list:
+    """The workspace chunks, (first image, images), of a K3 call at the
+    bench step (B=4,096, bf16 weights) on ``route``: the cluster route's dW1
+    operands and a1c stash, the block route's dW1 operands, within this
+    card's workspace budget."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.fused_decoder import workspace_budget
+    from spatialvae_torch.kernels.fused_decoder_int8 import image_chunks
+
+    block = l8.stash_block_bytes(True) if route == "sm90" else 0
+    per = l8.loss_workspace_bytes(IMAGE[0] * IMAGE[1], P_HIDDEN, route, block)
+    return image_chunks(BENCH_BATCH, per,
+                        workspace_budget(torch.device(DEVICE)))
+
+
+# images on each side of a workspace chunk's first image that the bench
+# step's K3 call holds to the plain version
+BENCH_EDGE = 3
+
+
+def bench_k3_call(torch) -> dict:
+    """One K3 call at the bench step's shape (B=4,096 galaxy images, bf16
+    weights, int8 targets; random inputs from the seed) on each design, in
+    turns (AB_K3, the median of 3 each), with its bound.  The cluster
+    passes' outputs are held to the block passes' within INT8_TOL, and each
+    design's loss and dfold of the first and last image and of BENCH_EDGE
+    images on each side of every chunk boundary (the cluster route runs
+    the call in several workspace chunks at this size) to the plain version
+    run on those images alone."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.config import Numerics
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    fold, coords, ws = _int8_inputs(torch, BENCH_BATCH, "bfloat16", gen)
+    hw = IMAGE[0] * IMAGE[1]
+    k = torch.randint(0, 256, (BENCH_BATCH, CHANNELS, hw), generator=gen,
+                      device=DEVICE)
+    yt = (k - 128).to(torch.int8)
+    nm = Numerics()
+    run = functools.partial(l8.run_loss_int8, fold, coords, *ws, yt,
+                            numerics=nm)
+    chunks = {r: bench_k3_chunks(torch, r) for r in ("sm90", "block")}
+    if len(chunks["sm90"]) < 2:
+        raise AssertionError(f"B={BENCH_BATCH} K3 cluster route in "
+                             f"{chunks['sm90']}: one workspace chunk")
+    edges = sorted({0, BENCH_BATCH - 1} | {
+        i for c in chunks.values() for b0, _ in c[1:]
+        for i in range(b0 - BENCH_EDGE, b0 + BENCH_EDGE)})
+    with torch.no_grad():
+        got = {"sm90": run(), "block": run(block_passes=True)}
+        want = l8.loss_int8_reference(fold[edges], coords, *ws, yt[edges],
+                                      numerics=nm)
+        vs_block = {n: _check_rel(f"K3 B={BENCH_BATCH} cluster vs block "
+                                  f"passes {n}", rel_errors(u, v), INT8_TOL)
+                    for n, u, v in zip(
+                        ("loss",) + INT8_GRADS,
+                        (got["sm90"][0][:, 3, 0],) + tuple(got["sm90"]),
+                        (got["block"][0][:, 3, 0],) + tuple(got["block"]))}
+        vs_plain = {}
+        for r, out in got.items():
+            d = out[0][edges]
+            for n, u, v in (("loss", d[:, 3, 0], want[0][:, 3, 0]),
+                            ("dfold", d, want[0])):
+                vs_plain[r, n] = _check_rel(
+                    f"K3 B={BENCH_BATCH} {r} passes at the chunk edges {n}",
+                    rel_errors(u, v), INT8_TOL)
+        del got, want
+        ab = in_turns(torch, {
+            "sm90": run,
+            "block": functools.partial(run, block_passes=True)}, 3)
+    del fold, coords, ws, k, yt
+    torch.cuda.empty_cache()
+    return {"sm90": ab["sm90"][0], "block": ab["block"][0],
+            "turns": " ".join(f"{r}:{t:.3f}" for r in ("block", "sm90")
+                              for t in ab[r][1]),
+            "bound": k3_bound(BENCH_BATCH, hw, P_HIDDEN, CHANNELS, 2, 1,
+                              False, False),
+            "chunks": {r: [b0 for b0, _ in c] for r, c in chunks.items()},
+            "edges": len(edges), "vs_block": vs_block, "vs_plain": vs_plain}
+
+
 def phase_bench_int8(torch, q_cfg, p_cfg, ecfg, tcfg) -> tuple:
     """bench.py's galaxy step: B=4096, 16 steps per epoch of /255-grid
     images made on the card from the seed, Adam's moments in bf16
     (``SPATIALVAE_ADAM_MOMENTS=bf16``, as bench.py sets it); one warm-up
-    epoch, then one timed epoch on the host clock around work that ends in
-    a synchronize.  A smoke reading of images/s, not a benchmark.  Returns
-    (images/s, Adam's launches in the timed epoch)."""
+    epoch, then timed epochs on the host clock around work that ends in a
+    synchronize, in turns (AB_K3) with K3 on the block passes and on the
+    cluster passes.  The launches are the first cluster turn's: K3 on the
+    cluster passes (every chunk's forward, gradient and dW1), none on the
+    block passes.  A smoke reading of images/s, not a benchmark.  Returns
+    (images/s, Adam's launches in that epoch, route -> step ms)."""
+    import contextlib
+
     from spatialvae_torch.train.trainer import Trainer
     from spatialvae_torch.transforms.coords import coord_grid
 
@@ -1498,26 +1812,55 @@ def phase_bench_int8(torch, q_cfg, p_cfg, ecfg, tcfg) -> tuple:
     trainer.train_epoch(data, 0, progress=False)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    _reset_all_launches()
-    t0 = time.perf_counter()
-    m = trainer.train_epoch(data, 1, progress=False)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = _int8_launches()
+    turns, counts, m = {}, None, None
+    for i, route in enumerate(AB_K3):
+        ctx = (on_block_passes() if route == "block"
+               else contextlib.nullcontext())
+        with ctx:
+            _reset_all_launches()
+            t0 = time.perf_counter()
+            mi = trainer.train_epoch(data, 1 + i, progress=False)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        got = _int8_launches()
+        want = k3_launches(BENCH_STEPS, route,
+                          len(bench_k3_chunks(torch, route)))
+        if got["k3"] != want:
+            raise AssertionError(f"B={BENCH_BATCH} {route} epoch K3 "
+                                 f"launches {got['k3']}, expected {want}")
+        turns.setdefault(route, []).append(seconds / BENCH_STEPS * 1e3)
+        if route == "sm90" and counts is None:
+            counts, m, secs = got, mi, seconds
     want_adam = int8_adam_launches(trainer, BENCH_STEPS, seeded=False)
-    if counts["k3"]["grad"] < BENCH_STEPS or counts["k45"]["fwd_acts"] or \
-            counts["adam"] != want_adam:
+    if counts["k45"]["fwd_acts"] or counts["adam"] != want_adam:
         raise AssertionError(f"B={BENCH_BATCH} epoch launches {counts}, "
                              f"Adam expected {want_adam}")
     if not np.isfinite(m).all():
         raise AssertionError(f"B={BENCH_BATCH} epoch metrics {m}")
+    step_ms = {r: statistics.median(t) for r, t in turns.items()}
+    del trainer, data
+    torch.cuda.empty_cache()
+    k3 = bench_k3_call(torch)
     log("train_int8_bench", batch=BENCH_BATCH, steps=BENCH_STEPS, images=n,
-        moments="bfloat16", warmup_s=f"{warm:.3f}", seconds=f"{seconds:.4f}",
-        step_ms=f"{seconds / BENCH_STEPS * 1e3:.3f}",
-        images_per_s=f"{n / seconds:.1f}",
+        moments="bfloat16", warmup_s=f"{warm:.3f}", seconds=f"{secs:.4f}",
+        step_ms=f"{step_ms['sm90']:.3f}",
+        step_ms_block=f"{step_ms['block']:.3f}",
+        turns=" ".join(f"{r}:{t:.3f}" for r in ("block", "sm90")
+                       for t in turns[r]),
+        images_per_s=f"{n / secs:.1f}",
         peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        k3_ms=f"{k3['sm90']:.3f}", k3_ms_block=f"{k3['block']:.3f}",
+        k3_bound_ms=f"{k3['bound'][0]:.3f}", k3_turns=k3["turns"],
+        k3_chunks=json.dumps(k3["chunks"], separators=(",", ":")),
+        k3_edge_images=k3["edges"],
+        errors="max_abs/mean_abs/max_rel/mean_rel",
+        **{f"k3_vs_block_{n}": e for n, e in k3["vs_block"].items()},
+        **{f"k3_{r}_edges_vs_plain_{n}": e
+           for (r, n), e in k3["vs_plain"].items()},
+        max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
         launches=json.dumps(counts, separators=(",", ":")))
-    return n / seconds, counts["adam"]
+    step_ms["k3"] = k3
+    return n / secs, counts["adam"], step_ms
 
 
 def torch_sum_ms(torch, shapes) -> float:
@@ -1535,6 +1878,44 @@ def torch_sum_ms(torch, shapes) -> float:
 
 def _wmax(a, b) -> tuple:
     return tuple(max(x, y) for x, y in zip(a, b))
+
+
+def phase_limits_k3(torch) -> None:
+    """``--limits k3``: K3's readings against its plain version on the
+    cluster passes and on the block passes (``block_passes``), for the
+    sound library and for the copies built with quantisation rounding
+    toward zero or a gradient scale per 64-pixel block, over three seeds
+    (LOSS_CASES, and FAMILY_CASES, whose Gaussian and padded cases take the
+    cluster passes and colored ones the block passes): each build's worst
+    max and mean error relative to max|plain| over the five outputs and the
+    loss."""
+    from spatialvae_torch.kernels import _build
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    for defines in ((), ("-DSVT_INT8_RTZ=1",), ("-DSVT_INT8_BLOCK_SCALE=1",)):
+        lib = _build.load_library(defines)
+        d8._lib = l8._lib = (lambda lib=lib: lib)
+        worst = {}
+        for seed in range(3):
+            for b, dtype, i8, masked in LOSS_CASES:
+                for block_passes in (False, True):
+                    r = loss_case(torch, b, dtype, seed, False, i8, masked,
+                                  block_passes=block_passes)
+                    k = ("K3_" + r["route"], dtype)
+                    for n in ("loss",) + INT8_GRADS:
+                        worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+            for case in FAMILY_CASES:
+                for dtype in ("bfloat16", "float32"):
+                    r = family_case(torch, case, dtype, seed, False)
+                    route = "block" if case[1] == "colored" else "sm90"
+                    k = (f"K3_{case[1]}_{route}", dtype)
+                    for n in ("loss",) + INT8_GRADS:
+                        worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+            torch.cuda.empty_cache()
+        log("limits", build=" ".join(defines) or "sound",
+            **{"/".join(k): f"{a:.3e}/{m:.3e}"
+               for k, (a, m) in sorted(worst.items())})
 
 
 def phase_limits(torch) -> None:
@@ -1849,7 +2230,7 @@ def phase_train_family(torch, name: str, tmpdir: str) -> dict:
     every step), an evaluation that must score higher, the launch counts,
     a K3 step and a tail step against the plain versions, a profiled K3
     step; then the float step and the serving checks that the model has.
-    Returns the launch counts."""
+    Returns the launch counts and the profiled step's device ms."""
     from spatialvae_torch.kernels.fused_loss_int8 import padded_hw
 
     trainer, data, gen = family_trainer(torch, name)
@@ -1862,7 +2243,9 @@ def phase_train_family(torch, name: str, tmpdir: str) -> dict:
     seconds = time.perf_counter() - t0
     counts = _int8_launches()
     full, tails = TRAIN_EPOCHS * (N_TRAIN // BATCH), TRAIN_EPOCHS
-    want = {"k3": {"fwd": full, "grad": full, "dw": full, "sum": 5 * full},
+    # the colored family keeps the block passes, the others take the
+    # cluster passes
+    want = {"k3": k3_launches(full, "block" if name == "colored" else "sm90"),
             "k8": {"fwd": 0, "grad": 0, "dw": 0, "sum": 0},
             "k45": {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
                     "bwd_grad": tails, "dw": tails, "sum": 4 * tails},
@@ -1918,12 +2301,12 @@ def phase_train_family(torch, name: str, tmpdir: str) -> dict:
         step_k3_worst_leaf=worst["k3"][2],
         step_tail_vs_plain_max_rel=f"{worst['k4k5'][0]:.3e}",
         step_tail_vs_plain_mean_rel=f"{worst['k4k5'][1]:.3e}", **extra)
-    phase_profile_int8(torch, trainer, data, data_t,
-                       trainer._dataset_yq8(data), tmpdir, model=name,
-                       runs=(("full", "k3", BATCH),))
+    prof = phase_profile_int8(torch, trainer, data, data_t,
+                              trainer._dataset_yq8(data), tmpdir,
+                              model=name, runs=(("full", "k3", BATCH),))
     del trainer, data, data_t
     torch.cuda.empty_cache()
-    return counts
+    return counts, prof
 
 
 # ---------------------------------------------------------------------------
@@ -2181,7 +2564,8 @@ def phase_train_knobs(torch, tag, env, on_grid, kernel) -> dict:
         full = TRAIN_EPOCHS * (N_TRAIN // BATCH)
         tails = TRAIN_EPOCHS
         run = {"fwd": full, "grad": full, "dw": full, "sum": 5 * full}
-        want = {"k3": run if kernel == "k3" else dict.fromkeys(run, 0),
+        # the knobs' numerics keep K3 on the block passes
+        want = {"k3": k3_launches(full, "block" if kernel == "k3" else None),
                 "k8": run if kernel == "k8" else dict.fromkeys(run, 0),
                 "k45": {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
                         "bwd_grad": tails, "dw": tails, "sum": 4 * tails},
@@ -2812,8 +3196,7 @@ def phase_train_wide(torch) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _int8_launches()
-        want = {"k3": {"fwd": full, "grad": full, "dw": full,
-                       "sum": 5 * full},
+        want = {"k3": k3_launches(full, "block"),      # H > 512
                 "k8": dict.fromkeys(("fwd", "grad", "dw", "sum"), 0),
                 "k45": {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
                         "bwd_grad": tails, "dw": tails, "sum": 4 * tails},
@@ -2913,7 +3296,10 @@ def phase_loss_levers(torch) -> dict:
         for cut in CUT_LADDER:
             nm = _numerics(phase_cut=cut)
             l8.reset_launches()
-            got = l8.run_loss_int8(fold, coords, *ws, yt, numerics=nm)
+            # the ladder reads the block passes' phases: the cut at 8 is
+            # the default numerics, which the cluster passes would take
+            got = l8.run_loss_int8(fold, coords, *ws, yt, numerics=nm,
+                                   block_passes=True)
             torch.cuda.synchronize()
             launched = dict(l8.LAUNCHES)
             want = l8.loss_int8_reference(fold, coords, *ws, yt, numerics=nm)
@@ -2925,7 +3311,7 @@ def phase_loss_levers(torch) -> dict:
                     or launched["fwd"] != 1):
                 raise AssertionError(f"K3 cut {cut}: launches {launched}")
             run = lambda: l8.run_loss_int8(fold, coords, *ws, yt,
-                                           numerics=nm)
+                                           numerics=nm, block_passes=True)
             run()
             ladder[cut] = statistics.median(
                 [cuda_ms(run, torch) for _ in range(N_TIMED)])
@@ -3073,7 +3459,9 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
                 fam_counts, knobs) -> list:
     """The per-kernel JSON records: K1 and K2 at the float path's galaxy
     f32 shapes (B=100), K3 at the int8 training step's (bf16 weights,
-    B=100), K4 without a1 at the evaluation's (B=100) and with a1, K5 at
+    B=100: the cluster passes it runs, and the block passes at the colored
+    path's step, the path that launches them), K4 without a1 at the
+    evaluation's (B=100) and with a1, K5 at
     the tail step's (B=37), and K3's whole call in the Gaussian, colored and
     padded families at the particles, colored and mnist steps' (bf16
     weights, B=100; launches: that model's K3 calls).  Bounds from the
@@ -3136,18 +3524,44 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
     parts = blocks * (3 * h + mw + 2) * f4
     splits = 16
     k3_abs = lambda *ns: max(lc[n][0] for n in ns)
+    a1c = b * hw * h * 2                        # a bf16 a1c, H columns
+    # the cluster passes: launches and device ms from the galaxy int8 path;
+    # the block passes: launches and device ms from the colored path (the
+    # family that keeps them at the default numerics; its profiled step)
+    col = fam_counts["colored"]["k3"]
+    t7 = {k[1]: v for k, v in res["fam_prof"]["colored"].items()
+          if k[0] == "k3"}
+    col_err = max(res["families"]["colored_mask", "bfloat16"][n][0]
+                  for n in INT8_GRADS)
     rows += [
-        ("int8_loss_fwd", LOSS_SOURCE, K3_REPLACES, c3["fwd"],
-         lc["loss"][0], i8["k3", "loss_fwd"], lc["plain_ms"],
+        # the bounds count the work each pass's function needs, not the
+        # design's a1c stash: the forward without its write, the gradient
+        # with the cheaper of reading a1c and rebuilding it (W1f^T and one
+        # more product); dWh^T and da1 are its two head products
+        ("int8_loss_fwd_sm90", LOSS90_SOURCE, K3_REPLACES, c3["fwd_sm90"],
+         lc["loss"][0], i8["k3", "loss_fwd90"], lc["plain_ms"],
          bound(fold_io + i8_w + yt_b + dz2_b + 2 * blocks * f4,
                (gemm, PEAK_INT8), head), None),
-        ("int8_loss_grad", LOSS_SOURCE, K3_REPLACES, c3["grad"],
-         k3_abs("dfold", "db1", "dwht", "dbht"), i8["k3", "loss_grad"],
+        ("int8_loss_grad_sm90", LOSS90_SOURCE, K3_REPLACES, c3["grad_sm90"],
+         k3_abs("dfold", "db1", "dwht", "dbht"), i8["k3", "loss_grad90"],
          lc["plain_ms"],
+         min(bound(fold_io + i8_w + dz2_b + ws + parts + a1c,
+                   (gemm, PEAK_INT8), (2 * head[0], PEAK_FP32)),
+             bound(fold_io + 2 * i8_w + dz2_b + ws + parts,
+                   (2 * gemm, PEAK_INT8), (2 * head[0], PEAK_FP32))), None),
+        ("int8_grouped_dw_sm90", LOSS90_SOURCE, K3_REPLACES, c3["dw_sm90"],
+         k3_abs("dw1"), i8["k3", "dw90"], lc["plain_ms"],
+         bound(ws + 15 * h * h * f4, (gemm, PEAK_INT8)), None),
+        ("int8_loss_fwd", LOSS_SOURCE, K3_REPLACES, col["fwd"],
+         col_err, t7["loss_fwd"], lc["plain_ms"],
+         bound(fold_io + i8_w + yt_b + dz2_b + 2 * blocks * f4,
+               (gemm, PEAK_INT8), head), None),
+        ("int8_loss_grad", LOSS_SOURCE, K3_REPLACES, col["grad"],
+         col_err, t7["loss_grad"], lc["plain_ms"],
          bound(fold_io + 2 * i8_w + dz2_b + ws + parts,
                (2 * gemm, PEAK_INT8), (3 * head[0], PEAK_FP32)), None),
-        ("int8_grouped_dw_k3", INT8_SOURCE, K3_REPLACES, c3["dw"],
-         k3_abs("dw1"), i8["k3", "dw"], lc["plain_ms"],
+        ("int8_grouped_dw_k3", INT8_SOURCE, K3_REPLACES, col["dw"],
+         col_err, t7["dw"], lc["plain_ms"],
          bound(ws + splits * h * h * f4, (gemm, PEAK_INT8)), None),
         ("int8_loss_sum_rows", BWD_SOURCE, K3_REPLACES, c3["sum"],
          k3_abs(*INT8_GRADS), i8["k3", "sum_rows"], lc["plain_ms"],
@@ -3157,8 +3571,10 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
     ]
     for model, (row, case) in FAMILY_ROWS.items():
         r = res["families"][case, "bfloat16"]
-        rows.append((row, LOSS_SOURCE, K3_REPLACES,
-                     fam_counts[model]["k3"]["fwd"],
+        src = LOSS_SOURCE if model == "colored" else LOSS90_SOURCE
+        rows.append((row, src, K3_REPLACES,
+                     fam_counts[model]["k3"]["fwd"]
+                     + fam_counts[model]["k3"]["fwd_sm90"],
                      max(r[n][0] for n in INT8_GRADS), r["ms"],
                      r["plain_ms"], r["bound"], None))
     t_gemm = 2.0 * tb * hw * h * h
@@ -3529,6 +3945,9 @@ KB_GROUPED = ("gemm1", "gemm2", "gemm1+vpu", "vpu-only", "gemm1+ivpu",
 KB_PROFILED = ("fused-plain", "fused-loss", "bwd", "bwd-fixscale")
 KB_PASSES = {"scale": "int8_bwd_scale", "grad": "int8_bwd_grad",
              "loss_fwd": "loss_fwd_kernel", "loss_grad": "loss_grad_kernel",
+             "loss_fwd90": "loss_fwd90_kernel",
+             "loss_grad90": "loss_grad90_kernel",
+             "dw90": "grouped_dw90_kernel",
              "fwd": "int8_fwd_kernel", "dw": "grouped_dw_kernel",
              "sum_rows": "sum_rows_kernel"}
 KB_PT = 2048            # the tool's default pixels per step
@@ -3668,7 +4087,7 @@ def kb_readings(torch, b: int, timed: bool) -> dict:
     return out
 
 
-def kb_profile(torch, run, arrays, tries: int = 3) -> None:
+def kb_profile(torch, run, arrays, tries: int = 6, name=None) -> None:
     """One call of ``run`` at the tool's defaults under torch.profiler: the
     device ms and kernel count of each of KB_PASSES, and the busy ms.  A
     trace with fewer kernels than kernel launches (the profiler has dropped
@@ -3699,7 +4118,7 @@ def kb_profile(torch, run, arrays, tries: int = 3) -> None:
         if ks:
             fields[f"{label}_ms"] = f"{sum(ks) / 1e3:.3f}"
             fields[f"{label}_n"] = len(ks)
-    log("kernel_bench_profile", run=run.name,
+    log("kernel_bench_profile", run=name or run.name,
         busy_ms=f"{_busy_us(kernels) / 1e3:.3f}", kernels=len(kernels),
         launches=launched, complete=len(kernels) >= launched, tries=attempt,
         **fields)
@@ -3729,12 +4148,26 @@ def phase_kernel_bench(torch) -> list:
     readings = kb_readings(torch, KB_B, timed=True)
     arrays = tool.make_arrays(tool.B, tool.HW, KB_PT, DEVICE)
     rows, by_run = [], {}
+    with on_block_passes():                  # fused-loss on the block passes
+        loss7 = {r.name: r for r in tool.runs(tool.B, tool.HW,
+                                              KB_PT)}["fused-loss"]
     for run in tool.runs(tool.B, tool.HW, KB_PT):
         extra = run.prepare(arrays) if run.prepare else {}
         arrays.update(extra)
         run.fn(arrays)
-        ms = statistics.median([cuda_ms(lambda: run.fn(arrays), torch)
-                                for _ in range(KB_TIMED)])
+        ab = {}
+        if run.name == "fused-loss":
+            # the cluster passes in turns with the block passes
+            ab = in_turns(torch, {"sm90": lambda: run.fn(arrays),
+                                  "block": lambda: loss7.fn(arrays)}, KB_TIMED)
+            ms = ab["sm90"][0]
+            kb_profile(torch, loss7, arrays, name="fused-loss_block")
+            ab = {"block_ms": f"{ab['block'][0]:.4f}",
+                  "turns": " ".join(f"{k}:{t:.4f}" for k in ("block", "sm90")
+                                    for t in ab[k][1])}
+        else:
+            ms = statistics.median([cuda_ms(lambda: run.fn(arrays), torch)
+                                    for _ in range(KB_TIMED)])
         lib = (graph_ms(torch, run.library(arrays), run.steps)
                if run.library else None)
         bd = bound(run.nbytes, (run.int8_ops, PEAK_INT8),
@@ -3751,7 +4184,7 @@ def phase_kernel_bench(torch) -> list:
             bound_ms=f"{bd[0]:.4f}", bound_by=bd[1],
             library_ms="-" if lib is None else f"{lib:.4f}",
             words_differ=r["differ"], max_abs_err=f"{r['err']:.3e}",
-            **r["fields"])
+            **r["fields"], **ab)
         for k in extra:
             del arrays[k]
         torch.cuda.empty_cache()
@@ -3768,11 +4201,11 @@ def phase_kernel_bench(torch) -> list:
     log("kernel_bench", package_runs=",".join(KB_PACKAGE_RUNS),
         k4_launches=launches.get(("d8", "fwd"), 0),
         k5_launches=launches.get(("d8", "bwd_grad"), 0),
-        k3_launches=launches.get(("l8", "grad"), 0),
+        k3_launches=launches.get(("l8", "grad_sm90"), 0),
         k8_launches=launches.get(("lt", "grad"), 0),
         main_seconds=f"{t_main:.1f}",
         seconds=f"{time.perf_counter() - t0:.1f}")
-    for key in (("d8", "bwd_grad"), ("l8", "grad"), ("lt", "grad")):
+    for key in (("d8", "bwd_grad"), ("l8", "grad_sm90"), ("lt", "grad")):
         if launches.get(key, 0) < 1:
             raise AssertionError(f"kernel_bench: {key} not launched")
     return rows
@@ -3883,6 +4316,66 @@ def default_width_times() -> dict:
     return out
 
 
+# the translation units this slice leaves as they were: K4/K5 (and T1's K5
+# modes) and K3's block, lever and wide instantiations
+SASS_UNITS = ("fused_decoder_int8.cu", "kernel_bench_bwd.cu",
+              "fused_loss_int8.cu", "fused_loss_int8_levers.cu",
+              "fused_loss_int8_wide.cu")
+
+
+def phase_sass(args) -> int:
+    """``--sass PARENT``: SASS_UNITS compiled from this checkout and from
+    the parent's (a directory holding its files) with the library's flags,
+    compared function by function (the anonymous namespace's mangled name,
+    which carries a hash of the file's path, set aside)."""
+    import re
+
+    from spatialvae_torch.kernels import _build
+
+    if len(args) != 1 or not os.path.isdir(args[0]):
+        print("usage: chip_smoke.py --sass PARENT_DIR", file=sys.stderr)
+        return 2
+    nvcc = _build._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    anon = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
+    trees = {"parent": os.path.join(os.path.abspath(args[0]),
+                                    "spatialvae_torch", "kernels", "csrc"),
+             "this": str(_build.CSRC)}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for tree, d in trees.items():
+            for unit in SASS_UNITS:
+                o = os.path.join(tmp, f"{tree}_{unit}.o")
+                procs.append((o, subprocess.Popen(
+                    [nvcc, *_build.NVCC_FLAGS, "-c", "-o", o,
+                     os.path.join(d, unit)], stderr=subprocess.PIPE,
+                    text=True)))
+        for o, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {o}:\n{err[-3000:]}")
+
+        def functions(o):
+            text = anon.sub("ANON", subprocess.run(
+                [cuobjdump, "-sass", o], capture_output=True,
+                text=True).stdout)
+            funcs = {}
+            for part in text.split("Function : ")[1:]:
+                name, _, body = part.partition("\n")
+                funcs[name.strip()] = body
+            return funcs
+
+        differ = 0
+        for unit in SASS_UNITS:
+            a = functions(os.path.join(tmp, f"parent_{unit}.o"))
+            b = functions(os.path.join(tmp, f"this_{unit}.o"))
+            equal = sum(1 for k in a if b.get(k) == a[k])
+            differ += len(a) + len(b) - 2 * equal
+            log("sass", unit=unit, parent_functions=len(a),
+                this_functions=len(b), equal=equal)
+    return 1 if differ else 0
+
+
 def phase_default_width_ab(args) -> int:
     """``--default-width PARENT``: K1-K5 at the default width in this
     checkout and in the parent's (a directory holding its files), in the
@@ -3933,11 +4426,16 @@ def main() -> int:
     kind, card = phase_device(torch)
     if sys.argv[1:2] == ["--default-width"]:
         return phase_default_width_ab(sys.argv[2:])
+    if sys.argv[1:2] == ["--sass"]:
+        return phase_sass(sys.argv[2:])
     phase_build()
     if sys.argv[1:] == ["--limits"]:
         phase_limits(torch)
         phase_limits_numerics(torch)
         phase_limits_wide(torch)
+        return 0
+    if sys.argv[1:] == ["--limits", "k3"]:
+        phase_limits_k3(torch)
         return 0
     if sys.argv[1:] == ["--limits", "numerics"]:
         phase_limits_numerics(torch)
@@ -3951,8 +4449,10 @@ def main() -> int:
     if sys.argv[1:] == ["--limits", "kernel_bench"]:
         phase_limits_kernel_bench(torch)
         return 0
+    ptxas = start_ptxas_report(LOSS90_SOURCE)
     res = phase_kernels(torch)
     bwd = phase_backward(torch)
+    res["k3_sm90"] = phase_k3_sm90(torch, ptxas)
     res["int8"] = phase_int8_kernels(torch)
     res["families"] = phase_loss_families(torch)
     res["sr"] = phase_loss_sr(torch)
@@ -3969,8 +4469,10 @@ def main() -> int:
         launches = phase_slice(torch, tmpdir)
         counts, step_ms = phase_train(torch, tmpdir)
         i8 = phase_train_int8(torch, tmpdir)
-        fam_counts = {name: phase_train_family(torch, name, tmpdir)
-                      for name in FAMILY_MODELS}
+        fam = {name: phase_train_family(torch, name, tmpdir)
+               for name in FAMILY_MODELS}
+        fam_counts = {name: r[0] for name, r in fam.items()}
+        res["fam_prof"] = {name: r[1] for name, r in fam.items()}
         knobs = {tag: phase_train_knobs(torch, tag, env, on_grid, kernel)
                  for tag, env, on_grid, kernel in KNOB_PATHS}
         tw = phase_train_wide(torch)

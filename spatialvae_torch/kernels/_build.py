@@ -51,9 +51,14 @@ _SIGNATURES = {
     "svt_int8_decoder_bwd_scale": ([_P] * 11 + [_I] * 5 + [_P], _I),
     "svt_int8_decoder_bwd_grad": ([_P] * 17 + [_I] * 7 + [_P], _I),
     "svt_int8_grouped_dw": ([_P] * 4 + [_I] * 6 + [_P], _I),
-    "svt_loss_int8_fwd": ([_P] * 13 + [_I] * 8 + [_F, _F, _I, _P], _I),
+    "svt_loss_int8_fwd": ([_P] * 13 + [_I] * 8 + [_F, _F, _I, _I, _P], _I),
     "svt_loss_int8_grad": ([_P] * 17 + [_I] * 7 + [_F, _F, _I, _F, _F, _I,
-                                                    _P], _I),
+                                                    _I, _I, _P], _I),
+    "svt_loss90_dw": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    "svt_loss90_max_clusters": ([_I], _I),
+    "svt_sm90_tile_product": ([_P] * 3 + [_I] * 2 + [_P], _I),
+    "svt_loss90_chain_check": ([_P, _P], _I),
+    "svt_loss90_stash_block": ([_I], _L),
     "svt_philox4x32_10": ([_P, _P, _I, ctypes.c_uint, ctypes.c_uint, _P],
                           _I),
     "svt_probe_gemm": ([_P] * 5 + [_I] * 10 + [_P], _I),

@@ -34,6 +34,16 @@ bool bad_shape(int B, int HW, int H, int No) {
          No > MAX_NO || double(B) * (HW / PT) > 2147483647.0;
 }
 
+// Whether the cluster passes (fused_loss_int8_sm90.cu) take a call: the
+// default numerics (no mode bit, level 7) at H <= 512 in the Bernoulli or
+// Gaussian family, over pixel counts and groups that are multiples of 256
+// (a cluster's four blocks lie in one group).  The wrapper chooses the
+// route; the entry points refuse the cluster route where this is false.
+bool sm90_takes(int HW, int H, int Pt, int family, int mode, float lf) {
+  return H <= MAX_H && family != COLORED && mode == 0 && lf == 7.f &&
+         HW % (4 * PT) == 0 && Pt % (4 * PT) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -47,16 +57,21 @@ extern "C" {
 // (2,HW/2) pre-paired.  lf: a0's quantisation level (7 or 127); mode: the
 // Mode bits (TILE: part_max gets each block's max |dh1|, else max |dz2|);
 // swht: the int8 head's scale under A1Q (wht then holds whtq).  For
-// H > 512, ws holds B*HW/64 * svt_int8_ws_block(H) bytes.
+// H > 512, ws holds B*HW/64 * svt_int8_ws_block(H) bytes.  `sm90` 1 runs
+// the cluster passes (w1fT then holds W1f^T's slab stream; refused where
+// sm90_takes is false), 0 the block passes.  The cluster passes take `ws`
+// as the stash of a1c that the forward leaves for the gradient pass:
+// B*HW/64 * svt_loss90_stash_block bytes.
 int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
                       const void* h1s, const void* b1, const void* wht,
                       const void* bht, const void* yt, const void* mask,
                       void* dz2, void* part_max, void* part_bce, void* ws,
                       int B, int HW, int H, int No, int Pt, int yt_i8,
                       int family, int bf16, float lf, float swht, int mode,
-                      void* stream) {
+                      int sm90, void* stream) {
   if (bad_shape(B, HW, H, No) || family < BERNOULLI || family > COLORED ||
-      (H > MAX_H && ws == nullptr))
+      (H > MAX_H && ws == nullptr) ||
+      (sm90 && !sm90_takes(HW, H, Pt, family, mode, lf)))
     return int(cudaErrorInvalidValue);
   const bool colored = family == COLORED;
   if (colored && (No != 2 || Pt < 2 * PT || Pt % (2 * PT) || HW % Pt))
@@ -80,7 +95,9 @@ int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool tile = mode & TILE;
   cudaError_t err;
-  if (H > MAX_H)
+  if (sm90)
+    err = loss_fwd_sm90(a, bf16, st);
+  else if (H > MAX_H)
     err = loss_fwd_wide(a, bf16, colored, tile, st);
   else if (mode & LEVERS)
     err = loss_fwd_levers(a, bf16, colored, tile, st);
@@ -98,7 +115,11 @@ int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
 // swht: the int8 head's scale under A1Q (wht then holds whtq and gb the
 // bound over it); cut: the last phase under CUT (4..7 here: the host runs
 // no gradient pass below 4).  For H > 512, ws holds Bc*HW/64 *
-// svt_int8_ws_block(H) bytes.
+// svt_int8_ws_block(H) bytes.  `sm90` chooses the route as in
+// svt_loss_int8_fwd (refused for the cluster passes unless lv is 7 too);
+// the cluster passes take W1f^T's and W1r's slab streams and write aq_ws,
+// q_ws as Bc*HW/64 blocks of 512 x 64 bytes, reading the a1c stash `ws`
+// that svt_loss_int8_fwd wrote for the same Bc images.
 int svt_loss_int8_grad(const void* fold, const void* coords, const void* w1fT,
                        const void* w1r, const void* h1s, const void* s4,
                        const void* gb, const void* b1, const void* wht,
@@ -106,10 +127,11 @@ int svt_loss_int8_grad(const void* fold, const void* coords, const void* w1fT,
                        void* aq_ws, void* q_ws, void* part_fold,
                        void* part_w, void* ws, int b0, int Bc, int HW, int H,
                        int No, int Pt, int bf16, float lf, float lv,
-                       int mode, float dbk, float swht, int cut,
-                       void* stream) {
+                       int mode, float dbk, float swht, int cut, int family,
+                       int sm90, void* stream) {
   if (bad_shape(Bc, HW, H, No) || b0 < 0 || Pt < PT || Pt % PT || HW % Pt ||
-      (H > MAX_H && ws == nullptr) || ((mode & CUT) && (cut < 4 || cut > 8)))
+      (H > MAX_H && ws == nullptr) || ((mode & CUT) && (cut < 4 || cut > 8)) ||
+      (sm90 && !(sm90_takes(HW, H, Pt, family, mode, lf) && lv == 7.f)))
     return int(cudaErrorInvalidValue);
   const int blocks = HW / PT;
   LossGradArgs a{static_cast<const float*>(fold),
@@ -134,7 +156,9 @@ int svt_loss_int8_grad(const void* fold, const void* coords, const void* w1fT,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool sr = mode & SR;
   cudaError_t err;
-  if (H > MAX_H)
+  if (sm90)
+    err = loss_grad_sm90(a, bf16, st);
+  else if (H > MAX_H)
     err = loss_grad_wide(a, bf16, sr, st);
   else if (mode & LEVERS)
     err = loss_grad_levers(a, bf16, sr, st);

@@ -157,6 +157,12 @@ cudaError_t loss_grad_levers(const LossGradArgs& a, bool bf16, bool sr,
                              cudaStream_t st);
 cudaError_t loss_grad_wide(const LossGradArgs& a, bool bf16, bool sr,
                            cudaStream_t st);
+// The cluster passes of fused_loss_int8_sm90.cu (the default numerics at
+// H <= 512, Bernoulli and Gaussian, pixel counts and groups multiples of
+// 256): `grid` counts the 64-pixel blocks of the launch.
+cudaError_t loss_fwd_sm90(const LossFwdArgs& a, bool bf16, cudaStream_t st);
+cudaError_t loss_grad_sm90(const LossGradArgs& a, bool bf16,
+                           cudaStream_t st);
 
 }  // namespace svt8
 

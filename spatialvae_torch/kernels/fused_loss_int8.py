@@ -134,13 +134,159 @@ FAMILIES = ("bernoulli", "gaussian", "colored")
 # Kernel launches on CUDA tensors: the forward pass (loss, dz2 and each
 # block's max |dz2|), the gradient pass (quantisation, da0, the per-block
 # partials, the int8 workspaces), the split-K dW1 kernel (shared with K5,
-# counted here for K3's calls) and the fixed-order reductions.
-LAUNCHES = {"fwd": 0, "grad": 0, "dw": 0, "sum": 0}
+# counted here for K3's calls) and the fixed-order reductions; the cluster
+# passes (``k3_route`` "sm90") count under their own keys.
+LAUNCHES = {"fwd": 0, "grad": 0, "dw": 0, "sum": 0, "fwd_sm90": 0,
+            "grad_sm90": 0, "dw_sm90": 0}
+
+# The cluster passes (csrc/fused_loss_int8_sm90.cu): CLUSTER CTAs, each a
+# 64-pixel block, four consecutive blocks of one quantisation group; every
+# operand padded to CLUSTER_WIDTH hidden rows; W1 streamed in slabs of
+# SLAB_K K-bytes by CLUSTER_WIDTH rows.
+CLUSTER = 4
+CLUSTER_WIDTH = 512
+SLAB_K = 64
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def k3_mode(nm: Numerics, t_mode: Optional[str] = None) -> tuple:
+    """(the kernels' Mode bits, DB1_QI's pad-row constant) of a K3 call at
+    ``nm``, or of K8's ``t_mode`` ("i4"/"i8")."""
+    mode = ((_TILE if nm.k3_gscale == "tile" else 0)
+            | (_EPI_F32 if nm.epi == "f32" else 0) | (_SR if nm.sr else 0)
+            | (_PADE if nm.tanh == "pade" else 0)
+            | (_A1Q if nm.k3_a1q else 0) | (_CUT if nm.k3_cut < 8 else 0))
+    dbk = 0.0
+    if t_mode is not None:
+        mode |= _TILE | _DB1_QI | (_AQ4_WS if t_mode == "i4" else 0)
+        dbk = PAD_K[t_mode]
+    elif nm.k3_db1_qi:                 # sum qi * sg: the pad-row constant 1
+        mode |= _DB1_QI
+        dbk = 1.0
+    return mode, dbk
+
+
+def k3_route(hw: int, h: int, pt: int, family: str, nm: Numerics,
+             t_mode: Optional[str] = None, block_passes: bool = False) -> str:
+    """The passes a K3 call runs on the card: "sm90", the cluster passes,
+    for the default numerics (no mode bit, both levels 7) at H <= 512 in the
+    Bernoulli or Gaussian family over pixel counts and groups that are
+    multiples of 256; else "block", the block passes, which also take every
+    call whose caller asks for them (``block_passes``).  The route is
+    chosen here alone: ``launch_loss`` passes it to both C entry points,
+    which refuse the cluster route for a call the passes do not take."""
+    mode, _ = k3_mode(nm, t_mode)
+    quad = CLUSTER * BLOCK_PIXELS
+    if (not block_passes and mode == 0 and nm.fwd_level == 7
+            and nm.grad_level == 7 and h <= CLUSTER_WIDTH
+            and family != "colored" and hw % quad == 0 and pt % quad == 0):
+        return "sm90"
+    return "block"
+
+
+def _swizzle64(t: torch.Tensor) -> torch.Tensor:
+    """(..., R, 4, 16) rows of 64 bytes -> wgmma's 64-byte swizzle: chunk c
+    of row r to chunk c ^ ((r >> 1) & 3) (``csrc/sm90.cuh``
+    ``offset_sw64``); its own inverse."""
+    r = torch.arange(t.shape[-3], device=t.device)
+    idx = torch.arange(4, device=t.device)[None, :] ^ ((r[:, None] >> 1) & 3)
+    idx = idx[..., None].expand(t.shape[-3:])
+    return torch.gather(t, -2, idx.expand(t.shape))
+
+
+def sm90_slabs(w: torch.Tensor) -> torch.Tensor:
+    """An (H, H) int8 matrix given as rows [n][k] -> the cluster passes' slab
+    stream: zero-padded to (CLUSTER_WIDTH, Kp), cut into Kp/SLAB_K slabs of
+    K-bytes SLAB_K*s .. +SLAB_K-1, each slab (CLUSTER_WIDTH, SLAB_K) in
+    wgmma's 64-byte swizzled K-major layout: (n, k) at n * 64 +
+    ((k // 16) ^ ((n >> 1) & 3)) * 16 + k % 16 of its slab.  One contiguous
+    (Kp * CLUSTER_WIDTH,) int8 tensor: every quarter of a slab is one bulk
+    copy."""
+    kp = padded_hidden(w.shape[1])
+    p = F.pad(w, (0, kp - w.shape[1], 0, CLUSTER_WIDTH - w.shape[0]))
+    t = p.reshape(CLUSTER_WIDTH, kp // SLAB_K, 4, 16).transpose(0, 1)
+    return _swizzle64(t.contiguous()).reshape(-1)
+
+
+def sm90_ws_layout(tiles: torch.Tensor) -> torch.Tensor:
+    """(N, HW, CLUSTER_WIDTH) int8 tiles (pixel rows) -> the cluster passes'
+    dW1 operand workspace: per (image, 64-pixel block) a (CLUSTER_WIDTH, 64)
+    block in wgmma's 64-byte swizzled layout, row n, pixel p = 16 w + g +
+    8 h at position 16 w + 2 g + h of the row (the accumulator rows' order:
+    dW1 sums over a group's pixels, so any order serves), i.e. at byte
+    n * 64 + (w ^ ((n >> 1) & 3)) * 16 + 2 g + h."""
+    n, hw, kw = tiles.shape
+    t = tiles.reshape(n, hw // BLOCK_PIXELS, 4, 2, 8, kw)
+    t = t.permute(0, 1, 5, 2, 4, 3).reshape(n, hw // BLOCK_PIXELS, kw, 4, 16)
+    return _swizzle64(t.contiguous()).reshape(-1)
+
+
+def sm90_ws_tiles(ws: torch.Tensor, n: int, hw: int) -> torch.Tensor:
+    """``sm90_ws_layout``' inverse: (N, HW, CLUSTER_WIDTH) int8."""
+    blocks = hw // BLOCK_PIXELS
+    t = _swizzle64(ws.reshape(n, blocks, CLUSTER_WIDTH, 4, 16))
+    t = t.reshape(n, blocks, CLUSTER_WIDTH, 4, 8, 2)
+    return t.permute(0, 1, 3, 5, 4, 2).reshape(n, hw, CLUSTER_WIDTH)
+
+
+def grouped_dw90_reference(aq_ws: torch.Tensor, q_ws: torch.Tensor,
+                           gscale: torch.Tensor, nimg: int, hw: int, h: int,
+                           pt: int, splits: int) -> torch.Tensor:
+    """The plain version of the cluster passes' dW1 kernel
+    (``svt_loss90_dw``): (splits, H, H) f32 partials from the workspaces of
+    ``nimg`` images, groups of ``pt`` pixels spread over the splits as
+    ``svt_int8_grouped_dw`` spreads them; each group's exact product
+    (float64, rounded to f32 as the kernel's int32 is) times its scale,
+    added in group order within its split, every op rounded to f32 as the
+    kernel rounds it, so the kernel's partials are these bit for bit."""
+    a = sm90_ws_tiles(aq_ws, nimg, hw)[..., :h].double()
+    q = sm90_ws_tiles(q_ws, nimg, hw)[..., :h].double()
+    groups = nimg * (hw // pt)
+    per = -(-groups // splits)
+    a, q = a.reshape(groups, pt, h), q.reshape(groups, pt, h)
+    out = torch.zeros((splits, h, h), dtype=torch.float32, device=a.device)
+    for gi in range(groups):
+        s = gi // per
+        out[s] = out[s] + (a[gi].T @ q[gi]).float() * gscale[gi]
+    return out
+
+
+def cluster_schedule(blocks_total: int, clusters: int) -> list:
+    """The cluster passes' walk: for each CTA (cluster c, rank r, in launch
+    order) the flattened (image, 64-pixel block) indices it runs, in turn:
+    block CLUSTER * q + r of quads q = c, c + C, ... with C = min(quads,
+    ``clusters``) clusters (the kernels' ``block_of``)."""
+    quads = blocks_total // CLUSTER
+    ncl = min(quads, clusters)
+    return [[q * CLUSTER + r for q in range(c, quads, ncl)]
+            for c in range(ncl) for r in range(CLUSTER)]
+
+
+def loss_workspace_bytes(hw: int, h: int, route: str, block: int = 0) -> int:
+    """Bytes of K3's workspaces per image: the dW1 operands aq and qi,
+    (Kp, HW) int8 each on the block route, (CLUSTER_WIDTH, HW) on the cluster
+    route, and ``block`` bytes per 64-pixel block (the block route's wide
+    tiles, the cluster route's a1c stash)."""
+    rows = CLUSTER_WIDTH if route == "sm90" else padded_hidden(h)
+    return 2 * rows * hw + hw // BLOCK_PIXELS * block
+
+
+def stash_block_bytes(bf16: bool) -> int:
+    """Bytes of the cluster route's a1c stash per 64-pixel block: a1c of 64
+    pixels x CLUSTER_WIDTH columns, bf16 or f32 as the weights
+    (``svt_loss90_stash_block``)."""
+    return BLOCK_PIXELS * CLUSTER_WIDTH * (2 if bf16 else 4)
+
+
+def dw_splits90(groups: int) -> int:
+    """Split-K partials of the cluster route's dW1 kernel: 16 CTAs (four
+    clusters) per split, 15 splits, two full waves of the 30 clusters of 4
+    an H100 holds at once; at most one split per group."""
+    return max(1, min(groups, 15))
 
 
 def quant_sym4(w: torch.Tensor):
@@ -586,7 +732,7 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
                   family: str = "bernoulli",
                   workspace_bytes: Optional[int] = None,
                   numerics: Optional[Numerics] = None,
-                  ints: bool = False) -> tuple:
+                  ints: bool = False, block_passes: bool = False) -> tuple:
     """K3's five outputs (see ``loss_int8_reference``) at ``numerics``
     (default: the environment's).  CPU tensors take the plain version; CUDA
     tensors launch the kernels, counting each in ``LAUNCHES``, and raise if
@@ -607,7 +753,12 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
     feature-major workspaces; a split-K kernel computes dW1 group by group;
     fixed-order reductions add the partials, so two runs agree bit for bit.
     Images go through the workspaces in chunks that fit ``workspace_bytes``
-    (default ``workspace_budget``)."""
+    (default ``workspace_budget``).
+
+    Calls that ``k3_route`` sends to "sm90" run the cluster passes instead
+    (csrc/fused_loss_int8_sm90.cu: the same outputs, W1 streamed once per
+    four blocks, int8 wgmma); ``block_passes`` sends them to the passes
+    above, for a caller that compares the two designs on one card."""
     _check(fold, coords, w1, b1, wht, bht, y_t, mask, family)
     nm = _resolve(numerics)
     if fold.device.type == "cpu":
@@ -615,7 +766,7 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
                                    mask, family, numerics=nm, ints=ints)
     return launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family, nm,
                        pick_tile(coords.shape[0]), None, workspace_bytes,
-                       ints, LAUNCHES)
+                       ints, LAUNCHES, block_passes)
 
 
 # the kernels' Mode bits (csrc/fused_loss_int8.cuh)
@@ -626,34 +777,31 @@ _PADE, _A1Q, _CUT = 32, 64, 128
 def launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family,
                 nm: Numerics, pt: int, t_mode: Optional[str],
                 workspace_bytes: Optional[int], ints: bool,
-                launches: dict) -> tuple:
+                launches: dict, block_passes: bool = False) -> tuple:
     """The K3 kernels on CUDA tensors at ``nm`` over groups of ``pt``
     pixels, or K8's modes of them (``t_mode`` "i4" or "i8": the tile scale,
     db1 from the rounded tile, and for "i4" the 4-bit a0 as dW1's operand),
-    each launch counted in ``launches``.  Returns what ``loss_reference``
-    returns."""
+    on the passes ``k3_route`` names, each launch counted in ``launches``
+    (the cluster passes' under their "_sm90" keys).  Returns what
+    ``loss_reference`` returns."""
     lib = _lib()
     dev = fold.device
     b, _, h = fold.shape
     hw, no = coords.shape[0], wht.shape[0]
     gpi = hw // pt
     blocks = hw // BLOCK_PIXELS
-    kp = padded_hidden(h)
     lf, lv = nm.fwd_level, nm.grad_level
-    mode = ((_TILE if nm.k3_gscale == "tile" else 0)
-            | (_EPI_F32 if nm.epi == "f32" else 0) | (_SR if nm.sr else 0)
-            | (_PADE if nm.tanh == "pade" else 0)
-            | (_A1Q if nm.k3_a1q else 0) | (_CUT if nm.k3_cut < 8 else 0))
+    mode, dbk = k3_mode(nm, t_mode)
     cut = nm.k3_cut
-    dbk = 0.0
-    if t_mode is not None:
-        mode |= _TILE | _DB1_QI | (_AQ4_WS if t_mode == "i4" else 0)
-        dbk = PAD_K[t_mode]
-    elif nm.k3_db1_qi:                 # sum qi * sg: the pad-row constant 1
-        mode |= _DB1_QI
-        dbk = 1.0
+    route = k3_route(hw, h, pt, family, nm, t_mode, block_passes)
+    fam = FAMILIES.index(family)
+    sm90 = int(route == "sm90")
+    sfx = "_sm90" if sm90 else ""
     w1f, h1s, gb, w1r, s4 = loss_operands(w1.detach(), wht.detach(), nm)
-    w1ft, w1r = pad_square(w1f.T), pad_square(w1r)
+    if route == "sm90":
+        w1ft, w1r = sm90_slabs(w1f.T), sm90_slabs(w1r)
+    else:
+        w1ft, w1r = pad_square(w1f.T), pad_square(w1r)
     b1f, whtf, bhtf = (t.detach().float().contiguous() for t in (b1, wht, bht))
     swht = 1.0
     if nm.k3_a1q:
@@ -680,51 +828,78 @@ def launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family,
     part_w = torch.empty((b * blocks, mw), **f32)
     budget = workspace_budget(dev) if workspace_bytes is None \
         else workspace_bytes
-    block = lib.svt_int8_ws_block(h)               # the wide tiles
-    chunks = image_chunks(b, 2 * kp * hw + blocks * block, budget)
+    bf16 = int(w1.dtype == torch.bfloat16)
+    if route == "sm90":                            # the a1c stash
+        block = lib.svt_loss90_stash_block(bf16)
+    else:                                          # the wide tiles
+        block = lib.svt_int8_ws_block(h)
+    chunks = image_chunks(b, loss_workspace_bytes(hw, h, route, block),
+                          budget)
     if ints and len(chunks) > 1:
         raise ValueError("ints needs the images in one workspace chunk")
     bc = chunks[0][1]
-    aq_ws = torch.empty((bc, kp, hw), dtype=torch.int8, device=dev)
-    q_ws = torch.empty((bc, kp, hw), dtype=torch.int8, device=dev)
-    # the forward pass's launches (one at H <= 512) and the wide tiles
-    fwd_chunks = chunks if block else [(0, b)]
+    rows = CLUSTER_WIDTH if route == "sm90" else padded_hidden(h)
+    aq_ws = torch.empty((bc, rows, hw), dtype=torch.int8, device=dev)
+    q_ws = torch.empty((bc, rows, hw), dtype=torch.int8, device=dev)
     ws = (torch.empty((bc * blocks * block,), dtype=torch.uint8, device=dev)
           if block else None)
     ysz = yt.element_size() * yt[0].numel()
-    part_dw = torch.empty((sum(dw_splits(n * gpi) for _, n in chunks), h, h),
+    splits_of = dw_splits90 if route == "sm90" else dw_splits
+    part_dw = torch.empty((sum(splits_of(n * gpi) for _, n in chunks), h, h),
                           **f32)
-    bf16 = int(w1.dtype == torch.bfloat16)
+    split0 = 0
+
+    def forward(b0, n, st):
+        _call(lib, "svt_loss_int8_fwd", fold.data_ptr() + b0 * 4 * h * 4,
+              coords.data_ptr(), w1ft.data_ptr(), h1s.data_ptr(),
+              b1f.data_ptr(), whtf.data_ptr(), bhtf.data_ptr(),
+              yt.data_ptr() + b0 * ysz, ptr(mk),
+              dz2.data_ptr() + b0 * no * hw * 4,
+              part_max.data_ptr() + b0 * blocks * 4,
+              part_bce.data_ptr() + b0 * blocks * 4, ptr(ws), n, hw, h, no,
+              pt, int(yt_i8), fam, bf16, float(lf), swht, mode, sm90, st)
+        launches["fwd" + sfx] += 1
+
+    def gradient(b0, n, st):
+        nonlocal split0
+        _call(lib, "svt_loss_int8_grad", fold.data_ptr(),
+              coords.data_ptr(), w1ft.data_ptr(), w1r.data_ptr(),
+              h1s.data_ptr(), s4.data_ptr(), gb.data_ptr(),
+              b1f.data_ptr(), whtf.data_ptr(), dz2.data_ptr(),
+              part_max.data_ptr(), gscale.data_ptr(), aq_ws.data_ptr(),
+              q_ws.data_ptr(), part_fold.data_ptr(), part_w.data_ptr(),
+              ptr(ws), b0, n, hw, h, no, pt, bf16, float(lf), float(lv),
+              mode, dbk, swht, cut, fam, sm90, st)
+        launches["grad" + sfx] += 1
+        if cut < 6:
+            return
+        if route == "sm90":
+            splits = dw_splits90(n * gpi)
+            _call(lib, "svt_loss90_dw", aq_ws.data_ptr(), q_ws.data_ptr(),
+                  gscale[b0 * gpi:].data_ptr(), part_dw[split0:].data_ptr(),
+                  n, hw, h, pt, splits, st)
+            split0 += splits
+        else:
+            split0 += run_grouped_dw(lib, aq_ws, q_ws, gscale[b0 * gpi:],
+                                     part_dw[split0:], n, hw, h, pt, gpi, st)
+        launches["dw" + sfx] += 1
+
     with torch.cuda.device(dev):
         st = _stream(fold)
-        for b0, n in fwd_chunks:
-            _call(lib, "svt_loss_int8_fwd", fold.data_ptr() + b0 * 4 * h * 4,
-                  coords.data_ptr(), w1ft.data_ptr(), h1s.data_ptr(),
-                  b1f.data_ptr(), whtf.data_ptr(), bhtf.data_ptr(),
-                  yt.data_ptr() + b0 * ysz, ptr(mk),
-                  dz2.data_ptr() + b0 * no * hw * 4,
-                  part_max.data_ptr() + b0 * blocks * 4,
-                  part_bce.data_ptr() + b0 * blocks * 4, ptr(ws), n, hw, h, no,
-                  pt, int(yt_i8), FAMILIES.index(family), bf16, float(lf),
-                  swht, mode, st)
-            launches["fwd"] += 1
-        split0 = 0
-        # a phase cut below 4 runs no gradient pass, below 6 no dW1
-        for b0, n in (chunks if cut >= 4 else []):
-            _call(lib, "svt_loss_int8_grad", fold.data_ptr(),
-                  coords.data_ptr(), w1ft.data_ptr(), w1r.data_ptr(),
-                  h1s.data_ptr(), s4.data_ptr(), gb.data_ptr(),
-                  b1f.data_ptr(), whtf.data_ptr(), dz2.data_ptr(),
-                  part_max.data_ptr(), gscale.data_ptr(), aq_ws.data_ptr(),
-                  q_ws.data_ptr(), part_fold.data_ptr(), part_w.data_ptr(),
-                  ptr(ws), b0, n, hw, h, no, pt, bf16, float(lf), float(lv),
-                  mode, dbk, swht, cut, st)
-            launches["grad"] += 1
-            if cut >= 6:
-                split0 += run_grouped_dw(lib, aq_ws, q_ws, gscale[b0 * gpi:],
-                                         part_dw[split0:], n, hw, h, pt, gpi,
-                                         st)
-                launches["dw"] += 1
+        if route == "sm90":
+            # chunk by chunk: the forward leaves the chunk's a1c in the
+            # stash for its gradient pass
+            for b0, n in chunks:
+                forward(b0, n, st)
+                gradient(b0, n, st)
+        else:
+            # the forward pass's launches (one at H <= 512, where there are
+            # no wide tiles), then the gradient's; a phase cut below 4 runs
+            # no gradient pass, below 6 no dW1
+            for b0, n in (chunks if block else [(0, b)]):
+                forward(b0, n, st)
+            for b0, n in (chunks if cut >= 4 else []):
+                gradient(b0, n, st)
         dfold = torch.zeros((b, 4, h), **f32)
         dw1 = torch.zeros((h, h), **f32)
         sums = torch.zeros((mw,), **f32)
@@ -751,8 +926,61 @@ def launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family,
            sums[h + no * h:])
     if not ints:
         return out
+    if route == "sm90":
+        return out, tuple(sm90_ws_tiles(ws, b, hw)[..., :h].float()
+                          for ws in (aq_ws, q_ws))
     return out, tuple(ws[:, :h].transpose(1, 2).float() for ws in (aq_ws,
                                                                    q_ws))
+
+
+def sm90_tile_product_reference(a: torch.Tensor,
+                                w: torch.Tensor) -> torch.Tensor:
+    """(N, 64, CLUSTER_WIDTH) int8 tiles times W^T, W (H, H) int8 rows
+    [n][k] zero-padded to CLUSTER_WIDTH: (N, 64, CLUSTER_WIDTH) int32,
+    exact."""
+    wp = torch.zeros((CLUSTER_WIDTH, CLUSTER_WIDTH), dtype=torch.float64,
+                     device=a.device)
+    wp[:w.shape[0], :w.shape[1]] = w.double()
+    return (a.double() @ wp.T).to(torch.int32)
+
+
+def sm90_tile_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The cluster passes' product alone, on CUDA tensors: a (N, 64,
+    CLUSTER_WIDTH) int8 (N a multiple of CLUSTER; columns from padded_hidden(H)
+    on zero) times W^T through W's slab stream, the clusters' multicast ring
+    and int8 wgmma, as ``sm90_tile_product_reference`` computes it."""
+    n = a.shape[0]
+    if (a.device.type != "cuda" or a.dtype != torch.int8 or n % CLUSTER
+            or a.shape[1:] != (BLOCK_PIXELS, CLUSTER_WIDTH)):
+        raise ValueError("a must be CUDA int8 (N, 64, 512), N a multiple "
+                         "of 4")
+    a = a.contiguous()
+    slabs = sm90_slabs(w.to(torch.int8))
+    out = torch.empty((n, BLOCK_PIXELS, CLUSTER_WIDTH), dtype=torch.int32,
+                      device=a.device)
+    with torch.cuda.device(a.device):
+        _call(_lib(), "svt_sm90_tile_product", a.data_ptr(), slabs.data_ptr(),
+              out.data_ptr(), n, padded_hidden(w.shape[0]), _stream(a))
+    return out
+
+
+def sm90_chain_check(device) -> int:
+    """On the card: how many of the 2^32 float inputs x give the cluster
+    passes' a0 chain (seven thresholds found by bisection on the card's
+    tanhf) another level than clip(round(7 tanh(x)), -7, 7)."""
+    n = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(n.device):
+        _call(_lib(), "svt_loss90_chain_check", n.data_ptr(), _stream(n))
+    return int(n.item())
+
+
+def sm90_max_clusters() -> dict:
+    """The clusters of CLUSTER CTAs the card holds at once for each of the
+    cluster passes' kernels (cudaOccupancyMaxActiveClusters)."""
+    lib = _lib()
+    names = ("fwd_bf16", "fwd_f32", "grad_bf16", "grad_f32", "dw",
+             "product")
+    return {k: lib.svt_loss90_max_clusters(i) for i, k in enumerate(names)}
 
 
 def philox_device(ctr: torch.Tensor, key: tuple) -> torch.Tensor:

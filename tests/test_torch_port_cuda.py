@@ -4,7 +4,9 @@ with the residual and with recompute, the differentiable op and a training
 step; the int8 decoder forward and backward (K4, K5), the fused int8 loss
 and gradient (K3) in its Bernoulli, Gaussian, colored and padded families
 and its numerics modes (stochastic rounding with the device Philox against
-the plain one, the other gradient modes, scales and epilogue), the
+the plain one, the other gradient modes, scales and epilogue), its cluster
+passes at the default numerics against the plain version and the block
+passes (and their a0 chain and product alone), the
 feature-major kernel's modes (K8), and int8 training steps of the galaxy,
 particles, fit-noise and mnist models; Adam (K6, K7 and the
 emission helpers), the int8 encoder's GEMM, and steps of the int8 stack;
@@ -400,8 +402,11 @@ def test_loss_kernel_matches_plain_version(case, cuda_device):
         assert torch.equal(u, v)
         _assert_rel(c, u, (1e-6, 1e-7))
         _assert_rel(u, x, INT8_TOL)
-    # the chunked call: one image per chunk
-    assert l8.LAUNCHES["fwd"] == 3 and l8.LAUNCHES["grad"] == 2 + b
+    # the default numerics take the cluster passes: the chunked call runs
+    # forward, gradient and dW1 per image
+    assert l8.LAUNCHES["fwd_sm90"] == l8.LAUNCHES["grad_sm90"] == 2 + b
+    assert l8.LAUNCHES["dw_sm90"] == 2 + b
+    assert l8.LAUNCHES["fwd"] == l8.LAUNCHES["grad"] == l8.LAUNCHES["dw"] == 0
 
 
 # (family, image side, H, weight dtype, int8 targets, mask): the Gaussian
@@ -467,7 +472,14 @@ def test_loss_kernel_families_match_plain_version(case, cuda_device):
         _assert_rel(c, u, (1e-6, 1e-7))
         _assert_rel(u, x, INT8_TOL)
     assert not got[0][:, 3, 1:].any()
-    assert l8.LAUNCHES["fwd"] == 3 and l8.LAUNCHES["grad"] == 2 + b
+    # the colored family keeps the block passes (one forward per call), the
+    # others take the cluster passes (forward, gradient, dW1 per chunk)
+    if colored:
+        assert l8.LAUNCHES["fwd"] == 3 and l8.LAUNCHES["grad"] == 2 + b
+        assert l8.LAUNCHES["grad_sm90"] == 0
+    else:
+        assert l8.LAUNCHES["fwd_sm90"] == l8.LAUNCHES["grad_sm90"] == 2 + b
+        assert l8.LAUNCHES["grad"] == 0
 
 
 @pytest.mark.parametrize("name", ["particles", "colored", "mnist"])
@@ -507,7 +519,9 @@ def test_family_training_step_on_the_card(name, cuda_device):
     d8.reset_launches()
     assert torch.isfinite(tr.train_step(y, y_t=y_t)).all()
     assert torch.isfinite(tr.train_step(y[:5])).all()
-    assert l8.LAUNCHES == {"fwd": 1, "grad": 1, "dw": 1, "sum": 5}
+    sfx = "" if name == "colored" else "_sm90"
+    assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0), "fwd" + sfx: 1,
+                           "grad" + sfx: 1, "dw" + sfx: 1, "sum": 5}
     assert d8.LAUNCHES == {"fwd": 0, "fwd_acts": 1, "bwd_scale": 1,
                            "bwd_grad": 1, "dw": 1, "sum": 4}
     assert tr.opt_state.count == 2
@@ -538,7 +552,8 @@ def test_int8_training_step_on_the_card(cuda_device):
     d8.reset_launches()
     assert torch.isfinite(tr.train_step(y, y_t=y_t)).all()
     assert torch.isfinite(tr.train_step(y[:5])).all()
-    assert l8.LAUNCHES == {"fwd": 1, "grad": 1, "dw": 1, "sum": 5}
+    assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0), "fwd_sm90": 1,
+                           "grad_sm90": 1, "dw_sm90": 1, "sum": 5}
     assert d8.LAUNCHES == {"fwd": 0, "fwd_acts": 1, "bwd_scale": 1,
                            "bwd_grad": 1, "dw": 1, "sum": 4}
     assert tr.opt_state.count == 2
@@ -726,6 +741,84 @@ def test_loss_kernel_numerics_match_plain_version(case, cuda_device):
     assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
 
 
+# K3's cluster passes (csrc/fused_loss_int8_sm90.cu) at the default
+# numerics: (B, HW, H, No, weight dtype, int8 targets, mask); batches of 2
+# to 6 (K3 takes image pairs; odd tails go to K4/K5), groups of 1,024 and
+# of 256 pixels (48x48: nine groups), narrow widths, one and eight outputs
+# (the padded families are in FAMILY_CASES)
+SM90_CASES = [(6, 4096, 500, 3, torch.bfloat16, True, True),
+              (4, 4096, 500, 3, torch.float32, False, False),
+              (4, 2304, 500, 1, torch.bfloat16, True, True),
+              (2, 1024, 96, 1, torch.float32, True, False),
+              (4, 2304, 130, 8, torch.bfloat16, False, True)]
+
+
+@pytest.mark.parametrize("case", SM90_CASES, ids=lambda c: "-".join(
+    [f"B{c[0]}-HW{c[1]}-H{c[2]}-No{c[3]}", str(c[4])[6:],
+     "i8" if c[5] else "f32t", "mask" if c[6] else "nomask"]))
+def test_k3_cluster_passes_match_plain_and_block(case, cuda_device):
+    """The cluster passes against the plain version within K3's limits and
+    against the block passes: aq word for word with both, qi within
+    INT_MISMATCH of both (a head sum in another order may move an ulp across
+    a rounding), two runs bit for bit, several workspace chunks within
+    1e-6; each design counted under its own keys."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    b, hw, h, no, wdt, i8, masked = case
+    fold, coords, ws = _int8_inputs(b, hw, h, no, wdt, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    k = torch.randint(0, 256, (b, no, hw), generator=gen, device=cuda_device)
+    yt = (k - 128).to(torch.int8) if i8 else k.float() / 255
+    mask = ((torch.rand(hw, generator=gen, device=cuda_device) > 0.3).float()
+            if masked else None)
+    args = (fold, coords, *ws, yt, mask)
+    assert l8.k3_route(hw, h, l8.pick_tile(hw), "bernoulli",
+                       l8.DEFAULTS) == "sm90"
+    l8.reset_launches()
+    with torch.no_grad():
+        got, (aq, qi) = l8.run_loss_int8(*args, ints=True)
+        assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0),
+                               "fwd_sm90": 1, "grad_sm90": 1, "dw_sm90": 1,
+                               "sum": 5}
+        again = l8.run_loss_int8(*args)
+        chunked = l8.run_loss_int8(*args, workspace_bytes=1)
+        l8.reset_launches()
+        old, (aq7, qi7) = l8.run_loss_int8(*args, ints=True, block_passes=True)
+        assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0), "fwd": 1,
+                               "grad": 1, "dw": 1, "sum": 5}
+        want, (aq_p, qi_p) = l8.loss_int8_reference(*args, ints=True)
+    for u, v, c, o, x in zip(got, again, chunked, old, want):
+        assert torch.equal(u, v)
+        _assert_rel(c, u, (1e-6, 1e-7))
+        _assert_rel(u, x, INT8_TOL)
+        _assert_rel(u, o, INT8_TOL)
+    assert torch.equal(aq, aq_p) and torch.equal(aq, aq7)
+    assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
+    assert (qi != qi7).float().mean().item() <= INT_MISMATCH
+
+
+def test_k3_cluster_pieces_are_exact(cuda_device):
+    """The cluster passes' a0 chain (seven thresholds) equals clip(round(7
+    tanh(x)), -7, 7) at all 2^32 float inputs; the product on the cluster
+    ring (W1's slabs multicast, int8 wgmma) equals the exact product word
+    for word at K = 512 and 128; the card holds clusters of every kernel."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    assert min(l8.sm90_max_clusters().values()) >= 1
+    assert l8.sm90_chain_check(cuda_device) == 0
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    for h in (500, 96):
+        a = torch.randint(-7, 8, (12, 64, 512), generator=gen,
+                          device=cuda_device, dtype=torch.int8)
+        a[..., l8.padded_hidden(h):] = 0
+        w = torch.randint(-7, 8, (h, h), generator=gen, device=cuda_device,
+                          dtype=torch.int8)
+        assert torch.equal(l8.sm90_tile_product(a, w),
+                           l8.sm90_tile_product_reference(a, w))
+    with pytest.raises(ValueError):
+        l8.sm90_tile_product(a[:3], w)
+
+
 def test_device_philox_is_the_plain_one(cuda_device):
     """The kernels' Philox4x32-10 against the plain version on random
     counters and both sites' keys, and the Random123 known answer."""
@@ -903,8 +996,9 @@ def test_loss_kernel_phase_cut(cut, cuda_device):
         want = l8.loss_int8_reference(fold, coords, *ws, yt, numerics=nm)
     for u, x in zip(got, want):
         _assert_rel(u, x, INT8_TOL)
-    assert l8.LAUNCHES["grad"] == (cut >= 4)
-    assert l8.LAUNCHES["dw"] == (cut >= 6)
+    sfx = "_sm90" if cut == 8 else ""        # no cut: the default numerics
+    assert l8.LAUNCHES["grad" + sfx] == (cut >= 4)
+    assert l8.LAUNCHES["dw" + sfx] == (cut >= 6)
     assert not got[0][:, :3].any() if cut < 8 else got[0][:, :3].any()
 
 

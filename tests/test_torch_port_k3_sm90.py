@@ -1,0 +1,268 @@
+"""K3's cluster passes (``csrc/fused_loss_int8_sm90.cu``) on the CPU: what
+surrounds the kernels, which only the card runs.
+
+- the walk of the clusters: every (image, 64-pixel block) exactly once, the
+  four blocks of a cluster's step consecutive and in one quantisation group,
+  the grid a multiple of the cluster at 64x64, 65x65 and 28x28 padded;
+- the W1 slab stream round-trips to ``pad_square(w1f.T)`` and
+  ``pad_square(w1r)``, element (n, k) where wgmma's 64-byte swizzled layout
+  puts it;
+- the dW1 workspace layout is a permutation of each block's pixels: it
+  round-trips, and dW1 from it (the dW1 kernel's plain version, split by
+  split) is the plain version's, and within K3's limits of the JAX kernel's
+  (interpret mode) when it replaces the plain version's product;
+- the route table sends each numerics setting, family, width and pixel
+  count to the passes ``k3_route`` names (the wrapper passes that route to
+  both C entry points, which refuse the cluster route for a call the
+  cluster passes do not take);
+- the workspace chunks of the bench step (B=4,096 at 64x64, H=500, the dW1
+  operands and the a1c stash) fit the workspace budget of an 80 GB card:
+  four chunks.
+
+The kernels themselves are held to the plain version on the card by
+``tests/test_torch_port_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from spatialvae_tpu.kernels import fused_loss_int8 as jl8
+
+from spatialvae_torch.kernels import fused_decoder as fd
+from spatialvae_torch.kernels import fused_loss_int8 as l8
+from spatialvae_torch.kernels.config import Numerics
+from spatialvae_torch.kernels.fused_decoder_int8 import (
+    grouped_int_product,
+    image_chunks,
+    pad_square,
+)
+from spatialvae_torch.transforms.coords import coord_grid
+from tests.port_configs import one_torch_thread  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _interpret(monkeypatch):
+    monkeypatch.setenv("SPATIALVAE_INTERPRET", "1")
+
+
+def _grid(side):
+    """(pixels as the kernels take them, pixels per group) of a side x side
+    image: padded to ``padded_hw`` off the tiling."""
+    hw = l8.padded_hw(side * side)
+    return hw, l8.pick_tile(hw)
+
+
+# (image side, images, resident clusters): the galaxy grid, the padded
+# Gaussian and Bernoulli grids, more clusters than quads
+@pytest.mark.parametrize("side,b,clusters", [(64, 3, 33), (64, 2, 7),
+                                             (65, 2, 5), (28, 5, 3),
+                                             (28, 1, 1000)])
+def test_cluster_walk_covers_every_block_once(side, b, clusters):
+    hw, pt = _grid(side)
+    blocks = hw // l8.BLOCK_PIXELS
+    assert (b * blocks) % l8.CLUSTER == 0
+    walk = l8.cluster_schedule(b * blocks, clusters)
+    assert len(walk) % l8.CLUSTER == 0
+    assert sorted(x for cta in walk for x in cta) == list(range(b * blocks))
+    bpg = pt // l8.BLOCK_PIXELS
+    for c in range(0, len(walk), l8.CLUSTER):
+        ctas = walk[c:c + l8.CLUSTER]
+        assert len({len(cta) for cta in ctas}) == 1      # in lockstep
+        for step in zip(*ctas):
+            assert list(step) == list(range(step[0], step[0] + l8.CLUSTER))
+            # one image, one quantisation group
+            assert len({(x // blocks, (x % blocks) // bpg)
+                        for x in step}) == 1
+
+
+@pytest.mark.parametrize("side", [64, 65, 28])
+def test_grid_is_a_multiple_of_the_cluster(side):
+    hw, pt = _grid(side)
+    quad = l8.CLUSTER * l8.BLOCK_PIXELS
+    assert hw % quad == 0 and pt % quad == 0
+    assert l8.k3_route(hw, 500, pt, "bernoulli", Numerics()) == "sm90"
+
+
+@pytest.mark.parametrize("h", [500, 130, 40])
+def test_slab_stream_round_trips(h):
+    g = torch.Generator().manual_seed(h)
+    w1 = torch.randn((h, h), generator=g) / h ** 0.5
+    wht = torch.randn((3, h), generator=g)
+    w1f, _, _, w1r, _ = l8.loss_operands(w1, wht, Numerics())
+    kp = l8.padded_hidden(h)
+    for w in (w1f.T.contiguous(), w1r):
+        stream = l8.sm90_slabs(w)
+        assert stream.dtype == torch.int8
+        assert stream.numel() == l8.CLUSTER_WIDTH * kp
+        full = torch.zeros((l8.CLUSTER_WIDTH, kp), dtype=torch.int8)
+        full[:kp] = pad_square(w)
+        # element (n, k) of pad_square(w) (zero past Kp rows): slab k // 64,
+        # row n of 64 bytes, its 16-byte
+        # chunks swizzled by (n >> 1) & 3 (csrc/sm90.cuh offset_sw64)
+        idx = torch.arange(full.numel())
+        n, k = idx // kp, idx % kp
+        off = ((k // l8.SLAB_K) * l8.SLAB_K * l8.CLUSTER_WIDTH + n * 64
+               + (((k % l8.SLAB_K) // 16) ^ ((n >> 1) & 3)) * 16 + k % 16)
+        assert torch.equal(stream[off], full.reshape(-1))
+
+
+def test_workspace_layout_permutes_pixels_within_blocks():
+    g = torch.Generator().manual_seed(3)
+    hw = 1024
+    tiles = torch.randint(-7, 8, (2, hw, l8.CLUSTER_WIDTH), generator=g,
+                          dtype=torch.int8)
+    ws = l8.sm90_ws_layout(tiles)
+    assert torch.equal(l8.sm90_ws_tiles(ws, 2, hw), tiles)
+    blk = l8.CLUSTER_WIDTH * l8.BLOCK_PIXELS
+    # row n, pixel p = 16 w + g + 8 h of block 5 of image 1
+    base = (hw // l8.BLOCK_PIXELS + 5) * blk
+    for n, w, gg, h in ((0, 0, 0, 0), (511, 3, 7, 1), (77, 2, 5, 0)):
+        p = 16 * w + gg + 8 * h
+        assert ws[base + n * 64 + (w ^ ((n >> 1) & 3)) * 16 + 2 * gg
+                  + h] == tiles[1, 5 * l8.BLOCK_PIXELS + p, n]
+    # each block's bytes are its own pixels' bytes: a permutation
+    blocks = ws.reshape(-1, blk).sort(dim=1).values
+    want = tiles.reshape(-1, l8.BLOCK_PIXELS, l8.CLUSTER_WIDTH).reshape(
+        -1, blk).sort(dim=1).values
+    assert torch.equal(blocks, want)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 16])
+def test_dw1_from_the_workspaces_is_the_plain_product(splits):
+    g = torch.Generator().manual_seed(splits)
+    nimg, hw, h, pt = 3, 1024, 40, 256
+    aq, qi = (torch.randint(-7, 8, (nimg, hw, l8.CLUSTER_WIDTH), generator=g,
+                            dtype=torch.int8) for _ in range(2))
+    aq[..., h:] = 0
+    qi[..., h:] = 0
+    scale = torch.rand((nimg * hw // pt,), generator=g) * 1e-3
+    part = l8.grouped_dw90_reference(l8.sm90_ws_layout(aq),
+                                     l8.sm90_ws_layout(qi), scale, nimg, hw,
+                                     h, pt, splits)
+    assert part.shape == (splits, h, h)
+    want = grouped_int_product(aq[..., :h].float(), qi[..., :h].float(),
+                               scale, pt)
+    got = part.sum(0)
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    # splits hold whole groups in order: one split is the f32 sum in order
+    if splits == 1:
+        acc = torch.zeros((h, h))
+        for gi in range(nimg * hw // pt):
+            a = aq.reshape(-1, pt, l8.CLUSTER_WIDTH)[gi, :, :h].double()
+            q = qi.reshape(-1, pt, l8.CLUSTER_WIDTH)[gi, :, :h].double()
+            acc = acc + (a.T @ q).float() * scale[gi]
+        assert torch.equal(got, acc)
+
+
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_cluster_dw1_matches_jax(wdt, monkeypatch):
+    """The plain version with its dW1 product taken through the cluster
+    passes' workspaces and split sums (fifteen splits, as the card runs a
+    call of this size) against the JAX kernel in interpret mode, at the
+    limits the plain version itself is held to there."""
+    b, h, no, hw = 4, 64, 3, 1024
+    rng = np.random.default_rng(11)
+    fold = np.zeros((b, 4, h), np.float32)
+    fold[:, :2] = rng.uniform(-0.7, 0.7, (b, 2, h))
+    fold[:, 2] = rng.uniform(-1.5, 1.5, (b, h))
+    bd = 1 / h ** 0.5
+    ws = [rng.uniform(-bd, bd, s).astype(np.float32)
+          for s in ((h, h), (h,), (no, h), (no,))]
+    yt = (rng.integers(0, 256, (b, no, hw)) - 128).astype(np.int8)
+    mask = (rng.uniform(size=hw) > 0.3).astype(np.float32)
+    coords = coord_grid(32, 32).numpy()
+    pt = l8.pick_tile(hw)
+    assert l8.k3_route(hw, h, pt, "bernoulli", Numerics()) == "sm90"
+
+    def cluster_product(a, q, scale, pt_):
+        n = a.shape[0]
+        pad = l8.CLUSTER_WIDTH - a.shape[-1]
+        a8, q8 = (torch.nn.functional.pad(t, (0, pad)).to(torch.int8)
+                  for t in (a, q))
+        splits = l8.dw_splits90(n * (hw // pt_))
+        return l8.grouped_dw90_reference(
+            l8.sm90_ws_layout(a8), l8.sm90_ws_layout(q8), scale.reshape(-1),
+            n, hw, a.shape[-1], pt_, splits).sum(0)
+
+    monkeypatch.setattr(l8, "grouped_int_product", cluster_product)
+    got = l8.loss_int8_reference(
+        torch.from_numpy(fold), torch.from_numpy(coords),
+        *[torch.from_numpy(w).to(wdt) for w in ws], torch.from_numpy(yt),
+        torch.from_numpy(mask))
+    jw = [jnp.asarray(w, jnp.bfloat16 if wdt == torch.bfloat16
+                      else jnp.float32) for w in ws]
+    _, want = jl8._run(jnp.asarray(fold), jnp.asarray(coords), *jw,
+                       jnp.asarray(yt), jnp.asarray(mask), "bernoulli", True)
+    # tests/test_torch_port_int8.py's K3 limits for dW1 (max, mean relative)
+    lim = {torch.float32: (2e-3, 3e-5), torch.bfloat16: (2.5e-2, 4e-3)}[wdt]
+    a = got[1].float().numpy()
+    w = np.asarray(want[1], np.float32)
+    scale = float(np.abs(w).max())
+    d = np.abs(a - w)
+    assert d.max() / scale <= lim[0] and d.mean() / scale <= lim[1]
+
+
+# (numerics, family, H, HW, K8 mode, caller asks for the block passes, route)
+ROUTE_CASES = [
+    (Numerics(), "bernoulli", 500, 4096, None, False, "sm90"),
+    (Numerics(), "gaussian", 500, 4096, None, False, "sm90"),
+    (Numerics(), "gaussian", 500, 4352, None, False, "sm90"),
+    (Numerics(), "bernoulli", 500, 1024, None, False, "sm90"),
+    (Numerics(), "bernoulli", 96, 1280, None, False, "sm90"),
+    (Numerics(), "bernoulli", 512, 4096, None, False, "sm90"),
+    (Numerics(grad_mode="i4fwd"), "bernoulli", 500, 4096, None, False,
+     "sm90"),
+    (Numerics(adam_emit="pallas"), "bernoulli", 500, 4096, None, False,
+     "sm90"),
+    (Numerics(layout="t"), "gaussian", 500, 4096, None, False, "sm90"),
+    (Numerics(), "bernoulli", 500, 4096, None, True, "block"),
+    (Numerics(), "colored", 500, 4096, None, False, "block"),
+    (Numerics(), "bernoulli", 513, 4096, None, False, "block"),
+    (Numerics(), "bernoulli", 1000, 4096, None, False, "block"),
+    (Numerics(), "bernoulli", 500, 1088, None, False, "block"),
+    (Numerics(), "bernoulli", 500, 4096, "i4", False, "block"),
+    (Numerics(), "bernoulli", 500, 4096, "i8", False, "block"),
+    (Numerics(gscale="tile"), "bernoulli", 500, 4096, None, False, "block"),
+    (Numerics(epi="f32"), "bernoulli", 500, 4096, None, False, "block"),
+    (Numerics(sr=True), "gaussian", 500, 4096, None, False, "block"),
+    (Numerics(grad_mode="i8"), "bernoulli", 500, 4096, None, False, "block"),
+    (Numerics(grad_mode="da0_i4"), "bernoulli", 500, 4096, None, False,
+     "block"),
+    (Numerics(tanh="pade"), "bernoulli", 500, 4096, None, False, "block"),
+    (Numerics(a1q=True), "bernoulli", 500, 4096, None, False, "block"),
+    (Numerics(db1="qi"), "bernoulli", 500, 4096, None, False, "block"),
+    (Numerics(phase_cut=7), "bernoulli", 500, 4096, None, False, "block"),
+]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: "-".join(
+    [",".join(c[0].drift()) or "default", c[1], f"H{c[2]}", f"HW{c[3]}",
+     str(c[4]), "ask-block" if c[5] else "by-mode", c[6]]))
+def test_route_table(case):
+    nm, family, h, hw, t_mode, block_passes, want = case
+    pt = l8.pick_tile(hw)
+    assert l8.k3_route(hw, h, pt, family, nm, t_mode, block_passes) == want
+
+
+def test_workspace_chunks_at_the_bench_step(monkeypatch):
+    """B=4,096 at 64x64, H=500, bf16 weights: per image the aq and qi
+    workspaces, (512, 4,096) int8 each, and the a1c stash, (4,096, 512)
+    bf16, chunked within an 80 GB card's budget (an eighth of it): four
+    chunks, each run forward, gradient and dW1 in turn."""
+    monkeypatch.setattr(fd, "_total_memory", lambda kind, index: 80 * 10**9)
+    budget = fd.workspace_budget(torch.device("cuda", 0))
+    assert budget == 10**10
+    per = l8.loss_workspace_bytes(4096, 500, "sm90",
+                                  l8.stash_block_bytes(True))
+    assert per == 2 * 512 * 4096 + 4096 * 512 * 2
+    chunks = image_chunks(4096, per, budget)
+    assert len(chunks) == 4
+    assert sum(n for _, n in chunks) == 4096
+    assert all(n * per <= budget for _, n in chunks)
+    assert [b0 for b0, _ in chunks] == [0, 1192, 2384, 3576]
+    # the block passes' (Kp, HW) workspaces alone: two chunks
+    assert len(image_chunks(4096, l8.loss_workspace_bytes(4096, 500, "block"),
+                            budget)) == 2
