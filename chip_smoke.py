@@ -8,6 +8,8 @@
     python3 chip_smoke.py --limits wide       # those of the wide path
     python3 chip_smoke.py --limits probes     # those of the probe kernels
     python3 chip_smoke.py --limits kernel_bench   # those of T1's kernels
+    python3 chip_smoke.py --limits dec90      # K1/K2's cluster kernels'
+    python3 chip_smoke.py --split dec90       # their product/epilogue split
     python3 chip_smoke.py --default-width PARENT_DIR   # K1-K5 A/B
     python3 chip_smoke.py --sass PARENT_DIR   # untouched kernels' SASS
 
@@ -179,6 +181,11 @@ N_TIMED = 10
 N_PASSES = 5        # timed passes of the slice's requests
 FWD_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_fwd.cu"
 BWD_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_bwd.cu"
+# K1 and K2 on clusters (fused_decoder.decoder_route "sm90": one hidden
+# layer, H <= 512); the tile kernels ("tile") are their yardstick, run
+# with tile_kernels=True in turns: tile, sm90, sm90, tile
+DEC90_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_sm90.cu"
+AB_DEC = ("tile", "sm90", "sm90", "tile")
 FWD_REPLACES = "spatialvae_tpu/kernels/fused_decoder.py:105"
 BWD_REPLACES = "spatialvae_tpu/kernels/fused_decoder.py:196"
 
@@ -255,7 +262,8 @@ def start_ptxas_report(source: str):
     spills and shared memory per kernel, read by ``ptxas_report``."""
     from spatialvae_torch.kernels import _build
 
-    out = os.path.join(tempfile.gettempdir(), f"ptxas_{os.getpid()}.o")
+    out = os.path.join(tempfile.gettempdir(), f"ptxas_{os.getpid()}_"
+                       f"{os.path.basename(source)}.o")
     return out, subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
          out, source], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -283,6 +291,13 @@ def ptxas_report(started) -> list:
                           lambda k: k.group(1) + (
                               "<bf16>" if k.group(3) == "b1" else "<f32>"
                               if k.group(3) == "b0" else ""), m.group(1))
+            # K1/K2's cluster kernels: <BF16, RESID, EMIT or ACT_BF16>
+            k = re.search(r"(dec_fwd90|dec_chain90|dec_dw90)_kernelI(\w*?)EEv",
+                          m.group(1))
+            if k:
+                name = k.group(1) + "<" + ",".join(
+                    v for _, v in re.findall(r"L([bi])(\d+)E",
+                                             k.group(2) + "E")) + ">"
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -292,6 +307,50 @@ def ptxas_report(started) -> list:
             rows.append((name, int(m.group(1))) + (spill or (0, 0, 0)))
             name, spill = None, None
     return rows
+
+
+def phase_dec90(torch, ptxas) -> dict:
+    """``[dec90]``: K1/K2's cluster kernels alone: ptxas's report of each
+    instantiation (registers, stack, spills; ``ptxas``: the background
+    compile of their source) and the clusters of 4 the card holds at once
+    for each kernel."""
+    from spatialvae_torch.kernels import fused_decoder as fd
+
+    for name, regs, stack, stores, loads in ptxas_report(ptxas):
+        log("dec90_ptxas", kernel=name, registers=regs, stack_bytes=stack,
+            spill_store_bytes=stores, spill_load_bytes=loads)
+    lib = fd._lib()
+    names = ("fwd_f32", "fwd_bf16", "chain_f32", "chain_bf16", "dw_f32",
+             "dw_bf16")
+    clusters = {k: lib.svt_decoder90_max_clusters(i)
+                for i, k in enumerate(names)}
+    if min(clusters.values()) < 1:
+        raise AssertionError(f"K1/K2 cluster kernels resident: {clusters}")
+    log("dec90", **{f"clusters_{k}": v for k, v in clusters.items()})
+    return clusters
+
+
+def kernel_device_ms(torch, fn, keys) -> dict:
+    """key -> device ms of the kernels whose name holds ``key`` in one
+    traced call of ``fn`` (after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(keys, 0.0)
+    for e in prof.key_averages():
+        for k in keys:
+            if k in e.key:
+                out[k] += e.device_time_total / 1e3
+    return out
+
+
+# kernel-name substrings of K1/K2's kernels on both routes
+DEC_KERNELS = ("fused_decoder_fwd", "dec_fwd90", "bwd_chain", "bwd_dw",
+               "dec_chain90", "dec_dw90", "sum_rows")
 
 
 def _tail_inputs(torch, b, hw, h, lh, no, wdt, gen):
@@ -317,13 +376,11 @@ def _tail_inputs(torch, b, hw, h, lh, no, wdt, gen):
 def phase_kernels(torch) -> dict:
     """Kernel vs plain version on the card at the main path's shapes.  The
     kernel's time is its launch through ``run_decoder_tail`` with the
-    weights packed once, as the slice runs it."""
-    from spatialvae_torch.kernels.fused_decoder import (
-        TailWeights,
-        decoder_tail_reference,
-        fused_decoder_tail,
-        run_decoder_tail,
-    )
+    weights packed once, as the slice runs it.  A call that
+    ``decoder_route`` sends to the sm90 kernels also runs the tile kernels
+    (``tile_kernels=True``), held to the same plain version and to the
+    sm90 result, and times both in turns (AB_DEC)."""
+    from spatialvae_torch.kernels import fused_decoder as fd
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     cases = [
@@ -333,40 +390,78 @@ def phase_kernels(torch) -> dict:
         ("lh3_resid", 16, 4096, P_HIDDEN, 3, 3, True, torch.float32),
         ("hw784_no1", 32, 784, P_HIDDEN, 1, 1, False, torch.float32),
         ("no8", 16, 4096, P_HIDDEN, 1, 8, False, torch.float32),
+        ("resid_bf16", 16, 4096, P_HIDDEN, 1, 3, True, torch.bfloat16),
     ]
     results = {}
     with torch.no_grad():
         for name, b, hw, h, lh, no, resid, wdt in cases:
             args = _tail_inputs(torch, b, hw, h, lh, no, wdt, gen)
-            got = fused_decoder_tail(*args, resid)
+            fold, coords, *weights = args
+            route = fd.decoder_route(hw, h, lh, no)
+            key = "fwd" + ("_sm90" if route == "sm90" else "")
+            before = fd.LAUNCHES[key]
+            got = fd.fused_decoder_tail(*args, resid)
             torch.cuda.synchronize()
-            want = decoder_tail_reference(*args, resid)
+            if fd.LAUNCHES[key] != before + 1:
+                raise AssertionError(f"{name}: not launched on {route}")
+            want = fd.decoder_tail_reference(*args, resid)
             dtype = str(wdt).replace("torch.", "")
             if got.shape != (b, no, hw):
                 raise AssertionError(f"{name}: shape {tuple(got.shape)}")
             err, mean_err = check_close(name, got, want, wdt)
-            # warm-up, then alternate the two versions
-            fold, coords, *weights = args
-            packed = TailWeights(*weights)
-            run_decoder_tail(fold, coords, packed, resid)
-            decoder_tail_reference(*args, resid)
-            ks, ps = [], []
-            for _ in range(N_TIMED):
-                ks.append(cuda_ms(
-                    lambda: run_decoder_tail(fold, coords, packed, resid),
-                    torch))
-                ps.append(cuda_ms(
-                    lambda: decoder_tail_reference(*args, resid), torch))
-            results[name] = dict(err=err, ms=statistics.median(ks),
-                                 plain_ms=statistics.median(ps))
+            packed = fd.TailWeights(*weights)
+            fns = {r: functools.partial(fd.run_decoder_tail, fold, coords,
+                                        packed, resid,
+                                        tile_kernels=r == "tile")
+                   for r in ("tile", route)}
+            r = dict(err=err, route=route)
+            if route == "sm90":
+                again = fns["sm90"]()
+                tile = fns["tile"]()
+                if not torch.equal(again, got):
+                    raise AssertionError(f"{name}: two runs differ")
+                r["tile_err"] = check_close(name + " tile", tile, want, wdt)
+                r["vs_tile"] = check_close(name + " vs tile", got, tile,
+                                           wdt)
+                ab = in_turns(torch, fns, N_TIMED, AB_DEC)
+                r.update(ms=ab["sm90"][0], ms_tile=ab["tile"][0],
+                         turns={k: v[1] for k, v in ab.items()})
+            else:
+                fns[route]()
+                r["ms"] = statistics.median(
+                    cuda_ms(fns[route], torch) for _ in range(N_TIMED))
+            plain = functools.partial(fd.decoder_tail_reference, *args, resid)
+            plain()
+            r["plain_ms"] = statistics.median(cuda_ms(plain, torch)
+                                              for _ in range(3))
+            r["bound"] = dec_bounds(b, hw, h, no, wdt.itemsize, 0)["fwd"]
+            if lh > 1:
+                r["bound"] = (r["bound"][0] * lh, r["bound"][1])
+            results[name] = r
             log("kernel", case=name, B=b, HW=hw, H=h, Lh=lh, No=no,
-                resid=resid, dtype=dtype,
+                resid=resid, dtype=dtype, route=route,
                 max_abs_err=f"{err:.3e}", mean_abs_err=f"{mean_err:.3e}",
                 max_tol=TOL[dtype][0], mean_tol=TOL[dtype][1],
-                kernel_ms=f"{results[name]['ms']:.4f}",
-                plain_ms=f"{results[name]['plain_ms']:.4f}")
+                kernel_ms=f"{r['ms']:.4f}", **_dec_ab(r),
+                plain_ms=f"{r['plain_ms']:.4f}",
+                bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
             del args, fold, coords, weights, packed, got, want
     return results
+
+
+def _dec_ab(r) -> dict:
+    """The A/B fields of a K1/K2 reading on the sm90 route: the tile
+    kernels' ms, every turn's ms and the route's error against them."""
+    if r.get("route") != "sm90":
+        return {}
+    out = {"tile_ms": f"{r['ms_tile']:.4f}",
+           "turns": " ".join(f"{k}:{t:.4f}" for k in ("tile", "sm90")
+                             for t in r["turns"][k])}
+    if "vs_tile" in r:
+        out["tile_max_abs_err"] = f"{r['tile_err'][0]:.3e}"
+        out["tile_mean_abs_err"] = f"{r['tile_err'][1]:.3e}"
+        out["vs_tile_max_abs"] = f"{r['vs_tile'][0]:.3e}"
+    return out
 
 
 def rel_errors(got, want) -> tuple:
@@ -384,17 +479,23 @@ BWD_CASES = [
     ("lh3_resid", 16, 4096, P_HIDDEN, 3, 3, True, "float32"),
     ("hw784_no1", 32, 784, P_HIDDEN, 1, 1, False, "float32"),
     ("no8", 16, 4096, P_HIDDEN, 1, 8, False, "float32"),
+    ("resid_f32", BATCH, 4096, P_HIDDEN, 1, 3, True, "float32"),
 ]
 GRADS = ("dfold", "dwhid", "dbhid", "dwht", "dbht")
 
 
 def backward_case(torch, case, seed: int, timed: bool,
-                  rerun: bool = True) -> dict:
+                  rerun: bool = True, tile_kernels: bool = False) -> dict:
     """The emitting forward and both backward variants of one case against
     their plain versions on the same inputs and cotangent; with ``rerun``
     (not for a faulty copy, which may leave memory unwritten) two runs must
-    agree bit for bit.  Returns {"acts": errors, "y": errors, (variant,
-    grad): errors, and with ``timed`` the "*_ms" medians}."""
+    agree bit for bit.  On the sm90 route (unless ``tile_kernels``) the
+    tile kernels run too: their outputs against the same plain versions
+    (the "tile" keys) and the route's against theirs ("vs_tile"); with
+    ``timed`` both designs are timed in turns (AB_DEC).  Returns {"acts":
+    errors, "y": errors, (variant, grad): errors, ("tile", "y" | "acts")
+    and (variant, "tile", grad): the tile kernels' errors, and with
+    ``timed`` the "*_ms" medians}."""
     from spatialvae_torch.kernels import fused_decoder as fd
 
     name, b, hw, h, lh, no, resid, dtype = case
@@ -403,9 +504,27 @@ def backward_case(torch, case, seed: int, timed: bool,
     fold, coords, *ws = _tail_inputs(torch, b, hw, h, lh, no, wdt, gen)
     g = torch.randn((b, no, hw), generator=gen, device=DEVICE)
     tw = fd.TailWeights(*ws)
-    out = {}
+    route = fd.decoder_route(hw, h, lh, no, tile_kernels)
+    out = {"route": route}
+    ab = route == "sm90" and timed
+
+    def turns(what, fns):
+        fns["plain"]()
+        out[f"{what}_plain_ms"] = statistics.median(
+            cuda_ms(fns["plain"], torch) for _ in range(3))
+        if ab:
+            t = in_turns(torch, fns, N_TIMED, AB_DEC)
+            out[f"{what}_ms"], out[f"{what}_ms_tile"] = (t["sm90"][0],
+                                                        t["tile"][0])
+            out[f"{what}_turns"] = {k: v[1] for k, v in t.items()}
+        else:
+            fns[route]()
+            out[f"{what}_ms"] = statistics.median(
+                cuda_ms(fns[route], torch) for _ in range(N_TIMED))
+
     with torch.no_grad():
-        y, acts = fd.run_decoder_tail_acts(fold, coords, tw, resid)
+        y, acts = fd.run_decoder_tail_acts(fold, coords, tw, resid,
+                                           tile_kernels)
         torch.cuda.synchronize()
         y_ref, acts_ref = fd.decoder_tail_reference(fold, coords, *ws, resid,
                                                     return_acts=True)
@@ -414,13 +533,22 @@ def backward_case(torch, case, seed: int, timed: bool,
                                  f"{tuple(acts.shape)}")
         out["y"] = rel_errors(y, y_ref)
         out["acts"] = rel_errors(acts, acts_ref)
+        if route == "sm90":
+            y_t, acts_t = fd.run_decoder_tail_acts(fold, coords, tw, resid,
+                                                   tile_kernels=True)
+            out["tile", "y"] = rel_errors(y_t, y_ref)
+            out["tile", "acts"] = rel_errors(acts_t, acts_ref)
+            out["acts_vs_tile"] = rel_errors(acts, acts_t)
+            del y_t, acts_t
         del y_ref, acts_ref
         for variant in ("residual", "recompute"):
             a = acts if variant == "residual" else None
             got = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g,
-                                               resid)
+                                               resid,
+                                               tile_kernels=tile_kernels)
             again = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g,
-                                                 resid)
+                                                 resid,
+                                                 tile_kernels=tile_kernels)
             torch.cuda.synchronize()
             if rerun and not all(torch.equal(u, v)
                                  for u, v in zip(got, again)):
@@ -431,78 +559,113 @@ def backward_case(torch, case, seed: int, timed: bool,
                 if u.shape != v.shape:
                     raise AssertionError(f"{name} {gname}: shape")
                 out[variant, gname] = rel_errors(u, v)
+            if route == "sm90":
+                tile = fd.run_decoder_tail_backward(
+                    fold, coords, tw, a, y, g, resid, tile_kernels=True)
+                for gname, u, v in zip(GRADS, tile, want):
+                    out[variant, "tile", gname] = rel_errors(u, v)
+                out[variant, "vs_tile"] = max(
+                    rel_errors(u, v)[2] for u, v in zip(got, tile))
+                del tile
             del got, again, want
+            if timed and variant == "residual":
+                out["residual_parts"] = {
+                    r: kernel_device_ms(torch, functools.partial(
+                        fd.run_decoder_tail_backward, fold, coords, tw, a, y,
+                        g, resid, tile_kernels=r == "tile"), DEC_KERNELS)
+                    for r in {"tile", route}}
             if timed:
-                def kern():
-                    fd.run_decoder_tail_backward(fold, coords, tw, a, y, g,
-                                                 resid)
-
-                def plain():
-                    fd.decoder_tail_backward_reference(
-                        fold, coords, ws[0], ws[1], ws[2], a, y, g, resid)
-                kern()
-                plain()
-                ks = [cuda_ms(kern, torch) for _ in range(N_TIMED)]
-                ps = [cuda_ms(plain, torch) for _ in range(N_TIMED)]
-                out[f"{variant}_ms"] = statistics.median(ks)
-                out[f"{variant}_plain_ms"] = statistics.median(ps)
+                turns(variant, {
+                    r: functools.partial(fd.run_decoder_tail_backward, fold,
+                                         coords, tw, a, y, g, resid,
+                                         tile_kernels=r == "tile")
+                    for r in {"tile", route}} | {
+                    "plain": functools.partial(
+                        fd.decoder_tail_backward_reference, fold, coords,
+                        ws[0], ws[1], ws[2], a, y, g, resid)})
         if timed:
-            def kern():
-                fd.run_decoder_tail_acts(fold, coords, tw, resid)
-
-            def plain():
-                fd.decoder_tail_reference(fold, coords, *ws, resid,
-                                          return_acts=True)
-            kern()
-            plain()
-            ks = [cuda_ms(kern, torch) for _ in range(N_TIMED)]
-            ps = [cuda_ms(plain, torch) for _ in range(N_TIMED)]
-            out["fwd_acts_ms"] = statistics.median(ks)
-            out["fwd_acts_plain_ms"] = statistics.median(ps)
+            turns("fwd_acts", {
+                r: functools.partial(fd.run_decoder_tail_acts, fold, coords,
+                                     tw, resid, tile_kernels=r == "tile")
+                for r in {"tile", route}} | {
+                "plain": functools.partial(fd.decoder_tail_reference, fold,
+                                           coords, *ws, resid,
+                                           return_acts=True)})
     return out
 
 
 def phase_backward(torch) -> dict:
     """K1 with its activation output and K2 (residual and recompute)
-    against their plain versions at the training path's shapes.  Returns
-    the readings by case."""
+    against their plain versions at the training path's shapes; on the
+    sm90 route also against the tile kernels, timed in turns with them.
+    Returns the readings by case."""
     results = {}
     for case in BWD_CASES:
         name, b, hw, h, lh, no, resid, dtype = case
         r = backward_case(torch, case, SEED, timed=True)
-        for what, tols in (("y", TOL), ("acts", ACTS_TOL)):
-            err, mean_err = r[what][:2]
+        checks = [("y", TOL, r["y"]), ("acts", ACTS_TOL, r["acts"])]
+        if "acts_vs_tile" in r:
+            checks += [("tile y", TOL, r["tile", "y"]),
+                       ("tile acts", ACTS_TOL, r["tile", "acts"]),
+                       ("acts vs tile", ACTS_TOL, r["acts_vs_tile"])]
+        for what, tols, (err, mean_err, *_) in checks:
             tol = tols[dtype]
             if not (err <= tol[0] and mean_err <= tol[1]):
                 raise AssertionError(f"{name} {what}: kernel vs plain max "
                                      f"abs err {err}, mean {mean_err}; "
                                      f"limits {tol}")
+        bd = dec_bounds(b, hw, h, no, 2 if dtype == "bfloat16" else 4,
+                        2 if dtype == "bfloat16" else 4)
+        ab = lambda what: _dec_ab({
+            "route": r["route"], "ms_tile": r.get(what + "_ms_tile", 0.0),
+            "turns": r.get(what + "_turns", {"tile": [], "sm90": []})})
         log("kernel_fwd_acts", case=name, B=b, HW=hw, H=h, Lh=lh, No=no,
-            resid=resid, dtype=dtype,
+            resid=resid, dtype=dtype, route=r["route"],
             y_max_abs_err=f"{r['y'][0]:.3e}",
             acts_max_abs_err=f"{r['acts'][0]:.3e}",
             acts_mean_abs_err=f"{r['acts'][1]:.3e}",
             acts_max_tol=ACTS_TOL[dtype][0],
             acts_mean_tol=ACTS_TOL[dtype][1],
-            kernel_ms=f"{r['fwd_acts_ms']:.4f}",
-            plain_ms=f"{r['fwd_acts_plain_ms']:.4f}")
+            tile_y_max_abs_err=(f"{r['tile', 'y'][0]:.3e}"
+                                if ("tile", "y") in r else "-"),
+            tile_acts_max_abs_err=(f"{r['tile', 'acts'][0]:.3e}"
+                                   if ("tile", "acts") in r else "-"),
+            tile_acts_mean_abs_err=(f"{r['tile', 'acts'][1]:.3e}"
+                                    if ("tile", "acts") in r else "-"),
+            acts_vs_tile=(f"{r['acts_vs_tile'][0]:.3e}"
+                          if "acts_vs_tile" in r else "-"),
+            kernel_ms=f"{r['fwd_acts_ms']:.4f}", **ab("fwd_acts"),
+            plain_ms=f"{r['fwd_acts_plain_ms']:.4f}",
+            bound_ms=f"{bd['fwd_acts'][0] * lh:.4f}")
         for variant in ("residual", "recompute"):
             tol = BWD_TOL[dtype, variant]
             fields = {}
-            for gname in GRADS:
-                err, mean_err, rel, mean_rel = r[variant, gname]
-                if not (rel <= tol[0] and mean_rel <= tol[1]):
-                    raise AssertionError(
-                        f"{name} {variant} {gname}: kernel vs plain error "
-                        f"relative to max|plain| {rel}, mean {mean_rel}; "
-                        f"limits {tol}")
-                fields[gname] = (f"{err:.3e}/{mean_err:.3e}/{rel:.2e}/"
-                                 f"{mean_rel:.2e}")
+            for design in ((), ("tile",)):
+                if design and (variant, "tile", GRADS[0]) not in r:
+                    continue
+                for gname in GRADS:
+                    err, mean_err, rel, mean_rel = r[(variant, *design,
+                                                      gname)]
+                    if not (rel <= tol[0] and mean_rel <= tol[1]):
+                        raise AssertionError(
+                            f"{name} {variant} {' '.join(design)} {gname}: "
+                            f"kernel vs plain error relative to max|plain| "
+                            f"{rel}, mean {mean_rel}; limits {tol}")
+                    fields["_".join((*design, gname))] = (
+                        f"{err:.3e}/{mean_err:.3e}/{rel:.2e}/{mean_rel:.2e}")
+            vt = r.get((variant, "vs_tile"))
+            if vt is not None and not vt <= tol[0]:
+                raise AssertionError(f"{name} {variant}: sm90 vs tile "
+                                     f"{vt}; limit {tol[0]}")
             log("kernel_bwd", case=name, variant=variant, dtype=dtype,
+                route=r["route"],
                 errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
                 max_rel_tol=tol[0], mean_rel_tol=tol[1],
-                kernel_ms=f"{r[variant + '_ms']:.4f}",
-                plain_ms=f"{r[variant + '_plain_ms']:.4f}")
+                vs_tile_max_rel=f"{vt:.3e}" if vt is not None else "-",
+                kernel_ms=f"{r[variant + '_ms']:.4f}", **ab(variant),
+                plain_ms=f"{r[variant + '_plain_ms']:.4f}",
+                bound_ms=(f"{bd['chain'][0] + bd['dw'][0] + bd['sums'][0]:.4f}"
+                          if lh == 1 else "-"))
         results[name] = r
         torch.cuda.empty_cache()
     return results
@@ -600,8 +763,10 @@ def phase_train(torch, tmpdir: str) -> tuple:
     counts = dict(LAUNCHES)
     adam = dict(ka.LAUNCHES)
     steps = TRAIN_EPOCHS * math.ceil(N_TRAIN / BATCH)
-    want = {"fwd": 0, "fwd_acts": steps, "fwd_recompute": 0,
-            "bwd_chain": steps, "bwd_dw": steps, "bwd_sum": 4 * steps}
+    want = {"fwd": 0, "fwd_acts": 0, "fwd_recompute": 0, "bwd_chain": 0,
+            "bwd_dw": 0, "bwd_sum": 4 * steps, "fwd_sm90": 0,
+            "fwd_acts_sm90": steps, "fwd_recompute_sm90": 0,
+            "bwd_chain_sm90": steps, "bwd_dw_sm90": steps}
     leaves = len(trainer.named_params())
     want_adam = {"adam": steps * leaves, "adam_emit": 0, "quant_scale": 0,
                  "quantize": 0}
@@ -699,9 +864,8 @@ def phase_profile_step(torch, trainer, y, tmpdir: str) -> dict:
         ks = [e for e in kernels if pred(e)]
         return sum(e["dur"] for e in ks) / 1e3, len(ks)
 
-    k1 = share(lambda e: "fused_decoder_fwd" in e["name"])
-    k2 = share(lambda e: any(s in e["name"] for s in
-                             ("bwd_chain", "bwd_dw", "sum_rows")))
+    k1 = share(lambda e: any(s in e["name"] for s in DEC_KERNELS[:2]))
+    k2 = share(lambda e: any(s in e["name"] for s in DEC_KERNELS[2:]))
     gemm = share(lambda e: "gemm" in e["name"].lower()
                  or "xmma" in e["name"].lower())
     adam_k = share(lambda e: e["args"].get("correlation") in adam_ids)
@@ -712,11 +876,25 @@ def phase_profile_step(torch, trainer, y, tmpdir: str) -> dict:
         fields[f"{label}_launches"] = n
         fields[f"{label}_share_of_busy"] = f"{ms * 1e3 / busy:.4f}"
     per_kernel = {k: share(lambda e, k=k: k in e["name"])[0]
-                  for k in ("bwd_chain", "bwd_dw", "sum_rows")}
+                  for k in DEC_KERNELS}
+    # the host's share: the sm90 slab streams, built per step on the grad
+    # path (``_FusedTail`` packs the weights per call)
+    from spatialvae_torch.kernels import fused_decoder as fd
+
+    *hidden, head = trainer.p_net.linears()
+
+    def pack():
+        tw = fd.TailWeights(*(t.detach() for t in fd._stack_tail(hidden,
+                                                                 head)))
+        tw.sm90_slabs()
+        tw.sm90_slabs_t()
+        tw.head_args()
+    per_kernel["slabs_host_ms"] = _step_host_ms(torch, pack, 10)
     log("profile_step", wall_ms=f"{wall_us / 1e3:.3f}",
         device_busy_ms=f"{busy / 1e3:.3f}",
         idle_share=f"{1 - busy / wall_us:.4f}", **fields,
-        **{f"{k}_ms": f"{v:.3f}" for k, v in per_kernel.items()},
+        **{(k if k.endswith("_ms") else f"{k}_ms"): f"{v:.3f}"
+           for k, v in per_kernel.items()},
         kernels=len(kernels))
     return per_kernel
 
@@ -738,7 +916,11 @@ def phase_slice(torch, tmpdir: str, paths=None, tag="slice") -> int:
     from spatialvae_torch import checkpoint
     from spatialvae_torch.api import SpatialVae
     from spatialvae_torch.evaluate import eval_batches
-    from spatialvae_torch.kernels.fused_decoder import LAUNCHES, reset_launches
+    from spatialvae_torch.kernels.fused_decoder import (
+        LAUNCHES,
+        decoder_route,
+        reset_launches,
+    )
     from spatialvae_torch.models import InferenceNetwork, SpatialGenerator
     from spatialvae_torch.objectives import elbo_minibatch
 
@@ -787,7 +969,9 @@ def phase_slice(torch, tmpdir: str, paths=None, tag="slice") -> int:
         t0 = time.perf_counter()
         out = requests()
         seconds.append(time.perf_counter() - t0)
-    launches = LAUNCHES["fwd"]
+    key = "fwd" + ("_sm90" if decoder_route(
+        hw, P_HIDDEN, 1, CHANNELS) == "sm90" else "")
+    launches = LAUNCHES[key]
     decodes = 3 + math.ceil(N_EVAL / BATCH)
     if launches != N_PASSES * decodes or sum(LAUNCHES.values()) != launches:
         raise AssertionError(f"kernel launched {launches} times for "
@@ -850,7 +1034,8 @@ def phase_profile(torch, requests, tmpdir: str) -> None:
     if not events:
         raise AssertionError("the profiler saw no device activity")
     busy = _busy_us(events)
-    k1 = [e["dur"] for e in events if "fused_decoder_fwd" in e["name"]]
+    k1 = [e["dur"] for e in events
+          if any(s in e["name"] for s in DEC_KERNELS[:2])]
     log("profile", wall_ms=f"{wall_us / 1e3:.3f}",
         device_busy_ms=f"{busy / 1e3:.3f}",
         idle_share=f"{1 - busy / wall_us:.4f}",
@@ -907,12 +1092,13 @@ class on_block_passes:
         return False
 
 
-def in_turns(torch, route_fns, reps: int) -> dict:
+def in_turns(torch, route_fns, reps: int, order=AB_K3) -> dict:
     """route -> the median ms of ``route_fns[route]`` over its turns of
-    AB_K3, each turn the median of ``reps`` CUDA-event runs, and the turns'
-    list: one card, one call, in turns."""
+    ``order`` (AB_K3, or AB_DEC for K1/K2), each turn the median of
+    ``reps`` CUDA-event runs, and the turns' list: one card, one call, in
+    turns."""
     turns = {}
-    for route in AB_K3:
+    for route in order:
         fn = route_fns[route]
         fn()
         turns.setdefault(route, []).append(statistics.median(
@@ -945,6 +1131,7 @@ BENCH_BATCH = 4096      # bench.py's batch
 BENCH_STEPS = 16        # bench.py's steps per epoch
 # the card's peaks (NVIDIA's H100 SXM data sheet, dense) for the bounds
 PEAK_INT8 = 1979e12
+PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -954,11 +1141,13 @@ HBM_BYTES_PER_S = 3.35e12
 TF32_PASSES = 3
 
 
-def bound(nbytes: float, *work) -> tuple:
+def bound(nbytes: float, *work, overlap: bool = False) -> tuple:
     """(ms, "operations" | "bytes"): the larger of the bytes moved over the
     memory rate and the time of the operations, each (ops, peak) pair of
-    ``work`` at the peak for its type."""
-    t_ops = sum(ops / peak for ops, peak in work) * 1e3
+    ``work`` at the peak for its type; the pairs' times add up, or with
+    ``overlap`` (units that run at once) the longest stands for them."""
+    times = [ops / peak for ops, peak in work]
+    t_ops = (max(times, default=0.0) if overlap else sum(times)) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -966,6 +1155,40 @@ def bound(nbytes: float, *work) -> tuple:
 def f32_gemm(ops: float) -> tuple:
     """The (ops, peak) of an f32 GEMM run as TF32_PASSES TF32 products."""
     return TF32_PASSES * ops, PEAK_TF32
+
+
+def bf16_gemm(ops: float) -> tuple:
+    """The (ops, peak) of a GEMM of bf16 operands with f32 accumulation."""
+    return ops, PEAK_BF16
+
+
+def dec_bounds(b, hw, h, no, wdt_bytes, act_bytes) -> dict:
+    """The bounds (ms, by) of K1 and K2's kernels at one hidden layer:
+    "fwd" (fold, coords, weights, y), "fwd_acts" (and the (B, HW, H)
+    residual in ``act_bytes``), "chain" (reads the residual, writes the
+    per-block partials; da0 and the head's two products), "dw" (reads the
+    residual and the dh workspace in the weight dtype, writes the split-K
+    partials) and "sums"; the hidden GEMMs at the weights' rate (f32:
+    TF32_PASSES TF32 products; bf16: bf16), the heads on the CUDA cores.
+    The f32 bounds add the heads' time to the products'; the bf16 bounds
+    are the products or the bytes, whichever is longer (the heads'
+    CUDA-core time overlaps the tensor cores')."""
+    f4 = 4
+    gemm = 2.0 * b * hw * h * h
+    g = f32_gemm(gemm) if wdt_bytes == 4 else bf16_gemm(gemm)
+    bd = functools.partial(bound, overlap=wdt_bytes == 2)
+    head = (2.0 * b * hw * h * no, PEAK_FP32)
+    io = (b * 4 * h * f4 + hw * 2 * f4 + (h * h + h + no * h + no) * wdt_bytes
+          + b * no * hw * f4)
+    acts = b * hw * h * act_bytes
+    parts = (b * (hw // 64) * (3 * h + (1 + no) * h + no)
+             + (b * hw // 4096) * h * h) * f4
+    return {"fwd": bd(io, g, head), "fwd_acts": bd(io + acts, g, head),
+            "chain": bd(io + acts + b * hw * h * wdt_bytes + parts, g,
+                        (2 * head[0], PEAK_FP32)),
+            "dw": bd(acts + b * hw * h * wdt_bytes
+                     + (b * hw // 4096) * h * h * f4, g),
+            "sums": bd(parts)}
 
 
 def _int8_inputs(torch, b, dtype, gen, no=CHANNELS, h=None):
@@ -2176,7 +2399,8 @@ def float_family_step(torch, trainer, data, gen) -> tuple:
                         device=DEVICE)
     fd.reset_launches()
     kern = step_grads(torch, trainer, y, noise, True, ecfg)
-    if fd.LAUNCHES["fwd_acts"] != 1 or fd.LAUNCHES["bwd_chain"] != 1:
+    if fd.LAUNCHES["fwd_acts_sm90"] != 1 or \
+            fd.LAUNCHES["bwd_chain_sm90"] != 1:
         raise AssertionError(f"the float step launched {dict(fd.LAUNCHES)}")
     plain = step_grads(torch, trainer, y, noise, False, ecfg)
     worst = (0.0, 0.0, "")
@@ -3150,8 +3374,10 @@ def phase_train_wide(torch) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts, adam = dict(fd.LAUNCHES), dict(ka.LAUNCHES)
-        want = {"fwd": 0, "fwd_acts": steps, "fwd_recompute": 0,
-                "bwd_chain": steps, "bwd_dw": steps, "bwd_sum": 4 * steps}
+        # H = WIDE_H takes the tile kernels; the sm90 keys stay 0
+        want = dict.fromkeys(fd.LAUNCHES, 0) | {
+            "fwd_acts": steps, "bwd_chain": steps, "bwd_dw": steps,
+            "bwd_sum": 4 * steps}
         leaves = len(trainer.named_params())
         if counts != want or adam["adam"] != steps * leaves:
             raise AssertionError(f"train_wide float launches {counts}, Adam "
@@ -3455,59 +3681,75 @@ def log_default_width(res, bwd) -> None:
             f"{i8['tail', N_TRAIN % BATCH, 'bfloat16']['residual_ms']:.4f}"))
 
 
-def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
-                fam_counts, knobs) -> list:
-    """The per-kernel JSON records: K1 and K2 at the float path's galaxy
-    f32 shapes (B=100), K3 at the int8 training step's (bf16 weights,
-    B=100: the cluster passes it runs, and the block passes at the colored
-    path's step, the path that launches them), K4 without a1 at the
-    evaluation's (B=100) and with a1, K5 at
-    the tail step's (B=37), and K3's whole call in the Gaussian, colored and
-    padded families at the particles, colored and mnist steps' (bf16
-    weights, B=100; launches: that model's K3 calls).  Bounds from the
-    shapes (PEAK_* above; the f32 rows at TF32_PASSES TF32 products per f32
-    product)."""
+def dec_rows(torch, res, bwd, launches, counts, step_ms) -> list:
+    """The JSON records of K1 and K2 at the float path's galaxy f32 shapes
+    (B=100): the sm90 kernels the serving pass and the float step run
+    (launches from those paths, the chain's and dW's ms from the profiled
+    step), then the tile kernels as their yardstick (launches: the A/B
+    turns and the tile-route cases of ``[kernel]`` and ``[kernel_bwd]``,
+    ``res["ab_counts"]``; ms from those turns and one traced call), and
+    the reductions both share.  One bound per function, whichever design
+    computes it (``dec_bounds``: the f32 GEMMs at TF32_PASSES TF32
+    products)."""
     b, hw, h, no = BATCH, IMAGE[0] * IMAGE[1], P_HIDDEN, CHANNELS
-    kp = -(-h // 64) * 64
     g, k2 = res["galaxy_f32"], bwd["galaxy_f32"]
-    f4 = 4                                      # f32 bytes
-    w_bytes = (h * h + h + no * h + no) * f4
-    io = b * 4 * h * f4 + hw * 2 * f4 + w_bytes + b * no * hw * f4
-    gemm = 2.0 * b * hw * h * h
-    head = (2.0 * b * hw * h * no, PEAK_FP32)   # on the CUDA cores
-    acts = b * hw * h * f4
+    bd = dec_bounds(b, hw, h, no, 4, 4)
+    ab = res["ab_counts"]
+    tparts = k2["residual_parts"]["tile"]
     tiles = hw // 64
-    k2_parts = (b * tiles * (3 * h + (1 + no) * h + no)
-                + (b * hw // 4096) * h * h) * f4
 
-    def worst(variant, *grads):
-        return max(k2[variant, n][0] for n in grads)
+    def worst(variant, *grads, design=()):
+        return max(k2[(variant, *design, n)][0] for n in grads)
 
-    rows = [
-        ("fused_decoder_fwd", FWD_SOURCE, FWD_REPLACES, launches, g["err"],
-         g["ms"], g["plain_ms"],
-         bound(io, f32_gemm(gemm), head), None),
-        ("fused_decoder_fwd_acts", FWD_SOURCE, FWD_REPLACES,
-         counts["fwd_acts"], k2["acts"][0], k2["fwd_acts_ms"],
-         k2["fwd_acts_plain_ms"],
-         bound(io + acts, f32_gemm(gemm), head), None),
-        ("fused_decoder_bwd_chain", BWD_SOURCE, BWD_REPLACES,
-         counts["bwd_chain"], worst("residual", "dfold", "dbhid", "dwht",
-                                    "dbht"),
-         step_ms["bwd_chain"], k2["residual_plain_ms"],
-         bound(io + 2 * acts + k2_parts, f32_gemm(gemm),
-               (2 * head[0], PEAK_FP32)), None),
-        ("fused_decoder_bwd_dw", BWD_SOURCE, BWD_REPLACES, counts["bwd_dw"],
-         worst("residual", "dwhid"), step_ms["bwd_dw"],
-         k2["residual_plain_ms"],
-         bound(2 * acts + (b * hw // 4096) * h * h * f4, f32_gemm(gemm)),
-         None),
+    return [
+        ("fused_decoder_fwd_sm90", DEC90_SOURCE, FWD_REPLACES, launches,
+         g["err"], g["ms"], g["plain_ms"], bd["fwd"], None),
+        ("fused_decoder_fwd_acts_sm90", DEC90_SOURCE, FWD_REPLACES,
+         counts["fwd_acts_sm90"], k2["acts"][0], k2["fwd_acts_ms"],
+         k2["fwd_acts_plain_ms"], bd["fwd_acts"], None),
+        ("fused_decoder_bwd_chain_sm90", DEC90_SOURCE, BWD_REPLACES,
+         counts["bwd_chain_sm90"], worst("residual", "dfold", "dbhid", "dwht",
+                                         "dbht"),
+         step_ms["dec_chain90"], k2["residual_plain_ms"], bd["chain"], None),
+        ("fused_decoder_bwd_dw_sm90", DEC90_SOURCE, BWD_REPLACES,
+         counts["bwd_dw_sm90"], worst("residual", "dwhid"),
+         step_ms["dec_dw90"], k2["residual_plain_ms"], bd["dw"], None),
+        ("fused_decoder_fwd_tile", FWD_SOURCE, FWD_REPLACES, ab["fwd"],
+         g["tile_err"][0], g["ms_tile"], g["plain_ms"], bd["fwd"], None),
+        ("fused_decoder_fwd_acts_tile", FWD_SOURCE, FWD_REPLACES,
+         ab["fwd_acts"], k2["tile", "acts"][0], k2["fwd_acts_ms_tile"],
+         k2["fwd_acts_plain_ms"], bd["fwd_acts"], None),
+        ("fused_decoder_bwd_chain_tile", BWD_SOURCE, BWD_REPLACES,
+         ab["bwd_chain"], worst("residual", "dfold", "dbhid", "dwht", "dbht",
+                                design=("tile",)),
+         tparts["bwd_chain"], k2["residual_plain_ms"], bd["chain"], None),
+        ("fused_decoder_bwd_dw_tile", BWD_SOURCE, BWD_REPLACES,
+         ab["bwd_dw"], worst("residual", "dwhid", design=("tile",)),
+         tparts["bwd_dw"], k2["residual_plain_ms"], bd["dw"], None),
         ("fused_decoder_bwd_sum_rows", BWD_SOURCE, BWD_REPLACES,
          counts["bwd_sum"], worst("residual", *GRADS), step_ms["sum_rows"],
-         k2["residual_plain_ms"], bound(k2_parts),
+         k2["residual_plain_ms"], bd["sums"],
          torch_sum_ms(torch, [(b, tiles, 3 * h), (1, b * hw // 4096, h * h),
                               (1, b * tiles, (1 + no) * h + no)])),
     ]
+
+
+def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
+                fam_counts, knobs) -> list:
+    """The per-kernel JSON records: K1 and K2 (``dec_rows``), K3 at the int8
+    training step's (bf16 weights, B=100: the cluster passes it runs, and
+    the block passes at the colored path's step, the path that launches
+    them), K4 without a1 at the evaluation's (B=100) and with a1, K5 at the
+    tail step's (B=37), and K3's whole call in the Gaussian, colored and
+    padded families at the particles, colored and mnist steps' (bf16
+    weights, B=100; launches: that model's K3 calls).  Bounds from the
+    shapes (PEAK_* above)."""
+    b, hw, h, no = BATCH, IMAGE[0] * IMAGE[1], P_HIDDEN, CHANNELS
+    kp = -(-h // 64) * 64
+    f4 = 4                                      # f32 bytes
+    gemm = 2.0 * b * hw * h * h
+    head = (2.0 * b * hw * h * no, PEAK_FP32)   # on the CUDA cores
+    rows = dec_rows(torch, res, bwd, launches, counts, step_ms)
     # the int8 path
     lc = res["int8"]["loss", BATCH, "bfloat16", True, False]
     tb = N_TRAIN % BATCH                        # the tail step's batch
@@ -4316,11 +4558,111 @@ def default_width_times() -> dict:
     return out
 
 
-# the translation units this slice leaves as they were: K4/K5 (and T1's K5
-# modes) and K3's block, lever and wide instantiations
-SASS_UNITS = ("fused_decoder_int8.cu", "kernel_bench_bwd.cu",
+# the translation units this slice leaves as they were: K1/K2's tile
+# kernels, K4/K5 (and T1's K5 modes), K3's block, lever and wide
+# instantiations and its cluster passes (three of their helpers moved to
+# sm90.cuh, which also gained the TF32 and bf16 products)
+SASS_UNITS = ("fused_decoder_fwd.cu", "fused_decoder_bwd.cu",
+              "fused_decoder_int8.cu", "kernel_bench_bwd.cu",
               "fused_loss_int8.cu", "fused_loss_int8_levers.cu",
-              "fused_loss_int8_wide.cu")
+              "fused_loss_int8_wide.cu", "fused_loss_int8_sm90.cu")
+
+
+# the cases of ``--limits dec90``: galaxy f32 and bf16, a residual add, at
+# a batch that keeps the plain versions quick
+DEC90_LIMIT_CASES = [
+    ("galaxy_f32", 8, 4096, 500, 1, 3, False, "float32"),
+    ("galaxy_bf16", 8, 4096, 500, 1, 3, False, "bfloat16"),
+    ("resid_f32", 8, 4096, 500, 1, 3, True, "float32"),
+    ("hw784_no8_bf16", 8, 784, 500, 1, 8, True, "bfloat16"),
+]
+
+
+def phase_limits_dec90(torch) -> None:
+    """``--limits dec90``: K1/K2's sm90 kernels against their plain versions
+    for the sound library and for copies with one step removed (one TF32
+    product for f32 weights, -DSVT_TF32_SPLIT=0; no bf16 casts outside the
+    products, -DSVT_BF16_CASTS=0), over three seeds: y and the activations
+    (max/mean absolute), each backward variant's worst gradient (max/mean
+    relative to max|plain|); the limits TOL, ACTS_TOL and BWD_TOL stand
+    between them."""
+    from spatialvae_torch.kernels import _build
+    from spatialvae_torch.kernels import fused_decoder as fd
+
+    for defines in ((), ("-DSVT_TF32_SPLIT=0",), ("-DSVT_BF16_CASTS=0",)):
+        lib = _build.load_library(defines)
+        fd._lib = (lambda lib=lib: lib)
+        worst = {}
+        for seed in range(3):
+            for case in DEC90_LIMIT_CASES:
+                r = backward_case(torch, case, seed, False, rerun=False)
+                if r["route"] != "sm90":
+                    raise AssertionError(f"{case[0]} took {r['route']}")
+                name = case[0]
+                for k in ("y", "acts"):
+                    worst[name, k] = _wmax(worst.get((name, k), (0, 0)),
+                                           r[k][:2])
+                for v in ("residual", "recompute"):
+                    for gname in GRADS:
+                        worst[name, v] = _wmax(worst.get((name, v), (0, 0)),
+                                               r[v, gname][2:])
+            torch.cuda.empty_cache()
+        log("limits_dec90", build=" ".join(defines) or "sound",
+            **{"/".join(k): f"{a:.3e}/{m:.3e}"
+               for k, (a, m) in sorted(worst.items())})
+    fd._lib = (lambda: _build.load_library())
+
+
+def phase_split_dec90(torch) -> None:
+    """``--split dec90``: each sm90 kernel's device ms (one traced call) in
+    the sound build and in a copy whose tiles end after the product
+    (-DSVT_DEC90_CUT=1: the product with the A slabs built beside it, no
+    epilogue), in turns (sound, cut, cut, sound), at galaxy B=100: the
+    forward (f32 and bf16, without and with activations), the chain and dW
+    of the residual backward.  The epilogue's share is the difference."""
+    from spatialvae_torch.kernels import _build
+    from spatialvae_torch.kernels import fused_decoder as fd
+
+    libs = {"sound": _build.load_library(),
+            "cut": _build.load_library(("-DSVT_DEC90_CUT=1",))}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    hw = IMAGE[0] * IMAGE[1]
+    for dtype in (torch.float32, torch.bfloat16):
+        fold, coords, *ws = _tail_inputs(torch, BATCH, hw, P_HIDDEN, 1,
+                                         CHANNELS, dtype, gen)
+        tw = fd.TailWeights(*ws)
+        g = torch.randn((BATCH, CHANNELS, hw), generator=gen, device=DEVICE)
+        with torch.no_grad():
+            fd._lib = (lambda: libs["sound"])
+            y, acts = fd.run_decoder_tail_acts(fold, coords, tw)
+            calls = {
+                "fwd": lambda: fd.run_decoder_tail(fold, coords, tw),
+                "fwd_acts": lambda: fd.run_decoder_tail_acts(fold, coords,
+                                                             tw),
+                "bwd": lambda: fd.run_decoder_tail_backward(
+                    fold, coords, tw, acts, y, g)}
+            ms = {}
+            for build in ("sound", "cut", "cut", "sound"):
+                fd._lib = (lambda lib=libs[build]: lib)
+                for what, fn in calls.items():
+                    for k, v in kernel_device_ms(
+                            torch, fn, ("dec_fwd90", "dec_chain90",
+                                        "dec_dw90")).items():
+                        if v:
+                            ms.setdefault((what, k, build), []).append(v)
+        fd._lib = (lambda: libs["sound"])
+        for (what, k, build), v in sorted(ms.items()):
+            if build != "sound":
+                continue
+            cut = ms[what, k, "cut"]
+            epi = statistics.median(v) - statistics.median(cut)
+            log("split_dec90", dtype=str(dtype)[6:], call=what, kernel=k,
+                sound_ms="/".join(f"{x:.4f}" for x in v),
+                cut_ms="/".join(f"{x:.4f}" for x in cut),
+                epilogue_ms=f"{epi:.4f}")
+        del fold, coords, ws, tw, g, y, acts
+        torch.cuda.empty_cache()
+    fd._lib = (lambda: _build.load_library())
 
 
 def phase_sass(args) -> int:
@@ -4433,6 +4775,7 @@ def main() -> int:
         phase_limits(torch)
         phase_limits_numerics(torch)
         phase_limits_wide(torch)
+        phase_limits_dec90(torch)
         return 0
     if sys.argv[1:] == ["--limits", "k3"]:
         phase_limits_k3(torch)
@@ -4449,9 +4792,20 @@ def main() -> int:
     if sys.argv[1:] == ["--limits", "kernel_bench"]:
         phase_limits_kernel_bench(torch)
         return 0
+    if sys.argv[1:] == ["--limits", "dec90"]:
+        phase_limits_dec90(torch)
+        return 0
+    if sys.argv[1:] == ["--split", "dec90"]:
+        phase_split_dec90(torch)
+        return 0
     ptxas = start_ptxas_report(LOSS90_SOURCE)
+    ptxas_dec = start_ptxas_report(DEC90_SOURCE)
+    from spatialvae_torch.kernels import fused_decoder as fd
+
     res = phase_kernels(torch)
     bwd = phase_backward(torch)
+    res["ab_counts"] = dict(fd.LAUNCHES)
+    res["dec90"] = phase_dec90(torch, ptxas_dec)
     res["k3_sm90"] = phase_k3_sm90(torch, ptxas)
     res["int8"] = phase_int8_kernels(torch)
     res["families"] = phase_loss_families(torch)

@@ -46,6 +46,11 @@ _SIGNATURES = {
                                  + [_P], _I),
     "svt_fused_decoder_bwd_kchunk": ([], _I),
     "svt_sum_rows": ([_P, _P, _I, _L, _I, _L, _P], _I),
+    "svt_decoder90_fwd": ([_P] * 8 + [_I] * 8 + [_P], _I),
+    "svt_decoder90_chain": ([_P] * 11 + [_I] * 8 + [_P], _I),
+    "svt_decoder90_dw": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    "svt_decoder90_ws_block": ([_I], _L),
+    "svt_decoder90_max_clusters": ([_I], _I),
     "svt_int8_ws_block": ([_I], _L),
     "svt_int8_decoder_fwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "svt_int8_decoder_bwd_scale": ([_P] * 11 + [_I] * 5 + [_P], _I),

@@ -287,11 +287,6 @@ __device__ __forceinline__ void chain_tile(const float* __restrict__ fold,
     chain_part(fold, coords, b, p0, H, s, thr, tile);
 }
 
-// The column of accumulator element j of this thread (warpgroup wg).
-__device__ __forceinline__ int acc_col(int wg, int t, int j) {
-  return 128 * wg + 8 * (j >> 2) + 2 * t + (j & 1);
-}
-
 // The thread's a1c in registers, element j as the accumulator's: with bf16
 // weights the values are bf16, two to a register (elements 2i, 2i+1 in the
 // low and high halves), which halves what the gradient pass holds through
@@ -340,34 +335,6 @@ __device__ __forceinline__ void a1_epilogue(const int (&acc)[64],
     const float x = __fadd_rn(__fmul_rn(float(acc[j]), sc), bn);
     a1c.set(j, on ? operand<BF16>(tanhf(x)) : 0.f);
   }
-}
-
-// Halving exchange over the 8 lanes of a column (lane bits 2..4): v[i] holds
-// this thread's partial of chunk index i; afterwards v[0] holds the sum over
-// the 8 lanes of index g (the lane's g = lane >> 2).
-__device__ __forceinline__ float reduce_scatter8(float (&v)[8]) {
-  const int g = (threadIdx.x & 31) >> 2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool hi = g & 4;
-    const float keep = hi ? v[i + 4] : v[i], send = hi ? v[i] : v[i + 4];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool hi = g & 2;
-    const float keep = hi ? v[i + 2] : v[i], send = hi ? v[i] : v[i + 2];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
-  }
-  const bool hi = g & 1;
-  const float keep = hi ? v[1] : v[0], send = hi ? v[0] : v[1];
-  return keep + __shfl_xor_sync(0xffffffffu, send, 4);
-}
-
-// The column that reduce_scatter8's result belongs to, for chunk ch (nt =
-// 4 ch .. 4 ch + 3, chunk index 2 (nt % 4) + e).
-__device__ __forceinline__ int chunk_col(int wg, int t, int g, int ch) {
-  return 128 * wg + 8 * (4 * ch + (g >> 1)) + 2 * t + (g & 1);
 }
 
 // ---- pass 1 on clusters: forward, loss, dz2, each block's loss and max

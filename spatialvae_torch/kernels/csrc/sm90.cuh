@@ -1,15 +1,18 @@
 // Hopper (sm_90a) building blocks of the cluster kernels in
-// fused_loss_int8_sm90.cu: mbarriers, bulk copies multicast into the shared
-// memory of every CTA of a thread block cluster, remote arrivals, and the
-// int8 warpgroup product `wgmma.mma_async ... s32.s8.s8` with both operands
-// in shared memory.  Raw PTX through inline asm, so the translation unit
-// needs no CUTLASS or CuTe header and builds in seconds.
+// fused_loss_int8_sm90.cu and fused_decoder_sm90.cu: mbarriers, bulk copies
+// multicast into the shared memory of every CTA of a thread block cluster,
+// remote arrivals, and the warpgroup products with both operands in shared
+// memory: int8 `wgmma.mma_async ... s32.s8.s8` (k32), TF32
+// `... f32.tf32.tf32` (k8) and bf16 `... f32.bf16.bf16` (k16), each m64n128.
+// Raw PTX through inline asm, so the translation units need no CUTLASS or
+// CuTe header and build in seconds.
 //
 // Shared-memory operands use wgmma's K-major layout with the 64-byte
 // swizzle: rows of 64 K-bytes, 8-row groups of 512 bytes, and the 16-byte
 // chunk c of row r stored at chunk c ^ ((r >> 1) & 3), so that a 32-byte K
-// step of eight rows spreads over the banks.  Int8 wgmma takes K-major
-// operands only, for A and B.
+// step of eight rows spreads over the banks.  A K step is 32 bytes in all
+// three types (32 int8, 8 TF32 or 16 bf16 values).  Int8 and TF32 wgmma take
+// K-major operands only, for A and B; the bf16 products here use it too.
 
 #pragma once
 
@@ -168,6 +171,99 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(accumulate)
       : "memory");
+}
+
+// ---- f32-accumulating products: d (+)= A (64 x K) . B (128 x K)^T over the
+// warpgroup, both K-major in shared memory, one 32-byte K step; the
+// accumulator layout is wgmma_s8_n128's (thread (warp w, lane 4g + t) holds
+// d[4 nt + 2 h + e] = D[16 w + g + 8 h][8 nt + 2 t + e]).
+#define SM90_F32_ACC(d)  \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+  "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// TF32 operands (f32 bit patterns whose low 13 bits are zero), k8.
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : SM90_F32_ACC(d)
+      : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// bf16 operands, k16, neither transposed.
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SM90_F32_ACC(d)
+      : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// ---- the accumulator layout of the m64n128 products over a warpgroup
+
+// The column of accumulator element j of this thread (warpgroup wg).
+__device__ __forceinline__ int acc_col(int wg, int t, int j) {
+  return 128 * wg + 8 * (j >> 2) + 2 * t + (j & 1);
+}
+
+// Halving exchange over the 8 lanes of a column (lane bits 2..4): v[i] holds
+// this thread's partial of chunk index i; afterwards v[0] holds the sum over
+// the 8 lanes of index g (the lane's g = lane >> 2).
+__device__ __forceinline__ float reduce_scatter8(float (&v)[8]) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool hi = g & 4;
+    const float keep = hi ? v[i + 4] : v[i], send = hi ? v[i] : v[i + 4];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool hi = g & 2;
+    const float keep = hi ? v[i + 2] : v[i], send = hi ? v[i] : v[i + 2];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+  const bool hi = g & 1;
+  const float keep = hi ? v[1] : v[0], send = hi ? v[0] : v[1];
+  return keep + __shfl_xor_sync(0xffffffffu, send, 4);
+}
+
+// The column that reduce_scatter8's result belongs to, for chunk ch (nt =
+// 4 ch .. 4 ch + 3, chunk index 2 (nt % 4) + e).
+__device__ __forceinline__ int chunk_col(int wg, int t, int g, int ch) {
+  return 128 * wg + 8 * (4 * ch + (g >> 1)) + 2 * t + (g & 1);
 }
 
 // ---- the launch of a kernel in clusters of `cs` CTAs along x, and the

@@ -11,11 +11,25 @@ op ``fused_decoder_tail``: Pallas ``_fwd_kernel`` and ``_bwd_kernel``).  Per
     y   = sigmoid(a_Lh @ Wh + bh)                # (H, n_out) head
 
 with the activation cast to the weight dtype before each product and f32
-accumulation.  The forward kernel (``csrc/fused_decoder_fwd.cu``) keeps every
-(B, HW, H) intermediate on chip and writes y, plus the activations a_1..a_Lh
-when the backward will read them; the backward (``csrc/fused_decoder_bwd.cu``)
-runs the chain backwards per pixel tile, a split-K dW GEMM and fixed-order
-reductions of the per-block partials.
+accumulation.  Two designs run it on the card, and ``decoder_route`` alone
+picks one per call:
+
+- "sm90" (``csrc/fused_decoder_sm90.cu``), every call with one hidden layer
+  at most 512 wide and at most 8 outputs (every CLI's default decoder):
+  the forward and the backward's chain on thread block clusters of four
+  64-pixel tiles that share one multicast stream of W's slabs
+  (``decoder_slabs``, laid out once per weight version and cached on
+  ``TailWeights``), TF32 (three products, f32 weights) or bf16 wgmma, the
+  product's A operand built slab by slab; the chain writes cast(a0)^T and
+  cast(dh1)^T to K-major workspaces (64-pixel blocks of (512 rows, 64
+  pixels), swizzled as the slabs are) from which a cluster kernel computes
+  dW1;
+- "tile" (``csrc/fused_decoder_fwd.cu``, ``csrc/fused_decoder_bwd.cu``),
+  every other call: one block per 64-pixel tile streaming W from L2, a
+  split-K dW GEMM.
+
+Both keep every (B, HW, H) intermediate on chip except the activations the
+backward reads, and reduce per-block partials in a fixed order.
 
 ``decoder_tail_reference`` and ``decoder_tail_backward_reference`` are the
 two in eager PyTorch, with the kernels' casts.  The wrappers run them for CPU
@@ -53,14 +67,55 @@ WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 # Kernel launches on CUDA tensors, by kernel: the forward without and with
 # the activation output (``fwd``, ``fwd_acts``), the forward the backward
 # reruns to recompute them (``fwd_recompute``), and the backward's chain,
-# dW and reduction kernels.  The CPU path launches nothing.
+# dW and reduction kernels; the "sm90" route's kernels count under the keys
+# with "_sm90", the reductions (one kernel for both routes) under
+# ``bwd_sum``.  The CPU path launches nothing.
 LAUNCHES = {"fwd": 0, "fwd_acts": 0, "fwd_recompute": 0, "bwd_chain": 0,
-            "bwd_dw": 0, "bwd_sum": 0}
+            "bwd_dw": 0, "bwd_sum": 0, "fwd_sm90": 0, "fwd_acts_sm90": 0,
+            "fwd_recompute_sm90": 0, "bwd_chain_sm90": 0, "bwd_dw_sm90": 0}
+
+# The "sm90" kernels (csrc/fused_decoder_sm90.cu): CLUSTER CTAs of one
+# 64-pixel tile each share W's slab stream; every product has SM90_WIDTH
+# output rows (zero past H); a slab is SLAB_BYTES K-bytes of each row; each
+# split-K partial of the dW1 kernel sums DW_SPLIT_BLOCKS 64-pixel blocks
+# (4,096 pixels, as the tile kernels' chunks: a longer f32 sum inside one
+# accumulator read a mean error of 2.5e-5 of max|dW1| at B=100 against the
+# limit 1e-5).
+CLUSTER = 4
+SM90_WIDTH = 512
+SLAB_BYTES = 64
+BLOCK_PIXELS = 64
+DW_SPLIT_BLOCKS = 64
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def decoder_route(hw: int, h: int, lh: int, no: int,
+                  tile_kernels: bool = False) -> str:
+    """The kernels a call of hidden width ``h``, ``lh`` hidden layers and
+    ``no`` outputs runs on the card, at any pixel count ``hw``: "sm90" for
+    one hidden layer at most SM90_WIDTH wide (f32 or bf16 weights, with or
+    without the residual add, every emit mode and both backward variants);
+    "tile" for every other call and for any call whose caller asks for the
+    tile kernels (``tile_kernels``: the A/B turns and card tests).  The
+    route is chosen here alone; the launches pass it on, and the "sm90"
+    entry points refuse a call this table does not send them."""
+    if hw < 1 or h < 1 or lh < 1 or not 1 <= no <= MAX_OUT:
+        raise ValueError(f"no route for hw={hw}, h={h}, lh={lh}, no={no}")
+    if not tile_kernels and lh == 1 and h <= SM90_WIDTH:
+        return "sm90"
+    return "tile"
+
+
+def _require_route(route: str, hw: int, h: int, lh: int, no: int) -> None:
+    if route not in ("sm90", "tile"):
+        raise ValueError(f"unknown route {route!r}")
+    if route == "sm90" and decoder_route(hw, h, lh, no) != "sm90":
+        raise ValueError(f"the sm90 kernels do not take hw={hw}, h={h}, "
+                         f"lh={lh}, no={no}")
 
 
 def can_fuse_decoder(cfg: SpatialGeneratorConfig, hw: int) -> bool:
@@ -242,23 +297,120 @@ def _check_weights(whid, bhid, wht, bht) -> None:
         raise ValueError(f"unsupported device {whid.device}")
 
 
+# ---------------------------------------------------------------------------
+# the sm90 kernels' operand layouts
+# ---------------------------------------------------------------------------
+
+
+def padded_hidden(h: int) -> int:
+    """The K extent of the kernels' padded operands: H up to a multiple of
+    32."""
+    return -(-h // 32) * 32
+
+
+def slab_k(k: int) -> int:
+    """The K extent of the sm90 slab streams: K up to a multiple of 64 (a
+    whole number of the kernels' slabs in f32 and bf16)."""
+    return -(-k // 64) * 64
+
+
+def _swizzle64(t: torch.Tensor) -> torch.Tensor:
+    """(..., R, 4, E) rows of 64 bytes in four 16-byte chunks -> wgmma's
+    64-byte swizzle: chunk c of row r to chunk c ^ ((r >> 1) & 3)
+    (``csrc/sm90.cuh`` ``offset_sw64``); its own inverse."""
+    r = torch.arange(t.shape[-3], device=t.device)
+    idx = torch.arange(4, device=t.device)[None, :] ^ ((r[:, None] >> 1) & 3)
+    idx = idx[..., None].expand(t.shape[-3:])
+    return torch.gather(t, -2, idx.expand(t.shape))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on float32 values: round to 10 mantissa bits,
+    ties away from zero, the low 13 bits zero (finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """x = hi + lo with hi = rna(x) and lo = rna(x - hi), both TF32: the
+    planes of the three-product split (hi.hi + hi.lo + lo.hi)."""
+    x = x.float()
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _planes(x: torch.Tensor) -> torch.Tensor:
+    """(P, ...) operand planes: bf16 values as they are (P = 1), float32 as
+    its TF32 head and tail (P = 2)."""
+    if x.dtype == torch.bfloat16:
+        return x[None]
+    return torch.stack(tf32_split(x))
+
+
+def _chunk_values(dtype: torch.dtype) -> int:
+    """Values of ``dtype`` in a 16-byte chunk of a 64-byte operand row."""
+    return 128 // torch.finfo(dtype).bits
+
+
+def decoder_slabs(w: torch.Tensor) -> torch.Tensor:
+    """An (N, K) float32 or bfloat16 matrix given as rows [n][k] (N, K <=
+    SM90_WIDTH) -> the sm90 kernels' slab stream: zero-padded to
+    (SM90_WIDTH, Kp), Kp = ``slab_k(K)``, cut into Kp/KS units of KS =
+    SLAB_BYTES/element-size K values (16 f32, 32 bf16), each unit its
+    planes (f32: the TF32 head, then the tail; bf16: the values) of
+    (SM90_WIDTH, KS) in wgmma's 64-byte swizzled K-major layout (16-byte
+    chunk c of row n at chunk c ^ ((n >> 1) & 3)).  One contiguous 1-D
+    tensor of the weight dtype (float32 for f32): a kernel's slab is one
+    unit or two consecutive ones, and every quarter of a slab is one bulk
+    copy.  The grad path lays W out on every step, so this is a handful
+    of ops: the padded planes, then one gather through a cached index."""
+    n, k = w.shape
+    kp = slab_k(k)
+    planes = _planes(F.pad(w, (0, kp - k, 0, SM90_WIDTH - n)))
+    idx = _slab_index(planes.shape[0], kp, _chunk_values(w.dtype), w.device)
+    return planes.reshape(-1)[idx]
+
+
+@functools.cache
+def _slab_index(n_planes: int, kp: int, e: int,
+                device: torch.device) -> torch.Tensor:
+    """Where each element of the slab stream comes from in the flattened
+    (P, SM90_WIDTH, Kp) planes (``decoder_slabs``' permutation)."""
+    src = torch.arange(n_planes * SM90_WIDTH * kp, device=device)
+    t = src.reshape(n_planes, SM90_WIDTH, kp // (4 * e), 4, e)
+    return _swizzle64(t.permute(2, 0, 1, 3, 4).contiguous()).reshape(-1)
+
+
+def dw90_splits(nblocks: int) -> int:
+    """Split-K partials of one launch of the sm90 dW1 kernel over
+    ``nblocks`` 64-pixel blocks: one per DW_SPLIT_BLOCKS blocks (16 CTAs
+    each)."""
+    return -(-nblocks // DW_SPLIT_BLOCKS)
+
+
 class TailWeights:
     """The decoder tail's weights, checked once: whid (Lh, H_in, H_out),
     bhid (Lh, H), wht (No, H), bht (No,), all float32 or all bfloat16,
     contiguous, on one device, none of them tracked by autograd.
 
-    ``kernel_args()`` builds the launch's float32 copies on first use: the
-    kernels read f32 (widening bf16 is exact, and a flag keeps the bf16
-    casts) and stream whid in 16-byte rows, zero-padded to (Lh, Hp, Hp)
-    with Hp a multiple of 32; ``whid_t()`` is the padded W_l^T that the
-    backward streams the same way."""
+    The launches' operands are built on first use and kept: ``head_args()``
+    the float32 copies of bhid, wht and bht (widening bf16 is exact, and a
+    flag keeps the bf16 casts); for the tile kernels ``kernel_args()`` adds
+    whid as f32 zero-padded to (Lh, Hp, Hp), Hp a multiple of 32, and
+    ``whid_t()`` the padded W_l^T the backward streams; for the sm90
+    kernels ``sm90_slabs()`` is W1^T's slab stream (the forward's B
+    operand: N = output unit) and ``sm90_slabs_t()`` W1's (the chain's: N
+    = input unit), in the weight dtype."""
 
     def __init__(self, whid, bhid, wht, bht):
         _check_weights(whid, bhid, wht, bht)
         self.whid, self.bhid, self.wht, self.bht = (
             t.detach() for t in (whid, bhid, wht, bht))
+        self._head_args = None
         self._kernel_args = None
         self._whid_t = None
+        self._slabs = None
+        self._slabs_t = None
 
     @property
     def bf16(self) -> bool:
@@ -266,16 +418,29 @@ class TailWeights:
 
     def _pad(self, w):
         h = w.shape[1]
-        hp = -(-h // 32) * 32
+        hp = padded_hidden(h)
         return F.pad(w.float(), (0, hp - h, 0, hp - h)).contiguous()
+
+    def head_args(self) -> tuple:
+        if self._head_args is None:
+            self._head_args = tuple(t.float().contiguous()
+                                    for t in (self.bhid, self.wht, self.bht))
+        return self._head_args
 
     def kernel_args(self) -> tuple:
         if self._kernel_args is None:
-            self._kernel_args = (
-                self._pad(self.whid),
-                *(t.float().contiguous()
-                  for t in (self.bhid, self.wht, self.bht)))
+            self._kernel_args = (self._pad(self.whid), *self.head_args())
         return self._kernel_args
+
+    def sm90_slabs(self) -> torch.Tensor:
+        if self._slabs is None:
+            self._slabs = decoder_slabs(self.whid[0].T)
+        return self._slabs
+
+    def sm90_slabs_t(self) -> torch.Tensor:
+        if self._slabs_t is None:
+            self._slabs_t = decoder_slabs(self.whid[0])
+        return self._slabs_t
 
     def whid_t(self) -> torch.Tensor:
         if self._whid_t is None:
@@ -363,21 +528,32 @@ def wide_chunks(b: int, blocks: int, block_bytes: int, budget: int) -> list:
 
 
 def _launch_fwd(fold, coords, w: TailWeights, resid: bool, emit: int,
-                key: str, y=None, acts=None) -> tuple:
+                key: str, y=None, acts=None, route: str = "tile") -> tuple:
     """The forward kernel on CUDA tensors, each launch counted in
-    ``LAUNCHES[key]``.  emit 0: y only; 1: also f32 activations; 2:
-    activations rounded to bf16.  Above H = 512 the images go in launches
-    whose workspace fits ``workspace_budget``.  Returns (y, acts)."""
-    lib = _lib()
-    dev = fold.device
+    ``LAUNCHES[key]`` ("tile") or ``LAUNCHES[key + "_sm90"]`` ("sm90").
+    emit 0: y only; 1: also f32 activations; 2: activations rounded to
+    bf16.  Above H = 512 the images go in launches whose workspace fits
+    ``workspace_budget``.  Returns (y, acts)."""
     b, _, h = fold.shape
     hw, lh, no = coords.shape[0], w.whid.shape[0], w.wht.shape[0]
+    _require_route(route, hw, h, lh, no)
+    lib = _lib()
+    dev = fold.device
     if y is None:
         y = torch.empty((b, no, hw), dtype=torch.float32, device=dev)
     if emit and acts is None:
         acts = torch.empty((lh, b, hw, h), device=dev,
                            dtype=torch.bfloat16 if emit == 2 else
                            torch.float32)
+    if route == "sm90":
+        with torch.cuda.device(dev):
+            _call(lib, "svt_decoder90_fwd", fold.data_ptr(),
+                  coords.data_ptr(), w.sm90_slabs().data_ptr(),
+                  *(t.data_ptr() for t in w.head_args()), y.data_ptr(),
+                  acts.data_ptr() if emit else None, b, hw, h, lh, no,
+                  int(bool(resid)), int(w.bf16), emit, _stream(fold))
+        LAUNCHES[key + "_sm90"] += 1
+        return y, acts
     tiles = -(-hw // 64)
     block = lib.svt_fused_decoder_ws_block(h) * 4
     chunks, ws = [(0, b)], None
@@ -399,55 +575,67 @@ def _launch_fwd(fold, coords, w: TailWeights, resid: bool, emit: int,
     return y, acts
 
 
+def _route(fold, coords, w: TailWeights, tile_kernels: bool) -> str:
+    return decoder_route(coords.shape[0], fold.shape[2], w.whid.shape[0],
+                         w.wht.shape[0], tile_kernels)
+
+
 def run_decoder_tail(fold: torch.Tensor, coords: torch.Tensor,
-                     weights: TailWeights, resid: bool = False
-                     ) -> torch.Tensor:
+                     weights: TailWeights, resid: bool = False,
+                     tile_kernels: bool = False) -> torch.Tensor:
     """The forward without activations (serving, evaluation).  fold:
     (B, 4, H) f32; coords: (HW, 2) f32.  Returns (B, No, HW) float32.
 
     CPU tensors take ``decoder_tail_reference``; CUDA tensors launch the
-    kernel, count it in ``LAUNCHES["fwd"]``, and raise if the build or the
-    launch fails."""
+    kernel of ``decoder_route`` (``tile_kernels`` forces the tile kernel),
+    count it in ``LAUNCHES["fwd"]`` or ``["fwd_sm90"]``, and raise if the
+    build or the launch fails."""
     _check_inputs(fold, coords, weights)
     w = weights
     if fold.device.type == "cpu":
         return decoder_tail_reference(fold, coords, w.whid, w.bhid, w.wht,
                                       w.bht, resid)
-    y, _ = _launch_fwd(fold, coords, w, resid, 0, "fwd")
+    y, _ = _launch_fwd(fold, coords, w, resid, 0, "fwd",
+                       route=_route(fold, coords, w, tile_kernels))
     return y
 
 
 def run_decoder_tail_acts(fold: torch.Tensor, coords: torch.Tensor,
-                          weights: TailWeights, resid: bool = False) -> tuple:
+                          weights: TailWeights, resid: bool = False,
+                          tile_kernels: bool = False) -> tuple:
     """The training forward: (y, acts), acts = a_1..a_Lh as (Lh, B, HW, H)
     in the weight dtype, the backward's residual.  CPU tensors take
-    ``decoder_tail_reference``; CUDA tensors launch the emitting kernel and
-    count it in ``LAUNCHES["fwd_acts"]``."""
+    ``decoder_tail_reference``; CUDA tensors launch the emitting kernel of
+    ``decoder_route`` and count it in ``LAUNCHES["fwd_acts"]`` or
+    ``["fwd_acts_sm90"]``."""
     _check_inputs(fold, coords, weights)
     w = weights
     if fold.device.type == "cpu":
         return decoder_tail_reference(fold, coords, w.whid, w.bhid, w.wht,
                                       w.bht, resid, return_acts=True)
     return _launch_fwd(fold, coords, w, resid, 2 if w.bf16 else 1,
-                       "fwd_acts")
+                       "fwd_acts",
+                       route=_route(fold, coords, w, tile_kernels))
 
 
 def run_decoder_tail_backward(fold, coords, w: TailWeights,
                               acts: Optional[torch.Tensor], y, g,
                               resid: bool = False,
-                              workspace_bytes: Optional[int] = None):
+                              workspace_bytes: Optional[int] = None,
+                              tile_kernels: bool = False):
     """The backward, with the outputs of ``decoder_tail_backward_reference``:
-    that function for CPU tensors, the kernels for CUDA tensors (a failed
-    build or launch raises).  ``acts`` is the forward's residual or None
-    (recompute: the forward kernel reruns with f32 activations into a
-    workspace).  On the card, images go through the chain and dW kernels in
-    chunks whose workspaces fit ``workspace_bytes`` (default
-    ``workspace_budget``); the partials of all chunks are then reduced in a
-    fixed order, so the result does not depend on the chunking's
-    schedule."""
+    that function for CPU tensors, the kernels of ``decoder_route`` for CUDA
+    tensors (a failed build or launch raises).  ``acts`` is the forward's
+    residual or None (recompute: the forward kernel reruns with f32
+    activations into a workspace).  On the card, images go through the
+    chain and dW kernels in chunks whose workspaces fit ``workspace_bytes``
+    (default ``workspace_budget``); the partials of all chunks are then
+    reduced in a fixed order, so the result does not depend on the
+    chunking's schedule."""
     if fold.device.type == "cpu":
         return decoder_tail_backward_reference(
             fold, coords, w.whid, w.bhid, w.wht, acts, y, g, resid)
+    route = _route(fold, coords, w, tile_kernels)
     lib = _lib()
     dev = fold.device
     b, _, h = fold.shape
@@ -456,28 +644,41 @@ def run_decoder_tail_backward(fold, coords, w: TailWeights,
     recompute = acts is None
     act_bf16 = not recompute and acts.dtype == torch.bfloat16
     tiles = -(-hw // 64)
-    block = lib.svt_fused_decoder_ws_block(h) * 4     # the wide chain's
-    per_image = lh * hw * h * (torch.finfo(wdt).bits // 8
-                               + (4 if recompute else 0)) + tiles * block
+    sm90 = route == "sm90"
+    if sm90:
+        # the chain's two dW1 operand workspaces
+        block = 2 * lib.svt_decoder90_ws_block(int(w.bf16))
+        per_image = (hw * h * 4 if recompute else 0) + tiles * block
+    else:
+        block = lib.svt_fused_decoder_ws_block(h) * 4  # the wide chain's
+        per_image = lh * hw * h * (torch.finfo(wdt).bits // 8
+                                   + (4 if recompute else 0)) + tiles * block
     budget = workspace_budget(dev) if workspace_bytes is None \
         else workspace_bytes
     bc = max(1, min(b, budget // per_image))
-    kchunk = lib.svt_fused_decoder_bwd_kchunk()
     mw = (lh + no) * h + no
     chunks = [(b0, min(bc, b - b0)) for b0 in range(0, b, bc)]
-    splits = [-(-n * hw // kchunk) for _, n in chunks]
+    if sm90:
+        splits = [dw90_splits(n * tiles) for _, n in chunks]
+    else:
+        kchunk = lib.svt_fused_decoder_bwd_kchunk()
+        splits = [-(-n * hw // kchunk) for _, n in chunks]
     f32 = dict(dtype=torch.float32, device=dev)
     part_fold = torch.empty((b * tiles, 3, h), **f32)
     part_w = torch.empty((b * tiles, mw), **f32)
     part_dw = torch.empty((sum(splits), lh, h, h), **f32)
-    dh_ws = torch.empty((lh, bc, hw, h), dtype=wdt, device=dev)
-    ws = (torch.empty((bc * tiles * block,), dtype=torch.uint8, device=dev)
-          if block else None)
+    if sm90:
+        ws = torch.empty((bc * tiles * block,), dtype=torch.uint8, device=dev)
+        ws_a0, ws_dh = ws[:ws.numel() // 2], ws[ws.numel() // 2:]
+    else:
+        dh_ws = torch.empty((lh, bc, hw, h), dtype=wdt, device=dev)
+        ws = (torch.empty((bc * tiles * block,), dtype=torch.uint8,
+                          device=dev) if block else None)
+        whid_t = w.whid_t()
     if recompute:
         acts_ws = torch.empty((lh, bc, hw, h), **f32)
         y_ws = torch.empty((bc, no, hw), **f32)
-    whid_t = w.whid_t()
-    wht = w.kernel_args()[2]
+    wht = w.head_args()[1]
     g = g.float().contiguous()
     esz = 2 if act_bf16 else 4
     flags = (int(bool(resid)), int(w.bf16), int(act_bf16))
@@ -488,24 +689,39 @@ def run_decoder_tail_backward(fold, coords, w: TailWeights,
             fold_c = fold[b0:b0 + n]
             if recompute:
                 _launch_fwd(fold_c, coords, w, resid, 1, "fwd_recompute",
-                            y_ws[:n], acts_ws)
+                            y_ws[:n], acts_ws, route=route)
                 act_ptr, act_ls = acts_ws.data_ptr(), n * hw * h
             else:
                 act_ptr = acts.data_ptr() + b0 * hw * h * esz
                 act_ls = b * hw * h
-            _call(lib, "svt_fused_decoder_bwd_chain", fold_c.data_ptr(),
-                  coords.data_ptr(), whid_t.data_ptr(), wht.data_ptr(),
-                  act_ptr, act_ls, y[b0:b0 + n].data_ptr(),
-                  g[b0:b0 + n].data_ptr(), dh_ws.data_ptr(),
-                  part_fold[b0 * tiles:].data_ptr(),
-                  part_w[b0 * tiles:].data_ptr(),
-                  ws.data_ptr() if block else None, n, hw, h, lh, no, *flags,
-                  st)
-            LAUNCHES["bwd_chain"] += 1
-            _call(lib, "svt_fused_decoder_bwd_dw", fold_c.data_ptr(),
-                  coords.data_ptr(), act_ptr, act_ls, dh_ws.data_ptr(),
-                  part_dw[split0:].data_ptr(), n, hw, h, lh, *flags[1:], st)
-            LAUNCHES["bwd_dw"] += 1
+            if sm90:
+                _call(lib, "svt_decoder90_chain", fold_c.data_ptr(),
+                      coords.data_ptr(), w.sm90_slabs_t().data_ptr(),
+                      wht.data_ptr(), act_ptr, y[b0:b0 + n].data_ptr(),
+                      g[b0:b0 + n].data_ptr(),
+                      part_fold[b0 * tiles:].data_ptr(),
+                      part_w[b0 * tiles:].data_ptr(), ws_a0.data_ptr(),
+                      ws_dh.data_ptr(), n, hw, h, lh, no, *flags, st)
+                LAUNCHES["bwd_chain_sm90"] += 1
+                _call(lib, "svt_decoder90_dw", ws_a0.data_ptr(),
+                      ws_dh.data_ptr(), part_dw[split0:].data_ptr(),
+                      n * tiles, h, ns, flags[1], st)
+                LAUNCHES["bwd_dw_sm90"] += 1
+            else:
+                _call(lib, "svt_fused_decoder_bwd_chain", fold_c.data_ptr(),
+                      coords.data_ptr(), whid_t.data_ptr(), wht.data_ptr(),
+                      act_ptr, act_ls, y[b0:b0 + n].data_ptr(),
+                      g[b0:b0 + n].data_ptr(), dh_ws.data_ptr(),
+                      part_fold[b0 * tiles:].data_ptr(),
+                      part_w[b0 * tiles:].data_ptr(),
+                      ws.data_ptr() if block else None, n, hw, h, lh, no,
+                      *flags, st)
+                LAUNCHES["bwd_chain"] += 1
+                _call(lib, "svt_fused_decoder_bwd_dw", fold_c.data_ptr(),
+                      coords.data_ptr(), act_ptr, act_ls, dh_ws.data_ptr(),
+                      part_dw[split0:].data_ptr(), n, hw, h, lh, *flags[1:],
+                      st)
+                LAUNCHES["bwd_dw"] += 1
             split0 += ns
         dfold = torch.zeros((b, 4, h), **f32)
         dwh = torch.empty((lh, h, h), **f32)

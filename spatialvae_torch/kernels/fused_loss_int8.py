@@ -95,6 +95,7 @@ from spatialvae_torch.kernels.config import Numerics, numerics
 from spatialvae_torch.kernels.fused_decoder import (
     _call,
     _first_layer,
+    _swizzle64,
     _lib,
     _stream,
     workspace_budget,
@@ -186,16 +187,6 @@ def k3_route(hw: int, h: int, pt: int, family: str, nm: Numerics,
             and family != "colored" and hw % quad == 0 and pt % quad == 0):
         return "sm90"
     return "block"
-
-
-def _swizzle64(t: torch.Tensor) -> torch.Tensor:
-    """(..., R, 4, 16) rows of 64 bytes -> wgmma's 64-byte swizzle: chunk c
-    of row r to chunk c ^ ((r >> 1) & 3) (``csrc/sm90.cuh``
-    ``offset_sw64``); its own inverse."""
-    r = torch.arange(t.shape[-3], device=t.device)
-    idx = torch.arange(4, device=t.device)[None, :] ^ ((r[:, None] >> 1) & 3)
-    idx = idx[..., None].expand(t.shape[-3:])
-    return torch.gather(t, -2, idx.expand(t.shape))
 
 
 def sm90_slabs(w: torch.Tensor) -> torch.Tensor:

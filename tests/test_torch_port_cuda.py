@@ -27,6 +27,7 @@ test configuration:
 The JAX parity of the plain versions is in ``test_torch_port_decoder.py``.
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -37,6 +38,7 @@ from spatialvae_torch.config import SpatialGeneratorConfig
 from spatialvae_torch.kernels import fused_decoder as fd
 from spatialvae_torch.models import SpatialGenerator
 from spatialvae_torch.transforms.coords import coord_grid
+from tests import dec90_layouts as dl
 
 pytestmark = pytest.mark.cuda
 
@@ -92,6 +94,12 @@ def _inputs(lh, no, hw, wdt, device, b=5, h=500, seed=0):
         for s in ((lh, h, h), (lh, h), (no, h), (no,))]
 
 
+def _key(base, lh, no, hw, h=500, tile_kernels=False):
+    """The LAUNCHES key a call on ``decoder_route``'s route counts under."""
+    route = fd.decoder_route(hw, h, lh, no, tile_kernels)
+    return base + ("_sm90" if route == "sm90" else "")
+
+
 def _assert_close(got, want, wdt, tol=TOL):
     d = (got.float() - want.float()).abs()
     assert d.max().item() <= tol[wdt][0]
@@ -115,12 +123,13 @@ def _case_id(c):
 def test_kernel_matches_plain_version(case, cuda_device):
     lh, resid, no, wdt, hw = case
     args = _inputs(lh, no, hw, wdt, cuda_device)
-    before = fd.LAUNCHES["fwd"]
+    key = _key("fwd", lh, no, hw)
+    before = fd.LAUNCHES[key]
     with torch.no_grad():
         got = fd.fused_decoder_tail(*args, resid)
         torch.cuda.synchronize()
         want = fd.decoder_tail_reference(*args, resid)
-    assert fd.LAUNCHES["fwd"] == before + 1
+    assert fd.LAUNCHES[key] == before + 1
     assert got.shape == (5, no, hw)
     _assert_close(got, want, wdt)
 
@@ -189,14 +198,14 @@ def test_fused_generator_runs_kernel(cuda_device):
     gen_cuda = SpatialGenerator(cfg, device=cuda_device)
     gen_cuda.load_state_dict(gen.state_dict())
     z = torch.randn((4, 4), generator=torch.Generator().manual_seed(2))
-    before = fd.LAUNCHES["fwd"]
+    before = fd.LAUNCHES["fwd_sm90"]
     with torch.no_grad():
         got = fd.fused_spatial_generator(
             gen_cuda, coord_grid(64, 64, device=cuda_device), None, None,
             z.to(cuda_device))
         want = fd.fused_spatial_generator(gen, coord_grid(64, 64), None,
                                           None, z)
-    assert fd.LAUNCHES["fwd"] == before + 1
+    assert fd.LAUNCHES["fwd_sm90"] == before + 1
     _assert_close(got.cpu(), want, torch.float32)
 
 
@@ -215,14 +224,15 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
 def test_kernel_with_activations_matches_plain_version(case, cuda_device):
     lh, resid, no, wdt, hw = case
     fold, coords, *ws = _inputs(lh, no, hw, wdt, cuda_device)
-    before = fd.LAUNCHES["fwd_acts"]
+    key = _key("fwd_acts", lh, no, hw)
+    before = fd.LAUNCHES[key]
     with torch.no_grad():
         y, acts = fd.run_decoder_tail_acts(fold, coords, fd.TailWeights(*ws),
                                            resid)
         torch.cuda.synchronize()
         y_ref, acts_ref = fd.decoder_tail_reference(fold, coords, *ws, resid,
                                                     return_acts=True)
-    assert fd.LAUNCHES["fwd_acts"] == before + 1
+    assert fd.LAUNCHES[key] == before + 1
     assert acts.dtype == wdt and acts.shape == (lh, 5, hw, 500)
     _assert_close(y, y_ref, wdt)
     _assert_close(acts, acts_ref, wdt, ACTS_TOL)
@@ -286,8 +296,11 @@ def test_autograd_op_runs_the_kernels(cuda_device):
         y = fd.fused_spatial_generator(g_, coord_grid(64, 64, device=dev),
                                        None, None, z.to(dev))
         torch.sin(3.0 * y).sum().backward()
-    assert fd.LAUNCHES == {"fwd": 0, "fwd_acts": 1, "fwd_recompute": 0,
-                           "bwd_chain": 1, "bwd_dw": 1, "bwd_sum": 4}
+    assert fd.LAUNCHES == {"fwd": 0, "fwd_acts": 0, "fwd_recompute": 0,
+                           "bwd_chain": 0, "bwd_dw": 0, "bwd_sum": 4,
+                           "fwd_sm90": 0, "fwd_acts_sm90": 1,
+                           "fwd_recompute_sm90": 0, "bwd_chain_sm90": 1,
+                           "bwd_dw_sm90": 1}
     for p, q in zip(gen_cuda.parameters(), gen.parameters()):
         if q.grad is not None:
             _assert_rel(p.grad.cpu(), q.grad,
@@ -312,8 +325,228 @@ def test_training_step_on_the_card(cuda_device):
     fd.reset_launches()
     aux = tr.train_step(y)
     assert torch.isfinite(aux).all()
-    assert fd.LAUNCHES["fwd_acts"] == fd.LAUNCHES["bwd_chain"] == 1
-    assert fd.LAUNCHES["fwd"] == 0 and tr.opt_state.count == 1
+    assert fd.LAUNCHES["fwd_acts_sm90"] == fd.LAUNCHES["bwd_chain_sm90"] == 1
+    assert fd.LAUNCHES["fwd_sm90"] == 0 and tr.opt_state.count == 1
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 on clusters (decoder_route "sm90") against the plain versions
+# and the tile kernels (tile_kernels=True)
+# ---------------------------------------------------------------------------
+
+# (No, HW): one output at mnist's ragged 784, the galaxy's, eight outputs
+SM90_SHAPES = [(1, 784), (3, 4096), (8, 784)]
+SM90_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _sm90_id(v):
+    if isinstance(v, tuple):
+        return f"No{v[0]}-HW{v[1]}"
+    if isinstance(v, torch.dtype):
+        return str(v)[6:]
+    return "resid" if v else "plain"
+
+
+@pytest.mark.parametrize("resid", [False, True], ids=_sm90_id)
+@pytest.mark.parametrize("wdt", SM90_DTYPES, ids=_sm90_id)
+@pytest.mark.parametrize("shape", SM90_SHAPES, ids=_sm90_id)
+def test_sm90_forward_against_plain_and_tile(shape, wdt, resid,
+                                             cuda_device):
+    """Both emit modes on the route and on the tile kernels: each within
+    TOL / ACTS_TOL of the plain version and of the other; reruns bit for
+    bit; each launch under its route's key."""
+    no, hw = shape
+    fold, coords, *ws = _inputs(1, no, hw, wdt, cuda_device)
+    tw = fd.TailWeights(*ws)
+    fd.reset_launches()
+    with torch.no_grad():
+        y = fd.run_decoder_tail(fold, coords, tw, resid)
+        y2, acts = fd.run_decoder_tail_acts(fold, coords, tw, resid)
+        y_again = fd.run_decoder_tail(fold, coords, tw, resid)
+        _, acts_again = fd.run_decoder_tail_acts(fold, coords, tw, resid)
+        y_t = fd.run_decoder_tail(fold, coords, tw, resid, tile_kernels=True)
+        _, acts_t = fd.run_decoder_tail_acts(fold, coords, tw, resid,
+                                             tile_kernels=True)
+        torch.cuda.synchronize()
+        want, acts_ref = fd.decoder_tail_reference(fold, coords, *ws, resid,
+                                                   return_acts=True)
+    assert fd.LAUNCHES["fwd_sm90"] == fd.LAUNCHES["fwd_acts_sm90"] == 2
+    assert fd.LAUNCHES["fwd"] == fd.LAUNCHES["fwd_acts"] == 1
+    assert acts.dtype == wdt and acts.shape == (1, 5, hw, 500)
+    assert torch.equal(y, y_again) and torch.equal(acts, acts_again)
+    assert torch.equal(y, y2)
+    for got in (y, y_t):
+        _assert_close(got, want, wdt)
+    _assert_close(y, y_t, wdt)
+    for got in (acts, acts_t):
+        _assert_close(got, acts_ref, wdt, ACTS_TOL)
+    _assert_close(acts, acts_t, wdt, ACTS_TOL)
+
+
+@pytest.mark.parametrize("variant", ["residual", "recompute"])
+@pytest.mark.parametrize("resid", [False, True], ids=_sm90_id)
+@pytest.mark.parametrize("wdt", SM90_DTYPES, ids=_sm90_id)
+@pytest.mark.parametrize("shape", SM90_SHAPES, ids=_sm90_id)
+def test_sm90_backward_against_plain_and_tile(shape, wdt, resid, variant,
+                                              cuda_device):
+    """The chain and dW1 on clusters against the plain version and the tile
+    kernels within BWD_TOL; two runs bit for bit; the route's keys."""
+    no, hw = shape
+    fold, coords, *ws = _inputs(1, no, hw, wdt, cuda_device)
+    g = torch.randn((5, no, hw), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    tw = fd.TailWeights(*ws)
+    with torch.no_grad():
+        y, acts = fd.run_decoder_tail_acts(fold, coords, tw, resid)
+        a = acts if variant == "residual" else None
+        fd.reset_launches()
+        got = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g, resid)
+        again = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g, resid)
+        tile = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g, resid,
+                                            tile_kernels=True)
+        want = fd.decoder_tail_backward_reference(fold, coords, *ws[:3], a,
+                                                  y, g, resid)
+    rec = int(a is None)
+    assert fd.LAUNCHES == {"fwd": 0, "fwd_acts": 0, "fwd_recompute": rec,
+                           "bwd_chain": 1, "bwd_dw": 1, "bwd_sum": 12,
+                           "fwd_sm90": 0, "fwd_acts_sm90": 0,
+                           "fwd_recompute_sm90": 2 * rec,
+                           "bwd_chain_sm90": 2, "bwd_dw_sm90": 2}
+    for u, v, t, w in zip(got, again, tile, want):
+        assert torch.equal(u, v)
+        _assert_rel(u, w, BWD_TOL[wdt, variant])
+        _assert_rel(u, t, BWD_TOL[wdt, variant])
+
+
+@pytest.mark.parametrize("wdt", SM90_DTYPES, ids=_sm90_id)
+def test_sm90_walk_writes_every_tile(wdt, cuda_device):
+    """The clusters' walk over the (image, 64-pixel tile) blocks, through
+    the kernel: at mnist's ragged 784 pixels (13 tiles an image), with more
+    quads of tiles than twice the resident clusters (every CTA runs two
+    tiles or more, some three) and a padded last quad, the emitting
+    forward writes
+    every element of y and of the activations (both filled with NaN
+    first), each within TOL / ACTS_TOL of the plain version."""
+    ncl = fd._lib().svt_decoder90_max_clusters(int(wdt == torch.bfloat16))
+    b = 1
+    while -(-13 * b // 4) <= 2 * ncl or 13 * b % 4 == 0:
+        b += 1
+    fold, coords, *ws = _inputs(1, 3, 784, wdt, cuda_device, b=b)
+    tw = fd.TailWeights(*ws)
+    y = torch.full((b, 3, 784), math.nan, device=cuda_device)
+    acts = torch.full((1, b, 784, 500), math.nan, device=cuda_device,
+                      dtype=wdt)
+    with torch.no_grad():
+        fd._launch_fwd(fold, coords, tw, False, 2 if wdt == torch.bfloat16
+                       else 1, "fwd_acts", y, acts, route="sm90")
+        torch.cuda.synchronize()
+        want, acts_ref = fd.decoder_tail_reference(fold, coords, *ws,
+                                                   return_acts=True)
+    assert torch.isfinite(y).all() and torch.isfinite(acts).all()
+    _assert_close(y, want, wdt)
+    _assert_close(acts, acts_ref, wdt, ACTS_TOL)
+
+
+def test_sm90_backward_in_image_chunks(cuda_device):
+    """A workspace bound that forces three chunks of images on the route
+    gives the one-chunk result up to the split-K partials' order."""
+    fold, coords, *ws = _inputs(1, 3, 784, torch.float32, cuda_device, b=7)
+    g = torch.randn((7, 3, 784), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(2))
+    tw = fd.TailWeights(*ws)
+    lib = fd._lib()
+    with torch.no_grad():
+        y, acts = fd.run_decoder_tail_acts(fold, coords, tw, True)
+        for a in (acts, None):
+            before = fd.LAUNCHES["bwd_chain_sm90"]
+            one = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g, True)
+            per_image = 13 * 2 * lib.svt_decoder90_ws_block(0) + (
+                0 if a is not None else 784 * 500 * 4)
+            three = fd.run_decoder_tail_backward(
+                fold, coords, tw, a, y, g, True,
+                workspace_bytes=3 * per_image)
+            assert fd.LAUNCHES["bwd_chain_sm90"] == before + 1 + 3
+            for u, v in zip(three, one):
+                _assert_rel(u, v, BWD_TOL[torch.float32, "residual"])
+
+
+@pytest.mark.parametrize("splits", [5, 12])
+@pytest.mark.parametrize("wdt", SM90_DTYPES, ids=_sm90_id)
+def test_sm90_dw_matches_its_plain_version(wdt, splits, cuda_device):
+    """The dW1 kernel alone on workspaces laid out by ``dec90_ws_layout``:
+    its split-K partials against ``dec90_dw_reference`` (f64), within 1e-5
+    of each partial's largest value (f32 accumulation over 64 pixels a
+    block); 12 splits of 37 blocks leave the last two partials empty (zero)."""
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    nb, h = 37, 500
+    a0 = torch.rand((nb, 64, fd.SM90_WIDTH), generator=gen,
+                    device=cuda_device) * 2 - 1
+    dh = torch.randn((nb, 64, fd.SM90_WIDTH), generator=gen,
+                     device=cuda_device)
+    ws_a0 = dl.dec90_ws_layout(a0.to(wdt))
+    ws_dh = dl.dec90_ws_layout(dh.to(wdt))
+    part = torch.empty((splits, h, h), device=cuda_device)
+    lib = fd._lib()
+    with torch.cuda.device(cuda_device):
+        fd._call(lib, "svt_decoder90_dw", ws_a0.data_ptr(), ws_dh.data_ptr(),
+                 part.data_ptr(), nb, h, splits, int(wdt == torch.bfloat16),
+                 fd._stream(part))
+    want = dl.dec90_dw_reference(ws_a0, ws_dh, nb, h, splits)
+    for s in range(splits):
+        if not want[s].any():
+            assert not part[s].any()
+            continue
+        _assert_rel(part[s], want[s], (1e-5, 1e-6))
+
+
+def test_sm90_entry_points_refuse_other_calls(cuda_device):
+    """The C entry points refuse what ``decoder_route`` does not send them:
+    two hidden layers, H > 512, nine outputs."""
+    lib = fd._lib()
+    buf = torch.zeros(1 << 20, device=cuda_device)
+    p = buf.data_ptr()
+    st = fd._stream(buf)
+    for h, lh, no in ((500, 2, 3), (600, 1, 3), (500, 1, 9)):
+        assert lib.svt_decoder90_fwd(p, p, p, p, p, p, p, None, 1, 256, h, lh,
+                                     no, 0, 0, 0, st) != 0
+        assert lib.svt_decoder90_chain(p, p, p, p, p, p, p, p, p, p, p, 1,
+                                       256, h, lh, no, 0, 0, 0, st) != 0
+    assert lib.svt_decoder90_dw(p, p, p, 4, 600, 1, 0, st) != 0
+
+
+def test_sm90_training_step_matches_plain(cuda_device):
+    """One float step's gradients through the route (K1 emitting, K2 on
+    clusters) against the same step through the plain folded decoder,
+    every leaf within chip_smoke.STEP_TOL of its largest value."""
+    from spatialvae_torch.config import InferenceConfig
+
+    from spatialvae_torch.objectives import ElboConfig, loss_and_grad
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+
+    q_cfg = InferenceConfig(n=64 * 64 * 3, latent_dim=23, hidden_dim=256,
+                            num_layers=2)
+    p_cfg = SpatialGeneratorConfig(latent_dim=20, hidden_dim=500, n_out=3,
+                                   num_layers=2)
+    ecfg = ElboConfig(fused=True, channels=3)
+    tr = Trainer(q_cfg, p_cfg, ecfg, TrainConfig(minibatch_size=8),
+                 coord_grid(64, 64, device=cuda_device))
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    y = torch.rand((8, 4096, 3), device=cuda_device, generator=gen)
+    noise = torch.randn((8, 23), device=cuda_device, generator=gen)
+    grads = {}
+    for fused in (True, False):
+        fd.reset_launches()
+        loss_and_grad(tr.q_net, tr.p_net,
+                      dataclasses.replace(ecfg, fused=fused), tr.coords, y,
+                      noise=noise, mask=tr.mask)
+        grads[fused] = {k: p.grad.clone()
+                        for k, p in tr.named_params().items()}
+        if fused:
+            assert fd.LAUNCHES["fwd_acts_sm90"] == 1
+            assert fd.LAUNCHES["bwd_chain_sm90"] == 1
+            assert fd.LAUNCHES["bwd_dw_sm90"] == 1
+    for k, g in grads[True].items():
+        _assert_rel(g, grads[False][k], (2e-4, 3e-5))
 
 
 # ---------------------------------------------------------------------------
