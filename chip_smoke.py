@@ -9,6 +9,7 @@
     python3 chip_smoke.py --limits probes     # those of the probe kernels
     python3 chip_smoke.py --limits kernel_bench   # those of T1's kernels
     python3 chip_smoke.py --limits dec90      # K1/K2's cluster kernels'
+    python3 chip_smoke.py --limits adam       # Adam's step kernel
     python3 chip_smoke.py --split dec90       # their product/epilogue split
     python3 chip_smoke.py --default-width PARENT_DIR   # K1-K5 A/B
     python3 chip_smoke.py --sass PARENT_DIR   # untouched kernels' SASS
@@ -18,9 +19,10 @@ holds each kernel against its plain PyTorch version on the card (the float
 decoder forward with and without its activation output and its backward
 with the residual and with recompute; the fused int8 loss and gradient in
 each of its families, Bernoulli, Gaussian, colored and over padded pixel
-counts; the int8 decoder forward and backward; Adam, K6 on every galaxy
-leaf in the three training configurations and K7 with the emission helpers
-on the two big encoder weights, bit for bit), then drives the galaxy model (64x64
+counts; the int8 decoder forward and backward; Adam, the step kernel and
+the per-leaf K6 on every galaxy leaf in the three training configurations
+and K7 with the emission helpers on the two big encoder weights, bit for
+bit, timed in turns), then drives the galaxy model (64x64
 RGB, z=20, encoder 12288->5000->5000->46, spatial decoder 500 wide, 2
 layers, 3 outputs, Bernoulli; random weights from a seed) through its
 paths:
@@ -41,9 +43,10 @@ paths:
   encoder with the int8 copies Adam emits and the int8 data copy): the
   same two epochs, where the 20 full batches take the fused int8 loss
   kernel and the two tails of 37 the int8 decoder and its backward, every
-  step ends in K6 on each leaf, the evaluations take the int8 forward; a
-  step of each kind against the plain versions, profiled steps, an epoch of
-  16 steps at B=4096 with bf16 Adam moments, and an epoch under
+  step ends in one launch of Adam's step kernel (K6 on every leaf), the
+  evaluations take the int8 forward; a step of each kind against the plain
+  versions, profiled steps, an epoch of 16 steps at B=4096 with bf16 Adam
+  moments, and an epoch under
   ``SPATIALVAE_ADAM_EMIT=pallas``, where the big weights take K7;
 - int8 training with bf16 compute of the three other models ``bench.py``
   builds, each at full width on 1,037 synthetic images: **particles**
@@ -127,7 +130,10 @@ one TF32 pass); ``--limits probes`` those of the probe kernels (the
 last k slab dropped, the int16 store wrapping, a 4 x 4 byte transpose with
 two rows swapped); ``--limits kernel_bench`` those of T1's kernels (the
 a1 scale without /127, fused-plain's scale per 64-pixel block,
-bwd-fixscale's dh1 without (1 - a1^2)).  ``python3 chip_smoke.py
+bwd-fixscale's dh1 without (1 - a1^2)); ``--limits adam`` Adam's step
+kernel against its plain version, bit for bit, in the sound build and in
+two faulty copies (b1*m contracted into an FMA, the plain-load tails
+dropped), which the compare must refuse.  ``python3 chip_smoke.py
 --default-width PARENT`` times K1-K5 at the default width in turns in this
 checkout and in the parent's (a directory holding it), each turn a process
 of its own tree; ``--sass PARENT`` compares the SASS of the translation
@@ -139,6 +145,7 @@ the final line, when there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -767,13 +774,14 @@ def phase_train(torch, tmpdir: str) -> tuple:
             "bwd_dw": 0, "bwd_sum": 4 * steps, "fwd_sm90": 0,
             "fwd_acts_sm90": steps, "fwd_recompute_sm90": 0,
             "bwd_chain_sm90": steps, "bwd_dw_sm90": steps}
-    leaves = len(trainer.named_params())
-    want_adam = {"adam": steps * leaves, "adam_emit": 0, "quant_scale": 0,
-                 "quantize": 0}
+    want_adam = {"adam": 0, "adam_emit": 0,
+                 "adam_step": steps * adam_step_launches(trainer),
+                 "quant_scale": 0, "quantize": 0}
     if counts != want or adam != want_adam:
         raise AssertionError(f"launches over {steps} steps: {counts}, "
                              f"Adam {adam}; expected {want}, {want_adam}")
-    counts["adam"] = adam["adam"]
+    counts["adam"] = adam["adam_step"]
+    counts["adam_leaf"] = adam["adam"] + adam["adam_emit"]
     after = trainer.eval_epoch(data, TRAIN_EPOCHS)
     if not (np.isfinite(rows).all() and np.isfinite(before + after).all()):
         raise AssertionError(f"non-finite metrics: {before} {rows} {after}")
@@ -812,7 +820,8 @@ def phase_train(torch, tmpdir: str) -> tuple:
         elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
         epoch_elbo="/".join(f"{r[0]:.3f}" for r in rows),
         launches=json.dumps(counts, separators=(",", ":")),
-        adam_launches_per_step=leaves, optimizer_roundtrip="bitwise",
+        adam_launches_per_step=adam_step_launches(trainer),
+        optimizer_roundtrip="bitwise",
         step_vs_plain_max_rel=f"{worst[0]:.3e}",
         step_vs_plain_worst_leaf=worst[2])
     return counts, phase_profile_step(torch, trainer, y, tmpdir)
@@ -890,6 +899,7 @@ def phase_profile_step(torch, trainer, y, tmpdir: str) -> dict:
         tw.sm90_slabs_t()
         tw.head_args()
     per_kernel["slabs_host_ms"] = _step_host_ms(torch, pack, 10)
+    phase_adam_path_ab(torch, "float", lambda: trainer.train_step(y))
     log("profile_step", wall_ms=f"{wall_us / 1e3:.3f}",
         device_busy_ms=f"{busy / 1e3:.3f}",
         idle_share=f"{1 - busy / wall_us:.4f}", **fields,
@@ -1598,22 +1608,29 @@ def _big_leaves(trainer) -> int:
                for p in trainer.named_params().values())
 
 
+def adam_step_launches(trainer) -> int:
+    """The step kernel's launches per step: one per STEP_MAX_LEAVES
+    leaves."""
+    from spatialvae_torch.kernels import adam as ka
+
+    return -(-len(trainer.named_params()) // ka.STEP_MAX_LEAVES)
+
+
 def int8_adam_launches(trainer, steps: int, *, seeded: bool,
                        engine: str = "xla") -> dict:
-    """Adam's launches over ``steps`` int8 steps: K6 on every leaf, or K7
-    on the big ones under ``pallas``; the fresh-scale engine adds the two
-    helpers per big leaf; ``seeded``: the epoch also built the int8 data
-    copy (one scale, one quantize per 4,096-image chunk) and seeded the
-    qshadow (each big leaf quantised once)."""
-    leaves, big = len(trainer.named_params()), _big_leaves(trainer)
+    """Adam's launches over ``steps`` int8 steps: the step kernel (which
+    writes the scales), and under the fresh-scale engine one launch of the
+    copies of the big leaves, if any (under ``pallas`` K7 takes them in the
+    step kernel); no per-leaf kernel.  ``seeded``: the epoch also built the
+    int8 data copy (one scale, one quantize: the images are float32) and
+    seeded the qshadow (each big leaf quantised once)."""
+    big = _big_leaves(trainer)
     seed = 1 + big if seeded else 0
-    seed_q = -(-N_TRAIN // 4096) + big if seeded else 0
-    if engine == "pallas":
-        return {"adam": steps * (leaves - big), "adam_emit": steps * big,
-                "quant_scale": steps * big + seed, "quantize": seed_q}
-    return {"adam": steps * leaves, "adam_emit": 0,
-            "quant_scale": steps * big + seed,
-            "quantize": steps * big + seed_q}
+    seed_q = 1 + big if seeded else 0
+    fresh = steps if big and engine != "pallas" else 0
+    return {"adam": 0, "adam_emit": 0,
+            "adam_step": steps * adam_step_launches(trainer),
+            "quant_scale": seed, "quantize": fresh + seed_q}
 
 
 def int8_galaxy_trainer(torch):
@@ -1688,7 +1705,7 @@ def phase_train_int8(torch, tmpdir: str) -> dict:
     shadow that Adam writes, the encoder's hidden GEMMs run on int8 with
     the int8 copies Adam emits, layer 0 reading the int8 data copy): two
     epochs of 1,037 blob images (20 K3 steps, 2 tail steps through K4 and
-    K5, K6 on every leaf of every step), the evaluations before and after,
+    K5, Adam's step kernel in every step), the evaluations before and after,
     one step of each kind through the kernels against the plain versions,
     profiled steps, an epoch of 16 steps at B=4096 with bf16 moments, and
     an epoch under SPATIALVAE_ADAM_EMIT=pallas (K7)."""
@@ -1749,6 +1766,10 @@ def phase_train_int8(torch, tmpdir: str) -> dict:
         step_tail_vs_plain_mean_rel=f"{worst['k4k5'][1]:.3e}",
         step_tail_worst_leaf=worst["k4k5"][2])
     prof = phase_profile_int8(torch, trainer, data, data_t, data_q8, tmpdir)
+    idx = torch.arange(BATCH, device=DEVICE)
+    y_t, y_q8 = data_t[idx], (data_q8[0][idx], data_q8[1])
+    phase_adam_path_ab(torch, "int8_k3", lambda: trainer.train_step(
+        data[idx], y_t=y_t, y_q8=y_q8))
     cfgs = (trainer.q_cfg, trainer.p_cfg, trainer.ecfg, trainer.tcfg)
     del trainer, data, data_t, data_q8
     torch.cuda.empty_cache()
@@ -1784,7 +1805,8 @@ def phase_train_int8_emit(torch, before, default_epoch) -> dict:
     """One epoch of the ``[train_int8]`` trainer (same seed, images and
     noise) under SPATIALVAE_ADAM_EMIT=pallas: the two big encoder weights
     take K7 (their int8 copies quantised with the scale carried from the
-    previous step), the other leaves K6; then an evaluation that must
+    previous step), the other leaves K6, all in the step kernel's one
+    launch; then an evaluation that must
     score above the untrained one.  Returns Adam's launches."""
     with env_set(SPATIALVAE_ADAM_EMIT="pallas", SPATIALVAE_ALLOW_KNOBS="1"):
         trainer, data, _ = int8_galaxy_trainer(torch)
@@ -1852,7 +1874,7 @@ def phase_profile_int8(torch, trainer, data, data_t, data_q8, tmpdir: str,
     and against the mean of N_TIMED unprofiled steps.  The K3 step runs
     once more with the shadow and the int8 encoder off ("casts": the
     parameters cast to bf16 in every step and the encoder on bf16 GEMMs,
-    Adam still K6), to show what the two move.  ``runs`` picks among these
+    Adam the plain K6 in the step kernel), to show what the two move.  ``runs`` picks among these
     three (stack, step kind, batch); ``model`` names the trainer's model in
     the lines."""
     from torch.profiler import ProfilerActivity, profile
@@ -1862,8 +1884,8 @@ def phase_profile_int8(torch, trainer, data, data_t, data_q8, tmpdir: str,
              "loss_grad90": "loss_grad90_kernel",
              "dw90": "grouped_dw90_kernel", "sum_rows": "sum_rows_kernel",
              "fwd_a1": "int8_fwd_kernel", "bwd_scale": "int8_bwd_scale",
-             "bwd_grad": "int8_bwd_grad", "k6": "adam_kernel",
-             "quant_scale": "quant_scale_kernel",
+             "bwd_grad": "int8_bwd_grad", "adam_step": "adam_step_kernel",
+             "k6": "adam_kernel", "quant_scale": "quant_scale_kernel",
              "quantize": "quantize_kernel"}
     out = {}
     for stack, kind, b in runs or (("full", "k3", BATCH),
@@ -2894,25 +2916,142 @@ def phase_limits_numerics(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Adam: K6 (update, optional shadow and abs-max), K7 (update + shadow + int8
-# copy with the carried scale) and the fresh-scale emission's two helpers
+# Adam: the step kernel (one launch a step over every leaf: K6, K7 and the
+# emission's scales), its yardstick the per-leaf K6 (update, optional shadow
+# and abs-max) and K7 (update + shadow + int8 copy with the carried scale),
+# and the fresh-scale emission's two helpers
 # ---------------------------------------------------------------------------
 
 ADAM_SOURCE = "spatialvae_torch/kernels/csrc/adam.cu"
+ADAM90_SOURCE = "spatialvae_torch/kernels/csrc/adam_sm90.cu"
 K6_REPLACES = "spatialvae_tpu/train/optimizer_pallas.py:53"
 K7_REPLACES = "spatialvae_tpu/train/optimizer_pallas.py:129"
 # quantize_leaf, which XLA fuses on the TPU (no Pallas kernel)
 QUANT_REPLACES = "spatialvae_tpu/train/optimizer_pallas.py:104"
 ADAM_LR = 1e-4
 ADAM_COUNT = 7          # a step whose bias corrections are far from 1
-# K6 on every galaxy leaf: (name, gradient dtype, moment dtype, shadow), the
+# every galaxy leaf: (name, gradient dtype, moment dtype, shadow), the
 # float step, the int8 step ([train_int8], f32 moments) and the bench step
 # ([train_int8_bench], SPATIALVAE_ADAM_MOMENTS=bf16)
 ADAM_CASES = [("f32", "float32", "float32", False),
               ("bf16g_shadow", "bfloat16", "float32", True),
               ("bf16_shadow", "bfloat16", "bfloat16", True)]
+# the int8 step's configuration again with ZERO_COLUMNS of every leaf's
+# last dimension zero in g, m and v, as an input pixel that is 0 in every
+# image of a batch zeroes a column of the first layer's gradient (and, step
+# after step, its moments): the divisions' slow path for zero operands
+ADAM_ZERO_CASE = ("bf16g_shadow_zeros", "bfloat16", "float32", True)
+ZERO_COLUMNS = 0.4
 # K7 on the two big encoder weights, f32 and bf16 moments
 EMIT_CASES = [("f32m", "float32"), ("bf16m", "bfloat16")]
+# the per-leaf kernels and the step kernel in turns
+AB_ADAM = ("leaf", "step", "step", "leaf")
+# calls per timed run of Adam, back to back between two CUDA events: the
+# wrappers' host work (the step's table, the per-leaf checks) then overlaps
+# the card's, as in a training step, instead of standing before one launch
+ADAM_REPS = 10
+
+
+def cuda_ms_back_to_back(fn, torch, n: int = ADAM_REPS) -> float:
+    """ms per call over ``n`` calls of ``fn`` between two CUDA events."""
+    return cuda_ms(lambda: [fn() for _ in range(n)], torch) / n
+
+
+def adam_turns(torch, fns: dict) -> dict:
+    """name -> (median ms, each turn's ms): the turns of AB_ADAM, each the
+    median of 3 back-to-back runs."""
+    turns = {}
+    for name in AB_ADAM:
+        fns[name]()
+        turns.setdefault(name, []).append(statistics.median(
+            cuda_ms_back_to_back(fns[name], torch) for _ in range(3)))
+    return {n: (statistics.median(t), t) for n, t in turns.items()}
+
+
+def adam_step_per_leaf(p, g, m, v, k, shadow=None, modes=None, s_in=None):
+    """``adam_step`` through the per-leaf kernels, the training paths' Adam
+    before the step kernel: K6 or K7 on each leaf, and a ``quant_scale``
+    launch for each leaf's scales (the same outputs, bit for bit)."""
+    from spatialvae_torch.kernels import adam as ka
+
+    out = []
+    for i, md in enumerate(modes or [ka.PLAIN] * len(p)):
+        sh = None if shadow is None else shadow[i]
+        if md == ka.EMIT:
+            q, amax = ka.adam_emit(p[i], g[i], m[i], v[i], k, sh, s_in[i])
+            out.append((q, amax, ka.quant_scale(amax)))
+        elif md == ka.FRESH:
+            amax = ka.adam_leaf(p[i], g[i], m[i], v[i], k, sh, True)
+            out.append((amax, *ka.quant_scale(amax, twin=True)))
+        else:
+            ka.adam_leaf(p[i], g[i], m[i], v[i], k, sh)
+            out.append(None)
+    return out
+
+
+class per_leaf_adam:
+    """Within the block the training paths' Adam takes the per-leaf kernels
+    (``adam_step_per_leaf``) in place of the step kernel; restored after."""
+
+    def __enter__(self):
+        from spatialvae_torch.kernels import adam as ka
+        from spatialvae_torch.train import optimizer
+
+        self.saved = ka.adam_step, optimizer.adam_step
+        ka.adam_step = optimizer.adam_step = adam_step_per_leaf
+        return self
+
+    def __exit__(self, *exc):
+        from spatialvae_torch.kernels import adam as ka
+        from spatialvae_torch.train import optimizer
+
+        ka.adam_step, optimizer.adam_step = self.saved
+        return False
+
+
+def phase_adam_path_ab(torch, path: str, step) -> dict:
+    """``[adam_path_ab]``: the unprofiled ms of a training step (``step``)
+    with Adam on the step kernel and on the per-leaf kernels, in turns
+    (AB_ADAM), each the mean of N_TIMED steps after one warm-up step; each
+    turn must launch its own Adam kernels and not the other's."""
+    from spatialvae_torch.kernels import adam as ka
+
+    turns = {}
+    for name in AB_ADAM:
+        with per_leaf_adam() if name == "leaf" else contextlib.nullcontext():
+            step()
+            before = dict(ka.LAUNCHES)
+            turns.setdefault(name, []).append(
+                _step_host_ms(torch, step, N_TIMED))
+            ran = {n: ka.LAUNCHES[n] - before[n] for n in before}
+        leaf = ran["adam"] + ran["adam_emit"]
+        if (name == "leaf") != (leaf > 0) or \
+                (name == "step") != (ran["adam_step"] > 0):
+            raise AssertionError(f"{path} {name} turn launched {ran}")
+    ab = {n: (statistics.median(t), t) for n, t in turns.items()}
+    log("adam_path_ab", path=path, steps_per_turn=N_TIMED,
+        step_ms=f"{ab['step'][0]:.4f}", leaf_ms=f"{ab['leaf'][0]:.4f}",
+        step_vs_leaf=f"{ab['step'][0] / ab['leaf'][0]:.4f}",
+        turns=turns_field(ab))
+    return ab
+
+
+def adam_host_us(torch, fn, n: int = 20) -> float:
+    """The median host-clock µs of one call of ``fn`` (until it returns,
+    not until its kernels end), each called on an idle card."""
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(ts) * 1e6
+
+
+def turns_field(ab) -> str:
+    return " ".join(f"{n}:{t:.4f}" for n in ("leaf", "step")
+                    for t in ab[n][1])
 
 
 def galaxy_leaves(torch) -> dict:
@@ -2935,6 +3074,26 @@ def _adam_leaf_inputs(torch, shape, gdt, mdt, shadow, gen) -> list:
             (torch.rand(shape, generator=gen, device=DEVICE) * 1e-6).to(mdt),
             torch.empty(shape, dtype=torch.bfloat16, device=DEVICE)
             if shadow else None]
+
+
+def _adam_inputs(torch, shapes, gdt, mdt, shadow, seed,
+                 zeros: float = 0.0) -> list:
+    """The leaves' inputs; ``zeros``: that share of each leaf's last-dim
+    columns zero in g, m and v."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    leaves = [_adam_leaf_inputs(torch, s, getattr(torch, gdt),
+                                getattr(torch, mdt), shadow, gen)
+              for s in shapes]
+    for x in leaves if zeros else ():
+        cols = torch.rand(x[0].shape[-1], generator=gen,
+                          device=DEVICE) < zeros
+        for t in x[1:4]:
+            t[..., cols] = 0
+    return leaves
+
+
+def _clone_leaves(leaves) -> list:
+    return [[None if t is None else t.clone() for t in x] for x in leaves]
 
 
 def _n_differ(got, want) -> int:
@@ -2961,6 +3120,38 @@ def _max_abs(pairs) -> float:
                default=0.0)
 
 
+def adam_step_call(ka, leaves, k, modes, s_in=None, step=None):
+    """``ka.adam_step`` (or ``step``, its plain version) over the leaves."""
+    shadow = None if leaves[0][4] is None else [x[4] for x in leaves]
+    return (step or ka.adam_step)(
+        [x[0] for x in leaves], [x[1] for x in leaves],
+        [x[2] for x in leaves], [x[3] for x in leaves], k, shadow, modes,
+        s_in)
+
+
+# the names of a step's per-leaf outputs, by mode (kernels/adam.py FRESH,
+# EMIT)
+STEP_OUTPUTS = {1: ("amax", "s", "ns"), 2: ("q", "amax", "ns")}
+
+
+def adam_step_differ(leaves, refs, got, want, modes) -> tuple:
+    """(differing elements of every output of a step against its plain
+    version, the largest absolute difference)."""
+    differ = _leaf_differ(leaves, refs)
+    pairs = [(x[j], r[j]) for x, r in zip(leaves, refs) for j in (0, 2, 3, 4)]
+    for u, w, md in zip(got, want, modes):
+        for name, a, b in zip(STEP_OUTPUTS.get(md, ()), u or (), w or ()):
+            differ[name] = differ.get(name, 0) + _n_differ(a, b)
+            pairs.append((a, b))
+    return differ, _max_abs(pairs)
+
+
+def adam_check(name, differ) -> None:
+    if any(differ.values()):
+        raise AssertionError(f"{name}: elements that differ from the plain "
+                             f"version {differ}")
+
+
 def fused_adam_ms(torch, leaves) -> float:
     """``torch._fused_adam_`` over float32 copies of the leaves' p, g, m,
     v: the library's fused Adam (another op order, no shadow or int8
@@ -2975,176 +3166,342 @@ def fused_adam_ms(torch, leaves) -> float:
                            beta2=0.999, weight_decay=0.0, eps=1e-8,
                            amsgrad=False, maximize=False)
     run()
-    out = statistics.median(cuda_ms(run, torch) for _ in range(N_TIMED))
+    out = statistics.median(cuda_ms_back_to_back(run, torch)
+                            for _ in range(3))
     del ps, gs, ms, vs, steps
     return out
 
 
+def tbps(nbytes: float, ms: float) -> str:
+    return f"{nbytes / ms / 1e9:.3f}"
+
+
 def phase_adam_kernels(torch) -> dict:
-    """K6 against its plain version on every galaxy leaf (86.9 M
-    parameters, one launch per leaf, as a step runs it) in the three
-    configurations of the training paths, bit for bit, with the abs-max on
-    the two leaves the int8 paths quantise; times of one step's Adam (CUDA
-    events, median of N_TIMED), its plain version and ``_fused_adam_``."""
+    """One step's Adam on every galaxy leaf (86.9 M parameters) in the
+    three configurations of the training paths and the int8 step's with
+    zero columns (ADAM_ZERO_CASE), the abs-max and the fresh
+    scales on the two leaves the int8 paths quantise: the step kernel and
+    the per-leaf K6 each against the plain version on the same inputs, bit
+    for bit; the two timed in turns (``adam_turns``: whole steps, the step
+    kernel with its zero-filled buffer, the per-leaf kernels with their 13
+    launches), then the plain version and ``_fused_adam_``, with the
+    achieved TB/s and the share of the bound."""
     from spatialvae_torch.kernels import adam as ka
 
-    shapes = galaxy_leaves(torch)
+    shapes = list(galaxy_leaves(torch).values())
     k = ka.AdamConsts.make(ADAM_LR, 0.9, 0.999, 1e-8, ADAM_COUNT)
-    n_params = sum(math.prod(s) for s in shapes.values())
+    n_params = sum(math.prod(s) for s in shapes)
     out = {}
-    for name, gdt, mdt, shadow in ADAM_CASES:
-        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-        leaves = [_adam_leaf_inputs(torch, s, getattr(torch, gdt),
-                                    getattr(torch, mdt), shadow, gen)
-                  for s in shapes.values()]
+    for name, gdt, mdt, shadow in ADAM_CASES + [ADAM_ZERO_CASE]:
+        base = _adam_inputs(torch, shapes, gdt, mdt, shadow, SEED,
+                            ZERO_COLUMNS if name.endswith("zeros") else 0.0)
         amax_on = [shadow and len(s) == 2 and math.prod(s) >= _qenc_min()
-                   for s in shapes.values()]
-        refs = [[None if t is None else t.clone() for t in x]
-                for x in leaves]
-        got = [ka.adam_leaf(*x[:4], k, x[4], a)
-               for x, a in zip(leaves, amax_on)]
-        want = [ka.adam_leaf_reference(*x[:4], k, x[4], a)
-                for x, a in zip(refs, amax_on)]
+                   for s in shapes]
+        modes = [ka.FRESH if a else ka.PLAIN for a in amax_on]
+        refs, step_in = _clone_leaves(base), _clone_leaves(base)
+        want = adam_step_call(ka, refs, k, modes,
+                              step=ka.adam_step_reference)
+        got = adam_step_call(ka, step_in, k, modes)
+        got_leaf = [ka.adam_leaf(*x[:4], k, x[4], a)
+                    for x, a in zip(base, amax_on)]
         torch.cuda.synchronize()
-        differ = _leaf_differ(leaves, refs)
-        differ["amax"] = sum(_n_differ(a, b) for a, b in zip(got, want))
-        err = _max_abs([(x[j], r[j]) for x, r in zip(leaves, refs)
-                        for j in (0, 2, 3, 4)] + list(zip(got, want)))
-        if any(differ.values()):
-            raise AssertionError(f"K6 {name}: elements that differ from the "
-                                 f"plain version {differ}")
-        ms = statistics.median(cuda_ms(
-            lambda: [ka.adam_leaf(*x[:4], k, x[4], a)
-                     for x, a in zip(leaves, amax_on)], torch)
-            for _ in range(N_TIMED))
+        differ, err = adam_step_differ(step_in, refs, got, want, modes)
+        leaf_differ = _leaf_differ(base, refs)
+        leaf_differ["amax"] = sum(_n_differ(a, w[0]) for a, w in
+                                  zip(got_leaf, want) if a is not None)
+        leaf_err = _max_abs([(x[j], r[j]) for x, r in zip(base, refs)
+                             for j in (0, 2, 3, 4)] + [
+            (a, w[0]) for a, w in zip(got_leaf, want) if a is not None])
+        adam_check(f"the step kernel, K6 {name}", differ)
+        adam_check(f"the per-leaf K6 {name}", leaf_differ)
+        del refs, want, got, got_leaf
+        ab = adam_turns(torch, {
+            "leaf": lambda: [ka.adam_leaf(*x[:4], k, x[4], a)
+                             for x, a in zip(base, amax_on)],
+            "step": lambda: adam_step_call(ka, step_in, k, modes)})
         plain_ms = statistics.median(cuda_ms(
-            lambda: [ka.adam_leaf_reference(*x[:4], k, x[4], a)
-                     for x, a in zip(refs, amax_on)], torch)
+            lambda: adam_step_call(ka, base, k, modes,
+                                   step=ka.adam_step_reference), torch)
             for _ in range(N_TIMED))
-        del refs, got, want
-        lib_ms = fused_adam_ms(torch, leaves)
+        lib_ms = fused_adam_ms(torch, base)
+        # the wrappers' host work a step, and the step wrapper's parts
+        shadows = None if not shadow else [x[4] for x in step_in]
+        cols = [[x[i] for x in step_in] for i in range(4)]
+        host = {
+            "step": lambda: adam_step_call(ka, step_in, k, modes),
+            "step_check": lambda: ka._check_step(*cols, shadows, modes,
+                                                 None),
+            "step_table": lambda: ka.step_table(*cols, shadows, None, None,
+                                                modes),
+            "step_zero_fill": lambda: torch.zeros(3 * len(shapes) + 1,
+                                                  device=DEVICE),
+            "leaf": lambda: [ka.adam_leaf(*x[:4], k, x[4], a)
+                             for x, a in zip(base, amax_on)]}
+        host_us = {n: adam_host_us(torch, fn) for n, fn in host.items()}
         g_b, m_b = getattr(torch, gdt).itemsize, getattr(torch, mdt).itemsize
         per_param = g_b + 4 * m_b + 8 + (2 if shadow else 0)
-        bd = bound(n_params * per_param, (12.0 * n_params, PEAK_FP32))
-        out[name] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+        nbytes = n_params * per_param
+        bd = bound(nbytes, (12.0 * n_params, PEAK_FP32))
+        step_ms, leaf_ms = ab["step"][0], ab["leaf"][0]
+        out[name] = dict(err=err, leaf_err=leaf_err, ms=step_ms,
+                         leaf_ms=leaf_ms, plain_ms=plain_ms, lib_ms=lib_ms,
                          bound=bd)
         log("kernel_adam", case=name, grads=gdt, moments=mdt, shadow=shadow,
-            leaves=len(leaves), params=n_params,
+            leaves=len(shapes), params=n_params, fresh_leaves=sum(amax_on),
             differ=json.dumps(differ, separators=(",", ":")),
-            max_abs_err=f"{err:.3e}", kernel_ms=f"{ms:.4f}",
+            leaf_differ=json.dumps(leaf_differ, separators=(",", ":")),
+            max_abs_err=f"{err:.3e}", step_ms=f"{step_ms:.4f}",
+            leaf_ms=f"{leaf_ms:.4f}", turns=turns_field(ab),
             plain_ms=f"{plain_ms:.4f}", fused_adam_ms=f"{lib_ms:.4f}",
             bytes_per_param=per_param, bound_ms=f"{bd[0]:.4f}",
-            bound_by=bd[1])
-        del leaves
+            bound_by=bd[1], step_tbps=tbps(nbytes, step_ms),
+            leaf_tbps=tbps(nbytes, leaf_ms),
+            fused_adam_tbps=tbps(n_params * 28, lib_ms),
+            step_share_of_bound=f"{bd[0] / step_ms:.4f}",
+            leaf_share_of_bound=f"{bd[0] / leaf_ms:.4f}",
+            step_vs_fused_adam=f"{step_ms / lib_ms:.4f}",
+            **{f"{n}_host_us": f"{u:.1f}" for n, u in host_us.items()})
+        del base, step_in
         torch.cuda.empty_cache()
     return out
 
 
 def phase_adam_emit_kernels(torch) -> dict:
-    """K7 against its plain version on the two big encoder weights (q L0
-    (5000, 12288), q L1 (5000, 5000)), bit for bit in p', m', v', the
-    shadow, q and max|p'| and the next scale ns; the two helpers of the
-    fresh-scale emission (``quant_scale``, ``quantize``) against theirs;
-    times of K7 over both leaves, of the fresh-scale engine's K6 + abs-max
-    + helpers on them, and of ``_fused_adam_``."""
+    """The two big encoder weights (q L0 (5000, 12288), q L1 (5000, 5000)),
+    both emission engines: under ``pallas`` the step kernel's K7 leaves and
+    the per-leaf K7 with ``quant_scale`` each against the plain version, bit
+    for bit in p', m', v', the shadow, q, max|p'| and the next scale ns;
+    the fresh-scale engine (the step kernel's FRESH leaves with their s and
+    ns, then ``quantize_many``, one launch over both) against its plain
+    version; each engine's step kernel and per-leaf kernels timed in turns
+    (AB_ADAM), then the plain versions, ``quantize_many`` and
+    ``quant_scale`` against theirs, and ``_fused_adam_``."""
     from spatialvae_torch.kernels import adam as ka
 
     shapes = [s for s in galaxy_leaves(torch).values()
               if len(s) == 2 and math.prod(s) >= _qenc_min()]
     k = ka.AdamConsts.make(ADAM_LR, 0.9, 0.999, 1e-8, ADAM_COUNT)
     n = sum(math.prod(s) for s in shapes)
+    emit, fresh = [ka.EMIT] * len(shapes), [ka.FRESH] * len(shapes)
     out = {}
     for name, mdt in EMIT_CASES:
-        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
-        leaves = [_adam_leaf_inputs(torch, s, torch.bfloat16,
-                                    getattr(torch, mdt), True, gen)
-                  for s in shapes]
+        base = _adam_inputs(torch, shapes, "bfloat16", mdt, True, SEED + 3)
         # the carried scale: the abs-max of the leaf before the step
         s_in = [ka.quant_scale_reference(x[0].abs().max().reshape(1))
-                for x in leaves]
-        refs = [[t.clone() for t in x] for x in leaves]
-        got = [ka.adam_emit(*x[:4], k, x[4], s) for x, s in zip(leaves, s_in)]
-        want = [ka.adam_emit_reference(*x[:4], k, x[4], s)
-                for x, s in zip(refs, s_in)]
-        ns = [ka.quant_scale(a) for _, a in got]
-        ns_ref = [ka.quant_scale_reference(a) for _, a in want]
-        fresh_s = [ka.quant_scale(a) for _, a in want]
-        fresh_q = [ka.quantize(x[0], s) for x, s in zip(leaves, fresh_s)]
-        fresh_q_ref = [ka.quantize_reference(x[0], s)
-                       for x, s in zip(refs, fresh_s)]
+                for x in base]
+        refs, step_in = _clone_leaves(base), _clone_leaves(base)
+        want = adam_step_call(ka, refs, k, emit, s_in,
+                              step=ka.adam_step_reference)
+        got = adam_step_call(ka, step_in, k, emit, s_in)
+        got_leaf = [ka.adam_emit(*x[:4], k, x[4], s)
+                    for x, s in zip(base, s_in)]
+        ns_leaf = [ka.quant_scale(a) for _, a in got_leaf]
         torch.cuda.synchronize()
-        differ = {
-            **_leaf_differ(leaves, refs),
-            "q": sum(_n_differ(u[0], v[0]) for u, v in zip(got, want)),
-            "amax": sum(_n_differ(u[1], v[1]) for u, v in zip(got, want)),
-            "ns": sum(_n_differ(u, v) for u, v in zip(ns, ns_ref)),
-            "fresh_s": sum(_n_differ(u, ka.quant_scale_reference(a))
-                           for u, (_, a) in zip(fresh_s, want)),
-            "fresh_q": sum(_n_differ(u, v)
-                           for u, v in zip(fresh_q, fresh_q_ref))}
-        err = _max_abs([(x[j], r[j]) for x, r in zip(leaves, refs)
-                        for j in (0, 2, 3, 4)]
-                       + [(u[i], v[i]) for u, v in zip(got, want)
-                          for i in (0, 1)] + list(zip(ns, ns_ref)))
-        if any(differ.values()):
-            raise AssertionError(f"K7 {name}: elements that differ from the "
-                                 f"plain version {differ}")
+        differ, err = adam_step_differ(step_in, refs, got, want, emit)
+        leaf_differ = {**_leaf_differ(base, refs), **{
+            f: sum(_n_differ(u, w[i]) for u, w in zip(us, want))
+            for f, i, us in (("q", 0, [u[0] for u in got_leaf]),
+                             ("amax", 1, [u[1] for u in got_leaf]),
+                             ("ns", 2, ns_leaf))}}
+        adam_check(f"the step kernel, K7 {name}", differ)
+        adam_check(f"the per-leaf K7 {name}", leaf_differ)
+        leaf_err = _max_abs(
+            [(x[j], r[j]) for x, r in zip(base, refs) for j in (0, 2, 3, 4)]
+            + [(u[i], w[i]) for u, w in zip(got_leaf, want) for i in (0, 1)]
+            + [(u, w[2]) for u, w in zip(ns_leaf, want)])
+        # the fresh-scale engine on the states the step left
+        f_refs, f_in = _clone_leaves(refs), _clone_leaves(refs)
+        f_want = adam_step_call(ka, f_refs, k, fresh,
+                                step=ka.adam_step_reference)
+        f_got = adam_step_call(ka, f_in, k, fresh)
+        q_got = ka.quantize_many([x[0] for x in f_in],
+                                 [u[1] for u in f_got])
+        torch.cuda.synchronize()
+        f_differ, f_err = adam_step_differ(f_in, f_refs, f_got, f_want,
+                                           fresh)
+        q_want = [ka.quantize_reference(x[0], w[1])
+                  for x, w in zip(f_refs, f_want)]
+        f_differ["q"] = sum(_n_differ(q, w) for q, w in zip(q_got, q_want))
+        q_err = _max_abs(list(zip(q_got, q_want)))
+        adam_check(f"the step kernel, fresh scales {name}", f_differ)
+        del refs, want, got, got_leaf, ns_leaf, f_refs, f_want, f_got
+        del q_got, q_want
+        fresh_s = [ka.quant_scale_reference(x[0].abs().max().reshape(1))
+                   for x in base]
 
-        def k7():
-            for x, s in zip(leaves, s_in):
-                ka.adam_emit(*x[:4], k, x[4], s)
+        def k7_leaf():
+            for x, s in zip(base, s_in):
+                ka.quant_scale(ka.adam_emit(*x[:4], k, x[4], s)[1])
 
-        def k7_plain():
-            for x, s in zip(refs, s_in):
-                ka.adam_emit_reference(*x[:4], k, x[4], s)
-
-        def fresh():
-            for x in leaves:
+        def fresh_leaf():
+            for x in base:
                 a = ka.adam_leaf(*x[:4], k, x[4], True)
-                ka.quantize(x[0], ka.quant_scale(a))
-
-        def quantize():
-            for x, s in zip(leaves, fresh_s):
+                s, _ = ka.quant_scale(a, twin=True)
                 ka.quantize(x[0], s)
 
-        def quantize_plain():
-            for x, s in zip(refs, fresh_s):
-                ka.quantize_reference(x[0], s)
+        def fresh_step():
+            o = adam_step_call(ka, f_in, k, fresh)
+            ka.quantize_many([x[0] for x in f_in], [u[1] for u in o])
 
-        def scale():
-            ka.quant_scale(want[0][1])
-
-        def scale_plain():
-            ka.quant_scale_reference(want[0][1])
-
-        times = {}
-        for label, fn in (("k7", k7), ("k7_plain", k7_plain),
-                          ("fresh_engine", fresh), ("quantize", quantize),
-                          ("quantize_plain", quantize_plain),
-                          ("quant_scale", scale),
-                          ("quant_scale_plain", scale_plain)):
+        ab_k7 = adam_turns(torch, {
+            "leaf": k7_leaf,
+            "step": lambda: adam_step_call(ka, step_in, k, emit, s_in)})
+        ab_fresh = adam_turns(torch, {"leaf": fresh_leaf,
+                                      "step": fresh_step})
+        times = {"k7_step": ab_k7["step"][0], "k7_leaf": ab_k7["leaf"][0],
+                 "fresh_step": ab_fresh["step"][0],
+                 "fresh_leaf": ab_fresh["leaf"][0]}
+        times["k7_plain"] = statistics.median(cuda_ms(
+            lambda: adam_step_call(ka, base, k, emit, s_in,
+                                   step=ka.adam_step_reference), torch)
+            for _ in range(N_TIMED))
+        for label, fn in (
+                ("quantize", lambda: ka.quantize_many(
+                    [x[0] for x in base], fresh_s)),
+                ("quantize_plain", lambda: [
+                    ka.quantize_reference(x[0], s)
+                    for x, s in zip(base, fresh_s)]),
+                ("quant_scale", lambda: ka.quant_scale(
+                    fresh_s[0].reshape(1))),
+                ("quant_scale_plain", lambda: ka.quant_scale_reference(
+                    fresh_s[0].reshape(1)))):
             fn()
-            times[label] = statistics.median(cuda_ms(fn, torch)
-                                             for _ in range(N_TIMED))
-        times["fused_adam"] = fused_adam_ms(torch, leaves)
+            times[label] = statistics.median(cuda_ms_back_to_back(fn, torch)
+                                             for _ in range(3))
+        times["fused_adam"] = fused_adam_ms(torch, base)
         m_b = getattr(torch, mdt).itemsize
         per_param = 2 + 4 * m_b + 8 + 2 + 1
-        out[name] = dict(err=err, times=times,
-                         bound=bound(n * per_param, (14.0 * n, PEAK_FP32)),
-                         q_err=_max_abs([(u, v) for u, v in
-                                         zip(fresh_q, fresh_q_ref)]),
+        bd = bound(n * per_param, (14.0 * n, PEAK_FP32))
+        out[name] = dict(err=max(err, f_err), leaf_err=leaf_err,
+                         q_err=q_err, times=times, bound=bd,
                          quantize_bound=bound(5.0 * n),
                          scale_bound=bound(12.0))
         log("kernel_adam_emit", case=name, grads="bfloat16", moments=mdt,
             leaves=len(shapes), params=n,
             differ=json.dumps(differ, separators=(",", ":")),
-            max_abs_err=f"{err:.3e}",
+            leaf_differ=json.dumps(leaf_differ, separators=(",", ":")),
+            fresh_differ=json.dumps(f_differ, separators=(",", ":")),
+            max_abs_err=f"{max(err, f_err):.3e}",
             **{f"{a}_ms": f"{b:.4f}" for a, b in times.items()},
-            bytes_per_param=per_param, bound_ms=f"{out[name]['bound'][0]:.4f}",
-            quantize_bound_ms=f"{out[name]['quantize_bound'][0]:.4f}")
-        del leaves, refs, got, want, fresh_q, fresh_q_ref
+            k7_turns=turns_field(ab_k7), fresh_turns=turns_field(ab_fresh),
+            bytes_per_param=per_param, bound_ms=f"{bd[0]:.4f}",
+            k7_step_tbps=tbps(n * per_param, times["k7_step"]),
+            k7_leaf_tbps=tbps(n * per_param, times["k7_leaf"]),
+            fused_adam_tbps=tbps(n * 28, times["fused_adam"]),
+            k7_step_share_of_bound=f"{bd[0] / times['k7_step']:.4f}",
+            quantize_bound_ms=f"{out[name]['quantize_bound'][0]:.4f}",
+            quantize_tbps=tbps(5.0 * n, times["quantize"]))
+        del base, step_in, f_in, fresh_s
         torch.cuda.empty_cache()
     return out
+
+
+def adam90_name(mangled: str) -> str:
+    """adam_step_kernel<G, M, SHADOW> from its mangled name."""
+    import re
+
+    m = re.search(r"adam_step_kernelI(\w+?)EEv", mangled)
+    if not m:
+        return mangled
+    args, bf = m.group(1), "13__nv_bfloat16"
+    g = "bf16" if args.startswith(bf) else "f32"
+    mom = "f32" if args[len(bf) if g == "bf16" else 1:][:1] == "f" else "bf16"
+    sh = "shadow" if "Lb1E" in args + "E" else "none"
+    return f"adam_step_kernel<{g},{mom},{sh}>"
+
+
+def phase_adam90(torch, ptxas) -> dict:
+    """``[adam90]``: the step kernel's ptxas report (registers, stack,
+    spills; ``ptxas``: the background compile of its source) and, for each
+    instantiation the training paths run, its ring's stages, its dynamic
+    shared memory and the CTAs an SM holds."""
+    import ctypes
+
+    from spatialvae_torch.kernels import adam as ka
+
+    for name, regs, stack, stores, loads in ptxas_report(ptxas):
+        log("adam90_ptxas", kernel=adam90_name(name), registers=regs,
+            stack_bytes=stack, spill_store_bytes=stores,
+            spill_load_bytes=loads)
+    lib = ka._lib()
+    out = {}
+    for g, m, sh in ((0, 0, 0), (1, 0, 1), (1, 1, 1)):
+        info = (ctypes.c_int * 4)()
+        if lib.svt_adam_step_info(g, m, sh, info) != 0 or info[3] < 1:
+            raise AssertionError(f"the step kernel <{g},{m},{sh}> does not "
+                                 f"fit an SM: {list(info)}")
+        out[g, m, sh] = list(info)
+        log("adam90", grads="bf16" if g else "f32",
+            moments="bf16" if m else "f32", shadow=bool(sh),
+            stages=info[0], smem_bytes=info[1], chunk=info[2],
+            ctas_per_sm=info[3])
+    return out
+
+
+def phase_limits_adam(torch) -> None:
+    """``--limits adam``: the step kernel against its plain version on the
+    galaxy leaves in the three K6 configurations and both K7 ones, for the
+    sound library and two faulty copies (-DSVT_ADAM_FMA=1: b1*m contracted
+    into an FMA; -DSVT_ADAM_DROP_TAIL=1: every aligned leaf's plain-load
+    tail skipped), built in parallel: differing elements per case.  The
+    sound build must differ in none, each faulty copy must be refused by
+    some case."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spatialvae_torch.kernels import _build
+    from spatialvae_torch.kernels import adam as ka
+
+    faulty = (("-DSVT_ADAM_FMA=1",), ("-DSVT_ADAM_DROP_TAIL=1",))
+    with ThreadPoolExecutor(len(faulty)) as pool:
+        list(pool.map(_build.build, faulty))
+    shapes = list(galaxy_leaves(torch).values())
+    big = [s for s in shapes if len(s) == 2 and math.prod(s) >= _qenc_min()]
+    k = ka.AdamConsts.make(ADAM_LR, 0.9, 0.999, 1e-8, ADAM_COUNT)
+    cases = [(name, shapes, gdt, mdt, shadow,
+              [ka.FRESH if shadow and s in big else ka.PLAIN
+               for s in shapes])
+             for name, gdt, mdt, shadow in ADAM_CASES + [ADAM_ZERO_CASE]]
+    cases += [(f"k7_{name}", big, "bfloat16", mdt, True,
+               [ka.EMIT] * len(big))
+              for name, mdt in EMIT_CASES]
+    sound_lib = ka._lib
+    totals = {}
+    try:
+        for defines in ((),) + faulty:
+            lib = _build.load_library(defines)
+            ka._lib = (lambda lib=lib: lib)
+            build = " ".join(defines) or "sound"
+            totals[build] = 0
+            for name, sh, gdt, mdt, shadow, modes in cases:
+                base = _adam_inputs(torch, sh, gdt, mdt, shadow, SEED,
+                                    ZERO_COLUMNS if name.endswith("zeros")
+                                    else 0.0)
+                s_in = [ka.quant_scale_reference(x[0].abs().max()
+                                                 .reshape(1))
+                        if md == ka.EMIT else None
+                        for x, md in zip(base, modes)]
+                refs = _clone_leaves(base)
+                want = adam_step_call(ka, refs, k, modes, s_in,
+                                      step=ka.adam_step_reference)
+                got = adam_step_call(ka, base, k, modes, s_in)
+                torch.cuda.synchronize()
+                differ, err = adam_step_differ(base, refs, got, want, modes)
+                totals[build] += sum(differ.values())
+                log("limits_adam", build=build, case=name,
+                    params=sum(math.prod(s) for s in sh),
+                    differ=json.dumps(differ, separators=(",", ":")),
+                    max_abs_err=f"{err:.3e}")
+                del base, refs, want, got
+                torch.cuda.empty_cache()
+    finally:
+        ka._lib = sound_lib
+    log("limits_adam_verdict", **{
+        b if b == "sound" else b[2:].split("=")[0].lower(): v
+        for b, v in totals.items()})
+    if totals["sound"] or not all(totals[" ".join(d)] for d in faulty):
+        raise AssertionError(f"--limits adam: the sound build must differ "
+                             f"in 0 elements, each faulty copy in some: "
+                             f"{totals}")
 
 
 # ---------------------------------------------------------------------------
@@ -3346,7 +3703,7 @@ def phase_kernel_wide(torch) -> dict:
 def phase_train_wide(torch) -> dict:
     """The galaxy model with a decoder WIDE_H wide (twice the default) at
     B=100 on N_WIDE blob images: two float epochs (K1 with activations and
-    K2 in every step, K6 on every leaf) and two int8 epochs with bf16
+    K2 in every step, Adam's step kernel) and two int8 epochs with bf16
     compute (K3 in the full steps, K4/K5 in the tails, K4 in the
     evaluations), each with its launch counts, an ELBO that rises, and one
     step through the kernels against the plain versions."""
@@ -3378,11 +3735,11 @@ def phase_train_wide(torch) -> dict:
         want = dict.fromkeys(fd.LAUNCHES, 0) | {
             "fwd_acts": steps, "bwd_chain": steps, "bwd_dw": steps,
             "bwd_sum": 4 * steps}
-        leaves = len(trainer.named_params())
-        if counts != want or adam["adam"] != steps * leaves:
+        want_adam = dict.fromkeys(adam, 0) | {
+            "adam_step": steps * adam_step_launches(trainer)}
+        if counts != want or adam != want_adam:
             raise AssertionError(f"train_wide float launches {counts}, Adam "
-                                 f"{adam}; expected {want}, "
-                                 f"{steps * leaves} Adam")
+                                 f"{adam}; expected {want}, {want_adam}")
         after = trainer.eval_epoch(data, TRAIN_EPOCHS)
         if not (np.isfinite(rows).all() and after[0] > before[0]):
             raise AssertionError(f"train_wide float: ELBO {before[0]} -> "
@@ -3403,7 +3760,7 @@ def phase_train_wide(torch) -> dict:
             images_per_s=f"{TRAIN_EPOCHS * N_WIDE / seconds:.1f}",
             elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
             launches=json.dumps(counts, separators=(",", ":")),
-            adam_launches=adam["adam"],
+            adam_launches=adam["adam_step"],
             step_vs_plain=f"{worst[0]:.3e}/{worst[1]:.3e}")
         out["float"] = counts
         out["trained_p"] = {k: v.detach().clone() for k, v in
@@ -3870,21 +4227,36 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
         rows.append((row, LOSS_SOURCE, rep_, nl,
                      max(r[n][0] for n in INT8_GRADS), r["ms"],
                      r["plain_ms"], r["bound"], None))
-    # Adam: K6 rows time one step's Adam over the 13 galaxy leaves (13
-    # launches), K7 and the helpers the two big encoder weights; library:
-    # torch._fused_adam_ on float32 copies of the same leaves
+    # Adam: the step kernel's rows time one step's Adam over the 13 galaxy
+    # leaves (one launch; launches: the training paths'), the per-leaf K6
+    # rows the same step in 13 launches (launches: the training paths', 0;
+    # a tenth field, ab_launches: their launches in [kernel_adam] and
+    # [kernel_adam_emit], checks and A/B turns); K7 and the helpers the two
+    # big encoder weights; library: torch._fused_adam_ on float32 copies of
+    # the same leaves
     a, e = res["adam"], res["adam_emit"]["f32m"]
+    ab = res["adam_ab"]
     i8_adam = i8["counts"]["adam"]
+    trained = (i8_adam, i8["bench_adam"], i8["emit_adam"])
+    leaf_main = {n: sum(c[n] for c in trained) for n in ("adam", "adam_emit")}
+    leaf_main["adam"] += counts["adam_leaf"]
     for name, nl in (("f32", counts["adam"]),
-                     ("bf16g_shadow", i8_adam["adam"]),
-                     ("bf16_shadow", i8["bench_adam"]["adam"])):
+                     ("bf16g_shadow", i8_adam["adam_step"]),
+                     ("bf16_shadow", i8["bench_adam"]["adam_step"])):
         r = a[name]
-        rows.append((f"adam_{name}", ADAM_SOURCE, K6_REPLACES, nl, r["err"],
-                     r["ms"], r["plain_ms"], r["bound"], r["lib_ms"]))
+        rows += [(f"adam_step_{name}", ADAM90_SOURCE, K6_REPLACES, nl,
+                  r["err"], r["ms"], r["plain_ms"], r["bound"], r["lib_ms"]),
+                 (f"adam_{name}", ADAM_SOURCE, K6_REPLACES, leaf_main["adam"],
+                  r["leaf_err"], r["leaf_ms"], r["plain_ms"], r["bound"],
+                  r["lib_ms"], ab["adam"])]
     t = e["times"]
     rows += [
-        ("adam_emit", ADAM_SOURCE, K7_REPLACES, i8["emit_adam"]["adam_emit"],
-         e["err"], t["k7"], t["k7_plain"], e["bound"], t["fused_adam"]),
+        ("adam_step_emit", ADAM90_SOURCE, K7_REPLACES,
+         i8["emit_adam"]["adam_step"], e["err"], t["k7_step"],
+         t["k7_plain"], e["bound"], t["fused_adam"]),
+        ("adam_emit", ADAM_SOURCE, K7_REPLACES, leaf_main["adam_emit"],
+         e["leaf_err"], t["k7_leaf"], t["k7_plain"], e["bound"],
+         t["fused_adam"], ab["adam_emit"]),
         ("quant_scale", ADAM_SOURCE, QUANT_REPLACES, i8_adam["quant_scale"],
          e["err"], t["quant_scale"], t["quant_scale_plain"],
          e["scale_bound"], None),
@@ -4329,27 +4701,43 @@ def kb_readings(torch, b: int, timed: bool) -> dict:
     return out
 
 
-def kb_profile(torch, run, arrays, tries: int = 6, name=None) -> None:
+# small kernels that open each traced session of kb_profile
+KB_WARMUP = 32
+
+
+def kb_profile(torch, run, arrays, tries: int = 10, name=None) -> None:
     """One call of ``run`` at the tool's defaults under torch.profiler: the
-    device ms and kernel count of each of KB_PASSES, and the busy ms.  A
-    trace with fewer kernels than kernel launches (the profiler has dropped
-    a session's first kernels) is taken again, up to ``tries`` times; the
-    line says whether the last one was complete."""
-    from torch.profiler import ProfilerActivity, profile
+    device ms and kernel count of each of KB_PASSES, and the busy ms.  The
+    profiler may drop a session's first kernels, so each session opens
+    with KB_WARMUP small kernels of its own and counts only what the call
+    launched (its ``kb_run`` label); a trace with fewer of those kernels
+    than launches is taken again, up to ``tries`` times; the line says
+    whether the last one was complete."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmpdir:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                run.fn(arrays)
+                pad = torch.zeros(1, device=DEVICE)
+                for _ in range(KB_WARMUP):
+                    pad.add_(1)
+                torch.cuda.synchronize()
+                with record_function("kb_run"):
+                    run.fn(arrays)
                 torch.cuda.synchronize()
             events = _trace_events(prof, tmpdir, "kernel_bench.json")
-        kernels = [e for e in events if e.get("cat") == "kernel"]
+        spans = [e for e in events if e.get("cat") == "user_annotation"
+                 and e.get("name") == "kb_run"]
+        ids = _label_ids(events, "kb_run") if len(spans) == 1 else set()
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and e["args"].get("correlation") in ids]
         launched = sum(1 for e in events
                        if e.get("cat") in ("cuda_runtime", "cuda_driver")
                        and e.get("name", "").startswith(
-                           ("cudaLaunchKernel", "cuLaunchKernel")))
+                           ("cudaLaunchKernel", "cuLaunchKernel"))
+                       and e["args"].get("correlation") in ids)
         if kernels and len(kernels) >= launched:
             break
     if not kernels:
@@ -4795,11 +5183,15 @@ def main() -> int:
     if sys.argv[1:] == ["--limits", "dec90"]:
         phase_limits_dec90(torch)
         return 0
+    if sys.argv[1:] == ["--limits", "adam"]:
+        phase_limits_adam(torch)
+        return 0
     if sys.argv[1:] == ["--split", "dec90"]:
         phase_split_dec90(torch)
         return 0
     ptxas = start_ptxas_report(LOSS90_SOURCE)
     ptxas_dec = start_ptxas_report(DEC90_SOURCE)
+    ptxas_adam = start_ptxas_report(ADAM90_SOURCE)
     from spatialvae_torch.kernels import fused_decoder as fd
 
     res = phase_kernels(torch)
@@ -4812,8 +5204,13 @@ def main() -> int:
     res["sr"] = phase_loss_sr(torch)
     res["numerics"] = phase_loss_numerics(torch)
     res["t"] = phase_loss_t(torch)
+    from spatialvae_torch.kernels import adam as ka
+
+    res["adam90"] = phase_adam90(torch, ptxas_adam)
+    ka.reset_launches()
     res["adam"] = phase_adam_kernels(torch)
     res["adam_emit"] = phase_adam_emit_kernels(torch)
+    res["adam_ab"] = dict(ka.LAUNCHES)
     res["wide"] = phase_kernel_wide(torch)
     res["levers"] = phase_loss_levers(torch)
     res["probes"] = phase_probes(torch)
@@ -4840,13 +5237,18 @@ def main() -> int:
     rows += res["probes"]
     rows += res["kernel_bench"]
     for r in rows:
-        if r[3] < 1:
+        if len(r) > 9:      # a yardstick: off every path, run by its A/B
+            if r[3] or r[9] < 1:
+                raise AssertionError(f"{r[0]}: {r[3]} launches on the "
+                                     f"paths, {r[9]} in its A/B")
+        elif r[3] < 1:
             raise AssertionError(f"{r[0]} was not launched on its path")
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": nl, "max_abs_err": err, "ms": ms, "plain_ms": pms,
-         "bound_ms": bd[0], "bound_by": bd[1], "library_ms": lib}
-        for n, src, rep, nl, err, ms, pms, bd, lib in rows]}))
+         "bound_ms": bd[0], "bound_by": bd[1], "library_ms": lib,
+         **({"ab_launches": ab[0]} if ab else {})}
+        for n, src, rep, nl, err, ms, pms, bd, lib, *ab in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -36,7 +36,9 @@ _SIGNATURES = {
     "svt_adam": ([_P] * 6 + [_L] + [_I] * 2 + [_F] * 8 + [_P], _I),
     "svt_adam_emit": ([_P] * 8 + [_L] + [_I] * 2 + [_F] * 8 + [_P], _I),
     "svt_quant_scale": ([_P] * 4, _I),
-    "svt_quantize": ([_P] * 3 + [_L, _P], _I),
+    "svt_quantize": ([_P, _I, _P], _I),
+    "svt_adam_step": ([_P, _I, _P] + [_I] * 3 + [_F] * 8 + [_P], _I),
+    "svt_adam_step_info": ([_I] * 3 + [_P], _I),
     "svt_fused_decoder_fwd": ([_P] * 8 + [_L, _P] + [_I] * 8 + [_P], _I),
     "svt_fused_decoder_ws_block": ([_I], _L),
     "svt_cuda_error_string": ([_I], ctypes.c_char_p),

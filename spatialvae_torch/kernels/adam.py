@@ -14,17 +14,27 @@ float32:
 g is float32 or bf16, m and v float32 or bf16 (widened, updated in float32,
 rounded once on store), p the float32 master; everything updates in place.
 The shadow is bf16(p'); K7's copy is int8(clip(rint(p' * (1/s_in)), -127,
-127)).  Two helper kernels serve the emission: ``quant_scale`` (an abs-max
-to the scale max/127 + 1e-30) and ``quantize`` (the fresh-scale copy
-clip(rint(p'/s)), dividing as ``quantize_leaf`` does).
+127)).
 
-``adam_leaf_reference``, ``adam_emit_reference``, ``quant_scale_reference``
-and ``quantize_reference`` are the plain PyTorch versions: every division
-there is by a tensor on the operand's device, never by a Python number,
-because PyTorch's CUDA division by a CPU scalar multiplies by its
-reciprocal and can miss the quotient by an ulp.  The wrappers run the plain
-versions for CPU tensors and launch the kernels (``csrc/adam.cu``) for CUDA
-tensors, or raise.
+``adam_step`` runs one optimizer step over every leaf in one launch of the
+step kernel (``csrc/adam_sm90.cu``): each leaf plain K6 (``PLAIN``), K6
+with the abs-max and the fresh scale s = ns = max/127 + 1e-30 (``FRESH``,
+the xla engine's quantised leaves) or K7 with its next scale ns
+(``EMIT``); the scales are written in the same launch.  ``quantize_many``
+then writes the fresh-scale copies clip(rint(p'/s)) of any number of leaves
+in one launch, dividing as ``quantize_leaf`` does.  The training paths call
+these two.  The per-leaf kernels of ``csrc/adam.cu`` (``adam_leaf``,
+``adam_emit``) and the scale helper ``quant_scale`` stay: the first two as
+the step kernel's yardstick, the helper for the seeded qshadow and the
+per-dataset copy.
+
+``adam_leaf_reference``, ``adam_emit_reference``, ``adam_step_reference``,
+``quant_scale_reference`` and ``quantize_reference`` are the plain PyTorch
+versions: every division there is by a tensor on the operand's device,
+never by a Python number, because PyTorch's CUDA division by a CPU scalar
+multiplies by its reciprocal and can miss the quotient by an ulp.  The
+wrappers run the plain versions for CPU tensors and launch the kernels for
+CUDA tensors, or raise.
 """
 
 from __future__ import annotations
@@ -41,8 +51,27 @@ GRAD_DTYPES = (torch.float32, torch.bfloat16)
 MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 SHADOW_DTYPE = torch.bfloat16
 
-# Kernel launches on CUDA tensors: K6, K7 and the emission's two helpers.
-LAUNCHES = {"adam": 0, "adam_emit": 0, "quant_scale": 0, "quantize": 0}
+# Kernel launches on CUDA tensors: the per-leaf K6 and K7, the step kernel
+# and the emission's two helpers.
+LAUNCHES = {"adam": 0, "adam_emit": 0, "adam_step": 0, "quant_scale": 0,
+            "quantize": 0}
+
+# The step kernel's geometry (csrc/adam_sm90.cu: kChunk, kAlign,
+# kMaxLeaves): a leaf's chunks hold STEP_CHUNK elements; its bulk part, the
+# largest multiple of STEP_ALIGN elements, goes through the bulk-copy ring
+# when every pointer of the leaf is 16-byte aligned, the rest through plain
+# loads; a launch takes at most STEP_MAX_LEAVES leaves.
+STEP_CHUNK = 4096
+STEP_ALIGN = 16
+STEP_MAX_LEAVES = 48
+# the fresh-scale copies: at most this many leaves a launch
+QUANT_MAX_LEAVES = 64
+# what each leaf of a step emits
+PLAIN, FRESH, EMIT = 0, 1, 2
+# the step kernel's per-leaf flags: the abs-max, K7's copy, write s, ns
+F_AMAX, F_QUANT, F_S, F_NS = 1, 2, 4, 8
+MODE_FLAGS = {PLAIN: 0, FRESH: F_AMAX | F_S | F_NS,
+              EMIT: F_AMAX | F_QUANT | F_NS}
 
 
 def reset_launches() -> None:
@@ -144,6 +173,31 @@ def adam_emit_reference(p, g, m, v, k: AdamConsts, shadow, s_in
     return q, amax
 
 
+@torch.no_grad()
+def adam_step_reference(p, g, m, v, k: AdamConsts, shadow=None, modes=None,
+                        s_in=None) -> list:
+    """Plain version of the step kernel: the leaves in order, each through
+    the per-leaf plain versions.  Per leaf, by ``modes`` (all ``PLAIN``
+    when None): ``PLAIN`` None; ``FRESH`` (max|p'|, s, ns), s = ns =
+    max/127 + 1e-30 in two buffers; ``EMIT`` (q, max|p'|, ns), K7 with the
+    carried scale ``s_in[i]`` and ns its next scale."""
+    out = []
+    for i, mode in enumerate(modes or [PLAIN] * len(p)):
+        sh = None if shadow is None else shadow[i]
+        if mode == EMIT:
+            q, amax = adam_emit_reference(p[i], g[i], m[i], v[i], k, sh,
+                                          s_in[i])
+            out.append((q, amax, quant_scale_reference(amax)))
+        elif mode == FRESH:
+            amax = adam_leaf_reference(p[i], g[i], m[i], v[i], k, sh, True)
+            s = quant_scale_reference(amax)
+            out.append((amax, s, s.clone()))
+        else:
+            adam_leaf_reference(p[i], g[i], m[i], v[i], k, sh)
+            out.append(None)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # checks and launches
 # ---------------------------------------------------------------------------
@@ -185,6 +239,63 @@ def _check_scale(s: torch.Tensor, p: torch.Tensor) -> None:
             or not s.is_contiguous()):
         raise ValueError("a scale is one contiguous float32 element on the "
                          "leaf's device")
+
+
+def _check_step(p, g, m, v, shadow, modes, s_in) -> None:
+    """Raise on a step the kernel does not take, on every device: every
+    leaf as ``_check_leaf`` does (with its errors), one gradient dtype and
+    one moment dtype for the step, one device, a shadow for every leaf or
+    for none (K7 needs it), a carried scale for every K7 leaf."""
+    n = len(p)
+    if not (len(g) == len(m) == len(v) == len(modes) == n) or any(
+            x is not None and len(x) != n for x in (shadow, s_in)):
+        raise ValueError("a step takes one g, m, v, mode (and shadow and "
+                         "s_in) per master")
+    if not set(modes) <= {PLAIN, FRESH, EMIT}:
+        raise ValueError(f"modes are PLAIN, FRESH or EMIT, got {modes}")
+    if EMIT in modes and shadow is None:
+        raise ValueError("K7 writes the shadow: pass it")
+    sh = [None] * n if shadow is None else shadow
+    for pi, gi, mi, vi, si in zip(p, g, m, v, sh):
+        _check_leaf(pi, gi, mi, vi, si)
+        if gi.dtype != g[0].dtype or mi.dtype != m[0].dtype:
+            raise TypeError(f"a step's gradients share one dtype and its "
+                            f"moments one: got {g[0].dtype}/{gi.dtype} and "
+                            f"{m[0].dtype}/{mi.dtype}")
+        if pi.device != p[0].device:
+            raise ValueError(f"the step's leaves lie on several devices: "
+                             f"{p[0].device}, {pi.device}")
+        if (si is None) != (shadow is None):
+            raise ValueError("a step has a shadow for every leaf or for none")
+    for i, mode in enumerate(modes):
+        if mode == EMIT:
+            if s_in is None or s_in[i] is None:
+                raise ValueError("K7 takes the carried scale: pass s_in")
+            _check_scale(s_in[i], p[i])
+
+
+def step_table(p, g, m, v, shadow, q, s_in, modes) -> np.ndarray:
+    """The step kernel's leaf table, (leaves, 10) int64, one row per leaf:
+    the addresses of g, m, v, p, the shadow, q and s_in (0 where none), n,
+    the bulk count n_bulk (the largest multiple of STEP_ALIGN when every
+    pointer is 16-byte aligned, else 0) and begin | flags << 32 (the leaf's
+    first chunk in the launch and its ``MODE_FLAGS``).  ``shadow``, ``q``
+    and ``s_in`` are lists with None entries, or None."""
+    rows = []
+    begin = 0
+    none = [None] * len(p)
+    for pi, gi, mi, vi, si, qi, ci, mode in zip(
+            p, g, m, v, shadow or none, q or none, s_in or none, modes):
+        n = pi.numel()
+        ptrs = [gi.data_ptr(), mi.data_ptr(), vi.data_ptr(), pi.data_ptr(),
+                0 if si is None else si.data_ptr(),
+                0 if qi is None else qi.data_ptr()]
+        aligned = not any(a % 16 for a in ptrs)
+        bulk = n - n % STEP_ALIGN if aligned else 0
+        rows.append(ptrs + [0 if ci is None else ci.data_ptr(), n, bulk,
+                            begin | (MODE_FLAGS[mode] << 32)])
+        begin += -(-bulk // STEP_CHUNK) + -(-(n - bulk) // STEP_CHUNK)
+    return np.array(rows, dtype=np.int64).reshape(-1, 10)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -255,18 +366,85 @@ def quant_scale(amax: torch.Tensor, twin: bool = False):
     return (s, ns) if twin else s
 
 
+def adam_step(p, g, m, v, k: AdamConsts, shadow=None, modes=None,
+              s_in=None) -> list:
+    """One optimizer step over every leaf, in place on the masters ``p``
+    (float32), the moments and the bf16 ``shadow`` list (or None): lists
+    with one entry per leaf, one gradient and one moment dtype.  Per leaf,
+    by ``modes`` (all ``PLAIN`` when None): ``PLAIN`` K6, returns None;
+    ``FRESH`` K6 with the abs-max and the fresh scale, returns (max|p'|
+    (1,), s (1, 1), ns (1, 1)); ``EMIT`` K7 with the carried scale
+    ``s_in[i]``, returns (q, max|p'|, ns).  CPU tensors take
+    ``adam_step_reference``; CUDA tensors launch the step kernel once per
+    STEP_MAX_LEAVES leaves, each counted in ``LAUNCHES["adam_step"]``,
+    after zeroing one buffer of abs-maxes and scales when a leaf needs
+    them."""
+    modes = [PLAIN] * len(p) if modes is None else list(modes)
+    _check_step(p, g, m, v, shadow, modes, s_in)
+    if not p or p[0].device.type == "cpu":
+        return adam_step_reference(p, g, m, v, k, shadow, modes, s_in)
+    dev = p[0].device
+    lib = _lib()
+    flags = (int(g[0].dtype == torch.bfloat16),
+             int(m[0].dtype == torch.bfloat16), int(shadow is not None))
+    out = [None] * len(p)
+    for a in range(0, len(p), STEP_MAX_LEAVES):
+        idx = range(a, min(len(p), a + STEP_MAX_LEAVES))
+        nl = len(idx)
+        part = [modes[i] for i in idx]
+        aux = (torch.zeros(3 * nl + 1, device=dev)
+               if any(md != PLAIN for md in part) else None)
+        q = [torch.empty(p[i].shape, dtype=torch.int8, device=dev)
+             if modes[i] == EMIT else None for i in idx]
+        table = step_table(
+            [p[i] for i in idx], [g[i] for i in idx], [m[i] for i in idx],
+            [v[i] for i in idx],
+            None if shadow is None else [shadow[i] for i in idx], q,
+            [s_in[i] if modes[i] == EMIT else None for i in idx], part)
+        with torch.cuda.device(dev):
+            _call(lib, "svt_adam_step", table.ctypes.data, nl, _ptr(aux),
+                  *flags, *astuple(k), _stream(p[0]))
+        LAUNCHES["adam_step"] += 1
+        for j, i in enumerate(idx):
+            if modes[i] == PLAIN:
+                continue
+            amax = aux[j:j + 1]
+            ns = aux[2 * nl + j:2 * nl + j + 1].view(1, 1)
+            out[i] = ((q[j], amax, ns) if modes[i] == EMIT else
+                      (amax, aux[nl + j:nl + j + 1].view(1, 1), ns))
+    return out
+
+
+def quantize_many(ps: list, ss: list) -> list:
+    """int8(clip(rint(p/s), -127, 127)) of contiguous float32 tensors, each
+    with its float32 scale (one element), in one launch per
+    QUANT_MAX_LEAVES tensors (counted in ``LAUNCHES["quantize"]``).  CPU
+    tensors take ``quantize_reference``."""
+    if len(ps) != len(ss):
+        raise ValueError("quantize takes one scale per tensor")
+    for p, s in zip(ps, ss):
+        if p.dtype != torch.float32 or not p.is_contiguous():
+            raise ValueError("quantize takes a contiguous float32 tensor")
+        if p.device != ps[0].device:
+            raise ValueError("quantize takes tensors on one device")
+        _check_scale(s, p)
+    if not ps or ps[0].device.type == "cpu":
+        return [quantize_reference(p, s) for p, s in zip(ps, ss)]
+    dev = ps[0].device
+    qs = [torch.empty(p.shape, dtype=torch.int8, device=dev) for p in ps]
+    rows = [[p.data_ptr(), s.data_ptr(), q.data_ptr(), p.numel()]
+            for p, s, q in zip(ps, ss, qs) if p.numel()]
+    lib = _lib()
+    for a in range(0, len(rows), QUANT_MAX_LEAVES):
+        table = np.array(rows[a:a + QUANT_MAX_LEAVES], dtype=np.int64)
+        with torch.cuda.device(dev):
+            _call(lib, "svt_quantize", table.ctypes.data, len(table),
+                  _stream(ps[0]))
+        LAUNCHES["quantize"] += 1
+    return qs
+
+
 def quantize(p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """int8(clip(rint(p/s), -127, 127)) of a contiguous float32 tensor with
-    the float32 scale ``s``.  CPU tensors take ``quantize_reference``."""
-    if p.dtype != torch.float32 or not p.is_contiguous():
-        raise ValueError("quantize takes a contiguous float32 tensor")
-    _check_scale(s, p)
-    if p.device.type == "cpu":
-        return quantize_reference(p, s)
-    q = torch.empty(p.shape, dtype=torch.int8, device=p.device)
-    if p.numel():
-        with torch.cuda.device(p.device):
-            _call(_lib(), "svt_quantize", p.data_ptr(), s.data_ptr(),
-                  q.data_ptr(), p.numel(), _stream(p))
-        LAUNCHES["quantize"] += 1
-    return q
+    the float32 scale ``s``: ``quantize_many`` of one tensor."""
+    return quantize_many([p], [s])[0]

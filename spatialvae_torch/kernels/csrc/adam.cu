@@ -22,9 +22,10 @@
 // reciprocal taken once, as the TPU kernel multiplies.
 //
 // Two helpers serve the emission: `quant_scale` turns an abs-max into the
-// scale max/127 + 1e-30 (the fresh scale of quantize_leaf, or K7's next
-// scale), and `quantize` writes the fresh-scale int8 copy
-// clip(rint(p'/s), -127, 127) of a leaf, dividing as quantize_leaf does.
+// scale max/127 + 1e-30 (the fresh scale of quantize_leaf when the qshadow
+// is seeded, and of the per-dataset int8 copy), and `quantize` writes the
+// fresh-scale int8 copies clip(rint(p'/s), -127, 127) of any number of
+// leaves in one launch, dividing as quantize_leaf does.
 //
 // What bounds it on this card: memory.  One read of g, m, v, p and one
 // write of m', v', p' (and the shadow, the int8 copy): 20-28 bytes per
@@ -33,39 +34,23 @@
 // leaf, and the abs-max reduced in registers and a warp before one atomic
 // per warp.  The TPU kernel walks row blocks in order and carries its max
 // in a (1, 1) tile; here blocks run in no order and the atomic replaces
-// that carry.
+// that carry.  The training paths run the step kernel of adam_sm90.cu
+// instead (one launch a step over every leaf, fed by a bulk-copy ring);
+// these per-leaf kernels stay as its yardstick.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "adam.cuh"
+
+using namespace adam;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kVec = 8;                 // elements per thread per iteration
 constexpr int kMaxBlocks = 132 * 16;    // 16 blocks per SM of an H100
-
-struct AdamScalars {
-  float b1, omb1, b2, omb2, neg_lr, eps, c1, c2;
-};
-
-template <typename T>
-__device__ __forceinline__ float widen(T x);
-template <>
-__device__ __forceinline__ float widen<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // 8 consecutive elements through 16-byte words (the caller checked the
 // alignment): one word for bf16, two for float32
@@ -89,32 +74,6 @@ __device__ __forceinline__ void store8(T* ptr, const float (&in)[kVec]) {
   for (int i = 0; i < kVec; ++i) vals[i] = narrow<T>(in[i]);
 #pragma unroll
   for (int w = 0; w < kWords; ++w) reinterpret_cast<uint4*>(ptr)[w] = raw[w];
-}
-
-__device__ __forceinline__ void adam_elem(float g, float& m, float& v,
-                                          float& p, const AdamScalars& s) {
-  m = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.omb1, g));
-  v = __fadd_rn(__fmul_rn(s.b2, v), __fmul_rn(s.omb2, __fmul_rn(g, g)));
-  const float num = __fmul_rn(s.neg_lr, __fdiv_rn(m, s.c1));
-  const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v, s.c2)), s.eps);
-  p = __fadd_rn(p, __fdiv_rn(num, den));
-}
-
-__device__ __forceinline__ int8_t quant(float x) {
-  const float r = fminf(fmaxf(rintf(x), -127.0f), 127.0f);
-  return static_cast<int8_t>(static_cast<int>(r));
-}
-
-__device__ __forceinline__ unsigned int abs_bits(float x) {
-  return __float_as_uint(fabsf(x));
-}
-
-__device__ __forceinline__ void warp_atomic_max(unsigned int* out,
-                                                unsigned int mx) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  if ((threadIdx.x & 31) == 0 && mx != 0u) atomicMax(out, mx);
 }
 
 // SHADOW: write bf16(p'); AMAX: fold |p'| into *amax; QUANT (K7): write the
@@ -173,18 +132,65 @@ adam_kernel(const G* __restrict__ g, M* m, M* v, float* p,
 __global__ void quant_scale_kernel(const float* __restrict__ amax,
                                    float* __restrict__ s,
                                    float* __restrict__ ns) {
-  const float v = __fadd_rn(__fdiv_rn(amax[0], 127.0f), 1e-30f);
+  const float v = scale_of(amax[0]);
   s[0] = v;
   if (ns != nullptr) ns[0] = v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-quantize_kernel(const float* __restrict__ p, const float* __restrict__ s,
-                int8_t* __restrict__ q, long long n) {
-  const float sc = s[0];
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride)
+// The fresh-scale copies of up to kQuantLeaves leaves in one launch: one
+// block per chunk of kQuantChunk elements of a leaf, each thread kQuantIter
+// words of 8 floats (16-byte loads, all issued before the first division)
+// and 8-byte stores; a leaf whose p is not 16-byte or whose q is not 8-byte
+// aligned, and the last elements of a leaf that fill no word, take plain
+// loads.
+constexpr int kQuantLeaves = 64;
+constexpr int kQuantIter = 4;
+constexpr long long kQuantChunk = (long long)kThreads * kVec * kQuantIter;
+
+struct QuantLeaf {
+  const float* p;
+  const float* s;        // one float
+  int8_t* q;
+  long long n;
+  long long begin;       // the leaf's first chunk
+};
+struct QuantTable {
+  QuantLeaf leaf[kQuantLeaves];
+  int leaves;
+};
+
+__global__ void __launch_bounds__(kThreads) quantize_kernel(QuantTable t) {
+  const long long chunk = blockIdx.x;
+  int li = 0;
+  while (li + 1 < t.leaves && t.leaf[li + 1].begin <= chunk) ++li;
+  const QuantLeaf& L = t.leaf[li];
+  const long long base = (chunk - L.begin) * kQuantChunk;
+  const long long left = L.n - base;
+  const int count = int(left < kQuantChunk ? left : kQuantChunk);
+  const float* p = L.p + base;
+  int8_t* q = L.q + base;
+  const float sc = L.s[0];
+  const bool vec = reinterpret_cast<uintptr_t>(L.p) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(L.q) % 8 == 0;
+  const int words = vec ? count / kVec : 0;
+  float x[kQuantIter][kVec];
+#pragma unroll
+  for (int it = 0; it < kQuantIter; ++it) {
+    const int w = it * kThreads + threadIdx.x;
+    if (w < words) load8(p + (long long)w * kVec, x[it]);
+  }
+#pragma unroll
+  for (int it = 0; it < kQuantIter; ++it) {
+    const int w = it * kThreads + threadIdx.x;
+    if (w < words) {
+      uint2 word;
+      int8_t* b = reinterpret_cast<int8_t*>(&word);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) b[k] = quant(__fdiv_rn(x[it][k], sc));
+      *reinterpret_cast<uint2*>(q + (long long)w * kVec) = word;
+    }
+  }
+  for (int i = words * kVec + threadIdx.x; i < count; i += kThreads)
     q[i] = quant(__fdiv_rn(p[i], sc));
 }
 
@@ -294,15 +300,30 @@ int svt_quant_scale(const void* amax, void* s, void* ns, void* stream) {
   return int(cudaGetLastError());
 }
 
-// q = int8(clip(rint(p/s), -127, 127)) over n float32 elements.
-int svt_quantize(const void* p, const void* s, void* q, long long n,
-                 void* stream) {
-  if (n < 1 || p == nullptr || s == nullptr || q == nullptr)
+// q = int8(clip(rint(p/s), -127, 127)) of `leaves` float32 leaves in one
+// launch.  `table` (host memory): 4 words per leaf, the addresses of p, s
+// (one float) and q and the element count n.
+int svt_quantize(const void* table, int leaves, void* stream) {
+  if (table == nullptr || leaves < 1 || leaves > kQuantLeaves)
     return int(cudaErrorInvalidValue);
-  quantize_kernel<<<grid_for(n), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const float*>(s),
-      static_cast<int8_t*>(q), n);
+  const auto* w = static_cast<const long long*>(table);
+  QuantTable t{};
+  t.leaves = leaves;
+  long long chunks = 0;
+  for (int i = 0; i < leaves; ++i, w += 4) {
+    QuantLeaf& L = t.leaf[i];
+    L.p = reinterpret_cast<const float*>(w[0]);
+    L.s = reinterpret_cast<const float*>(w[1]);
+    L.q = reinterpret_cast<int8_t*>(w[2]);
+    L.n = w[3];
+    if (L.p == nullptr || L.s == nullptr || L.q == nullptr || L.n < 1)
+      return int(cudaErrorInvalidValue);
+    L.begin = chunks;
+    chunks += (L.n + kQuantChunk - 1) / kQuantChunk;
+  }
+  if (chunks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  quantize_kernel<<<unsigned(chunks), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(t);
   return int(cudaGetLastError());
 }
 

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the cluster kernels in
-// fused_loss_int8_sm90.cu and fused_decoder_sm90.cu: mbarriers, bulk copies
-// multicast into the shared memory of every CTA of a thread block cluster,
-// remote arrivals, and the warpgroup products with both operands in shared
-// memory: int8 `wgmma.mma_async ... s32.s8.s8` (k32), TF32
+// fused_loss_int8_sm90.cu and fused_decoder_sm90.cu and of Adam's step
+// kernel in adam_sm90.cu: mbarriers, plain bulk loads and stores with an L2
+// cache policy, bulk copies multicast into the shared memory of every CTA
+// of a thread block cluster, remote arrivals, and the warpgroup products
+// with both operands in shared memory: int8 `wgmma.mma_async ...
+// s32.s8.s8` (k32), TF32
 // `... f32.tf32.tf32` (k8) and bf16 `... f32.bf16.bf16` (k16), each m64n128.
 // Raw PTX through inline asm, so the translation units need no CUTLASS or
 // CuTe header and build in seconds.
@@ -98,6 +100,60 @@ __device__ __forceinline__ void bulk_multicast(void* dst, const void* src,
       ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
       : "memory");
+}
+
+// ---- plain bulk copies (Adam's step kernel, adam_sm90.cu): `bytes` a
+// multiple of 16, both ends 16-byte aligned, `policy` an L2 cache policy
+// (l2_evict_first).
+// An L2 policy that evicts these lines first: for streams read or written
+// once that never fit the 50 MB L2.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+// One plain arrival on a barrier of this CTA.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Global to this CTA's shared memory; the barrier counts the bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+// This CTA's shared memory to global, in the issuing thread's open bulk
+// group (bulk_commit closes it).  The caller made its shared-memory writes
+// visible to the async proxy first (fence_proxy_async).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0], [%1], %2, %3;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of the thread's bulk groups still read their
+// shared-memory source (the source may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most N of the thread's bulk groups are incomplete (their
+// writes done).
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- clusters

@@ -8,12 +8,13 @@ where ``torch.optim.Adam`` (which orders its ops differently) does not:
     m' = b1*m + (1-b1)*g;  v' = b2*v + (1-b2)*(g*g)
     p += -lr * (m'/c1) / (sqrt(v'/c2) + eps),  c_i = 1 - b_i**count (f32)
 
-Leaves are dicts of parameter name -> tensor; each leaf's update is one
-launch of K6 (``kernels/adam.py``) in place on the card, and its plain
-version on the CPU.  The moments are float32, or bfloat16 under
-``SPATIALVAE_ADAM_MOMENTS=bf16`` (widened, updated in float32 and rounded
-once on store, as ``adam_leaf`` does).  ``train/optimizer_fused.py`` adds
-the shadow and int8 emission of the JAX package's ``fused_adam_pallas``.
+Leaves are dicts of parameter name -> tensor; a step updates every leaf in
+place in one launch of the step kernel (``kernels/adam.py``
+``adam_step``) on the card, and through its plain version on the CPU.  The
+moments are float32, or bfloat16 under ``SPATIALVAE_ADAM_MOMENTS=bf16``
+(widened, updated in float32 and rounded once on store, as ``adam_leaf``
+does).  ``train/optimizer_fused.py`` adds the shadow and int8 emission of
+the JAX package's ``fused_adam_pallas``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Dict
 
 import torch
 
-from spatialvae_torch.kernels.adam import AdamConsts, adam_leaf
+from spatialvae_torch.kernels.adam import AdamConsts, adam_step
 from spatialvae_torch.kernels.config import moments_dtype
 
 __all__ = ["FusedAdam", "FusedAdamState", "fused_adam", "moments_dtype"]
@@ -60,13 +61,13 @@ class FusedAdam:
     def update_apply(self, grads: Dict[str, torch.Tensor],
                      state: FusedAdamState,
                      params: Dict[str, torch.Tensor]) -> FusedAdamState:
-        """Updates params, state.mu and state.nu in place (K6, one launch
-        per leaf); returns the state with the step count advanced."""
+        """Updates params, state.mu and state.nu in place (one launch of
+        the step kernel); returns the state with the step count
+        advanced."""
         count = state.count + 1
-        k = self.consts(count)
-        for name, p in params.items():
-            adam_leaf(p.detach(), grads[name], state.mu[name],
-                      state.nu[name], k)
+        adam_step([p.detach() for p in params.values()],
+                  [grads[n] for n in params], [state.mu[n] for n in params],
+                  [state.nu[n] for n in params], self.consts(count))
         return FusedAdamState(count, state.mu, state.nu)
 
 

@@ -263,8 +263,9 @@ def test_quantize_leaf_matches_jax(on):
 
 @pytest.mark.parametrize("rows", [4, 11, 64])
 def test_quantize_dataset_matches_jax(rows):
-    """The chunked per-dataset copy is JAX's one-pass ``_quantize_dataset``
-    bit for bit, whatever the chunk."""
+    """The per-dataset copy (its abs-max folded in chunks of ``rows``
+    images) is JAX's one-pass ``_quantize_dataset`` bit for bit, whatever
+    the chunk."""
     from spatialvae_tpu.train.trainer import _quantize_dataset
 
     rng = np.random.default_rng(4)
@@ -400,6 +401,43 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ka.adam_emit(p, torch.zeros(8), torch.zeros(8), torch.zeros(8),
                      ka.AdamConsts.make(LR, 0.9, 0.999, 1e-8, 1),
                      torch.zeros(8, dtype=torch.bfloat16), torch.zeros(2))
+    # the step wrapper checks the whole list once, with the same errors,
+    # and what a step shares: one gradient and one moment dtype, a shadow
+    # for every leaf or none, a carried scale for every K7 leaf
+    k = ka.AdamConsts.make(LR, 0.9, 0.999, 1e-8, 1)
+    bf = torch.bfloat16
+
+    def leaf(n=8, g=torch.float32, m=torch.float32):
+        return [torch.zeros(n), torch.zeros(n, dtype=g),
+                torch.zeros(n, dtype=m), torch.zeros(n, dtype=m)]
+
+    def step(leaves, shadow=None, modes=None, s_in=None):
+        ka.adam_step(*[[x[i] for x in leaves] for i in range(4)], k, shadow,
+                     modes, s_in)
+
+    a, b = leaf(), leaf(5)
+    for call, err in (
+            (lambda: step([a, leaf(g=torch.float16)]), TypeError),
+            (lambda: step([a, [b[0], torch.zeros(9), b[2], b[3]]]),
+             ValueError),
+            (lambda: step([a, [torch.zeros(5, dtype=torch.float64)]
+                           + b[1:]]), TypeError),
+            (lambda: step([a, leaf(5, g=bf)]), TypeError),
+            (lambda: step([a, leaf(5, m=bf)]), TypeError),
+            (lambda: step([a, b], shadow=[torch.zeros(8, dtype=bf), None]),
+             ValueError),
+            (lambda: step([a], shadow=[torch.zeros(8)]), TypeError),
+            (lambda: step([a], modes=[ka.EMIT], s_in=[torch.zeros(1, 1)]),
+             ValueError),
+            (lambda: step([a], shadow=[torch.zeros(8, dtype=bf)],
+                          modes=[ka.EMIT], s_in=[torch.zeros(2)]),
+             ValueError),
+            (lambda: step([a], shadow=[torch.zeros(8, dtype=bf)],
+                          modes=[ka.EMIT]), ValueError),
+            (lambda: step([a], modes=[ka.PLAIN, ka.PLAIN]), ValueError),
+            (lambda: step([a], modes=[3]), ValueError)):
+        with pytest.raises(err):
+            call()
 
 
 def test_placeholder_entries_carry_over():

@@ -849,8 +849,130 @@ def test_adam_kernels_match_plain_versions(shape, gdt, mdt, shadow,
     for got, exp in ((p, ref[0]), (m, ref[2]), (v, ref[3]), (sh, ref[4]),
                      (q, q_ref), (amax, amax_ref)):
         assert torch.equal(got, exp)
-    assert ka.LAUNCHES == {"adam": 1, "adam_emit": 1, "quant_scale": 1,
-                           "quantize": 1}
+    assert ka.LAUNCHES == {"adam": 1, "adam_emit": 1, "adam_step": 0,
+                           "quant_scale": 1, "quantize": 1}
+
+
+# the galaxy model's 13 leaves (chip_smoke.galaxy_leaves)
+GALAXY_LEAVES = [(5000, 12288), (5000,), (5000, 5000), (5000,), (46, 5000),
+                 (46,), (500, 2), (500,), (500, 20), (500, 500), (500,),
+                 (3, 500), (3,)]
+# ragged leaves: 1, 3, 46 and 8k + 5 elements, and a quantised 2-D one
+RAGGED_LEAVES = [(1,), (3,), (46,), (8 * 1024 + 5,), (37, 41)]
+
+
+def _step_leaves(shapes, gdt, mdt, shadow, device, seed, odd=()):
+    """[p, g, m, v, shadow or None] per shape; the leaves at the indices in
+    ``odd`` are views one element into a larger buffer (not 16-byte
+    aligned), every tensor of them."""
+    out = []
+    for i, shape in enumerate(shapes):
+        p, g, m, v = _adam_leaf(shape, gdt, mdt, device, seed=seed + i)
+        sh = (torch.empty(shape, dtype=torch.bfloat16, device=device)
+              if shadow else None)
+        leaf = [p, g, m, v, sh]
+        if i in odd:
+            n = p.numel()
+            leaf = [None if t is None else
+                    torch.empty(n + 1, dtype=t.dtype, device=device)[1:]
+                    .view(shape).copy_(t) for t in leaf]
+        out.append(leaf)
+    return out
+
+
+def _run_step(leaves, k, modes, s_in, step):
+    """``step`` (adam_step or its plain version) over the leaves."""
+    shadow = None if leaves[0][4] is None else [x[4] for x in leaves]
+    return step([x[0] for x in leaves], [x[1] for x in leaves],
+                [x[2] for x in leaves], [x[3] for x in leaves], k, shadow,
+                modes, s_in)
+
+
+def _assert_step_equal(leaves, refs, got, want):
+    for x, r in zip(leaves, refs):
+        for i in (0, 2, 3, 4):
+            if x[i] is not None:
+                assert torch.equal(x[i], r[i])
+    for u, w in zip(got, want):
+        assert (u is None) == (w is None)
+        for a, b in zip(u or (), w or ()):
+            assert torch.equal(a.reshape(-1), b.reshape(-1))
+
+
+@pytest.mark.parametrize("engine", ["plain", "xla", "pallas"])
+@pytest.mark.parametrize("gdt,mdt,shadow", ADAM_CASES,
+                         ids=["f32", "bf16g-shadow", "bf16-all"])
+def test_adam_step_matches_plain_versions(gdt, mdt, shadow, engine,
+                                          cuda_device):
+    """The step kernel on the galaxy leaves and the ragged ones, two of them
+    views at an odd offset, bit for bit against its plain version in p',
+    m', v', the shadow and, for the quantised leaves, q, max|p'|, s and ns;
+    one launch, no per-leaf kernel."""
+    from spatialvae_torch.kernels import adam as ka
+
+    if engine == "pallas" and not shadow:
+        pytest.skip("K7 writes the shadow")
+    k = ka.AdamConsts.make(1e-4, 0.9, 0.999, 1e-8, 7)
+    shapes = GALAXY_LEAVES + RAGGED_LEAVES
+    leaves = _step_leaves(shapes, gdt, mdt, shadow, cuda_device, 0,
+                          odd=(len(GALAXY_LEAVES) + 3, len(shapes) - 1))
+    # zero columns (zero gradients with zero moments, as a pixel that is 0
+    # in every image makes), which the kernel keeps off the divisions' slow
+    # path
+    for x in leaves[:3]:
+        cols = torch.arange(x[0].shape[-1], device=cuda_device) % 5 < 2
+        for t in x[1:4]:
+            t[..., cols] = 0
+    quantised = {0, 2, len(shapes) - 1, len(GALAXY_LEAVES) + 3}
+    mode = {"plain": ka.PLAIN, "xla": ka.FRESH, "pallas": ka.EMIT}[engine]
+    modes = [mode if i in quantised else ka.PLAIN
+             for i in range(len(shapes))]
+    s_in = [torch.full((1, 1), 0.06 / 127, device=cuda_device)
+            if md == ka.EMIT else None for md in modes]
+    refs = [[None if t is None else t.clone() for t in x] for x in leaves]
+    ka.reset_launches()
+    got = _run_step(leaves, k, modes, s_in, ka.adam_step)
+    assert ka.LAUNCHES == {"adam": 0, "adam_emit": 0, "adam_step": 1,
+                           "quant_scale": 0, "quantize": 0}
+    want = _run_step(refs, k, modes, s_in, ka.adam_step_reference)
+    torch.cuda.synchronize()
+    _assert_step_equal(leaves, refs, got, want)
+
+
+def test_adam_step_takes_more_launches_past_the_cap(cuda_device):
+    """More leaves than a launch takes: one launch per STEP_MAX_LEAVES, each
+    with its own scales, still bit for bit."""
+    from spatialvae_torch.kernels import adam as ka
+
+    k = ka.AdamConsts.make(1e-3, 0.9, 0.999, 1e-8, 3)
+    shapes = [(17 + 300 * i,) for i in range(ka.STEP_MAX_LEAVES + 5)]
+    leaves = _step_leaves(shapes, torch.bfloat16, torch.float32, True,
+                          cuda_device, 3)
+    modes = [ka.FRESH if i % 7 == 0 else ka.PLAIN for i in range(len(shapes))]
+    refs = [[t.clone() for t in x] for x in leaves]
+    ka.reset_launches()
+    got = _run_step(leaves, k, modes, None, ka.adam_step)
+    assert ka.LAUNCHES["adam_step"] == 2
+    want = _run_step(refs, k, modes, None, ka.adam_step_reference)
+    _assert_step_equal(leaves, refs, got, want)
+
+
+def test_quantize_many_matches_plain_version(cuda_device):
+    """The fresh-scale copies of several leaves, ragged and one at an odd
+    offset, in one launch, bit for bit."""
+    from spatialvae_torch.kernels import adam as ka
+
+    g = torch.Generator(cuda_device).manual_seed(4)
+    ps = [torch.randn(shape, generator=g, device=cuda_device)
+          for shape in ((5000, 5000), (3,), (8 * 1024 + 5,), (37, 41))]
+    ps.append(torch.empty(20001, device=cuda_device)[1:].copy_(
+        torch.randn(20000, generator=g, device=cuda_device)))
+    ss = [ka.quant_scale_reference(p.abs().max().reshape(1)) for p in ps]
+    ka.reset_launches()
+    qs = ka.quantize_many(ps, ss)
+    assert ka.LAUNCHES["quantize"] == 1
+    for p, s, q in zip(ps, ss, qs):
+        assert torch.equal(q, ka.quantize_reference(p, s))
 
 
 @pytest.mark.parametrize("m,k,n", [(100, 12288, 5000), (37, 5000, 5000),
@@ -878,8 +1000,9 @@ def test_int_mm_on_the_card_is_exact(m, k, n, cuda_device):
 def test_int8_stack_step_on_the_card(cuda_device, monkeypatch):
     """Steps of the TPU's int8 stack in a galaxy-shaped trainer (encoder
     narrowed to 256): the bf16 shadow, the int8 encoder reading the int8
-    data copy, Adam through K6 with the fresh-scale emission, then under
-    SPATIALVAE_ADAM_EMIT=pallas through K7."""
+    data copy, Adam through the step kernel with the fresh-scale emission,
+    then under SPATIALVAE_ADAM_EMIT=pallas with K7 on the encoder
+    weights."""
     from spatialvae_torch.config import InferenceConfig
     from spatialvae_torch.kernels import adam as ka
     from spatialvae_torch.objectives import ElboConfig
@@ -899,7 +1022,6 @@ def test_int8_stack_step_on_the_card(cuda_device, monkeypatch):
                       ).float() / 255
     y_t = tr._dataset_yt(y)
     xq, sx = tr._dataset_yq8(y)
-    leaves = len(tr.named_params())
     ka.reset_launches()
     assert torch.isfinite(tr.train_step(y, y_t=y_t, y_q8=(xq, sx))).all()
     assert torch.isfinite(tr.train_step(y[:5])).all()
@@ -908,8 +1030,10 @@ def test_int8_stack_step_on_the_card(cuda_device, monkeypatch):
     # step seeds the qshadow, then after each step
     big = [k for k, e in tr.qshadow.items() if e["q"].numel()]
     assert len(big) == 3
-    assert ka.LAUNCHES == {"adam": 2 * leaves, "adam_emit": 0,
-                           "quant_scale": 3 * 3, "quantize": 3 * 3}
+    # two steps: one launch of the step kernel each (it writes the scales)
+    # and one of the fresh-scale copies of the three
+    assert ka.LAUNCHES == {"adam": 0, "adam_emit": 0, "adam_step": 2,
+                           "quant_scale": 3, "quantize": 3 + 2}
     monkeypatch.setenv("SPATIALVAE_ADAM_EMIT", "pallas")
     monkeypatch.setenv("SPATIALVAE_ALLOW_KNOBS", "1")
     ka.reset_launches()
@@ -918,8 +1042,9 @@ def test_int8_stack_step_on_the_card(cuda_device, monkeypatch):
     # K7 takes the encoder weights; the decoder's (500, 500) has 500 rows
     # in JAX's orientation, no block of 8, and keeps the fresh scale
     carried = [k for k in big if k.startswith("q.")]
-    assert ka.LAUNCHES["adam_emit"] == len(carried) == 2
-    assert ka.LAUNCHES["adam"] == leaves - 2
+    assert len(carried) == 2
+    assert ka.LAUNCHES == {"adam": 0, "adam_emit": 0, "adam_step": 1,
+                           "quant_scale": 0, "quantize": 1}
     assert all(tr.qshadow[k]["s"] is prev[k] for k in carried)
     assert tr.qshadow["p.layers.1.weight"]["s"] is not \
         prev["p.layers.1.weight"]

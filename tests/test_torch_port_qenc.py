@@ -440,9 +440,10 @@ def test_int8_stack_epoch_takes_the_int8_encoder(monkeypatch):
     leaves = tr.named_params().values()
     # the data copy, then the seeded int8 copy of each 2-D leaf
     seeding = [("quantize", None)] * (1 + sum(p.dim() == 2 for p in leaves))
-    # K6 on each leaf, then the fresh-scale copy of each 2-D leaf
-    adam = [c for p in leaves for c in
-            [("K6", None)] + [("quantize", None)] * (p.dim() == 2)]
+    # the step: K6 on every leaf, then the fresh-scale copies of the 2-D
+    # leaves (one pass over them)
+    adam = [("K6", None)] * len(leaves) + [("quantize", None)] * sum(
+        p.dim() == 2 for p in leaves)
     full = [("xq", None), ("pre", 1.0), ("K3", None)] + adam
     tail = [("pre", None), ("pre", 1.0), ("K4", None), ("K5", None)] + adam
     want = seeding + full + full + tail
