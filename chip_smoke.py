@@ -263,23 +263,26 @@ def phase_build() -> None:
         sources=len(_build.sources()))
 
 
-def start_ptxas_report(source: str):
-    """``nvcc -Xptxas -v`` on ``source`` (the library's flags, the object
-    thrown away), started in the background: ptxas's registers, stack,
-    spills and shared memory per kernel, read by ``ptxas_report``."""
+def start_ptxas_report(source: str, defines: tuple = ()):
+    """``nvcc -Xptxas -v`` on ``source`` (the library's flags and
+    ``defines``, the object thrown away), started in the background:
+    ptxas's registers, stack, spills and shared memory per kernel, read by
+    ``ptxas_report``."""
     from spatialvae_torch.kernels import _build
 
     out = os.path.join(tempfile.gettempdir(), f"ptxas_{os.getpid()}_"
-                       f"{os.path.basename(source)}.o")
+                       f"{len(defines)}_{os.path.basename(source)}.o")
     return out, subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-         out, source], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
+        [_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-Xptxas", "-v", "-c",
+         "-o", out, source], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
 
 
-def ptxas_report(started) -> list:
+def ptxas_report(started, serialized=None) -> list:
     """[(kernel, registers, stack bytes, spill stores, spill loads)] from
-    ``start_ptxas_report``'s compile; raises if it failed."""
+    ``start_ptxas_report``'s compile; raises if it failed.  ``serialized``
+    (a dict), if given, gets kernel -> the codes of ptxas's "wgmma ...
+    serialized" notes on it."""
     import re
 
     out, proc = started
@@ -290,6 +293,15 @@ def ptxas_report(started) -> list:
         raise RuntimeError(f"nvcc -Xptxas -v failed:\n{text[-3000:]}")
     rows, name, spill = [], None, None
     for line in text.splitlines():
+        m = re.search(r"\((C\d+)\) Potential Performance Loss: wgmma.*"
+                      r"in the function '(\S+)'", line)
+        if m and serialized is not None:
+            k = re.search(r"(int8_fwd90|int8_grad90)_kernelI(\w*?)EEv",
+                          m.group(2))
+            key = (k.group(1) + "<" + ",".join(v for _, v in re.findall(
+                r"L([bi])(\d+)E", k.group(2) + "E")) + ">") if k \
+                else m.group(2)
+            serialized.setdefault(key, []).append(m.group(1))
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = re.sub(r".*(loss_fwd90|loss_grad90|grouped_dw90|"
@@ -299,8 +311,9 @@ def ptxas_report(started) -> list:
                               "<bf16>" if k.group(3) == "b1" else "<f32>"
                               if k.group(3) == "b0" else ""), m.group(1))
             # K1/K2's cluster kernels: <BF16, RESID, EMIT or ACT_BF16>
-            k = re.search(r"(dec_fwd90|dec_chain90|dec_dw90)_kernelI(\w*?)EEv",
-                          m.group(1))
+            k = re.search(r"(dec_fwd90|dec_chain90|dec_dw90|int8_fwd90|"
+                          r"int8_grad90|int8_scale90)"
+                          r"_kernelI(\w*?)EEv", m.group(1))
             if k:
                 name = k.group(1) + "<" + ",".join(
                     v for _, v in re.findall(r"L([bi])(\d+)E",
@@ -337,22 +350,33 @@ def phase_dec90(torch, ptxas) -> dict:
     return clusters
 
 
-def kernel_device_ms(torch, fn, keys) -> dict:
-    """key -> device ms of the kernels whose name holds ``key`` in one
-    traced call of ``fn`` (after a warm-up call)."""
+def kernel_device_ms(torch, fn, keys, calls: int = 3) -> dict:
+    """key -> device ms a call of the kernels whose name holds ``key``:
+    ``calls`` traced calls of ``fn`` (after a warm-up call), each key's mean
+    time a launch times its launches a call.  The session opens with
+    KB_WARMUP small kernels and takes several calls because the card's
+    profiler may drop a session's first kernels (a dropped launch moves
+    neither factor)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        pad = torch.zeros(1, device=DEVICE)
+        for _ in range(KB_WARMUP):
+            pad.add_(1)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(keys, 0.0)
+    total = dict.fromkeys(keys, 0.0)
+    count = dict.fromkeys(keys, 0)
     for e in prof.key_averages():
         for k in keys:
-            if k in e.key:
-                out[k] += e.device_time_total / 1e3
-    return out
+            if k in e.key and e.device_time_total > 0:
+                total[k] += e.device_time_total / 1e3
+                count[k] += e.count
+    return {k: total[k] / count[k] * max(1, round(count[k] / calls))
+            if count[k] else 0.0 for k in keys}
 
 
 # kernel-name substrings of K1/K2's kernels on both routes
@@ -1060,6 +1084,13 @@ def phase_profile(torch, requests, tmpdir: str) -> None:
 # ---------------------------------------------------------------------------
 
 INT8_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_int8.cu"
+INT8_90_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_int8_sm90.cu"
+# fused_decoder_int8.LAUNCHES: the block passes', the cluster passes'
+K45_KEYS = ("fwd", "fwd_acts", "bwd_scale", "bwd_grad", "dw", "sum",
+            "fwd_sm90", "fwd_acts_sm90", "bwd_scale_sm90", "bwd_grad_sm90",
+            "dw_sm90")
+# turns of an A/B of K4/K5's two designs on one card
+AB_I8 = ("block", "sm90", "sm90", "block")
 LOSS_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8.cu"
 LOSS90_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8_sm90.cu"
 # fused_loss_int8.LAUNCHES: the block passes', the cluster passes' ("_sm90")
@@ -1081,6 +1112,59 @@ def k3_launches(calls: int, route, chunks: int = 1) -> dict:
     out["grad" + sfx] = out["dw" + sfx] = calls * chunks
     out["sum"] = 5 * calls
     return out
+
+
+def k45_launches(tails: int, evals: int = 0, route: str = "sm90") -> dict:
+    """fused_decoder_int8.LAUNCHES after ``evals`` K4 calls without a1 and
+    ``tails`` odd-tail training steps (K4 with a1, K5 from the residual in
+    one workspace chunk) on ``route``."""
+    out = dict.fromkeys(K45_KEYS, 0)
+    sfx = "_sm90" if route == "sm90" else ""
+    out["fwd" + sfx] = evals
+    for k in ("fwd_acts", "bwd_scale", "bwd_grad", "dw"):
+        out[k + sfx] = tails
+    out["sum"] = 4 * tails
+    return out
+
+
+def k45_route(trainer, alone: bool = False) -> str:
+    """The route of ``trainer``'s K4/K5 calls (``alone``: of its K4 calls
+    without a1, the evaluation's, on weights of its compute dtype): its
+    padded pixel count and decoder width through ``int8_route``."""
+    import torch
+
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    hw = trainer.coords.shape[0]
+    return d8.int8_route(hw + (-hw) % 256, trainer.p_cfg.hidden_dim,
+                         k4_alone_f32=alone and
+                         trainer.compute_dtype == torch.float32)
+
+
+class on_int8_passes:
+    """Within the block every K4 and K5 call of the port runs ``passes``
+    ("block", the yardstick of the cluster passes, or "sm90"), whatever
+    ``int8_route``'s table says, for the trainer's and the tools' calls
+    alike."""
+
+    def __init__(self, passes: str = "block"):
+        self.passes = passes
+
+    def __enter__(self):
+        from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+        self.saved = (d8.run_int8_tail, d8.run_int8_tail_backward)
+        d8.run_int8_tail = functools.partial(self.saved[0],
+                                             passes=self.passes)
+        d8.run_int8_tail_backward = functools.partial(self.saved[1],
+                                                      passes=self.passes)
+        return self
+
+    def __exit__(self, *exc):
+        from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+        d8.run_int8_tail, d8.run_int8_tail_backward = self.saved
+        return False
 
 
 class on_block_passes:
@@ -1303,7 +1387,14 @@ def loss_case(torch, b, dtype, seed, timed, i8=True, masked=False,
 
 def int8_tail_case(torch, b, dtype, seed, timed) -> dict:
     """K4 with and without a1 and K5 with the residual and with recompute
-    against their plain versions on one galaxy batch."""
+    against their plain versions on one galaxy batch, on the passes the
+    route takes ("route"; K4 without a1 on the cluster passes wherever they
+    fit, though the table sends float32 weights to the block passes:
+    "route_alone").  A call that the cluster passes take is also held to
+    the block passes ("vs_block": y and a1 by absolute error, K5's outputs
+    by relative error) and, with ``timed``, timed in turns with them
+    (AB_I8; "<call>_ms" the cluster passes', "<call>_ms_block",
+    "<call>_turns"; "<call>_ms_route" the table's)."""
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -1312,10 +1403,13 @@ def int8_tail_case(torch, b, dtype, seed, timed) -> dict:
                     device=DEVICE)
     w = d8.Int8Weights(*ws)
     ref = (w.w1q, w.sw, w.b1, w.wht)
-    out = {}
+    route = d8.int8_route(coords.shape[0], ws[0].shape[0])
+    alone = d8.int8_route(coords.shape[0], ws[0].shape[0],
+                          k4_alone_f32=dtype == "float32")
+    out = {"route": route, "route_alone": alone, "vs_block": {}}
     with torch.no_grad():
         y, a1 = d8.run_int8_tail(fold, coords, w, emit_a1=True)
-        y0 = d8.run_int8_tail(fold, coords, w)
+        y0 = d8.run_int8_tail(fold, coords, w, passes=route)
         torch.cuda.synchronize()
         y_ref, a1_ref = d8.decoder_tail_int8_reference(
             fold, coords, *ref, w.bht, return_a1=True)
@@ -1323,6 +1417,11 @@ def int8_tail_case(torch, b, dtype, seed, timed) -> dict:
         out["y_no_a1"] = rel_errors(y0, y_ref)
         out["a1"] = rel_errors(a1, a1_ref)
         del y_ref, a1_ref, y0
+        if route == "sm90":
+            yb, a1b = d8.run_int8_tail(fold, coords, w, emit_a1=True,
+                                       passes="block")
+            out["vs_block"].update(y=rel_errors(y, yb), a1=rel_errors(a1, a1b))
+            del yb, a1b
         for variant in ("residual", "recompute"):
             a = a1 if variant == "residual" else None
             got = d8.run_int8_tail_backward(fold, coords, w, a, y, g)
@@ -1334,21 +1433,54 @@ def int8_tail_case(torch, b, dtype, seed, timed) -> dict:
                 fold, coords, *ref, a, y, g)
             for name, u, v in zip(INT8_GRADS, got, want):
                 out[variant, name] = rel_errors(u, v)
+            if route == "sm90":
+                old = d8.run_int8_tail_backward(fold, coords, w, a, y, g,
+                                                passes="block")
+                for name, u, v in zip(INT8_GRADS, got, old):
+                    out["vs_block"][variant, name] = rel_errors(u, v)
+                del old
             del got, again, want
             if timed:
+                run = functools.partial(d8.run_int8_tail_backward, fold,
+                                        coords, w, a, y, g)
                 out[variant + "_ms"], out[variant + "_plain_ms"] = _timed(
-                    torch,
-                    lambda: d8.run_int8_tail_backward(fold, coords, w, a, y,
-                                                      g),
+                    torch, run,
                     lambda: d8.decoder_tail_int8_backward_reference(
                         fold, coords, *ref, a, y, g))
+                if route == "sm90":
+                    _turns(torch, out, variant, run)
+                    if variant == "residual":
+                        out["block_device"] = kernel_device_ms(
+                            torch, functools.partial(run, passes="block"),
+                            ("int8_bwd_scale", "int8_bwd_grad",
+                             "grouped_dw_kernel"))
         if timed:
-            for name, emit in (("fwd", False), ("fwd_a1", True)):
+            for name, emit, rt in (("fwd", False, alone),
+                                   ("fwd_a1", True, route)):
+                run = functools.partial(d8.run_int8_tail, fold, coords, w,
+                                        emit, passes=route)
                 out[name + "_ms"], out[name + "_plain_ms"] = _timed(
-                    torch, lambda: d8.run_int8_tail(fold, coords, w, emit),
+                    torch, run,
                     lambda: d8.decoder_tail_int8_reference(
                         fold, coords, *ref, w.bht, return_a1=emit))
+                if route == "sm90":
+                    _turns(torch, out, name, run)
+                out[name + "_ms_route"] = out[name + "_ms" + (
+                    "_block" if rt == "block" and route == "sm90" else "")]
     return out
+
+
+def _turns(torch, out, name, run) -> None:
+    """``run`` (a K4/K5 wrapper call) on the cluster passes in turns with
+    the same call on the block passes (AB_I8), each named by ``passes``:
+    out[name + "_ms"] and ["_ms_block"] the medians, ["_turns"] every
+    turn."""
+    ab = in_turns(torch, {p: functools.partial(
+        run.func, *run.args, **{**run.keywords, "passes": p})
+        for p in ("sm90", "block")}, N_TIMED // 2, AB_I8)
+    out[name + "_ms"], out[name + "_ms_block"] = ab["sm90"][0], ab["block"][0]
+    out[name + "_turns"] = " ".join(f"{k}:{t:.4f}" for k in ("block", "sm90")
+                                    for t in ab[k][1])
 
 
 def _check_rel(what, errs, tol) -> str:
@@ -1374,6 +1506,18 @@ LOSS_CASES = [
 ]
 INT8_TAIL_CASES = [(BATCH, "bfloat16"), (N_TRAIN % BATCH, "bfloat16"),
                    (BATCH, "float32")]
+
+
+def _k5_bound(b: int) -> tuple:
+    """K5 with recompute at the galaxy shape, ``b`` images: the bound of
+    T1's ``bwd`` run (tools/kernel_bench.py's counts: three int8 products,
+    a1 rebuilt once, da0 and dW1, and the CUDA-core work of the chain, the
+    epilogue, the gradient and the head) at that batch."""
+    from spatialvae_torch.tools import kernel_bench as tool
+
+    run = {r.name: r for r in tool.runs(b, tool.HW, KB_PT)}["bwd"]
+    return bound(run.nbytes, (run.int8_ops, PEAK_INT8),
+                 (run.f32_ops, PEAK_FP32))
 
 
 def _log_ab(r) -> dict:
@@ -1417,34 +1561,63 @@ def phase_int8_kernels(torch) -> dict:
             **_log_ab(r))
         res["loss", b, dtype, i8, masked] = r
         torch.cuda.empty_cache()
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    d8.reset_launches()
     for b, dtype in INT8_TAIL_CASES:
         r = int8_tail_case(torch, b, dtype, SEED, timed=True)
+        if r["route"] != "sm90":
+            raise AssertionError(f"K4/K5 B={b} {dtype}: route {r['route']}")
         _check_abs(f"K4 B={b} {dtype} y", r["y"], INT8_Y_TOL)
         _check_abs(f"K4 B={b} {dtype} y without a1", r["y_no_a1"],
                    INT8_Y_TOL)
         _check_abs(f"K4 B={b} {dtype} a1", r["a1"], INT8_A1_TOL)
+        v = r["vs_block"]
+        _check_abs(f"K4 B={b} {dtype} y, cluster vs block passes", v["y"],
+                   INT8_Y_TOL)
+        _check_abs(f"K4 B={b} {dtype} a1, cluster vs block passes", v["a1"],
+                   INT8_A1_TOL)
         log("kernel_int8_fwd", B=b, HW=IMAGE[0] * IMAGE[1], H=P_HIDDEN, No=CHANNELS,
-            dtype=dtype, y_max_abs_err=f"{r['y'][0]:.3e}",
+            dtype=dtype, route=r["route"], route_alone=r["route_alone"],
+            y_max_abs_err=f"{r['y'][0]:.3e}",
             y_mean_abs_err=f"{r['y'][1]:.3e}",
             a1_max_abs_err=f"{r['a1'][0]:.3e}",
             a1_mean_abs_err=f"{r['a1'][1]:.3e}", y_tol=INT8_Y_TOL,
             a1_tol=INT8_A1_TOL, kernel_ms=f"{r['fwd_ms']:.4f}",
             plain_ms=f"{r['fwd_plain_ms']:.4f}",
             kernel_a1_ms=f"{r['fwd_a1_ms']:.4f}",
-            plain_a1_ms=f"{r['fwd_a1_plain_ms']:.4f}")
+            plain_a1_ms=f"{r['fwd_a1_plain_ms']:.4f}",
+            block_ms=f"{r['fwd_ms_block']:.4f}",
+            block_a1_ms=f"{r['fwd_a1_ms_block']:.4f}",
+            route_ms=f"{r['fwd_ms_route']:.4f}",
+            turns=r["fwd_turns"], turns_a1=r["fwd_a1_turns"],
+            y_vs_block_max_abs=f"{v['y'][0]:.3e}",
+            a1_vs_block_max_abs=f"{v['a1'][0]:.3e}")
         for variant in ("residual", "recompute"):
             if not r[variant, "same"]:
                 raise AssertionError(f"K5 B={b} {variant}: two runs differ")
             fields = {n: _check_rel(f"K5 B={b} {dtype} {variant} {n}",
                                     r[variant, n], INT8_TOL)
                       for n in INT8_GRADS}
+            for n in INT8_GRADS:
+                _check_rel(f"K5 B={b} {dtype} {variant} {n}, cluster vs "
+                           f"block passes", v[variant, n], INT8_TOL)
+            bd = _k5_bound(b) if variant == "recompute" else None
             log("kernel_int8_bwd", B=b, dtype=dtype, variant=variant,
+                route=r["route"],
+                bound_ms="-" if bd is None else f"{bd[0]:.4f}",
+                bound_by="-" if bd is None else bd[1],
                 errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
                 max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
                 kernel_ms=f"{r[variant + '_ms']:.4f}",
-                plain_ms=f"{r[variant + '_plain_ms']:.4f}")
+                plain_ms=f"{r[variant + '_plain_ms']:.4f}",
+                block_ms=f"{r[variant + '_ms_block']:.4f}",
+                turns=r[variant + "_turns"],
+                vs_block_max_rel=f"{max(v[variant, n][2] for n in INT8_GRADS):.3e}")
         res["tail", b, dtype] = r
         torch.cuda.empty_cache()
+    # the block passes' launches here: the yardstick's checks and turns
+    res["ab_k45"] = dict(d8.LAUNCHES)
     return res
 
 
@@ -1465,9 +1638,12 @@ def phase_k3_sm90(torch, ptxas) -> dict:
     K = 512 and K = 128, and its ms and TOP/s at PRODUCT_TILES tiles."""
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
-    for name, regs, stack, stores, loads in ptxas_report(ptxas):
+    serialized = {}
+    for name, regs, stack, stores, loads in ptxas_report(ptxas, serialized):
         log("k3_sm90_ptxas", kernel=name, registers=regs, stack_bytes=stack,
             spill_store_bytes=stores, spill_load_bytes=loads)
+    log("k3_sm90_ptxas", wgmma_serialized_notes=json.dumps(
+        serialized, separators=(",", ":")))
     clusters = l8.sm90_max_clusters()
     if min(clusters.values()) < 1:
         raise AssertionError(f"K3 cluster kernels resident: {clusters}")
@@ -1506,6 +1682,194 @@ def phase_k3_sm90(torch, ptxas) -> dict:
             **{f"clusters_{k}": v for k, v in clusters.items()})
         del a, got
         torch.cuda.empty_cache()
+    return out
+
+
+# the timing copies of the int8 cluster passes: libraries of the one source
+# csrc/fused_decoder_int8_sm90.cu, each built with one switch of its header,
+# whose svt_int8_90_* entry points stand in for the wrappers' library's
+I8_90_TIMING = {"pingpong": ("-DSVT_I8_90_PINGPONG=1",),
+                "product": ("-DSVT_I8_90_CUT=1",),
+                "epilogue": ("-DSVT_I8_90_CUT=2",)}
+I8_90_UNITS = ("fused_decoder_int8_sm90.cu",)
+# the cluster passes' kernels by name
+I8_90_KERNELS = ("int8_fwd90", "int8_scale90", "int8_grad90",
+                 "grouped_dw90")
+# T1's batch (tools/kernel_bench.py): the split at its size too
+KB_BATCH = 2048
+
+
+def start_int8_timing_builds() -> dict:
+    """The I8_90_TIMING libraries, built in the background from the start
+    (one thread and one nvcc each): name -> future of the library's
+    path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spatialvae_torch.kernels import _build
+
+    ex = ThreadPoolExecutor(len(I8_90_TIMING))
+    futures = {k: ex.submit(_build.build, d, I8_90_UNITS)
+               for k, d in I8_90_TIMING.items()}
+    ex.shutdown(wait=False)
+    return futures
+
+
+class _with_timing_copy:
+    """The wrappers' library with the cluster passes' entry points
+    (``svt_int8_90_*``) taken from a timing copy's library."""
+
+    def __init__(self, sound, timing):
+        self.sound, self.timing = sound, timing
+
+    def __getattr__(self, name):
+        lib = self.timing if name.startswith("svt_int8_90_") else self.sound
+        return getattr(lib, name)
+
+
+def _copy_turns(torch, libs: dict, fn, reps: int) -> dict:
+    """copy -> [ms, ms]: ``fn`` (a K4/K5 wrapper call) with ``d8._lib``
+    set to each library of ``libs`` in turn (the median of ``reps``
+    CUDA-event runs), in their order and then in the reverse order."""
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    out = {}
+    for order in (list(libs), list(libs)[::-1]):
+        for name in order:
+            d8._lib = (lambda lib=libs[name]: lib)
+            fn()
+            out.setdefault(name, []).append(statistics.median(
+                cuda_ms(fn, torch) for _ in range(reps)))
+    return out
+
+
+def phase_int8_sm90(torch, ptxas, ptxas_pingpong, timing_builds) -> dict:
+    """``[int8_sm90]``: K4 and K5's cluster passes alone.  ptxas's report
+    of every kernel of the passes and of the ping-pong timing copy
+    (compiled in the background from the start), with the wgmma
+    serialization notes; the clusters of 4 the card holds at once; the a0
+    chain (exact tanhf, the formula itself).  ``[int8_sm90_split]``: the
+    wrappers run with the cluster passes' entry points taken from each
+    timing copy's library (I8_90_TIMING; "pass" is the wrappers' own): K4
+    (bf16, B=100 and T1's B=2,048) as the pass, on the ping-pong schedule,
+    as the product alone and as the epilogue alone, in turns (each copy
+    timed in order, then again in the reverse order); K4 with a1 at the
+    odd tail on both schedules; K5's gradient pass at the odd tail (the
+    residual) as the pass, the product alone and the epilogue alone, each
+    kernel's device ms from one traced call."""
+    from spatialvae_torch.kernels import _build
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    for copy, started in (("pass", ptxas), ("pingpong", ptxas_pingpong)):
+        serialized = {}
+        for name, regs, stack, stores, loads in ptxas_report(started,
+                                                             serialized):
+            log("int8_sm90_ptxas", build=copy, kernel=name, registers=regs,
+                stack_bytes=stack, spill_store_bytes=stores,
+                spill_load_bytes=loads,
+                wgmma_serialized=",".join(serialized.get(name, [])) or "-")
+    clusters = d8.sm90_max_clusters()
+    if min(clusters.values()) < 1:
+        raise AssertionError(f"int8 cluster kernels resident: {clusters}")
+    log("int8_sm90", chain="exact tanhf",
+        **{f"clusters_{k}": v for k, v in clusters.items()})
+    sound = _build.load_library()
+    libs = {"pass": sound}
+    for name, future in timing_builds.items():
+        future.result()
+        libs[name] = _with_timing_copy(
+            sound, _build.load_library(I8_90_TIMING[name], I8_90_UNITS))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out = {"clusters": clusters}
+    tb = N_TRAIN % BATCH
+    try:
+        with torch.no_grad():
+            for b in (BATCH, KB_BATCH):
+                fold, coords, ws = _int8_inputs(torch, b, "bfloat16", gen)
+                w = d8.Int8Weights(*ws)
+                t = _copy_turns(torch, libs, functools.partial(
+                    d8.run_int8_tail, fold, coords, w),
+                    3 if b == BATCH else 1)
+                out["k4", b] = {k: statistics.median(v) for k, v in t.items()}
+                log("int8_sm90_split", call="K4", B=b, dtype="bfloat16",
+                    **{f"{k}_ms": "/".join(f"{x:.4f}" for x in v)
+                       for k, v in t.items()})
+                if b == BATCH:
+                    t = _copy_turns(
+                        torch, {k: libs[k] for k in ("pass", "pingpong")},
+                        functools.partial(d8.run_int8_tail, fold[:tb],
+                                          coords, w, True), 3)
+                    out["k4_a1", tb] = {k: statistics.median(v)
+                                        for k, v in t.items()}
+                    log("int8_sm90_split", call="K4 with a1", B=tb,
+                        dtype="bfloat16", **{f"{k}_ms": "/".join(
+                            f"{x:.4f}" for x in v) for k, v in t.items()})
+                    d8._lib = (lambda: sound)
+                    y, a1 = d8.run_int8_tail(fold[:tb], coords, w, True)
+                    g = torch.randn(y.shape, generator=gen, device=DEVICE)
+                    grad = {}
+                    for name in ("pass", "product", "epilogue"):
+                        d8._lib = (lambda lib=libs[name]: lib)
+                        ms = kernel_device_ms(torch, functools.partial(
+                            d8.run_int8_tail_backward, fold[:tb], coords, w,
+                            a1, y, g), I8_90_KERNELS)
+                        grad[name] = ms["int8_grad90"]
+                    out["k5_grad", tb] = grad
+                    log("int8_sm90_split", call="K5 gradient pass", B=tb,
+                        dtype="bfloat16", variant="residual",
+                        **{f"{k}_device_ms": f"{v:.4f}"
+                           for k, v in grad.items()})
+                    del y, a1, g
+                del fold, coords, ws, w
+                torch.cuda.empty_cache()
+    finally:
+        d8._lib = (lambda: _build.load_library())
+    return out
+
+
+def phase_eval_int8_ab(torch) -> dict:
+    """``[eval_int8_ab]``: the galaxy int8 trainer's ``eval_epoch`` over the
+    smoke's N_EVAL images (B=100: four batches and a tail of 37 through K4
+    alone) and one odd-tail training step (B=37: K4 with a1, the likelihood,
+    K5 from the residual, Adam), unprofiled, timed with CUDA events, in
+    turns on the block and the cluster passes (AB_I8, each turn the median
+    of 3 runs); each route's K4/K5 launches checked on one call of each.
+    ``route`` is the one ``int8_route``'s table gives the call, which
+    must be the cluster passes'."""
+    trainer, data, _ = int8_galaxy_trainer(torch)
+    tb = N_TRAIN % BATCH
+    evals = math.ceil(N_EVAL / BATCH)
+    calls = {"eval_epoch": lambda: trainer.eval_epoch(data[:N_EVAL], 0),
+             "tail_step": lambda: trainer.train_step(data[:tb])}
+    want = {"eval_epoch": lambda r: k45_launches(0, evals, r),
+            "tail_step": lambda r: k45_launches(1, 0, r)}
+    table = {"eval_epoch": k45_route(trainer, True),
+             "tail_step": k45_route(trainer)}
+    if set(table.values()) != {"sm90"}:
+        raise AssertionError(f"the galaxy int8 path's routes: {table}")
+    out = {}
+    for kind, fn in calls.items():
+        turns = {}
+        for route in AB_I8:
+            with on_int8_passes(route):
+                _reset_all_launches()
+                fn()
+                torch.cuda.synchronize()
+                got = _int8_launches()["k45"]
+                if got != want[kind](route):
+                    raise AssertionError(f"{kind} on {route}: K4/K5 "
+                                         f"launches {got}")
+                turns.setdefault(route, []).append(statistics.median(
+                    cuda_ms(fn, torch) for _ in range(3)))
+        med = {r: statistics.median(t) for r, t in turns.items()}
+        out[kind] = med
+        log("eval_int8_ab", call=kind, B=BATCH if kind == "eval_epoch"
+            else tb, images=N_EVAL if kind == "eval_epoch" else tb,
+            route=table[kind], ms=f"{med['sm90']:.4f}",
+            ms_block=f"{med['block']:.4f}",
+            turns=" ".join(f"{r}:{t:.4f}" for r in ("block", "sm90")
+                           for t in turns[r]))
+    del trainer, data
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1689,8 +2053,7 @@ def _int8_evaluate(torch, trainer, data, epoch):
     m = trainer.eval_epoch(data, epoch)
     torch.cuda.synchronize()
     got = _int8_launches()
-    want = {"fwd": evals}
-    if got["k45"] != {**dict.fromkeys(got["k45"], 0), **want} or \
+    if got["k45"] != k45_launches(0, evals, k45_route(trainer, True)) or \
             any(got["k3"].values()) or any(got["k8"].values()) or \
             got["k12"] or \
             any(got["adam"].values()):
@@ -1721,8 +2084,7 @@ def phase_train_int8(torch, tmpdir: str) -> dict:
     full = TRAIN_EPOCHS * (N_TRAIN // BATCH)
     tails = TRAIN_EPOCHS
     want_k3 = k3_launches(full, "sm90")
-    want_k45 = {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
-                "bwd_grad": tails, "dw": tails, "sum": 4 * tails}
+    want_k45 = k45_launches(tails)
     want_adam = int8_adam_launches(trainer, full + tails, seeded=True)
     if counts != {"k3": want_k3,
                   "k8": dict.fromkeys(("fwd", "grad", "dw", "sum"), 0),
@@ -1884,7 +2246,9 @@ def phase_profile_int8(torch, trainer, data, data_t, data_q8, tmpdir: str,
              "loss_grad90": "loss_grad90_kernel",
              "dw90": "grouped_dw90_kernel", "sum_rows": "sum_rows_kernel",
              "fwd_a1": "int8_fwd_kernel", "bwd_scale": "int8_bwd_scale",
-             "bwd_grad": "int8_bwd_grad", "adam_step": "adam_step_kernel",
+             "bwd_grad": "int8_bwd_grad", "fwd90": "int8_fwd90_kernel",
+             "scale90": "int8_scale90_kernel",
+             "grad90": "int8_grad90_kernel", "adam_step": "adam_step_kernel",
              "k6": "adam_kernel", "quant_scale": "quant_scale_kernel",
              "quantize": "quantize_kernel"}
     out = {}
@@ -2077,7 +2441,7 @@ def phase_bench_int8(torch, q_cfg, p_cfg, ecfg, tcfg) -> tuple:
         if route == "sm90" and counts is None:
             counts, m, secs = got, mi, seconds
     want_adam = int8_adam_launches(trainer, BENCH_STEPS, seeded=False)
-    if counts["k45"]["fwd_acts"] or counts["adam"] != want_adam:
+    if any(counts["k45"].values()) or counts["adam"] != want_adam:
         raise AssertionError(f"B={BENCH_BATCH} epoch launches {counts}, "
                              f"Adam expected {want_adam}")
     if not np.isfinite(m).all():
@@ -2493,8 +2857,7 @@ def phase_train_family(torch, name: str, tmpdir: str) -> dict:
     # cluster passes
     want = {"k3": k3_launches(full, "block" if name == "colored" else "sm90"),
             "k8": {"fwd": 0, "grad": 0, "dw": 0, "sum": 0},
-            "k45": {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
-                    "bwd_grad": tails, "dw": tails, "sum": 4 * tails},
+            "k45": k45_launches(tails),
             "k12": 0,
             "adam": int8_adam_launches(trainer, full + tails, seeded=True)}
     if counts != want:
@@ -2813,8 +3176,7 @@ def phase_train_knobs(torch, tag, env, on_grid, kernel) -> dict:
         # the knobs' numerics keep K3 on the block passes
         want = {"k3": k3_launches(full, "block" if kernel == "k3" else None),
                 "k8": run if kernel == "k8" else dict.fromkeys(run, 0),
-                "k45": {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
-                        "bwd_grad": tails, "dw": tails, "sum": 4 * tails},
+                "k45": k45_launches(tails),
                 "k12": 0,
                 "adam": int8_adam_launches(trainer, full + tails,
                                            seeded=True)}
@@ -3781,8 +4143,7 @@ def phase_train_wide(torch) -> dict:
         counts = _int8_launches()
         want = {"k3": k3_launches(full, "block"),      # H > 512
                 "k8": dict.fromkeys(("fwd", "grad", "dw", "sum"), 0),
-                "k45": {"fwd": 0, "fwd_acts": tails, "bwd_scale": tails,
-                        "bwd_grad": tails, "dw": tails, "sum": 4 * tails},
+                "k45": k45_launches(tails, route="block"),   # H > 512
                 "k12": 0,
                 "adam": int8_adam_launches(trainer, full + tails,
                                            seeded=True)}
@@ -4184,29 +4545,57 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
     t_blocks = tb * hw // 64
     t_parts = t_blocks * (3 * h + mw + 1) * f4
     k5_abs = lambda *ns: max(tail["residual", n][0] for n in ns)
+    ab45 = res["int8"]["ab_k45"]
+    bounds = {
+        "fwd": bound(fold_io + i8_w + b * no * hw * f4, (gemm, PEAK_INT8),
+                     head),
+        "fwd_a1": bound(t_io + t_a1, (t_gemm, PEAK_INT8), t_head),
+        "scale": bound(t_io + t_a1 + tb * no * hw * f4 + t_blocks * f4,
+                       t_head),
+        "grad": bound(t_io + i8_w + t_a1 + tb * no * hw * f4 + t_ws
+                      + t_parts, (t_gemm, PEAK_INT8),
+                      (2 * t_head[0], PEAK_FP32)),
+        "dw": bound(t_ws + splits * h * h * f4, (t_gemm, PEAK_INT8)),
+        "dw90": bound(t_ws + 15 * h * h * f4, (t_gemm, PEAK_INT8))}
+    # the cluster passes: launches from the int8 path (K4 per evaluation
+    # batch, K4 with a1 and K5 per odd tail), ms from the calls' turns (K4)
+    # and the profiled tail step (K5's passes); the block passes: no launch
+    # on any path at H <= 512, their checks' and turns' launches
+    # (ab_launches), ms from their turns and one traced tail call
+    blk = tail["block_device"]
     rows += [
-        ("int8_fwd", INT8_SOURCE, K4_REPLACES, i8["eval_k4"],
-         ev["y_no_a1"][0], ev["fwd_ms"], ev["fwd_plain_ms"],
-         bound(fold_io + i8_w + b * no * hw * f4, (gemm, PEAK_INT8), head),
+        ("int8_fwd90", INT8_90_SOURCE, K4_REPLACES, i8["eval_k4"],
+         ev["y_no_a1"][0], ev["fwd_ms"], ev["fwd_plain_ms"], bounds["fwd"],
          None),
-        ("int8_fwd_a1", INT8_SOURCE, K4_REPLACES, c45["fwd_acts"],
-         max(tail["y"][0], tail["a1"][0]), i8["tail", "fwd_a1"],
-         tail["fwd_a1_plain_ms"],
-         bound(t_io + t_a1, (t_gemm, PEAK_INT8), t_head),
+        ("int8_fwd90_a1", INT8_90_SOURCE, K4_REPLACES, c45["fwd_acts_sm90"],
+         max(tail["y"][0], tail["a1"][0]), i8["tail", "fwd90"],
+         tail["fwd_a1_plain_ms"], bounds["fwd_a1"], None),
+        ("int8_bwd_scale90", INT8_90_SOURCE, K5_REPLACES,
+         c45["bwd_scale_sm90"], k5_abs("dw1", "dfold"),
+         i8["tail", "scale90"], tail["residual_plain_ms"], bounds["scale"],
          None),
-        ("int8_bwd_scale", INT8_SOURCE, K5_REPLACES, c45["bwd_scale"],
-         k5_abs("dw1", "dfold"), i8["tail", "bwd_scale"],
-         tail["residual_plain_ms"],
-         bound(t_io + t_a1 + tb * no * hw * f4 + t_blocks * f4, t_head),
-         None),
-        ("int8_bwd_grad", INT8_SOURCE, K5_REPLACES, c45["bwd_grad"],
-         k5_abs("dfold", "db1", "dwht", "dbht"), i8["tail", "bwd_grad"],
-         tail["residual_plain_ms"],
-         bound(t_io + i8_w + t_a1 + tb * no * hw * f4 + t_ws + t_parts,
-               (t_gemm, PEAK_INT8), (2 * t_head[0], PEAK_FP32)), None),
-        ("int8_grouped_dw_k5", INT8_SOURCE, K5_REPLACES, c45["dw"],
-         k5_abs("dw1"), i8["tail", "dw"], tail["residual_plain_ms"],
-         bound(t_ws + splits * h * h * f4, (t_gemm, PEAK_INT8)), None),
+        ("int8_bwd_grad90", INT8_90_SOURCE, K5_REPLACES, c45["bwd_grad_sm90"],
+         k5_abs("dfold", "db1", "dwht", "dbht"), i8["tail", "grad90"],
+         tail["residual_plain_ms"], bounds["grad"], None),
+        ("int8_grouped_dw90_k5", LOSS90_SOURCE, K5_REPLACES, c45["dw_sm90"],
+         k5_abs("dw1"), i8["tail", "dw90"], tail["residual_plain_ms"],
+         bounds["dw90"], None),
+        ("int8_fwd", INT8_SOURCE, K4_REPLACES, 0, ev["vs_block"]["y"][0],
+         ev["fwd_ms_block"], ev["fwd_plain_ms"], bounds["fwd"], None,
+         ab45["fwd"]),
+        ("int8_fwd_a1", INT8_SOURCE, K4_REPLACES, 0,
+         tail["vs_block"]["a1"][0], tail["fwd_a1_ms_block"],
+         tail["fwd_a1_plain_ms"], bounds["fwd_a1"], None, ab45["fwd_acts"]),
+        ("int8_bwd_scale", INT8_SOURCE, K5_REPLACES, 0,
+         k5_abs("dw1", "dfold"), blk["int8_bwd_scale"],
+         tail["residual_plain_ms"], bounds["scale"], None,
+         ab45["bwd_scale"]),
+        ("int8_bwd_grad", INT8_SOURCE, K5_REPLACES, 0,
+         k5_abs("dfold", "db1", "dwht", "dbht"), blk["int8_bwd_grad"],
+         tail["residual_plain_ms"], bounds["grad"], None, ab45["bwd_grad"]),
+        ("int8_grouped_dw_k5", INT8_SOURCE, K5_REPLACES, 0, k5_abs("dw1"),
+         blk["grouped_dw_kernel"], tail["residual_plain_ms"], bounds["dw"],
+         None, ab45["dw"]),
         ("int8_bwd_sum_rows", BWD_SOURCE, K5_REPLACES, c45["sum"],
          k5_abs(*INT8_GRADS), i8["tail", "sum_rows"],
          tail["residual_plain_ms"],
@@ -4557,7 +4946,29 @@ KB_GROUPED = ("gemm1", "gemm2", "gemm1+vpu", "vpu-only", "gemm1+ivpu",
 # runs traced once at the defaults: each kernel's device ms (the backward's
 # and the loss kernel's passes apart)
 KB_PROFILED = ("fused-plain", "fused-loss", "bwd", "bwd-fixscale")
+# the runs that reach K4 and K5 (their cluster passes at the tool's
+# defaults): timed in turns with the block passes
+KB_I8_RUNS = ("fwd-nores", "fwd", "bwd")
+
+
+def _kb_route(k4_alone: bool):
+    """The route ``int8_route``'s table gives a T1 run's K4/K5 calls (T1's
+    weights are float32), at the tool's shape."""
+    def route():
+        from spatialvae_torch.kernels import fused_decoder_int8 as d8
+        from spatialvae_torch.tools import kernel_bench as tool
+
+        return d8.int8_route(tool.HW, tool.H, k4_alone_f32=k4_alone)
+    return route
+
+
+KB_I8_ROUTE = {"fwd-nores": _kb_route(True), "fwd": _kb_route(True),
+               "bwd": _kb_route(False)}
+# T1's K4 calls (f32 weights, no a1) on the table's route: the block pass
+KB_K4_KEY = "fwd"
 KB_PASSES = {"scale": "int8_bwd_scale", "grad": "int8_bwd_grad",
+             "fwd90": "int8_fwd90", "scale90": "int8_scale90",
+             "grad90": "int8_grad90",
              "loss_fwd": "loss_fwd_kernel", "loss_grad": "loss_grad_kernel",
              "loss_fwd90": "loss_fwd90_kernel",
              "loss_grad90": "loss_grad90_kernel",
@@ -4754,6 +5165,20 @@ def kb_profile(torch, run, arrays, tries: int = 10, name=None) -> None:
         **fields)
 
 
+class _int8_run_on:
+    """A T1 run built and called under ``on_int8_passes(passes)``, so that
+    its K4/K5 calls take those passes whatever the table says (the tool
+    binds some wrappers when it builds its runs, looks others up when it
+    calls them): each side of the A/B of the two designs."""
+
+    def __init__(self, run, passes):
+        self.run, self.name, self.passes = run, run.name, passes
+
+    def fn(self, arrays):
+        with on_int8_passes(self.passes):
+            return self.run.fn(arrays)
+
+
 def phase_kernel_bench(torch) -> list:
     """``[kernel_bench]``: the tool's entry point at its defaults (B=2,048,
     HW=4,096, H=500, pt=2,048; the main path, launches counted from 0
@@ -4767,6 +5192,9 @@ def phase_kernel_bench(torch) -> list:
     B=2,048 does not fit them).  Returns the kernels line's T1 rows."""
     from spatialvae_torch.tools import kernel_bench as tool
 
+    if KB_I8_ROUTE["fwd"]() != "block":
+        raise AssertionError("T1's K4 calls left the block passes: "
+                             "KB_K4_KEY and T1.8's row count them there")
     t0 = time.perf_counter()
     _kb_reset()
     rc = tool.main(KB_MAIN_ARGV)
@@ -4781,12 +5209,34 @@ def phase_kernel_bench(torch) -> list:
     with on_block_passes():                  # fused-loss on the block passes
         loss7 = {r.name: r for r in tool.runs(tool.B, tool.HW,
                                               KB_PT)}["fused-loss"]
+    i8_on = {}                               # K4/K5 on each design
+    for passes in ("block", "sm90"):
+        with on_int8_passes(passes):
+            i8_on[passes] = {r.name: _int8_run_on(r, passes)
+                             for r in tool.runs(tool.B, tool.HW, KB_PT)
+                             if r.name in KB_I8_RUNS}
     for run in tool.runs(tool.B, tool.HW, KB_PT):
         extra = run.prepare(arrays) if run.prepare else {}
         arrays.update(extra)
         run.fn(arrays)
-        ab = {}
-        if run.name == "fused-loss":
+        ab, blk_ms = {}, None
+        if run.name in KB_I8_RUNS:
+            # K4/K5 on the cluster passes in turns with the block passes;
+            # the run's ms is the table's route's (T1's weights are f32: K4
+            # alone takes the block passes)
+            on = {p: i8_on[p][run.name] for p in ("block", "sm90")}
+            ab = in_turns(torch, {p: functools.partial(r.fn, arrays)
+                                  for p, r in on.items()}, KB_TIMED, AB_I8)
+            route = KB_I8_ROUTE[run.name]()
+            ms, blk_ms = ab[route][0], ab["block"][0]
+            if run.name in KB_PROFILED:
+                kb_profile(torch, on["block"], arrays,
+                           name=run.name + "_block")
+            ab = {"route": route, "sm90_ms": f"{ab['sm90'][0]:.4f}",
+                  "block_ms": f"{ab['block'][0]:.4f}",
+                  "turns": " ".join(f"{k}:{t:.4f}" for k in ("block", "sm90")
+                                    for t in ab[k][1])}
+        elif run.name == "fused-loss":
             # the cluster passes in turns with the block passes
             ab = in_turns(torch, {"sm90": lambda: run.fn(arrays),
                                   "block": lambda: loss7.fn(arrays)}, KB_TIMED)
@@ -4805,9 +5255,10 @@ def phase_kernel_bench(torch) -> list:
         r = readings[run.name]
         if not r["rerun_equal"]:
             raise AssertionError(f"{run.name}: two calls differ")
-        by_run[run.name] = (ms, bd, lib, r)
+        by_run[run.name] = (ms, bd, lib, r, blk_ms)
         if run.name in KB_PROFILED:
-            kb_profile(torch, run, arrays)
+            kb_profile(torch, i8_on["sm90"][run.name]
+                       if run.name in KB_I8_RUNS else run, arrays)
         log("kernel_bench", run=run.name, ms=f"{ms:.4f}",
             plain_ms=f"{r['plain_ms']:.4f}", plain_b=KB_B,
             plain_groups=r["groups"],
@@ -4821,7 +5272,7 @@ def phase_kernel_bench(torch) -> list:
     del arrays
     torch.cuda.empty_cache()
     for row, name, line, key in KB_ROWS:
-        ms, bd, lib, r = by_run[name]
+        ms, bd, lib, r, _ = by_run[name]
         nl = launches.get(key, 0)
         log("kernel_bench_row", row=row, run=name, launches=nl)
         src = KB_SOURCES.get(name, KB_CHAIN_SOURCE)
@@ -4829,13 +5280,14 @@ def phase_kernel_bench(torch) -> list:
                      f"tools/kernel_bench.py:{line}", nl, r["err"], ms,
                      r["plain_ms"], bd, lib))
     log("kernel_bench", package_runs=",".join(KB_PACKAGE_RUNS),
-        k4_launches=launches.get(("d8", "fwd"), 0),
-        k5_launches=launches.get(("d8", "bwd_grad"), 0),
+        k4_launches=launches.get(("d8", KB_K4_KEY), 0),
+        k5_launches=launches.get(("d8", "bwd_grad_sm90"), 0),
         k3_launches=launches.get(("l8", "grad_sm90"), 0),
         k8_launches=launches.get(("lt", "grad"), 0),
         main_seconds=f"{t_main:.1f}",
         seconds=f"{time.perf_counter() - t0:.1f}")
-    for key in (("d8", "bwd_grad"), ("l8", "grad_sm90"), ("lt", "grad")):
+    for key in (("d8", KB_K4_KEY), ("d8", "bwd_grad_sm90"),
+                ("l8", "grad_sm90"), ("lt", "grad")):
         if launches.get(key, 0) < 1:
             raise AssertionError(f"kernel_bench: {key} not launched")
     return rows
@@ -4999,6 +5451,59 @@ def phase_limits_dec90(torch) -> None:
             **{"/".join(k): f"{a:.3e}/{m:.3e}"
                for k, (a, m) in sorted(worst.items())})
     fd._lib = (lambda: _build.load_library())
+
+
+# `--limits int8_90`: the sound build and copies with one step of the
+# cluster passes broken, built together
+I8_90_FAULTS = (
+    ("sound", ()),
+    ("K5 scale per 64-pixel block", ("-DSVT_INT8_BLOCK_SCALE=1",)),
+    ("one multicast quarter from the wrong slab",
+     ("-DSVT_I8_90_WRONG_QUARTER=1",)),
+    ("a1 emitted without its bf16 rounding", ("-DSVT_I8_90_A1_RTZ=1",)),
+)
+
+
+def phase_limits_int8_90(torch) -> None:
+    """``--limits int8_90``: K4 and K5 on the cluster passes against their
+    plain versions, at INT8_TAIL_CASES (B=100 and the odd tail, f32 and
+    bf16, both K5 variants), for the sound library and for each copy of
+    I8_90_FAULTS: y and a1 by absolute error (max/mean), each K5 variant's
+    worst output by error relative to max|plain| (max/mean), and whether
+    they stay within INT8_Y_TOL, INT8_A1_TOL and INT8_TOL.  The sound build
+    must, and every faulty copy must not."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spatialvae_torch.kernels import _build
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    with ThreadPoolExecutor(len(I8_90_FAULTS)) as ex:
+        list(ex.map(lambda f: _build.build(f[1]), I8_90_FAULTS))
+    for build, defines in I8_90_FAULTS:
+        lib = _build.load_library(defines)
+        d8._lib = (lambda lib=lib: lib)
+        worst = {}
+        for b, dtype in INT8_TAIL_CASES:
+            r = int8_tail_case(torch, b, dtype, SEED, timed=False)
+            for k in ("y", "y_no_a1", "a1"):
+                worst[k] = _wmax(worst.get(k, (0, 0)), r[k][:2])
+            for v in ("residual", "recompute"):
+                for n in INT8_GRADS:
+                    worst[v] = _wmax(worst.get(v, (0, 0)), r[v, n][2:])
+            torch.cuda.empty_cache()
+        within = all(worst[k][0] <= tol[0] and worst[k][1] <= tol[1]
+                     for k, tol in (("y", INT8_Y_TOL), ("y_no_a1", INT8_Y_TOL),
+                                    ("a1", INT8_A1_TOL),
+                                    ("residual", INT8_TOL),
+                                    ("recompute", INT8_TOL)))
+        log("limits_int8_90", build=build, defines=" ".join(defines) or "-",
+            **{k: f"{a:.3e}/{m:.3e}" for k, (a, m) in worst.items()},
+            within_limits=within)
+        if within != (build == "sound"):
+            raise AssertionError(f"--limits int8_90: the {build} build "
+                                 f"{'is' if within else 'is not'} within "
+                                 f"the limits: {worst}")
+    d8._lib = (lambda: _build.load_library())
 
 
 def phase_split_dec90(torch) -> None:
@@ -5186,12 +5691,19 @@ def main() -> int:
     if sys.argv[1:] == ["--limits", "adam"]:
         phase_limits_adam(torch)
         return 0
+    if sys.argv[1:] == ["--limits", "int8_90"]:
+        phase_limits_int8_90(torch)
+        return 0
     if sys.argv[1:] == ["--split", "dec90"]:
         phase_split_dec90(torch)
         return 0
     ptxas = start_ptxas_report(LOSS90_SOURCE)
     ptxas_dec = start_ptxas_report(DEC90_SOURCE)
     ptxas_adam = start_ptxas_report(ADAM90_SOURCE)
+    ptxas_i8 = start_ptxas_report(INT8_90_SOURCE)
+    ptxas_i8p = start_ptxas_report(INT8_90_SOURCE,
+                                   I8_90_TIMING["pingpong"])
+    i8_timing = start_int8_timing_builds()
     from spatialvae_torch.kernels import fused_decoder as fd
 
     res = phase_kernels(torch)
@@ -5200,6 +5712,9 @@ def main() -> int:
     res["dec90"] = phase_dec90(torch, ptxas_dec)
     res["k3_sm90"] = phase_k3_sm90(torch, ptxas)
     res["int8"] = phase_int8_kernels(torch)
+    res["int8_sm90"] = phase_int8_sm90(torch, ptxas_i8, ptxas_i8p,
+                                       i8_timing)
+    res["eval_ab"] = phase_eval_int8_ab(torch)
     res["families"] = phase_loss_families(torch)
     res["sr"] = phase_loss_sr(torch)
     res["numerics"] = phase_loss_numerics(torch)

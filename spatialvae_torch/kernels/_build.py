@@ -2,8 +2,9 @@
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
 ``nvcc`` per source, all started together) and the objects are linked into
-one shared library with a plain C interface, loaded with ``ctypes``.  The
-build runs at first use (never at import: the CPU tests import every module
+one shared library with a plain C interface, loaded with ``ctypes``
+(a measurement copy may be built from a few of the sources, with ``-D``
+switches of their own).  The build runs at first use (never at import: the CPU tests import every module
 on a machine without ``nvcc``).  The library lands in ``kernels/_build/``
 keyed by a hash of the sources, headers and flags, so an edited source
 rebuilds and an unchanged one loads the cached file.  A failed build raises
@@ -20,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Optional
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -58,6 +60,11 @@ _SIGNATURES = {
     "svt_int8_decoder_bwd_scale": ([_P] * 11 + [_I] * 5 + [_P], _I),
     "svt_int8_decoder_bwd_grad": ([_P] * 17 + [_I] * 7 + [_P], _I),
     "svt_int8_grouped_dw": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    "svt_int8_90_fwd": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "svt_int8_90_scale": ([_P] * 11 + [_I] * 6 + [_P], _I),
+    "svt_int8_90_grad": ([_P] * 15 + [_I] * 7 + [_P], _I),
+    "svt_int8_90_stash_block": ([], _L),
+    "svt_int8_90_max_clusters": ([_I], _I),
     "svt_loss_int8_fwd": ([_P] * 13 + [_I] * 8 + [_F, _F, _I, _I, _P], _I),
     "svt_loss_int8_grad": ([_P] * 17 + [_I] * 7 + [_F, _F, _I, _F, _F, _I,
                                                     _I, _I, _P], _I),
@@ -83,8 +90,12 @@ _SIGNATURES = {
 }
 
 
-def sources() -> list:
-    return sorted(CSRC.glob("*.cu"))
+def sources(units: Optional[tuple] = None) -> list:
+    """The library's ``.cu`` files: every one, or those named in
+    ``units``."""
+    if units is None:
+        return sorted(CSRC.glob("*.cu"))
+    return sorted(CSRC / u for u in units)
 
 
 def headers() -> list:
@@ -104,9 +115,9 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(defines: tuple = ()) -> Path:
+def library_path(defines: tuple = (), units: Optional[tuple] = None) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
-    for src in sources() + headers():
+    for src in sources(units) + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"svt_kernels_{h.hexdigest()[:16]}.so"
@@ -124,12 +135,14 @@ def _run(procs) -> None:
         raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
 
 
-def build(defines: tuple = ()) -> Path:
+def build(defines: tuple = (), units: Optional[tuple] = None) -> Path:
     """Compile the sources unless the library for their hash exists.
     ``defines`` are extra ``-D`` flags: a copy with a precision step
     removed, for placing the kernels' error limits (``csrc/decoder_tile.cuh``,
-    ``csrc/int8_tile.cuh`` and ``csrc/probes.cu`` list them)."""
-    out = library_path(defines)
+    ``csrc/int8_tile.cuh`` and ``csrc/probes.cu`` list them), or a timing
+    copy (``csrc/fused_decoder_int8_sm90.cuh``); ``units`` the sources of a
+    partial library (default: all)."""
+    out = library_path(defines, units)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -138,7 +151,7 @@ def build(defines: tuple = ()) -> Path:
     # renamed: concurrent builds never load a half-written library
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
-        for src in sources():
+        for src in sources(units):
             obj = os.path.join(tmp, src.stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", obj, str(src)]
             objs.append(obj)
@@ -156,10 +169,14 @@ def build(defines: tuple = ()) -> Path:
 
 
 @functools.cache
-def load_library(defines: tuple = ()) -> ctypes.CDLL:
-    """The built kernel library with every entry point's C signature set."""
-    lib = ctypes.CDLL(str(build(defines)))
+def load_library(defines: tuple = (), units: Optional[tuple] = None
+                 ) -> ctypes.CDLL:
+    """The built kernel library with every entry point's C signature set (a
+    partial library's own entry points only)."""
+    lib = ctypes.CDLL(str(build(defines, units)))
     for name, (argtypes, restype) in _SIGNATURES.items():
+        if units is not None and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype

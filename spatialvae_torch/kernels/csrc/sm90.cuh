@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks of the cluster kernels in
-// fused_loss_int8_sm90.cu and fused_decoder_sm90.cu and of Adam's step
-// kernel in adam_sm90.cu: mbarriers, plain bulk loads and stores with an L2
+// fused_loss_int8_sm90.cu, fused_decoder_sm90.cu and
+// fused_decoder_int8_sm90.cuh and of Adam's step kernel in adam_sm90.cu:
+// mbarriers, plain bulk loads and stores with an L2
 // cache policy, bulk copies multicast into the shared memory of every CTA
 // of a thread block cluster, remote arrivals, and the warpgroup products
 // with both operands in shared memory: int8 `wgmma.mma_async ...
-// s32.s8.s8` (k32), TF32
-// `... f32.tf32.tf32` (k8) and bf16 `... f32.bf16.bf16` (k16), each m64n128.
+// s32.s8.s8` (k32; m64n128, and m64n64 for the int8 decoder's halves), TF32
+// `... f32.tf32.tf32` (k8) and bf16 `... f32.bf16.bf16` (k16), each m64n128;
+// and the int8 decoder's head, TF32 m64n8k8 with A in registers.
 // Raw PTX through inline asm, so the translation units need no CUTLASS or
 // CuTe header and build in seconds.
 //
@@ -226,6 +228,54 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
         "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// d (+)= A (64 x 32 int8) . B (64 x 32 int8)^T in s32, the half-width
+// product of the int8 decoder's cluster kernels: thread (warp w of the
+// group, lane 4g + t) holds d[4 nt + 2 h + e] = D[16 w + g + 8 h][8 nt + 2 t
+// + e], nt < 8.
+__device__ __forceinline__ void fence_operands(int (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// d (+)= A (64 x 8) . B (8 x 8)^T in TF32, A in registers, B (K-major) in
+// shared memory: the int8 decoder's head on the tensor cores.  d[2 h + e]
+// = D[16 w + g + 8 h][2 t + e]; a[0] holds A[16w + g][t], a[1] row + 8,
+// a[2] A[16w + g][t + 4], a[3] row + 8.
+__device__ __forceinline__ void fence_operands(float (&d)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void wgmma_tf32_n8_ra(float (&d)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate)
       : "memory");
 }
 

@@ -26,15 +26,23 @@ the two variants differ as the JAX ones do.
 ``decoder_tail_int8_reference`` and ``decoder_tail_int8_backward_reference``
 are the plain PyTorch versions, with the integer products done exactly
 (integer-valued float32, every partial sum below 2**24).  The wrappers run
-them for CPU tensors; CUDA tensors launch the kernels
-(``csrc/fused_decoder_int8.cu``) or raise.  Any hidden width runs: above 512
-the kernels keep each block's int8 tiles in a workspace in global memory
+them for CPU tensors; CUDA tensors launch the kernels or raise, on the
+passes ``int8_route`` names: at H <= 512 over pixel counts that are
+multiples of 256 (every call of ``fused_spatial_generator_int8``, which
+pads), the cluster passes of ``csrc/fused_decoder_int8_sm90.cu`` (W1q
+multicast to clusters of four CTAs, int8 wgmma, the packed a1, K5's dW1 on
+K3's cluster kernel ``svt_loss90_dw``), but for K4 without a1 on float32
+weights, where the block passes measured faster; otherwise, or when the
+caller names them (``passes``), the block passes of
+``csrc/fused_decoder_int8.cu``.  Any hidden width runs: above 512 the block
+kernels keep each block's int8 tiles in a workspace in global memory
 (``csrc/int8_tile.cuh``), which the wrappers allocate within
 ``workspace_budget``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -64,10 +72,21 @@ BLOCK_PIXELS = 64       # pixels per CUDA block (a group spans several)
 # Kernel launches on CUDA tensors, by kernel: the forward without and with
 # the a1 output, the backward's scale pass (each block's max |dh1|), its
 # gradient pass (quantisation, da0, dfold and bias partials, workspaces),
-# the split-K dW1 kernel and the fixed-order reductions.  The recompute
-# variant rebuilds a1 inside the two backward passes.
+# the split-K dW1 kernel and the fixed-order reductions.  The block passes'
+# recompute variant rebuilds a1 inside the two backward passes; the cluster
+# passes (``int8_route`` "sm90") count under their own keys, their
+# recompute scale pass rebuilding a1 into a stash the gradient pass reads.
 LAUNCHES = {"fwd": 0, "fwd_acts": 0, "bwd_scale": 0, "bwd_grad": 0,
-            "dw": 0, "sum": 0}
+            "dw": 0, "sum": 0, "fwd_sm90": 0, "fwd_acts_sm90": 0,
+            "bwd_scale_sm90": 0, "bwd_grad_sm90": 0, "dw_sm90": 0}
+
+# The cluster passes (csrc/fused_decoder_int8_sm90.cu): CLUSTER CTAs of one
+# 64-pixel block each, four consecutive blocks of one quantisation group;
+# every operand padded to CLUSTER_WIDTH hidden rows; W1q streamed in slabs
+# of SLAB_K K-bytes (K4: half slabs of CLUSTER_WIDTH // 2 rows).
+CLUSTER = 4
+CLUSTER_WIDTH = 512
+SLAB_K = 64
 
 
 def reset_launches() -> None:
@@ -82,6 +101,35 @@ def can_fuse_int8(cfg: SpatialGeneratorConfig, hw: int) -> bool:
     return (not cfg.expand_coords and not cfg.bilinear and not cfg.resid
             and cfg.num_layers == 2 and cfg.n_out <= 8 and hw >= 256
             and cfg.activation == "tanh")
+
+
+def int8_route(hw: int, h: int, passes: Optional[str] = None,
+               k4_alone_f32: bool = False) -> str:
+    """The passes a K4 or K5 call runs on the card.  The cluster passes
+    ("sm90") take H <= CLUSTER_WIDTH over pixel counts that are multiples
+    of 256 (so every quantisation group, ``pick_tile(hw)`` pixels, is too,
+    and a cluster's four blocks lie in one); the block passes ("block")
+    every other shape.  Where both fit, the table follows the H100's A/B
+    turns: the cluster passes for K4 with a1 and for K5 (either variant,
+    as one call: the recompute scale pass leaves the a1 stash its gradient
+    pass reads), and for K4 without a1 on bf16 weights; the block passes
+    for K4 without a1 on float32 weights (``k4_alone_f32``), which they ran
+    4-8% faster on the H100 at every batch timed (``PERF.md`` §6; the
+    cluster pass's head takes three TF32 products for f32 weights, one for
+    bf16).  ``passes`` ("sm90" or "block") names the passes instead (the
+    A/B turns and the card tests); the cluster passes refuse a shape they
+    do not fit, and so do their entry points."""
+    fits = h <= CLUSTER_WIDTH and hw % (CLUSTER * BLOCK_PIXELS) == 0
+    if passes not in (None, "sm90", "block"):
+        raise ValueError(f"passes must be None, 'sm90' or 'block', got "
+                         f"{passes!r}")
+    if passes == "sm90" and not fits:
+        raise ValueError(f"the cluster passes take H <= {CLUSTER_WIDTH} and "
+                         f"HW a multiple of {CLUSTER * BLOCK_PIXELS}, got "
+                         f"H={h}, HW={hw}")
+    if passes is not None:
+        return passes
+    return "sm90" if fits and not k4_alone_f32 else "block"
 
 
 def pick_tile(hw: int) -> int:
@@ -238,31 +286,105 @@ def pad_square(q: torch.Tensor) -> torch.Tensor:
 class Int8Weights:
     """The int8 decoder's weights, checked and quantised once: w1 (H, H)
     [in][out], b1 (H,), wht (No, H), bht (No,), one float dtype, on one
-    device.  ``w1q``, ``sw`` = ``quant_sym(w1)``; ``kernel_args()`` builds
-    the launch copies on first use: W1q^T and W1q zero-padded to (Kp, Kp)
-    int8 (the forward reads rows of W1q^T, the backward rows of W1q), and
-    b1, wht, bht in f32 (widening bf16 is exact)."""
+    device.  ``w1q``, ``sw`` = ``quant_sym(w1)``.  The launch copies are
+    built on first use, each route's own: ``operands()`` sw (1,) and b1,
+    wht, bht in f32 (widening bf16 is exact), for both routes;
+    ``kernel_args()`` adds the block passes' W1q^T and W1q zero-padded to
+    (Kp, Kp) int8 (the forward reads rows of W1q^T, the backward rows of
+    W1q); ``half_slabs90()`` and ``slabs90()`` the cluster passes' W1q
+    streams."""
 
     def __init__(self, w1, b1, wht, bht):
         _check_weights(w1, b1, wht, bht)
         self.w1, self.b1, self.wht, self.bht = (
             t.detach() for t in (w1, b1, wht, bht))
         self.w1q, self.sw = quant_sym(self.w1)
-        self._kernel_args = None
+        self._cache = {}
 
     @property
     def bf16(self) -> bool:
         return self.w1.dtype == torch.bfloat16
 
+    def _once(self, key, make):
+        if key not in self._cache:
+            self._cache[key] = make()
+        return self._cache[key]
+
+    def operands(self) -> tuple:
+        """(sw (1,), b1, wht, bht), f32, contiguous on the device."""
+        return self._once("operands", lambda: (
+            self.sw.reshape(1).contiguous(),
+            *(t.float().contiguous() for t in (self.b1, self.wht,
+                                               self.bht))))
+
     def kernel_args(self) -> tuple:
-        """(w1qT, w1q, sw (1,), b1, wht, bht), contiguous on the device."""
-        if self._kernel_args is None:
-            self._kernel_args = (
-                pad_square(self.w1q.T), pad_square(self.w1q),
-                self.sw.reshape(1).contiguous(),
-                *(t.float().contiguous()
-                  for t in (self.b1, self.wht, self.bht)))
-        return self._kernel_args
+        """(w1qT, w1q, sw (1,), b1, wht, bht), contiguous on the device: the
+        block passes' launch copies."""
+        return self._once("block", lambda: (
+            pad_square(self.w1q.T), pad_square(self.w1q), *self.operands()))
+
+    def half_slabs90(self) -> torch.Tensor:
+        """W1q^T's half slabs (``half_slabs90``): K4 and the recompute
+        scale pass on the cluster passes."""
+        return self._once("half", lambda: half_slabs90(self.w1q.T))
+
+    def slabs90(self) -> torch.Tensor:
+        """W1q's slabs in K3's layout (``fused_loss_int8.sm90_slabs``):
+        K5's da0 on the cluster passes."""
+        return self._once("full", lambda: _laid_out(self.w1q, "full"))
+
+
+def _layout90(p: torch.Tensor, kind: str) -> torch.Tensor:
+    """The cluster passes' slab streams of a (CLUSTER_WIDTH, Kp) matrix of
+    rows [n][k]: "half", K4's half slabs (``half_slabs90``); "full", K3's
+    whole slabs (``fused_loss_int8.sm90_slabs``)."""
+    from spatialvae_torch.kernels.fused_decoder import _swizzle64
+
+    kp = p.shape[1]
+    if kind == "half":
+        t = p.reshape(4, 2, 64, kp).transpose(0, 1).reshape(2, 256, kp)
+        t = t.reshape(2, 256, kp // SLAB_K, 4, 16).permute(0, 2, 1, 3, 4)
+    else:
+        t = p.reshape(CLUSTER_WIDTH, kp // SLAB_K, 4, 16).transpose(0, 1)
+    return _swizzle64(t.contiguous()).reshape(-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _layout_index(kind: str, kp: int, device: torch.device) -> torch.Tensor:
+    """``_layout90`` of the flat positions of a (CLUSTER_WIDTH, Kp)
+    matrix: the stream as one gather, so that a weight laid out on every
+    call (the evaluation decodes fresh bf16 copies of the masters) costs
+    two small kernels, not a score of them."""
+    pos = torch.arange(CLUSTER_WIDTH * kp, device=device)
+    return _layout90(pos.reshape(CLUSTER_WIDTH, kp), kind)
+
+
+def _laid_out(w: torch.Tensor, kind: str) -> torch.Tensor:
+    """w (H, H) int8 rows [n][k], zero-padded to (CLUSTER_WIDTH, Kp) and
+    laid out as ``_layout90`` lays it out, through the cached gather."""
+    kp = padded_hidden(w.shape[1])
+    p = F.pad(w, (0, kp - w.shape[1], 0, CLUSTER_WIDTH - w.shape[0]))
+    return p.reshape(-1)[_layout_index(kind, kp, p.device)]
+
+
+def half_slabs90(w: torch.Tensor) -> torch.Tensor:
+    """An (H, H) int8 matrix given as rows [n][k] (K4 takes W1q^T) -> the
+    forward cluster pass's stream of half slabs: zero-padded to
+    (CLUSTER_WIDTH, Kp); half hf holds rows 128 wg + 64 hf + r (the columns
+    of the m64n64 product of warpgroup wg), as row 64 wg + r; the stream is
+    half 0's Kp/SLAB_K slabs, then half 1's, each (256, SLAB_K) in wgmma's
+    64-byte swizzled K-major layout.  One contiguous (Kp * CLUSTER_WIDTH,)
+    int8 tensor: a quarter of a half slab is one bulk copy."""
+    return _laid_out(w, "half")
+
+
+def workspace90_bytes(hw: int, recompute: bool) -> int:
+    """Bytes of the cluster K5's workspaces per image: the dW1 operands a0q
+    and dh1q (CLUSTER_WIDTH, HW) int8 each in ``svt_loss90_dw``'s layout,
+    and with recompute the scale pass's f32 a1 stash, 64 pixels x
+    CLUSTER_WIDTH per block."""
+    stash = hw * CLUSTER_WIDTH * 4 if recompute else 0
+    return 2 * CLUSTER_WIDTH * hw + stash
 
 
 def _check_inputs(fold, coords, w: Int8Weights) -> None:
@@ -288,11 +410,13 @@ def _check_inputs(fold, coords, w: Int8Weights) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_int8_tail(fold, coords, w: Int8Weights, emit_a1: bool = False):
+def run_int8_tail(fold, coords, w: Int8Weights, emit_a1: bool = False,
+                  passes: Optional[str] = None):
     """K4: y (B, No, HW) f32, and with ``emit_a1`` the bf16 residual a1
     (B, HW, H).  CPU tensors take ``decoder_tail_int8_reference``; CUDA
-    tensors launch the kernel and count it in ``LAUNCHES["fwd"]`` or
-    ``["fwd_acts"]``."""
+    tensors launch the kernel on the passes ``int8_route`` names (or
+    ``passes``) and count it in ``LAUNCHES["fwd"]`` or ``["fwd_acts"]``
+    (``"_sm90"`` on the cluster passes)."""
     _check_inputs(fold, coords, w)
     if fold.device.type == "cpu":
         return decoder_tail_int8_reference(fold, coords, w.w1q, w.sw, w.b1,
@@ -304,6 +428,17 @@ def run_int8_tail(fold, coords, w: Int8Weights, emit_a1: bool = False):
     y = torch.empty((b, no, hw), dtype=torch.float32, device=dev)
     a1 = (torch.empty((b, hw, h), dtype=torch.bfloat16, device=dev)
           if emit_a1 else None)
+    route = int8_route(hw, h, passes,
+                       k4_alone_f32=not emit_a1 and not w.bf16)
+    if route == "sm90":
+        sw, b1, wht, bht = w.operands()
+        with torch.cuda.device(dev):
+            _call(lib, "svt_int8_90_fwd", fold.data_ptr(), coords.data_ptr(),
+                  w.half_slabs90().data_ptr(), sw.data_ptr(), b1.data_ptr(),
+                  wht.data_ptr(), bht.data_ptr(), y.data_ptr(), ptr(a1), b,
+                  hw, h, no, int(w.bf16), _stream(fold))
+            LAUNCHES["fwd_acts_sm90" if emit_a1 else "fwd_sm90"] += 1
+        return (y, a1) if emit_a1 else y
     w1qt, _, sw, b1, wht, bht = w.kernel_args()
     blocks = -(-hw // BLOCK_PIXELS)
     ws, chunks = wide_workspace(lib, b, blocks, h, dev)
@@ -368,19 +503,23 @@ def run_grouped_dw(lib, aq_ws, q_ws, gscale, part_dw, nimg, hwp, h, pt_grp,
 
 def run_int8_tail_backward(fold, coords, w: Int8Weights,
                            a1: Optional[torch.Tensor], y, g,
-                           workspace_bytes: Optional[int] = None):
+                           workspace_bytes: Optional[int] = None,
+                           passes: Optional[str] = None):
     """K5, with the outputs of ``decoder_tail_int8_backward_reference``:
-    that function for CPU tensors, the kernels for CUDA tensors.  ``a1`` is
-    the forward's bf16 residual or None (the kernels rebuild a1 in f32).
+    that function for CPU tensors, the kernels for CUDA tensors, on the
+    passes ``int8_route`` names (or ``passes``).  ``a1`` is the forward's bf16 residual or
+    None (the kernels rebuild a1 in f32).
 
     On the card: a scale pass writes each 64-pixel block's max |dh1|; a
     gradient pass takes each group's scale from its blocks' maxima,
     quantises dh1, runs da0 on the int8 tensor cores, writes the per-block
     partials of dfold, db1, dWh^T and dbh and the int8 a0q and dh1q to
-    feature-major workspaces; a split-K kernel computes dW1 group by group
-    from them; fixed-order reductions add the partials.  Images go through
-    the workspaces in chunks that fit ``workspace_bytes`` (default
-    ``workspace_budget``)."""
+    workspaces; a split-K kernel computes dW1 group by group from them;
+    fixed-order reductions add the partials.  Images go through the
+    workspaces in chunks that fit ``workspace_bytes`` (default
+    ``workspace_budget``).  On the cluster passes (``_backward90``) the
+    recompute scale pass leaves a1 in a stash for the gradient pass, chunk
+    by chunk."""
     _check_inputs(fold, coords, w)
     if fold.device.type == "cpu":
         return decoder_tail_int8_backward_reference(
@@ -399,17 +538,19 @@ def run_int8_tail_backward(fold, coords, w: Int8Weights,
                            or not a1.is_contiguous()):
         raise ValueError("a1 must be the contiguous bf16 (B, HW, H) "
                          "residual")
-    w1qt, w1q, sw, b1, wht, bht = w.kernel_args()
     g = g.float().contiguous()
     y = y.contiguous()
+    budget = workspace_budget(dev) if workspace_bytes is None \
+        else workspace_bytes
+    if int8_route(hw, h, passes) == "sm90":
+        return _backward90(lib, fold, coords, w, a1, y, g, budget)
+    w1qt, w1q, sw, b1, wht, bht = w.kernel_args()
     f32 = dict(dtype=torch.float32, device=dev)
     mw = h + no * h + no                          # [db1 | dWh^T | dbh]
     part_max = torch.empty((b * blocks,), **f32)
     gscale = torch.empty((b * gpi,), **f32)
     part_fold = torch.empty((b * blocks, 3, h), **f32)
     part_w = torch.empty((b * blocks, mw), **f32)
-    budget = workspace_budget(dev) if workspace_bytes is None \
-        else workspace_bytes
     block = lib.svt_int8_ws_block(h)               # the wide tiles
     chunks = image_chunks(b, 2 * kp * hwp + blocks * block, budget)
     bc = chunks[0][1]
@@ -447,20 +588,116 @@ def run_int8_tail_backward(fold, coords, w: Int8Weights,
             split0 += run_grouped_dw(lib, aq_ws, q_ws, gscale[b0 * gpi:],
                                      part_dw[split0:], n, hwp, h, pt, gpi, st)
             LAUNCHES["dw"] += 1
-        dfold = torch.zeros((b, 4, h), **f32)
-        dw1 = torch.empty((h, h), **f32)
-        sums = torch.empty((mw,), **f32)
-        stage = torch.empty((-(-b * blocks // 64), mw), **f32)
-        for src, dst, rows, total, m, stride in (
-                (part_fold, dfold, blocks, b * blocks, 3 * h, 4 * h),
-                (part_dw, dw1, split0, split0, h * h, 0),
-                (part_w, stage, 64, b * blocks, mw, mw),
-                (stage, sums, stage.shape[0], stage.shape[0], mw, 0)):
-            _call(lib, "svt_sum_rows", src.data_ptr(), dst.data_ptr(), rows,
-                  total, m, stride, st)
-            LAUNCHES["sum"] += 1
+        return _sum_partials(lib, st, part_fold, part_dw, split0, part_w,
+                             b, blocks, h, no)
+
+
+def _sum_partials(lib, st, part_fold, part_dw, splits, part_w, b, blocks, h,
+                  no) -> tuple:
+    """K5's fixed-order reductions of its per-block partials (dfold, db1,
+    dWh^T, dbh) and dW1's split partials: (dfold, dW1, db1, dWh^T, dbh)."""
+    f32 = dict(dtype=torch.float32, device=part_w.device)
+    mw = h + no * h + no
+    dfold = torch.zeros((b, 4, h), **f32)
+    dw1 = torch.empty((h, h), **f32)
+    sums = torch.empty((mw,), **f32)
+    stage = torch.empty((-(-b * blocks // 64), mw), **f32)
+    for src, dst, rows, total, m, stride in (
+            (part_fold, dfold, blocks, b * blocks, 3 * h, 4 * h),
+            (part_dw, dw1, splits, splits, h * h, 0),
+            (part_w, stage, 64, b * blocks, mw, mw),
+            (stage, sums, stage.shape[0], stage.shape[0], mw, 0)):
+        _call(lib, "svt_sum_rows", src.data_ptr(), dst.data_ptr(), rows,
+              total, m, stride, st)
+        LAUNCHES["sum"] += 1
     return (dfold, dw1, sums[:h], sums[h:h + no * h].view(no, h),
             sums[h + no * h:])
+
+
+def workspace90_chunks(b: int, hw: int, recompute: bool,
+                       budget: int) -> list:
+    """[(first image, images)] of the cluster K5's chunks: each chunk's
+    workspaces (``workspace90_bytes`` per image) within ``budget``."""
+    return image_chunks(b, workspace90_bytes(hw, recompute), budget)
+
+
+def _backward90(lib, fold, coords, w: Int8Weights, a1, y, g,
+                budget: int) -> tuple:
+    """K5 on the cluster passes (``csrc/fused_decoder_int8_sm90.cu``): the
+    scale pass (from the residual, one launch over every image; with
+    recompute, per chunk, on the forward's cluster machinery, leaving a1 in
+    the chunk's stash), the gradient pass per chunk, and per chunk dW1 on
+    K3's cluster kernel (``svt_loss90_dw``, groups of ``pick_tile(HW)``
+    pixels), then the fixed-order sums."""
+    from spatialvae_torch.kernels.fused_loss_int8 import dw_splits90
+
+    dev = fold.device
+    b, _, h = fold.shape
+    hw, no = coords.shape[0], w.wht.shape[0]
+    pt = pick_tile(hw)
+    gpi = hw // pt
+    blocks = hw // BLOCK_PIXELS
+    sw, b1, wht, _ = w.operands()
+    hslabs = w.half_slabs90() if a1 is None else None
+    slabs = w.slabs90()
+    f32 = dict(dtype=torch.float32, device=dev)
+    mw = h + no * h + no
+    part_max = torch.empty((b * blocks,), **f32)
+    gscale = torch.empty((b * gpi,), **f32)
+    part_fold = torch.empty((b * blocks, 3, h), **f32)
+    part_w = torch.empty((b * blocks, mw), **f32)
+    recompute = a1 is None
+    chunks = workspace90_chunks(b, hw, recompute, budget)
+    bc = chunks[0][1]
+    aq_ws = torch.empty((bc * hw * CLUSTER_WIDTH,), dtype=torch.int8,
+                        device=dev)
+    q_ws = torch.empty_like(aq_ws)
+    stash = (torch.empty((bc * hw * CLUSTER_WIDTH,), **f32) if recompute
+             else None)
+    part_dw = torch.empty((sum(dw_splits90(n * gpi) for _, n in chunks), h,
+                           h), **f32)
+    bf16 = int(w.bf16)
+    with torch.cuda.device(dev):
+        st = _stream(fold)
+
+        def scale(b0, n):
+            _call(lib, "svt_int8_90_scale", fold.data_ptr(),
+                  coords.data_ptr(), ptr(hslabs), sw.data_ptr(),
+                  b1.data_ptr(), wht.data_ptr(), ptr(a1), y.data_ptr(),
+                  g.data_ptr(), part_max.data_ptr(), ptr(stash), b0, n, hw,
+                  h, no, bf16, st)
+            LAUNCHES["bwd_scale_sm90"] += 1
+
+        if not recompute:
+            scale(0, b)
+        split0 = 0
+        for b0, n in chunks:
+            if recompute:
+                scale(b0, n)
+            _call(lib, "svt_int8_90_grad", fold.data_ptr(),
+                  coords.data_ptr(), slabs.data_ptr(), sw.data_ptr(),
+                  wht.data_ptr(), ptr(a1), ptr(stash), y.data_ptr(),
+                  g.data_ptr(), part_max.data_ptr(), gscale.data_ptr(),
+                  aq_ws.data_ptr(), q_ws.data_ptr(), part_fold.data_ptr(),
+                  part_w.data_ptr(), b0, n, hw, h, no, pt, bf16, st)
+            LAUNCHES["bwd_grad_sm90"] += 1
+            splits = dw_splits90(n * gpi)
+            _call(lib, "svt_loss90_dw", aq_ws.data_ptr(), q_ws.data_ptr(),
+                  gscale[b0 * gpi:].data_ptr(), part_dw[split0:].data_ptr(),
+                  n, hw, h, pt, splits, st)
+            LAUNCHES["dw_sm90"] += 1
+            split0 += splits
+        return _sum_partials(lib, st, part_fold, part_dw, split0, part_w, b,
+                             blocks, h, no)
+
+
+def sm90_max_clusters() -> dict:
+    """The clusters of CLUSTER CTAs the card holds at once for each of the
+    cluster passes' kernels (cudaOccupancyMaxActiveClusters)."""
+    lib = _lib()
+    names = ("fwd_bf16", "fwd_f32", "fwd_a1", "scale_recompute",
+             "grad_residual", "grad_recompute")
+    return {k: lib.svt_int8_90_max_clusters(i) for i, k in enumerate(names)}
 
 
 # ---------------------------------------------------------------------------

@@ -603,8 +603,12 @@ def test_int8_tail_matches_plain_version(case, cuda_device):
             for u, v, x in zip(got, again, want):
                 assert torch.equal(u, v)
                 _assert_rel(u, x, INT8_TOL)
-    assert d8.LAUNCHES["fwd"] == d8.LAUNCHES["fwd_acts"] == 1
-    assert d8.LAUNCHES["bwd_scale"] == d8.LAUNCHES["bwd_grad"] == 4
+    sfx = "_sm90" if d8.int8_route(hw, h) == "sm90" else ""
+    alone = d8.int8_route(hw, h, k4_alone_f32=wdt == torch.float32)
+    assert d8.LAUNCHES["fwd" + ("_sm90" if alone == "sm90" else "")] == 1
+    assert d8.LAUNCHES["fwd_acts" + sfx] == 1
+    assert (d8.LAUNCHES["bwd_scale" + sfx] == d8.LAUNCHES["bwd_grad" + sfx]
+            == 4)
 
 
 @pytest.mark.parametrize("case", [(6, 4096, 500, 3, torch.bfloat16, True),
@@ -755,8 +759,9 @@ def test_family_training_step_on_the_card(name, cuda_device):
     sfx = "" if name == "colored" else "_sm90"
     assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0), "fwd" + sfx: 1,
                            "grad" + sfx: 1, "dw" + sfx: 1, "sum": 5}
-    assert d8.LAUNCHES == {"fwd": 0, "fwd_acts": 1, "bwd_scale": 1,
-                           "bwd_grad": 1, "dw": 1, "sum": 4}
+    assert d8.LAUNCHES == {**dict.fromkeys(d8.LAUNCHES, 0),
+                           "fwd_acts_sm90": 1, "bwd_scale_sm90": 1,
+                           "bwd_grad_sm90": 1, "dw_sm90": 1, "sum": 4}
     assert tr.opt_state.count == 2
 
 
@@ -787,8 +792,9 @@ def test_int8_training_step_on_the_card(cuda_device):
     assert torch.isfinite(tr.train_step(y[:5])).all()
     assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0), "fwd_sm90": 1,
                            "grad_sm90": 1, "dw_sm90": 1, "sum": 5}
-    assert d8.LAUNCHES == {"fwd": 0, "fwd_acts": 1, "bwd_scale": 1,
-                           "bwd_grad": 1, "dw": 1, "sum": 4}
+    assert d8.LAUNCHES == {**dict.fromkeys(d8.LAUNCHES, 0),
+                           "fwd_acts_sm90": 1, "bwd_scale_sm90": 1,
+                           "bwd_grad_sm90": 1, "dw_sm90": 1, "sum": 4}
     assert tr.opt_state.count == 2
 
 
@@ -1153,6 +1159,148 @@ def test_k3_cluster_passes_match_plain_and_block(case, cuda_device):
     assert torch.equal(aq, aq_p) and torch.equal(aq, aq7)
     assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
     assert (qi != qi7).float().mean().item() <= INT_MISMATCH
+
+
+# K4 and K5's cluster passes (csrc/fused_decoder_int8_sm90.cu): (B, HW, H,
+# No, weight dtype): the galaxy batch, three images (fewer quads than
+# resident clusters) and the odd tail, f32 weights, 28x28
+# and 65x65 padded (groups of 1,024 and 256 pixels), narrow widths, eight
+# outputs
+INT8_90_CASES = [(6, 4096, 500, 3, torch.bfloat16),
+                 (3, 4096, 500, 3, torch.bfloat16),
+                 (37, 4096, 500, 3, torch.bfloat16),
+                 (5, 4096, 500, 3, torch.float32),
+                 (3, 1024, 96, 1, torch.bfloat16),
+                 (3, 4352, 130, 8, torch.float32),
+                 (2, 4096, 512, 2, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("case", INT8_90_CASES, ids=lambda c: "-".join(
+    map(str, c[:4])) + f"-{str(c[4])[6:]}")
+def test_int8_cluster_passes_match_plain_and_block(case, cuda_device):
+    """K4 (y, and a1 emitted packed) and K5 with the residual and with
+    recompute on the cluster passes against the plain versions and the
+    block passes within the int8 limits; two runs bit for bit, the
+    chunked backward (one image per chunk) within 1e-6; each design counted
+    under its own keys."""
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    b, hw, h, no, wdt = case
+    assert d8.int8_route(hw, h) == "sm90"
+    assert d8.int8_route(hw, h, k4_alone_f32=wdt == torch.float32) == (
+        "block" if wdt == torch.float32 else "sm90")
+    fold, coords, ws = _int8_inputs(b, hw, h, no, wdt, cuda_device)
+    # 65x65 zero-padded to 4,352 pixels, as fused_spatial_generator_int8
+    # pads it
+    coords = torch.nn.functional.pad(
+        coords, (0, 0, 0, hw - coords.shape[0])).contiguous()
+    g = torch.randn((b, no, hw), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    w = d8.Int8Weights(*ws)
+    ref = (w.w1q, w.sw, w.b1, w.wht)
+    d8.reset_launches()
+    with torch.no_grad():
+        y, a1 = d8.run_int8_tail(fold, coords, w, emit_a1=True)
+        y0 = d8.run_int8_tail(fold, coords, w, passes="sm90")
+        y_ref, a1_ref = d8.decoder_tail_int8_reference(
+            fold, coords, *ref, w.bht, return_a1=True)
+        yb, a1b = d8.run_int8_tail(fold, coords, w, emit_a1=True,
+                                   passes="block")
+        for got, want, tol in ((y, y_ref, INT8_Y_TOL), (y0, y_ref, INT8_Y_TOL),
+                               (a1, a1_ref, INT8_A1_TOL), (y, yb, INT8_Y_TOL),
+                               (a1, a1b, INT8_A1_TOL)):
+            d = (got.float() - want.float()).abs()
+            assert d.max().item() <= tol[0] and d.mean().item() <= tol[1]
+        assert torch.equal(y, y0)
+        for a in (a1, None):
+            got = d8.run_int8_tail_backward(fold, coords, w, a, y, g)
+            again = d8.run_int8_tail_backward(fold, coords, w, a, y, g)
+            chunked = d8.run_int8_tail_backward(fold, coords, w, a, y, g,
+                                                workspace_bytes=1)
+            old = d8.run_int8_tail_backward(fold, coords, w, a, y, g,
+                                            passes="block")
+            want = d8.decoder_tail_int8_backward_reference(
+                fold, coords, *ref, a, y, g)
+            for u, v, c, o, x in zip(got, again, chunked, old, want):
+                assert torch.equal(u, v)
+                _assert_rel(c, u, (1e-6, 1e-7))
+                _assert_rel(u, x, INT8_TOL)
+                _assert_rel(u, o, INT8_TOL)
+            assert not got[0][:, 3].any()
+    # per variant two calls and the chunked one (b chunks) on the cluster
+    # passes: the residual's scale pass one launch a call, recompute's one
+    # a chunk; one call on the block passes
+    assert d8.LAUNCHES == {
+        **dict.fromkeys(d8.LAUNCHES, 0), "fwd_sm90": 1, "fwd_acts_sm90": 1,
+        "fwd_acts": 1, "bwd_scale": 2, "bwd_grad": 2, "dw": 2,
+        "bwd_scale_sm90": 3 + (2 + b), "bwd_grad_sm90": 2 * (2 + b),
+        "dw_sm90": 2 * (2 + b), "sum": 4 * 8}
+
+
+def test_int8_cluster_kernels_are_resident(cuda_device):
+    """The card holds resident clusters of every cluster kernel of K4 and
+    K5, and the entry points refuse a call the route table would not send
+    them."""
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    assert min(d8.sm90_max_clusters().values()) >= 1
+    fold, coords, ws = _int8_inputs(2, 4096, 500, 3, torch.bfloat16,
+                                    cuda_device)
+    # 4,160 pixels: not a multiple of 256
+    coords = torch.nn.functional.pad(coords, (0, 0, 0, 64)).contiguous()
+    assert d8.int8_route(coords.shape[0], 500) == "block"
+    with pytest.raises(ValueError):
+        d8.run_int8_tail(fold, coords, d8.Int8Weights(*ws), passes="sm90")
+
+
+@pytest.mark.parametrize("passes", [None, "sm90", "block"])
+def test_int8_evaluation_follows_the_step(passes, cuda_device, monkeypatch):
+    """An int8 trainer with float32 compute (the default) evaluates its own
+    parameters through K4 alone, and its step kernel writes them in place
+    through raw pointers: after a step the evaluation's decode is the plain
+    version's on the updated weights (on the card, from the same pose
+    fold), on the table's passes and on each design."""
+    import functools
+
+    from spatialvae_torch.config import InferenceConfig
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.objectives import ElboConfig
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+
+    q_cfg = InferenceConfig(n=64 * 64 * 3, latent_dim=23, hidden_dim=256,
+                            num_layers=2)
+    p_cfg = SpatialGeneratorConfig(latent_dim=20, hidden_dim=500, n_out=3,
+                                   num_layers=2)
+    tr = Trainer(q_cfg, p_cfg, ElboConfig(fused=True, int8=True, channels=3),
+                 TrainConfig(minibatch_size=8, learning_rate=1e-2),
+                 coord_grid(64, 64, device=cuda_device), device=cuda_device)
+    if passes is not None:
+        monkeypatch.setattr(d8, "run_int8_tail", functools.partial(
+            d8.run_int8_tail, passes=passes))
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    y = torch.rand((8, 4096, 3), device=cuda_device, generator=gen)
+    theta = torch.randn((8,), device=cuda_device, generator=gen)
+    dx = 0.1 * torch.randn((8, 2), device=cuda_device, generator=gen)
+    z = torch.randn((8, 20), device=cuda_device, generator=gen)
+
+    def decode(net):
+        with torch.no_grad():
+            return d8.fused_spatial_generator_int8(net, tr.coords, theta, dx,
+                                                   z)
+
+    def plain(fold, coords, w, emit_a1=False, passes=None):
+        return d8.decoder_tail_int8_reference(fold, coords, w.w1q, w.sw,
+                                              w.b1, w.wht, w.bht, emit_a1)
+
+    before = decode(tr.p_net)
+    assert torch.isfinite(tr.train_step(y)).all()
+    after = decode(tr.p_net)
+    monkeypatch.setattr(d8, "run_int8_tail", plain)
+    want = decode(tr.p_net)
+    assert (before - want).abs().max().item() > 10 * INT8_Y_TOL[0]
+    d = (after - want).abs()
+    assert d.max().item() <= INT8_Y_TOL[0]
+    assert d.mean().item() <= INT8_Y_TOL[1]
 
 
 def test_k3_cluster_pieces_are_exact(cuda_device):
