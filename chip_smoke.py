@@ -106,14 +106,16 @@ paths:
   within limits), its ms at the defaults, bound and library ms, and the
   backward and loss runs' passes from one traced call each.
 
-K3's default-mode calls (the bench configuration and the Gaussian and padded
-families at the default numerics, H <= 512) run the cluster passes of
-``csrc/fused_loss_int8_sm90.cu``; ``[k3_sm90]`` holds their pieces alone
-(the a0 chain's thresholds at all 2^32 inputs, the product on the cluster
-ring word for word, the resident clusters), and ``[kernel_loss_int8]``,
-``[kernel_bench]`` (T1's fused-loss at B=2,048 and its traced passes) and
-``[train_int8_bench]`` (B=4,096) time them in turns with the block passes
-(``run_loss_int8(..., block_passes=True)``: block, cluster, cluster, block).
+K3's default-mode calls (the bench configuration and the Gaussian, colored
+and padded families at the default numerics, H <= 512) run the cluster
+passes of ``csrc/fused_loss_int8_sm90.cu``; ``[k3_sm90]`` holds their
+pieces alone (the a0 chain's thresholds at all 2^32 inputs, the product on
+the cluster ring word for word, the resident clusters), and
+``[kernel_loss_int8]``, ``[kernel_loss_families]``, ``[kernel_bench]``
+(T1's fused-loss at B=2,048 and its traced passes), ``[train_int8_bench]``
+and ``[train_colored_int8_bench]`` (B=4,096: bench.py's galaxy and colored
+steps) time them in turns with the block passes (``run_loss_int8(...,
+block_passes=True)``: block, cluster, cluster, block).
 
 Each phase prints its lines; the last three lines are the per-kernel JSON
 record (launches on the main path, times, plain-version time, bound,
@@ -124,7 +126,8 @@ numerics`` only those of K3's modes, levers and K8 (SR drawing the gradient
 site's words from the forward site's stream, SR with u = 0, db1 from the
 pre-round q, the Pade lever on the exact tanh, A1Q at a per-block scale);
 ``--limits k3`` only K3's readings on the cluster passes and on the block
-passes (rounding toward zero, a scale per 64-pixel block); ``--limits
+passes (rounding toward zero, a scale per 64-pixel block, the cluster
+passes' colored pairs formed with the wrong partner); ``--limits
 wide`` those of the wide path (its ragged last chunk skipped,
 one TF32 pass); ``--limits probes`` those of the probe kernels (the
 last k slab dropped, the int16 store wrapping, a 4 x 4 byte transpose with
@@ -304,12 +307,15 @@ def ptxas_report(started, serialized=None) -> list:
             serialized.setdefault(key, []).append(m.group(1))
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
+            # K3's: <bf16 or f32[, colored]>
             name = re.sub(r".*(loss_fwd90|loss_grad90|grouped_dw90|"
                           r"tile_product90|chain_check90)_kernel"
-                          r"(IL(b[01]))?.*",
+                          r"(IL(b[01])E(Lb([01])E)?)?.*",
                           lambda k: k.group(1) + (
-                              "<bf16>" if k.group(3) == "b1" else "<f32>"
-                              if k.group(3) == "b0" else ""), m.group(1))
+                              "" if k.group(3) is None else
+                              "<" + ("bf16" if k.group(3) == "b1" else "f32")
+                              + (",colored" if k.group(5) == "1" else "")
+                              + ">"), m.group(1))
             # K1/K2's cluster kernels: <BF16, RESID, EMIT or ACT_BF16>
             k = re.search(r"(dec_fwd90|dec_chain90|dec_dw90|int8_fwd90|"
                           r"int8_grad90|int8_scale90)"
@@ -1312,8 +1318,9 @@ def _loss_readings(torch, args, mask, family, timed, nm=None,
     quantised tiles' disagreements (the forward site's count, the gradient
     site's share), and with ``timed`` the kernel's and the plain version's
     ms.  A call that the cluster passes take is also held to the block
-    passes ("vs_block": each output's errors, the tiles' disagreements)
-    and, with ``timed``, timed in turns with them ("ms_block", "turns")."""
+    passes ("vs_block": each output's errors, the tiles' disagreements;
+    "block": the block passes' own errors against the plain version) and,
+    with ``timed``, timed in turns with them ("ms_block", "turns")."""
     from spatialvae_torch.kernels import fused_loss_int8 as l8
     from spatialvae_torch.kernels.config import Numerics
 
@@ -1334,7 +1341,7 @@ def _loss_readings(torch, args, mask, family, timed, nm=None,
             if u.shape != v.shape:
                 raise AssertionError(f"K3 {name}: shape {tuple(u.shape)}")
             out[name] = rel_errors(u, v)
-        del again, want
+        del again
         (_, (aq, qi)) = run(ints=True)
         _, (aq_p, qi_p) = l8.loss_int8_reference(*args, mask, family, nm,
                                                  ints=True)
@@ -1352,8 +1359,11 @@ def _loss_readings(torch, args, mask, family, timed, nm=None,
                 ("loss",) + INT8_GRADS,
                 (got[0][:, 3, 0],) + tuple(got), (old[0][:, 3, 0],)
                 + tuple(old))})
+            out["block"] = {n: rel_errors(u, v) for n, u, v in zip(
+                ("loss",) + INT8_GRADS, (old[0][:, 3, 0],) + tuple(old),
+                (want[0][:, 3, 0],) + tuple(want))}
             del old, aq7, qi7
-        del got, aq, qi
+        del got, want, aq, qi
         if timed:
             out["ms"], out["plain_ms"] = _timed(
                 torch, run,
@@ -1523,7 +1533,8 @@ def _k5_bound(b: int) -> tuple:
 def _log_ab(r) -> dict:
     """The A/B fields of a K3 reading on the cluster passes: the block
     passes' ms, every turn's ms, the largest cluster-vs-block error relative to
-    max|block| and the tiles' disagreements (aq words, qi share)."""
+    max|block|, the tiles' disagreements (aq words, qi share) and the block
+    passes' largest error relative to max|plain|."""
     if r["route"] != "sm90":
         return {}
     v = r["vs_block"]
@@ -1534,7 +1545,9 @@ def _log_ab(r) -> dict:
             else "-",
             "vs_block_max_rel":
                 f"{max(v[n][2] for n in ('loss',) + INT8_GRADS):.3e}",
-            "vs_block_ints": f"{v['ints'][0]}/{v['ints'][1]:.2e}"}
+            "vs_block_ints": f"{v['ints'][0]}/{v['ints'][1]:.2e}",
+            "block_vs_plain_max_rel":
+                f"{max(r['block'][n][2] for n in ('loss',) + INT8_GRADS):.3e}"}
 
 
 def phase_int8_kernels(torch) -> dict:
@@ -2329,27 +2342,50 @@ def bench_k3_chunks(torch, route: str) -> list:
 BENCH_EDGE = 3
 
 
-def bench_k3_call(torch) -> dict:
-    """One K3 call at the bench step's shape (B=4,096 galaxy images, bf16
-    weights, int8 targets; random inputs from the seed) on each design, in
-    turns (AB_K3, the median of 3 each), with its bound.  The cluster
-    passes' outputs are held to the block passes' within INT8_TOL, and each
-    design's loss and dfold of the first and last image and of BENCH_EDGE
-    images on each side of every chunk boundary (the cluster route runs
-    the call in several workspace chunks at this size) to the plain version
-    run on those images alone."""
+def bench_k3_inputs(torch, model: str, gen) -> tuple:
+    """K3's operands at bench.py's ``model`` step (B=4,096, 64x64, bf16
+    weights; random from ``gen``): fold, coords, the weights (w1, b1, wht,
+    bht) and the arguments of ``run_loss_int8`` after them, (y_t, mask,
+    family).  Galaxy: int8 targets of three channels; colored: bf16
+    targets pre-paired as (B, 2, HW/2), the unit-disc mask, coords
+    chunk-permuted."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.train.trainer import yt_layout
+
+    hw = IMAGE[0] * IMAGE[1]
+    if model == "galaxy":
+        fold, coords, ws = _int8_inputs(torch, BENCH_BATCH, "bfloat16", gen)
+        k = torch.randint(0, 256, (BENCH_BATCH, CHANNELS, hw), generator=gen,
+                          device=DEVICE)
+        return fold, coords, ws, ((k - 128).to(torch.int8), None,
+                                  "bernoulli")
+    fold, coords, ws = _int8_inputs(torch, BENCH_BATCH, "bfloat16", gen,
+                                    no=2)
+    y = torch.rand((BENCH_BATCH, hw), generator=gen, device=DEVICE)
+    coords = l8.colored_coords(coords, l8.pick_tile(hw)).contiguous()
+    return fold, coords, ws, (yt_layout(y.to(torch.bfloat16), hw, True),
+                              disc_mask(torch, IMAGE), "colored")
+
+
+def bench_k3_call(torch, model: str = "galaxy") -> dict:
+    """One K3 call at the shape of bench.py's ``model`` step (B=4,096
+    galaxy or colored images, bf16 weights; random inputs from the seed,
+    ``bench_k3_inputs``) on each design, in turns (AB_K3, the median of 3
+    each), with its bound.  The cluster passes' outputs are held to the
+    block passes' within INT8_TOL, and each design's loss and dfold of the
+    first and last image and of BENCH_EDGE images on each side of every
+    chunk boundary (the cluster route runs the call in several workspace
+    chunks at this size) to the plain version run on those images alone."""
     from spatialvae_torch.kernels import fused_loss_int8 as l8
     from spatialvae_torch.kernels.config import Numerics
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    fold, coords, ws = _int8_inputs(torch, BENCH_BATCH, "bfloat16", gen)
-    hw = IMAGE[0] * IMAGE[1]
-    k = torch.randint(0, 256, (BENCH_BATCH, CHANNELS, hw), generator=gen,
-                      device=DEVICE)
-    yt = (k - 128).to(torch.int8)
+    fold, coords, ws, (yt, mask, family) = bench_k3_inputs(torch, model,
+                                                            gen)
+    hw, no, masked = IMAGE[0] * IMAGE[1], ws[2].shape[0], mask is not None
     nm = Numerics()
-    run = functools.partial(l8.run_loss_int8, fold, coords, *ws, yt,
-                            numerics=nm)
+    run = functools.partial(l8.run_loss_int8, fold, coords, *ws, yt, mask,
+                            family, numerics=nm)
     chunks = {r: bench_k3_chunks(torch, r) for r in ("sm90", "block")}
     if len(chunks["sm90"]) < 2:
         raise AssertionError(f"B={BENCH_BATCH} K3 cluster route in "
@@ -2360,9 +2396,10 @@ def bench_k3_call(torch) -> dict:
     with torch.no_grad():
         got = {"sm90": run(), "block": run(block_passes=True)}
         want = l8.loss_int8_reference(fold[edges], coords, *ws, yt[edges],
-                                      numerics=nm)
-        vs_block = {n: _check_rel(f"K3 B={BENCH_BATCH} cluster vs block "
-                                  f"passes {n}", rel_errors(u, v), INT8_TOL)
+                                      mask, family, numerics=nm)
+        vs_block = {n: _check_rel(f"K3 B={BENCH_BATCH} {model} cluster vs "
+                                  f"block passes {n}", rel_errors(u, v),
+                                  INT8_TOL)
                     for n, u, v in zip(
                         ("loss",) + INT8_GRADS,
                         (got["sm90"][0][:, 3, 0],) + tuple(got["sm90"]),
@@ -2373,33 +2410,38 @@ def bench_k3_call(torch) -> dict:
             for n, u, v in (("loss", d[:, 3, 0], want[0][:, 3, 0]),
                             ("dfold", d, want[0])):
                 vs_plain[r, n] = _check_rel(
-                    f"K3 B={BENCH_BATCH} {r} passes at the chunk edges {n}",
-                    rel_errors(u, v), INT8_TOL)
+                    f"K3 B={BENCH_BATCH} {model} {r} passes at the chunk "
+                    f"edges {n}", rel_errors(u, v), INT8_TOL)
         del got, want
         ab = in_turns(torch, {
             "sm90": run,
             "block": functools.partial(run, block_passes=True)}, 3)
-    del fold, coords, ws, k, yt
+    del fold, coords, ws, yt, mask
     torch.cuda.empty_cache()
     return {"sm90": ab["sm90"][0], "block": ab["block"][0],
             "turns": " ".join(f"{r}:{t:.3f}" for r in ("block", "sm90")
                               for t in ab[r][1]),
-            "bound": k3_bound(BENCH_BATCH, hw, P_HIDDEN, CHANNELS, 2, 1,
-                              False, False),
+            # 1 target byte per (image, output, pixel): galaxy's int8, and
+            # colored's bf16 over HW/2 pixels per output
+            "bound": k3_bound(BENCH_BATCH, hw, P_HIDDEN, no, 2, 1, masked,
+                              False),
             "chunks": {r: [b0 for b0, _ in c] for r, c in chunks.items()},
             "edges": len(edges), "vs_block": vs_block, "vs_plain": vs_plain}
 
 
-def phase_bench_int8(torch, q_cfg, p_cfg, ecfg, tcfg) -> tuple:
-    """bench.py's galaxy step: B=4096, 16 steps per epoch of /255-grid
-    images made on the card from the seed, Adam's moments in bf16
-    (``SPATIALVAE_ADAM_MOMENTS=bf16``, as bench.py sets it); one warm-up
-    epoch, then timed epochs on the host clock around work that ends in a
-    synchronize, in turns (AB_K3) with K3 on the block passes and on the
-    cluster passes.  The launches are the first cluster turn's: K3 on the
-    cluster passes (every chunk's forward, gradient and dW1), none on the
-    block passes.  A smoke reading of images/s, not a benchmark.  Returns
-    (images/s, Adam's launches in that epoch, route -> step ms)."""
+def phase_bench_int8(torch, q_cfg, p_cfg, ecfg, tcfg, model="galaxy",
+                     mask=None) -> tuple:
+    """bench.py's ``model`` step (galaxy, or colored: particles
+    --fit-noise under the unit-disc ``mask``): B=4096, 16 steps per epoch
+    of images made on the card from the seed (galaxy on the /255 grid, as
+    bench.py makes them for int8; colored uniform in [0, 1)), Adam's
+    moments in bf16 (``SPATIALVAE_ADAM_MOMENTS=bf16``, as bench.py sets
+    it); one warm-up epoch, then timed epochs on the host clock around work
+    that ends in a synchronize, in turns (AB_K3) with K3 on the block passes
+    and on the cluster passes.  The launches are the first cluster turn's:
+    K3 on the cluster passes (every chunk's forward, gradient and dW1), none
+    on the block passes.  A smoke reading of images/s, not a benchmark.
+    Returns (images/s, Adam's launches in that epoch, route -> step ms)."""
     import contextlib
 
     from spatialvae_torch.train.trainer import Trainer
@@ -2408,15 +2450,19 @@ def phase_bench_int8(torch, q_cfg, p_cfg, ecfg, tcfg) -> tuple:
     tcfg = dataclasses.replace(tcfg, minibatch_size=BENCH_BATCH)
     with env_set(SPATIALVAE_ADAM_MOMENTS="bf16"):
         trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg,
-                          coord_grid(*IMAGE, device=DEVICE), device=DEVICE)
+                          coord_grid(*IMAGE, device=DEVICE), mask=mask,
+                          device=DEVICE)
     if not all(m.dtype == torch.bfloat16
                for m in trainer.opt_state.mu.values()):
         raise AssertionError("the bench trainer's moments are not bf16")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     n = BENCH_BATCH * BENCH_STEPS
-    data = torch.randint(0, 256, (n, IMAGE[0] * IMAGE[1], CHANNELS),
-                         generator=gen, device=DEVICE,
-                         dtype=torch.uint8).float() / 255.0
+    shape = (n, IMAGE[0] * IMAGE[1], tcfg.channels)
+    if model == "galaxy":
+        data = torch.randint(0, 256, shape, generator=gen, device=DEVICE,
+                             dtype=torch.uint8).float() / 255.0
+    else:
+        data = torch.rand(shape, generator=gen, device=DEVICE)
     t0 = time.perf_counter()
     trainer.train_epoch(data, 0, progress=False)
     torch.cuda.synchronize()
@@ -2435,22 +2481,25 @@ def phase_bench_int8(torch, q_cfg, p_cfg, ecfg, tcfg) -> tuple:
         want = k3_launches(BENCH_STEPS, route,
                           len(bench_k3_chunks(torch, route)))
         if got["k3"] != want:
-            raise AssertionError(f"B={BENCH_BATCH} {route} epoch K3 "
+            raise AssertionError(f"B={BENCH_BATCH} {model} {route} epoch K3 "
                                  f"launches {got['k3']}, expected {want}")
         turns.setdefault(route, []).append(seconds / BENCH_STEPS * 1e3)
         if route == "sm90" and counts is None:
             counts, m, secs = got, mi, seconds
     want_adam = int8_adam_launches(trainer, BENCH_STEPS, seeded=False)
     if any(counts["k45"].values()) or counts["adam"] != want_adam:
-        raise AssertionError(f"B={BENCH_BATCH} epoch launches {counts}, "
-                             f"Adam expected {want_adam}")
+        raise AssertionError(f"B={BENCH_BATCH} {model} epoch launches "
+                             f"{counts}, Adam expected {want_adam}")
     if not np.isfinite(m).all():
-        raise AssertionError(f"B={BENCH_BATCH} epoch metrics {m}")
+        raise AssertionError(f"B={BENCH_BATCH} {model} epoch metrics {m}")
     step_ms = {r: statistics.median(t) for r, t in turns.items()}
     del trainer, data
     torch.cuda.empty_cache()
-    k3 = bench_k3_call(torch)
-    log("train_int8_bench", batch=BENCH_BATCH, steps=BENCH_STEPS, images=n,
+    k3 = bench_k3_call(torch, model)
+    log("train_int8_bench" if model == "galaxy"
+        else f"train_{model}_int8_bench", model=model,
+        family=ecfg.likelihood, mask=mask is not None,
+        batch=BENCH_BATCH, steps=BENCH_STEPS, images=n,
         moments="bfloat16", warmup_s=f"{warm:.3f}", seconds=f"{secs:.4f}",
         step_ms=f"{step_ms['sm90']:.3f}",
         step_ms_block=f"{step_ms['block']:.3f}",
@@ -2489,20 +2538,31 @@ def _wmax(a, b) -> tuple:
     return tuple(max(x, y) for x, y in zip(a, b))
 
 
+# K3's faulty copies for --limits k3: quantisation rounding toward zero, a
+# gradient scale per 64-pixel block, the cluster passes' colored mean
+# blocks paired with the block after them (ranks r and r ^ 1)
+K3_FAULTS = (("-DSVT_INT8_RTZ=1",), ("-DSVT_INT8_BLOCK_SCALE=1",),
+             ("-DSVT_COLORED90_PAIR_ADJACENT=1",))
+
+
 def phase_limits_k3(torch) -> None:
     """``--limits k3``: K3's readings against its plain version on the
     cluster passes and on the block passes (``block_passes``), for the
-    sound library and for the copies built with quantisation rounding
-    toward zero or a gradient scale per 64-pixel block, over three seeds
-    (LOSS_CASES, and FAMILY_CASES, whose Gaussian and padded cases take the
-    cluster passes and colored ones the block passes): each build's worst
-    max and mean error relative to max|plain| over the five outputs and the
-    loss."""
+    sound library and for the copies of K3_FAULTS (built in parallel), over
+    three seeds (LOSS_CASES and FAMILY_CASES): each build's worst max and
+    mean error relative to max|plain| over the five outputs and the loss,
+    by case kind and route.  The sound build must hold every reading within
+    INT8_TOL, the colored pairing's copy must not hold its colored cluster
+    readings."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from spatialvae_torch.kernels import _build
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
-    for defines in ((), ("-DSVT_INT8_RTZ=1",), ("-DSVT_INT8_BLOCK_SCALE=1",)):
+    with ThreadPoolExecutor(len(K3_FAULTS)) as ex:
+        list(ex.map(_build.build, K3_FAULTS))
+    for defines in ((),) + K3_FAULTS:
         lib = _build.load_library(defines)
         d8._lib = l8._lib = (lambda lib=lib: lib)
         worst = {}
@@ -2516,15 +2576,26 @@ def phase_limits_k3(torch) -> None:
                         worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
             for case in FAMILY_CASES:
                 for dtype in ("bfloat16", "float32"):
-                    r = family_case(torch, case, dtype, seed, False)
-                    route = "block" if case[1] == "colored" else "sm90"
-                    k = (f"K3_{case[1]}_{route}", dtype)
-                    for n in ("loss",) + INT8_GRADS:
-                        worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+                    for block_passes in (False, True):
+                        r = family_case(torch, case, dtype, seed, False,
+                                        block_passes=block_passes)
+                        k = (f"K3_{case[1]}_{r['route']}", dtype)
+                        for n in ("loss",) + INT8_GRADS:
+                            worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
             torch.cuda.empty_cache()
         log("limits", build=" ".join(defines) or "sound",
             **{"/".join(k): f"{a:.3e}/{m:.3e}"
                for k, (a, m) in sorted(worst.items())})
+        within = {k: a <= INT8_TOL[0] and m <= INT8_TOL[1]
+                  for k, (a, m) in worst.items()}
+        colored90 = [k for k in within if k[0] == "K3_colored_sm90"]
+        if not defines and not all(within.values()):
+            raise AssertionError(f"--limits k3: the sound build is outside "
+                                 f"INT8_TOL: {worst}")
+        if "COLORED90" in " ".join(defines) and any(within[k]
+                                                    for k in colored90):
+            raise AssertionError(f"--limits k3: the colored pairing's copy "
+                                 f"is within INT8_TOL: {worst}")
 
 
 def phase_limits(torch) -> None:
@@ -2536,8 +2607,9 @@ def phase_limits(torch) -> None:
     to place INT8_TOL, INT8_Y_TOL, INT8_A1_TOL and INT8_STEP_TOL.  The
     copies: quantisation rounding toward zero; a gradient scale per 64-pixel
     block; the colored family pairing each 64-row mean tile with the tile
-    after it instead of the one half a group further; and, with the sound
-    kernels, a padded call whose pad the mask does not cover."""
+    after it instead of the one half a group further, on both designs; and,
+    with the sound kernels, a padded call whose pad the mask does not
+    cover."""
     from spatialvae_torch.kernels import _build
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
@@ -2568,7 +2640,8 @@ def phase_limits(torch) -> None:
                for k, (a, m) in sorted(worst.items())})
 
     for defines in ((), ("-DSVT_INT8_RTZ=1",), ("-DSVT_INT8_BLOCK_SCALE=1",),
-                    ("-DSVT_COLORED_PAIR_ADJACENT=1",)):
+                    ("-DSVT_COLORED_PAIR_ADJACENT=1",
+                     "-DSVT_COLORED90_PAIR_ADJACENT=1")):
         lib = _build.load_library(defines)
         d8._lib = l8._lib = (lambda lib=lib: lib)
         worst = {}
@@ -2645,7 +2718,7 @@ def disc_mask(torch, image):
 
 
 def family_case(torch, case, dtype, seed, timed, forced_mask=True,
-                nm=None) -> dict:
+                nm=None, block_passes=False) -> dict:
     """One of FAMILY_CASES against the plain version, the operands laid out
     as ``fused_bce_spatial_int8`` and the trainer's target copy lay them
     out: colored over chunk-permuted coords with pre-paired targets, a pixel
@@ -2654,7 +2727,8 @@ def family_case(torch, case, dtype, seed, timed, forced_mask=True,
     ``forced_mask=False`` leaves the pad unmasked in the kernel's call
     alone: the faulty copy that places the padded family's limits.  With
     ``timed`` also the call's bound, from the real (unpadded) pixels; ``nm``
-    the numerics (default: the defaults)."""
+    the numerics (default: the defaults); ``block_passes`` runs K3 on the
+    block passes whatever its route."""
     import torch.nn.functional as F
     from spatialvae_torch.kernels import fused_loss_int8 as l8
     from spatialvae_torch.train.trainer import build_yt_i8, yt_layout
@@ -2688,7 +2762,8 @@ def family_case(torch, case, dtype, seed, timed, forced_mask=True,
         base, (0, pad), value=1.0)
     args = (fold, coords.contiguous(), *ws, yt)
     if kernel_mask is mask:
-        out = _loss_readings(torch, args, mask, family, timed, nm)
+        out = _loss_readings(torch, args, mask, family, timed, nm,
+                             block_passes)
     else:
         with torch.no_grad():
             got = l8.run_loss_int8(*args, kernel_mask, family)
@@ -2711,9 +2786,12 @@ def family_case(torch, case, dtype, seed, timed, forced_mask=True,
 
 def phase_loss_families(torch) -> dict:
     """K3's Gaussian, colored and padded families against the plain version
-    at the shapes the three models give them.  The bound counts the call's
-    own inputs and outputs once and its three int8 GEMMs (forward, da0,
-    dW1) plus the head's three products, over the real pixels."""
+    at the shapes the three models give them, each on the cluster passes
+    (every family's route at the default numerics), held to the block
+    passes (every output within INT8_TOL, aq word for word, qi within
+    SR_INT_SHARE) and timed in turns with them.  The bound counts the
+    call's own inputs and outputs once and its three int8 GEMMs (forward,
+    da0, dW1) plus the head's three products, over the real pixels."""
     res = {}
     for case in FAMILY_CASES:
         name, family, side, masked, i8 = case
@@ -2721,16 +2799,24 @@ def phase_loss_families(torch) -> dict:
             r = family_case(torch, case, dtype, SEED, timed=True)
             if not r["same"]:
                 raise AssertionError(f"K3 {name} {dtype}: two runs differ")
+            if r["route"] != "sm90":
+                raise AssertionError(f"K3 {name} {dtype}: route "
+                                     f"{r['route']}")
             fields = {n: _check_rel(f"K3 {name} {dtype} {n}", r[n], INT8_TOL)
                       for n in ("loss",) + INT8_GRADS}
+            for n in ("loss",) + INT8_GRADS:
+                _check_rel(f"K3 {name} {dtype} {n}, cluster vs block "
+                           f"passes", r["vs_block"][n], INT8_TOL)
             log("kernel_loss_families", case=name, family=family, B=BATCH,
                 HW=r["pixels"][0], padded_HW=r["pixels"][1], H=P_HIDDEN,
                 No=2 if family == "colored" else 1, dtype=dtype,
                 targets="int8" if i8 else "bfloat16", mask=masked,
-                errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
-                max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+                route=r["route"], errors="max_abs/mean_abs/max_rel/mean_rel",
+                **fields, max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+                ints_vs_plain=_check_ints(f"K3 {name} {dtype}", r),
                 kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
-                bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+                bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1],
+                **_log_ab(r))
             res[name, dtype] = r
             torch.cuda.empty_cache()
     return res
@@ -2840,7 +2926,10 @@ def phase_train_family(torch, name: str, tmpdir: str) -> dict:
     every step), an evaluation that must score higher, the launch counts,
     a K3 step and a tail step against the plain versions, a profiled K3
     step; then the float step and the serving checks that the model has.
-    Returns the launch counts and the profiled step's device ms."""
+    Colored also profiles its K3 step with K3 on the block passes (keys
+    ("k3_block", kernel)) and runs bench.py's colored step
+    (``phase_bench_int8``).  Returns the launch counts and the profiled
+    steps' device ms."""
     from spatialvae_torch.kernels.fused_loss_int8 import padded_hw
 
     trainer, data, gen = family_trainer(torch, name)
@@ -2853,9 +2942,8 @@ def phase_train_family(torch, name: str, tmpdir: str) -> dict:
     seconds = time.perf_counter() - t0
     counts = _int8_launches()
     full, tails = TRAIN_EPOCHS * (N_TRAIN // BATCH), TRAIN_EPOCHS
-    # the colored family keeps the block passes, the others take the
-    # cluster passes
-    want = {"k3": k3_launches(full, "block" if name == "colored" else "sm90"),
+    # every family takes the cluster passes
+    want = {"k3": k3_launches(full, "sm90"),
             "k8": {"fwd": 0, "grad": 0, "dw": 0, "sum": 0},
             "k45": k45_launches(tails),
             "k12": 0,
@@ -2913,8 +3001,22 @@ def phase_train_family(torch, name: str, tmpdir: str) -> dict:
     prof = phase_profile_int8(torch, trainer, data, data_t,
                               trainer._dataset_yq8(data), tmpdir,
                               model=name, runs=(("full", "k3", BATCH),))
+    if colored:
+        # the block passes' device ms in the same step: the yardstick's
+        # kernel records, and the step's A/B
+        with on_block_passes():
+            block = phase_profile_int8(torch, trainer, data, data_t,
+                                       trainer._dataset_yq8(data), tmpdir,
+                                       model="colored_block",
+                                       runs=(("full", "k3", BATCH),))
+        prof.update({("k3_block", k[1]): v for k, v in block.items()
+                     if k[0] == "k3"})
+    cfgs = (trainer.q_cfg, trainer.p_cfg, trainer.ecfg, trainer.tcfg)
+    mask = trainer.mask
     del trainer, data, data_t
     torch.cuda.empty_cache()
+    if colored:
+        phase_bench_int8(torch, *cfgs, model="colored", mask=mask)
     return counts, prof
 
 
@@ -4456,8 +4558,8 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
                 fam_counts, knobs) -> list:
     """The per-kernel JSON records: K1 and K2 (``dec_rows``), K3 at the int8
     training step's (bf16 weights, B=100: the cluster passes it runs, and
-    the block passes at the colored path's step, the path that launches
-    them), K4 without a1 at the evaluation's (B=100) and with a1, K5 at the
+    the block passes in the colored step's profile on them, launched on the
+    knob paths), K4 without a1 at the evaluation's (B=100) and with a1, K5 at the
     tail step's (B=37), and K3's whole call in the Gaussian, colored and
     padded families at the particles, colored and mnist steps' (bf16
     weights, B=100; launches: that model's K3 calls).  Bounds from the
@@ -4486,12 +4588,15 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
     k3_abs = lambda *ns: max(lc[n][0] for n in ns)
     a1c = b * hw * h * 2                        # a bf16 a1c, H columns
     # the cluster passes: launches and device ms from the galaxy int8 path;
-    # the block passes: launches and device ms from the colored path (the
-    # family that keeps them at the default numerics; its profiled step)
-    col = fam_counts["colored"]["k3"]
+    # the block passes: launches from the knob paths that run K3 off the
+    # default numerics (every family takes the cluster passes there), device
+    # ms from the colored step profiled with K3 on the block passes
+    col = {k: sum(knobs[tag]["counts"]["k3"][k]
+                  for tag, _, _, kernel in KNOB_PATHS if kernel == "k3")
+           for k in ("fwd", "grad", "dw")}
     t7 = {k[1]: v for k, v in res["fam_prof"]["colored"].items()
-          if k[0] == "k3"}
-    col_err = max(res["families"]["colored_mask", "bfloat16"][n][0]
+          if k[0] == "k3_block"}
+    col_err = max(res["families"]["colored_mask", "bfloat16"]["block"][n][0]
                   for n in INT8_GRADS)
     rows += [
         # the bounds count the work each pass's function needs, not the
@@ -4531,8 +4636,7 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
     ]
     for model, (row, case) in FAMILY_ROWS.items():
         r = res["families"][case, "bfloat16"]
-        src = LOSS_SOURCE if model == "colored" else LOSS90_SOURCE
-        rows.append((row, src, K3_REPLACES,
+        rows.append((row, LOSS90_SOURCE, K3_REPLACES,
                      fam_counts[model]["k3"]["fwd"]
                      + fam_counts[model]["k3"]["fwd_sm90"],
                      max(r[n][0] for n in INT8_GRADS), r["ms"],

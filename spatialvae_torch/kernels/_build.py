@@ -67,7 +67,7 @@ _SIGNATURES = {
     "svt_int8_90_max_clusters": ([_I], _I),
     "svt_loss_int8_fwd": ([_P] * 13 + [_I] * 8 + [_F, _F, _I, _I, _P], _I),
     "svt_loss_int8_grad": ([_P] * 17 + [_I] * 7 + [_F, _F, _I, _F, _F, _I,
-                                                    _I, _I, _P], _I),
+                                                    _I, _P], _I),
     "svt_loss90_dw": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "svt_loss90_max_clusters": ([_I], _I),
     "svt_sm90_tile_product": ([_P] * 3 + [_I] * 2 + [_P], _I),

@@ -35,13 +35,14 @@ bool bad_shape(int B, int HW, int H, int No) {
 }
 
 // Whether the cluster passes (fused_loss_int8_sm90.cu) take a call: the
-// default numerics (no mode bit, level 7) at H <= 512 in the Bernoulli or
-// Gaussian family, over pixel counts and groups that are multiples of 256
-// (a cluster's four blocks lie in one group).  The wrapper chooses the
-// route; the entry points refuse the cluster route where this is false.
-bool sm90_takes(int HW, int H, int Pt, int family, int mode, float lf) {
-  return H <= MAX_H && family != COLORED && mode == 0 && lf == 7.f &&
-         HW % (4 * PT) == 0 && Pt % (4 * PT) == 0;
+// default numerics (no mode bit, level 7) at H <= 512 in any family, over
+// pixel counts and groups that are multiples of 256 (a cluster's four
+// blocks lie in one group; a colored quad's two pairs too).  The wrapper
+// chooses the route; the entry points refuse the cluster route where this
+// is false.
+bool sm90_takes(int HW, int H, int Pt, int mode, float lf) {
+  return H <= MAX_H && mode == 0 && lf == 7.f && HW % (4 * PT) == 0 &&
+         Pt % (4 * PT) == 0;
 }
 
 }  // namespace
@@ -59,7 +60,8 @@ extern "C" {
 // swht: the int8 head's scale under A1Q (wht then holds whtq).  For
 // H > 512, ws holds B*HW/64 * svt_int8_ws_block(H) bytes.  `sm90` 1 runs
 // the cluster passes (w1fT then holds W1f^T's slab stream; refused where
-// sm90_takes is false), 0 the block passes.  The cluster passes take `ws`
+// sm90_takes is false; every block a CTA of its own, the colored family's
+// pairs across a cluster), 0 the block passes (colored: a block per pair).  The cluster passes take `ws`
 // as the stash of a1c that the forward leaves for the gradient pass:
 // B*HW/64 * svt_loss90_stash_block bytes.
 int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
@@ -71,7 +73,7 @@ int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
                       int sm90, void* stream) {
   if (bad_shape(B, HW, H, No) || family < BERNOULLI || family > COLORED ||
       (H > MAX_H && ws == nullptr) ||
-      (sm90 && !sm90_takes(HW, H, Pt, family, mode, lf)))
+      (sm90 && !sm90_takes(HW, H, Pt, mode, lf)))
     return int(cudaErrorInvalidValue);
   const bool colored = family == COLORED;
   if (colored && (No != 2 || Pt < 2 * PT || Pt % (2 * PT) || HW % Pt))
@@ -91,7 +93,8 @@ int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
                 static_cast<float*>(part_bce),
                 static_cast<int8_t*>(ws),
                 HW, H, No, blocks, Pt, yt_i8, family, lf, swht, mode,
-                unsigned(B) * unsigned(colored ? blocks / 2 : blocks)};
+                unsigned(B) * unsigned(colored && !sm90 ? blocks / 2
+                                                        : blocks)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool tile = mode & TILE;
   cudaError_t err;
@@ -127,11 +130,11 @@ int svt_loss_int8_grad(const void* fold, const void* coords, const void* w1fT,
                        void* aq_ws, void* q_ws, void* part_fold,
                        void* part_w, void* ws, int b0, int Bc, int HW, int H,
                        int No, int Pt, int bf16, float lf, float lv,
-                       int mode, float dbk, float swht, int cut, int family,
-                       int sm90, void* stream) {
+                       int mode, float dbk, float swht, int cut, int sm90,
+                       void* stream) {
   if (bad_shape(Bc, HW, H, No) || b0 < 0 || Pt < PT || Pt % PT || HW % Pt ||
       (H > MAX_H && ws == nullptr) || ((mode & CUT) && (cut < 4 || cut > 8)) ||
-      (sm90 && !(sm90_takes(HW, H, Pt, family, mode, lf) && lv == 7.f)))
+      (sm90 && !(sm90_takes(HW, H, Pt, mode, lf) && lv == 7.f)))
     return int(cudaErrorInvalidValue);
   const int blocks = HW / PT;
   LossGradArgs a{static_cast<const float*>(fold),

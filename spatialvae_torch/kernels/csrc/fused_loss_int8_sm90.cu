@@ -5,17 +5,27 @@
 // spatialvae_tpu/kernels/fused_loss_int8.py `_kernel` (:718), here at the
 // default numerics (4-bit forward and gradient tiles in int8 containers, the
 // analytic-bound gradient scale, a bf16 epilogue, round to nearest even) in
-// the Bernoulli and Gaussian families, with or without a mask, over pixel
-// counts and quantisation groups that are multiples of 256 (a padded image
-// arrives padded), with bf16 or f32 weights.  It computes what those passes
-// compute (the formulas are in fused_loss_int8.cuh): the integer products
-// are exact, and the quantisation groups, the scales and every epilogue's op
-// order are the same, so aq is word for word the same and only the order of
-// the head's row sums and of the column reductions moves the floats (and
-// through dz2 may flip a rounding of qi).  The wrapper's k3_route sends a
-// call here by its mode, and fused_loss_int8.cu refuses a call these passes
-// do not take; the other modes, the colored family and H > 512 keep those
-// passes.
+// all three families (Bernoulli, Gaussian, colored), with or without a
+// mask, over pixel counts and quantisation groups that are multiples of 256
+// (a padded image arrives padded), with bf16 or f32 weights.  It computes
+// what those passes compute (the formulas are in fused_loss_int8.cuh): the
+// integer products are exact, and the quantisation groups, the scales and
+// every epilogue's op order are the same, so aq is word for word the same
+// and only the order of the head's row sums and of the column reductions
+// moves the floats (and through dz2 may flip a rounding of qi).  The
+// wrapper's k3_route sends a call here by its mode, and fused_loss_int8.cu
+// refuses a call these passes do not take; the other modes and H > 512
+// keep those passes.
+//
+// The colored family pairs each 64-row mean block of a group's first half
+// with the log-variance block Pt/2 rows further.  The forward's quads there
+// are mean blocks 2j, 2j + 1 of a group on ranks 0 and 1 and their partners
+// on ranks 2 and 3, all four in one group, so rank r's partner is rank
+// r ^ 2 of the same cluster.  Each CTA leaves its head outputs z in its
+// shared memory and reads its partner's through distributed shared memory;
+// both compute the pair's terms, and each writes its own rows' dz2, its own
+// block's max |dz2| and, the mean block alone, the pair's loss.  The
+// gradient pass and dW1 never read the family.
 //
 // What bounds it on this card: int8 tensor-core work, 2*HW*Kp^2 ops per image
 // for each of the three products (the forward's aq @ W1f, da0 = qi @ W1r^T,
@@ -86,6 +96,15 @@ constexpr int GRAD_STAGES = 3;
 constexpr int WG = 4;                // warpgroups of a loss CTA
 constexpr int SLOTS = 3;             // column sums reduced at a time
 
+// A test build pairs each colored mean block with the block right after it
+// (rank r with r ^ 1) instead of the one half a group further
+// (-DSVT_COLORED90_PAIR_ADJACENT=1): the copy that places the cluster
+// passes' colored limits, the pairing of the block passes' own copy.
+#ifndef SVT_COLORED90_PAIR_ADJACENT
+#define SVT_COLORED90_PAIR_ADJACENT 0
+#endif
+constexpr uint32_t PAIR = SVT_COLORED90_PAIR_ADJACENT ? 1u : 2u;
+
 struct FwdSmem {
   int8_t ring[FWD_STAGES][SLAB];
   int8_t aq[2][TILE_B];
@@ -93,6 +112,7 @@ struct FwdSmem {
   float scratch[WARPS];
   float thr[8];                      // q7_fast's thresholds
   uint64_t full[FWD_STAGES], empty[FWD_STAGES];
+  float zx[2 * PT];                  // colored: z, read by the partner CTA
 };
 
 struct GradSmem {
@@ -337,13 +357,29 @@ __device__ __forceinline__ void a1_epilogue(const int (&acc)[64],
   }
 }
 
+// The colored family's block for CTA `rank` of quad q, the flattened
+// (image, block) index: the quads of each group in turn, Pt/256 of them,
+// quad j taking the group's mean blocks 2j and 2j + 1 on ranks 0 and 1 and
+// their log-variance partners, Pt/128 blocks further, on ranks 2 and 3.
+// At Pt = 256 this is block 4 q + rank.
+__device__ __forceinline__ int colored_block(int q, uint32_t rank, int Pt) {
+  const int qpg = Pt / (CS * PT);
+  return q / qpg * (Pt / PT) + 2 * (q % qpg) + int(rank & 1u) +
+         int(rank >> 1) * (Pt / (2 * PT));
+}
+
 // ---- pass 1 on clusters: forward, loss, dz2, each block's loss and max
 // |dz2| (the bound's source), and each block's a1c to the stash `ws`
 // (A1c::WORDS words a thread) for the gradient pass.  The four CTAs of a
-// cluster walk the quads (4 consecutive 64-pixel blocks) cid, cid +
-// clusters, ...; CTA `rank` runs block 4 quad + rank of the flattened
-// (image, block) grid.
-template <bool BF16>
+// cluster walk the quads (4 blocks of one group) cid, cid + clusters, ...;
+// CTA `rank` runs block 4 quad + rank of the flattened (image, block) grid,
+// or in the colored family block colored_block(quad, rank, Pt): the pair's
+// terms need both head outputs, and the partner's z comes through
+// distributed shared memory (zx), behind a cluster barrier; the barrier's
+// second half, before the next tile writes zx, waits for the partner's read.
+// COLORED is a template parameter: the other families' kernel has no trace
+// of the exchange.
+template <bool BF16, bool COLORED>
 __global__ void __launch_bounds__(NT, 1)
 loss_fwd90_kernel(const LossFwdArgs a, int nquads) {
   extern __shared__ __align__(128) uint8_t smem90[];
@@ -360,7 +396,11 @@ loss_fwd90_kernel(const LossFwdArgs a, int nquads) {
   q7_thresholds(sm.thr);
   cluster_sync();
   ring.start();
-  auto block_of = [&](int k) { return (cid + k * ncl) * CS + int(ring.rank); };
+  auto block_of = [&](int k) {
+    const int q = cid + k * ncl;
+    return COLORED ? colored_block(q, ring.rank, a.Pt)
+                   : q * CS + int(ring.rank);
+  };
 
   if (ntl > 0) {
     const int tb = block_of(0);
@@ -419,6 +459,54 @@ loss_fwd90_kernel(const LossFwdArgs a, int nquads) {
     }
     __syncthreads();
     float per = 0.f, d = 0.f;
+    if constexpr (COLORED) {
+      float z = 0.f;
+      if (tid < 2 * PT)
+        for (int q = 0; q < WG; ++q)
+          z += sm.red[(q * MAX_NO + tid / PT) * PT + tid % PT];
+      if (k > 0) cluster_wait();         // the partner has read zx
+      if (tid < 2 * PT) sm.zx[tid] = z;
+      cluster_sync();
+      const float zp = tid < 2 * PT ? ld_cluster(&sm.zx[tid], ring.rank ^ PAIR)
+                                    : 0.f;
+      cluster_arrive();
+      const bool mean = !(ring.rank & PAIR);
+      // the pair's mean block, its first pixel within the image
+      const int half = SVT_COLORED90_PAIR_ADJACENT ? PT : a.Pt / 2;
+      const int pm = mean ? p0 : p0 - half;
+      if (tid < 2 * PT) {
+        const int o = tid / PT, u = tid % PT;
+        const size_t pair = size_t(pm / (2 * half)) * half + pm % (2 * half)
+                            + u;                  // index into (.., HW/2)
+        const float mu = sigmoidf(__fadd_rn(mean ? z : zp, a.bht[o]));
+        const float lv = sigmoidf(__fadd_rn(mean ? zp : z, a.bht[o]));
+        const float y =
+            load_target(a.yt, (size_t(b) * 2 + o) * (HW / 2) + pair, a.yt_i8);
+        const float dd = __fsub_rn(mu, y);
+        const float w = __fmul_rn(dd, expf(-lv));
+        const float dw = __fmul_rn(dd, w);
+        per = __fadd_rn(dw, lv);
+        float dmu = __fmul_rn(w, __fmul_rn(mu, __fsub_rn(1.f, mu)));
+        float dlv = __fmul_rn(__fmul_rn(0.5f, __fsub_rn(1.f, dw)),
+                              __fmul_rn(lv, __fsub_rn(1.f, lv)));
+        if (a.mask != nullptr) {
+          const float m = a.mask[size_t(o) * (HW / 2) + pair];
+          per = __fmul_rn(per, m);
+          dmu = __fmul_rn(dmu, m);
+          dlv = __fmul_rn(dlv, m);
+        }
+        d = mean ? dmu : dlv;
+        a.dz2[(size_t(b) * 2 + o) * HW + p0 + u] = d;
+      }
+      // the pair's loss once, on its mean block
+      const float bsum = mean ? block_sum(per, sm.scratch) : 0.f;
+      const float bmax = block_max(fabsf(d), sm.scratch);
+      if (tid == 0) {
+        a.part_bce[tb] = __fmul_rn(0.5f, bsum);
+        a.part_max[tb] = bmax;
+      }
+      continue;
+    }
     if (tid < No * PT) {
       const int o = tid / PT, pix = p0 + tid % PT;
       float z = 0.f;
@@ -455,6 +543,7 @@ loss_fwd90_kernel(const LossFwdArgs a, int nquads) {
       a.part_max[tb] = bmax;
     }
   }
+  if (COLORED && ntl > 0) cluster_wait();  // every partner's last read
   cluster_sync();
 }
 
@@ -895,12 +984,18 @@ int cached_clusters(K k, int threads, int smem, int* cache) {
   return *cache;
 }
 
-int fwd_clusters(bool bf16) {
-  static int c[2] = {0, 0};
-  return bf16 ? cached_clusters(loss_fwd90_kernel<true>, NT, sizeof(FwdSmem),
-                                &c[1])
-              : cached_clusters(loss_fwd90_kernel<false>, NT,
-                                sizeof(FwdSmem), &c[0]);
+int fwd_clusters(bool bf16, bool colored = false) {
+  static int c[4] = {0, 0, 0, 0};
+  int* at = &c[2 * colored + bf16];
+  if (colored)
+    return bf16 ? cached_clusters(loss_fwd90_kernel<true, true>, NT,
+                                  sizeof(FwdSmem), at)
+                : cached_clusters(loss_fwd90_kernel<false, true>, NT,
+                                  sizeof(FwdSmem), at);
+  return bf16 ? cached_clusters(loss_fwd90_kernel<true, false>, NT,
+                                sizeof(FwdSmem), at)
+              : cached_clusters(loss_fwd90_kernel<false, false>, NT,
+                                sizeof(FwdSmem), at);
 }
 int grad_clusters(bool bf16) {
   static int c[2] = {0, 0};
@@ -924,13 +1019,21 @@ namespace svt8 {
 
 cudaError_t loss_fwd_sm90(const LossFwdArgs& a, bool bf16, cudaStream_t st) {
   if (a.ws == nullptr) return cudaErrorInvalidValue;     // the a1c stash
+  const bool colored = a.family == COLORED;
   const int nquads = int(a.grid / CS);
-  const int ncl = min(nquads, fwd_clusters(bf16));
+  const int ncl = min(nquads, fwd_clusters(bf16, colored));
   if (ncl < 1) return cudaErrorInvalidConfiguration;
-  return bf16 ? launch_clusters(loss_fwd90_kernel<true>, unsigned(ncl * CS),
-                                NT, sizeof(FwdSmem), CS, st, a, nquads)
-              : launch_clusters(loss_fwd90_kernel<false>, unsigned(ncl * CS),
-                                NT, sizeof(FwdSmem), CS, st, a, nquads);
+  const unsigned grid = unsigned(ncl * CS);
+  const int smem = sizeof(FwdSmem);
+  if (colored)
+    return bf16 ? launch_clusters(loss_fwd90_kernel<true, true>, grid, NT,
+                                  smem, CS, st, a, nquads)
+                : launch_clusters(loss_fwd90_kernel<false, true>, grid, NT,
+                                  smem, CS, st, a, nquads);
+  return bf16 ? launch_clusters(loss_fwd90_kernel<true, false>, grid, NT,
+                                smem, CS, st, a, nquads)
+              : launch_clusters(loss_fwd90_kernel<false, false>, grid, NT,
+                                smem, CS, st, a, nquads);
 }
 
 cudaError_t loss_grad_sm90(const LossGradArgs& a, bool bf16,
@@ -993,7 +1096,8 @@ int svt_loss90_dw(const void* aq_ws, const void* q_ws, const void* gscale,
 
 // Clusters of 4 CTAs that can be resident at once for each cluster kernel
 // (0 forward bf16, 1 forward f32, 2 gradient bf16, 3 gradient f32, 4 dW1,
-// 5 the product alone); 0 if the card cannot make one resident.
+// 5 the product alone, 6 colored forward bf16, 7 colored forward f32); 0 if
+// the card cannot make one resident.
 int svt_loss90_max_clusters(int which) {
   switch (which) {
     case 0: return fwd_clusters(true);
@@ -1002,6 +1106,8 @@ int svt_loss90_max_clusters(int which) {
     case 3: return grad_clusters(false);
     case 4: return dw_clusters();
     case 5: return product_clusters();
+    case 6: return fwd_clusters(true, true);
+    case 7: return fwd_clusters(false, true);
     default: return 0;
   }
 }

@@ -3,7 +3,8 @@
 // fused_decoder_int8_sm90.cuh and of Adam's step kernel in adam_sm90.cu:
 // mbarriers, plain bulk loads and stores with an L2
 // cache policy, bulk copies multicast into the shared memory of every CTA
-// of a thread block cluster, remote arrivals, and the warpgroup products
+// of a thread block cluster, remote arrivals and loads, the cluster barrier
+// whole and in halves, and the warpgroup products
 // with both operands in shared memory: int8 `wgmma.mma_async ...
 // s32.s8.s8` (k32; m64n128, and m64n64 for the int8 decoder's halves), TF32
 // `... f32.tf32.tf32` (k8) and bf16 `... f32.bf16.bf16` (k16), each m64n128;
@@ -169,6 +170,28 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// cluster_sync in two halves: the arrival releases the thread's earlier
+// accesses (reads of other CTAs' shared memory included), the wait acquires
+// everyone's.  A thread alternates them, every thread of the cluster alike.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The float at the same offset as `p` in the shared memory of CTA `cta` of
+// the cluster (distributed shared memory).
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t cta) {
+  float v;
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %1, %2;\n"
+      "ld.shared::cluster.f32 %0, [ra];\n}\n"
+      : "=f"(v)
+      : "r"(smem_u32(p)), "r"(cta)
+      : "memory");
+  return v;
 }
 // Generic-proxy writes to shared memory made visible to the async proxy
 // (wgmma's operand reads), before the barrier that orders them.

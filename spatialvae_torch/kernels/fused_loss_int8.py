@@ -174,17 +174,18 @@ def k3_mode(nm: Numerics, t_mode: Optional[str] = None) -> tuple:
 def k3_route(hw: int, h: int, pt: int, family: str, nm: Numerics,
              t_mode: Optional[str] = None, block_passes: bool = False) -> str:
     """The passes a K3 call runs on the card: "sm90", the cluster passes,
-    for the default numerics (no mode bit, both levels 7) at H <= 512 in the
-    Bernoulli or Gaussian family over pixel counts and groups that are
-    multiples of 256; else "block", the block passes, which also take every
-    call whose caller asks for them (``block_passes``).  The route is
-    chosen here alone: ``launch_loss`` passes it to both C entry points,
-    which refuse the cluster route for a call the passes do not take."""
+    for the default numerics (no mode bit, both levels 7) at H <= 512 over
+    pixel counts and groups that are multiples of 256, in every family (the
+    colored one pairs its mean and log-variance blocks across a cluster);
+    else "block", the block passes, which also take every call whose caller
+    asks for them (``block_passes``).  The route is chosen here alone:
+    ``launch_loss`` passes it to both C entry points, which refuse the
+    cluster route for a call the passes do not take."""
     mode, _ = k3_mode(nm, t_mode)
     quad = CLUSTER * BLOCK_PIXELS
     if (not block_passes and mode == 0 and nm.fwd_level == 7
             and nm.grad_level == 7 and h <= CLUSTER_WIDTH
-            and family != "colored" and hw % quad == 0 and pt % quad == 0):
+            and hw % quad == 0 and pt % quad == 0):
         return "sm90"
     return "block"
 
@@ -246,14 +247,27 @@ def grouped_dw90_reference(aq_ws: torch.Tensor, q_ws: torch.Tensor,
     return out
 
 
-def cluster_schedule(blocks_total: int, clusters: int) -> list:
+def cluster_schedule(blocks_total: int, clusters: int,
+                     colored_pt: int = 0) -> list:
     """The cluster passes' walk: for each CTA (cluster c, rank r, in launch
     order) the flattened (image, 64-pixel block) indices it runs, in turn:
     block CLUSTER * q + r of quads q = c, c + C, ... with C = min(quads,
-    ``clusters``) clusters (the kernels' ``block_of``)."""
+    ``clusters``) clusters (the kernels' ``block_of``).  With
+    ``colored_pt`` (the group's pixels) the colored forward's walk (the
+    kernel's ``colored_block``): the quads of each group in turn, quad j of
+    a group taking its mean blocks 2j, 2j + 1 on ranks 0 and 1 and their
+    log-variance partners, colored_pt/128 blocks further, on ranks 2 and 3
+    (rank r's partner is r ^ 2)."""
     quads = blocks_total // CLUSTER
     ncl = min(quads, clusters)
-    return [[q * CLUSTER + r for q in range(c, quads, ncl)]
+
+    def at(q, r):
+        if not colored_pt:
+            return q * CLUSTER + r
+        qpg = colored_pt // (CLUSTER * BLOCK_PIXELS)
+        return (q // qpg * (colored_pt // BLOCK_PIXELS) + 2 * (q % qpg)
+                + (r & 1) + (r >> 1) * (colored_pt // (2 * BLOCK_PIXELS)))
+    return [[at(q, r) for q in range(c, quads, ncl)]
             for c in range(ncl) for r in range(CLUSTER)]
 
 
@@ -748,8 +762,11 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
 
     Calls that ``k3_route`` sends to "sm90" run the cluster passes instead
     (csrc/fused_loss_int8_sm90.cu: the same outputs, W1 streamed once per
-    four blocks, int8 wgmma); ``block_passes`` sends them to the passes
-    above, for a caller that compares the two designs on one card."""
+    four blocks, int8 wgmma; colored: a mean block and its log-variance
+    partner on two CTAs of one cluster, each reading the other's head
+    outputs from its shared memory); ``block_passes`` sends them to the
+    passes above, for a caller that compares the two designs on one
+    card."""
     _check(fold, coords, w1, b1, wht, bht, y_t, mask, family)
     nm = _resolve(numerics)
     if fold.device.type == "cpu":
@@ -860,7 +877,7 @@ def launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family,
               part_max.data_ptr(), gscale.data_ptr(), aq_ws.data_ptr(),
               q_ws.data_ptr(), part_fold.data_ptr(), part_w.data_ptr(),
               ptr(ws), b0, n, hw, h, no, pt, bf16, float(lf), float(lv),
-              mode, dbk, swht, cut, fam, sm90, st)
+              mode, dbk, swht, cut, sm90, st)
         launches["grad" + sfx] += 1
         if cut < 6:
             return
@@ -970,7 +987,7 @@ def sm90_max_clusters() -> dict:
     cluster passes' kernels (cudaOccupancyMaxActiveClusters)."""
     lib = _lib()
     names = ("fwd_bf16", "fwd_f32", "grad_bf16", "grad_f32", "dw",
-             "product")
+             "product", "fwd_colored_bf16", "fwd_colored_f32")
     return {k: lib.svt_loss90_max_clusters(i) for i, k in enumerate(names)}
 
 

@@ -709,14 +709,10 @@ def test_loss_kernel_families_match_plain_version(case, cuda_device):
         _assert_rel(c, u, (1e-6, 1e-7))
         _assert_rel(u, x, INT8_TOL)
     assert not got[0][:, 3, 1:].any()
-    # the colored family keeps the block passes (one forward per call), the
-    # others take the cluster passes (forward, gradient, dW1 per chunk)
-    if colored:
-        assert l8.LAUNCHES["fwd"] == 3 and l8.LAUNCHES["grad"] == 2 + b
-        assert l8.LAUNCHES["grad_sm90"] == 0
-    else:
-        assert l8.LAUNCHES["fwd_sm90"] == l8.LAUNCHES["grad_sm90"] == 2 + b
-        assert l8.LAUNCHES["grad"] == 0
+    # every family takes the cluster passes (forward, gradient, dW1 per
+    # chunk)
+    assert l8.LAUNCHES["fwd_sm90"] == l8.LAUNCHES["grad_sm90"] == 2 + b
+    assert l8.LAUNCHES["fwd"] == l8.LAUNCHES["grad"] == 0
 
 
 @pytest.mark.parametrize("name", ["particles", "colored", "mnist"])
@@ -756,9 +752,8 @@ def test_family_training_step_on_the_card(name, cuda_device):
     d8.reset_launches()
     assert torch.isfinite(tr.train_step(y, y_t=y_t)).all()
     assert torch.isfinite(tr.train_step(y[:5])).all()
-    sfx = "" if name == "colored" else "_sm90"
-    assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0), "fwd" + sfx: 1,
-                           "grad" + sfx: 1, "dw" + sfx: 1, "sum": 5}
+    assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0), "fwd_sm90": 1,
+                           "grad_sm90": 1, "dw_sm90": 1, "sum": 5}
     assert d8.LAUNCHES == {**dict.fromkeys(d8.LAUNCHES, 0),
                            "fwd_acts_sm90": 1, "bwd_scale_sm90": 1,
                            "bwd_grad_sm90": 1, "dw_sm90": 1, "sum": 4}
@@ -1156,6 +1151,63 @@ def test_k3_cluster_passes_match_plain_and_block(case, cuda_device):
         _assert_rel(c, u, (1e-6, 1e-7))
         _assert_rel(u, x, INT8_TOL)
         _assert_rel(u, o, INT8_TOL)
+    assert torch.equal(aq, aq_p) and torch.equal(aq, aq7)
+    assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
+    assert (qi != qi7).float().mean().item() <= INT_MISMATCH
+
+
+# the colored family on the cluster passes, each mean block paired with its
+# log-variance partner across a cluster: (B, (image rows, columns), weight
+# dtype, mask); 64x64 (groups of 1,024: the partner 8 blocks away) and
+# 32x40 (groups of 256: 2 blocks), the galaxy batch and two images
+COLORED90_CASES = [(b, shape, wdt, masked)
+                   for b in (2, 100) for shape in ((64, 64), (32, 40))
+                   for wdt in (torch.bfloat16, torch.float32)
+                   for masked in (True, False)]
+
+
+@pytest.mark.parametrize("case", COLORED90_CASES, ids=lambda c: "-".join(
+    [f"B{c[0]}-HW{c[1][0] * c[1][1]}", str(c[2])[6:],
+     "mask" if c[3] else "nomask"]))
+def test_k3_colored_cluster_passes_match_plain_and_block(case, cuda_device):
+    """The colored family on the cluster passes against the plain version
+    within K3's limits and against the block passes: aq word for word with
+    both, qi within INT_MISMATCH of both, two runs bit for bit, counted
+    under the cluster passes' keys (int8 targets with bf16 weights, bf16
+    targets with f32 weights)."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.train.trainer import build_yt_i8, yt_layout
+
+    b, (rows, cols), wdt, masked = case
+    hw, h = rows * cols, 500
+    fold, _, ws = _int8_inputs(b, 4096, h, 2, wdt, cuda_device)
+    grid = coord_grid(rows, cols, device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    y = torch.rand((b, hw), generator=gen, device=cuda_device)
+    yt = (build_yt_i8(torch.round(y * 255) / 255, hw, True)
+          if wdt == torch.bfloat16 else yt_layout(y.to(torch.bfloat16), hw,
+                                                  True))
+    mask = (grid.pow(2).sum(dim=1) <= 1.0).float() if masked else None
+    pt = l8.pick_tile(hw)
+    coords = l8.colored_coords(grid, pt).contiguous()
+    args = (fold, coords, *ws, yt, mask, "colored")
+    assert l8.k3_route(hw, h, pt, "colored", l8.DEFAULTS) == "sm90"
+    l8.reset_launches()
+    with torch.no_grad():
+        got, (aq, qi) = l8.run_loss_int8(*args, ints=True)
+        assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0),
+                               "fwd_sm90": 1, "grad_sm90": 1, "dw_sm90": 1,
+                               "sum": 5}
+        again = l8.run_loss_int8(*args)
+        old, (aq7, qi7) = l8.run_loss_int8(*args, ints=True,
+                                           block_passes=True)
+        want, (aq_p, qi_p) = l8.loss_int8_reference(*args, ints=True)
+    for u, v, o, x in zip(got, again, old, want):
+        assert torch.isfinite(u).all()
+        assert torch.equal(u, v)
+        _assert_rel(u, x, INT8_TOL)
+        _assert_rel(u, o, INT8_TOL)
+    _assert_rel(got[0][:, 3, 0], want[0][:, 3, 0], INT8_TOL)
     assert torch.equal(aq, aq_p) and torch.equal(aq, aq7)
     assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
     assert (qi != qi7).float().mean().item() <= INT_MISMATCH

@@ -3,7 +3,9 @@ surrounds the kernels, which only the card runs.
 
 - the walk of the clusters: every (image, 64-pixel block) exactly once, the
   four blocks of a cluster's step consecutive and in one quantisation group,
-  the grid a multiple of the cluster at 64x64, 65x65 and 28x28 padded;
+  the grid a multiple of the cluster at 64x64, 65x65 and 28x28 padded; the
+  colored forward's walk pairs each mean block with its log-variance
+  partner (the JAX ``_colored_coords``) in one cluster and group;
 - the W1 slab stream round-trips to ``pad_square(w1f.T)`` and
   ``pad_square(w1r)``, element (n, k) where wgmma's 64-byte swizzled layout
   puts it;
@@ -76,6 +78,40 @@ def test_cluster_walk_covers_every_block_once(side, b, clusters):
             # one image, one quantisation group
             assert len({(x // blocks, (x % blocks) // bpg)
                         for x in step}) == 1
+
+
+# (pixels, images, resident clusters): groups of 1,024 (the partner 8
+# blocks away), of 256 (2 blocks) and two groups of 1,024 an image
+@pytest.mark.parametrize("hw,b,clusters", [(4096, 2, 33), (4096, 3, 5),
+                                           (1280, 2, 7), (1280, 5, 1000),
+                                           (2048, 1, 3), (2048, 4, 2)])
+def test_colored_walk_pairs_partners_in_one_cluster(hw, b, clusters):
+    """The colored forward's walk (``colored_block``): every block exactly
+    once; in each quad rank r's partner r ^ 2 runs the block whose rows
+    hold, by the JAX ``_colored_coords``, the log-variance rows of r's mean
+    rows (original row + HW/2); the four blocks in one image and group."""
+    pt = l8.pick_tile(hw)
+    blocks = hw // l8.BLOCK_PIXELS
+    walk = l8.cluster_schedule(b * blocks, clusters, colored_pt=pt)
+    assert sorted(x for cta in walk for x in cta) == list(range(b * blocks))
+    # the original decoder row that each permuted row holds
+    rows = np.arange(hw, dtype=np.float32)
+    orig = np.asarray(jl8._colored_coords(
+        jnp.asarray(np.stack([rows, rows], axis=1)), pt))[:, 0].astype(int)
+    bpg = pt // l8.BLOCK_PIXELS
+    px = np.arange(l8.BLOCK_PIXELS)
+    for c in range(0, len(walk), l8.CLUSTER):
+        ctas = walk[c:c + l8.CLUSTER]
+        assert len({len(cta) for cta in ctas}) == 1      # in lockstep
+        for step in zip(*ctas):
+            assert len({(x // blocks, (x % blocks) // bpg)
+                        for x in step}) == 1
+            for r in (0, 1):
+                mean, part = step[r], step[r ^ 2]
+                m_rows = orig[(mean % blocks) * l8.BLOCK_PIXELS + px]
+                p_rows = orig[(part % blocks) * l8.BLOCK_PIXELS + px]
+                assert (m_rows < hw // 2).all()
+                assert (p_rows == m_rows + hw // 2).all()
 
 
 @pytest.mark.parametrize("side", [64, 65, 28])
@@ -219,7 +255,11 @@ ROUTE_CASES = [
      "sm90"),
     (Numerics(layout="t"), "gaussian", 500, 4096, None, False, "sm90"),
     (Numerics(), "bernoulli", 500, 4096, None, True, "block"),
-    (Numerics(), "colored", 500, 4096, None, False, "block"),
+    (Numerics(), "colored", 500, 4096, None, False, "sm90"),
+    (Numerics(), "colored", 500, 1280, None, False, "sm90"),
+    (Numerics(), "colored", 500, 4096, None, True, "block"),
+    (Numerics(sr=True), "colored", 500, 4096, None, False, "block"),
+    (Numerics(), "colored", 1000, 4096, None, False, "block"),
     (Numerics(), "bernoulli", 513, 4096, None, False, "block"),
     (Numerics(), "bernoulli", 1000, 4096, None, False, "block"),
     (Numerics(), "bernoulli", 500, 1088, None, False, "block"),
