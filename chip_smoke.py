@@ -13,6 +13,7 @@
     python3 chip_smoke.py --split dec90       # their product/epilogue split
     python3 chip_smoke.py --default-width PARENT_DIR   # K1-K5 A/B
     python3 chip_smoke.py --sass PARENT_DIR   # untouched kernels' SASS
+    python3 chip_smoke.py --phase cli_particles   # the particles CLI alone
 
 Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the float
@@ -95,6 +96,25 @@ paths:
   then every run against its plain version (0 words may differ), with its
   bound, the library call's time and each GEMM kernel's IMMA count in the
   library's SASS;
+- the particles CLI (``[cli_particles]``), ``python -m
+  spatialvae_torch.cli.train_particles``'s ``main`` in process at its
+  full-width defaults (z=2, p and q 500 wide, 2 layers, B=100) on 8,192
+  training and 1,024 test 40x40 particles written from the seed to
+  ``.mrc`` files with CTF tables, two epochs in each of four arms (float
+  with mask and normalisation; CTF with the colored likelihood; the same
+  in int8 mode, on K4/K5 and never K3; rotation augmentation in int8
+  mode, on K3) and a resume of the first for a third epoch: each arm's
+  launches counted from 0, its TSV, seconds per epoch and the checkpoints
+  of every interval read back by ``SpatialVae.load``; before the arms,
+  ``[cli_kernels]`` holds every kernel they launch to its plain version
+  at their own shapes (K1/K2 at B=100 and the tail of 92, K1 alone at the
+  evaluation's 100 and 24, K3's Gaussian family over 1,600 pixels padded
+  to 1,792 under the CLI's circular mask, K4/K5 over coords padded to
+  1,792, one and two outputs, float32 weights); ``[cli_ctf]`` holds
+  ``apply_ctf`` to the grouped conv2d in float64 at B=100 with the run's
+  39x39 kernels and the bicubic rotation to its CPU result, and
+  ``[tail_cache]`` times the float decoder's no-grad K1 after an Adam
+  step's version bump;
 - the port's int8 kernel microbenchmark (``[kernel_bench]``: the TPU tool
   ``tools/kernel_bench.py``'s seventeen runs at its defaults, B=2,048,
   HW=4,096, H=500, pt=2,048, through
@@ -631,6 +651,47 @@ def backward_case(torch, case, seed: int, timed: bool,
     return out
 
 
+def check_backward(name, dtype, r) -> dict:
+    """Raise unless ``backward_case``'s readings ``r`` hold every limit:
+    y and the activations by absolute error (and against the tile kernels
+    on the sm90 route), each gradient of both variants by error relative to
+    max|plain|.  Returns, by variant, the gradients' error fields and the
+    route's largest error against the tile kernels (None off sm90)."""
+    checks = [("y", TOL, r["y"]), ("acts", ACTS_TOL, r["acts"])]
+    if "acts_vs_tile" in r:
+        checks += [("tile y", TOL, r["tile", "y"]),
+                   ("tile acts", ACTS_TOL, r["tile", "acts"]),
+                   ("acts vs tile", ACTS_TOL, r["acts_vs_tile"])]
+    for what, tols, (err, mean_err, *_) in checks:
+        tol = tols[dtype]
+        if not (err <= tol[0] and mean_err <= tol[1]):
+            raise AssertionError(f"{name} {what}: kernel vs plain max "
+                                 f"abs err {err}, mean {mean_err}; "
+                                 f"limits {tol}")
+    out = {}
+    for variant in ("residual", "recompute"):
+        tol = BWD_TOL[dtype, variant]
+        fields = {}
+        for design in ((), ("tile",)):
+            if design and (variant, "tile", GRADS[0]) not in r:
+                continue
+            for gname in GRADS:
+                err, mean_err, rel, mean_rel = r[(variant, *design, gname)]
+                if not (rel <= tol[0] and mean_rel <= tol[1]):
+                    raise AssertionError(
+                        f"{name} {variant} {' '.join(design)} {gname}: "
+                        f"kernel vs plain error relative to max|plain| "
+                        f"{rel}, mean {mean_rel}; limits {tol}")
+                fields["_".join((*design, gname))] = (
+                    f"{err:.3e}/{mean_err:.3e}/{rel:.2e}/{mean_rel:.2e}")
+        vt = r.get((variant, "vs_tile"))
+        if vt is not None and not vt <= tol[0]:
+            raise AssertionError(f"{name} {variant}: sm90 vs tile "
+                                 f"{vt}; limit {tol[0]}")
+        out[variant] = (fields, vt)
+    return out
+
+
 def phase_backward(torch) -> dict:
     """K1 with its activation output and K2 (residual and recompute)
     against their plain versions at the training path's shapes; on the
@@ -640,17 +701,7 @@ def phase_backward(torch) -> dict:
     for case in BWD_CASES:
         name, b, hw, h, lh, no, resid, dtype = case
         r = backward_case(torch, case, SEED, timed=True)
-        checks = [("y", TOL, r["y"]), ("acts", ACTS_TOL, r["acts"])]
-        if "acts_vs_tile" in r:
-            checks += [("tile y", TOL, r["tile", "y"]),
-                       ("tile acts", ACTS_TOL, r["tile", "acts"]),
-                       ("acts vs tile", ACTS_TOL, r["acts_vs_tile"])]
-        for what, tols, (err, mean_err, *_) in checks:
-            tol = tols[dtype]
-            if not (err <= tol[0] and mean_err <= tol[1]):
-                raise AssertionError(f"{name} {what}: kernel vs plain max "
-                                     f"abs err {err}, mean {mean_err}; "
-                                     f"limits {tol}")
+        checked = check_backward(name, dtype, r)
         bd = dec_bounds(b, hw, h, no, 2 if dtype == "bfloat16" else 4,
                         2 if dtype == "bfloat16" else 4)
         ab = lambda what: _dec_ab({
@@ -676,24 +727,7 @@ def phase_backward(torch) -> dict:
             bound_ms=f"{bd['fwd_acts'][0] * lh:.4f}")
         for variant in ("residual", "recompute"):
             tol = BWD_TOL[dtype, variant]
-            fields = {}
-            for design in ((), ("tile",)):
-                if design and (variant, "tile", GRADS[0]) not in r:
-                    continue
-                for gname in GRADS:
-                    err, mean_err, rel, mean_rel = r[(variant, *design,
-                                                      gname)]
-                    if not (rel <= tol[0] and mean_rel <= tol[1]):
-                        raise AssertionError(
-                            f"{name} {variant} {' '.join(design)} {gname}: "
-                            f"kernel vs plain error relative to max|plain| "
-                            f"{rel}, mean {mean_rel}; limits {tol}")
-                    fields["_".join((*design, gname))] = (
-                        f"{err:.3e}/{mean_err:.3e}/{rel:.2e}/{mean_rel:.2e}")
-            vt = r.get((variant, "vs_tile"))
-            if vt is not None and not vt <= tol[0]:
-                raise AssertionError(f"{name} {variant}: sm90 vs tile "
-                                     f"{vt}; limit {tol[0]}")
+            fields, vt = checked[variant]
             log("kernel_bwd", case=name, variant=variant, dtype=dtype,
                 route=r["route"],
                 errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
@@ -1291,11 +1325,11 @@ def dec_bounds(b, hw, h, no, wdt_bytes, act_bytes) -> dict:
             "sums": bd(parts)}
 
 
-def _int8_inputs(torch, b, dtype, gen, no=CHANNELS, h=None):
+def _int8_inputs(torch, b, dtype, gen, no=CHANNELS, h=None, hw=None):
     """fold, coords and (w1, b1, wht, bht) at the galaxy shape (a decoder
-    P_HIDDEN wide unless ``h``)."""
+    P_HIDDEN wide unless ``h``, over IMAGE's pixels unless ``hw``)."""
     fold, coords, whid, bhid, wht, bht = _tail_inputs(
-        torch, b, IMAGE[0] * IMAGE[1], h or P_HIDDEN, 1, no,
+        torch, b, hw or IMAGE[0] * IMAGE[1], h or P_HIDDEN, 1, no,
         getattr(torch, dtype), gen)
     return fold, coords, (whid[0].contiguous(), bhid[0].contiguous(), wht,
                           bht)
@@ -1395,22 +1429,29 @@ def loss_case(torch, b, dtype, seed, timed, i8=True, masked=False,
                           timed, nm, block_passes)
 
 
-def int8_tail_case(torch, b, dtype, seed, timed) -> dict:
+def int8_tail_case(torch, b, dtype, seed, timed, hw=None,
+                   no=CHANNELS) -> dict:
     """K4 with and without a1 and K5 with the residual and with recompute
-    against their plain versions on one galaxy batch, on the passes the
-    route takes ("route"; K4 without a1 on the cluster passes wherever they
-    fit, though the table sends float32 weights to the block passes:
-    "route_alone").  A call that the cluster passes take is also held to
-    the block passes ("vs_block": y and a1 by absolute error, K5's outputs
-    by relative error) and, with ``timed``, timed in turns with them
-    (AB_I8; "<call>_ms" the cluster passes', "<call>_ms_block",
-    "<call>_turns"; "<call>_ms_route" the table's)."""
+    against their plain versions on one galaxy batch (or ``hw`` pixels and
+    ``no`` outputs: the coords zero-padded to a multiple of 256 and the
+    cotangent 0 on the pad, as ``fused_spatial_generator_int8`` calls
+    them), on the passes the route takes ("route"; K4 without a1 on the
+    cluster passes wherever they fit, though the table sends float32
+    weights to the block passes: "route_alone", and where that differs
+    "y_alone", K4 without a1 on it).  A call that the cluster passes
+    take is also held to the block passes ("vs_block": y and a1 by
+    absolute error, K5's outputs by relative error) and, with ``timed``,
+    timed in turns with them (AB_I8; "<call>_ms" the cluster passes',
+    "<call>_ms_block", "<call>_turns"; "<call>_ms_route" the table's)."""
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    fold, coords, ws = _int8_inputs(torch, b, dtype, gen)
-    g = torch.randn((b, CHANNELS, IMAGE[0] * IMAGE[1]), generator=gen,
-                    device=DEVICE)
+    fold, coords, ws = _int8_inputs(torch, b, dtype, gen, no=no, hw=hw)
+    real = coords.shape[0]
+    coords = torch.nn.functional.pad(
+        coords, (0, 0, 0, (-real) % 256)).contiguous()
+    g = torch.randn((b, no, coords.shape[0]), generator=gen, device=DEVICE)
+    g[..., real:] = 0.0
     w = d8.Int8Weights(*ws)
     ref = (w.w1q, w.sw, w.b1, w.wht)
     route = d8.int8_route(coords.shape[0], ws[0].shape[0])
@@ -1426,6 +1467,9 @@ def int8_tail_case(torch, b, dtype, seed, timed) -> dict:
         out["y"] = rel_errors(y, y_ref)
         out["y_no_a1"] = rel_errors(y0, y_ref)
         out["a1"] = rel_errors(a1, a1_ref)
+        if alone != route:
+            out["y_alone"] = rel_errors(d8.run_int8_tail(fold, coords, w),
+                                        y_ref)
         del y_ref, a1_ref, y0
         if route == "sm90":
             yb, a1b = d8.run_int8_tail(fold, coords, w, emit_a1=True,
@@ -2718,12 +2762,16 @@ def disc_mask(torch, image):
 
 
 def family_case(torch, case, dtype, seed, timed, forced_mask=True,
-                nm=None, block_passes=False) -> dict:
+                nm=None, block_passes=False, b=None,
+                target_dtype="bfloat16", mask_values=None) -> dict:
     """One of FAMILY_CASES against the plain version, the operands laid out
     as ``fused_bce_spatial_int8`` and the trainer's target copy lay them
     out: colored over chunk-permuted coords with pre-paired targets, a pixel
     count off the tiling zero-padded under a mask that is 0 on the pad.
-    Float targets arrive in bf16, the compute dtype of the training paths.
+    ``b`` images (default BATCH, read at the call: ``sized`` sets it);
+    float targets arrive in ``target_dtype`` (bf16, the compute dtype of
+    the training paths; the particles CLI's float32); ``mask_values`` the
+    masked cases' pixel mask instead of the unit disc's.
     ``forced_mask=False`` leaves the pad unmasked in the kernel's call
     alone: the faulty copy that places the padded family's limits.  With
     ``timed`` also the call's bound, from the real (unpadded) pixels; ``nm``
@@ -2734,22 +2782,26 @@ def family_case(torch, case, dtype, seed, timed, forced_mask=True,
     from spatialvae_torch.train.trainer import build_yt_i8, yt_layout
 
     name, family, side, masked, i8 = case
+    b = b or BATCH
     colored = family == "colored"
     hw, no = side * side, 2 if colored else 1
     wdt = getattr(torch, dtype)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     fold, coords, whid, bhid, wht, bht = _tail_inputs(
-        torch, BATCH, hw, P_HIDDEN, 1, no, wdt, gen)
+        torch, b, hw, P_HIDDEN, 1, no, wdt, gen)
     ws = (whid[0].contiguous(), bhid[0].contiguous(), wht, bht)
     if i8:
-        y = torch.randint(0, 256, (BATCH, hw), generator=gen,
+        y = torch.randint(0, 256, (b, hw), generator=gen,
                           device=DEVICE).float() / 255.0
         yt = build_yt_i8(y, hw, colored)
     else:
-        y = 0.5 + 0.4 * torch.randn((BATCH, hw), generator=gen,
+        y = 0.5 + 0.4 * torch.randn((b, hw), generator=gen,
                                     device=DEVICE)
-        yt = yt_layout(y.to(torch.bfloat16), hw, colored)
-    mask = disc_mask(torch, (side, side)) if masked else None
+        yt = yt_layout(y.to(getattr(torch, target_dtype)), hw, colored)
+    mask = None
+    if masked:
+        mask = (disc_mask(torch, (side, side)) if mask_values is None
+                else mask_values)
     pad = 0 if colored else l8.padded_hw(hw) - hw
     if colored:
         coords = l8.colored_coords(coords, l8.pick_tile(hw))
@@ -2774,12 +2826,12 @@ def family_case(torch, case, dtype, seed, timed, forced_mask=True,
     if timed:
         h = P_HIDDEN
         w_bytes = (h * h + h + no * h + no) * wdt.itemsize
-        io = (BATCH * 4 * h * 4 + hw * 2 * 4 + w_bytes
-              + BATCH * hw * yt.element_size()
+        io = (b * 4 * h * 4 + hw * 2 * 4 + w_bytes
+              + b * hw * yt.element_size()
               + (hw * 4 if masked else 0)
-              + BATCH * 4 * h * 4 + (h * h + h + no * h + no) * 4)
-        out["bound"] = bound(io, (3 * 2.0 * BATCH * hw * h * h, PEAK_INT8),
-                             (3 * 2.0 * BATCH * hw * h * no, PEAK_FP32))
+              + b * 4 * h * 4 + (h * h + h + no * h + no) * 4)
+        out["bound"] = bound(io, (3 * 2.0 * b * hw * h * h, PEAK_INT8),
+                             (3 * 2.0 * b * hw * h * no, PEAK_FP32))
         out["pixels"] = (hw, hw + pad)
     return out
 
@@ -4029,20 +4081,24 @@ def y_tol(h: int, dtype: str) -> tuple:
     return TOL_WIDE[dtype] if h > 2048 else TOL[dtype]
 
 
-def fwd_case(torch, b, h, dtype, seed, timed) -> dict:
-    """K1 without its activation output (serving) at width ``h``: errors
-    (absolute), with ``timed`` the kernel's and the plain version's ms."""
+def fwd_case(torch, b, h, dtype, seed, timed, hw=None, no=CHANNELS) -> dict:
+    """K1 without its activation output (serving) at width ``h`` (over
+    IMAGE's pixels unless ``hw``, ``no`` outputs): errors (absolute), with
+    ``timed`` the kernel's and the plain version's ms; "route" the route
+    ``decoder_route`` gives it."""
     from spatialvae_torch.kernels.fused_decoder import (
         TailWeights,
+        decoder_route,
         decoder_tail_reference,
         run_decoder_tail,
     )
 
+    hw = hw or IMAGE[0] * IMAGE[1]
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    fold, coords, *ws = _tail_inputs(torch, b, IMAGE[0] * IMAGE[1], h, 1,
-                                     CHANNELS, getattr(torch, dtype), gen)
+    fold, coords, *ws = _tail_inputs(torch, b, hw, h, 1, no,
+                                     getattr(torch, dtype), gen)
     tw = TailWeights(*ws)
-    out = {}
+    out = {"route": decoder_route(hw, h, 1, no)}
     with torch.no_grad():
         got = run_decoder_tail(fold, coords, tw)
         torch.cuda.synchronize()
@@ -5746,6 +5802,441 @@ def phase_default_width_ab(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the particles CLI end to end: MRC stacks, CTF, augmentation, checkpoints
+# and resume, through ``python -m spatialvae_torch.cli.train_particles``'s
+# ``main`` at its full-width defaults
+# ---------------------------------------------------------------------------
+
+CLI_SIDE = 40           # BASELINE.json #3's 5HDB particles, 40x40
+CLI_TRAIN = 8192
+CLI_TEST = 1024
+CLI_EPOCHS = 2
+# the CLI's defaults: z=2, p and q 500 wide with 2 layers, B=100
+CLI_BATCH = 100
+CLI_HIDDEN = 500
+# apply_ctf (FFT) against the grouped conv2d, both float64, relative to
+# max|out|; the FFT's rounding sits near 1e-15
+CTF_F64_TOL = 1e-9
+# apply_ctf in float32 on the card against the float64 conv2d: the CPU
+# test's limit against the JAX package
+CTF_F32_TOL = 1e-5
+ROTATE_TOL = 1e-5       # the card's bicubic rotation against its CPU result
+CLI_HEADER = "Epoch\tSplit\tELBO\tError\tKL"
+
+
+def particle_stack(n: int, rng) -> np.ndarray:
+    """(n, 40, 40) float32 particles made with numpy: an anisotropic
+    Gaussian blob of random centre, orientation, size and contrast, plus
+    noise."""
+    ax = np.linspace(-1, 1, CLI_SIDE, dtype=np.float32)
+    yy, xx = np.meshgrid(-ax, ax, indexing="ij")
+
+    def u():
+        return rng.random((n, 1, 1), dtype=np.float32)
+
+    cx, cy = 0.4 * u() - 0.2, 0.4 * u() - 0.2
+    th = 2 * np.float32(math.pi) * u()
+    sa, sb = 0.15 + 0.2 * u(), 0.06 + 0.1 * u()
+    dx, dy = xx - cx, yy - cy
+    r0 = np.cos(th) * dx + np.sin(th) * dy
+    r1 = -np.sin(th) * dx + np.cos(th) * dy
+    img = np.exp(-(r0 ** 2 / (2 * sa ** 2) + r1 ** 2 / (2 * sb ** 2)))
+    img = img * (0.3 + 0.7 * u())
+    img += 0.3 * rng.standard_normal(img.shape, dtype=np.float32)
+    return img.astype(np.float32)
+
+
+def ctf_table(n: int, rng) -> str:
+    """A CTF table of n rows: defocus 1-3 um, Cs 2.7 mm, 300 kV, 4.2-4.4
+    A/pixel (a 40x40 box of binned micrographs), B-factor 0-100, 10%
+    amplitude contrast, a small dfdiff (read, not used) and the
+    astigmatism angle."""
+    cols = [rng.uniform(1.0, 3.0, n), np.full(n, 2.7), np.full(n, 300.0),
+            rng.uniform(4.2, 4.4, n), rng.uniform(0.0, 100.0, n),
+            np.full(n, 10.0), rng.uniform(-0.05, 0.05, n),
+            rng.uniform(0.0, 360.0, n)]
+    return "\n".join(" ".join(f"{v:.6f}" for v in row)
+                     for row in zip(*cols)) + "\n"
+
+
+class _StampedOut:
+    """stdout of an in-process CLI run: the text and, per line, the time
+    it was written."""
+
+    def __init__(self):
+        self.lines = []
+        self._part = ""
+
+    def write(self, text):
+        self._part += text
+        *done, self._part = self._part.split("\n")
+        now = time.perf_counter()
+        self.lines += [(now, ln) for ln in done]
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def cli_particles_data(tmpdir: str) -> dict:
+    """The stacks and CTF tables of the phase, written from SEED."""
+    from spatialvae_torch.io.mrc import write_mrc
+
+    rng = np.random.default_rng(SEED + 40)
+    paths = {}
+    for split, n in (("train", CLI_TRAIN), ("test", CLI_TEST)):
+        paths[split] = os.path.join(tmpdir, f"particles_{split}.mrc")
+        with open(paths[split], "wb") as f:
+            write_mrc(f, particle_stack(n, rng))
+        paths[f"ctf_{split}"] = os.path.join(tmpdir, f"ctf_{split}.txt")
+        with open(paths[f"ctf_{split}"], "w") as f:
+            f.write(ctf_table(n, rng))
+    return paths
+
+
+def _launch_groups() -> dict:
+    """The launches of the CLI's kernels, by kernel."""
+    c = _int8_launches()
+    return {"k1k2": c["k12"], "k3": sum(c["k3"].values()),
+            "k4k5": sum(c["k45"].values()),
+            "adam_step": c["adam"]["adam_step"], "k8": sum(c["k8"].values()),
+            "detail": c}
+
+
+# arm -> (extra argv, epochs, kernels that must launch, that must not)
+CLI_ARMS = {
+    "a_float": (["--mask", "--normalize", "--save-optimizer"], CLI_EPOCHS,
+                ("k1k2", "adam_step"), ("k3", "k4k5", "k8")),
+    "b_ctf_fit_noise": (["CTF", "--fit-noise", "--mask"], CLI_EPOCHS,
+                        ("k1k2", "adam_step"), ("k3", "k4k5", "k8")),
+    "c_ctf_int8": (["CTF", "--fit-noise", "--mask", "--int8-decoder"],
+                   CLI_EPOCHS, ("k4k5", "adam_step"), ("k3", "k1k2", "k8")),
+    "d_augment_int8": (["--augment-rotation", "--int8-decoder", "--mask"],
+                       CLI_EPOCHS, ("k3", "k4k5", "adam_step"),
+                       ("k1k2", "k8")),
+    "e_resume": (["RESUME", "--mask", "--normalize"], 1,
+                 ("k1k2", "adam_step"), ("k3", "k4k5", "k8")),
+}
+
+
+def cli_arm(torch, name: str, paths: dict, tmpdir: str, card: str) -> dict:
+    """One CLI run: the launch counts from 0 just before it, the TSV, the
+    checkpoints of every interval read back by ``SpatialVae.load``."""
+    import contextlib
+    import io
+
+    from spatialvae_torch.api import SpatialVae
+    from spatialvae_torch.cli import train_particles as tp
+
+    extra, epochs, must, must_not = CLI_ARMS[name]
+    prefix = os.path.join(tmpdir, f"cli_{name}")
+    argv = [paths["train"], paths["test"], "--save-prefix", prefix,
+            "--save-interval", "1", "--seed", str(SEED)]
+    first = 1
+    for a in extra:
+        if a == "CTF":
+            argv += ["--ctf-train", paths["ctf_train"], "--ctf-test",
+                     paths["ctf_test"]]
+        elif a == "RESUME":
+            base = os.path.join(tmpdir, "cli_a_float")
+            e = CLI_EPOCHS
+            argv += ["--resume-generator", f"{base}_generator_epoch{e}.sav",
+                     "--resume-inference", f"{base}_inference_epoch{e}.sav",
+                     "--resume-optimizer", f"{base}_optimizer_epoch{e}.sav"]
+            first = CLI_EPOCHS + 1
+        else:
+            argv.append(a)
+    last = first + epochs - 1
+    argv += ["--num-epochs", str(last)]
+    out, err = _StampedOut(), io.StringIO()
+    torch.cuda.synchronize()
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            tp.main(argv)
+        torch.cuda.synchronize()
+    except BaseException:
+        print(err.getvalue(), file=sys.stderr)
+        raise
+    seconds = time.perf_counter() - t0
+    counts = _launch_groups()
+    rows = [(t, ln) for t, ln in out.lines if "\t" in ln]
+    if not rows or rows[0][1] != CLI_HEADER:
+        raise AssertionError(f"{name}: TSV header {rows[:1]}")
+    body = [ln.split("\t") for _, ln in rows[1:]]
+    want = [[str(e), s] for e in range(first, last + 1)
+            for s in ("train", "test")]
+    if [r[:2] for r in body] != want or any(len(r) != 5 for r in body):
+        raise AssertionError(f"{name}: TSV rows {body}, expected {want}")
+    vals = np.array([[float(v) for v in r[2:]] for r in body])
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"{name}: non-finite metrics {vals}")
+    # an epoch's seconds: its training and evaluation, from the header (the
+    # stacks loaded, the CTF kernels built, the data on the card) to its
+    # test row
+    stamps = [rows[0][0]] + [t for t, ln in rows[1:] if "\ttest\t" in ln]
+    per_epoch = [b - a for a, b in zip(stamps, stamps[1:])]
+    for k in must:
+        if counts[k] < 1:
+            raise AssertionError(f"{name}: {k} was not launched: {counts}")
+    for k in must_not:
+        if counts[k]:
+            raise AssertionError(f"{name}: {k} launched {counts[k]} times: "
+                                 f"{counts}")
+    likelihood = "colored" if "--fit-noise" in extra else "gaussian"
+    for e in range(first, last + 1):
+        gp, ip = f"{prefix}_generator_epoch{e}.sav", \
+            f"{prefix}_inference_epoch{e}.sav"
+        model = SpatialVae.load(gp, ip, device=DEVICE)
+        if model.ecfg.likelihood != likelihood or \
+                tuple(model.image_shape) != (CLI_SIDE, CLI_SIDE):
+            raise AssertionError(f"{name}: checkpoint {gp}: {model.ecfg}")
+        z_mu, _ = model.encode(torch.zeros((4, CLI_SIDE * CLI_SIDE),
+                                           device=DEVICE))
+        if not torch.isfinite(z_mu).all():
+            raise AssertionError(f"{name}: {gp} encodes non-finite")
+        if "--save-optimizer" in extra and not os.path.exists(
+                f"{prefix}_optimizer_epoch{e}.sav"):
+            raise AssertionError(f"{name}: no optimizer checkpoint {e}")
+    steps = epochs * math.ceil(CLI_TRAIN / CLI_BATCH)
+    evals = epochs * math.ceil(CLI_TEST / CLI_BATCH)
+    log("cli_particles", arm=name, card=repr(card), epochs=f"{first}-{last}",
+        seconds=f"{seconds:.3f}",
+        s_per_epoch="/".join(f"{v:.3f}" for v in per_epoch),
+        train_steps=steps, eval_batches=evals,
+        test_elbo="/".join(r[2] for r in body if r[1] == "test"),
+        launches=json.dumps({k: v for k, v in counts.items()
+                             if k != "detail"}, separators=(",", ":")),
+        per_step=json.dumps({k: round(counts[k] / steps, 3)
+                             for k in ("k1k2", "k3", "k4k5", "adam_step")},
+                            separators=(",", ":")),
+        detail=json.dumps(counts["detail"], separators=(",", ":")))
+    return {"seconds": seconds, "per_epoch": per_epoch, "counts": counts}
+
+
+def cli_ctf_checks(torch, paths: dict) -> None:
+    """apply_ctf on the card against the grouped conv2d at B=100 with the
+    run's own 39x39 kernels (float64, and float32 against float64), with
+    both timed; the bicubic rotation on the card against its CPU result."""
+    from spatialvae_torch.ctf import apply_ctf, apply_ctf_spatial
+    from spatialvae_torch.ctf import ctf_filter, parse_ctf
+    from spatialvae_torch.transforms.augment import rotate_images_bicubic
+
+    k = CLI_SIDE - 1
+    kernels = ctf_filter(parse_ctf(paths["ctf_train"]), k, k)[:CLI_BATCH]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    y64 = torch.randn((CLI_BATCH, CLI_SIDE, CLI_SIDE), generator=gen,
+                      device=DEVICE, dtype=torch.float64)
+    k64 = torch.from_numpy(kernels).to(DEVICE, torch.float64)
+    spatial = apply_ctf_spatial(y64, k64)
+    scale = spatial.abs().max().item()
+    err64 = (apply_ctf(y64, k64) - spatial).abs().max().item() / scale
+    y32, k32 = y64.float(), k64.float()
+    err32 = (apply_ctf(y32, k32).double() - spatial).abs().max().item() \
+        / scale
+    if not (err64 <= CTF_F64_TOL and err32 <= CTF_F32_TOL):
+        raise AssertionError(f"apply_ctf vs the grouped conv2d: float64 "
+                             f"{err64}, float32 {err32}; limits "
+                             f"{CTF_F64_TOL}, {CTF_F32_TOL}")
+    fft_ms = statistics.median(cuda_ms(lambda: apply_ctf(y32, k32), torch)
+                               for _ in range(N_TIMED))
+    conv_ms = statistics.median(
+        cuda_ms(lambda: apply_ctf_spatial(y32, k32), torch)
+        for _ in range(N_TIMED))
+    imgs = torch.rand((CLI_BATCH, CLI_SIDE, CLI_SIDE), generator=gen,
+                      device=DEVICE)
+    theta = 2 * math.pi * torch.rand(CLI_BATCH, generator=gen, device=DEVICE)
+    got = rotate_images_bicubic(imgs, theta)
+    want = rotate_images_bicubic(imgs.cpu(), theta.cpu())
+    rot_err = (got.cpu() - want).abs().max().item()
+    if not rot_err <= ROTATE_TOL:
+        raise AssertionError(f"rotation on the card vs the CPU: {rot_err}; "
+                             f"limit {ROTATE_TOL}")
+    rot_ms = statistics.median(
+        cuda_ms(lambda: rotate_images_bicubic(imgs, theta), torch)
+        for _ in range(N_TIMED))
+    log("cli_ctf", batch=CLI_BATCH, kernel=f"{k}x{k}",
+        f64_fft_vs_conv_max_rel=f"{err64:.3e}",
+        f32_fft_vs_f64_conv_max_rel=f"{err32:.3e}",
+        f32_fft_ms=f"{fft_ms:.4f}", f32_conv2d_ms=f"{conv_ms:.4f}",
+        rotate_vs_cpu_max_abs=f"{rot_err:.3e}", rotate_ms=f"{rot_ms:.4f}")
+
+
+# K1/K2 at the CLI's shapes: name, B, HW, H, Lh, No, resid, weight dtype
+# (the float arms' training batches and their tail, 8,192 % 100 = 92;
+# Gaussian one output, colored two)
+CLI_BWD_CASES = [
+    (f"cli_{fam}{tail}", b, CLI_SIDE ** 2, CLI_HIDDEN, 1, no, False,
+     "float32")
+    for fam, no in (("gaussian", 1), ("colored", 2))
+    for tail, b in (("", CLI_BATCH), ("_tail", CLI_TRAIN % CLI_BATCH))]
+# the evaluation's batches (1,024 % 100 = 24): K1 without its activations
+# in the float arms, K4 without a1 in the int8 arms
+CLI_EVAL_BATCHES = (CLI_BATCH, CLI_TEST % CLI_BATCH)
+
+
+def cli_kernel_checks(torch) -> None:
+    """``[cli_kernels]``: every kernel the CLI's arms launch, against its
+    plain version at the arms' own shapes (40x40, H=500, float32 weights),
+    through the helpers and limits of the earlier phases: K1 with its
+    activations and K2 (both variants) at the training batches and K1
+    alone at the evaluation's, one and two outputs; K3's Gaussian family
+    at 1,600 pixels padded to 1,792 under the CLI's circular mask with
+    float32 targets (arm d); K4 with a1 and K5 on the cluster passes over
+    coords padded to 1,792 (arm c's training, two outputs) and K4 without
+    a1 on the route the table gives float32 weights (the int8 arms'
+    evaluation, both output counts)."""
+    from spatialvae_torch.cli.train_particles import circular_mask
+
+    hw = CLI_SIDE ** 2
+    for case in CLI_BWD_CASES:
+        name, b, _, _, _, no, _, dtype = case
+        r = backward_case(torch, case, SEED, timed=False)
+        checked = check_backward(name, dtype, r)
+        log("cli_kernels", kernel="K1/K2", case=name, B=b, HW=hw,
+            H=CLI_HIDDEN, No=no, dtype=dtype, route=r["route"],
+            y_max_abs_err=f"{r['y'][0]:.3e}",
+            acts_max_abs_err=f"{r['acts'][0]:.3e}",
+            errors="max_abs/mean_abs/max_rel/mean_rel",
+            **{f"{v}_{k}": e for v, (f, _) in checked.items()
+               for k, e in f.items() if k in GRADS})
+        torch.cuda.empty_cache()
+    for no in (1, 2):
+        for b in CLI_EVAL_BATCHES:
+            r = fwd_case(torch, b, CLI_HIDDEN, "float32", SEED, False,
+                         hw=hw, no=no)
+            log("cli_kernels", kernel="K1", case="eval", B=b, HW=hw,
+                H=CLI_HIDDEN, No=no, dtype="float32", route=r["route"],
+                y_max_abs_err=f"{r['y'][0]:.3e}",
+                y_mean_abs_err=f"{r['y'][1]:.3e}",
+                max_tol=TOL["float32"][0], mean_tol=TOL["float32"][1])
+    mask = torch.from_numpy(circular_mask(CLI_SIDE, CLI_SIDE)).to(DEVICE)
+    case = ("cli_gaussian_pad40", "gaussian", CLI_SIDE, True, False)
+    for b in (CLI_BATCH, CLI_TRAIN % CLI_BATCH):
+        what = f"K3 {case[0]} B={b}"
+        r = family_case(torch, case, "float32", SEED, False, b=b,
+                        target_dtype="float32", mask_values=mask)
+        if not r["same"]:
+            raise AssertionError(f"{what}: two runs differ")
+        fields = {n: _check_rel(f"{what} {n}", r[n], INT8_TOL)
+                  for n in ("loss",) + INT8_GRADS}
+        if r["route"] == "sm90":
+            for n in ("loss",) + INT8_GRADS:
+                _check_rel(f"{what} {n}, cluster vs block passes",
+                           r["vs_block"][n], INT8_TOL)
+        log("cli_kernels", kernel="K3", case=case[0], B=b, HW=hw,
+            padded_HW=-(-hw // 256) * 256,
+            H=CLI_HIDDEN, No=1, dtype="float32", targets="float32",
+            mask="circular", route=r["route"],
+            errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
+            max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+            ints_vs_plain=_check_ints(what, r), **_log_ab(r))
+        torch.cuda.empty_cache()
+    for no, batches in ((2, (CLI_BATCH, CLI_TRAIN % CLI_BATCH,
+                             CLI_TEST % CLI_BATCH)),
+                        (1, CLI_EVAL_BATCHES)):
+        for b in batches:
+            what = f"K4/K5 40x40 No={no} B={b}"
+            r = int8_tail_case(torch, b, "float32", SEED, False, hw=hw,
+                               no=no)
+            _check_abs(f"{what} y", r["y"], INT8_Y_TOL)
+            _check_abs(f"{what} y without a1", r["y_no_a1"], INT8_Y_TOL)
+            _check_abs(f"{what} a1", r["a1"], INT8_A1_TOL)
+            if "y_alone" in r:
+                _check_abs(f"{what} y without a1 on {r['route_alone']}",
+                           r["y_alone"], INT8_Y_TOL)
+            v = r["vs_block"]
+            if r["route"] == "sm90":
+                _check_abs(f"{what} y, cluster vs block passes", v["y"],
+                           INT8_Y_TOL)
+                _check_abs(f"{what} a1, cluster vs block passes", v["a1"],
+                           INT8_A1_TOL)
+            worst = {}
+            for variant in ("residual", "recompute"):
+                if not r[variant, "same"]:
+                    raise AssertionError(f"{what} {variant}: two runs "
+                                         f"differ")
+                worst[variant] = _check_int8_all(
+                    f"{what} {variant}", {n: r[variant, n]
+                                          for n in INT8_GRADS}, INT8_GRADS)
+                if r["route"] == "sm90":
+                    _check_int8_all(f"{what} {variant}, cluster vs block "
+                                    f"passes", {n: v[variant, n]
+                                                for n in INT8_GRADS},
+                                    INT8_GRADS)
+            log("cli_kernels", kernel="K4/K5", B=b, HW=hw,
+                padded_HW=-(-hw // 256) * 256, H=CLI_HIDDEN, No=no,
+                dtype="float32", route=r["route"],
+                route_alone=r["route_alone"],
+                y_max_abs_err=f"{r['y'][0]:.3e}",
+                a1_max_abs_err=f"{r['a1'][0]:.3e}",
+                y_alone_max_abs_err=(f"{r['y_alone'][0]:.3e}"
+                                     if "y_alone" in r else "-"),
+                y_tol=INT8_Y_TOL, a1_tol=INT8_A1_TOL,
+                k5_max_rel="/".join(worst[k] for k in worst),
+                max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1])
+            torch.cuda.empty_cache()
+
+
+def tail_cache_cost(torch) -> None:
+    """The float decoder's no-grad path after an Adam step: the tail
+    weights are rebuilt (stacked, padded, laid out in slabs) once, on the
+    first serving decode after the step.  K1 at B=100 on the CLI's default
+    decoder (40x40, 500 wide, one hidden layer) with the cache warm, and
+    with ``mark_written`` (what the Adam wrappers call) before each call."""
+    from spatialvae_torch.config import SpatialGeneratorConfig
+    from spatialvae_torch.kernels import fused_decoder as fd
+    from spatialvae_torch.kernels.adam import mark_written
+    from spatialvae_torch.models import SpatialGenerator
+    from spatialvae_torch.transforms.coords import coord_grid
+
+    gen = SpatialGenerator(SpatialGeneratorConfig(latent_dim=2,
+                                                  hidden_dim=CLI_HIDDEN,
+                                                  num_layers=2),
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(SEED), device=DEVICE)
+    grid = coord_grid(CLI_SIDE, CLI_SIDE, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 42)
+    theta = torch.rand(CLI_BATCH, generator=g, device=DEVICE)
+    dx = 0.1 * torch.rand((CLI_BATCH, 2), generator=g, device=DEVICE)
+    z = torch.rand((CLI_BATCH, 2), generator=g, device=DEVICE)
+    params = [p.detach() for p in gen.parameters()]
+
+    def warm():
+        fd.fused_spatial_generator(gen, grid, theta, dx, z)
+
+    def stepped():
+        mark_written(*params)
+        fd.fused_spatial_generator(gen, grid, theta, dx, z)
+
+    with torch.no_grad():
+        warm()
+        hit = statistics.median(cuda_ms(warm, torch) for _ in range(N_TIMED))
+        miss = statistics.median(cuda_ms(stepped, torch)
+                                 for _ in range(N_TIMED))
+    log("tail_cache", batch=CLI_BATCH, hidden=CLI_HIDDEN, pixels=CLI_SIDE ** 2,
+        k1_cached_ms=f"{hit:.4f}", k1_after_step_ms=f"{miss:.4f}",
+        rebuild_ms=f"{miss - hit:.4f}")
+
+
+def phase_cli_particles(torch, tmpdir: str, card: str) -> dict:
+    """``[cli_particles]``: the particles CLI in process on 8,192 + 1,024
+    synthetic 40x40 particles in MRC files with CTF tables, at its
+    full-width defaults, in five arms (float with mask and normalisation;
+    CTF with the colored likelihood; the same in int8 mode, on K4/K5; the
+    rotation augmentation in int8 mode, on K3; a resume of the first from
+    its epoch-2 checkpoints and Adam state for one more epoch), after
+    ``[cli_kernels]``, ``[cli_ctf]`` and ``[tail_cache]``."""
+    paths = cli_particles_data(tmpdir)
+    cli_kernel_checks(torch)
+    cli_ctf_checks(torch, paths)
+    tail_cache_cost(torch)
+    return {name: cli_arm(torch, name, paths, tmpdir, card)
+            for name in CLI_ARMS}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--default-width-times"]:
         # a turn of the A/B: the port of the checkout in the working
@@ -5801,6 +6292,10 @@ def main() -> int:
     if sys.argv[1:] == ["--split", "dec90"]:
         phase_split_dec90(torch)
         return 0
+    if sys.argv[1:] == ["--phase", "cli_particles"]:
+        with tempfile.TemporaryDirectory() as tmpdir:
+            phase_cli_particles(torch, tmpdir, card)
+        return 0
     ptxas = start_ptxas_report(LOSS90_SOURCE)
     ptxas_dec = start_ptxas_report(DEC90_SOURCE)
     ptxas_adam = start_ptxas_report(ADAM90_SOURCE)
@@ -5847,6 +6342,7 @@ def main() -> int:
                  for tag, env, on_grid, kernel in KNOB_PATHS}
         tw = phase_train_wide(torch)
         wide_launches = phase_slice_wide(torch, tmpdir, tw)
+        phase_cli_particles(torch, tmpdir, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     rows = kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,

@@ -16,7 +16,7 @@ so a file written by either package loads in the other, and a run trained
 by the port resumes in either.  Adam states with bf16 moments
 (``SPATIALVAE_ADAM_MOMENTS=bf16``) are refused both ways: the JAX package
 pickles them as ``ml_dtypes`` arrays, which need a package the port does
-not use (ROADMAP M9).  Reference torch
+not use (ROADMAP M9c-2).  Reference torch
 ``.sav`` files (whole-module pickles) are detected and converted through
 ``io/reference_sav.py``, as the JAX loader does.  Unpickling runs
 arbitrary code: load only checkpoints you trust.
@@ -45,7 +45,13 @@ FORMAT = "spatialvae_tpu.checkpoint.v1"
 def _bf16_moments() -> NotImplementedError:
     return NotImplementedError(
         "an optimizer checkpoint with bf16 moments is not ported yet "
-        "(ROADMAP M9)")
+        "(ROADMAP M9c-2)")
+
+
+def write_payload(path: str, payload: dict) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
 
 
 def save_model(path: str, kind: str, module, *, elbo=None,
@@ -53,6 +59,13 @@ def save_model(path: str, kind: str, module, *, elbo=None,
     """Write ``module`` (an InferenceNetwork or SpatialGenerator) with its
     config and, optionally, the ELBO/pose config and image shape that
     serving needs."""
+    write_payload(path, model_payload(kind, module, elbo=elbo,
+                                      image_shape=image_shape))
+
+
+def model_payload(kind: str, module, *, elbo=None,
+                  image_shape=None) -> dict:
+    """``save_model``'s payload, its arrays copied to the host."""
     is_inf = isinstance(module, InferenceNetwork)
     if kind != ("inference" if is_inf else "generator"):
         raise ValueError(f"kind={kind!r} does not match {type(module).__name__}")
@@ -66,9 +79,7 @@ def save_model(path: str, kind: str, module, *, elbo=None,
         payload["elbo"] = config_to_dict(elbo)
     if image_shape is not None:
         payload["image_shape"] = tuple(int(v) for v in image_shape)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        pickle.dump(payload, f)
+    return payload
 
 
 def _load_reference_sav(path: str):
@@ -110,6 +121,11 @@ def load_model_meta(path: str):
 def save_optimizer(path: str, state, epoch: int, q_net, p_net) -> None:
     """Write the Adam state (count, mu, nu) and the epoch index, the moments
     as numpy trees in the JAX layout."""
+    write_payload(path, optimizer_payload(state, epoch, q_net, p_net))
+
+
+def optimizer_payload(state, epoch: int, q_net, p_net) -> dict:
+    """``save_optimizer``'s payload, its arrays copied to the host."""
     from spatialvae_torch.train.optimizer import FusedAdamState
 
     if not isinstance(state, FusedAdamState):
@@ -124,9 +140,7 @@ def save_optimizer(path: str, state, epoch: int, q_net, p_net) -> None:
         "mu": named_to_jax(q_net, p_net, state.mu),
         "nu": named_to_jax(q_net, p_net, state.nu),
     }
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        pickle.dump(payload, f)
+    return payload
 
 
 def load_optimizer(path: str, q_net, p_net, device=None):

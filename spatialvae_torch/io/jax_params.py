@@ -109,9 +109,14 @@ def from_jax_params(q_params: Dict, p_params: Dict, q_cfg: InferenceConfig,
 
 
 def _np(t: torch.Tensor, transpose=None) -> np.ndarray:
-    a = t.detach().to("cpu", torch.float32).numpy()
-    return np.ascontiguousarray(a.transpose(transpose)
-                                if transpose is not None else a)
+    """A float32 host copy of ``t`` (its axes in ``transpose`` order) that
+    never shares the tensor's storage: a checkpoint pickles it while later
+    optimizer steps write the parameters in place."""
+    a = t.detach().to(torch.float32)
+    if transpose is not None:
+        a = a.permute(transpose)
+    return a.to("cpu", memory_format=torch.contiguous_format,
+                copy=True).numpy()
 
 
 def _dump_linears(linears: List[nn.Linear]) -> List[Dict]:

@@ -13,6 +13,9 @@ float32:
 
 g is float32 or bf16, m and v float32 or bf16 (widened, updated in float32,
 rounded once on store), p the float32 master; everything updates in place.
+The wrappers move the version counter of every tensor a kernel wrote
+(``mark_written``), as an in-place PyTorch op would, so caches keyed on
+``_version`` see the step.
 The shadow is bf16(p'); K7's copy is int8(clip(rint(p' * (1/s_in)), -127,
 127)).
 
@@ -302,6 +305,20 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def mark_written(*tensors) -> None:
+    """Move autograd's version counter of each tensor (None skipped) that a
+    kernel wrote through its raw pointer: such a write bypasses the
+    counter, so a cache keyed on ``_version`` (the float decoder's
+    ``generator_tail_weights``) would go on serving the old values.  A
+    detached view shares its base's counter, so marking the view marks the
+    parameter.  The wrappers mark the leaves they update in place (p, m, v,
+    the shadow), not the int8 copies they allocate on the same call: no
+    cache has seen a fresh tensor."""
+    ts = [t for t in tensors if t is not None]
+    if ts:
+        torch.autograd.graph.increment_version(ts)
+
+
 def adam_leaf(p, g, m, v, k: AdamConsts, shadow=None,
               want_amax: bool = False) -> Optional[torch.Tensor]:
     """K6 on one leaf, in place on p (float32), m, v and the bf16
@@ -320,6 +337,7 @@ def adam_leaf(p, g, m, v, k: AdamConsts, shadow=None,
               int(g.dtype == torch.bfloat16), int(m.dtype == torch.bfloat16),
               *astuple(k), _stream(p))
     LAUNCHES["adam"] += 1
+    mark_written(p, m, v, shadow)
     return amax
 
 
@@ -346,6 +364,7 @@ def adam_emit(p, g, m, v, k: AdamConsts, shadow, s_in
                   int(g.dtype == torch.bfloat16),
                   int(m.dtype == torch.bfloat16), *astuple(k), _stream(p))
         LAUNCHES["adam_emit"] += 1
+        mark_written(p, m, v, shadow)
     return q, amax
 
 
@@ -405,6 +424,8 @@ def adam_step(p, g, m, v, k: AdamConsts, shadow=None, modes=None,
             _call(lib, "svt_adam_step", table.ctypes.data, nl, _ptr(aux),
                   *flags, *astuple(k), _stream(p[0]))
         LAUNCHES["adam_step"] += 1
+        mark_written(*(t[i] for t in (p, m, v) for i in idx),
+                     *(shadow[i] for i in idx if shadow is not None))
         for j, i in enumerate(idx):
             if modes[i] == PLAIN:
                 continue

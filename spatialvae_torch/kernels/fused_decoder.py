@@ -451,8 +451,11 @@ class TailWeights:
 def generator_tail_weights(gen: SpatialGenerator) -> TailWeights:
     """gen's hidden layers and head as ``TailWeights`` for the no-grad path,
     cached on gen until one of those tensors changes: an in-place update
-    (an optimizer step, ``load_state_dict``) bumps its version, and a
-    replaced tensor (``.to``) has another address.  The cache holds the
+    (``load_state_dict``, an optimizer step: Adam's kernels write through
+    raw pointers and then bump the versions themselves,
+    ``kernels/adam.mark_written``) bumps its version, and a replaced tensor
+    (``.to``) has another address.  A write that bypasses the counter
+    (``.data``) must be followed by ``mark_written``.  The cache holds the
     storages it was built from, so no other tensor can take their addresses
     meanwhile.  (The grad path stacks the weights inside the graph on every
     call instead.)"""

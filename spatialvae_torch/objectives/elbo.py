@@ -23,11 +23,18 @@ feature-major kernel K8 instead, as in JAX.
 
 The encoder takes the int8 weight copies (``q_quant``) and the batch's
 int8 data copy (``y_q8``) as the JAX ELBO does; an explicit encoder view
-(``y_inf``) drops ``y_q8``.
+(``y_inf``, the rotation-augmented images) drops ``y_q8``, and the
+augmentation's offsets are added to theta before the decode, so the
+generator reconstructs the unrotated pose.  A per-image CTF (cryo-EM
+particles) convolves the Gaussian likelihood's predicted mean and, with
+the colored likelihood, its variance exp(logvar), while the ``+ logvar``
+term keeps the value before the convolution (``ctf/apply.py``, as in JAX);
+the Bernoulli likelihood ignores it, as in JAX.  A batch with CTF never
+takes the loss kernel: it decodes (K1/K2, or K4/K5 in int8 mode) and the
+likelihood runs in PyTorch.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: CTF (M7), rotation-augment offsets (M8), the vanilla generator (M1)
-and pixel-axis sharding (M10).
+item: the vanilla generator (M1) and pixel-axis sharding (M10).
 
 ``elbo_minibatch`` is differentiable; its serving callers take
 ``torch.no_grad()`` themselves, so serving saves nothing for a backward and
@@ -46,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from spatialvae_torch.ctf.apply import apply_ctf
 from spatialvae_torch.kernels.fused_decoder import (
     can_fuse_decoder,
     fused_spatial_generator,
@@ -99,7 +107,8 @@ def _not_ported(what: str, item: str):
 
 def fused_loss_active(ecfg: ElboConfig, p_cfg, hw: int, batch: int) -> bool:
     """Whether ``elbo_minibatch`` takes the fused int8 loss kernel for this
-    config (training, no CTF): the JAX package's decision, unchanged."""
+    config (a training batch without CTF): the JAX package's decision,
+    unchanged."""
     if ecfg.vanilla or not (ecfg.fused and ecfg.int8 and ecfg.fused_loss):
         return False
     if (ecfg.likelihood not in ("bernoulli", "gaussian", "colored")
@@ -155,14 +164,18 @@ def _bernoulli_log_p(y_hat, y, mask) -> torch.Tensor:
     return -torch.sum(per * _channel_mask(mask, target.shape[1])[None, :]) / b
 
 
-def _gaussian_log_p(y_hat, y, mask, interleaved: bool) -> tuple:
+def _gaussian_log_p(y_hat, y, mask, interleaved: bool, ctf=None,
+                    image_shape=None) -> tuple:
     """The Gaussian and colored log-likelihoods, (log_p, predicted mean
     (B, HW*C, 1)).  A decode wider than the data is the fit-noise head
     (n_out == 2): ``interleaved`` splits its flattened (B, 2*HW) output at
     HW into mean and log-variance (the reference's split), otherwise channel
     0 is the mean and channel 1 the log-variance.  log_p = -0.5 *
     mean_b(sum(mask * (sq / var + logvar))), without the variance terms for
-    the plain Gaussian.  Mixed dtypes promote as in JAX."""
+    the plain Gaussian.  ``ctf`` (B, kn, km) convolves the mean and var =
+    exp(logvar) over the (n, m) ``image_shape``; logvar keeps its value
+    before the convolution (the reference's order).  Mixed dtypes promote
+    as in JAX."""
     b = y.shape[0]
     y_flat = y.reshape(b, -1)
     hw = y_flat.shape[1]
@@ -175,9 +188,17 @@ def _gaussian_log_p(y_hat, y, mask, interleaved: bool) -> tuple:
             y_mu, y_logvar = y_hat[..., 0], y_hat[..., 1]
     else:
         y_mu = yp
+    y_var = None if y_logvar is None else torch.exp(y_logvar)
+    if ctf is not None:
+        if image_shape is None:
+            raise ValueError("CTF needs the image shape (n, m)")
+        n, m = image_shape
+        y_mu = apply_ctf(y_mu.reshape(b, n, m), ctf).reshape(b, hw)
+        if y_var is not None:
+            y_var = apply_ctf(y_var.reshape(b, n, m), ctf).reshape(b, hw)
     per = (y_mu - y_flat) ** 2
-    if y_logvar is not None:
-        per = per / torch.exp(y_logvar) + y_logvar
+    if y_var is not None:
+        per = per / y_var + y_logvar
     if mask is not None:
         per = per * _channel_mask(mask, per.shape[1])[None, :]
     log_p = -0.5 * torch.mean(torch.sum(per, dim=1))
@@ -195,10 +216,11 @@ def elbo_minibatch(
     *,
     noise: Optional[torch.Tensor] = None,  # (B, zdim) std-normal
     y_inf: Optional[torch.Tensor] = None,  # encoder view (default y)
-    offsets: Optional[torch.Tensor] = None,
+    offsets: Optional[torch.Tensor] = None,  # (B,) augmentation angles
     z_scale: float = 1.0,
-    ctf: Optional[torch.Tensor] = None,
+    ctf: Optional[torch.Tensor] = None,    # (B, kn, km) per-image kernels
     mask: Optional[torch.Tensor] = None,   # (HW,) float {0,1} pixel mask
+    image_shape: Optional[Tuple[int, int]] = None,  # (n, m), for CTF
     want_y_hat: bool = False,             # display paths need the decode
     y_t: Optional[torch.Tensor] = None,   # (B, C, HW) targets for K3
     q_quant=None,                         # int8 encoder weight entries
@@ -211,13 +233,11 @@ def elbo_minibatch(
     path (pass ``want_y_hat=True`` to force the decode).  ``noise``
     overrides drawing the reparameterised sample from ``generator``.
     ``q_quant`` and ``y_q8`` go to the encoder
-    (``InferenceNetwork.forward``'s ``qw`` and ``y_q8``).  The remaining
-    keywords of the JAX signature belong to paths not ported yet and
-    raise."""
-    if ctf is not None:
-        raise _not_ported("CTF", "M7")
-    if offsets is not None:
-        raise _not_ported("rotation-augment offsets", "M8")
+    (``InferenceNetwork.forward``'s ``qw`` and ``y_q8``); ``y_inf`` is the
+    encoder's view (the augmented images), ``offsets`` the augmentation's
+    angles, added to theta; ``ctf`` the batch's CTF kernels, over the (n,
+    m) ``image_shape``.  ``pixel_axis`` and the vanilla generator are not
+    ported yet and raise."""
     if pixel_axis is not None:
         raise _not_ported("pixel-axis sharding", "M10")
     if ecfg.vanilla:
@@ -245,6 +265,10 @@ def elbo_minibatch(
         theta = z[:, 0]
         z, z_mu, z_std, z_logstd = (z[:, 1:], z_mu[:, 1:], z_std[:, 1:],
                                     z_logstd[:, 1:])
+        if offsets is not None:
+            # undo the augmentation's rotation, so that the generator
+            # reconstructs the observed pose
+            theta = theta + offsets
         sigma = ecfg.theta_prior
         kl_rot = (-theta_logstd + math.log(sigma)
                   + theta_std ** 2 / (2.0 * sigma ** 2) - 0.5)
@@ -259,8 +283,8 @@ def elbo_minibatch(
     z = z * z_scale
 
     # ---- fused int8 loss-and-gradient path (K3, or K8) --------------------
-    if not want_y_hat and fused_loss_active(ecfg, p_net.cfg, coords.shape[0],
-                                            b):
+    if not want_y_hat and ctf is None and fused_loss_active(
+            ecfg, p_net.cfg, coords.shape[0], b):
         if (numerics().layout == "t" and ecfg.likelihood == "bernoulli"
                 and mask is None
                 and (y_t is None or y_t.dtype != torch.int8)):
@@ -283,7 +307,8 @@ def elbo_minibatch(
         log_p = _bernoulli_log_p(y_hat, y, mask)
     else:
         log_p, y_hat = _gaussian_log_p(y_hat, y, mask,
-                                       ecfg.fit_noise_interleaved)
+                                       ecfg.fit_noise_interleaved, ctf,
+                                       image_shape)
 
     # ---- unit normal KL over translation + z ------------------------------
     z_kl = -z_logstd + 0.5 * z_std ** 2 + 0.5 * z_mu ** 2 - 0.5
@@ -310,6 +335,10 @@ def loss_terms(q_net: InferenceNetwork, p_net: SpatialGenerator,
                generator: Optional[torch.Generator] = None,
                z_scale: float = 1.0, mask: Optional[torch.Tensor] = None,
                y_t: Optional[torch.Tensor] = None, q_quant=None, y_q8=None,
+               y_inf: Optional[torch.Tensor] = None,
+               offsets: Optional[torch.Tensor] = None,
+               ctf: Optional[torch.Tensor] = None,
+               image_shape: Optional[Tuple[int, int]] = None,
                compute_dtype: torch.dtype = torch.float32
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training loss, ``Trainer._loss`` of the JAX package: params, y and
@@ -318,9 +347,12 @@ def loss_terms(q_net: InferenceNetwork, p_net: SpatialGenerator,
     -> tensor that stands in for the modules' parameters (the trainer's
     bf16 shadow, already in the compute dtype); without it the modules'
     parameters are cast.  ``y_t`` (the batch's targets in the loss kernel's
-    layout), ``q_quant`` and ``y_q8`` pass as they are.  Returns (loss =
-    -elbo, aux = [elbo, -log_p, kl]), float32.  Differentiable; the
-    evaluation runs it under no_grad."""
+    layout), ``q_quant``, ``y_q8``, the augmented encoder view ``y_inf``
+    (in the compute dtype) and its ``offsets`` pass as they are; ``ctf`` is
+    cast to the compute dtype, as in JAX (so bf16 compute raises at the
+    FFT, as XLA's does).  Returns (loss = -elbo, aux = [elbo, -log_p,
+    kl]), float32.  Differentiable; the evaluation runs it under
+    no_grad."""
     y = y.to(compute_dtype)
     coords = coords.to(compute_dtype)
     pair = _Pair(q_net, p_net)
@@ -328,7 +360,9 @@ def loss_terms(q_net: InferenceNetwork, p_net: SpatialGenerator,
                               for p in pair.parameters()):
         params = dict(pair.named_parameters())
     kw = dict(noise=noise, z_scale=z_scale, mask=mask, y_t=y_t,
-              q_quant=q_quant, y_q8=y_q8)
+              q_quant=q_quant, y_q8=y_q8, y_inf=y_inf, offsets=offsets,
+              ctf=None if ctf is None else ctf.to(compute_dtype),
+              image_shape=image_shape)
     args = (ecfg, coords, y, generator)
     if params is None:
         elbo, log_p, kl, _ = pair(*args, **kw)
@@ -342,27 +376,20 @@ def loss_terms(q_net: InferenceNetwork, p_net: SpatialGenerator,
 def loss_and_grad(q_net: InferenceNetwork, p_net: SpatialGenerator,
                   ecfg: ElboConfig, coords: torch.Tensor, y: torch.Tensor,
                   *, params: Optional[Dict[str, torch.Tensor]] = None,
-                  noise: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None,
-                  z_scale: float = 1.0, mask: Optional[torch.Tensor] = None,
-                  y_t: Optional[torch.Tensor] = None, q_quant=None,
-                  y_q8=None, compute_dtype: torch.dtype = torch.float32
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``loss_terms`` and its gradient (``value_and_grad(Trainer._loss)``):
-    returns (loss, aux) detached and leaves d loss / d param on the
-    ``.grad`` of each tensor of ``params`` (the shadow: bf16 gradients), or
-    of each module parameter without it (earlier gradients are dropped, not
-    summed).  ``noise`` injects the reparameterisation draw; without it the
-    draw comes from ``generator``."""
+                  **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``loss_terms`` (its keywords in ``kw``) and its gradient
+    (``value_and_grad(Trainer._loss)``): returns (loss, aux) detached and
+    leaves d loss / d param on the ``.grad`` of each tensor of ``params``
+    (the shadow: bf16 gradients), or of each module parameter without it
+    (earlier gradients are dropped, not summed).  ``noise`` injects the
+    reparameterisation draw; without it the draw comes from
+    ``generator``."""
     leaves = (params.values() if params is not None else
               [p for net in (q_net, p_net) for p in net.parameters()])
     for p in leaves:
         p.grad = None
     with torch.enable_grad():
         loss, aux = loss_terms(q_net, p_net, ecfg, coords, y, params=params,
-                               noise=noise, generator=generator,
-                               z_scale=z_scale, mask=mask, y_t=y_t,
-                               q_quant=q_quant, y_q8=y_q8,
-                               compute_dtype=compute_dtype)
+                               **kw)
         loss.backward()
     return loss.detach(), aux.detach()

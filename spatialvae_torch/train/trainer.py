@@ -43,16 +43,30 @@ weights, stream 2e shuffles epoch e, 2e+1 draws its steps' noise,
 differ from JAX's; the parity tests inject the same batches and noise into
 both.
 
+Rotation augmentation (``TrainConfig.augment_rotation``) runs in the
+training steps only, never in ``eval_epoch``, as in JAX: each step draws
+one angle per image in [0, 2 pi) from its generator (before the
+reparameterisation noise), rotates the batch on the device
+(``transforms/augment.py``) as the encoder's view, rounds that view onto
+the /255 grid under ``augment_uint8``, and hands the angles to the ELBO,
+which adds them to theta.  The targets stay the unrotated images, so the
+loss kernel's target copy still serves; the int8 data copy of the encoder
+input does not.  A dataset with per-image CTF kernels (``.ctf``, (N, kn,
+km)) has them gathered per batch beside the images and cast to the compute
+dtype; such steps never take the loss kernel.  CTF with bf16 compute
+raises ``ValueError`` before any work, as the JAX trainer does at its first
+step (XLA's FFT takes float32 or float64 only).
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: host-resident streaming (M4), rotation augmentation (M8), CTF (M7),
-the vanilla generator (M1) and meshes (M10).  ``train_epochs`` runs the
-epochs one by one; its single-dispatch form (CUDA graphs) is a later speed
-choice (M4).
+item: host-resident streaming (M4), the vanilla generator (M1) and meshes
+(M10).  ``train_epochs`` runs the epochs one by one; its single-dispatch
+form (CUDA graphs) is a later speed choice (M4).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import sys
 import time
 from dataclasses import dataclass
@@ -85,6 +99,7 @@ from spatialvae_torch.train.optimizer_fused import (
     quantize_dataset,
     quantize_leaf,
 )
+from spatialvae_torch.transforms.augment import rotate_images_bicubic
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -193,8 +208,6 @@ class Trainer:
                  mesh=None):
         if mesh is not None:
             raise _not_ported("multi-device training", "M10")
-        if tcfg.augment_rotation:
-            raise _not_ported("rotation augmentation", "M8")
         if ecfg.vanilla:
             raise _not_ported("the vanilla generator", "M1")
         if tcfg.compute_dtype not in _DTYPES:
@@ -345,37 +358,93 @@ class Trainer:
         self._cache_put(self._yq8_cache, src, entry)
         return entry
 
-    def _wants_yt(self) -> bool:
+    def _wants_yt(self, ctf: Optional[torch.Tensor] = None) -> bool:
         """Whether the full-batch steps take the loss kernel, so that a
-        target copy in its layout pays off."""
-        return fused_loss_active(self.ecfg, self.p_cfg, self.coords.shape[0],
-                                 self.tcfg.minibatch_size)
+        target copy in its layout pays off: never with CTF."""
+        return ctf is None and fused_loss_active(
+            self.ecfg, self.p_cfg, self.coords.shape[0],
+            self.tcfg.minibatch_size)
+
+    def _wants_yq8(self, ctf: Optional[torch.Tensor] = None) -> bool:
+        """Whether the full batches read the int8 data copy: with the int8
+        encoder, unless the encoder sees augmented images or the data has
+        CTF (the JAX ``_wants_yq8``)."""
+        return (self._use_qenc and not self.tcfg.augment_rotation
+                and ctf is None)
 
     def _data(self, dataset) -> torch.Tensor:
         """The dataset's images on the device: a tensor, or an object with
         ``.y`` (and optionally ``.ctf``, ``.host_resident``)."""
         if getattr(dataset, "host_resident", False):
             raise _not_ported("host-resident streaming (--no-preload)", "M4")
-        if getattr(dataset, "ctf", None) is not None:
-            raise _not_ported("CTF", "M7")
         y = getattr(dataset, "y", dataset)
         if isinstance(y, np.ndarray):
             y = torch.from_numpy(y)
         return y.to(self.device, torch.float32)
 
+    def _ctf(self, dataset) -> Optional[torch.Tensor]:
+        """The dataset's per-image CTF kernels on the device, or None."""
+        ctf = getattr(dataset, "ctf", None)
+        if ctf is None:
+            return None
+        self._check_ctf(ctf)
+        if isinstance(ctf, np.ndarray):
+            ctf = torch.from_numpy(ctf)
+        return ctf.to(self.device, torch.float32)
+
+    def _check_ctf(self, ctf) -> None:
+        if ctf is not None and self.compute_dtype != torch.float32:
+            raise ValueError(
+                "CTF needs compute_dtype='float32': the CTF's FFT takes "
+                "float32 or float64, and the JAX trainer refuses the same "
+                "combination at its first step (RFFT input must be float32 "
+                "or float64, got bfloat16)")
+
+    def _augment(self, y: torch.Tensor, offsets: torch.Tensor
+                 ) -> torch.Tensor:
+        """The encoder's view of the batch y (B, HW[, C]): each image
+        rotated by its offset in the compute dtype, rounded onto the /255
+        grid (clipped to [0, 1], in float32) under ``augment_uint8``."""
+        if self.tcfg.image_shape is None:
+            raise ValueError("rotation augmentation needs "
+                             "TrainConfig.image_shape")
+        n, m = self.tcfg.image_shape
+        c = self.tcfg.channels
+        yc = y.to(self.compute_dtype)
+        imgs = yc.reshape((y.shape[0], n, m) + ((c,) if c > 1 else ()))
+        view = rotate_images_bicubic(imgs, offsets).reshape(yc.shape)
+        if self.tcfg.augment_uint8:
+            view = (torch.round(torch.clamp(view.float(), 0.0, 1.0) * 255.0)
+                    / 255.0).to(self.compute_dtype)
+        return view
+
     # ---------------------------------------------------------------- steps
     def train_step(self, y: torch.Tensor, *,
                    y_t: Optional[torch.Tensor] = None,
                    y_q8: Optional[tuple] = None,
+                   ctf: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None,
+                   offsets: Optional[torch.Tensor] = None,
                    z_scale: float = 1.0,
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
         """One step: ``loss_and_grad`` then Adam.  y: (B, HW[, C]) on the
         device; ``y_t`` its targets in the loss kernel's layout, when the
         step takes that kernel; ``y_q8`` (xq (B, n) int8, sx) its rows of
-        the int8 data copy, read by the int8 encoder.  Returns aux = [elbo,
-        -log_p, kl] (on the device)."""
+        the int8 data copy, read by the int8 encoder; ``ctf`` its CTF
+        kernels (B, kn, km).  With rotation augmentation the angles come
+        from ``generator`` before the noise, or from ``offsets`` (B,) when
+        given.  Returns aux = [elbo, -log_p, kl] (on the device)."""
+        self._check_ctf(ctf)
+        y_inf = None
+        if self.tcfg.augment_rotation and self.ecfg.rotate:
+            if offsets is None:
+                offsets = torch.rand(y.shape[0], generator=generator,
+                                     device=self.device) * (2.0 * math.pi)
+            offsets = offsets.to(self.device, self.compute_dtype)
+            y_inf = self._augment(y, offsets)
+        else:
+            offsets = None
         self._seeded_state()
         target, qq = self.grad_target()
         # the two labels let a profiler trace attribute the step's kernels
@@ -384,7 +453,9 @@ class Trainer:
                 self.q_net, self.p_net, self.ecfg, self.coords, y,
                 params=target, noise=noise, generator=generator,
                 z_scale=z_scale, mask=self.mask, y_t=y_t, q_quant=qq,
-                y_q8=y_q8, compute_dtype=self.compute_dtype)
+                y_q8=y_q8, y_inf=y_inf, offsets=offsets, ctf=ctf,
+                image_shape=self.tcfg.image_shape,
+                compute_dtype=self.compute_dtype)
         with torch.profiler.record_function("adam"):
             leaves = target if target is not None else self.named_params()
             self.apply_update({k: t.grad for k, t in leaves.items()})
@@ -394,17 +465,20 @@ class Trainer:
                     progress_stream=None) -> Tuple[float, float, float]:
         """One training epoch; returns the (elbo, gen_loss, kl) streaming
         means.  The permutation comes from stream 2*epoch, the steps' noise
-        from stream 2*epoch + 1.  In int8 mode the full batches gather their
-        targets from ``_dataset_yt`` and, with the int8 encoder, their
-        encoder input from ``_dataset_yq8``; the tail builds its own
-        targets and quantises its input per step, as in JAX."""
-        return self._run_epoch(dataset, self._data(dataset), epoch, progress,
-                               progress_stream)
+        (and augmentation angles) from stream 2*epoch + 1.  In int8 mode
+        the full batches gather their targets from ``_dataset_yt`` and,
+        with the int8 encoder, their encoder input from ``_dataset_yq8``;
+        the tail builds its own targets and quantises its input per step,
+        as in JAX.  CTF kernels are gathered per batch."""
+        ctf = self._ctf(dataset)
+        return self._run_epoch(dataset, self._data(dataset), ctf, epoch,
+                               progress, progress_stream)
 
-    def _run_epoch(self, dataset, data: torch.Tensor, epoch: int,
-                   progress: bool, progress_stream
-                   ) -> Tuple[float, float, float]:
-        """``train_epoch`` on ``data``, the device copy of ``dataset``."""
+    def _run_epoch(self, dataset, data: torch.Tensor,
+                   ctf: Optional[torch.Tensor], epoch: int, progress: bool,
+                   progress_stream) -> Tuple[float, float, float]:
+        """``train_epoch`` on ``data`` and ``ctf``, the device copies of
+        ``dataset``."""
         t_start = time.perf_counter()
         n, b = data.shape[0], self.tcfg.minibatch_size
         z_scale = 0.0 if epoch < self.tcfg.z_delay else 1.0
@@ -413,15 +487,17 @@ class Trainer:
         full, tail = index_batches(perm, b)
         step_gen = self._gen(2 * epoch + 1)
         data_t = (self._dataset_yt(dataset, data)
-                  if self._wants_yt() and len(full) else None)
+                  if self._wants_yt(ctf) and len(full) else None)
         data_q8 = (self._dataset_yq8(dataset, data)
-                   if self._use_qenc and len(full) else None)
+                   if self._wants_yq8(ctf) and len(full) else None)
         rows = [self.train_step(
             data[idx], y_t=None if data_t is None else data_t[idx],
             y_q8=None if data_q8 is None else (data_q8[0][idx], data_q8[1]),
-            z_scale=z_scale, generator=step_gen) for idx in full]
-        tail_row = (self.train_step(data[tail], z_scale=z_scale,
-                                    generator=step_gen)
+            ctf=None if ctf is None else ctf[idx], z_scale=z_scale,
+            generator=step_gen) for idx in full]
+        tail_row = (self.train_step(data[tail],
+                                    ctf=None if ctf is None else ctf[tail],
+                                    z_scale=z_scale, generator=step_gen)
                     if tail is not None else None)
         acc = StreamingMeans()
         if rows:
@@ -447,8 +523,9 @@ class Trainer:
         if num_epochs <= 0:
             return np.zeros((0, 3), np.float64)
         t_start = time.perf_counter()
+        ctf = self._ctf(dataset)
         data = self._data(dataset)
-        rows = [self._run_epoch(dataset, data, e, False, None)
+        rows = [self._run_epoch(dataset, data, ctf, e, False, None)
                 for e in range(first_epoch, first_epoch + num_epochs)]
         dt = time.perf_counter() - t_start
         self.last_images_per_sec = (num_epochs * data.shape[0] / dt
@@ -460,8 +537,9 @@ class Trainer:
     def eval_epoch(self, dataset, epoch: int, *, z_scale: float = 1.0
                    ) -> Tuple[float, float, float]:
         """Batches in order and the tail through the training loss (its
-        casts included), under no_grad; the noise from stream
-        1_000_000_007 + epoch."""
+        casts included) without augmentation, under no_grad; the noise from
+        stream 1_000_000_007 + epoch."""
+        ctf = self._ctf(dataset)
         data = self._data(dataset)
         b = self.tcfg.minibatch_size
         gen = self._gen(1_000_000_007 + epoch)
@@ -471,6 +549,8 @@ class Trainer:
             _, aux = loss_terms(self.q_net, self.p_net, self._nonstep_ecfg,
                                 self.coords, y, generator=gen,
                                 z_scale=z_scale, mask=self.mask,
+                                ctf=None if ctf is None else ctf[i:i + b],
+                                image_shape=self.tcfg.image_shape,
                                 compute_dtype=self.compute_dtype)
             acc.update(y.shape[0], *[float(v) for v in aux.cpu()])
         return acc.elbo, acc.gen_loss, acc.kl

@@ -329,6 +329,43 @@ def test_training_step_on_the_card(cuda_device):
     assert fd.LAUNCHES["fwd_sm90"] == 0 and tr.opt_state.count == 1
 
 
+def test_eval_after_a_step_matches_a_fresh_copy(cuda_device):
+    """The float decoder's no-grad path caches the tail weights; Adam's
+    kernels write the weights through raw pointers and then move their
+    version counters, so an evaluation after a training step decodes with
+    the new weights: it equals that of a fresh trainer holding the same
+    weights (whose cache is empty)."""
+    from spatialvae_torch.config import InferenceConfig
+
+    from spatialvae_torch.objectives import ElboConfig
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+
+    q_cfg = InferenceConfig(n=40 * 40, latent_dim=5, hidden_dim=500,
+                            num_layers=2)
+    p_cfg = SpatialGeneratorConfig(latent_dim=2, hidden_dim=500, n_out=1,
+                                   num_layers=2)
+
+    def trainer():
+        return Trainer(q_cfg, p_cfg, ElboConfig(fused=True,
+                                                likelihood="gaussian"),
+                       TrainConfig(minibatch_size=16),
+                       coord_grid(40, 40, device=cuda_device),
+                       device=cuda_device)
+
+    g = torch.Generator(cuda_device).manual_seed(6)
+    y = torch.randn((16, 1600), device=cuda_device, generator=g)
+    data = y[:10]
+    tr = trainer()
+    before = tr.eval_epoch(data, 0)          # fills the tail-weight cache
+    tr.train_step(y)
+    after = tr.eval_epoch(data, 0)
+    fresh = trainer()
+    fresh.q_net.load_state_dict(tr.q_net.state_dict())
+    fresh.p_net.load_state_dict(tr.p_net.state_dict())
+    assert after != before
+    assert after == fresh.eval_epoch(data, 0)
+
+
 # ---------------------------------------------------------------------------
 # K1 and K2 on clusters (decoder_route "sm90") against the plain versions
 # and the tile kernels (tile_kernels=True)

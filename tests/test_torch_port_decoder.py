@@ -276,3 +276,37 @@ def test_generator_tail_weights_pack_once_per_weight_version():
         want = spatial_generator_apply_folded(gen, grid, None, None, z)
     assert not torch.equal(y0, y1) and not torch.equal(y1, y2)
     torch.testing.assert_close(y2, want, rtol=0, atol=1e-6)
+
+
+def test_no_grad_decode_follows_kernel_weight_writes():
+    """A write through a raw pointer (the card's Adam kernels; here
+    ``.data`` writes, which bypass the version counter the same way) to a
+    hidden weight and the head bias, followed by ``mark_written`` (which
+    the Adam wrappers call after each launch): the cached tail weights are
+    rebuilt, and the no-grad decode equals a fresh copy's."""
+    import copy
+
+    from spatialvae_torch.kernels.adam import mark_written
+
+    cfg = SpatialGeneratorConfig(latent_dim=3, hidden_dim=24, n_out=3,
+                                 num_layers=2)
+    gen = SpatialGenerator(to_port(cfg),
+                           generator=torch.Generator().manual_seed(4))
+    grid = coord_grid(16, 16)
+    g = torch.Generator().manual_seed(5)
+    theta, dx = torch.randn(3, generator=g), torch.randn((3, 2), generator=g)
+    z = torch.randn((3, 3), generator=g)
+    hidden, head = gen.linears()
+    with torch.no_grad():
+        before = fd.fused_spatial_generator(gen, grid, theta, dx, z)
+        version = hidden.weight._version
+        hidden.weight.data.mul_(-1.5)
+        head.bias.data.add_(0.25)
+        assert hidden.weight._version == version
+        mark_written(hidden.weight.detach(), head.bias.detach(), None)
+        assert hidden.weight._version > version
+        after = fd.fused_spatial_generator(gen, grid, theta, dx, z)
+        fresh = fd.fused_spatial_generator(copy.deepcopy(gen), grid, theta,
+                                           dx, z)
+    assert not torch.allclose(before, after)
+    assert torch.equal(after, fresh)

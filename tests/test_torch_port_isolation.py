@@ -1,9 +1,11 @@
 """The port stands alone and runs on the card unless asked for the CPU.
 
 - No module of ``spatialvae_torch`` and not ``chip_smoke.py`` imports
-  ``spatialvae_tpu`` or ``jax`` (an AST walk of every import statement).
-- With both packages made unimportable, a tiny CPU training run (float and
-  int8 steps) and a checkpoint round trip through the serving API work.
+  ``spatialvae_tpu`` or ``jax``, nor ``pandas`` or ``PIL``, which the card's
+  machine lacks (an AST walk of every import statement).
+- With both packages (and pandas and PIL) made unimportable, a tiny CPU
+  training run (float and int8 steps), a checkpoint round trip through the
+  serving API and a particles CLI run with CTF and augmentation work.
 - ``Trainer`` and ``SpatialVae.load`` without ``device=`` go to the CUDA
   card, and raise where there is none; ``device="cpu"`` runs on the CPU.
 """
@@ -26,7 +28,8 @@ from spatialvae_torch.train.trainer import TrainConfig, Trainer
 from spatialvae_torch.transforms.coords import coord_grid
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("spatialvae_tpu", "jax")
+# the JAX package and JAX; pandas and PIL, which the card's machine lacks
+FORBIDDEN = ("spatialvae_tpu", "jax", "pandas", "PIL")
 
 
 def _port_sources():
@@ -57,6 +60,8 @@ RUN = r"""
 import sys
 sys.modules["spatialvae_tpu"] = None
 sys.modules["jax"] = None
+sys.modules["pandas"] = None
+sys.modules["PIL"] = None
 import os, tempfile
 import torch
 from spatialvae_torch import checkpoint
@@ -89,6 +94,26 @@ with tempfile.TemporaryDirectory() as d:
         want = tr.q_net(y.reshape(5, -1))
     got = model.encode(y)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+with tempfile.TemporaryDirectory() as d:
+    import contextlib, io
+    import numpy as np
+    from spatialvae_torch.cli import train_particles
+    from spatialvae_torch.io.mrc import write_mrc
+    rng = np.random.RandomState(0)
+    with open(os.path.join(d, "tr.mrc"), "wb") as f:
+        write_mrc(f, rng.randn(8, 9, 9).astype(np.float32))
+    with open(os.path.join(d, "ctf.txt"), "w") as f:
+        f.write("1.5 2.0 300 1.2 50 10 0 0\n" * 8)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        train_particles.main([
+            os.path.join(d, "tr.mrc"), os.path.join(d, "tr.mrc"),
+            "--ctf-train", os.path.join(d, "ctf.txt"), "--ctf-test",
+            os.path.join(d, "ctf.txt"), "--fit-noise", "--augment-rotation",
+            "--num-epochs", "1", "--minibatch-size", "4", "-d", "-1",
+            "--p-hidden-dim", "8", "--q-hidden-dim", "8"])
+    assert out.getvalue().count("\t") == 12, out.getvalue()
 assert "jax" not in sys.modules or sys.modules["jax"] is None
 print("ok")
 """

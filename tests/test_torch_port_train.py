@@ -328,23 +328,35 @@ def test_train_config_matches_jax():
 @pytest.mark.parametrize("what", ["int8", "mesh", "augment", "host",
                                   "gaussian"])
 def test_trainer_refuses_what_is_not_ported(what, monkeypatch):
-    """int8: the loss kernel's measurement levers (K3 (g)) are accepted
-    with the knobs, here over MNIST's padded 28x28, and what is still
-    refused there is a CTF dataset (M7); gaussian: what is left of that
-    likelihood, a CTF dataset (M7)."""
+    """What the trainer still refuses: meshes (M10) and host-resident data
+    (M4), with or without augmentation, which now runs otherwise (M8);
+    CTF (M7, now ported) with bf16 compute raises ``ValueError`` before any
+    work, as the JAX trainer does at its first step, here in int8 mode with
+    a measurement lever (K3 (g)) over MNIST's padded 28x28; gaussian: CTF
+    without the image shape."""
     q_cfg, p_cfg = map(to_port, _cfgs())
     ecfg = ElboConfig(fused=True, channels=C, int8=what == "int8",
                       likelihood="gaussian" if what == "gaussian"
                       else "bernoulli")
-    tcfg = TrainConfig(minibatch_size=B, augment_rotation=what == "augment")
-    grid = coord_grid(28, 28) if what == "int8" else coord_grid(N, M)
+    tcfg = TrainConfig(minibatch_size=B, augment_rotation=what == "augment",
+                       image_shape=(N, M),
+                       compute_dtype="bfloat16" if what == "int8"
+                       else "float32")
+    grid = coord_grid(N, M)
     if what == "int8":
         monkeypatch.setenv("SPATIALVAE_ALLOW_KNOBS", "1")
         monkeypatch.setenv("SPATIALVAE_A1Q", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        q_cfg = dataclasses.replace(q_cfg, n=28 * 28 * C)
+        grid = coord_grid(28, 28)
+    if what == "gaussian":
+        tcfg = dataclasses.replace(tcfg, image_shape=None)
+    expect = {"int8": (ValueError, "compute_dtype='float32'"),
+              "gaussian": (ValueError, "image shape")}.get(
+        what, (NotImplementedError, "ROADMAP"))
+    with pytest.raises(expect[0], match=expect[1]):
         tr = Trainer(q_cfg, p_cfg, ecfg, tcfg, grid, device="cpu",
                      mesh=object() if what == "mesh" else None)
-        data = _Data(torch.zeros((B, N * M, C)))
+        data = _Data(torch.zeros((B, grid.shape[0], C)))
         if what in ("gaussian", "int8"):
             data.ctf = torch.zeros((B, 3, 3))
         else:
