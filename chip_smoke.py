@@ -14,6 +14,7 @@
     python3 chip_smoke.py --default-width PARENT_DIR   # K1-K5 A/B
     python3 chip_smoke.py --sass PARENT_DIR   # untouched kernels' SASS
     python3 chip_smoke.py --phase cli_particles   # the particles CLI alone
+    python3 chip_smoke.py --phase cli_images   # the galaxy and mnist CLIs
 
 Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the float
@@ -114,7 +115,26 @@ paths:
   ``apply_ctf`` to the grouped conv2d in float64 at B=100 with the run's
   39x39 kernels and the bicubic rotation to its CPU result, and
   ``[tail_cache]`` times the float decoder's no-grad K1 after an Adam
-  step's version bump;
+  step's version bump; a sixth arm trains the vanilla generator with the
+  fit-noise head and channel 0's double softplus (Adam's step kernel
+  alone);
+- the galaxy and mnist CLIs (``[cli_images]``), ``python -m
+  spatialvae_torch.cli.train_galaxy`` / ``train_mnist``'s ``main`` in
+  process at full width from files the phase writes from the seed (4,000
+  + 1,000 galaxy blob images at 64x64x3; 60,000 + 10,000 digit-like
+  glyphs at 50x50 rotated and translated, at 28x28 rotated, and at 28x28
+  in MNIST's idx files), every arm with ``--save_interval 1``: (a) galaxy
+  z=20 with rotation augmentation, B=64, four epochs (K1/K2); (b) the
+  same in int8 mode with bf16 compute (K3, K4, K1 for the display decodes
+  alone); (c) the galaxy vanilla generator (Adam alone); (d) the
+  rotated-and-translated digits at the CLI's defaults (K1/K2); (e) the
+  vanilla generator on the idx files, z=100, B=64 (Adam alone); (f) the
+  rotated digits in int8 mode (K3 over 784 pixels padded to 1,024, K4):
+  each arm's launches from 0 against its set, its TSV and validation
+  ELBOs, seconds per epoch, the time of the run's end and of its archive,
+  and the ``outputs_{prefix}`` tree checked file by file (each PNG's
+  signature, chunk CRCs and grid size, the SVGs as XML, the checkpoint
+  pair through ``SpatialVae.load``, the zip's members);
 - the port's int8 kernel microbenchmark (``[kernel_bench]``: the TPU tool
   ``tools/kernel_bench.py``'s seventeen runs at its defaults, B=2,048,
   HW=4,096, H=500, pt=2,048, through
@@ -5917,6 +5937,10 @@ CLI_ARMS = {
                        ("k1k2", "k8")),
     "e_resume": (["RESUME", "--mask", "--normalize"], 1,
                  ("k1k2", "adam_step"), ("k3", "k4k5", "k8")),
+    # the vanilla generator with the fit-noise head: channel 0's double
+    # softplus on the card; its products are cuBLAS's, Adam the step kernel
+    "f_vanilla": (["--vanilla", "--fit-noise", "--softplus", "--mask"],
+                  CLI_EPOCHS, ("adam_step",), ("k1k2", "k3", "k4k5", "k8")),
 }
 
 
@@ -5954,7 +5978,9 @@ def cli_arm(torch, name: str, paths: dict, tmpdir: str, card: str) -> dict:
     _reset_all_launches()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err), \
+                recorded_adam_leaves() as adam:
             tp.main(argv)
         torch.cuda.synchronize()
     except BaseException:
@@ -5962,6 +5988,7 @@ def cli_arm(torch, name: str, paths: dict, tmpdir: str, card: str) -> dict:
         raise
     seconds = time.perf_counter() - t0
     counts = _launch_groups()
+    adam_leaves_check(torch, "cli_kernels", name, adam.leaves)
     rows = [(t, ln) for t, ln in out.lines if "\t" in ln]
     if not rows or rows[0][1] != CLI_HEADER:
         raise AssertionError(f"{name}: TSV header {rows[:1]}")
@@ -6077,6 +6104,157 @@ CLI_BWD_CASES = [
 CLI_EVAL_BATCHES = (CLI_BATCH, CLI_TEST % CLI_BATCH)
 
 
+def k12_checks(torch, tag: str, cases, evals) -> None:
+    """K1 with its activations and K2 (both variants) on ``cases`` (rows
+    in BWD_CASES' layout), then K1 alone at each (B, HW, No) of ``evals``
+    (float32 weights, H=P_HIDDEN), against their plain versions at the
+    limits of ``[kernel_bwd]`` and ``[kernel]``; logged under ``tag``."""
+    for case in cases:
+        name, b, hw, h, _, no, _, dtype = case
+        r = backward_case(torch, case, SEED, timed=False)
+        checked = check_backward(name, dtype, r)
+        log(tag, kernel="K1/K2", case=name, B=b, HW=hw, H=h, No=no,
+            dtype=dtype, route=r["route"],
+            y_max_abs_err=f"{r['y'][0]:.3e}",
+            acts_max_abs_err=f"{r['acts'][0]:.3e}",
+            errors="max_abs/mean_abs/max_rel/mean_rel",
+            **{f"{v}_{k}": e for v, (f, _) in checked.items()
+               for k, e in f.items() if k in GRADS})
+        torch.cuda.empty_cache()
+    for b, hw, no in evals:
+        r = fwd_case(torch, b, P_HIDDEN, "float32", SEED, False, hw=hw, no=no)
+        log(tag, kernel="K1", case="eval", B=b, HW=hw, H=P_HIDDEN, No=no,
+            dtype="float32", route=r["route"],
+            y_max_abs_err=f"{r['y'][0]:.3e}",
+            y_mean_abs_err=f"{r['y'][1]:.3e}",
+            max_tol=TOL["float32"][0], mean_tol=TOL["float32"][1])
+
+
+def k3_check(torch, tag: str, what: str, r, **fields) -> None:
+    """Raise unless a K3 reading (``family_case``, ``loss_case``) holds
+    INT8_TOL against the plain version, and on the cluster passes against
+    the block passes, with two runs equal bit for bit; log it under
+    ``tag`` with ``fields``."""
+    if not r["same"]:
+        raise AssertionError(f"{what}: two runs differ")
+    errs = {n: _check_rel(f"{what} {n}", r[n], INT8_TOL)
+            for n in ("loss",) + INT8_GRADS}
+    if r["route"] == "sm90":
+        for n in ("loss",) + INT8_GRADS:
+            _check_rel(f"{what} {n}, cluster vs block passes",
+                       r["vs_block"][n], INT8_TOL)
+    log(tag, kernel="K3", **fields, route=r["route"],
+        errors="max_abs/mean_abs/max_rel/mean_rel", **errs,
+        max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+        ints_vs_plain=_check_ints(what, r), **_log_ab(r))
+    torch.cuda.empty_cache()
+
+
+def k45_check(torch, tag: str, b: int, dtype: str, hw: int, no: int) -> None:
+    """K4 with and without a1 (and on the route the table gives K4 alone)
+    and K5 with the residual and with recompute against their plain
+    versions at B=b over ``hw`` pixels (coords padded to a multiple of
+    256), ``no`` outputs and ``dtype`` weights, and on the cluster passes
+    against the block passes; logged under ``tag``."""
+    what = f"K4/K5 HW={hw} No={no} {dtype} B={b}"
+    r = int8_tail_case(torch, b, dtype, SEED, False, hw=hw, no=no)
+    _check_abs(f"{what} y", r["y"], INT8_Y_TOL)
+    _check_abs(f"{what} y without a1", r["y_no_a1"], INT8_Y_TOL)
+    _check_abs(f"{what} a1", r["a1"], INT8_A1_TOL)
+    if "y_alone" in r:
+        _check_abs(f"{what} y without a1 on {r['route_alone']}",
+                   r["y_alone"], INT8_Y_TOL)
+    v = r["vs_block"]
+    if r["route"] == "sm90":
+        _check_abs(f"{what} y, cluster vs block passes", v["y"], INT8_Y_TOL)
+        _check_abs(f"{what} a1, cluster vs block passes", v["a1"],
+                   INT8_A1_TOL)
+    worst = {}
+    for variant in ("residual", "recompute"):
+        if not r[variant, "same"]:
+            raise AssertionError(f"{what} {variant}: two runs differ")
+        worst[variant] = _check_int8_all(
+            f"{what} {variant}", {n: r[variant, n] for n in INT8_GRADS},
+            INT8_GRADS)
+        if r["route"] == "sm90":
+            _check_int8_all(f"{what} {variant}, cluster vs block passes",
+                            {n: v[variant, n] for n in INT8_GRADS},
+                            INT8_GRADS)
+    log(tag, kernel="K4/K5", B=b, HW=hw, padded_HW=-(-hw // 256) * 256,
+        H=P_HIDDEN, No=no, dtype=dtype, route=r["route"],
+        route_alone=r["route_alone"], y_max_abs_err=f"{r['y'][0]:.3e}",
+        a1_max_abs_err=f"{r['a1'][0]:.3e}",
+        y_alone_max_abs_err=(f"{r['y_alone'][0]:.3e}" if "y_alone" in r
+                             else "-"),
+        y_tol=INT8_Y_TOL, a1_tol=INT8_A1_TOL,
+        k5_max_rel="/".join(worst[k] for k in worst),
+        max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1])
+    torch.cuda.empty_cache()
+
+
+class recorded_adam_leaves:
+    """Within the block the training paths' Adam records the leaves of its
+    first step (shapes, gradient and moment dtypes, shadow, modes) in
+    ``self.leaves`` and runs on as it would."""
+
+    def __enter__(self):
+        from spatialvae_torch.kernels import adam as ka
+        from spatialvae_torch.train import optimizer
+
+        self.leaves, self.saved = None, (ka.adam_step, optimizer.adam_step)
+        step = ka.adam_step
+
+        def recording(p, g, m, v, k, shadow=None, modes=None, s_in=None):
+            if self.leaves is None:
+                self.leaves = dict(
+                    shapes=[tuple(t.shape) for t in p],
+                    gdt=str(g[0].dtype).replace("torch.", ""),
+                    mdt=str(m[0].dtype).replace("torch.", ""),
+                    shadow=shadow is not None,
+                    modes=None if modes is None else list(modes))
+            return step(p, g, m, v, k, shadow, modes, s_in)
+
+        ka.adam_step = optimizer.adam_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        from spatialvae_torch.kernels import adam as ka
+        from spatialvae_torch.train import optimizer
+
+        ka.adam_step, optimizer.adam_step = self.saved
+        return False
+
+
+def adam_leaves_check(torch, tag: str, arm: str, leaves) -> None:
+    """The step kernel against its plain version on one arm's own leaves
+    (``recorded_adam_leaves``: its shapes, dtypes, shadow and modes) on
+    random inputs from SEED, bit for bit, as ``[kernel_adam]`` holds it;
+    logged under ``tag``."""
+    from spatialvae_torch.kernels import adam as ka
+
+    if leaves is None:
+        raise AssertionError(f"{arm}: Adam took no step")
+    modes = leaves["modes"] or [ka.PLAIN] * len(leaves["shapes"])
+    k = ka.AdamConsts.make(ADAM_LR, 0.9, 0.999, 1e-8, ADAM_COUNT)
+    base = _adam_inputs(torch, leaves["shapes"], leaves["gdt"],
+                        leaves["mdt"], leaves["shadow"], SEED)
+    refs = _clone_leaves(base)
+    want = adam_step_call(ka, refs, k, modes, step=ka.adam_step_reference)
+    got = adam_step_call(ka, base, k, modes)
+    torch.cuda.synchronize()
+    differ, err = adam_step_differ(base, refs, got, want, modes)
+    adam_check(f"{arm}: the step kernel on the arm's leaves", differ)
+    log(tag, kernel="K6", arm=arm, leaves=len(modes),
+        params=sum(math.prod(s) for s in leaves["shapes"]),
+        largest=json.dumps(max(leaves["shapes"], key=math.prod)),
+        grads=leaves["gdt"], moments=leaves["mdt"], shadow=leaves["shadow"],
+        fresh_leaves=sum(md == ka.FRESH for md in modes),
+        differ=json.dumps(differ, separators=(",", ":")),
+        max_abs_err=f"{err:.3e}")
+    del base, refs, want, got
+    torch.cuda.empty_cache()
+
+
 def cli_kernel_checks(torch) -> None:
     """``[cli_kernels]``: every kernel the CLI's arms launch, against its
     plain version at the arms' own shapes (40x40, H=500, float32 weights),
@@ -6087,97 +6265,28 @@ def cli_kernel_checks(torch) -> None:
     float32 targets (arm d); K4 with a1 and K5 on the cluster passes over
     coords padded to 1,792 (arm c's training, two outputs) and K4 without
     a1 on the route the table gives float32 weights (the int8 arms'
-    evaluation, both output counts)."""
+    evaluation, both output counts).  Adam's step kernel is held to its
+    plain version on each arm's own leaves after the arm
+    (``adam_leaves_check``)."""
     from spatialvae_torch.cli.train_particles import circular_mask
 
     hw = CLI_SIDE ** 2
-    for case in CLI_BWD_CASES:
-        name, b, _, _, _, no, _, dtype = case
-        r = backward_case(torch, case, SEED, timed=False)
-        checked = check_backward(name, dtype, r)
-        log("cli_kernels", kernel="K1/K2", case=name, B=b, HW=hw,
-            H=CLI_HIDDEN, No=no, dtype=dtype, route=r["route"],
-            y_max_abs_err=f"{r['y'][0]:.3e}",
-            acts_max_abs_err=f"{r['acts'][0]:.3e}",
-            errors="max_abs/mean_abs/max_rel/mean_rel",
-            **{f"{v}_{k}": e for v, (f, _) in checked.items()
-               for k, e in f.items() if k in GRADS})
-        torch.cuda.empty_cache()
-    for no in (1, 2):
-        for b in CLI_EVAL_BATCHES:
-            r = fwd_case(torch, b, CLI_HIDDEN, "float32", SEED, False,
-                         hw=hw, no=no)
-            log("cli_kernels", kernel="K1", case="eval", B=b, HW=hw,
-                H=CLI_HIDDEN, No=no, dtype="float32", route=r["route"],
-                y_max_abs_err=f"{r['y'][0]:.3e}",
-                y_mean_abs_err=f"{r['y'][1]:.3e}",
-                max_tol=TOL["float32"][0], mean_tol=TOL["float32"][1])
+    k12_checks(torch, "cli_kernels", CLI_BWD_CASES,
+               [(b, hw, no) for no in (1, 2) for b in CLI_EVAL_BATCHES])
     mask = torch.from_numpy(circular_mask(CLI_SIDE, CLI_SIDE)).to(DEVICE)
     case = ("cli_gaussian_pad40", "gaussian", CLI_SIDE, True, False)
     for b in (CLI_BATCH, CLI_TRAIN % CLI_BATCH):
-        what = f"K3 {case[0]} B={b}"
         r = family_case(torch, case, "float32", SEED, False, b=b,
                         target_dtype="float32", mask_values=mask)
-        if not r["same"]:
-            raise AssertionError(f"{what}: two runs differ")
-        fields = {n: _check_rel(f"{what} {n}", r[n], INT8_TOL)
-                  for n in ("loss",) + INT8_GRADS}
-        if r["route"] == "sm90":
-            for n in ("loss",) + INT8_GRADS:
-                _check_rel(f"{what} {n}, cluster vs block passes",
-                           r["vs_block"][n], INT8_TOL)
-        log("cli_kernels", kernel="K3", case=case[0], B=b, HW=hw,
-            padded_HW=-(-hw // 256) * 256,
-            H=CLI_HIDDEN, No=1, dtype="float32", targets="float32",
-            mask="circular", route=r["route"],
-            errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
-            max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
-            ints_vs_plain=_check_ints(what, r), **_log_ab(r))
-        torch.cuda.empty_cache()
+        k3_check(torch, "cli_kernels", f"K3 {case[0]} B={b}", r,
+                 case=case[0], B=b, HW=hw, padded_HW=-(-hw // 256) * 256,
+                 H=CLI_HIDDEN, No=1, dtype="float32", targets="float32",
+                 mask="circular")
     for no, batches in ((2, (CLI_BATCH, CLI_TRAIN % CLI_BATCH,
                              CLI_TEST % CLI_BATCH)),
                         (1, CLI_EVAL_BATCHES)):
         for b in batches:
-            what = f"K4/K5 40x40 No={no} B={b}"
-            r = int8_tail_case(torch, b, "float32", SEED, False, hw=hw,
-                               no=no)
-            _check_abs(f"{what} y", r["y"], INT8_Y_TOL)
-            _check_abs(f"{what} y without a1", r["y_no_a1"], INT8_Y_TOL)
-            _check_abs(f"{what} a1", r["a1"], INT8_A1_TOL)
-            if "y_alone" in r:
-                _check_abs(f"{what} y without a1 on {r['route_alone']}",
-                           r["y_alone"], INT8_Y_TOL)
-            v = r["vs_block"]
-            if r["route"] == "sm90":
-                _check_abs(f"{what} y, cluster vs block passes", v["y"],
-                           INT8_Y_TOL)
-                _check_abs(f"{what} a1, cluster vs block passes", v["a1"],
-                           INT8_A1_TOL)
-            worst = {}
-            for variant in ("residual", "recompute"):
-                if not r[variant, "same"]:
-                    raise AssertionError(f"{what} {variant}: two runs "
-                                         f"differ")
-                worst[variant] = _check_int8_all(
-                    f"{what} {variant}", {n: r[variant, n]
-                                          for n in INT8_GRADS}, INT8_GRADS)
-                if r["route"] == "sm90":
-                    _check_int8_all(f"{what} {variant}, cluster vs block "
-                                    f"passes", {n: v[variant, n]
-                                                for n in INT8_GRADS},
-                                    INT8_GRADS)
-            log("cli_kernels", kernel="K4/K5", B=b, HW=hw,
-                padded_HW=-(-hw // 256) * 256, H=CLI_HIDDEN, No=no,
-                dtype="float32", route=r["route"],
-                route_alone=r["route_alone"],
-                y_max_abs_err=f"{r['y'][0]:.3e}",
-                a1_max_abs_err=f"{r['a1'][0]:.3e}",
-                y_alone_max_abs_err=(f"{r['y_alone'][0]:.3e}"
-                                     if "y_alone" in r else "-"),
-                y_tol=INT8_Y_TOL, a1_tol=INT8_A1_TOL,
-                k5_max_rel="/".join(worst[k] for k in worst),
-                max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1])
-            torch.cuda.empty_cache()
+            k45_check(torch, "cli_kernels", b, "float32", hw, no)
 
 
 def tail_cache_cost(torch) -> None:
@@ -6235,6 +6344,403 @@ def phase_cli_particles(torch, tmpdir: str, card: str) -> dict:
     tail_cache_cost(torch)
     return {name: cli_arm(torch, name, paths, tmpdir, card)
             for name in CLI_ARMS}
+
+
+# ---------------------------------------------------------------------------
+# the galaxy and mnist CLIs end to end: the run-output tree (PNG grids, SVG
+# curves, models.txt, checkpoints, the archive) and the vanilla generator,
+# through ``python -m spatialvae_torch.cli.train_galaxy`` / ``train_mnist``'s
+# ``main`` at full width
+# ---------------------------------------------------------------------------
+
+IMG_GALAXY = (64, 64)            # BASELINE.md's galaxy run: 4,000 images
+IMG_GALAXY_TRAIN = 4000
+IMG_GALAXY_TEST = 1000
+IMG_MNIST_TRAIN = 60000          # MNIST's split
+IMG_MNIST_TEST = 10000
+IMG_RT_SIDE = 50                 # the paper's rotated-and-translated digits
+IMG_SIDE = 28
+IMG_GALAXY_ARGS = ["-z", "20", "--augment_rotation", "--minibatch_size",
+                   "64", "--num_epochs", "4"]
+# arm -> (CLI, argv, epochs, training images, batch, kernels that must
+# launch, that must not, K1 launches per dump (display decodes) or None)
+IMG_ARMS = {
+    "a_galaxy": ("galaxy", ["GALAXY"] + IMG_GALAXY_ARGS, 4,
+                 IMG_GALAXY_TRAIN, 64, ("k1", "k2", "adam_step"),
+                 ("k3", "k4k5", "k8"), None),
+    "b_galaxy_int8": ("galaxy", ["GALAXY"] + IMG_GALAXY_ARGS + [
+        "--int8-decoder", "--compute-dtype", "bfloat16"], 4,
+        IMG_GALAXY_TRAIN, 64, ("k1", "k3", "k4k5", "adam_step"),
+        ("k2", "k8"), 2),
+    "c_galaxy_vanilla": ("galaxy", ["GALAXY", "--vanilla", "-z", "20",
+                                    "--minibatch_size", "64",
+                                    "--num_epochs", "2"], 2,
+                         IMG_GALAXY_TRAIN, 64, ("adam_step",),
+                         ("k1", "k2", "k3", "k4k5", "k8"), None),
+    "d_mnist_rt": ("mnist", ["--dataset", "mnist-rotated-translated",
+                             "--num_epochs", "2"], 2, IMG_MNIST_TRAIN, 100,
+                   ("k1", "k2", "adam_step"), ("k3", "k4k5", "k8"), None),
+    "e_mnist_vanilla": ("mnist", ["--dataset", "mnist", "--vanilla", "-z",
+                                  "100", "--minibatch_size", "64",
+                                  "--num_epochs", "2"], 2, IMG_MNIST_TRAIN,
+                        64, ("adam_step",), ("k1", "k2", "k3", "k4k5", "k8"),
+                        None),
+    "f_mnist_int8": ("mnist", ["--dataset", "mnist-rotated",
+                               "--int8-decoder", "--num_epochs", "2"], 2,
+                     IMG_MNIST_TRAIN, 100, ("k1", "k3", "k4k5", "adam_step"),
+                     ("k2", "k8"), 1),
+}
+IMG_HEADER = "Epoch\tELBO\tBCE loss\tKL"
+
+
+def digit_images(torch, n: int, side: int, gen, translate: bool):
+    """(n, side, side) uint8 digit-like glyphs made on the card: a stem and
+    a bar of random lengths and widths, the pair rotated by a random angle
+    and, with ``translate``, shifted by up to a fifth of the image."""
+    ax = torch.linspace(-1, 1, side, device=DEVICE)
+    yy, xx = torch.meshgrid(-ax, ax, indexing="ij")
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand((n, 1, 1), generator=gen,
+                                           device=DEVICE)
+
+    th = u(-math.pi, math.pi)
+    dx = u(-0.2, 0.2) if translate else 0.0
+    dy = u(-0.2, 0.2) if translate else 0.0
+    x, y = xx - dx, yy - dy
+    r0 = torch.cos(th) * x + torch.sin(th) * y
+    r1 = -torch.sin(th) * x + torch.cos(th) * y
+    w = u(0.06, 0.12)
+    stem = torch.exp(-(r0 - u(-0.2, 0.2)) ** 2 / (2 * w ** 2)) \
+        * torch.sigmoid((u(0.3, 0.5) - r1.abs()) * 30)
+    bar = torch.exp(-(r1 - u(0.2, 0.4)) ** 2 / (2 * w ** 2)) \
+        * torch.sigmoid((u(0.15, 0.35) - r0.abs()) * 30)
+    img = torch.clamp(stem + bar * (u(0, 1) > 0.3), 0, 1)
+    return torch.round(img * 255).to(torch.uint8).cpu().numpy()
+
+
+def write_idx(path: str, images: np.ndarray) -> None:
+    """MNIST's idx3-ubyte image file."""
+    import struct
+
+    with open(path, "wb") as f:
+        f.write(struct.pack(">IIII", 2051, *images.shape))
+        f.write(images.tobytes())
+
+
+def cli_images_data(torch, workdir: str) -> None:
+    """The arms' files in ``workdir``, from SEED: the galaxy stacks
+    (4,000 + 1,000 blob images, 64x64x3 uint8) and, under ``data/``, the
+    rotated-and-translated digits at 50x50, the rotated digits at 28x28 and
+    MNIST's idx files at 28x28 (60,000 + 10,000 each)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 50)
+    for split, n in (("train", IMG_GALAXY_TRAIN), ("test", IMG_GALAXY_TEST)):
+        imgs = blob_images(torch, n, gen, image=IMG_GALAXY, channels=3)
+        np.save(os.path.join(workdir, f"galaxy_{split}.npy"),
+                torch.round(imgs * 255).to(torch.uint8)
+                .reshape(n, *IMG_GALAXY, 3).cpu().numpy())
+    for sub, side, translate in (("mnist_rotated_translated", IMG_RT_SIDE,
+                                  True),
+                                 ("mnist_rotated", IMG_SIDE, False)):
+        os.makedirs(os.path.join(workdir, "data", sub))
+        for split, n in (("train", IMG_MNIST_TRAIN), ("test", IMG_MNIST_TEST)):
+            np.save(os.path.join(workdir, "data", sub, f"images_{split}.npy"),
+                    digit_images(torch, n, side, gen, translate))
+    os.makedirs(os.path.join(workdir, "data", "mnist"))
+    for name, n in (("train-images-idx3-ubyte", IMG_MNIST_TRAIN),
+                    ("t10k-images-idx3-ubyte", IMG_MNIST_TEST)):
+        write_idx(os.path.join(workdir, "data", "mnist", name),
+                  digit_images(torch, n, IMG_SIDE, gen, False))
+
+
+def _image_groups() -> dict:
+    """The launches of the image CLIs' kernels: K1 (the float decoder's
+    forward, with or without its activations) apart from K2 (its backward),
+    since the int8 arms' display decodes launch K1 alone."""
+    from spatialvae_torch.kernels import fused_decoder as fd
+
+    c = _launch_groups()
+    k1 = sum(v for k, v in fd.LAUNCHES.items()
+             if k.startswith("fwd") and "recompute" not in k)
+    return {"k1": k1, "k2": c["k1k2"] - k1, "k3": c["k3"],
+            "k4k5": c["k4k5"], "adam_step": c["adam_step"], "k8": c["k8"],
+            "detail": c["detail"]}
+
+
+def grid_shape(b: int, dims, channels: int) -> tuple:
+    """(height, width, channels) of ``io/png.save_image_grid``'s grid of b
+    images."""
+    n, m = dims
+    xmaps = min(int(b ** 0.5), b)
+    ymaps = -(-b // xmaps)
+    return ((n + 3) * ymaps + 3, (m + 3) * xmaps + 3, channels)
+
+
+def check_image_tree(torch, name: str, workdir: str, prefix: str,
+                     label: str, dims, channels: int, batch: int,
+                     epochs: int, cli: str, vanilla: bool) -> dict:
+    """The arm's ``outputs_{prefix}`` tree, file by file: every PNG's
+    signature, chunk CRCs and IHDR size (the grid of the first validation
+    batch), the SVGs parsed as XML with one value an epoch, the end-of-run
+    checkpoint pair through ``SpatialVae.load``, the zip's members."""
+    import xml.etree.ElementTree as ET
+    import zipfile
+
+    from spatialvae_torch.api import SpatialVae
+    from spatialvae_torch.io.png import read_png
+
+    root = os.path.join(workdir, f"outputs_{prefix}")
+    digits = int(math.log10(epochs)) + 1
+    grids = ["", "dis_"] + (["rnd_"] if cli == "galaxy" else [])
+    want = {"command.txt", "models.txt", "train.txt", "val.txt",
+            f"images/_sample_{label}.png",
+            f"trained/{prefix}_generator_epoch{epochs}.sav",
+            f"trained/{prefix}_inference_epoch{epochs}.sav"}
+    want |= {f"images/{t}.svg" for t in ("ELBO", "KL_Divergence",
+                                           "BCE_Loss")}
+    want |= {f"images/{str(e).zfill(digits)}_{g}{label}.png"
+             for e in range(1, epochs + 1) for g in grids}
+    if cli == "galaxy":
+        want.add("run.log")
+    got = {os.path.relpath(os.path.join(d, f), root)
+           for d, _, files in os.walk(root) for f in files}
+    if got != want:
+        raise AssertionError(f"{name}: tree {sorted(got ^ want)} differs")
+    shape = grid_shape(batch, dims, channels)
+    for f in sorted(want):
+        if f.endswith(".png"):
+            px = read_png(os.path.join(root, f))
+            if px.shape != shape:
+                raise AssertionError(f"{name}: {f} is {px.shape}, the grid "
+                                     f"of {batch} images is {shape}")
+        elif f.endswith(".svg"):
+            svg = ET.parse(os.path.join(root, f)).getroot()
+            for g in svg.iter("{http://www.w3.org/2000/svg}g"):
+                if g.get("id", "").startswith("series-") and \
+                        len(g.get("data-values").split()) != epochs:
+                    raise AssertionError(f"{name}: {f} {g.get('id')}")
+    gp = os.path.join(root, f"trained/{prefix}_generator_epoch{epochs}.sav")
+    model = SpatialVae.load(gp, gp.replace("generator", "inference"),
+                            device=DEVICE)
+    if model.vanilla != vanilla or tuple(model.image_shape) != tuple(dims):
+        raise AssertionError(f"{name}: checkpoint {model.p_cfg}")
+    z_mu, _ = model.encode(torch.zeros((4, dims[0] * dims[1] * channels),
+                                       device=DEVICE))
+    if not torch.isfinite(z_mu).all():
+        raise AssertionError(f"{name}: {gp} encodes non-finite")
+    zips = [f for f in os.listdir(workdir)
+            if f.endswith(f"_outputs_{prefix}.zip")]
+    if len(zips) != 1:
+        raise AssertionError(f"{name}: archives {zips}")
+    with zipfile.ZipFile(os.path.join(workdir, zips[0])) as zf:
+        members = {m for m in zf.namelist() if not m.endswith("/")}
+    if members != {f"outputs_{prefix}/{f}" for f in want}:
+        raise AssertionError(f"{name}: zip members {sorted(members)}")
+    return {"files": len(want), "grid": "x".join(map(str, shape)),
+            "zip_mb": os.path.getsize(os.path.join(workdir, zips[0])) / 2**20}
+
+
+@contextlib.contextmanager
+def in_process_cli(workdir: str):
+    """The working directory, the root logger's handlers and level, and the
+    environment as they were, after the block; inside it the working
+    directory is ``workdir`` and the outputs prompt is answered."""
+    import logging
+
+    cwd, env = os.getcwd(), dict(os.environ)
+    handlers, level = logging.root.handlers[:], logging.root.level
+    os.environ["SPATIALVAE_ASSUME_YES"] = "1"
+    os.chdir(workdir)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+        for h in logging.root.handlers[:]:
+            if h not in handlers:
+                logging.root.removeHandler(h)
+                h.close()
+        for h in handlers:
+            if h not in logging.root.handlers:
+                logging.root.addHandler(h)
+        logging.root.setLevel(level)
+        os.environ.clear()
+        os.environ.update(env)
+
+
+def image_arm(torch, name: str, workdir: str, card: str) -> dict:
+    """One galaxy or mnist CLI run in process: the launch counts from 0
+    just before it, the TSV (every validation ELBO finite), seconds per
+    epoch, launches per step, the artifact tree."""
+    import io
+    import shutil
+
+    from spatialvae_torch.cli import train_galaxy, train_mnist
+
+    cli, extra, epochs, n_train, batch, must, must_not, k1_dump = \
+        IMG_ARMS[name]
+    argv = []
+    for a in extra:
+        argv += (["galaxy_train.npy", "galaxy_test.npy"] if a == "GALAXY"
+                 else [a])
+    prefix = name
+    argv += ["--save_prefix", prefix, "--save_interval", "1", "--seed",
+             str(SEED)]
+    main = (train_galaxy if cli == "galaxy" else train_mnist).main
+    out, err = _StampedOut(), io.StringIO()
+    with in_process_cli(workdir):
+        torch.cuda.synchronize()
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err), \
+                    recorded_adam_leaves() as adam:
+                main(argv)
+            torch.cuda.synchronize()
+        except BaseException:
+            print(err.getvalue(), file=sys.stderr)
+            raise
+        seconds = time.perf_counter() - t0
+    counts = _image_groups()
+    adam_leaves_check(torch, "img_kernels", name, adam.leaves)
+    rows = [(t, ln) for t, ln in out.lines if "\t" in ln]
+    if not rows or rows[0][1] != IMG_HEADER:
+        raise AssertionError(f"{name}: TSV header {rows[:1]}")
+    body = [ln.split("\t") for _, ln in rows[1:]]
+    want = [str(e) for e in range(epochs) for _ in ("train", "val")]
+    if [r[0] for r in body] != want or any(len(r) != 4 for r in body):
+        raise AssertionError(f"{name}: TSV rows {body}")
+    val_elbo = [float(r[1]) for r in body[1::2]]
+    if not np.isfinite([[float(v) for v in r] for r in body]).all():
+        raise AssertionError(f"{name}: non-finite metrics {body}")
+    # an epoch's seconds: its training, evaluation and image dump, from the
+    # header (the data loaded and on the card) to its validation row
+    stamps = [rows[0][0]] + [t for t, _ in rows[2::2]]
+    per_epoch = [b - a for a, b in zip(stamps, stamps[1:])]
+    # the run's end: checkpoints, plots and results up to the archive's
+    # first line, then the archive (deflating the checkpoints)
+    arch = [t for t, ln in out.lines if ln.startswith(("Archiving files",
+                                                       "Images saved at"))]
+    if len(arch) != 2:
+        raise AssertionError(f"{name}: archive lines {arch}")
+    steps = epochs * math.ceil(n_train / batch)
+    for k in must:
+        if counts[k] < 1:
+            raise AssertionError(f"{name}: {k} was not launched: {counts}")
+    for k in must_not:
+        if counts[k]:
+            raise AssertionError(f"{name}: {k} launched {counts[k]} times: "
+                                 f"{counts}")
+    if k1_dump is not None and counts["k1"] != k1_dump * epochs:
+        raise AssertionError(f"{name}: K1 launched {counts['k1']} times, "
+                             f"{k1_dump} a dump expected (the display "
+                             f"decodes alone)")
+    if counts["adam_step"] != steps:
+        raise AssertionError(f"{name}: {counts['adam_step']} Adam launches "
+                             f"for {steps} steps")
+    dims = IMG_GALAXY if cli == "galaxy" else (
+        (IMG_RT_SIDE,) * 2 if "mnist-rotated-translated" in extra else
+        (IMG_SIDE,) * 2)
+    channels = 3 if cli == "galaxy" else 1
+    n_test = IMG_GALAXY_TEST if cli == "galaxy" else IMG_MNIST_TEST
+    label = prefix + "_" + "".join(
+        (f"z{argv[argv.index('-z') + 1] if '-z' in argv else 2}",
+         "pnl2qnl2" if cli == "galaxy" else "nl2", f"ep{epochs}"))
+    tree = check_image_tree(torch, name, workdir, prefix, label, dims,
+                            channels, min(batch, n_test), epochs, cli,
+                            "--vanilla" in extra)
+    # the arm's checkpoints and archive hold up to 0.7 GB: not kept
+    shutil.rmtree(os.path.join(workdir, f"outputs_{prefix}"))
+    for f in os.listdir(workdir):
+        if f.endswith(f"_outputs_{prefix}.zip"):
+            os.remove(os.path.join(workdir, f))
+    log("cli_images", arm=name, card=repr(card), epochs=epochs,
+        seconds=f"{seconds:.3f}",
+        s_per_epoch="/".join(f"{v:.3f}" for v in per_epoch),
+        start_s=f"{rows[0][0] - t0:.3f}", save_s=f"{arch[0] - stamps[-1]:.3f}",
+        archive_s=f"{arch[1] - arch[0]:.3f}", train_steps=steps,
+        val_elbo="/".join(f"{v:.4f}" for v in val_elbo),
+        launches=json.dumps({k: v for k, v in counts.items()
+                             if k != "detail"}, separators=(",", ":")),
+        per_step=json.dumps({k: round(counts[k] / steps, 4)
+                             for k in ("k1", "k2", "k3", "k4k5",
+                                       "adam_step")}, separators=(",", ":")),
+        files=tree["files"], grid=tree["grid"],
+        zip_mb=f"{tree['zip_mb']:.1f}",
+        detail=json.dumps(counts["detail"], separators=(",", ":")))
+    return {"seconds": seconds, "per_epoch": per_epoch, "counts": counts}
+
+
+# K1/K2 at the image arms' training batches (float32 weights): galaxy
+# 64x64x3 at B=64 and its tail, 4,000 % 64 = 32 (arm a); the rotated and
+# translated digits at 50x50, B=100, no tail (arm d)
+IMG_BWD_CASES = [
+    ("img_galaxy", 64, IMG_GALAXY[0] * IMG_GALAXY[1], P_HIDDEN, 1, 3, False,
+     "float32"),
+    ("img_galaxy_tail", IMG_GALAXY_TRAIN % 64, IMG_GALAXY[0] * IMG_GALAXY[1],
+     P_HIDDEN, 1, 3, False, "float32"),
+    ("img_mnist_rt", 100, IMG_RT_SIDE ** 2, P_HIDDEN, 1, 1, False,
+     "float32"),
+]
+# K1 alone, float32 weights (B, HW, No): the galaxy evaluation's batches
+# (1,000 % 64 = 40) and the display decodes of arms a and b (B=64); arm d's
+# evaluation and display decodes; arm f's display decodes at 28x28
+IMG_K1_EVALS = [(64, IMG_GALAXY[0] * IMG_GALAXY[1], 3),
+                (IMG_GALAXY_TEST % 64, IMG_GALAXY[0] * IMG_GALAXY[1], 3),
+                (100, IMG_RT_SIDE ** 2, 1), (100, IMG_SIDE ** 2, 1)]
+
+
+def img_kernel_checks(torch) -> None:
+    """``[img_kernels]``: every kernel the image CLIs' arms launch, against
+    its plain version at the arms' own shapes (H=500), through the helpers
+    and limits of the earlier phases: K1 with its activations and K2 (both
+    variants) and K1 alone (IMG_BWD_CASES, IMG_K1_EVALS); K3's Bernoulli
+    family on three channels with bf16 weights and int8 targets at B=64
+    and the tail of 32 (arm b) and its padded family at 28x28 (784 pixels
+    padded to 1,024) with float32 weights at B=100 (arm f); K4 with and
+    without a1 and K5 at arm b's evaluation batches (64, 40; bf16) and at
+    arm f's (B=100, 784 pixels, float32 weights: K4 alone on the block
+    passes).  Adam's step kernel is held to its plain version on each
+    arm's own leaves after the arm (``adam_leaves_check``)."""
+    k12_checks(torch, "img_kernels", IMG_BWD_CASES, IMG_K1_EVALS)
+    hw = IMG_GALAXY[0] * IMG_GALAXY[1]
+    for b in (64, IMG_GALAXY_TRAIN % 64):
+        r = loss_case(torch, b, "bfloat16", SEED, False)
+        k3_check(torch, "img_kernels", f"K3 galaxy bf16 B={b}", r,
+                 case="img_galaxy", B=b, HW=hw, padded_HW=hw, H=P_HIDDEN,
+                 No=3, dtype="bfloat16", targets="int8", mask="-")
+    case = ("img_bernoulli_pad28", "bernoulli", IMG_SIDE, False, True)
+    r = family_case(torch, case, "float32", SEED, False, b=100)
+    k3_check(torch, "img_kernels", f"K3 {case[0]} B=100", r, case=case[0],
+             B=100, HW=IMG_SIDE ** 2, padded_HW=1024, H=P_HIDDEN, No=1,
+             dtype="float32", targets="int8", mask="-")
+    for b in (64, IMG_GALAXY_TEST % 64):
+        k45_check(torch, "img_kernels", b, "bfloat16", hw, 3)
+    k45_check(torch, "img_kernels", 100, "float32", IMG_SIDE ** 2, 1)
+
+
+def phase_cli_images(torch, tmpdir: str, card: str) -> dict:
+    """``[cli_images]``: the galaxy and mnist CLIs in process at full width
+    in six arms ((a) galaxy z=20 with rotation augmentation, B=64, four
+    epochs, BASELINE #5 at BASELINE.md's size; (b) the same in int8 mode
+    with bf16 compute; (c) the galaxy vanilla generator; (d) mnist's
+    rotated-and-translated digits at their defaults, BASELINE #2; (e) the
+    vanilla generator on MNIST idx files, z=100, B=64; (f) the rotated
+    digits in int8 mode), each from its files in one working directory;
+    first ``[img_kernels]``, the arms' kernels at their shapes."""
+    workdir = os.path.join(tmpdir, "cli_images")
+    os.makedirs(workdir)
+    t0 = time.perf_counter()
+    img_kernel_checks(torch)
+    checks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli_images_data(torch, workdir)
+    data_s = time.perf_counter() - t0
+    res = {name: image_arm(torch, name, workdir, card) for name in IMG_ARMS}
+    log("cli_images", arms=len(res), checks_s=f"{checks_s:.3f}",
+        data_s=f"{data_s:.3f}",
+        phase_s=f"{time.perf_counter() - t0:.3f}")
+    return res
 
 
 def main() -> int:
@@ -6296,6 +6802,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmpdir:
             phase_cli_particles(torch, tmpdir, card)
         return 0
+    if sys.argv[1:] == ["--phase", "cli_images"]:
+        with tempfile.TemporaryDirectory() as tmpdir:
+            phase_cli_images(torch, tmpdir, card)
+        return 0
     ptxas = start_ptxas_report(LOSS90_SOURCE)
     ptxas_dec = start_ptxas_report(DEC90_SOURCE)
     ptxas_adam = start_ptxas_report(ADAM90_SOURCE)
@@ -6343,6 +6853,7 @@ def main() -> int:
         tw = phase_train_wide(torch)
         wide_launches = phase_slice_wide(torch, tmpdir, tw)
         phase_cli_particles(torch, tmpdir, card)
+        phase_cli_images(torch, tmpdir, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     rows = kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,

@@ -8,12 +8,13 @@
     canon = model.reconstruct_canonical(images, generator=g)  # pose-stripped
     samples = model.sample(16, generator=g)                 # prior samples
 
-Every spatial decode goes through the ELBO's decode dispatch with the fused
-decoder selected, so on a CUDA device the foldable tanh configs (galaxy
-among them) run the hand-written kernel at any hidden width.  (The JAX
-API pins the XLA decoder
-because a pallas_call could not be partitioned under GSPMD; the port has no
-such limit, and kernel and plain decoder compute the same function.)
+A vanilla generator's checkpoint serves too: it decodes z alone, with no
+pose slots.  Every spatial decode goes through the ELBO's decode dispatch
+with the fused decoder selected, so on a CUDA device the foldable tanh
+configs (galaxy among them) run the hand-written kernel at any hidden
+width.  (The JAX API pins the XLA decoder because a pallas_call could not
+be partitioned under GSPMD; the port has no such limit, and kernel and
+plain decoder compute the same function.)
 Random draws come from an explicit ``torch.Generator``; ``noise=`` injects
 a given standard-normal draw instead.  ``load`` puts the model on the CUDA
 card unless it is given ``device="cpu"`` (or another device), and raises
@@ -29,7 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from spatialvae_torch.config import InferenceConfig
+from spatialvae_torch.config import InferenceConfig, VanillaGeneratorConfig
 from spatialvae_torch.checkpoint import load_model_meta
 from spatialvae_torch.device import resolve_device
 from spatialvae_torch.io.jax_params import (
@@ -37,10 +38,9 @@ from spatialvae_torch.io.jax_params import (
     inference_from_jax,
 )
 from spatialvae_torch.models.inference import InferenceNetwork
-from spatialvae_torch.models.spatial import SpatialGenerator
 from spatialvae_torch.objectives.elbo import (
     ElboConfig,
-    decode_spatial,
+    decode,
     elbo_minibatch,
 )
 from spatialvae_torch.precision import fp32_precision
@@ -50,7 +50,7 @@ from spatialvae_torch.transforms.coords import coord_grid
 @dataclass
 class SpatialVae:
     q_net: InferenceNetwork
-    p_net: SpatialGenerator
+    p_net: torch.nn.Module               # SpatialGenerator or VanillaGenerator
     q_cfg: InferenceConfig
     p_cfg: object
     coords: torch.Tensor
@@ -62,9 +62,13 @@ class SpatialVae:
         return self.coords.device
 
     @property
+    def vanilla(self) -> bool:
+        return isinstance(self.p_cfg, VanillaGeneratorConfig)
+
+    @property
     def pose_dims(self) -> int:
         """Latent slots used by rotation (1) + translation (2)."""
-        if self.ecfg is not None:
+        if self.ecfg is not None and not self.vanilla:
             return int(self.ecfg.rotate) + 2 * int(self.ecfg.translate)
         return self.q_cfg.latent_dim - self.p_cfg.latent_dim
 
@@ -75,7 +79,8 @@ class SpatialVae:
         if self.ecfg is not None:
             return dataclasses.replace(self.ecfg, fused=True, int8=False)
         pose = self.pose_dims
-        return ElboConfig(rotate=pose >= 1, translate=pose >= 2, fused=True)
+        return ElboConfig(rotate=pose >= 1, translate=pose >= 2, fused=True,
+                          vanilla=self.vanilla)
 
     @staticmethod
     def load(generator_path: str, inference_path: str,
@@ -129,9 +134,10 @@ class SpatialVae:
     @torch.no_grad()
     @fp32_precision()
     def decode(self, z) -> torch.Tensor:
-        """z: (B, z_dim) content latents -> (B, HW, n_out), canonical pose."""
-        return decode_spatial(self.p_net, self.serving_ecfg, self.coords,
-                              None, None, self.as_tensor(z))
+        """z: (B, z_dim) content latents -> (B, HW, n_out), canonical pose
+        (a vanilla generator: (B, n, n_out))."""
+        return decode(self.p_net, self.serving_ecfg, self.coords, None, None,
+                      self.as_tensor(z))
 
     def sample(self, num: int, generator: Optional[torch.Generator] = None,
                *, noise=None) -> torch.Tensor:

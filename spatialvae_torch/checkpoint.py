@@ -56,9 +56,9 @@ def write_payload(path: str, payload: dict) -> None:
 
 def save_model(path: str, kind: str, module, *, elbo=None,
                image_shape=None) -> None:
-    """Write ``module`` (an InferenceNetwork or SpatialGenerator) with its
-    config and, optionally, the ELBO/pose config and image shape that
-    serving needs."""
+    """Write ``module`` (an InferenceNetwork, SpatialGenerator or
+    VanillaGenerator) with its config and, optionally, the ELBO/pose
+    config and image shape that serving needs."""
     write_payload(path, model_payload(kind, module, elbo=elbo,
                                       image_shape=image_shape))
 
@@ -155,7 +155,7 @@ def load_optimizer(path: str, q_net, p_net, device=None):
     if not isinstance(payload, dict) or payload.get("format") != FORMAT \
             or payload.get("kind") != "optimizer":
         raise ValueError(f"{path} is not a {FORMAT} optimizer checkpoint")
-    first = payload["mu"]["p"]["coord"]["w"]
+    first = payload["mu"]["q"]["layers"][0]["w"]
     if getattr(first, "dtype", None) != np.float32:
         raise _bf16_moments()
     state = FusedAdamState(

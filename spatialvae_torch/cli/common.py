@@ -1,4 +1,7 @@
-"""Shared CLI plumbing — counterpart of ``spatialvae_tpu/cli/common.py``.
+"""Shared CLI plumbing — counterpart of ``spatialvae_tpu/cli/common.py``,
+and the epoch loop and end-of-run save that the galaxy and mnist CLIs share
+(``image_epochs``, ``save_image_run``; the JAX package writes them out in
+each CLI).
 
 Flag spellings: the reference's mnist/galaxy CLIs use underscores
 (``--z_dim``) and its particles CLI dashes (``--z-dim``); every long flag
@@ -10,9 +13,9 @@ back to the CPU.
 
 The JAX package's additive flags are all accepted.  Those whose module the
 port does not have yet raise ``NotImplementedError`` naming the ROADMAP
-item before any work (``refuse_unported``): ``--vanilla`` (M1),
-``--no-preload`` (M4), ``--mesh-model`` above 1 and the three multi-host
-flags (M10), ``--profile-dir`` and ``--debug-nans`` (M11), and
+item before any work (``refuse_unported``): ``--no-preload`` (M4),
+``--mesh-model`` above 1 and the three multi-host flags (M10),
+``--profile-dir`` and ``--debug-nans`` (M11), and
 ``--matmul-precision`` other than ``highest`` (the port computes float32
 products in full float32 only); ``--resume-optimizer`` with bf16 moments
 in the file raises when it is read (M9c-2).  ``--tp-mode`` is accepted
@@ -24,7 +27,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 import os
+import sys
 
 import torch
 
@@ -106,8 +111,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def refuse_unported(args) -> None:
     """Raise on a flag whose module the port does not have yet."""
-    if getattr(args, "vanilla", False):
-        raise _not_ported("--vanilla (the vanilla generator)", "M1")
     if getattr(args, "no_preload", False):
         raise _not_ported("--no-preload (host-resident streaming)", "M4")
     if (getattr(args, "mesh_model", 1) or 1) > 1:
@@ -282,9 +285,84 @@ def chunked_epochs(trainer, dataset, start_epoch: int, num_epochs: int,
 
 
 def resolve_activation_name(cli_choice: str, trainer: str) -> str:
-    """Per-CLI activation dispatch of the reference, for the CLIs the port
-    has: mnist/particles map 'tanh' -> tanh, 'relu' -> leakyrelu (torch
-    LeakyReLU).  The galaxy CLI's own table comes with that CLI (M9b)."""
+    """Per-CLI activation dispatch of the reference.  mnist/particles:
+    'tanh' -> tanh, 'relu' -> leakyrelu (torch LeakyReLU).  galaxy: 'tanh'
+    -> tanh, 'relu' -> relu, 'sigmoid' -> sigmoid, and 'leakyrelu' falls
+    through to tanh (the reference's dispatch tests the misspelling
+    'leakrelu'; kept, as in the JAX package)."""
     if trainer in ("mnist", "particles"):
         return {"tanh": "tanh", "relu": "leakyrelu"}[cli_choice]
+    if trainer == "galaxy":
+        return {"tanh": "tanh", "relu": "relu", "sigmoid": "sigmoid",
+                "leakyrelu": "tanh"}.get(cli_choice, "tanh")
     raise ValueError(trainer)
+
+
+RESULTS_HEADER = "\t".join(["Epoch", "ELBO", "BCE loss", "KL"])
+
+
+def image_epochs(trainer, data_train, data_val, args, start_epoch: int,
+                 dump) -> tuple:
+    """The galaxy and mnist CLIs' epoch loop: train in ``chunked_epochs``
+    pieces, print each training row, evaluate after each chunk (z scaled
+    to 0 during ``--z_delay``; mnist has no such flag), call ``dump(
+    epoch_str, z_scale)`` every ``--save_interval`` epochs and print the
+    validation row.  Rows are ``epoch - 1`` (0-based) then (ELBO, BCE, KL).
+    Returns (train rows, validation rows, train lines, validation lines),
+    each list of lines headed by ``RESULTS_HEADER``."""
+    num_epochs = args.num_epochs
+    digits = int(math.log10(num_epochs)) + 1
+    print(RESULTS_HEADER)
+    train_results, val_results = [], []
+    train_lines, val_lines = [RESULTS_HEADER], [RESULTS_HEADER]
+    for rows, epoch in chunked_epochs(
+            trainer, data_train, start_epoch, num_epochs,
+            args.eval_interval, args.save_interval):
+        for e, tr in rows:
+            row = [e, *tr]
+            train_results.append(row)
+            line = "\t".join(map(str, row))
+            train_lines.append(line)
+            print(line, flush=True)
+        z_scale = 0.0 if (epoch - 1) < getattr(args, "z_delay", 0) else 1.0
+        va = trainer.eval_epoch(data_val, epoch - 1, z_scale=z_scale)
+        if epoch % args.save_interval == 0:
+            dump(str(epoch).zfill(digits), z_scale)
+        row = [epoch - 1, *va]
+        val_results.append(row)
+        line = "\t".join(map(str, row))
+        val_lines.append(line)
+        print(line, flush=True)
+    return train_results, val_results, train_lines, val_lines
+
+
+def save_image_run(trainer, args, outputs, results: tuple) -> None:
+    """The end of a galaxy or mnist run: both networks into
+    ``outputs.trained_dir`` (blocking: the archive must hold them), the Adam
+    state with ``--save-optimizer`` (only with a prefix: without one there
+    are no model checkpoints to pair it with), the three plots and the
+    results files.  ``results`` is ``image_epochs``' return."""
+    from spatialvae_torch.train.checkpoint import (
+        optimizer_path,
+        save_optimizer,
+        save_trained_models,
+    )
+    from spatialvae_torch.train.plots import basic_run_plot
+
+    train_results, val_results, train_lines, val_lines = results
+    last = args.num_epochs - 1
+    digits = int(math.log10(args.num_epochs)) + 1
+    save_trained_models(args.save_prefix, last, digits, 1,
+                        outputs.trained_dir, trainer.p_net, trainer.q_net,
+                        async_write=False, elbo=trainer.ecfg,
+                        image_shape=trainer.tcfg.image_shape)
+    if args.save_optimizer and not args.save_prefix:
+        print("# WARNING: --save-optimizer ignored: no --save_prefix, so "
+              "there are no model checkpoints for the optimizer state to "
+              "pair with", file=sys.stderr)
+    if args.save_optimizer and args.save_prefix:
+        save_optimizer(optimizer_path(args.save_prefix, last, digits,
+                                      outputs.trained_dir),
+                       trainer.opt_state, last, trainer.q_net, trainer.p_net)
+    basic_run_plot(train_results, val_results, output_dir=outputs.images_dir)
+    outputs.write_results(train_lines, val_lines)

@@ -10,8 +10,9 @@ unless ``-d -1``:
 MRC/npy stacks, centre crop and whole-image normalisation, per-particle CTF
 kernels on odd dims (applied per batch through FFTs on the device), the
 circular pixel mask, the Gaussian or colored-noise likelihood
-(``--fit-noise``), rotation augmentation on the device, the ``--z-delay``
-curriculum, checkpoints every ``--save-interval`` epochs to the bare
+(``--fit-noise``), the spatial or the vanilla generator (``--vanilla``),
+rotation augmentation on the device, the ``--z-delay`` curriculum,
+checkpoints every ``--save-interval`` epochs to the bare
 prefix (written in the background; ``--save-optimizer`` adds the Adam
 state), resume, and the TSV ``Epoch Split ELBO Error KL`` on stdout with
 the ``#`` lines on stderr.  Float32 products run in full float32 (no
@@ -153,6 +154,7 @@ def run(args):
     from spatialvae_torch.config import (
         InferenceConfig,
         SpatialGeneratorConfig,
+        VanillaGeneratorConfig,
     )
     from spatialvae_torch.ctf import ctf_filter, parse_ctf
     from spatialvae_torch.io.image import crop as crop_stack
@@ -227,22 +229,35 @@ def run(args):
 
         activation = resolve_activation_name(args.activation, "particles")
         n_out = 2 if args.fit_noise else 1
-        print("# using the spatial generator architecture", file=sys.stderr)
-        rotate = not args.no_rotate
-        translate = not args.no_translate
-        inf_dim = z_dim
-        if rotate:
-            print("# spatial-VAE with rotation inference", file=sys.stderr)
-            inf_dim += 1
-        if translate:
-            print("# spatial-VAE with translation inference",
+        if args.vanilla:
+            print("# using the vanilla MLP generator architecture",
                   file=sys.stderr)
-            inf_dim += 2
-        p_cfg = SpatialGeneratorConfig(
-            latent_dim=z_dim, hidden_dim=args.p_hidden_dim, n_out=n_out,
-            num_layers=args.p_num_layers, activation=activation,
-            softplus=args.softplus, resid=args.resid,
-            expand_coords=args.expand_coords, bilinear=args.bilinear)
+            p_cfg = VanillaGeneratorConfig(
+                n=n * m, latent_dim=z_dim, hidden_dim=args.p_hidden_dim,
+                n_out=n_out, num_layers=args.p_num_layers,
+                activation=activation, softplus=args.softplus,
+                resid=args.resid)
+            rotate = translate = False
+            inf_dim = z_dim
+        else:
+            print("# using the spatial generator architecture",
+                  file=sys.stderr)
+            rotate = not args.no_rotate
+            translate = not args.no_translate
+            inf_dim = z_dim
+            if rotate:
+                print("# spatial-VAE with rotation inference",
+                      file=sys.stderr)
+                inf_dim += 1
+            if translate:
+                print("# spatial-VAE with translation inference",
+                      file=sys.stderr)
+                inf_dim += 2
+            p_cfg = SpatialGeneratorConfig(
+                latent_dim=z_dim, hidden_dim=args.p_hidden_dim, n_out=n_out,
+                num_layers=args.p_num_layers, activation=activation,
+                softplus=args.softplus, resid=args.resid,
+                expand_coords=args.expand_coords, bilinear=args.bilinear)
 
         q_cfg = InferenceConfig(n=n * m, latent_dim=inf_dim,
                                 hidden_dim=args.q_hidden_dim,

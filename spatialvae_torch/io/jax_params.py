@@ -7,6 +7,7 @@ checkpoints pickle:
 
     generator: {"coord": {"w", "b"}, "latent": {"w"}, "bilinear": {"w"},
                 "layers": [{"w", "b"}, ...]}       # hidden layers, then head
+    vanilla generator: {"layers": [{"w", "b"}, ...]}   # z -> ... -> head
     inference: {"layers": [{"w", "b"}, ...]}
 
 Leaves are numpy arrays (or anything ``np.asarray`` takes).  Every shape is
@@ -35,6 +36,7 @@ from spatialvae_torch.config import (
 )
 from spatialvae_torch.models.inference import InferenceNetwork
 from spatialvae_torch.models.spatial import SpatialGenerator
+from spatialvae_torch.models.vanilla import VanillaGenerator
 from spatialvae_torch.nn.layers import stack_linears
 
 
@@ -72,10 +74,13 @@ def _empty(cls, cfg, device, dtype):
 
 
 def generator_from_jax(params: Dict, cfg, *, device=None,
-                       dtype: torch.dtype = torch.float32) -> SpatialGenerator:
+                       dtype: torch.dtype = torch.float32):
+    """A ``SpatialGenerator`` or, for a ``VanillaGeneratorConfig``, a
+    ``VanillaGenerator``."""
     if isinstance(cfg, VanillaGeneratorConfig):
-        raise NotImplementedError(
-            "the vanilla generator is not ported yet (ROADMAP Queue 1, M1)")
+        gen = _empty(VanillaGenerator, cfg, device, dtype)
+        _load_linears(gen.linears(), params["layers"], "layers")
+        return gen
     if not isinstance(cfg, SpatialGeneratorConfig):
         raise TypeError(f"not a generator config: {cfg!r}")
     gen = _empty(SpatialGenerator, cfg, device, dtype)
@@ -101,9 +106,9 @@ def inference_from_jax(params: Dict, cfg: InferenceConfig, *, device=None,
 
 def from_jax_params(q_params: Dict, p_params: Dict, q_cfg: InferenceConfig,
                     p_cfg, device=None, dtype: torch.dtype = torch.float32
-                    ) -> Tuple[InferenceNetwork, SpatialGenerator]:
+                    ) -> Tuple[InferenceNetwork, nn.Module]:
     """JAX (q, p) param trees -> the port's (InferenceNetwork,
-    SpatialGenerator) on ``device`` in ``dtype``."""
+    SpatialGenerator or VanillaGenerator) on ``device`` in ``dtype``."""
     return (inference_from_jax(q_params, q_cfg, device=device, dtype=dtype),
             generator_from_jax(p_params, p_cfg, device=device, dtype=dtype))
 
@@ -129,7 +134,9 @@ def _dump_linears(linears: List[nn.Linear]) -> List[Dict]:
     return out
 
 
-def generator_to_jax(gen: SpatialGenerator) -> Dict:
+def generator_to_jax(gen) -> Dict:
+    if isinstance(gen, VanillaGenerator):
+        return {"layers": _dump_linears(gen.linears())}
     params = {"coord": {"w": _np(gen.coord_linear.weight, (1, 0)),
                         "b": _np(gen.coord_linear.bias)},
               "layers": _dump_linears(gen.linears())}
@@ -193,6 +200,9 @@ def leaf_paths(q_net: InferenceNetwork, p_net: SpatialGenerator
                 add(key, net, lin.bias, ("layers", i, "b"), None)
 
     linears("q", q_net, stack_linears(q_net.layers))
+    if isinstance(p_net, VanillaGenerator):
+        linears("p", p_net, p_net.linears())
+        return out
     add("p", p_net, p_net.coord_linear.weight, ("coord", "w"), (1, 0))
     add("p", p_net, p_net.coord_linear.bias, ("coord", "b"), None)
     if p_net.latent_dim > 0:

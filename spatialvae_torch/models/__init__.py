@@ -5,6 +5,7 @@ from spatialvae_torch.models.spatial import (
     fold_pose_into_first_layer,
     spatial_generator_apply_folded,
 )
+from spatialvae_torch.models.vanilla import VanillaGenerator
 
 __all__ = [
     "InferenceNetwork",
@@ -12,4 +13,5 @@ __all__ = [
     "can_fold",
     "fold_pose_into_first_layer",
     "spatial_generator_apply_folded",
+    "VanillaGenerator",
 ]

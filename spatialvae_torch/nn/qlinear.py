@@ -68,15 +68,39 @@ def _padded(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return t.contiguous()
 
 
+# below this K an N of 8 mod 16 is padded even where b needs no copy
+# (cuBLASLt's refusals lie below it; see ``int_mm``)
+N16_BELOW_K = 512
+
+
+def padded_sizes(m: int, k: int, n: int, b_copied: bool) -> tuple:
+    """(M, K, N) of the GEMM ``int_mm`` runs for an (m, k) x (k, n)
+    product: each a multiple of 8, M at least 24, and N a multiple of 16
+    wherever b is copied anyway (``b_copied``: b is not the transpose of a
+    row-major (n, k), or K or N is padded) or K is below N16_BELOW_K."""
+    mp, kp, np_ = max(24, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+    if np_ % 16 and (b_copied or (kp, np_) != (k, n) or kp < N16_BELOW_K):
+        np_ += 8
+    return mp, kp, np_
+
+
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int8 (M, K) x (K, N) -> int32 (M, N).  Zero rows and columns
     pad M, K and N to multiples of 8, and M to at least 24, where they fall
     short, and the call always takes the one operand layout the card's
     int8 GEMM runs: a row-major and b the transpose of a row-major (N, K)
-    (a free view for ``w.t()`` of a contiguous weight, a copy otherwise)."""
+    (a free view for ``w.t()`` of a contiguous weight, a copy otherwise).
+
+    cuBLASLt on an H100 refuses (``CUBLAS_STATUS_NOT_SUPPORTED``) some
+    GEMMs whose N is 8 mod 16: against a K that is a multiple of 16 below
+    128 from N = 2,504 and M = 1,600 up (the encoder's dW at a batch of 64,
+    where K is the batch; ``tests/test_torch_port_cuda.py``'s
+    ``test_int_mm_refusals_are_padded`` maps them).  N is padded to a
+    multiple of 16 wherever b is copied anyway, as in every dW and dx, and
+    for a weight's free view below N16_BELOW_K (``padded_sizes``)."""
     m, k = a.shape
     n = b.shape[1]
-    mp, kp, np_ = max(24, -(-m // 8) * 8), -(-k // 8) * 8, -(-n // 8) * 8
+    mp, kp, np_ = padded_sizes(m, k, n, not b.t().is_contiguous())
     out = torch._int_mm(_padded(a, mp, kp), _padded(b.t(), np_, kp).t())
     return out[:m, :n] if (mp, np_) != (m, n) else out
 

@@ -1,5 +1,6 @@
 from spatialvae_torch.objectives.elbo import (
     ElboConfig,
+    decode,
     decode_spatial,
     elbo_minibatch,
     fused_loss_active,
@@ -7,5 +8,5 @@ from spatialvae_torch.objectives.elbo import (
     loss_terms,
 )
 
-__all__ = ["ElboConfig", "decode_spatial", "elbo_minibatch",
+__all__ = ["ElboConfig", "decode", "decode_spatial", "elbo_minibatch",
            "fused_loss_active", "loss_and_grad", "loss_terms"]

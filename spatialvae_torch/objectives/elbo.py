@@ -33,8 +33,13 @@ the Bernoulli likelihood ignores it, as in JAX.  A batch with CTF never
 takes the loss kernel: it decodes (K1/K2, or K4/K5 in int8 mode) and the
 likelihood runs in PyTorch.
 
+The vanilla generator (``models/vanilla.py``) decodes z alone: the ELBO
+infers no pose for it (rotate and translate forced off, as in JAX), never
+takes the loss kernel or the int8 decoder, and its products run in
+PyTorch, as JAX leaves them to XLA; the int8 encoder copies still apply.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: the vanilla generator (M1) and pixel-axis sharding (M10).
+item: pixel-axis sharding (M10).
 
 ``elbo_minibatch`` is differentiable; its serving callers take
 ``torch.no_grad()`` themselves, so serving saves nothing for a backward and
@@ -76,6 +81,7 @@ from spatialvae_torch.models.spatial import (
     can_fold,
     spatial_generator_apply_folded,
 )
+from spatialvae_torch.models.vanilla import VanillaGenerator
 from spatialvae_torch.precision import fp32_precision
 from spatialvae_torch.transforms.coords import rotate_coords, translate_coords
 
@@ -141,6 +147,16 @@ def decode_spatial(p_net: SpatialGenerator, ecfg: ElboConfig,
     if dx is not None:
         x = translate_coords(x, dx)
     return p_net(x, z)
+
+
+def decode(p_net, ecfg: ElboConfig, coords: torch.Tensor,
+           theta: Optional[torch.Tensor], dx: Optional[torch.Tensor],
+           z: torch.Tensor) -> torch.Tensor:
+    """``decode_spatial``, or z alone through a ``VanillaGenerator`` (which
+    takes no pose).  Returns (B, HW, n_out), (B, n, n_out) for vanilla."""
+    if isinstance(p_net, VanillaGenerator):
+        return p_net(z)
+    return decode_spatial(p_net, ecfg, coords, theta, dx, z)
 
 
 def _channel_mask(mask: torch.Tensor, n: int) -> torch.Tensor:
@@ -236,12 +252,13 @@ def elbo_minibatch(
     (``InferenceNetwork.forward``'s ``qw`` and ``y_q8``); ``y_inf`` is the
     encoder's view (the augmented images), ``offsets`` the augmentation's
     angles, added to theta; ``ctf`` the batch's CTF kernels, over the (n,
-    m) ``image_shape``.  ``pixel_axis`` and the vanilla generator are not
-    ported yet and raise."""
+    m) ``image_shape``.  ``p_net`` may be a ``VanillaGenerator``, with
+    ``ecfg.vanilla`` set.  ``pixel_axis`` is not ported yet and raises."""
     if pixel_axis is not None:
         raise _not_ported("pixel-axis sharding", "M10")
-    if ecfg.vanilla:
-        raise _not_ported("the vanilla generator", "M1")
+    if ecfg.vanilla != isinstance(p_net, VanillaGenerator):
+        raise ValueError(f"ElboConfig(vanilla={ecfg.vanilla}) with a "
+                         f"{type(p_net).__name__}")
     b = y.shape[0]
     if y_inf is None:
         y_inf = y
@@ -258,7 +275,10 @@ def elbo_minibatch(
 
     kl_div = torch.zeros((b,), dtype=z_mu.dtype, device=z_mu.device)
     theta = dx = None
-    if ecfg.rotate:
+    # the vanilla generator takes no pose: its latents are z alone
+    rotate = ecfg.rotate and not ecfg.vanilla
+    translate = ecfg.translate and not ecfg.vanilla
+    if rotate:
         theta_mu = z_mu[:, 0]
         theta_std = z_std[:, 0]
         theta_logstd = z_logstd[:, 0]
@@ -275,7 +295,7 @@ def elbo_minibatch(
         if ecfg.theta_mean_penalty:
             kl_rot = kl_rot + theta_mu ** 2 / (2.0 * sigma ** 2)
         kl_div = kl_div + kl_rot
-    if ecfg.translate:
+    if translate:
         dx = z[:, :2] * ecfg.dx_scale
         z = z[:, 2:]
         # z_mu/z_std/z_logstd keep the dx columns: the unit-normal KL
@@ -302,7 +322,7 @@ def elbo_minibatch(
         return log_p - kl_div, log_p, kl_div, None
 
     # ---- decode + reconstruction log-likelihood ---------------------------
-    y_hat = decode_spatial(p_net, ecfg, coords, theta, dx, z)
+    y_hat = decode(p_net, ecfg, coords, theta, dx, z)
     if ecfg.likelihood == "bernoulli":
         log_p = _bernoulli_log_p(y_hat, y, mask)
     else:

@@ -57,9 +57,13 @@ dtype; such steps never take the loss kernel.  CTF with bf16 compute
 raises ``ValueError`` before any work, as the JAX trainer does at its first
 step (XLA's FFT takes float32 or float64 only).
 
+The vanilla generator (``VanillaGeneratorConfig``, with
+``ElboConfig(vanilla=True)``) trains through the same loop: no pose, no
+augmentation (as in JAX), no loss kernel or int8 decoder; every step still
+ends in Adam's step kernel, and the display decodes decode z alone.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: host-resident streaming (M4), the vanilla generator (M1) and meshes
-(M10).  ``train_epochs`` runs the epochs one by one; its single-dispatch
+item: host-resident streaming (M4) and meshes (M10).  ``train_epochs`` runs the epochs one by one; its single-dispatch
 form (CUDA graphs) is a later speed choice (M4).
 """
 
@@ -75,7 +79,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from spatialvae_torch.config import InferenceConfig
+from spatialvae_torch.config import InferenceConfig, VanillaGeneratorConfig
 from spatialvae_torch.device import resolve_device
 from spatialvae_torch.kernels.config import check_knobs
 from spatialvae_torch.kernels.fused_loss_int8 import (
@@ -84,10 +88,11 @@ from spatialvae_torch.kernels.fused_loss_int8 import (
 )
 from spatialvae_torch.models.inference import InferenceNetwork
 from spatialvae_torch.models.spatial import SpatialGenerator
+from spatialvae_torch.models.vanilla import VanillaGenerator
 from spatialvae_torch.nn.layers import stack_linears
 from spatialvae_torch.objectives.elbo import (
     ElboConfig,
-    decode_spatial,
+    decode,
     elbo_minibatch,
     fused_loss_active,
     loss_and_grad,
@@ -208,8 +213,6 @@ class Trainer:
                  mesh=None):
         if mesh is not None:
             raise _not_ported("multi-device training", "M10")
-        if ecfg.vanilla:
-            raise _not_ported("the vanilla generator", "M1")
         if tcfg.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {tcfg.compute_dtype!r}; "
                              f"expected one of {sorted(_DTYPES)}")
@@ -232,8 +235,10 @@ class Trainer:
         init = seeded_generator(tcfg.seed, None, self.device)
         self.q_net = InferenceNetwork(q_cfg, generator=init,
                                       device=self.device)
-        self.p_net = SpatialGenerator(p_cfg, generator=init,
-                                      device=self.device)
+        gen_cls = (VanillaGenerator
+                   if isinstance(p_cfg, VanillaGeneratorConfig)
+                   else SpatialGenerator)
+        self.p_net = gen_cls(p_cfg, generator=init, device=self.device)
         self.optimizer = fused_adam_pallas(tcfg.learning_rate)
         self.opt_state = self.optimizer.init(self.named_params())
         # one device: bf16 compute differentiates the shadow, and int8 mode
@@ -437,7 +442,8 @@ class Trainer:
         given.  Returns aux = [elbo, -log_p, kl] (on the device)."""
         self._check_ctf(ctf)
         y_inf = None
-        if self.tcfg.augment_rotation and self.ecfg.rotate:
+        if (self.tcfg.augment_rotation and self.ecfg.rotate
+                and not self.ecfg.vanilla):
             if offsets is None:
                 offsets = torch.rand(y.shape[0], generator=generator,
                                      device=self.device) * (2.0 * math.pi)
@@ -574,7 +580,8 @@ class Trainer:
                               z_scale: float = 1.0, *,
                               noise=None) -> torch.Tensor:
         """Pose-stripped reconstruction: the rotation and translation
-        latents are dropped before decoding over the untransformed grid."""
+        latents are dropped before decoding over the untransformed grid (a
+        vanilla generator has none)."""
         y = y.to(self.device)
         z_mu, z_logstd = self.q_net(y.reshape(y.shape[0], -1))
         if noise is None:
@@ -582,9 +589,10 @@ class Trainer:
             noise = torch.randn(z_mu.shape, generator=gen,
                                 device=self.device)
         z = torch.exp(z_logstd) * noise + z_mu
-        z = z[:, int(self.ecfg.rotate) + 2 * int(self.ecfg.translate):]
-        return decode_spatial(self.p_net, self._display_ecfg, self.coords,
-                              None, None, z * z_scale)
+        if not self.ecfg.vanilla:
+            z = z[:, int(self.ecfg.rotate) + 2 * int(self.ecfg.translate):]
+        return decode(self.p_net, self._display_ecfg, self.coords, None,
+                      None, z * z_scale)
 
     @torch.no_grad()
     def sample_prior(self, batch_size: int, z_dim: int,
@@ -595,5 +603,5 @@ class Trainer:
             gen = generator if generator is not None else self._gen(9)
             noise = torch.randn((batch_size, z_dim), generator=gen,
                                 device=self.device)
-        return decode_spatial(self.p_net, self._display_ecfg, self.coords,
-                              None, None, noise * z_scale)
+        return decode(self.p_net, self._display_ecfg, self.coords, None,
+                      None, noise * z_scale)

@@ -215,7 +215,7 @@ def test_eval_interval_keeps_the_trajectory(workdir, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--vanilla"], "M1"), (["--no-preload"], "M4"),
+    (["--no-preload"], "M4"),
     (["--mesh-model", "2"], "M10"), (["--coordinator", "h:1"], "M10"),
     (["--num-processes", "2"], "M10"), (["--process-id", "0"], "M10"),
     (["--profile-dir", "trace"], "M11"), (["--debug-nans"], "M11"),

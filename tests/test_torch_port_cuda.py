@@ -29,6 +29,7 @@ The JAX parity of the plain versions is in ``test_torch_port_decoder.py``.
 
 import dataclasses
 import math
+import os
 
 import pytest
 import torch
@@ -1015,12 +1016,16 @@ def test_quantize_many_matches_plain_version(cuda_device):
 
 @pytest.mark.parametrize("m,k,n", [(100, 12288, 5000), (37, 5000, 5000),
                                    (5000, 100, 12288), (5000, 37, 5000),
-                                   (3, 50, 36)])
+                                   (3, 50, 36), (5000, 64, 5000),
+                                   (5000, 64, 12288), (5000, 112, 2504),
+                                   (1600, 16, 5000), (4096, 32, 4999)])
 def test_int_mm_on_the_card_is_exact(m, k, n, cuda_device):
     """The padded int8 GEMM at the galaxy encoder's forward and dW shapes
     in every operand layout the encoder uses (row-major input, a
     transposed weight copy, a transposed cotangent) against float64
-    products."""
+    products; among them the dW of a batch of 64 and the other shapes
+    cuBLASLt refuses unpadded (N of 8 mod 16 against K a multiple of 16
+    below 128)."""
     from spatialvae_torch.nn.qlinear import int_mm
 
     g = torch.Generator(cuda_device).manual_seed(3)
@@ -1033,6 +1038,54 @@ def test_int_mm_on_the_card_is_exact(m, k, n, cuda_device):
                    (a.t().contiguous().t(), b)):
         got = int_mm(aa, bb)
         assert got.dtype == torch.int32 and torch.equal(got.double(), want)
+
+
+# M and N over the widths and batches of the encoder's products, K over
+# every multiple of 8 up to 512 (the batch, in dW) and the encoder's input
+# widths (784, 1,600, 2,500, 12,288 pixels, 5,000 hidden)
+INT_MM_DIMS = (24, 32, 40, 64, 104, 504, 784, 1600, 2504, 4096, 5000, 5008,
+               12288)
+INT_MM_KS = tuple(range(8, 520, 8)) + (784, 1600, 2504, 5000, 12288)
+
+
+def test_int_mm_refusals_are_padded(cuda_device):
+    """``torch._int_mm`` unpadded over the grid in the layout ``int_mm``
+    hands it (a row-major, b the transpose of a row-major (N, K)): every
+    shape cuBLASLt refuses is one ``int_mm`` pads N for, even where b
+    needs no copy (the map is printed: ``pytest -s``); and ``int_mm`` is
+    exact on every shape with K up to 256 in the three operand layouts
+    the encoder uses."""
+    from spatialvae_torch.nn.qlinear import int_mm, padded_sizes
+
+    g = torch.Generator(cuda_device).manual_seed(5)
+    kmax = INT_MM_KS[-1]
+    refused = {}
+    for m in INT_MM_DIMS:
+        for n in INT_MM_DIMS:
+            a_full = torch.randint(-127, 128, (m, kmax), generator=g,
+                                   device=cuda_device, dtype=torch.int8)
+            b_full = torch.randint(-127, 128, (n, kmax), generator=g,
+                                   device=cuda_device, dtype=torch.int8)
+            for k in INT_MM_KS:
+                a = a_full[:, :k].contiguous()
+                bt = b_full[:, :k].contiguous()
+                try:
+                    torch._int_mm(a, bt.t())
+                    torch.cuda.synchronize()
+                except RuntimeError:
+                    refused.setdefault((m, n), []).append(k)
+                    assert padded_sizes(m, k, n, False)[2] != n, (m, k, n)
+                if k > 256:
+                    continue
+                want = a.double() @ bt.double().t()
+                for aa, bb in ((a, bt.t()), (a, bt.t().contiguous()),
+                               (a.t().contiguous().t(), bt.t())):
+                    got = int_mm(aa, bb)
+                    assert got.dtype == torch.int32 and \
+                        torch.equal(got.double(), want), (m, k, n)
+                del want
+    print("int_mm_refusals", {f"{m}x{n}": ks for (m, n), ks in
+                              sorted(refused.items())})
 
 
 def test_int8_stack_step_on_the_card(cuda_device, monkeypatch):
@@ -1777,3 +1830,135 @@ def test_kernel_bench_wrappers_raise_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         kb.chain("sums", f.transpose(0, 2).contiguous().transpose(0, 2), c,
                  64)
+
+
+# ---------------------------------------------------------------------------
+# the vanilla generator, the PNG writer and the galaxy CLI on the card
+# ---------------------------------------------------------------------------
+
+def _vanilla_trainer(device):
+    from spatialvae_torch.config import InferenceConfig, VanillaGeneratorConfig
+    from spatialvae_torch.objectives import ElboConfig
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+
+    q_cfg = InferenceConfig(n=16 * 16 * 3, latent_dim=4, hidden_dim=64,
+                            num_layers=2)
+    p_cfg = VanillaGeneratorConfig(n=16 * 16 * 3, latent_dim=4,
+                                   hidden_dim=64, num_layers=2)
+    return Trainer(q_cfg, p_cfg,
+                   ElboConfig(vanilla=True, rotate=False, translate=False,
+                              channels=3, fused=True),
+                   TrainConfig(minibatch_size=8), coord_grid(16, 16),
+                   device=device)
+
+
+def test_vanilla_step_on_the_card_matches_the_cpu(cuda_device):
+    """One vanilla training step from the same weights, batch and noise:
+    the card (cuBLAS products, Adam's step kernel) against the CPU (plain
+    versions); aux rtol 1e-5, every weight rtol 1e-5 with a floor of 1e-5
+    of its leaf's largest value (the CPU parity tests' limits).  On the
+    card the step launches Adam's step kernel once and no decoder or loss
+    kernel."""
+    from spatialvae_torch.kernels import adam as ka
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    cpu, card = _vanilla_trainer("cpu"), _vanilla_trainer(cuda_device)
+    card.q_net.load_state_dict(cpu.q_net.state_dict())
+    card.p_net.load_state_dict(cpu.p_net.state_dict())
+    g = torch.Generator().manual_seed(11)
+    y = torch.randint(0, 256, (8, 256, 3), generator=g).float() / 255
+    noise = torch.randn((8, 4), generator=g)
+    for m in (fd, d8, l8, ka):
+        m.reset_launches()
+    want = cpu.train_step(y, noise=noise)
+    got = card.train_step(y.to(cuda_device), noise=noise.to(cuda_device))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+    for name, p in cpu.named_params().items():
+        q = card.named_params()[name].detach().cpu()
+        floor = 1e-5 * (p.detach().abs().max().item() or 1.0)
+        torch.testing.assert_close(q, p.detach(), rtol=1e-5, atol=floor)
+    assert ka.LAUNCHES["adam_step"] == 1
+    assert not any(fd.LAUNCHES.values()) and not any(d8.LAUNCHES.values())
+    assert not any(l8.LAUNCHES.values())
+
+
+def test_png_writer_takes_card_tensors(cuda_device, tmp_path):
+    from spatialvae_torch.io.png import read_png, save_image_grid
+
+    g = torch.Generator(cuda_device).manual_seed(12)
+    x = torch.rand((37, 9 * 7, 3), generator=g, device=cuda_device)
+    save_image_grid(x, str(tmp_path / "card.png"), (9, 7))
+    save_image_grid(x.cpu().numpy(), str(tmp_path / "host.png"), (9, 7))
+    assert (tmp_path / "card.png").read_bytes() == \
+        (tmp_path / "host.png").read_bytes()
+    assert read_png(str(tmp_path / "card.png")).shape == (87, 63, 3)
+
+
+# arm -> (extra argv, kernels that must launch, that must not, K1 launches
+# a dump): chip_smoke.py's [cli_images] arms (a) and (b) at a small width
+GALAXY_CLI_ARMS = {
+    "float": ([], ("k1", "k2", "adam"), ("k3", "k45", "k8"), None),
+    "int8": (["--int8-decoder", "--compute-dtype", "bfloat16"],
+             ("k1", "k3", "k45", "adam"), ("k2", "k8"), 2),
+}
+
+
+@pytest.mark.parametrize("arm", list(GALAXY_CLI_ARMS))
+def test_galaxy_cli_epoch_on_the_card(cuda_device, tmp_path, monkeypatch,
+                                      arm):
+    """One galaxy CLI epoch with ``-d -2`` (32x32x3 images, 64 and 32
+    wide, rotation augmentation, B=16 with a tail of 8): the kernels it
+    launches are those of the smoke's arm, Adam's step kernel once a step,
+    and the tree holds its grids and checkpoints."""
+    import logging
+
+    import numpy as np
+
+    from spatialvae_torch.cli import train_galaxy
+    from spatialvae_torch.kernels import adam as ka
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels import fused_loss_int8_t as lt
+
+    extra, must, must_not, k1_dump = GALAXY_CLI_ARMS[arm]
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("SPATIALVAE_ASSUME_YES", "1")
+    rng = np.random.RandomState(13)
+    np.save("gt.npy", (rng.rand(56, 32, 32, 3) * 255).astype(np.uint8))
+    np.save("gv.npy", (rng.rand(20, 32, 32, 3) * 255).astype(np.uint8))
+    for m in (fd, d8, l8, lt, ka):
+        m.reset_launches()
+    handlers = logging.root.handlers[:]
+    try:
+        train_galaxy.main(["gt.npy", "gv.npy", "-d", "-2", "--num_epochs",
+                           "1", "--minibatch_size", "16", "--p_hidden_dim",
+                           "64", "--q_hidden_dim", "32", "--save_prefix",
+                           "g", "--save_interval", "1",
+                           "--augment_rotation"] + extra)
+        torch.cuda.synchronize()
+    finally:
+        for h in logging.root.handlers[:]:
+            if h not in handlers:
+                logging.root.removeHandler(h)
+    k1 = sum(v for k, v in fd.LAUNCHES.items()
+             if k.startswith("fwd") and "recompute" not in k)
+    counts = {"k1": k1, "k2": sum(fd.LAUNCHES.values()) - k1,
+              "k3": sum(l8.LAUNCHES.values()),
+              "k45": sum(d8.LAUNCHES.values()),
+              "k8": sum(lt.LAUNCHES.values()),
+              "adam": ka.LAUNCHES["adam_step"]}
+    for k in must:
+        assert counts[k] > 0, counts
+    for k in must_not:
+        assert counts[k] == 0, counts
+    assert counts["adam"] == 4, counts                # 3 steps of 16 + 8
+    if k1_dump is not None:
+        assert counts["k1"] == k1_dump, counts
+    images = sorted(os.listdir(tmp_path / "outputs_g" / "images"))
+    assert [f for f in images if f.startswith("1_")] == [
+        "1_dis_g_z2pnl2qnl2ep1.png", "1_g_z2pnl2qnl2ep1.png",
+        "1_rnd_g_z2pnl2qnl2ep1.png"]
+    assert sorted(os.listdir(tmp_path / "outputs_g" / "trained")) == [
+        "g_generator_epoch1.sav", "g_inference_epoch1.sav"]

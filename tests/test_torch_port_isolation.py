@@ -1,11 +1,15 @@
 """The port stands alone and runs on the card unless asked for the CPU.
 
 - No module of ``spatialvae_torch`` and not ``chip_smoke.py`` imports
-  ``spatialvae_tpu`` or ``jax``, nor ``pandas`` or ``PIL``, which the card's
-  machine lacks (an AST walk of every import statement).
+  ``spatialvae_tpu`` or ``jax``, nor ``pandas``, ``PIL``, ``matplotlib`` or
+  ``torchvision``, which the card's machine lacks (an AST walk of every
+  import statement, the run-output modules and the galaxy and mnist CLIs
+  among them).
 - With both packages (and pandas and PIL) made unimportable, a tiny CPU
   training run (float and int8 steps), a checkpoint round trip through the
-  serving API and a particles CLI run with CTF and augmentation work.
+  serving API and a particles CLI run with CTF and augmentation work; with
+  matplotlib and torchvision unimportable too, the galaxy and mnist CLIs
+  write their whole tree.
 - ``Trainer`` and ``SpatialVae.load`` without ``device=`` go to the CUDA
   card, and raise where there is none; ``device="cpu"`` runs on the CPU.
 """
@@ -28,8 +32,15 @@ from spatialvae_torch.train.trainer import TrainConfig, Trainer
 from spatialvae_torch.transforms.coords import coord_grid
 
 REPO = Path(__file__).resolve().parents[1]
-# the JAX package and JAX; pandas and PIL, which the card's machine lacks
-FORBIDDEN = ("spatialvae_tpu", "jax", "pandas", "PIL")
+# the JAX package and JAX; pandas, PIL, matplotlib and torchvision, which
+# the card's machine lacks
+FORBIDDEN = ("spatialvae_tpu", "jax", "pandas", "PIL", "matplotlib",
+             "torchvision")
+# the port's modules that stand in for the JAX package's PIL, matplotlib
+# and torchvision paths
+HOST_MODULES = ("models/vanilla.py", "models/reprs.py", "io/png.py",
+                "train/plots.py", "train/artifacts.py", "cli/train_galaxy.py",
+                "cli/train_mnist.py")
 
 
 def _port_sources():
@@ -48,6 +59,9 @@ def _imported(tree):
 def test_no_port_module_imports_the_jax_package_or_jax():
     sources = _port_sources()
     assert len(sources) > 20
+    walked = {str(p.relative_to(REPO / "spatialvae_torch"))
+              for p in sources[:-1]}
+    assert set(HOST_MODULES) <= walked
     bad = []
     for path in sources:
         for name in _imported(ast.parse(path.read_text(), str(path))):
@@ -124,6 +138,52 @@ def test_port_runs_with_jax_and_the_jax_package_unimportable():
     proc = subprocess.run([sys.executable, "-c", RUN], cwd=str(REPO),
                           env=env, capture_output=True, text=True,
                           timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", (
+        proc.stdout + proc.stderr)
+
+
+RUN_IMAGE_CLIS = r"""
+import sys
+for name in ("spatialvae_tpu", "jax", "PIL", "matplotlib", "pandas",
+             "torchvision"):
+    sys.modules[name] = None
+import contextlib, io, os, xml.etree.ElementTree as ET
+import numpy as np
+os.environ["SPATIALVAE_ASSUME_YES"] = "1"
+from spatialvae_torch.cli import train_galaxy, train_mnist
+from spatialvae_torch.io.png import read_png
+rng = np.random.RandomState(0)
+np.save("gt.npy", (rng.rand(20, 8, 8, 3) * 255).astype(np.uint8))
+np.save("gv.npy", (rng.rand(8, 8, 8, 3) * 255).astype(np.uint8))
+os.makedirs("data/mnist_rotated_translated")
+for split, n in (("train", 20), ("test", 8)):
+    np.save(f"data/mnist_rotated_translated/images_{split}.npy",
+            (rng.rand(n, 10, 10) * 255).astype(np.uint8))
+small = ["--num_epochs", "1", "--minibatch_size", "8", "--p_hidden_dim",
+         "8", "--q_hidden_dim", "8", "--save_interval", "1", "-d", "-1"]
+with contextlib.redirect_stdout(io.StringIO()), \
+        contextlib.redirect_stderr(io.StringIO()):
+    train_galaxy.main(["gt.npy", "gv.npy", "--save_prefix", "g",
+                       "--augment_rotation"] + small)
+    train_mnist.main(["--save_prefix", "m", "--vanilla"] + small)
+for prefix, grids in (("g", 4), ("m", 3)):
+    images = os.path.join(f"outputs_{prefix}", "images")
+    pngs = [f for f in os.listdir(images) if f.endswith(".png")]
+    assert len(pngs) == grids, pngs
+    for f in pngs:
+        read_png(os.path.join(images, f))
+    for f in ("ELBO.svg", "KL_Divergence.svg", "BCE_Loss.svg"):
+        ET.parse(os.path.join(images, f))
+assert all(sys.modules.get(n) is None for n in ("jax", "PIL", "matplotlib"))
+print("ok")
+"""
+
+
+def test_both_clis_run_without_jax_pil_or_matplotlib(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", RUN_IMAGE_CLIS],
+                          cwd=str(tmp_path), env=env, capture_output=True,
+                          text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", (
         proc.stdout + proc.stderr)
 

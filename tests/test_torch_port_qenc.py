@@ -130,6 +130,41 @@ def test_int8_operands_and_products_match_jax():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("m,k,n,layout,padded_n", [
+    (5000, 64, 5000, "copy", 5008), (40, 112, 2504, "copy", 2512),
+    (24, 16, 40, "copy", 48), (5000, 100, 5000, "copy", 5008),
+    (5000, 128, 5000, "copy", 5008), (64, 64, 4096, "copy", 4096),
+    (37, 40, 5000, "copy", 5008), (40, 112, 2504, "view", 2512),
+    (24, 504, 40, "view", 48), (24, 512, 40, "view", 40),
+    (24, 1024, 5000, "view", 5000), (24, 1024, 4096, "view", 4096)])
+def test_int_mm_pads_n_where_the_card_refuses_it(m, k, n, layout, padded_n,
+                                                 monkeypatch):
+    """N of 8 mod 16 is padded to a multiple of 16 before the GEMM wherever
+    b is copied anyway (``layout`` "copy": a row-major (K, N), as in every
+    dW and dx) and, for a weight's free view ("view": the transpose of a
+    row-major (N, K)), below N16_BELOW_K: the card's cuBLASLt refuses such
+    an N against K a multiple of 16 below 128 (a batch of 64's dW); every
+    other shape keeps its padding to 8; the product stays exact."""
+    seen = []
+    real = torch._int_mm
+
+    def spy(x, y):
+        seen.append((tuple(x.shape), tuple(y.shape)))
+        return real(x, y)
+
+    monkeypatch.setattr(torch, "_int_mm", spy)
+    rng = np.random.default_rng(m + k + n)
+    a = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    b = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    tb = (torch.from_numpy(b) if layout == "copy"
+          else torch.from_numpy(b.T.copy()).t())
+    got = ql.int_mm(torch.from_numpy(a), tb)
+    assert seen[0][1][1] == padded_n and seen[0][0][1] == seen[0][1][0]
+    assert ql.padded_sizes(m, k, n, layout == "copy")[2] == padded_n
+    np.testing.assert_array_equal(got.numpy(), a.astype(np.int64)
+                                  @ b.astype(np.int64))
+
+
 def _check_grads(got, want, dtype, what, g):
     """Every output within one ulp of its dtype; db, a float32 sum over
     the batch in another order, within that sum's rounding bound
