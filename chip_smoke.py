@@ -15,6 +15,7 @@
     python3 chip_smoke.py --sass PARENT_DIR   # untouched kernels' SASS
     python3 chip_smoke.py --phase cli_particles   # the particles CLI alone
     python3 chip_smoke.py --phase cli_images   # the galaxy and mnist CLIs
+    python3 chip_smoke.py --phase horizon   # the int8 horizon gate, 3 epochs
 
 Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the float
@@ -117,7 +118,12 @@ paths:
   ``[tail_cache]`` times the float decoder's no-grad K1 after an Adam
   step's version bump; a sixth arm trains the vanilla generator with the
   fit-noise head and channel 0's double softplus (Adam's step kernel
-  alone);
+  alone); the long runs' arms: (a) and (d) streamed from the host
+  (``--no-preload``), (c) with bf16 Adam moments saved every epoch and
+  resumed from its epoch-1 files, (a) under ``--profile-dir`` (the trace
+  must name K1/K2's and Adam's kernels) and under ``--debug-nans``; each
+  arm's peak device memory, and ``[cli_same]`` holds the streamed float,
+  resumed, traced and checked arms to their model arm's rows;
 - the galaxy and mnist CLIs (``[cli_images]``), ``python -m
   spatialvae_torch.cli.train_galaxy`` / ``train_mnist``'s ``main`` in
   process at full width from files the phase writes from the seed (4,000
@@ -135,6 +141,14 @@ paths:
   and the ``outputs_{prefix}`` tree checked file by file (each PNG's
   signature, chunk CRCs and grid size, the SVGs as XML, the checkpoint
   pair through ``SpatialVae.load``, the zip's members);
+- the int8 horizon gate (``[horizon]``): ``python -m
+  spatialvae_torch.tools.int8_horizon``'s ``main`` at full width and its
+  defaults (B=1,024, 8 steps an epoch) for three epochs of each arm, the
+  launches from 0 (K1/K2 in the bf16 arm, K3's cluster passes in the int8
+  arm, Adam's step kernel once a step), the gaps, Adam's step kernel on
+  each arm's leaves; before it ``[horizon_kernels]`` holds K1/K2 and K3
+  (bf16 and int8 targets, the colored family under the mask) at B=1,024
+  to their plain versions run in 128-image chunks;
 - the port's int8 kernel microbenchmark (``[kernel_bench]``: the TPU tool
   ``tools/kernel_bench.py``'s seventeen runs at its defaults, B=2,048,
   HW=4,096, H=500, pt=2,048, through
@@ -5941,7 +5955,40 @@ CLI_ARMS = {
     # softplus on the card; its products are cuBLAS's, Adam the step kernel
     "f_vanilla": (["--vanilla", "--fit-noise", "--softplus", "--mask"],
                   CLI_EPOCHS, ("adam_step",), ("k1k2", "k3", "k4k5", "k8")),
+    # long runs: (a) and (d) streamed from the host (--no-preload); (c) with
+    # bf16 Adam moments saved every epoch, and resumed from its epoch-1
+    # files for epoch 2; (a) traced (--profile-dir) and checked
+    # (--debug-nans)
+    "g_stream": (["--mask", "--normalize", "--no-preload"], CLI_EPOCHS,
+                 ("k1k2", "adam_step"), ("k3", "k4k5", "k8")),
+    "h_stream_int8": (["--augment-rotation", "--int8-decoder", "--mask",
+                       "--no-preload"], CLI_EPOCHS,
+                      ("k3", "k4k5", "adam_step"), ("k1k2", "k8")),
+    "i_bf16_moments": (["CTF", "--fit-noise", "--mask", "--int8-decoder",
+                        "--adam-moments", "bf16", "--save-optimizer"],
+                       CLI_EPOCHS, ("k4k5", "adam_step"),
+                       ("k3", "k1k2", "k8")),
+    "j_bf16_resume": (["RESUME:i_bf16_moments:1", "CTF", "--fit-noise",
+                       "--mask", "--int8-decoder", "--adam-moments", "bf16"],
+                      1, ("k4k5", "adam_step"), ("k3", "k1k2", "k8")),
+    "k_profile": (["--mask", "--normalize", "PROFILE"], CLI_EPOCHS,
+                  ("k1k2", "adam_step"), ("k3", "k4k5", "k8")),
+    "l_debug_nans": (["--mask", "--normalize", "--debug-nans"], CLI_EPOCHS,
+                     ("k1k2", "adam_step"), ("k3", "k4k5", "k8")),
 }
+# arm -> (the arm it is set beside, whether it must repeat that arm's TSV
+# rows in their epochs in common, relative to max|value|: the kernels run
+# the same launches on the same data, and CLI_SAME_TOL only allows for a
+# kernel that is not deterministic).  The streamed int8 arm is logged
+# beside (d) alone: its steps quantise the encoder's input in the step
+CLI_SAME = {"g_stream": ("a_float", True),
+            "h_stream_int8": ("d_augment_int8", False),
+            "j_bf16_resume": ("i_bf16_moments", True),
+            "k_profile": ("a_float", True), "l_debug_nans": ("a_float", True)}
+CLI_SAME_TOL = 1e-6
+# kernels the traced arm's Chrome trace must name
+CLI_TRACE_KERNELS = ("dec_fwd90", "dec_chain90", "dec_dw90",
+                     "adam_step_kernel")
 
 
 def cli_arm(torch, name: str, paths: dict, tmpdir: str, card: str) -> dict:
@@ -5962,19 +6009,25 @@ def cli_arm(torch, name: str, paths: dict, tmpdir: str, card: str) -> dict:
         if a == "CTF":
             argv += ["--ctf-train", paths["ctf_train"], "--ctf-test",
                      paths["ctf_test"]]
-        elif a == "RESUME":
-            base = os.path.join(tmpdir, "cli_a_float")
-            e = CLI_EPOCHS
+        elif a.startswith("RESUME"):
+            # RESUME: (a)'s last epoch; RESUME:arm:epoch that arm's files
+            _, src, e = (a.split(":") if ":" in a
+                         else (a, "a_float", CLI_EPOCHS))
+            base = os.path.join(tmpdir, f"cli_{src}")
             argv += ["--resume-generator", f"{base}_generator_epoch{e}.sav",
                      "--resume-inference", f"{base}_inference_epoch{e}.sav",
                      "--resume-optimizer", f"{base}_optimizer_epoch{e}.sav"]
-            first = CLI_EPOCHS + 1
+            first = int(e) + 1
+        elif a == "PROFILE":
+            argv += ["--profile-dir", os.path.join(tmpdir, "cli_profile")]
         else:
             argv.append(a)
     last = first + epochs - 1
     argv += ["--num-epochs", str(last)]
     out, err = _StampedOut(), io.StringIO()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     _reset_all_launches()
     t0 = time.perf_counter()
     try:
@@ -5987,6 +6040,7 @@ def cli_arm(torch, name: str, paths: dict, tmpdir: str, card: str) -> dict:
         print(err.getvalue(), file=sys.stderr)
         raise
     seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     counts = _launch_groups()
     adam_leaves_check(torch, "cli_kernels", name, adam.leaves)
     rows = [(t, ln) for t, ln in out.lines if "\t" in ln]
@@ -6027,11 +6081,15 @@ def cli_arm(torch, name: str, paths: dict, tmpdir: str, card: str) -> dict:
         if "--save-optimizer" in extra and not os.path.exists(
                 f"{prefix}_optimizer_epoch{e}.sav"):
             raise AssertionError(f"{name}: no optimizer checkpoint {e}")
+    extra_fields = {}
+    if "PROFILE" in extra:
+        extra_fields["trace_kernels"] = cli_trace_kernels(
+            os.path.join(tmpdir, "cli_profile"))
     steps = epochs * math.ceil(CLI_TRAIN / CLI_BATCH)
     evals = epochs * math.ceil(CLI_TEST / CLI_BATCH)
     log("cli_particles", arm=name, card=repr(card), epochs=f"{first}-{last}",
-        seconds=f"{seconds:.3f}",
-        s_per_epoch="/".join(f"{v:.3f}" for v in per_epoch),
+        seconds=f"{seconds:.3f}", peak_mib=f"{peak / 2 ** 20:.1f}",
+        s_per_epoch="/".join(f"{v:.3f}" for v in per_epoch), **extra_fields,
         train_steps=steps, eval_batches=evals,
         test_elbo="/".join(r[2] for r in body if r[1] == "test"),
         launches=json.dumps({k: v for k, v in counts.items()
@@ -6040,7 +6098,54 @@ def cli_arm(torch, name: str, paths: dict, tmpdir: str, card: str) -> dict:
                              for k in ("k1k2", "k3", "k4k5", "adam_step")},
                             separators=(",", ":")),
         detail=json.dumps(counts["detail"], separators=(",", ":")))
-    return {"seconds": seconds, "per_epoch": per_epoch, "counts": counts}
+    return {"seconds": seconds, "per_epoch": per_epoch, "counts": counts,
+            "peak": peak, "rows": {(r[0], r[1]): [float(v) for v in r[2:]]
+                                   for r in body}}
+
+
+def cli_trace_kernels(profile_dir: str) -> str:
+    """The kernels of ``--profile-dir``'s Chrome trace: raise unless it
+    names each of CLI_TRACE_KERNELS; returns each one's launches and device
+    ms in the trace."""
+    from spatialvae_torch.cli.common import trace_path
+
+    with open(trace_path(profile_dir)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {}
+    for k in CLI_TRACE_KERNELS:
+        ks = [e["dur"] for e in kernels if k in e["name"]]
+        if not ks:
+            raise AssertionError(f"--profile-dir: no {k} in the trace's "
+                                 f"{len(kernels)} kernels")
+        found[k] = f"{len(ks)}:{sum(ks) / 1e3:.3f}ms"
+    return json.dumps(found, separators=(",", ":"))
+
+
+def cli_same_rows(arms: dict) -> None:
+    """Each CLI_SAME arm's TSV rows against its model arm's, in the epochs
+    both ran, within CLI_SAME_TOL of max|value| where it must match; logs
+    the largest difference, whether every row is equal bit for bit, and the
+    peak device memory and seconds per epoch of both."""
+    for name, (model, must) in CLI_SAME.items():
+        got, want = arms[name]["rows"], arms[model]["rows"]
+        keys = sorted(set(got) & set(want))
+        if not keys:
+            raise AssertionError(f"{name}: no epoch in common with {model}")
+        g = np.array([got[k] for k in keys])
+        w = np.array([want[k] for k in keys])
+        rel = float(np.abs(g - w).max() / np.abs(w).max())
+        if must and not rel <= CLI_SAME_TOL:
+            raise AssertionError(f"{name}: rows {g} against {model}'s {w}: "
+                                 f"{rel:.3e} of max; limit {CLI_SAME_TOL}")
+        log("cli_same", arm=name, against=model, must_match=must,
+            epochs="/".join(f"{e}{s[:2]}" for e, s in keys),
+            max_rel_diff=f"{rel:.3e}", bitwise=bool((g == w).all()),
+            peak_mib=f"{arms[name]['peak'] / 2 ** 20:.1f}",
+            against_peak_mib=f"{arms[model]['peak'] / 2 ** 20:.1f}",
+            s_per_epoch="/".join(f"{v:.3f}" for v in arms[name]["per_epoch"]),
+            against_s_per_epoch="/".join(
+                f"{v:.3f}" for v in arms[model]["per_epoch"]))
 
 
 def cli_ctf_checks(torch, paths: dict) -> None:
@@ -6195,23 +6300,27 @@ def k45_check(torch, tag: str, b: int, dtype: str, hw: int, no: int) -> None:
 class recorded_adam_leaves:
     """Within the block the training paths' Adam records the leaves of its
     first step (shapes, gradient and moment dtypes, shadow, modes) in
-    ``self.leaves`` and runs on as it would."""
+    ``self.leaves``, every distinct such set in ``self.distinct``, and runs
+    on as it would."""
 
     def __enter__(self):
         from spatialvae_torch.kernels import adam as ka
         from spatialvae_torch.train import optimizer
 
         self.leaves, self.saved = None, (ka.adam_step, optimizer.adam_step)
+        self.distinct = []
         step = ka.adam_step
 
         def recording(p, g, m, v, k, shadow=None, modes=None, s_in=None):
+            rec = dict(shapes=[tuple(t.shape) for t in p],
+                       gdt=str(g[0].dtype).replace("torch.", ""),
+                       mdt=str(m[0].dtype).replace("torch.", ""),
+                       shadow=shadow is not None,
+                       modes=None if modes is None else list(modes))
+            if rec not in self.distinct:
+                self.distinct.append(rec)
             if self.leaves is None:
-                self.leaves = dict(
-                    shapes=[tuple(t.shape) for t in p],
-                    gdt=str(g[0].dtype).replace("torch.", ""),
-                    mdt=str(m[0].dtype).replace("torch.", ""),
-                    shadow=shadow is not None,
-                    modes=None if modes is None else list(modes))
+                self.leaves = rec
             return step(p, g, m, v, k, shadow, modes, s_in)
 
         ka.adam_step = optimizer.adam_step = recording
@@ -6342,8 +6451,10 @@ def phase_cli_particles(torch, tmpdir: str, card: str) -> dict:
     cli_kernel_checks(torch)
     cli_ctf_checks(torch, paths)
     tail_cache_cost(torch)
-    return {name: cli_arm(torch, name, paths, tmpdir, card)
+    arms = {name: cli_arm(torch, name, paths, tmpdir, card)
             for name in CLI_ARMS}
+    cli_same_rows(arms)
+    return arms
 
 
 # ---------------------------------------------------------------------------
@@ -6743,6 +6854,263 @@ def phase_cli_images(torch, tmpdir: str, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# long runs: the int8 horizon gate at full width (``python -m
+# spatialvae_torch.tools.int8_horizon``) and the kernels at its shapes
+# ---------------------------------------------------------------------------
+
+HORIZON_B = 1024            # the horizon tool's batch
+HORIZON_EPOCHS = 3          # of each arm in the smoke (the gate runs 30)
+HORIZON_STEPS = 8           # the tool's steps per epoch
+# images per call of a plain version at B=1,024: its (B, HW, H) float32
+# intermediates of the whole batch (8.4 GB each) are run in these chunks,
+# the per-image outputs concatenated and the weight gradients summed
+HORIZON_CHUNK = 128
+# K3 at the horizon's shapes: (name, family, targets, masked)
+HORIZON_K3 = [("fields", "bernoulli", "bfloat16", False),
+              ("galaxy", "bernoulli", "int8", False),
+              ("colored_mask", "colored", "bfloat16", True)]
+
+
+class _ErrAcc:
+    """``rel_errors`` of a tensor compared chunk by chunk."""
+
+    def __init__(self):
+        self.max, self.sum, self.n, self.scale = 0.0, 0.0, 0, 0.0
+
+    def add(self, got, want) -> None:
+        d = (got.float() - want.float()).abs()
+        self.max = max(self.max, d.max().item())
+        self.sum += d.sum().item()
+        self.n += d.numel()
+        self.scale = max(self.scale, want.abs().max().item())
+
+    def errors(self) -> tuple:
+        mean, scale = self.sum / self.n, self.scale or 1.0
+        return self.max, mean, self.max / scale, mean / scale
+
+
+def _chunks(b: int):
+    return [(i, min(i + HORIZON_CHUNK, b)) for i in range(0, b, HORIZON_CHUNK)]
+
+
+def horizon_k12_case(torch, b: int = HORIZON_B, dtype="bfloat16") -> dict:
+    """K1 with its activations and K2 (residual and recompute) at the
+    horizon's bf16 arm shape (B=1,024 over 4,096 pixels, H=500, one hidden
+    layer, three outputs) against their plain versions run in
+    HORIZON_CHUNK-image chunks: ``backward_case``'s readings, every output
+    compared (the per-image ones chunk by chunk, the weight gradients as
+    the sum over the chunks)."""
+    from spatialvae_torch.kernels import fused_decoder as fd
+
+    hw, h, no = IMAGE[0] * IMAGE[1], P_HIDDEN, CHANNELS
+    wdt = getattr(torch, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 60)
+    fold, coords, *ws = _tail_inputs(torch, b, hw, h, 1, no, wdt, gen)
+    g = torch.randn((b, no, hw), generator=gen, device=DEVICE)
+    tw = fd.TailWeights(*ws)
+    out = {"route": fd.decoder_route(hw, h, 1, no, False)}
+    with torch.no_grad():
+        y, acts = fd.run_decoder_tail_acts(fold, coords, tw, False)
+        acc_y, acc_a = _ErrAcc(), _ErrAcc()
+        for i0, i1 in _chunks(b):
+            y_ref, a_ref = fd.decoder_tail_reference(
+                fold[i0:i1], coords, *ws, False, return_acts=True)
+            acc_y.add(y[i0:i1], y_ref)
+            acc_a.add(acts[:, i0:i1], a_ref)
+            del y_ref, a_ref
+        out["y"], out["acts"] = acc_y.errors(), acc_a.errors()
+        for variant in ("residual", "recompute"):
+            a = acts if variant == "residual" else None
+            got = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g,
+                                               False)
+            again = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g,
+                                                 False)
+            torch.cuda.synchronize()
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"K1/K2 B={b} {variant}: two runs "
+                                     f"differ")
+            del again
+            parts = [fd.decoder_tail_backward_reference(
+                fold[i0:i1], coords, ws[0], ws[1], ws[2],
+                None if a is None else a[:, i0:i1], y[i0:i1], g[i0:i1],
+                False) for i0, i1 in _chunks(b)]
+            want = [torch.cat([p[0] for p in parts])] + [
+                sum(p[k].float() for p in parts) for k in range(1, 5)]
+            for gname, u, v in zip(GRADS, got, want):
+                if u.shape != v.shape:
+                    raise AssertionError(f"K2 B={b} {gname}: shape")
+                out[variant, gname] = rel_errors(u, v)
+            del got, want, parts
+    del fold, coords, ws, g, tw, y, acts
+    torch.cuda.empty_cache()
+    return out
+
+
+def horizon_k3_case(torch, case, b: int = HORIZON_B) -> dict:
+    """K3 at the horizon's int8 arm shape (B=1,024 over 4,096 pixels, bf16
+    weights): the fields data's bf16 targets, the galaxy proxy's int8 ones
+    (three channels), or the colored family under the disc mask (its
+    chunk-permuted coords, bf16 targets pre-paired), on the passes its
+    route takes against the block passes and against the plain version run
+    in HORIZON_CHUNK-image chunks (dfold and the loss per image, the
+    weight gradients summed); two runs bit for bit."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.config import Numerics
+    from spatialvae_torch.train.trainer import build_yt_i8, yt_layout
+
+    name, family, targets, masked = case
+    hw = IMAGE[0] * IMAGE[1]
+    colored = family == "colored"
+    no = 2 if colored else CHANNELS
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 61)
+    fold, coords, ws = _int8_inputs(torch, b, "bfloat16", gen, no=no)
+    if targets == "int8":
+        y = torch.randint(0, 256, (b, hw, no), generator=gen,
+                          device=DEVICE).float() / 255.0
+        yt = build_yt_i8(y, hw, colored)
+    else:
+        y = torch.rand((b, hw) if colored else (b, hw, no), generator=gen,
+                       device=DEVICE)
+        yt = yt_layout(y.to(torch.bfloat16), hw, colored)
+    del y
+    mask = disc_mask(torch, IMAGE) if masked else None
+    if colored:
+        coords = l8.colored_coords(coords, l8.pick_tile(hw)).contiguous()
+    nm = Numerics()
+    route = l8.k3_route(hw, P_HIDDEN, l8.pick_tile(hw), family, nm)
+    run = functools.partial(l8.run_loss_int8, fold, coords, *ws, yt, mask,
+                            family, numerics=nm)
+    out = {"route": route}
+    with torch.no_grad():
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        out["same"] = all(torch.equal(u, v) for u, v in zip(got, again))
+        del again
+        block = run(block_passes=True)
+        parts = [l8.loss_int8_reference(fold[i0:i1], coords, *ws,
+                                        yt[i0:i1], mask, family, nm)
+                 for i0, i1 in _chunks(b)]
+        want = [torch.cat([p[0] for p in parts])] + [
+            sum(p[k] for p in parts) for k in range(1, 5)]
+        pairs = list(zip(("loss",) + INT8_GRADS,
+                         (got[0][:, 3, 0],) + tuple(got),
+                         (block[0][:, 3, 0],) + tuple(block),
+                         (want[0][:, 3, 0],) + tuple(want)))
+        out["plain"] = {n: rel_errors(u, w) for n, u, _, w in pairs}
+        out["vs_block"] = {n: rel_errors(u, v) for n, u, v, _ in pairs}
+        out["block"] = {n: rel_errors(v, w) for n, _, v, w in pairs}
+        del got, block, want, parts
+    del fold, coords, ws, yt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_horizon_kernels(torch) -> None:
+    """``[horizon_kernels]``: the kernels of the horizon tool's arms at
+    shapes no other case runs, against their plain versions under the
+    existing limits: K1/K2 bf16 at B=1,024 over 4,096 pixels
+    (``horizon_k12_case``), K3 bf16 at B=1,024 with bf16 and int8 targets
+    and its colored family under the mask (``horizon_k3_case``).  The
+    plain versions run in HORIZON_CHUNK-image chunks: their whole-batch
+    (B, HW, H) intermediates do not fit.  Adam's step kernel is held to
+    its plain version on each arm's own leaves after ``[horizon]``."""
+    t0 = time.perf_counter()
+    r = horizon_k12_case(torch)
+    checked = check_backward(f"horizon K1/K2 B={HORIZON_B}", "bfloat16", r)
+    log("horizon_kernels", kernel="K1/K2", B=HORIZON_B,
+        HW=IMAGE[0] * IMAGE[1], H=P_HIDDEN, No=CHANNELS, dtype="bfloat16",
+        route=r["route"], plain_chunk=HORIZON_CHUNK,
+        y_max_abs_err=f"{r['y'][0]:.3e}",
+        acts_max_abs_err=f"{r['acts'][0]:.3e}",
+        errors="max_abs/mean_abs/max_rel/mean_rel",
+        **{f"{v}_{k}": e for v, (f, _) in checked.items()
+           for k, e in f.items() if k in GRADS})
+    for case in HORIZON_K3:
+        r = horizon_k3_case(torch, case)
+        what = f"horizon K3 {case[0]} B={HORIZON_B}"
+        if not r["same"]:
+            raise AssertionError(f"{what}: two runs differ")
+        errs = {n: _check_rel(f"{what} {n}", e, INT8_TOL)
+                for n, e in r["plain"].items()}
+        for n, e in r["vs_block"].items():
+            _check_rel(f"{what} {n}, cluster vs block passes", e, INT8_TOL)
+        for n, e in r["block"].items():
+            _check_rel(f"{what} {n}, block passes", e, INT8_TOL)
+        log("horizon_kernels", kernel="K3", case=case[0], family=case[1],
+            targets=case[2], mask=case[3], B=HORIZON_B,
+            HW=IMAGE[0] * IMAGE[1], H=P_HIDDEN, dtype="bfloat16",
+            route=r["route"], plain_chunk=HORIZON_CHUNK,
+            errors="max_abs/mean_abs/max_rel/mean_rel", **errs,
+            max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+            vs_block_max_rel=f"{max(e[2] for e in r['vs_block'].values()):.2e}")
+    log("horizon_kernels", phase_s=f"{time.perf_counter() - t0:.3f}")
+
+
+def phase_horizon(torch, card: str) -> dict:
+    """``[horizon]``: ``python -m spatialvae_torch.tools.int8_horizon``'s
+    ``main`` in process at its full width and defaults (B=1,024, 8 steps
+    an epoch, fields data) for HORIZON_EPOCHS epochs of each arm, the
+    launches counted from 0: the bf16 arm on K1/K2, the int8 arm on K3's
+    cluster passes (every batch even: no K4/K5), Adam's step kernel once a
+    step; the per-epoch ELBOs finite, the gaps and seconds logged; then
+    Adam's step kernel against its plain version on each arm's leaves."""
+    import io
+
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.tools import int8_horizon
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), recorded_adam_leaves() as adam:
+        int8_horizon.main([f"epochs={HORIZON_EPOCHS}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    summary = json.loads(lines[-1])
+    epochs = {arm: [ln for ln in lines if ln.startswith(f"# {arm} epoch")]
+              for arm in ("bf16", "int8")}
+    elbo = {arm: [float(ln.split("ELBO=")[1].split()[0]) for ln in ls]
+            for arm, ls in epochs.items()}
+    secs = {arm: [float(ln.rsplit("(", 1)[1].rstrip("s)")) for ln in ls]
+            for arm, ls in epochs.items()}
+    if any(len(v) != HORIZON_EPOCHS or not np.isfinite(v).all()
+           for v in elbo.values()):
+        raise AssertionError(f"[horizon]: per-epoch ELBOs {elbo}")
+    c = _int8_launches()
+    steps = HORIZON_EPOCHS * HORIZON_STEPS
+    k3 = c["k3"]
+    if (c["adam"]["adam_step"] != 2 * steps or c["k12"] < steps
+            or k3.get("fwd_sm90", 0) < steps or k3.get("fwd", 0)
+            or sum(c["k45"].values()) or sum(c["k8"].values())):
+        raise AssertionError(f"[horizon]: launches {c} for {steps} steps "
+                             f"an arm")
+    log("horizon", card=repr(card), epochs=HORIZON_EPOCHS, batch=HORIZON_B,
+        steps_per_epoch=HORIZON_STEPS, seconds=f"{seconds:.3f}",
+        peak_mib=f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f}",
+        bf16_elbo="/".join(f"{v:.4f}" for v in elbo["bf16"]),
+        int8_elbo="/".join(f"{v:.4f}" for v in elbo["int8"]),
+        bf16_s_per_epoch="/".join(f"{v:.1f}" for v in secs["bf16"]),
+        int8_s_per_epoch="/".join(f"{v:.1f}" for v in secs["int8"]),
+        max_rel_gap=f"{summary['max_rel_gap']:.3e}",
+        final_rel_gap=f"{summary['final_rel_gap']:.3e}",
+        inside_1pct=summary["inside_1pct"],
+        launches=json.dumps({"k12": c["k12"], "k3": sum(k3.values()),
+                             "k3_fwd_sm90": k3.get("fwd_sm90", 0),
+                             "adam_step": c["adam"]["adam_step"]},
+                            separators=(",", ":")))
+    # the bf16 arm's leaves, then the int8 arm's where they differ (its
+    # int8 encoder weights take the fresh-scale mode at full width)
+    for i, leaves in enumerate(adam.distinct):
+        adam_leaves_check(torch, "horizon_kernels", f"horizon_leaves{i}",
+                          leaves)
+    return {"summary": summary, "launches": c}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--default-width-times"]:
         # a turn of the A/B: the port of the checkout in the working
@@ -6806,6 +7174,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmpdir:
             phase_cli_images(torch, tmpdir, card)
         return 0
+    if sys.argv[1:] == ["--phase", "horizon"]:
+        phase_horizon_kernels(torch)
+        phase_horizon(torch, card)
+        return 0
     ptxas = start_ptxas_report(LOSS90_SOURCE)
     ptxas_dec = start_ptxas_report(DEC90_SOURCE)
     ptxas_adam = start_ptxas_report(ADAM90_SOURCE)
@@ -6854,6 +7226,8 @@ def main() -> int:
         wide_launches = phase_slice_wide(torch, tmpdir, tw)
         phase_cli_particles(torch, tmpdir, card)
         phase_cli_images(torch, tmpdir, card)
+    phase_horizon_kernels(torch)
+    phase_horizon(torch, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     rows = kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,

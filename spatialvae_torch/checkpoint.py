@@ -14,9 +14,14 @@ or, for the Adam state,
 
 so a file written by either package loads in the other, and a run trained
 by the port resumes in either.  Adam states with bf16 moments
-(``SPATIALVAE_ADAM_MOMENTS=bf16``) are refused both ways: the JAX package
-pickles them as ``ml_dtypes`` arrays, which need a package the port does
-not use (ROADMAP M9c-2).  Reference torch
+(``SPATIALVAE_ADAM_MOMENTS=bf16``) travel in the JAX package's own form,
+``ml_dtypes.bfloat16`` numpy arrays, without the port importing
+``ml_dtypes`` (the card's machine has none): the reader maps that dtype to
+its 2-byte bits (``_Unpickler``) and widens them exactly, and the writer
+emits each moment as ``numpy.ndarray(shape,
+numpy.dtype(importlib.import_module("ml_dtypes").bfloat16), bits)``
+(``_Pickler``), which the JAX package's ``pickle.load`` reads as bf16
+arrays with the same bits.  Reference torch
 ``.sav`` files (whole-module pickles) are detected and converted through
 ``io/reference_sav.py``, as the JAX loader does.  Unpickling runs
 arbitrary code: load only checkpoints you trust.
@@ -24,8 +29,10 @@ arbitrary code: load only checkpoints you trust.
 
 from __future__ import annotations
 
+import importlib
 import os
 import pickle
+import types
 
 import numpy as np
 import torch
@@ -42,16 +49,99 @@ from spatialvae_torch.models.inference import InferenceNetwork
 FORMAT = "spatialvae_tpu.checkpoint.v1"
 
 
-def _bf16_moments() -> NotImplementedError:
-    return NotImplementedError(
-        "an optimizer checkpoint with bf16 moments is not ported yet "
-        "(ROADMAP M9c-2)")
+class _Ref:
+    """A name the pickle resolves where it is loaded (``_Pickler``)."""
+
+
+_ML_DTYPES, _BF16_TYPE, _BF16_DTYPE = _Ref(), _Ref(), _Ref()
+
+
+class Bf16Bits:
+    """A bf16 array as its raw bits (numpy uint16), pickled as the JAX
+    package pickles an ``ml_dtypes.bfloat16`` array of those bits."""
+
+    __slots__ = ("bits",)
+
+    def __init__(self, bits: np.ndarray):
+        self.bits = np.ascontiguousarray(bits, np.uint16)
+
+
+class _Pickler(pickle.Pickler):
+    """``pickle.Pickler`` that writes ``Bf16Bits`` as
+    ``numpy.ndarray(shape, numpy.dtype(getattr(importlib.import_module(
+    "ml_dtypes"), "bfloat16")), raw bytes)``: the reader imports
+    ``ml_dtypes``, the writer never does."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, Bf16Bits):
+            return np.ndarray, (obj.bits.shape, _BF16_DTYPE,
+                                obj.bits.tobytes())
+        if obj is _BF16_DTYPE:
+            return np.dtype, (_BF16_TYPE,)
+        if obj is _BF16_TYPE:
+            return getattr, (_ML_DTYPES, "bfloat16")
+        if obj is _ML_DTYPES:
+            return importlib.import_module, ("ml_dtypes",)
+        return NotImplemented
+
+
+class _Unpickler(pickle.Unpickler):
+    """``pickle.Unpickler`` that reads ``ml_dtypes.bfloat16`` arrays (the
+    JAX package's, and ``_Pickler``'s) as their uint16 bits, without
+    ``ml_dtypes``; ``saw_bf16`` says whether it met one."""
+
+    saw_bf16 = False
+
+    def _bits_module(self, name: str):
+        if name != "ml_dtypes":
+            raise pickle.UnpicklingError(f"a checkpoint may not import "
+                                         f"{name!r}")
+        self.saw_bf16 = True
+        return types.SimpleNamespace(bfloat16=np.uint16)
+
+    def find_class(self, module, name):
+        if (module, name) == ("ml_dtypes", "bfloat16"):
+            self.saw_bf16 = True
+            return np.uint16
+        if (module, name) == ("importlib", "import_module"):
+            return self._bits_module
+        return super().find_class(module, name)
+
+
+def bf16_bits(a: np.ndarray) -> Bf16Bits:
+    """The bits of a float32 array whose values are bf16 (the low halves
+    zero), as ``Bf16Bits``."""
+    a = np.ascontiguousarray(a, np.float32)
+    return Bf16Bits((a.view(np.uint32) >> 16).astype(np.uint16))
+
+
+def widen_bf16_bits(bits: np.ndarray) -> np.ndarray:
+    """uint16 bf16 bits as the float32 array of the same values."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16) \
+        .view(np.float32)
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(v, fn) for v in tree)
+    return fn(tree)
 
 
 def write_payload(path: str, payload: dict) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        pickle.dump(payload, f)
+        _Pickler(f).dump(payload)
+
+
+def read_payload(path: str) -> tuple:
+    """(the unpickled payload, whether it held bf16 arrays, which are
+    uint16 bits in it)."""
+    with open(path, "rb") as f:
+        up = _Unpickler(f)
+        payload = up.load()
+    return payload, up.saw_bf16
 
 
 def save_model(path: str, kind: str, module, *, elbo=None,
@@ -125,41 +215,49 @@ def save_optimizer(path: str, state, epoch: int, q_net, p_net) -> None:
 
 
 def optimizer_payload(state, epoch: int, q_net, p_net) -> dict:
-    """``save_optimizer``'s payload, its arrays copied to the host."""
+    """``save_optimizer``'s payload, its arrays copied to the host: float32
+    moments as float32 arrays, bf16 moments as ``Bf16Bits`` (the JAX
+    package's bf16 arrays once written)."""
     from spatialvae_torch.train.optimizer import FusedAdamState
 
     if not isinstance(state, FusedAdamState):
         raise TypeError(f"not a FusedAdamState: {type(state).__name__}")
-    if any(t.dtype != torch.float32 for t in state.mu.values()):
-        raise _bf16_moments()
-    payload = {
+    dtypes = {t.dtype for t in (*state.mu.values(), *state.nu.values())}
+    if not dtypes <= {torch.float32, torch.bfloat16} or len(dtypes) != 1:
+        raise TypeError(f"Adam moments in {sorted(map(str, dtypes))}; "
+                        f"expected all float32 or all bfloat16")
+
+    def tree(moments):
+        t = named_to_jax(q_net, p_net, moments)    # widened exactly
+        return t if dtypes == {torch.float32} else _map_tree(t, bf16_bits)
+
+    return {
         "format": FORMAT,
         "kind": "optimizer",
         "epoch": int(epoch),
         "count": int(state.count),
-        "mu": named_to_jax(q_net, p_net, state.mu),
-        "nu": named_to_jax(q_net, p_net, state.nu),
+        "mu": tree(state.mu),
+        "nu": tree(state.nu),
     }
-    return payload
 
 
 def load_optimizer(path: str, q_net, p_net, device=None):
-    """Returns (FusedAdamState, epoch), the moments on ``device``."""
+    """Returns (FusedAdamState, epoch), the moments on ``device`` in the
+    file's dtype, float32 or bf16."""
     from spatialvae_torch.train.optimizer import FusedAdamState
 
-    with open(path, "rb") as f:
-        try:
-            payload = pickle.load(f)
-        except ModuleNotFoundError as e:       # ml_dtypes' bf16 arrays
-            raise _bf16_moments() from e
+    payload, bf16 = read_payload(path)
     if not isinstance(payload, dict) or payload.get("format") != FORMAT \
             or payload.get("kind") != "optimizer":
         raise ValueError(f"{path} is not a {FORMAT} optimizer checkpoint")
-    first = payload["mu"]["q"]["layers"][0]["w"]
-    if getattr(first, "dtype", None) != np.float32:
-        raise _bf16_moments()
-    state = FusedAdamState(
-        count=int(payload["count"]),
-        mu=named_from_jax(payload["mu"], q_net, p_net, device),
-        nu=named_from_jax(payload["nu"], q_net, p_net, device))
+
+    def named(tree):
+        if not bf16:
+            return named_from_jax(tree, q_net, p_net, device)
+        f = _map_tree(tree, widen_bf16_bits)
+        return {k: t.to(torch.bfloat16) for k, t in
+                named_from_jax(f, q_net, p_net, device).items()}
+
+    state = FusedAdamState(count=int(payload["count"]),
+                           mu=named(payload["mu"]), nu=named(payload["nu"]))
     return state, int(payload["epoch"])

@@ -13,14 +13,21 @@ back to the CPU.
 
 The JAX package's additive flags are all accepted.  Those whose module the
 port does not have yet raise ``NotImplementedError`` naming the ROADMAP
-item before any work (``refuse_unported``): ``--no-preload`` (M4),
-``--mesh-model`` above 1 and the three multi-host flags (M10),
-``--profile-dir`` and ``--debug-nans`` (M11), and
-``--matmul-precision`` other than ``highest`` (the port computes float32
-products in full float32 only); ``--resume-optimizer`` with bf16 moments
-in the file raises when it is read (M9c-2).  ``--tp-mode`` is accepted
-only so that command lines written for the JAX CLI keep working: it lays
-out a mesh the port does not build, and is read nowhere.
+item before any work (``refuse_unported``): ``--mesh-model`` above 1 and
+the three multi-host flags (M10), and ``--matmul-precision`` other than
+``highest`` (the port computes float32 products in full float32 only).
+``--tp-mode`` is accepted only so that command lines written for the JAX
+CLI keep working: it lays out a mesh the port does not build, and is read
+nowhere.
+
+The run diagnostics: ``--debug-nans`` makes every training step check its
+loss terms and gradients before Adam writes and raise
+``FloatingPointError`` at the first non-finite one (``Trainer(...,
+debug_nans=True)``; the JAX CLI turns on ``jax_debug_nans``);
+``--profile-dir DIR`` traces the training chunk that holds epoch index 1,
+with the evaluation and dumps that follow it, under ``torch.profiler``
+(CPU, and on the card CUDA activities) into a Chrome trace in DIR, as the
+JAX CLI traces the same span (``chunked_epochs``).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import contextlib
 import math
 import os
 import sys
+import time
 
 import torch
 
@@ -59,8 +67,8 @@ def add_common_extras(parser: argparse.ArgumentParser):
             choices=["default", "high", "highest"], default="highest",
             help="float32 product precision; the port runs 'highest' only")
     add_arg(parser, "--profile-dir", default=None,
-            help="trace epoch 1 into this directory (not ported yet, "
-                 "ROADMAP M11)")
+            help="trace the training of epoch index 1 (with the evaluation "
+                 "after it) into a Chrome trace in this directory")
     add_arg(parser, "--mesh-model", type=int, default=1,
             help="model/pixel mesh axis size (above 1 not ported yet, "
                  "ROADMAP M10)")
@@ -92,7 +100,8 @@ def add_common_extras(parser: argparse.ArgumentParser):
             default="f32",
             help="Adam moment (mu/nu) storage dtype")
     add_arg(parser, "--debug-nans", action="store_true",
-            help="stop at the first NaN (not ported yet, ROADMAP M11)")
+            help="stop at the first non-finite loss term or gradient of a "
+                 "training step, before Adam writes (FloatingPointError)")
     add_arg(parser, "--resume-generator", default=None,
             help="resume: load generator params from this checkpoint")
     add_arg(parser, "--resume-inference", default=None,
@@ -111,18 +120,12 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def refuse_unported(args) -> None:
     """Raise on a flag whose module the port does not have yet."""
-    if getattr(args, "no_preload", False):
-        raise _not_ported("--no-preload (host-resident streaming)", "M4")
     if (getattr(args, "mesh_model", 1) or 1) > 1:
         raise _not_ported("--mesh-model above 1 (model parallelism)", "M10")
     for flag in ("coordinator", "num_processes", "process_id"):
         if getattr(args, flag, None) is not None:
             raise _not_ported(f"--{flag.replace('_', '-')} (multi-host)",
                               "M10")
-    if getattr(args, "profile_dir", None) is not None:
-        raise _not_ported("--profile-dir (the epoch trace)", "M11")
-    if getattr(args, "debug_nans", False):
-        raise _not_ported("--debug-nans", "M11")
     if getattr(args, "matmul_precision", "highest") != "highest":
         raise NotImplementedError(
             f"--matmul-precision {args.matmul_precision}: the port computes "
@@ -179,12 +182,13 @@ def env_scope(adam_moments: str = "f32", int8_sr: bool = False):
                 os.environ[n] = v
 
 
-def make_dataset(y, ctf=None, device=None):
+def make_dataset(y, ctf=None, device=None, preload=True):
     """``ArrayDataset`` on ``device`` (one device; the JAX package's mesh
-    sharding is M10, its host-resident streaming M4)."""
+    sharding is M10), or host-resident with per-step streaming when
+    ``preload`` is False (``--no-preload``)."""
     from spatialvae_torch.data.dataset import ArrayDataset
 
-    return ArrayDataset.from_numpy(y, ctf, device=device)
+    return ArrayDataset.from_numpy(y, ctf, device=device, preload=preload)
 
 
 def maybe_resume(trainer, args) -> int:
@@ -231,10 +235,15 @@ def maybe_resume(trainer, args) -> int:
     if getattr(args, "resume_optimizer", None):
         state, epoch = load_optimizer(args.resume_optimizer, trainer.q_net,
                                       trainer.p_net, device=trainer.device)
+        # the file keeps the saving run's moment dtype; this run's
+        # --adam-moments decides (bf16 -> float32 widens exactly)
         mdt = moments_dtype()
-        if any(t.dtype != mdt for t in state.mu.values()):
-            print(f"# resumed Adam moments cast float32 -> "
-                  f"{str(mdt).replace('torch.', '')} (--adam-moments)")
+        old = {t.dtype for t in (*state.mu.values(), *state.nu.values())}
+        if old - {mdt}:
+            name = lambda d: str(d).replace("torch.", "")  # noqa: E731
+            print(f"# resumed Adam moments cast "
+                  f"{'/'.join(sorted(map(name, old)))} -> {name(mdt)} "
+                  f"(--adam-moments)")
             state.mu = {k: t.to(mdt) for k, t in state.mu.items()}
             state.nu = {k: t.to(mdt) for k, t in state.nu.items()}
         trainer.opt_state = state
@@ -247,23 +256,29 @@ def maybe_resume(trainer, args) -> int:
 
 
 def chunk_len(epoch: int, num_epochs: int, eval_interval: int,
-              save_interval=None) -> int:
+              save_interval=None, profile_epoch=None) -> int:
     """Epochs to train before the next evaluation: capped by the run's end
     and by the next save-interval boundary, so --eval-interval N never
-    skips a checkpoint epoch."""
+    skips a checkpoint epoch.  While a --profile-dir trace is pending
+    (``profile_epoch``), epochs up to and including it run one at a time,
+    so the trace holds that one epoch."""
     chunk = max(1, min(eval_interval, num_epochs - epoch))
     if save_interval:
         chunk = min(chunk, save_interval - (epoch % save_interval))
+    if profile_epoch is not None and epoch <= profile_epoch:
+        chunk = 1
     return chunk
 
 
 def train_chunk(trainer, dataset, epoch: int, num_epochs: int,
-                eval_interval: int, save_interval=None) -> list:
+                eval_interval: int, save_interval=None,
+                profile_epoch=None) -> list:
     """Train up to the next evaluation point; returns [(epoch_index, (elbo,
     gen_loss, kl)), ...] for epochs [epoch, epoch + chunk).  One epoch runs
     ``train_epoch`` (with its progress line, the reference's behaviour);
     more run ``train_epochs`` (the same trajectory)."""
-    chunk = chunk_len(epoch, num_epochs, eval_interval, save_interval)
+    chunk = chunk_len(epoch, num_epochs, eval_interval, save_interval,
+                      profile_epoch)
     if chunk == 1:
         return [(epoch, trainer.train_epoch(dataset, epoch))]
     rows = trainer.train_epochs(dataset, epoch, chunk)
@@ -271,17 +286,53 @@ def train_chunk(trainer, dataset, epoch: int, num_epochs: int,
             for i, row in enumerate(rows)]
 
 
+PROFILE_EPOCH = 1       # the epoch index --profile-dir traces (JAX's)
+
+
+def trace_path(profile_dir: str) -> str:
+    """The Chrome trace --profile-dir writes."""
+    return os.path.join(profile_dir,
+                        f"epoch{PROFILE_EPOCH + 1}.pt.trace.json")
+
+
 def chunked_epochs(trainer, dataset, start_epoch: int, num_epochs: int,
-                   eval_interval, save_interval=None):
+                   eval_interval, save_interval=None, profile_dir=None):
     """Drive a training run in ``train_chunk`` pieces, yielding (rows,
-    next_epoch) per chunk, rows = [(epoch, (elbo, gen, kl)), ...]."""
+    next_epoch) per chunk, rows = [(epoch, (elbo, gen, kl)), ...].  With
+    ``profile_dir`` the chunk holding epoch index 1 (a single epoch, see
+    ``chunk_len``) runs under ``torch.profiler``; the trace stops when the
+    caller resumes the generator, so the caller's evaluation and dumps
+    after that chunk are in it, and is written to ``trace_path``."""
+    from torch.profiler import ProfilerActivity, profile
+
     eval_interval = max(1, eval_interval or 1)
+    profile_epoch = PROFILE_EPOCH if profile_dir is not None else None
+    cuda = trainer.device.type == "cuda"
     epoch = start_epoch
     while epoch < num_epochs:
-        rows = train_chunk(trainer, dataset, epoch, num_epochs,
-                           eval_interval, save_interval)
-        epoch = rows[-1][0] + 1
-        yield rows, epoch
+        prof = None
+        if profile_dir is not None and epoch <= profile_epoch < \
+                epoch + chunk_len(epoch, num_epochs, eval_interval,
+                                  save_interval, profile_epoch):
+            prof = profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if cuda else []))
+            prof.__enter__()
+        try:
+            rows = train_chunk(trainer, dataset, epoch, num_epochs,
+                               eval_interval, save_interval, profile_epoch)
+            epoch = rows[-1][0] + 1
+            yield rows, epoch
+        finally:
+            if prof is not None:
+                if cuda:
+                    torch.cuda.synchronize(trainer.device)
+                prof.__exit__(None, None, None)
+                os.makedirs(profile_dir, exist_ok=True)
+                t0 = time.perf_counter()
+                prof.export_chrome_trace(trace_path(profile_dir))
+                print(f"# wrote the trace of epoch {PROFILE_EPOCH + 1} to "
+                      f"{trace_path(profile_dir)} "
+                      f"({time.perf_counter() - t0:.1f} s)", file=sys.stderr)
 
 
 def resolve_activation_name(cli_choice: str, trainer: str) -> str:
@@ -317,7 +368,7 @@ def image_epochs(trainer, data_train, data_val, args, start_epoch: int,
     train_lines, val_lines = [RESULTS_HEADER], [RESULTS_HEADER]
     for rows, epoch in chunked_epochs(
             trainer, data_train, start_epoch, num_epochs,
-            args.eval_interval, args.save_interval):
+            args.eval_interval, args.save_interval, args.profile_dir):
         for e, tr in rows:
             row = [e, *tr]
             train_results.append(row)

@@ -257,7 +257,8 @@ def run(args):
                            augment_uint8=True,
                            seed=args.seed, compute_dtype=args.compute_dtype,
                            image_shape=(n, m), channels=channels)
-        trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg, coords, device=device)
+        trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg, coords, device=device,
+                          debug_nans=args.debug_nans)
         start_epoch = maybe_resume(trainer, args)
 
         data_train = make_dataset(y_train, device=device)

@@ -251,7 +251,8 @@ def run(args):
                            num_epochs=args.num_epochs, seed=args.seed,
                            compute_dtype=args.compute_dtype,
                            image_shape=(n, m))
-        trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg, coords, device=device)
+        trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg, coords, device=device,
+                          debug_nans=args.debug_nans)
         start_epoch = maybe_resume(trainer, args)
 
         data_train = make_dataset(y_train, device=device)

@@ -12,6 +12,7 @@ kernels on odd dims (applied per batch through FFTs on the device), the
 circular pixel mask, the Gaussian or colored-noise likelihood
 (``--fit-noise``), the spatial or the vanilla generator (``--vanilla``),
 rotation augmentation on the device, the ``--z-delay`` curriculum,
+host-resident stacks streamed a minibatch per step (``--no-preload``),
 checkpoints every ``--save-interval`` epochs to the bare
 prefix (written in the background; ``--save-optimizer`` adds the Adam
 state), resume, and the TSV ``Epoch Split ELBO Error KL`` on stdout with
@@ -127,7 +128,8 @@ def particles_arguments(argv=None):
     add_arg(parser, "-d", "--device", type=int, default=-2,
             help="compute device to use")
     add_arg(parser, "--no-preload", action="store_true",
-            help="do not preload data into accelerator RAM")
+            help="do not preload data into accelerator RAM: keep both "
+                 "sets on the host and stream one minibatch per step")
     add_arg(parser, "--mask", action="store_true",
             help="apply a circular mask to the images")
     add_common_extras(parser)
@@ -282,17 +284,23 @@ def run(args):
                            image_shape=(n, m))
         trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg, coords,
                           mask=None if mask is None else torch.from_numpy(mask),
-                          device=device)
+                          device=device, debug_nans=args.debug_nans)
         start_epoch = maybe_resume(trainer, args)
 
-        data_train = make_dataset(y_train, ctf_train, device=device)
-        data_test = make_dataset(y_test, ctf_test, device=device)
+        # --no-preload: both sets stay on the host and stream a minibatch
+        # per step (the JAX CLI's train_particles.py:262-266)
+        preload = not args.no_preload
+        data_train = make_dataset(y_train, ctf_train, device=device,
+                                  preload=preload)
+        data_test = make_dataset(y_test, ctf_test, device=device,
+                                 preload=preload)
 
         print("\t".join(["Epoch", "Split", "ELBO", "Error", "KL"]))
 
         for rows, epoch in chunked_epochs(
                 trainer, data_train, start_epoch, num_epochs,
-                getattr(args, "eval_interval", 1), args.save_interval):
+                getattr(args, "eval_interval", 1), args.save_interval,
+                args.profile_dir):
             for e, tr in rows:
                 print("\t".join([str(e + 1), "train", *map(str, tr)]),
                       flush=True)

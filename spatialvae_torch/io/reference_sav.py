@@ -1,11 +1,14 @@
-"""Read the reference implementation's checkpoints (torch whole-module
-pickles, ``{prefix}_generator_epoch{E}.sav`` and
-``{prefix}_inference_epoch{E}.sav``) into the port's (params, config, kind).
+"""Read and write the reference implementation's checkpoints (torch
+whole-module pickles, ``{prefix}_generator_epoch{E}.sav`` and
+``{prefix}_inference_epoch{E}.sav``): reading gives the port's (params,
+config, kind), writing takes them.
 
-The port's own copy of the reading half of
-``spatialvae_tpu/io/torch_import.py`` (``load_torch_module``,
-``import_module`` and the walkers they call), with the same conversion
-rules:
+The port's own copy of ``spatialvae_tpu/io/torch_import.py``: the reading
+half (``load_torch_module``, ``import_module`` and the walkers they call)
+and the writing half (``export_generator``, ``export_inference``, for users
+whose downstream analysis ``torch.load``s the reference's modules;
+``tools/export_torch_checkpoint.py`` converts saved checkpoints), with the
+same conversion rules:
 
 - torch ``nn.Linear`` stores (fan_out, fan_in); the params tree stores the
   transpose (fan_in, fan_out);
@@ -17,8 +20,10 @@ Unpickling a whole module needs the classes it was built from.  If the
 reference package ``spatial_vae`` is importable it is used; otherwise
 stand-in classes with the same qualified names are registered while the
 file loads (``nn.Module`` restores its state by plain attribute
-assignment, so no reference code is needed).  Unpickling runs arbitrary
-code: load only files you trust.
+assignment, so no reference code is needed).  An exported file pickles the
+reference's class names, so it loads, and runs forward, wherever the
+reference package is installed, and loads back here without it.
+Unpickling runs arbitrary code: load only files you trust.
 """
 
 from __future__ import annotations
@@ -201,3 +206,127 @@ def import_module(module):
         return params, cfg, "generator"
     params, cfg = _import_inference(module)
     return params, cfg, "inference"
+
+
+# ---------------------------------------------------------------------------
+# export: (params, cfg) -> the reference's module pickles
+# ---------------------------------------------------------------------------
+
+
+def _classes() -> dict:
+    """The classes to pickle against, inside an active
+    ``_reference_classes`` context that spans the save (pickle resolves
+    them through ``sys.modules`` then): the reference package's when it is
+    importable, the stand-ins otherwise."""
+    import spatial_vae.models as m
+
+    return {name: getattr(m, name) for name in _REF_CLASSES}
+
+
+def _blank_module(cls):
+    """An instance of ``cls`` with ``nn.Module``'s plumbing, without the
+    reference's ``__init__`` (which wants its arguments and prints)."""
+    obj = cls.__new__(cls)
+    torch.nn.Module.__init__(obj)
+    return obj
+
+
+def _torch_linear(p: dict) -> torch.nn.Linear:
+    w = np.asarray(p["w"], dtype=np.float32)
+    lin = torch.nn.Linear(w.shape[0], w.shape[1], bias="b" in p)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(np.ascontiguousarray(w.T)))
+        if "b" in p:
+            lin.bias.copy_(torch.from_numpy(
+                np.asarray(p["b"], dtype=np.float32)))
+    return lin
+
+
+def _torch_act(name: str) -> torch.nn.Module:
+    nn = torch.nn
+    return {"tanh": nn.Tanh, "leakyrelu": nn.LeakyReLU, "relu": nn.ReLU,
+            "sigmoid": nn.Sigmoid}[name]()
+
+
+def _torch_stack(layers, cfg, classes, head_modules) -> torch.nn.Sequential:
+    """The hidden [Linear or ResidLinear, activation] stack, the head
+    Linear and the trailing modules, in the reference's Sequential
+    layout."""
+    mods = []
+    for p in layers[:-1]:
+        if cfg.resid:
+            r = _blank_module(classes["ResidLinear"])
+            r.linear = _torch_linear(p)
+            r.act = _torch_act(cfg.activation)
+            mods.append(r)
+        else:
+            mods.extend([_torch_linear(p), _torch_act(cfg.activation)])
+    mods.append(_torch_linear(layers[-1]))
+    mods.extend(head_modules)
+    return torch.nn.Sequential(*mods)
+
+
+def _generator_module(params, cfg, classes):
+    if isinstance(cfg, VanillaGeneratorConfig):
+        net = _blank_module(classes["VanillaGenerator"])
+        net.n_out = cfg.n_out
+        net.softplus = cfg.softplus
+        head = [torch.nn.Sigmoid()]
+        if cfg.softplus:
+            head.append(torch.nn.Softplus())
+        # the first layer is always a plain Linear and its activation; only
+        # the later hidden layers take the resid form
+        layers = params["layers"]
+        stack = _torch_stack(layers[1:], cfg, classes, head)
+        net.layers = torch.nn.Sequential(
+            _torch_linear(layers[0]), _torch_act(cfg.activation),
+            *stack.children())
+        return net.eval()
+    net = _blank_module(classes["SpatialGenerator"])
+    net.softplus = cfg.softplus
+    net.expand_coords = cfg.expand_coords
+    net.latent_dim = cfg.latent_dim
+    net.coord_linear = _torch_linear(params["coord"])
+    if cfg.latent_dim > 0:
+        net.latent_linear = _torch_linear(params["latent"])
+        if cfg.bilinear:
+            w = np.asarray(params["bilinear"]["w"], dtype=np.float32)
+            bl = torch.nn.Bilinear(w.shape[0], w.shape[1], w.shape[2],
+                                   bias=False)
+            with torch.no_grad():
+                bl.weight.copy_(torch.from_numpy(
+                    np.ascontiguousarray(w.transpose(2, 0, 1))))
+            net.bilinear = bl
+    # layers = [activation] + the hidden stack + the head + Sigmoid
+    stack = _torch_stack(params["layers"], cfg, classes, [torch.nn.Sigmoid()])
+    net.layers = torch.nn.Sequential(_torch_act(cfg.activation),
+                                     *stack.children())
+    return net.eval()
+
+
+def _inference_module(params, cfg: InferenceConfig, classes):
+    net = _blank_module(classes["InferenceNetwork"])
+    net.latent_dim = cfg.latent_dim
+    net.n = cfg.n
+    layers = params["layers"]
+    stack = _torch_stack(layers[1:], cfg, classes, [])
+    net.layers = torch.nn.Sequential(
+        _torch_linear(layers[0]), _torch_act(cfg.activation),
+        *stack.children())
+    return net.eval()
+
+
+def export_generator(params, cfg, path: str) -> None:
+    """Write a reference-format generator ``.sav`` (a torch module pickle)
+    from a (fan_in, fan_out) params tree and its spatial or vanilla
+    generator config.  One ``_reference_classes`` context spans the build
+    and the save: pickle checks the classes' identity when it saves."""
+    with _reference_classes():
+        torch.save(_generator_module(params, cfg, _classes()), path)
+
+
+def export_inference(params, cfg: InferenceConfig, path: str) -> None:
+    """Write a reference-format inference ``.sav`` (a torch module
+    pickle)."""
+    with _reference_classes():
+        torch.save(_inference_module(params, cfg, _classes()), path)

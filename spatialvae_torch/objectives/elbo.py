@@ -165,19 +165,36 @@ def _channel_mask(mask: torch.Tensor, n: int) -> torch.Tensor:
     return mask.repeat_interleave(c) if c > 1 else mask
 
 
+def _bce_sum(p: torch.Tensor, target: torch.Tensor,
+             weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sum(weight * BCE(p, target)) through torch's ``binary_cross_entropy``
+    (each log term clamped at -100, its backward), bit for bit, except
+    where ``p`` or ``target`` lies outside [0, 1], as a NaN decode or a NaN
+    image does: there the sum is NaN, with a NaN gradient at those
+    elements, as the JAX package's BCE gives, where torch's refuses the
+    input (an error on the CPU, a device-side assert on the card)."""
+    bad = ~((p >= 0) & (p <= 1) & (target >= 0) & (target <= 1))
+    safe, safe_t = torch.where(bad, 0.5, p), torch.where(bad, 0.5, target)
+    if weight is None:
+        s = F.binary_cross_entropy(safe, safe_t, reduction="sum")
+    else:
+        s = torch.sum(F.binary_cross_entropy(safe, safe_t, reduction="none")
+                      * weight)
+    nan = torch.where(bad, torch.where(bad, p, 0.5) * float("nan"), 0.0)
+    return s + torch.sum(nan)
+
+
 def _bernoulli_log_p(y_hat, y, mask) -> torch.Tensor:
     """-BCE(mean over elements) * size == -(sum BCE)/B; torch's BCE clamps
-    each log term at -100, as the reference relies on.  Mixed dtypes promote
-    as in JAX (bf16 targets against the f32 output of the fused decoder)."""
+    each log term at -100, as the reference relies on (``_bce_sum``: a NaN
+    decode gives a NaN loss).  Mixed dtypes promote as in JAX (bf16
+    targets against the f32 output of the fused decoder)."""
     b = y.shape[0]
     dt = torch.promote_types(y_hat.dtype, y.dtype)
     y_hat, target = y_hat.to(dt), y.reshape(b, -1).to(dt)
-    if mask is None:
-        return -F.binary_cross_entropy(y_hat.reshape(b, -1), target,
-                                       reduction="sum") / b
-    per = F.binary_cross_entropy(y_hat.reshape(b, -1), target,
-                                 reduction="none")
-    return -torch.sum(per * _channel_mask(mask, target.shape[1])[None, :]) / b
+    weight = (None if mask is None
+              else _channel_mask(mask, target.shape[1])[None, :])
+    return -_bce_sum(y_hat.reshape(b, -1), target, weight) / b
 
 
 def _gaussian_log_p(y_hat, y, mask, interleaved: bool, ctf=None,

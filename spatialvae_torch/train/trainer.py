@@ -62,9 +62,27 @@ The vanilla generator (``VanillaGeneratorConfig``, with
 augmentation (as in JAX), no loss kernel or int8 decoder; every step still
 ends in Adam's step kernel, and the display decodes decode z alone.
 
+A host-resident dataset (``ArrayDataset(..., host_resident=True)``, the
+CLI's ``--no-preload``) is streamed one minibatch per step
+(``data/stream.BatchStager``: two pinned staging slots, the copies on a
+side stream), through the same permutation, sorted index batches, step
+generator and tail as a preloaded epoch, so a streamed float epoch is the
+preloaded one.  It builds no per-dataset copy: in int8 mode its steps
+transpose and quantise their batch in the step (K3 reads float targets),
+as the JAX trainer's streamed steps do.  The per-step progress line is
+printed one step behind, so reading the metrics never waits on the step
+just launched.
+
+With ``debug_nans`` (the CLI's ``--debug-nans``) every training step checks
+its loss terms and gradients with ``torch.isfinite`` after the loss and
+gradient launches and before Adam's step kernel writes, and raises
+``FloatingPointError`` naming the epoch and step: the parameters stay those
+of the step before.  Without it a step makes no check and no extra
+synchronisation.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: host-resident streaming (M4) and meshes (M10).  ``train_epochs`` runs the epochs one by one; its single-dispatch
-form (CUDA graphs) is a later speed choice (M4).
+item: meshes (M10).  ``train_epochs`` runs the epochs one by one; its
+single-dispatch form (CUDA graphs) is a later speed choice.
 """
 
 from __future__ import annotations
@@ -80,6 +98,7 @@ import numpy as np
 import torch
 
 from spatialvae_torch.config import InferenceConfig, VanillaGeneratorConfig
+from spatialvae_torch.data.stream import BatchStager
 from spatialvae_torch.device import resolve_device
 from spatialvae_torch.kernels.config import check_knobs
 from spatialvae_torch.kernels.fused_loss_int8 import (
@@ -148,6 +167,24 @@ def _warn_nonfinite(m: np.ndarray, epoch_base: int,
           f"step {step + 1} — loss diverged", file=sys.stderr)
 
 
+def check_finite(aux: torch.Tensor, grads: dict,
+                 at: Optional[Tuple[int, int]] = None) -> None:
+    """``--debug-nans``: raise ``FloatingPointError`` unless the step's loss
+    terms ``aux`` and every gradient of ``grads`` (name -> tensor or None)
+    are finite; ``at`` is the (0-based epoch, step) the message names.  One
+    synchronisation: a flag per tensor, read once."""
+    named = [("loss terms", aux)] + [(k, g) for k, g in grads.items()
+                                     if g is not None]
+    flags = torch.stack([torch.isfinite(t).all() for _, t in named]).cpu()
+    if bool(flags.all()):
+        return
+    bad = [k for (k, _), ok in zip(named, flags.tolist()) if not ok]
+    where = "" if at is None else f" at epoch {at[0] + 1}, step {at[1] + 1}"
+    raise FloatingPointError(
+        f"non-finite {', '.join(bad)}{where} (--debug-nans): the step "
+        f"stopped before Adam wrote the parameters")
+
+
 def seeded_generator(seed: int, stream: Optional[int],
                      device) -> torch.Generator:
     """A generator on ``device`` seeded from (seed, stream); stream None is
@@ -210,13 +247,14 @@ class Trainer:
     def __init__(self, q_cfg: InferenceConfig, p_cfg, ecfg: ElboConfig,
                  tcfg: TrainConfig, coords: torch.Tensor,
                  mask: Optional[torch.Tensor] = None, *, device=None,
-                 mesh=None):
+                 mesh=None, debug_nans: bool = False):
         if mesh is not None:
             raise _not_ported("multi-device training", "M10")
         if tcfg.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {tcfg.compute_dtype!r}; "
                              f"expected one of {sorted(_DTYPES)}")
         self.device = resolve_device(device)
+        self.debug_nans = debug_nans
         self.q_cfg, self.p_cfg, self.ecfg, self.tcfg = q_cfg, p_cfg, ecfg, tcfg
         self.coords = coords.to(self.device, torch.float32)
         self.mask = (None if mask is None
@@ -379,9 +417,7 @@ class Trainer:
 
     def _data(self, dataset) -> torch.Tensor:
         """The dataset's images on the device: a tensor, or an object with
-        ``.y`` (and optionally ``.ctf``, ``.host_resident``)."""
-        if getattr(dataset, "host_resident", False):
-            raise _not_ported("host-resident streaming (--no-preload)", "M4")
+        ``.y`` (and optionally ``.ctf``)."""
         y = getattr(dataset, "y", dataset)
         if isinstance(y, np.ndarray):
             y = torch.from_numpy(y)
@@ -431,7 +467,8 @@ class Trainer:
                    noise: Optional[torch.Tensor] = None,
                    offsets: Optional[torch.Tensor] = None,
                    z_scale: float = 1.0,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   at: Optional[Tuple[int, int]] = None
                    ) -> torch.Tensor:
         """One step: ``loss_and_grad`` then Adam.  y: (B, HW[, C]) on the
         device; ``y_t`` its targets in the loss kernel's layout, when the
@@ -439,7 +476,9 @@ class Trainer:
         the int8 data copy, read by the int8 encoder; ``ctf`` its CTF
         kernels (B, kn, km).  With rotation augmentation the angles come
         from ``generator`` before the noise, or from ``offsets`` (B,) when
-        given.  Returns aux = [elbo, -log_p, kl] (on the device)."""
+        given.  ``at`` (0-based epoch, step) names the step in the
+        ``debug_nans`` error.  Returns aux = [elbo, -log_p, kl] (on the
+        device)."""
         self._check_ctf(ctf)
         y_inf = None
         if (self.tcfg.augment_rotation and self.ecfg.rotate
@@ -462,9 +501,12 @@ class Trainer:
                 y_q8=y_q8, y_inf=y_inf, offsets=offsets, ctf=ctf,
                 image_shape=self.tcfg.image_shape,
                 compute_dtype=self.compute_dtype)
+        leaves = target if target is not None else self.named_params()
+        grads = {k: t.grad for k, t in leaves.items()}
+        if self.debug_nans:
+            check_finite(aux, grads, at)
         with torch.profiler.record_function("adam"):
-            leaves = target if target is not None else self.named_params()
-            self.apply_update({k: t.grad for k, t in leaves.items()})
+            self.apply_update(grads)
         return aux
 
     def train_epoch(self, dataset, epoch: int, *, progress: bool = True,
@@ -475,7 +517,11 @@ class Trainer:
         the full batches gather their targets from ``_dataset_yt`` and,
         with the int8 encoder, their encoder input from ``_dataset_yq8``;
         the tail builds its own targets and quantises its input per step,
-        as in JAX.  CTF kernels are gathered per batch."""
+        as in JAX.  CTF kernels are gathered per batch.  A host-resident
+        dataset is streamed (``_stream_epoch``)."""
+        if getattr(dataset, "host_resident", False):
+            return self._stream_epoch(dataset, epoch, progress,
+                                      progress_stream)
         ctf = self._ctf(dataset)
         return self._run_epoch(dataset, self._data(dataset), ctf, epoch,
                                progress, progress_stream)
@@ -500,11 +546,61 @@ class Trainer:
             data[idx], y_t=None if data_t is None else data_t[idx],
             y_q8=None if data_q8 is None else (data_q8[0][idx], data_q8[1]),
             ctf=None if ctf is None else ctf[idx], z_scale=z_scale,
-            generator=step_gen) for idx in full]
+            generator=step_gen, at=(epoch, i)) for i, idx in enumerate(full)]
         tail_row = (self.train_step(data[tail],
                                     ctf=None if ctf is None else ctf[tail],
-                                    z_scale=z_scale, generator=step_gen)
+                                    z_scale=z_scale, generator=step_gen,
+                                    at=(epoch, len(full)))
                     if tail is not None else None)
+        return self._epoch_means(rows, tail_row, tail, epoch, n, progress,
+                                 progress_stream, t_start)
+
+    def _stream_epoch(self, dataset, epoch: int, progress: bool,
+                      progress_stream) -> Tuple[float, float, float]:
+        """``train_epoch`` of a host-resident dataset (JAX
+        ``trainer.py:767-827``): the preloaded epoch's permutation (drawn
+        on the device from stream 2*epoch, then brought to the host), its
+        sorted index batches, step generator and tail, each batch staged
+        to the device by ``BatchStager``; no per-dataset copy.  With
+        ``progress`` each step prints the running means up to the step
+        before it (a line ended by a carriage return)."""
+        t_start = time.perf_counter()
+        self._check_ctf(dataset.ctf)
+        n, b = len(dataset), self.tcfg.minibatch_size
+        z_scale = 0.0 if epoch < self.tcfg.z_delay else 1.0
+        perm = torch.randperm(n, generator=self._gen(2 * epoch),
+                              device=self.device).cpu()
+        full, tail = index_batches(perm, b)
+        step_gen = self._gen(2 * epoch + 1)
+        stager = BatchStager((dataset.y, dataset.ctf), b, self.device)
+        stream = progress_stream or sys.stderr
+        live, prev, rows = StreamingMeans(), None, []
+        for i, (y, ctf) in enumerate(stager.batches(full.numpy())):
+            aux = self.train_step(y, ctf=ctf, z_scale=z_scale,
+                                  generator=step_gen, at=(epoch, i))
+            rows.append(aux)
+            if progress and prev is not None:
+                live.update(b, *[float(v) for v in prev.cpu()])
+                print(live.progress_line(epoch, self.tcfg.num_epochs, n),
+                      end="\r", file=stream)
+            prev = aux
+        tail_row = None
+        if tail is not None:
+            for y, ctf in stager.batches([tail.numpy()]):
+                tail_row = self.train_step(y, ctf=ctf, z_scale=z_scale,
+                                           generator=step_gen,
+                                           at=(epoch, len(rows)))
+        return self._epoch_means(rows, tail_row, tail, epoch, n, progress,
+                                 progress_stream, t_start)
+
+    def _epoch_means(self, rows: list, tail_row, tail, epoch: int, n: int,
+                     progress: bool, progress_stream,
+                     t_start: float) -> Tuple[float, float, float]:
+        """An epoch's (elbo, gen_loss, kl) streaming means from its full
+        batches' metrics ``rows`` and the tail's, in one device-to-host
+        copy each; the divergence warning, the progress line and the
+        epoch's images per second."""
+        b = self.tcfg.minibatch_size
         acc = StreamingMeans()
         if rows:
             m = torch.stack(rows).cpu().numpy()
@@ -525,9 +621,14 @@ class Trainer:
                      num_epochs: int) -> np.ndarray:
         """``num_epochs`` consecutive epochs from ``first_epoch``, the same
         trajectory as calling ``train_epoch`` for each; returns the
-        (num_epochs, 3) per-epoch means."""
+        (num_epochs, 3) per-epoch means.  A host-resident dataset goes
+        through ``train_epoch`` one epoch at a time, as in JAX."""
         if num_epochs <= 0:
             return np.zeros((0, 3), np.float64)
+        if getattr(dataset, "host_resident", False):
+            rows = [self.train_epoch(dataset, e, progress=False)
+                    for e in range(first_epoch, first_epoch + num_epochs)]
+            return np.asarray(rows, np.float64)
         t_start = time.perf_counter()
         ctf = self._ctf(dataset)
         data = self._data(dataset)
@@ -544,18 +645,26 @@ class Trainer:
                    ) -> Tuple[float, float, float]:
         """Batches in order and the tail through the training loss (its
         casts included) without augmentation, under no_grad; the noise from
-        stream 1_000_000_007 + epoch."""
-        ctf = self._ctf(dataset)
-        data = self._data(dataset)
+        stream 1_000_000_007 + epoch.  A host-resident dataset's batches
+        are streamed in order (``BatchStager``)."""
         b = self.tcfg.minibatch_size
+        if getattr(dataset, "host_resident", False):
+            self._check_ctf(dataset.ctf)
+            n = len(dataset)
+            stager = BatchStager((dataset.y, dataset.ctf), b, self.device)
+            batches = stager.batches(np.arange(i, min(i + b, n))
+                                     for i in range(0, n, b))
+        else:
+            ctf = self._ctf(dataset)
+            data = self._data(dataset)
+            batches = ((data[i:i + b], None if ctf is None else ctf[i:i + b])
+                       for i in range(0, data.shape[0], b))
         gen = self._gen(1_000_000_007 + epoch)
         acc = StreamingMeans()
-        for i in range(0, data.shape[0], b):
-            y = data[i:i + b]
+        for y, ctf_b in batches:
             _, aux = loss_terms(self.q_net, self.p_net, self._nonstep_ecfg,
                                 self.coords, y, generator=gen,
-                                z_scale=z_scale, mask=self.mask,
-                                ctf=None if ctf is None else ctf[i:i + b],
+                                z_scale=z_scale, mask=self.mask, ctf=ctf_b,
                                 image_shape=self.tcfg.image_shape,
                                 compute_dtype=self.compute_dtype)
             acc.update(y.shape[0], *[float(v) for v in aux.cpu()])

@@ -348,15 +348,21 @@ def test_knobs(monkeypatch):
                 .dtype == dt
 
 
-def test_bf16_moment_checkpoints_are_refused(tmp_path, monkeypatch):
-    """M9: neither a port state with bf16 moments nor a JAX file holding
-    them is taken."""
+def test_bf16_moment_checkpoints_cross_packages(tmp_path, monkeypatch):
+    """M9c-2: a port state with bf16 moments is written in the JAX
+    package's form and read by the JAX ``load_optimizer`` as bf16 arrays of
+    the same bits; a JAX-written bf16 file reads back in the port to the
+    same bits (once more without ``jax`` or ``ml_dtypes`` in
+    ``test_torch_port_ckpt_bf16.py``)."""
+    import ml_dtypes
+
     from spatialvae_tpu.core.config import (
         InferenceConfig,
         SpatialGeneratorConfig,
     )
     from spatialvae_tpu.train import checkpoint as jax_ckpt
 
+    from spatialvae_torch.io.jax_params import leaf_paths
     from spatialvae_torch.models import InferenceNetwork, SpatialGenerator
     from tests.port_configs import to_port
 
@@ -370,17 +376,42 @@ def test_bf16_moment_checkpoints_are_refused(tmp_path, monkeypatch):
     params = {f"{k}.{n}": t for k, net in (("q", q_net), ("p", p_net))
               for n, t in net.named_parameters()}
     state = fused_adam(1e-3).init(params)
-    with pytest.raises(NotImplementedError, match="M9"):
-        checkpoint.save_optimizer(str(tmp_path / "a.sav"), state, 0, q_net,
-                                  p_net)
-    from spatialvae_tpu.models import inference_init, spatial_generator_init
+    state.mu = {k: torch.randn(v.shape, generator=g).to(torch.bfloat16)
+                for k, v in state.mu.items()}
+    state.nu = {k: torch.rand(v.shape, generator=g).to(torch.bfloat16)
+                for k, v in state.nu.items()}
+    state.count = 3
+    path = str(tmp_path / "port.sav")
+    checkpoint.save_optimizer(path, state, 1, q_net, p_net)
+    js, epoch = jax_ckpt.load_optimizer(path)
+    assert epoch == 1 and int(js.count) == 3
+    paths = leaf_paths(q_net, p_net)
 
-    jparams = {"q": inference_init(jax.random.PRNGKey(0), q_cfg),
-               "p": spatial_generator_init(jax.random.PRNGKey(1), p_cfg)}
-    path = str(tmp_path / "jax.sav")
-    jax_ckpt.save_optimizer(path, jax_opt.fused_adam(1e-3).init(jparams), 0)
-    with pytest.raises(NotImplementedError, match="M9"):
-        checkpoint.load_optimizer(path, q_net, p_net)
+    def leaf(tree, path, perm):
+        for k in path:
+            tree = tree[k]
+        a = np.asarray(tree)
+        assert a.dtype == ml_dtypes.bfloat16
+        a = a.view(np.uint16)
+        return a if perm is None else a.transpose(perm)
+
+    def bits(t):
+        return t.view(torch.int16).numpy().view(np.uint16)
+
+    for m in ("mu", "nu"):
+        for name, (path_, perm) in paths.items():
+            assert np.array_equal(leaf(getattr(js, m), path_, perm),
+                                  bits(getattr(state, m)[name])), name
+    # and back: the JAX package writes the state it read, the port reads it
+    back = str(tmp_path / "jax.sav")
+    jax_ckpt.save_optimizer(back, js, 2)
+    got, epoch = checkpoint.load_optimizer(back, q_net, p_net)
+    assert epoch == 2 and got.count == 3
+    for m in ("mu", "nu"):
+        for name in paths:
+            t = getattr(got, m)[name]
+            assert t.dtype == torch.bfloat16
+            assert np.array_equal(bits(t), bits(getattr(state, m)[name]))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -10,12 +10,14 @@ line, the input-sample grid pixel for pixel (the other grids in the same
 geometry), and SVGs that hold the run's own rows.  From one init (both
 CLIs resumed from one JAX-written pair of checkpoints) three epochs give
 per-epoch validation ELBOs within 1% relative, for the spatial and the
-vanilla generator.  The flags whose module is not ported raise before any
-work.  (Both CLIs with JAX, PIL, matplotlib, pandas and torchvision
+vanilla generator.  ``--profile-dir`` and ``--debug-nans`` leave a sound
+run's lines as they are.  The flags whose module is not ported raise
+before any work.  (Both CLIs with JAX, PIL, matplotlib, pandas and torchvision
 unimportable: ``test_torch_port_isolation.py``.)
 """
 
 import gzip
+import json
 import os
 import re
 import struct
@@ -309,10 +311,34 @@ def test_one_init_three_epochs_within_one_percent(tmp_path, capsys,
                                 f"{tag}ep3.png")) for name in ("port", "jax")))
 
 
+@pytest.mark.parametrize("flag", [["--profile-dir", "trace"],
+                                  ["--debug-nans"]], ids=lambda v: v[0])
+@pytest.mark.parametrize("cli", ["galaxy", "mnist"])
+def test_diagnostic_flags_run(tmp_path, monkeypatch, capsys, cli, flag):
+    """A sound run prints the same TSV lines with the flag; ``--profile-dir``
+    leaves the trace of epoch 2 (index 1), the step's labels in it."""
+    monkeypatch.chdir(tmp_path)
+    if cli == "galaxy":
+        _galaxy_files(3, 32, 16)(tmp_path)
+        argv = ["gt.npy", "gv.npy", "--minibatch_size", "16"]
+    else:
+        _mnist_rotated(tmp_path)
+        argv = ["--dataset", "mnist-rotated", "--minibatch_size", "32"]
+    argv += ["-d", "-1", "--num_epochs", "2", "--save_interval", "2"] + P8
+    main = MAINS[cli][0]
+    main(argv + ["--save_prefix", "a"])
+    want = _tsv(capsys.readouterr().out)
+    main(argv + ["--save_prefix", "b"] + flag)
+    assert _tsv(capsys.readouterr().out) == want
+    if flag[0] == "--profile-dir":
+        with open(os.path.join("trace", "epoch2.pt.trace.json")) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert {"loss_and_grad", "adam"} <= names
+
+
 @pytest.mark.parametrize("flag,item", [
     (["--mesh-model", "2"], "M10"), (["--coordinator", "h:1"], "M10"),
     (["--num-processes", "2"], "M10"), (["--process-id", "0"], "M10"),
-    (["--profile-dir", "trace"], "M11"), (["--debug-nans"], "M11"),
     (["--matmul-precision", "high"], "'highest'")],
     ids=lambda v: v if isinstance(v, str) else v[0])
 @pytest.mark.parametrize("cli", ["galaxy", "mnist"])

@@ -6,11 +6,14 @@ generator's options give the same TSV lines and the same file names; from
 one init (both CLIs resumed from one JAX-written pair of checkpoints) three
 epochs give per-epoch test ELBOs within 1% relative, ``BASELINE.json``'s
 band (the noise and batch order of the two are independent); resume with
-the Adam state continues the uninterrupted trajectory; the flags whose
-module is not ported raise before any work; the checkpoint cadence and its
-background writes.
+the Adam state continues the uninterrupted trajectory; ``--no-preload``,
+``--profile-dir`` and ``--debug-nans`` leave a sound run's lines as they
+are; JAX-written bf16 Adam states resume; the flags whose module is not
+ported raise before any work; the checkpoint cadence and its background
+writes.
 """
 
+import json
 import os
 
 import numpy as np
@@ -215,10 +218,8 @@ def test_eval_interval_keeps_the_trajectory(workdir, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--no-preload"], "M4"),
     (["--mesh-model", "2"], "M10"), (["--coordinator", "h:1"], "M10"),
     (["--num-processes", "2"], "M10"), (["--process-id", "0"], "M10"),
-    (["--profile-dir", "trace"], "M11"), (["--debug-nans"], "M11"),
     (["--matmul-precision", "high"], "'highest'")],
     ids=lambda v: v if isinstance(v, str) else v[0])
 def test_unported_flags_raise_before_any_work(workdir, flag, item):
@@ -228,27 +229,43 @@ def test_unported_flags_raise_before_any_work(workdir, flag, item):
         cli.main(["missing.npy", "missing.npy", "-d", "-1"] + flag)
 
 
-def test_bf16_moment_optimizer_checkpoints_raise(workdir, monkeypatch):
-    q_cfg = InferenceConfig(n=64, latent_dim=5, hidden_dim=8, num_layers=2)
-    p_cfg = SpatialGeneratorConfig(latent_dim=2, hidden_dim=8, num_layers=2)
-    jt = jax_trainer.Trainer(q_cfg, p_cfg,
-                             JaxElboConfig(likelihood="gaussian"),
-                             jax_trainer.TrainConfig(),
-                             jnp.asarray(jax_grid(8, 8)))
-    params = jt.state.params
-    jax_ckpt.save_model("g.sav", "generator", params["p"], p_cfg)
-    jax_ckpt.save_model("i.sav", "inference", params["q"], q_cfg)
-    monkeypatch.setenv("SPATIALVAE_ADAM_MOMENTS", "bf16")
-    jax_ckpt.save_optimizer("o.sav", jax_opt.fused_adam(1e-3).init(params),
-                            0)
-    monkeypatch.delenv("SPATIALVAE_ADAM_MOMENTS")
+@pytest.mark.parametrize("flag", [["--no-preload"],
+                                  ["--profile-dir", "trace"],
+                                  ["--debug-nans"]], ids=lambda v: v[0])
+def test_streaming_and_diagnostic_flags_run(workdir, capsys, flag):
+    """Each flag's run prints the plain run's TSV lines bit for bit;
+    ``--profile-dir`` leaves the trace of epoch 2 (index 1) with the step's
+    labels in it."""
+    rng = np.random.RandomState(5)
+    np.save(workdir / "tr.npy", rng.randn(40, 8, 8).astype(np.float32))
+    np.save(workdir / "te.npy", rng.randn(20, 8, 8).astype(np.float32))
+    base = ["tr.npy", "te.npy", "--minibatch-size", "16", "--p-hidden-dim",
+            "8", "--q-hidden-dim", "8", "-d", "-1", "--num-epochs", "3"]
+    want = _run(cli.main, base, capsys)
+    assert _run(cli.main, base + flag, capsys) == want
+    if flag[0] == "--profile-dir":
+        with open(common.trace_path("trace")) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert {"loss_and_grad", "adam"} <= names
+
+
+def test_bf16_moment_optimizer_checkpoints_resume(workdir, capsys):
+    """A JAX-written pair and bf16 Adam state (``--adam-moments bf16
+    --save-optimizer`` in the JAX CLI) resume in the port, in bf16."""
     rng = np.random.RandomState(0)
-    np.save(workdir / "tr.npy", rng.randn(8, 8, 8).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="M9c-2"):
-        cli.main(["tr.npy", "tr.npy", "-d", "-1", "--p-hidden-dim", "8",
-                  "--q-hidden-dim", "8", "--resume-generator", "g.sav",
-                  "--resume-inference", "i.sav", "--resume-optimizer",
-                  "o.sav"])
+    np.save(workdir / "tr.npy", rng.randn(40, 8, 8).astype(np.float32))
+    base = ["tr.npy", "tr.npy", "-d", "-1", "--p-hidden-dim", "8",
+            "--q-hidden-dim", "8", "--minibatch-size", "16",
+            "--adam-moments", "bf16"]
+    _run(jax_cli.main, base + ["--num-epochs", "1", "--save-prefix", "j",
+                               "--save-optimizer", "--save-interval", "1"],
+         capsys)
+    rows = _run(cli.main, base + [
+        "--num-epochs", "2", "--resume-generator", "j_generator_epoch1.sav",
+        "--resume-inference", "j_inference_epoch1.sav",
+        "--resume-optimizer", "j_optimizer_epoch1.sav"], capsys)
+    assert [r[:2] for r in rows[1:]] == [["2", "train"], ["2", "test"]]
+    assert np.isfinite([float(v) for r in rows[1:] for v in r[2:]]).all()
 
 
 def test_the_card_is_the_default_and_nothing_falls_back(monkeypatch):

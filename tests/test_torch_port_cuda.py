@@ -1962,3 +1962,164 @@ def test_galaxy_cli_epoch_on_the_card(cuda_device, tmp_path, monkeypatch,
         "1_rnd_g_z2pnl2qnl2ep1.png"]
     assert sorted(os.listdir(tmp_path / "outputs_g" / "trained")) == [
         "g_generator_epoch1.sav", "g_inference_epoch1.sav"]
+
+
+# --------------------------------------------------------------------------
+# long runs: host-resident streaming, bf16 Adam checkpoints, the trace
+
+
+def _long_run_trainer(int8: bool, dtype="bfloat16", seed=0):
+    from spatialvae_torch.config import InferenceConfig
+    from spatialvae_torch.objectives import ElboConfig
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+
+    q_cfg = InferenceConfig(n=64 * 64 * 3, latent_dim=23, hidden_dim=256,
+                            num_layers=2)
+    p_cfg = SpatialGeneratorConfig(latent_dim=20, hidden_dim=500, n_out=3,
+                                   num_layers=2)
+    return Trainer(q_cfg, p_cfg,
+                   ElboConfig(fused=True, int8=int8, channels=3),
+                   TrainConfig(minibatch_size=64, compute_dtype=dtype,
+                               seed=seed, image_shape=(64, 64), channels=3),
+                   coord_grid(64, 64), device="cuda")
+
+
+def _long_run_images(n=2048):
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    return (rng.integers(0, 256, (n, 64 * 64, 3)) / 255.0).astype(np.float32)
+
+
+def test_streamed_epoch_keeps_no_device_copy(cuda_device):
+    """The int8 trainer (bf16 compute) on 2,048 64x64x3 images at B=64: the
+    streamed epoch's peak device memory lies below the preloaded epoch's
+    (whose dataset, target copy and encoder-input copy sit on the card) by
+    at least the dataset's bytes, and it trains to finite metrics; a
+    streamed float epoch equals the preloaded one."""
+    import numpy as np
+
+    from spatialvae_torch.data.dataset import ArrayDataset
+
+    y = _long_run_images()
+    peaks, rows = {}, {}
+    for preload in (True, False):
+        torch.cuda.empty_cache()
+        tr = _long_run_trainer(True)
+        data = ArrayDataset.from_numpy(y, preload=preload)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows[preload] = tr.train_epoch(data, 0, progress=False)
+        torch.cuda.synchronize()
+        peaks[preload] = torch.cuda.max_memory_allocated()
+        assert tr._yt_cache == {} if not preload else tr._yt_cache
+        del tr, data
+    assert np.isfinite(rows[False]).all()
+    assert peaks[True] - peaks[False] >= y.nbytes, (peaks, y.nbytes)
+    got = []
+    for preload in (True, False):
+        tr = _long_run_trainer(False, "float32")
+        data = ArrayDataset.from_numpy(y[:640], preload=preload)
+        got.append([tr.train_epoch(data, 0, progress=False),
+                    tr.eval_epoch(data, 0)])
+        del tr, data
+    np.testing.assert_allclose(got[1], got[0], rtol=1e-6)
+
+
+def test_bf16_optimizer_checkpoint_round_trip_on_the_card(cuda_device,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """bf16 moments trained on the card, through a file and back onto the
+    card, bit for bit; the next epoch from the loaded state equals the
+    next epoch of the run that never stopped."""
+    import numpy as np
+
+    from spatialvae_torch import checkpoint
+    from spatialvae_torch.data.dataset import ArrayDataset
+
+    monkeypatch.setenv("SPATIALVAE_ADAM_MOMENTS", "bf16")
+    y = _long_run_images(256)
+    tr = _long_run_trainer(True)
+    data = ArrayDataset.from_numpy(y)
+    tr.train_epoch(data, 0, progress=False)
+    path = str(tmp_path / "o.sav")
+    checkpoint.save_optimizer(path, tr.opt_state, 0, tr.q_net, tr.p_net)
+    gp, ip = str(tmp_path / "g.sav"), str(tmp_path / "i.sav")
+    checkpoint.save_model(gp, "generator", tr.p_net)
+    checkpoint.save_model(ip, "inference", tr.q_net)
+    state, epoch = checkpoint.load_optimizer(path, tr.q_net, tr.p_net,
+                                             device="cuda")
+    assert epoch == 0 and state.count == tr.opt_state.count
+    for m in ("mu", "nu"):
+        for k, t in getattr(tr.opt_state, m).items():
+            u = getattr(state, m)[k]
+            assert u.dtype == torch.bfloat16 and u.device.type == "cuda"
+            assert torch.equal(u.view(torch.int16), t.view(torch.int16))
+    straight = tr.train_epoch(data, 1, progress=False)
+    again = _long_run_trainer(True)
+    from spatialvae_torch.io.jax_params import (
+        generator_from_jax,
+        inference_from_jax,
+    )
+
+    for path_, net, build in ((gp, again.p_net, generator_from_jax),
+                              (ip, again.q_net, inference_from_jax)):
+        params, cfg, _, _ = checkpoint.load_model_meta(path_)
+        net.load_state_dict(build(params, cfg, device="cpu").state_dict())
+    again.opt_state = state
+    resumed = again.train_epoch(data, 1, progress=False)
+    np.testing.assert_allclose(resumed, straight, rtol=1e-6)
+
+
+def test_profiler_trace_names_the_port_kernels(cuda_device, tmp_path):
+    """``--profile-dir``'s span (``cli/common.chunked_epochs``) on the card:
+    the Chrome trace holds the kernels of the float step (K1/K2 on the
+    cluster kernels, Adam's step kernel) by their own names."""
+    import json
+
+    from spatialvae_torch.cli import common
+    from spatialvae_torch.data.dataset import ArrayDataset
+
+    tr = _long_run_trainer(False, "float32")
+    data = ArrayDataset.from_numpy(_long_run_images(192))
+    out = str(tmp_path / "prof")
+    for _ in common.chunked_epochs(tr, data, 0, 3, 1, None, out):
+        pass
+    with open(common.trace_path(out)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    for name in ("dec_fwd90", "dec_chain90", "dec_dw90",
+                 "adam_step_kernel"):
+        assert any(name in k for k in kernels), (name, sorted(kernels)[:40])
+
+
+def test_debug_nans_on_a_nan_image_on_the_card(cuda_device):
+    """A float Bernoulli trainer on the card (K1/K2) with ``debug_nans``:
+    an image holding a NaN raises ``FloatingPointError`` naming its step,
+    where torch's BCE would have hit a device-side assert; the parameters
+    are the step before's and the card goes on working."""
+    import numpy as np
+
+    from spatialvae_torch.data.dataset import ArrayDataset
+
+    tr = _long_run_trainer(False, "float32")
+    tr.debug_nans = True
+    y = _long_run_images(192)
+    perm = torch.randperm(192, generator=tr._gen(0), device="cuda").cpu()
+    bad = int(torch.sort(perm[64:128]).values[5])       # in step 2
+    y[bad, 7, 1] = np.nan
+    before = []
+    step = tr.train_step
+
+    def recording(yb, **kw):
+        before.append({k: v.detach().clone()
+                       for k, v in tr.named_params().items()})
+        return step(yb, **kw)
+
+    tr.train_step = recording
+    with pytest.raises(FloatingPointError, match="at epoch 1, step 2 "):
+        tr.train_epoch(ArrayDataset.from_numpy(y), 0, progress=False)
+    assert len(before) == 2
+    for k, v in tr.named_params().items():
+        assert torch.equal(v, before[1][k]), k
+    assert float(torch.ones(4, device="cuda").sum()) == 4.0

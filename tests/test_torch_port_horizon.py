@@ -1,0 +1,268 @@
+"""The port's int8 horizon tool (``spatialvae_torch/tools/int8_horizon.py``)
+against the JAX package's ``tools/int8_horizon.py``, on the CPU.
+
+- The data: ``make_galaxy_proxy`` and the fields generator give the JAX
+  tool's arrays bit for bit (the fields captured from the JAX ``run``).
+- The configuration: each likelihood's configs, mask and dataset shape are
+  the JAX ``run``'s (its trainer replaced by a recorder).
+- The summary: from the same per-epoch ELBO lists the port's ``main``
+  prints the JAX ``main``'s lines and JSON, and sets
+  ``SPATIALVAE_ADAM_MOMENTS`` for the same arms (the runs replaced by
+  recorders); the caller's environment comes back after it.
+- Both arms for two epochs in each package, narrowed (32x32x3, encoder 64
+  wide, decoder 32, B=8, one step an epoch), from one init carried by
+  ``io/jax_params``: each port arm's per-epoch ELBO within 3e-3 relative of
+  the JAX arm's.  The two packages draw different noise, so the band is
+  the port's own seed-to-seed spread at this size from the same init:
+  seeds 0-5 span at most 1.24e-3 (bf16 arm) and 1.36e-3 (int8 arm)
+  relative (measured), taken with a margin of about 2x.  The JAX bf16 arm
+  runs the JAX tool's ``_train``; XLA's CPU backend refuses the int8 arm's
+  jitted bf16 step ("Unsupported element type for DotThunk::Execute: BF16
+  x BF16 = F32"), so that arm runs the JAX trainer's step arithmetic op by
+  op (``value_and_grad(Trainer._loss)`` on the epoch's one sorted batch,
+  the targets from ``_dataset_yt``, then ``apply_update``), as the
+  families' parity tests do.
+
+The JAX tool turns on ``allow_knobs()`` when it is imported; the fixture
+restores ``SPATIALVAE_ALLOW_KNOBS`` around it.  Its Pallas kernels run in
+interpret mode.
+"""
+
+import dataclasses
+import importlib.util
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import spatialvae_tpu.core.cache as jax_cache
+import spatialvae_tpu.train as jax_train
+from spatialvae_tpu.core.config import config_to_dict as jax_cfg_dict
+from spatialvae_tpu.data import ArrayDataset as JaxArrayDataset
+from spatialvae_tpu.objectives import ElboConfig as JaxElboConfig
+from spatialvae_tpu.transforms.coords import coord_grid as jax_grid
+
+from spatialvae_torch.config import config_to_dict
+from spatialvae_torch.data.dataset import ArrayDataset
+from spatialvae_torch.io.jax_params import from_jax_params
+from spatialvae_torch.tools import int8_horizon as port
+from tests.port_configs import one_torch_thread  # noqa: F401
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SIDE, Q_HIDDEN, P_HIDDEN, B, STEPS = 32, 64, 32, 8, 1
+ELBO_RTOL = 3e-3
+
+
+@pytest.fixture()
+def jax_tool(monkeypatch):
+    """The JAX ``tools/int8_horizon.py`` as a module, its import's
+    ``allow_knobs()`` undone, its compilation cache off."""
+    saved = os.environ.get("SPATIALVAE_ALLOW_KNOBS")
+    spec = importlib.util.spec_from_file_location(
+        "jax_int8_horizon", os.path.join(REPO, "tools", "int8_horizon.py"))
+    mod = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        if saved is None:
+            os.environ.pop("SPATIALVAE_ALLOW_KNOBS", None)
+        else:
+            os.environ["SPATIALVAE_ALLOW_KNOBS"] = saved
+    monkeypatch.setattr(jax_cache, "enable_compilation_cache", lambda: None)
+    monkeypatch.setenv("SPATIALVAE_INTERPRET", "1")
+    return mod
+
+
+class _Recorded(Exception):
+    pass
+
+
+def _jax_run_records(mod, monkeypatch, **kw):
+    """The JAX ``run``'s trainer arguments and dataset, its trainer and
+    ``_train`` replaced by recorders."""
+    rec = {}
+
+    def trainer(q_cfg, p_cfg, ecfg, tcfg, grid, mask=None):
+        rec.update(q=q_cfg, p=p_cfg, e=ecfg, t=tcfg, grid=np.asarray(grid),
+                   mask=None if mask is None else np.asarray(mask))
+        return "trainer"
+
+    def train(tr, ds, epochs, int8):
+        rec["y"] = np.asarray(ds.y)
+        raise _Recorded
+
+    monkeypatch.setattr(jax_train, "Trainer", trainer)
+    monkeypatch.setattr(mod, "_train", train)
+    with pytest.raises(_Recorded):
+        mod.run(1, 2, 1, **kw)
+    return rec
+
+
+@pytest.mark.parametrize("data", ["fields", "galaxy"])
+def test_data_matches_the_jax_tool_bit_for_bit(jax_tool, monkeypatch, data):
+    rec = _jax_run_records(jax_tool, monkeypatch, int8=True, data=data)
+    got = port.make_data(data, 2, 64, 3)
+    assert got.dtype == rec["y"].dtype and np.array_equal(got, rec["y"])
+    # the generators alone, at another size and channel count
+    assert np.array_equal(port.make_galaxy_proxy(3, 16, 24, 1),
+                          jax_tool.make_galaxy_proxy(3, 16, 24, 1))
+
+
+@pytest.mark.parametrize("likelihood,masked", [
+    ("bernoulli", False), ("gaussian", True), ("colored", True)])
+def test_configuration_matches_the_jax_tool(jax_tool, monkeypatch,
+                                            likelihood, masked):
+    rec = _jax_run_records(jax_tool, monkeypatch, int8=True,
+                           likelihood=likelihood, masked=masked)
+    tr = port.build_trainer(1, 2, True, likelihood, masked, device="cpu",
+                            q_hidden=8, p_hidden=8)
+    assert config_to_dict(tr.q_cfg) == dict(
+        jax_cfg_dict(rec["q"]), hidden_dim=8)
+    assert config_to_dict(tr.p_cfg) == dict(
+        jax_cfg_dict(rec["p"]), hidden_dim=8)
+    assert dataclasses.asdict(tr.ecfg) == dataclasses.asdict(rec["e"])
+    assert dataclasses.asdict(tr.tcfg) == dataclasses.asdict(rec["t"])
+    assert np.array_equal(tr.coords.numpy(), rec["grid"])
+    if masked:
+        assert np.array_equal(tr.mask.numpy(), rec["mask"])
+    else:
+        assert tr.mask is None and rec["mask"] is None
+
+
+BF16 = [-2100.5, -2050.25, -2049.0]
+ARM = [-2101.0, -2080.5, -2048.875]
+
+
+@pytest.mark.parametrize("argv", [[], ["moments=bf16", "data=galaxy"],
+                                  ["calib_seed=1"],
+                                  ["likelihood=colored", "mask=1"]])
+def test_summary_matches_the_jax_main(jax_tool, monkeypatch, capsys, argv):
+    """The same per-epoch ELBO lists give the same lines and JSON, and the
+    same moments setting in each arm; the environment is the caller's
+    again after ``main``."""
+    monkeypatch.setenv("SPATIALVAE_ADAM_MOMENTS", "f32")
+    monkeypatch.delenv("SPATIALVAE_ALLOW_KNOBS", raising=False)
+    seen = {}
+
+    def recorder(tag):
+        def run(epochs, batch, steps, int8, data="fields",
+                likelihood="bernoulli", masked=False, seed=0, **_):
+            seen.setdefault(tag, []).append(
+                (epochs, batch, steps, int8, data, likelihood, masked, seed,
+                 os.environ.get("SPATIALVAE_ADAM_MOMENTS")))
+            return list(ARM if int8 or seed else BF16)
+        return run
+
+    monkeypatch.setattr(jax_tool, "run", recorder("jax"))
+    monkeypatch.setattr(jax_tool.sys, "argv", ["int8_horizon.py"] + argv)
+    jax_tool.main()
+    want = capsys.readouterr().out
+    # the JAX tool leaves the moments variable as its int8 arm set it
+    os.environ["SPATIALVAE_ADAM_MOMENTS"] = "f32"
+    monkeypatch.setattr(port, "run", recorder("port"))
+    monkeypatch.setattr(port, "make_data", lambda *a: None)
+    port.main(argv + ["device=cpu"])
+    got = capsys.readouterr().out
+    assert got == want
+    assert json.loads(got.splitlines()[-1])["inside_1pct"] is False
+    assert seen["port"] == seen["jax"]
+    assert os.environ["SPATIALVAE_ADAM_MOMENTS"] == "f32"
+    assert "SPATIALVAE_ALLOW_KNOBS" not in os.environ
+
+
+def test_knobs_are_allowed_only_while_the_tool_runs(monkeypatch, capsys):
+    """``SPATIALVAE_SR=1`` in the environment trains without the opt-in
+    while the tool runs, and raises outside it."""
+    monkeypatch.setenv("SPATIALVAE_SR", "1")
+    monkeypatch.delenv("SPATIALVAE_ALLOW_KNOBS", raising=False)
+    monkeypatch.setattr(port, "SIDE", SIDE)
+    orig = port.run
+    monkeypatch.setattr(port, "run", lambda *a, **kw: orig(
+        *a, **kw, side=SIDE, q_hidden=16, p_hidden=16))
+    port.main(["epochs=1", "batch=2", "steps=1", "device=cpu"])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["arm"] == \
+        "int8"
+    assert "SPATIALVAE_ALLOW_KNOBS" not in os.environ
+    with pytest.raises(RuntimeError, match="ALLOW_KNOBS"):
+        port.build_trainer(1, 2, True, device="cpu", side=SIDE,
+                           q_hidden=16, p_hidden=16)
+
+
+def _jax_trainer(int8: bool):
+    """The JAX ``run``'s trainer, narrowed as the port's keywords narrow
+    it."""
+    from spatialvae_tpu.core.config import (
+        InferenceConfig,
+        SpatialGeneratorConfig,
+    )
+
+    q_cfg = InferenceConfig(n=SIDE * SIDE * 3, latent_dim=23,
+                            hidden_dim=Q_HIDDEN, num_layers=2)
+    p_cfg = SpatialGeneratorConfig(latent_dim=20, hidden_dim=P_HIDDEN,
+                                   n_out=3, num_layers=2)
+    ecfg = JaxElboConfig(rotate=True, translate=True, theta_prior=np.pi,
+                         likelihood="bernoulli", channels=3, fused=True,
+                         int8=int8)
+    tcfg = jax_train.TrainConfig(minibatch_size=B, learning_rate=1e-4,
+                                 num_epochs=2, seed=0,
+                                 compute_dtype="bfloat16",
+                                 image_shape=(SIDE, SIDE), channels=3)
+    return jax_train.Trainer(q_cfg, p_cfg, ecfg, tcfg,
+                             jax_grid(SIDE, SIDE))
+
+
+class _Data:
+    def __init__(self, y):
+        self.y, self.ctf = y, None
+
+    def __len__(self):
+        return self.y.shape[0]
+
+
+def _jax_int8_epochs(jt, imgs, epochs: int) -> list:
+    """The JAX trainer's int8 epochs of one full batch each, op by op."""
+    from spatialvae_tpu.train import trainer as jax_trainer
+
+    y = jnp.asarray(imgs)
+    y_t = jt._dataset_yt(_Data(y))
+    grad_fn = jax.value_and_grad(jt._loss, has_aux=True)
+    rng = np.random.default_rng(7)
+    state, out = jt.state, []
+    for _ in range(epochs):
+        noise = rng.normal(size=(B, 23)).astype(np.float32)
+        (_, aux), grads = grad_fn(state.params, y, None, None,
+                                  jnp.float32(1.0), y_t=y_t,
+                                  noise=jnp.asarray(noise))
+        state = jax_trainer.apply_update(jt.optimizer, state, grads,
+                                         jt._compute_dtype)
+        out.append(float(aux[0]))
+    return out
+
+
+def test_both_arms_track_the_jax_arms_from_one_init(jax_tool, capsys):
+    imgs = port.make_data("fields", B * STEPS, SIDE, 3)
+    for int8 in (False, True):
+        jt = _jax_trainer(int8)
+        want = (_jax_int8_epochs(jt, imgs, 2) if int8 else jax_tool._train(
+            jt, JaxArrayDataset(jnp.asarray(imgs)), 2, int8))
+        tr = port.build_trainer(2, B, int8, device="cpu", side=SIDE,
+                                q_hidden=Q_HIDDEN, p_hidden=P_HIDDEN)
+        params = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                                        jt.state.params)
+        q, p = from_jax_params(params["q"], params["p"], tr.q_cfg,
+                               tr.p_cfg)
+        tr.q_net.load_state_dict(q.state_dict())
+        tr.p_net.load_state_dict(p.state_dict())
+        got = port._train(tr, ArrayDataset.from_numpy(imgs, device="cpu"),
+                          2, int8)
+        np.testing.assert_allclose(got, want, rtol=ELBO_RTOL)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("# ")]
+    assert [ln.split(":")[0] for ln in lines] == (
+        ["# bf16 epoch 1", "# bf16 epoch 2"] * 2
+        + ["# int8 epoch 1", "# int8 epoch 2"])

@@ -1,13 +1,15 @@
 """The port stands alone and runs on the card unless asked for the CPU.
 
 - No module of ``spatialvae_torch`` and not ``chip_smoke.py`` imports
-  ``spatialvae_tpu`` or ``jax``, nor ``pandas``, ``PIL``, ``matplotlib`` or
-  ``torchvision``, which the card's machine lacks (an AST walk of every
-  import statement, the run-output modules and the galaxy and mnist CLIs
-  among them).
-- With both packages (and pandas and PIL) made unimportable, a tiny CPU
-  training run (float and int8 steps), a checkpoint round trip through the
-  serving API and a particles CLI run with CTF and augmentation work; with
+  ``spatialvae_tpu`` or ``jax``, nor ``pandas``, ``PIL``, ``matplotlib``,
+  ``torchvision`` or ``ml_dtypes``, which the card's machine lacks (an AST
+  walk of every import statement, the run-output modules, the galaxy and
+  mnist CLIs and the tools among them).
+- With both packages (and pandas, PIL and ml_dtypes) made unimportable, a
+  tiny CPU training run (float and int8 steps, a streamed epoch), a
+  checkpoint round trip through the serving API, a bf16 Adam state through
+  a file, both horizon arms and a particles CLI run with CTF and
+  augmentation work; with
   matplotlib and torchvision unimportable too, the galaxy and mnist CLIs
   write their whole tree.
 - ``Trainer`` and ``SpatialVae.load`` without ``device=`` go to the CUDA
@@ -32,10 +34,15 @@ from spatialvae_torch.train.trainer import TrainConfig, Trainer
 from spatialvae_torch.transforms.coords import coord_grid
 
 REPO = Path(__file__).resolve().parents[1]
-# the JAX package and JAX; pandas, PIL, matplotlib and torchvision, which
-# the card's machine lacks
+# the JAX package and JAX; pandas, PIL, matplotlib, torchvision and
+# ml_dtypes, which the card's machine lacks
 FORBIDDEN = ("spatialvae_tpu", "jax", "pandas", "PIL", "matplotlib",
-             "torchvision")
+             "torchvision", "ml_dtypes")
+# the port's tools, the checkpoint and streaming modules of the long runs
+TOOL_MODULES = ("tools/int8_horizon.py", "tools/profile_step.py",
+                "tools/export_torch_checkpoint.py", "tools/kernel_bench.py",
+                "tools/probe_int4.py", "tools/probe_i16acc.py",
+                "data/stream.py", "checkpoint.py", "io/reference_sav.py")
 # the port's modules that stand in for the JAX package's PIL, matplotlib
 # and torchvision paths
 HOST_MODULES = ("models/vanilla.py", "models/reprs.py", "io/png.py",
@@ -61,7 +68,7 @@ def test_no_port_module_imports_the_jax_package_or_jax():
     assert len(sources) > 20
     walked = {str(p.relative_to(REPO / "spatialvae_torch"))
               for p in sources[:-1]}
-    assert set(HOST_MODULES) <= walked
+    assert set(HOST_MODULES) <= walked and set(TOOL_MODULES) <= walked
     bad = []
     for path in sources:
         for name in _imported(ast.parse(path.read_text(), str(path))):
@@ -76,6 +83,7 @@ sys.modules["spatialvae_tpu"] = None
 sys.modules["jax"] = None
 sys.modules["pandas"] = None
 sys.modules["PIL"] = None
+sys.modules["ml_dtypes"] = None
 import os, tempfile
 import torch
 from spatialvae_torch import checkpoint
@@ -128,7 +136,26 @@ with tempfile.TemporaryDirectory() as d:
             "--num-epochs", "1", "--minibatch-size", "4", "-d", "-1",
             "--p-hidden-dim", "8", "--q-hidden-dim", "8"])
     assert out.getvalue().count("\t") == 12, out.getvalue()
-assert "jax" not in sys.modules or sys.modules["jax"] is None
+# a streamed epoch, a bf16 Adam state through a file, both horizon arms
+from spatialvae_torch.data.dataset import ArrayDataset
+from spatialvae_torch.tools import int8_horizon
+m = tr.train_epoch(ArrayDataset.from_numpy(y.numpy(), preload=False), 1,
+                   progress=False)
+assert all(v == v for v in m), m
+tr.opt_state.mu = {k: v.to(torch.bfloat16) for k, v in tr.opt_state.mu.items()}
+tr.opt_state.nu = {k: v.to(torch.bfloat16) for k, v in tr.opt_state.nu.items()}
+with tempfile.TemporaryDirectory() as d:
+    op = os.path.join(d, "o.sav")
+    checkpoint.save_optimizer(op, tr.opt_state, 1, tr.q_net, tr.p_net)
+    state, _ = checkpoint.load_optimizer(op, tr.q_net, tr.p_net)
+    assert all(torch.equal(state.mu[k], v)
+               for k, v in tr.opt_state.mu.items())
+for int8 in (False, True):
+    with contextlib.redirect_stdout(io.StringIO()):
+        e = int8_horizon.run(1, 2, 1, int8, device="cpu", side=32,
+                             q_hidden=16, p_hidden=16)
+    assert e[0] == e[0], e
+assert all(sys.modules.get(n) is None for n in ("jax", "ml_dtypes"))
 print("ok")
 """
 

@@ -325,15 +325,37 @@ def test_train_config_matches_jax():
     assert got == want
 
 
-@pytest.mark.parametrize("what", ["int8", "mesh", "augment", "host",
-                                  "gaussian"])
+@pytest.mark.parametrize("what", ["host", "augment"])
+def test_trainer_streams_host_resident_data(what):
+    """Host-resident data (``--no-preload``), with or without rotation
+    augmentation, trains: the streamed epoch and evaluation equal the
+    preloaded ones bit for bit (more cases in
+    ``test_torch_port_stream.py``)."""
+    from spatialvae_torch.data.dataset import ArrayDataset
+
+    q_cfg, p_cfg = map(to_port, _cfgs())
+    ecfg = ElboConfig(fused=True, channels=C)
+    tcfg = TrainConfig(minibatch_size=B, augment_rotation=what == "augment",
+                       image_shape=(N, M), channels=C)
+    y = np.concatenate([_batch(s)[0] for s in range(3)])[:10]
+    rows = []
+    for preload in (True, False):
+        tr = Trainer(q_cfg, p_cfg, ecfg, tcfg, coord_grid(N, M),
+                     device="cpu")
+        data = ArrayDataset.from_numpy(y, device="cpu", preload=preload)
+        assert data.host_resident is not preload
+        rows.append([tr.train_epoch(data, 0, progress=False),
+                     tr.eval_epoch(data, 0)])
+    assert rows[0] == rows[1] and np.isfinite(rows[0]).all()
+
+
+@pytest.mark.parametrize("what", ["int8", "mesh", "gaussian"])
 def test_trainer_refuses_what_is_not_ported(what, monkeypatch):
-    """What the trainer still refuses: meshes (M10) and host-resident data
-    (M4), with or without augmentation, which now runs otherwise (M8);
-    CTF (M7, now ported) with bf16 compute raises ``ValueError`` before any
-    work, as the JAX trainer does at its first step, here in int8 mode with
-    a measurement lever (K3 (g)) over MNIST's padded 28x28; gaussian: CTF
-    without the image shape."""
+    """What the trainer still refuses: meshes (M10); CTF (M7, now ported)
+    with bf16 compute raises ``ValueError`` before any work, as the JAX
+    trainer does at its first step, here in int8 mode with a measurement
+    lever (K3 (g)) over MNIST's padded 28x28; gaussian: CTF without the
+    image shape."""
     q_cfg, p_cfg = map(to_port, _cfgs())
     ecfg = ElboConfig(fused=True, channels=C, int8=what == "int8",
                       likelihood="gaussian" if what == "gaussian"
@@ -359,6 +381,4 @@ def test_trainer_refuses_what_is_not_ported(what, monkeypatch):
         data = _Data(torch.zeros((B, grid.shape[0], C)))
         if what in ("gaussian", "int8"):
             data.ctf = torch.zeros((B, 3, 3))
-        else:
-            data.host_resident = True
         tr.train_epoch(data, 0)
