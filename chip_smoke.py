@@ -72,7 +72,9 @@ paths:
   (``SPATIALVAE_LOSS_LAYOUT=t`` on images off the /255 grid,
   ``[train_int8_t]``): two epochs each, launch counts, ELBO rise, a step
   against its plain-version step.  Before the paths, K3's stochastic
-  rounding (``[kernel_loss_sr]``: the quantised tiles against the plain
+  rounding (``[kernel_loss_sr]``: on the cluster passes, in turns with the
+  block passes, at the galaxy shape, in the Gaussian, padded and colored
+  families and at B=4,096; the quantised tiles against the plain
   version's, which draws the same Philox words), its other numerics
   (``[kernel_loss_numerics]``) and K8 (``[kernel_loss_t]``, at the galaxy
   shape and at mnist's 784 pixels) are held against their plain versions.
@@ -105,7 +107,8 @@ paths:
   ``.mrc`` files with CTF tables, two epochs in each of four arms (float
   with mask and normalisation; CTF with the colored likelihood; the same
   in int8 mode, on K4/K5 and never K3; rotation augmentation in int8
-  mode, on K3) and a resume of the first for a third epoch: each arm's
+  mode, on K3, and with ``--int8-sr``, on K3's SR kernels) and a resume
+  of the first for a third epoch: each arm's
   launches counted from 0, its TSV, seconds per epoch and the checkpoints
   of every interval read back by ``SpatialVae.load``; before the arms,
   ``[cli_kernels]`` holds every kernel they launch to its plain version
@@ -162,7 +165,9 @@ paths:
 
 K3's default-mode calls (the bench configuration and the Gaussian, colored
 and padded families at the default numerics, H <= 512) run the cluster
-passes of ``csrc/fused_loss_int8_sm90.cu``; ``[k3_sm90]`` holds their
+passes of ``csrc/fused_loss_int8_sm90.cu``, and its calls under stochastic
+rounding alone their SR instantiations (``csrc/fused_loss_int8_sm90_sr.cu``);
+``[k3_sm90]`` holds their
 pieces alone (the a0 chain's thresholds at all 2^32 inputs, the product on
 the cluster ring word for word, the resident clusters), and
 ``[kernel_loss_int8]``, ``[kernel_loss_families]``, ``[kernel_bench]``
@@ -176,13 +181,15 @@ record (launches on the main path, times, plain-version time, bound,
 library-call time), the card's name and power limit, and
 ``{"ok": true, ...}``.  ``--limits`` prints the kernels' readings for the
 sound build and for copies built with one step removed; ``--limits
-numerics`` only those of K3's modes, levers and K8 (SR drawing the gradient
-site's words from the forward site's stream, SR with u = 0, db1 from the
-pre-round q, the Pade lever on the exact tanh, A1Q at a per-block scale);
+numerics`` only those of K3's modes, levers and K8 (SR's three copies,
+db1 from the pre-round q, the Pade lever on the exact tanh, A1Q at a
+per-block scale);
 ``--limits k3`` only K3's readings on the cluster passes and on the block
 passes (rounding toward zero, a scale per 64-pixel block, the cluster
-passes' colored pairs formed with the wrong partner); ``--limits
-wide`` those of the wide path (its ragged last chunk skipped,
+passes' colored pairs formed with the wrong partner, and SR's copies: the
+gradient site on the forward site's words, u = 0, the cluster passes'
+counters in the dW1 workspace's row order, each of which SR's cluster
+readings must refuse); ``--limits wide`` those of the wide path (its ragged last chunk skipped,
 one TF32 pass); ``--limits probes`` those of the probe kernels (the
 last k slab dropped, the int16 store wrapping, a 4 x 4 byte transpose with
 two rows swapped); ``--limits kernel_bench`` those of T1's kernels (the
@@ -362,7 +369,8 @@ def ptxas_report(started, serialized=None) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             # K3's: <bf16 or f32[, colored]>
-            name = re.sub(r".*(loss_fwd90|loss_grad90|grouped_dw90|"
+            name = re.sub(r".*(loss_fwd90_sr|loss_grad90_sr|loss_fwd90|"
+                          r"loss_grad90|grouped_dw90|"
                           r"tile_product90|chain_check90)_kernel"
                           r"(IL(b[01])E(Lb([01])E)?)?.*",
                           lambda k: k.group(1) + (
@@ -1167,6 +1175,7 @@ K45_KEYS = ("fwd", "fwd_acts", "bwd_scale", "bwd_grad", "dw", "sum",
 AB_I8 = ("block", "sm90", "sm90", "block")
 LOSS_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8.cu"
 LOSS90_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8_sm90.cu"
+LOSS90_SR_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8_sm90_sr.cu"
 # fused_loss_int8.LAUNCHES: the block passes', the cluster passes' ("_sm90")
 K3_KEYS = ("fwd", "grad", "dw", "sum", "fwd_sm90", "grad_sm90", "dw_sm90")
 # turns of an A/B of K3's two designs on one card
@@ -1388,7 +1397,9 @@ def _loss_readings(torch, args, mask, family, timed, nm=None,
     ms.  A call that the cluster passes take is also held to the block
     passes ("vs_block": each output's errors, the tiles' disagreements;
     "block": the block passes' own errors against the plain version) and,
-    with ``timed``, timed in turns with them ("ms_block", "turns")."""
+    with ``timed``, timed in turns with them ("ms_block", "turns").  Under
+    SR also "moved": the share of aq that a call with b1[0] one ulp away
+    (the next step's words) rounds otherwise."""
     from spatialvae_torch.kernels import fused_loss_int8 as l8
     from spatialvae_torch.kernels.config import Numerics
 
@@ -1416,6 +1427,14 @@ def _loss_readings(torch, args, mask, family, timed, nm=None,
         out["ints"] = (int((aq != aq_p).sum()),
                        (qi != qi_p).float().mean().item())
         del aq_p, qi_p
+        if nm.sr:
+            b1 = args[3].clone()
+            b1[0] = torch.nextafter(b1[0], torch.ones_like(b1[0]))
+            _, (aq2, _) = run.func(*args[:3], b1, *args[4:], mask, family,
+                                   numerics=nm, ints=True,
+                                   block_passes=block_passes)
+            out["moved"] = (aq != aq2).float().mean().item()
+            del aq2
         out["route"] = route
         if route == "sm90":
             old, (aq7, qi7) = l8.run_loss_int8(*args, mask, family,
@@ -1718,11 +1737,12 @@ def phase_int8_kernels(torch) -> dict:
 PRODUCT_TILES = 8192
 
 
-def phase_k3_sm90(torch, ptxas) -> dict:
+def phase_k3_sm90(torch, ptxas, ptxas_sr) -> dict:
     """``[k3_sm90]``: the cluster passes' pieces alone.  ptxas's report of
-    each of their kernels (``ptxas``: ``start_ptxas_report``'s compile of
-    their source); the clusters of 4 the card holds at once for each
-    kernel; the a0 chain's thresholds
+    each of their kernels (``ptxas``, ``ptxas_sr``: ``start_ptxas_report``'s
+    compiles of their source and of their SR instantiations' source); the
+    clusters of 4 the card holds at once for each kernel (SR's too); the a0
+    chain's thresholds
     against clip(round(7 tanh(x)), -7, 7) at every one of the 2^32 float
     inputs (0 may differ); the product on the cluster ring (the W1 slabs
     multicast, int8 wgmma) against an exact product, word for word, at
@@ -1730,9 +1750,12 @@ def phase_k3_sm90(torch, ptxas) -> dict:
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
     serialized = {}
-    for name, regs, stack, stores, loads in ptxas_report(ptxas, serialized):
-        log("k3_sm90_ptxas", kernel=name, registers=regs, stack_bytes=stack,
-            spill_store_bytes=stores, spill_load_bytes=loads)
+    for started in (ptxas, ptxas_sr):
+        for name, regs, stack, stores, loads in ptxas_report(started,
+                                                             serialized):
+            log("k3_sm90_ptxas", kernel=name, registers=regs,
+                stack_bytes=stack, spill_store_bytes=stores,
+                spill_load_bytes=loads)
     log("k3_sm90_ptxas", wgmma_serialized_notes=json.dumps(
         serialized, separators=(",", ":")))
     clusters = l8.sm90_max_clusters()
@@ -1806,15 +1829,50 @@ def start_int8_timing_builds() -> dict:
 
 
 class _with_timing_copy:
-    """The wrappers' library with the cluster passes' entry points
-    (``svt_int8_90_*``) taken from a timing copy's library."""
+    """The wrappers' library with the entry points named ``prefix``* (K4/K5's
+    cluster passes' ``svt_int8_90_*``, or K3's ``svt_loss*``) taken from a
+    copy's library: a timing copy of K4/K5's, or a faulty copy of K3's
+    units."""
 
-    def __init__(self, sound, timing):
-        self.sound, self.timing = sound, timing
+    def __init__(self, sound, timing, prefix="svt_int8_90_"):
+        self.sound, self.timing, self.prefix = sound, timing, prefix
 
     def __getattr__(self, name):
-        lib = self.timing if name.startswith("svt_int8_90_") else self.sound
+        lib = self.timing if name.startswith(self.prefix) else self.sound
         return getattr(lib, name)
+
+
+# K3's translation units: a faulty copy of K3 for the limits, built with a
+# switch of its sources, is a library of these alone,
+# whose svt_loss* entry points stand in for the library's
+K3_UNITS = ("fused_loss_int8.cu", "fused_loss_int8_levers.cu",
+            "fused_loss_int8_wide.cu", "fused_loss_int8_sm90.cu",
+            "fused_loss_int8_sm90_sr.cu")
+
+
+def build_k3_copies(copies) -> None:
+    """Build the K3 copies of ``copies`` (tuples of -D switches) in
+    parallel, one thread each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spatialvae_torch.kernels import _build
+
+    copies = [d for d in copies if d]
+    if copies:
+        with ThreadPoolExecutor(len(copies)) as ex:
+            list(ex.map(lambda d: _build.build(d, K3_UNITS), copies))
+
+
+def k3_library(defines: tuple):
+    """The library with K3's entry points from the copy built with
+    ``defines`` (the sound library itself for none)."""
+    from spatialvae_torch.kernels import _build
+
+    sound = _build.load_library()
+    if not defines:
+        return sound
+    return _with_timing_copy(sound, _build.load_library(defines, K3_UNITS),
+                             "svt_loss")
 
 
 def _copy_turns(torch, libs: dict, fn, reps: int) -> dict:
@@ -2445,15 +2503,17 @@ def bench_k3_inputs(torch, model: str, gen) -> tuple:
                               disc_mask(torch, IMAGE), "colored")
 
 
-def bench_k3_call(torch, model: str = "galaxy") -> dict:
+def bench_k3_call(torch, model: str = "galaxy", nm=None) -> dict:
     """One K3 call at the shape of bench.py's ``model`` step (B=4,096
     galaxy or colored images, bf16 weights; random inputs from the seed,
-    ``bench_k3_inputs``) on each design, in turns (AB_K3, the median of 3
-    each), with its bound.  The cluster passes' outputs are held to the
-    block passes' within INT8_TOL, and each design's loss and dfold of the
-    first and last image and of BENCH_EDGE images on each side of every
-    chunk boundary (the cluster route runs the call in several workspace
-    chunks at this size) to the plain version run on those images alone."""
+    ``bench_k3_inputs``), at numerics ``nm`` (default: the defaults), on
+    each design, in turns (AB_K3, the median of 3 each), with its bound.
+    The cluster passes' outputs are held to the block passes' within
+    INT8_TOL, and each design's loss and dfold of the first and last image
+    and of BENCH_EDGE images on each side of every chunk boundary (the
+    cluster route runs the call in several workspace chunks at this size)
+    to the plain version run on those images alone, each run of them at its
+    index in the call (SR's counters)."""
     from spatialvae_torch.kernels import fused_loss_int8 as l8
     from spatialvae_torch.kernels.config import Numerics
 
@@ -2461,7 +2521,7 @@ def bench_k3_call(torch, model: str = "galaxy") -> dict:
     fold, coords, ws, (yt, mask, family) = bench_k3_inputs(torch, model,
                                                             gen)
     hw, no, masked = IMAGE[0] * IMAGE[1], ws[2].shape[0], mask is not None
-    nm = Numerics()
+    nm = nm or Numerics()
     run = functools.partial(l8.run_loss_int8, fold, coords, *ws, yt, mask,
                             family, numerics=nm)
     chunks = {r: bench_k3_chunks(torch, r) for r in ("sm90", "block")}
@@ -2471,10 +2531,19 @@ def bench_k3_call(torch, model: str = "galaxy") -> dict:
     edges = sorted({0, BENCH_BATCH - 1} | {
         i for c in chunks.values() for b0, _ in c[1:]
         for i in range(b0 - BENCH_EDGE, b0 + BENCH_EDGE)})
+    # the edge images in runs of consecutive indices
+    runs = [[edges[0]]]
+    for i in edges[1:]:
+        if i == runs[-1][-1] + 1:
+            runs[-1].append(i)
+        else:
+            runs.append([i])
     with torch.no_grad():
         got = {"sm90": run(), "block": run(block_passes=True)}
-        want = l8.loss_int8_reference(fold[edges], coords, *ws, yt[edges],
-                                      mask, family, numerics=nm)
+        # dfold of the edge images (the loss at [:, 3, 0])
+        want = torch.cat([l8.loss_int8_reference(
+            fold[r[0]:r[-1] + 1], coords, *ws, yt[r[0]:r[-1] + 1], mask,
+            family, numerics=nm, image0=r[0])[0] for r in runs])
         vs_block = {n: _check_rel(f"K3 B={BENCH_BATCH} {model} cluster vs "
                                   f"block passes {n}", rel_errors(u, v),
                                   INT8_TOL)
@@ -2485,8 +2554,8 @@ def bench_k3_call(torch, model: str = "galaxy") -> dict:
         vs_plain = {}
         for r, out in got.items():
             d = out[0][edges]
-            for n, u, v in (("loss", d[:, 3, 0], want[0][:, 3, 0]),
-                            ("dfold", d, want[0])):
+            for n, u, v in (("loss", d[:, 3, 0], want[:, 3, 0]),
+                            ("dfold", d, want)):
                 vs_plain[r, n] = _check_rel(
                     f"K3 B={BENCH_BATCH} {model} {r} passes at the chunk "
                     f"edges {n}", rel_errors(u, v), INT8_TOL)
@@ -2502,7 +2571,7 @@ def bench_k3_call(torch, model: str = "galaxy") -> dict:
             # 1 target byte per (image, output, pixel): galaxy's int8, and
             # colored's bf16 over HW/2 pixels per output
             "bound": k3_bound(BENCH_BATCH, hw, P_HIDDEN, no, 2, 1, masked,
-                              False),
+                              nm.sr),
             "chunks": {r: [b0 for b0, _ in c] for r, c in chunks.items()},
             "edges": len(edges), "vs_block": vs_block, "vs_plain": vs_plain}
 
@@ -2618,30 +2687,82 @@ def _wmax(a, b) -> tuple:
 
 # K3's faulty copies for --limits k3: quantisation rounding toward zero, a
 # gradient scale per 64-pixel block, the cluster passes' colored mean
-# blocks paired with the block after them (ranks r and r ^ 1)
+# blocks paired with the block after them (ranks r and r ^ 1); and SR's
+# (SR_FAULTS)
 K3_FAULTS = (("-DSVT_INT8_RTZ=1",), ("-DSVT_INT8_BLOCK_SCALE=1",),
              ("-DSVT_COLORED90_PAIR_ADJACENT=1",))
+# SR's faulty copies: the gradient site drawing the forward site's words,
+# u = 0 (rounding down), the cluster passes' counters taking the row from
+# the dW1 workspace's order; each must be refused by SR's cluster readings
+SR_FAULTS = (("-DSVT_SR_SAME_SITE=1",), ("-DSVT_SR_FLOOR=1",),
+             ("-DSVT_SR90_WS_ROW=1",))
+# SR's readings in --limits k3 and --limits numerics: (FAMILY_CASES name or
+# "galaxy", weight dtype), each on the cluster and on the block passes
+SR_LIMIT_CASES = [("galaxy", "bfloat16"), ("galaxy", "float32"),
+                  ("colored_mask", "bfloat16"), ("gaussian_mask", "float32")]
+
+
+def sr_limit_readings(torch, seed: int, worst: dict) -> None:
+    """SR_LIMIT_CASES' readings into ``worst``: per (route, case, dtype) the
+    worst max and mean error relative to max|plain| over the loss and the
+    five outputs ("K3_sr_<route>"), and the quantised tiles' disagreements
+    with the plain version's, the forward site's count and the gradient
+    site's share ("K3_sr_ints_<route>")."""
+    nm = _numerics(sr=True)
+    for name, dtype in SR_LIMIT_CASES:
+        for block_passes in (False, True):
+            if name == "galaxy":
+                r = loss_case(torch, BATCH, dtype, seed, False, nm=nm,
+                              block_passes=block_passes)
+            else:
+                case = next(c for c in FAMILY_CASES if c[0] == name)
+                r = family_case(torch, case, dtype, seed, False, nm=nm,
+                                block_passes=block_passes)
+            k = (f"K3_sr_{r['route']}", name, dtype)
+            for n in ("loss",) + INT8_GRADS:
+                worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+            ki = (f"K3_sr_ints_{r['route']}", name, dtype)
+            worst[ki] = _wmax(worst.get(ki, (0, 0)), r["ints"])
+        torch.cuda.empty_cache()
+
+
+def sr_refusals(defines: tuple, worst: dict) -> None:
+    """Raise unless the sound build holds every SR reading of ``worst``
+    (INT8_TOL, the tiles as ``_check_ints`` holds them) and each copy of
+    SR_FAULTS fails some SR reading on the cluster passes."""
+    def holds(k, v):
+        if k[0].startswith("K3_sr_ints"):
+            return v[0] == 0 and v[1] <= SR_INT_SHARE
+        return v[0] <= INT8_TOL[0] and v[1] <= INT8_TOL[1]
+
+    sr = {k: holds(k, v) for k, v in worst.items()
+          if k[0].startswith("K3_sr")}
+    if not defines and not all(sr.values()):
+        raise AssertionError(f"the sound build fails SR's limits: {worst}")
+    if defines in SR_FAULTS and all(
+            ok for k, ok in sr.items() if k[0].endswith("sm90")):
+        raise AssertionError(f"the SR copy {defines} holds every cluster "
+                             f"reading: {worst}")
 
 
 def phase_limits_k3(torch) -> None:
     """``--limits k3``: K3's readings against its plain version on the
     cluster passes and on the block passes (``block_passes``), for the
-    sound library and for the copies of K3_FAULTS (built in parallel), over
-    three seeds (LOSS_CASES and FAMILY_CASES): each build's worst max and
-    mean error relative to max|plain| over the five outputs and the loss,
-    by case kind and route.  The sound build must hold every reading within
-    INT8_TOL, the colored pairing's copy must not hold its colored cluster
-    readings."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from spatialvae_torch.kernels import _build
+    sound library and for the copies of K3_FAULTS and SR_FAULTS (K3's units
+    built in parallel, ``k3_library``), over three seeds (LOSS_CASES and
+    FAMILY_CASES at the default numerics, SR_LIMIT_CASES under SR): each
+    build's worst max and mean error relative to max|plain| over the five
+    outputs and the loss, by case kind and route, and SR's quantised tiles.
+    The sound build must hold every reading within INT8_TOL (SR's tiles as
+    ``_check_ints``), the colored pairing's copy must not hold its colored
+    cluster readings, and each SR copy must fail SR's on the cluster
+    passes."""
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
-    with ThreadPoolExecutor(len(K3_FAULTS)) as ex:
-        list(ex.map(_build.build, K3_FAULTS))
-    for defines in ((),) + K3_FAULTS:
-        lib = _build.load_library(defines)
+    build_k3_copies(K3_FAULTS + SR_FAULTS)
+    for defines in ((),) + K3_FAULTS + SR_FAULTS:
+        lib = k3_library(defines)
         d8._lib = l8._lib = (lambda lib=lib: lib)
         worst = {}
         for seed in range(3):
@@ -2660,12 +2781,14 @@ def phase_limits_k3(torch) -> None:
                         k = (f"K3_{case[1]}_{r['route']}", dtype)
                         for n in ("loss",) + INT8_GRADS:
                             worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+            sr_limit_readings(torch, seed, worst)
             torch.cuda.empty_cache()
         log("limits", build=" ".join(defines) or "sound",
             **{"/".join(k): f"{a:.3e}/{m:.3e}"
                for k, (a, m) in sorted(worst.items())})
         within = {k: a <= INT8_TOL[0] and m <= INT8_TOL[1]
-                  for k, (a, m) in worst.items()}
+                  for k, (a, m) in worst.items()
+                  if not k[0].startswith("K3_sr")}
         colored90 = [k for k in within if k[0] == "K3_colored_sm90"]
         if not defines and not all(within.values()):
             raise AssertionError(f"--limits k3: the sound build is outside "
@@ -2674,6 +2797,8 @@ def phase_limits_k3(torch) -> None:
                                                     for k in colored90):
             raise AssertionError(f"--limits k3: the colored pairing's copy "
                                  f"is within INT8_TOL: {worst}")
+        sr_refusals(defines, worst)
+    d8._lib = l8._lib = (lambda: k3_library(()))
 
 
 def phase_limits(torch) -> None:
@@ -3178,52 +3303,97 @@ def _check_ints(what, r) -> str:
     return f"{fwd}/{share:.2e}"
 
 
+# K3 (e) in the other families (FAMILY_CASES names), at B=100
+SR_FAMILY_CASES = ("gaussian_mask", "bernoulli_pad28", "colored_mask",
+                   "colored")
+# SR's one-ulp check: a b1[0] one ulp away must round at least this share of
+# aq otherwise
+SR_MOVED = 0.05
+
+
+def _sr_fields(what, r) -> dict:
+    """The checks of one SR reading (``_loss_readings``): two runs bit for
+    bit, the five outputs and the loss within INT8_TOL of the plain version,
+    the quantised tiles against the plain version's (``_check_ints``), on
+    the cluster route against the block passes too (``_log_ab``), and a b1
+    one ulp away moving more than SR_MOVED of aq; returns the log fields."""
+    if not r["same"]:
+        raise AssertionError(f"{what}: two runs differ")
+    if r["route"] != "sm90":
+        raise AssertionError(f"{what}: route {r['route']}")
+    fields = {n: _check_rel(f"{what} {n}", r[n], INT8_TOL)
+              for n in ("loss",) + INT8_GRADS}
+    for n in ("loss",) + INT8_GRADS:
+        _check_rel(f"{what} {n}, cluster vs block passes", r["vs_block"][n],
+                   INT8_TOL)
+    if not r["moved"] > SR_MOVED:
+        raise AssertionError(f"{what}: another b1 moved only {r['moved']} "
+                             f"of the forward tile")
+    return {"route": r["route"], "errors": "max_abs/mean_abs/max_rel/mean_rel",
+            **fields, "max_rel_tol": INT8_TOL[0],
+            "mean_rel_tol": INT8_TOL[1],
+            "ints_fwd_differ_grad_share": _check_ints(what, r),
+            "rerun": "bitwise", "next_step_fwd_share_moved":
+                f"{r['moved']:.3f}", **_log_ab(r)}
+
+
 def phase_loss_sr(torch) -> dict:
-    """K3 (e) at the galaxy shape (B=100), bf16 and f32 weights: SR's kernel
-    against its plain version, which draws the same Philox words (the
-    quantised tiles, the five outputs within INT8_TOL), two runs bit for
-    bit, and a call with b1 moved by one ulp (the next step's words) that
-    must round differently."""
+    """K3 (e), stochastic rounding, on the cluster passes (its route since
+    this slice) at the galaxy shape (B=100) with bf16 and f32 weights and
+    in SR_FAMILY_CASES (Gaussian 64x64 under the disc mask, 28x28 padded,
+    colored with and without the mask): each call against its plain
+    version, which draws the same Philox words (the quantised tiles, the
+    five outputs within INT8_TOL), against the block passes (the same
+    checks) and timed in turns with them, two runs bit for bit, and a call
+    with b1 moved by one ulp (the next step's words) that must round
+    differently; then SR at bench.py's B=4,096 (galaxy and colored + mask,
+    bf16; ``bench_k3_call``) in turns with the block passes.  Returns the
+    readings, and under "block_launches" the block passes' launches in the
+    phase (their checks and turns: the yardstick's)."""
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
     res = {}
     nm = _numerics(sr=True)
     hw = IMAGE[0] * IMAGE[1]
+    block0 = l8.LAUNCHES["fwd"]
     for dtype in ("bfloat16", "float32"):
         r = loss_case(torch, BATCH, dtype, SEED, True, nm=nm)
-        if not r["same"]:
-            raise AssertionError(f"K3 SR {dtype}: two runs differ")
-        fields = {n: _check_rel(f"K3 SR {dtype} {n}", r[n], INT8_TOL)
-                  for n in ("loss",) + INT8_GRADS}
-        ints = _check_ints(f"K3 SR {dtype}", r)
-        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-        fold, coords, ws = _int8_inputs(torch, BATCH, dtype, gen)
-        k = torch.randint(0, 256, (BATCH, CHANNELS, hw), generator=gen,
-                          device=DEVICE)
-        yt = (k - 128).to(torch.int8)
-        b1 = ws[1].clone()
-        b1[0] = torch.nextafter(b1[0], torch.ones_like(b1[0]))
-        with torch.no_grad():
-            _, (aq, _) = l8.run_loss_int8(fold, coords, *ws, yt, None,
-                                          numerics=nm, ints=True)
-            _, (aq2, _) = l8.run_loss_int8(fold, coords, ws[0], b1, *ws[2:],
-                                           yt, None, numerics=nm, ints=True)
-        moved = (aq != aq2).float().mean().item()
-        if not moved > 0.05:
-            raise AssertionError(f"K3 SR {dtype}: another b1 moved only "
-                                 f"{moved} of the forward tile")
+        fields = _sr_fields(f"K3 SR {dtype}", r)
         r["bound"] = k3_bound(BATCH, hw, P_HIDDEN, CHANNELS,
                               getattr(torch, dtype).itemsize, 1, False, True)
-        log("kernel_loss_sr", B=BATCH, HW=hw, H=P_HIDDEN, No=CHANNELS,
-            dtype=dtype, errors="max_abs/mean_abs/max_rel/mean_rel",
-            **fields, max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
-            ints_fwd_differ_grad_share=ints, rerun="bitwise",
-            next_step_fwd_share_moved=f"{moved:.3f}",
+        log("kernel_loss_sr", case="galaxy", B=BATCH, HW=hw, H=P_HIDDEN,
+            No=CHANNELS, dtype=dtype, **fields,
             kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
         res[dtype] = r
-        del fold, coords, ws, aq, aq2
         torch.cuda.empty_cache()
+    for name in SR_FAMILY_CASES:
+        case = next(c for c in FAMILY_CASES if c[0] == name)
+        for dtype in ("bfloat16", "float32"):
+            r = family_case(torch, case, dtype, SEED, True, nm=nm)
+            fields = _sr_fields(f"K3 SR {name} {dtype}", r)
+            log("kernel_loss_sr", case=name, family=case[1], B=BATCH,
+                HW=r["pixels"][0], padded_HW=r["pixels"][1], H=P_HIDDEN,
+                No=2 if case[1] == "colored" else 1, dtype=dtype, **fields,
+                kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+                bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
+            res[name, dtype] = r
+            torch.cuda.empty_cache()
+    for model in ("galaxy", "colored"):
+        k3 = bench_k3_call(torch, model, nm)
+        log("kernel_loss_sr_bench", model=model, B=BENCH_BATCH, HW=hw,
+            H=P_HIDDEN, dtype="bfloat16", k3_ms=f"{k3['sm90']:.3f}",
+            k3_ms_block=f"{k3['block']:.3f}", turns=k3["turns"],
+            bound_ms=f"{k3['bound'][0]:.3f}", bound_by=k3["bound"][1],
+            chunks=json.dumps(k3["chunks"], separators=(",", ":")),
+            edge_images=k3["edges"],
+            errors="max_abs/mean_abs/max_rel/mean_rel",
+            **{f"vs_block_{n}": e for n, e in k3["vs_block"].items()},
+            **{f"{r}_edges_vs_plain_{n}": e
+               for (r, n), e in k3["vs_plain"].items()},
+            max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1])
+        res["bench", model] = k3
+    res["block_launches"] = l8.LAUNCHES["fwd"] - block0
     return res
 
 
@@ -3331,6 +3501,17 @@ def phase_loss_t(torch) -> dict:
     return res
 
 
+def k3_knob_route(torch) -> str:
+    """The route of the galaxy trainer's K3 calls at the environment's
+    numerics."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.config import numerics
+
+    hw = IMAGE[0] * IMAGE[1]
+    return l8.k3_route(hw, P_HIDDEN, l8.pick_tile(hw), "bernoulli",
+                       numerics())
+
+
 def off_grid(torch, data, gen):
     """The images moved off the /255 grid inside [0, 1] (path C's targets
     stay float, as the JAX trainer leaves off-grid data)."""
@@ -3342,8 +3523,10 @@ def phase_train_knobs(torch, tag, env, on_grid, kernel) -> dict:
     """The ``[train_int8]`` galaxy trainer (bf16 compute, the TPU's whole
     stack; same seed and images, moved off the /255 grid for K8) under the
     knobs ``env`` with SPATIALVAE_ALLOW_KNOBS=1: an evaluation, two epochs
-    whose 20 full batches take ``kernel`` (K3 at the knobs' numerics, or
-    K8) and none of the other, the two tails K4 and K5, an evaluation that
+    whose 20 full batches take ``kernel`` (K3 at the knobs' numerics, on the
+    route ``k3_route`` gives them: the cluster passes' keys for SR, the block
+    passes' for the others; or K8) and none of the other, the two tails K4
+    and K5, an evaluation that
     must score higher, and one full step and one tail step through the
     kernels against the same steps through the plain versions.  Returns the
     launch counts and the step readings."""
@@ -3361,8 +3544,10 @@ def phase_train_knobs(torch, tag, env, on_grid, kernel) -> dict:
         full = TRAIN_EPOCHS * (N_TRAIN // BATCH)
         tails = TRAIN_EPOCHS
         run = {"fwd": full, "grad": full, "dw": full, "sum": 5 * full}
-        # the knobs' numerics keep K3 on the block passes
-        want = {"k3": k3_launches(full, "block" if kernel == "k3" else None),
+        # K3 on the route of the knobs' numerics: the cluster passes for SR
+        # alone, the block passes for the others
+        route = k3_knob_route(torch) if kernel == "k3" else None
+        want = {"k3": k3_launches(full, route),
                 "k8": run if kernel == "k8" else dict.fromkeys(run, 0),
                 "k45": k45_launches(tails),
                 "k12": 0,
@@ -3389,6 +3574,7 @@ def phase_train_knobs(torch, tag, env, on_grid, kernel) -> dict:
                                      f"vs plain {rel} ({leaf}), mean "
                                      f"{mean_rel}; limits {INT8_STEP_TOL}")
         log(tag, env=json.dumps(env, separators=(",", ":")),
+            k3_route=route or "-",
             epochs=TRAIN_EPOCHS, steps=full + tails, images=N_TRAIN,
             compute="bfloat16", stack="shadow+qshadow+int8enc",
             targets=f"{tuple(data_t.shape)}:{data_t.dtype}",
@@ -3410,32 +3596,30 @@ def phase_train_knobs(torch, tag, env, on_grid, kernel) -> dict:
 
 def phase_limits_numerics(torch) -> None:
     """``--limits numerics``: K3 (e), (f), (g) and K8's readings for the
-    sound library and for copies built with one step broken, over three
-    seeds: the gradient site drawing the forward site's words
-    (-DSVT_SR_SAME_SITE=1), u = 0, i.e. rounding down (-DSVT_SR_FLOOR=1),
-    db1 from the pre-round q (-DSVT_T_DB1_PREROUND=1: K8's db1 and
-    DB1=qi's), the Pade lever on the exact tanh (-DSVT_PADE_EXACT=1) and
-    A1Q's a1 at each block's own scale (-DSVT_A1Q_TILE_SCALE=1); they place
-    INT8_TOL and SR_INT_SHARE for K3's modes, its levers and K8."""
-    from spatialvae_torch.kernels import _build
+    sound library and for copies built with one step broken (K3's units in
+    parallel, ``k3_library``), over three seeds: SR's copies (SR_FAULTS:
+    the gradient site drawing the forward site's words, u = 0, i.e.
+    rounding down, the cluster passes' counters taking the row from the dW1
+    workspace's order), db1 from the pre-round q (-DSVT_T_DB1_PREROUND=1:
+    K8's db1 and DB1=qi's), the Pade lever on the exact tanh
+    (-DSVT_PADE_EXACT=1) and A1Q's a1 at each block's own scale
+    (-DSVT_A1Q_TILE_SCALE=1); they place INT8_TOL and SR_INT_SHARE for K3's
+    modes, its levers and K8.  SR's readings (SR_LIMIT_CASES, the cluster
+    and the block passes): the sound build must hold them, and each SR copy
+    must fail some on the cluster passes."""
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
-    for defines in ((), ("-DSVT_SR_SAME_SITE=1",), ("-DSVT_SR_FLOOR=1",),
-                    ("-DSVT_T_DB1_PREROUND=1",), ("-DSVT_PADE_EXACT=1",),
-                    ("-DSVT_A1Q_TILE_SCALE=1",)):
-        lib = _build.load_library(defines)
+    copies = SR_FAULTS + (("-DSVT_T_DB1_PREROUND=1",),
+                          ("-DSVT_PADE_EXACT=1",),
+                          ("-DSVT_A1Q_TILE_SCALE=1",))
+    build_k3_copies(copies)
+    for defines in ((),) + copies:
+        lib = k3_library(defines)
         d8._lib = l8._lib = (lambda lib=lib: lib)
         worst = {}
         for seed in range(3):
-            for dtype in ("bfloat16", "float32"):
-                r = loss_case(torch, BATCH, dtype, seed, False,
-                              nm=_numerics(sr=True))
-                for n in ("loss",) + INT8_GRADS:
-                    worst["K3_sr", dtype] = _wmax(
-                        worst.get(("K3_sr", dtype), (0, 0)), r[n][2:])
-                worst["K3_sr_ints", dtype] = _wmax(
-                    worst.get(("K3_sr_ints", dtype), (0, 0)), r["ints"])
+            sr_limit_readings(torch, seed, worst)
             for name, kw in NUMERICS_MODES:
                 r = loss_case(torch, BATCH, "bfloat16", seed, False,
                               nm=_numerics(**kw))
@@ -3463,6 +3647,8 @@ def phase_limits_numerics(torch) -> None:
         log("limits", build=" ".join(defines) or "sound",
             **{"/".join(map(str, k)): f"{a:.3e}/{m:.3e}"
                for k, (a, m) in sorted(worst.items())})
+        sr_refusals(defines, worst)
+    d8._lib = l8._lib = (lambda: k3_library(()))
 
 
 # ---------------------------------------------------------------------------
@@ -4797,19 +4983,28 @@ def kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
          torch_sum_ms(torch, [(tb, hw // 64, 3 * h), (1, splits, h * h),
                               (1, t_blocks, mw)])),
     ]
-    # this slice: K3 (e) and (f) and K8, each whole call at the galaxy
-    # shape (bf16 weights, B=100; K3 (f) in the mode its epoch trains);
-    # launches: its trained path's calls
-    for row, rep_, r, nl in (
-            ("int8_loss_sr", K3_REPLACES, res["sr"]["bfloat16"],
-             knobs["train_int8_sr"]["counts"]["k3"]["fwd"]),
-            ("int8_loss_numerics", K3_REPLACES, res["numerics"]["i8_epi_f32"],
+    # K3 (e) and (f) and K8, each whole call at the galaxy shape (bf16
+    # weights, B=100; K3 (f) in the mode its epoch trains); launches: its
+    # trained path's calls.  SR runs the cluster passes (its SR kernels,
+    # counted under the cluster keys); its block passes are the yardstick,
+    # launched on no path: ab_launches, their checks' and turns'
+    sr = res["sr"]["bfloat16"]
+    sr_path = knobs["train_int8_sr"]["counts"]["k3"]
+    for row, src, rep_, r, nl in (
+            ("int8_loss_sr", LOSS90_SR_SOURCE, K3_REPLACES, sr,
+             sr_path["fwd_sm90"]),
+            ("int8_loss_numerics", LOSS_SOURCE, K3_REPLACES,
+             res["numerics"]["i8_epi_f32"],
              knobs["train_int8_numerics"]["counts"]["k3"]["fwd"]),
-            ("int8_loss_t", K8_REPLACES, res["t"]["i4", 64],
+            ("int8_loss_t", LOSS_SOURCE, K8_REPLACES, res["t"]["i4", 64],
              knobs["train_int8_t"]["counts"]["k8"]["fwd"])):
-        rows.append((row, LOSS_SOURCE, rep_, nl,
+        rows.append((row, src, rep_, nl,
                      max(r[n][0] for n in INT8_GRADS), r["ms"],
                      r["plain_ms"], r["bound"], None))
+    rows.append(("int8_loss_sr_block", LOSS_SOURCE, K3_REPLACES,
+                 sr_path["fwd"], max(sr["block"][n][0] for n in INT8_GRADS),
+                 sr["ms_block"], sr["plain_ms"], sr["bound"], None,
+                 res["sr"]["block_launches"]))
     # Adam: the step kernel's rows time one step's Adam over the 13 galaxy
     # leaves (one launch; launches: the training paths'), the per-leaf K6
     # rows the same step in 13 launches (launches: the training paths', 0;
@@ -5756,7 +5951,9 @@ def phase_sass(args) -> int:
     """``--sass PARENT``: SASS_UNITS compiled from this checkout and from
     the parent's (a directory holding its files) with the library's flags,
     compared function by function (the anonymous namespace's mangled name,
-    which carries a hash of the file's path, set aside)."""
+    which carries a hash of the file's path, set aside): ``equal`` by name
+    and code, ``same_code`` the parent's functions whose code this unit
+    holds under any name (a parameter added renames a kernel)."""
     import re
 
     from spatialvae_torch.kernels import _build
@@ -5800,8 +5997,11 @@ def phase_sass(args) -> int:
             b = functions(os.path.join(tmp, f"this_{unit}.o"))
             equal = sum(1 for k in a if b.get(k) == a[k])
             differ += len(a) + len(b) - 2 * equal
+            # a changed signature renames a function whose code stayed
+            bodies = set(b.values())
             log("sass", unit=unit, parent_functions=len(a),
-                this_functions=len(b), equal=equal)
+                this_functions=len(b), equal=equal,
+                same_code=sum(1 for v in a.values() if v in bodies))
     return 1 if differ else 0
 
 
@@ -5975,6 +6175,11 @@ CLI_ARMS = {
                   ("k1k2", "adam_step"), ("k3", "k4k5", "k8")),
     "l_debug_nans": (["--mask", "--normalize", "--debug-nans"], CLI_EPOCHS,
                      ("k1k2", "adam_step"), ("k3", "k4k5", "k8")),
+    # (d) with stochastic rounding: K3's SR kernels on the cluster passes
+    # (the padded Gaussian family, 1,600 pixels padded to 1,792)
+    "m_int8_sr": (["--augment-rotation", "--int8-decoder", "--mask",
+                   "--int8-sr"], CLI_EPOCHS, ("k3", "k4k5", "adam_step"),
+                  ("k1k2", "k8")),
 }
 # arm -> (the arm it is set beside, whether it must repeat that arm's TSV
 # rows in their epochs in common, relative to max|value|: the kernels run
@@ -6066,6 +6271,11 @@ def cli_arm(torch, name: str, paths: dict, tmpdir: str, card: str) -> dict:
         if counts[k]:
             raise AssertionError(f"{name}: {k} launched {counts[k]} times: "
                                  f"{counts}")
+    # K3 runs the cluster passes in every arm, SR's included
+    block = {k: v for k, v in counts["detail"]["k3"].items()
+             if k in ("fwd", "grad", "dw") and v}
+    if block:
+        raise AssertionError(f"{name}: K3 on the block passes: {block}")
     likelihood = "colored" if "--fit-noise" in extra else "gaussian"
     for e in range(first, last + 1):
         gp, ip = f"{prefix}_generator_epoch{e}.sav", \
@@ -6371,7 +6581,8 @@ def cli_kernel_checks(torch) -> None:
     activations and K2 (both variants) at the training batches and K1
     alone at the evaluation's, one and two outputs; K3's Gaussian family
     at 1,600 pixels padded to 1,792 under the CLI's circular mask with
-    float32 targets (arm d); K4 with a1 and K5 on the cluster passes over
+    float32 targets (arm d; with stochastic rounding, arm m); K4 with a1
+    and K5 on the cluster passes over
     coords padded to 1,792 (arm c's training, two outputs) and K4 without
     a1 on the route the table gives float32 weights (the int8 arms'
     evaluation, both output counts).  Adam's step kernel is held to its
@@ -6385,12 +6596,17 @@ def cli_kernel_checks(torch) -> None:
     mask = torch.from_numpy(circular_mask(CLI_SIDE, CLI_SIDE)).to(DEVICE)
     case = ("cli_gaussian_pad40", "gaussian", CLI_SIDE, True, False)
     for b in (CLI_BATCH, CLI_TRAIN % CLI_BATCH):
-        r = family_case(torch, case, "float32", SEED, False, b=b,
-                        target_dtype="float32", mask_values=mask)
-        k3_check(torch, "cli_kernels", f"K3 {case[0]} B={b}", r,
-                 case=case[0], B=b, HW=hw, padded_HW=-(-hw // 256) * 256,
-                 H=CLI_HIDDEN, No=1, dtype="float32", targets="float32",
-                 mask="circular")
+        for sr in (False, True):
+            r = family_case(torch, case, "float32", SEED, False, b=b,
+                            target_dtype="float32", mask_values=mask,
+                            nm=_numerics(sr=sr))
+            if sr:
+                _sr_fields(f"K3 SR {case[0]} B={b}", r)
+            k3_check(torch, "cli_kernels", f"K3 {case[0]} B={b}", r,
+                     case=case[0], B=b, HW=hw,
+                     padded_HW=-(-hw // 256) * 256, H=CLI_HIDDEN, No=1,
+                     dtype="float32", targets="float32", mask="circular",
+                     numerics="sr" if sr else "default")
     for no, batches in ((2, (CLI_BATCH, CLI_TRAIN % CLI_BATCH,
                              CLI_TEST % CLI_BATCH)),
                         (1, CLI_EVAL_BATCHES)):
@@ -6442,11 +6658,14 @@ def tail_cache_cost(torch) -> None:
 def phase_cli_particles(torch, tmpdir: str, card: str) -> dict:
     """``[cli_particles]``: the particles CLI in process on 8,192 + 1,024
     synthetic 40x40 particles in MRC files with CTF tables, at its
-    full-width defaults, in five arms (float with mask and normalisation;
-    CTF with the colored likelihood; the same in int8 mode, on K4/K5; the
-    rotation augmentation in int8 mode, on K3; a resume of the first from
-    its epoch-2 checkpoints and Adam state for one more epoch), after
-    ``[cli_kernels]``, ``[cli_ctf]`` and ``[tail_cache]``."""
+    full-width defaults, in the arms of CLI_ARMS (float with mask and
+    normalisation; CTF with the colored likelihood; the same in int8 mode,
+    on K4/K5; the rotation augmentation in int8 mode, on K3, and with
+    ``--int8-sr``, on K3's SR kernels; a resume of the first from its
+    epoch-2 checkpoints and Adam state for one more epoch; the vanilla and
+    long-run arms), after ``[cli_kernels]``, ``[cli_ctf]`` and
+    ``[tail_cache]``; ``[cli_sr]`` sets (m)'s seconds per epoch beside
+    (d)'s."""
     paths = cli_particles_data(tmpdir)
     cli_kernel_checks(torch)
     cli_ctf_checks(torch, paths)
@@ -6454,6 +6673,12 @@ def phase_cli_particles(torch, tmpdir: str, card: str) -> dict:
     arms = {name: cli_arm(torch, name, paths, tmpdir, card)
             for name in CLI_ARMS}
     cli_same_rows(arms)
+    d, m = arms["d_augment_int8"], arms["m_int8_sr"]
+    log("cli_sr", arm="m_int8_sr", beside="d_augment_int8",
+        s_per_epoch="/".join(f"{v:.3f}" for v in m["per_epoch"]),
+        s_per_epoch_beside="/".join(f"{v:.3f}" for v in d["per_epoch"]),
+        k3_launches=json.dumps(m["counts"]["detail"]["k3"],
+                               separators=(",", ":")))
     return arms
 
 
@@ -7179,6 +7404,7 @@ def main() -> int:
         phase_horizon(torch, card)
         return 0
     ptxas = start_ptxas_report(LOSS90_SOURCE)
+    ptxas_sr = start_ptxas_report(LOSS90_SR_SOURCE)
     ptxas_dec = start_ptxas_report(DEC90_SOURCE)
     ptxas_adam = start_ptxas_report(ADAM90_SOURCE)
     ptxas_i8 = start_ptxas_report(INT8_90_SOURCE)
@@ -7191,7 +7417,7 @@ def main() -> int:
     bwd = phase_backward(torch)
     res["ab_counts"] = dict(fd.LAUNCHES)
     res["dec90"] = phase_dec90(torch, ptxas_dec)
-    res["k3_sm90"] = phase_k3_sm90(torch, ptxas)
+    res["k3_sm90"] = phase_k3_sm90(torch, ptxas, ptxas_sr)
     res["int8"] = phase_int8_kernels(torch)
     res["int8_sm90"] = phase_int8_sm90(torch, ptxas_i8, ptxas_i8p,
                                        i8_timing)

@@ -65,7 +65,7 @@ _SIGNATURES = {
     "svt_int8_90_grad": ([_P] * 15 + [_I] * 7 + [_P], _I),
     "svt_int8_90_stash_block": ([], _L),
     "svt_int8_90_max_clusters": ([_I], _I),
-    "svt_loss_int8_fwd": ([_P] * 13 + [_I] * 8 + [_F, _F, _I, _I, _P], _I),
+    "svt_loss_int8_fwd": ([_P] * 14 + [_I] * 9 + [_F, _F, _I, _I, _P], _I),
     "svt_loss_int8_grad": ([_P] * 17 + [_I] * 7 + [_F, _F, _I, _F, _F, _I,
                                                     _I, _P], _I),
     "svt_loss90_dw": ([_P] * 4 + [_I] * 5 + [_P], _I),
@@ -140,8 +140,9 @@ def build(defines: tuple = (), units: Optional[tuple] = None) -> Path:
     ``defines`` are extra ``-D`` flags: a copy with a precision step
     removed, for placing the kernels' error limits (``csrc/decoder_tile.cuh``,
     ``csrc/int8_tile.cuh`` and ``csrc/probes.cu`` list them), or a timing
-    copy (``csrc/fused_decoder_int8_sm90.cuh``); ``units`` the sources of a
-    partial library (default: all)."""
+    copy (``csrc/fused_decoder_int8_sm90.cuh``,
+    ``csrc/fused_loss_int8_sm90.cuh``); ``units`` the sources of a partial
+    library (default: all)."""
     out = library_path(defines, units)
     if out.exists():
         return out

@@ -9,7 +9,7 @@ namespace svt8 {
 
 cudaError_t loss_fwd_default(const LossFwdArgs& a, bool bf16, bool colored,
                              bool tile, cudaStream_t st) {
-  return dispatch_fwd<false, false>(a, bf16, colored, tile, st);
+  return dispatch_fwd<false, false>(a, 0, bf16, colored, tile, st);
 }
 
 cudaError_t loss_grad_default(const LossGradArgs& a, bool bf16, bool sr,
@@ -34,15 +34,16 @@ bool bad_shape(int B, int HW, int H, int No) {
          No > MAX_NO || double(B) * (HW / PT) > 2147483647.0;
 }
 
-// Whether the cluster passes (fused_loss_int8_sm90.cu) take a call: the
-// default numerics (no mode bit, level 7) at H <= 512 in any family, over
-// pixel counts and groups that are multiples of 256 (a cluster's four
+// Whether the cluster passes (fused_loss_int8_sm90.cu, and with stochastic
+// rounding fused_loss_int8_sm90_sr.cu) take a call: the default numerics
+// (no mode bit, or the SR bit alone; level 7) at H <= 512 in any family,
+// over pixel counts and groups that are multiples of 256 (a cluster's four
 // blocks lie in one group; a colored quad's two pairs too).  The wrapper
 // chooses the route; the entry points refuse the cluster route where this
 // is false.
 bool sm90_takes(int HW, int H, int Pt, int mode, float lf) {
-  return H <= MAX_H && mode == 0 && lf == 7.f && HW % (4 * PT) == 0 &&
-         Pt % (4 * PT) == 0;
+  return H <= MAX_H && (mode == 0 || mode == SR) && lf == 7.f &&
+         HW % (4 * PT) == 0 && Pt % (4 * PT) == 0;
 }
 
 }  // namespace
@@ -61,18 +62,22 @@ extern "C" {
 // H > 512, ws holds B*HW/64 * svt_int8_ws_block(H) bytes.  `sm90` 1 runs
 // the cluster passes (w1fT then holds W1f^T's slab stream; refused where
 // sm90_takes is false; every block a CTA of its own, the colored family's
-// pairs across a cluster), 0 the block passes (colored: a block per pair).  The cluster passes take `ws`
-// as the stash of a1c that the forward leaves for the gradient pass:
-// B*HW/64 * svt_loss90_stash_block bytes.
+// pairs across a cluster), 0 the block passes (colored: a block per pair).
+// The B images are images b0 .. b0+B-1 of the call (a workspace chunk):
+// SR's words take the call's image index on the cluster passes and at
+// H > 512.  The cluster passes take `ws` as the stash of a1c that the
+// forward leaves for the gradient pass: B*HW/64 * svt_loss90_stash_block
+// bytes; and with SR the chunk's dW1 operand workspace `aq_ws`
+// (svt_loss_int8_grad's), where the forward leaves aq.
 int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
                       const void* h1s, const void* b1, const void* wht,
                       const void* bht, const void* yt, const void* mask,
                       void* dz2, void* part_max, void* part_bce, void* ws,
-                      int B, int HW, int H, int No, int Pt, int yt_i8,
-                      int family, int bf16, float lf, float swht, int mode,
-                      int sm90, void* stream) {
-  if (bad_shape(B, HW, H, No) || family < BERNOULLI || family > COLORED ||
-      (H > MAX_H && ws == nullptr) ||
+                      void* aq_ws, int b0, int B, int HW, int H, int No,
+                      int Pt, int yt_i8, int family, int bf16, float lf,
+                      float swht, int mode, int sm90, void* stream) {
+  if (bad_shape(B, HW, H, No) || b0 < 0 || family < BERNOULLI ||
+      family > COLORED || (H > MAX_H && ws == nullptr) ||
       (sm90 && !sm90_takes(HW, H, Pt, mode, lf)))
     return int(cudaErrorInvalidValue);
   const bool colored = family == COLORED;
@@ -99,9 +104,11 @@ int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
   const bool tile = mode & TILE;
   cudaError_t err;
   if (sm90)
-    err = loss_fwd_sm90(a, bf16, st);
+    err = mode & SR
+              ? loss_fwd_sm90_sr(a, b0, static_cast<int8_t*>(aq_ws), bf16, st)
+              : loss_fwd_sm90(a, bf16, st);
   else if (H > MAX_H)
-    err = loss_fwd_wide(a, bf16, colored, tile, st);
+    err = loss_fwd_wide(a, b0, bf16, colored, tile, st);
   else if (mode & LEVERS)
     err = loss_fwd_levers(a, bf16, colored, tile, st);
   else
@@ -160,7 +167,7 @@ int svt_loss_int8_grad(const void* fold, const void* coords, const void* w1fT,
   const bool sr = mode & SR;
   cudaError_t err;
   if (sm90)
-    err = loss_grad_sm90(a, bf16, st);
+    err = sr ? loss_grad_sm90_sr(a, bf16, st) : loss_grad_sm90(a, bf16, st);
   else if (H > MAX_H)
     err = loss_grad_wide(a, bf16, sr, st);
   else if (mode & LEVERS)

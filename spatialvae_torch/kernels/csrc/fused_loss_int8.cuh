@@ -149,8 +149,8 @@ cudaError_t loss_fwd_default(const LossFwdArgs& a, bool bf16, bool colored,
                              bool tile, cudaStream_t st);
 cudaError_t loss_fwd_levers(const LossFwdArgs& a, bool bf16, bool colored,
                             bool tile, cudaStream_t st);
-cudaError_t loss_fwd_wide(const LossFwdArgs& a, bool bf16, bool colored,
-                          bool tile, cudaStream_t st);
+cudaError_t loss_fwd_wide(const LossFwdArgs& a, int b0, bool bf16,
+                          bool colored, bool tile, cudaStream_t st);
 cudaError_t loss_grad_default(const LossGradArgs& a, bool bf16, bool sr,
                               cudaStream_t st);
 cudaError_t loss_grad_levers(const LossGradArgs& a, bool bf16, bool sr,
@@ -158,11 +158,22 @@ cudaError_t loss_grad_levers(const LossGradArgs& a, bool bf16, bool sr,
 cudaError_t loss_grad_wide(const LossGradArgs& a, bool bf16, bool sr,
                            cudaStream_t st);
 // The cluster passes of fused_loss_int8_sm90.cu (the default numerics at
-// H <= 512, Bernoulli and Gaussian, pixel counts and groups multiples of
-// 256): `grid` counts the 64-pixel blocks of the launch.
+// H <= 512, every family, pixel counts and groups multiples of 256): `grid`
+// counts the 64-pixel blocks of the launch; and of fused_loss_int8_sm90_sr.cu
+// (the same with stochastic rounding, the SR mode bit alone), with the
+// clusters their kernels hold at once (0 forward bf16, 1 forward f32, 2
+// gradient bf16, 3 gradient f32, 4 colored forward bf16, 5 colored f32).
 cudaError_t loss_fwd_sm90(const LossFwdArgs& a, bool bf16, cudaStream_t st);
 cudaError_t loss_grad_sm90(const LossGradArgs& a, bool bf16,
                            cudaStream_t st);
+// SR's forward takes the first image of the launch in the call (b0: its
+// counters take the absolute image) and the dW1 operand's workspace, where
+// it leaves aq for the gradient pass.
+cudaError_t loss_fwd_sm90_sr(const LossFwdArgs& a, int b0, int8_t* aq_ws,
+                             bool bf16, cudaStream_t st);
+cudaError_t loss_grad_sm90_sr(const LossGradArgs& a, bool bf16,
+                              cudaStream_t st);
+int loss90_sr_max_clusters(int which);
 
 }  // namespace svt8
 
@@ -461,10 +472,13 @@ loss_fwd_kernel(const float* __restrict__ fold,
                 float* __restrict__ dz2, float* __restrict__ part_max,
                 float* __restrict__ part_bce, int8_t* __restrict__ ws,
                 int HW, int H, int No, int blocks, int Pt, int yt_i8,
-                int family, float lf, float swht, int mode) {
+                int family, float lf, float swht, int mode, int b0) {
   extern __shared__ float4 smem4[];
   const Smem sm = carve<WIDE>(smem4, ws, padded_k(H));
   const int tid = threadIdx.x;
+  // SR's counters take the call's image: WIDE launches run a workspace
+  // chunk of the call's images at a time, from image b0
+  const int i0 = WIDE ? b0 : 0;
   const bool tile = TILE_, f32epi = mode & EPI_F32, sr = mode & SR;
   const bool pade = LEV && (mode & PADE), a1q = LEV && (mode & A1Q);
   const float hc = __fmul_rn(swht, 1.f / 127.f);   // the int8 head's step
@@ -479,13 +493,13 @@ loss_fwd_kernel(const float* __restrict__ fold,
     const int hb = half / PT;
     const int p0 = (i / hb) * 2 * half + (i % hb) * PT;   // the mean tile
     const int p1 = p0 + half;                  // its log-variance tile
-    first_layer_qx<WIDE>(fold, coords, b, p0, HW, H, lf, sr, seed, sm.tile,
-                         nullptr, sm.as, pade);
+    first_layer_qx<WIDE>(fold, coords, b, i0 + b, p0, HW, H, lf, sr, seed,
+                         sm.tile, nullptr, sm.as, pade);
     const float zm = tile_head<BF16, WIDE>(sm, w1fT, h1s, b1, wht, H, No,
                                            f32epi, a1c, pade, a1q, hc);
     // the next GEMM starts with a barrier, after every read of `red`
-    first_layer_qx<WIDE>(fold, coords, b, p1, HW, H, lf, sr, seed, sm.tile,
-                         nullptr, sm.as, pade);
+    first_layer_qx<WIDE>(fold, coords, b, i0 + b, p1, HW, H, lf, sr, seed,
+                         sm.tile, nullptr, sm.as, pade);
     const float zl = tile_head<BF16, WIDE>(sm, w1fT, h1s, b1, wht, H, No,
                                            f32epi, a1c, pade, a1q, hc);
     float per = 0.f, dmu = 0.f, dlv = 0.f;
@@ -523,8 +537,8 @@ loss_fwd_kernel(const float* __restrict__ fold,
       __syncthreads();
       lmax = tile_dh1_max<BF16, WIDE>(sm, w1fT, h1s, b1, wht, H, No, f32epi,
                                       a1c, pade);
-      first_layer_qx<WIDE>(fold, coords, b, p0, HW, H, lf, sr, seed, sm.tile,
-                           nullptr, sm.as, pade);
+      first_layer_qx<WIDE>(fold, coords, b, i0 + b, p0, HW, H, lf, sr, seed,
+                           sm.tile, nullptr, sm.as, pade);
       if (!WIDE)
         loss_a1c<BF16, false>(sm, w1fT, h1s, b1, H, f32epi, 0, a1c, pade);
       if (tid < 2 * PT) sm.dzc[tid] = operand<BF16>(dmu);
@@ -547,8 +561,8 @@ loss_fwd_kernel(const float* __restrict__ fold,
 
   const int b = blockIdx.x / blocks;
   const int p0 = (blockIdx.x % blocks) * PT;
-  first_layer_qx<WIDE>(fold, coords, b, p0, HW, H, lf, sr, seed, sm.tile,
-                       nullptr, sm.as, pade);
+  first_layer_qx<WIDE>(fold, coords, b, i0 + b, p0, HW, H, lf, sr, seed,
+                       sm.tile, nullptr, sm.as, pade);
   const float z = tile_head<BF16, WIDE>(sm, w1fT, h1s, b1, wht, H, No, f32epi,
                                         a1c, pade, a1q, hc);
   float per = 0.f, d = 0.f;
@@ -638,7 +652,7 @@ loss_grad_kernel(const float* __restrict__ fold,
 
   // aq (the forward's words again: the same tile as pass 1), and the dW1
   // operand to its workspace
-  first_layer_qx<WIDE>(fold, coords, b, p0, HW, H, lf, sr, seed, sm.tile,
+  first_layer_qx<WIDE>(fold, coords, b, b, p0, HW, H, lf, sr, seed, sm.tile,
                        aq4 ? sm.q : nullptr, sm.as, pade);
   __syncthreads();
   if (kcut >= 6)
@@ -849,7 +863,7 @@ loss_grad_kernel(const float* __restrict__ fold,
 }
 
 template <bool BF16, bool COLORED, bool TILE_, bool WIDE, bool LEV>
-cudaError_t launch_fwd(const LossFwdArgs& a, cudaStream_t st) {
+cudaError_t launch_fwd(const LossFwdArgs& a, int b0, cudaStream_t st) {
   auto k = loss_fwd_kernel<BF16, COLORED, TILE_, WIDE, LEV>;
   const int smem = WIDE ? SMEM_WIDE : SMEM;
   cudaError_t err = allow_smem(k, smem);
@@ -857,25 +871,26 @@ cudaError_t launch_fwd(const LossFwdArgs& a, cudaStream_t st) {
   k<<<a.grid, NT, smem, st>>>(a.fold, a.coords, a.w1fT, a.h1s, a.b1, a.wht,
                               a.bht, a.yt, a.mask, a.dz2, a.part_max,
                               a.part_bce, a.ws, a.HW, a.H, a.No, a.blocks,
-                              a.Pt, a.yt_i8, a.family, a.lf, a.swht, a.mode);
+                              a.Pt, a.yt_i8, a.family, a.lf, a.swht, a.mode,
+                              b0);
   return cudaGetLastError();
 }
 
 template <bool WIDE, bool LEV>
-cudaError_t dispatch_fwd(const LossFwdArgs& a, bool bf16, bool colored,
-                         bool tile, cudaStream_t st) {
+cudaError_t dispatch_fwd(const LossFwdArgs& a, int b0, bool bf16,
+                         bool colored, bool tile, cudaStream_t st) {
   if (bf16) {
     if (colored)
-      return tile ? launch_fwd<true, true, true, WIDE, LEV>(a, st)
-                  : launch_fwd<true, true, false, WIDE, LEV>(a, st);
-    return tile ? launch_fwd<true, false, true, WIDE, LEV>(a, st)
-                : launch_fwd<true, false, false, WIDE, LEV>(a, st);
+      return tile ? launch_fwd<true, true, true, WIDE, LEV>(a, b0, st)
+                  : launch_fwd<true, true, false, WIDE, LEV>(a, b0, st);
+    return tile ? launch_fwd<true, false, true, WIDE, LEV>(a, b0, st)
+                : launch_fwd<true, false, false, WIDE, LEV>(a, b0, st);
   }
   if (colored)
-    return tile ? launch_fwd<false, true, true, WIDE, LEV>(a, st)
-                : launch_fwd<false, true, false, WIDE, LEV>(a, st);
-  return tile ? launch_fwd<false, false, true, WIDE, LEV>(a, st)
-              : launch_fwd<false, false, false, WIDE, LEV>(a, st);
+    return tile ? launch_fwd<false, true, true, WIDE, LEV>(a, b0, st)
+                : launch_fwd<false, true, false, WIDE, LEV>(a, b0, st);
+  return tile ? launch_fwd<false, false, true, WIDE, LEV>(a, b0, st)
+              : launch_fwd<false, false, false, WIDE, LEV>(a, b0, st);
 }
 
 template <bool BF16, bool SR_, bool WIDE, bool LEV>

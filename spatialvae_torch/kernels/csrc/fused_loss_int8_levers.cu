@@ -10,7 +10,7 @@ namespace svt8 {
 
 cudaError_t loss_fwd_levers(const LossFwdArgs& a, bool bf16, bool colored,
                             bool tile, cudaStream_t st) {
-  return dispatch_fwd<false, true>(a, bf16, colored, tile, st);
+  return dispatch_fwd<false, true>(a, 0, bf16, colored, tile, st);
 }
 
 cudaError_t loss_grad_levers(const LossGradArgs& a, bool bf16, bool sr,

@@ -7,9 +7,9 @@
 
 namespace svt8 {
 
-cudaError_t loss_fwd_wide(const LossFwdArgs& a, bool bf16, bool colored,
-                          bool tile, cudaStream_t st) {
-  return dispatch_fwd<true, true>(a, bf16, colored, tile, st);
+cudaError_t loss_fwd_wide(const LossFwdArgs& a, int b0, bool bf16,
+                          bool colored, bool tile, cudaStream_t st) {
+  return dispatch_fwd<true, true>(a, b0, bf16, colored, tile, st);
 }
 
 cudaError_t loss_grad_wide(const LossGradArgs& a, bool bf16, bool sr,

@@ -174,8 +174,10 @@ def k3_mode(nm: Numerics, t_mode: Optional[str] = None) -> tuple:
 def k3_route(hw: int, h: int, pt: int, family: str, nm: Numerics,
              t_mode: Optional[str] = None, block_passes: bool = False) -> str:
     """The passes a K3 call runs on the card: "sm90", the cluster passes,
-    for the default numerics (no mode bit, both levels 7) at H <= 512 over
-    pixel counts and groups that are multiples of 256, in every family (the
+    for the default numerics (no mode bit, both levels 7), or for
+    stochastic rounding with nothing else off the defaults (the SR mode bit
+    alone: ``--int8-sr``, ``SPATIALVAE_SR=1``), at H <= 512 over pixel
+    counts and groups that are multiples of 256, in every family (the
     colored one pairs its mean and log-variance blocks across a cluster);
     else "block", the block passes, which also take every call whose caller
     asks for them (``block_passes``).  The route is chosen here alone:
@@ -183,7 +185,7 @@ def k3_route(hw: int, h: int, pt: int, family: str, nm: Numerics,
     cluster route for a call the passes do not take."""
     mode, _ = k3_mode(nm, t_mode)
     quad = CLUSTER * BLOCK_PIXELS
-    if (not block_passes and mode == 0 and nm.fwd_level == 7
+    if (not block_passes and mode in (0, _SR) and nm.fwd_level == 7
             and nm.grad_level == 7 and h <= CLUSTER_WIDTH
             and hw % quad == 0 and pt % quad == 0):
         return "sm90"
@@ -275,7 +277,9 @@ def loss_workspace_bytes(hw: int, h: int, route: str, block: int = 0) -> int:
     """Bytes of K3's workspaces per image: the dW1 operands aq and qi,
     (Kp, HW) int8 each on the block route, (CLUSTER_WIDTH, HW) on the cluster
     route, and ``block`` bytes per 64-pixel block (the block route's wide
-    tiles, the cluster route's a1c stash)."""
+    tiles, the cluster route's a1c stash).  The cluster route's SR stash of
+    aq, which the forward leaves for the gradient pass, is the aq operand's
+    workspace itself: it adds nothing."""
     rows = CLUSTER_WIDTH if route == "sm90" else padded_hidden(h)
     return 2 * rows * hw + hw // BLOCK_PIXELS * block
 
@@ -285,6 +289,69 @@ def stash_block_bytes(bf16: bool) -> int:
     pixels x CLUSTER_WIDTH columns, bf16 or f32 as the weights
     (``svt_loss90_stash_block``)."""
     return BLOCK_PIXELS * CLUSTER_WIDTH * (2 if bf16 else 4)
+
+
+def sr90_counters(nimg: int, hw: int, h: int, clusters: int, b0: int = 0,
+                  colored_pt: int = 0, ws_row: bool = False) -> dict:
+    """The cluster passes' Philox counters under SR, element by element, as
+    the kernels compute them (``csrc/fused_loss_int8_sm90.cuh``'s
+    ``chain_part`` and ``sr_grad_words``) for a chunk of ``nimg`` images
+    starting at image ``b0`` of the call, ``clusters`` resident: site ->
+    (image, row, column, c0, c1, c2, word), int64 tensors with one entry per
+    element of every (CTA, k-th tile, warp, lane) that rounds (column < H),
+    where (image, row, column) is the element the kernel rounds and (c0, c1,
+    c2, 0) the counter of the call whose ``word``-th word it takes.
+    "fwd": the a0 chain over the forward's walk (``colored_pt``: the
+    colored forward's, the colored pass's group), lane 4r + c of warp wi
+    drawing columns 4c .. of its pixel's quad; "grad": the gradient pass's
+    walk, lanes t and t ^ 1 each drawing the call of row g + 8 (t & 1) and
+    trading words by shuffle.  ``ws_row`` mirrors the faulty copy
+    SVT_SR90_WS_ROW, whose counters take the row from the dW1 workspace's
+    order (16 w + 2 g + h)."""
+    blocks = hw // BLOCK_PIXELS
+
+    def dims(n, *sizes):                  # aranges broadcast over n dims
+        return [torch.arange(k).reshape([1] * d + [k] + [1] * (n - d - 1))
+                for d, k in enumerate(sizes)]
+
+    def crow(p):                          # the counter's row within a block
+        return 16 * (p // 16) + 2 * (p % 8) + (p // 8) % 2 if ws_row else p
+
+    def walk(col_pt, n):                  # each CTA's blocks, in turn
+        tiles = [x for cta in cluster_schedule(nimg * blocks, clusters,
+                                               col_pt) for x in cta]
+        return torch.tensor(tiles, dtype=torch.int64).reshape(
+            [-1] + [1] * (n - 1))
+
+    def flat(fields, shape, keep):
+        at = keep.expand(shape).reshape(-1).nonzero()[:, 0]
+        return tuple(f.expand(shape).reshape(-1)[at] for f in fields)
+
+    out = {}
+    # the forward: (tile, slab, warp, lane, it, j)
+    tb = walk(colored_pt, 6)
+    _, s, wi, lane, it, j = dims(6, 1, padded_hidden(h) // SLAB_K, 16, 32,
+                                 2, 4)
+    k0 = s * SLAB_K + (wi % 4) * 16 + (lane % 4) * 4
+    p = (wi // 4 + 4 * it) * 8 + lane // 4
+    p0, img = (tb % blocks) * BLOCK_PIXELS, b0 + tb // blocks
+    shape = torch.broadcast_shapes(tb.shape, k0.shape, p.shape, j.shape)
+    out["fwd"] = flat((img, p0 + p, k0 + j, img, p0 + crow(p), k0 // 4, j),
+                      shape, k0 + j < h)
+    # the gradient pass: (tile, warpgroup, warp, lane g, lane t, nt, h, e)
+    tb = walk(0, 8)
+    _, wg, w, g, t, nt, hh, e = dims(8, 1, 4, 4, 8, 4, 16, 2, 2)
+    p0, img = (tb % blocks) * BLOCK_PIXELS, b0 + tb // blocks
+    col = 128 * wg + 8 * nt + 2 * t + e
+    # the lane whose call serves row g + 8 hh: the lane of the pair whose
+    # t & 1 is hh, which sends the words its partner keeps, 2 (t & 1) + e
+    src = (t // 2) * 2 + hh
+    call_row = 16 * w + g + 8 * hh
+    shape = torch.broadcast_shapes(tb.shape, col.shape, call_row.shape)
+    out["grad"] = flat((img, p0 + 16 * w + g + 8 * hh, col, img,
+                        p0 + crow(call_row), 32 * wg + 2 * nt + src // 2,
+                        2 * (t % 2) + e), shape, col < h)
+    return out
 
 
 def dw_splits90(groups: int) -> int:
@@ -525,12 +592,13 @@ def _per_group(v: torch.Tensor, pt: int) -> torch.Tensor:
 def loss_reference(fold, coords, w1, b1, wht, bht, y_t,
                    mask: Optional[torch.Tensor], family: str, nm: Numerics,
                    pt: int, t_mode: Optional[str] = None,
-                   ints: bool = False) -> tuple:
+                   ints: bool = False, image0: int = 0) -> tuple:
     """The plain version of K3 (``t_mode`` None) and of K8 (``t_mode``
     ``"i4"`` or ``"i8"``, the feature-major kernel's numbers: see
     ``fused_loss_int8_t``), over groups of ``pt`` pixels.  Returns the five
     outputs of ``loss_int8_reference``, and with ``ints`` also the integer
-    tiles (the dW1 operand (B, HW, H), qi (B, HW, H)) as f32."""
+    tiles (the dW1 operand (B, HW, H), qi (B, HW, H)) as f32.  ``image0``:
+    the index in the kernel's call of the first image (SR's counters)."""
     wdt = wht.dtype
     b, _, h = fold.shape
     hw = coords.shape[0]
@@ -545,7 +613,8 @@ def loss_reference(fold, coords, w1, b1, wht, bht, y_t,
     a0 = tanh(_first_layer(fold, coords))                    # (B, HW, H)
     if seed is not None:
         aq = sr_round(a0 * float(lf),
-                      site_words(seed, SITE_FWD, b, hw, h, dev), -lf, lf)
+                      site_words(seed, SITE_FWD, b, hw, h, dev, image0),
+                      -lf, lf)
     else:
         aq = torch.clamp(torch.round(a0 * float(lf)), -lf, lf)
     h1 = (aq @ w1f.float()) * h1s + b1.float()               # exact ints
@@ -606,7 +675,8 @@ def loss_reference(fold, coords, w1, b1, wht, bht, y_t,
             q = _rb(dh1 * _per_group(qs_b, pt), wdt)
         db1g = dh1.reshape(b, t_, pt, h).sum(dim=2)
     if seed is not None:
-        qi = sr_round(q, site_words(seed, SITE_GRAD, b, hw, h, dev), -lv, lv)
+        qi = sr_round(q, site_words(seed, SITE_GRAD, b, hw, h, dev, image0),
+                      -lv, lv)
     else:
         qi = torch.clamp(torch.round(q), -lv, lv)
     if nm.k3_db1_qi:
@@ -654,7 +724,7 @@ def loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
                         mask: Optional[torch.Tensor] = None,
                         family: str = "bernoulli",
                         numerics: Optional[Numerics] = None,
-                        ints: bool = False) -> tuple:
+                        ints: bool = False, image0: int = 0) -> tuple:
     """Plain version of K3.  fold (B, 4, H) f32 rows [w0, w1, c, 0]; coords
     (HW, 2) f32, HW tile-aligned (colored: chunk-permuted); w1 (H, H)
     [in][out]; b1 (H,); wht (No, H); bht (No,), in one weight dtype; y_t (B,
@@ -662,10 +732,13 @@ def loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
     ``numerics`` (default: the defaults).  Returns float32 (dfold (B, 4, H)
     with the per-image loss at [:, 3, 0], dW1 (H, H), db1 (H,), dWh^T (No,
     H), dbh (No,)); with ``ints`` also (aq, qi) (B, HW, H), the two
-    quantised tiles."""
+    quantised tiles.  ``image0``: these images' first index in a larger
+    call, whose SR counters they take (the rest of the call does not
+    change them)."""
     nm = DEFAULTS if numerics is None else numerics.check()
     return loss_reference(fold, coords, w1, b1, wht, bht, y_t, mask, family,
-                          nm, pick_tile(coords.shape[0]), ints=ints)
+                          nm, pick_tile(coords.shape[0]), ints=ints,
+                          image0=image0)
 
 
 # ---------------------------------------------------------------------------
@@ -764,9 +837,10 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
     (csrc/fused_loss_int8_sm90.cu: the same outputs, W1 streamed once per
     four blocks, int8 wgmma; colored: a mean block and its log-variance
     partner on two CTAs of one cluster, each reading the other's head
-    outputs from its shared memory); ``block_passes`` sends them to the
-    passes above, for a caller that compares the two designs on one
-    card."""
+    outputs from its shared memory; under SR csrc/fused_loss_int8_sm90_sr.cu,
+    the same Philox words, the forward leaving aq in the dW1 workspace for
+    the gradient pass); ``block_passes`` sends them to the passes above, for
+    a caller that compares the two designs on one card."""
     _check(fold, coords, w1, b1, wht, bht, y_t, mask, family)
     nm = _resolve(numerics)
     if fold.device.type == "cpu":
@@ -864,8 +938,9 @@ def launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family,
               yt.data_ptr() + b0 * ysz, ptr(mk),
               dz2.data_ptr() + b0 * no * hw * 4,
               part_max.data_ptr() + b0 * blocks * 4,
-              part_bce.data_ptr() + b0 * blocks * 4, ptr(ws), n, hw, h, no,
-              pt, int(yt_i8), fam, bf16, float(lf), swht, mode, sm90, st)
+              part_bce.data_ptr() + b0 * blocks * 4, ptr(ws),
+              aq_ws.data_ptr(), b0, n, hw, h, no, pt, int(yt_i8), fam, bf16,
+              float(lf), swht, mode, sm90, st)
         launches["fwd" + sfx] += 1
 
     def gradient(b0, n, st):
@@ -987,7 +1062,9 @@ def sm90_max_clusters() -> dict:
     cluster passes' kernels (cudaOccupancyMaxActiveClusters)."""
     lib = _lib()
     names = ("fwd_bf16", "fwd_f32", "grad_bf16", "grad_f32", "dw",
-             "product", "fwd_colored_bf16", "fwd_colored_f32")
+             "product", "fwd_colored_bf16", "fwd_colored_f32", "sr_fwd_bf16",
+             "sr_fwd_f32", "sr_grad_bf16", "sr_grad_f32",
+             "sr_fwd_colored_bf16", "sr_fwd_colored_f32")
     return {k: lib.svt_loss90_max_clusters(i) for i, k in enumerate(names)}
 
 

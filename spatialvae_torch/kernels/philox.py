@@ -70,11 +70,12 @@ def f32_bits(x: torch.Tensor) -> int:
 
 
 def site_words(seed_bits: int, site: int, b: int, rows: int, cols: int,
-               device=None) -> torch.Tensor:
+               device=None, image0: int = 0) -> torch.Tensor:
     """The (b, rows, cols) words of one site of the loss kernel: element
-    (i, p, k) is word k % 4 of Philox4x32-10 at counter (i, p, k // 4, 0)
-    under key (seed_bits, site)."""
-    i = torch.arange(b, dtype=torch.int64, device=device)[:, None, None]
+    (i, p, k) is word k % 4 of Philox4x32-10 at counter (image0 + i, p,
+    k // 4, 0) under key (seed_bits, site): the call's images image0 .. ."""
+    i = torch.arange(image0, image0 + b, dtype=torch.int64,
+                     device=device)[:, None, None]
     p = torch.arange(rows, dtype=torch.int64, device=device)[None, :, None]
     q = torch.arange(-(-cols // 4), dtype=torch.int64,
                      device=device)[None, None, :]

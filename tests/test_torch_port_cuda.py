@@ -5,8 +5,9 @@ step; the int8 decoder forward and backward (K4, K5), the fused int8 loss
 and gradient (K3) in its Bernoulli, Gaussian, colored and padded families
 and its numerics modes (stochastic rounding with the device Philox against
 the plain one, the other gradient modes, scales and epilogue), its cluster
-passes at the default numerics against the plain version and the block
-passes (and their a0 chain and product alone), the
+passes at the default numerics and under stochastic rounding against the
+plain version and the block passes (and their a0 chain and product
+alone), the
 feature-major kernel's modes (K8), and int8 training steps of the galaxy,
 particles, fit-noise and mnist models; Adam (K6, K7 and the
 emission helpers), the int8 encoder's GEMM, and steps of the int8 stack;
@@ -1301,6 +1302,126 @@ def test_k3_colored_cluster_passes_match_plain_and_block(case, cuda_device):
     assert torch.equal(aq, aq_p) and torch.equal(aq, aq7)
     assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
     assert (qi != qi7).float().mean().item() <= INT_MISMATCH
+
+
+# K3's stochastic rounding on the cluster passes
+# (csrc/fused_loss_int8_sm90_sr.cu): (family, image side, B, H, weight
+# dtype, mask): the galaxy shape, the Gaussian family under a mask, 28x28
+# padded to 1,024 (a forced mask), the colored family at one and at four
+# groups an image, narrow widths
+SR90_CASES = [("bernoulli", 64, 6, 500, torch.bfloat16, False),
+              ("bernoulli", 64, 4, 500, torch.float32, True),
+              ("gaussian", 64, 4, 500, torch.bfloat16, True),
+              ("bernoulli", 28, 6, 96, torch.bfloat16, False),
+              ("colored", 64, 2, 500, torch.bfloat16, True),
+              ("colored", 64, 4, 500, torch.float32, False),
+              ("colored", 32, 4, 130, torch.bfloat16, True)]
+
+
+@pytest.mark.parametrize("case", SR90_CASES, ids=lambda c: "-".join(
+    [c[0], f"{c[1]}px", f"B{c[2]}", f"H{c[3]}", str(c[4])[6:],
+     "mask" if c[5] else "nomask"]))
+def test_k3_sr_cluster_passes_match_plain_and_block(case, cuda_device):
+    """SR on the cluster passes against the plain version (the same Philox
+    words) within K3's limits and against the block passes: aq word for word
+    with both, qi within INT_MISMATCH of both, two runs bit for bit, one
+    image per workspace chunk within 1e-6 (the counters take the absolute
+    image), counted under the cluster keys; b1 one ulp away draws other
+    words for more than 5% of aq."""
+    import torch.nn.functional as F
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.config import Numerics
+    from spatialvae_torch.train.trainer import yt_layout
+
+    family, side, b, h, wdt, masked = case
+    colored = family == "colored"
+    hw, no = side * side, (2 if colored else 3 if family == "bernoulli"
+                           else 1)
+    fold, coords, ws = _int8_inputs(b, hw, h, no, wdt, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    mask = (coords.pow(2).sum(dim=1) <= 1.0).float() if masked else None
+    if colored:
+        y = 0.5 + 0.4 * torch.randn((b, hw), generator=gen, device=cuda_device)
+        yt = yt_layout(y.to(torch.bfloat16), hw, True)
+        coords = l8.colored_coords(coords, l8.pick_tile(hw)).contiguous()
+    else:
+        k = torch.randint(0, 256, (b, no, hw), generator=gen,
+                          device=cuda_device)
+        yt = (k - 128).to(torch.int8)
+        pad = l8.padded_hw(hw) - hw
+        if pad:
+            coords = F.pad(coords, (0, 0, 0, pad))
+            yt = F.pad(yt, (0, pad), value=-128)
+            mask = F.pad(torch.ones(hw, device=cuda_device) if mask is None
+                         else mask, (0, pad))
+    nm = Numerics(sr=True)
+    args = (fold, coords, *ws, yt, mask, family)
+    assert l8.k3_route(coords.shape[0], h, l8.pick_tile(coords.shape[0]),
+                       family, nm) == "sm90"
+    l8.reset_launches()
+    with torch.no_grad():
+        got, (aq, qi) = l8.run_loss_int8(*args, numerics=nm, ints=True)
+        assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0),
+                               "fwd_sm90": 1, "grad_sm90": 1, "dw_sm90": 1,
+                               "sum": 5}
+        again = l8.run_loss_int8(*args, numerics=nm)
+        chunked = l8.run_loss_int8(*args, numerics=nm, workspace_bytes=1)
+        old, (aq7, qi7) = l8.run_loss_int8(*args, numerics=nm, ints=True,
+                                           block_passes=True)
+        want, (aq_p, qi_p) = l8.loss_int8_reference(*args, numerics=nm,
+                                                    ints=True)
+        b1 = ws[1].clone()
+        b1[0] = torch.nextafter(b1[0], torch.ones_like(b1[0]))
+        _, (aq2, _) = l8.run_loss_int8(fold, coords, ws[0], b1, *ws[2:], yt,
+                                       mask, family, numerics=nm, ints=True)
+    for u, v, c, o, x in zip(got, again, chunked, old, want):
+        assert torch.isfinite(u).all()
+        assert torch.equal(u, v)
+        _assert_rel(c, u, (1e-6, 1e-7))
+        _assert_rel(u, x, INT8_TOL)
+        _assert_rel(u, o, INT8_TOL)
+    assert torch.equal(aq, aq_p) and torch.equal(aq, aq7)
+    assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
+    assert (qi != qi7).float().mean().item() <= INT_MISMATCH
+    assert (aq != aq2).float().mean().item() > 0.05
+
+
+@pytest.mark.parametrize("family", ["bernoulli", "colored"])
+def test_k3_sr_wide_chunks_match_plain(family, cuda_device):
+    """SR at H = 1,000 (the block passes' wide kernels) with one image per
+    workspace chunk: within K3's limits of the plain version and within 1e-6
+    of the call in one chunk, so the forward's words take the call's image
+    index, as the gradient pass's do."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.config import Numerics
+    from spatialvae_torch.train.trainer import yt_layout
+
+    colored = family == "colored"
+    b, hw, h, no = 4, 4096, 1000, 2 if colored else 3
+    fold, coords, ws = _int8_inputs(b, hw, h, no, torch.bfloat16, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    if colored:
+        y = 0.5 + 0.4 * torch.randn((b, hw), generator=gen, device=cuda_device)
+        yt = yt_layout(y.to(torch.bfloat16), hw, True)
+        coords = l8.colored_coords(coords, l8.pick_tile(hw)).contiguous()
+    else:
+        k = torch.randint(0, 256, (b, no, hw), generator=gen,
+                          device=cuda_device)
+        yt = (k - 128).to(torch.int8)
+    nm = Numerics(sr=True)
+    args = (fold, coords, *ws, yt, None, family)
+    assert l8.k3_route(hw, h, l8.pick_tile(hw), family, nm) == "block"
+    l8.reset_launches()
+    with torch.no_grad():
+        whole = l8.run_loss_int8(*args, numerics=nm)
+        assert l8.LAUNCHES["fwd"] == 1
+        chunked = l8.run_loss_int8(*args, numerics=nm, workspace_bytes=1)
+        assert l8.LAUNCHES["fwd"] == 1 + b
+        want = l8.loss_int8_reference(*args, numerics=nm)
+    for u, c, x in zip(whole, chunked, want):
+        assert torch.isfinite(c).all()
+        _assert_rel(c, u, (1e-6, 1e-7))
+        _assert_rel(c, x, INT8_TOL)
 
 
 # K4 and K5's cluster passes (csrc/fused_decoder_int8_sm90.cu): (B, HW, H,

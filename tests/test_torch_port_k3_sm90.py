@@ -19,7 +19,13 @@ surrounds the kernels, which only the card runs.
   cluster passes do not take);
 - the workspace chunks of the bench step (B=4,096 at 64x64, H=500, the dW1
   operands and the a1c stash) fit the workspace budget of an 80 GB card:
-  four chunks.
+  four chunks, under stochastic rounding too;
+- stochastic rounding's counters on the cluster passes (``sr90_counters``,
+  the kernels' index arithmetic): every (image, row, column) of both sites
+  rounded exactly once, with the word of ``philox.site_words`` at it, in
+  the galaxy, padded 28x28 and colored walks, in a chunk of the call and
+  not; a mirror of the faulty copy that takes the row from the dW1
+  workspace's order fails the same check.
 
 The kernels themselves are held to the plain version on the card by
 ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py``.
@@ -258,7 +264,7 @@ ROUTE_CASES = [
     (Numerics(), "colored", 500, 4096, None, False, "sm90"),
     (Numerics(), "colored", 500, 1280, None, False, "sm90"),
     (Numerics(), "colored", 500, 4096, None, True, "block"),
-    (Numerics(sr=True), "colored", 500, 4096, None, False, "block"),
+    (Numerics(sr=True), "colored", 500, 4096, None, False, "sm90"),
     (Numerics(), "colored", 1000, 4096, None, False, "block"),
     (Numerics(), "bernoulli", 513, 4096, None, False, "block"),
     (Numerics(), "bernoulli", 1000, 4096, None, False, "block"),
@@ -267,7 +273,20 @@ ROUTE_CASES = [
     (Numerics(), "bernoulli", 500, 4096, "i8", False, "block"),
     (Numerics(gscale="tile"), "bernoulli", 500, 4096, None, False, "block"),
     (Numerics(epi="f32"), "bernoulli", 500, 4096, None, False, "block"),
-    (Numerics(sr=True), "gaussian", 500, 4096, None, False, "block"),
+    (Numerics(sr=True), "gaussian", 500, 4096, None, False, "sm90"),
+    (Numerics(sr=True), "bernoulli", 500, 1024, None, False, "sm90"),
+    (Numerics(sr=True, gscale="tile"), "bernoulli", 500, 4096, None, False,
+     "block"),
+    (Numerics(sr=True), "bernoulli", 1000, 4096, None, False, "block"),
+    (Numerics(sr=True), "bernoulli", 500, 1088, None, False, "block"),
+    (Numerics(sr=True), "bernoulli", 500, 4096, None, True, "block"),
+    (Numerics(sr=True, grad_mode="i8"), "colored", 500, 4096, None, False,
+     "block"),
+    (Numerics(sr=True, epi="f32"), "gaussian", 500, 4096, None, False,
+     "block"),
+    (Numerics(sr=True, a1q=True), "bernoulli", 500, 4096, None, False,
+     "block"),
+    (Numerics(sr=True), "bernoulli", 500, 4096, "i4", False, "block"),
     (Numerics(grad_mode="i8"), "bernoulli", 500, 4096, None, False, "block"),
     (Numerics(grad_mode="da0_i4"), "bernoulli", 500, 4096, None, False,
      "block"),
@@ -303,6 +322,60 @@ def test_workspace_chunks_at_the_bench_step(monkeypatch):
     assert sum(n for _, n in chunks) == 4096
     assert all(n * per <= budget for _, n in chunks)
     assert [b0 for b0, _ in chunks] == [0, 1192, 2384, 3576]
+    # SR on the cluster route: the forward leaves aq in the dW1 workspace,
+    # no stash of its own
+    assert l8.k3_route(4096, 500, 1024, "bernoulli",
+                       Numerics(sr=True)) == "sm90"
     # the block passes' (Kp, HW) workspaces alone: two chunks
     assert len(image_chunks(4096, l8.loss_workspace_bytes(4096, 500, "block"),
                             budget)) == 2
+
+
+def _sr_check(counters, b0, nimg, hw, h, seed):
+    """Whether every (image, row, column) of images b0 .. of both sites is
+    rounded exactly once, with the counter (image, row, column // 4) and
+    word column % 4, so that it takes the word ``site_words`` gives it (held
+    on the cells of each image's first 64 rows); returns the first failure,
+    or None."""
+    from spatialvae_torch.kernels import philox as px
+
+    for site, key in (("fwd", px.SITE_FWD), ("grad", px.SITE_GRAD)):
+        img, row, col, c0, c1, c2, word = counters[site]
+        cell = ((img - b0) * hw + row) * h + col
+        if not bool((torch.bincount(cell, minlength=nimg * hw * h)
+                     == 1).all()):
+            return f"{site}: cells not covered exactly once"
+        if not (torch.equal(c0, img) and torch.equal(c1, row)
+                and torch.equal(c2, col // 4) and torch.equal(word, col % 4)):
+            return f"{site}: counters differ from (image, row, column // 4)"
+        pick = row < 64
+        got = torch.stack(px.philox4x32_10(
+            (c0[pick], c1[pick], c2[pick], 0), (seed, key)), dim=-1)
+        got = got.gather(1, word[pick, None])[:, 0]
+        want = px.site_words(seed, key, b0 + nimg, 64, h)[
+            img[pick], row[pick], col[pick]]
+        if not torch.equal(got, want):
+            return f"{site}: words differ from site_words"
+    return None
+
+
+# (images of the chunk, first image, pixels, H, colored group or 0,
+# resident clusters): the galaxy grid, 28x28 padded to 1,024, colored 64x64
+# (its mask changes no counter), each whole and as a later chunk
+SR90_WALKS = [(1, 0, 4096, 500, 0, 33), (1, 5, 4096, 500, 0, 7),
+              (2, 0, 1024, 40, 0, 3), (4, 3, 1024, 40, 0, 1000),
+              (1, 0, 4096, 500, 1024, 33), (1, 7, 4096, 500, 1024, 5)]
+
+
+@pytest.mark.parametrize("walk", SR90_WALKS, ids=lambda w: "-".join(
+    [f"N{w[0]}", f"b0_{w[1]}", f"HW{w[2]}", f"H{w[3]}",
+     "colored" if w[4] else "plain"]))
+def test_sr_counters_draw_site_words(walk):
+    nimg, b0, hw, h, cpt, clusters = walk
+    seed = 0x3C23D70A
+    got = l8.sr90_counters(nimg, hw, h, clusters, b0, cpt)
+    assert _sr_check(got, b0, nimg, hw, h, seed) is None
+    del got
+    # the faulty copy's counters, rows in the dW1 workspace's order
+    bad = l8.sr90_counters(nimg, hw, h, clusters, b0, cpt, ws_row=True)
+    assert _sr_check(bad, b0, nimg, hw, h, seed) is not None
