@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phase cli_particles   # the particles CLI alone
     python3 chip_smoke.py --phase cli_images   # the galaxy and mnist CLIs
     python3 chip_smoke.py --phase horizon   # the int8 horizon gate, 3 epochs
+    python3 chip_smoke.py --phase parallel  # the mesh's arms alone
 
 Builds the port's CUDA kernels from ``spatialvae_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the float
@@ -152,6 +153,18 @@ paths:
   each arm's leaves; before it ``[horizon_kernels]`` holds K1/K2 and K3
   (bf16 and int8 targets, the colored family under the mask) at B=1,024
   to their plain versions run in 128-image chunks;
+- the mesh (``[parallel]``, ``spatialvae_torch/parallel/``): ranks that
+  share the card, joined over gloo, train the galaxy model in int8 (bf16
+  compute) at B=1,024: (a) data parallelism on 2 ranks, the ranks' state
+  bit for bit, the gradients against one device's on the same rows, the
+  step metrics against one device's within a limit that refuses the same
+  steps' unreduced metrics; (b) K3 on each rank's 2,048-pixel slice
+  summed against the whole call (default and SR, the SR words equal) and
+  the pixel step on 2 x 2 ranks; (c) the mesh evaluation (K4, K1)
+  against one device's; (d) colored data parallelism; (e) a one-rank NCCL
+  world's step bit for bit against one device's.  Every rank counts its
+  launches from 0 around the mesh's own run (K3 on the cluster keys) and
+  every rank of a mesh must count the same;
 - the port's int8 kernel microbenchmark (``[kernel_bench]``: the TPU tool
   ``tools/kernel_bench.py``'s seventeen runs at its defaults, B=2,048,
   HW=4,096, H=500, pt=2,048, through
@@ -2035,10 +2048,11 @@ class plain_int8:
         self.saved = (l8.run_loss_int8, d8.run_int8_tail,
                       d8.run_int8_tail_backward, lt.run_loss_int8_t)
         l8.run_loss_int8 = (lambda fold, coords, w1, b1, wht, bht, y_t,
-                            mask=None, family="bernoulli":
+                            mask=None, family="bernoulli", p_base=0:
                             l8.loss_int8_reference(fold, coords, w1, b1, wht,
                                                    bht, y_t, mask, family,
-                                                   numerics()))
+                                                   numerics(),
+                                                   p_base=p_base))
         lt.run_loss_int8_t = (lambda fold_t, coords, w1, b1, wht, bht, y_t:
                               lt.loss_int8_t_reference(
                                   fold_t, coords, w1, b1, wht, bht, y_t,
@@ -7336,6 +7350,596 @@ def phase_horizon(torch, card: str) -> dict:
     return {"summary": summary, "launches": c}
 
 
+# ---------------------------------------------------------------- [parallel]
+# The mesh of ranks (spatialvae_torch/parallel/): ranks that share the one
+# card, joined over gloo (NCCL refuses two ranks on one device), at the
+# galaxy model's full width; PAR_STEPS steps of PAR_B images and a tail.
+PAR_B = 1024
+PAR_STEPS = 2
+PAR_TAIL = 37
+PAR_EVAL = 2 * PAR_B + 2         # two batches a rank halves, a tail of 2
+PAR_K3_B = 16                    # the slices' K3 calls: images in one chunk
+# the mesh's evaluation against one device's, relative: float32 compute
+# adds the two halves' means in another order; bf16 compute (the int8 arm)
+# rounds the encoder's bf16 products of 1,024 rows and of 512 differently
+PAR_EVAL_TOL = {"eval_f32": 1e-5, "eval_int8": 5e-3}
+# arm (a)'s step metrics against one device's, relative: the first step's
+# (the same weights on both; 1.2e-6 on the H100) and the later steps' and
+# the tail's (the weights part after the first step, the encoder's
+# cotangent being quantised over a rank's rows; 2.7e-3).  The limits must
+# also refuse the planted control, the same steps' metrics before the mesh
+# averages them (a step that forgot the reduction; 3.0e-3 at the first)
+PAR_METRIC_TOL = (1e-4, 5e-3)
+
+
+def _par_world(rank: int, n: int, store: str) -> None:
+    from spatialvae_torch.parallel import init_world
+    from spatialvae_torch.precision import pin_fp32_precision
+
+    pin_fp32_precision()
+    init_world(rank, n, f"file://{store}", DEVICE, "gloo")
+
+
+def _par_trainer(torch, mesh, int8: bool = True, family: str = None):
+    """The galaxy trainer (int8 with bf16 compute, or float32 K1/K2), or a
+    FAMILY_MODELS one's at its width, on ``mesh`` (None: one device), seed
+    SEED, batch PAR_B."""
+    from spatialvae_torch.config import (
+        InferenceConfig,
+        SpatialGeneratorConfig,
+    )
+    from spatialvae_torch.objectives import ElboConfig
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+    from spatialvae_torch.transforms.coords import coord_grid
+
+    if family is None:
+        q_cfg, p_cfg, ecfg = galaxy_configs()
+        ecfg = dataclasses.replace(ecfg, int8=int8)
+        image, channels, mask = IMAGE, CHANNELS, None
+    else:                       # family_trainer's configs
+        m = FAMILY_MODELS[family]
+        image, channels = m["image"], 1
+        q_cfg = InferenceConfig(n=image[0] * image[1],
+                                latent_dim=m["z"] + 3,
+                                hidden_dim=m["q_hidden"], num_layers=2)
+        p_cfg = SpatialGeneratorConfig(latent_dim=m["z"],
+                                       hidden_dim=P_HIDDEN,
+                                       n_out=m["n_out"], num_layers=2)
+        ecfg = ElboConfig(rotate=True, translate=True,
+                          theta_prior=m["theta_prior"],
+                          theta_mean_penalty=m["penalty"],
+                          likelihood=m["likelihood"], channels=1,
+                          fused=True, int8=True)
+        mask = disc_mask(torch, image) if m["mask"] else None
+    tcfg = TrainConfig(minibatch_size=PAR_B, learning_rate=1e-4,
+                       num_epochs=1, seed=SEED,
+                       compute_dtype="bfloat16" if int8 else "float32",
+                       image_shape=image, channels=channels)
+    return Trainer(q_cfg, p_cfg, ecfg, tcfg,
+                   coord_grid(*image, device=DEVICE), mask=mask,
+                   device=DEVICE, mesh=mesh)
+
+
+def _par_state(trainer) -> list:
+    """(name, tensor) of the masters, the shadow and the int8 copies."""
+    out = list(trainer.named_params().items())
+    out += [("shadow." + k, v) for k, v in (trainer.shadow or {}).items()]
+    for k, e in (trainer.qshadow or {}).items():
+        out += [(f"qshadow.{k}.{f}", t) for f, t in e.items()
+                if t is not None and t.numel()]
+    return out
+
+
+def _par_differ(torch, trainer) -> list:
+    """The state's tensors in which this rank differs from rank 0, bit for
+    bit (every rank gets the list)."""
+    import torch.distributed as dist
+
+    names, flags = [], []
+    for name, t in _par_state(trainer):
+        ref = t.detach().clone()
+        dist.broadcast(ref, src=0)
+        names.append(name)
+        flags.append(float(not torch.equal(ref.view(torch.uint8),
+                                           t.detach().view(torch.uint8))))
+    bad = torch.tensor(flags, device=DEVICE)
+    dist.all_reduce(bad)
+    return [n for n, f in zip(names, bad.tolist()) if f]
+
+
+def _par_counts() -> dict:
+    got = _int8_launches()
+    from spatialvae_torch.kernels import fused_decoder as fd
+
+    got["k12_keys"] = dict(fd.LAUNCHES)
+    return got
+
+
+def _par_steps(torch, trainer, data, noises, rows) -> list:
+    """PAR_STEPS steps of the first PAR_STEPS * PAR_B images and the tail
+    (the rest) with the given noise: on a mesh each rank's ``rows`` of
+    each full batch, the tail whole (the replicated step)."""
+    data_t = trainer._dataset_yt(data)
+    xq, sx = trainer._dataset_yq8(data)
+    out = []
+    for k, noise in enumerate(noises):
+        idx = torch.arange(k * PAR_B, min((k + 1) * PAR_B, data.shape[0]),
+                           device=DEVICE)
+        if len(idx) == PAR_B:
+            idx, noise = idx[rows], noise[rows]
+            out.append(trainer.train_step(data[idx], y_t=data_t[idx],
+                                          y_q8=(xq[idx], sx), noise=noise))
+        else:
+            out.append(trainer.train_step(
+                data[idx], noise=noise,
+                replicated=trainer.mesh is not None))
+    return [a.float().cpu() for a in out]
+
+
+def _par_grads(torch, trainer, data, noise, rows) -> dict:
+    """A full batch's gradients (the first PAR_B images) at the trainer's
+    state, reduced over the mesh (``spmd``'s average) when it has one."""
+    from spatialvae_torch.parallel import spmd
+
+    data_t = trainer._dataset_yt(data)
+    xq, sx = trainer._dataset_yq8(data)
+    idx = torch.arange(PAR_B, device=DEVICE)[rows]
+    aux, grads = trainer.local_gradients(
+        data[idx], y_t=data_t[idx], y_q8=(xq[idx], sx), noise=noise[rows])
+    if trainer.mesh is not None:
+        aux, grads = spmd._reduced(aux, grads, trainer.mesh.axis("data"))
+    return {k: g.detach().clone() for k, g in grads.items()}
+
+
+def _par_dp_rank(rank: int, store: str, out: str) -> None:
+    """Arms (a), (c) and (d) on a (2, 1) mesh; rank 0 also runs the one
+    device trainers they are held to."""
+    import torch
+
+    from spatialvae_torch.parallel import MeshConfig, create_mesh
+    from spatialvae_torch.parallel.sharding import batch_sharding
+
+    _par_world(rank, 2, store)
+    res = {}
+    mesh = create_mesh(MeshConfig(2, 1), torch.device(DEVICE))
+    rows = batch_sharding(mesh).rows(PAR_B)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    n = PAR_STEPS * PAR_B + PAR_TAIL
+    data = blob_images(torch, n, gen)
+    zdim = Z_DIM + 3
+    cpu = torch.Generator().manual_seed(SEED + 2)
+    noises = [torch.randn((PAR_B, zdim), generator=cpu).to(DEVICE)
+              for _ in range(PAR_STEPS)]
+    noises.append(torch.randn((PAR_TAIL, zdim), generator=cpu).to(DEVICE))
+
+    # (c) the evaluation before any step: K4 (int8) / K1 (float) per rank
+    for tag, int8 in (("eval_int8", True), ("eval_f32", False)):
+        tr = _par_trainer(torch, mesh, int8)
+        _reset_all_launches()
+        got = tr.eval_epoch(data[:PAR_EVAL], 0)
+        torch.cuda.synchronize()
+        res[tag] = {"metrics": got, "counts": _par_counts()}
+        if rank == 0:
+            one = _par_trainer(torch, None, int8)
+            res[tag]["one"] = one.eval_epoch(data[:PAR_EVAL], 0)
+            del one
+        del tr
+        torch.cuda.empty_cache()
+
+    # (a) DP: a batch's gradients on the mesh and on one device at the
+    # same weights and noise, then the same steps and noise on both; an
+    # epoch for the launch counts
+    tr = _par_trainer(torch, mesh)
+    one = _par_trainer(torch, None) if rank == 0 else None
+    res["dp_grads"], res["dp_grads_halves"] = _par_grad_readings(
+        torch, tr, one, data, noises[0], rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _local_metrics() as local:
+        res["dp_aux"] = _par_steps(torch, tr, data, noises, rows)
+    torch.cuda.synchronize()
+    res["dp_s_per_step"] = (time.perf_counter() - t0) / len(noises)
+    res["dp_aux_local"] = local
+    if rank == 0:
+        res["one_aux"] = _par_steps(torch, one, data, noises,
+                                    slice(0, PAR_B))
+        del one
+    torch.cuda.empty_cache()
+    _reset_all_launches()
+    res["dp_epoch"] = tr.train_epoch(data, 0, progress=False)
+    torch.cuda.synchronize()
+    res["dp_counts"] = _par_counts()
+    res["dp_differ"] = _par_differ(torch, tr)
+    res["dp_big_leaves"] = _big_leaves(tr)
+    res["dp_shadow"] = tr.shadow is not None and tr.qshadow is not None
+    del tr
+    torch.cuda.empty_cache()
+
+    # (d) colored DP (the fit-noise head, K3's colored cluster passes)
+    tr = _par_trainer(torch, mesh, family="colored")
+    cgen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    cdata = blob_images(torch, PAR_B, cgen, tr.tcfg.image_shape, 1, False)
+    one = _par_trainer(torch, None, family="colored") if rank == 0 else None
+    res["colored_grads"], res["colored_grads_halves"] = _par_grad_readings(
+        torch, tr, one, cdata, noises[0], rows)
+    torch.cuda.synchronize()
+    _reset_all_launches()
+    aux = _par_steps(torch, tr, cdata, noises[:1], rows)
+    torch.cuda.synchronize()
+    res["colored_counts"] = _par_counts()
+    if rank == 0:
+        res["colored_aux"] = (aux, _par_steps(torch, one, cdata, noises[:1],
+                                              slice(0, PAR_B)))
+    res["colored_differ"] = _par_differ(torch, tr)
+    torch.save(res, os.path.join(out, f"dp{rank}.pt"))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _local_metrics():
+    """A list that gets each data-parallel step's metrics before the mesh
+    averages them (rank's rows alone): what a step that forgot the
+    reduction would return, the control of arm (a)'s metric limit."""
+    from spatialvae_torch.parallel import spmd
+
+    reduced, local = spmd._reduced, []
+
+    def recording(aux, grads, axis):
+        local.append(aux.detach().float().cpu())
+        return reduced(aux, grads, axis)
+
+    spmd._reduced = recording
+    try:
+        yield local
+    finally:
+        spmd._reduced = reduced
+
+
+def _par_grad_readings(torch, tr, one, data, noise, rows) -> tuple:
+    """The mesh trainer's gradients of the first full batch (reduced over
+    'data') against the one-device trainer ``one``'s (rank 0; None
+    elsewhere) at the same weights and noise, ``_grad_readings`` each:
+    against the whole batch's, and against the average of its two halves'
+    (the mesh's split run on one device: the int8 encoder's backward
+    quantises its cotangent with a scale over the call's rows, the rank's
+    half on the mesh)."""
+    grads = _par_grads(torch, tr, data, noise, rows)
+    if one is None:
+        return None, None
+    whole = _grad_readings(grads, _par_grads(torch, one, data, noise,
+                                             slice(0, PAR_B)))
+    halves = [_par_grads(torch, one, data, noise,
+                         slice(k * PAR_B // 2, (k + 1) * PAR_B // 2))
+              for k in (0, 1)]
+    want = {k: ((halves[0][k].float() + halves[1][k].float()) / 2).to(
+        halves[0][k].dtype) for k in halves[0]}
+    return whole, _grad_readings(grads, want)
+
+
+def _grad_readings(got: dict, want: dict) -> tuple:
+    """(worst max rel, worst mean rel, its leaf) over the leaves."""
+    rel, mean_rel, leaf = 0.0, 0.0, ""
+    for k in want:
+        _, _, r, m = rel_errors(got[k], want[k])
+        if r >= rel:
+            rel, leaf = r, k
+        mean_rel = max(mean_rel, m)
+    return rel, mean_rel, leaf
+
+
+def _par_pixel_rank(rank: int, store: str, out: str) -> None:
+    """Arm (b) on a (2, 2) mesh: K3 on each rank's pixel slice against the
+    whole call (default numerics and SR), then the pixel step."""
+    import torch
+    import torch.distributed as dist
+
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.config import Numerics
+    from spatialvae_torch.parallel import MeshConfig, create_mesh
+    from spatialvae_torch.parallel.pixel import pixel_slice
+
+    _par_world(rank, 4, store)
+    res = {}
+    mesh = create_mesh(MeshConfig(2, 2), torch.device(DEVICE))
+    model = mesh.axis("model")
+    hw = IMAGE[0] * IMAGE[1]
+    sl = pixel_slice(hw, model)
+    fold, coords, ws, yt = _k3_inputs(torch, PAR_K3_B, hw, P_HIDDEN, 3,
+                                      torch.bfloat16, SEED + 4)
+    part_args = (fold, coords[sl].contiguous(), *ws,
+                 yt[..., sl].contiguous(), None, "bernoulli")
+    whole_args = (fold, coords, *ws, yt, None, "bernoulli")
+    for tag, nm in (("k3", Numerics()), ("k3_sr", Numerics(sr=True))):
+        l8.reset_launches()
+        with torch.no_grad():
+            part, (aq, _) = l8.run_loss_int8(*part_args, numerics=nm,
+                                             ints=True, p_base=sl.start)
+            torch.cuda.synchronize()
+            counts = dict(l8.LAUNCHES)
+            summed = [t.clone() for t in part]
+            for t in summed:
+                dist.all_reduce(t, group=model.group)
+            whole, (aq_w, _) = l8.run_loss_int8(*whole_args, numerics=nm,
+                                                ints=True)
+        names = ("loss", "dfold", "dw1", "db1", "dwht", "dbht")
+        outs = [(summed[0][:, 3, 0], whole[0][:, 3, 0])] + list(
+            zip(summed, whole))
+        res[tag] = {"counts": counts,
+                    "aq_differ": int((aq != aq_w[:, sl]).sum()),
+                    "rel": {nme: rel_errors(g, w)[2:]
+                            for nme, (g, w) in zip(names, outs)}}
+    torch.cuda.empty_cache()
+
+    tr = _par_trainer(torch, mesh)
+    res["pixel_step"] = tr._spmd_pixel
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    data = blob_images(torch, PAR_STEPS * PAR_B + PAR_TAIL, gen)
+    _reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res["epoch"] = tr.train_epoch(data, 0, progress=False)
+    torch.cuda.synchronize()
+    res["s_per_step"] = (time.perf_counter() - t0) / (PAR_STEPS + 1)
+    res["counts"] = _par_counts()
+    res["differ"] = _par_differ(torch, tr)
+    torch.save(res, os.path.join(out, f"px{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _k3_inputs(torch, b, hw, h, no, wdt, seed):
+    """K3's operands at the galaxy shape: a fold, the grid, weights in
+    ``wdt``, int8 targets."""
+    from spatialvae_torch.transforms.coords import coord_grid
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return s * torch.randn(shape, generator=g, device=DEVICE)
+
+    fold = torch.zeros((b, 4, h), device=DEVICE)
+    fold[:, :2] = r(b, 2, h, s=0.5)
+    fold[:, 2] = r(b, h, s=0.8)
+    ws = (r(h, h, s=h ** -0.5).to(wdt), r(h, s=0.1).to(wdt),
+          r(no, h, s=h ** -0.5).to(wdt), r(no, s=0.1).to(wdt))
+    yt = (torch.randint(0, 256, (b, no, hw), generator=g, device=DEVICE)
+          - 128).to(torch.int8)
+    return fold, coord_grid(*IMAGE, device=DEVICE), ws, yt
+
+
+def _par_nccl_arm(torch) -> dict:
+    """Arm (e): a one-rank NCCL world in this process: a collective through
+    NCCL, and the DP step against the one-device step, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from spatialvae_torch.parallel import (
+        MeshConfig,
+        create_mesh,
+        init_world,
+    )
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    backend = init_world(0, 1, f"tcp://localhost:{port}",
+                         torch.device(DEVICE), "nccl")
+    try:
+        mesh = create_mesh(MeshConfig(1, 1), torch.device(DEVICE))
+        x = torch.arange(4.0, device=DEVICE)
+        dist.all_reduce(x, group=mesh.axis("data").group)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+        data = blob_images(torch, PAR_B + PAR_TAIL, gen)
+        cpu = torch.Generator().manual_seed(SEED + 2)
+        noises = [torch.randn((k, Z_DIM + 3), generator=cpu).to(DEVICE)
+                  for k in (PAR_B, PAR_TAIL)]
+        tr = _par_trainer(torch, mesh)
+        got = _par_steps(torch, tr, data, noises, slice(0, PAR_B))
+        state = {k: v.detach().clone() for k, v in _par_state(tr)}
+        del tr
+        one = _par_trainer(torch, None)
+        want = _par_steps(torch, one, data, noises, slice(0, PAR_B))
+        differ = [k for k, v in _par_state(one)
+                  if not torch.equal(v.view(torch.uint8),
+                                     state[k].view(torch.uint8))]
+        same_aux = all(torch.equal(a, b) for a, b in zip(got, want))
+        return {"backend": backend, "all_reduce": x.tolist(),
+                "differ": differ, "same_aux": same_aux,
+                "leaves": len(state)}
+    finally:
+        dist.destroy_process_group()
+
+
+def _k3_on_cluster(k3: dict, where: str) -> None:
+    if not all(k3[k] >= 1 for k in ("fwd_sm90", "grad_sm90", "dw_sm90")) \
+            or any(k3[k] for k in ("fwd", "grad", "dw")):
+        raise AssertionError(f"{where}: K3 not on the cluster passes alone: "
+                             f"{k3}")
+
+
+def _par_check_launches(dp: list, px: list) -> None:
+    """Each rank's launches, counted from 0 before each path and read after
+    it (the mesh's own run: the one-device references run outside the
+    window): K3 on the cluster keys alone in the DP, colored DP, slice and
+    pixel steps; the DP tail's K4/K5; Adam's step kernel every step; the
+    evaluations' K4 (int8) or K1 (float), never K3; every rank of a mesh
+    the same counts."""
+    for tag in ("dp_counts", "colored_counts", "eval_int8", "eval_f32"):
+        got = [d[tag] if tag.endswith("counts") else d[tag]["counts"]
+               for d in dp]
+        if any(c != got[0] for c in got[1:]):
+            raise AssertionError(f"{tag}: the ranks' launches differ: {got}")
+    for tag in ("k3", "k3_sr"):
+        if any(d[tag]["counts"] != px[0][tag]["counts"] for d in px):
+            raise AssertionError(f"{tag}: the ranks' launches differ")
+    if any(d["counts"] != px[0]["counts"] for d in px):
+        raise AssertionError("pixel step: the ranks' launches differ")
+    for r, d in enumerate(dp):
+        for tag in ("dp_counts", "colored_counts"):
+            _k3_on_cluster(d[tag]["k3"], f"{tag} rank {r}")
+        k45 = d["dp_counts"]["k45"]
+        if not (k45["fwd_acts_sm90"] >= 1 and k45["bwd_grad_sm90"] >= 1):
+            raise AssertionError(f"DP rank {r}: the tail ran no K4/K5: {k45}")
+        if not d["dp_counts"]["adam"]["adam_step"] >= PAR_STEPS + 1:
+            raise AssertionError(f"DP rank {r}: Adam {d['dp_counts']}")
+        for tag in ("eval_int8", "eval_f32"):
+            c = d[tag]["counts"]
+            ran = (c["k45"]["fwd_sm90"] + c["k45"]["fwd"]
+                   if tag == "eval_int8" else c["k12"])
+            if ran < 3 or any(c["k3"].values()):
+                raise AssertionError(f"{tag} rank {r}: launches {c}")
+    for r, d in enumerate(px):
+        for tag in ("k3", "k3_sr"):
+            _k3_on_cluster(d[tag]["counts"], f"{tag} rank {r}")
+        _k3_on_cluster(d["counts"]["k3"], f"pixel step rank {r}")
+
+
+def phase_parallel(torch, card: str) -> dict:
+    """[parallel]: the port's mesh on the one card (module docstring)."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_par_dp_rank, args=(os.path.join(tmp, "dp_store"), tmp),
+                 nprocs=2)
+        dp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mp.spawn(_par_pixel_rank, args=(os.path.join(tmp, "px_store"), tmp),
+                 nprocs=4)
+        px_s = time.perf_counter() - t0
+        dp = [torch.load(os.path.join(tmp, f"dp{r}.pt"), weights_only=False)
+              for r in range(2)]
+        px = [torch.load(os.path.join(tmp, f"px{r}.pt"), weights_only=False)
+              for r in range(4)]
+    cluster = ("fwd_sm90", "grad_sm90", "dw_sm90")
+    _par_check_launches(dp, px)
+
+    # (a) DP
+    for r, d in enumerate(dp):
+        if d["dp_differ"]:
+            raise AssertionError(f"DP rank {r} differs from rank 0 in "
+                                 f"{d['dp_differ'][:5]}")
+        if not (d["dp_shadow"] and d["dp_big_leaves"] == 2):
+            raise AssertionError("the DP step did not run the shadow and "
+                                 "the int8 encoder copies")
+        if not np.isfinite(d["dp_epoch"]).all():
+            raise AssertionError(f"DP epoch not finite: {d['dp_epoch']}")
+    rel, mean_rel, leaf = dp[0]["dp_grads_halves"]
+    if not (rel <= INT8_STEP_TOL[0] and mean_rel <= INT8_STEP_TOL[1]):
+        raise AssertionError(f"DP gradients vs one device's halves: {rel} "
+                             f"({leaf}), mean {mean_rel}; limits "
+                             f"{INT8_STEP_TOL}")
+    w_rel, w_mean, w_leaf = dp[0]["dp_grads"]
+
+    def metric_rel(got, want):
+        return [float(((a - b).abs() / b.abs()).max())
+                for a, b in zip(got, want)]
+
+    def within(readings):
+        return all(v <= PAR_METRIC_TOL[min(k, 1)]
+                   for k, v in enumerate(readings))
+
+    aux_steps = metric_rel(dp[0]["dp_aux"], dp[0]["one_aux"])
+    control = metric_rel(dp[0]["dp_aux_local"], dp[0]["one_aux"])
+    aux_rel = max(aux_steps)
+    if len(control) != PAR_STEPS or not within(aux_steps) or within(control):
+        raise AssertionError(
+            f"DP step metrics vs one device {aux_steps}, unreduced control "
+            f"{control}: the limits {PAR_METRIC_TOL} (first step, later "
+            f"ones) must pass the first and refuse the second")
+    log("parallel", arm="a_dp", mesh="2x1", backend="gloo",
+        ranks_bit_identical=True, k3_cluster=json.dumps(
+            {k: dp[0]["dp_counts"]["k3"][k] for k in cluster}),
+        k45_tail=dp[0]["dp_counts"]["k45"]["fwd_acts_sm90"],
+        grads_vs_halves_max_rel=f"{rel:.3e}", grads_vs_halves_mean_rel=
+        f"{mean_rel:.3e}", worst_leaf=leaf, limits=INT8_STEP_TOL,
+        grads_vs_whole_max_rel=f"{w_rel:.3e}",
+        grads_vs_whole_mean_rel=f"{w_mean:.3e}", whole_worst_leaf=w_leaf,
+        metrics_vs_one_max_rel=f"{aux_rel:.3e}",
+        metrics_per_step="/".join(f"{v:.3e}" for v in aux_steps),
+        unreduced_control="/".join(f"{v:.3e}" for v in control),
+        metrics_limit=PAR_METRIC_TOL, launches_every_rank_equal=True,
+        epoch_elbo=f"{dp[0]['dp_epoch'][0]:.4f}",
+        s_per_step=f"{dp[0]['dp_s_per_step']:.4f}",
+        note="ranks share one card: not a speed figure", card=repr(card))
+
+    # (c) mesh evaluation
+    for tag, key in (("eval_int8", "k45"), ("eval_f32", "k12_keys")):
+        got, want = dp[0][tag]["metrics"], dp[0][tag]["one"]
+        erel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if not erel <= PAR_EVAL_TOL[tag]:
+            raise AssertionError(f"{tag}: mesh {got} vs one device {want}")
+        log("parallel", arm=f"c_{tag}", metrics=json.dumps(got),
+            one_device=json.dumps(want), max_rel=f"{erel:.3e}",
+            limit=PAR_EVAL_TOL[tag],
+            launches_rank0=json.dumps(dp[0][tag]["counts"]["k45"]
+                                      if key == "k45" else
+                                      dp[0][tag]["counts"]["k12_keys"]))
+
+    # (d) colored DP
+    rel, mean_rel, leaf = dp[0]["colored_grads_halves"]
+    if not (rel <= INT8_STEP_TOL[0] and mean_rel <= INT8_STEP_TOL[1]):
+        raise AssertionError(f"colored DP gradients vs one device's halves: "
+                             f"{rel} ({leaf}), mean {mean_rel}")
+    w_rel, w_mean, w_leaf = dp[0]["colored_grads"]
+    for r, d in enumerate(dp):
+        if d["colored_differ"]:
+            raise AssertionError(f"colored rank {r} differs: "
+                                 f"{d['colored_differ'][:5]}")
+    log("parallel", arm="d_colored_dp", mesh="2x1",
+        grads_vs_halves_max_rel=f"{rel:.3e}",
+        grads_vs_halves_mean_rel=f"{mean_rel:.3e}", worst_leaf=leaf,
+        grads_vs_whole_max_rel=f"{w_rel:.3e}",
+        grads_vs_whole_mean_rel=f"{w_mean:.3e}", whole_worst_leaf=w_leaf,
+        k3_cluster=json.dumps({k: dp[0]["colored_counts"]["k3"][k]
+                               for k in cluster}), ranks_bit_identical=True,
+        launches_every_rank_equal=True)
+
+    # (b) pixel slices and the pixel step
+    for r, d in enumerate(px):
+        for tag in ("k3", "k3_sr"):
+            for nme, (mx, mean) in d[tag]["rel"].items():
+                if not (mx <= INT8_TOL[0] and mean <= INT8_TOL[1]):
+                    raise AssertionError(f"{tag} rank {r} {nme}: slices "
+                                         f"summed vs whole {mx}, {mean}")
+            if d[tag]["aq_differ"]:
+                raise AssertionError(f"{tag} rank {r}: {d[tag]['aq_differ']}"
+                                     f" aq words differ from the whole "
+                                     f"call's")
+        if not d["pixel_step"] or d["differ"]:
+            raise AssertionError(f"pixel rank {r}: step {d['pixel_step']}, "
+                                 f"differs in {d['differ'][:5]}")
+        if not np.isfinite(d["epoch"]).all():
+            raise AssertionError(f"pixel epoch not finite: {d['epoch']}")
+    for tag in ("k3", "k3_sr"):
+        log("parallel", arm=f"b_{tag}_slices", mesh="2x2",
+            pixels_per_rank=IMAGE[0] * IMAGE[1] // 2, images=PAR_K3_B,
+            aq_words_differ=sum(d[tag]["aq_differ"] for d in px),
+            **{f"{n}_max_rel": f"{max(d[tag]['rel'][n][0] for d in px):.3e}"
+               for n in px[0][tag]["rel"]}, limits=INT8_TOL)
+    log("parallel", arm="b_pixel_step", mesh="2x2", ranks_bit_identical=True,
+        k3_cluster=json.dumps({k: px[0]["counts"]["k3"][k]
+                               for k in cluster}),
+        epoch_elbo=f"{px[0]['epoch'][0]:.4f}",
+        s_per_step=f"{px[0]['s_per_step']:.4f}",
+        note="four ranks share one card: not a speed figure")
+
+    # (e) one-rank NCCL world
+    e = _par_nccl_arm(torch)
+    if not (e["backend"] == "nccl" and e["all_reduce"] == [0.0, 1.0, 2.0,
+                                                           3.0]
+            and not e["differ"] and e["same_aux"]):
+        raise AssertionError(f"NCCL arm: {e}")
+    log("parallel", arm="e_nccl_one_rank", backend=e["backend"],
+        dp_step_vs_one_device="bit_identical", leaves=e["leaves"])
+    log("parallel", seconds=f"{time.perf_counter() - t_phase:.3f}",
+        dp_world_s=f"{dp_s:.3f}", pixel_world_s=f"{px_s:.3f}")
+    return {"dp": dp, "px": px}
+
+
 def main() -> int:
     if sys.argv[1:] == ["--default-width-times"]:
         # a turn of the A/B: the port of the checkout in the working
@@ -7403,6 +8007,9 @@ def main() -> int:
         phase_horizon_kernels(torch)
         phase_horizon(torch, card)
         return 0
+    if sys.argv[1:] == ["--phase", "parallel"]:
+        phase_parallel(torch, card)
+        return 0
     ptxas = start_ptxas_report(LOSS90_SOURCE)
     ptxas_sr = start_ptxas_report(LOSS90_SR_SOURCE)
     ptxas_dec = start_ptxas_report(DEC90_SOURCE)
@@ -7454,6 +8061,7 @@ def main() -> int:
         phase_cli_images(torch, tmpdir, card)
     phase_horizon_kernels(torch)
     phase_horizon(torch, card)
+    phase_parallel(torch, card)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     rows = kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,

@@ -12,13 +12,31 @@ card, N >= 0 on card N.  Without a card, -2 and N raise: nothing falls
 back to the CPU.
 
 The JAX package's additive flags are all accepted.  Those whose module the
-port does not have yet raise ``NotImplementedError`` naming the ROADMAP
-item before any work (``refuse_unported``): ``--mesh-model`` above 1 and
-the three multi-host flags (M10), and ``--matmul-precision`` other than
-``highest`` (the port computes float32 products in full float32 only).
-``--tp-mode`` is accepted only so that command lines written for the JAX
-CLI keep working: it lays out a mesh the port does not build, and is read
+port does not have yet raise before any work (``refuse_unported``):
+``--mesh-model`` above 1 on a configuration that the pixel step cannot take
+(float, colored, vanilla, ``--no-fused`` or ``-d -1``, by the CLI's
+``elbo_config`` and ``parallel/pixel.config_refusal``: the JAX CLI sends
+those to its GSPMD tensor-parallel path, ROADMAP M10b) raises
+``NotImplementedError`` naming M10b (a model axis that the image size or
+the batch keeps off the pixel step raises the same from the trainer, once
+the images are read), and ``--matmul-precision`` other than
+``highest`` (the port computes float32 products in full float32 only)
+raises too.  ``--tp-mode`` is accepted so that command lines written for
+the JAX CLI keep working; it names a layout of M10b, and is read
 nowhere.
+
+Meshes (``parallel/``): the run's world comes from a launcher's environment
+(torchrun: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``), from the multi-host flags (``--coordinator host:port
+--num-processes N --process-id i``, all three: host i starts one rank per
+local card, rank i * cards + local rank), or, on the card without either
+and with more than one card visible, from the visible cards (one rank
+each, started here; JAX's single controller sees them all).  One card and
+no launcher runs no mesh, as JAX's one device does.  Each rank joins the
+world (NCCL on cards, gloo on the CPU), the mesh is (ranks / model, model)
+with ``--mesh-model``, and rank 0 alone prints the TSV and the ``#`` lines
+and writes the outputs, the checkpoints and the archive; the others train
+silently.  Every rank holds the whole data set (``make_dataset``).
 
 The run diagnostics: ``--debug-nans`` makes every training step check its
 loss terms and gradients before Adam writes and raise
@@ -40,6 +58,8 @@ import sys
 import time
 
 import torch
+
+from spatialvae_torch.parallel.mesh import primary
 
 
 def add_arg(parser: argparse.ArgumentParser, name: str, *aliases, **kwargs):
@@ -70,20 +90,20 @@ def add_common_extras(parser: argparse.ArgumentParser):
             help="trace the training of epoch index 1 (with the evaluation "
                  "after it) into a Chrome trace in this directory")
     add_arg(parser, "--mesh-model", type=int, default=1,
-            help="model/pixel mesh axis size (above 1 not ported yet, "
-                 "ROADMAP M10)")
+            help="model (pixel) mesh axis size: the fused int8 loss "
+                 "kernel's pixels split over this many ranks (the "
+                 "tensor-parallel layouts are ROADMAP M10b)")
     add_arg(parser, "--coordinator", default=None,
-            help="multi-host coordinator host:port (not ported yet, "
-                 "ROADMAP M10)")
+            help="multi-host: host 0's host:port (with --num-processes "
+                 "and --process-id)")
     add_arg(parser, "--num-processes", type=int, default=None,
-            help="multi-host process count (not ported yet, ROADMAP M10)")
+            help="multi-host: the number of hosts of the run")
     add_arg(parser, "--process-id", type=int, default=None,
-            help="multi-host process index (not ported yet, ROADMAP M10)")
+            help="multi-host: this host's index in [0, num-processes)")
     add_arg(parser, "--tp-mode", choices=["column", "row"],
             default="column",
-            help="accepted so that command lines written for the JAX "
-                 "CLI keep working; the port builds no mesh (M10) and "
-                 "reads it nowhere")
+            help="the JAX CLI's tensor-parallel layout, accepted so that "
+                 "its command lines keep working (ROADMAP M10b)")
     add_arg(parser, "--eval-interval", type=int, default=1,
             help="evaluate every N epochs instead of every epoch; the "
                  "training trajectory is the same")
@@ -114,18 +134,30 @@ def add_common_extras(parser: argparse.ArgumentParser):
                  "optimizer checkpoint")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+MULTIHOST_FLAGS = ("coordinator", "num_processes", "process_id")
 
 
-def refuse_unported(args) -> None:
-    """Raise on a flag whose module the port does not have yet."""
-    if (getattr(args, "mesh_model", 1) or 1) > 1:
-        raise _not_ported("--mesh-model above 1 (model parallelism)", "M10")
-    for flag in ("coordinator", "num_processes", "process_id"):
-        if getattr(args, flag, None) is not None:
-            raise _not_ported(f"--{flag.replace('_', '-')} (multi-host)",
-                              "M10")
+def refuse_unported(args, ecfg) -> None:
+    """Raise, before any work, on a flag whose path the port does not have
+    yet: a model axis on a configuration (``ecfg``, the CLI's
+    ``elbo_config``) that the pixel step cannot take whatever its shapes
+    (``parallel/pixel.config_refusal``; JAX's GSPMD tensor-parallel path,
+    M10b), and on multi-host flags given in part.  The shapes' part of
+    the same decision (``pixel_step_refusal``) is the trainer's, once the
+    images are read and before anything runs on the device."""
+    from spatialvae_torch.parallel.pixel import config_refusal
+    from spatialvae_torch.parallel.sharding import tensor_parallel_refusal
+
+    model = getattr(args, "mesh_model", 1) or 1
+    why = config_refusal(ecfg) if model > 1 else None
+    if why is not None:
+        raise tensor_parallel_refusal(f"--mesh-model {model} with {why}")
+    given = [f for f in MULTIHOST_FLAGS if getattr(args, f, None) is not None]
+    if given and len(given) != len(MULTIHOST_FLAGS):
+        raise ValueError(
+            "--coordinator, --num-processes and --process-id go together "
+            "(nothing here detects them): got "
+            + ", ".join("--" + f.replace("_", "-") for f in given))
     if getattr(args, "matmul_precision", "highest") != "highest":
         raise NotImplementedError(
             f"--matmul-precision {args.matmul_precision}: the port computes "
@@ -182,10 +214,123 @@ def env_scope(adam_moments: str = "f32", int8_sr: bool = False):
                 os.environ[n] = v
 
 
+def _rank_entry(local_rank: int, run, args, env: dict) -> None:
+    """A spawned rank: the world's variables for ``local_rank``, then the
+    CLI's ``run``."""
+    os.environ.update({k: str(v(local_rank) if callable(v) else v)
+                       for k, v in env.items()})
+    run(args)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def launch_local_ranks(args, device: torch.device, run) -> bool:
+    """Start this host's ranks when the run needs more than this process:
+    one per visible card, for the multi-host flags (host i's ranks i *
+    cards ..) or, without a launcher, when more than one card is visible
+    and ``-d`` names none.  Each runs ``run(args)`` in a process of its own
+    with the world in its environment; returns True once all have ended (a
+    failed rank raises here).  False: this process is the run's only
+    process, or one rank of a launcher's world."""
+    from spatialvae_torch.parallel.mesh import env_world, multihost_rank
+
+    if env_world() is not None or device.type != "cuda":
+        return False
+    cards = torch.cuda.device_count()
+    if getattr(args, "coordinator", None) is not None:
+        if cards <= 1:
+            return False
+        host, port = args.coordinator.rsplit(":", 1)
+        env = {"MASTER_ADDR": host, "MASTER_PORT": port,
+               "WORLD_SIZE": args.num_processes * cards,
+               "RANK": lambda r: multihost_rank(args.num_processes,
+                                                args.process_id, cards, r),
+               "LOCAL_RANK": lambda r: r}
+    elif getattr(args, "device", -2) == -2 and cards > 1:
+        env = {"MASTER_ADDR": "localhost", "MASTER_PORT": _free_port(),
+               "WORLD_SIZE": cards, "RANK": lambda r: r,
+               "LOCAL_RANK": lambda r: r}
+    else:
+        return False
+    import torch.multiprocessing as mp
+
+    mp.spawn(_rank_entry, args=(run, args, env), nprocs=cards)
+    return True
+
+
+def maybe_mesh(args, device: torch.device):
+    """This process's rank of the run's mesh, the world joined, or None for
+    a run of one device: the world from the launcher's environment, or the
+    multi-host flags with one card (or the CPU) here; the mesh (ranks /
+    --mesh-model, --mesh-model).  A rank's device is its local card
+    (``LOCAL_RANK``), or the CPU under -d -1; the backend NCCL on cards,
+    gloo on the CPU.  Prints the ``# mesh:`` line."""
+    import torch.distributed as dist
+
+    from spatialvae_torch.parallel.mesh import (
+        MeshConfig,
+        create_mesh,
+        env_world,
+        init_world,
+        initialize_multihost,
+    )
+
+    world = env_world()
+    model = getattr(args, "mesh_model", 1) or 1
+    if world is not None:
+        if device.type == "cuda":
+            device = torch.device("cuda", world["local_rank"])
+        init_world(world["rank"], world["world_size"], world["init_method"],
+                   device)
+    elif getattr(args, "coordinator", None) is not None:
+        initialize_multihost(args.coordinator, args.num_processes,
+                             args.process_id, device=device)
+    elif model > 1:
+        raise ValueError(
+            f"--mesh-model {model} needs a world of ranks: start the run "
+            f"under torchrun (or with the multi-host flags)")
+    else:
+        return None
+    mesh = create_mesh(MeshConfig.auto(dist.get_world_size(), model),
+                       device)
+    if mesh.rank == 0:
+        print(mesh.describe(), file=sys.stderr)
+    return mesh
+
+
+@contextlib.contextmanager
+def rank_scope(mesh):
+    """The body of a run on ``mesh``'s rank: silent (stdout and stderr to
+    the null device) on every rank but 0; the world left at the end."""
+    if mesh is None:
+        yield
+        return
+    import torch.distributed as dist
+
+    try:
+        if mesh.rank == 0:
+            yield
+        else:
+            with open(os.devnull, "w") as null, \
+                    contextlib.redirect_stdout(null), \
+                    contextlib.redirect_stderr(null):
+                yield
+    finally:
+        dist.destroy_process_group()
+
+
 def make_dataset(y, ctf=None, device=None, preload=True):
-    """``ArrayDataset`` on ``device`` (one device; the JAX package's mesh
-    sharding is M10), or host-resident with per-step streaming when
-    ``preload`` is False (``--no-preload``)."""
+    """``ArrayDataset`` on ``device``, or host-resident with per-step
+    streaming when ``preload`` is False (``--no-preload``).  Under a mesh
+    every rank holds the whole data set and takes its rows of each batch
+    (the JAX CLI shards it over 'data'; the results are the same, the
+    memory is not: ROADMAP M10's decision)."""
     from spatialvae_torch.data.dataset import ArrayDataset
 
     return ArrayDataset.from_numpy(y, ctf, device=device, preload=preload)
@@ -357,8 +502,8 @@ def image_epochs(trainer, data_train, data_val, args, start_epoch: int,
     """The galaxy and mnist CLIs' epoch loop: train in ``chunked_epochs``
     pieces, print each training row, evaluate after each chunk (z scaled
     to 0 during ``--z_delay``; mnist has no such flag), call ``dump(
-    epoch_str, z_scale)`` every ``--save_interval`` epochs and print the
-    validation row.  Rows are ``epoch - 1`` (0-based) then (ELBO, BCE, KL).
+    epoch_str, z_scale)`` every ``--save_interval`` epochs (rank 0 alone
+    under a mesh) and print the validation row.  Rows are ``epoch - 1`` (0-based) then (ELBO, BCE, KL).
     Returns (train rows, validation rows, train lines, validation lines),
     each list of lines headed by ``RESULTS_HEADER``."""
     num_epochs = args.num_epochs
@@ -377,7 +522,7 @@ def image_epochs(trainer, data_train, data_val, args, start_epoch: int,
             print(line, flush=True)
         z_scale = 0.0 if (epoch - 1) < getattr(args, "z_delay", 0) else 1.0
         va = trainer.eval_epoch(data_val, epoch - 1, z_scale=z_scale)
-        if epoch % args.save_interval == 0:
+        if epoch % args.save_interval == 0 and primary():
             dump(str(epoch).zfill(digits), z_scale)
         row = [epoch - 1, *va]
         val_results.append(row)
@@ -392,7 +537,8 @@ def save_image_run(trainer, args, outputs, results: tuple) -> None:
     ``outputs.trained_dir`` (blocking: the archive must hold them), the Adam
     state with ``--save-optimizer`` (only with a prefix: without one there
     are no model checkpoints to pair it with), the three plots and the
-    results files.  ``results`` is ``image_epochs``' return."""
+    results files.  ``results`` is ``image_epochs``' return.  Nothing on a
+    rank that does not write (``RunOutputs.write``)."""
     from spatialvae_torch.train.checkpoint import (
         optimizer_path,
         save_optimizer,
@@ -400,6 +546,8 @@ def save_image_run(trainer, args, outputs, results: tuple) -> None:
     )
     from spatialvae_torch.train.plots import basic_run_plot
 
+    if not outputs.write:
+        return
     train_results, val_results, train_lines, val_lines = results
     last = args.num_epochs - 1
     digits = int(math.log10(args.num_epochs)) + 1

@@ -41,7 +41,10 @@ from spatialvae_torch.cli.common import (
     env_scope,
     image_epochs,
     make_dataset,
+    launch_local_ranks,
+    maybe_mesh,
     maybe_resume,
+    rank_scope,
     refuse_unported,
     resolve_activation_name,
     resolve_cli_device,
@@ -166,7 +169,32 @@ def load_galaxy(args) -> tuple:
             images_val.reshape(-1, n * m, channels), (n, m), channels)
 
 
+def elbo_config(args, channels: int):
+    """The run's ``ElboConfig``, from its flags alone."""
+    from spatialvae_torch.objectives import ElboConfig
+
+    spatial = not args.vanilla
+    return ElboConfig(rotate=spatial and not args.no_rotate,
+                      translate=spatial and not args.no_translate,
+                      dx_scale=args.dx_scale, theta_prior=args.theta_prior,
+                      theta_mean_penalty=False, likelihood="bernoulli",
+                      channels=channels, vanilla=args.vanilla,
+                      fused=use_fused(args), int8=args.int8_decoder)
+
+
 def run(args):
+    """The run: on this process's device, or as this process's rank of the
+    run's mesh (``cli/common``: ``launch_local_ranks``, ``maybe_mesh``)."""
+    refuse_unported(args, elbo_config(args, 1 if args.make_mono else 3))
+    device = resolve_cli_device(args.device)
+    if launch_local_ranks(args, device, run):
+        return
+    mesh = maybe_mesh(args, device)
+    with rank_scope(mesh):
+        _train(args, device if mesh is None else mesh.device, mesh)
+
+
+def _train(args, device, mesh):
     from spatialvae_torch.config import (
         InferenceConfig,
         SpatialGeneratorConfig,
@@ -174,21 +202,21 @@ def run(args):
     )
     from spatialvae_torch.io.png import save_image_grid
     from spatialvae_torch.models.reprs import torch_style_repr
-    from spatialvae_torch.objectives import ElboConfig
     from spatialvae_torch.precision import fp32_precision
     from spatialvae_torch.train.artifacts import RunOutputs, save_label
     from spatialvae_torch.train.trainer import TrainConfig, Trainer
     from spatialvae_torch.transforms.coords import coord_grid
 
-    refuse_unported(args)
-    device = resolve_cli_device(args.device)
-
-    outputs = RunOutputs(args.save_prefix)
+    outputs = RunOutputs(args.save_prefix,
+                         write=mesh is None or mesh.rank == 0)
     outputs.write_command(vars(args))
 
-    logging.basicConfig(filename=f"{outputs.output_dir}/run.log",
+    # a mesh's other ranks keep no log (the tree is rank 0's)
+    logging.basicConfig(**(dict(filename=f"{outputs.output_dir}/run.log",
+                                filemode="w") if outputs.write
+                           else dict(handlers=[logging.NullHandler()])),
                         format="%(asctime)s %(levelname)s:%(message)s",
-                        datefmt="%Y%m%d %H:%M:%S", filemode="w",
+                        datefmt="%Y%m%d %H:%M:%S",
                         level=logging_level(args.logging_level),
                         force=True)
     logger = logging.getLogger()
@@ -204,6 +232,7 @@ def run(args):
         print("# training with z-dim:", z_dim, file=sys.stderr)
 
         activation = resolve_activation_name(args.activation, "galaxy")
+        ecfg = elbo_config(args, channels)
         if args.vanilla:
             print("# using the vanilla MLP generator architecture",
                   file=sys.stderr)
@@ -211,18 +240,15 @@ def run(args):
                 n=channels * n * m, latent_dim=z_dim,
                 hidden_dim=args.p_hidden_dim, num_layers=args.p_num_layers,
                 activation=activation)
-            rotate = translate = False
             inf_dim = z_dim
         else:
             print("# using the spatial generator architecture",
                   file=sys.stderr)
-            rotate = not args.no_rotate
-            translate = not args.no_translate
             inf_dim = z_dim
-            if rotate:
+            if ecfg.rotate:
                 print("# spatial-VAE with rotation inference", file=sys.stderr)
                 inf_dim += 1
-            if translate:
+            if ecfg.translate:
                 print("# spatial-VAE with translation inference",
                       file=sys.stderr)
                 inf_dim += 2
@@ -241,13 +267,6 @@ def run(args):
         print(f"# using priors: theta={args.theta_prior}, dx={args.dx_scale}",
               file=sys.stderr)
 
-        ecfg = ElboConfig(rotate=rotate, translate=translate,
-                          dx_scale=args.dx_scale,
-                          theta_prior=args.theta_prior,
-                          theta_mean_penalty=False,
-                          likelihood="bernoulli", channels=channels,
-                          vanilla=args.vanilla, fused=use_fused(args),
-                          int8=args.int8_decoder)
         tcfg = TrainConfig(minibatch_size=args.minibatch_size,
                            learning_rate=args.learning_rate,
                            num_epochs=args.num_epochs, z_delay=args.z_delay,
@@ -258,16 +277,17 @@ def run(args):
                            seed=args.seed, compute_dtype=args.compute_dtype,
                            image_shape=(n, m), channels=channels)
         trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg, coords, device=device,
-                          debug_nans=args.debug_nans)
+                          mesh=mesh, debug_nans=args.debug_nans)
         start_epoch = maybe_resume(trainer, args)
 
         data_train = make_dataset(y_train, device=device)
         data_val = make_dataset(y_val, device=device)
         label = save_label(vars(args), args.save_prefix)
 
-        save_image_grid(y_val[:args.minibatch_size],
-                        f"{outputs.output_dir}/images/_sample_{label}.png",
-                        image_dims)
+        if outputs.write:
+            save_image_grid(y_val[:args.minibatch_size],
+                            f"{outputs.output_dir}/images/_sample_{label}.png",
+                            image_dims)
 
         def dump(epoch_str, z_scale):
             dump_images(trainer, data_val, args.minibatch_size, z_dim,

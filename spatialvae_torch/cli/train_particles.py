@@ -36,7 +36,10 @@ from spatialvae_torch.cli.common import (
     chunked_epochs,
     env_scope,
     make_dataset,
+    launch_local_ranks,
+    maybe_mesh,
     maybe_resume,
+    rank_scope,
     refuse_unported,
     resolve_activation_name,
     resolve_cli_device,
@@ -150,7 +153,33 @@ def circular_mask(n: int, m: int) -> np.ndarray:
     return (dist < radius).ravel().astype(np.float32)
 
 
+def elbo_config(args):
+    """The run's ``ElboConfig``, from its flags alone."""
+    from spatialvae_torch.objectives import ElboConfig
+
+    spatial = not args.vanilla
+    return ElboConfig(rotate=spatial and not args.no_rotate,
+                      translate=spatial and not args.no_translate,
+                      dx_scale=args.dx_scale, theta_prior=args.theta_prior,
+                      theta_mean_penalty=False,
+                      likelihood="colored" if args.fit_noise else "gaussian",
+                      vanilla=args.vanilla, fused=use_fused(args),
+                      int8=args.int8_decoder)
+
+
 def run(args):
+    """The run: on this process's device, or as this process's rank of the
+    run's mesh (``cli/common``: ``launch_local_ranks``, ``maybe_mesh``)."""
+    refuse_unported(args, elbo_config(args))
+    device = resolve_cli_device(args.device)
+    if launch_local_ranks(args, device, run):
+        return
+    mesh = maybe_mesh(args, device)
+    with rank_scope(mesh):
+        _train(args, device if mesh is None else mesh.device, mesh)
+
+
+def _train(args, device, mesh):
     import torch
 
     from spatialvae_torch.config import (
@@ -162,7 +191,6 @@ def run(args):
     from spatialvae_torch.io.image import crop as crop_stack
     from spatialvae_torch.io.image import normalize_whole
     from spatialvae_torch.io.loaders import load_images
-    from spatialvae_torch.objectives import ElboConfig
     from spatialvae_torch.precision import fp32_precision
     from spatialvae_torch.train.checkpoint import (
         optimizer_path,
@@ -173,8 +201,6 @@ def run(args):
     from spatialvae_torch.train.trainer import TrainConfig, Trainer
     from spatialvae_torch.transforms.coords import coord_grid
 
-    refuse_unported(args)
-    device = resolve_cli_device(args.device)
     if (args.ctf_train or args.ctf_test) and args.compute_dtype != "float32":
         raise ValueError("CTF needs --compute-dtype float32: the CTF's FFT "
                          "takes float32 or float64 (the JAX trainer refuses "
@@ -230,6 +256,7 @@ def run(args):
         print("# training with z-dim:", z_dim, file=sys.stderr)
 
         activation = resolve_activation_name(args.activation, "particles")
+        ecfg = elbo_config(args)
         n_out = 2 if args.fit_noise else 1
         if args.vanilla:
             print("# using the vanilla MLP generator architecture",
@@ -239,19 +266,16 @@ def run(args):
                 n_out=n_out, num_layers=args.p_num_layers,
                 activation=activation, softplus=args.softplus,
                 resid=args.resid)
-            rotate = translate = False
             inf_dim = z_dim
         else:
             print("# using the spatial generator architecture",
                   file=sys.stderr)
-            rotate = not args.no_rotate
-            translate = not args.no_translate
             inf_dim = z_dim
-            if rotate:
+            if ecfg.rotate:
                 print("# spatial-VAE with rotation inference",
                       file=sys.stderr)
                 inf_dim += 1
-            if translate:
+            if ecfg.translate:
                 print("# spatial-VAE with translation inference",
                       file=sys.stderr)
                 inf_dim += 2
@@ -269,13 +293,6 @@ def run(args):
         print(f"# using priors: theta={args.theta_prior}, dx={args.dx_scale}",
               file=sys.stderr)
 
-        likelihood = "colored" if args.fit_noise else "gaussian"
-        ecfg = ElboConfig(rotate=rotate, translate=translate,
-                          dx_scale=args.dx_scale,
-                          theta_prior=args.theta_prior,
-                          theta_mean_penalty=False,
-                          likelihood=likelihood, vanilla=args.vanilla,
-                          fused=use_fused(args), int8=args.int8_decoder)
         tcfg = TrainConfig(minibatch_size=args.minibatch_size,
                            learning_rate=args.learning_rate,
                            num_epochs=num_epochs, z_delay=args.z_delay,
@@ -284,7 +301,8 @@ def run(args):
                            image_shape=(n, m))
         trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg, coords,
                           mask=None if mask is None else torch.from_numpy(mask),
-                          device=device, debug_nans=args.debug_nans)
+                          device=device, mesh=mesh,
+                          debug_nans=args.debug_nans)
         start_epoch = maybe_resume(trainer, args)
 
         # --no-preload: both sets stay on the host and stream a minibatch

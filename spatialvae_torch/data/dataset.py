@@ -6,7 +6,9 @@ per-image CTF kernels (N, kn, km) on one device; the trainer gathers each
 minibatch's rows there.  With ``preload=False`` (the CLI's
 ``--no-preload``) the arrays stay numpy arrays on the host
 (``host_resident``) and the trainer streams one minibatch per step to the
-device, for stacks larger than the card's memory.
+device, for stacks larger than the card's memory.  Under a mesh every rank
+holds the whole data set (the JAX CLI shards it over 'data'): each takes
+its rows of every global batch (ROADMAP M10's decision).
 """
 
 from __future__ import annotations

@@ -16,8 +16,9 @@ minibatch each, a pinned host buffer and a device buffer per array:
   marks the slot; the slot is written again only after that event, so the
   host runs at most two steps ahead of the card.
 
-On the CPU the rows are gathered into fresh arrays, with nothing to
-overlap.  Either way each batch reaches the consumer as float32, the values
+Under a mesh's data-parallel step each rank stages its own rows of each
+global batch alone (the trainer hands it those indices).  On the CPU the
+rows are gathered into fresh arrays, with nothing to overlap.  Either way each batch reaches the consumer as float32, the values
 a preloaded dataset's gather gives.
 """
 

@@ -65,8 +65,9 @@ _SIGNATURES = {
     "svt_int8_90_grad": ([_P] * 15 + [_I] * 7 + [_P], _I),
     "svt_int8_90_stash_block": ([], _L),
     "svt_int8_90_max_clusters": ([_I], _I),
-    "svt_loss_int8_fwd": ([_P] * 14 + [_I] * 9 + [_F, _F, _I, _I, _P], _I),
-    "svt_loss_int8_grad": ([_P] * 17 + [_I] * 7 + [_F, _F, _I, _F, _F, _I,
+    "svt_loss_int8_fwd": ([_P] * 14 + [_I] * 10 + [_F, _F, _I, _I, _P],
+                          _I),
+    "svt_loss_int8_grad": ([_P] * 17 + [_I] * 8 + [_F, _F, _I, _F, _F, _I,
                                                     _I, _P], _I),
     "svt_loss90_dw": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "svt_loss90_max_clusters": ([_I], _I),

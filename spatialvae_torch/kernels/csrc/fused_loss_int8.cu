@@ -7,14 +7,14 @@
 
 namespace svt8 {
 
-cudaError_t loss_fwd_default(const LossFwdArgs& a, bool bf16, bool colored,
-                             bool tile, cudaStream_t st) {
-  return dispatch_fwd<false, false>(a, 0, bf16, colored, tile, st);
+cudaError_t loss_fwd_default(const LossFwdArgs& a, int pb, bool bf16,
+                             bool colored, bool tile, cudaStream_t st) {
+  return dispatch_fwd<false, false>(a, 0, pb, bf16, colored, tile, st);
 }
 
-cudaError_t loss_grad_default(const LossGradArgs& a, bool bf16, bool sr,
-                              cudaStream_t st) {
-  return dispatch_grad<false, false>(a, bf16, sr, st);
+cudaError_t loss_grad_default(const LossGradArgs& a, int pb, bool bf16,
+                              bool sr, cudaStream_t st) {
+  return dispatch_grad<false, false>(a, pb, bf16, sr, st);
 }
 
 }  // namespace svt8
@@ -68,16 +68,20 @@ extern "C" {
 // H > 512.  The cluster passes take `ws` as the stash of a1c that the
 // forward leaves for the gradient pass: B*HW/64 * svt_loss90_stash_block
 // bytes; and with SR the chunk's dW1 operand workspace `aq_ws`
-// (svt_loss_int8_grad's), where the forward leaves aq.
+// (svt_loss_int8_grad's), where the forward leaves aq.  p_base: the first
+// pixel's row in the call whose pixel slice coords, yt and mask are (a
+// pixel shard's; 0 for a whole grid), where SR's counters start, on every
+// route (the gradient pass takes it too).
 int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
                       const void* h1s, const void* b1, const void* wht,
                       const void* bht, const void* yt, const void* mask,
                       void* dz2, void* part_max, void* part_bce, void* ws,
-                      void* aq_ws, int b0, int B, int HW, int H, int No,
-                      int Pt, int yt_i8, int family, int bf16, float lf,
-                      float swht, int mode, int sm90, void* stream) {
-  if (bad_shape(B, HW, H, No) || b0 < 0 || family < BERNOULLI ||
-      family > COLORED || (H > MAX_H && ws == nullptr) ||
+                      void* aq_ws, int b0, int p_base, int B, int HW, int H,
+                      int No, int Pt, int yt_i8, int family, int bf16,
+                      float lf, float swht, int mode, int sm90,
+                      void* stream) {
+  if (bad_shape(B, HW, H, No) || b0 < 0 || p_base < 0 ||
+      family < BERNOULLI || family > COLORED || (H > MAX_H && ws == nullptr) ||
       (sm90 && !sm90_takes(HW, H, Pt, mode, lf)))
     return int(cudaErrorInvalidValue);
   const bool colored = family == COLORED;
@@ -105,14 +109,15 @@ int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
   cudaError_t err;
   if (sm90)
     err = mode & SR
-              ? loss_fwd_sm90_sr(a, b0, static_cast<int8_t*>(aq_ws), bf16, st)
+              ? loss_fwd_sm90_sr(a, b0, p_base, static_cast<int8_t*>(aq_ws),
+                                 bf16, st)
               : loss_fwd_sm90(a, bf16, st);
   else if (H > MAX_H)
-    err = loss_fwd_wide(a, b0, bf16, colored, tile, st);
+    err = loss_fwd_wide(a, b0, p_base, bf16, colored, tile, st);
   else if (mode & LEVERS)
-    err = loss_fwd_levers(a, bf16, colored, tile, st);
+    err = loss_fwd_levers(a, p_base, bf16, colored, tile, st);
   else
-    err = loss_fwd_default(a, bf16, colored, tile, st);
+    err = loss_fwd_default(a, p_base, bf16, colored, tile, st);
   return int(err);
 }
 
@@ -135,11 +140,12 @@ int svt_loss_int8_grad(const void* fold, const void* coords, const void* w1fT,
                        const void* gb, const void* b1, const void* wht,
                        const void* dz2, const void* part_max, void* gscale,
                        void* aq_ws, void* q_ws, void* part_fold,
-                       void* part_w, void* ws, int b0, int Bc, int HW, int H,
-                       int No, int Pt, int bf16, float lf, float lv,
-                       int mode, float dbk, float swht, int cut, int sm90,
-                       void* stream) {
-  if (bad_shape(Bc, HW, H, No) || b0 < 0 || Pt < PT || Pt % PT || HW % Pt ||
+                       void* part_w, void* ws, int b0, int p_base, int Bc,
+                       int HW, int H, int No, int Pt, int bf16, float lf,
+                       float lv, int mode, float dbk, float swht, int cut,
+                       int sm90, void* stream) {
+  if (bad_shape(Bc, HW, H, No) || b0 < 0 || p_base < 0 || Pt < PT ||
+      Pt % PT || HW % Pt ||
       (H > MAX_H && ws == nullptr) || ((mode & CUT) && (cut < 4 || cut > 8)) ||
       (sm90 && !(sm90_takes(HW, H, Pt, mode, lf) && lv == 7.f)))
     return int(cudaErrorInvalidValue);
@@ -167,13 +173,14 @@ int svt_loss_int8_grad(const void* fold, const void* coords, const void* w1fT,
   const bool sr = mode & SR;
   cudaError_t err;
   if (sm90)
-    err = sr ? loss_grad_sm90_sr(a, bf16, st) : loss_grad_sm90(a, bf16, st);
+    err = sr ? loss_grad_sm90_sr(a, p_base, bf16, st)
+             : loss_grad_sm90(a, bf16, st);
   else if (H > MAX_H)
-    err = loss_grad_wide(a, bf16, sr, st);
+    err = loss_grad_wide(a, p_base, bf16, sr, st);
   else if (mode & LEVERS)
-    err = loss_grad_levers(a, bf16, sr, st);
+    err = loss_grad_levers(a, p_base, bf16, sr, st);
   else
-    err = loss_grad_default(a, bf16, sr, st);
+    err = loss_grad_default(a, p_base, bf16, sr, st);
   return int(err);
 }
 

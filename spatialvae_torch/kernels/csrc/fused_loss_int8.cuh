@@ -145,17 +145,19 @@ struct LossGradArgs {
 // lever) in fused_loss_int8.cu, the levers' (H <= 512) in
 // fused_loss_int8_levers.cu, the wide ones (levers read at run time) in
 // fused_loss_int8_wide.cu.
-cudaError_t loss_fwd_default(const LossFwdArgs& a, bool bf16, bool colored,
-                             bool tile, cudaStream_t st);
-cudaError_t loss_fwd_levers(const LossFwdArgs& a, bool bf16, bool colored,
-                            bool tile, cudaStream_t st);
-cudaError_t loss_fwd_wide(const LossFwdArgs& a, int b0, bool bf16,
+// `pb`: the first pixel's row in the call whose pixel slice the launch runs
+// (a pixel shard's), where SR's counters start; nothing else reads it.
+cudaError_t loss_fwd_default(const LossFwdArgs& a, int pb, bool bf16,
+                             bool colored, bool tile, cudaStream_t st);
+cudaError_t loss_fwd_levers(const LossFwdArgs& a, int pb, bool bf16,
+                            bool colored, bool tile, cudaStream_t st);
+cudaError_t loss_fwd_wide(const LossFwdArgs& a, int b0, int pb, bool bf16,
                           bool colored, bool tile, cudaStream_t st);
-cudaError_t loss_grad_default(const LossGradArgs& a, bool bf16, bool sr,
-                              cudaStream_t st);
-cudaError_t loss_grad_levers(const LossGradArgs& a, bool bf16, bool sr,
-                             cudaStream_t st);
-cudaError_t loss_grad_wide(const LossGradArgs& a, bool bf16, bool sr,
+cudaError_t loss_grad_default(const LossGradArgs& a, int pb, bool bf16,
+                              bool sr, cudaStream_t st);
+cudaError_t loss_grad_levers(const LossGradArgs& a, int pb, bool bf16,
+                             bool sr, cudaStream_t st);
+cudaError_t loss_grad_wide(const LossGradArgs& a, int pb, bool bf16, bool sr,
                            cudaStream_t st);
 // The cluster passes of fused_loss_int8_sm90.cu (the default numerics at
 // H <= 512, every family, pixel counts and groups multiples of 256): `grid`
@@ -168,10 +170,11 @@ cudaError_t loss_grad_sm90(const LossGradArgs& a, bool bf16,
                            cudaStream_t st);
 // SR's forward takes the first image of the launch in the call (b0: its
 // counters take the absolute image) and the dW1 operand's workspace, where
-// it leaves aq for the gradient pass.
-cudaError_t loss_fwd_sm90_sr(const LossFwdArgs& a, int b0, int8_t* aq_ws,
-                             bool bf16, cudaStream_t st);
-cudaError_t loss_grad_sm90_sr(const LossGradArgs& a, bool bf16,
+// it leaves aq for the gradient pass; both SR passes take the first pixel's
+// row in the call (pb: the counters take the absolute row).
+cudaError_t loss_fwd_sm90_sr(const LossFwdArgs& a, int b0, int pb,
+                             int8_t* aq_ws, bool bf16, cudaStream_t st);
+cudaError_t loss_grad_sm90_sr(const LossGradArgs& a, int pb, bool bf16,
                               cudaStream_t st);
 int loss90_sr_max_clusters(int which);
 
@@ -472,7 +475,7 @@ loss_fwd_kernel(const float* __restrict__ fold,
                 float* __restrict__ dz2, float* __restrict__ part_max,
                 float* __restrict__ part_bce, int8_t* __restrict__ ws,
                 int HW, int H, int No, int blocks, int Pt, int yt_i8,
-                int family, float lf, float swht, int mode, int b0) {
+                int family, float lf, float swht, int mode, int b0, int pb) {
   extern __shared__ float4 smem4[];
   const Smem sm = carve<WIDE>(smem4, ws, padded_k(H));
   const int tid = threadIdx.x;
@@ -494,12 +497,12 @@ loss_fwd_kernel(const float* __restrict__ fold,
     const int p0 = (i / hb) * 2 * half + (i % hb) * PT;   // the mean tile
     const int p1 = p0 + half;                  // its log-variance tile
     first_layer_qx<WIDE>(fold, coords, b, i0 + b, p0, HW, H, lf, sr, seed,
-                         sm.tile, nullptr, sm.as, pade);
+                         sm.tile, nullptr, sm.as, pade, pb);
     const float zm = tile_head<BF16, WIDE>(sm, w1fT, h1s, b1, wht, H, No,
                                            f32epi, a1c, pade, a1q, hc);
     // the next GEMM starts with a barrier, after every read of `red`
     first_layer_qx<WIDE>(fold, coords, b, i0 + b, p1, HW, H, lf, sr, seed,
-                         sm.tile, nullptr, sm.as, pade);
+                         sm.tile, nullptr, sm.as, pade, pb);
     const float zl = tile_head<BF16, WIDE>(sm, w1fT, h1s, b1, wht, H, No,
                                            f32epi, a1c, pade, a1q, hc);
     float per = 0.f, dmu = 0.f, dlv = 0.f;
@@ -538,7 +541,7 @@ loss_fwd_kernel(const float* __restrict__ fold,
       lmax = tile_dh1_max<BF16, WIDE>(sm, w1fT, h1s, b1, wht, H, No, f32epi,
                                       a1c, pade);
       first_layer_qx<WIDE>(fold, coords, b, i0 + b, p0, HW, H, lf, sr, seed,
-                           sm.tile, nullptr, sm.as, pade);
+                           sm.tile, nullptr, sm.as, pade, pb);
       if (!WIDE)
         loss_a1c<BF16, false>(sm, w1fT, h1s, b1, H, f32epi, 0, a1c, pade);
       if (tid < 2 * PT) sm.dzc[tid] = operand<BF16>(dmu);
@@ -562,7 +565,7 @@ loss_fwd_kernel(const float* __restrict__ fold,
   const int b = blockIdx.x / blocks;
   const int p0 = (blockIdx.x % blocks) * PT;
   first_layer_qx<WIDE>(fold, coords, b, i0 + b, p0, HW, H, lf, sr, seed,
-                       sm.tile, nullptr, sm.as, pade);
+                       sm.tile, nullptr, sm.as, pade, pb);
   const float z = tile_head<BF16, WIDE>(sm, w1fT, h1s, b1, wht, H, No, f32epi,
                                         a1c, pade, a1q, hc);
   float per = 0.f, d = 0.f;
@@ -631,7 +634,8 @@ loss_grad_kernel(const float* __restrict__ fold,
                  int8_t* __restrict__ q_ws, float* __restrict__ part_fold,
                  float* __restrict__ part_w, int8_t* __restrict__ ws, int b0,
                  int HW, int H, int No, int Pt, int blocks, float lf,
-                 float lv, int mode, float dbk, float swht, int cut) {
+                 float lv, int mode, float dbk, float swht, int cut,
+                 int pb) {
   extern __shared__ float4 smem4[];
   const Smem sm = carve<WIDE>(smem4, ws, padded_k(H));
   const int tid = threadIdx.x;
@@ -653,7 +657,7 @@ loss_grad_kernel(const float* __restrict__ fold,
   // aq (the forward's words again: the same tile as pass 1), and the dW1
   // operand to its workspace
   first_layer_qx<WIDE>(fold, coords, b, b, p0, HW, H, lf, sr, seed, sm.tile,
-                       aq4 ? sm.q : nullptr, sm.as, pade);
+                       aq4 ? sm.q : nullptr, sm.as, pade, pb);
   __syncthreads();
   if (kcut >= 6)
     tile_to_feature_major<WIDE>(aq4 ? sm.q : sm.tile,
@@ -721,8 +725,8 @@ loss_grad_kernel(const float* __restrict__ fold,
             uint4 w = make_uint4(0u, 0u, 0u, 0u);
             if (sr)
               w = philox4x32_10(
-                  make_uint4(b, p0 + p, (n0 + warp * WN + nt * 8) / 4 + t / 2,
-                             0u),
+                  make_uint4(b, pb + p0 + p,
+                             (n0 + warp * WN + nt * 8) / 4 + t / 2, 0u),
                   seed, grad_site());
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
@@ -863,7 +867,8 @@ loss_grad_kernel(const float* __restrict__ fold,
 }
 
 template <bool BF16, bool COLORED, bool TILE_, bool WIDE, bool LEV>
-cudaError_t launch_fwd(const LossFwdArgs& a, int b0, cudaStream_t st) {
+cudaError_t launch_fwd(const LossFwdArgs& a, int b0, int pb,
+                       cudaStream_t st) {
   auto k = loss_fwd_kernel<BF16, COLORED, TILE_, WIDE, LEV>;
   const int smem = WIDE ? SMEM_WIDE : SMEM;
   cudaError_t err = allow_smem(k, smem);
@@ -872,29 +877,29 @@ cudaError_t launch_fwd(const LossFwdArgs& a, int b0, cudaStream_t st) {
                               a.bht, a.yt, a.mask, a.dz2, a.part_max,
                               a.part_bce, a.ws, a.HW, a.H, a.No, a.blocks,
                               a.Pt, a.yt_i8, a.family, a.lf, a.swht, a.mode,
-                              b0);
+                              b0, pb);
   return cudaGetLastError();
 }
 
 template <bool WIDE, bool LEV>
-cudaError_t dispatch_fwd(const LossFwdArgs& a, int b0, bool bf16,
+cudaError_t dispatch_fwd(const LossFwdArgs& a, int b0, int pb, bool bf16,
                          bool colored, bool tile, cudaStream_t st) {
   if (bf16) {
     if (colored)
-      return tile ? launch_fwd<true, true, true, WIDE, LEV>(a, b0, st)
-                  : launch_fwd<true, true, false, WIDE, LEV>(a, b0, st);
-    return tile ? launch_fwd<true, false, true, WIDE, LEV>(a, b0, st)
-                : launch_fwd<true, false, false, WIDE, LEV>(a, b0, st);
+      return tile ? launch_fwd<true, true, true, WIDE, LEV>(a, b0, pb, st)
+                  : launch_fwd<true, true, false, WIDE, LEV>(a, b0, pb, st);
+    return tile ? launch_fwd<true, false, true, WIDE, LEV>(a, b0, pb, st)
+                : launch_fwd<true, false, false, WIDE, LEV>(a, b0, pb, st);
   }
   if (colored)
-    return tile ? launch_fwd<false, true, true, WIDE, LEV>(a, b0, st)
-                : launch_fwd<false, true, false, WIDE, LEV>(a, b0, st);
-  return tile ? launch_fwd<false, false, true, WIDE, LEV>(a, b0, st)
-              : launch_fwd<false, false, false, WIDE, LEV>(a, b0, st);
+    return tile ? launch_fwd<false, true, true, WIDE, LEV>(a, b0, pb, st)
+                : launch_fwd<false, true, false, WIDE, LEV>(a, b0, pb, st);
+  return tile ? launch_fwd<false, false, true, WIDE, LEV>(a, b0, pb, st)
+              : launch_fwd<false, false, false, WIDE, LEV>(a, b0, pb, st);
 }
 
 template <bool BF16, bool SR_, bool WIDE, bool LEV>
-cudaError_t launch_grad(const LossGradArgs& a, cudaStream_t st) {
+cudaError_t launch_grad(const LossGradArgs& a, int pb, cudaStream_t st) {
   auto k = loss_grad_kernel<BF16, SR_, WIDE, LEV>;
   const int smem = WIDE ? SMEM_WIDE : SMEM;
   cudaError_t err = allow_smem(k, smem);
@@ -903,18 +908,18 @@ cudaError_t launch_grad(const LossGradArgs& a, cudaStream_t st) {
                               a.gb, a.b1, a.wht, a.dz2, a.part_max, a.gscale,
                               a.aq_ws, a.q_ws, a.part_fold, a.part_w, a.ws,
                               a.b0, a.HW, a.H, a.No, a.Pt, a.blocks, a.lf,
-                              a.lv, a.mode, a.dbk, a.swht, a.cut);
+                              a.lv, a.mode, a.dbk, a.swht, a.cut, pb);
   return cudaGetLastError();
 }
 
 template <bool WIDE, bool LEV>
-cudaError_t dispatch_grad(const LossGradArgs& a, bool bf16, bool sr,
-                          cudaStream_t st) {
+cudaError_t dispatch_grad(const LossGradArgs& a, int pb, bool bf16,
+                          bool sr, cudaStream_t st) {
   if (bf16)
-    return sr ? launch_grad<true, true, WIDE, LEV>(a, st)
-              : launch_grad<true, false, WIDE, LEV>(a, st);
-  return sr ? launch_grad<false, true, WIDE, LEV>(a, st)
-            : launch_grad<false, false, WIDE, LEV>(a, st);
+    return sr ? launch_grad<true, true, WIDE, LEV>(a, pb, st)
+              : launch_grad<true, false, WIDE, LEV>(a, pb, st);
+  return sr ? launch_grad<false, true, WIDE, LEV>(a, pb, st)
+            : launch_grad<false, false, WIDE, LEV>(a, pb, st);
 }
 
 }  // namespace

@@ -8,14 +8,14 @@
 
 namespace svt8 {
 
-cudaError_t loss_fwd_levers(const LossFwdArgs& a, bool bf16, bool colored,
-                            bool tile, cudaStream_t st) {
-  return dispatch_fwd<false, true>(a, 0, bf16, colored, tile, st);
+cudaError_t loss_fwd_levers(const LossFwdArgs& a, int pb, bool bf16,
+                            bool colored, bool tile, cudaStream_t st) {
+  return dispatch_fwd<false, true>(a, 0, pb, bf16, colored, tile, st);
 }
 
-cudaError_t loss_grad_levers(const LossGradArgs& a, bool bf16, bool sr,
-                             cudaStream_t st) {
-  return dispatch_grad<false, true>(a, bf16, sr, st);
+cudaError_t loss_grad_levers(const LossGradArgs& a, int pb, bool bf16,
+                             bool sr, cudaStream_t st) {
+  return dispatch_grad<false, true>(a, pb, bf16, sr, st);
 }
 
 }  // namespace svt8

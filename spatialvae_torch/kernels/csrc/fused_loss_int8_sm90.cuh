@@ -304,8 +304,9 @@ __device__ __forceinline__ void q7_thresholds(float* thr) {
 // q = clip(round(7 tanh(x0*w0 + x1*w1 + c)), -7, 7), 0 past H, as
 // first_layer_qx computes it, through q7_fast; with SR clip(floor(f32(7
 // tanh(h0)) + u), -7, 7), u from the forward site's words of Philox call
-// (img, the pixel's row, column / 4, 0) under key (seed, SITE_FWD), as
-// first_layer_qx_quad draws them.  Warp wi takes 16 columns (wi % 4) of the
+// (img, pb + the pixel's row, column / 4, 0) under key (seed, SITE_FWD), as
+// first_layer_qx_quad draws them (pb: the call's first row, where coords is
+// a pixel shard's slice of it).  Warp wi takes 16 columns (wi % 4) of the
 // pixel groups wi / 4 and wi / 4 + 4; lane 4r + c the columns 4c .. +3 of
 // pixel 8 * group + r (one Philox call): one 32-bit store, 32 banks per
 // warp.
@@ -314,7 +315,8 @@ __device__ __forceinline__ void chain_part(const float* __restrict__ fold,
                                            const float* __restrict__ coords,
                                            int b, int p0, int H, int s,
                                            const float* thr, int8_t* tile,
-                                           int img, uint32_t seed) {
+                                           int img, uint32_t seed,
+                                           int pb = 0) {
   const int lane = threadIdx.x & 31, wi = threadIdx.x >> 5;
   const int k0 = s * SB + (wi & 3) * 16 + (lane & 3) * 4;
   const float* f = fold + size_t(b) * 4 * H;
@@ -334,9 +336,10 @@ __device__ __forceinline__ void chain_part(const float* __restrict__ fold,
     uint4 wd = make_uint4(0u, 0u, 0u, 0u);
     if constexpr (SR)
       if (k0 < H)
-        wd = philox4x32_10(make_uint4(uint32_t(img), uint32_t(p0 + sr_row(p)),
-                                      uint32_t(k0 / 4), 0u),
-                           seed, SITE_FWD);
+        wd = philox4x32_10(
+            make_uint4(uint32_t(img), uint32_t(pb + p0 + sr_row(p)),
+                       uint32_t(k0 / 4), 0u),
+            seed, SITE_FWD);
     uint32_t packed = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -358,9 +361,10 @@ __device__ __forceinline__ void chain_tile(const float* __restrict__ fold,
                                            const float* __restrict__ coords,
                                            int b, int p0, int H, int from,
                                            const float* thr, int8_t* tile,
-                                           int img, uint32_t seed) {
+                                           int img, uint32_t seed,
+                                           int pb = 0) {
   for (int s = from; s < KW / SB; ++s)
-    chain_part<SR>(fold, coords, b, p0, H, s, thr, tile, img, seed);
+    chain_part<SR>(fold, coords, b, p0, H, s, thr, tile, img, seed, pb);
 }
 
 // The block's aq tile (its rows p, the accumulator rows 16 w + g + 8 h) to
@@ -481,12 +485,14 @@ __device__ __forceinline__ int colored_block(int q, uint32_t rank, int Pt) {
 // second half, before the next tile writes zx, waits for the partner's read.
 // COLORED is a template parameter: the other families' kernel has no trace
 // of the exchange; SR too (stochastic rounding at the forward site, the
-// launch's images b0 .. of the call, aq left in the dW1 workspace `aq_ws`
-// for the gradient pass): the default kernels have no trace of it.
+// launch's images b0 .. and pixels pb .. of the call, aq left in the dW1
+// workspace `aq_ws` for the gradient pass): the default kernels have no
+// trace of it.
 template <bool BF16, bool COLORED, bool SR>
 __device__ __forceinline__ void loss_fwd90_body(const LossFwdArgs& a,
                                                 int nquads, int b0 = 0,
-                                                int8_t* aq_ws = nullptr) {
+                                                int8_t* aq_ws = nullptr,
+                                                int pb = 0) {
   extern __shared__ __align__(128) uint8_t smem90[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem90);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -512,7 +518,7 @@ __device__ __forceinline__ void loss_fwd90_body(const LossFwdArgs& a,
   if (ntl > 0) {
     const int tb = block_of(0);
     chain_tile<SR>(a.fold, a.coords, tb / blocks, (tb % blocks) * PT, H, 0,
-                   sm.thr, sm.aq[0], b0 + tb / blocks, seed);
+                   sm.thr, sm.aq[0], b0 + tb / blocks, seed, pb);
     fence_proxy_async();
   }
   __syncthreads();
@@ -527,11 +533,11 @@ __device__ __forceinline__ void loss_fwd90_body(const LossFwdArgs& a,
     ring_product(acc, sm.aq[k & 1], ring, k * nslab, nslab, wg, [&](int s) {
       if (more)
         chain_part<SR>(a.fold, a.coords, nb / blocks, (nb % blocks) * PT, H,
-                       s, sm.thr, next, b0 + nb / blocks, seed);
+                       s, sm.thr, next, b0 + nb / blocks, seed, pb);
     });
     if (more) {
       chain_tile<SR>(a.fold, a.coords, nb / blocks, (nb % blocks) * PT, H,
-                     nslab, sm.thr, next, b0 + nb / blocks, seed);
+                     nslab, sm.thr, next, b0 + nb / blocks, seed, pb);
       fence_proxy_async();
     }
     // SR: the tile's aq to its dW1 workspace block (its rows read before
@@ -675,11 +681,12 @@ __device__ __forceinline__ float column_sum(const GradSmem& sm, int s) {
 // images b0 .. b0+Bc-1 (the tiles of the chunk as in pass 1, which ran on
 // the same chunk and left each tile's a1c in the stash `ws`: reading it
 // back costs less than the W1f product and the tanh that rebuild it).
-// SR: the gradient site rounds stochastically (sr_grad_words), and aq comes
-// back from the dW1 workspace where pass 1 left it.
+// SR: the gradient site rounds stochastically (sr_grad_words, its counters'
+// rows from the call's pixel pb on), and aq comes back from the dW1
+// workspace where pass 1 left it.
 template <bool BF16, bool SR>
 __device__ __forceinline__ void loss_grad90_body(const LossGradArgs& a,
-                                                 int nquads) {
+                                                 int nquads, int pb = 0) {
   // whether this pass builds aq itself (under SR pass 1 left it in aq_ws)
   constexpr bool CHAIN = !SR;
   extern __shared__ __align__(128) uint8_t smem90[];
@@ -767,7 +774,8 @@ __device__ __forceinline__ void loss_grad90_body(const LossGradArgs& a,
       for (int u = 0; u < 4; ++u) {
         const int nt = 4 * ch + u;
         uint32_t wd[2][2];
-        if constexpr (SR) sr_grad_words(wd, b, p0, wg, w, g, t, nt, seed);
+        if constexpr (SR)
+          sr_grad_words(wd, b, pb + p0, wg, w, g, t, nt, seed);
         int8_t qv[4];
 #pragma unroll
         for (int hc = 0; hc < 4; ++hc) {      // hc = 2 h + e

@@ -10,15 +10,15 @@ namespace {
 
 template <bool BF16, bool COLORED>
 __global__ void __launch_bounds__(NT, 1)
-loss_fwd90_sr_kernel(const LossFwdArgs a, int nquads, int b0,
+loss_fwd90_sr_kernel(const LossFwdArgs a, int nquads, int b0, int pb,
                      int8_t* aq_ws) {
-  loss_fwd90_body<BF16, COLORED, true>(a, nquads, b0, aq_ws);
+  loss_fwd90_body<BF16, COLORED, true>(a, nquads, b0, aq_ws, pb);
 }
 
 template <bool BF16>
 __global__ void __launch_bounds__(NT, 1)
-loss_grad90_sr_kernel(const LossGradArgs a, int nquads) {
-  loss_grad90_body<BF16, true>(a, nquads);
+loss_grad90_sr_kernel(const LossGradArgs a, int nquads, int pb) {
+  loss_grad90_body<BF16, true>(a, nquads, pb);
 }
 
 int fwd_sr_clusters(bool bf16, bool colored) {
@@ -47,8 +47,8 @@ int grad_sr_clusters(bool bf16) {
 
 namespace svt8 {
 
-cudaError_t loss_fwd_sm90_sr(const LossFwdArgs& a, int b0, int8_t* aq_ws,
-                             bool bf16, cudaStream_t st) {
+cudaError_t loss_fwd_sm90_sr(const LossFwdArgs& a, int b0, int pb,
+                             int8_t* aq_ws, bool bf16, cudaStream_t st) {
   // the a1c stash, and the dW1 workspace the forward leaves aq in
   if (a.ws == nullptr || aq_ws == nullptr)
     return cudaErrorInvalidValue;
@@ -60,16 +60,16 @@ cudaError_t loss_fwd_sm90_sr(const LossFwdArgs& a, int b0, int8_t* aq_ws,
   const int smem = sizeof(FwdSmem);
   if (colored)
     return bf16 ? launch_clusters(loss_fwd90_sr_kernel<true, true>, grid, NT,
-                                  smem, CS, st, a, nquads, b0, aq_ws)
+                                  smem, CS, st, a, nquads, b0, pb, aq_ws)
                 : launch_clusters(loss_fwd90_sr_kernel<false, true>, grid,
-                                  NT, smem, CS, st, a, nquads, b0, aq_ws);
+                                  NT, smem, CS, st, a, nquads, b0, pb, aq_ws);
   return bf16 ? launch_clusters(loss_fwd90_sr_kernel<true, false>, grid, NT,
-                                smem, CS, st, a, nquads, b0, aq_ws)
+                                smem, CS, st, a, nquads, b0, pb, aq_ws)
               : launch_clusters(loss_fwd90_sr_kernel<false, false>, grid, NT,
-                                smem, CS, st, a, nquads, b0, aq_ws);
+                                smem, CS, st, a, nquads, b0, pb, aq_ws);
 }
 
-cudaError_t loss_grad_sm90_sr(const LossGradArgs& a, bool bf16,
+cudaError_t loss_grad_sm90_sr(const LossGradArgs& a, int pb, bool bf16,
                               cudaStream_t st) {
   if (a.ws == nullptr) return cudaErrorInvalidValue;     // the a1c stash
   const int nquads = int(a.grid / CS);
@@ -77,10 +77,10 @@ cudaError_t loss_grad_sm90_sr(const LossGradArgs& a, bool bf16,
   if (ncl < 1) return cudaErrorInvalidConfiguration;
   return bf16 ? launch_clusters(loss_grad90_sr_kernel<true>,
                                 unsigned(ncl * CS), NT, sizeof(GradSmem), CS,
-                                st, a, nquads)
+                                st, a, nquads, pb)
               : launch_clusters(loss_grad90_sr_kernel<false>,
                                 unsigned(ncl * CS), NT, sizeof(GradSmem), CS,
-                                st, a, nquads);
+                                st, a, nquads, pb);
 }
 
 int loss90_sr_max_clusters(int which) {

@@ -7,14 +7,14 @@
 
 namespace svt8 {
 
-cudaError_t loss_fwd_wide(const LossFwdArgs& a, int b0, bool bf16,
+cudaError_t loss_fwd_wide(const LossFwdArgs& a, int b0, int pb, bool bf16,
                           bool colored, bool tile, cudaStream_t st) {
-  return dispatch_fwd<true, true>(a, b0, bf16, colored, tile, st);
+  return dispatch_fwd<true, true>(a, b0, pb, bf16, colored, tile, st);
 }
 
-cudaError_t loss_grad_wide(const LossGradArgs& a, bool bf16, bool sr,
+cudaError_t loss_grad_wide(const LossGradArgs& a, int pb, bool bf16, bool sr,
                            cudaStream_t st) {
-  return dispatch_grad<true, true>(a, bf16, sr, st);
+  return dispatch_grad<true, true>(a, pb, bf16, sr, st);
 }
 
 }  // namespace svt8

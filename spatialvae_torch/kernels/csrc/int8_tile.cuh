@@ -255,7 +255,7 @@ __device__ __forceinline__ void first_layer_q(const float* __restrict__ fold,
 __device__ __forceinline__ void first_layer_qx_quad(
     const float* __restrict__ fold, const float* __restrict__ coords, int b,
     int img, int p0, int HW, int H, float lf, bool sr, uint32_t seed, int8_t* tile,
-    int8_t* tile4, int as, int quad, bool pade) {
+    int8_t* tile4, int as, int quad, bool pade, int pb = 0) {
   const int k0 = 4 * quad;
   const float* f = fold + size_t(b) * 4 * H;
   float w0[4], w1[4], c[4];
@@ -272,7 +272,8 @@ __device__ __forceinline__ void first_layer_qx_quad(
     if (pix < HW) {
       uint4 w = make_uint4(0u, 0u, 0u, 0u);
       if (sr)
-        w = philox4x32_10(make_uint4(img, pix, quad, 0u), seed, SITE_FWD);
+        w = philox4x32_10(make_uint4(img, pb + pix, quad, 0u), seed,
+                          SITE_FWD);
       const float x0 = coords[2 * pix], x1 = coords[2 * pix + 1];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -302,7 +303,9 @@ __device__ __forceinline__ void first_layer_qx_quad(
 // the forward site's words; `tile4` (if not null) gets clip(round(7 * a0),
 // -7, 7) beside it (the feature-major kernel's 4-bit dW1 operand).  `img`:
 // image b's index in the call, the words' counter (b itself, or b0 + b
-// where `fold` starts at the call's image b0).  Thread i owns columns 4*(i % 128) .. +3 of pixels i/128, i/128 + 4, ... (WIDE:
+// where `fold` starts at the call's image b0); `pb` the first pixel's row
+// in the call, the words' counter row pb + p0 + p (0, or where coords is a
+// pixel shard's slice of the call's).  Thread i owns columns 4*(i % 128) .. +3 of pixels i/128, i/128 + 4, ... (WIDE:
 // and the same columns of every further 512-column chunk); columns past H
 // and pixels past HW are zero.  `pade`: a0 through the Pade tanh.  The
 // caller syncs before another thread reads the tiles.
@@ -310,11 +313,11 @@ template <bool WIDE = false>
 __device__ __forceinline__ void first_layer_qx(
     const float* __restrict__ fold, const float* __restrict__ coords, int b,
     int img, int p0, int HW, int H, float lf, bool sr, uint32_t seed,
-    int8_t* tile, int8_t* tile4, int as = AS, bool pade = false) {
+    int8_t* tile, int8_t* tile4, int as = AS, bool pade = false, int pb = 0) {
   for (int quad = threadIdx.x % (MAX_H / 4); 4 * quad < padded_k(H);
        quad += MAX_H / 4) {
     first_layer_qx_quad(fold, coords, b, img, p0, HW, H, lf, sr, seed, tile,
-                        tile4, WIDE ? as : AS, quad, pade);
+                        tile4, WIDE ? as : AS, quad, pade, pb);
     if (!WIDE) break;
   }
 }

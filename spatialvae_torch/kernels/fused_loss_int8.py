@@ -292,7 +292,8 @@ def stash_block_bytes(bf16: bool) -> int:
 
 
 def sr90_counters(nimg: int, hw: int, h: int, clusters: int, b0: int = 0,
-                  colored_pt: int = 0, ws_row: bool = False) -> dict:
+                  colored_pt: int = 0, ws_row: bool = False,
+                  p_base: int = 0) -> dict:
     """The cluster passes' Philox counters under SR, element by element, as
     the kernels compute them (``csrc/fused_loss_int8_sm90.cuh``'s
     ``chain_part`` and ``sr_grad_words``) for a chunk of ``nimg`` images
@@ -307,7 +308,9 @@ def sr90_counters(nimg: int, hw: int, h: int, clusters: int, b0: int = 0,
     walk, lanes t and t ^ 1 each drawing the call of row g + 8 (t & 1) and
     trading words by shuffle.  ``ws_row`` mirrors the faulty copy
     SVT_SR90_WS_ROW, whose counters take the row from the dW1 workspace's
-    order (16 w + 2 g + h)."""
+    order (16 w + 2 g + h).  ``p_base``: the chunk's pixels are rows p_base
+    .. of a larger call (a pixel shard): the counters' rows start there,
+    the elements' rows at 0."""
     blocks = hw // BLOCK_PIXELS
 
     def dims(n, *sizes):                  # aranges broadcast over n dims
@@ -336,7 +339,8 @@ def sr90_counters(nimg: int, hw: int, h: int, clusters: int, b0: int = 0,
     p = (wi // 4 + 4 * it) * 8 + lane // 4
     p0, img = (tb % blocks) * BLOCK_PIXELS, b0 + tb // blocks
     shape = torch.broadcast_shapes(tb.shape, k0.shape, p.shape, j.shape)
-    out["fwd"] = flat((img, p0 + p, k0 + j, img, p0 + crow(p), k0 // 4, j),
+    out["fwd"] = flat((img, p0 + p, k0 + j, img, p_base + p0 + crow(p),
+                       k0 // 4, j),
                       shape, k0 + j < h)
     # the gradient pass: (tile, warpgroup, warp, lane g, lane t, nt, h, e)
     tb = walk(0, 8)
@@ -349,7 +353,8 @@ def sr90_counters(nimg: int, hw: int, h: int, clusters: int, b0: int = 0,
     call_row = 16 * w + g + 8 * hh
     shape = torch.broadcast_shapes(tb.shape, col.shape, call_row.shape)
     out["grad"] = flat((img, p0 + 16 * w + g + 8 * hh, col, img,
-                        p0 + crow(call_row), 32 * wg + 2 * nt + src // 2,
+                        p_base + p0 + crow(call_row),
+                        32 * wg + 2 * nt + src // 2,
                         2 * (t % 2) + e), shape, col < h)
     return out
 
@@ -592,13 +597,15 @@ def _per_group(v: torch.Tensor, pt: int) -> torch.Tensor:
 def loss_reference(fold, coords, w1, b1, wht, bht, y_t,
                    mask: Optional[torch.Tensor], family: str, nm: Numerics,
                    pt: int, t_mode: Optional[str] = None,
-                   ints: bool = False, image0: int = 0) -> tuple:
+                   ints: bool = False, image0: int = 0,
+                  p_base: int = 0) -> tuple:
     """The plain version of K3 (``t_mode`` None) and of K8 (``t_mode``
     ``"i4"`` or ``"i8"``, the feature-major kernel's numbers: see
     ``fused_loss_int8_t``), over groups of ``pt`` pixels.  Returns the five
     outputs of ``loss_int8_reference``, and with ``ints`` also the integer
-    tiles (the dW1 operand (B, HW, H), qi (B, HW, H)) as f32.  ``image0``:
-    the index in the kernel's call of the first image (SR's counters)."""
+    tiles (the dW1 operand (B, HW, H), qi (B, HW, H)) as f32.  ``image0``
+    and ``p_base``: the index in the kernel's call of the first image and of
+    the first pixel (SR's counters)."""
     wdt = wht.dtype
     b, _, h = fold.shape
     hw = coords.shape[0]
@@ -613,7 +620,8 @@ def loss_reference(fold, coords, w1, b1, wht, bht, y_t,
     a0 = tanh(_first_layer(fold, coords))                    # (B, HW, H)
     if seed is not None:
         aq = sr_round(a0 * float(lf),
-                      site_words(seed, SITE_FWD, b, hw, h, dev, image0),
+                      site_words(seed, SITE_FWD, b, hw, h, dev, image0,
+                                 p_base),
                       -lf, lf)
     else:
         aq = torch.clamp(torch.round(a0 * float(lf)), -lf, lf)
@@ -675,8 +683,8 @@ def loss_reference(fold, coords, w1, b1, wht, bht, y_t,
             q = _rb(dh1 * _per_group(qs_b, pt), wdt)
         db1g = dh1.reshape(b, t_, pt, h).sum(dim=2)
     if seed is not None:
-        qi = sr_round(q, site_words(seed, SITE_GRAD, b, hw, h, dev, image0),
-                      -lv, lv)
+        qi = sr_round(q, site_words(seed, SITE_GRAD, b, hw, h, dev, image0,
+                                    p_base), -lv, lv)
     else:
         qi = torch.clamp(torch.round(q), -lv, lv)
     if nm.k3_db1_qi:
@@ -724,7 +732,8 @@ def loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
                         mask: Optional[torch.Tensor] = None,
                         family: str = "bernoulli",
                         numerics: Optional[Numerics] = None,
-                        ints: bool = False, image0: int = 0) -> tuple:
+                        ints: bool = False, image0: int = 0,
+                        p_base: int = 0) -> tuple:
     """Plain version of K3.  fold (B, 4, H) f32 rows [w0, w1, c, 0]; coords
     (HW, 2) f32, HW tile-aligned (colored: chunk-permuted); w1 (H, H)
     [in][out]; b1 (H,); wht (No, H); bht (No,), in one weight dtype; y_t (B,
@@ -732,13 +741,14 @@ def loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
     ``numerics`` (default: the defaults).  Returns float32 (dfold (B, 4, H)
     with the per-image loss at [:, 3, 0], dW1 (H, H), db1 (H,), dWh^T (No,
     H), dbh (No,)); with ``ints`` also (aq, qi) (B, HW, H), the two
-    quantised tiles.  ``image0``: these images' first index in a larger
-    call, whose SR counters they take (the rest of the call does not
-    change them)."""
+    quantised tiles.  ``image0`` and ``p_base``: these images' first index
+    and these pixels' first row in a larger call (a pixel shard's slice of
+    coords, y_t and mask), whose SR counters they take (the rest of the call
+    does not change them)."""
     nm = DEFAULTS if numerics is None else numerics.check()
     return loss_reference(fold, coords, w1, b1, wht, bht, y_t, mask, family,
                           nm, pick_tile(coords.shape[0]), ints=ints,
-                          image0=image0)
+                          image0=image0, p_base=p_base)
 
 
 # ---------------------------------------------------------------------------
@@ -810,7 +820,8 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
                   family: str = "bernoulli",
                   workspace_bytes: Optional[int] = None,
                   numerics: Optional[Numerics] = None,
-                  ints: bool = False, block_passes: bool = False) -> tuple:
+                  ints: bool = False, block_passes: bool = False,
+                  p_base: int = 0) -> tuple:
     """K3's five outputs (see ``loss_int8_reference``) at ``numerics``
     (default: the environment's).  CPU tensors take the plain version; CUDA
     tensors launch the kernels, counting each in ``LAUNCHES``, and raise if
@@ -840,15 +851,23 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
     outputs from its shared memory; under SR csrc/fused_loss_int8_sm90_sr.cu,
     the same Philox words, the forward leaving aq in the dW1 workspace for
     the gradient pass); ``block_passes`` sends them to the passes above, for
-    a caller that compares the two designs on one card."""
+    a caller that compares the two designs on one card.
+
+    ``p_base``: the first pixel's row in a larger call whose pixel slice
+    this is (a pixel shard, ``parallel/pixel.py``): under SR the slice
+    draws the words the whole call draws for its pixels; nothing else
+    reads it."""
     _check(fold, coords, w1, b1, wht, bht, y_t, mask, family)
+    if p_base < 0:
+        raise ValueError(f"p_base {p_base} < 0")
     nm = _resolve(numerics)
     if fold.device.type == "cpu":
         return loss_int8_reference(fold, coords, w1, b1, wht, bht, y_t,
-                                   mask, family, numerics=nm, ints=ints)
+                                   mask, family, numerics=nm, ints=ints,
+                                   p_base=p_base)
     return launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family, nm,
                        pick_tile(coords.shape[0]), None, workspace_bytes,
-                       ints, LAUNCHES, block_passes)
+                       ints, LAUNCHES, block_passes, p_base)
 
 
 # the kernels' Mode bits (csrc/fused_loss_int8.cuh)
@@ -859,13 +878,14 @@ _PADE, _A1Q, _CUT = 32, 64, 128
 def launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family,
                 nm: Numerics, pt: int, t_mode: Optional[str],
                 workspace_bytes: Optional[int], ints: bool,
-                launches: dict, block_passes: bool = False) -> tuple:
+                launches: dict, block_passes: bool = False,
+                p_base: int = 0) -> tuple:
     """The K3 kernels on CUDA tensors at ``nm`` over groups of ``pt``
     pixels, or K8's modes of them (``t_mode`` "i4" or "i8": the tile scale,
     db1 from the rounded tile, and for "i4" the 4-bit a0 as dW1's operand),
     on the passes ``k3_route`` names, each launch counted in ``launches``
-    (the cluster passes' under their "_sm90" keys).  Returns what
-    ``loss_reference`` returns."""
+    (the cluster passes' under their "_sm90" keys); SR's counters start at
+    row ``p_base``.  Returns what ``loss_reference`` returns."""
     lib = _lib()
     dev = fold.device
     b, _, h = fold.shape
@@ -939,7 +959,8 @@ def launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family,
               dz2.data_ptr() + b0 * no * hw * 4,
               part_max.data_ptr() + b0 * blocks * 4,
               part_bce.data_ptr() + b0 * blocks * 4, ptr(ws),
-              aq_ws.data_ptr(), b0, n, hw, h, no, pt, int(yt_i8), fam, bf16,
+              aq_ws.data_ptr(), b0, p_base, n, hw, h, no, pt, int(yt_i8),
+              fam, bf16,
               float(lf), swht, mode, sm90, st)
         launches["fwd" + sfx] += 1
 
@@ -951,8 +972,8 @@ def launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family,
               b1f.data_ptr(), whtf.data_ptr(), dz2.data_ptr(),
               part_max.data_ptr(), gscale.data_ptr(), aq_ws.data_ptr(),
               q_ws.data_ptr(), part_fold.data_ptr(), part_w.data_ptr(),
-              ptr(ws), b0, n, hw, h, no, pt, bf16, float(lf), float(lv),
-              mode, dbk, swht, cut, sm90, st)
+              ptr(ws), b0, p_base, n, hw, h, no, pt, bf16, float(lf),
+              float(lv), mode, dbk, swht, cut, sm90, st)
         launches["grad" + sfx] += 1
         if cut < 6:
             return
@@ -1085,12 +1106,14 @@ class _LossInt8(torch.autograd.Function):
     """Counterpart of the JAX ``fused_decoder_bce_int8`` custom VJP: the
     forward returns the summed loss and keeps the five gradients it
     computed; the backward scales them by the scalar cotangent.  coords, y_t
-    and mask are data, ``family`` a name."""
+    and mask are data, ``family`` a name, ``p_base`` the slice's first
+    pixel in the call it belongs to."""
 
     @staticmethod
-    def forward(ctx, fold, coords, w1, b1, wht, bht, y_t, mask, family):
+    def forward(ctx, fold, coords, w1, b1, wht, bht, y_t, mask, family,
+                p_base):
         grads = run_loss_int8(fold, coords, w1, b1, wht, bht, y_t, mask,
-                              family)
+                              family, p_base=p_base)
         ctx.save_for_backward(*grads)
         ctx.dtypes = (fold.dtype, w1.dtype, b1.dtype, wht.dtype, bht.dtype)
         return grads[0][:, 3, 0].sum()
@@ -1100,32 +1123,37 @@ class _LossInt8(torch.autograd.Function):
         grads = ctx.saved_tensors
         dfold, dw1, db1, dwht, dbht = (
             (g * t).to(dt) for t, dt in zip(grads, ctx.dtypes))
-        return dfold, None, dw1, db1, dwht, dbht, None, None, None
+        return dfold, None, dw1, db1, dwht, dbht, None, None, None, None
 
 
 def fused_decoder_bce_int8(fold, coords, w1, b1, wht, bht, y_t,
                            mask: Optional[torch.Tensor] = None,
-                           family: str = "bernoulli") -> torch.Tensor:
+                           family: str = "bernoulli",
+                           p_base: int = 0) -> torch.Tensor:
     """The summed reconstruction loss of the int8 decoder against y_t, with
     its gradients computed in the same call (see ``_LossInt8``): the clamped
     BCE, 0.5 * sum(mask * (sigmoid(head) - y)^2) for ``gaussian``, 0.5 *
     sum(mask * (d^2 / var + logvar)) for ``colored`` (coords chunk-permuted,
-    y_t pre-paired)."""
-    return _LossInt8.apply(fold, coords, w1, b1, wht, bht, y_t, mask, family)
+    y_t pre-paired).  ``p_base``: coords, y_t and mask are the pixels
+    p_base .. of a larger call (``run_loss_int8``)."""
+    return _LossInt8.apply(fold, coords, w1, b1, wht, bht, y_t, mask, family,
+                           p_base)
 
 
 def fused_bce_spatial_int8(gen: SpatialGenerator, coords: torch.Tensor,
                            theta, dx, z, y: torch.Tensor,
                            y_t: Optional[torch.Tensor] = None,
                            mask: Optional[torch.Tensor] = None,
-                           family: str = "bernoulli") -> torch.Tensor:
+                           family: str = "bernoulli",
+                           p_base: int = 0) -> torch.Tensor:
     """The JAX ``fused_bce_spatial_int8``: the pose fold in PyTorch, then
     the loss kernel.  y: (B, HW[, C]); ``y_t`` the targets already in the
     kernel's layout ((B, C, padded HW), colored (B, 2, HW/2); int8 k-128 or
     float), else built from y.  The colored family runs over chunk-permuted
     coords; a pixel count off the tiling is zero-padded to ``padded_hw``
-    with a forced mask whose pad entries are 0.  Returns the summed loss
-    (0-d)."""
+    with a forced mask whose pad entries are 0.  ``p_base``: coords (and
+    y_t, mask) are the pixel slice p_base .. of a larger grid, a pixel
+    shard's (tile-aligned: no pad).  Returns the summed loss (0-d)."""
     hw = coords.shape[0]
     check_ported(hw, family)
     w0, w1f, c = fold_pose_into_first_layer(gen, theta, dx, z)
@@ -1150,4 +1178,4 @@ def fused_bce_spatial_int8(gen: SpatialGenerator, coords: torch.Tensor,
                 y_t = F.pad(y_t, (0, pad))
     return fused_decoder_bce_int8(
         fold, coords.contiguous(), hidden.weight.T.contiguous(), hidden.bias,
-        head.weight.contiguous(), head.bias, y_t, mask, family)
+        head.weight.contiguous(), head.bias, y_t, mask, family, p_base)

@@ -70,13 +70,15 @@ def f32_bits(x: torch.Tensor) -> int:
 
 
 def site_words(seed_bits: int, site: int, b: int, rows: int, cols: int,
-               device=None, image0: int = 0) -> torch.Tensor:
+               device=None, image0: int = 0, p_base: int = 0) -> torch.Tensor:
     """The (b, rows, cols) words of one site of the loss kernel: element
-    (i, p, k) is word k % 4 of Philox4x32-10 at counter (image0 + i, p,
-    k // 4, 0) under key (seed_bits, site): the call's images image0 .. ."""
+    (i, p, k) is word k % 4 of Philox4x32-10 at counter (image0 + i, p_base
+    + p, k // 4, 0) under key (seed_bits, site): the call's images image0
+    .. and pixels p_base .. (a pixel shard's slice of a larger call)."""
     i = torch.arange(image0, image0 + b, dtype=torch.int64,
                      device=device)[:, None, None]
-    p = torch.arange(rows, dtype=torch.int64, device=device)[None, :, None]
+    p = torch.arange(p_base, p_base + rows, dtype=torch.int64,
+                     device=device)[None, :, None]
     q = torch.arange(-(-cols // 4), dtype=torch.int64,
                      device=device)[None, None, :]
     words = philox4x32_10((i, p, q, 0), (seed_bits, site))

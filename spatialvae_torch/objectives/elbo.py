@@ -38,8 +38,17 @@ infers no pose for it (rotate and translate forced off, as in JAX), never
 takes the loss kernel or the int8 decoder, and its products run in
 PyTorch, as JAX leaves them to XLA; the int8 encoder copies still apply.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: pixel-axis sharding (M10).
+Pixel-axis sharding (``pixel_axis``, the JAX hook of the same name): on a
+mesh's model axis each rank passes its slice of the pixels (coords, ``y_t``
+and mask) and the axis (``parallel/mesh.Axis``); the loss kernel runs on
+the slice (its SR counters from the slice's first pixel on), the loss
+value is summed over the axis, so the returned ELBO, log p and KL are the
+whole image's on every rank, while the gradient stays the slice's partial
+(``parallel/collectives.sum_value``); the KL, computed on every rank, has
+its gradient scaled by 1/size with its value unchanged, so that the caller
+completes the gradient by summing it over the axis.  It takes the loss
+kernel's path alone, with ``y_t``, and raises ``ValueError`` otherwise, as
+in JAX.
 
 ``elbo_minibatch`` is differentiable; its serving callers take
 ``torch.no_grad()`` themselves, so serving saves nothing for a backward and
@@ -82,6 +91,7 @@ from spatialvae_torch.models.spatial import (
     spatial_generator_apply_folded,
 )
 from spatialvae_torch.models.vanilla import VanillaGenerator
+from spatialvae_torch.parallel.collectives import sum_value
 from spatialvae_torch.precision import fp32_precision
 from spatialvae_torch.transforms.coords import rotate_coords, translate_coords
 
@@ -105,10 +115,6 @@ class ElboConfig:
     int8: bool = False
     fused_loss: bool = True
     fit_noise_interleaved: bool = True
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def fused_loss_active(ecfg: ElboConfig, p_cfg, hw: int, batch: int) -> bool:
@@ -258,7 +264,7 @@ def elbo_minibatch(
     y_t: Optional[torch.Tensor] = None,   # (B, C, HW) targets for K3
     q_quant=None,                         # int8 encoder weight entries
     y_q8=None,                            # (xq (B, n) int8, sx) data batch
-    pixel_axis: Optional[str] = None,
+    pixel_axis=None,                      # parallel.mesh.Axis of a pixel shard
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (elbo, log_p_x_g_z, kl_div, y_hat): 0-d tensors and the
     (B, HW, n_out) decode (for the Gaussian and colored likelihoods the
@@ -270,9 +276,9 @@ def elbo_minibatch(
     encoder's view (the augmented images), ``offsets`` the augmentation's
     angles, added to theta; ``ctf`` the batch's CTF kernels, over the (n,
     m) ``image_shape``.  ``p_net`` may be a ``VanillaGenerator``, with
-    ``ecfg.vanilla`` set.  ``pixel_axis`` is not ported yet and raises."""
-    if pixel_axis is not None:
-        raise _not_ported("pixel-axis sharding", "M10")
+    ``ecfg.vanilla`` set.  ``pixel_axis``: coords, y_t and mask are this
+    rank's pixel slice of the grid along that mesh axis (see the module
+    docstring)."""
     if ecfg.vanilla != isinstance(p_net, VanillaGenerator):
         raise ValueError(f"ElboConfig(vanilla={ecfg.vanilla}) with a "
                          f"{type(p_net).__name__}")
@@ -320,22 +326,42 @@ def elbo_minibatch(
     z = z * z_scale
 
     # ---- fused int8 loss-and-gradient path (K3, or K8) --------------------
-    if not want_y_hat and ctf is None and fused_loss_active(
-            ecfg, p_net.cfg, coords.shape[0], b):
+    fused_path = not want_y_hat and ctf is None and fused_loss_active(
+        ecfg, p_net.cfg, coords.shape[0], b)
+    if pixel_axis is not None and (not fused_path or y_t is None):
+        raise ValueError(
+            "pixel_axis requires the fused int8 loss-kernel path with the "
+            "targets' pixel slice y_t (the trainer takes the pixel step only "
+            "where fused_loss_active holds for the slice's shapes; y is the "
+            "whole image here, so the kernel must not build y_t from it)")
+    if fused_path:
         if (numerics().layout == "t" and ecfg.likelihood == "bernoulli"
-                and mask is None
+                and mask is None and pixel_axis is None
                 and (y_t is None or y_t.dtype != torch.int8)):
             # the feature-major kernel, under the JAX package's conditions
             # (it predates int8 targets and the masked families)
             loss = fused_bce_spatial_int8_t(p_net, coords, theta, dx, z, y,
                                             y_t=y_t)
         else:
+            p_base = (0 if pixel_axis is None
+                      else pixel_axis.index * coords.shape[0])
             loss = fused_bce_spatial_int8(p_net, coords, theta, dx, z, y,
                                           y_t=y_t, mask=mask,
-                                          family=ecfg.likelihood)
+                                          family=ecfg.likelihood,
+                                          p_base=p_base)
+        if pixel_axis is not None:
+            # the slices' partials sum to the whole loss: the value is the
+            # whole image's, the gradient the slice's
+            loss = sum_value(loss, pixel_axis)
         log_p = -loss / b
         z_kl = -z_logstd + 0.5 * z_std ** 2 + 0.5 * z_mu ** 2 - 0.5
         kl_div = torch.mean(kl_div + torch.sum(z_kl, dim=1))
+        if pixel_axis is not None:
+            # every rank computes the KL; the caller sums the gradients over
+            # the axis, so its gradient is scaled to 1/size (value kept)
+            inv = 1.0 / pixel_axis.size
+            kl_obj = kl_div * inv + (kl_div * (1.0 - inv)).detach()
+            return log_p - kl_obj, log_p, kl_div, None
         return log_p - kl_div, log_p, kl_div, None
 
     # ---- decode + reconstruction log-likelihood ---------------------------
@@ -376,8 +402,8 @@ def loss_terms(q_net: InferenceNetwork, p_net: SpatialGenerator,
                offsets: Optional[torch.Tensor] = None,
                ctf: Optional[torch.Tensor] = None,
                image_shape: Optional[Tuple[int, int]] = None,
-               compute_dtype: torch.dtype = torch.float32
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               compute_dtype: torch.dtype = torch.float32,
+               pixel_axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training loss, ``Trainer._loss`` of the JAX package: params, y and
     coords in ``compute_dtype`` (so a bf16 run decodes over the bf16-rounded
     grid), then the ELBO.  ``params``: a dict of ``q.<name>``/``p.<name>``
@@ -385,7 +411,8 @@ def loss_terms(q_net: InferenceNetwork, p_net: SpatialGenerator,
     bf16 shadow, already in the compute dtype); without it the modules'
     parameters are cast.  ``y_t`` (the batch's targets in the loss kernel's
     layout), ``q_quant``, ``y_q8``, the augmented encoder view ``y_inf``
-    (in the compute dtype) and its ``offsets`` pass as they are; ``ctf`` is
+    (in the compute dtype), its ``offsets`` and ``pixel_axis`` (with coords,
+    mask and y_t a pixel slice) pass as they are; ``ctf`` is
     cast to the compute dtype, as in JAX (so bf16 compute raises at the
     FFT, as XLA's does).  Returns (loss = -elbo, aux = [elbo, -log_p,
     kl]), float32.  Differentiable; the evaluation runs it under
@@ -399,7 +426,7 @@ def loss_terms(q_net: InferenceNetwork, p_net: SpatialGenerator,
     kw = dict(noise=noise, z_scale=z_scale, mask=mask, y_t=y_t,
               q_quant=q_quant, y_q8=y_q8, y_inf=y_inf, offsets=offsets,
               ctf=None if ctf is None else ctf.to(compute_dtype),
-              image_shape=image_shape)
+              image_shape=image_shape, pixel_axis=pixel_axis)
     args = (ecfg, coords, y, generator)
     if params is None:
         elbo, log_p, kl, _ = pair(*args, **kw)

@@ -70,10 +70,14 @@ def save_label(args_dict: dict, prefix: str) -> str:
 
 
 class RunOutputs:
-    """Owns the outputs_{prefix} tree for one training run."""
+    """Owns the outputs_{prefix} tree for one training run.  With ``write``
+    False (a mesh's ranks other than 0) it names the tree and touches
+    nothing: its writers return at once."""
 
-    def __init__(self, prefix: str, confirm: bool = True):
-        if confirm:
+    def __init__(self, prefix: str, confirm: bool = True,
+                 write: bool = True):
+        self.write = write
+        if confirm and write:
             confirm_or_exit("WARNING Will clear the outputs directory if it "
                             "exists. Continue (y/n and Enter)?")
         self.start_time = datetime.datetime.now()
@@ -81,19 +85,26 @@ class RunOutputs:
         self.output_dir = f"outputs_{prefix}"
         self.trained_dir = os.path.join(self.output_dir, "trained")
         self.images_dir = os.path.join(self.output_dir, "images")
-        for d in (self.output_dir, self.trained_dir, self.images_dir):
-            ensure_empty_directory(d)
+        if write:
+            for d in (self.output_dir, self.trained_dir, self.images_dir):
+                ensure_empty_directory(d)
 
     def write_command(self, args_dict: dict) -> None:
+        if not self.write:
+            return
         save_command_args_to_file(
             args_dict, os.path.join(self.output_dir, "command.txt"))
 
     def write_model_specs(self, reprs) -> None:
+        if not self.write:
+            return
         with open(os.path.join(self.output_dir, "models.txt"), "w") as f:
             for r in reprs:
                 print(r, file=f)
 
     def write_results(self, train_lines, val_lines) -> None:
+        if not self.write:
+            return
         with open(os.path.join(self.output_dir, "train.txt"), "w") as f:
             print("\n".join(train_lines), file=f)
         with open(os.path.join(self.output_dir, "val.txt"), "w") as f:
@@ -101,7 +112,9 @@ class RunOutputs:
 
     def archive(self) -> str:
         """Zip the whole outputs dir as {yymmdd_HHMM}_outputs_{prefix}.zip
-        beside it."""
+        beside it (None when not writing)."""
+        if not self.write:
+            return None
         print("Archiving files...")
         stamp = datetime.datetime.now().strftime("%y%m%d_%H%M_")
         base = Path(self.output_dir)

@@ -11,7 +11,8 @@ thread, so an epoch loop never waits on the disk; the payload is copied to
 the host before its write is queued, so a later Adam step cannot change
 what is written.  ``wait_for_checkpoints`` blocks until every queued write
 has finished (and raises the first write's error); the queue is drained at
-interpreter exit too.
+interpreter exit too.  Under a mesh rank 0 alone writes (every rank holds
+the same weights); every rank reads on resume.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 from spatialvae_torch import checkpoint
+from spatialvae_torch.parallel.mesh import primary
 
 _writer = ThreadPoolExecutor(max_workers=1)
 _pending = []
@@ -44,6 +46,8 @@ def wait_for_checkpoints() -> None:
 
 
 def _write(path: str, payload: dict, async_write: bool) -> None:
+    if not primary():           # a mesh's rank 0 alone writes
+        return
     if async_write:
         _pending.append(_writer.submit(checkpoint.write_payload, path,
                                        payload))

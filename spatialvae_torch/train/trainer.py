@@ -80,9 +80,40 @@ gradient launches and before Adam's step kernel writes, and raises
 of the step before.  Without it a step makes no check and no extra
 synchronisation.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item: meshes (M10).  ``train_epochs`` runs the epochs one by one; its
-single-dispatch form (CUDA graphs) is a later speed choice.
+Meshes (``mesh=``, ``parallel/mesh.py``: one process a device over
+``torch.distributed``), routed as the JAX trainer routes them
+(``trainer.py:294-300``, ``:413-497``):
+
+- a mesh without a model axis takes the data-parallel step
+  (``parallel/spmd.make_spmd_step``): each rank runs the one-device step on
+  its rows of every global batch, the gradients and metrics are averaged
+  over 'data', and every rank's Adam applies the same update, so the
+  masters, the shadow and the int8 copies stay equal on every rank;
+- a model axis whose pixel slices the fused int8 loss kernel takes
+  (``parallel/pixel.pixel_step_refusal``, the JAX ``_pixel_spmd_ok``:
+  fused int8 mode, not colored, the rows and pixels dividing evenly, K3
+  active for the slice's shapes) takes the pixel step
+  (``make_spmd_pixel_step``): the encoder and the pose fold on the rank's
+  rows, K3 on its pixel slice, the gradients summed over 'model' and
+  averaged over 'data';
+- any other model axis (JAX's GSPMD tensor-parallel path) raises
+  ``NotImplementedError`` naming ROADMAP M10b.
+
+Every rank draws the same permutation and sorted batches and takes its own
+rows; the steps' noise comes from a generator per data index (the JAX
+``fold_in`` of the shard index: the pixel ranks of one data index share
+it).  The tail, and under the pixel step every batch without the target
+copy (streamed) or with CTF, runs on every rank whole (the replicated
+step: the non-step config, a generator shared by all ranks, no
+reduction), except that a data-parallel tail that divides over 'data'
+takes the data-parallel step, as in JAX.  The evaluation draws each
+batch's noise once for the whole batch and gives each data rank its rows
+(``make_spmd_eval_step``); a batch that does not divide runs whole on
+every rank.  Rank 0 alone prints the progress lines.  Rank 0's weights are
+broadcast to every rank at construction.
+
+``train_epochs`` runs the epochs one by one; its single-dispatch form (CUDA
+graphs) is a later speed choice.
 """
 
 from __future__ import annotations
@@ -117,6 +148,12 @@ from spatialvae_torch.objectives.elbo import (
     loss_and_grad,
     loss_terms,
 )
+from spatialvae_torch.parallel.pixel import pixel_step_refusal
+from spatialvae_torch.parallel.sharding import (
+    batch_sharding,
+    shard_params,
+    tensor_parallel_refusal,
+)
 from spatialvae_torch.train.metrics import StreamingMeans
 from spatialvae_torch.train.optimizer_fused import (
     fused_adam_pallas,
@@ -147,10 +184,6 @@ class TrainConfig:
     compute_dtype: str = "float32"          # 'float32' | 'bfloat16'
     image_shape: Optional[Tuple[int, int]] = None   # (n, m)
     channels: int = 1
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def _warn_nonfinite(m: np.ndarray, epoch_base: int,
@@ -185,11 +218,13 @@ def check_finite(aux: torch.Tensor, grads: dict,
         f"stopped before Adam wrote the parameters")
 
 
-def seeded_generator(seed: int, stream: Optional[int],
-                     device) -> torch.Generator:
+def seeded_generator(seed: int, stream: Optional[int], device,
+                     shard: Optional[int] = None) -> torch.Generator:
     """A generator on ``device`` seeded from (seed, stream); stream None is
-    the weight init's."""
+    the weight init's; ``shard`` folds a data rank's index in."""
     entropy = [seed] if stream is None else [seed, stream]
+    if shard is not None:
+        entropy.append(shard)
     state = np.random.SeedSequence(entropy).generate_state(2)
     g = torch.Generator(device=device)
     g.manual_seed(int(state[0]) << 32 | int(state[1]))
@@ -242,18 +277,36 @@ def index_batches(perm: torch.Tensor, b: int):
 
 
 class Trainer:
-    """Owns the modules, the Adam state and the epoch loop on one device."""
+    """Owns the modules, the Adam state and the epoch loop on one device,
+    or on this rank of a mesh."""
 
     def __init__(self, q_cfg: InferenceConfig, p_cfg, ecfg: ElboConfig,
                  tcfg: TrainConfig, coords: torch.Tensor,
                  mask: Optional[torch.Tensor] = None, *, device=None,
                  mesh=None, debug_nans: bool = False):
-        if mesh is not None:
-            raise _not_ported("multi-device training", "M10")
         if tcfg.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {tcfg.compute_dtype!r}; "
                              f"expected one of {sorted(_DTYPES)}")
+        # the mesh's step, decided before any work (the JAX spmd_dp and
+        # spmd_pixel)
+        self.mesh = mesh
+        self._spmd = mesh is not None and mesh.shape["model"] == 1
+        self._spmd_pixel = False
+        if mesh is not None and not self._spmd:
+            why = pixel_step_refusal(ecfg, p_cfg, tcfg.minibatch_size,
+                                     coords.shape[0], mesh.shape)
+            if why is not None:
+                raise tensor_parallel_refusal(
+                    f"a model axis of {mesh.shape['model']} with {why} (the "
+                    f"pixel step runs K3 on each rank's share)")
+            self._spmd_pixel = True
+        if self._spmd and tcfg.minibatch_size % mesh.shape["data"]:
+            raise ValueError(f"minibatch {tcfg.minibatch_size} does not "
+                             f"divide over {mesh.shape['data']} data ranks")
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
+        self._primary = mesh is None or mesh.rank == 0
         self.debug_nans = debug_nans
         self.q_cfg, self.p_cfg, self.ecfg, self.tcfg = q_cfg, p_cfg, ecfg, tcfg
         self.coords = coords.to(self.device, torch.float32)
@@ -277,6 +330,9 @@ class Trainer:
                    if isinstance(p_cfg, VanillaGeneratorConfig)
                    else SpatialGenerator)
         self.p_net = gen_cls(p_cfg, generator=init, device=self.device)
+        if mesh is not None:
+            # every rank starts from rank 0's weights
+            shard_params(self.named_params(), mesh, self._spmd_pixel)
         self.optimizer = fused_adam_pallas(tcfg.learning_rate)
         self.opt_state = self.optimizer.init(self.named_params())
         # one device: bf16 compute differentiates the shadow, and int8 mode
@@ -293,6 +349,20 @@ class Trainer:
                             stack_linears(self.q_net.layers)[:-1]]
         self._yq8_cache = {}
         self.last_images_per_sec = 0.0
+        # this rank's share of a step: its rows and, under the pixel step,
+        # its pixel slice
+        self._rows = None if mesh is None else batch_sharding(mesh)
+        self._local_batch = tcfg.minibatch_size // (
+            1 if mesh is None else mesh.shape["data"])
+        self._local_hw = coords.shape[0] // (
+            mesh.shape["model"] if self._spmd_pixel else 1)
+        self._mesh_step = self._mesh_eval = None
+        if mesh is not None:
+            from spatialvae_torch.parallel import spmd
+
+            self._mesh_step = (spmd.make_spmd_step(self, mesh) if self._spmd
+                               else spmd.make_spmd_pixel_step(self, mesh))
+            self._mesh_eval = spmd.make_spmd_eval_step(self, mesh)
 
     # ---------------------------------------------------------------- state
     def named_params(self) -> dict:
@@ -301,8 +371,15 @@ class Trainer:
                                              ("p", self.p_net))
                 for n, p in net.named_parameters()}
 
-    def _gen(self, stream: int) -> torch.Generator:
-        return seeded_generator(self.tcfg.seed, stream, self.device)
+    def _gen(self, stream: int, shard: Optional[int] = None
+             ) -> torch.Generator:
+        return seeded_generator(self.tcfg.seed, stream, self.device, shard)
+
+    def _step_gen(self, epoch: int) -> torch.Generator:
+        """The generator of an epoch's steps: stream 2*epoch + 1, with the
+        data rank's index folded in under a mesh."""
+        return self._gen(2 * epoch + 1,
+                         None if self.mesh is None else self.mesh.data_index)
 
     def _seeded_state(self) -> None:
         """Seed the shadow (bf16 casts of the masters) and the qshadow
@@ -403,10 +480,10 @@ class Trainer:
 
     def _wants_yt(self, ctf: Optional[torch.Tensor] = None) -> bool:
         """Whether the full-batch steps take the loss kernel, so that a
-        target copy in its layout pays off: never with CTF."""
+        target copy in its layout pays off: never with CTF; a rank's rows
+        and pixels under a mesh."""
         return ctf is None and fused_loss_active(
-            self.ecfg, self.p_cfg, self.coords.shape[0],
-            self.tcfg.minibatch_size)
+            self.ecfg, self.p_cfg, self._local_hw, self._local_batch)
 
     def _wants_yq8(self, ctf: Optional[torch.Tensor] = None) -> bool:
         """Whether the full batches read the int8 data copy: with the int8
@@ -468,8 +545,8 @@ class Trainer:
                    offsets: Optional[torch.Tensor] = None,
                    z_scale: float = 1.0,
                    generator: Optional[torch.Generator] = None,
-                   at: Optional[Tuple[int, int]] = None
-                   ) -> torch.Tensor:
+                   at: Optional[Tuple[int, int]] = None,
+                   replicated: bool = False) -> torch.Tensor:
         """One step: ``loss_and_grad`` then Adam.  y: (B, HW[, C]) on the
         device; ``y_t`` its targets in the loss kernel's layout, when the
         step takes that kernel; ``y_q8`` (xq (B, n) int8, sx) its rows of
@@ -478,7 +555,41 @@ class Trainer:
         from ``generator`` before the noise, or from ``offsets`` (B,) when
         given.  ``at`` (0-based epoch, step) names the step in the
         ``debug_nans`` error.  Returns aux = [elbo, -log_p, kl] (on the
-        device)."""
+        device).
+
+        Under a mesh every argument is this rank's rows of the global batch
+        (``y_t`` the whole grid's pixels or, under the pixel step, the
+        rank's slice), and the returned aux is the global batch's, on every
+        rank; ``replicated``: y is the whole batch, which every rank trains
+        alike with the non-step config (the tail)."""
+        if self.mesh is not None and not replicated:
+            return self._mesh_step(y, y_t=y_t, y_q8=y_q8, ctf=ctf,
+                                   noise=noise, offsets=offsets,
+                                   z_scale=z_scale, generator=generator,
+                                   at=at)
+        aux, grads = self.local_gradients(
+            y, y_t=y_t, y_q8=y_q8, ctf=ctf, noise=noise, offsets=offsets,
+            z_scale=z_scale, generator=generator,
+            ecfg=self._nonstep_ecfg if replicated else None)
+        self.update(aux, grads, at)
+        return aux
+
+    def local_gradients(self, y: torch.Tensor, *,
+                        y_t: Optional[torch.Tensor] = None,
+                        y_q8: Optional[tuple] = None,
+                        ctf: Optional[torch.Tensor] = None,
+                        noise: Optional[torch.Tensor] = None,
+                        offsets: Optional[torch.Tensor] = None,
+                        z_scale: float = 1.0,
+                        generator: Optional[torch.Generator] = None,
+                        ecfg: Optional[ElboConfig] = None,
+                        coords: Optional[torch.Tensor] = None,
+                        mask=None, pixel_axis=None) -> tuple:
+        """The first half of a step on this device's batch: (aux, grads),
+        grads name -> the gradient of the tensor the loss differentiates
+        (the shadow's with bf16 compute, else the masters').  ``coords``,
+        ``mask`` and ``pixel_axis`` default to the trainer's whole grid; the
+        pixel step passes its slice (JAX ``Trainer._loss``)."""
         self._check_ctf(ctf)
         y_inf = None
         if (self.tcfg.augment_rotation and self.ecfg.rotate
@@ -495,19 +606,25 @@ class Trainer:
         # the two labels let a profiler trace attribute the step's kernels
         with torch.profiler.record_function("loss_and_grad"):
             _, aux = loss_and_grad(
-                self.q_net, self.p_net, self.ecfg, self.coords, y,
+                self.q_net, self.p_net, ecfg or self.ecfg,
+                self.coords if coords is None else coords, y,
                 params=target, noise=noise, generator=generator,
-                z_scale=z_scale, mask=self.mask, y_t=y_t, q_quant=qq,
-                y_q8=y_q8, y_inf=y_inf, offsets=offsets, ctf=ctf,
+                z_scale=z_scale, mask=self.mask if coords is None else mask,
+                y_t=y_t, q_quant=qq, y_q8=y_q8, y_inf=y_inf,
+                offsets=offsets, ctf=ctf,
                 image_shape=self.tcfg.image_shape,
-                compute_dtype=self.compute_dtype)
+                compute_dtype=self.compute_dtype, pixel_axis=pixel_axis)
         leaves = target if target is not None else self.named_params()
-        grads = {k: t.grad for k, t in leaves.items()}
+        return aux, {k: t.grad for k, t in leaves.items()}
+
+    def update(self, aux: torch.Tensor, grads: dict,
+               at: Optional[Tuple[int, int]] = None) -> None:
+        """The second half of a step: the ``debug_nans`` check, then Adam
+        with the shadow and qshadow it emits."""
         if self.debug_nans:
             check_finite(aux, grads, at)
         with torch.profiler.record_function("adam"):
             self.apply_update(grads)
-        return aux
 
     def train_epoch(self, dataset, epoch: int, *, progress: bool = True,
                     progress_stream=None) -> Tuple[float, float, float]:
@@ -530,30 +647,61 @@ class Trainer:
                    ctf: Optional[torch.Tensor], epoch: int, progress: bool,
                    progress_stream) -> Tuple[float, float, float]:
         """``train_epoch`` on ``data`` and ``ctf``, the device copies of
-        ``dataset``."""
+        ``dataset``; under a mesh each rank takes its rows of each batch."""
         t_start = time.perf_counter()
         n, b = data.shape[0], self.tcfg.minibatch_size
         z_scale = 0.0 if epoch < self.tcfg.z_delay else 1.0
         perm = torch.randperm(n, generator=self._gen(2 * epoch),
                               device=self.device)
         full, tail = index_batches(perm, b)
-        step_gen = self._gen(2 * epoch + 1)
+        step_gen = self._step_gen(epoch)
         data_t = (self._dataset_yt(dataset, data)
                   if self._wants_yt(ctf) and len(full) else None)
         data_q8 = (self._dataset_yq8(dataset, data)
                    if self._wants_yq8(ctf) and len(full) else None)
-        rows = [self.train_step(
-            data[idx], y_t=None if data_t is None else data_t[idx],
-            y_q8=None if data_q8 is None else (data_q8[0][idx], data_q8[1]),
-            ctf=None if ctf is None else ctf[idx], z_scale=z_scale,
-            generator=step_gen, at=(epoch, i)) for i, idx in enumerate(full)]
-        tail_row = (self.train_step(data[tail],
-                                    ctf=None if ctf is None else ctf[tail],
-                                    z_scale=z_scale, generator=step_gen,
-                                    at=(epoch, len(full)))
-                    if tail is not None else None)
+        # the pixel step takes no batch with CTF: those run whole
+        whole = self._spmd_pixel and ctf is not None
+        shared = self._gen(2 * epoch + 1)
+        rows = []
+        for i, idx in enumerate(full):
+            if whole:
+                rows.append(self.train_step(
+                    data[idx], ctf=ctf[idx], z_scale=z_scale,
+                    generator=shared, at=(epoch, i), replicated=True))
+                continue
+            if self._rows is not None:
+                idx = self._rows(idx)
+            rows.append(self.train_step(
+                data[idx], y_t=None if data_t is None else data_t[idx],
+                y_q8=(None if data_q8 is None
+                      else (data_q8[0][idx], data_q8[1])),
+                ctf=None if ctf is None else ctf[idx], z_scale=z_scale,
+                generator=step_gen, at=(epoch, i)))
+        tail_row = None
+        if tail is not None:
+            tail_row = self._tail_step(data[tail],
+                                       None if ctf is None else ctf[tail],
+                                       z_scale, step_gen, shared,
+                                       (epoch, len(full)))
         return self._epoch_means(rows, tail_row, tail, epoch, n, progress,
                                  progress_stream, t_start)
+
+    def _tail_step(self, y: torch.Tensor, ctf: Optional[torch.Tensor],
+                   z_scale: float, step_gen: torch.Generator,
+                   shared: torch.Generator, at: tuple) -> torch.Tensor:
+        """An epoch's tail batch (the JAX routing, ``trainer.py:837-851``):
+        one device's step; under a mesh the data-parallel step when it
+        divides over 'data', else the replicated step on every rank with
+        the generator all ranks share."""
+        if self.mesh is None or (self._spmd and
+                                 y.shape[0] % self.mesh.shape["data"] == 0):
+            if self._rows is not None:
+                y = self._rows(y)
+                ctf = None if ctf is None else self._rows(ctf)
+            return self.train_step(y, ctf=ctf, z_scale=z_scale,
+                                   generator=step_gen, at=at)
+        return self.train_step(y, ctf=ctf, z_scale=z_scale,
+                               generator=shared, at=at, replicated=True)
 
     def _stream_epoch(self, dataset, epoch: int, progress: bool,
                       progress_stream) -> Tuple[float, float, float]:
@@ -563,7 +711,10 @@ class Trainer:
         sorted index batches, step generator and tail, each batch staged
         to the device by ``BatchStager``; no per-dataset copy.  With
         ``progress`` each step prints the running means up to the step
-        before it (a line ended by a carriage return)."""
+        before it (a line ended by a carriage return).  Under a mesh the
+        data-parallel step stages the rank's rows alone; the pixel step,
+        which takes no batch without the target copy, trains each batch
+        whole on every rank (the replicated step)."""
         t_start = time.perf_counter()
         self._check_ctf(dataset.ctf)
         n, b = len(dataset), self.tcfg.minibatch_size
@@ -571,15 +722,20 @@ class Trainer:
         perm = torch.randperm(n, generator=self._gen(2 * epoch),
                               device=self.device).cpu()
         full, tail = index_batches(perm, b)
-        step_gen = self._gen(2 * epoch + 1)
+        step_gen = self._step_gen(epoch)
+        shared = self._gen(2 * epoch + 1)
+        whole = self._spmd_pixel
+        if self._spmd:
+            full = full[:, self._rows.rows(b)]
         stager = BatchStager((dataset.y, dataset.ctf), b, self.device)
         stream = progress_stream or sys.stderr
         live, prev, rows = StreamingMeans(), None, []
         for i, (y, ctf) in enumerate(stager.batches(full.numpy())):
             aux = self.train_step(y, ctf=ctf, z_scale=z_scale,
-                                  generator=step_gen, at=(epoch, i))
+                                  generator=shared if whole else step_gen,
+                                  at=(epoch, i), replicated=whole)
             rows.append(aux)
-            if progress and prev is not None:
+            if progress and self._primary and prev is not None:
                 live.update(b, *[float(v) for v in prev.cpu()])
                 print(live.progress_line(epoch, self.tcfg.num_epochs, n),
                       end="\r", file=stream)
@@ -587,9 +743,8 @@ class Trainer:
         tail_row = None
         if tail is not None:
             for y, ctf in stager.batches([tail.numpy()]):
-                tail_row = self.train_step(y, ctf=ctf, z_scale=z_scale,
-                                           generator=step_gen,
-                                           at=(epoch, len(rows)))
+                tail_row = self._tail_step(y, ctf, z_scale, step_gen,
+                                           shared, (epoch, len(rows)))
         return self._epoch_means(rows, tail_row, tail, epoch, n, progress,
                                  progress_stream, t_start)
 
@@ -610,7 +765,7 @@ class Trainer:
             tm = tail_row.cpu().numpy()
             _warn_nonfinite(tm.reshape(1, -1), epoch, step_base=len(rows))
             acc.update(tail.shape[0], *[float(v) for v in tm])
-        if progress:
+        if progress and self._primary:
             print(acc.progress_line(epoch, self.tcfg.num_epochs, n),
                   file=progress_stream or sys.stderr)
         dt = time.perf_counter() - t_start
@@ -646,7 +801,9 @@ class Trainer:
         """Batches in order and the tail through the training loss (its
         casts included) without augmentation, under no_grad; the noise from
         stream 1_000_000_007 + epoch.  A host-resident dataset's batches
-        are streamed in order (``BatchStager``)."""
+        are streamed in order (``BatchStager``).  Under a mesh each batch
+        runs through ``make_spmd_eval_step`` (its noise drawn for the whole
+        batch, each data rank on its rows)."""
         b = self.tcfg.minibatch_size
         if getattr(dataset, "host_resident", False):
             self._check_ctf(dataset.ctf)
@@ -662,6 +819,10 @@ class Trainer:
         gen = self._gen(1_000_000_007 + epoch)
         acc = StreamingMeans()
         for y, ctf_b in batches:
+            if self._mesh_eval is not None:
+                aux = self._mesh_eval(y, ctf_b, gen, z_scale)
+                acc.update(y.shape[0], *[float(v) for v in aux.cpu()])
+                continue
             _, aux = loss_terms(self.q_net, self.p_net, self._nonstep_ecfg,
                                 self.coords, y, generator=gen,
                                 z_scale=z_scale, mask=self.mask, ctf=ctf_b,

@@ -337,17 +337,23 @@ def test_diagnostic_flags_run(tmp_path, monkeypatch, capsys, cli, flag):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh-model", "2"], "M10"), (["--coordinator", "h:1"], "M10"),
-    (["--num-processes", "2"], "M10"), (["--process-id", "0"], "M10"),
-    (["--matmul-precision", "high"], "'highest'")],
-    ids=lambda v: v if isinstance(v, str) else v[0])
+    (["--mesh-model", "2"], (NotImplementedError, "M10b")),
+    (["--coordinator", "h:1"], (ValueError, "go together")),
+    (["--num-processes", "2"], (ValueError, "go together")),
+    (["--process-id", "0"], (ValueError, "go together")),
+    (["--matmul-precision", "high"], (NotImplementedError, "'highest'"))],
+    ids=lambda v: v[0] if isinstance(v, list) else v[1])
 @pytest.mark.parametrize("cli", ["galaxy", "mnist"])
 def test_unported_flags_raise_before_any_work(tmp_path, monkeypatch, cli,
                                               flag, item):
-    """Before the outputs tree is made or any file read."""
+    """Before the outputs tree is made or any file read: a model axis on a
+    float decoder (the JAX CLI's GSPMD tensor-parallel path, ROADMAP M10b)
+    raises ``NotImplementedError`` naming M10b; a multi-host flag without
+    the other two raises ``ValueError`` (nothing detects them); the
+    non-default matmul precision is refused."""
     monkeypatch.chdir(tmp_path)
     argv = ["missing.npy", "missing.npy"] if cli == "galaxy" else []
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(item[0], match=item[1]):
         MAINS[cli][0](argv + ["-d", "-1", "--save_prefix", "x"] + flag)
     assert os.listdir(tmp_path) == []
 

@@ -218,14 +218,18 @@ def test_eval_interval_keeps_the_trajectory(workdir, capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh-model", "2"], "M10"), (["--coordinator", "h:1"], "M10"),
-    (["--num-processes", "2"], "M10"), (["--process-id", "0"], "M10"),
-    (["--matmul-precision", "high"], "'highest'")],
-    ids=lambda v: v if isinstance(v, str) else v[0])
+    (["--mesh-model", "2"], (NotImplementedError, "M10b")),
+    (["--coordinator", "h:1"], (ValueError, "go together")),
+    (["--num-processes", "2"], (ValueError, "go together")),
+    (["--process-id", "0"], (ValueError, "go together")),
+    (["--matmul-precision", "high"], (NotImplementedError, "'highest'"))],
+    ids=lambda v: v[0] if isinstance(v, list) else v[1])
 def test_unported_flags_raise_before_any_work(workdir, flag, item):
     """The data files do not exist: a flag that got past the check would
-    fail on them instead."""
-    with pytest.raises(NotImplementedError, match=item):
+    fail on them instead.  A model axis on a float decoder is the JAX CLI's
+    GSPMD tensor-parallel path (M10b); a multi-host flag needs the other
+    two."""
+    with pytest.raises(item[0], match=item[1]):
         cli.main(["missing.npy", "missing.npy", "-d", "-1"] + flag)
 
 

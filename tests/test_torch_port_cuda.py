@@ -2244,3 +2244,82 @@ def test_debug_nans_on_a_nan_image_on_the_card(cuda_device):
     for k, v in tr.named_params().items():
         assert torch.equal(v, before[1][k]), k
     assert float(torch.ones(4, device="cuda").sum()) == 4.0
+
+
+@pytest.mark.parametrize("route,h", [("sm90", 500), ("block", 500),
+                                     ("block", 1000)],
+                         ids=["cluster", "block", "wide"])
+def test_k3_sr_pixel_slices_draw_the_whole_calls_words(route, h,
+                                                       cuda_device):
+    """Under SR the two 2,048-pixel halves of a 4,096-pixel call, each
+    launched with its first pixel (``p_base``), quantise as the whole call
+    does: aq word for word, qi within INT_MISMATCH, their sums within K3's
+    limits of the whole call's; each half within K3's limits of the plain
+    version at the same p_base, aq word for word with it.  Without p_base
+    the second half draws other words."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.kernels.config import Numerics
+
+    b, hw, no = 4, 4096, 3
+    fold, coords, ws = _int8_inputs(b, hw, h, no, torch.bfloat16, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    yt = (torch.randint(0, 256, (b, no, hw), generator=gen,
+                        device=cuda_device) - 128).to(torch.int8)
+    nm = Numerics(sr=True)
+    block = route == "block" and h <= 512
+    assert l8.k3_route(2048, h, 1024, "bernoulli", nm,
+                       block_passes=block) == route
+    kw = dict(numerics=nm, ints=True, block_passes=block)
+    with torch.no_grad():
+        whole, (aq, qi) = l8.run_loss_int8(fold, coords, *ws, yt, None,
+                                           "bernoulli", **kw)
+        halves = []
+        for p0 in (0, 2048):
+            sl = slice(p0, p0 + 2048)
+            args = (fold, coords[sl].contiguous(), *ws,
+                    yt[..., sl].contiguous(), None, "bernoulli")
+            got = l8.run_loss_int8(*args, p_base=p0, **kw)
+            plain = l8.loss_int8_reference(*args, numerics=nm, ints=True,
+                                           p_base=p0)
+            for u, x in zip(got[0], plain[0]):
+                _assert_rel(u, x, INT8_TOL)
+            assert torch.equal(got[1][0], plain[1][0])
+            halves.append(got)
+        _, (aq0, _) = l8.run_loss_int8(
+            fold, coords[2048:].contiguous(), *ws,
+            yt[..., 2048:].contiguous(), None, "bernoulli", **kw)
+    assert torch.equal(torch.cat([t[1][0] for t in halves], dim=1), aq)
+    qs = torch.cat([t[1][1] for t in halves], dim=1)
+    assert (qs != qi).float().mean().item() <= INT_MISMATCH
+    for u, v, w in zip(halves[0][0], halves[1][0], whole):
+        _assert_rel(u + v, w, INT8_TOL)
+    assert (aq0 != halves[1][1][0]).float().mean().item() > 0.05
+
+
+def test_dp_step_on_two_ranks_sharing_the_card(cuda_device):
+    """Two ranks on the one card, joined over gloo (NCCL refuses two ranks
+    on one device): two data-parallel int8 steps of bf16 compute (K3 on
+    each rank's two images, Adam's step kernel); every master and shadow
+    leaf bit for bit on both ranks."""
+    from tests import torch_ranks
+
+    spec = {"q_cfg": {"__class__": "InferenceConfig", "n": 64 * 64 * 3,
+                      "latent_dim": 8, "hidden_dim": 256, "num_layers": 2},
+            "p_cfg": {"__class__": "SpatialGeneratorConfig",
+                      "latent_dim": 5, "hidden_dim": 128, "n_out": 3,
+                      "num_layers": 2},
+            "ecfg": dict(fused=True, int8=True, channels=3),
+            "tcfg": dict(minibatch_size=4, compute_dtype="bfloat16"),
+            "shape": (64, 64)}
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    y = (rng.integers(0, 256, (8, 64 * 64, 3)) / 255.0).astype(np.float32)
+    batches = [np.array([0, 2, 5, 7]), np.array([1, 3, 4, 6])]
+    noises = [rng.normal(size=(4, 8)).astype(np.float32) for _ in batches]
+    ranks = torch_ranks.spawn(torch_ranks.dp_card, 2, spec, y, batches,
+                              noises, device="cuda")
+    assert ranks[0].keys() == ranks[1].keys()
+    assert any(k.startswith("shadow.") for k in ranks[0])
+    for k, v in ranks[0].items():
+        assert torch.equal(v, ranks[1][k]), k

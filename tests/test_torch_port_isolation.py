@@ -12,8 +12,9 @@
   augmentation work; with
   matplotlib and torchvision unimportable too, the galaxy and mnist CLIs
   write their whole tree.
-- ``Trainer`` and ``SpatialVae.load`` without ``device=`` go to the CUDA
-  card, and raise where there is none; ``device="cpu"`` runs on the CPU.
+- ``Trainer``, ``SpatialVae.load``, ``create_mesh`` and
+  ``initialize_multihost`` without ``device=`` go to the CUDA card, and
+  raise where there is none; ``device="cpu"`` runs on the CPU.
 """
 
 import ast
@@ -30,6 +31,12 @@ from spatialvae_torch.api import SpatialVae
 from spatialvae_torch.config import InferenceConfig, SpatialGeneratorConfig
 from spatialvae_torch.models import InferenceNetwork, SpatialGenerator
 from spatialvae_torch.objectives import ElboConfig
+from spatialvae_torch.parallel import (
+    MeshConfig,
+    create_mesh,
+    initialize_multihost,
+)
+from spatialvae_torch.parallel.mesh import rank_device
 from spatialvae_torch.train.trainer import TrainConfig, Trainer
 from spatialvae_torch.transforms.coords import coord_grid
 
@@ -232,6 +239,14 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         Trainer(q_cfg, p_cfg, ElboConfig(), TrainConfig(), coord_grid(16, 16))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SpatialVae.load(gp, ip)
+    # a mesh's rank: no world is joined before the device is settled
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_mesh(MeshConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_multihost("localhost:1", 1, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_multihost("localhost:1", 1, 0, backend="gloo")
+    assert rank_device("cpu") == torch.device("cpu")
     tr = Trainer(q_cfg, p_cfg, ElboConfig(), TrainConfig(),
                  coord_grid(16, 16), device="cpu")
     assert tr.device == torch.device("cpu")

@@ -119,8 +119,10 @@ def test_elbo_matches_jax(name):
 @pytest.mark.parametrize("what", [
     "gaussian", "colored", "ctf", "offsets", "y_t", "int8", "pixel_axis"])
 def test_elbo_refuses_what_is_not_ported(what, monkeypatch):
-    """What the ELBO still refuses: pixel-axis sharding (M10) raises
-    ``NotImplementedError`` (the vanilla generator (M1), refused here until
+    """What the ELBO still refuses: ``pixel_axis`` off the fused int8 loss
+    kernel's path raises ``ValueError``, as in JAX (pixel-axis sharding,
+    M10, refused here until it was ported, is held to JAX in
+    ``test_torch_port_parallel.py``; the vanilla generator (M1), refused here until
     it was ported, is held to JAX in ``test_torch_port_vanilla.py``); CTF
     kernels in bf16 raise ``ValueError`` in both likelihoods that use them, as XLA's
     FFT does in JAX, and CTF without the image shape raises too.  Offsets
@@ -165,8 +167,10 @@ def test_elbo_refuses_what_is_not_ported(what, monkeypatch):
     elif what == "offsets":
         kw["offsets"] = torch.full((2,), 0.5)
     else:
-        kw["pixel_axis"] = "model"
-        expect = (NotImplementedError, "ROADMAP M10")
+        from spatialvae_torch.parallel.mesh import Axis
+
+        kw["pixel_axis"] = Axis("model", None, 2, 0)
+        expect = (ValueError, "pixel_axis requires")
     args = (q_net, p_net, ecfg, coord_grid(n, m), y,
             torch.Generator().manual_seed(0))
     if expect is None:

@@ -12,6 +12,8 @@ at its test.  Adam matches to one float32 ulp.
 
 import dataclasses
 
+import types
+
 import numpy as np
 import pytest
 
@@ -351,7 +353,10 @@ def test_trainer_streams_host_resident_data(what):
 
 @pytest.mark.parametrize("what", ["int8", "mesh", "gaussian"])
 def test_trainer_refuses_what_is_not_ported(what, monkeypatch):
-    """What the trainer still refuses: meshes (M10); CTF (M7, now ported)
+    """What the trainer still refuses: a mesh's model axis on a float
+    decoder, JAX's GSPMD tensor-parallel path (M10b; the meshes of M10, the
+    data-parallel and the pixel steps, are held to JAX in
+    ``test_torch_port_spmd.py``); CTF (M7, now ported)
     with bf16 compute raises ``ValueError`` before any work, as the JAX
     trainer does at its first step, here in int8 mode with a measurement
     lever (K3 (g)) over MNIST's padded 28x28; gaussian: CTF without the
@@ -374,10 +379,12 @@ def test_trainer_refuses_what_is_not_ported(what, monkeypatch):
         tcfg = dataclasses.replace(tcfg, image_shape=None)
     expect = {"int8": (ValueError, "compute_dtype='float32'"),
               "gaussian": (ValueError, "image shape")}.get(
-        what, (NotImplementedError, "ROADMAP"))
+        what, (NotImplementedError, "ROADMAP M10b"))
     with pytest.raises(expect[0], match=expect[1]):
+        mesh = types.SimpleNamespace(shape={"data": 1, "model": 2}, rank=0,
+                                     device=torch.device("cpu"))
         tr = Trainer(q_cfg, p_cfg, ecfg, tcfg, grid, device="cpu",
-                     mesh=object() if what == "mesh" else None)
+                     mesh=mesh if what == "mesh" else None)
         data = _Data(torch.zeros((B, grid.shape[0], C)))
         if what in ("gaussian", "int8"):
             data.ctf = torch.zeros((B, 3, 3))
