@@ -9,8 +9,10 @@
     python3 chip_smoke.py --limits probes     # those of the probe kernels
     python3 chip_smoke.py --limits kernel_bench   # those of T1's kernels
     python3 chip_smoke.py --limits dec90      # K1/K2's cluster kernels'
+                                              # (both sources)
     python3 chip_smoke.py --limits adam       # Adam's step kernel
     python3 chip_smoke.py --split dec90       # their product/epilogue split
+    python3 chip_smoke.py --sweep dec90       # both designs over H and Lh
     python3 chip_smoke.py --default-width PARENT_DIR   # K1-K5 A/B
     python3 chip_smoke.py --sass PARENT_DIR   # untouched kernels' SASS
     python3 chip_smoke.py --phase cli_particles   # the particles CLI alone
@@ -80,12 +82,20 @@ paths:
   (``[kernel_loss_numerics]``) and K8 (``[kernel_loss_t]``, at the galaxy
   shape and at mnist's 784 pixels) are held against their plain versions.
 
-- decoders of any width: every kernel at H = 512, 513, 768, 1,000, 1,024,
-  2,048 and 4,100 against its plain version (``[kernel_wide]``: K1 with
-  and without activations and K2 both variants in f32 and bf16, K3 in its
-  four families, K4, K5, K8; timed at H = 1,000, B = 100), the galaxy
-  model with a decoder 1,000 wide trained two float and two int8 epochs
-  (``[train_wide]``) and served from its checkpoints (``[slice_wide]``);
+- decoders of any width and depth: every kernel at H = 512, 513, 768,
+  1,000, 1,024, 2,048 and 4,100 against its plain version
+  (``[kernel_wide]``: K1 with and without activations and K2 both
+  variants in f32 and bf16, above 512 on the deep sm90 kernels
+  (``csrc/fused_decoder_sm90_deep.cu``) and on the tile kernels, K3 in its
+  four families, K4, K5, K8; timed at H = 1,000, B = 100, K1/K2's two
+  designs in turns), the galaxy model with a decoder 1,000 wide trained
+  two float and two int8 epochs (``[train_wide]``) and served from its
+  checkpoints (``[slice_wide]``, a profiled pass), and with a decoder of
+  four layers (``--p_num_layers 4``: three hidden layers, K1/K2's deep
+  kernels a pass per layer; ``[kernel]`` and ``[kernel_bwd]`` time them at
+  B = 100 in turns with the tile kernels) trained two epochs in f32, with
+  bf16 compute and in int8 mode, whose decoder then runs K1/K2
+  (``[train_deep]``), and served (``[slice_deep]``);
 - K3's measurement levers (``SPATIALVAE_DB1=qi``, ``SPATIALVAE_A1Q``,
   ``SPATIALVAE_TANH=pade`` and a pair; ``[kernel_loss_levers]``), the
   ``SPATIALVAE_PHASE_CUT`` ladder 3..8 (``[kernel_loss_ladder]``: the cut
@@ -202,11 +212,17 @@ passes (rounding toward zero, a scale per 64-pixel block, the cluster
 passes' colored pairs formed with the wrong partner, and SR's copies: the
 gradient site on the forward site's words, u = 0, the cluster passes'
 counters in the dW1 workspace's row order, each of which SR's cluster
-readings must refuse); ``--limits wide`` those of the wide path (its ragged last chunk skipped,
-one TF32 pass); ``--limits probes`` those of the probe kernels (the
-last k slab dropped, the int16 store wrapping, a 4 x 4 byte transpose with
-two rows swapped); ``--limits kernel_bench`` those of T1's kernels (the
-a1 scale without /127, fused-plain's scale per 64-pixel block,
+readings must refuse); ``--limits wide`` those of the wide path (its
+ragged last chunk skipped, one TF32 pass); ``--limits dec90`` K1/K2's
+sm90 kernels at the default shape and the deep kernels' wide and deep
+cases in the sound build and five faulty copies (one TF32 product, no
+bf16 casts, the head's partials of a tile's last column chunk dropped,
+layers above the first reading a stale A buffer, one TF32 product in the
+deep kernels alone), which the limits must refuse; ``--limits probes``
+those of the probe kernels (the last k slab dropped, the int16 store
+wrapping, a 4 x 4 byte transpose with two rows swapped); ``--limits
+kernel_bench`` those of T1's kernels (the a1 scale without /127,
+fused-plain's scale per 64-pixel block,
 bwd-fixscale's dh1 without (1 - a1^2)); ``--limits adam`` Adam's step
 kernel against its plain version, bit for bit, in the sound build and in
 two faulty copies (b1*m contracted into an FMA, the plain-load tails
@@ -214,7 +230,9 @@ dropped), which the compare must refuse.  ``python3 chip_smoke.py
 --default-width PARENT`` times K1-K5 at the default width in turns in this
 checkout and in the parent's (a directory holding it), each turn a process
 of its own tree; ``--sass PARENT`` compares the SASS of the translation
-units this checkout left as they were (SASS_UNITS) with the parent's.
+units this checkout left as they were (SASS_UNITS) with the parent's;
+``--sweep dec90`` times K1/K2's two designs in turns over widths and
+depths, the measurement ``fused_decoder.DEEP_MIN_WIDTH`` comes from.
 
 Needs a CUDA device and ``nvcc``; imports no JAX.  Exits non-zero, without
 the final line, when there is no CUDA device or any phase fails.
@@ -225,6 +243,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -266,9 +285,11 @@ N_PASSES = 5        # timed passes of the slice's requests
 FWD_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_fwd.cu"
 BWD_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_bwd.cu"
 # K1 and K2 on clusters (fused_decoder.decoder_route "sm90": one hidden
-# layer, H <= 512); the tile kernels ("tile") are their yardstick, run
-# with tile_kernels=True in turns: tile, sm90, sm90, tile
+# layer at most 512 wide in DEC90_SOURCE, every other width and depth in
+# DEC90_DEEP_SOURCE's layer passes); the tile kernels ("tile") are their
+# yardstick, run with tile_kernels=True in turns: tile, sm90, sm90, tile
 DEC90_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_sm90.cu"
+DEC90_DEEP_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_sm90_deep.cu"
 AB_DEC = ("tile", "sm90", "sm90", "tile")
 FWD_REPLACES = "spatialvae_tpu/kernels/fused_decoder.py:105"
 BWD_REPLACES = "spatialvae_tpu/kernels/fused_decoder.py:196"
@@ -279,6 +300,7 @@ CHANNELS = 3
 Z_DIM = 20
 Q_HIDDEN = 5000
 P_HIDDEN = 500
+P_LAYERS = 2        # the decoder's layers: the fold's and Lh = 1 hidden
 BATCH = 100
 N_EVAL = 437        # 4 full batches of 100 and a tail of 37
 N_TRAIN = 1037      # 10 full batches of 100 and a tail of 37
@@ -392,7 +414,8 @@ def ptxas_report(started, serialized=None) -> list:
                               + (",colored" if k.group(5) == "1" else "")
                               + ">"), m.group(1))
             # K1/K2's cluster kernels: <BF16, RESID, EMIT or ACT_BF16>
-            k = re.search(r"(dec_fwd90|dec_chain90|dec_dw90|int8_fwd90|"
+            k = re.search(r"(dec_fwd90|dec_chain90|dec_dw90|dec_layer90|"
+                          r"dec_chainl90|dec_dww90|int8_fwd90|"
                           r"int8_grad90|int8_scale90)"
                           r"_kernelI(\w*?)EEv", m.group(1))
             if k:
@@ -410,23 +433,33 @@ def ptxas_report(started, serialized=None) -> list:
     return rows
 
 
-def phase_dec90(torch, ptxas) -> dict:
+def phase_dec90(torch, ptxas, ptxas_deep) -> dict:
     """``[dec90]``: K1/K2's cluster kernels alone: ptxas's report of each
-    instantiation (registers, stack, spills; ``ptxas``: the background
-    compile of their source) and the clusters of 4 the card holds at once
-    for each kernel."""
+    instantiation of both sources (registers, stack, spills; ``ptxas``,
+    ``ptxas_deep``: the background compiles of DEC90_SOURCE and
+    DEC90_DEEP_SOURCE), the clusters of 4 the card holds at once for each
+    kernel, and the deep kernels' workspace block against the wrapper's."""
     from spatialvae_torch.kernels import fused_decoder as fd
 
-    for name, regs, stack, stores, loads in ptxas_report(ptxas):
-        log("dec90_ptxas", kernel=name, registers=regs, stack_bytes=stack,
-            spill_store_bytes=stores, spill_load_bytes=loads)
+    for started in (ptxas, ptxas_deep):
+        for name, regs, stack, stores, loads in ptxas_report(started):
+            log("dec90_ptxas", kernel=name, registers=regs,
+                stack_bytes=stack, spill_store_bytes=stores,
+                spill_load_bytes=loads)
     lib = fd._lib()
     names = ("fwd_f32", "fwd_bf16", "chain_f32", "chain_bf16", "dw_f32",
              "dw_bf16")
     clusters = {k: lib.svt_decoder90_max_clusters(i)
                 for i, k in enumerate(names)}
+    clusters.update({f"deep_{k}": lib.svt_decoder90_deep_max_clusters(i)
+                     for i, k in enumerate(names)})
     if min(clusters.values()) < 1:
         raise AssertionError(f"K1/K2 cluster kernels resident: {clusters}")
+    for h in (500, 513, 1000, 4100):
+        for bf16 in (0, 1):
+            if lib.svt_decoder90_deep_ws_block(h, bf16) != fd.deep_ws_block(
+                    h, bool(bf16)):
+                raise AssertionError(f"deep workspace block at H={h}")
     log("dec90", **{f"clusters_{k}": v for k, v in clusters.items()})
     return clusters
 
@@ -460,9 +493,29 @@ def kernel_device_ms(torch, fn, keys, calls: int = 3) -> dict:
             if count[k] else 0.0 for k in keys}
 
 
-# kernel-name substrings of K1/K2's kernels on both routes
-DEC_KERNELS = ("fused_decoder_fwd", "dec_fwd90", "bwd_chain", "bwd_dw",
-               "dec_chain90", "dec_dw90", "sum_rows")
+# kernel-name substrings of K1/K2's kernels on both routes (the forwards
+# first)
+DEC_KERNELS = ("fused_decoder_fwd", "dec_fwd90", "dec_layer90", "bwd_chain",
+               "bwd_dw", "dec_chain90", "dec_dw90", "dec_chainl90",
+               "dec_dww90", "sum_rows")
+N_DEC_FWD = 3
+# the slice's wide and deep calls at the main path's batch: H = 1,000 (two
+# column chunks) and Lh = 3 (`--p_num_layers 4`), f32 and bf16 weights
+DEEP_CASES = [
+    # name, B, HW, H, Lh, No, resid, weight dtype
+    ("h1000_f32", BATCH, 4096, 1000, 1, 3, False, "float32"),
+    ("h1000_bf16", BATCH, 4096, 1000, 1, 3, False, "bfloat16"),
+    ("lh3_f32", BATCH, 4096, P_HIDDEN, 3, 3, False, "float32"),
+    ("lh3_bf16", BATCH, 4096, P_HIDDEN, 3, 3, False, "bfloat16"),
+]
+
+
+def dec_passes(h: int, lh: int, tile_kernels: bool = False) -> int:
+    """Launches of one K1 call (one chunk of images) on its route: a pass
+    per layer on the deep kernels, else one."""
+    from spatialvae_torch.kernels import fused_decoder as fd
+
+    return 1 if tile_kernels or fd.single_pass(h, lh) else lh
 
 
 def _tail_inputs(torch, b, hw, h, lh, no, wdt, gen):
@@ -503,7 +556,7 @@ def phase_kernels(torch) -> dict:
         ("hw784_no1", 32, 784, P_HIDDEN, 1, 1, False, torch.float32),
         ("no8", 16, 4096, P_HIDDEN, 1, 8, False, torch.float32),
         ("resid_bf16", 16, 4096, P_HIDDEN, 1, 3, True, torch.bfloat16),
-    ]
+    ] + [c[:-1] + (getattr(torch, c[-1]),) for c in DEEP_CASES]
     results = {}
     with torch.no_grad():
         for name, b, hw, h, lh, no, resid, wdt in cases:
@@ -514,7 +567,7 @@ def phase_kernels(torch) -> dict:
             before = fd.LAUNCHES[key]
             got = fd.fused_decoder_tail(*args, resid)
             torch.cuda.synchronize()
-            if fd.LAUNCHES[key] != before + 1:
+            if fd.LAUNCHES[key] != before + dec_passes(h, lh):
                 raise AssertionError(f"{name}: not launched on {route}")
             want = fd.decoder_tail_reference(*args, resid)
             dtype = str(wdt).replace("torch.", "")
@@ -546,9 +599,7 @@ def phase_kernels(torch) -> dict:
             plain()
             r["plain_ms"] = statistics.median(cuda_ms(plain, torch)
                                               for _ in range(3))
-            r["bound"] = dec_bounds(b, hw, h, no, wdt.itemsize, 0)["fwd"]
-            if lh > 1:
-                r["bound"] = (r["bound"][0] * lh, r["bound"][1])
+            r["bound"] = dec_bounds(b, hw, h, no, wdt.itemsize, 0, lh)["fwd"]
             results[name] = r
             log("kernel", case=name, B=b, HW=hw, H=h, Lh=lh, No=no,
                 resid=resid, dtype=dtype, route=route,
@@ -592,7 +643,7 @@ BWD_CASES = [
     ("hw784_no1", 32, 784, P_HIDDEN, 1, 1, False, "float32"),
     ("no8", 16, 4096, P_HIDDEN, 1, 8, False, "float32"),
     ("resid_f32", BATCH, 4096, P_HIDDEN, 1, 3, True, "float32"),
-]
+] + [c for c in DEEP_CASES if c[4] > 1]
 GRADS = ("dfold", "dwhid", "dbhid", "dwht", "dbht")
 
 
@@ -758,7 +809,7 @@ def phase_backward(torch) -> dict:
         r = backward_case(torch, case, SEED, timed=True)
         checked = check_backward(name, dtype, r)
         bd = dec_bounds(b, hw, h, no, 2 if dtype == "bfloat16" else 4,
-                        2 if dtype == "bfloat16" else 4)
+                        2 if dtype == "bfloat16" else 4, lh)
         ab = lambda what: _dec_ab({
             "route": r["route"], "ms_tile": r.get(what + "_ms_tile", 0.0),
             "turns": r.get(what + "_turns", {"tile": [], "sm90": []})})
@@ -779,7 +830,7 @@ def phase_backward(torch) -> dict:
                           if "acts_vs_tile" in r else "-"),
             kernel_ms=f"{r['fwd_acts_ms']:.4f}", **ab("fwd_acts"),
             plain_ms=f"{r['fwd_acts_plain_ms']:.4f}",
-            bound_ms=f"{bd['fwd_acts'][0] * lh:.4f}")
+            bound_ms=f"{bd['fwd_acts'][0]:.4f}")
         for variant in ("residual", "recompute"):
             tol = BWD_TOL[dtype, variant]
             fields, vt = checked[variant]
@@ -790,8 +841,7 @@ def phase_backward(torch) -> dict:
                 vs_tile_max_rel=f"{vt:.3e}" if vt is not None else "-",
                 kernel_ms=f"{r[variant + '_ms']:.4f}", **ab(variant),
                 plain_ms=f"{r[variant + '_plain_ms']:.4f}",
-                bound_ms=(f"{bd['chain'][0] + bd['dw'][0] + bd['sums'][0]:.4f}"
-                          if lh == 1 else "-"))
+                bound_ms=f"{bd['chain'][0] + bd['dw'][0] + bd['sums'][0]:.4f}")
         results[name] = r
         torch.cuda.empty_cache()
     return results
@@ -808,7 +858,7 @@ def galaxy_configs():
     q_cfg = InferenceConfig(n=hw * CHANNELS, latent_dim=Z_DIM + 3,
                             hidden_dim=Q_HIDDEN, num_layers=2)
     p_cfg = SpatialGeneratorConfig(latent_dim=Z_DIM, hidden_dim=P_HIDDEN,
-                                   n_out=CHANNELS, num_layers=2)
+                                   n_out=CHANNELS, num_layers=P_LAYERS)
     ecfg = ElboConfig(rotate=True, translate=True, theta_prior=math.pi,
                       likelihood="bernoulli", channels=CHANNELS, fused=True)
     return q_cfg, p_cfg, ecfg
@@ -992,8 +1042,10 @@ def phase_profile_step(torch, trainer, y, tmpdir: str) -> dict:
         ks = [e for e in kernels if pred(e)]
         return sum(e["dur"] for e in ks) / 1e3, len(ks)
 
-    k1 = share(lambda e: any(s in e["name"] for s in DEC_KERNELS[:2]))
-    k2 = share(lambda e: any(s in e["name"] for s in DEC_KERNELS[2:]))
+    k1 = share(lambda e: any(s in e["name"]
+                             for s in DEC_KERNELS[:N_DEC_FWD]))
+    k2 = share(lambda e: any(s in e["name"]
+                             for s in DEC_KERNELS[N_DEC_FWD:]))
     gemm = share(lambda e: "gemm" in e["name"].lower()
                  or "xmma" in e["name"].lower())
     adam_k = share(lambda e: e["args"].get("correlation") in adam_ids)
@@ -1014,8 +1066,9 @@ def phase_profile_step(torch, trainer, y, tmpdir: str) -> dict:
     def pack():
         tw = fd.TailWeights(*(t.detach() for t in fd._stack_tail(hidden,
                                                                  head)))
-        tw.sm90_slabs()
-        tw.sm90_slabs_t()
+        for l in range(len(hidden)):
+            tw.sm90_slabs(l)
+            tw.sm90_slabs_t(l)
         tw.head_args()
     per_kernel["slabs_host_ms"] = _step_host_ms(torch, pack, 10)
     phase_adam_path_ab(torch, "float", lambda: trainer.train_step(y))
@@ -1069,9 +1122,11 @@ def phase_slice(torch, tmpdir: str, paths=None, tag="slice") -> int:
         del q_net, p_net
     gpath, ipath = paths
     model = SpatialVae.load(gpath, ipath, device=DEVICE)
-    if model.p_net.cfg.hidden_dim != P_HIDDEN:
+    if model.p_net.cfg.hidden_dim != P_HIDDEN or \
+            model.p_net.cfg.num_layers != P_LAYERS:
         raise AssertionError(f"served a decoder "
-                             f"{model.p_net.cfg.hidden_dim} wide")
+                             f"{model.p_net.cfg.hidden_dim} wide, "
+                             f"{model.p_net.cfg.num_layers} layers")
     log("checkpoint", tag=tag, hidden=P_HIDDEN,
         seconds=f"{time.perf_counter() - t0:.2f}",
         bytes=os.path.getsize(gpath) + os.path.getsize(ipath))
@@ -1098,13 +1153,17 @@ def phase_slice(torch, tmpdir: str, paths=None, tag="slice") -> int:
         t0 = time.perf_counter()
         out = requests()
         seconds.append(time.perf_counter() - t0)
+    lh = P_LAYERS - 1
     key = "fwd" + ("_sm90" if decoder_route(
-        hw, P_HIDDEN, 1, CHANNELS) == "sm90" else "")
+        hw, P_HIDDEN, lh, CHANNELS) == "sm90" else "")
     launches = LAUNCHES[key]
     decodes = 3 + math.ceil(N_EVAL / BATCH)
-    if launches != N_PASSES * decodes or sum(LAUNCHES.values()) != launches:
+    passes = dec_passes(P_HIDDEN, lh)
+    if launches != N_PASSES * decodes * passes or \
+            sum(LAUNCHES.values()) != launches:
         raise AssertionError(f"kernel launched {launches} times for "
-                             f"{N_PASSES} x {decodes} decodes")
+                             f"{N_PASSES} x {decodes} decodes of {passes} "
+                             f"launches")
 
     z_mu, z_logstd = out["encode"]
     for name, t in (("z_mu", z_mu), ("z_logstd", z_logstd)):
@@ -1133,7 +1192,8 @@ def phase_slice(torch, tmpdir: str, paths=None, tag="slice") -> int:
     n_req = len(out)
     n_img = 4 * BATCH + N_EVAL
     med = statistics.median(seconds)
-    log(tag, hidden=P_HIDDEN, passes=N_PASSES, requests_per_pass=n_req,
+    log(tag, hidden=P_HIDDEN, layers=P_LAYERS, passes=N_PASSES,
+        requests_per_pass=n_req,
         images_per_pass=n_img, pass_ms_median=f"{med * 1e3:.4f}",
         pass_ms_min=f"{min(seconds) * 1e3:.4f}",
         pass_ms_max=f"{max(seconds) * 1e3:.4f}",
@@ -1141,12 +1201,11 @@ def phase_slice(torch, tmpdir: str, paths=None, tag="slice") -> int:
         images_per_s=f"{n_img / med:.1f}", decodes_per_pass=decodes,
         launches=launches, elbo=f"{elbo:.3f}", log_p=f"{log_p:.3f}",
         kl=f"{kl:.3f}", reconstruct_vs_plain=f"{err:.3e}")
-    if tag == "slice":
-        phase_profile(torch, requests, tmpdir)
+    phase_profile(torch, requests, tmpdir, tag)
     return launches
 
 
-def phase_profile(torch, requests, tmpdir: str) -> None:
+def phase_profile(torch, requests, tmpdir: str, tag: str = "slice") -> None:
     """One pass of the requests under torch.profiler.  The card is busy
     where a kernel, memcpy or memset of the trace runs (the union of their
     intervals); the idle share is the rest of the pass's host-clock time,
@@ -1164,8 +1223,8 @@ def phase_profile(torch, requests, tmpdir: str) -> None:
         raise AssertionError("the profiler saw no device activity")
     busy = _busy_us(events)
     k1 = [e["dur"] for e in events
-          if any(s in e["name"] for s in DEC_KERNELS[:2])]
-    log("profile", wall_ms=f"{wall_us / 1e3:.3f}",
+          if any(s in e["name"] for s in DEC_KERNELS[:N_DEC_FWD])]
+    log("profile", tag=tag, wall_ms=f"{wall_us / 1e3:.3f}",
         device_busy_ms=f"{busy / 1e3:.3f}",
         idle_share=f"{1 - busy / wall_us:.4f}",
         k1_ms=f"{sum(k1) / 1e3:.3f}", k1_launches=len(k1),
@@ -1352,8 +1411,10 @@ def bf16_gemm(ops: float) -> tuple:
     return ops, PEAK_BF16
 
 
-def dec_bounds(b, hw, h, no, wdt_bytes, act_bytes) -> dict:
-    """The bounds (ms, by) of K1 and K2's kernels at one hidden layer:
+def dec_bounds(b, hw, h, no, wdt_bytes, act_bytes, lh: int = 1) -> dict:
+    """The bounds (ms, by) of K1 and K2's kernels at ``lh`` hidden layers
+    (each layer's product and residual once more; the deep kernels' layer
+    buffers are no input or output of the function):
     "fwd" (fold, coords, weights, y), "fwd_acts" (and the (B, HW, H)
     residual in ``act_bytes``), "chain" (reads the residual, writes the
     per-block partials; da0 and the head's two products), "dw" (reads the
@@ -1364,20 +1425,20 @@ def dec_bounds(b, hw, h, no, wdt_bytes, act_bytes) -> dict:
     are the products or the bytes, whichever is longer (the heads'
     CUDA-core time overlaps the tensor cores')."""
     f4 = 4
-    gemm = 2.0 * b * hw * h * h
+    gemm = 2.0 * b * hw * h * h * lh
     g = f32_gemm(gemm) if wdt_bytes == 4 else bf16_gemm(gemm)
     bd = functools.partial(bound, overlap=wdt_bytes == 2)
     head = (2.0 * b * hw * h * no, PEAK_FP32)
-    io = (b * 4 * h * f4 + hw * 2 * f4 + (h * h + h + no * h + no) * wdt_bytes
-          + b * no * hw * f4)
-    acts = b * hw * h * act_bytes
-    parts = (b * (hw // 64) * (3 * h + (1 + no) * h + no)
-             + (b * hw // 4096) * h * h) * f4
+    io = (b * 4 * h * f4 + hw * 2 * f4
+          + (lh * (h * h + h) + no * h + no) * wdt_bytes + b * no * hw * f4)
+    acts = b * hw * h * act_bytes * lh
+    parts = (b * (hw // 64) * (3 * h + (lh + no) * h + no)
+             + (b * hw // 4096) * h * h * lh) * f4
     return {"fwd": bd(io, g, head), "fwd_acts": bd(io + acts, g, head),
-            "chain": bd(io + acts + b * hw * h * wdt_bytes + parts, g,
+            "chain": bd(io + acts + lh * b * hw * h * wdt_bytes + parts, g,
                         (2 * head[0], PEAK_FP32)),
-            "dw": bd(acts + b * hw * h * wdt_bytes
-                     + (b * hw // 4096) * h * h * f4, g),
+            "dw": bd(acts + lh * b * hw * h * wdt_bytes
+                     + (b * hw // 4096) * h * h * lh * f4, g),
             "sums": bd(parts)}
 
 
@@ -4288,22 +4349,24 @@ CUT_LADDER = [3, 4, 5, 6, 7, 8]
 
 
 class sized:
-    """Within the block the galaxy helpers build a decoder ``h`` wide and
-    batches of ``b`` (the module's P_HIDDEN and BATCH)."""
+    """Within the block the galaxy helpers build a decoder ``h`` wide with
+    ``layers`` layers and batches of ``b`` (the module's P_HIDDEN,
+    P_LAYERS and BATCH)."""
 
-    def __init__(self, h: int, b: int = None):
-        self.h, self.b = h, b
+    def __init__(self, h: int, b: int = None, layers: int = None):
+        self.h, self.b, self.layers = h, b, layers
 
     def __enter__(self):
-        global P_HIDDEN, BATCH
-        self.saved = (P_HIDDEN, BATCH)
+        global P_HIDDEN, BATCH, P_LAYERS
+        self.saved = (P_HIDDEN, BATCH, P_LAYERS)
         P_HIDDEN = self.h
         BATCH = self.b or BATCH
+        P_LAYERS = self.layers or P_LAYERS
         return self
 
     def __exit__(self, *exc):
-        global P_HIDDEN, BATCH
-        P_HIDDEN, BATCH = self.saved
+        global P_HIDDEN, BATCH, P_LAYERS
+        P_HIDDEN, BATCH, P_LAYERS = self.saved
         return False
 
 
@@ -4318,8 +4381,9 @@ def y_tol(h: int, dtype: str) -> tuple:
 def fwd_case(torch, b, h, dtype, seed, timed, hw=None, no=CHANNELS) -> dict:
     """K1 without its activation output (serving) at width ``h`` (over
     IMAGE's pixels unless ``hw``, ``no`` outputs): errors (absolute), with
-    ``timed`` the kernel's and the plain version's ms; "route" the route
-    ``decoder_route`` gives it."""
+    ``timed`` the kernel's and the plain version's ms (on the sm90 route
+    the tile kernels too, in turns: "ms_tile", "turns", their errors
+    "tile_y"); "route" the route ``decoder_route`` gives it."""
     from spatialvae_torch.kernels.fused_decoder import (
         TailWeights,
         decoder_route,
@@ -4343,6 +4407,15 @@ def fwd_case(torch, b, h, dtype, seed, timed, hw=None, no=CHANNELS) -> dict:
             out["ms"], out["plain_ms"] = _timed(
                 torch, lambda: run_decoder_tail(fold, coords, tw),
                 lambda: decoder_tail_reference(fold, coords, *ws))
+        if timed and out["route"] == "sm90":
+            tile = run_decoder_tail(fold, coords, tw, tile_kernels=True)
+            out["tile_y"] = check_close(f"K1 H={h} {dtype} tile", tile, want,
+                                        getattr(torch, dtype))
+            ab = in_turns(torch, {r: functools.partial(
+                run_decoder_tail, fold, coords, tw, tile_kernels=r == "tile")
+                for r in ("tile", "sm90")}, N_TIMED, AB_DEC)
+            out.update(ms=ab["sm90"][0], ms_tile=ab["tile"][0],
+                       turns={k: v[1] for k, v in ab.items()})
     return out
 
 
@@ -4368,6 +4441,57 @@ def _check_int8_all(what, r, names) -> str:
     return f"{worst[0]:.2e}/{worst[1]:.2e}"
 
 
+def _turns_field(turns: dict) -> str:
+    return " ".join(f"{k}:{t:.4f}" for k in ("tile", "sm90")
+                    for t in turns[k])
+
+
+def k12_wide_case(torch, h: int, b: int, dtype: str, timed: bool) -> dict:
+    """``[kernel_wide]``'s K1/K2 line at width ``h``, batch ``b``: K1 with
+    and without its activation output and K2 both variants against their
+    plain versions (and, on the sm90 route, the tile kernels); with
+    ``timed`` every call of both designs in turns (AB_DEC) beside its
+    bound.  Returns ``backward_case``'s readings with "fwd" the
+    ``fwd_case``."""
+    case = (f"H{h}_{dtype}", b, IMAGE[0] * IMAGE[1], h, 1, CHANNELS, False,
+            dtype)
+    r = backward_case(torch, case, SEED, timed)
+    fields = _check_k12(h, dtype, r)
+    r["fwd"] = fwd_case(torch, b, h, dtype, SEED, timed)
+    times = {}
+    if timed:
+        wb = 2 if dtype == "bfloat16" else 4
+        bd = dec_bounds(b, IMAGE[0] * IMAGE[1], h, CHANNELS, wb, wb)
+        bd0 = dec_bounds(b, IMAGE[0] * IMAGE[1], h, CHANNELS, wb, 0)
+        bwd_bd = bd["chain"][0] + bd["dw"][0] + bd["sums"][0]
+        times = dict(
+            route=r["route"],
+            fwd_ms=f"{r['fwd']['ms']:.4f}",
+            fwd_tile_ms=f"{r['fwd']['ms_tile']:.4f}",
+            fwd_turns=_turns_field(r["fwd"]["turns"]),
+            fwd_plain_ms=f"{r['fwd']['plain_ms']:.4f}",
+            fwd_bound_ms=f"{bd0['fwd'][0]:.4f}",
+            fwd_acts_ms=f"{r['fwd_acts_ms']:.4f}",
+            fwd_acts_tile_ms=f"{r['fwd_acts_ms_tile']:.4f}",
+            fwd_acts_turns=_turns_field(r["fwd_acts_turns"]),
+            fwd_acts_plain_ms=f"{r['fwd_acts_plain_ms']:.4f}",
+            fwd_acts_bound_ms=f"{bd['fwd_acts'][0]:.4f}",
+            residual_ms=f"{r['residual_ms']:.4f}",
+            residual_tile_ms=f"{r['residual_ms_tile']:.4f}",
+            residual_turns=_turns_field(r["residual_turns"]),
+            residual_plain_ms=f"{r['residual_plain_ms']:.4f}",
+            recompute_ms=f"{r['recompute_ms']:.4f}",
+            recompute_tile_ms=f"{r['recompute_ms_tile']:.4f}",
+            recompute_turns=_turns_field(r["recompute_turns"]),
+            recompute_plain_ms=f"{r['recompute_plain_ms']:.4f}",
+            bwd_bound_ms=f"{bwd_bd:.4f}")
+    log("kernel_wide", kernel="K1/K2", H=h, B=b, dtype=dtype,
+        y_abs=f"{r['fwd']['y'][0]:.3e}/{r['fwd']['y'][1]:.3e}",
+        errors="acts_abs,residual_rel,recompute_rel", **fields,
+        acts_tol=acts_tol(h, dtype), **times)
+    return r
+
+
 def phase_kernel_wide(torch) -> dict:
     """Every kernel at every width of WIDE_WIDTHS against its plain version,
     at B=2 (every kernel's whole calls timed at WIDE_H, B=100, the slice's
@@ -4384,28 +4508,8 @@ def phase_kernel_wide(torch) -> dict:
         b = BATCH if timed else 2
         with sized(h, b):
             for dtype in ("float32", "bfloat16"):
-                case = (f"H{h}_{dtype}", b, IMAGE[0] * IMAGE[1], h, 1,
-                        CHANNELS, False, dtype)
-                r = backward_case(torch, case, SEED, timed)
-                fields = _check_k12(h, dtype, r)
-                r["fwd"] = fwd_case(torch, b, h, dtype, SEED, timed)
-                res["k12", h, dtype] = r
-                times = {}
-                if timed:
-                    times = dict(
-                        fwd_ms=f"{r['fwd']['ms']:.4f}",
-                        fwd_plain_ms=f"{r['fwd']['plain_ms']:.4f}",
-                        fwd_acts_ms=f"{r['fwd_acts_ms']:.4f}",
-                        fwd_acts_plain_ms=f"{r['fwd_acts_plain_ms']:.4f}",
-                        residual_ms=f"{r['residual_ms']:.4f}",
-                        residual_plain_ms=f"{r['residual_plain_ms']:.4f}",
-                        recompute_ms=f"{r['recompute_ms']:.4f}",
-                        recompute_plain_ms=f"{r['recompute_plain_ms']:.4f}")
-                log("kernel_wide", kernel="K1/K2", H=h, B=b, dtype=dtype,
-                    y_abs=f"{r['fwd']['y'][0]:.3e}/{r['fwd']['y'][1]:.3e}",
-                    errors="acts_abs,residual_rel,recompute_rel", **fields,
-                    acts_tol=acts_tol(h, dtype), **times)
-                del r
+                res["k12", h, dtype] = k12_wide_case(torch, h, b, dtype,
+                                                     timed)
                 torch.cuda.empty_cache()
             lc = loss_case(torch, b, "bfloat16", SEED, timed)
             if not lc["same"]:
@@ -4485,10 +4589,11 @@ def phase_train_wide(torch) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts, adam = dict(fd.LAUNCHES), dict(ka.LAUNCHES)
-        # H = WIDE_H takes the tile kernels; the sm90 keys stay 0
+        # H = WIDE_H takes the deep sm90 kernels (one hidden layer: one
+        # pass a direction, in two column chunks); the tile keys stay 0
         want = dict.fromkeys(fd.LAUNCHES, 0) | {
-            "fwd_acts": steps, "bwd_chain": steps, "bwd_dw": steps,
-            "bwd_sum": 4 * steps}
+            "fwd_acts_sm90": steps, "bwd_chain_sm90": steps,
+            "bwd_dw_sm90": steps, "bwd_sum": 4 * steps}
         want_adam = dict.fromkeys(adam, 0) | {
             "adam_step": steps * adam_step_launches(trainer)}
         if counts != want or adam != want_adam:
@@ -4511,6 +4616,7 @@ def phase_train_wide(torch) -> dict:
             worst = _wmax(worst, (rel, mean_rel))
         log("train_wide", path="float", H=WIDE_H, B=BATCH, epochs=TRAIN_EPOCHS,
             steps=steps, images=N_WIDE, seconds=f"{seconds:.4f}",
+            step_ms=f"{seconds * 1e3 / steps:.3f}",
             images_per_s=f"{TRAIN_EPOCHS * N_WIDE / seconds:.1f}",
             elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
             launches=json.dumps(counts, separators=(",", ":")),
@@ -4591,6 +4697,141 @@ def phase_slice_wide(torch, tmpdir: str, trained: dict) -> int:
                               image_shape=IMAGE)
         del q_net, p_net
         launches = phase_slice(torch, tmpdir, paths=paths, tag="slice_wide")
+    torch.cuda.empty_cache()
+    return launches
+
+
+DEEP_LAYERS = 4     # [train_deep] / [slice_deep]: `--p_num_layers 4`, Lh = 3
+# [train_deep]'s arms: name, compute dtype, int8 mode (`--int8-decoder`:
+# the int8 gates take two decoder layers only, so its decoder runs K1/K2 on
+# the bf16 shadow beside the int8 encoder)
+DEEP_ARMS = (("float", "float32", False), ("bf16", "bfloat16", False),
+             ("int8", "bfloat16", True))
+
+
+def phase_train_deep(torch) -> dict:
+    """The galaxy model with a decoder of DEEP_LAYERS layers (three hidden
+    layers P_HIDDEN wide) at B=100 on N_WIDE blob images, two epochs in each
+    of DEEP_ARMS: each arm's launches (an evaluation: a K1 pass per layer
+    per batch; a step: a K1 pass, a K2 chain pass and a dW launch per
+    layer and four reductions, all on the sm90 keys; no K3, K4, K5 or K8;
+    Adam's step kernel), an ELBO that rises, the mean step ms (host
+    clock); the f32 arm also one step through the kernels against the
+    plain versions.  Returns the launch counts by arm and the f32 arm's
+    trained weights."""
+    from spatialvae_torch.kernels import adam as ka
+    from spatialvae_torch.kernels import fused_decoder as fd
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+    from spatialvae_torch.transforms.coords import coord_grid
+
+    out = {}
+    steps = TRAIN_EPOCHS * math.ceil(N_WIDE / BATCH)
+    evals = math.ceil(N_WIDE / BATCH)
+    lh = DEEP_LAYERS - 1
+    with sized(P_HIDDEN, layers=DEEP_LAYERS):
+        q_cfg, p_cfg, ecfg = galaxy_configs()
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        data = blob_images(torch, N_WIDE, gen)
+        for arm, compute, int8 in DEEP_ARMS:
+            tcfg = TrainConfig(minibatch_size=BATCH, learning_rate=1e-4,
+                               num_epochs=TRAIN_EPOCHS, z_delay=1, seed=SEED,
+                               compute_dtype=compute, image_shape=IMAGE,
+                               channels=CHANNELS)
+            trainer = Trainer(q_cfg, p_cfg,
+                              dataclasses.replace(ecfg, int8=int8), tcfg,
+                              coord_grid(*IMAGE, device=DEVICE),
+                              device=DEVICE)
+            _reset_all_launches()
+            before = trainer.eval_epoch(data, 0)
+            torch.cuda.synchronize()
+            ev = dict(fd.LAUNCHES)
+            if ev != dict.fromkeys(fd.LAUNCHES, 0) | {
+                    "fwd_sm90": lh * evals}:
+                raise AssertionError(f"train_deep {arm} evaluation "
+                                     f"launches {ev}")
+            _reset_all_launches()
+            t0 = time.perf_counter()
+            rows = trainer.train_epochs(data, 0, TRAIN_EPOCHS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts, other = dict(fd.LAUNCHES), _int8_launches()
+            want = dict.fromkeys(fd.LAUNCHES, 0) | {
+                "fwd_acts_sm90": lh * steps, "bwd_chain_sm90": lh * steps,
+                "bwd_dw_sm90": lh * steps, "bwd_sum": 4 * steps}
+            if counts != want or any(
+                    any(other[k].values()) for k in ("k3", "k8", "k45")) or \
+                    other["adam"]["adam_step"] != steps * \
+                    adam_step_launches(trainer) or \
+                    other["adam"]["adam"] or other["adam"]["adam_emit"]:
+                raise AssertionError(f"train_deep {arm} launches {counts}, "
+                                     f"{other}; expected {want}")
+            after = trainer.eval_epoch(data, TRAIN_EPOCHS)
+            if not (np.isfinite(rows).all() and after[0] > before[0]):
+                raise AssertionError(f"train_deep {arm}: ELBO {before[0]} "
+                                     f"-> {after[0]}, epochs {rows}")
+            fields = {}
+            if arm == "float":
+                y = data[:BATCH]
+                noise = torch.randn((BATCH, Z_DIM + 3), generator=gen,
+                                    device=DEVICE)
+                kern = step_grads(torch, trainer, y, noise, True)
+                plain = step_grads(torch, trainer, y, noise, False)
+                worst = (0.0, 0.0)
+                for k in kern:
+                    _, _, rel, mean_rel = rel_errors(kern[k], plain[k])
+                    if not (rel <= STEP_TOL[0] and mean_rel <= STEP_TOL[1]):
+                        raise AssertionError(
+                            f"train_deep float step {k}: {rel}, mean "
+                            f"{mean_rel}; limits {STEP_TOL}")
+                    worst = _wmax(worst, (rel, mean_rel))
+                fields["step_vs_plain"] = f"{worst[0]:.3e}/{worst[1]:.3e}"
+                out["trained_p"] = {k: v.detach().clone() for k, v in
+                                    trainer.p_net.state_dict().items()}
+                out["trained_q"] = {k: v.detach().clone() for k, v in
+                                    trainer.q_net.state_dict().items()}
+                del kern, plain
+            log("train_deep", arm=arm, compute=compute, int8=int8,
+                layers=DEEP_LAYERS, H=P_HIDDEN, B=BATCH,
+                epochs=TRAIN_EPOCHS, steps=steps, images=N_WIDE,
+                seconds=f"{seconds:.4f}",
+                step_ms=f"{seconds * 1e3 / steps:.3f}",
+                images_per_s=f"{TRAIN_EPOCHS * N_WIDE / seconds:.1f}",
+                elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
+                launches=json.dumps(counts, separators=(",", ":")),
+                eval_k1_launches=ev["fwd_sm90"],
+                adam_launches=other["adam"]["adam_step"], **fields)
+            out[arm] = counts
+            del trainer
+            torch.cuda.empty_cache()
+        del data
+    ka.reset_launches()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice_deep(torch, tmpdir: str, trained: dict) -> int:
+    """Serving with a decoder of DEEP_LAYERS layers: ``[train_deep]``'s
+    trained f32 weights written as checkpoints and served through
+    ``SpatialVae.load`` (the slice's requests, timed passes, a profiled
+    pass, a reconstruct against the plain decoder).  Returns the K1
+    launches of the timed passes (a pass per layer per decode)."""
+    from spatialvae_torch import checkpoint
+    from spatialvae_torch.models import InferenceNetwork, SpatialGenerator
+
+    with sized(P_HIDDEN, layers=DEEP_LAYERS):
+        q_cfg, p_cfg, ecfg = galaxy_configs()
+        q_net = InferenceNetwork(q_cfg, device=DEVICE)
+        p_net = SpatialGenerator(p_cfg, device=DEVICE)
+        q_net.load_state_dict(trained["trained_q"])
+        p_net.load_state_dict(trained["trained_p"])
+        paths = (os.path.join(tmpdir, "deep_generator_epoch2.sav"),
+                 os.path.join(tmpdir, "deep_inference_epoch2.sav"))
+        checkpoint.save_model(paths[0], "generator", p_net, elbo=ecfg,
+                              image_shape=IMAGE)
+        checkpoint.save_model(paths[1], "inference", q_net, elbo=ecfg,
+                              image_shape=IMAGE)
+        del q_net, p_net
+        launches = phase_slice(torch, tmpdir, paths=paths, tag="slice_deep")
     torch.cuda.empty_cache()
     return launches
 
@@ -4716,22 +4957,22 @@ def phase_limits_wide(torch) -> None:
     fd._lib = d8._lib = l8._lib = (lambda: _build.load_library())
 
 
-def wide_rows(wide, tw, slice_launches, levers, lever_counts) -> list:
-    """The JSON records of this slice: K1 (without and with activations),
-    K2's whole backward, K3, K4 and K5's whole backward at WIDE_H (B=100;
-    launches: [train_wide] and [slice_wide]), and K3 under the levers (the
-    a1q_db1_qi call; launches: [train_int8_levers])."""
+def wide_rows(wide, tw, slice_launches, levers, lever_counts,
+              wide_ab) -> list:
+    """The JSON records of the wide path: K1 (without and with
+    activations) and K2's whole backward at WIDE_H on the deep sm90
+    kernels (B=100; launches: [train_wide] and [slice_wide]), the tile
+    kernels at the same calls as their yardstick (launches: their turns in
+    ``[kernel_wide]``, ``wide_ab``), K3, K4 and K5's whole backward at
+    WIDE_H, and K3 under the levers (the a1q_db1_qi call; launches:
+    [train_int8_levers])."""
     b, hw, h, no = BATCH, IMAGE[0] * IMAGE[1], WIDE_H, CHANNELS
     kp = -(-h // 64) * 64
     f4 = 4
     k12 = wide["k12", h, "float32"]
-    w_bytes = (h * h + h + no * h + no) * f4
-    io = b * 4 * h * f4 + hw * 2 * f4 + w_bytes + b * no * hw * f4
+    bd, bd0 = dec_bounds(b, hw, h, no, 4, 4), dec_bounds(b, hw, h, no, 4, 0)
     gemm = 2.0 * b * hw * h * h
     head = (2.0 * b * hw * h * no, PEAK_FP32)
-    acts = b * hw * h * f4
-    k2_parts = (b * (hw // 64) * (3 * h + (1 + no) * h + no)
-                + (b * hw // 4096) * h * h) * f4
     lc, t = wide["k3", h], wide["k45", h]
     i8_w = h * h + (h + no * h + no) * f4
     fold_io = b * 4 * h * f4 + hw * 2 * f4
@@ -4739,20 +4980,29 @@ def wide_rows(wide, tw, slice_launches, levers, lever_counts) -> list:
     parts = (b * hw // 64) * (3 * h + h + no * h + no) * f4
     worst = lambda r, names: max(r[n][0] for n in names)
     lv = levers["a1q_db1_qi"]
+    bwd_bound = (bd["chain"][0] + bd["dw"][0] + bd["sums"][0], "operations")
     return [
-        ("fused_decoder_fwd_wide", FWD_SOURCE, FWD_REPLACES, slice_launches,
-         k12["fwd"]["y"][0], k12["fwd"]["ms"], k12["fwd"]["plain_ms"],
-         bound(io, f32_gemm(gemm), head), None),
-        ("fused_decoder_fwd_acts_wide", FWD_SOURCE, FWD_REPLACES,
-         tw["float"]["fwd_acts"], k12["acts"][0], k12["fwd_acts_ms"],
-         k12["fwd_acts_plain_ms"], bound(io + acts, f32_gemm(gemm), head),
-         None),
-        ("fused_decoder_bwd_wide", BWD_SOURCE, BWD_REPLACES,
-         tw["float"]["bwd_chain"],
+        ("fused_decoder_fwd_wide_sm90", DEC90_DEEP_SOURCE, FWD_REPLACES,
+         slice_launches, k12["fwd"]["y"][0], k12["fwd"]["ms"],
+         k12["fwd"]["plain_ms"], bd0["fwd"], None),
+        ("fused_decoder_fwd_acts_wide_sm90", DEC90_DEEP_SOURCE, FWD_REPLACES,
+         tw["float"]["fwd_acts_sm90"], k12["acts"][0], k12["fwd_acts_ms"],
+         k12["fwd_acts_plain_ms"], bd["fwd_acts"], None),
+        ("fused_decoder_bwd_wide_sm90", DEC90_DEEP_SOURCE, BWD_REPLACES,
+         tw["float"]["bwd_chain_sm90"],
          max(k12["residual", n][0] for n in GRADS), k12["residual_ms"],
-         k12["residual_plain_ms"],
-         bound(io + 2 * acts + k2_parts, f32_gemm(2 * gemm),
-               (2 * head[0], PEAK_FP32)), None),
+         k12["residual_plain_ms"], bwd_bound, None),
+        ("fused_decoder_fwd_wide_tile", FWD_SOURCE, FWD_REPLACES, 0,
+         k12["fwd"]["tile_y"][0], k12["fwd"]["ms_tile"],
+         k12["fwd"]["plain_ms"], bd0["fwd"], None, wide_ab["fwd"]),
+        ("fused_decoder_fwd_acts_wide_tile", FWD_SOURCE, FWD_REPLACES, 0,
+         k12["tile", "acts"][0], k12["fwd_acts_ms_tile"],
+         k12["fwd_acts_plain_ms"], bd["fwd_acts"], None,
+         wide_ab["fwd_acts"]),
+        ("fused_decoder_bwd_wide_tile", BWD_SOURCE, BWD_REPLACES, 0,
+         max(k12["residual", "tile", n][0] for n in GRADS),
+         k12["residual_ms_tile"], k12["residual_plain_ms"], bwd_bound, None,
+         wide_ab["bwd_chain"]),
         ("int8_loss_wide", LOSS_WIDE_SOURCE, K3_REPLACES,
          tw["int8"]["k3"]["fwd"], worst(lc, ("loss",) + INT8_GRADS),
          lc["ms"], lc["plain_ms"], lc["bound"], None),
@@ -4771,6 +5021,47 @@ def wide_rows(wide, tw, slice_launches, levers, lever_counts) -> list:
          lever_counts["counts"]["k3"]["fwd"],
          max(lv[n][0] for n in INT8_GRADS), lv["ms"], lv["plain_ms"],
          lv["bound"], None),
+    ]
+
+
+def deep_rows(res, bwd, td, slice_launches) -> list:
+    """The JSON records of the deep path (DEEP_LAYERS decoder layers, Lh =
+    3, H = P_HIDDEN, f32, B=100): K1 without activations (launches:
+    [slice_deep]), with them and K2's whole backward (launches:
+    [train_deep]'s arms) on the deep sm90 kernels, and the tile kernels
+    at the same calls as their yardstick (launches: the tile keys of the
+    ``[kernel]`` / ``[kernel_bwd]`` turns, ``res["ab_counts"]``)."""
+    b, hw, h, no = BATCH, IMAGE[0] * IMAGE[1], P_HIDDEN, CHANNELS
+    lh = DEEP_LAYERS - 1
+    k1, k2 = res["lh3_f32"], bwd["lh3_f32"]
+    bd = dec_bounds(b, hw, h, no, 4, 4, lh)
+    ab = res["ab_counts"]
+    acts = sum(c["fwd_acts_sm90"] for c in td.values()
+               if isinstance(c, dict) and "fwd_acts_sm90" in c)
+    chain = sum(c["bwd_chain_sm90"] for c in td.values()
+                if isinstance(c, dict) and "bwd_chain_sm90" in c)
+    bwd_bound = (bd["chain"][0] + bd["dw"][0] + bd["sums"][0], "operations")
+    grads = lambda *design: max(k2[("residual", *design, n)][0]
+                                for n in GRADS)
+    return [
+        ("fused_decoder_fwd_deep_sm90", DEC90_DEEP_SOURCE, FWD_REPLACES,
+         slice_launches, k1["err"], k1["ms"], k1["plain_ms"], k1["bound"],
+         None),
+        ("fused_decoder_fwd_acts_deep_sm90", DEC90_DEEP_SOURCE, FWD_REPLACES,
+         acts, k2["acts"][0], k2["fwd_acts_ms"], k2["fwd_acts_plain_ms"],
+         bd["fwd_acts"], None),
+        ("fused_decoder_bwd_deep_sm90", DEC90_DEEP_SOURCE, BWD_REPLACES,
+         chain, grads(), k2["residual_ms"], k2["residual_plain_ms"],
+         bwd_bound, None),
+        ("fused_decoder_fwd_deep_tile", FWD_SOURCE, FWD_REPLACES, 0,
+         k1["tile_err"][0], k1["ms_tile"], k1["plain_ms"], k1["bound"],
+         None, ab["fwd"]),
+        ("fused_decoder_fwd_acts_deep_tile", FWD_SOURCE, FWD_REPLACES, 0,
+         k2["tile", "acts"][0], k2["fwd_acts_ms_tile"],
+         k2["fwd_acts_plain_ms"], bd["fwd_acts"], None, ab["fwd_acts"]),
+        ("fused_decoder_bwd_deep_tile", BWD_SOURCE, BWD_REPLACES, 0,
+         grads("tile"), k2["residual_ms_tile"], k2["residual_plain_ms"],
+         bwd_bound, None, ab["bwd_chain"]),
     ]
 
 
@@ -5802,57 +6093,93 @@ def default_width_times() -> dict:
 
 
 # the translation units this slice leaves as they were: K1/K2's tile
-# kernels, K4/K5 (and T1's K5 modes), K3's block, lever and wide
-# instantiations and its cluster passes (three of their helpers moved to
-# sm90.cuh, which also gained the TF32 and bf16 products)
+# kernels and their default-shape cluster kernels (whose shared pieces
+# moved to fused_decoder_sm90.cuh, beside the deep kernels' own unit),
+# K4/K5 (and T1's K5 modes), K3's block, lever and wide instantiations and
+# its cluster passes
 SASS_UNITS = ("fused_decoder_fwd.cu", "fused_decoder_bwd.cu",
+              "fused_decoder_sm90.cu",
               "fused_decoder_int8.cu", "kernel_bench_bwd.cu",
               "fused_loss_int8.cu", "fused_loss_int8_levers.cu",
               "fused_loss_int8_wide.cu", "fused_loss_int8_sm90.cu")
 
 
 # the cases of ``--limits dec90``: galaxy f32 and bf16, a residual add, at
-# a batch that keeps the plain versions quick
+# a batch that keeps the plain versions quick; then the deep kernels: two
+# column chunks (H = 1,000, and a ragged 1,030) and three hidden layers
 DEC90_LIMIT_CASES = [
     ("galaxy_f32", 8, 4096, 500, 1, 3, False, "float32"),
     ("galaxy_bf16", 8, 4096, 500, 1, 3, False, "bfloat16"),
     ("resid_f32", 8, 4096, 500, 1, 3, True, "float32"),
     ("hw784_no8_bf16", 8, 784, 500, 1, 8, True, "bfloat16"),
+    ("h1000_f32", 4, 4096, 1000, 1, 3, False, "float32"),
+    ("h1030_bf16_resid", 4, 784, 1030, 1, 3, True, "bfloat16"),
+    ("lh3_f32_resid", 4, 4096, 500, 3, 3, True, "float32"),
+    ("lh3_h600_no8_bf16", 4, 784, 600, 3, 8, False, "bfloat16"),
 ]
+# the sound build and copies with one step removed, each built from the
+# decoder's sources alone (DEC90_UNITS); the limits must hold the first and
+# refuse every other
+DEC90_FAULTS = (
+    ("sound", ()),
+    ("one TF32 product", ("-DSVT_TF32_SPLIT=0",)),
+    ("no bf16 casts outside the products", ("-DSVT_BF16_CASTS=0",)),
+    ("the head's partials of a tile's last chunk dropped",
+     ("-DSVT_DEEP_DROP_HEAD=1",)),
+    ("layers above the first read a stale A buffer",
+     ("-DSVT_DEEP_STALE_A=1",)),
+    ("one TF32 product in the deep passes", ("-DSVT_DEEP_ONE_PASS=1",)),
+)
+DEC90_UNITS = ("fused_decoder_fwd.cu", "fused_decoder_bwd.cu",
+               "fused_decoder_sm90.cu", "fused_decoder_sm90_deep.cu")
 
 
 def phase_limits_dec90(torch) -> None:
-    """``--limits dec90``: K1/K2's sm90 kernels against their plain versions
-    for the sound library and for copies with one step removed (one TF32
-    product for f32 weights, -DSVT_TF32_SPLIT=0; no bf16 casts outside the
-    products, -DSVT_BF16_CASTS=0), over three seeds: y and the activations
-    (max/mean absolute), each backward variant's worst gradient (max/mean
-    relative to max|plain|); the limits TOL, ACTS_TOL and BWD_TOL stand
-    between them."""
+    """``--limits dec90``: K1/K2's sm90 kernels (both sources) against their
+    plain versions for the sound library and each faulty copy of
+    DEC90_FAULTS, over three seeds at DEC90_LIMIT_CASES: y and the
+    activations (max/mean absolute), each backward variant's worst
+    gradient (max/mean relative to max|plain|), and whether every reading
+    stays within TOL, ACTS_TOL and BWD_TOL.  The sound build must, and
+    every faulty copy must not."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from spatialvae_torch.kernels import _build
     from spatialvae_torch.kernels import fused_decoder as fd
 
-    for defines in ((), ("-DSVT_TF32_SPLIT=0",), ("-DSVT_BF16_CASTS=0",)):
-        lib = _build.load_library(defines)
+    with ThreadPoolExecutor(len(DEC90_FAULTS)) as ex:
+        list(ex.map(lambda f: _build.build(f[1], DEC90_UNITS), DEC90_FAULTS))
+    for build, defines in DEC90_FAULTS:
+        lib = _build.load_library(defines, DEC90_UNITS)
         fd._lib = (lambda lib=lib: lib)
-        worst = {}
+        worst, within = {}, True
         for seed in range(3):
             for case in DEC90_LIMIT_CASES:
                 r = backward_case(torch, case, seed, False, rerun=False)
                 if r["route"] != "sm90":
                     raise AssertionError(f"{case[0]} took {r['route']}")
-                name = case[0]
-                for k in ("y", "acts"):
+                name, dtype = case[0], case[-1]
+                for k, tol in (("y", TOL), ("acts", ACTS_TOL)):
                     worst[name, k] = _wmax(worst.get((name, k), (0, 0)),
                                            r[k][:2])
+                    within &= r[k][0] <= tol[dtype][0] and \
+                        r[k][1] <= tol[dtype][1]
                 for v in ("residual", "recompute"):
+                    tol = BWD_TOL[dtype, v]
                     for gname in GRADS:
                         worst[name, v] = _wmax(worst.get((name, v), (0, 0)),
                                                r[v, gname][2:])
+                        within &= r[v, gname][2] <= tol[0] and \
+                            r[v, gname][3] <= tol[1]
             torch.cuda.empty_cache()
-        log("limits_dec90", build=" ".join(defines) or "sound",
+        log("limits_dec90", build=build, defines=" ".join(defines) or "-",
             **{"/".join(k): f"{a:.3e}/{m:.3e}"
-               for k, (a, m) in sorted(worst.items())})
+               for k, (a, m) in sorted(worst.items())},
+            within_limits=within)
+        if within != (build == "sound"):
+            raise AssertionError(f"--limits dec90: the {build} build "
+                                 f"{'is' if within else 'is not'} within "
+                                 f"the limits")
     fd._lib = (lambda: _build.load_library())
 
 
@@ -5913,9 +6240,12 @@ def phase_split_dec90(torch) -> None:
     """``--split dec90``: each sm90 kernel's device ms (one traced call) in
     the sound build and in a copy whose tiles end after the product
     (-DSVT_DEC90_CUT=1: the product with the A slabs built beside it, no
-    epilogue), in turns (sound, cut, cut, sound), at galaxy B=100: the
-    forward (f32 and bf16, without and with activations), the chain and dW
-    of the residual backward.  The epilogue's share is the difference."""
+    epilogue), in turns (sound, cut, cut, sound), at B=100 and three
+    shapes, galaxy (H = 500, one hidden layer), H = WIDE_H (the deep
+    kernels' two column chunks) and DEEP_LAYERS - 1 hidden layers (their
+    layer passes): the forward (f32 and bf16, without and with
+    activations), the chain and dW of the residual backward.  The
+    epilogue's share is the difference."""
     from spatialvae_torch.kernels import _build
     from spatialvae_torch.kernels import fused_decoder as fd
 
@@ -5923,8 +6253,10 @@ def phase_split_dec90(torch) -> None:
             "cut": _build.load_library(("-DSVT_DEC90_CUT=1",))}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     hw = IMAGE[0] * IMAGE[1]
-    for dtype in (torch.float32, torch.bfloat16):
-        fold, coords, *ws = _tail_inputs(torch, BATCH, hw, P_HIDDEN, 1,
+    for (h, lh), dtype in itertools.product(
+            ((P_HIDDEN, 1), (WIDE_H, 1), (P_HIDDEN, DEEP_LAYERS - 1)),
+            (torch.float32, torch.bfloat16)):
+        fold, coords, *ws = _tail_inputs(torch, BATCH, hw, h, lh,
                                          CHANNELS, dtype, gen)
         tw = fd.TailWeights(*ws)
         g = torch.randn((BATCH, CHANNELS, hw), generator=gen, device=DEVICE)
@@ -5943,7 +6275,9 @@ def phase_split_dec90(torch) -> None:
                 for what, fn in calls.items():
                     for k, v in kernel_device_ms(
                             torch, fn, ("dec_fwd90", "dec_chain90",
-                                        "dec_dw90")).items():
+                                        "dec_dw90", "dec_layer90",
+                                        "dec_chainl90",
+                                        "dec_dww90")).items():
                         if v:
                             ms.setdefault((what, k, build), []).append(v)
         fd._lib = (lambda: libs["sound"])
@@ -5952,13 +6286,73 @@ def phase_split_dec90(torch) -> None:
                 continue
             cut = ms[what, k, "cut"]
             epi = statistics.median(v) - statistics.median(cut)
-            log("split_dec90", dtype=str(dtype)[6:], call=what, kernel=k,
+            log("split_dec90", H=h, Lh=lh, dtype=str(dtype)[6:], call=what,
+                kernel=k,
                 sound_ms="/".join(f"{x:.4f}" for x in v),
                 cut_ms="/".join(f"{x:.4f}" for x in cut),
                 epilogue_ms=f"{epi:.4f}")
         del fold, coords, ws, tw, g, y, acts
         torch.cuda.empty_cache()
     fd._lib = (lambda: _build.load_library())
+
+
+# `--sweep dec90`: the widths at which K1/K2's two designs are timed in
+# turns to place fused_decoder.DEEP_MIN_WIDTH
+SWEEP_WIDTHS = (32, 128, 256, 288, 320, 384, 448, 500, 513, 768, 1024, 2048)
+
+
+def phase_sweep_dec90(torch) -> None:
+    """``--sweep dec90``: K1, K1 with activations and K2 (with the
+    residual) on the sm90 kernels and on the tile kernels in turns (AB_DEC,
+    5 runs a turn) at every width of SWEEP_WIDTHS with Lh = 1..4 hidden
+    layers but the single-pass shapes, f32 and bf16 weights, B=100 (25
+    above 1,024), HW = 4,096: each call's sm90 and tile ms and their
+    ratio.  The route table's DEEP_MIN_WIDTH is lifted while it runs, so
+    the deep kernels are timed below it too: its thresholds are the first
+    widths at which every call's ratio is below 1."""
+    from spatialvae_torch.kernels import fused_decoder as fd
+
+    saved = dict(fd.DEEP_MIN_WIDTH)
+    fd.DEEP_MIN_WIDTH.update(dict.fromkeys(saved, 1))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    hw = IMAGE[0] * IMAGE[1]
+    try:
+        for h, lh in itertools.product(
+                SWEEP_WIDTHS, range(1, fd.MAX_HIDDEN_LAYERS + 1)):
+            if fd.single_pass(h, lh):
+                continue
+            b = 25 if h > 1024 else BATCH
+            for dtype in (torch.float32, torch.bfloat16):
+                fold, coords, *ws = _tail_inputs(torch, b, hw, h, lh,
+                                                 CHANNELS, dtype, gen)
+                tw = fd.TailWeights(*ws)
+                g = torch.randn((b, CHANNELS, hw), generator=gen,
+                                device=DEVICE)
+                fields = {}
+                with torch.no_grad():
+                    y, acts = fd.run_decoder_tail_acts(fold, coords, tw)
+                    calls = {
+                        "k1": functools.partial(fd.run_decoder_tail, fold,
+                                                coords, tw),
+                        "k1_acts": functools.partial(fd.run_decoder_tail_acts,
+                                                     fold, coords, tw),
+                        "k2": functools.partial(fd.run_decoder_tail_backward,
+                                                fold, coords, tw, acts, y,
+                                                g)}
+                    for name, fn in calls.items():
+                        t = in_turns(torch, {
+                            r: functools.partial(fn, tile_kernels=r == "tile")
+                            for r in ("tile", "sm90")}, 5, AB_DEC)
+                        fields[f"{name}_ms"] = (f"{t['sm90'][0]:.4f}/"
+                                                f"{t['tile'][0]:.4f}")
+                        fields[f"{name}_ratio"] = (
+                            f"{t['sm90'][0] / t['tile'][0]:.3f}")
+                log("sweep_dec90", H=h, Lh=lh, B=b, dtype=str(dtype)[6:],
+                    times="sm90/tile", **fields)
+                del fold, coords, ws, tw, g, y, acts
+                torch.cuda.empty_cache()
+    finally:
+        fd.DEEP_MIN_WIDTH.update(saved)
 
 
 def phase_sass(args) -> int:
@@ -7995,6 +8389,9 @@ def main() -> int:
     if sys.argv[1:] == ["--split", "dec90"]:
         phase_split_dec90(torch)
         return 0
+    if sys.argv[1:] == ["--sweep", "dec90"]:
+        phase_sweep_dec90(torch)
+        return 0
     if sys.argv[1:] == ["--phase", "cli_particles"]:
         with tempfile.TemporaryDirectory() as tmpdir:
             phase_cli_particles(torch, tmpdir, card)
@@ -8013,6 +8410,7 @@ def main() -> int:
     ptxas = start_ptxas_report(LOSS90_SOURCE)
     ptxas_sr = start_ptxas_report(LOSS90_SR_SOURCE)
     ptxas_dec = start_ptxas_report(DEC90_SOURCE)
+    ptxas_deep = start_ptxas_report(DEC90_DEEP_SOURCE)
     ptxas_adam = start_ptxas_report(ADAM90_SOURCE)
     ptxas_i8 = start_ptxas_report(INT8_90_SOURCE)
     ptxas_i8p = start_ptxas_report(INT8_90_SOURCE,
@@ -8023,7 +8421,7 @@ def main() -> int:
     res = phase_kernels(torch)
     bwd = phase_backward(torch)
     res["ab_counts"] = dict(fd.LAUNCHES)
-    res["dec90"] = phase_dec90(torch, ptxas_dec)
+    res["dec90"] = phase_dec90(torch, ptxas_dec, ptxas_deep)
     res["k3_sm90"] = phase_k3_sm90(torch, ptxas, ptxas_sr)
     res["int8"] = phase_int8_kernels(torch)
     res["int8_sm90"] = phase_int8_sm90(torch, ptxas_i8, ptxas_i8p,
@@ -8040,7 +8438,9 @@ def main() -> int:
     res["adam"] = phase_adam_kernels(torch)
     res["adam_emit"] = phase_adam_emit_kernels(torch)
     res["adam_ab"] = dict(ka.LAUNCHES)
+    fd.reset_launches()
     res["wide"] = phase_kernel_wide(torch)
+    res["wide_ab"] = dict(fd.LAUNCHES)
     res["levers"] = phase_loss_levers(torch)
     res["probes"] = phase_probes(torch)
     res["kernel_bench"] = phase_kernel_bench(torch)
@@ -8057,6 +8457,8 @@ def main() -> int:
                  for tag, env, on_grid, kernel in KNOB_PATHS}
         tw = phase_train_wide(torch)
         wide_launches = phase_slice_wide(torch, tmpdir, tw)
+        td = phase_train_deep(torch)
+        deep_launches = phase_slice_deep(torch, tmpdir, td)
         phase_cli_particles(torch, tmpdir, card)
         phase_cli_images(torch, tmpdir, card)
     phase_horizon_kernels(torch)
@@ -8067,7 +8469,8 @@ def main() -> int:
     rows = kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
                        fam_counts, knobs)
     rows += wide_rows(res["wide"], tw, wide_launches, res["levers"],
-                      knobs["train_int8_levers"])
+                      knobs["train_int8_levers"], res["wide_ab"])
+    rows += deep_rows(res, bwd, td, deep_launches)
     rows += res["probes"]
     rows += res["kernel_bench"]
     for r in rows:

@@ -55,6 +55,11 @@ _SIGNATURES = {
     "svt_decoder90_dw": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "svt_decoder90_ws_block": ([_I], _L),
     "svt_decoder90_max_clusters": ([_I], _I),
+    "svt_decoder90_layer": ([_P] * 10 + [_I] * 8 + [_P], _I),
+    "svt_decoder90_chain_layer": ([_P] * 14 + [_I] * 9 + [_P], _I),
+    "svt_decoder90_dw_deep": ([_P] * 3 + [_I] * 3 + [_L, _I, _P], _I),
+    "svt_decoder90_deep_ws_block": ([_I, _I], _L),
+    "svt_decoder90_deep_max_clusters": ([_I], _I),
     "svt_int8_ws_block": ([_I], _L),
     "svt_int8_decoder_fwd": ([_P] * 10 + [_I] * 5 + [_P], _I),
     "svt_int8_decoder_bwd_scale": ([_P] * 11 + [_I] * 5 + [_P], _I),

@@ -14,34 +14,39 @@ with the activation cast to the weight dtype before each product and f32
 accumulation.  Two designs run it on the card, and ``decoder_route`` alone
 picks one per call:
 
-- "sm90" (``csrc/fused_decoder_sm90.cu``), every call with one hidden layer
-  at most 512 wide and at most 8 outputs (every CLI's default decoder):
-  the forward and the backward's chain on thread block clusters of four
-  64-pixel tiles that share one multicast stream of W's slabs
-  (``decoder_slabs``, laid out once per weight version and cached on
-  ``TailWeights``), TF32 (three products, f32 weights) or bf16 wgmma, the
-  product's A operand built slab by slab; the chain writes cast(a0)^T and
-  cast(dh1)^T to K-major workspaces (64-pixel blocks of (512 rows, 64
-  pixels), swizzled as the slabs are) from which a cluster kernel computes
-  dW1;
+- "sm90", every call but the narrow deep decoders (two hidden layers
+  under 288 wide, three or four under 448: ``DEEP_MIN_WIDTH``): thread
+  block clusters of four 64-pixel tiles that share one multicast stream of
+  W's slabs (``decoder_slabs``, laid out once per weight version and cached
+  on ``TailWeights``), TF32 (three products, f32 weights) or bf16 wgmma,
+  the product's A operand built slab by slab, dW from K-major workspaces
+  (64-pixel blocks of (rows, 64 pixels), swizzled as the slabs are) on a
+  cluster kernel.  One hidden layer at most 512 wide (every CLI's default
+  decoder) takes ``csrc/fused_decoder_sm90.cu``: one forward launch, one
+  chain launch and one dW1 launch.  Every other width and depth takes
+  ``csrc/fused_decoder_sm90_deep.cu``: one launch per layer and direction,
+  each product in output column chunks of 512; the forward's layer passes
+  hand a_l to the next through an f32 buffer (B, HW, H), the chain's
+  passes (l = Lh .. 1) hand da_{l-1} down through two, and each chain pass
+  is followed by its layer's dW launch;
 - "tile" (``csrc/fused_decoder_fwd.cu``, ``csrc/fused_decoder_bwd.cu``),
-  every other call: one block per 64-pixel tile streaming W from L2, a
-  split-K dW GEMM.
+  the narrow deep decoders, where it measured faster, and the A/B turns'
+  and card tests' yardstick (``tile_kernels=True``): one block per
+  64-pixel tile streaming W from L2, a split-K dW GEMM.
 
-Both keep every (B, HW, H) intermediate on chip except the activations the
-backward reads, and reduce per-block partials in a fixed order.
+Both keep their per-block partials out of atomics and reduce them in a
+fixed order.
 
 ``decoder_tail_reference`` and ``decoder_tail_backward_reference`` are the
 two in eager PyTorch, with the kernels' casts.  The wrappers run them for CPU
 tensors only; for CUDA tensors they launch the kernels or raise.  They refuse,
-on every device, what the kernels cannot take.  Any hidden width runs: above
-512 the kernels keep each block's activations in a workspace in global memory
-(``csrc/decoder_tile.cuh``), which the wrappers allocate, launching the images
-in chunks that keep it within ``workspace_budget``.  Under no_grad (serving,
-evaluation) nothing is saved and no
-activation is written; with grad the forward saves the (Lh, B, HW, H)
-activations when they fit ``residual_budget`` and the backward recomputes
-them otherwise, as the JAX VJP does with its own limit.
+on every device, what the kernels cannot take.  Any hidden width runs; the
+buffers and workspaces the launches need are allocated by the wrappers,
+which launch the images in chunks that keep them within
+``workspace_budget``.  Under no_grad (serving, evaluation) nothing is saved
+and no activation is written; with grad the forward saves the (Lh, B, HW,
+H) activations when they fit ``residual_budget`` and the backward
+recomputes them otherwise, as the JAX VJP does with its own limit.
 """
 
 from __future__ import annotations
@@ -68,21 +73,29 @@ WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 # the activation output (``fwd``, ``fwd_acts``), the forward the backward
 # reruns to recompute them (``fwd_recompute``), and the backward's chain,
 # dW and reduction kernels; the "sm90" route's kernels count under the keys
-# with "_sm90", the reductions (one kernel for both routes) under
-# ``bwd_sum``.  The CPU path launches nothing.
+# with "_sm90" (one per launch: a layer pass of the deep kernels counts
+# once), the reductions (one kernel for both routes) under ``bwd_sum``.
+# The CPU path launches nothing.
 LAUNCHES = {"fwd": 0, "fwd_acts": 0, "fwd_recompute": 0, "bwd_chain": 0,
             "bwd_dw": 0, "bwd_sum": 0, "fwd_sm90": 0, "fwd_acts_sm90": 0,
             "fwd_recompute_sm90": 0, "bwd_chain_sm90": 0, "bwd_dw_sm90": 0}
 
-# The "sm90" kernels (csrc/fused_decoder_sm90.cu): CLUSTER CTAs of one
-# 64-pixel tile each share W's slab stream; every product has SM90_WIDTH
-# output rows (zero past H); a slab is SLAB_BYTES K-bytes of each row; each
-# split-K partial of the dW1 kernel sums DW_SPLIT_BLOCKS 64-pixel blocks
-# (4,096 pixels, as the tile kernels' chunks: a longer f32 sum inside one
-# accumulator read a mean error of 2.5e-5 of max|dW1| at B=100 against the
-# limit 1e-5).
+# The "sm90" kernels (csrc/fused_decoder_sm90.cu and _deep.cu): CLUSTER
+# CTAs of one 64-pixel tile each share W's slab stream; every product runs
+# in output column chunks of SM90_WIDTH rows (zero past H); a slab is
+# SLAB_BYTES K-bytes of each row; each split-K partial of the dW kernels
+# sums DW_SPLIT_BLOCKS 64-pixel blocks (4,096 pixels, as the tile kernels'
+# chunks: a longer f32 sum inside one accumulator read a mean error of
+# 2.5e-5 of max|dW1| at B=100 against the limit 1e-5).
 CLUSTER = 4
 SM90_WIDTH = 512
+# The narrowest hidden width at which the deep sm90 kernels take Lh >= 2
+# hidden layers: the narrowest width at which they ran K1, K1 with
+# activations and K2 no slower than the tile kernels in turns on the card
+# in both weight dtypes (B=100, HW = 4,096; ``chip_smoke.py --sweep
+# dec90``, PERF.md: 256 and 384 lost a call, 288 and 448 none), so the
+# route keeps the tile kernels below it.
+DEEP_MIN_WIDTH = {2: 288, 3: 448, 4: 448}
 SLAB_BYTES = 64
 BLOCK_PIXELS = 64
 DW_SPLIT_BLOCKS = 64
@@ -97,23 +110,43 @@ def decoder_route(hw: int, h: int, lh: int, no: int,
                   tile_kernels: bool = False) -> str:
     """The kernels a call of hidden width ``h``, ``lh`` hidden layers and
     ``no`` outputs runs on the card, at any pixel count ``hw``: "sm90" for
-    one hidden layer at most SM90_WIDTH wide (f32 or bf16 weights, with or
-    without the residual add, every emit mode and both backward variants);
-    "tile" for every other call and for any call whose caller asks for the
-    tile kernels (``tile_kernels``: the A/B turns and card tests).  The
-    route is chosen here alone; the launches pass it on, and the "sm90"
-    entry points refuse a call this table does not send them."""
-    if hw < 1 or h < 1 or lh < 1 or not 1 <= no <= MAX_OUT:
+    one hidden layer at any width and for Lh >= 2 hidden layers from
+    DEEP_MIN_WIDTH[Lh] (f32 or bf16 weights, with or without the residual
+    add, every emit mode and both backward variants); "tile" for the
+    narrower deep decoders and for a call whose caller asks for the tile
+    kernels (``tile_kernels``: the A/B turns and card tests).  Within
+    "sm90", ``single_pass`` says which of its two sources takes the call.
+    The route is chosen here alone, by shape; the launches pass it on, and
+    the "sm90" entry points refuse a call this table does not send them."""
+    if hw < 1 or h < 1 or not 1 <= lh <= MAX_HIDDEN_LAYERS \
+            or not 1 <= no <= MAX_OUT:
         raise ValueError(f"no route for hw={hw}, h={h}, lh={lh}, no={no}")
-    if not tile_kernels and lh == 1 and h <= SM90_WIDTH:
-        return "sm90"
-    return "tile"
+    if tile_kernels or (lh > 1 and h < DEEP_MIN_WIDTH[lh]):
+        return "tile"
+    return "sm90"
+
+
+def single_pass(h: int, lh: int) -> bool:
+    """Whether an "sm90" call takes ``csrc/fused_decoder_sm90.cu`` (one
+    hidden layer at most SM90_WIDTH wide: one launch a direction) rather
+    than the layer passes of ``csrc/fused_decoder_sm90_deep.cu``."""
+    return lh == 1 and h <= SM90_WIDTH
+
+
+def sm90_rows(h: int) -> int:
+    """Output rows of an sm90 product over ``h`` units: whole chunks of
+    SM90_WIDTH (the slab streams' and dW workspaces' rows)."""
+    return -(-h // SM90_WIDTH) * SM90_WIDTH
 
 
 def _require_route(route: str, hw: int, h: int, lh: int, no: int) -> None:
     if route not in ("sm90", "tile"):
         raise ValueError(f"unknown route {route!r}")
-    if route == "sm90" and decoder_route(hw, h, lh, no) != "sm90":
+    try:
+        want = decoder_route(hw, h, lh, no)
+    except ValueError:
+        want = None
+    if route == "sm90" and want != "sm90":
         raise ValueError(f"the sm90 kernels do not take hw={hw}, h={h}, "
                          f"lh={lh}, no={no}")
 
@@ -353,12 +386,13 @@ def _chunk_values(dtype: torch.dtype) -> int:
 
 
 def decoder_slabs(w: torch.Tensor) -> torch.Tensor:
-    """An (N, K) float32 or bfloat16 matrix given as rows [n][k] (N, K <=
-    SM90_WIDTH) -> the sm90 kernels' slab stream: zero-padded to
-    (SM90_WIDTH, Kp), Kp = ``slab_k(K)``, cut into Kp/KS units of KS =
-    SLAB_BYTES/element-size K values (16 f32, 32 bf16), each unit its
-    planes (f32: the TF32 head, then the tail; bf16: the values) of
-    (SM90_WIDTH, KS) in wgmma's 64-byte swizzled K-major layout (16-byte
+    """An (N, K) float32 or bfloat16 matrix given as rows [n][k] -> the sm90
+    kernels' slab stream: zero-padded to (``sm90_rows(N)``, Kp), Kp =
+    ``slab_k(K)``, and laid out chunk by chunk of SM90_WIDTH rows (the
+    products' output column chunks, in order).  A chunk is cut into Kp/KS
+    units of KS = SLAB_BYTES/element-size K values (16 f32, 32 bf16), each
+    unit its planes (f32: the TF32 head, then the tail; bf16: the values)
+    of (SM90_WIDTH, KS) in wgmma's 64-byte swizzled K-major layout (16-byte
     chunk c of row n at chunk c ^ ((n >> 1) & 3)).  One contiguous 1-D
     tensor of the weight dtype (float32 for f32): a kernel's slab is one
     unit or two consecutive ones, and every quarter of a slab is one bulk
@@ -366,26 +400,37 @@ def decoder_slabs(w: torch.Tensor) -> torch.Tensor:
     of ops: the padded planes, then one gather through a cached index."""
     n, k = w.shape
     kp = slab_k(k)
-    planes = _planes(F.pad(w, (0, kp - k, 0, SM90_WIDTH - n)))
+    rows = sm90_rows(n)
+    planes = _planes(F.pad(w, (0, kp - k, 0, rows - n)))
+    # (P, chunks * SM90_WIDTH, Kp) -> chunk-major (chunks, P, SM90_WIDTH, Kp)
+    chunks = planes.reshape(planes.shape[0], rows // SM90_WIDTH, -1)
+    chunks = chunks.transpose(0, 1).reshape(rows // SM90_WIDTH, -1)
     idx = _slab_index(planes.shape[0], kp, _chunk_values(w.dtype), w.device)
-    return planes.reshape(-1)[idx]
+    return chunks[:, idx].reshape(-1)
 
 
 @functools.cache
 def _slab_index(n_planes: int, kp: int, e: int,
                 device: torch.device) -> torch.Tensor:
-    """Where each element of the slab stream comes from in the flattened
-    (P, SM90_WIDTH, Kp) planes (``decoder_slabs``' permutation)."""
+    """Where each element of one chunk's slab stream comes from in its
+    flattened (P, SM90_WIDTH, Kp) planes (``decoder_slabs``'
+    permutation)."""
     src = torch.arange(n_planes * SM90_WIDTH * kp, device=device)
     t = src.reshape(n_planes, SM90_WIDTH, kp // (4 * e), 4, e)
     return _swizzle64(t.permute(2, 0, 1, 3, 4).contiguous()).reshape(-1)
 
 
 def dw90_splits(nblocks: int) -> int:
-    """Split-K partials of one launch of the sm90 dW1 kernel over
-    ``nblocks`` 64-pixel blocks: one per DW_SPLIT_BLOCKS blocks (16 CTAs
-    each)."""
+    """Split-K partials of one launch of an sm90 dW kernel over ``nblocks``
+    64-pixel blocks: one per DW_SPLIT_BLOCKS blocks."""
     return -(-nblocks // DW_SPLIT_BLOCKS)
+
+
+def deep_ws_block(h: int, bf16: bool) -> int:
+    """Bytes of one 64-pixel block of each dW operand workspace of the
+    deep kernels (``svt_decoder90_deep_ws_block``): ``sm90_rows(h)`` rows
+    x 64 pixels of the weight dtype."""
+    return sm90_rows(h) * BLOCK_PIXELS * (2 if bf16 else 4)
 
 
 class TailWeights:
@@ -398,9 +443,9 @@ class TailWeights:
     flag keeps the bf16 casts); for the tile kernels ``kernel_args()`` adds
     whid as f32 zero-padded to (Lh, Hp, Hp), Hp a multiple of 32, and
     ``whid_t()`` the padded W_l^T the backward streams; for the sm90
-    kernels ``sm90_slabs()`` is W1^T's slab stream (the forward's B
-    operand: N = output unit) and ``sm90_slabs_t()`` W1's (the chain's: N
-    = input unit), in the weight dtype."""
+    kernels ``sm90_slabs(l)`` is W_l^T's slab stream (the forward's B
+    operand: N = output unit) and ``sm90_slabs_t(l)`` W_l's (the chain's:
+    N = input unit), in the weight dtype, layer l counted from 0."""
 
     def __init__(self, whid, bhid, wht, bht):
         _check_weights(whid, bhid, wht, bht)
@@ -409,8 +454,8 @@ class TailWeights:
         self._head_args = None
         self._kernel_args = None
         self._whid_t = None
-        self._slabs = None
-        self._slabs_t = None
+        self._slabs = {}
+        self._slabs_t = {}
 
     @property
     def bf16(self) -> bool:
@@ -432,15 +477,15 @@ class TailWeights:
             self._kernel_args = (self._pad(self.whid), *self.head_args())
         return self._kernel_args
 
-    def sm90_slabs(self) -> torch.Tensor:
-        if self._slabs is None:
-            self._slabs = decoder_slabs(self.whid[0].T)
-        return self._slabs
+    def sm90_slabs(self, layer: int = 0) -> torch.Tensor:
+        if layer not in self._slabs:
+            self._slabs[layer] = decoder_slabs(self.whid[layer].T)
+        return self._slabs[layer]
 
-    def sm90_slabs_t(self) -> torch.Tensor:
-        if self._slabs_t is None:
-            self._slabs_t = decoder_slabs(self.whid[0])
-        return self._slabs_t
+    def sm90_slabs_t(self, layer: int = 0) -> torch.Tensor:
+        if layer not in self._slabs_t:
+            self._slabs_t[layer] = decoder_slabs(self.whid[layer])
+        return self._slabs_t[layer]
 
     def whid_t(self) -> torch.Tensor:
         if self._whid_t is None:
@@ -535,8 +580,9 @@ def _launch_fwd(fold, coords, w: TailWeights, resid: bool, emit: int,
     """The forward kernel on CUDA tensors, each launch counted in
     ``LAUNCHES[key]`` ("tile") or ``LAUNCHES[key + "_sm90"]`` ("sm90").
     emit 0: y only; 1: also f32 activations; 2: activations rounded to
-    bf16.  Above H = 512 the images go in launches whose workspace fits
-    ``workspace_budget``.  Returns (y, acts)."""
+    bf16.  Where the kernels need buffers (the tile kernels above H = 512,
+    the deep passes' f32 layer outputs) the images go in launches whose
+    buffers fit ``workspace_budget``.  Returns (y, acts)."""
     b, _, h = fold.shape
     hw, lh, no = coords.shape[0], w.whid.shape[0], w.wht.shape[0]
     _require_route(route, hw, h, lh, no)
@@ -548,7 +594,7 @@ def _launch_fwd(fold, coords, w: TailWeights, resid: bool, emit: int,
         acts = torch.empty((lh, b, hw, h), device=dev,
                            dtype=torch.bfloat16 if emit == 2 else
                            torch.float32)
-    if route == "sm90":
+    if route == "sm90" and single_pass(h, lh):
         with torch.cuda.device(dev):
             _call(lib, "svt_decoder90_fwd", fold.data_ptr(),
                   coords.data_ptr(), w.sm90_slabs().data_ptr(),
@@ -556,6 +602,9 @@ def _launch_fwd(fold, coords, w: TailWeights, resid: bool, emit: int,
                   acts.data_ptr() if emit else None, b, hw, h, lh, no,
                   int(bool(resid)), int(w.bf16), emit, _stream(fold))
         LAUNCHES[key + "_sm90"] += 1
+        return y, acts
+    if route == "sm90":
+        _launch_fwd_layers(lib, fold, coords, w, resid, emit, key, y, acts)
         return y, acts
     tiles = -(-hw // 64)
     block = lib.svt_fused_decoder_ws_block(h) * 4
@@ -576,6 +625,48 @@ def _launch_fwd(fold, coords, w: TailWeights, resid: bool, emit: int,
                   no, int(bool(resid)), int(w.bf16), emit, _stream(fold))
             LAUNCHES[key] += 1
     return y, acts
+
+
+def _image_ptr(t: torch.Tensor, b0: int) -> int:
+    """The address of image b0 of a (B, ...) tensor."""
+    return t.data_ptr() + b0 * t.stride(0) * t.element_size()
+
+
+def _launch_fwd_layers(lib, fold, coords, w: TailWeights, resid: bool,
+                       emit: int, key: str, y, acts) -> None:
+    """The deep kernels' forward: one pass per layer for each chunk of
+    images, each pass counted in ``LAUNCHES[key + "_sm90"]``.  Layer l's
+    pass reads the f32 a_{l-1} and writes the f32 a_l: with f32
+    activations out (emit 1) those are ``acts`` itself, otherwise two
+    buffers taken in turns (one for two layers), sized per chunk to
+    ``workspace_budget``; with bf16 activations out (emit 2) each pass also
+    writes a_l rounded to bf16."""
+    b, _, h = fold.shape
+    hw, lh, no = coords.shape[0], w.whid.shape[0], w.wht.shape[0]
+    dev = fold.device
+    nbuf = 0 if emit == 1 else min(lh - 1, 2)
+    chunks = [(0, b)]
+    if nbuf:
+        chunks = wide_chunks(b, 1, nbuf * hw * h * 4, workspace_budget(dev))
+    bufs = [torch.empty((chunks[0][1], hw, h), dtype=torch.float32,
+                        device=dev) for _ in range(nbuf)]
+    bhid, wht, bht = w.head_args()
+    with torch.cuda.device(dev):
+        st = _stream(fold)
+        for b0, n in chunks:
+            up = ([_image_ptr(acts[l], b0) for l in range(lh)] if emit == 1
+                  else [bufs[l % 2].data_ptr() if l < lh - 1 else None
+                        for l in range(lh)])
+            for l in range(lh):
+                _call(lib, "svt_decoder90_layer",
+                      _image_ptr(fold, b0), coords.data_ptr(),
+                      w.sm90_slabs(l).data_ptr(), bhid[l].data_ptr(),
+                      wht.data_ptr(), bht.data_ptr(),
+                      up[l - 1] if l else None, up[l],
+                      _image_ptr(acts[l], b0) if emit == 2 else None,
+                      _image_ptr(y, b0), n, hw, h, lh, no, l + 1,
+                      int(bool(resid)), int(w.bf16), st)
+                LAUNCHES[key + "_sm90"] += 1
 
 
 def _route(fold, coords, w: TailWeights, tile_kernels: bool) -> str:
@@ -648,7 +739,14 @@ def run_decoder_tail_backward(fold, coords, w: TailWeights,
     act_bf16 = not recompute and acts.dtype == torch.bfloat16
     tiles = -(-hw // 64)
     sm90 = route == "sm90"
-    if sm90:
+    deep = sm90 and not single_pass(h, lh)
+    # the deep chain's da buffers: da_{l-1} handed down, two in turns
+    nda = min(lh - 1, 2) if deep else 0
+    if deep:
+        block = 2 * deep_ws_block(h, w.bf16)    # the dW operand workspaces
+        per_image = ((lh if recompute else 0) + nda) * hw * h * 4 \
+            + tiles * block
+    elif sm90:
         # the chain's two dW1 operand workspaces
         block = 2 * lib.svt_decoder90_ws_block(int(w.bf16))
         per_image = (hw * h * 4 if recompute else 0) + tiles * block
@@ -673,6 +771,7 @@ def run_decoder_tail_backward(fold, coords, w: TailWeights,
     if sm90:
         ws = torch.empty((bc * tiles * block,), dtype=torch.uint8, device=dev)
         ws_a0, ws_dh = ws[:ws.numel() // 2], ws[ws.numel() // 2:]
+        da = [torch.empty((bc, hw, h), **f32) for _ in range(nda)]
     else:
         dh_ws = torch.empty((lh, bc, hw, h), dtype=wdt, device=dev)
         ws = (torch.empty((bc * tiles * block,), dtype=torch.uint8,
@@ -694,10 +793,31 @@ def run_decoder_tail_backward(fold, coords, w: TailWeights,
                 _launch_fwd(fold_c, coords, w, resid, 1, "fwd_recompute",
                             y_ws[:n], acts_ws, route=route)
                 act_ptr, act_ls = acts_ws.data_ptr(), n * hw * h
+                layer_act = [_image_ptr(acts_ws[l], 0) for l in range(lh)]
             else:
                 act_ptr = acts.data_ptr() + b0 * hw * h * esz
                 act_ls = b * hw * h
-            if sm90:
+                layer_act = [_image_ptr(acts[l], b0) for l in range(lh)]
+            if deep:
+                for l in range(lh - 1, -1, -1):
+                    top = l == lh - 1
+                    _call(lib, "svt_decoder90_chain_layer",
+                          fold_c.data_ptr(), coords.data_ptr(),
+                          w.sm90_slabs_t(l).data_ptr(), wht.data_ptr(),
+                          layer_act[l], layer_act[l - 1] if l else None,
+                          None if top else da[(lh - l) % 2].data_ptr(),
+                          da[(lh - l - 1) % 2].data_ptr() if l else None,
+                          y[b0:b0 + n].data_ptr(), g[b0:b0 + n].data_ptr(),
+                          part_fold[b0 * tiles:].data_ptr(),
+                          part_w[b0 * tiles:].data_ptr(), ws_a0.data_ptr(),
+                          ws_dh.data_ptr(), n, hw, h, lh, no, l + 1, *flags,
+                          st)
+                    LAUNCHES["bwd_chain_sm90"] += 1
+                    _call(lib, "svt_decoder90_dw_deep", ws_a0.data_ptr(),
+                          ws_dh.data_ptr(), part_dw[split0, l].data_ptr(),
+                          n * tiles, h, ns, lh * h * h, flags[1], st)
+                    LAUNCHES["bwd_dw_sm90"] += 1
+            elif sm90:
                 _call(lib, "svt_decoder90_chain", fold_c.data_ptr(),
                       coords.data_ptr(), w.sm90_slabs_t().data_ptr(),
                       wht.data_ptr(), act_ptr, y[b0:b0 + n].data_ptr(),

@@ -102,6 +102,14 @@ def _key(base, lh, no, hw, h=500, tile_kernels=False):
     return base + ("_sm90" if route == "sm90" else "")
 
 
+def _passes(lh, h=500, tile_kernels=False):
+    """Launches of one forward call (one chunk of images): the deep sm90
+    kernels run a pass per layer, the others one launch."""
+    if tile_kernels or fd.single_pass(h, lh):
+        return 1
+    return lh
+
+
 def _assert_close(got, want, wdt, tol=TOL):
     d = (got.float() - want.float()).abs()
     assert d.max().item() <= tol[wdt][0]
@@ -131,7 +139,7 @@ def test_kernel_matches_plain_version(case, cuda_device):
         got = fd.fused_decoder_tail(*args, resid)
         torch.cuda.synchronize()
         want = fd.decoder_tail_reference(*args, resid)
-    assert fd.LAUNCHES[key] == before + 1
+    assert fd.LAUNCHES[key] == before + _passes(lh)
     assert got.shape == (5, no, hw)
     _assert_close(got, want, wdt)
 
@@ -150,25 +158,33 @@ def _wide_b(h):
 
 @pytest.mark.parametrize("h", WIDTHS)
 def test_kernel_at_max_hidden(h, cuda_device):
-    """K1 at and past the old 512 limit: with and without the activation
-    output, f32 and bf16, against the plain version; no width raises."""
+    """K1 at and past the 512 threshold, on the route (the deep kernels'
+    column chunks above 512, a pass per layer) and on the tile kernels:
+    with and without the activation output, f32 and bf16, against the
+    plain version; no width raises."""
     for wdt, resid in ((torch.float32, True), (torch.bfloat16, False)):
         fold, coords, *ws = _inputs(2, 3, 784, wdt, cuda_device,
                                     b=_wide_b(h), h=h)
-        fd.reset_launches()
         with torch.no_grad():
-            got = fd.fused_decoder_tail(fold, coords, *ws, resid)
-            y, acts = fd.run_decoder_tail_acts(fold, coords,
-                                               fd.TailWeights(*ws), resid)
-            torch.cuda.synchronize()
             want, acts_ref = fd.decoder_tail_reference(
                 fold, coords, *ws, resid, return_acts=True)
-        assert fd.LAUNCHES["fwd"] == fd.LAUNCHES["fwd_acts"] == 1
         wide = h > 2048
-        _assert_close(got, want, wdt, TOL_WIDE if wide else TOL)
-        _assert_close(y, want, wdt, TOL_WIDE if wide else TOL)
-        _assert_close(acts, acts_ref, wdt,
-                      ACTS_TOL_WIDE if wide else ACTS_TOL)
+        for tile in (False, True):
+            fd.reset_launches()
+            with torch.no_grad():
+                got = fd.run_decoder_tail(fold, coords, fd.TailWeights(*ws),
+                                          resid, tile_kernels=tile)
+                y, acts = fd.run_decoder_tail_acts(
+                    fold, coords, fd.TailWeights(*ws), resid,
+                    tile_kernels=tile)
+                torch.cuda.synchronize()
+            k = "" if tile else "_sm90"
+            n = _passes(2, h, tile)
+            assert fd.LAUNCHES["fwd" + k] == fd.LAUNCHES["fwd_acts" + k] == n
+            _assert_close(got, want, wdt, TOL_WIDE if wide else TOL)
+            _assert_close(y, want, wdt, TOL_WIDE if wide else TOL)
+            _assert_close(acts, acts_ref, wdt,
+                          ACTS_TOL_WIDE if wide else ACTS_TOL)
 
 
 @pytest.mark.parametrize("variant", ["residual", "recompute"])
@@ -234,7 +250,7 @@ def test_kernel_with_activations_matches_plain_version(case, cuda_device):
         torch.cuda.synchronize()
         y_ref, acts_ref = fd.decoder_tail_reference(fold, coords, *ws, resid,
                                                     return_acts=True)
-    assert fd.LAUNCHES[key] == before + 1
+    assert fd.LAUNCHES[key] == before + _passes(lh)
     assert acts.dtype == wdt and acts.shape == (lh, 5, hw, 500)
     _assert_close(y, y_ref, wdt)
     _assert_close(acts, acts_ref, wdt, ACTS_TOL)
@@ -264,20 +280,23 @@ def test_backward_matches_plain_version(case, variant, cuda_device):
 
 def test_backward_in_image_chunks(cuda_device):
     """A workspace bound that forces three chunks of images gives the
-    one-chunk result up to the split-K chunks' summation order."""
+    one-chunk result up to the split-K chunks' summation order (the tile
+    kernels; the deep kernels' in ``test_deep_backward_in_image_chunks``)."""
     fold, coords, *ws = _inputs(2, 3, 784, torch.float32, cuda_device, b=7)
     g = torch.randn((7, 3, 784), device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(2))
     tw = fd.TailWeights(*ws)
     with torch.no_grad():
-        y, acts = fd.run_decoder_tail_acts(fold, coords, tw, True)
+        y, acts = fd.run_decoder_tail_acts(fold, coords, tw, True,
+                                           tile_kernels=True)
         for a in (acts, None):
             before = fd.LAUNCHES["bwd_chain"]
-            one = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g, True)
+            one = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g, True,
+                                               tile_kernels=True)
             per_image = 2 * 784 * 500 * (4 if a is not None else 8)
             three = fd.run_decoder_tail_backward(
                 fold, coords, tw, a, y, g, True,
-                workspace_bytes=3 * per_image)
+                workspace_bytes=3 * per_image, tile_kernels=True)
             assert fd.LAUNCHES["bwd_chain"] == before + 1 + 3
             for u, v in zip(three, one):
                 _assert_rel(u, v, BWD_TOL[torch.float32, "residual"])
@@ -539,8 +558,12 @@ def test_sm90_dw_matches_its_plain_version(wdt, splits, cuda_device):
 
 
 def test_sm90_entry_points_refuse_other_calls(cuda_device):
-    """The C entry points refuse what ``decoder_route`` does not send them:
-    two hidden layers, H > 512, nine outputs."""
+    """The C entry points refuse what ``decoder_route`` and
+    ``single_pass`` do not send them: the default-shape kernels two hidden
+    layers, H > 512, nine outputs; the deep kernels one hidden layer at
+    most 512 wide, five layers, nine outputs, a layer's missing buffers
+    (the narrow deep decoders the route keeps on the tile kernels are
+    ``_require_route``'s to refuse: ``test_torch_port_decoder_sm90.py``)."""
     lib = fd._lib()
     buf = torch.zeros(1 << 20, device=cuda_device)
     p = buf.data_ptr()
@@ -551,6 +574,24 @@ def test_sm90_entry_points_refuse_other_calls(cuda_device):
         assert lib.svt_decoder90_chain(p, p, p, p, p, p, p, p, p, p, p, 1,
                                        256, h, lh, no, 0, 0, 0, st) != 0
     assert lib.svt_decoder90_dw(p, p, p, 4, 600, 1, 0, st) != 0
+    for h, lh, no in ((500, 1, 3), (500, 5, 3), (600, 1, 9)):
+        assert lib.svt_decoder90_layer(p, p, p, p, p, p, None, p, None, p, 1,
+                                       256, h, lh, no, 1, 0, 0, st) != 0
+        assert lib.svt_decoder90_chain_layer(
+            p, p, p, p, p, None, None, None, p, p, p, p, p, p, 1, 256, h, lh,
+            no, 1, 0, 0, 0, st) != 0
+    # layer 2 of 3 without its input buffer, or without its output; the
+    # chain's middle layer without its da buffers
+    assert lib.svt_decoder90_layer(p, p, p, p, p, p, None, p, None, p, 1, 256,
+                                   500, 3, 3, 2, 0, 0, st) != 0
+    assert lib.svt_decoder90_layer(p, p, p, p, p, p, p, None, p, p, 1, 256,
+                                   500, 3, 3, 2, 0, 1, st) != 0
+    assert lib.svt_decoder90_chain_layer(
+        p, p, p, p, p, p, None, None, p, p, p, p, p, p, 1, 256, 500, 3, 3, 2,
+        0, 0, 0, st) != 0
+    assert lib.svt_decoder90_dw_deep(p, p, p, 4, 600, 5, 600 * 600, 0,
+                                     st) != 0
+    torch.cuda.synchronize()
 
 
 def test_sm90_training_step_matches_plain(cuda_device):
@@ -584,6 +625,195 @@ def test_sm90_training_step_matches_plain(cuda_device):
             assert fd.LAUNCHES["fwd_acts_sm90"] == 1
             assert fd.LAUNCHES["bwd_chain_sm90"] == 1
             assert fd.LAUNCHES["bwd_dw_sm90"] == 1
+    for k, g in grads[True].items():
+        _assert_rel(g, grads[False][k], (2e-4, 3e-5))
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2's deep kernels (csrc/fused_decoder_sm90_deep.cu: H > 512, Lh =
+# 2..4) against the plain versions and the tile kernels
+# ---------------------------------------------------------------------------
+
+# (Lh, H): the column chunks at every width of WIDTHS past 512 (whole and
+# ragged chunks), the layer passes at Lh = 2..4 from the narrowest width
+# the route sends them (fused_decoder.DEEP_MIN_WIDTH), and both at once
+DEEP_SHAPES = [(1, h) for h in WIDTHS if h > 512] + [
+    (2, 290), (2, 500), (3, 450), (3, 500), (4, 500), (2, 1000), (3, 1000)]
+
+
+def _deep_b(h):
+    return 2 if h > 2048 else 3
+
+
+def _deep_tols(h):
+    wide = h > 2048
+    return (TOL_WIDE if wide else TOL), (ACTS_TOL_WIDE if wide else ACTS_TOL)
+
+
+@pytest.mark.parametrize("resid", [False, True], ids=_sm90_id)
+@pytest.mark.parametrize("wdt", SM90_DTYPES, ids=_sm90_id)
+@pytest.mark.parametrize("shape", DEEP_SHAPES,
+                         ids=lambda s: f"Lh{s[0]}-H{s[1]}")
+def test_deep_forward_against_plain_and_tile(shape, wdt, resid,
+                                             cuda_device):
+    """Both emit modes on the deep kernels and on the tile kernels at 784
+    pixels (a ragged last tile): y and the activations (both filled with
+    NaN first, so every element must be written) within TOL / ACTS_TOL of
+    the plain version and of the other design; reruns bit for bit; a pass
+    per layer under the route's keys."""
+    lh, h = shape
+    b, hw, no = _deep_b(h), 784, 3
+    fold, coords, *ws = _inputs(lh, no, hw, wdt, cuda_device, b=b, h=h)
+    tw = fd.TailWeights(*ws)
+    tol, acts_tol = _deep_tols(h)
+    fd.reset_launches()
+    y = torch.full((b, no, hw), math.nan, device=cuda_device)
+    acts = torch.full((lh, b, hw, h), math.nan, device=cuda_device,
+                      dtype=wdt)
+    with torch.no_grad():
+        got = fd.run_decoder_tail(fold, coords, tw, resid)
+        again = fd.run_decoder_tail(fold, coords, tw, resid)
+        fd._launch_fwd(fold, coords, tw, resid, 2 if wdt == torch.bfloat16
+                       else 1, "fwd_acts", y, acts, route="sm90")
+        y_t = fd.run_decoder_tail(fold, coords, tw, resid, tile_kernels=True)
+        _, acts_t = fd.run_decoder_tail_acts(fold, coords, tw, resid,
+                                             tile_kernels=True)
+        torch.cuda.synchronize()
+        want, acts_ref = fd.decoder_tail_reference(fold, coords, *ws, resid,
+                                                   return_acts=True)
+    assert fd.LAUNCHES["fwd_sm90"] == 2 * lh
+    assert fd.LAUNCHES["fwd_acts_sm90"] == lh
+    assert fd.LAUNCHES["fwd"] == fd.LAUNCHES["fwd_acts"] == 1
+    assert torch.isfinite(y).all() and torch.isfinite(acts).all()
+    assert torch.equal(got, again) and torch.equal(got, y)
+    for u in (got, y_t):
+        _assert_close(u, want, wdt, tol)
+    _assert_close(got, y_t, wdt, tol)
+    for u in (acts, acts_t):
+        _assert_close(u, acts_ref, wdt, acts_tol)
+    _assert_close(acts, acts_t, wdt, acts_tol)
+
+
+@pytest.mark.parametrize("variant", ["residual", "recompute"])
+@pytest.mark.parametrize("resid", [False, True], ids=_sm90_id)
+@pytest.mark.parametrize("wdt", SM90_DTYPES, ids=_sm90_id)
+@pytest.mark.parametrize("shape", DEEP_SHAPES,
+                         ids=lambda s: f"Lh{s[0]}-H{s[1]}")
+def test_deep_backward_against_plain_and_tile(shape, wdt, resid, variant,
+                                              cuda_device):
+    """The chain passes and each layer's dW against the plain version and
+    the tile kernels within BWD_TOL; two runs bit for bit; a chain and a
+    dW launch per layer."""
+    lh, h = shape
+    b, hw, no = _deep_b(h), 784, 3
+    fold, coords, *ws = _inputs(lh, no, hw, wdt, cuda_device, b=b, h=h)
+    g = torch.randn((b, no, hw), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    tw = fd.TailWeights(*ws)
+    with torch.no_grad():
+        y, acts = fd.run_decoder_tail_acts(fold, coords, tw, resid)
+        a = acts if variant == "residual" else None
+        fd.reset_launches()
+        got = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g, resid)
+        again = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g, resid)
+        tile = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g, resid,
+                                            tile_kernels=True)
+        want = fd.decoder_tail_backward_reference(fold, coords, *ws[:3], a,
+                                                  y, g, resid)
+    rec = int(a is None)
+    assert fd.LAUNCHES["fwd_recompute_sm90"] == 2 * rec * lh
+    assert fd.LAUNCHES["bwd_chain_sm90"] == fd.LAUNCHES["bwd_dw_sm90"] \
+        == 2 * lh
+    assert fd.LAUNCHES["bwd_chain"] == fd.LAUNCHES["bwd_dw"] == 1
+    for u, v, t, w in zip(got, again, tile, want):
+        assert torch.equal(u, v)
+        _assert_rel(u, w, BWD_TOL[wdt, variant])
+        _assert_rel(u, t, BWD_TOL[wdt, variant])
+
+
+def test_deep_backward_in_image_chunks(cuda_device):
+    """A workspace bound that forces three chunks of images on the deep
+    kernels gives the one-chunk result up to the split-K partials' order."""
+    lh, h, b = 3, 600, 7
+    fold, coords, *ws = _inputs(lh, 3, 784, torch.float32, cuda_device, b=b,
+                                h=h)
+    g = torch.randn((b, 3, 784), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(2))
+    tw = fd.TailWeights(*ws)
+    with torch.no_grad():
+        y, acts = fd.run_decoder_tail_acts(fold, coords, tw, True)
+        for a in (acts, None):
+            before = fd.LAUNCHES["bwd_chain_sm90"]
+            one = fd.run_decoder_tail_backward(fold, coords, tw, a, y, g, True)
+            per_image = 13 * 2 * fd.deep_ws_block(h, False) + (
+                (2 if a is not None else 2 + lh) * 784 * h * 4)
+            three = fd.run_decoder_tail_backward(
+                fold, coords, tw, a, y, g, True,
+                workspace_bytes=3 * per_image)
+            assert fd.LAUNCHES["bwd_chain_sm90"] == before + lh * (1 + 3)
+            for u, v in zip(three, one):
+                _assert_rel(u, v, BWD_TOL[torch.float32, "residual"])
+
+
+@pytest.mark.parametrize("h", [600, 1030])
+@pytest.mark.parametrize("wdt", SM90_DTYPES, ids=_sm90_id)
+def test_deep_dw_matches_its_plain_version(wdt, h, cuda_device):
+    """The deep dW kernel alone on workspaces of ``sm90_rows(h)`` rows laid
+    out by ``dec90_ws_layout``: its split-K partials, written at a stride
+    of two (H, H) matrices, against ``dec90_dw_reference`` (f64) within
+    1e-5 of each partial's largest value."""
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    nb, splits, rows = 37, 5, fd.sm90_rows(h)
+    a0 = torch.rand((nb, 64, rows), generator=gen, device=cuda_device) * 2 - 1
+    dh = torch.randn((nb, 64, rows), generator=gen, device=cuda_device)
+    ws_a = dl.dec90_ws_layout(a0.to(wdt))
+    ws_dh = dl.dec90_ws_layout(dh.to(wdt))
+    part = torch.zeros((splits, 2, h, h), device=cuda_device)
+    lib = fd._lib()
+    assert lib.svt_decoder90_deep_ws_block(h, int(wdt == torch.bfloat16)) \
+        == fd.deep_ws_block(h, wdt == torch.bfloat16)
+    with torch.cuda.device(cuda_device):
+        fd._call(lib, "svt_decoder90_dw_deep", ws_a.data_ptr(),
+                 ws_dh.data_ptr(), part[:, 1].data_ptr(), nb, h, splits,
+                 2 * h * h, int(wdt == torch.bfloat16), fd._stream(part))
+    want = dl.dec90_dw_reference(ws_a.cpu(), ws_dh.cpu(), nb, h, splits,
+                                 rows)
+    assert not part[:, 0].any()
+    for s in range(splits):
+        _assert_rel(part[s, 1].cpu(), want[s], (1e-5, 1e-6))
+
+
+def test_deep_training_step_matches_plain(cuda_device):
+    """One float step of a decoder with four layers (Lh = 3) through the
+    deep kernels against the same step through the plain folded decoder,
+    every leaf within chip_smoke.STEP_TOL of its largest value."""
+    from spatialvae_torch.config import InferenceConfig
+
+    from spatialvae_torch.objectives import ElboConfig, loss_and_grad
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+
+    q_cfg = InferenceConfig(n=64 * 64 * 3, latent_dim=23, hidden_dim=256,
+                            num_layers=2)
+    p_cfg = SpatialGeneratorConfig(latent_dim=20, hidden_dim=500, n_out=3,
+                                   num_layers=4)
+    ecfg = ElboConfig(fused=True, channels=3)
+    tr = Trainer(q_cfg, p_cfg, ecfg, TrainConfig(minibatch_size=8),
+                 coord_grid(64, 64, device=cuda_device))
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    y = torch.rand((8, 4096, 3), device=cuda_device, generator=gen)
+    noise = torch.randn((8, 23), device=cuda_device, generator=gen)
+    grads = {}
+    for fused in (True, False):
+        fd.reset_launches()
+        loss_and_grad(tr.q_net, tr.p_net,
+                      dataclasses.replace(ecfg, fused=fused), tr.coords, y,
+                      noise=noise, mask=tr.mask)
+        grads[fused] = {k: p.grad.clone()
+                        for k, p in tr.named_params().items()}
+        if fused:
+            assert fd.LAUNCHES["fwd_acts_sm90"] == 3
+            assert fd.LAUNCHES["bwd_chain_sm90"] == 3
+            assert fd.LAUNCHES["bwd_dw_sm90"] == 3
     for k, g in grads[True].items():
         _assert_rel(g, grads[False][k], (2e-4, 3e-5))
 

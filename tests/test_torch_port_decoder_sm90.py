@@ -2,14 +2,16 @@
 surrounds the kernels, which only the card runs.
 
 - W's slab stream round-trips: element (n, k) of each plane lies where
-  wgmma's 64-byte swizzled K-major layout puts it, the f32 planes are the
-  TF32 head and tail, bf16 stays bf16 (H = 40, 500, 512);
+  wgmma's 64-byte swizzled K-major layout puts it, chunk after chunk of
+  512 rows, the f32 planes are the TF32 head and tail, bf16 stays bf16
+  (H = 40, 500, 512, and 520 and 1,030 for the deep kernels' chunks);
 - the TF32 split (``tf32_round`` is ``cvt.rna.tf32.f32``): three products
   hold the galaxy tile's (64 x 500 x 500) product to the f64 one within
   1e-6 of its largest value, one product reads above 1e-4 (where the
   kernels' f32 limits sit between the two);
-- the dW1 workspace layout round-trips, each pixel at the position the
-  chain writes it, and dW1 through it (the dW1 kernel's plain version,
+- the dW workspace layout round-trips (512 rows a block, and 1,024 for
+  the deep kernels at H = 1,030), each pixel at the position the chain
+  writes it, and dW1 through it (the dW1 kernel's plain version,
   split by split) is the JAX ``_bwd_kernel``'s (interpret mode) within
   rtol 1e-5 in f32 (sums over the pixels in another order) and 1e-2 of the
   largest value with bf16 weights (the packages round a tanh to bf16 from
@@ -19,6 +21,9 @@ surrounds the kernels, which only the card runs.
   y within rtol 1e-5 (f32; bf16 1e-2 as above);
 - ``decoder_route``'s table, and the launches refusing the sm90 route for
   a call it does not take before any library is loaded.
+
+The deep kernels' schedules are held to the JAX package by
+``test_torch_port_decoder_deep.py``.
 
 The kernels themselves, their walk over the tiles included, are held to the
 plain versions and to the tile kernels on the card by
@@ -49,29 +54,35 @@ def _values_per_slab(dt):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("h", [40, 500, 512])
+@pytest.mark.parametrize("h", [40, 500, 512, 520, 1030])
 def test_slab_stream_round_trips(h, dt):
     gen = torch.Generator().manual_seed(h)
     w = (torch.rand((h, h), generator=gen) * 2 - 1).to(dt)
     slabs = fd.decoder_slabs(w)
     kp = fd.slab_k(h)
-    planes = dl.decoder_slab_planes(slabs, h)
-    full = torch.zeros((W, kp), dtype=dt)
+    rows = fd.sm90_rows(h)
+    planes = dl.decoder_slab_planes(slabs, h, h)
+    full = torch.zeros((rows, kp), dtype=dt)
     full[:h, :h] = w
     if dt == torch.bfloat16:
-        assert slabs.dtype == torch.bfloat16 and planes.shape == (1, W, kp)
+        assert slabs.dtype == torch.bfloat16 and planes.shape == (1, rows, kp)
         assert torch.equal(planes[0], full)
     else:
         hi, lo = fd.tf32_split(full)
-        assert planes.shape == (2, W, kp)
+        assert planes.shape == (2, rows, kp)
         assert torch.equal(planes[0], hi) and torch.equal(planes[1], lo)
-    # element (n, k) where the swizzled layout puts it
+    # element (n, k) where the swizzled layout puts it: chunk n // 512, its
+    # row n % 512, then the slab's unit and plane
     ks = _values_per_slab(dt)
     e = ks // 4
-    for n, k in ((0, 0), (1, 5), (3, ks + 1), (h - 1, h - 1), (7, kp - 1)):
+    units = kp // ks
+    for n, k in ((0, 0), (1, 5), (3, ks + 1), (h - 1, h - 1), (7, kp - 1),
+                 (rows - 1, 0)):
+        c, r = divmod(n, W)
         s, kk = divmod(k, ks)
-        chunk = (kk // e) ^ ((n >> 1) & 3)
-        at = ((s * planes.shape[0]) * W + n) * ks + chunk * e + kk % e
+        chunk = (kk // e) ^ ((r >> 1) & 3)
+        at = (((c * units + s) * planes.shape[0]) * W + r) * ks \
+            + chunk * e + kk % e
         assert slabs[at] == planes[0, n, k]
 
 
@@ -109,23 +120,36 @@ def test_three_tf32_products_hold_the_galaxy_tile():
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_workspace_layout_round_trips(dt):
+    _workspace_round_trip(dt, W)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_deep_workspace_layout_round_trips(dt):
+    """The deep kernels' workspaces at H = 1,030: 1,024 rows a block."""
+    _workspace_round_trip(dt, fd.sm90_rows(1030))
+
+
+def _workspace_round_trip(dt, rows):
     gen = torch.Generator().manual_seed(1)
     nb = 3
-    tiles = (torch.rand((nb, fd.BLOCK_PIXELS, W), generator=gen) * 2
+    tiles = (torch.rand((nb, fd.BLOCK_PIXELS, rows), generator=gen) * 2
              - 1).to(dt)
     ws = dl.dec90_ws_layout(tiles)
-    assert ws.dtype == dt and ws.numel() == nb * W * 64
-    assert torch.equal(dl.dec90_ws_tiles(ws, nb), tiles)
+    assert ws.dtype == dt and ws.numel() == nb * rows * 64
+    assert torch.equal(dl.dec90_ws_tiles(ws, nb, rows), tiles)
+    assert ws.numel() * ws.element_size() == nb * fd.deep_ws_block(
+        rows, dt == torch.bfloat16)
     # pixel 16 w + g + 8 h of block b, row r: position 16 w + 2 g + h, in
-    # 64-byte chunks of W swizzled rows
+    # 64-byte chunks of `rows` swizzled rows
     e = _values_per_slab(dt) // 4
     per = 4 * e
     for b, pw, g, hh, r in ((0, 0, 0, 0, 0), (1, 3, 7, 1, 77),
-                            (2, 2, 5, 0, 511), (2, 1, 2, 1, 6)):
+                            (2, 2, 5, 0, rows - 1), (2, 1, 2, 1, 6)):
         pos = 16 * pw + 2 * g + hh
         c, kk = divmod(pos, per)
         chunk = (kk // e) ^ ((r >> 1) & 3)
-        at = ((b * (64 // per) + c) * W + r) * per + chunk * e + kk % e
+        at = ((b * (64 // per) + c) * rows + r) * per + chunk * e + kk % e
         assert ws[at] == tiles[b, 16 * pw + g + 8 * hh, r]
 
 
@@ -143,16 +167,6 @@ def _inputs(no, hw, wdt, b=2, h=24, seed=0):
     ws = [torch.from_numpy(w).to(wdt).float().numpy() for w in ws]
     g = rng.normal(size=(b, no, hw)).astype(np.float32)
     return fold, coord_grid(side, side).numpy(), ws, g
-
-
-def _blocks(t, hw):
-    """(B, HW, H) -> (B * tiles, 64, SM90_WIDTH): 64-pixel blocks, zero past
-    HW and past H."""
-    b, _, h = t.shape
-    tiles = -(-hw // fd.BLOCK_PIXELS)
-    out = torch.zeros((b, tiles * fd.BLOCK_PIXELS, W), dtype=t.dtype)
-    out[:, :hw, :h] = t
-    return out.reshape(b * tiles, fd.BLOCK_PIXELS, W)
 
 
 def _close(got, want, wdt, what):
@@ -192,8 +206,8 @@ def test_dw1_through_the_workspaces_matches_jax(wdt, hw):
                        torch.from_numpy(ws[2]))
     dh1 = da1 * (1.0 - a1 * a1)
     nb = fold.shape[0] * -(-hw // fd.BLOCK_PIXELS)
-    ws_a0 = dl.dec90_ws_layout(_blocks(cast(a0), hw))
-    ws_dh = dl.dec90_ws_layout(_blocks(cast(dh1), hw))
+    ws_a0 = dl.dec90_ws_layout(dl.ws_blocks(cast(a0), hw))
+    ws_dh = dl.dec90_ws_layout(dl.ws_blocks(cast(dh1), hw))
     h = fold.shape[2]
     parts = dl.dec90_dw_reference(ws_a0, ws_dh, nb, h, splits=3)
     assert parts.shape == (3, h, h)
@@ -252,24 +266,32 @@ def test_forward_by_slabs_matches_jax(wdt, hw, resid):
 
 
 ROUTE_CASES = [
-    # hw, h, lh, no, tile_kernels, route
-    (4096, 500, 1, 3, False, "sm90"),      # galaxy, every CLI's default
-    (784, 500, 1, 1, False, "sm90"),       # mnist: ragged last tile
-    (4096, 512, 1, 8, False, "sm90"),
-    (256, 40, 1, 2, False, "sm90"),
-    (4096, 513, 1, 3, False, "tile"),      # wider than the clusters' rows
-    (4096, 1000, 1, 3, False, "tile"),
-    (4096, 500, 2, 3, False, "tile"),      # two hidden layers
-    (4096, 500, 4, 3, False, "tile"),
-    (4096, 500, 1, 3, True, "tile"),       # the A/B's and tests' yardstick
+    # hw, h, lh, no, tile_kernels, route, single pass
+    (4096, 500, 1, 3, False, "sm90", True),     # galaxy, every CLI's default
+    (784, 500, 1, 1, False, "sm90", True),      # mnist: ragged last tile
+    (4096, 512, 1, 8, False, "sm90", True),
+    (256, 40, 1, 2, False, "sm90", True),
+    (4096, 513, 1, 3, False, "sm90", False),    # past one column chunk
+    (4096, 1000, 1, 3, False, "sm90", False),
+    (4096, 500, 2, 3, False, "sm90", False),    # two hidden layers
+    (4096, 500, 4, 3, False, "sm90", False),
+    (4096, 1000, 3, 8, False, "sm90", False),
+    (4096, 288, 2, 3, False, "sm90", False),    # DEEP_MIN_WIDTH
+    (4096, 448, 3, 3, False, "sm90", False),
+    (4096, 287, 2, 3, False, "tile", False),    # narrower: the tile kernels
+    (4096, 447, 4, 3, False, "tile", False),
+    (256, 40, 4, 2, False, "tile", False),
+    (4096, 500, 1, 3, True, "tile", True),      # the A/B's yardstick
+    (4096, 1000, 3, 3, True, "tile", False),
 ]
 
 
 @pytest.mark.parametrize("case", ROUTE_CASES, ids=lambda c: "-".join(
-    str(x) for x in c))
+    str(x) for x in c[:6]))
 def test_route_table(case):
-    *args, want = case
+    *args, want, single = case
     assert fd.decoder_route(*args) == want
+    assert fd.single_pass(args[1], args[2]) == single
 
 
 @pytest.mark.parametrize("no", [0, 9])
@@ -278,8 +300,10 @@ def test_route_refuses_outputs_the_kernels_do_not_take(no):
         fd.decoder_route(4096, 500, 1, no)
 
 
-@pytest.mark.parametrize("lh,h", [(2, 24), (1, 600)])
+@pytest.mark.parametrize("lh,h", [(2, 24), (4, 447)])
 def test_launch_refuses_a_mismatched_route(lh, h, monkeypatch):
+    """Deep decoders the route table keeps on the tile kernels: the sm90
+    launch refuses them before loading the library."""
     def no_library():
         raise AssertionError("the library was loaded")
 
@@ -293,13 +317,45 @@ def test_launch_refuses_a_mismatched_route(lh, h, monkeypatch):
                        False, 0, "fwd", route="sm90")
 
 
+@pytest.mark.parametrize("lh,no", [(5, 3), (1, 9)])
+def test_launch_refuses_shapes_no_route_takes(lh, no, monkeypatch):
+    """Weights the route table sends nowhere (five hidden layers, nine
+    outputs; ``TailWeights`` refuses them too, so they are set on it
+    directly): the sm90 launch refuses them before loading the library."""
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(fd, "_lib", no_library)
+    fold, coords, ws, _ = _inputs(3, 256, torch.float32)
+    tw = fd.TailWeights.__new__(fd.TailWeights)
+    tw.whid = torch.from_numpy(np.repeat(ws[0], lh, axis=0))
+    tw.bhid = torch.from_numpy(np.repeat(ws[1], lh, axis=0))
+    tw.wht = torch.zeros((no, 24))
+    tw.bht = torch.zeros((no,))
+    with pytest.raises(ValueError, match="sm90"):
+        fd._launch_fwd(torch.from_numpy(fold), torch.from_numpy(coords), tw,
+                       False, 0, "fwd", route="sm90")
+
+
 def test_slabs_are_built_once_per_weights():
-    fold, coords, ws, _ = _inputs(3, 256, torch.bfloat16)
-    tw = fd.TailWeights(*(torch.from_numpy(w).to(torch.bfloat16)
-                          for w in ws))
-    assert tw.sm90_slabs() is tw.sm90_slabs()
-    assert tw.sm90_slabs_t() is tw.sm90_slabs_t()
-    kp = fd.slab_k(24)
-    assert tw.sm90_slabs().numel() == W * kp
-    planes = dl.decoder_slab_planes(tw.sm90_slabs_t(), 24)
-    assert torch.equal(planes[0, :24, :24], tw.whid[0])
+    _slabs_once(1, 24)
+
+
+def test_deep_slabs_are_built_once_per_layer():
+    _slabs_once(3, 520)
+
+
+def _slabs_once(lh, h):
+    rng = np.random.default_rng(lh)
+    ws = [torch.from_numpy(rng.uniform(-1, 1, s).astype(np.float32))
+          .to(torch.bfloat16) for s in ((lh, h, h), (lh, h), (3, h), (3,))]
+    tw = fd.TailWeights(*ws)
+    kp = fd.slab_k(h)
+    for l in range(lh):
+        assert tw.sm90_slabs(l) is tw.sm90_slabs(l)
+        assert tw.sm90_slabs_t(l) is tw.sm90_slabs_t(l)
+        assert tw.sm90_slabs(l).numel() == fd.sm90_rows(h) * kp
+        planes = dl.decoder_slab_planes(tw.sm90_slabs_t(l), h, h)
+        assert torch.equal(planes[0, :h, :h], tw.whid[l])
+        planes = dl.decoder_slab_planes(tw.sm90_slabs(l), h, h)
+        assert torch.equal(planes[0, :h, :h], tw.whid[l].T)
