@@ -13,6 +13,7 @@
     python3 chip_smoke.py --limits adam       # Adam's step kernel
     python3 chip_smoke.py --split dec90       # their product/epilogue split
     python3 chip_smoke.py --sweep dec90       # both designs over H and Lh
+    python3 chip_smoke.py --sweep k3          # K3's designs past H = 512
     python3 chip_smoke.py --default-width PARENT_DIR   # K1-K5 A/B
     python3 chip_smoke.py --sass PARENT_DIR   # untouched kernels' SASS
     python3 chip_smoke.py --phase cli_particles   # the particles CLI alone
@@ -232,7 +233,9 @@ checkout and in the parent's (a directory holding it), each turn a process
 of its own tree; ``--sass PARENT`` compares the SASS of the translation
 units this checkout left as they were (SASS_UNITS) with the parent's;
 ``--sweep dec90`` times K1/K2's two designs in turns over widths and
-depths, the measurement ``fused_decoder.DEEP_MIN_WIDTH`` comes from.
+depths, the measurement ``fused_decoder.DEEP_MIN_WIDTH`` comes from;
+``--sweep k3`` times K3's two designs in turns over widths past 512, the
+measurement behind ``fused_loss_int8.k3_route``'s cluster route there.
 
 Needs a CUDA device and ``nvcc``; imports no JAX.  Exits non-zero, without
 the final line, when there is no CUDA device or any phase fails.
@@ -403,8 +406,10 @@ def ptxas_report(started, serialized=None) -> list:
             serialized.setdefault(key, []).append(m.group(1))
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            # K3's: <bf16 or f32[, colored]>
-            name = re.sub(r".*(loss_fwd90_sr|loss_grad90_sr|loss_fwd90|"
+            # K3's (the wide passes' names end in w): <bf16 or f32[,
+            # colored]>
+            name = re.sub(r".*(loss_fwd90_sr|loss_grad90_sr|loss_fwd90w|"
+                          r"loss_grad90w|grouped_dw90w|loss_fwd90|"
                           r"loss_grad90|grouped_dw90|"
                           r"tile_product90|chain_check90)_kernel"
                           r"(IL(b[01])E(Lb([01])E)?)?.*",
@@ -1248,6 +1253,9 @@ AB_I8 = ("block", "sm90", "sm90", "block")
 LOSS_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8.cu"
 LOSS90_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8_sm90.cu"
 LOSS90_SR_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8_sm90_sr.cu"
+# the cluster passes past H = 512 (the default numerics)
+LOSS90_WIDE_SOURCE = (
+    "spatialvae_torch/kernels/csrc/fused_loss_int8_sm90_wide.cu")
 # fused_loss_int8.LAUNCHES: the block passes', the cluster passes' ("_sm90")
 K3_KEYS = ("fwd", "grad", "dw", "sum", "fwd_sm90", "grad_sm90", "dw_sm90")
 # turns of an A/B of K3's two designs on one card
@@ -1363,6 +1371,13 @@ K5_REPLACES = "spatialvae_tpu/kernels/fused_decoder_int8.py:95"
 # block, not its group): the PERF.md limits table; `--limits` reprints the
 # readings.
 INT8_TOL = (1e-3, 2e-5)
+# K3's dh0 reading (dfold's three gradient rows on their own scale; beside
+# the loss at dfold[:, 3, 0] their errors are too small to see) past
+# H = 512, placed between the sound wide cluster passes' readings (at most
+# 1.13e-4 / 1.78e-5) and those of the copy that reads aq for dh0 from the
+# workspace one block off (-DSVT_K3W_AQ_OFF=1, at least 1.86e-2 /
+# 6.89e-4): the PERF.md limits table
+DH0_TOL = (1e-3, 1e-4)
 # K4's y and a1 by absolute error (max, mean)
 INT8_Y_TOL = (1e-5, 1e-6)
 INT8_A1_TOL = (1e-2, 1e-6)
@@ -1460,6 +1475,17 @@ def _timed(torch, kern, plain) -> tuple:
     return statistics.median(ks), statistics.median(ps)
 
 
+# K3's readings: the loss, dh0 (the three rows of dfold that carry the
+# gradient, read on their own scale: beside the loss at dfold[:, 3, 0]
+# an error there is too small to see) and the five outputs
+K3_READINGS = ("loss", "dh0") + INT8_GRADS
+
+
+def k3_views(out) -> tuple:
+    """K3's outputs ``out`` in the order of K3_READINGS."""
+    return (out[0][:, 3, 0], out[0][:, :3]) + tuple(out)
+
+
 def _loss_readings(torch, args, mask, family, timed, nm=None,
                    block_passes=False) -> dict:
     """K3 on ``args`` (fold, coords, w1, b1, wht, bht, y_t) against its
@@ -1489,7 +1515,8 @@ def _loss_readings(torch, args, mask, family, timed, nm=None,
         torch.cuda.synchronize()
         want = l8.loss_int8_reference(*args, mask, family, nm)
         out = {"same": all(torch.equal(u, v) for u, v in zip(got, again)),
-               "loss": rel_errors(got[0][:, 3, 0], want[0][:, 3, 0])}
+               "loss": rel_errors(got[0][:, 3, 0], want[0][:, 3, 0]),
+               "dh0": rel_errors(got[0][:, :3], want[0][:, :3])}
         for name, u, v in zip(INT8_GRADS, got, want):
             if u.shape != v.shape:
                 raise AssertionError(f"K3 {name}: shape {tuple(u.shape)}")
@@ -1517,12 +1544,9 @@ def _loss_readings(torch, args, mask, family, timed, nm=None,
             out["vs_block"] = {"ints": (int((aq != aq7).sum()),
                                       (qi != qi7).float().mean().item())}
             out["vs_block"].update({n: rel_errors(u, v) for n, u, v in zip(
-                ("loss",) + INT8_GRADS,
-                (got[0][:, 3, 0],) + tuple(got), (old[0][:, 3, 0],)
-                + tuple(old))})
+                K3_READINGS, k3_views(got), k3_views(old))})
             out["block"] = {n: rel_errors(u, v) for n, u, v in zip(
-                ("loss",) + INT8_GRADS, (old[0][:, 3, 0],) + tuple(old),
-                (want[0][:, 3, 0],) + tuple(want))}
+                K3_READINGS, k3_views(old), k3_views(want))}
             del old, aq7, qi7
         del got, want, aq, qi
         if timed:
@@ -1811,10 +1835,11 @@ def phase_int8_kernels(torch) -> dict:
 PRODUCT_TILES = 8192
 
 
-def phase_k3_sm90(torch, ptxas, ptxas_sr) -> dict:
+def phase_k3_sm90(torch, ptxas, ptxas_sr, ptxas_wide) -> dict:
     """``[k3_sm90]``: the cluster passes' pieces alone.  ptxas's report of
-    each of their kernels (``ptxas``, ``ptxas_sr``: ``start_ptxas_report``'s
-    compiles of their source and of their SR instantiations' source); the
+    each of their kernels (``ptxas``, ``ptxas_sr``, ``ptxas_wide``:
+    ``start_ptxas_report``'s compiles of their source, of their SR
+    instantiations' source and of the wide passes' source); the
     clusters of 4 the card holds at once for each kernel (SR's too); the a0
     chain's thresholds
     against clip(round(7 tanh(x)), -7, 7) at every one of the 2^32 float
@@ -1824,7 +1849,7 @@ def phase_k3_sm90(torch, ptxas, ptxas_sr) -> dict:
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
     serialized = {}
-    for started in (ptxas, ptxas_sr):
+    for started in (ptxas, ptxas_sr, ptxas_wide):
         for name, regs, stack, stores, loads in ptxas_report(started,
                                                              serialized):
             log("k3_sm90_ptxas", kernel=name, registers=regs,
@@ -1921,7 +1946,7 @@ class _with_timing_copy:
 # whose svt_loss* entry points stand in for the library's
 K3_UNITS = ("fused_loss_int8.cu", "fused_loss_int8_levers.cu",
             "fused_loss_int8_wide.cu", "fused_loss_int8_sm90.cu",
-            "fused_loss_int8_sm90_sr.cu")
+            "fused_loss_int8_sm90_sr.cu", "fused_loss_int8_sm90_wide.cu")
 
 
 def build_k3_copies(copies) -> None:
@@ -2777,6 +2802,29 @@ SR_LIMIT_CASES = [("galaxy", "bfloat16"), ("galaxy", "float32"),
                   ("colored_mask", "bfloat16"), ("gaussian_mask", "float32")]
 
 
+def k3w_limit_readings(torch, seed: int, worst: dict) -> None:
+    """K3W_LIMIT_CASES' readings into ``worst``: per (route, case, dtype)
+    the worst max and mean error relative to max|plain| over the loss and
+    the five outputs ("K3_wide_<route>") and dh0's ("K3_wide_dh0_<route>",
+    held at DH0_TOL)."""
+    for name, dtype, h in K3W_LIMIT_CASES:
+        with sized(h, K3W_LIMIT_B):
+            for block_passes in (False, True):
+                if name == "galaxy":
+                    r = loss_case(torch, K3W_LIMIT_B, dtype, seed, False,
+                                  block_passes=block_passes)
+                else:
+                    case = next(c for c in FAMILY_CASES if c[0] == name)
+                    r = family_case(torch, case, dtype, seed, False,
+                                    block_passes=block_passes)
+                k = (f"K3_wide_{r['route']}", f"{name}_H{h}", dtype)
+                for n in ("loss",) + INT8_GRADS:
+                    worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+                kd = (f"K3_wide_dh0_{r['route']}", f"{name}_H{h}", dtype)
+                worst[kd] = _wmax(worst.get(kd, (0, 0)), r["dh0"][2:])
+        torch.cuda.empty_cache()
+
+
 def sr_limit_readings(torch, seed: int, worst: dict) -> None:
     """SR_LIMIT_CASES' readings into ``worst``: per (route, case, dtype) the
     worst max and mean error relative to max|plain| over the loss and the
@@ -2823,24 +2871,31 @@ def sr_refusals(defines: tuple, worst: dict) -> None:
 def phase_limits_k3(torch) -> None:
     """``--limits k3``: K3's readings against its plain version on the
     cluster passes and on the block passes (``block_passes``), for the
-    sound library and for the copies of K3_FAULTS and SR_FAULTS (K3's units
-    built in parallel, ``k3_library``), over three seeds (LOSS_CASES and
-    FAMILY_CASES at the default numerics, SR_LIMIT_CASES under SR): each
-    build's worst max and mean error relative to max|plain| over the five
-    outputs and the loss, by case kind and route, and SR's quantised tiles.
-    The sound build must hold every reading within INT8_TOL (SR's tiles as
-    ``_check_ints``), the colored pairing's copy must not hold its colored
-    cluster readings, and each SR copy must fail SR's on the cluster
-    passes."""
+    sound library and for the copies of K3_FAULTS, SR_FAULTS and K3W_FAULTS
+    (K3's units built in parallel, ``k3_library``), over three seeds
+    (LOSS_CASES and FAMILY_CASES at the default numerics, SR_LIMIT_CASES
+    under SR, K3W_LIMIT_CASES past H = 512; the K3W copies, which change
+    nothing at H <= 512, the last alone): each build's worst max and mean
+    error relative to max|plain| over the five outputs and the loss, by
+    case kind and route, past 512 also dh0's, and SR's quantised tiles.
+    The sound build must hold every reading within INT8_TOL (dh0 within
+    DH0_TOL, SR's tiles as ``_check_ints``), the colored pairing's copy
+    must not hold its colored cluster readings, each SR copy must fail
+    SR's on the cluster passes, and each K3W copy the wide ones."""
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
-    build_k3_copies(K3_FAULTS + SR_FAULTS)
-    for defines in ((),) + K3_FAULTS + SR_FAULTS:
+    build_k3_copies(K3_FAULTS + SR_FAULTS + K3W_FAULTS)
+    for defines in ((),) + K3_FAULTS + SR_FAULTS + K3W_FAULTS:
         lib = k3_library(defines)
         d8._lib = l8._lib = (lambda lib=lib: lib)
         worst = {}
+        wide_only = defines in K3W_FAULTS
         for seed in range(3):
+            if not defines or wide_only:
+                k3w_limit_readings(torch, seed, worst)
+            if wide_only:
+                continue
             for b, dtype, i8, masked in LOSS_CASES:
                 for block_passes in (False, True):
                     r = loss_case(torch, b, dtype, seed, False, i8, masked,
@@ -2861,17 +2916,24 @@ def phase_limits_k3(torch) -> None:
         log("limits", build=" ".join(defines) or "sound",
             **{"/".join(k): f"{a:.3e}/{m:.3e}"
                for k, (a, m) in sorted(worst.items())})
-        within = {k: a <= INT8_TOL[0] and m <= INT8_TOL[1]
+        within = {k: a <= tol[0] and m <= tol[1]
                   for k, (a, m) in worst.items()
-                  if not k[0].startswith("K3_sr")}
+                  if not k[0].startswith("K3_sr")
+                  for tol in [DH0_TOL if k[0].startswith("K3_wide_dh0")
+                              else INT8_TOL]}
         colored90 = [k for k in within if k[0] == "K3_colored_sm90"]
         if not defines and not all(within.values()):
             raise AssertionError(f"--limits k3: the sound build is outside "
-                                 f"INT8_TOL: {worst}")
+                                 f"INT8_TOL or DH0_TOL: {worst}")
         if "COLORED90" in " ".join(defines) and any(within[k]
                                                     for k in colored90):
             raise AssertionError(f"--limits k3: the colored pairing's copy "
                                  f"is within INT8_TOL: {worst}")
+        if wide_only and all(ok for k, ok in within.items()
+                             if k[0] in ("K3_wide_sm90",
+                                         "K3_wide_dh0_sm90")):
+            raise AssertionError(f"--limits k3: the wide copy {defines} "
+                                 f"holds every wide cluster reading: {worst}")
         sr_refusals(defines, worst)
     d8._lib = l8._lib = (lambda: k3_library(()))
 
@@ -4327,6 +4389,22 @@ WIDE_H = 1000           # the slice's full-width path: twice the default 500
 # count of the others (4100, at B=2 like every width but WIDE_H)
 WIDE_WIDTHS = [512, 513, 768, 1000, 1024, 2048, 4100]
 N_WIDE = 237            # [train_wide]'s images: 2 batches and a tail of 37
+# the wide cluster passes' faulty copies (fused_loss_int8_sm90_wide.cu): the
+# last chunk's head partial dropped, aq for dh0 read from the workspace one
+# block off (the next 64-pixel block, the image's next row: it quantises so
+# nearly alike that only the dh0 reading, at DH0_TOL, refuses it), the last
+# chunk's column sums written as 0; each must fail some wide reading on the
+# cluster passes
+K3W_FAULTS = (("-DSVT_K3W_DROP_HEAD=1",), ("-DSVT_K3W_AQ_OFF=1",),
+              ("-DSVT_K3W_SKIP_SUMS=1",))
+# the wide readings of --limits k3: (FAMILY_CASES name or "galaxy", weight
+# dtype, H) at B = K3W_LIMIT_B, each on the cluster and the block passes:
+# two chunks (1,000), three with the last ragged (1,030), the colored
+# pairing, a padded Gaussian grid of 256-pixel groups
+K3W_LIMIT_CASES = [("galaxy", "bfloat16", WIDE_H), ("galaxy", "float32", 1030),
+                   ("colored_mask", "bfloat16", WIDE_H),
+                   ("gaussian_mask_pad65", "float32", WIDE_H)]
+K3W_LIMIT_B = 8
 LOSS_WIDE_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8_wide.cu"
 LEVERS_SOURCE = "spatialvae_torch/kernels/csrc/fused_loss_int8_levers.cu"
 # K1's f32 activations at H = 4100 read up to 5.15e-5 max and 6.95e-6 mean
@@ -4441,6 +4519,20 @@ def _check_int8_all(what, r, names) -> str:
     return f"{worst[0]:.2e}/{worst[1]:.2e}"
 
 
+def _check_k3_wide(what, r) -> str:
+    """A K3 reading of ``[kernel_wide]``: the loss and the five outputs
+    within INT8_TOL, dh0 within DH0_TOL; on the cluster passes the same
+    against the block passes."""
+    _check_rel(f"{what} dh0", r["dh0"], DH0_TOL)
+    if r["route"] == "sm90":
+        _check_int8_all(f"{what} vs block passes", r["vs_block"],
+                        ("loss",) + INT8_GRADS)
+        _check_rel(f"{what} dh0 vs block passes", r["vs_block"]["dh0"],
+                   DH0_TOL)
+    return (_check_int8_all(what, r, ("loss",) + INT8_GRADS)
+            + f" dh0={r['dh0'][2]:.2e}/{r['dh0'][3]:.2e}")
+
+
 def _turns_field(turns: dict) -> str:
     return " ".join(f"{k}:{t:.4f}" for k in ("tile", "sm90")
                     for t in turns[k])
@@ -4499,7 +4591,8 @@ def phase_kernel_wide(torch) -> dict:
     residual and with recompute, f32 and bf16 weights; K3 in the Bernoulli,
     Gaussian, colored and padded families, K4 with and without a1, K5 both
     variants, K8, bf16 weights.  Limits: the default width's (K1's f32
-    activations above 2048 at ACTS_TOL_WIDE)."""
+    activations above 2048 at ACTS_TOL_WIDE; K3's dh0 at DH0_TOL, and on
+    the cluster passes K3 against the block passes too)."""
     res = {}
     families = [c for c in FAMILY_CASES if c[0] in (
         "gaussian_mask", "colored_mask", "bernoulli_pad28")]
@@ -4514,12 +4607,19 @@ def phase_kernel_wide(torch) -> dict:
             lc = loss_case(torch, b, "bfloat16", SEED, timed)
             if not lc["same"]:
                 raise AssertionError(f"K3 H={h}: two runs differ")
-            fam = {"bernoulli": _check_int8_all(f"K3 H={h}", lc,
-                                                ("loss",) + INT8_GRADS)}
+            fam = {"bernoulli": _check_k3_wide(f"K3 H={h}", lc)}
+            # every family on the route the table gives it (past 512 the
+            # cluster passes, held to the block passes and, at WIDE_H,
+            # timed in turns with them)
+            ab = {"bernoulli": _log_ab(lc)}
             for case in families:
-                r = family_case(torch, case, "bfloat16", SEED, False)
-                fam[case[0]] = _check_int8_all(f"K3 H={h} {case[0]}", r,
-                                               ("loss",) + INT8_GRADS)
+                r = family_case(torch, case, "bfloat16", SEED, timed)
+                fam[case[0]] = _check_k3_wide(f"K3 H={h} {case[0]}", r)
+                ab[case[0]] = _log_ab(r)
+                if timed:
+                    res["k3_family", h, case[0]] = {
+                        k: r[k] for k in ("ms", "ms_block", "route", "bound")
+                        if k in r}
             t = int8_tail_case(torch, b, "bfloat16", SEED, timed)
             _check_abs(f"K4 H={h} y", t["y"], INT8_Y_TOL)
             _check_abs(f"K4 H={h} y without a1", t["y_no_a1"], INT8_Y_TOL)
@@ -4536,9 +4636,21 @@ def phase_kernel_wide(torch) -> dict:
                 hw = IMAGE[0] * IMAGE[1]
                 lc["bound"] = k3_bound(b, hw, h, CHANNELS, 2, 1, False,
                                        False)
-                times = dict(k3_ms=f"{lc['ms']:.4f}",
+                fam_ms = {f"k3_{k}_{f}": v.get(f, "-")
+                          for k, v in ab.items() if k != "bernoulli"
+                          for f in ("block_ms", "turns")}
+                fam_ms.update({f"k3_{k[2]}_ms": f"{v['ms']:.4f}"
+                               for k, v in res.items()
+                               if k[0] == "k3_family" and k[1] == h})
+                times = dict(k3_route=lc["route"], k3_ms=f"{lc['ms']:.4f}",
+                             k3_block_ms=ab["bernoulli"].get("block_ms", "-"),
+                             k3_turns=ab["bernoulli"].get("turns", "-"),
+                             k3_vs_block_max_rel=ab["bernoulli"].get(
+                                 "vs_block_max_rel", "-"),
                              k3_plain_ms=f"{lc['plain_ms']:.4f}",
                              k3_bound_ms=f"{lc['bound'][0]:.4f}",
+                             k3_share=f"{lc['bound'][0] / lc['ms']:.3f}",
+                             **fam_ms,
                              k4_ms=f"{t['fwd_ms']:.4f}",
                              k4_plain_ms=f"{t['fwd_plain_ms']:.4f}",
                              k4_a1_ms=f"{t['fwd_a1_ms']:.4f}",
@@ -4558,13 +4670,85 @@ def phase_kernel_wide(torch) -> dict:
     return res
 
 
+# [k3_wide_turns]: K3's whole call at WIDE_H on the cluster passes against
+# the block passes, at the slice's batch with f32 weights and at B = 1,024
+# (several workspace chunks), bf16 and f32 weights ([kernel_wide] times the
+# slice's batch with bf16 weights in turns)
+K3_WIDE_TURNS = ((BATCH, "float32"), (1024, "bfloat16"), (1024, "float32"))
+
+
+def phase_k3_wide_turns(torch) -> dict:
+    """``[k3_wide_turns]``: K3 at WIDE_H on the galaxy shape (int8 targets,
+    no mask) at each (B, weight dtype) of K3_WIDE_TURNS: the route's call
+    (the cluster passes) against the block passes' (every output and the
+    loss within INT8_TOL, dh0 within DH0_TOL, relative to the block passes'
+    largest value), the two timed in turns (AB_K3; N_TIMED // 2 runs a turn, 2 at
+    B = 1,024), each beside ``k3_bound`` and its share of it; the cluster
+    route's workspace chunks."""
+    from spatialvae_torch.kernels import fused_decoder as fd
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    out = {}
+    hw = IMAGE[0] * IMAGE[1]
+    budget = fd.workspace_budget(torch.device(DEVICE))
+    names = ("loss",) + INT8_GRADS
+    for b, dtype in K3_WIDE_TURNS:
+        with sized(WIDE_H, b):
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            fold, coords, ws = _int8_inputs(torch, b, dtype, gen)
+            k = torch.randint(0, 256, (b, CHANNELS, hw), generator=gen,
+                              device=DEVICE)
+            args = (fold, coords, *ws, (k - 128).to(torch.int8), None,
+                    "bernoulli")
+            route = l8.k3_route(hw, WIDE_H, l8.pick_tile(hw), "bernoulli",
+                                l8.DEFAULTS)
+            bf16 = dtype == "bfloat16"
+            chunks = len(l8.image_chunks(b, l8.loss_workspace_bytes(
+                hw, WIDE_H, "sm90", l8.stash_block_bytes(bf16, WIDE_H)),
+                budget))
+            run = functools.partial(l8.run_loss_int8, *args)
+            with torch.no_grad():
+                got, old = run(), run(block_passes=True)
+                errs = {n: rel_errors(u, v) for n, u, v in zip(
+                    K3_READINGS, k3_views(got), k3_views(old))}
+                del got, old
+                vs_block = _check_int8_all(
+                    f"K3 H={WIDE_H} B={b} {dtype} cluster vs block", errs,
+                    names)
+                _check_rel(f"K3 H={WIDE_H} B={b} {dtype} cluster vs block "
+                           f"dh0", errs["dh0"], DH0_TOL)
+                ab = in_turns(torch, {"sm90": run, "block": functools.partial(
+                    run, block_passes=True)},
+                    N_TIMED // 2 if b <= BATCH else 2)
+            bd = k3_bound(b, hw, WIDE_H, CHANNELS, 2 if bf16 else 4, 1,
+                          False, False)
+            out[b, dtype] = dict(ms=ab["sm90"][0], ms_block=ab["block"][0],
+                                 bound=bd, route=route)
+            log("k3_wide_turns", H=WIDE_H, B=b, dtype=dtype, route=route,
+                sm90_chunks=chunks, ms=f"{ab['sm90'][0]:.4f}",
+                block_ms=f"{ab['block'][0]:.4f}",
+                turns=" ".join(f"{r}:{t:.4f}" for r in ("block", "sm90")
+                               for t in ab[r][1]),
+                bound_ms=f"{bd[0]:.4f}", bound_by=bd[1],
+                share=f"{bd[0] / ab['sm90'][0]:.3f}",
+                block_share=f"{bd[0] / ab['block'][0]:.3f}",
+                vs_block=vs_block,
+                vs_block_dh0=f"{errs['dh0'][2]:.2e}/{errs['dh0'][3]:.2e}",
+                errors="max_rel/mean_rel")
+            del fold, coords, ws, args, run
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_train_wide(torch) -> dict:
     """The galaxy model with a decoder WIDE_H wide (twice the default) at
     B=100 on N_WIDE blob images: two float epochs (K1 with activations and
     K2 in every step, Adam's step kernel) and two int8 epochs with bf16
-    compute (K3 in the full steps, K4/K5 in the tails, K4 in the
-    evaluations), each with its launch counts, an ELBO that rises, and one
-    step through the kernels against the plain versions."""
+    compute (K3 in the full steps, on the wide cluster passes; K4/K5 in
+    the tails, K4 in the evaluations), each with its launch counts, an
+    ELBO that rises, and one step through the kernels against the plain
+    versions; then one int8 epoch a turn (AB_K3) with K3 on each design:
+    the mean step's ms ("step_ms", "step_ms_block")."""
     from spatialvae_torch.kernels import adam as ka
     from spatialvae_torch.kernels import fused_decoder as fd
     from spatialvae_torch.train.trainer import TrainConfig, Trainer
@@ -4639,9 +4823,12 @@ def phase_train_wide(torch) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _int8_launches()
-        want = {"k3": k3_launches(full, "block"),      # H > 512
+        # K3 on the cluster passes past H = 512 (the default numerics: the
+        # wide unit, one workspace chunk a step); K4/K5 past 512 on the
+        # block passes
+        want = {"k3": k3_launches(full, "sm90"),
                 "k8": dict.fromkeys(("fwd", "grad", "dw", "sum"), 0),
-                "k45": k45_launches(tails, route="block"),   # H > 512
+                "k45": k45_launches(tails, route="block"),
                 "k12": 0,
                 "adam": int8_adam_launches(trainer, full + tails,
                                            seeded=True)}
@@ -4659,9 +4846,27 @@ def phase_train_wide(torch) -> dict:
                 raise AssertionError(f"train_wide int8 {kind} step: {rel} "
                                      f"({leaf}), mean {mean_rel}; limits "
                                      f"{INT8_STEP_TOL}")
+        # one more epoch a turn (AB_K3), K3 on the block passes in the
+        # block turns: the mean step's ms on each design
+        turns = {}
+        per_epoch = math.ceil(N_WIDE / BATCH)
+        for i, route in enumerate(AB_K3):
+            with (on_block_passes() if route == "block"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_epoch(data, TRAIN_EPOCHS + i, progress=False)
+                torch.cuda.synchronize()
+            turns.setdefault(route, []).append(
+                (time.perf_counter() - t0) * 1e3 / per_epoch)
+        step_ms = {r: statistics.median(t) for r, t in turns.items()}
         log("train_wide", path="int8", H=WIDE_H, B=BATCH, compute="bfloat16",
             epochs=TRAIN_EPOCHS, steps=full + tails, images=N_WIDE,
             seconds=f"{seconds:.4f}",
+            step_ms=f"{step_ms['sm90']:.3f}",
+            step_ms_block=f"{step_ms['block']:.3f}",
+            step_turns=" ".join(f"{r}:{t:.3f}" for r in ("block", "sm90")
+                                for t in turns[r]),
             images_per_s=f"{TRAIN_EPOCHS * N_WIDE / seconds:.1f}",
             elbo_before=f"{before[0]:.3f}", elbo_after=f"{after[0]:.3f}",
             launches=json.dumps(counts, separators=(",", ":")),
@@ -4958,12 +5163,15 @@ def phase_limits_wide(torch) -> None:
 
 
 def wide_rows(wide, tw, slice_launches, levers, lever_counts,
-              wide_ab) -> list:
+              wide_ab, wide_ab_k3) -> list:
     """The JSON records of the wide path: K1 (without and with
     activations) and K2's whole backward at WIDE_H on the deep sm90
     kernels (B=100; launches: [train_wide] and [slice_wide]), the tile
     kernels at the same calls as their yardstick (launches: their turns in
-    ``[kernel_wide]``, ``wide_ab``), K3, K4 and K5's whole backward at
+    ``[kernel_wide]``, ``wide_ab``), K3 on the wide cluster passes
+    (launches: [train_wide]) and its block passes as their yardstick
+    (launches: their checks and turns in ``[kernel_wide]`` and
+    ``[k3_wide_turns]``, ``wide_ab_k3``), K4 and K5's whole backward at
     WIDE_H, and K3 under the levers (the a1q_db1_qi call; launches:
     [train_int8_levers])."""
     b, hw, h, no = BATCH, IMAGE[0] * IMAGE[1], WIDE_H, CHANNELS
@@ -5003,9 +5211,12 @@ def wide_rows(wide, tw, slice_launches, levers, lever_counts,
          max(k12["residual", "tile", n][0] for n in GRADS),
          k12["residual_ms_tile"], k12["residual_plain_ms"], bwd_bound, None,
          wide_ab["bwd_chain"]),
-        ("int8_loss_wide", LOSS_WIDE_SOURCE, K3_REPLACES,
-         tw["int8"]["k3"]["fwd"], worst(lc, ("loss",) + INT8_GRADS),
+        ("int8_loss_wide_sm90", LOSS90_WIDE_SOURCE, K3_REPLACES,
+         tw["int8"]["k3"]["fwd_sm90"], worst(lc, ("loss",) + INT8_GRADS),
          lc["ms"], lc["plain_ms"], lc["bound"], None),
+        ("int8_loss_wide", LOSS_WIDE_SOURCE, K3_REPLACES, 0,
+         worst(lc["block"], ("loss",) + INT8_GRADS), lc["ms_block"],
+         lc["plain_ms"], lc["bound"], None, wide_ab_k3["fwd"]),
         ("int8_fwd_wide", INT8_SOURCE, K4_REPLACES, tw["eval_k4"],
          t["y_no_a1"][0], t["fwd_ms"], t["fwd_plain_ms"],
          bound(fold_io + i8_w + b * no * hw * f4, (gemm, PEAK_INT8), head),
@@ -6096,12 +6307,14 @@ def default_width_times() -> dict:
 # kernels and their default-shape cluster kernels (whose shared pieces
 # moved to fused_decoder_sm90.cuh, beside the deep kernels' own unit),
 # K4/K5 (and T1's K5 modes), K3's block, lever and wide instantiations and
-# its cluster passes
+# its H <= 512 cluster passes, default and SR (the wide cluster passes have
+# a unit of their own, fused_loss_int8_sm90_wide.cu)
 SASS_UNITS = ("fused_decoder_fwd.cu", "fused_decoder_bwd.cu",
               "fused_decoder_sm90.cu",
               "fused_decoder_int8.cu", "kernel_bench_bwd.cu",
               "fused_loss_int8.cu", "fused_loss_int8_levers.cu",
-              "fused_loss_int8_wide.cu", "fused_loss_int8_sm90.cu")
+              "fused_loss_int8_wide.cu", "fused_loss_int8_sm90.cu",
+              "fused_loss_int8_sm90_sr.cu")
 
 
 # the cases of ``--limits dec90``: galaxy f32 and bf16, a residual add, at
@@ -6353,6 +6566,52 @@ def phase_sweep_dec90(torch) -> None:
                 torch.cuda.empty_cache()
     finally:
         fd.DEEP_MIN_WIDTH.update(saved)
+
+
+# --sweep k3's widths: both sides of a chunk boundary (513 and 1,030 end on
+# a ragged 64-column chunk, computed whole), the slice's 1,000, and wider
+K3_SWEEP_WIDTHS = (513, 640, 768, 1000, 1030, 1536, 2048, 4100)
+
+
+def phase_sweep_k3(torch) -> None:
+    """``--sweep k3``: K3 at the default numerics on the cluster passes and
+    on the block passes in turns (AB_K3, 3 runs a turn) at every width of
+    K3_SWEEP_WIDTHS past 512, the galaxy shape (int8 targets, no mask),
+    bf16 and f32 weights, B=100 (24 above 2,048): each call's cluster and
+    block ms, their ratio and the bound; ``k3_route`` sends every one of
+    these calls to the cluster passes, so a ratio above 1 is a width the
+    table should keep on the block passes."""
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    hw = IMAGE[0] * IMAGE[1]
+    for h in K3_SWEEP_WIDTHS:
+        b = 24 if h > 2048 else BATCH     # K3 takes image pairs
+        for dtype in ("bfloat16", "float32"):
+            with sized(h, b):
+                gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+                fold, coords, ws = _int8_inputs(torch, b, dtype, gen)
+                k = torch.randint(0, 256, (b, CHANNELS, hw), generator=gen,
+                                  device=DEVICE)
+                run = functools.partial(
+                    l8.run_loss_int8, fold, coords, *ws,
+                    (k - 128).to(torch.int8), None, "bernoulli")
+                route = l8.k3_route(hw, h, l8.pick_tile(hw), "bernoulli",
+                                    l8.DEFAULTS)
+                with torch.no_grad():
+                    t = in_turns(torch, {"sm90": run, "block":
+                                         functools.partial(
+                                             run, block_passes=True)}, 3)
+                bd = k3_bound(b, hw, h, CHANNELS,
+                              2 if dtype == "bfloat16" else 4, 1, False,
+                              False)
+                log("sweep_k3", H=h, B=b, dtype=dtype, route=route,
+                    times="sm90/block",
+                    ms=f"{t['sm90'][0]:.4f}/{t['block'][0]:.4f}",
+                    ratio=f"{t['sm90'][0] / t['block'][0]:.3f}",
+                    bound_ms=f"{bd[0]:.4f}",
+                    share=f"{bd[0] / t['sm90'][0]:.3f}")
+                del fold, coords, ws, k, run
+                torch.cuda.empty_cache()
 
 
 def phase_sass(args) -> int:
@@ -8392,6 +8651,9 @@ def main() -> int:
     if sys.argv[1:] == ["--sweep", "dec90"]:
         phase_sweep_dec90(torch)
         return 0
+    if sys.argv[1:] == ["--sweep", "k3"]:
+        phase_sweep_k3(torch)
+        return 0
     if sys.argv[1:] == ["--phase", "cli_particles"]:
         with tempfile.TemporaryDirectory() as tmpdir:
             phase_cli_particles(torch, tmpdir, card)
@@ -8409,6 +8671,7 @@ def main() -> int:
         return 0
     ptxas = start_ptxas_report(LOSS90_SOURCE)
     ptxas_sr = start_ptxas_report(LOSS90_SR_SOURCE)
+    ptxas_wide = start_ptxas_report(LOSS90_WIDE_SOURCE)
     ptxas_dec = start_ptxas_report(DEC90_SOURCE)
     ptxas_deep = start_ptxas_report(DEC90_DEEP_SOURCE)
     ptxas_adam = start_ptxas_report(ADAM90_SOURCE)
@@ -8422,7 +8685,7 @@ def main() -> int:
     bwd = phase_backward(torch)
     res["ab_counts"] = dict(fd.LAUNCHES)
     res["dec90"] = phase_dec90(torch, ptxas_dec, ptxas_deep)
-    res["k3_sm90"] = phase_k3_sm90(torch, ptxas, ptxas_sr)
+    res["k3_sm90"] = phase_k3_sm90(torch, ptxas, ptxas_sr, ptxas_wide)
     res["int8"] = phase_int8_kernels(torch)
     res["int8_sm90"] = phase_int8_sm90(torch, ptxas_i8, ptxas_i8p,
                                        i8_timing)
@@ -8438,9 +8701,15 @@ def main() -> int:
     res["adam"] = phase_adam_kernels(torch)
     res["adam_emit"] = phase_adam_emit_kernels(torch)
     res["adam_ab"] = dict(ka.LAUNCHES)
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
     fd.reset_launches()
+    l8.reset_launches()
     res["wide"] = phase_kernel_wide(torch)
     res["wide_ab"] = dict(fd.LAUNCHES)
+    res["k3_wide_turns"] = phase_k3_wide_turns(torch)
+    # the block passes' K3 launches past 512: their checks and turns alone
+    res["wide_ab_k3"] = dict(l8.LAUNCHES)
     res["levers"] = phase_loss_levers(torch)
     res["probes"] = phase_probes(torch)
     res["kernel_bench"] = phase_kernel_bench(torch)
@@ -8469,7 +8738,8 @@ def main() -> int:
     rows = kernel_rows(torch, res, bwd, launches, counts, step_ms, i8,
                        fam_counts, knobs)
     rows += wide_rows(res["wide"], tw, wide_launches, res["levers"],
-                      knobs["train_int8_levers"], res["wide_ab"])
+                      knobs["train_int8_levers"], res["wide_ab"],
+                      res["wide_ab_k3"])
     rows += deep_rows(res, bwd, td, deep_launches)
     rows += res["probes"]
     rows += res["kernel_bench"]

@@ -78,7 +78,7 @@ _SIGNATURES = {
     "svt_loss90_max_clusters": ([_I], _I),
     "svt_sm90_tile_product": ([_P] * 3 + [_I] * 2 + [_P], _I),
     "svt_loss90_chain_check": ([_P, _P], _I),
-    "svt_loss90_stash_block": ([_I], _L),
+    "svt_loss90_ws_block": ([_I, _I], _L),
     "svt_philox4x32_10": ([_P, _P, _I, ctypes.c_uint, ctypes.c_uint, _P],
                           _I),
     "svt_probe_gemm": ([_P] * 5 + [_I] * 10 + [_P], _I),

@@ -34,15 +34,16 @@ bool bad_shape(int B, int HW, int H, int No) {
          No > MAX_NO || double(B) * (HW / PT) > 2147483647.0;
 }
 
-// Whether the cluster passes (fused_loss_int8_sm90.cu, and with stochastic
-// rounding fused_loss_int8_sm90_sr.cu) take a call: the default numerics
-// (no mode bit, or the SR bit alone; level 7) at H <= 512 in any family,
+// Whether the cluster passes (fused_loss_int8_sm90.cu, past H = 512
+// fused_loss_int8_sm90_wide.cu, and with stochastic rounding
+// fused_loss_int8_sm90_sr.cu) take a call: the default numerics (no mode
+// bit; level 7) at every H, or the SR bit alone at H <= 512, in any family,
 // over pixel counts and groups that are multiples of 256 (a cluster's four
 // blocks lie in one group; a colored quad's two pairs too).  The wrapper
 // chooses the route; the entry points refuse the cluster route where this
 // is false.
 bool sm90_takes(int HW, int H, int Pt, int mode, float lf) {
-  return H <= MAX_H && (mode == 0 || mode == SR) && lf == 7.f &&
+  return (mode == 0 || (mode == SR && H <= MAX_H)) && lf == 7.f &&
          HW % (4 * PT) == 0 && Pt % (4 * PT) == 0;
 }
 
@@ -62,11 +63,12 @@ extern "C" {
 // H > 512, ws holds B*HW/64 * svt_int8_ws_block(H) bytes.  `sm90` 1 runs
 // the cluster passes (w1fT then holds W1f^T's slab stream; refused where
 // sm90_takes is false; every block a CTA of its own, the colored family's
-// pairs across a cluster), 0 the block passes (colored: a block per pair).
+// pairs across a cluster; past H = 512 they leave aq in `aq_ws`), 0 the
+// block passes (colored: a block per pair).
 // The B images are images b0 .. b0+B-1 of the call (a workspace chunk):
 // SR's words take the call's image index on the cluster passes and at
 // H > 512.  The cluster passes take `ws` as the stash of a1c that the
-// forward leaves for the gradient pass: B*HW/64 * svt_loss90_stash_block
+// forward leaves for the gradient pass: B*HW/64 * svt_loss90_ws_block
 // bytes; and with SR the chunk's dW1 operand workspace `aq_ws`
 // (svt_loss_int8_grad's), where the forward leaves aq.  p_base: the first
 // pixel's row in the call whose pixel slice coords, yt and mask are (a
@@ -111,6 +113,8 @@ int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
     err = mode & SR
               ? loss_fwd_sm90_sr(a, b0, p_base, static_cast<int8_t*>(aq_ws),
                                  bf16, st)
+          : H > MAX_H
+              ? loss_fwd_sm90_wide(a, static_cast<int8_t*>(aq_ws), bf16, st)
               : loss_fwd_sm90(a, bf16, st);
   else if (H > MAX_H)
     err = loss_fwd_wide(a, b0, p_base, bf16, colored, tile, st);
@@ -133,8 +137,10 @@ int svt_loss_int8_fwd(const void* fold, const void* coords, const void* w1fT,
 // svt_int8_ws_block(H) bytes.  `sm90` chooses the route as in
 // svt_loss_int8_fwd (refused for the cluster passes unless lv is 7 too);
 // the cluster passes take W1f^T's and W1r's slab streams and write aq_ws,
-// q_ws as Bc*HW/64 blocks of 512 x 64 bytes, reading the a1c stash `ws`
-// that svt_loss_int8_fwd wrote for the same Bc images.
+// q_ws as Bc*HW/64 blocks of R x 64 bytes (R = 512, or past H = 512 the
+// padded width in whole 512-column chunks), reading the a1c stash `ws`
+// that svt_loss_int8_fwd wrote for the same Bc images (past 512 also the
+// aq it left in aq_ws).
 int svt_loss_int8_grad(const void* fold, const void* coords, const void* w1fT,
                        const void* w1r, const void* h1s, const void* s4,
                        const void* gb, const void* b1, const void* wht,
@@ -173,8 +179,9 @@ int svt_loss_int8_grad(const void* fold, const void* coords, const void* w1fT,
   const bool sr = mode & SR;
   cudaError_t err;
   if (sm90)
-    err = sr ? loss_grad_sm90_sr(a, p_base, bf16, st)
-             : loss_grad_sm90(a, bf16, st);
+    err = sr          ? loss_grad_sm90_sr(a, p_base, bf16, st)
+          : H > MAX_H ? loss_grad_sm90_wide(a, bf16, st)
+                      : loss_grad_sm90(a, bf16, st);
   else if (H > MAX_H)
     err = loss_grad_wide(a, p_base, bf16, sr, st);
   else if (mode & LEVERS)

@@ -160,7 +160,8 @@ cudaError_t loss_grad_levers(const LossGradArgs& a, int pb, bool bf16,
 cudaError_t loss_grad_wide(const LossGradArgs& a, int pb, bool bf16, bool sr,
                            cudaStream_t st);
 // The cluster passes of fused_loss_int8_sm90.cu (the default numerics at
-// H <= 512, every family, pixel counts and groups multiples of 256): `grid`
+// H <= 512, every family, pixel counts and groups multiples of 256; wider
+// below): `grid`
 // counts the 64-pixel blocks of the launch; and of fused_loss_int8_sm90_sr.cu
 // (the same with stochastic rounding, the SR mode bit alone), with the
 // clusters their kernels hold at once (0 forward bf16, 1 forward f32, 2
@@ -177,6 +178,22 @@ cudaError_t loss_fwd_sm90_sr(const LossFwdArgs& a, int b0, int pb,
 cudaError_t loss_grad_sm90_sr(const LossGradArgs& a, int pb, bool bf16,
                               cudaStream_t st);
 int loss90_sr_max_clusters(int which);
+// The cluster passes past H = 512 (fused_loss_int8_sm90_wide.cu, the
+// default numerics alone): the forward leaves aq in the dW1 operand's
+// workspace `aq_ws`; `ws` holds each block's a1c stash of every 512-column
+// chunk and the gradient pass's K-major copy of qi (svt_loss90_ws_block);
+// their dW1 kernel over the R-row workspaces (svt_loss90_dw takes it past
+// H = 512), and the clusters their kernels hold at once (0 forward bf16,
+// 1 forward f32, 2 gradient bf16, 3 gradient f32, 4 colored forward bf16,
+// 5 colored f32, 6 dW1).
+cudaError_t loss_fwd_sm90_wide(const LossFwdArgs& a, int8_t* aq_ws,
+                               bool bf16, cudaStream_t st);
+cudaError_t loss_grad_sm90_wide(const LossGradArgs& a, bool bf16,
+                                cudaStream_t st);
+cudaError_t loss90_dw_wide(const int8_t* aq_ws, const int8_t* q_ws,
+                           const float* gscale, float* part, int nimg, int HW,
+                           int H, int Pt, int splits, cudaStream_t stream);
+int loss90_wide_max_clusters(int which);
 
 }  // namespace svt8
 

@@ -29,19 +29,6 @@ loss_grad90_kernel(const LossGradArgs a, int nquads) {
 // the next group starts: grouped_dw's op order, so its partials are
 // the same bit for bit.  A stage holds DW_BLK 64-pixel blocks (a group is
 // a multiple of 256 pixels, so no stage straddles two).
-constexpr int DW_NT = 256;                 // two warpgroups of 64 rows
-constexpr int DW_STAGES = 3;
-constexpr int DW_BLK = 4;                  // blocks per stage
-constexpr int DW_OP = 128 * PT;            // one operand of one block: 8 KiB
-constexpr int DW_STAGE = 2 * DW_BLK * DW_OP;   // DW_BLK aq, then DW_BLK qi
-constexpr int DW_WARPS = DW_NT / 32;
-
-struct DwSmem {
-  int8_t ring[DW_STAGES][DW_STAGE];
-  uint64_t full[DW_STAGES], empty[DW_STAGES];
-};
-static_assert(sizeof(DwSmem) <= 232448, "opt-in shared memory on sm_90");
-
 __global__ void __launch_bounds__(DW_NT, 1)
 grouped_dw90_kernel(const int8_t* __restrict__ aq_ws,
                     const int8_t* __restrict__ q_ws,
@@ -271,16 +258,23 @@ cudaError_t loss_grad_sm90(const LossGradArgs& a, bool bf16,
 extern "C" {
 
 // The dW1 partials of K3's cluster passes from their workspaces (nimg
-// images of HW/64 blocks of WS_BLOCK bytes each): `splits` partials (H, H)
-// f32 in part, groups spread over the splits as svt_int8_grouped_dw spreads
-// them.  Pt: pixels per group, a multiple of 256 dividing HW.
+// images of HW/64 blocks of WS_BLOCK bytes each; past H = 512 of 64 x R
+// bytes, the wide passes' rows, fused_loss_int8_sm90_wide.cu): `splits`
+// partials (H, H) f32 in part, groups spread over the splits as
+// svt_int8_grouped_dw spreads them.  Pt: pixels per group, a multiple of
+// 256 dividing HW.
 int svt_loss90_dw(const void* aq_ws, const void* q_ws, const void* gscale,
                   void* part, int nimg, int HW, int H, int Pt, int splits,
                   void* stream) {
-  if (nimg < 1 || H < 1 || H > KW || HW < 1 || HW % (CS * PT) ||
+  if (nimg < 1 || H < 1 || HW < 1 || HW % (CS * PT) ||
       Pt < DW_BLK * PT || Pt % (DW_BLK * PT) || HW % Pt || splits < 1 ||
       splits > 65535)
     return int(cudaErrorInvalidValue);
+  if (H > KW)                     // the R-row workspaces of the wide passes
+    return int(svt8::loss90_dw_wide(
+        static_cast<const int8_t*>(aq_ws), static_cast<const int8_t*>(q_ws),
+        static_cast<const float*>(gscale), static_cast<float*>(part), nimg,
+        HW, H, Pt, splits, static_cast<cudaStream_t>(stream)));
   const int gpi = HW / Pt;
   const int G = nimg * gpi;
   const int gps = (G + splits - 1) / splits;
@@ -314,8 +308,9 @@ int svt_loss90_dw(const void* aq_ws, const void* q_ws, const void* gscale,
 // Clusters of 4 CTAs that can be resident at once for each cluster kernel
 // (0 forward bf16, 1 forward f32, 2 gradient bf16, 3 gradient f32, 4 dW1,
 // 5 the product alone, 6 colored forward bf16, 7 colored forward f32, 8..13
-// the SR kernels in the order of 0, 1, 2, 3, 6, 7); 0 if the card cannot
-// make one resident.
+// the SR kernels in the order of 0, 1, 2, 3, 6, 7, 14..20 the wide kernels
+// in the order of 0, 1, 2, 3, 6, 7, 4); 0 if the card cannot make one
+// resident.
 int svt_loss90_max_clusters(int which) {
   switch (which) {
     case 0: return fwd_clusters(true);
@@ -326,8 +321,10 @@ int svt_loss90_max_clusters(int which) {
     case 5: return product_clusters();
     case 6: return fwd_clusters(true, true);
     case 7: return fwd_clusters(false, true);
-    default: return which < 14 ? svt8::loss90_sr_max_clusters(which - 8)
-                                : 0;
+    default:
+      return which < 14   ? svt8::loss90_sr_max_clusters(which - 8)
+             : which < 21 ? svt8::loss90_wide_max_clusters(which - 14)
+                          : 0;
   }
 }
 
@@ -338,12 +335,6 @@ int svt_loss90_chain_check(void* count, void* stream) {
   chain_check90_kernel<<<132 * 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned long long*>(count));
   return int(cudaGetLastError());
-}
-
-// Bytes of one 64-pixel block's a1c stash (the forward pass writes it, the
-// gradient pass reads it): bf16 weights 64 * 512 * 2, f32 twice that.
-long long svt_loss90_stash_block(int bf16) {
-  return (long long)NT * (bf16 ? A1c<true>::WORDS : A1c<false>::WORDS) * 4;
 }
 
 // out (ntiles, 64, 512) int32 = a (ntiles, 64, 512) int8 . W^T, W as its

@@ -1,7 +1,9 @@
 // K3 redesigned for Hopper: the fused int8 loss-and-gradient kernel's passes
-// at H <= 512 on thread block clusters, int8 wgmma and multicast bulk copies
-// (the pass bodies; fused_loss_int8_sm90.cu instantiates them at the
-// default numerics, fused_loss_int8_sm90_sr.cu with stochastic rounding).
+// on thread block clusters, int8 wgmma and multicast bulk copies (the pass
+// bodies at H <= 512; fused_loss_int8_sm90.cu instantiates them at the
+// default numerics, fused_loss_int8_sm90_sr.cu with stochastic rounding;
+// fused_loss_int8_sm90_wide.cu builds its passes past H = 512, at the
+// default numerics, from the pieces here).
 //
 // Replaces, like the passes of fused_loss_int8.cuh, the Pallas TPU kernel
 // spatialvae_tpu/kernels/fused_loss_int8.py `_kernel` (:718), here at the
@@ -17,9 +19,9 @@
 // every epilogue's op order are the same, so aq is word for word the same
 // and only the order of the head's row sums and of the column reductions
 // moves the floats (and through dz2 may flip a rounding of qi).  The
-// wrapper's k3_route sends a call here by its mode, and fused_loss_int8.cu
-// refuses a call these passes do not take; the other modes and H > 512
-// keep those passes.
+// wrapper's k3_route sends a call here by its mode and width, and
+// fused_loss_int8.cu refuses a call these passes do not take; the other
+// modes, and SR past H = 512, keep those passes.
 //
 // The colored family pairs each 64-row mean block of a group's first half
 // with the log-variance block Pt/2 rows further.  The forward's quads there
@@ -166,6 +168,22 @@ struct GradSmem {
 };
 static_assert(sizeof(GradSmem) <= 232448, "opt-in shared memory on sm_90");
 static_assert(sizeof(FwdSmem) <= 232448, "opt-in shared memory on sm_90");
+
+// The dW1 kernels' stages (fused_loss_int8_sm90.cu, and past H = 512
+// fused_loss_int8_sm90_wide.cu): DW_BLK 64-pixel blocks of both operands,
+// 128 rows each, a stage.
+constexpr int DW_NT = 256;                 // two warpgroups of 64 rows
+constexpr int DW_STAGES = 3;
+constexpr int DW_BLK = 4;                  // blocks per stage
+constexpr int DW_OP = 128 * PT;            // one operand of one block: 8 KiB
+constexpr int DW_STAGE = 2 * DW_BLK * DW_OP;   // DW_BLK aq, then DW_BLK qi
+constexpr int DW_WARPS = DW_NT / 32;
+
+struct DwSmem {
+  int8_t ring[DW_STAGES][DW_STAGE];
+  uint64_t full[DW_STAGES], empty[DW_STAGES];
+};
+static_assert(sizeof(DwSmem) <= 232448, "opt-in shared memory on sm_90");
 
 // The ring of W1 slabs of one CTA: its stream is the slabs of `w` (one
 // weight's slab stream) once for every tile it runs, each slab multicast to

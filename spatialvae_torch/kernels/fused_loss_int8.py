@@ -140,13 +140,26 @@ FAMILIES = ("bernoulli", "gaussian", "colored")
 LAUNCHES = {"fwd": 0, "grad": 0, "dw": 0, "sum": 0, "fwd_sm90": 0,
             "grad_sm90": 0, "dw_sm90": 0}
 
-# The cluster passes (csrc/fused_loss_int8_sm90.cu): CLUSTER CTAs, each a
-# 64-pixel block, four consecutive blocks of one quantisation group; every
-# operand padded to CLUSTER_WIDTH hidden rows; W1 streamed in slabs of
-# SLAB_K K-bytes by CLUSTER_WIDTH rows.
+# The cluster passes (csrc/fused_loss_int8_sm90.cu, past H = 512
+# csrc/fused_loss_int8_sm90_wide.cu): CLUSTER CTAs, each a 64-pixel block,
+# four consecutive blocks of one quantisation group; the products run in
+# output-column chunks of CLUSTER_WIDTH, every operand padded to whole
+# chunks (``cluster_rows``); W1 streamed chunk by chunk in slabs of SLAB_K
+# K-bytes by CLUSTER_WIDTH rows.
 CLUSTER = 4
 CLUSTER_WIDTH = 512
 SLAB_K = 64
+
+
+def cluster_chunks(h: int) -> int:
+    """The cluster passes' output-column chunks at width ``h``."""
+    return -(-padded_hidden(h) // CLUSTER_WIDTH)
+
+
+def cluster_rows(h: int) -> int:
+    """Rows of the cluster passes' operands and dW1 workspace blocks:
+    whole chunks (CLUSTER_WIDTH up to H = 512)."""
+    return cluster_chunks(h) * CLUSTER_WIDTH
 
 
 def reset_launches() -> None:
@@ -174,19 +187,22 @@ def k3_mode(nm: Numerics, t_mode: Optional[str] = None) -> tuple:
 def k3_route(hw: int, h: int, pt: int, family: str, nm: Numerics,
              t_mode: Optional[str] = None, block_passes: bool = False) -> str:
     """The passes a K3 call runs on the card: "sm90", the cluster passes,
-    for the default numerics (no mode bit, both levels 7), or for
+    for the default numerics (no mode bit, both levels 7) at every width
+    (past H = 512 in output-column chunks of CLUSTER_WIDTH), or for
     stochastic rounding with nothing else off the defaults (the SR mode bit
-    alone: ``--int8-sr``, ``SPATIALVAE_SR=1``), at H <= 512 over pixel
+    alone: ``--int8-sr``, ``SPATIALVAE_SR=1``) at H <= 512, over pixel
     counts and groups that are multiples of 256, in every family (the
     colored one pairs its mean and log-variance blocks across a cluster);
-    else "block", the block passes, which also take every call whose caller
-    asks for them (``block_passes``).  The route is chosen here alone:
-    ``launch_loss`` passes it to both C entry points, which refuse the
-    cluster route for a call the passes do not take."""
+    else "block", the block passes (SR past H = 512, the knob modes, K8),
+    which also take every call whose caller asks for them
+    (``block_passes``).  The route is chosen here alone: ``launch_loss``
+    passes it to both C entry points, which refuse the cluster route for a
+    call the passes do not take."""
     mode, _ = k3_mode(nm, t_mode)
     quad = CLUSTER * BLOCK_PIXELS
-    if (not block_passes and mode in (0, _SR) and nm.fwd_level == 7
-            and nm.grad_level == 7 and h <= CLUSTER_WIDTH
+    if (not block_passes
+            and (mode == 0 or (mode == _SR and h <= CLUSTER_WIDTH))
+            and nm.fwd_level == 7 and nm.grad_level == 7
             and hw % quad == 0 and pt % quad == 0):
         return "sm90"
     return "block"
@@ -194,25 +210,26 @@ def k3_route(hw: int, h: int, pt: int, family: str, nm: Numerics,
 
 def sm90_slabs(w: torch.Tensor) -> torch.Tensor:
     """An (H, H) int8 matrix given as rows [n][k] -> the cluster passes' slab
-    stream: zero-padded to (CLUSTER_WIDTH, Kp), cut into Kp/SLAB_K slabs of
-    K-bytes SLAB_K*s .. +SLAB_K-1, each slab (CLUSTER_WIDTH, SLAB_K) in
-    wgmma's 64-byte swizzled K-major layout: (n, k) at n * 64 +
-    ((k // 16) ^ ((n >> 1) & 3)) * 16 + k % 16 of its slab.  One contiguous
-    (Kp * CLUSTER_WIDTH,) int8 tensor: every quarter of a slab is one bulk
-    copy."""
-    kp = padded_hidden(w.shape[1])
-    p = F.pad(w, (0, kp - w.shape[1], 0, CLUSTER_WIDTH - w.shape[0]))
-    t = p.reshape(CLUSTER_WIDTH, kp // SLAB_K, 4, 16).transpose(0, 1)
-    return _swizzle64(t.contiguous()).reshape(-1)
+    stream: zero-padded to (``cluster_rows(H)``, Kp) and laid out chunk by
+    chunk of CLUSTER_WIDTH rows (the products' output-column chunks, in
+    order); a chunk is cut into Kp/SLAB_K slabs of K-bytes SLAB_K*s ..
+    +SLAB_K-1, each slab (CLUSTER_WIDTH, SLAB_K) in wgmma's 64-byte
+    swizzled K-major layout: (n, k) at n * 64 + ((k // 16) ^ ((n >> 1) & 3))
+    * 16 + k % 16 of its slab.  One contiguous (Kp * cluster_rows(H),) int8
+    tensor: every quarter of a slab is one bulk copy."""
+    kp, rows = padded_hidden(w.shape[1]), cluster_rows(w.shape[0])
+    p = F.pad(w, (0, kp - w.shape[1], 0, rows - w.shape[0]))
+    t = p.reshape(rows // CLUSTER_WIDTH, CLUSTER_WIDTH, kp // SLAB_K, 4, 16)
+    return _swizzle64(t.transpose(1, 2).contiguous()).reshape(-1)
 
 
 def sm90_ws_layout(tiles: torch.Tensor) -> torch.Tensor:
-    """(N, HW, CLUSTER_WIDTH) int8 tiles (pixel rows) -> the cluster passes'
-    dW1 operand workspace: per (image, 64-pixel block) a (CLUSTER_WIDTH, 64)
-    block in wgmma's 64-byte swizzled layout, row n, pixel p = 16 w + g +
-    8 h at position 16 w + 2 g + h of the row (the accumulator rows' order:
-    dW1 sums over a group's pixels, so any order serves), i.e. at byte
-    n * 64 + (w ^ ((n >> 1) & 3)) * 16 + 2 g + h."""
+    """(N, HW, R) int8 tiles (pixel rows; R = ``cluster_rows(H)``) -> the
+    cluster passes' dW1 operand workspace: per (image, 64-pixel block) an
+    (R, 64) block in wgmma's 64-byte swizzled layout, row n, pixel p =
+    16 w + g + 8 h at position 16 w + 2 g + h of the row (the accumulator
+    rows' order: dW1 sums over a group's pixels, so any order serves),
+    i.e. at byte n * 64 + (w ^ ((n >> 1) & 3)) * 16 + 2 g + h."""
     n, hw, kw = tiles.shape
     t = tiles.reshape(n, hw // BLOCK_PIXELS, 4, 2, 8, kw)
     t = t.permute(0, 1, 5, 2, 4, 3).reshape(n, hw // BLOCK_PIXELS, kw, 4, 16)
@@ -220,11 +237,13 @@ def sm90_ws_layout(tiles: torch.Tensor) -> torch.Tensor:
 
 
 def sm90_ws_tiles(ws: torch.Tensor, n: int, hw: int) -> torch.Tensor:
-    """``sm90_ws_layout``' inverse: (N, HW, CLUSTER_WIDTH) int8."""
+    """``sm90_ws_layout``' inverse: (N, HW, R) int8, R the workspace's rows
+    per block."""
     blocks = hw // BLOCK_PIXELS
-    t = _swizzle64(ws.reshape(n, blocks, CLUSTER_WIDTH, 4, 16))
-    t = t.reshape(n, blocks, CLUSTER_WIDTH, 4, 8, 2)
-    return t.permute(0, 1, 3, 5, 4, 2).reshape(n, hw, CLUSTER_WIDTH)
+    rows = ws.numel() // (n * hw)
+    t = _swizzle64(ws.reshape(n, blocks, rows, 4, 16))
+    t = t.reshape(n, blocks, rows, 4, 8, 2)
+    return t.permute(0, 1, 3, 5, 4, 2).reshape(n, hw, rows)
 
 
 def grouped_dw90_reference(aq_ws: torch.Tensor, q_ws: torch.Tensor,
@@ -275,20 +294,25 @@ def cluster_schedule(blocks_total: int, clusters: int,
 
 def loss_workspace_bytes(hw: int, h: int, route: str, block: int = 0) -> int:
     """Bytes of K3's workspaces per image: the dW1 operands aq and qi,
-    (Kp, HW) int8 each on the block route, (CLUSTER_WIDTH, HW) on the cluster
-    route, and ``block`` bytes per 64-pixel block (the block route's wide
-    tiles, the cluster route's a1c stash).  The cluster route's SR stash of
-    aq, which the forward leaves for the gradient pass, is the aq operand's
-    workspace itself: it adds nothing."""
-    rows = CLUSTER_WIDTH if route == "sm90" else padded_hidden(h)
+    (Kp, HW) int8 each on the block route, (``cluster_rows(H)``, HW) on the
+    cluster route, and ``block`` bytes per 64-pixel block (the block
+    route's wide tiles, the cluster route's ``stash_block_bytes``).  The
+    cluster route's stash of aq, which the forward leaves for the gradient
+    pass under SR and past H = 512, is the aq operand's workspace itself: it
+    adds nothing."""
+    rows = cluster_rows(h) if route == "sm90" else padded_hidden(h)
     return 2 * rows * hw + hw // BLOCK_PIXELS * block
 
 
-def stash_block_bytes(bf16: bool) -> int:
-    """Bytes of the cluster route's a1c stash per 64-pixel block: a1c of 64
-    pixels x CLUSTER_WIDTH columns, bf16 or f32 as the weights
-    (``svt_loss90_stash_block``)."""
-    return BLOCK_PIXELS * CLUSTER_WIDTH * (2 if bf16 else 4)
+def stash_block_bytes(bf16: bool, h: int = CLUSTER_WIDTH) -> int:
+    """Bytes per 64-pixel block of the cluster route's ``ws``
+    (``svt_loss90_ws_block``): the a1c stash of 64 pixels x
+    ``cluster_rows(h)`` columns, bf16 or f32 as the weights, and past
+    H = 512 the gradient pass's K-major copy of qi, 64 x
+    ``cluster_rows(h)`` int8."""
+    rows = cluster_rows(h)
+    qk = BLOCK_PIXELS * rows if h > CLUSTER_WIDTH else 0
+    return BLOCK_PIXELS * rows * (2 if bf16 else 4) + qk
 
 
 def sr90_counters(nimg: int, hw: int, h: int, clusters: int, b0: int = 0,
@@ -850,8 +874,10 @@ def run_loss_int8(fold, coords, w1, b1, wht, bht, y_t,
     partner on two CTAs of one cluster, each reading the other's head
     outputs from its shared memory; under SR csrc/fused_loss_int8_sm90_sr.cu,
     the same Philox words, the forward leaving aq in the dW1 workspace for
-    the gradient pass); ``block_passes`` sends them to the passes above, for
-    a caller that compares the two designs on one card.
+    the gradient pass; past H = 512 csrc/fused_loss_int8_sm90_wide.cu, in
+    512-column chunks, the forward leaving aq in the dW1 workspace too);
+    ``block_passes`` sends them to the passes above, for a caller that
+    compares the two designs on one card.
 
     ``p_base``: the first pixel's row in a larger call whose pixel slice
     this is (a pixel shard, ``parallel/pixel.py``): under SR the slice
@@ -931,8 +957,8 @@ def launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family,
     budget = workspace_budget(dev) if workspace_bytes is None \
         else workspace_bytes
     bf16 = int(w1.dtype == torch.bfloat16)
-    if route == "sm90":                            # the a1c stash
-        block = lib.svt_loss90_stash_block(bf16)
+    if route == "sm90":                  # the a1c stash (and qi's copy)
+        block = lib.svt_loss90_ws_block(bf16, h)
     else:                                          # the wide tiles
         block = lib.svt_int8_ws_block(h)
     chunks = image_chunks(b, loss_workspace_bytes(hw, h, route, block),
@@ -940,7 +966,7 @@ def launch_loss(fold, coords, w1, b1, wht, bht, y_t, mask, family,
     if ints and len(chunks) > 1:
         raise ValueError("ints needs the images in one workspace chunk")
     bc = chunks[0][1]
-    rows = CLUSTER_WIDTH if route == "sm90" else padded_hidden(h)
+    rows = cluster_rows(h) if route == "sm90" else padded_hidden(h)
     aq_ws = torch.empty((bc, rows, hw), dtype=torch.int8, device=dev)
     q_ws = torch.empty((bc, rows, hw), dtype=torch.int8, device=dev)
     ws = (torch.empty((bc * blocks * block,), dtype=torch.uint8, device=dev)
@@ -1085,7 +1111,9 @@ def sm90_max_clusters() -> dict:
     names = ("fwd_bf16", "fwd_f32", "grad_bf16", "grad_f32", "dw",
              "product", "fwd_colored_bf16", "fwd_colored_f32", "sr_fwd_bf16",
              "sr_fwd_f32", "sr_grad_bf16", "sr_grad_f32",
-             "sr_fwd_colored_bf16", "sr_fwd_colored_f32")
+             "sr_fwd_colored_bf16", "sr_fwd_colored_f32", "wide_fwd_bf16",
+             "wide_fwd_f32", "wide_grad_bf16", "wide_grad_f32",
+             "wide_fwd_colored_bf16", "wide_fwd_colored_f32", "wide_dw")
     return {k: lib.svt_loss90_max_clusters(i) for i, k in enumerate(names)}
 
 

@@ -1654,6 +1654,130 @@ def test_k3_sr_wide_chunks_match_plain(family, cuda_device):
         _assert_rel(c, x, INT8_TOL)
 
 
+# K3's cluster passes past H = 512 (csrc/fused_loss_int8_sm90_wide.cu, the
+# default numerics): (H, family, image side, B, weight dtype, mask) at the
+# widths of WIDTHS past 512 (513 and 4,100 end on a ragged chunk), in every
+# family (the padded one at 28x28, a forced mask), and the galaxy shape at
+# H = 1,000
+# dh0 (dfold's three gradient rows, on their own scale) against the plain
+# version: sound at most 1.12e-4 / 1.78e-5 here, the copy that reads aq
+# for dh0 one workspace block off at least 1.86e-2 / 6.89e-4 (PERF.md)
+DH0_TOL = (1e-3, 1e-4)
+# where both designs quantise qi alike (every case but the 64x64 ones),
+# they differ only in the order of their f32 sums: every output and dh0
+# within 5.6e-7 of max|block| (max) and 3.8e-7 (mean) here
+K3W_BLOCK_TOL = (1e-6, 5e-7)
+K3W_CASES = [(h, fam, side, 2 if h > 2048 else 4, wdt, masked)
+             for h in WIDTHS if h > 512
+             for fam, side, wdt, masked in (
+                 ("bernoulli", 32, torch.bfloat16, False),
+                 ("gaussian", 32, torch.float32, True),
+                 ("colored", 32, torch.bfloat16, True),
+                 ("padded", 28, torch.float32, False))] + [
+    (1000, "bernoulli", 64, 6, torch.bfloat16, True),
+    (1000, "colored", 64, 4, torch.float32, False)]
+
+
+@pytest.mark.parametrize("case", K3W_CASES, ids=lambda c: "-".join(
+    [f"H{c[0]}", c[1], f"{c[2]}px", f"B{c[3]}", str(c[4])[6:],
+     "mask" if c[5] else "nomask"]))
+def test_k3_wide_cluster_passes_match_plain_and_block(case, cuda_device,
+                                                      monkeypatch):
+    """The cluster passes past H = 512 against the plain version within
+    K3's limits and against the block passes: aq word for word with both
+    (the forward leaves it in the dW1 workspace, where ``ints`` reads it),
+    qi within INT_MISMATCH of both, two runs bit for bit, one image per
+    workspace chunk within 1e-6 of one chunk, each design counted under its
+    own keys, never the other's; dh0 within DH0_TOL of the plain version.
+    At the 32x32 and 28x28 shapes qi equals the block passes' and every
+    output and dh0 is within K3W_BLOCK_TOL of theirs (at 64x64 within
+    K3's limits and DH0_TOL).  dW1 is held to the exact grouped product
+    of the call's own quantised tiles (the plain version's group scales)
+    within 1e-6 at every width, and to the plain version within K3's limits
+    up to H = 1,024: past it a qi that the head's summation order moves
+    across a rounding boundary moves dW1 by up to 2.2e-3 of its largest
+    value (H = 4,100, padded), on both designs alike, which the block
+    passes' check above holds."""
+    import torch.nn.functional as F
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+    from spatialvae_torch.train.trainer import yt_layout
+
+    h, family, side, b, wdt, masked = case
+    colored = family == "colored"
+    hw = side * side
+    no = {"gaussian": 1, "colored": 2}.get(family, 3)
+    fold, coords, ws = _int8_inputs(b, hw, h, no, wdt, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(h)
+    mask = (coords.pow(2).sum(dim=1) <= 1.0).float() if masked else None
+    fam = "bernoulli" if family == "padded" else family
+    if colored:
+        y = 0.5 + 0.4 * torch.randn((b, hw), generator=gen, device=cuda_device)
+        yt = yt_layout(y.to(torch.bfloat16), hw, True)
+        coords = l8.colored_coords(coords, l8.pick_tile(hw)).contiguous()
+    else:
+        k = torch.randint(0, 256, (b, no, hw), generator=gen,
+                          device=cuda_device)
+        yt = (k - 128).to(torch.int8)
+        pad = l8.padded_hw(hw) - hw
+        if pad:
+            coords = F.pad(coords, (0, 0, 0, pad))
+            yt = F.pad(yt, (0, pad), value=-128)
+            mask = F.pad(torch.ones(hw, device=cuda_device) if mask is None
+                         else mask, (0, pad))
+    args = (fold, coords, *ws, yt, mask, fam)
+    hwp = coords.shape[0]
+    assert l8.k3_route(hwp, h, l8.pick_tile(hwp), fam, l8.DEFAULTS) == "sm90"
+    l8.reset_launches()
+    with torch.no_grad():
+        got, (aq, qi) = l8.run_loss_int8(*args, ints=True)
+        assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0),
+                               "fwd_sm90": 1, "grad_sm90": 1, "dw_sm90": 1,
+                               "sum": 5}
+        again = l8.run_loss_int8(*args)
+        l8.reset_launches()
+        chunked = l8.run_loss_int8(*args, workspace_bytes=1)
+        assert l8.LAUNCHES == {**dict.fromkeys(l8.LAUNCHES, 0),
+                               "fwd_sm90": b, "grad_sm90": b, "dw_sm90": b,
+                               "sum": 5}
+        l8.reset_launches()
+        old, (aq7, qi7) = l8.run_loss_int8(*args, ints=True, block_passes=True)
+        assert l8.LAUNCHES["fwd_sm90"] == l8.LAUNCHES["grad_sm90"] == 0
+        seen = {}
+
+        def epilogue(*a):                # the plain version's dz2
+            out = epilogue.orig(*a)
+            seen["dz2"] = out[1]
+            return out
+        epilogue.orig = l8.loss_epilogue
+        monkeypatch.setattr(l8, "loss_epilogue", epilogue)
+        want, (aq_p, qi_p) = l8.loss_int8_reference(*args, ints=True)
+        pt = l8.pick_tile(hwp)
+        gb = l8.loss_operands(ws[0], ws[2])[2]
+        mdz = l8._group_max(seen["dz2"].transpose(1, 2), b, pt) + 1e-30
+        own = d8.grouped_int_product(aq, qi, gb * mdz * (1.0 / 7.0)
+                                     * (1.0 / 7.0), pt)
+    tiles_alike = side < 64
+    for i, (u, v, c, o, x) in enumerate(zip(got, again, chunked, old,
+                                            want)):
+        assert torch.isfinite(u).all()
+        assert torch.equal(u, v)
+        _assert_rel(c, u, (1e-6, 1e-7))
+        if i != 1 or h <= 1024:
+            _assert_rel(u, x, INT8_TOL)
+        _assert_rel(u, o, K3W_BLOCK_TOL if tiles_alike else INT8_TOL)
+    _assert_rel(got[1], own, (1e-6, 1e-7))
+    _assert_rel(got[0][:, 3, 0], want[0][:, 3, 0], INT8_TOL)
+    _assert_rel(got[0][:, :3], want[0][:, :3], DH0_TOL)
+    _assert_rel(got[0][:, :3], old[0][:, :3],
+                K3W_BLOCK_TOL if tiles_alike else DH0_TOL)
+    assert torch.equal(aq, aq_p) and torch.equal(aq, aq7)
+    assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
+    if tiles_alike:
+        assert torch.equal(qi, qi7)
+    assert (qi != qi7).float().mean().item() <= INT_MISMATCH
+
+
 # K4 and K5's cluster passes (csrc/fused_decoder_int8_sm90.cu): (B, HW, H,
 # No, weight dtype): the galaxy batch, three images (fewer quads than
 # resident clusters) and the odd tail, f32 weights, 28x28
