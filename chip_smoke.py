@@ -1244,6 +1244,8 @@ def phase_profile(torch, requests, tmpdir: str, tag: str = "slice") -> None:
 
 INT8_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_int8.cu"
 INT8_90_SOURCE = "spatialvae_torch/kernels/csrc/fused_decoder_int8_sm90.cu"
+INT8_90_WIDE_SOURCE = (
+    "spatialvae_torch/kernels/csrc/fused_decoder_int8_sm90_wide.cu")
 # fused_decoder_int8.LAUNCHES: the block passes', the cluster passes'
 K45_KEYS = ("fwd", "fwd_acts", "bwd_scale", "bwd_grad", "dw", "sum",
             "fwd_sm90", "fwd_acts_sm90", "bwd_scale_sm90", "bwd_grad_sm90",
@@ -1372,12 +1374,25 @@ K5_REPLACES = "spatialvae_tpu/kernels/fused_decoder_int8.py:95"
 # readings.
 INT8_TOL = (1e-3, 2e-5)
 # K3's dh0 reading (dfold's three gradient rows on their own scale; beside
-# the loss at dfold[:, 3, 0] their errors are too small to see) past
-# H = 512, placed between the sound wide cluster passes' readings (at most
-# 1.13e-4 / 1.78e-5) and those of the copy that reads aq for dh0 from the
-# workspace one block off (-DSVT_K3W_AQ_OFF=1, at least 1.86e-2 /
-# 6.89e-4): the PERF.md limits table
+# the loss at dfold[:, 3, 0] their errors are too small to see) on every
+# route, and K8's (dfoldT's three gradient columns): placed past H = 512
+# between the sound wide cluster passes' readings (at most 1.13e-4 /
+# 1.78e-5) and those of the copy that reads aq for dh0 from the workspace
+# one block off (-DSVT_K3W_AQ_OFF=1, at least 1.86e-2 / 6.89e-4); at
+# H <= 512 the sound routes read at most 1.182e-4 / 1.159e-6 (the cluster
+# passes, SR, the knob modes, the levers, K8) and each route's dh0 copy
+# (DH0_FAULTS) at least: the cluster passes 1.476e-2 / 7.515e-4, SR's
+# 1.766e-2 / 1.107e-3, the block passes 1.405e-2 / 5.248e-4 (`--limits
+# k3` and `--limits numerics` on an H100): the PERF.md limits table
 DH0_TOL = (1e-3, 1e-4)
+# K5 on the wide cluster passes against the block passes past H = 512,
+# every output relative to the block passes' largest value (max, mean):
+# the two differ only in the order of their f32 sums (the head's, the
+# column sums'); placed between the sound passes' readings (at most
+# 6.08e-7 / 1.15e-7, db1 in [kernel_wide] at H = 1,000, B = 100) and
+# those of the wide copies of `--limits int8_90` that move K5 (at least
+# 5.991e-3 / 2.980e-4, dh0 from a0q/127): the PERF.md limits table
+K45W_BLOCK_TOL = (1e-5, 2e-6)
 # K4's y and a1 by absolute error (max, mean)
 INT8_Y_TOL = (1e-5, 1e-6)
 INT8_A1_TOL = (1e-2, 1e-6)
@@ -1621,12 +1636,13 @@ def int8_tail_case(torch, b, dtype, seed, timed, hw=None,
         if alone != route:
             out["y_alone"] = rel_errors(d8.run_int8_tail(fold, coords, w),
                                         y_ref)
-        del y_ref, a1_ref, y0
         if route == "sm90":
             yb, a1b = d8.run_int8_tail(fold, coords, w, emit_a1=True,
                                        passes="block")
             out["vs_block"].update(y=rel_errors(y, yb), a1=rel_errors(a1, a1b))
+            out["block_y"] = rel_errors(yb, y_ref)
             del yb, a1b
+        del y_ref, a1_ref, y0
         for variant in ("residual", "recompute"):
             a = a1 if variant == "residual" else None
             got = d8.run_int8_tail_backward(fold, coords, w, a, y, g)
@@ -1641,8 +1657,9 @@ def int8_tail_case(torch, b, dtype, seed, timed, hw=None,
             if route == "sm90":
                 old = d8.run_int8_tail_backward(fold, coords, w, a, y, g,
                                                 passes="block")
-                for name, u, v in zip(INT8_GRADS, got, old):
+                for name, u, v, x in zip(INT8_GRADS, got, old, want):
                     out["vs_block"][variant, name] = rel_errors(u, v)
+                    out["block", variant, name] = rel_errors(v, x)
                 del old
             del got, again, want
             if timed:
@@ -1703,6 +1720,17 @@ def _check_abs(what, errs, tol) -> None:
                              f"{errs[0]}, mean {errs[1]}; limits {tol}")
 
 
+def _check_dh0(what, r) -> str:
+    """K3's (or K8's) dh0 reading of ``r`` (dfold's three gradient rows on
+    their own scale) within DH0_TOL, and on the cluster passes the same
+    against the block passes; returns its log field (max_rel/mean_rel)."""
+    _check_rel(f"{what} dh0", r["dh0"], DH0_TOL)
+    if r.get("route") == "sm90" and "vs_block" in r:
+        _check_rel(f"{what} dh0, cluster vs block passes",
+                   r["vs_block"]["dh0"], DH0_TOL)
+    return f"{r['dh0'][2]:.2e}/{r['dh0'][3]:.2e}"
+
+
 LOSS_CASES = [
     # B, weight dtype, int8 targets, mask
     (BATCH, "bfloat16", True, False),
@@ -1759,11 +1787,13 @@ def phase_int8_kernels(torch) -> dict:
             raise AssertionError(f"K3 B={b} {dtype}: route {r['route']}")
         fields = {n: _check_rel(f"K3 B={b} {dtype} {n}", r[n], INT8_TOL)
                   for n in ("loss",) + INT8_GRADS}
+        fields["dh0"] = _check_dh0(f"K3 B={b} {dtype}", r)
         log("kernel_loss_int8", B=b, HW=IMAGE[0] * IMAGE[1], H=P_HIDDEN, No=CHANNELS,
             dtype=dtype, targets="int8" if i8 else "float",
             mask=masked, route=r["route"],
-            errors="max_abs/mean_abs/max_rel/mean_rel",
+            errors="max_abs/mean_abs/max_rel/mean_rel (dh0: max_rel/mean_rel)",
             **fields, max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+            dh0_tol=DH0_TOL,
             ints_vs_plain=_check_ints(f"K3 B={b} {dtype}", r),
             kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             **_log_ab(r))
@@ -1990,11 +2020,13 @@ def _copy_turns(torch, libs: dict, fn, reps: int) -> dict:
     return out
 
 
-def phase_int8_sm90(torch, ptxas, ptxas_pingpong, timing_builds) -> dict:
+def phase_int8_sm90(torch, ptxas, ptxas_pingpong, timing_builds,
+                    ptxas_wide) -> dict:
     """``[int8_sm90]``: K4 and K5's cluster passes alone.  ptxas's report
     of every kernel of the passes and of the ping-pong timing copy
     (compiled in the background from the start), with the wgmma
-    serialization notes; the clusters of 4 the card holds at once; the a0
+    serialization notes, and of the wide unit's (``ptxas_wide``, "wide");
+    the clusters of 4 the card holds at once, the wide unit's too; the a0
     chain (exact tanhf, the formula itself).  ``[int8_sm90_split]``: the
     wrappers run with the cluster passes' entry points taken from each
     timing copy's library (I8_90_TIMING; "pass" is the wrappers' own): K4
@@ -2007,7 +2039,8 @@ def phase_int8_sm90(torch, ptxas, ptxas_pingpong, timing_builds) -> dict:
     from spatialvae_torch.kernels import _build
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
 
-    for copy, started in (("pass", ptxas), ("pingpong", ptxas_pingpong)):
+    for copy, started in (("pass", ptxas), ("pingpong", ptxas_pingpong),
+                          ("wide", ptxas_wide)):
         serialized = {}
         for name, regs, stack, stores, loads in ptxas_report(started,
                                                              serialized):
@@ -2016,10 +2049,13 @@ def phase_int8_sm90(torch, ptxas, ptxas_pingpong, timing_builds) -> dict:
                 spill_load_bytes=loads,
                 wgmma_serialized=",".join(serialized.get(name, [])) or "-")
     clusters = d8.sm90_max_clusters()
-    if min(clusters.values()) < 1:
-        raise AssertionError(f"int8 cluster kernels resident: {clusters}")
+    wide = d8.sm90_max_clusters(wide=True)
+    if min(clusters.values()) < 1 or min(wide.values()) < 1:
+        raise AssertionError(f"int8 cluster kernels resident: {clusters}, "
+                             f"wide {wide}")
     log("int8_sm90", chain="exact tanhf",
-        **{f"clusters_{k}": v for k, v in clusters.items()})
+        **{f"clusters_{k}": v for k, v in clusters.items()},
+        **{f"clusters_wide_{k}": v for k, v in wide.items()})
     sound = _build.load_library()
     libs = {"pass": sound}
     for name, future in timing_builds.items():
@@ -2796,6 +2832,16 @@ K3_FAULTS = (("-DSVT_INT8_RTZ=1",), ("-DSVT_INT8_BLOCK_SCALE=1",),
 # the dW1 workspace's order; each must be refused by SR's cluster readings
 SR_FAULTS = (("-DSVT_SR_SAME_SITE=1",), ("-DSVT_SR_FLOOR=1",),
              ("-DSVT_SR90_WS_ROW=1",))
+# each K3 route's dh0 copy (it moves dh0 alone, every other output the
+# sound passes'), the calls it serves and the limits run that builds it:
+# the default cluster passes at H <= 512 ((1 - a0^2) from the pixel 8 rows
+# on), SR's cluster passes (aq for dh0 read one dW1 workspace block off),
+# the block passes of the knob modes, the levers and K8 ((1 - a0^2) from
+# the pixel 8 rows on); dh0 must refuse each on its calls, and the loss,
+# dW1, db1, dWh^T and dbh (dfold holds dh0's rows) must hold INT8_TOL
+DH0_FAULTS = {("-DSVT_K3_90_DH0_ROW=1",): ("cluster", "k3"),
+              ("-DSVT_SR90_AQ_OFF=1",): ("sr", "k3"),
+              ("-DSVT_K3_DH0_ROW=1",): ("block", "numerics")}
 # SR's readings in --limits k3 and --limits numerics: (FAMILY_CASES name or
 # "galaxy", weight dtype), each on the cluster and on the block passes
 SR_LIMIT_CASES = [("galaxy", "bfloat16"), ("galaxy", "float32"),
@@ -2828,9 +2874,9 @@ def k3w_limit_readings(torch, seed: int, worst: dict) -> None:
 def sr_limit_readings(torch, seed: int, worst: dict) -> None:
     """SR_LIMIT_CASES' readings into ``worst``: per (route, case, dtype) the
     worst max and mean error relative to max|plain| over the loss and the
-    five outputs ("K3_sr_<route>"), and the quantised tiles' disagreements
-    with the plain version's, the forward site's count and the gradient
-    site's share ("K3_sr_ints_<route>")."""
+    five outputs ("K3_sr_<route>"), dh0's ("K3_dh0_sr_<route>"), and the
+    quantised tiles' disagreements with the plain version's, the forward
+    site's count and the gradient site's share ("K3_sr_ints_<route>")."""
     nm = _numerics(sr=True)
     for name, dtype in SR_LIMIT_CASES:
         for block_passes in (False, True):
@@ -2844,6 +2890,8 @@ def sr_limit_readings(torch, seed: int, worst: dict) -> None:
             k = (f"K3_sr_{r['route']}", name, dtype)
             for n in ("loss",) + INT8_GRADS:
                 worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+            kd = (f"K3_dh0_sr_{r['route']}", name, dtype)
+            worst[kd] = _wmax(worst.get(kd, (0, 0)), r["dh0"][2:])
             ki = (f"K3_sr_ints_{r['route']}", name, dtype)
             worst[ki] = _wmax(worst.get(ki, (0, 0)), r["ints"])
         torch.cuda.empty_cache()
@@ -2868,6 +2916,84 @@ def sr_refusals(defines: tuple, worst: dict) -> None:
                              f"reading: {worst}")
 
 
+def dh0_copy_readings(torch, kind: str, seed: int = 0) -> tuple:
+    """The readings of DH0_FAULTS' calls of ``kind`` ("cluster": LOSS_CASES
+    and FAMILY_CASES on the default cluster passes; "sr": SR_LIMIT_CASES on
+    SR's cluster passes; "block": LOSS_CASES on the block passes, the knob
+    modes, the levers and K8): (dh0's worst max/mean error relative to
+    max|plain| per call, the worst over the loss, dW1, db1, dWh^T and dbh
+    of every call)."""
+    calls = []
+    if kind == "cluster":
+        calls += [functools.partial(loss_case, torch, b, dtype, seed, False,
+                                    i8, masked)
+                  for b, dtype, i8, masked in LOSS_CASES]
+        calls += [functools.partial(family_case, torch, case, dtype, seed,
+                                    False)
+                  for case in FAMILY_CASES
+                  for dtype in ("bfloat16", "float32")]
+    elif kind == "sr":
+        nm = _numerics(sr=True)
+        for name, dtype in SR_LIMIT_CASES:
+            calls.append(functools.partial(
+                loss_case, torch, BATCH, dtype, seed, False, nm=nm)
+                if name == "galaxy" else functools.partial(
+                    family_case, torch,
+                    next(c for c in FAMILY_CASES if c[0] == name), dtype,
+                    seed, False, nm=nm))
+    else:
+        calls += [functools.partial(loss_case, torch, b, dtype, seed, False,
+                                    i8, masked, block_passes=True)
+                  for b, dtype, i8, masked in LOSS_CASES]
+        calls += [functools.partial(loss_case, torch, BATCH, "bfloat16",
+                                    seed, False, nm=_numerics(**kw))
+                  for _, kw in NUMERICS_MODES + LEVER_MODES]
+        calls += [functools.partial(k8_case, torch, mode, side, no,
+                                    "bfloat16", seed, False)
+                  for mode, side, no in K8_CASES]
+    dh0, others = [], (0.0, 0.0)
+    for call in calls:
+        r = call()
+        if kind != "block" and r.get("route") != "sm90":
+            raise AssertionError(f"dh0 copy {kind}: route {r.get('route')}")
+        dh0.append(tuple(r["dh0"][2:]))
+        for n in ("loss", "dw1", "db1", "dwht", "dbht"):
+            others = _wmax(others, r[n][2:])
+        torch.cuda.empty_cache()
+    return dh0, others
+
+
+def dh0_refusals(torch, run: str) -> None:
+    """The DH0_FAULTS copies of the limits run ``run`` ("k3" or
+    "numerics"), each on its route's calls at one seed: raise unless dh0
+    refuses every call (above DH0_TOL) while the loss, dW1, db1, dWh^T and
+    dbh hold INT8_TOL; log each copy's readings."""
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+    from spatialvae_torch.kernels import fused_loss_int8 as l8
+
+    for defines, (kind, where) in DH0_FAULTS.items():
+        if where != run:
+            continue
+        lib = k3_library(defines)
+        d8._lib = l8._lib = (lambda lib=lib: lib)
+        dh0, others = dh0_copy_readings(torch, kind)
+        low = min(dh0, key=lambda e: e[0])
+        refused = all(a > DH0_TOL[0] or m > DH0_TOL[1] for a, m in dh0)
+        holds = others[0] <= INT8_TOL[0] and others[1] <= INT8_TOL[1]
+        log("limits_dh0", build=" ".join(defines), calls=kind,
+            dh0_lowest=f"{low[0]:.3e}/{low[1]:.3e}",
+            dh0_highest=f"{max(a for a, _ in dh0):.3e}/"
+                        f"{max(m for _, m in dh0):.3e}",
+            others_worst=f"{others[0]:.3e}/{others[1]:.3e}",
+            dh0_tol=DH0_TOL, int8_tol=INT8_TOL, refused_by_dh0=refused,
+            others_hold=holds)
+        if not (refused and holds):
+            raise AssertionError(f"--limits {run}: the dh0 copy {defines} "
+                                 f"is not refused by dh0 alone: dh0 {dh0}, "
+                                 f"the other outputs {others}")
+    d8._lib = l8._lib = (lambda: k3_library(()))
+
+
 def phase_limits_k3(torch) -> None:
     """``--limits k3``: K3's readings against its plain version on the
     cluster passes and on the block passes (``block_passes``), for the
@@ -2881,11 +3007,16 @@ def phase_limits_k3(torch) -> None:
     The sound build must hold every reading within INT8_TOL (dh0 within
     DH0_TOL, SR's tiles as ``_check_ints``), the colored pairing's copy
     must not hold its colored cluster readings, each SR copy must fail
-    SR's on the cluster passes, and each K3W copy the wide ones."""
+    SR's on the cluster passes, and each K3W copy the wide ones.  dh0 is
+    read on every route (within DH0_TOL in the sound build), and the dh0
+    copies of the cluster passes and SR (DH0_FAULTS) must be refused by it
+    alone (``dh0_refusals``, one seed)."""
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
-    build_k3_copies(K3_FAULTS + SR_FAULTS + K3W_FAULTS)
+    dh0_copies = tuple(d for d, (_, run) in DH0_FAULTS.items()
+                       if run == "k3")
+    build_k3_copies(K3_FAULTS + SR_FAULTS + K3W_FAULTS + dh0_copies)
     for defines in ((),) + K3_FAULTS + SR_FAULTS + K3W_FAULTS:
         lib = k3_library(defines)
         d8._lib = l8._lib = (lambda lib=lib: lib)
@@ -2903,6 +3034,8 @@ def phase_limits_k3(torch) -> None:
                     k = ("K3_" + r["route"], dtype)
                     for n in ("loss",) + INT8_GRADS:
                         worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+                    kd = ("K3_dh0_" + r["route"], dtype)
+                    worst[kd] = _wmax(worst.get(kd, (0, 0)), r["dh0"][2:])
             for case in FAMILY_CASES:
                 for dtype in ("bfloat16", "float32"):
                     for block_passes in (False, True):
@@ -2911,6 +3044,9 @@ def phase_limits_k3(torch) -> None:
                         k = (f"K3_{case[1]}_{r['route']}", dtype)
                         for n in ("loss",) + INT8_GRADS:
                             worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
+                        kd = (f"K3_dh0_{case[1]}_{r['route']}", dtype)
+                        worst[kd] = _wmax(worst.get(kd, (0, 0)),
+                                          r["dh0"][2:])
             sr_limit_readings(torch, seed, worst)
             torch.cuda.empty_cache()
         log("limits", build=" ".join(defines) or "sound",
@@ -2919,8 +3055,7 @@ def phase_limits_k3(torch) -> None:
         within = {k: a <= tol[0] and m <= tol[1]
                   for k, (a, m) in worst.items()
                   if not k[0].startswith("K3_sr")
-                  for tol in [DH0_TOL if k[0].startswith("K3_wide_dh0")
-                              else INT8_TOL]}
+                  for tol in [DH0_TOL if "dh0" in k[0] else INT8_TOL]}
         colored90 = [k for k in within if k[0] == "K3_colored_sm90"]
         if not defines and not all(within.values()):
             raise AssertionError(f"--limits k3: the sound build is outside "
@@ -2935,7 +3070,7 @@ def phase_limits_k3(torch) -> None:
             raise AssertionError(f"--limits k3: the wide copy {defines} "
                                  f"holds every wide cluster reading: {worst}")
         sr_refusals(defines, worst)
-    d8._lib = l8._lib = (lambda: k3_library(()))
+    dh0_refusals(torch, "k3")
 
 
 def phase_limits(torch) -> None:
@@ -3155,7 +3290,8 @@ def phase_loss_families(torch) -> dict:
             for n in ("loss",) + INT8_GRADS:
                 _check_rel(f"K3 {name} {dtype} {n}, cluster vs block "
                            f"passes", r["vs_block"][n], INT8_TOL)
-            log("kernel_loss_families", case=name, family=family, B=BATCH,
+            fields["dh0"] = _check_dh0(f"K3 {name} {dtype}", r)
+            log("kernel_loss_families", dh0_tol=DH0_TOL, case=name, family=family, B=BATCH,
                 HW=r["pixels"][0], padded_HW=r["pixels"][1], H=P_HIDDEN,
                 No=2 if family == "colored" else 1, dtype=dtype,
                 targets="int8" if i8 else "bfloat16", mask=masked,
@@ -3463,12 +3599,13 @@ def _sr_fields(what, r) -> dict:
     for n in ("loss",) + INT8_GRADS:
         _check_rel(f"{what} {n}, cluster vs block passes", r["vs_block"][n],
                    INT8_TOL)
+    fields["dh0"] = _check_dh0(what, r)
     if not r["moved"] > SR_MOVED:
         raise AssertionError(f"{what}: another b1 moved only {r['moved']} "
                              f"of the forward tile")
     return {"route": r["route"], "errors": "max_abs/mean_abs/max_rel/mean_rel",
             **fields, "max_rel_tol": INT8_TOL[0],
-            "mean_rel_tol": INT8_TOL[1],
+            "mean_rel_tol": INT8_TOL[1], "dh0_tol": DH0_TOL,
             "ints_fwd_differ_grad_share": _check_ints(what, r),
             "rerun": "bitwise", "next_step_fwd_share_moved":
                 f"{r['moved']:.3f}", **_log_ab(r)}
@@ -3567,10 +3704,11 @@ def _log_numerics(name, family, hw, no, r) -> None:
         raise AssertionError(f"K3 {name}: two runs differ")
     fields = {n: _check_rel(f"K3 {name} {n}", r[n], INT8_TOL)
               for n in ("loss",) + INT8_GRADS}
+    fields["dh0"] = _check_dh0(f"K3 {name}", r)
     log("kernel_loss_numerics", mode=name, family=family, B=BATCH, HW=hw,
         H=P_HIDDEN, No=no, dtype="bfloat16",
         errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
-        max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+        max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1], dh0_tol=DH0_TOL,
         ints_fwd_differ_grad_share=_check_ints(f"K3 {name}", r),
         kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
         bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
@@ -3598,6 +3736,8 @@ def k8_case(torch, mode, side, no, dtype, seed, timed) -> dict:
         want = lt.loss_int8_t_reference(*args, mode)
         out["same"] = all(torch.equal(u, v) for u, v in zip(got, again))
         out["loss"] = rel_errors(got[0][:, 0, 3], want[0][:, 0, 3])
+        # dfoldT's three gradient columns on their own scale
+        out["dh0"] = rel_errors(got[0][..., :3], want[0][..., :3])
         for name, u, v in zip(INT8_GRADS, got, want):
             out[name] = rel_errors(u, v)
         del got, again, want
@@ -3626,11 +3766,13 @@ def phase_loss_t(torch) -> dict:
             raise AssertionError(f"K8 {mode} {side}: two runs differ")
         fields = {n: _check_rel(f"K8 {mode} {side}px {n}", r[n], INT8_TOL)
                   for n in ("loss",) + INT8_GRADS}
+        fields["dh0"] = _check_dh0(f"K8 {mode} {side}px", r)
         log("kernel_loss_t", mode=mode, B=BATCH, HW=side * side,
             group=1024 if side == 64 else side * side, H=P_HIDDEN, No=no,
             dtype="bfloat16", targets="float32",
             errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
             max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+            dh0_tol=DH0_TOL,
             kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
         res[mode, side] = r
@@ -3743,14 +3885,19 @@ def phase_limits_numerics(torch) -> None:
     (-DSVT_A1Q_TILE_SCALE=1); they place INT8_TOL and SR_INT_SHARE for K3's
     modes, its levers and K8.  SR's readings (SR_LIMIT_CASES, the cluster
     and the block passes): the sound build must hold them, and each SR copy
-    must fail some on the cluster passes."""
+    must fail some on the cluster passes.  dh0 is read everywhere (within
+    DH0_TOL in the sound build), and the block passes' dh0 copy
+    (DH0_FAULTS) must be refused by it alone on the modes, levers and K8
+    (``dh0_refusals``, one seed)."""
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
     copies = SR_FAULTS + (("-DSVT_T_DB1_PREROUND=1",),
                           ("-DSVT_PADE_EXACT=1",),
                           ("-DSVT_A1Q_TILE_SCALE=1",))
-    build_k3_copies(copies)
+    dh0_copies = tuple(d for d, (_, run) in DH0_FAULTS.items()
+                       if run == "numerics")
+    build_k3_copies(copies + dh0_copies)
     for defines in ((),) + copies:
         lib = k3_library(defines)
         d8._lib = l8._lib = (lambda lib=lib: lib)
@@ -3763,6 +3910,8 @@ def phase_limits_numerics(torch) -> None:
                 for n in ("loss",) + INT8_GRADS:
                     worst["K3_f", name] = _wmax(
                         worst.get(("K3_f", name), (0, 0)), r[n][2:])
+                worst["K3_dh0_f", name] = _wmax(
+                    worst.get(("K3_dh0_f", name), (0, 0)), r["dh0"][2:])
                 worst["K3_f_ints", name] = _wmax(
                     worst.get(("K3_f_ints", name), (0, 0)), r["ints"])
             for name, kw in LEVER_MODES:
@@ -3771,6 +3920,8 @@ def phase_limits_numerics(torch) -> None:
                 for n in ("loss",) + INT8_GRADS:
                     worst["K3_g", name] = _wmax(
                         worst.get(("K3_g", name), (0, 0)), r[n][2:])
+                worst["K3_dh0_g", name] = _wmax(
+                    worst.get(("K3_dh0_g", name), (0, 0)), r["dh0"][2:])
                 worst["K3_g_ints", name] = _wmax(
                     worst.get(("K3_g_ints", name), (0, 0)), r["ints"])
             for mode, side, no in K8_CASES:
@@ -3780,12 +3931,19 @@ def phase_limits_numerics(torch) -> None:
                     worst[k] = _wmax(worst.get(k, (0, 0)), r[n][2:])
                 worst[k + ("db1",)] = _wmax(worst.get(k + ("db1",), (0, 0)),
                                             r["db1"][2:])
+                worst["K8_dh0", k[1]] = _wmax(
+                    worst.get(("K8_dh0", k[1]), (0, 0)), r["dh0"][2:])
             torch.cuda.empty_cache()
         log("limits", build=" ".join(defines) or "sound",
             **{"/".join(map(str, k)): f"{a:.3e}/{m:.3e}"
                for k, (a, m) in sorted(worst.items())})
         sr_refusals(defines, worst)
-    d8._lib = l8._lib = (lambda: k3_library(()))
+        dh0 = {k: v for k, v in worst.items() if "dh0" in k[0]}
+        if not defines and not all(a <= DH0_TOL[0] and m <= DH0_TOL[1]
+                                   for a, m in dh0.values()):
+            raise AssertionError(f"--limits numerics: the sound build's dh0 "
+                                 f"is outside DH0_TOL: {dh0}")
+    dh0_refusals(torch, "numerics")
 
 
 # ---------------------------------------------------------------------------
@@ -4533,6 +4691,42 @@ def _check_k3_wide(what, r) -> str:
             + f" dh0={r['dh0'][2]:.2e}/{r['dh0'][3]:.2e}")
 
 
+def _check_k45_wide(h: int, t) -> dict:
+    """A K4/K5 reading at width ``h`` past 512 (``int8_tail_case``): the
+    cluster passes' route, y, y without a1 and a1 within INT8_Y_TOL and
+    INT8_A1_TOL, both K5 variants within INT8_TOL, two runs of each bit
+    for bit; against the block passes, which differ from them only in the
+    order of the f32 sums (the head's, the column sums'), y and a1 within
+    the same limits and K5 within K45W_BLOCK_TOL.  Returns the log fields
+    of each K5 variant (max_rel/mean_rel) and "vs_block", the worst
+    against the block passes."""
+    if t["route"] != "sm90" or t["route_alone"] != "sm90":
+        raise AssertionError(f"K4/K5 H={h}: route {t['route']}, K4 alone "
+                             f"{t['route_alone']}")
+    _check_abs(f"K4 H={h} y", t["y"], INT8_Y_TOL)
+    _check_abs(f"K4 H={h} y without a1", t["y_no_a1"], INT8_Y_TOL)
+    _check_abs(f"K4 H={h} a1", t["a1"], INT8_A1_TOL)
+    v = t["vs_block"]
+    _check_abs(f"K4 H={h} y, cluster vs block passes", v["y"], INT8_Y_TOL)
+    _check_abs(f"K4 H={h} a1, cluster vs block passes", v["a1"],
+               INT8_A1_TOL)
+    out = {}
+    worst = (0.0, 0.0)
+    for variant in ("residual", "recompute"):
+        if not t[variant, "same"]:
+            raise AssertionError(f"K5 H={h} {variant}: two runs differ")
+        out[variant] = _check_int8_all(
+            f"K5 H={h} {variant}", {n: t[variant, n] for n in INT8_GRADS},
+            INT8_GRADS)
+        for n in INT8_GRADS:
+            _check_rel(f"K5 H={h} {variant} {n}, cluster vs block passes",
+                       v[variant, n], K45W_BLOCK_TOL)
+            worst = _wmax(worst, v[variant, n][2:])
+    out["vs_block"] = (f"y {v['y'][0]:.3e} a1 {v['a1'][0]:.3e} "
+                       f"k5 {worst[0]:.2e}/{worst[1]:.2e}")
+    return out
+
+
 def _turns_field(turns: dict) -> str:
     return " ".join(f"{k}:{t:.4f}" for k in ("tile", "sm90")
                     for t in turns[k])
@@ -4621,13 +4815,8 @@ def phase_kernel_wide(torch) -> dict:
                         k: r[k] for k in ("ms", "ms_block", "route", "bound")
                         if k in r}
             t = int8_tail_case(torch, b, "bfloat16", SEED, timed)
-            _check_abs(f"K4 H={h} y", t["y"], INT8_Y_TOL)
-            _check_abs(f"K4 H={h} y without a1", t["y_no_a1"], INT8_Y_TOL)
-            _check_abs(f"K4 H={h} a1", t["a1"], INT8_A1_TOL)
-            k5 = {v: _check_int8_all(f"K5 H={h} {v}",
-                                     {n: t[v, n] for n in INT8_GRADS},
-                                     INT8_GRADS)
-                  for v in ("residual", "recompute")}
+            k45 = _check_k45_wide(h, t)
+            k5 = {v: k45[v] for v in ("residual", "recompute")}
             k8 = k8_case(torch, "i4", IMAGE[0], CHANNELS, "bfloat16", SEED,
                          timed)
             k8e = _check_int8_all(f"K8 H={h}", k8, ("loss",) + INT8_GRADS)
@@ -4651,18 +4840,29 @@ def phase_kernel_wide(torch) -> dict:
                              k3_bound_ms=f"{lc['bound'][0]:.4f}",
                              k3_share=f"{lc['bound'][0] / lc['ms']:.3f}",
                              **fam_ms,
+                             k45_route=t["route"],
                              k4_ms=f"{t['fwd_ms']:.4f}",
+                             k4_block_ms=f"{t['fwd_ms_block']:.4f}",
+                             k4_turns=t["fwd_turns"],
                              k4_plain_ms=f"{t['fwd_plain_ms']:.4f}",
                              k4_a1_ms=f"{t['fwd_a1_ms']:.4f}",
+                             k4_a1_block_ms=f"{t['fwd_a1_ms_block']:.4f}",
+                             k4_a1_turns=t["fwd_a1_turns"],
                              k5_ms=f"{t['residual_ms']:.4f}",
+                             k5_block_ms=f"{t['residual_ms_block']:.4f}",
+                             k5_turns=t["residual_turns"],
                              k5_plain_ms=f"{t['residual_plain_ms']:.4f}",
                              k5_recompute_ms=f"{t['recompute_ms']:.4f}",
+                             k5_recompute_block_ms=(
+                                 f"{t['recompute_ms_block']:.4f}"),
+                             k5_recompute_turns=t["recompute_turns"],
                              k8_ms=f"{k8['ms']:.4f}",
                              k8_plain_ms=f"{k8['plain_ms']:.4f}")
             log("kernel_wide", kernel="K3/K4/K5/K8", H=h, B=b,
                 dtype="bfloat16", errors="max_rel/mean_rel",
                 **{f"k3_{k}": v for k, v in fam.items()},
                 k4_y_abs=f"{t['y'][0]:.3e}", k4_a1_abs=f"{t['a1'][0]:.3e}",
+                k45_vs_block=k45["vs_block"],
                 k5_residual=k5["residual"], k5_recompute=k5["recompute"],
                 k8_i4=k8e, **times)
             res["k3", h], res["k45", h], res["k8", h] = lc, t, k8
@@ -4744,11 +4944,12 @@ def phase_train_wide(torch) -> dict:
     """The galaxy model with a decoder WIDE_H wide (twice the default) at
     B=100 on N_WIDE blob images: two float epochs (K1 with activations and
     K2 in every step, Adam's step kernel) and two int8 epochs with bf16
-    compute (K3 in the full steps, on the wide cluster passes; K4/K5 in
-    the tails, K4 in the evaluations), each with its launch counts, an
-    ELBO that rises, and one step through the kernels against the plain
-    versions; then one int8 epoch a turn (AB_K3) with K3 on each design:
-    the mean step's ms ("step_ms", "step_ms_block")."""
+    compute (K3 in the full steps, K4/K5 in the tails, K4 in the
+    evaluations, all on the wide cluster passes), each with its launch
+    counts, an ELBO that rises, and one step through the kernels against
+    the plain versions; then one int8 epoch a turn (AB_K3) with K3 on each
+    design: the mean step's ms ("step_ms", "step_ms_block"); then the int8
+    CTF step (``phase_train_wide_ctf``, "ctf")."""
     from spatialvae_torch.kernels import adam as ka
     from spatialvae_torch.kernels import fused_decoder as fd
     from spatialvae_torch.train.trainer import TrainConfig, Trainer
@@ -4823,12 +5024,11 @@ def phase_train_wide(torch) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _int8_launches()
-        # K3 on the cluster passes past H = 512 (the default numerics: the
-        # wide unit, one workspace chunk a step); K4/K5 past 512 on the
-        # block passes
+        # K3, K4 and K5 on the cluster passes past H = 512 (the wide
+        # units, one workspace chunk a step)
         want = {"k3": k3_launches(full, "sm90"),
                 "k8": dict.fromkeys(("fwd", "grad", "dw", "sum"), 0),
-                "k45": k45_launches(tails, route="block"),
+                "k45": k45_launches(tails, route="sm90"),
                 "k12": 0,
                 "adam": int8_adam_launches(trainer, full + tails,
                                            seeded=True)}
@@ -4877,7 +5077,130 @@ def phase_train_wide(torch) -> dict:
         out["int8"] = counts
         out["eval_k4"] = evals
         del trainer, data
+        torch.cuda.empty_cache()
+        out["ctf"] = phase_train_wide_ctf(torch)
     torch.cuda.empty_cache()
+    return out
+
+
+# [train_wide]'s int8 CTF step: the particles CLI's model (40x40, z=2, a
+# 500-wide encoder, colored noise: `--ctf-train ... --fit-noise --mask
+# --int8-decoder`) with a WIDE_H-wide decoder, three full batches an epoch,
+# timed over three epochs a turn; its K4/K5 kernels on each design
+# (kernel-name substrings)
+CTF_WIDE_N = 3 * BATCH
+CTF_WIDE_TURN_EPOCHS = 3
+CTF_K45_KERNELS = {"sm90": ("int8_fwd90w", "int8_scale90w", "int8_grad90w",
+                            "grouped_dw90w"),
+                   "block": ("int8_fwd_kernel", "int8_bwd_scale",
+                             "int8_bwd_grad", "grouped_dw_kernel")}
+
+
+def ctf_wide_trainer(torch):
+    """The particles CLI's int8 model at WIDE_H with a per-image CTF
+    (``ctf_table``'s microscope, the disc mask, the colored likelihood), in
+    float32 compute (a CTF refuses bf16: its FFT takes float32, and the JAX
+    trainer refuses the same), and its CTF_WIDE_N particles with their CTF
+    kernels."""
+    import io
+
+    from spatialvae_torch.config import (
+        InferenceConfig,
+        SpatialGeneratorConfig,
+    )
+    from spatialvae_torch.ctf import ctf_filter, parse_ctf
+    from spatialvae_torch.data.dataset import ArrayDataset
+    from spatialvae_torch.objectives import ElboConfig
+    from spatialvae_torch.train.trainer import TrainConfig, Trainer
+    from spatialvae_torch.transforms.coords import coord_grid
+
+    side = CLI_SIDE
+    rng = np.random.default_rng(SEED + 60)
+    y = particle_stack(CTF_WIDE_N, rng).reshape(CTF_WIDE_N, side * side)
+    ctf = ctf_filter(parse_ctf(io.StringIO(ctf_table(CTF_WIDE_N, rng))),
+                     side - 1, side - 1)
+    q_cfg = InferenceConfig(n=side * side, latent_dim=2 + 3,
+                            hidden_dim=CLI_HIDDEN, num_layers=2)
+    p_cfg = SpatialGeneratorConfig(latent_dim=2, hidden_dim=WIDE_H, n_out=2,
+                                   num_layers=2)
+    ecfg = ElboConfig(rotate=True, translate=True, theta_prior=math.pi,
+                      likelihood="colored", channels=1, fused=True,
+                      int8=True)
+    tcfg = TrainConfig(minibatch_size=BATCH, learning_rate=1e-4,
+                       num_epochs=1, seed=SEED, compute_dtype="float32",
+                       image_shape=(side, side), channels=1)
+    trainer = Trainer(q_cfg, p_cfg, ecfg, tcfg,
+                      coord_grid(side, side, device=DEVICE),
+                      mask=disc_mask(torch, (side, side)), device=DEVICE)
+    return trainer, ArrayDataset.from_numpy(y, ctf, device=DEVICE)
+
+
+def phase_train_wide_ctf(torch) -> dict:
+    """``[train_wide]``'s int8 CTF step (``ctf_wide_trainer``): K4 with a1
+    and K5 from the residual in every step, no K3 (a batch with CTF never
+    takes the loss kernel), all on the wide cluster passes (1,600 pixels
+    padded to 1,792, groups of 256); one epoch with its launch counts and a
+    finite ELBO, then CTF_WIDE_TURN_EPOCHS epochs a turn (AB_I8) with K4/K5
+    on each design: the mean step's ms ("step_ms_ctf", "step_ms_ctf_block");
+    and each design's K4/K5 device ms a step from traced epochs, beside
+    the step's host-clock ms (the step is host-bound where they differ).
+    First the step's own K4/K5 calls (f32 weights, No = 2, the 1,600
+    pixels padded to 1,792) against their plain versions and the block
+    passes (``_check_k45_wide``)."""
+    with sized(WIDE_H, BATCH):
+        t = int8_tail_case(torch, BATCH, "float32", SEED, False,
+                           hw=CLI_SIDE * CLI_SIDE, no=2)
+    k45 = _check_k45_wide(WIDE_H, t)
+    torch.cuda.empty_cache()
+    trainer, data = ctf_wide_trainer(torch)
+    steps = CTF_WIDE_N // BATCH
+    _reset_all_launches()
+    row = trainer.train_epoch(data, 0, progress=False)
+    torch.cuda.synchronize()
+    got = _int8_launches()
+    want = {"k3": k3_launches(0, None),
+            "k8": dict.fromkeys(("fwd", "grad", "dw", "sum"), 0),
+            "k45": k45_launches(steps, route="sm90"), "k12": 0}
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"train_wide CTF launches {got}, expected "
+                             f"{want}")
+    if not np.isfinite(row).all():
+        raise AssertionError(f"train_wide CTF: epoch {row}")
+    turns = {}
+    for i, passes in enumerate(AB_I8):
+        with on_int8_passes(passes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for e in range(CTF_WIDE_TURN_EPOCHS):
+                trainer.train_epoch(data, 1 + e, progress=False)
+            torch.cuda.synchronize()
+        turns.setdefault(passes, []).append(
+            (time.perf_counter() - t0) * 1e3
+            / (CTF_WIDE_TURN_EPOCHS * steps))
+    step_ms = {p: statistics.median(t) for p, t in turns.items()}
+    device = {}
+    for passes, keys in (("sm90", CTF_K45_KERNELS["sm90"]),
+                         ("block", CTF_K45_KERNELS["block"])):
+        with on_int8_passes(passes):
+            ms = kernel_device_ms(torch, functools.partial(
+                trainer.train_epoch, data, 1, progress=False), keys)
+        device[passes] = sum(ms.values()) / steps
+    log("train_wide", path="int8_ctf", H=WIDE_H, B=BATCH, image="40x40",
+        pixels="1600->1792", likelihood="colored", ctf="per image",
+        mask=True, compute="float32", steps=steps,
+        elbo=f"{row[0]:.3f}", launches=json.dumps(got["k45"],
+                                                   separators=(",", ":")),
+        k4_y_abs=f"{t['y'][0]:.3e}", k4_a1_abs=f"{t['a1'][0]:.3e}",
+        k5_residual=k45["residual"], k5_recompute=k45["recompute"],
+        k45_vs_block=k45["vs_block"], step_ms_ctf=f"{step_ms['sm90']:.3f}",
+        step_ms_ctf_block=f"{step_ms['block']:.3f}",
+        k45_device_ms_ctf=f"{device['sm90']:.3f}",
+        k45_device_ms_ctf_block=f"{device['block']:.3f}",
+        step_turns=" ".join(f"{p}:{t:.3f}" for p in ("block", "sm90")
+                            for t in turns[p]))
+    out = {"k45": got["k45"], "steps": steps, "step_ms": step_ms,
+           "device_ms": device}
+    del trainer, data
     return out
 
 
@@ -5057,12 +5380,14 @@ def phase_loss_levers(torch) -> dict:
             raise AssertionError(f"K3 {name}: two runs differ")
         fields = {n: _check_rel(f"K3 {name} {n}", r[n], INT8_TOL)
                   for n in ("loss",) + INT8_GRADS}
+        fields["dh0"] = _check_dh0(f"K3 {name}", r)
         r["bound"] = k3_bound(BATCH, hw, P_HIDDEN, CHANNELS, 2, 1, False,
                               False)
         log("kernel_loss_levers", lever=name, B=BATCH, HW=hw, H=P_HIDDEN,
             No=CHANNELS, dtype="bfloat16",
             errors="max_abs/mean_abs/max_rel/mean_rel", **fields,
             max_rel_tol=INT8_TOL[0], mean_rel_tol=INT8_TOL[1],
+            dh0_tol=DH0_TOL,
             ints_fwd_differ_grad_share=_check_ints(f"K3 {name}", r),
             kernel_ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound'][0]:.4f}", bound_by=r["bound"][1])
@@ -5163,7 +5488,7 @@ def phase_limits_wide(torch) -> None:
 
 
 def wide_rows(wide, tw, slice_launches, levers, lever_counts,
-              wide_ab, wide_ab_k3) -> list:
+              wide_ab, wide_ab_k3, wide_ab_k45) -> list:
     """The JSON records of the wide path: K1 (without and with
     activations) and K2's whole backward at WIDE_H on the deep sm90
     kernels (B=100; launches: [train_wide] and [slice_wide]), the tile
@@ -5171,9 +5496,12 @@ def wide_rows(wide, tw, slice_launches, levers, lever_counts,
     ``[kernel_wide]``, ``wide_ab``), K3 on the wide cluster passes
     (launches: [train_wide]) and its block passes as their yardstick
     (launches: their checks and turns in ``[kernel_wide]`` and
-    ``[k3_wide_turns]``, ``wide_ab_k3``), K4 and K5's whole backward at
-    WIDE_H, and K3 under the levers (the a1q_db1_qi call; launches:
-    [train_int8_levers])."""
+    ``[k3_wide_turns]``, ``wide_ab_k3``), K4 (launches: its evaluation
+    batches, the odd tails' and the CTF steps' K4 with a1) and K5's whole
+    backward (the tails and CTF steps) at WIDE_H on the wide cluster
+    passes, and their block passes as the yardstick (launches: their
+    checks and turns in ``[kernel_wide]``, ``wide_ab_k45``), and K3 under
+    the levers (the a1q_db1_qi call; launches: [train_int8_levers])."""
     b, hw, h, no = BATCH, IMAGE[0] * IMAGE[1], WIDE_H, CHANNELS
     kp = -(-h // 64) * 64
     f4 = 4
@@ -5189,6 +5517,12 @@ def wide_rows(wide, tw, slice_launches, levers, lever_counts,
     worst = lambda r, names: max(r[n][0] for n in names)
     lv = levers["a1q_db1_qi"]
     bwd_bound = (bd["chain"][0] + bd["dw"][0] + bd["sums"][0], "operations")
+    k4_bound = bound(fold_io + i8_w + b * no * hw * f4, (gemm, PEAK_INT8),
+                     head)
+    k5_bound = bound(fold_io + i8_w + b * hw * h * 2 + 2 * b * no * hw * f4
+                     + ws + parts, (2 * gemm, PEAK_INT8),
+                     (2 * head[0], PEAK_FP32))
+    i8w, ctf = tw["int8"]["k45"], tw["ctf"]["k45"]
     return [
         ("fused_decoder_fwd_wide_sm90", DEC90_DEEP_SOURCE, FWD_REPLACES,
          slice_launches, k12["fwd"]["y"][0], k12["fwd"]["ms"],
@@ -5217,17 +5551,20 @@ def wide_rows(wide, tw, slice_launches, levers, lever_counts,
         ("int8_loss_wide", LOSS_WIDE_SOURCE, K3_REPLACES, 0,
          worst(lc["block"], ("loss",) + INT8_GRADS), lc["ms_block"],
          lc["plain_ms"], lc["bound"], None, wide_ab_k3["fwd"]),
-        ("int8_fwd_wide", INT8_SOURCE, K4_REPLACES, tw["eval_k4"],
-         t["y_no_a1"][0], t["fwd_ms"], t["fwd_plain_ms"],
-         bound(fold_io + i8_w + b * no * hw * f4, (gemm, PEAK_INT8), head),
-         None),
-        ("int8_bwd_wide", INT8_SOURCE, K5_REPLACES,
-         tw["int8"]["k45"]["bwd_grad"],
+        ("int8_fwd_wide_sm90", INT8_90_WIDE_SOURCE, K4_REPLACES,
+         tw["eval_k4"] + i8w["fwd_acts_sm90"] + ctf["fwd_acts_sm90"],
+         t["y_no_a1"][0], t["fwd_ms"], t["fwd_plain_ms"], k4_bound, None),
+        ("int8_bwd_wide_sm90", INT8_90_WIDE_SOURCE, K5_REPLACES,
+         i8w["bwd_grad_sm90"] + ctf["bwd_grad_sm90"],
          max(t["residual", n][0] for n in INT8_GRADS), t["residual_ms"],
-         t["residual_plain_ms"],
-         bound(fold_io + i8_w + b * hw * h * 2 + 2 * b * no * hw * f4 + ws
-               + parts, (2 * gemm, PEAK_INT8), (2 * head[0], PEAK_FP32)),
-         None),
+         t["residual_plain_ms"], k5_bound, None),
+        ("int8_fwd_wide", INT8_SOURCE, K4_REPLACES, 0, t["block_y"][0],
+         t["fwd_ms_block"], t["fwd_plain_ms"], k4_bound, None,
+         wide_ab_k45["fwd"] + wide_ab_k45["fwd_acts"]),
+        ("int8_bwd_wide", INT8_SOURCE, K5_REPLACES, 0,
+         max(t["block", "residual", n][0] for n in INT8_GRADS),
+         t["residual_ms_block"], t["residual_plain_ms"], k5_bound, None,
+         wide_ab_k45["bwd_grad"]),
         ("int8_loss_levers", LEVERS_SOURCE, K3_REPLACES,
          lever_counts["counts"]["k3"]["fwd"],
          max(lv[n][0] for n in INT8_GRADS), lv["ms"], lv["plain_ms"],
@@ -6303,18 +6640,20 @@ def default_width_times() -> dict:
     return out
 
 
-# the translation units this slice leaves as they were: K1/K2's tile
-# kernels and their default-shape cluster kernels (whose shared pieces
-# moved to fused_decoder_sm90.cuh, beside the deep kernels' own unit),
-# K4/K5 (and T1's K5 modes), K3's block, lever and wide instantiations and
-# its H <= 512 cluster passes, default and SR (the wide cluster passes have
-# a unit of their own, fused_loss_int8_sm90_wide.cu)
+# the translation units whose code stays as it was with every test-build
+# switch at 0: K1/K2's tile kernels and their default-shape cluster kernels
+# (the deep kernels have a unit of their own), K4/K5's block passes (and
+# T1's K5 modes) and their H <= 512 cluster passes (the wide ones have a
+# unit of their own, fused_decoder_int8_sm90_wide.cu), K3's block, lever
+# and wide instantiations and its cluster passes, default, SR and wide
+# (whose headers carry the dh0 copies' switches)
 SASS_UNITS = ("fused_decoder_fwd.cu", "fused_decoder_bwd.cu",
               "fused_decoder_sm90.cu",
               "fused_decoder_int8.cu", "kernel_bench_bwd.cu",
               "fused_loss_int8.cu", "fused_loss_int8_levers.cu",
               "fused_loss_int8_wide.cu", "fused_loss_int8_sm90.cu",
-              "fused_loss_int8_sm90_sr.cu")
+              "fused_loss_int8_sm90_sr.cu", "fused_loss_int8_sm90_wide.cu",
+              "fused_decoder_int8_sm90.cu")
 
 
 # the cases of ``--limits dec90``: galaxy f32 and bf16, a residual add, at
@@ -6397,48 +6736,80 @@ def phase_limits_dec90(torch) -> None:
 
 
 # `--limits int8_90`: the sound build and copies with one step of the
-# cluster passes broken, built together
+# cluster passes broken, built together: (name, switches, units) - a whole
+# library, or (past 512) the wide unit alone, whose svt_int8_90w_* entry
+# points stand in for the library's
+I8_90_WIDE_UNITS = ("fused_decoder_int8_sm90_wide.cu",)
 I8_90_FAULTS = (
-    ("sound", ()),
-    ("K5 scale per 64-pixel block", ("-DSVT_INT8_BLOCK_SCALE=1",)),
+    ("sound", (), None),
+    ("K5 scale per 64-pixel block", ("-DSVT_INT8_BLOCK_SCALE=1",), None),
     ("one multicast quarter from the wrong slab",
-     ("-DSVT_I8_90_WRONG_QUARTER=1",)),
-    ("a1 emitted without its bf16 rounding", ("-DSVT_I8_90_A1_RTZ=1",)),
+     ("-DSVT_I8_90_WRONG_QUARTER=1",), None),
+    ("a1 emitted without its bf16 rounding", ("-DSVT_I8_90_A1_RTZ=1",),
+     None),
+    ("the last chunk's head partial dropped", ("-DSVT_I8W_DROP_HEAD=1",),
+     I8_90_WIDE_UNITS),
+    ("the K-major dh1q copy read one block off", ("-DSVT_I8W_QK_OFF=1",),
+     I8_90_WIDE_UNITS),
+    ("dh0 from a0q/127, not the f32 a0", ("-DSVT_I8W_DH0_AQ=1",),
+     I8_90_WIDE_UNITS),
 )
+# its wide readings: (H, weight dtype, B) on the wide cluster passes, two
+# whole chunks and three with the last ragged
+I8_90_WIDE_CASES = [(WIDE_H, "bfloat16", 8), (1030, "float32", 8)]
 
 
 def phase_limits_int8_90(torch) -> None:
     """``--limits int8_90``: K4 and K5 on the cluster passes against their
     plain versions, at INT8_TAIL_CASES (B=100 and the odd tail, f32 and
-    bf16, both K5 variants), for the sound library and for each copy of
+    bf16, both K5 variants) and past 512 at I8_90_WIDE_CASES (the wide
+    unit, "wide_*"), for the sound library and for each copy of
     I8_90_FAULTS: y and a1 by absolute error (max/mean), each K5 variant's
-    worst output by error relative to max|plain| (max/mean), and whether
-    they stay within INT8_Y_TOL, INT8_A1_TOL and INT8_TOL.  The sound build
-    must, and every faulty copy must not."""
+    worst output by error relative to max|plain| (max/mean), past 512 also
+    K5's worst against the block passes ("wide_vs_block", relative to
+    max|block|), and whether they stay within INT8_Y_TOL, INT8_A1_TOL,
+    INT8_TOL and K45W_BLOCK_TOL.  The sound build must, and every faulty
+    copy must not."""
     from concurrent.futures import ThreadPoolExecutor
 
     from spatialvae_torch.kernels import _build
     from spatialvae_torch.kernels import fused_decoder_int8 as d8
 
     with ThreadPoolExecutor(len(I8_90_FAULTS)) as ex:
-        list(ex.map(lambda f: _build.build(f[1]), I8_90_FAULTS))
-    for build, defines in I8_90_FAULTS:
-        lib = _build.load_library(defines)
+        list(ex.map(lambda f: _build.build(f[1], f[2]), I8_90_FAULTS))
+    sound = _build.load_library()
+    for build, defines, units in I8_90_FAULTS:
+        lib = (_build.load_library(defines) if units is None else
+               _with_timing_copy(sound, _build.load_library(defines, units),
+                                 "svt_int8_90w_"))
         d8._lib = (lambda lib=lib: lib)
         worst = {}
-        for b, dtype in INT8_TAIL_CASES:
-            r = int8_tail_case(torch, b, dtype, SEED, timed=False)
+        cases = [(b, dtype, P_HIDDEN, "") for b, dtype in INT8_TAIL_CASES]
+        cases += [(b, dtype, h, "wide_") for h, dtype, b in I8_90_WIDE_CASES]
+        for b, dtype, h, kind in cases:
+            with sized(h, b):
+                r = int8_tail_case(torch, b, dtype, SEED, timed=False)
             for k in ("y", "y_no_a1", "a1"):
-                worst[k] = _wmax(worst.get(k, (0, 0)), r[k][:2])
+                worst[kind + k] = _wmax(worst.get(kind + k, (0, 0)),
+                                        r[k][:2])
             for v in ("residual", "recompute"):
                 for n in INT8_GRADS:
-                    worst[v] = _wmax(worst.get(v, (0, 0)), r[v, n][2:])
+                    worst[kind + v] = _wmax(worst.get(kind + v, (0, 0)),
+                                            r[v, n][2:])
+                    if kind:
+                        worst["wide_vs_block"] = _wmax(
+                            worst.get("wide_vs_block", (0, 0)),
+                            r["vs_block"][v, n][2:])
             torch.cuda.empty_cache()
-        within = all(worst[k][0] <= tol[0] and worst[k][1] <= tol[1]
+        within = all(worst[kind + k][0] <= tol[0]
+                     and worst[kind + k][1] <= tol[1]
                      for k, tol in (("y", INT8_Y_TOL), ("y_no_a1", INT8_Y_TOL),
                                     ("a1", INT8_A1_TOL),
                                     ("residual", INT8_TOL),
-                                    ("recompute", INT8_TOL)))
+                                    ("recompute", INT8_TOL))
+                     for kind in ("", "wide_"))
+        within &= all(a <= t for a, t in zip(worst["wide_vs_block"],
+                                             K45W_BLOCK_TOL))
         log("limits_int8_90", build=build, defines=" ".join(defines) or "-",
             **{k: f"{a:.3e}/{m:.3e}" for k, (a, m) in worst.items()},
             within_limits=within)
@@ -6611,6 +6982,61 @@ def phase_sweep_k3(torch) -> None:
                     bound_ms=f"{bd[0]:.4f}",
                     share=f"{bd[0] / t['sm90'][0]:.3f}")
                 del fold, coords, ws, k, run
+                torch.cuda.empty_cache()
+
+
+# --sweep k45's widths: K3's sweep's
+K45_SWEEP_WIDTHS = K3_SWEEP_WIDTHS
+
+
+def phase_sweep_k45(torch) -> None:
+    """``--sweep k45``: K4 (without and with a1) and K5 (both variants) on
+    the wide cluster passes and on the block passes in turns (AB_I8, 3 runs
+    a turn) at every width of K45_SWEEP_WIDTHS, the galaxy shape, bf16 and
+    f32 weights, B=100 (24 above 2,048): each call's cluster and block ms
+    and their ratio; ``int8_route`` sends every one of these calls to the
+    cluster passes, so a ratio above 1 is a width the table should keep on
+    the block passes."""
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    hw = IMAGE[0] * IMAGE[1]
+    for h in K45_SWEEP_WIDTHS:
+        b = 24 if h > 2048 else BATCH
+        for dtype in ("bfloat16", "float32"):
+            with sized(h, b):
+                gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+                fold, coords, ws = _int8_inputs(torch, b, dtype, gen)
+                w = d8.Int8Weights(*ws)
+                g = torch.randn((b, CHANNELS, hw), generator=gen,
+                                device=DEVICE)
+                with torch.no_grad():
+                    y, a1 = d8.run_int8_tail(fold, coords, w, True)
+                    calls = {
+                        "k4": functools.partial(d8.run_int8_tail, fold,
+                                                coords, w),
+                        "k4_a1": functools.partial(d8.run_int8_tail, fold,
+                                                   coords, w, True),
+                        "k5_residual": functools.partial(
+                            d8.run_int8_tail_backward, fold, coords, w, a1,
+                            y, g),
+                        "k5_recompute": functools.partial(
+                            d8.run_int8_tail_backward, fold, coords, w,
+                            None, y, g)}
+                    fields = {}
+                    for name, run in calls.items():
+                        t = in_turns(torch, {p: functools.partial(
+                            run, passes=p) for p in ("sm90", "block")}, 3,
+                            AB_I8)
+                        fields[name] = (f"{t['sm90'][0]:.4f}/"
+                                        f"{t['block'][0]:.4f}")
+                        fields[name + "_ratio"] = (
+                            f"{t['sm90'][0] / t['block'][0]:.3f}")
+                route = {"k4": d8.int8_route(hw, h, k4_alone_f32=(
+                    dtype == "float32")), "k4_a1/k5": d8.int8_route(hw, h)}
+                log("sweep_k45", H=h, B=b, dtype=dtype,
+                    route=json.dumps(route, separators=(",", ":")),
+                    times="sm90/block", **fields)
+                del fold, coords, ws, w, g, y, a1, calls
                 torch.cuda.empty_cache()
 
 
@@ -8654,6 +9080,9 @@ def main() -> int:
     if sys.argv[1:] == ["--sweep", "k3"]:
         phase_sweep_k3(torch)
         return 0
+    if sys.argv[1:] == ["--sweep", "k45"]:
+        phase_sweep_k45(torch)
+        return 0
     if sys.argv[1:] == ["--phase", "cli_particles"]:
         with tempfile.TemporaryDirectory() as tmpdir:
             phase_cli_particles(torch, tmpdir, card)
@@ -8678,6 +9107,7 @@ def main() -> int:
     ptxas_i8 = start_ptxas_report(INT8_90_SOURCE)
     ptxas_i8p = start_ptxas_report(INT8_90_SOURCE,
                                    I8_90_TIMING["pingpong"])
+    ptxas_i8w = start_ptxas_report(INT8_90_WIDE_SOURCE)
     i8_timing = start_int8_timing_builds()
     from spatialvae_torch.kernels import fused_decoder as fd
 
@@ -8688,7 +9118,7 @@ def main() -> int:
     res["k3_sm90"] = phase_k3_sm90(torch, ptxas, ptxas_sr, ptxas_wide)
     res["int8"] = phase_int8_kernels(torch)
     res["int8_sm90"] = phase_int8_sm90(torch, ptxas_i8, ptxas_i8p,
-                                       i8_timing)
+                                       i8_timing, ptxas_i8w)
     res["eval_ab"] = phase_eval_int8_ab(torch)
     res["families"] = phase_loss_families(torch)
     res["sr"] = phase_loss_sr(torch)
@@ -8703,10 +9133,15 @@ def main() -> int:
     res["adam_ab"] = dict(ka.LAUNCHES)
     from spatialvae_torch.kernels import fused_loss_int8 as l8
 
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
     fd.reset_launches()
     l8.reset_launches()
+    d8.reset_launches()
     res["wide"] = phase_kernel_wide(torch)
     res["wide_ab"] = dict(fd.LAUNCHES)
+    # the block passes' K4/K5 launches past 512: their checks and turns
+    res["wide_ab_k45"] = dict(d8.LAUNCHES)
     res["k3_wide_turns"] = phase_k3_wide_turns(torch)
     # the block passes' K3 launches past 512: their checks and turns alone
     res["wide_ab_k3"] = dict(l8.LAUNCHES)
@@ -8739,7 +9174,7 @@ def main() -> int:
                        fam_counts, knobs)
     rows += wide_rows(res["wide"], tw, wide_launches, res["levers"],
                       knobs["train_int8_levers"], res["wide_ab"],
-                      res["wide_ab_k3"])
+                      res["wide_ab_k3"], res["wide_ab_k45"])
     rows += deep_rows(res, bwd, td, deep_launches)
     rows += res["probes"]
     rows += res["kernel_bench"]

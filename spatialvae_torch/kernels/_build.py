@@ -70,6 +70,12 @@ _SIGNATURES = {
     "svt_int8_90_grad": ([_P] * 15 + [_I] * 7 + [_P], _I),
     "svt_int8_90_stash_block": ([], _L),
     "svt_int8_90_max_clusters": ([_I], _I),
+    "svt_int8_90w_fwd": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    "svt_int8_90w_scale": ([_P] * 12 + [_I] * 7 + [_P], _I),
+    "svt_int8_90w_grad": ([_P] * 16 + [_I] * 8 + [_P], _I),
+    "svt_int8_90w_rows": ([_I], _I),
+    "svt_int8_90w_slot_bytes": ([_I], _L),
+    "svt_int8_90w_max_clusters": ([_I], _I),
     "svt_loss_int8_fwd": ([_P] * 14 + [_I] * 10 + [_F, _F, _I, _I, _P],
                           _I),
     "svt_loss_int8_grad": ([_P] * 17 + [_I] * 8 + [_F, _F, _I, _F, _F, _I,

@@ -382,6 +382,12 @@ constexpr int LEVERS = PADE | A1Q | CUT;
 #ifndef SVT_T_DB1_PREROUND
 #define SVT_T_DB1_PREROUND 0
 #endif
+// dh0's (1 - a0^2) from the pixel 8 rows on in the block (-DSVT_K3_DH0_ROW=1),
+// every other output the sound passes': the copy that places dh0's limit
+// (dfold's rows 0-2 on their own scale) in the knob modes and K8.
+#ifndef SVT_K3_DH0_ROW
+#define SVT_K3_DH0_ROW 0
+#endif
 
 __device__ __forceinline__ uint32_t grad_site() {
   return SVT_SR_SAME_SITE ? SITE_FWD : SITE_GRAD;
@@ -849,7 +855,8 @@ loss_grad_kernel(const float* __restrict__ fold,
         for (int mt = 0; mt < MTILES; ++mt) {
           const int p = frag_row(g, mt, c);
           const int pix = p0 + p;
-          const float aqv = float(sm.tile[p * sm.as + i]);
+          const float aqv =
+              float(sm.tile[(SVT_K3_DH0_ROW ? p ^ 8 : p) * sm.as + i]);
           float dh0;
           if (f32epi) {
             const float a0d = __fmul_rn(aqv, inv);

@@ -138,6 +138,19 @@ constexpr uint32_t PAIR = SVT_COLORED90_PAIR_ADJACENT ? 1u : 2u;
 #ifndef SVT_SR90_WS_ROW
 #define SVT_SR90_WS_ROW 0
 #endif
+// Two test builds move dh0 alone, the copies that place its limit (dfold's
+// rows 0-2 on their own scale) on these passes: -DSVT_K3_90_DH0_ROW=1 takes
+// (1 - a0^2) for dh0 from the pixel 8 rows on in the block (rows g and
+// g + 8 swapped) in the default passes, -DSVT_SR90_AQ_OFF=1 reads aq for
+// dh0 from the dW1 workspace one block off in the SR passes (the twin of
+// the wide passes' SVT_K3W_AQ_OFF).  aq's workspace and every other output
+// are the sound passes'.
+#ifndef SVT_K3_90_DH0_ROW
+#define SVT_K3_90_DH0_ROW 0
+#endif
+#ifndef SVT_SR90_AQ_OFF
+#define SVT_SR90_AQ_OFF 0
+#endif
 
 // The counter's row of tile row p (0..63) of a block: p itself (coords
 // order), or in the faulty copy its place in the dW1 workspace's order.
@@ -899,10 +912,14 @@ __device__ __forceinline__ void loss_grad90_body(const LossGradArgs& a,
           r0 = *reinterpret_cast<const uint16_t*>(aq + tile_off(px0, n0));
           r1 = *reinterpret_cast<const uint16_t*>(aq + tile_off(px1, n0));
         } else {
+          const int8_t* src =
+              SVT_SR90_AQ_OFF
+                  ? a.aq_ws + size_t((tb + 1) % int(a.grid)) * WS_BLOCK
+                  : aq_ws;
           const uint16_t v0 = *reinterpret_cast<const uint16_t*>(
-              aq_ws + offset_sw64(n0, 16 * w + 2 * g));
+              src + offset_sw64(n0, 16 * w + 2 * g));
           const uint16_t v1 = *reinterpret_cast<const uint16_t*>(
-              aq_ws + offset_sw64(n0 + 1, 16 * w + 2 * g));
+              src + offset_sw64(n0 + 1, 16 * w + 2 * g));
           r0 = uint16_t((v0 & 0xFF) | ((v1 & 0xFF) << 8));
           r1 = uint16_t((v0 >> 8) | (v1 & 0xFF00));
         }
@@ -918,8 +935,9 @@ __device__ __forceinline__ void loss_grad90_body(const LossGradArgs& a,
             const int i = n0 + e;
             float dh0 = 0.f;
             if (i < H) {
+              const bool hr = CHAIN && SVT_K3_90_DH0_ROW ? !h : h;
               const float aqv =
-                  float(int8_t(((h ? r1 : r0) >> (8 * e)) & 0xFF));
+                  float(int8_t(((hr ? r1 : r0) >> (8 * e)) & 0xFF));
               const float a0d = rb(__fmul_rn(aqv, cinv));
               const float tt = rb(__fsub_rn(1.f, rb(__fmul_rn(a0d, a0d))));
               dh0 = rb(__fmul_rn(rb(float(acc[4 * nt + 2 * h + e])), tt));

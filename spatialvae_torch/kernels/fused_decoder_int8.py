@@ -27,16 +27,19 @@ the two variants differ as the JAX ones do.
 are the plain PyTorch versions, with the integer products done exactly
 (integer-valued float32, every partial sum below 2**24).  The wrappers run
 them for CPU tensors; CUDA tensors launch the kernels or raise, on the
-passes ``int8_route`` names: at H <= 512 over pixel counts that are
-multiples of 256 (every call of ``fused_spatial_generator_int8``, which
-pads), the cluster passes of ``csrc/fused_decoder_int8_sm90.cu`` (W1q
-multicast to clusters of four CTAs, int8 wgmma, the packed a1, K5's dW1 on
-K3's cluster kernel ``svt_loss90_dw``), but for K4 without a1 on float32
-weights, where the block passes measured faster; otherwise, or when the
-caller names them (``passes``), the block passes of
-``csrc/fused_decoder_int8.cu``.  Any hidden width runs: above 512 the block
-kernels keep each block's int8 tiles in a workspace in global memory
-(``csrc/int8_tile.cuh``), which the wrappers allocate within
+passes ``int8_route`` names: over pixel counts that are multiples of 256
+(every call of ``fused_spatial_generator_int8``, which pads), the cluster
+passes (W1q multicast to clusters of four CTAs, int8 wgmma, K5's dW1 on
+K3's cluster kernel ``svt_loss90_dw``): at H <= 512 those of
+``csrc/fused_decoder_int8_sm90.cu``, past 512 those of
+``csrc/fused_decoder_int8_sm90_wide.cu`` (output-column chunks of 512, a0q
+built once a tile and read back from a slot of a global workspace, the
+K-major dh1q copy, R = ``cluster_rows(H)`` rows a workspace block); but K4
+without a1 on float32 weights at H <= 512 takes the block passes (measured
+faster there); otherwise, or when the caller names them (``passes``), the
+block passes of ``csrc/fused_decoder_int8.cu``, which above 512 keep each
+block's int8 tiles in a workspace in global memory
+(``csrc/int8_tile.cuh``).  The wrappers allocate every workspace within
 ``workspace_budget``.
 """
 
@@ -106,30 +109,36 @@ def can_fuse_int8(cfg: SpatialGeneratorConfig, hw: int) -> bool:
 def int8_route(hw: int, h: int, passes: Optional[str] = None,
                k4_alone_f32: bool = False) -> str:
     """The passes a K4 or K5 call runs on the card.  The cluster passes
-    ("sm90") take H <= CLUSTER_WIDTH over pixel counts that are multiples
-    of 256 (so every quantisation group, ``pick_tile(hw)`` pixels, is too,
-    and a cluster's four blocks lie in one); the block passes ("block")
-    every other shape.  Where both fit, the table follows the H100's A/B
-    turns: the cluster passes for K4 with a1 and for K5 (either variant,
-    as one call: the recompute scale pass leaves the a1 stash its gradient
-    pass reads), and for K4 without a1 on bf16 weights; the block passes
-    for K4 without a1 on float32 weights (``k4_alone_f32``), which they ran
-    4-8% faster on the H100 at every batch timed (``PERF.md`` §6; the
-    cluster pass's head takes three TF32 products for f32 weights, one for
-    bf16).  ``passes`` ("sm90" or "block") names the passes instead (the
-    A/B turns and the card tests); the cluster passes refuse a shape they
-    do not fit, and so do their entry points."""
-    fits = h <= CLUSTER_WIDTH and hw % (CLUSTER * BLOCK_PIXELS) == 0
+    ("sm90") take every width over pixel counts that are multiples of 256
+    (so every quantisation group, ``pick_tile(hw)`` pixels, is too, and a
+    cluster's four blocks lie in one): up to CLUSTER_WIDTH in one chunk,
+    past it in output-column chunks of CLUSTER_WIDTH (the wide unit); the
+    block passes ("block") every other shape.  Where both fit, the table
+    follows the H100's A/B turns: the cluster passes for K4 with a1 and for
+    K5 (either variant, as one call: the recompute scale pass leaves the a1
+    stash its gradient pass reads), and for K4 without a1 on bf16 weights;
+    the block passes for K4 without a1 on float32 weights
+    (``k4_alone_f32``) up to CLUSTER_WIDTH, which they ran 4-8% faster on
+    the H100 at every batch timed there (``PERF.md`` §6; the cluster pass's
+    head takes three TF32 products for f32 weights, one for bf16); past
+    512 the wide unit's head is the same FMA sums for both dtypes, and its
+    f32 K4 without a1 ran 0.70-0.85 of the block passes' time at every
+    width from 513 to 4,100 (``chip_smoke.py --sweep k45``: 3.94 against
+    4.89 ms at H = 1,000, B=100), so it takes the cluster passes.
+    ``passes`` ("sm90" or "block") names the passes instead (the A/B turns
+    and the card tests); the cluster passes refuse a shape they do not
+    fit, and so do their entry points."""
+    fits = hw % (CLUSTER * BLOCK_PIXELS) == 0
     if passes not in (None, "sm90", "block"):
         raise ValueError(f"passes must be None, 'sm90' or 'block', got "
                          f"{passes!r}")
     if passes == "sm90" and not fits:
-        raise ValueError(f"the cluster passes take H <= {CLUSTER_WIDTH} and "
-                         f"HW a multiple of {CLUSTER * BLOCK_PIXELS}, got "
-                         f"H={h}, HW={hw}")
+        raise ValueError(f"the cluster passes take HW a multiple of "
+                         f"{CLUSTER * BLOCK_PIXELS}, got H={h}, HW={hw}")
     if passes is not None:
         return passes
-    return "sm90" if fits and not k4_alone_f32 else "block"
+    return ("sm90" if fits and not (k4_alone_f32 and h <= CLUSTER_WIDTH)
+            else "block")
 
 
 def pick_tile(hw: int) -> int:
@@ -292,7 +301,7 @@ class Int8Weights:
     ``kernel_args()`` adds the block passes' W1q^T and W1q zero-padded to
     (Kp, Kp) int8 (the forward reads rows of W1q^T, the backward rows of
     W1q); ``half_slabs90()`` and ``slabs90()`` the cluster passes' W1q
-    streams."""
+    streams at H <= 512, ``slabs90w_t()`` and ``slabs90w()`` past it."""
 
     def __init__(self, w1, b1, wht, bht):
         _check_weights(w1, b1, wht, bht)
@@ -332,6 +341,19 @@ class Int8Weights:
         """W1q's slabs in K3's layout (``fused_loss_int8.sm90_slabs``):
         K5's da0 on the cluster passes."""
         return self._once("full", lambda: _laid_out(self.w1q, "full"))
+
+    def slabs90w_t(self) -> torch.Tensor:
+        """W1q^T's chunked slab stream (``fused_loss_int8.sm90_slabs``): K4
+        and the recompute scale pass past H = 512."""
+        from spatialvae_torch.kernels.fused_loss_int8 import sm90_slabs
+
+        return self._once("wide_t", lambda: sm90_slabs(self.w1q.T))
+
+    def slabs90w(self) -> torch.Tensor:
+        """W1q's chunked slab stream: K5's da0 past H = 512."""
+        from spatialvae_torch.kernels.fused_loss_int8 import sm90_slabs
+
+        return self._once("wide", lambda: sm90_slabs(self.w1q))
 
 
 def _layout90(p: torch.Tensor, kind: str) -> torch.Tensor:
@@ -378,13 +400,26 @@ def half_slabs90(w: torch.Tensor) -> torch.Tensor:
     return _laid_out(w, "half")
 
 
-def workspace90_bytes(hw: int, recompute: bool) -> int:
-    """Bytes of the cluster K5's workspaces per image: the dW1 operands a0q
-    and dh1q (CLUSTER_WIDTH, HW) int8 each in ``svt_loss90_dw``'s layout,
-    and with recompute the scale pass's f32 a1 stash, 64 pixels x
-    CLUSTER_WIDTH per block."""
-    stash = hw * CLUSTER_WIDTH * 4 if recompute else 0
-    return 2 * CLUSTER_WIDTH * hw + stash
+def workspace90_bytes(hw: int, recompute: bool,
+                      h: int = CLUSTER_WIDTH) -> int:
+    """Bytes of the cluster K5's workspaces per image at width ``h``: the
+    dW1 operands a0q and dh1q (R, HW) int8 each in ``svt_loss90_dw``'s
+    layout, R = ``cluster_rows(h)`` (CLUSTER_WIDTH up to 512), and with
+    recompute the scale pass's f32 a1 stash, 64 pixels x R per block."""
+    from spatialvae_torch.kernels.fused_loss_int8 import cluster_rows
+
+    rows = cluster_rows(h)
+    stash = hw * rows * 4 if recompute else 0
+    return 2 * rows * hw + stash
+
+
+def wide_slots(lib, h: int, dev) -> tuple:
+    """(slots, count): the wide cluster passes' workspace of one slot a
+    resident CTA (a0q, or the K-major dh1q copy; at most one CTA an SM),
+    ``svt_int8_90w_slot_bytes(h)`` bytes each."""
+    n = torch.cuda.get_device_properties(dev).multi_processor_count
+    return torch.empty((n * lib.svt_int8_90w_slot_bytes(h),),
+                       dtype=torch.int8, device=dev), n
 
 
 def _check_inputs(fold, coords, w: Int8Weights) -> None:
@@ -433,10 +468,20 @@ def run_int8_tail(fold, coords, w: Int8Weights, emit_a1: bool = False,
     if route == "sm90":
         sw, b1, wht, bht = w.operands()
         with torch.cuda.device(dev):
-            _call(lib, "svt_int8_90_fwd", fold.data_ptr(), coords.data_ptr(),
-                  w.half_slabs90().data_ptr(), sw.data_ptr(), b1.data_ptr(),
-                  wht.data_ptr(), bht.data_ptr(), y.data_ptr(), ptr(a1), b,
-                  hw, h, no, int(w.bf16), _stream(fold))
+            if h > CLUSTER_WIDTH:
+                slots, n = wide_slots(lib, h, dev)
+                _call(lib, "svt_int8_90w_fwd", fold.data_ptr(),
+                      coords.data_ptr(), w.slabs90w_t().data_ptr(),
+                      sw.data_ptr(), b1.data_ptr(), wht.data_ptr(),
+                      bht.data_ptr(), y.data_ptr(), ptr(a1),
+                      slots.data_ptr(), n, b, hw, h, no, int(w.bf16),
+                      _stream(fold))
+            else:
+                _call(lib, "svt_int8_90_fwd", fold.data_ptr(),
+                      coords.data_ptr(), w.half_slabs90().data_ptr(),
+                      sw.data_ptr(), b1.data_ptr(), wht.data_ptr(),
+                      bht.data_ptr(), y.data_ptr(), ptr(a1), b, hw, h, no,
+                      int(w.bf16), _stream(fold))
             LAUNCHES["fwd_acts_sm90" if emit_a1 else "fwd_sm90"] += 1
         return (y, a1) if emit_a1 else y
     w1qt, _, sw, b1, wht, bht = w.kernel_args()
@@ -504,7 +549,7 @@ def run_grouped_dw(lib, aq_ws, q_ws, gscale, part_dw, nimg, hwp, h, pt_grp,
 def run_int8_tail_backward(fold, coords, w: Int8Weights,
                            a1: Optional[torch.Tensor], y, g,
                            workspace_bytes: Optional[int] = None,
-                           passes: Optional[str] = None):
+                           passes: Optional[str] = None, ints: bool = False):
     """K5, with the outputs of ``decoder_tail_int8_backward_reference``:
     that function for CPU tensors, the kernels for CUDA tensors, on the
     passes ``int8_route`` names (or ``passes``).  ``a1`` is the forward's bf16 residual or
@@ -519,8 +564,13 @@ def run_int8_tail_backward(fold, coords, w: Int8Weights,
     workspaces in chunks that fit ``workspace_bytes`` (default
     ``workspace_budget``).  On the cluster passes (``_backward90``) the
     recompute scale pass leaves a1 in a stash for the gradient pass, chunk
-    by chunk."""
+    by chunk.  ``ints`` (the cluster passes, one workspace chunk; the card
+    tests) also returns the call's own dW1 operands and scales: (outputs,
+    (a0q, dh1q (B, HW, H) int8, the groups' dW1 scales (B * HW/Pt,)))."""
     _check_inputs(fold, coords, w)
+    if ints and (fold.device.type == "cpu" or int8_route(
+            coords.shape[0], fold.shape[2], passes) != "sm90"):
+        raise ValueError("ints reads the cluster passes' workspaces")
     if fold.device.type == "cpu":
         return decoder_tail_int8_backward_reference(
             fold, coords, w.w1q, w.sw, w.b1, w.wht, a1, y, g)
@@ -543,7 +593,7 @@ def run_int8_tail_backward(fold, coords, w: Int8Weights,
     budget = workspace_budget(dev) if workspace_bytes is None \
         else workspace_bytes
     if int8_route(hw, h, passes) == "sm90":
-        return _backward90(lib, fold, coords, w, a1, y, g, budget)
+        return _backward90(lib, fold, coords, w, a1, y, g, budget, ints)
     w1qt, w1q, sw, b1, wht, bht = w.kernel_args()
     f32 = dict(dtype=torch.float32, device=dev)
     mw = h + no * h + no                          # [db1 | dWh^T | dbh]
@@ -614,22 +664,27 @@ def _sum_partials(lib, st, part_fold, part_dw, splits, part_w, b, blocks, h,
             sums[h + no * h:])
 
 
-def workspace90_chunks(b: int, hw: int, recompute: bool,
-                       budget: int) -> list:
-    """[(first image, images)] of the cluster K5's chunks: each chunk's
-    workspaces (``workspace90_bytes`` per image) within ``budget``."""
-    return image_chunks(b, workspace90_bytes(hw, recompute), budget)
+def workspace90_chunks(b: int, hw: int, recompute: bool, budget: int,
+                       h: int = CLUSTER_WIDTH) -> list:
+    """[(first image, images)] of the cluster K5's chunks at width ``h``:
+    each chunk's workspaces (``workspace90_bytes`` per image) within
+    ``budget``."""
+    return image_chunks(b, workspace90_bytes(hw, recompute, h), budget)
 
 
 def _backward90(lib, fold, coords, w: Int8Weights, a1, y, g,
-                budget: int) -> tuple:
-    """K5 on the cluster passes (``csrc/fused_decoder_int8_sm90.cu``): the
-    scale pass (from the residual, one launch over every image; with
-    recompute, per chunk, on the forward's cluster machinery, leaving a1 in
-    the chunk's stash), the gradient pass per chunk, and per chunk dW1 on
-    K3's cluster kernel (``svt_loss90_dw``, groups of ``pick_tile(HW)``
-    pixels), then the fixed-order sums."""
-    from spatialvae_torch.kernels.fused_loss_int8 import dw_splits90
+                budget: int, ints: bool = False) -> tuple:
+    """K5 on the cluster passes (``csrc/fused_decoder_int8_sm90.cu``, past
+    H = 512 ``csrc/fused_decoder_int8_sm90_wide.cu``): the scale pass (from
+    the residual, one launch over every image; with recompute, per chunk,
+    on the forward's cluster machinery, leaving a1 in the chunk's stash),
+    the gradient pass per chunk, and per chunk dW1 on K3's cluster kernel
+    (``svt_loss90_dw``, groups of ``pick_tile(HW)`` pixels), then the
+    fixed-order sums.  Every workspace and stash block has
+    ``cluster_rows(h)`` rows."""
+    from spatialvae_torch.kernels.fused_loss_int8 import (cluster_rows,
+                                                          dw_splits90,
+                                                          sm90_ws_tiles)
 
     dev = fold.device
     b, _, h = fold.shape
@@ -637,23 +692,32 @@ def _backward90(lib, fold, coords, w: Int8Weights, a1, y, g,
     pt = pick_tile(hw)
     gpi = hw // pt
     blocks = hw // BLOCK_PIXELS
+    wide = h > CLUSTER_WIDTH
+    rows = cluster_rows(h)
     sw, b1, wht, _ = w.operands()
-    hslabs = w.half_slabs90() if a1 is None else None
-    slabs = w.slabs90()
+    recompute = a1 is None
+    if wide:
+        hslabs = w.slabs90w_t() if recompute else None
+        slabs = w.slabs90w()
+        slots, nslots = wide_slots(lib, h, dev)
+        tail = (slots.data_ptr(), nslots)
+    else:
+        hslabs = w.half_slabs90() if recompute else None
+        slabs = w.slabs90()
+        tail = ()
     f32 = dict(dtype=torch.float32, device=dev)
     mw = h + no * h + no
     part_max = torch.empty((b * blocks,), **f32)
     gscale = torch.empty((b * gpi,), **f32)
     part_fold = torch.empty((b * blocks, 3, h), **f32)
     part_w = torch.empty((b * blocks, mw), **f32)
-    recompute = a1 is None
-    chunks = workspace90_chunks(b, hw, recompute, budget)
+    chunks = workspace90_chunks(b, hw, recompute, budget, h)
     bc = chunks[0][1]
-    aq_ws = torch.empty((bc * hw * CLUSTER_WIDTH,), dtype=torch.int8,
-                        device=dev)
+    aq_ws = torch.empty((bc * hw * rows,), dtype=torch.int8, device=dev)
     q_ws = torch.empty_like(aq_ws)
-    stash = (torch.empty((bc * hw * CLUSTER_WIDTH,), **f32) if recompute
+    stash = (torch.empty((bc * hw * rows,), **f32) if recompute
              else None)
+    fn = "svt_int8_90w_" if wide else "svt_int8_90_"
     part_dw = torch.empty((sum(dw_splits90(n * gpi) for _, n in chunks), h,
                            h), **f32)
     bf16 = int(w.bf16)
@@ -661,11 +725,11 @@ def _backward90(lib, fold, coords, w: Int8Weights, a1, y, g,
         st = _stream(fold)
 
         def scale(b0, n):
-            _call(lib, "svt_int8_90_scale", fold.data_ptr(),
+            _call(lib, fn + "scale", fold.data_ptr(),
                   coords.data_ptr(), ptr(hslabs), sw.data_ptr(),
                   b1.data_ptr(), wht.data_ptr(), ptr(a1), y.data_ptr(),
-                  g.data_ptr(), part_max.data_ptr(), ptr(stash), b0, n, hw,
-                  h, no, bf16, st)
+                  g.data_ptr(), part_max.data_ptr(), ptr(stash), *tail, b0,
+                  n, hw, h, no, bf16, st)
             LAUNCHES["bwd_scale_sm90"] += 1
 
         if not recompute:
@@ -674,12 +738,12 @@ def _backward90(lib, fold, coords, w: Int8Weights, a1, y, g,
         for b0, n in chunks:
             if recompute:
                 scale(b0, n)
-            _call(lib, "svt_int8_90_grad", fold.data_ptr(),
+            _call(lib, fn + "grad", fold.data_ptr(),
                   coords.data_ptr(), slabs.data_ptr(), sw.data_ptr(),
                   wht.data_ptr(), ptr(a1), ptr(stash), y.data_ptr(),
                   g.data_ptr(), part_max.data_ptr(), gscale.data_ptr(),
                   aq_ws.data_ptr(), q_ws.data_ptr(), part_fold.data_ptr(),
-                  part_w.data_ptr(), b0, n, hw, h, no, pt, bf16, st)
+                  part_w.data_ptr(), *tail, b0, n, hw, h, no, pt, bf16, st)
             LAUNCHES["bwd_grad_sm90"] += 1
             splits = dw_splits90(n * gpi)
             _call(lib, "svt_loss90_dw", aq_ws.data_ptr(), q_ws.data_ptr(),
@@ -687,17 +751,27 @@ def _backward90(lib, fold, coords, w: Int8Weights, a1, y, g,
                   n, hw, h, pt, splits, st)
             LAUNCHES["dw_sm90"] += 1
             split0 += splits
-        return _sum_partials(lib, st, part_fold, part_dw, split0, part_w, b,
-                             blocks, h, no)
+        out = _sum_partials(lib, st, part_fold, part_dw, split0, part_w, b,
+                            blocks, h, no)
+    if not ints:
+        return out
+    if len(chunks) > 1:
+        raise ValueError("ints takes one workspace chunk")
+    tiles = [sm90_ws_tiles(t[:b * hw * rows], b, hw)[..., :h]
+             for t in (aq_ws, q_ws)]
+    return out, (*tiles, gscale)
 
 
-def sm90_max_clusters() -> dict:
+def sm90_max_clusters(wide: bool = False) -> dict:
     """The clusters of CLUSTER CTAs the card holds at once for each of the
-    cluster passes' kernels (cudaOccupancyMaxActiveClusters)."""
+    cluster passes' kernels (cudaOccupancyMaxActiveClusters); ``wide``:
+    the wide unit's."""
     lib = _lib()
+    fn = lib.svt_int8_90w_max_clusters if wide else \
+        lib.svt_int8_90_max_clusters
     names = ("fwd_bf16", "fwd_f32", "fwd_a1", "scale_recompute",
              "grad_residual", "grad_recompute")
-    return {k: lib.svt_int8_90_max_clusters(i) for i, k in enumerate(names)}
+    return {k: fn(i) for i, k in enumerate(names)}
 
 
 # ---------------------------------------------------------------------------

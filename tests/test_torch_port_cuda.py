@@ -1417,6 +1417,7 @@ def test_loss_kernel_numerics_match_plain_version(case, cuda_device):
     for u, v, x in zip(got, again, want):
         assert torch.equal(u, v)
         _assert_rel(u, x, INT8_TOL)
+    _assert_rel(got[0][:, :3], want[0][:, :3], DH0_TOL)
     assert torch.equal(aq, aq_p)
     assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
 
@@ -1472,6 +1473,8 @@ def test_k3_cluster_passes_match_plain_and_block(case, cuda_device):
         _assert_rel(c, u, (1e-6, 1e-7))
         _assert_rel(u, x, INT8_TOL)
         _assert_rel(u, o, INT8_TOL)
+    _assert_rel(got[0][:, :3], want[0][:, :3], DH0_TOL)
+    _assert_rel(got[0][:, :3], old[0][:, :3], DH0_TOL)
     assert torch.equal(aq, aq_p) and torch.equal(aq, aq7)
     assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
     assert (qi != qi7).float().mean().item() <= INT_MISMATCH
@@ -1529,6 +1532,8 @@ def test_k3_colored_cluster_passes_match_plain_and_block(case, cuda_device):
         _assert_rel(u, x, INT8_TOL)
         _assert_rel(u, o, INT8_TOL)
     _assert_rel(got[0][:, 3, 0], want[0][:, 3, 0], INT8_TOL)
+    _assert_rel(got[0][:, :3], want[0][:, :3], DH0_TOL)
+    _assert_rel(got[0][:, :3], old[0][:, :3], DH0_TOL)
     assert torch.equal(aq, aq_p) and torch.equal(aq, aq7)
     assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
     assert (qi != qi7).float().mean().item() <= INT_MISMATCH
@@ -1610,6 +1615,8 @@ def test_k3_sr_cluster_passes_match_plain_and_block(case, cuda_device):
         _assert_rel(c, u, (1e-6, 1e-7))
         _assert_rel(u, x, INT8_TOL)
         _assert_rel(u, o, INT8_TOL)
+    _assert_rel(got[0][:, :3], want[0][:, :3], DH0_TOL)
+    _assert_rel(got[0][:, :3], old[0][:, :3], DH0_TOL)
     assert torch.equal(aq, aq_p) and torch.equal(aq, aq7)
     assert (qi != qi_p).float().mean().item() <= INT_MISMATCH
     assert (qi != qi7).float().mean().item() <= INT_MISMATCH
@@ -1654,19 +1661,27 @@ def test_k3_sr_wide_chunks_match_plain(family, cuda_device):
         _assert_rel(c, x, INT8_TOL)
 
 
-# K3's cluster passes past H = 512 (csrc/fused_loss_int8_sm90_wide.cu, the
-# default numerics): (H, family, image side, B, weight dtype, mask) at the
-# widths of WIDTHS past 512 (513 and 4,100 end on a ragged chunk), in every
-# family (the padded one at 28x28, a forced mask), and the galaxy shape at
-# H = 1,000
-# dh0 (dfold's three gradient rows, on their own scale) against the plain
-# version: sound at most 1.12e-4 / 1.78e-5 here, the copy that reads aq
-# for dh0 one workspace block off at least 1.86e-2 / 6.89e-4 (PERF.md)
+# K3's dh0 (dfold's three gradient rows on their own scale: beside the loss
+# at dfold[:, 3, 0] their errors are too small to see) on every route, and
+# K8's: chip_smoke.DH0_TOL, placed between the sound passes and each route's
+# copy that moves dh0 alone (PERF.md's limits; past 512 sound at most
+# 1.12e-4 / 1.78e-5 here, the copy that reads aq for dh0 one workspace
+# block off at least 1.86e-2 / 6.89e-4)
 DH0_TOL = (1e-3, 1e-4)
 # where both designs quantise qi alike (every case but the 64x64 ones),
 # they differ only in the order of their f32 sums: every output and dh0
 # within 5.6e-7 of max|block| (max) and 3.8e-7 (mean) here
 K3W_BLOCK_TOL = (1e-6, 5e-7)
+# K5's wide cluster passes against the block passes past H = 512: they
+# differ only in the order of their f32 sums (chip_smoke.K45W_BLOCK_TOL,
+# relative to max|block|, placed between the sound passes and the wide
+# copies that move K5: PERF.md's limits)
+K45W_BLOCK_TOL = (1e-5, 2e-6)
+# K3's cluster passes past H = 512 (csrc/fused_loss_int8_sm90_wide.cu, the
+# default numerics): (H, family, image side, B, weight dtype, mask) at the
+# widths of WIDTHS past 512 (513 and 4,100 end on a ragged chunk), in every
+# family (the padded one at 28x28, a forced mask), and the galaxy shape at
+# H = 1,000
 K3W_CASES = [(h, fam, side, 2 if h > 2048 else 4, wdt, masked)
              for h in WIDTHS if h > 512
              for fam, side, wdt, masked in (
@@ -1854,6 +1869,113 @@ def test_int8_cluster_passes_match_plain_and_block(case, cuda_device):
         "dw_sm90": 2 * (2 + b), "sum": 4 * 8}
 
 
+# K4 and K5's cluster passes past H = 512
+# (csrc/fused_decoder_int8_sm90_wide.cu): (H, B, HW, No, weight dtype):
+# every width of WIDTHS past 512 at 64x64 (groups of 2,048), bf16 and f32
+# weights, three images (two past 2,048); 65x65 padded (groups of 256)
+# with eight outputs; the CTF step's 40x40 padded to 1,792 with two
+# outputs, bf16 and f32 weights (the step's own)
+INT8_90W_CASES = [(h, 2 if h > 2048 else 3, 4096, 3, wdt)
+                  for h in WIDTHS if h > 512
+                  for wdt in (torch.bfloat16, torch.float32)] + [
+    (1000, 3, 4352, 8, torch.float32), (1000, 4, 1792, 2, torch.bfloat16),
+    (1000, 4, 1792, 2, torch.float32)]
+
+
+@pytest.mark.parametrize("case", INT8_90W_CASES, ids=lambda c: "-".join(
+    map(str, c[:4])) + f"-{str(c[4])[6:]}")
+def test_int8_wide_cluster_passes_match_plain_and_block(case, cuda_device):
+    """K4 (y, and a1) and K5 with the residual and with recompute on the
+    wide cluster passes against the plain versions within the int8 limits,
+    and against the block passes (y and a1 within the same limits, K5
+    within K45W_BLOCK_TOL); two runs bit for bit, the chunked backward (one
+    image per chunk) within 1e-6; dW1 equal (within 1e-6) to the exact
+    grouped product of the call's own quantised tiles and scales (``ints``);
+    each design counted under its own keys."""
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    h, b, hw, no, wdt = case
+    assert d8.int8_route(hw, h) == "sm90"
+    assert d8.int8_route(hw, h, k4_alone_f32=wdt == torch.float32) == "sm90"
+    fold, coords, ws = _int8_inputs(b, hw, h, no, wdt, cuda_device)
+    coords = torch.nn.functional.pad(
+        coords, (0, 0, 0, hw - coords.shape[0])).contiguous()
+    g = torch.randn((b, no, hw), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(h))
+    w = d8.Int8Weights(*ws)
+    ref = (w.w1q, w.sw, w.b1, w.wht)
+    pt = d8.pick_tile(hw)
+    d8.reset_launches()
+    with torch.no_grad():
+        y, a1 = d8.run_int8_tail(fold, coords, w, emit_a1=True)
+        y0 = d8.run_int8_tail(fold, coords, w, passes="sm90")
+        y_ref, a1_ref = d8.decoder_tail_int8_reference(
+            fold, coords, *ref, w.bht, return_a1=True)
+        yb, a1b = d8.run_int8_tail(fold, coords, w, emit_a1=True,
+                                   passes="block")
+        for got, want, tol in ((y, y_ref, INT8_Y_TOL), (y0, y_ref, INT8_Y_TOL),
+                               (a1, a1_ref, INT8_A1_TOL), (y, yb, INT8_Y_TOL),
+                               (a1, a1b, INT8_A1_TOL)):
+            d = (got.float() - want.float()).abs()
+            assert d.max().item() <= tol[0] and d.mean().item() <= tol[1]
+        assert torch.equal(y, y0)
+        del y_ref, a1_ref, yb, a1b
+        for a in (a1, None):
+            got, (aq, qq, gscale) = d8.run_int8_tail_backward(
+                fold, coords, w, a, y, g, ints=True)
+            again = d8.run_int8_tail_backward(fold, coords, w, a, y, g)
+            chunked = d8.run_int8_tail_backward(fold, coords, w, a, y, g,
+                                                workspace_bytes=1)
+            old = d8.run_int8_tail_backward(fold, coords, w, a, y, g,
+                                            passes="block")
+            want = d8.decoder_tail_int8_backward_reference(
+                fold, coords, *ref, a, y, g)
+            for u, v, c, o, x in zip(got, again, chunked, old, want):
+                assert torch.isfinite(u).all()
+                assert torch.equal(u, v)
+                _assert_rel(c, u, (1e-6, 1e-7))
+                _assert_rel(u, x, INT8_TOL)
+                _assert_rel(u, o, K45W_BLOCK_TOL)
+            assert not got[0][:, 3].any()
+            own = d8.grouped_int_product(aq.float(), qq.float(),
+                                         gscale.reshape(b, hw // pt), pt)
+            _assert_rel(got[1], own, (1e-6, 1e-7))
+            del got, again, chunked, old, want, aq, qq, own
+    assert d8.LAUNCHES == {
+        **dict.fromkeys(d8.LAUNCHES, 0), "fwd_sm90": 1, "fwd_acts_sm90": 1,
+        "fwd_acts": 1, "bwd_scale": 2, "bwd_grad": 2, "dw": 2,
+        "bwd_scale_sm90": 3 + (2 + b), "bwd_grad_sm90": 2 * (2 + b),
+        "dw_sm90": 2 * (2 + b), "sum": 4 * 8}
+
+
+def test_int8_wide_entry_points_refuse_other_calls(cuda_device):
+    """The wide passes' entry points refuse H <= 512, a pixel count that is
+    not a multiple of 256 and a workspace of fewer slots than one cluster;
+    a failed launch raises, with no fallback."""
+    from spatialvae_torch.kernels import fused_decoder as fd
+    from spatialvae_torch.kernels import fused_decoder_int8 as d8
+
+    lib = fd._lib()
+    assert min(d8.sm90_max_clusters(wide=True).values()) >= 1
+    for h, hw, nslots in ((512, 4096, 132), (1000, 4160, 132),
+                          (1000, 4096, 3)):
+        fold, coords, ws = _int8_inputs(2, hw, h, 3, torch.bfloat16,
+                                        cuda_device)
+        w = d8.Int8Weights(*ws)
+        sw, b1, wht, bht = w.operands()
+        y = torch.empty((2, 3, hw), device=cuda_device)
+        slots = torch.empty((132 * 64 * 1024,), dtype=torch.int8,
+                            device=cuda_device)
+        err = lib.svt_int8_90w_fwd(
+            fold.data_ptr(), coords.data_ptr(), w.slabs90w_t().data_ptr(),
+            sw.data_ptr(), b1.data_ptr(), wht.data_ptr(), bht.data_ptr(),
+            y.data_ptr(), None, slots.data_ptr(), nslots, 2, hw, h, 3, 1,
+            None)
+        assert err != 0
+    with pytest.raises(ValueError):
+        d8.int8_route(4160, 1000, "sm90")
+
+
 def test_int8_cluster_kernels_are_resident(cuda_device):
     """The card holds resident clusters of every cluster kernel of K4 and
     K5, and the entry points refuse a call the route table would not send
@@ -1987,6 +2109,8 @@ def test_k8_matches_plain_version(mode, side, cuda_device):
     for u, v, x in zip(got, again, want):
         assert torch.equal(u, v)
         _assert_rel(u, x, INT8_TOL)
+    # dfoldT's three gradient columns on their own scale
+    _assert_rel(got[0][..., :3], want[0][..., :3], DH0_TOL)
     assert lt.LAUNCHES["fwd"] == lt.LAUNCHES["grad"] == 2
     assert not any(l8.LAUNCHES.values())
 

@@ -1,8 +1,9 @@
 """K4 and K5's cluster passes (``csrc/fused_decoder_int8_sm90.cu``) on the
 CPU: what surrounds the kernels, which only the card runs.
 
-- the route table sends each width, pixel count, call and caller to the
-  passes ``int8_route`` names (the wrappers pass nothing else to the C
+- the route table sends each width (past 512 to the wide unit,
+  ``tests/test_torch_port_int8_wide90.py``), pixel count, call and caller
+  to the passes ``int8_route`` names (the wrappers pass nothing else to the C
   entry points, which refuse a call the table does not send them), and the
   no-grad decode quantises the generator's weights as they are at the call,
   however they were written;
@@ -18,7 +19,8 @@ CPU: what surrounds the kernels, which only the card runs.
 - dW1 from the gradient pass's workspaces (K3's cluster layout) at Pt =
   2,048, through ``grouped_dw90``'s plain version split by split, is the
   plain version's product, and within K5's limits of the JAX
-  ``_bwd_kernel`` in interpret mode when it replaces the plain version's;
+  ``_bwd_kernel`` in interpret mode when it replaces the plain version's,
+  at H = 64 and past 512 (the wide passes' R-row workspaces);
 - the workspace chunks of the microbenchmark's B=2,048 (the dW1 operands,
   with recompute the f32 a1 stash) fit the budget of an 80 GB card.
 
@@ -86,14 +88,14 @@ def _padded(side):
 ROUTES = [(500, 4096, None, False, "sm90"), (512, 4096, None, False, "sm90"),
           (96, 1024, None, False, "sm90"), (500, 4352, None, False, "sm90"),
           (40, 256, None, False, "sm90"), (130, 1280, None, False, "sm90"),
-          (513, 4096, None, False, "block"),
-          (1000, 4096, None, False, "block"),
+          (513, 4096, None, False, "sm90"),
+          (1000, 4096, None, False, "sm90"),
           (500, 784, None, False, "block"), (500, 4160, None, False, "block"),
           (500, 4096, "block", False, "block"),
           (96, 1024, "block", False, "block"),
           (500, 4096, None, True, "block"), (96, 1024, None, True, "block"),
           (500, 4096, "sm90", True, "sm90"),
-          (1000, 4096, None, True, "block"),
+          (1000, 4096, None, True, "sm90"),
           (500, 4096, "block", True, "block")]
 
 
@@ -109,7 +111,7 @@ def test_route_table(case):
         assert pt % quad == 0 and hw % pt == 0
 
 
-@pytest.mark.parametrize("h,hw,passes", [(513, 4096, "sm90"),
+@pytest.mark.parametrize("h,hw,passes", [(1000, 4160, "sm90"),
                                          (500, 4160, "sm90"),
                                          (500, 4096, "tile")])
 def test_route_refuses_what_the_passes_do_not_take(h, hw, passes):
@@ -295,7 +297,22 @@ def test_cluster_dw1_matches_jax(wdt, saved, monkeypatch):
     call) against the JAX ``_bwd_kernel`` in interpret mode, at 64x64
     (groups of 2,048 pixels), within K5's limits
     (``tests/test_torch_port_int8.py``)."""
-    b, h, no, hw = 2, 64, 3, 4096
+    _dw1_through_workspaces(wdt, saved, 64, 4096, monkeypatch)
+
+
+@pytest.mark.parametrize("saved", [True, False], ids=["residual", "recompute"])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cluster_dw1_matches_jax_past_512(wdt, saved, monkeypatch):
+    """As ``test_cluster_dw1_matches_jax`` at H = 520 over 32x32 (one group
+    of 1,024 pixels an image): the wide passes' workspaces of
+    ``cluster_rows(520)`` = 1,024 rows a block, the second chunk ragged."""
+    _dw1_through_workspaces(wdt, saved, 520, 1024, monkeypatch)
+
+
+def _dw1_through_workspaces(wdt, saved, h, hw, monkeypatch):
+    b, no = 2, 3
+    side = int(hw ** 0.5)
     rng = np.random.default_rng(7)
     fold = np.zeros((b, 4, h), np.float32)
     fold[:, :2] = rng.uniform(-0.7, 0.7, (b, 2, h))
@@ -304,12 +321,13 @@ def test_cluster_dw1_matches_jax(wdt, saved, monkeypatch):
     ws = [torch.from_numpy(rng.uniform(-bd, bd, s).astype(np.float32)).to(
         wdt).float().numpy() for s in ((h, h), (h,), (no, h), (no,))]
     g = rng.normal(size=(b, no, hw)).astype(np.float32)
-    coords = coord_grid(64, 64).numpy()
+    coords = coord_grid(side, side).numpy()
     assert d8.int8_route(hw, h) == "sm90"
+    rows = l8.cluster_rows(h)
 
     def cluster_product(a, q, scale, pt_):
         n = a.shape[0]
-        pad = d8.CLUSTER_WIDTH - a.shape[-1]
+        pad = rows - a.shape[-1]
         a8, q8 = (torch.nn.functional.pad(t, (0, pad)).to(torch.int8)
                   for t in (a, q))
         splits = l8.dw_splits90(n * (hw // pt_))
